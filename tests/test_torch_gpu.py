@@ -1,0 +1,81 @@
+"""The CUDA kernels of ``tim_tpu_torch`` against their plain PyTorch
+versions, on the card. Imports no JAX, so it runs where only the port is
+installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(``--noconftest``: the repo's conftest configures JAX.) Without a CUDA
+card every test skips."""
+
+import pytest
+import torch
+
+from chip_smoke import kernel_close, tail_args
+from tim_tpu_torch.ops.fused_post_attention import (
+    fused_post_attention, fused_post_attention_plain)
+from tim_tpu_torch.ops.query_block_attention import (
+    query_block_attention, query_block_attention_plain)
+
+# fp32: the same function with sums in another order; bf16: the bound
+# tests/test_pallas_fused.py holds the TPU kernel to (see kernel_close)
+TOL = {("qba", torch.float32): 1e-4, ("fused", torch.float32): 2e-4,
+       ("qba", torch.bfloat16): 5e-2, ("fused", torch.bfloat16): 5e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,s,f,dh,shared", [
+    (2, 8, 898, 100, 128, False),   # the detection layer's shapes
+    (3, 8, 898, 100, 128, True),    # layer 0: batch-broadcast query rows
+    (2, 2, 48, 11, 32, False),      # ragged tile, odd F, narrow heads
+])
+def test_query_block_kernel_matches_plain(gen, dtype, b, h, s, f, dh,
+                                          shared):
+    width = h * dh
+    qkv = torch.randn(b, s, 3 * width, generator=gen, device="cuda")
+    if shared:
+        qkv[:, f:] = qkv[:1, f:]
+    q, k, v = qkv.to(dtype).view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+    args = (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
+    if shared:   # the query block as a stride-0 batch broadcast
+        args = (args[0][:1].expand(b, -1, -1, -1), args[1],
+                args[2][:1].expand(b, -1, -1, -1), args[3],
+                args[4][:1].expand(b, -1, -1, -1))
+    before = query_block_attention.launches
+    got = query_block_attention(*args)
+    assert query_block_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, s - f, dh)
+    assert kernel_close(got, query_block_attention_plain(*args),
+                        TOL[("qba", dtype)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,c,ff", [
+    (2, 898, 1024, 2048),   # the detection layer's shapes, ragged block
+    (1, 37, 128, 256),      # a single partial row block
+])
+def test_fused_kernel_matches_plain(gen, dtype, b, s, c, ff):
+    args = tail_args(b, dtype, gen, seq=s, c=c, ff=ff)
+    before = fused_post_attention.launches
+    got = fused_post_attention(*args)
+    assert fused_post_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert kernel_close(got, fused_post_attention_plain(*args),
+                        TOL[("fused", dtype)])
+
+
+@pytest.mark.gpu
+def test_fused_kernel_rejects_untiled_widths(gen):
+    args = tail_args(1, torch.float32, gen, seq=8, c=64, ff=128)
+    with pytest.raises(ValueError, match="multiples"):
+        fused_post_attention(*args)

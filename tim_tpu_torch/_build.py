@@ -1,0 +1,97 @@
+"""Build the CUDA kernels in ``csrc/`` into one shared library, at first use.
+
+Every ``csrc/*.cu`` exposes a plain C interface, so ``nvcc`` compiles the
+lot in seconds (no PyTorch headers) and ``ctypes`` loads the result. The
+library lands in ``tim_tpu_torch/build/`` under a name keyed by a hash of
+the sources and flags; a build that fails, or a host without ``nvcc``,
+raises ``RuntimeError``. There is no fallback: the plain PyTorch versions
+run only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> Optional[str]:
+    """``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on ``PATH``, then the
+    toolkit's default install, or None."""
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    return default if os.path.isfile(default) else None
+
+
+def _source_hash(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if no library for these sources exists yet;
+    returns the library's path."""
+    srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    out = os.path.join(_BUILD_DIR, f"libtim_kernels_{_source_hash(srcs)}.so")
+    if os.path.exists(out):
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+            "/usr/local/cuda/bin): the CUDA kernels cannot be built")
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    # unique temp name + atomic rename: concurrent builders never load a
+    # half-written library
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {srcs}:\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(build())
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a launcher returned a CUDA error code (``cudaGetLastError``
+    right after the launch: a refused launch never runs, and a later
+    synchronise would not report it)."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {status}")

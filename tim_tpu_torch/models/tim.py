@@ -1,0 +1,92 @@
+"""TIM detection model: counterpart of ``tim_tpu/models/tim.py::TimDetection``.
+
+Parameter names follow the reference torch ``state_dict``
+(``tim_tpu/convert/torch_import.py:168-191`` reads the same layout), so
+released detection checkpoints load with ``load_state_dict(strict=True)``:
+``time_mlp.{0,2,4,6}``, ``feature_encoding.*``, ``backbone.layers.N.*``,
+``cls_head.fc_*``, ``reg_head.fc_*_action.{0,2,4}``, ``drloc_mlp.{0,2,4}``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from tim_tpu.config import DetectionConfig
+from tim_tpu_torch.models.common import MLP, LayerNorm, dtype_of
+from tim_tpu_torch.models.encodings import FeatureEncoding
+from tim_tpu_torch.models.heads import DetectionClsHead, DetectionRegHead
+from tim_tpu_torch.models.transformer import Encoder
+
+# Config options whose code paths are not ported yet, with the value the
+# port supports.
+_UNPORTED = {"quantized_inference": False, "fast_scores": False,
+             "apply_feature_pooling": False, "sequence_parallel": False}
+
+
+class TimDetection(nn.Module):
+    """Detection variant, inference only: shared query tokens, cls +
+    interval-regression heads.
+
+    ``generator`` seeds the random init (a fresh generator seeded 0 when
+    None); parameters are built on the CPU and then moved to ``device``."""
+
+    def __init__(self, cfg: DetectionConfig, *,
+                 device: Optional[torch.device | str] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name, value in _UNPORTED.items():
+            if getattr(cfg, name) != value:
+                raise ValueError(f"TimDetection: {name}={getattr(cfg, name)!r}"
+                                 f" is not ported (supported: {value!r})")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.dtype = dt = dtype_of(cfg)
+        d = cfg.d_model
+        width = cfg.encoder_width
+        g = generator
+
+        # Linear(2->d) -> ReLU x3 -> LayerNorm (time_mlp.6)
+        self.time_mlp = nn.Sequential(
+            *MLP((2, d, d, d), dtype=dt, generator=g, final=nn.ReLU()),
+            LayerNorm(d))
+        self.feature_encoding = FeatureEncoding(
+            d, cfg.input_modality, cfg.data_modality, cfg.num_feats,
+            cfg.visual_input_dim, cfg.audio_input_dim, dtype=dt, generator=g)
+        self.backbone = Encoder(
+            width, cfg.nhead, d * cfg.feedforward_scale, cfg.num_layers,
+            dtype=dt, fused=cfg.use_fused_ffn, generator=g)
+        # drloc is a training loss; its parameters are here so that
+        # checkpoints load strictly.
+        self.drloc_mlp = MLP((2 * width, d, d, 1), dtype=dt, generator=g)
+        vis = (cfg.visual_classes if "visual" in cfg.data_modality
+               else None)
+        aud = cfg.audio_classes if "audio" in cfg.data_modality else None
+        self.cls_head = DetectionClsHead(width, vis, aud, dtype=dt,
+                                         generator=g)
+        self.reg_head = DetectionRegHead(width, vis is not None,
+                                         aud is not None, dtype=dt,
+                                         generator=g)
+        if device is not None:
+            self.to(device)
+
+    def encode_times(self, times):
+        """[..., 2] interval (start, end) -> [..., d_model] encoding."""
+        return self.time_mlp(times.to(self.dtype)).to(self.dtype)
+
+    def encoder_forward(self, v_feats, a_feats, time_encodings,
+                        num_v_queries: int, num_a_queries: int, *,
+                        shared_queries: bool = False):
+        """Returns (cls logits 4-tuple (verb, noun, action, audio), (v_reg,
+        a_reg) each [B, Nq, 2], context tokens). ``shared_queries``: set
+        only when the query tokens are identical across the batch (dense
+        inference grids)."""
+        x = self.feature_encoding(v_feats, a_feats, time_encodings,
+                                  num_v_queries, num_a_queries)
+        x = self.backbone(x, self.cfg.num_context, shared_queries)
+        cls_scores = self.cls_head(x, num_v_queries, num_a_queries)
+        reg_scores = self.reg_head(x, num_v_queries, num_a_queries)
+        return cls_scores, reg_scores, x[:, :self.cfg.num_context]

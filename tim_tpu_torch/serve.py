@@ -1,0 +1,167 @@
+"""Serving API: untrimmed-video action detection in one call; counterpart
+of ``tim_tpu/serve.py::DetectionServer`` (feature-domain serving).
+
+Given per-timestep feature banks for one video, slide fixed windows, score
+the dense query pyramid on the device in fixed-size batches, then threshold
+and run per-video Soft-NMS on the host (the shared ``tim_tpu.evals`` code
+and its native kernel):
+
+    server = DetectionServer(cfg, state_dict, device="cuda")
+    detections = server.detect_video(v_feats, a_feats, feat_times, duration)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from tim_tpu.config import DetectionConfig
+from tim_tpu.data.windows import window_feat_indices
+from tim_tpu.evals.format_predictions import (
+    nms_per_video, threshold_predictions, threshold_predictions_topk)
+from tim_tpu_torch.models.queries import generate_query_pyramid
+from tim_tpu_torch.models.tim import TimDetection
+from tim_tpu_torch.train.detection import make_inference_step
+
+
+class DetectionServer:
+    def __init__(
+        self,
+        cfg: DetectionConfig,
+        state_dict: Mapping[str, torch.Tensor],
+        *,
+        device: torch.device | str,
+        feat_stride: int = 3,
+        feat_gap: float = 0.2,
+        window_stride: float = 1.0,
+        batch_size: int = 128,
+        top_k: Optional[int] = None,
+    ):
+        """``state_dict``: reference-layout detection weights (a released
+        checkpoint, or ``convert.detection_state_dict_from_jax``).
+        ``top_k``: ship only the k best classes per query from the device
+        (exact as long as every above-threshold class fits in k)."""
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.feat_stride = feat_stride
+        self.window_stride = window_stride
+        self.window_size = cfg.num_feats * feat_gap * feat_stride
+        self.batch_size = batch_size
+        self.top_k = top_k
+        self.model = TimDetection(cfg, device=self.device)
+        self.model.load_state_dict(state_dict, strict=True)
+        self._infer = make_inference_step(self.model, cfg, top_k=top_k)
+        self.num_queries = generate_query_pyramid(
+            cfg.inference_query_size).shape[0]
+
+    # ------------------------------------------------------------------
+    # The two numpy helpers are copies of tim_tpu/serve.py's (that module
+    # imports jax); tests pin them to the originals.
+    def _window_starts(self, duration: float) -> np.ndarray:
+        dur = math.ceil(duration)
+        n = max(math.ceil((dur - self.window_size)
+                          / self.window_stride) + 1, 1)
+        # float32 like the dataset path (float64 starts shift times by
+        # 1 ulp and flip score-threshold boundaries)
+        return (self.window_stride * np.arange(n)).astype(np.float32)
+
+    def _assemble(self, feats, feat_times, starts, duration: float):
+        """Exact dataset semantics (``build_detection_windows`` +
+        ``DetectionDataset.__getitem__``): window stop clipped to
+        ceil(duration), times rounded to 3 decimals before normalizing."""
+        nf = self.cfg.num_feats
+        dur = math.ceil(duration)
+        idx = np.stack([
+            window_feat_indices(feat_times, s,
+                                min(dur, s + self.window_size),
+                                self.feat_stride, nf)
+            for s in starts])
+        data = feats[idx]                                  # [B, F, D]
+        times = feat_times[idx][:, :, :2]
+        times = np.clip(
+            np.round(times - starts[:, None, None], 3)
+            / self.window_size, 0.0, None)
+        return data.astype(np.float32), times.astype(np.float32)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def detect_video(
+        self,
+        v_feats: Optional[np.ndarray],      # [T, Dv]
+        a_feats: Optional[np.ndarray],      # [T, Da]
+        feat_times: np.ndarray,             # [T, >=2]
+        duration: float,
+        *,
+        score_threshold: float = 0.03,
+        nms_sigma: float = 0.25,
+        nms_iou: float = 0.1,
+        modality: str = "visual",           # which score head to report
+    ) -> Dict[str, np.ndarray]:
+        """Returns {"segments" [N, 2] video-time, "scores" [N],
+        "labels" [N]} after Soft-NMS."""
+        starts = self._window_starts(duration)
+        bs = self.batch_size
+        base = "v" if modality == "visual" else "a"
+
+        all_scores, all_props = [], []
+        for i in range(0, len(starts), bs):
+            chunk = starts[i:i + bs]
+            pad = bs - len(chunk)
+            chunk_p = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], pad)]) if pad else chunk
+
+            times_parts = []
+            batch = {}
+            for key, feats in (("v_feats", v_feats), ("a_feats", a_feats)):
+                if feats is None:
+                    continue
+                data, t = self._assemble(feats, feat_times, chunk_p,
+                                         duration)
+                batch[key] = self._to_device(data)
+                times_parts.append(t)
+            batch["times"] = self._to_device(
+                np.concatenate(times_parts, axis=1))
+            batch["window_start"] = self._to_device(
+                chunk_p.astype(np.float32))
+            batch["window_size"] = torch.full(
+                (len(chunk_p),), self.window_size, dtype=torch.float32,
+                device=self.device)
+
+            out = self._infer(batch)
+            take = len(chunk)
+            if self.top_k is None:
+                all_scores.append(out[f"{base}_scores"][:take].cpu().numpy())
+            else:
+                all_scores.append(
+                    (out[f"{base}_topk_values"][:take].cpu().numpy(),
+                     out[f"{base}_topk_classes"][:take].cpu().numpy()))
+            all_props.append(out[f"{base}_proposals"][:take].cpu().numpy())
+
+        props = np.concatenate(all_props).reshape(-1, 2)
+        vids = np.asarray(["__video__"] * len(props), object)
+        if self.top_k is None:
+            scores = np.concatenate(all_scores).reshape(
+                -1, all_scores[0].shape[-1])
+            cands = threshold_predictions(vids, props, scores,
+                                          score_threshold)
+        else:
+            vals = np.concatenate([v for v, _ in all_scores]).reshape(
+                -1, all_scores[0][0].shape[-1])
+            classes = np.concatenate([c for _, c in all_scores]).reshape(
+                -1, all_scores[0][1].shape[-1])
+            cands = threshold_predictions_topk(
+                vids, props, vals, classes,
+                score_threshold=score_threshold)
+        dets = nms_per_video(cands, iou_threshold=nms_iou, sigma=nms_sigma)
+        if "__video__" not in dets:
+            return {"segments": np.zeros((0, 2), np.float32),
+                    "scores": np.zeros(0, np.float32),
+                    "labels": np.zeros(0, np.int64)}
+        d = dets["__video__"]
+        return {"segments": d["segments"], "scores": d["scores"],
+                "labels": d["labels"]}
