@@ -6,17 +6,33 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card is required; prints nvidia-smi's name and power
      limit; TF32 off for matmuls and cuDNN;
-  2. build: compiles the CUDA kernels from ``tim_tpu_torch/csrc``;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     fp32 and bf16 at batch 16, then timed (CUDA events) at the serving
-     shapes (bf16, batch 128);
+  2. build: compiles the CUDA kernels from ``tim_tpu_torch/csrc`` (one
+     nvcc per source, all started together);
+  3. kernels: each kernel against its plain PyTorch version on the card
+     (kernels 1 and 2 in fp32 and bf16 at batch 16; kernel 3 with fp32 and
+     bf16 output, with and without bias and GELU, N in {3806, 44, 256},
+     ragged M, strided inputs), then timed (CUDA events) at the serving
+     shapes (bf16, batch 128) beside its plain version and one library
+     route for the same function; the least time the card could take is
+     computed from the same shapes;
   4. fp32 slice: ``make_inference_step`` of a full-width EPIC detection
      TimDetection (random weights from a seeded generator) on 2 windows,
      on the card with the kernels and on the CPU with the plain versions;
-  5. serving: ``DetectionServer.detect_video`` in bf16 (batch 128, top-8)
-     over a synthetic 300 s video; both kernels must have launched once per
-     encoder layer per batch; bf16 vs fp32 scores on 2 windows.
-The line before the last is the kernels' JSON; the last line is
+  5. bf16 serving: ``DetectionServer.detect_video`` (batch 128, top-8)
+     over a synthetic 300 s video; kernels 1 and 2 launched once per
+     encoder layer per batch; bf16 vs fp32 scores on the 2 windows;
+  6. int8 fp32 slice: ``DetectionServer.quantized`` at full width in fp32
+     with the fused int8 heads, calibrated on the 2 windows, against the
+     same int8 model on the CPU; the card's calibrated scales against the
+     CPU's;
+  7. int8 serving: ``detect_video`` in int8 static serving (bf16 compute,
+     fused heads) on the same video: kernel 1 launched 6 times per batch,
+     kernel 2 never, kernel 3 twice; int8 vs bf16 scores on the 2 windows
+     within the repo's contract (max 0.1, mean 0.01);
+  8. headline mode: the same with bf16 attention scores (``fast_scores``):
+     kernel 1 never launched, kernel 3 twice per batch.
+The counts are set to 0 just before each serving run and read just after
+it. The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -29,10 +45,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 # Random heads give scores whose spread no fixed threshold fits: the serving
-# phase thresholds at the score that about this many candidates clear,
+# phases threshold at the score that about this many candidates clear,
 # read off the 2-window run (keeps Soft-NMS to seconds).
 TARGET_CANDIDATES = 5000
 TOL = {("query_block_attention", "float32"): 1e-4,
@@ -41,6 +58,22 @@ TOL = {("query_block_attention", "float32"): 1e-4,
        ("fused_post_attention", "bfloat16"): 5e-2}
 SLICE_TOL = 1e-3         # fp32 card vs fp32 CPU, whole slice
 BF16_SCORE_TOL = 0.1     # bf16 vs fp32 sigmoid scores
+# int8 vs bf16 sigmoid scores: tests/test_quant_accuracy.py's contract
+INT8_SCORE_MAX, INT8_SCORE_MEAN = 0.1, 0.01
+# The int8 slice amplifies float32 rounding: where the card's and the CPU's
+# sums differ by an ulp, an activation may round to the neighbouring int8
+# step, and with random weights such flips cascade through the 6 layers
+# (a one-ulp change of the input features moves the CPU's own scores by
+# ~2e-3, proposals by ~2e-2 s, calibrated scales by ~4e-3; the fp32 model
+# moves 1e-7). So the int8 phases hold the card to the CPU's own spread
+# under a one-ulp input change, measured in the same run: card vs CPU at
+# most ULP_ENVELOPE times that spread (max and mean), or SLICE_TOL where
+# the spread is below it.
+ULP_ENVELOPE = 4.0
+# Card rates (NVIDIA's H100 SXM data sheet, dense): device memory bytes/s
+# and tensor-core operations/s by input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -67,8 +100,27 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate of ``kind``."""
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
+                                                          "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def bf16_spacing(want):
+    mag = want.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def kernel_close(got, want, tol: float) -> bool:
@@ -79,18 +131,27 @@ def kernel_close(got, want, tol: float) -> bool:
     the card at batch 16 and 64), so a flat 5e-2 cannot hold at serving
     sizes; below |z| = 4 the flat bound is the binding one."""
     err = (got.float() - want.float()).abs()
-    bound = torch.full_like(err, tol)
+    bound_ = torch.full_like(err, tol)
     if got.dtype == torch.bfloat16:
-        mag = want.float().abs().clamp_min(2.0 ** -126)
-        spacing = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        bound = torch.maximum(bound, 2 * spacing)
-    return bool((err <= bound).all())
+        bound_ = torch.maximum(bound_, 2 * bf16_spacing(want))
+    return bool((err <= bound_).all())
+
+
+def int8_close(got, want) -> bool:
+    """Kernel 3 against its plain version: the int8 operands and int32 sums
+    are identical, so fp32 outputs differ only by the epilogue's erf (one
+    ulp; 1 + erf cancels for y < -2, hence the 1e-5 absolute floor beside
+    1e-5 relative), and bf16 outputs by at most one output spacing."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return bool((err <= bf16_spacing(want)).all())
+    return bool((err <= 1e-5 + 1e-5 * want.float().abs()).all())
 
 
 def qkv_views(batch, dtype, gen):
     """q/k/v of one layer as the model hands them to attention: strided
     [B, H, S, dh] views of one packed projection."""
-    from tim_tpu import config as C
+    from tim_tpu_torch import config as C
     from tim_tpu_torch.models.queries import generate_query_pyramid
     cfg = C.epic_detection()
     nq = generate_query_pyramid(cfg.inference_query_size).shape[0]
@@ -130,6 +191,45 @@ def unfused_tail(x, attn, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
     return layer_norm_fp32(y + h, ln2_w, ln2_b).to(dt)
 
 
+def masked_sdpa_args(qq, kc, kq, vc, vq):
+    """The query block as one library attention call: keys [kc || kq],
+    values [vc || vq], a boolean mask allowing every context key and the
+    query's own key."""
+    nq, f = qq.shape[2], kc.shape[2]
+    mask = torch.zeros(nq, f + nq, dtype=torch.bool, device=qq.device)
+    mask[:, :f] = True
+    mask[:, f:] = torch.eye(nq, dtype=torch.bool, device=qq.device)
+    return qq, torch.cat([kc, kq], 2), torch.cat([vc, vq], 2), mask
+
+
+def int8_head_args(batch, n, dtype, gen, *, bias=True, seq=898,
+                   rows=(100, 499), k=1024):
+    """Inputs of one int8 class head as the model hands them over: x the
+    strided [B, rows, K] query slice of a [B, seq, K] encoder output, w_q
+    [N, K] int8, per-channel scales that keep y near unit size, a static
+    activation scale from x's abs-max."""
+    x = torch.randn(batch, seq, k, generator=gen, device="cuda").to(dtype)
+    xv = x[:, rows[0]:rows[1]]
+    w_q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    w_scale = (0.5 + torch.rand(n, generator=gen, device="cuda")) * 3e-4
+    b = (torch.randn(n, generator=gen, device="cuda") * 0.1 if bias
+         else None)
+    act_scale = xv.float().abs().amax().item() / 127.0
+    return xv, w_q, w_scale, act_scale, b
+
+
+def int8_library_route(x, w_q_padded, w_scale, act_scale, bias, n):
+    """Kernel 3's function from library calls: quantize, ``torch._int_mm``
+    over N padded to a multiple of 8, dequantize + bias epilogue."""
+    from tim_tpu_torch.ops.int8_matmul_fused import _scales
+    inv_sx, sx = _scales(act_scale)
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    xq = torch.clamp(torch.round(x2 * inv_sx), -127, 127).to(torch.int8)
+    acc = torch._int_mm(xq, w_q_padded.t())[:, :n]
+    return (acc.float() * (sx * w_scale) + bias).to(x.dtype)
+
+
 def phase_kernels():
     from tim_tpu_torch.ops import fused_post_attention as fpa
     from tim_tpu_torch.ops import query_block_attention as qba
@@ -160,20 +260,125 @@ def phase_kernels():
         err = max_err(got, want)
         require(kernel_close(got, want, TOL[(name, "bfloat16")]),
                 f"{name} bf16 B=128 disagrees: max abs {err}")
+        out_bytes = nbytes(got)
         del got, want
         ms = cuda_ms(lambda: kernel(*args))
         plain_ms = cuda_ms(lambda: plain(*args))
         log(f"[kernels] {name} bf16 B=128: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, max_abs_err={err:.3e}")
         report[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        if name == "fused_post_attention":
-            report[name]["unfused_bf16_ms"] = cuda_ms(
-                lambda: unfused_tail(*args))
+        if name == "query_block_attention":
+            qq, kc = args[0], args[1]
+            b, h, nq, dh = qq.shape
+            f = kc.shape[2]
+            # scores and weighted values over F context keys plus self
+            ops = 4 * b * h * nq * (f + 1) * dh
+            sdpa = masked_sdpa_args(*args)
+            lib_err = max_err(F.scaled_dot_product_attention(
+                sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3]),
+                kernel(*args))
+            report[name]["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3]))
+            log(f"[kernels] {name} bf16 B=128: masked "
+                f"scaled_dot_product_attention {report[name]['library_ms']:.4f}"
+                f" ms (max abs diff to the kernel {lib_err:.3e})")
+            del sdpa
+        else:
+            x, w1 = args[0], args[4]
+            ops = 2 * 2 * (x.numel() // x.shape[-1]) * x.shape[-1] * w1.shape[0]
+            report[name]["library_ms"] = cuda_ms(lambda: unfused_tail(*args))
             log(f"[kernels] {name} bf16 B=128: unfused library-GEMM tail "
-                f"{report[name]['unfused_bf16_ms']:.4f} ms")
+                f"{report[name]['library_ms']:.4f} ms")
+        report[name]["bound_ms"], report[name]["bound_by"] = bound(
+            nbytes(*args) + out_bytes, ops, "bf16")
+        log(f"[kernels] {name} bf16 B=128: bound "
+            f"{report[name]['bound_ms']:.4f} ms ({report[name]['bound_by']})")
         del args
         torch.cuda.empty_cache()
+    report["int8_matmul_fused"] = phase_kernel_int8(gen)
     return report
+
+
+def phase_kernel_int8(gen):
+    """Kernel 3 against its plain version, then timed at both serving
+    heads (fc_action N 3806, fc_audio N 44; 128 windows x 399 queries)."""
+    from tim_tpu_torch.ops import int8_matmul_fused as i8
+
+    worst, cases_run = 0.0, 0
+    for n in (3806, 44, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            for bias, act in ((False, None), (True, None), (True, "gelu")):
+                x, w_q, w_scale, sx, b = int8_head_args(3, n, dtype, gen,
+                                                        bias=bias)
+                cases = [("strided", x)]
+                if n == 256:   # ragged 2-D rows, contiguous
+                    cases.append(("2-D", x[0, :333].contiguous()))
+                for layout, xin in cases:
+                    got = i8.int8_matmul_fused(xin, w_q, w_scale, sx, b, act,
+                                               out_dtype=dtype)
+                    torch.cuda.synchronize()
+                    want = i8.int8_matmul_fused_plain(
+                        xin, w_q, w_scale, sx, b, act, out_dtype=dtype)
+                    err = max_err(got, want)
+                    worst = max(worst, err)
+                    cases_run += 1
+                    require(got.shape == want.shape and int8_close(got, want),
+                            f"int8_matmul_fused N={n} {dtype} bias={bias} "
+                            f"act={act} {layout} disagrees with its plain "
+                            f"version: max abs {err}")
+    log(f"[kernels] int8_matmul_fused: {cases_run} cases (N 3806/44/256, "
+        f"fp32/bf16, "
+        f"bias, GELU, ragged M, strided and 2-D x) agree with the plain "
+        f"version, max abs err {worst:.3e}")
+
+    seq = torch.randn(128, 898, 1024, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    shapes = []
+    for head, n, rows in (("fc_action", 3806, (100, 499)),
+                          ("fc_audio", 44, (499, 898))):
+        x = seq[:, rows[0]:rows[1]]
+        w_q = torch.randint(-127, 128, (n, 1024), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        w_scale = (0.5 + torch.rand(n, generator=gen, device="cuda")) * 3e-4
+        b = torch.randn(n, generator=gen, device="cuda") * 0.1
+        sx = x.float().abs().amax().item() / 127.0
+        args = (x, w_q, w_scale, sx, b)
+        got = i8.int8_matmul_fused(*args)
+        want = i8.int8_matmul_fused_plain(*args)
+        err = max_err(got, want)
+        require(int8_close(got, want), f"int8_matmul_fused {head} serving "
+                f"shape disagrees: max abs {err}")
+        m = x.numel() // x.shape[-1]
+        ms_bound, by = bound(nbytes(x, w_q, w_scale, b, got),
+                             2 * m * 1024 * n, "int8")
+        del got, want
+        w_pad = F.pad(w_q, (0, 0, 0, -n % 8))
+        w_bf16 = (w_q.float() * w_scale[:, None]).to(torch.bfloat16)
+        b_bf16 = b.to(torch.bfloat16)
+        row = {
+            "head": head, "m": m, "k": 1024, "n": n, "max_abs_err": err,
+            "ms": cuda_ms(lambda: i8.int8_matmul_fused(*args)),
+            "plain_ms": cuda_ms(lambda: i8.int8_matmul_fused_plain(*args)),
+            "library_ms": cuda_ms(lambda: int8_library_route(
+                x, w_pad, w_scale, sx, b, n)),
+            "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w_bf16, b_bf16)),
+            "bound_ms": ms_bound, "bound_by": by}
+        log(f"[kernels] int8_matmul_fused {head} [{m} x 1024] -> {n} bf16: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"library route (quantize + _int_mm + epilogue) "
+            f"{row['library_ms']:.4f} ms, bf16 F.linear "
+            f"{row['bf16_linear_ms']:.4f} ms, bound {ms_bound:.4f} ms ({by})"
+            f", max_abs_err={err:.3e}")
+        shapes.append(row)
+        del args
+    del seq
+    torch.cuda.empty_cache()
+    action = shapes[0]
+    return {"max_abs_err": max(worst, *(r["max_abs_err"] for r in shapes)),
+            **{k: action[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+            "per_head": shapes}
 
 
 def window_batch(cfg, n, rng):
@@ -192,14 +397,28 @@ def to_torch(batch, device):
             for k, v in batch.items()}
 
 
+def compare_outputs(tag, gpu_out, cpu_out, tol):
+    require(sorted(gpu_out) == sorted(cpu_out), f"{tag}: output keys differ")
+    for key in sorted(cpu_out):
+        g, c = gpu_out[key].cpu(), cpu_out[key]
+        require(tuple(g.shape) == tuple(c.shape)
+                and bool(torch.isfinite(g).all()),
+                f"{tag} {key}: shape {tuple(g.shape)} vs {tuple(c.shape)} "
+                f"or non-finite")
+        err = max_err(g, c)
+        log(f"[{tag}] {key} {tuple(g.shape)}: max_abs_err={err:.3e}")
+        require(err <= tol, f"{tag} {key}: card vs CPU {err} > {tol}")
+
+
 def phase_slice_fp32(rng):
-    from tim_tpu import config as C
+    from tim_tpu_torch import config as C
     from tim_tpu_torch.models import TimDetection
     from tim_tpu_torch.train.detection import make_inference_step
 
     cfg = C.epic_detection(compute_dtype="float32", use_fused_ffn=True)
     t0 = time.perf_counter()
-    cpu_model = TimDetection(cfg, generator=torch.Generator().manual_seed(SEED))
+    cpu_model = TimDetection(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
     # With random weights the regression heads' two sigmoids sit near one
     # constant pair, often with end < start, which the eval chain drops as
     # empty. Bias them apart so that the proposals are intervals.
@@ -221,55 +440,43 @@ def phase_slice_fp32(rng):
     cpu_out = make_inference_step(cpu_model, cfg)(to_torch(batch, "cpu"))
     log(f"[slice-fp32] CPU plain forward of 2 windows: "
         f"{time.perf_counter() - t0:.2f} s")
-    require(sorted(gpu_out) == sorted(cpu_out), "output keys differ")
-    for key in sorted(cpu_out):
-        g, c = gpu_out[key].cpu(), cpu_out[key]
-        require(tuple(g.shape) == tuple(c.shape) and bool(torch.isfinite(g).all()),
-                f"{key}: shape {tuple(g.shape)} vs {tuple(c.shape)} or "
-                f"non-finite")
-        err = max_err(g, c)
-        log(f"[slice-fp32] {key} {tuple(g.shape)}: max_abs_err={err:.3e}")
-        require(err <= SLICE_TOL, f"{key}: card vs CPU {err} > {SLICE_TOL}")
+    compare_outputs("slice-fp32", gpu_out, cpu_out, SLICE_TOL)
     return state_dict, batch, gpu_out
 
 
-def phase_serve_bf16(state_dict, batch2, fp32_out, rng):
-    from tim_tpu import config as C
-    import tim_tpu_torch.serve as serve_mod
-    from tim_tpu_torch.ops import fused_post_attention as fpa
-    from tim_tpu_torch.ops import query_block_attention as qba
-    from tim_tpu_torch.train.detection import make_inference_step
-
-    cfg = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True)
-    server = serve_mod.DetectionServer(cfg, state_dict, device="cuda",
-                                       batch_size=128, top_k=8)
-
-    # bf16 vs fp32 scores on the 2 windows of the fp32 phase
-    out16 = make_inference_step(server.model, cfg)(to_torch(batch2, "cuda"))
-    diff = max(max_err(out16[k], fp32_out[k]) for k in ("v_scores", "a_scores"))
-    log(f"[serve-bf16] bf16 vs fp32 sigmoid scores, 2 windows: max abs "
-        f"diff {diff:.4e} (tol {BF16_SCORE_TOL})")
-    require(diff <= BF16_SCORE_TOL, f"bf16 scores drift {diff}")
-    top = torch.sort(out16["v_scores"].flatten(), descending=True).values
-    n_windows_est = len(server._window_starts(300.0))
-    per_window = TARGET_CANDIDATES / n_windows_est
-    threshold = top[int(per_window * len(batch2["times"]))].item()
-    log(f"[serve-bf16] score threshold {threshold:.6f}: the score "
-        f"{TARGET_CANDIDATES} candidates over {n_windows_est} windows would "
-        f"clear if every window scored like these 2")
-
-    # ~300 s video, a feature every 0.2 s, feat_stride 3 (30 s windows)
+def synthetic_video(cfg, rng):
+    """~300 s video, a feature every 0.2 s, feat_stride 3 (30 s windows)."""
     duration, gap = 300.0, 0.2
     steps = int(duration / gap)
     starts = (np.arange(steps) * gap).astype(np.float32)
     feat_times = np.stack([starts, starts + 1.0], -1)
     v = rng.normal(size=(steps, cfg.visual_input_dim)).astype(np.float32)
     a = rng.normal(size=(steps, cfg.audio_input_dim)).astype(np.float32)
+    return v, a, feat_times, duration
+
+
+def launch_counters():
+    from tim_tpu_torch.ops import fused_post_attention as fpa
+    from tim_tpu_torch.ops import int8_matmul_fused as i8
+    from tim_tpu_torch.ops import query_block_attention as qba
+    return {"query_block_attention": qba.query_block_attention,
+            "fused_post_attention": fpa.fused_post_attention,
+            "int8_matmul_fused": i8.int8_matmul_fused}
+
+
+def serve_run(tag, server, video, threshold):
+    """One warm-up and one measured ``detect_video`` with every kernel's
+    count set to 0 just before the measured call and read just after it.
+    Returns (launches, batches, metrics)."""
+    import tim_tpu_torch.serve as serve_mod
+
+    v, a, feat_times, duration = video
     n_windows = len(server._window_starts(duration))
     n_batches = -(-n_windows // server.batch_size)
-
-    events = []
+    counters = launch_counters()
+    events, candidates = [], []
     infer = server._infer
+    threshold_topk = serve_mod.threshold_predictions_topk
 
     def timed_infer(batch):
         start = torch.cuda.Event(enable_timing=True)
@@ -280,9 +487,6 @@ def phase_serve_bf16(state_dict, batch2, fp32_out, rng):
         events.append((start, end))
         return out
 
-    candidates = []
-    threshold_topk = serve_mod.threshold_predictions_topk
-
     def counting_threshold(*args, **kwargs):
         cands = threshold_topk(*args, **kwargs)
         candidates.append(sum(len(c["scores"]) for c in cands.values()))
@@ -290,47 +494,206 @@ def phase_serve_bf16(state_dict, batch2, fp32_out, rng):
 
     server._infer = timed_infer
     serve_mod.threshold_predictions_topk = counting_threshold
-    server.detect_video(v, a, feat_times, duration,
-                        score_threshold=threshold)   # warm-up
-    events.clear()
-    candidates.clear()
-
-    qba.query_block_attention.launches = 0
-    fpa.fused_post_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dets = server.detect_video(v, a, feat_times, duration,
-                               score_threshold=threshold)
-    wall = time.perf_counter() - t0
-    launches = {"query_block_attention": qba.query_block_attention.launches,
-                "fused_post_attention": fpa.fused_post_attention.launches}
-    serve_mod.threshold_predictions_topk = threshold_topk
+    try:
+        server.detect_video(v, a, feat_times, duration,
+                            score_threshold=threshold)   # warm-up
+        events.clear()
+        candidates.clear()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = server.detect_video(v, a, feat_times, duration,
+                                   score_threshold=threshold)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        serve_mod.threshold_predictions_topk = threshold_topk
+        server._infer = infer
 
     device_ms = sum(s.elapsed_time(e) for s, e in events)
-    log(f"[serve-bf16] {n_windows} windows in {n_batches} batches of "
-        f"{server.batch_size}: device part {device_ms:.3f} ms = "
-        f"{n_windows / (device_ms / 1e3):.2f} windows/s "
+    log(f"[{tag}] {n_windows} windows in {n_batches} batches of "
+        f"{server.batch_size}: device part {device_ms:.3f} ms")
+    log(f"[{tag}] device windows/s {n_windows / (device_ms / 1e3):.2f} "
         f"({n_batches * server.batch_size / (device_ms / 1e3):.2f} incl. "
-        f"padding); detect_video wall {wall:.3f} s = "
-        f"{n_windows / wall:.2f} windows/s")
-    log(f"[serve-bf16] candidates {candidates[0]}, detections "
+        f"padding)")
+    log(f"[{tag}] wall windows/s {n_windows / wall:.2f} (detect_video "
+        f"{wall:.3f} s)")
+    log(f"[{tag}] candidates {candidates[0]}, detections "
         f"{len(dets['scores'])}, launches {launches}")
-    require(len(dets["scores"]) > 0, "no detections")
+    require(len(dets["scores"]) > 0, f"{tag}: no detections")
     segs = dets["segments"]
     require(bool(np.isfinite(segs).all() and np.isfinite(dets["scores"]).all()),
-            "non-finite detections")
-    require(bool((segs[:, 1] > segs[:, 0]).all()), "empty segments")
+            f"{tag}: non-finite detections")
+    require(bool((segs[:, 1] > segs[:, 0]).all()), f"{tag}: empty segments")
     require(bool((np.diff(dets["scores"]) <= 1e-6).all()),
-            "detections not score-sorted")
-    for name, count in launches.items():
-        require(count == cfg.num_layers * n_batches,
-                f"{name} launched {count} times, expected "
-                f"{cfg.num_layers} x {n_batches} batches")
-    return launches, {"windows": n_windows, "device_ms": device_ms,
-                      "windows_per_s": n_windows / (device_ms / 1e3),
-                      "wall_s": wall, "bf16_vs_fp32": diff,
-                      "candidates": candidates[0],
-                      "detections": len(dets["scores"])}
+            f"{tag}: detections not score-sorted")
+    return launches, n_batches, {
+        "windows": n_windows, "batches": n_batches, "device_ms": device_ms,
+        "windows_per_s": n_windows / (device_ms / 1e3), "wall_s": wall,
+        "wall_windows_per_s": n_windows / wall, "candidates": candidates[0],
+        "detections": len(dets["scores"])}
+
+
+def require_launches(tag, launches, per_batch, n_batches):
+    for name, count in per_batch.items():
+        require(launches[name] == count * n_batches,
+                f"{tag}: {name} launched {launches[name]} times, expected "
+                f"{count} x {n_batches} batches")
+
+
+def phase_serve_bf16(state_dict, batch2, fp32_out, video):
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.serve import DetectionServer
+    from tim_tpu_torch.train.detection import make_inference_step
+
+    cfg = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True)
+    server = DetectionServer(cfg, state_dict, device="cuda",
+                             batch_size=128, top_k=8)
+
+    # bf16 vs fp32 scores on the 2 windows of the fp32 phase
+    out16 = make_inference_step(server.model, cfg)(to_torch(batch2, "cuda"))
+    diff = max(max_err(out16[k], fp32_out[k]) for k in ("v_scores", "a_scores"))
+    log(f"[serve-bf16] bf16 vs fp32 sigmoid scores, 2 windows: max abs "
+        f"diff {diff:.4e} (tol {BF16_SCORE_TOL})")
+    require(diff <= BF16_SCORE_TOL, f"bf16 scores drift {diff}")
+    top = torch.sort(out16["v_scores"].flatten(), descending=True).values
+    n_windows_est = len(server._window_starts(video[3]))
+    per_window = TARGET_CANDIDATES / n_windows_est
+    threshold = top[int(per_window * len(batch2["times"]))].item()
+    log(f"[serve-bf16] score threshold {threshold:.6f}: the score "
+        f"{TARGET_CANDIDATES} candidates over {n_windows_est} windows would "
+        f"clear if every window scored like these 2")
+
+    launches, n_batches, metrics = serve_run("serve-bf16", server, video,
+                                             threshold)
+    require_launches("serve-bf16", launches,
+                     {"query_block_attention": cfg.num_layers,
+                      "fused_post_attention": cfg.num_layers,
+                      "int8_matmul_fused": 0}, n_batches)
+    metrics["bf16_vs_fp32"] = diff
+    return launches, metrics, out16, threshold
+
+
+def one_ulp_up(batch):
+    """The batch with its feature inputs one float32 ulp larger."""
+    out = dict(batch)
+    for key in ("v_feats", "a_feats"):
+        out[key] = batch[key] * (1 + 2.0 ** -23)
+    return out
+
+
+def phase_int8_slice_fp32(state_dict, batch2):
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.models import TimDetection
+    from tim_tpu_torch.serve import DetectionServer
+    from tim_tpu_torch.train.detection import make_inference_step
+
+    cfg = C.epic_detection(compute_dtype="float32", quantized_inference=True,
+                           quant_pallas_heads=True)
+    cpu_batch = to_torch(batch2, "cpu")
+    t0 = time.perf_counter()
+    server = DetectionServer.quantized(cfg, state_dict,
+                                       [to_torch(batch2, "cuda")],
+                                       device="cuda")
+    log(f"[int8-slice-fp32] DetectionServer.quantized (quantize + calibrate "
+        f"on 2 windows) on the card: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cpu_scales = [dict(DetectionServer.quantized(
+        cfg, state_dict, [b], device="cpu").cfg.quant_act_scales)
+        for b in (cpu_batch, one_ulp_up(cpu_batch))]
+    log(f"[int8-slice-fp32] the same twice on the CPU (inputs and inputs "
+        f"one ulp up): {time.perf_counter() - t0:.2f} s")
+    card = dict(server.cfg.quant_act_scales)
+    cpu, cpu_up = cpu_scales
+    require(sorted(card) == sorted(cpu) and len(card) == 4 * cfg.num_layers + 2,
+            f"calibrated layers differ: {sorted(card)} vs {sorted(cpu)}")
+    rel = max(abs(card[k] - cpu[k]) / cpu[k] for k in cpu)
+    spread = max(abs(cpu_up[k] - cpu[k]) / cpu[k] for k in cpu)
+    log(f"[int8-slice-fp32] {len(card)} calibrated scales, card vs CPU max "
+        f"relative diff {rel:.3e}; CPU vs CPU one ulp up {spread:.3e} "
+        f"(limit {ULP_ENVELOPE} x that)")
+    require(rel <= max(1e-6, ULP_ENVELOPE * spread),
+            f"calibrated scales differ by {rel}, spread {spread}")
+
+    # the card's model (its scales and int8 weights) on the CPU
+    cpu_model = TimDetection(server.cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               server.model.state_dict().items()},
+                              strict=True)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    gpu_out = make_inference_step(server.model, server.cfg)(
+        to_torch(batch2, "cuda"))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[int8-slice-fp32] launches {launches}")
+    require(launches["int8_matmul_fused"] == 2
+            and launches["fused_post_attention"] == 0,
+            f"int8 fp32 slice launches {launches}")
+    cpu_step = make_inference_step(cpu_model, server.cfg)
+    t0 = time.perf_counter()
+    cpu_out = cpu_step(cpu_batch)
+    log(f"[int8-slice-fp32] CPU plain forward of 2 windows: "
+        f"{time.perf_counter() - t0:.2f} s")
+    cpu_up_out = cpu_step(one_ulp_up(cpu_batch))
+    require(sorted(gpu_out) == sorted(cpu_out), "int8 output keys differ")
+    worst = {}
+    for key in sorted(cpu_out):
+        g, c = gpu_out[key].cpu(), cpu_out[key]
+        require(g.shape == c.shape and bool(torch.isfinite(g).all()),
+                f"int8 {key}: shape {tuple(g.shape)} vs {tuple(c.shape)} "
+                f"or non-finite")
+        err, up = (g - c).abs(), (cpu_up_out[key] - c).abs()
+        lim_max = max(SLICE_TOL, ULP_ENVELOPE * up.max().item())
+        lim_mean = max(SLICE_TOL, ULP_ENVELOPE * up.mean().item())
+        log(f"[int8-slice-fp32] {key} {tuple(g.shape)}: card vs CPU max "
+            f"{err.max().item():.3e} mean {err.mean().item():.3e}; CPU one "
+            f"ulp up max {up.max().item():.3e} mean {up.mean().item():.3e}"
+            f" (limits {lim_max:.3e}, {lim_mean:.3e})")
+        require(err.max().item() <= lim_max
+                and err.mean().item() <= lim_mean,
+                f"int8 {key}: card vs CPU beyond the one-ulp envelope")
+        worst[key] = {"max": err.max().item(), "mean": err.mean().item(),
+                      "ulp_max": up.max().item(), "ulp_mean": up.mean().item()}
+    return worst, rel
+
+
+def phase_serve_int8(tag, state_dict, batch2, out16, video, threshold,
+                     fast_scores):
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.serve import DetectionServer
+    from tim_tpu_torch.train.detection import make_inference_step
+
+    cfg = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True,
+                           quant_pallas_heads=True, fast_scores=fast_scores)
+    t0 = time.perf_counter()
+    server = DetectionServer.quantized(cfg, state_dict,
+                                       [to_torch(batch2, "cuda")],
+                                       device="cuda", batch_size=128,
+                                       top_k=8)
+    log(f"[{tag}] DetectionServer.quantized: "
+        f"{time.perf_counter() - t0:.2f} s")
+    out8 = make_inference_step(server.model, server.cfg)(
+        to_torch(batch2, "cuda"))
+    deltas = torch.cat([(out8[k] - out16[k]).abs().flatten()
+                        for k in ("v_scores", "a_scores")])
+    d_max, d_mean = deltas.max().item(), deltas.mean().item()
+    log(f"[{tag}] int8 vs bf16 sigmoid scores, 2 windows: max abs diff "
+        f"{d_max:.4e} (tol {INT8_SCORE_MAX}), mean {d_mean:.4e} "
+        f"(tol {INT8_SCORE_MEAN})")
+    require(d_max <= INT8_SCORE_MAX and d_mean <= INT8_SCORE_MEAN,
+            f"{tag}: int8 scores drift max {d_max} mean {d_mean}")
+
+    launches, n_batches, metrics = serve_run(tag, server, video, threshold)
+    require_launches(tag, launches,
+                     {"query_block_attention": 0 if fast_scores
+                      else cfg.num_layers,
+                      "fused_post_attention": 0, "int8_matmul_fused": 2},
+                     n_batches)
+    metrics.update(int8_vs_bf16_max=d_max, int8_vs_bf16_mean=d_mean)
+    return launches, metrics
 
 
 def main() -> int:
@@ -358,19 +721,41 @@ def main() -> int:
     kernel_report = phase_kernels()
     rng = np.random.default_rng(SEED)
     state_dict, batch2, fp32_out = phase_slice_fp32(rng)
-    launches, serving = phase_serve_bf16(state_dict, batch2, fp32_out, rng)
+    from tim_tpu_torch import config as C
+    video = synthetic_video(C.epic_detection(), rng)
+    launches_bf16, serving, out16, threshold = phase_serve_bf16(
+        state_dict, batch2, fp32_out, video)
     log(f"[serve-bf16] summary {json.dumps(serving)}")
+    err8, cal_rel = phase_int8_slice_fp32(state_dict, batch2)
+    launches_int8, serving8 = phase_serve_int8(
+        "serve-int8", state_dict, batch2, out16, video, threshold, False)
+    serving8.update(int8_fp32_card_vs_cpu=err8, calibration_rel=cal_rel)
+    log(f"[serve-int8] summary {json.dumps(serving8)}")
+    launches_fast, serving_fast = phase_serve_int8(
+        "serve-int8-fast-scores", state_dict, batch2, out16, video,
+        threshold, True)
+    log(f"[serve-int8-fast-scores] summary {json.dumps(serving_fast)}")
 
+    by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
+               "serve-int8-fast-scores": launches_fast}
     sources = {
+        # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",
-                                  "tim_tpu/ops/pallas_attention.py:54"),
+                                  "tim_tpu/ops/pallas_attention.py:54",
+                                  "serve-bf16"),
         "fused_post_attention": ("tim_tpu_torch/csrc/fused_post_attention.cu",
-                                 "tim_tpu/ops/pallas_fused.py:109"),
+                                 "tim_tpu/ops/pallas_fused.py:109",
+                                 "serve-bf16"),
+        "int8_matmul_fused": ("tim_tpu_torch/csrc/int8_matmul_fused.cu",
+                              "tim_tpu/ops/pallas_int8.py:50", "serve-int8"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **kernel_report[name]}
-        for name, (src, rep) in sources.items()]}))
+         "launches": by_path[path][name],
+         "launches_by_path": {p: counts[name] for p, counts in
+                              by_path.items()},
+         **kernel_report[name]}
+        for name, (src, rep, path) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,13 @@
-"""Checkpoint layout and the port's copies of jax-importing numpy helpers:
+"""Checkpoint layout and the port's copies of the JAX package's code:
 ``detection_state_dict_from_jax`` inverts ``detection_params_from_torch``
-and loads strictly; the query pyramid and the server's window helpers equal
-the JAX package's; importing the port's serving module loads no jax."""
+and loads strictly; the config dataclasses, the query pyramid, the window
+helpers, thresholding and per-video Soft-NMS equal the JAX package's; the
+port imports nothing of JAX or of the JAX package, and its entry points
+default to the CUDA card."""
 
+import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -12,14 +16,22 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_helpers import jax_variables, small_cfg
+from tests.torch_port_helpers import jax_variables, port_cfg, small_cfg
+from tim_tpu import config as C
 from tim_tpu.convert.torch_import import detection_params_from_torch
+from tim_tpu.data.windows import window_feat_indices as jax_window_indices
+from tim_tpu.evals import format_predictions as jax_fp
 from tim_tpu.models.queries import generate_query_pyramid as jax_pyramid
 from tim_tpu.serve import DetectionServer as JaxDetectionServer
+from tim_tpu_torch import config as PC
 from tim_tpu_torch.convert import detection_state_dict_from_jax
+from tim_tpu_torch.data.windows import window_feat_indices
+from tim_tpu_torch.evals import format_predictions as fp
 from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.serve import DetectionServer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("classes", [(11,), (4, 5, 11)])
@@ -36,7 +48,7 @@ def test_state_dict_round_trip_and_strict_load(classes):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
                                       err_msg=str(path))
 
-    model = TimDetection(cfg)
+    model = TimDetection(port_cfg(cfg), device="cpu")
     model.load_state_dict(sd, strict=True)
     assert set(sd) == set(model.state_dict())
 
@@ -52,7 +64,8 @@ def test_window_helpers_equal_jax():
     variables = jax_variables(cfg)
     kw = dict(feat_stride=2, feat_gap=0.2, window_stride=0.7)
     jax_server = JaxDetectionServer(cfg, variables["params"], **kw)
-    server = DetectionServer(cfg, detection_state_dict_from_jax(variables),
+    server = DetectionServer(port_cfg(cfg),
+                             detection_state_dict_from_jax(variables),
                              device="cpu", **kw)
     nfeat = 61
     starts = np.linspace(0, 14.3, nfeat).astype(np.float32)
@@ -68,11 +81,97 @@ def test_window_helpers_equal_jax():
             np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("name", ["ModelConfig", "DetectionConfig"])
+def test_config_copy_equals_jax(name):
+    ours, theirs = getattr(PC, name), getattr(C, name)
+    assert ([(f.name, f.default) for f in dataclasses.fields(ours)]
+            == [(f.name, f.default) for f in dataclasses.fields(theirs)])
+    for preset in ("epic_detection", "perception_detection"):
+        assert (dataclasses.asdict(getattr(PC, preset)(num_layers=2))
+                == dataclasses.asdict(getattr(C, preset)(num_layers=2)))
+    cfg = PC.epic_detection()
+    assert (cfg.encoder_width, cfg.num_context, cfg.vis_mul,
+            cfg.seq_len(399, 399)) == (1024, 100, 1, 898)
+
+
+@pytest.mark.parametrize("stride,nf", [(1, 8), (3, 50), (2, 100)])
+def test_window_feat_indices_equal_jax(stride, nf):
+    rng = np.random.default_rng(stride)
+    starts = np.sort(rng.uniform(0, 40, 120)).astype(np.float32)
+    feat_times = np.stack([starts, starts + 1.0], -1)
+    for ws in (-1.0, 0.0, 3.3, 17.0, 39.5):
+        np.testing.assert_array_equal(
+            window_feat_indices(feat_times, ws, ws + 30.0, stride, nf),
+            jax_window_indices(feat_times, ws, ws + 30.0, stride, nf))
+
+
+def _candidates(seed, n=300, classes=7):
+    rng = np.random.default_rng(seed)
+    start = rng.uniform(0, 50, n)
+    props = np.stack([start, start + rng.uniform(-0.5, 6, n)], -1)
+    vids = np.asarray([f"v{i % 3}" for i in range(n)], object)
+    scores = rng.uniform(0, 0.2, (n, classes)).astype(np.float32)
+    return vids, props, scores
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_thresholding_and_nms_equal_jax(seed):
+    vids, props, scores = _candidates(seed)
+    order = np.argsort(-scores, -1)[:, :3]
+    topv = np.take_along_axis(scores, order, -1)
+    for ours, theirs in (
+            (fp.threshold_predictions(vids, props, scores, 0.05),
+             jax_fp.threshold_predictions(vids, props, scores, 0.05)),
+            (fp.threshold_predictions_topk(vids, props, topv, order, 0.05),
+             jax_fp.threshold_predictions_topk(vids, props, topv, order,
+                                               0.05))):
+        assert sorted(ours) == sorted(theirs)
+        for kind in ("soft", "hard"):
+            got = fp.nms_per_video(ours, nms_kind=kind)
+            want = jax_fp.nms_per_video(theirs, nms_kind=kind)
+            for vid in want:
+                for key in ("segments", "scores", "labels"):
+                    np.testing.assert_array_equal(got[vid][key],
+                                                  want[vid][key])
+
+
+def _port_modules():
+    pkg = os.path.join(ROOT, "tim_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                yield rel[:-3].replace(os.sep, ".").removesuffix(".__init__")
+
+
 def test_serve_imports_no_jax():
-    code = ("import sys; import tim_tpu_torch.serve; "
+    """Importing every module of the port loads no module of JAX, flax or
+    the JAX package (tim_tpu)."""
+    modules = sorted(_port_modules())
+    assert "tim_tpu_torch.ops.int8_matmul_fused" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]; "
-            "assert not bad, bad")
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            "('tim_tpu', 'jax', 'jaxlib', 'flax')]\n"
+            "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
-                   cwd=root)
+                   cwd=ROOT)
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    assert not re.findall(r"^\s*(from|import)\s+(tim_tpu|jax|flax)\b",
+                          src, re.M)
+
+
+def test_entry_points_default_to_the_card():
+    """No device argument means the CUDA card: without one it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card (tests/test_torch_gpu.py "
+                    "builds there)")
+    cfg = port_cfg(small_cfg())
+    with pytest.raises(RuntimeError, match="cuda"):
+        TimDetection(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DetectionServer(cfg, {})

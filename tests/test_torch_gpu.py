@@ -10,9 +10,13 @@ card every test skips."""
 import pytest
 import torch
 
-from chip_smoke import kernel_close, tail_args
+from chip_smoke import int8_close, int8_head_args, kernel_close, tail_args
+from tim_tpu_torch import config as C
+from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.ops.fused_post_attention import (
     fused_post_attention, fused_post_attention_plain)
+from tim_tpu_torch.ops.int8_matmul_fused import (
+    int8_matmul_fused, int8_matmul_fused_plain)
 from tim_tpu_torch.ops.query_block_attention import (
     query_block_attention, query_block_attention_plain)
 
@@ -79,3 +83,44 @@ def test_fused_kernel_rejects_untiled_widths(gen):
     args = tail_args(1, torch.float32, gen, seq=8, c=64, ff=128)
     with pytest.raises(ValueError, match="multiples"):
         fused_post_attention(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bias,activation", [(False, None), (True, None),
+                                             (True, "gelu")])
+@pytest.mark.parametrize("b,n,rows", [
+    (2, 3806, (100, 499)),   # fc_action: the strided query rows
+    (2, 44, (499, 898)),     # fc_audio
+    (1, 256, (3, 40)),       # a single ragged row tile
+])
+def test_int8_kernel_matches_plain(gen, dtype, bias, activation, b, n, rows):
+    x, w_q, w_scale, sx, bias_t = int8_head_args(b, n, dtype, gen,
+                                                 bias=bias, rows=rows)
+    before = int8_matmul_fused.launches
+    got = int8_matmul_fused(x, w_q, w_scale, sx, bias_t, activation,
+                            out_dtype=dtype)
+    assert int8_matmul_fused.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, rows[1] - rows[0], n)
+    assert int8_close(got, int8_matmul_fused_plain(
+        x, w_q, w_scale, sx, bias_t, activation, out_dtype=dtype))
+
+
+@pytest.mark.gpu
+def test_int8_kernel_rejects_unaligned_k(gen):
+    x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen, k=40)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul_fused(x, w_q, w_scale, sx, b)
+
+
+@pytest.mark.gpu
+def test_models_default_to_the_card(gen):
+    cfg = C.epic_detection(d_model=32, num_layers=1, nhead=2, num_feats=4,
+                           visual_input_dim=16, audio_input_dim=8,
+                           visual_classes=(5,), audio_classes=3)
+    from tim_tpu_torch.serve import DetectionServer
+    model = TimDetection(cfg)
+    assert next(model.parameters()).device.type == "cuda"
+    server = DetectionServer(cfg, model.state_dict())
+    assert server.device.type == "cuda"
+    assert next(server.model.parameters()).device.type == "cuda"

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from tests.torch_port_helpers import (
-    inference_batch, jax_variables, port_model, small_cfg)
+    inference_batch, jax_variables, port_cfg, port_model, small_cfg)
 from tim_tpu.models import TimDetection as JaxTimDetection
 from tim_tpu.serve import DetectionServer as JaxDetectionServer
 from tim_tpu.train.detection import make_inference_step as jax_inference_step
@@ -31,7 +31,8 @@ def test_inference_step_matches_jax(fused, top_k):
                                       top_k=top_k))(
         variables["params"], {k: jax.numpy.asarray(v)
                               for k, v in batch.items()})
-    got = make_inference_step(port_model(cfg, variables), cfg, top_k=top_k)(
+    got = make_inference_step(port_model(cfg, variables), port_cfg(cfg),
+                              top_k=top_k)(
         {k: torch.from_numpy(v) for k, v in batch.items()})
 
     assert sorted(got) == sorted(want)
@@ -62,7 +63,8 @@ def test_detect_video_matches_jax(top_k):
     variables = jax_variables(cfg)
     kw = dict(feat_stride=2, feat_gap=0.2, batch_size=4, top_k=top_k)
     want_server = JaxDetectionServer(cfg, variables["params"], **kw)
-    got_server = DetectionServer(cfg, detection_state_dict_from_jax(variables),
+    got_server = DetectionServer(port_cfg(cfg),
+                                 detection_state_dict_from_jax(variables),
                                  device="cpu", **kw)
     v, a, feat_times, duration = _video(cfg)
 

@@ -1,8 +1,10 @@
 """Shared builders for the ``tim_tpu_torch`` parity tests: one small
-detection configuration, flax params for it (perturbed with seeded numpy
-noise so that no LayerNorm or bias sits at its trivial init), and the port
-model loaded from them."""
+detection configuration (the JAX package's, and ``port_cfg`` for the
+port's copy), flax params for it (perturbed with seeded numpy noise so
+that no LayerNorm or bias sits at its trivial init), and the port model
+loaded from them, on the CPU."""
 
+import dataclasses
 import functools
 
 import jax
@@ -12,6 +14,7 @@ import numpy as np
 from tim_tpu import config as C
 from tim_tpu.models import TimDetection as JaxTimDetection
 from tim_tpu.models.queries import generate_query_pyramid
+from tim_tpu_torch import config as PC
 from tim_tpu_torch.convert import detection_state_dict_from_jax
 from tim_tpu_torch.models import TimDetection
 
@@ -23,6 +26,13 @@ def small_cfg(**overrides):
               compute_dtype="float32", inference_query_size=0.2)
     kw.update(overrides)
     return C.epic_detection(**kw)
+
+
+def port_cfg(cfg) -> PC.DetectionConfig:
+    """The port's ``DetectionConfig`` with every field of ``cfg`` (a JAX
+    package config)."""
+    return PC.DetectionConfig(**{f.name: getattr(cfg, f.name)
+                                 for f in dataclasses.fields(cfg)})
 
 
 def num_queries(cfg) -> int:
@@ -49,7 +59,7 @@ def jax_variables(cfg, seed: int = 0):
 
 
 def port_model(cfg, variables) -> TimDetection:
-    model = TimDetection(cfg)
+    model = TimDetection(port_cfg(cfg), device="cpu")
     model.load_state_dict(detection_state_dict_from_jax(variables),
                           strict=True)
     return model

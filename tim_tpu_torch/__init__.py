@@ -1,15 +1,19 @@
 """TIM in PyTorch for NVIDIA Hopper: the port of ``tim_tpu``.
 
 The package mirrors ``tim_tpu``'s module paths so each module's
-counterpart is easy to find. It imports ``torch`` and never ``jax``; the
-jax-free parts of ``tim_tpu`` (``config``, ``data.windows``, ``evals``)
-are imported from there rather than copied.
+counterpart is easy to find. It imports ``torch`` and never ``jax``, and
+nothing of ``tim_tpu``: what it needs of the JAX package's jax-free
+modules (``config``, ``data.windows``, ``evals``, the native NMS source)
+it keeps as its own copies, which tests pin to the originals.
 
 Ported so far: dense TIM detection inference over pre-extracted
-features, from ``make_inference_step`` through ``serve.DetectionServer``.
-The two TPU kernels on that path are hand-written CUDA for ``sm_90a``
-(``csrc/``), built at first use by ``_build``; on CPU tensors their
-wrappers run the plain PyTorch versions beside them.
+features, from ``make_inference_step`` through ``serve.DetectionServer``,
+in bf16 and fp32 and as int8 static serving
+(``DetectionServer.quantized``). The three TPU kernels on those paths are
+hand-written CUDA for ``sm_90a`` (``csrc/``), built at first use by
+``_build``; on CPU tensors their wrappers run the plain PyTorch versions
+beside them. Entry points run on the CUDA card unless the caller asks for
+the CPU.
 """
 
 __version__ = "0.1.0"

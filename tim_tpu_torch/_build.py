@@ -1,11 +1,13 @@
 """Build the CUDA kernels in ``csrc/`` into one shared library, at first use.
 
-Every ``csrc/*.cu`` exposes a plain C interface, so ``nvcc`` compiles the
-lot in seconds (no PyTorch headers) and ``ctypes`` loads the result. The
-library lands in ``tim_tpu_torch/build/`` under a name keyed by a hash of
-the sources and flags; a build that fails, or a host without ``nvcc``,
-raises ``RuntimeError``. There is no fallback: the plain PyTorch versions
-run only for tensors on the CPU.
+Every ``csrc/*.cu`` exposes a plain C interface, so ``nvcc`` compiles each
+in seconds (no PyTorch headers): one ``nvcc`` per source, all started
+together, then one link; ``ctypes`` loads the result. The library lands in
+``tim_tpu_torch/build/`` under a name keyed by a hash of the sources and
+flags; a build that fails, or a host without ``nvcc``, raises
+``RuntimeError``. There is no fallback: the plain PyTorch versions run
+only for tensors on the CPU. (``csrc/host/`` holds host C++ that
+``evals/nms.py`` builds with ``g++``.)
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -67,16 +69,33 @@ def build() -> str:
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
             "/usr/local/cuda/bin): the CUDA kernels cannot be built")
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    # unique temp name + atomic rename: concurrent builders never load a
+    # unique temp names + atomic rename: concurrent builds never load a
     # half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {srcs}:\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        failed = []
+        for src, proc in zip(srcs, procs):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src} ({proc.returncode}):\n{stdout}\n"
+                              f"{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed building " + "\n".join(failed))
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking {objs}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for path in objs:
+            if os.path.exists(path):
+                os.remove(path)
     return out
 
 

@@ -1,27 +1,38 @@
 """Flax detection params -> reference-layout torch ``state_dict``.
 
-The exact inverse of ``tim_tpu/convert/torch_import.py::
-detection_params_from_torch``: weights trained or converted on the JAX
-side load into ``tim_tpu_torch.models.TimDetection`` with
-``load_state_dict(strict=True)``. Works on plain numpy leaves; jax arrays
+``detection_state_dict_from_jax`` is the exact inverse of
+``tim_tpu/convert/torch_import.py::detection_params_from_torch``: weights
+trained or converted on the JAX side load into
+``tim_tpu_torch.models.TimDetection`` with ``load_state_dict(strict=True)``.
+``quantized_detection_state_dict_from_jax`` does the same for the int8
+params of ``tim_tpu.ops.quant.quantize_params`` (the layout of
+``ops.quant.quantize_state_dict``), and ``act_scales_from_jax`` renames
+calibrated activation scales. Works on plain numpy leaves; jax arrays
 convert through ``np.asarray``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import re
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 
-def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+def _t(x, dtype=np.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype, copy=True))
 
 
 def _linear(tree: Mapping, prefix: str, out: Dict) -> None:
-    # flax kernel [in, out] -> torch weight [out, in]
-    out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    # flax kernel [in, out] -> torch weight [out, in]; an int8 kernel_q
+    # keeps its dtype and brings its per-output-channel scale
+    if "kernel_q" in tree:
+        out[f"{prefix}.weight_q"] = _t(np.asarray(tree["kernel_q"]).T,
+                                       np.int8)
+        out[f"{prefix}.weight_scale"] = _t(tree["kernel_scale"])
+    else:
+        out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
     out[f"{prefix}.bias"] = _t(tree["bias"])
 
 
@@ -37,10 +48,19 @@ def _mlp(tree: Mapping, prefix: str, out: Dict) -> None:
 
 def _encoder_layer(tree: Mapping, prefix: str, out: Dict) -> None:
     attn = tree["self_attn"]
-    out[f"{prefix}.self_attn.in_proj_weight"] = _t(np.concatenate(
-        [np.asarray(attn[n]["kernel"]).T for n in ("q", "k", "v")], axis=0))
-    out[f"{prefix}.self_attn.in_proj_bias"] = _t(np.concatenate(
-        [np.asarray(attn[n]["bias"]) for n in ("q", "k", "v")]))
+    qkv = [attn[n] for n in ("q", "k", "v")]
+    bias = _t(np.concatenate([np.asarray(p["bias"]) for p in qkv]))
+    if "kernel_q" in attn["q"]:
+        # int8: q/k/v rows packed into one Int8Dense, scales beside them
+        out[f"{prefix}.self_attn.in_proj.weight_q"] = _t(np.concatenate(
+            [np.asarray(p["kernel_q"]).T for p in qkv], axis=0), np.int8)
+        out[f"{prefix}.self_attn.in_proj.weight_scale"] = _t(np.concatenate(
+            [np.asarray(p["kernel_scale"]) for p in qkv]))
+        out[f"{prefix}.self_attn.in_proj.bias"] = bias
+    else:
+        out[f"{prefix}.self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(p["kernel"]).T for p in qkv], axis=0))
+        out[f"{prefix}.self_attn.in_proj_bias"] = bias
     _linear(attn["out"], f"{prefix}.self_attn.out_proj", out)
     for name in ("norm1", "norm2"):
         _norm(tree[name], f"{prefix}.{name}", out)
@@ -56,7 +76,8 @@ _REG_HEADS = {"reg_visual": "fc_visual_action",
 
 def detection_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{'params': tree}`` of a flax ``TimDetection`` -> reference-layout
-    ``state_dict`` (fp32 CPU tensors)."""
+    ``state_dict`` (fp32 CPU tensors; int8 ``weight_q`` where the tree
+    holds ``kernel_q``)."""
     p = variables["params"]
     out: Dict[str, torch.Tensor] = {}
     _mlp(p["time_mlp"], "time_mlp", out)
@@ -76,3 +97,51 @@ def detection_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]
         _mlp(tree, f"reg_head.{_REG_HEADS[name]}", out)
     _mlp(p["drloc_mlp"], "drloc_mlp", out)
     return out
+
+
+def quantized_detection_state_dict_from_jax(qparams: Mapping
+                                            ) -> Dict[str, torch.Tensor]:
+    """The param tree of ``tim_tpu.ops.quant.quantize_params`` (the JAX
+    quantized ``TimDetection``'s params, not wrapped in ``{'params':
+    ...}``) -> the quantized port ``TimDetection``'s state dict: each int8
+    ``kernel_q`` [in, out] becomes ``weight_q`` [out, in], q/k/v packed
+    into ``self_attn.in_proj``."""
+    return detection_state_dict_from_jax({"params": qparams})
+
+
+_JAX_SCALE_PATHS = (
+    (re.compile(r"^encoder/layer(\d+)/self_attn/(q|k|v)$"),
+     r"backbone.layers.\1.self_attn.in_proj"),
+    (re.compile(r"^encoder/layer(\d+)/self_attn/out$"),
+     r"backbone.layers.\1.self_attn.out_proj"),
+    (re.compile(r"^encoder/layer(\d+)/(linear[12])$"),
+     r"backbone.layers.\1.\2"),
+)
+
+
+def act_scales_from_jax(act_scales) -> Tuple[Tuple[str, float], ...]:
+    """The JAX package's calibrated (param path, scale) tuple
+    (``quant.act_scales_tuple``; paths like
+    ``'encoder/layer0/self_attn/q'``) -> the port's (module name, scale)
+    tuple. q/k/v map onto the one packed ``in_proj`` and must carry the
+    same scale (they see the same input); raises when they differ or a
+    path has no port module."""
+    out: Dict[str, float] = {}
+    for path, scale in act_scales:
+        head = re.fullmatch(r"cls_head/(fc_\w+)", path)
+        if head and head.group(1) in _CLS_HEADS:
+            name = f"cls_head.{_CLS_HEADS[head.group(1)]}"
+        else:
+            for pattern, repl in _JAX_SCALE_PATHS:
+                if pattern.match(path):
+                    name = pattern.sub(repl, path)
+                    break
+            else:
+                raise ValueError(f"act_scales_from_jax: no port module for "
+                                 f"{path!r}")
+        if name in out and out[name] != float(scale):
+            raise ValueError(f"act_scales_from_jax: {name} gets scales "
+                             f"{out[name]} and {float(scale)} (q/k/v "
+                             f"differ)")
+        out[name] = float(scale)
+    return tuple(sorted(out.items()))

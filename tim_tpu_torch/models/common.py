@@ -19,6 +19,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
+from tim_tpu_torch.ops.int8_matmul_fused import int8_matmul_fused
+from tim_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,6 +70,59 @@ class TorchLinear(nn.Module):
 
     def forward(self, x):
         return linear(x, self.weight, self.bias, self.dtype)
+
+
+class Int8Dense(nn.Module):
+    """Linear for int8 serving: counterpart of ``tim_tpu/models/common.py::
+    Int8Dense``. ``weight_q`` int8 [out, in] and ``weight_scale`` fp32
+    [out] (per output channel, from ``ops.quant.quantize_state_dict``),
+    ``bias`` fp32; the output in the compute dtype.
+
+    Activation quantization:
+    - ``act_scale`` None: dynamic per-row abs-max scales;
+    - ``act_scale`` a float: one calibrated static scale. With
+      ``pallas_fused`` (the class heads under ``quant_pallas_heads``) the
+      layer is ``int8_matmul_fused``: kernel 3 on a CUDA tensor, its plain
+      version on the CPU; without it, ``int8_matmul_static``.
+    Between ``start_calibration`` and ``stop_calibration`` the layer keeps
+    the running max of |input| in ``act_absmax`` (None until an input
+    arrives)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype, pallas_fused: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.pallas_fused = pallas_fused
+        self.register_buffer("weight_q", torch.zeros(
+            out_features, in_features, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.act_scale: float | None = None
+        self.act_absmax: torch.Tensor | None = None
+        self._calibrating = False
+
+    def start_calibration(self) -> None:
+        self._calibrating = True
+        self.act_absmax = None
+
+    def stop_calibration(self) -> None:
+        self._calibrating = False
+
+    def forward(self, x):
+        if self._calibrating:
+            m = x.abs().amax().float()
+            self.act_absmax = (m if self.act_absmax is None
+                               else torch.maximum(self.act_absmax, m))
+        if self.act_scale is None:
+            y = int8_matmul(x, self.weight_q, self.weight_scale)
+        elif self.pallas_fused:
+            return int8_matmul_fused(x, self.weight_q, self.weight_scale,
+                                     self.act_scale, self.bias,
+                                     out_dtype=self.dtype)
+        else:
+            y = int8_matmul_static(x, self.weight_q, self.weight_scale,
+                                   self.act_scale)
+        return (y + self.bias.float()).to(self.dtype)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from tim_tpu_torch.models.common import MLP, TorchLinear
+from tim_tpu_torch.models.common import MLP, Int8Dense, TorchLinear
 
 FOCAL_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -25,15 +25,21 @@ def _query_slices(s: int, num_v_queries: int, num_a_queries: int):
 
 
 class DetectionClsHead(nn.Module):
-    """``fc_visual_{verb,noun,action}`` and ``fc_audio_action``."""
+    """``fc_visual_{verb,noun,action}`` and ``fc_audio_action``; with
+    ``quantized`` each is an ``Int8Dense``, fused (kernel 3 on the card
+    once its static scale is set) with ``pallas_fused``."""
 
     def __init__(self, d_model: int,
                  visual_classes: Optional[Tuple[int, ...]],
                  audio_classes: Optional[int], *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, quantized: bool = False,
+                 pallas_fused: bool = False):
         super().__init__()
 
         def focal(n):
+            if quantized:
+                return Int8Dense(d_model, n, dtype=dtype,
+                                 pallas_fused=pallas_fused)
             return TorchLinear(d_model, n, dtype=dtype, generator=generator,
                                bias_value=FOCAL_BIAS)
 

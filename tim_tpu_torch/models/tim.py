@@ -9,29 +9,46 @@ released detection checkpoints load with ``load_state_dict(strict=True)``:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
-from tim_tpu.config import DetectionConfig
-from tim_tpu_torch.models.common import MLP, LayerNorm, dtype_of
+from tim_tpu_torch.config import DetectionConfig
+from tim_tpu_torch.models.common import MLP, Int8Dense, LayerNorm, dtype_of
 from tim_tpu_torch.models.encodings import FeatureEncoding
 from tim_tpu_torch.models.heads import DetectionClsHead, DetectionRegHead
 from tim_tpu_torch.models.transformer import Encoder
 
 # Config options whose code paths are not ported yet, with the value the
 # port supports.
-_UNPORTED = {"quantized_inference": False, "fast_scores": False,
-             "apply_feature_pooling": False, "sequence_parallel": False}
+_UNPORTED = {"apply_feature_pooling": False, "sequence_parallel": False}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card, and a CUDA
+    device without a card raises (pass ``device="cpu"`` for the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but "
+                           f"torch.cuda.is_available() is false; pass "
+                           f"device='cpu' to run on the CPU")
+    return device
 
 
 class TimDetection(nn.Module):
     """Detection variant, inference only: shared query tokens, cls +
     interval-regression heads.
 
-    ``generator`` seeds the random init (a fresh generator seeded 0 when
-    None); parameters are built on the CPU and then moved to ``device``."""
+    ``device``: the CUDA card by default (raises without one); the CPU
+    only when asked for. ``generator`` seeds the random init (a fresh
+    generator seeded 0 when None); parameters are built on the CPU and
+    then moved to ``device``.
+
+    ``cfg.quantized_inference``: the encoder linears and class heads are
+    ``Int8Dense`` (load ``ops.quant.quantize_state_dict`` weights), with
+    dynamic activation scales, or with ``quant_static_acts`` the static
+    scales of ``cfg.quant_act_scales`` (a layer without one raises)."""
 
     def __init__(self, cfg: DetectionConfig, *,
                  device: Optional[torch.device | str] = None,
@@ -41,6 +58,7 @@ class TimDetection(nn.Module):
             if getattr(cfg, name) != value:
                 raise ValueError(f"TimDetection: {name}={getattr(cfg, name)!r}"
                                  f" is not ported (supported: {value!r})")
+        device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.cfg = cfg
@@ -56,22 +74,37 @@ class TimDetection(nn.Module):
         self.feature_encoding = FeatureEncoding(
             d, cfg.input_modality, cfg.data_modality, cfg.num_feats,
             cfg.visual_input_dim, cfg.audio_input_dim, dtype=dt, generator=g)
+        quantized = cfg.quantized_inference
         self.backbone = Encoder(
             width, cfg.nhead, d * cfg.feedforward_scale, cfg.num_layers,
-            dtype=dt, fused=cfg.use_fused_ffn, generator=g)
+            dtype=dt, fused=cfg.use_fused_ffn, generator=g,
+            quantized=quantized, fast_scores=cfg.fast_scores)
         # drloc is a training loss; its parameters are here so that
         # checkpoints load strictly.
         self.drloc_mlp = MLP((2 * width, d, d, 1), dtype=dt, generator=g)
         vis = (cfg.visual_classes if "visual" in cfg.data_modality
                else None)
         aud = cfg.audio_classes if "audio" in cfg.data_modality else None
-        self.cls_head = DetectionClsHead(width, vis, aud, dtype=dt,
-                                         generator=g)
+        self.cls_head = DetectionClsHead(
+            width, vis, aud, dtype=dt, generator=g, quantized=quantized,
+            pallas_fused=cfg.quant_pallas_heads)
         self.reg_head = DetectionRegHead(width, vis is not None,
                                          aud is not None, dtype=dt,
                                          generator=g)
-        if device is not None:
-            self.to(device)
+        if quantized and cfg.quant_static_acts:
+            scales = dict(cfg.quant_act_scales)
+            for name, layer in self.int8_layers().items():
+                if name not in scales:
+                    raise ValueError(f"TimDetection: no static activation "
+                                     f"scale for {name!r} in "
+                                     f"cfg.quant_act_scales")
+                layer.act_scale = scales[name]
+        self.to(device)
+
+    def int8_layers(self) -> Dict[str, Int8Dense]:
+        """The int8 linears by module name (empty unless quantized)."""
+        return {name: m for name, m in self.named_modules()
+                if isinstance(m, Int8Dense)}
 
     def encode_times(self, times):
         """[..., 2] interval (start, end) -> [..., d_model] encoding."""

@@ -3,27 +3,31 @@ of ``tim_tpu/serve.py::DetectionServer`` (feature-domain serving).
 
 Given per-timestep feature banks for one video, slide fixed windows, score
 the dense query pyramid on the device in fixed-size batches, then threshold
-and run per-video Soft-NMS on the host (the shared ``tim_tpu.evals`` code
-and its native kernel):
+and run per-video Soft-NMS on the host (``evals``, the port's copy of the
+JAX package's code and native kernel):
 
-    server = DetectionServer(cfg, state_dict, device="cuda")
+    server = DetectionServer(cfg, state_dict)          # on the CUDA card
     detections = server.detect_video(v_feats, a_feats, feat_times, duration)
+
+``DetectionServer.quantized`` builds the int8 static serving mode.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
 
-from tim_tpu.config import DetectionConfig
-from tim_tpu.data.windows import window_feat_indices
-from tim_tpu.evals.format_predictions import (
+from tim_tpu_torch.config import DetectionConfig
+from tim_tpu_torch.data.windows import window_feat_indices
+from tim_tpu_torch.evals.format_predictions import (
     nms_per_video, threshold_predictions, threshold_predictions_topk)
 from tim_tpu_torch.models.queries import generate_query_pyramid
-from tim_tpu_torch.models.tim import TimDetection
+from tim_tpu_torch.models.tim import TimDetection, resolve_device
+from tim_tpu_torch.ops import quant
 from tim_tpu_torch.train.detection import make_inference_step
 
 
@@ -33,7 +37,7 @@ class DetectionServer:
         cfg: DetectionConfig,
         state_dict: Mapping[str, torch.Tensor],
         *,
-        device: torch.device | str,
+        device: Optional[torch.device | str] = None,
         feat_stride: int = 3,
         feat_gap: float = 0.2,
         window_stride: float = 1.0,
@@ -41,11 +45,13 @@ class DetectionServer:
         top_k: Optional[int] = None,
     ):
         """``state_dict``: reference-layout detection weights (a released
-        checkpoint, or ``convert.detection_state_dict_from_jax``).
-        ``top_k``: ship only the k best classes per query from the device
-        (exact as long as every above-threshold class fits in k)."""
+        checkpoint, or ``convert.detection_state_dict_from_jax``; the
+        quantized layout when ``cfg.quantized_inference``). ``device``: the
+        CUDA card unless given (raises without one). ``top_k``: ship only
+        the k best classes per query from the device (exact as long as
+        every above-threshold class fits in k)."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.feat_stride = feat_stride
         self.window_stride = window_stride
         self.window_size = cfg.num_feats * feat_gap * feat_stride
@@ -56,6 +62,58 @@ class DetectionServer:
         self._infer = make_inference_step(self.model, cfg, top_k=top_k)
         self.num_queries = generate_query_pyramid(
             cfg.inference_query_size).shape[0]
+
+    @classmethod
+    def quantized(cls, cfg: DetectionConfig,
+                  state_dict: Mapping[str, torch.Tensor],
+                  calibration_batches: Iterable[Optional[Mapping]], *,
+                  device: Optional[torch.device | str] = None,
+                  **kwargs) -> "DetectionServer":
+        """Static-int8 serving: counterpart of the JAX
+        ``DetectionServer.quantized``. Quantizes the fp32 ``state_dict``
+        (``ops.quant.quantize_state_dict``), runs ``calibration_batches``
+        once through the dynamic-int8 model to record each int8 layer's
+        input abs-max, and serves with those static scales.
+
+        ``calibration_batches``: batches as ``make_inference_step`` takes
+        them (tensors or numpy arrays), or None for a zero batch of one
+        window. They are fed as the JAX package feeds them: the full
+        forward without ``shared_queries``, the query intervals all
+        zeros (not the inference pyramid)."""
+        device = resolve_device(device)
+        qcfg = dataclasses.replace(cfg, quantized_inference=True)
+        qstate = quant.quantize_state_dict(state_dict)
+        qmodel = TimDetection(qcfg, device=device)
+        qmodel.load_state_dict(qstate, strict=True)
+        nq = generate_query_pyramid(cfg.inference_query_size).shape[0]
+        nv = nq if "visual" in cfg.data_modality else 0
+        na = nq if "audio" in cfg.data_modality else 0
+
+        def tensor(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        def feats(batch, key, modality, dim):
+            if batch is None:
+                return (torch.zeros((1, cfg.num_feats, dim), device=device)
+                        if modality in cfg.input_modality else None)
+            return None if batch.get(key) is None else tensor(batch[key])
+
+        @torch.inference_mode()
+        def run(batch):
+            v = feats(batch, "v_feats", "visual", cfg.visual_input_dim)
+            a = feats(batch, "a_feats", "audio", cfg.audio_input_dim)
+            b = (v if v is not None else a).shape[0]
+            ctx = (torch.zeros((1, cfg.num_context, 2), device=device)
+                   if batch is None else tensor(batch["times"]))
+            times = torch.cat(
+                [ctx, torch.zeros((b, nv + na, 2), device=device)], dim=1)
+            qmodel.encoder_forward(v, a, qmodel.encode_times(times), nv, na)
+
+        scales = quant.calibrate_act_scales(
+            qmodel.int8_layers(), run, calibration_batches)
+        scfg = dataclasses.replace(qcfg, quant_static_acts=True,
+                                   quant_act_scales=scales)
+        return cls(scfg, qstate, device=device, **kwargs)
 
     # ------------------------------------------------------------------
     # The two numpy helpers are copies of tim_tpu/serve.py's (that module

@@ -7,7 +7,7 @@ from typing import Dict, Optional
 
 import torch
 
-from tim_tpu.config import DetectionConfig
+from tim_tpu_torch.config import DetectionConfig
 from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection
 
