@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card is required; prints nvidia-smi's name and power
-     limit; TF32 off for matmuls and cuDNN;
+     limit; TF32 stays at PyTorch's defaults, as the entry points run;
   2. build: compiles the CUDA kernels from ``tim_tpu_torch/csrc`` (one
      nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the card
@@ -30,10 +30,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel 2 never, kernel 3 twice; int8 vs bf16 scores on the 2 windows
      within the repo's contract (max 0.1, mean 0.01);
   8. headline mode: the same with bf16 attention scores (``fast_scores``):
-     kernel 1 never launched, kernel 3 twice per batch.
-The counts are set to 0 just before each serving run and read just after
-it. The line before the last is the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+     kernel 1 never launched, kernel 3 twice per batch;
+  9. backbone kernels: kernel 4 (window attention) against its plain
+     version in fp32 and bf16 at each Swin-B stage shape of one 32 x 224^2
+     clip (shifted and unshifted blocks; stage 4 has one window type) and
+     kernel 5 (flash attention) at [2, 16, 1568, 64] and a ragged S (the
+     bf16 gate also shown to reject two faulty controls), then both timed
+     at batch 8 beside the plain version and one library call;
+ 10. backbone fp32 slices: full-width Swin-B (32 x 224^2) and ViT-L
+     (16 x 224^2) on one clip, on the card with the kernels against the
+     CPU with the plain versions; 24 launches per forward;
+ 11. extraction: ``make_visual_apply`` (bf16, batch 8) and
+     ``extract_features_for_video`` over a synthetic video of 64 clips
+     per backbone: device and wall clips/s, kernel 4 (Swin-B) and kernel 5
+     (ViT-L) launched 24 times per forward; bf16 vs fp32 features on 2
+     clips.
+The counts are set to 0 just before each serving or extraction run and
+read just after it. The line before the last is the kernels' JSON; the
+last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +71,19 @@ TOL = {("query_block_attention", "float32"): 1e-4,
        ("fused_post_attention", "float32"): 2e-4,
        ("fused_post_attention", "bfloat16"): 5e-2}
 SLICE_TOL = 1e-3         # fp32 card vs fp32 CPU, whole slice
+# kernels 4 and 5 vs their plain versions: fp32 sums in another order
+# (1e-4 elementwise); bf16 scaled to the output (see attention_close)
+ATTN_F32_TOL = 1e-4
+ATTN_BF16_FLOOR = 2.0 ** -7      # of max |want|, beside two bf16 spacings
+ATTN_BF16_REL_RMS = 1e-2         # ||got - want|| / ||want||
+# bf16 vs fp32 backbone features, relative to the largest fp32 feature
+# (measured 5.9e-3 Swin-B, 4.4e-3 ViT-L; features scaled by 0.98 fail)
+BF16_FEATURE_TOL = 1.5e-2
+# Swin-B stages on one 32 x 224^2 clip: (windows per clip, heads, token
+# grid); N = 16 x 7 x 7 = 784 tokens per window, head dim 32
+SWIN_STAGES = ((64, 4, (16, 56, 56)), (16, 8, (16, 28, 28)),
+               (4, 16, (16, 14, 14)), (1, 32, (16, 7, 7)))
+EXTRACT_CLIPS = 64
 BF16_SCORE_TOL = 0.1     # bf16 vs fp32 sigmoid scores
 # int8 vs bf16 sigmoid scores: tests/test_quant_accuracy.py's contract
 INT8_SCORE_MAX, INT8_SCORE_MEAN = 0.1, 0.01
@@ -135,6 +162,49 @@ def kernel_close(got, want, tol: float) -> bool:
     if got.dtype == torch.bfloat16:
         bound_ = torch.maximum(bound_, 2 * bf16_spacing(want))
     return bool((err <= bound_).all())
+
+
+def attention_close(got, want):
+    """Kernels 4 and 5 against their plain versions: (ok, max abs error,
+    relative RMS error). fp32: every |got - want| <= ATTN_F32_TOL. bf16:
+    attention outputs are small (about sqrt(e / S) for unit-variance
+    scores: 0.04 at S = 1568), so kernels 1 and 2's flat 5e-2 would pass a
+    kernel that shrinks every output by 20%. Here every |got - want| <= two
+    bf16 spacings at |want| plus ATTN_BF16_FLOOR * max |want|, and
+    ||got - want|| / ||want|| <= ATTN_BF16_REL_RMS. The probabilities are
+    rounded to bf16 before normalising in the kernel and after it in the
+    plain version, which two correct kernels differ by."""
+    err = (got.float() - want.float()).abs()
+    rel = (err.norm() / want.float().norm()).item()
+    if got.dtype != torch.bfloat16:
+        ok = bool((err <= ATTN_F32_TOL).all())
+    else:
+        floor = ATTN_BF16_FLOOR * want.float().abs().max()
+        ok = (bool((err <= 2 * bf16_spacing(want) + floor).all())
+              and rel <= ATTN_BF16_REL_RMS)
+    return ok, err.max().item(), rel
+
+
+def online_attention(s, v, tile: int = 64, rescale_sum: bool = True):
+    """softmax(s) v as kernels 4 and 5 compute it, from fp32 scores s
+    [..., N, N]: an online softmax over key tiles of ``tile``, the fp32
+    running sum of the unnormalised probabilities, those probabilities
+    rounded to v's dtype for the PV product, one rounding of the output.
+    ``rescale_sum=False`` is a fault, the bf16 gate's control: the running
+    sum is not rescaled when the running max grows, so outputs shrink."""
+    m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:-1], v.shape[-1], device=s.device)
+    for j in range(0, s.shape[-1], tile):
+        st = s[..., j:j + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = (l * corr if rescale_sum else l) + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + p.to(v.dtype).float() @ v[..., j:j + tile, :].float())
+        m = m_new
+    return (acc / l[..., None]).to(v.dtype)
 
 
 def int8_close(got, want) -> bool:
@@ -456,12 +526,16 @@ def synthetic_video(cfg, rng):
 
 
 def launch_counters():
+    from tim_tpu_torch.ops import flash_mha as fm
     from tim_tpu_torch.ops import fused_post_attention as fpa
     from tim_tpu_torch.ops import int8_matmul_fused as i8
     from tim_tpu_torch.ops import query_block_attention as qba
+    from tim_tpu_torch.ops import window_attention as wa
     return {"query_block_attention": qba.query_block_attention,
             "fused_post_attention": fpa.fused_post_attention,
-            "int8_matmul_fused": i8.int8_matmul_fused}
+            "int8_matmul_fused": i8.int8_matmul_fused,
+            "window_attention": wa.window_attention,
+            "flash_mha": fm.flash_mha}
 
 
 def serve_run(tag, server, video, threshold):
@@ -696,6 +770,344 @@ def phase_serve_int8(tag, state_dict, batch2, out16, video, threshold,
     return launches, metrics
 
 
+def swin_qkv(batch, n_win, heads, dtype, gen, n=784, dh=32):
+    """q/k/v of one Swin block as the model hands them to kernel 4:
+    strided [B*nW, H, N, dh] views of one packed [B*nW, N, 3, H, dh]
+    projection."""
+    qkv = torch.randn(batch * n_win, n, 3, heads, dh, generator=gen,
+                      device="cuda").to(dtype)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def swin_bias(heads, dims, shifted, gen):
+    """A block's relative-position bias [H, N, N] (a random table gathered
+    by the real index) and region ids [nW, N] (None when unshifted)."""
+    from tim_tpu_torch.models.backbones import swin3d as sw
+    window, shift = sw.effective_window(dims, (16, 7, 7),
+                                        (8, 3, 3) if shifted else (0, 0, 0))
+    n = window[0] * window[1] * window[2]
+    table = torch.randn(31 * 13 * 13, heads, generator=gen, device="cuda")
+    idx = torch.from_numpy(sw.relative_position_index((16, 7, 7))[:n, :n]
+                           .reshape(-1)).cuda()
+    bias = table[idx].view(n, n, heads).permute(2, 0, 1).contiguous()
+    region = None
+    if any(shift):
+        region = torch.from_numpy(sw.shift_region_ids(
+            dims, window, shift)).cuda()
+    return bias, region
+
+
+def vit_qkv(batch, seq, dtype, gen, heads=16, dh=64):
+    """q/k/v of one ViT block: strided [B, H, S, dh] views of the packed
+    [B, S, 3, H, dh] projection."""
+    qkv = torch.randn(batch, seq, 3, heads, dh, generator=gen,
+                      device="cuda").to(dtype)
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def check_attention(name, kernel, plain, args, kw, tag, scores=None):
+    """The kernel against its plain version; returns (kernel output, max
+    abs error). In bf16, with ``scores`` (a function of the inputs giving
+    the fp32 scores), also requires that the gate rejects two faulty
+    controls: the plain output scaled by 0.98, and the online softmax that
+    does not rescale its running sum."""
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    ok, err, rel = attention_close(got, want)
+    log(f"[backbone-kernels] {name} {tag}: max_abs_err={err:.3e}, "
+        f"relative RMS {rel:.3e}")
+    require(got.shape == want.shape and ok,
+            f"{name} {tag} disagrees with its plain version: max abs {err}, "
+            f"relative RMS {rel}")
+    if scores is not None and got.dtype == torch.bfloat16:
+        controls = {"plain x 0.98": (want.float() * 0.98).to(want.dtype),
+                    "running sum not rescaled": online_attention(
+                        scores(*args, **kw), args[2], rescale_sum=False)}
+        for cname, bad in controls.items():
+            bad_ok, bad_err, bad_rel = attention_close(bad, want)
+            log(f"[backbone-kernels] {name} {tag} control '{cname}': max "
+                f"abs {bad_err:.3e}, relative RMS {bad_rel:.3e}, "
+                f"{'passes' if bad_ok else 'rejected'}")
+            require(not bad_ok, f"{name} {tag}: the bf16 gate passes the "
+                    f"faulty control '{cname}'")
+    return got, err
+
+
+def swin_scores(q, k, v, bias, region, *, sm_scale):
+    from tim_tpu_torch.ops.window_attention import window_scores
+    return window_scores(q, k, bias, region, sm_scale=sm_scale)
+
+
+def vit_scores(q, k, v, *, sm_scale):
+    return torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+
+
+def window_library_args(q, k, v, bias, region, n_win):
+    """Kernel 4's function as one ``scaled_dot_product_attention`` call:
+    [B, nW*H, N, dh] inputs and a float mask ab[type] broadcast over the
+    clips (ab as the JAX model materialises it, in q's dtype)."""
+    from tim_tpu_torch.ops.window_attention import attention_bias
+    bw, h, n, dh = q.shape
+    shape = (bw // n_win, n_win * h, n, dh)
+    ab = attention_bias(bias, region).expand(n_win, h, n, n)
+    return ([t.reshape(shape) for t in (q, k, v)],
+            ab.reshape(1, n_win * h, n, n).to(q.dtype))
+
+
+def phase_backbone_kernels(gen):
+    """Kernels 4 and 5 against their plain versions, then timed at batch
+    8 (the extraction batch)."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import window_attention as wa
+
+    worst = {"window_attention": 0.0, "flash_mha": 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_win, heads, dims in SWIN_STAGES:
+            for shifted in ((False, True) if n_win > 1 else (False,)):
+                q, k, v = swin_qkv(1, n_win, heads, dtype, gen)
+                bias, region = swin_bias(heads, dims, shifted, gen)
+                _, err = check_attention(
+                    "window_attention", wa.window_attention,
+                    wa.window_attention_plain, (q, k, v, bias, region),
+                    {"sm_scale": 32 ** -0.5},
+                    f"{dtype} nW={n_win} H={heads} shifted={shifted} "
+                    f"n_types={1 if region is None else n_win}",
+                    scores=(swin_scores if n_win == 64 and shifted
+                            else None))
+                worst["window_attention"] = max(worst["window_attention"],
+                                                err)
+                cases += 1
+        for b, s in ((2, 1568), (2, 200), (3, 37)):
+            _, err = check_attention(
+                "flash_mha", fm.flash_mha, fm.flash_mha_plain,
+                vit_qkv(b, s, dtype, gen), {"sm_scale": 0.125},
+                f"{dtype} [{b}, 16, {s}, 64]",
+                scores=vit_scores if s == 1568 else None)
+            worst["flash_mha"] = max(worst["flash_mha"], err)
+            cases += 1
+    log(f"[backbone-kernels] {cases} cases agree with the plain versions")
+
+    report = {}
+    per_stage = []
+    for n_win, heads, dims in SWIN_STAGES:
+        shifted = n_win > 1
+        q, k, v = swin_qkv(8, n_win, heads, torch.bfloat16, gen)
+        bias, region = swin_bias(heads, dims, shifted, gen)
+        args, kw = (q, k, v, bias, region), {"sm_scale": 32 ** -0.5}
+        out, err = check_attention("window_attention", wa.window_attention,
+                                   wa.window_attention_plain, args, kw,
+                                   f"bf16 batch 8 nW={n_win}")
+        bw, h, n, dh = q.shape
+        ms_bound, by = bound(nbytes(q, k, v, bias, region, out),
+                             4 * bw * h * n * n * dh, "bf16")
+        lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
+        lib_err = max_err(F.scaled_dot_product_attention(
+            *lib_qkv, attn_mask=mask, scale=32 ** -0.5).reshape(out.shape),
+            out)
+        del out
+        row = {"stage": len(per_stage) + 1, "windows": bw, "heads": h,
+               "shifted": shifted, "max_abs_err": err,
+               "ms": cuda_ms(lambda: wa.window_attention(*args, **kw)),
+               "plain_ms": cuda_ms(
+                   lambda: wa.window_attention_plain(*args, **kw), iters=3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   *lib_qkv, attn_mask=mask, scale=32 ** -0.5)),
+               "bound_ms": ms_bound, "bound_by": by}
+        log(f"[backbone-kernels] window_attention stage {row['stage']} "
+            f"[{bw}, {h}, {n}, {dh}] bf16 shifted={shifted}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, masked "
+            f"scaled_dot_product_attention {row['library_ms']:.4f} ms (max "
+            f"abs diff to the kernel {lib_err:.3e}), bound {ms_bound:.4f} ms "
+            f"({by})")
+        per_stage.append(row)
+        del args, lib_qkv, mask, q, k, v
+        torch.cuda.empty_cache()
+    first = per_stage[0]
+    report["window_attention"] = {
+        "max_abs_err": max(worst["window_attention"],
+                           *(r["max_abs_err"] for r in per_stage)),
+        **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "per_stage": per_stage}
+
+    q, k, v = vit_qkv(8, 1568, torch.bfloat16, gen)
+    kw = {"sm_scale": 0.125}
+    out, err = check_attention("flash_mha", fm.flash_mha, fm.flash_mha_plain,
+                               (q, k, v), kw, "bf16 [8, 16, 1568, 64]")
+    b, h, s, dh = q.shape
+    ms_bound, by = bound(nbytes(q, k, v, out), 4 * b * h * s * s * dh,
+                         "bf16")
+    lib_err = max_err(F.scaled_dot_product_attention(q, k, v, **{
+        "scale": 0.125}), out)
+    del out
+    report["flash_mha"] = {
+        "max_abs_err": max(worst["flash_mha"], err),
+        "ms": cuda_ms(lambda: fm.flash_mha(q, k, v, **kw)),
+        "plain_ms": cuda_ms(lambda: fm.flash_mha_plain(q, k, v, **kw),
+                            iters=3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=0.125)),
+        "bound_ms": ms_bound, "bound_by": by}
+    log(f"[backbone-kernels] flash_mha [8, 16, 1568, 64] bf16: kernel "
+        f"{report['flash_mha']['ms']:.4f} ms, plain "
+        f"{report['flash_mha']['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {report['flash_mha']['library_ms']:.4f}"
+        f" ms (max abs diff to the kernel {lib_err:.3e}), bound "
+        f"{ms_bound:.4f} ms ({by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return report
+
+
+BACKBONES = {
+    # backbone: (factory, clip shape, kernel that its attention launches)
+    "omnivore": ("omnivore_swinB_epic", (32, 224, 224, 3),
+                 "window_attention"),
+    "videomae": ("videomae_vit_large", (16, 224, 224, 3), "flash_mha"),
+}
+
+
+def backbone(name, dtype, device):
+    """The backbone as ``make_visual_apply`` builds it (generator seeded
+    0), in ``dtype`` on ``device``."""
+    from tim_tpu_torch.models.backbones import swin3d, vit
+    factory = getattr(swin3d if name == "omnivore" else vit, BACKBONES[name][0])
+    return factory(dtype=dtype, device=device,
+                   generator=torch.Generator().manual_seed(SEED)).eval()
+
+
+def phase_backbone_slice_fp32(name, clips):
+    """Full-width backbone on one clip in fp32: the card with its kernels
+    against the CPU with the plain versions; the card's fp32 features of
+    ``clips`` are returned for the bf16 comparison."""
+    kernel = BACKBONES[name][2]
+    t0 = time.perf_counter()
+    cpu_model = backbone(name, "float32", "cpu")
+    gpu_model = backbone(name, "float32", "cuda")
+    log(f"[slice-{name}-fp32] built two full-width {name} backbones "
+        f"({sum(p.numel() for p in cpu_model.parameters())} params) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    x = torch.from_numpy(clips)
+    gpu = gpu_model(x.cuda())
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    require(launches[kernel] == 24 and sum(launches.values()) == 24,
+            f"{name} fp32 forward launches {launches}, expected 24 of "
+            f"{kernel}")
+    t0 = time.perf_counter()
+    cpu = cpu_model(x[:1])
+    log(f"[slice-{name}-fp32] CPU plain forward of 1 clip: "
+        f"{time.perf_counter() - t0:.2f} s")
+    g = gpu[:1].cpu()
+    require(g.shape == cpu.shape and bool(torch.isfinite(g).all()),
+            f"{name} fp32 features: shape {tuple(g.shape)} vs "
+            f"{tuple(cpu.shape)} or non-finite")
+    err = max_err(g, cpu)
+    log(f"[slice-{name}-fp32] features {tuple(g.shape)}: card vs CPU "
+        f"max_abs_err={err:.3e} (tol {SLICE_TOL}), launches {launches}")
+    require(err <= SLICE_TOL, f"{name} fp32 card vs CPU {err} > {SLICE_TOL}")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return gpu.float(), err
+
+
+def phase_extract(name, fp32_feats, clips):
+    """``make_visual_apply`` + ``extract_features_for_video`` in bf16 over
+    a synthetic video of EXTRACT_CLIPS clips at batch 8."""
+    from tim_tpu_torch.extract.cli import build_parser, make_visual_apply
+    from tim_tpu_torch.extract.pipeline import extract_features_for_video
+
+    frames = BACKBONES[name][1][0]
+    args = build_parser().parse_args(
+        ["--backbone", name, "--feature_times", "unused", "--out_dir",
+         "unused", "--batch_size", "8", "--compute_dtype", "bfloat16",
+         "--num_frames", str(frames)])
+    t0 = time.perf_counter()
+    apply_fn = make_visual_apply(args)
+    log(f"[extract-{name}] make_visual_apply (random weights, seed {SEED}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    # bf16 vs fp32 features on the 2 clips of the fp32 phase
+    feats16 = apply_fn(torch.from_numpy(clips))
+    rel = max_err(feats16, fp32_feats) / fp32_feats.abs().max().item()
+    log(f"[extract-{name}] bf16 vs fp32 features, 2 clips: relative max "
+        f"diff {rel:.4e} (tol {BF16_FEATURE_TOL})")
+    require(rel <= BF16_FEATURE_TOL, f"{name} bf16 features drift {rel}")
+
+    rng = np.random.default_rng(SEED + 1)
+    shape = BACKBONES[name][1]
+    base = [rng.normal(size=shape).astype(np.float32) for _ in range(4)]
+    events = []
+
+    class Timed:
+        device = apply_fn.device
+
+        def __call__(self, x):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = apply_fn(x)
+            end.record()
+            events.append((start, end))
+            return out
+
+    def clip_fn(t, a):
+        return base[t % len(base)]
+
+    timed = Timed()
+    extract_features_for_video(clip_fn, 8, 1, timed, batch_size=8)  # warm-up
+    events.clear()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = extract_features_for_video(clip_fn, EXTRACT_CLIPS, 1, timed,
+                                      batch_size=8)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    device_ms = sum(s.elapsed_time(e) for s, e in events)
+    forwards = len(events)
+    kernel = BACKBONES[name][2]
+    log(f"[extract-{name}] {EXTRACT_CLIPS} clips in {forwards} batches of 8:"
+        f" device {device_ms:.3f} ms, {EXTRACT_CLIPS / (device_ms / 1e3):.2f}"
+        f" device clips/s; wall {wall:.3f} s, "
+        f"{EXTRACT_CLIPS / wall:.2f} wall clips/s; launches {launches}")
+    require(bank.shape == (EXTRACT_CLIPS, 1, 1024)
+            and bool(np.isfinite(bank).all()),
+            f"{name} bank {bank.shape} or non-finite")
+    require(launches[kernel] == 24 * forwards
+            and sum(launches.values()) == launches[kernel],
+            f"{name} extraction launches {launches}, expected 24 x "
+            f"{forwards} of {kernel}")
+    return launches, {
+        "clips": EXTRACT_CLIPS, "batches": forwards, "device_ms": device_ms,
+        "device_clips_per_s": EXTRACT_CLIPS / (device_ms / 1e3),
+        "wall_s": wall, "wall_clips_per_s": EXTRACT_CLIPS / wall,
+        "launches_per_forward": launches[kernel] / forwards,
+        "bf16_vs_fp32_rel": rel}
+
+
+def phase_backbones(gen):
+    """Phases 9-11; returns (kernel report, launches by path)."""
+    report = phase_backbone_kernels(gen)
+    by_path = {}
+    for name in BACKBONES:
+        rng = np.random.default_rng(SEED)
+        clips = rng.normal(size=(2, *BACKBONES[name][1])).astype(np.float32)
+        fp32_feats, err = phase_backbone_slice_fp32(name, clips)
+        launches, m = phase_extract(name, fp32_feats, clips)
+        m["fp32_card_vs_cpu"] = err
+        log(f"[extract-{name}] summary {json.dumps(m)}")
+        by_path[f"extract-{name}"] = launches
+        torch.cuda.empty_cache()
+    return report, by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -706,8 +1118,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(smi.stdout.strip().splitlines()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -735,9 +1145,14 @@ def main() -> int:
         "serve-int8-fast-scores", state_dict, batch2, out16, video,
         threshold, True)
     log(f"[serve-int8-fast-scores] summary {json.dumps(serving_fast)}")
+    del state_dict, batch2, fp32_out, out16
+    torch.cuda.empty_cache()
 
+    backbone_report, backbone_paths = phase_backbones(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    kernel_report.update(backbone_report)
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
-               "serve-int8-fast-scores": launches_fast}
+               "serve-int8-fast-scores": launches_fast, **backbone_paths}
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",
@@ -748,10 +1163,15 @@ def main() -> int:
                                  "serve-bf16"),
         "int8_matmul_fused": ("tim_tpu_torch/csrc/int8_matmul_fused.cu",
                               "tim_tpu/ops/pallas_int8.py:50", "serve-int8"),
+        "window_attention": ("tim_tpu_torch/csrc/window_attention.cu",
+                             "tim_tpu/ops/pallas_swin.py:207",
+                             "extract-omnivore"),
+        "flash_mha": ("tim_tpu_torch/csrc/flash_mha.cu",
+                      "tim_tpu/ops/flash.py:82", "extract-videomae"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": by_path[path][name],
+         "launches": by_path[path][name], "path": path,
          "launches_by_path": {p: counts[name] for p, counts in
                               by_path.items()},
          **kernel_report[name]}

@@ -148,7 +148,11 @@ def test_serve_imports_no_jax():
     """Importing every module of the port loads no module of JAX, flax or
     the JAX package (tim_tpu)."""
     modules = sorted(_port_modules())
-    assert "tim_tpu_torch.ops.int8_matmul_fused" in modules
+    for module in ("ops.int8_matmul_fused", "ops.window_attention",
+                   "ops.flash_mha", "models.backbones.swin3d",
+                   "models.backbones.vit", "extract.pipeline",
+                   "extract.cli"):
+        assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -175,3 +179,14 @@ def test_entry_points_default_to_the_card():
         TimDetection(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         DetectionServer(cfg, {})
+    from tim_tpu_torch.extract.cli import build_parser, make_visual_apply
+    from tim_tpu_torch.models.backbones import SwinTransformer3D, VideoMAEViT
+    with pytest.raises(RuntimeError, match="cuda"):
+        SwinTransformer3D()
+    with pytest.raises(RuntimeError, match="cuda"):
+        VideoMAEViT()
+    for backbone in ("omnivore", "videomae"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_visual_apply(build_parser().parse_args(
+                ["--backbone", backbone, "--feature_times", "x",
+                 "--out_dir", "y"]))

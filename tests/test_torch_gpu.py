@@ -10,15 +10,19 @@ card every test skips."""
 import pytest
 import torch
 
-from chip_smoke import int8_close, int8_head_args, kernel_close, tail_args
+from chip_smoke import (attention_close, int8_close, int8_head_args,
+                        kernel_close, swin_bias, swin_qkv, tail_args, vit_qkv)
 from tim_tpu_torch import config as C
 from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.ops.fused_post_attention import (
     fused_post_attention, fused_post_attention_plain)
 from tim_tpu_torch.ops.int8_matmul_fused import (
     int8_matmul_fused, int8_matmul_fused_plain)
+from tim_tpu_torch.ops.flash_mha import flash_mha, flash_mha_plain
 from tim_tpu_torch.ops.query_block_attention import (
     query_block_attention, query_block_attention_plain)
+from tim_tpu_torch.ops.window_attention import (
+    window_attention, window_attention_plain)
 
 # fp32: the same function with sums in another order; bf16: the bound
 # tests/test_pallas_fused.py holds the TPU kernel to (see kernel_close)
@@ -124,3 +128,78 @@ def test_models_default_to_the_card(gen):
     server = DetectionServer(cfg, model.state_dict())
     assert server.device.type == "cuda"
     assert next(server.model.parameters()).device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch,n_win,heads,dims,shifted", [
+    (1, 64, 4, (16, 56, 56), True),    # Swin-B stage 1, shifted
+    (2, 16, 8, (16, 28, 28), False),   # stage 2, unshifted
+    (1, 4, 16, (16, 14, 14), True),    # stage 3, shifted
+    (2, 1, 32, (16, 7, 7), False),     # stage 4: one window type
+])
+def test_window_attention_kernel_matches_plain(gen, dtype, batch, n_win,
+                                               heads, dims, shifted):
+    q, k, v = swin_qkv(batch, n_win, heads, dtype, gen)
+    bias, region = swin_bias(heads, dims, shifted, gen)
+    assert (region is None) == (not shifted)
+    before = window_attention.launches
+    got = window_attention(q, k, v, bias, region, sm_scale=32 ** -0.5)
+    assert window_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert attention_close(got, window_attention_plain(
+        q, k, v, bias, region, sm_scale=32 ** -0.5))[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch,seq", [(2, 1568), (2, 200), (3, 37)])
+def test_flash_mha_kernel_matches_plain(gen, dtype, batch, seq):
+    q, k, v = vit_qkv(batch, seq, dtype, gen)
+    before = flash_mha.launches
+    got = flash_mha(q, k, v, sm_scale=0.125)
+    assert flash_mha.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert attention_close(got, flash_mha_plain(q, k, v,
+                                                sm_scale=0.125))[0]
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_other_head_dims(gen):
+    q = torch.randn(1, 2, 40, 48, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_mha(q, q, q, sm_scale=0.1)
+    bias = torch.zeros(2, 40, 40, device="cuda")
+    with pytest.raises(ValueError, match="head dim 48"):
+        window_attention(q, q, q, bias, sm_scale=0.1)
+
+
+@pytest.mark.gpu
+def test_fp32_patch_embed_stays_fp32(gen):
+    """cuDNN runs fp32 convolutions in TF32 by default; the patch embed
+    turns that off, so the card matches the CPU to fp32 rounding."""
+    from tim_tpu_torch.models.common import conv3d_patch_embed
+    assert torch.backends.cudnn.allow_tf32   # PyTorch's default
+    video = torch.randn(2, 16, 224, 224, 3, generator=gen, device="cuda")
+    weight = torch.randn(1024, 3, 2, 16, 16, generator=gen, device="cuda")
+    bias = torch.randn(1024, generator=gen, device="cuda")
+    got = conv3d_patch_embed(video, weight, bias, torch.float32)
+    want = conv3d_patch_embed(video.cpu(), weight.cpu(), bias.cpu(),
+                              torch.float32)
+    assert torch.backends.cudnn.allow_tf32
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_backbones_default_to_the_card(gen):
+    from tim_tpu_torch.models.backbones import SwinTransformer3D, VideoMAEViT
+    swin = SwinTransformer3D(embed_dim=32, depths=(2,), num_heads=(1,),
+                             window_size=(4, 3, 3))
+    vit = VideoMAEViT(embed_dim=64, depth=1, num_heads=1, patch_size=8)
+    for model in (swin, vit):
+        assert next(model.parameters()).device.type == "cuda"
+    clip = torch.randn(1, 4, 24, 24, 3, device="cuda")
+    counts = window_attention.launches, flash_mha.launches
+    assert swin(clip).shape == (1, 32) and vit(clip).shape == (1, 64)
+    assert (window_attention.launches, flash_mha.launches) == (
+        counts[0] + 2, counts[1] + 1)

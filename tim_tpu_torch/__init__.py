@@ -9,7 +9,9 @@ it keeps as its own copies, which tests pin to the originals.
 Ported so far: dense TIM detection inference over pre-extracted
 features, from ``make_inference_step`` through ``serve.DetectionServer``,
 in bf16 and fp32 and as int8 static serving
-(``DetectionServer.quantized``). The three TPU kernels on those paths are
+(``DetectionServer.quantized``); and visual feature extraction with the
+Omnivore Swin-B and VideoMAE ViT-L backbones (``models.backbones``,
+``extract``), forward only. The five TPU kernels on those paths are
 hand-written CUDA for ``sm_90a`` (``csrc/``), built at first use by
 ``_build``; on CPU tensors their wrappers run the plain PyTorch versions
 beside them. Entry points run on the CUDA card unless the caller asks for

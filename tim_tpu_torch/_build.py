@@ -108,6 +108,15 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The library's C launcher ``name``, its argument types set on first
+    use; it returns a CUDA error code (ctypes' default ``int`` result)."""
+    fn = getattr(library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+    return fn
+
+
 def check(status: int, name: str) -> None:
     """Raise when a launcher returned a CUDA error code (``cudaGetLastError``
     right after the launch: a refused launch never runs, and a later

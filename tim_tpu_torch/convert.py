@@ -7,8 +7,11 @@ trained or converted on the JAX side load into
 ``quantized_detection_state_dict_from_jax`` does the same for the int8
 params of ``tim_tpu.ops.quant.quantize_params`` (the layout of
 ``ops.quant.quantize_state_dict``), and ``act_scales_from_jax`` renames
-calibrated activation scales. Works on plain numpy leaves; jax arrays
-convert through ``np.asarray``.
+calibrated activation scales. ``swin_state_dict_from_jax`` and
+``vit_state_dict_from_jax`` invert the backbones' ``params_from_torch``,
+and ``load_torch_checkpoint`` / ``load_backbone_state`` read a released
+backbone checkpoint into a port backbone. Works on plain numpy leaves; jax
+arrays convert through ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -145,3 +148,93 @@ def act_scales_from_jax(act_scales) -> Tuple[Tuple[str, float], ...]:
                              f"differ)")
         out[name] = float(scale)
     return tuple(sorted(out.items()))
+
+
+def _conv(tree: Mapping, prefix: str, out: Dict) -> None:
+    # flax Conv kernel [t, h, w, in, out] -> torch [out, in, t, h, w]
+    out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).transpose(
+        4, 3, 0, 1, 2))
+    out[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def swin_state_dict_from_jax(variables: Mapping, depths=(2, 2, 18, 2)
+                             ) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` of a flax ``SwinTransformer3D`` -> the
+    reference trunk's ``state_dict`` (the inverse of
+    ``swin3d.params_from_torch``)."""
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["patch_embed"], "patch_embed.proj", out)
+    if "patch_norm" in p:
+        _norm(p["patch_norm"], "patch_embed.norm", out)
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            src, dst = p[f"layer{i}_block{j}"], f"layers.{i}.blocks.{j}"
+            _norm(src["norm1"], f"{dst}.norm1", out)
+            _norm(src["norm2"], f"{dst}.norm2", out)
+            attn = src["attn"]
+            out[f"{dst}.attn.relative_position_bias_table"] = _t(
+                attn["relative_position_bias_table"])
+            _linear(attn["qkv"], f"{dst}.attn.qkv", out)
+            _linear(attn["proj"], f"{dst}.attn.proj", out)
+            _linear(src["fc1"], f"{dst}.mlp.fc1", out)
+            _linear(src["fc2"], f"{dst}.mlp.fc2", out)
+        if i < len(depths) - 1:
+            down = p[f"layer{i}_downsample"]
+            _norm(down["norm"], f"layers.{i}.downsample.norm", out)
+            out[f"layers.{i}.downsample.reduction.weight"] = _t(
+                np.asarray(down["reduction"]["kernel"]).T)
+    _norm(p["norm"], "norm", out)
+    return out
+
+
+def vit_state_dict_from_jax(variables: Mapping, depth: int = 24
+                            ) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` of a flax ``VideoMAEViT`` -> the reference
+    checkpoint's ``state_dict`` (the inverse of ``vit.params_from_torch``;
+    no classifier head)."""
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["patch_embed"], "patch_embed.proj", out)
+    _norm(p["fc_norm"], "fc_norm", out)
+    for i in range(depth):
+        src, dst = p[f"block{i}"], f"blocks.{i}"
+        _norm(src["norm1"], f"{dst}.norm1", out)
+        _norm(src["norm2"], f"{dst}.norm2", out)
+        attn = src["attn"]
+        out[f"{dst}.attn.qkv.weight"] = _t(np.asarray(attn["qkv_kernel"]).T)
+        out[f"{dst}.attn.q_bias"] = _t(attn["q_bias"])
+        out[f"{dst}.attn.v_bias"] = _t(attn["v_bias"])
+        _linear(attn["proj"], f"{dst}.attn.proj", out)
+        _linear(src["fc1"], f"{dst}.mlp.fc1", out)
+        _linear(src["fc2"], f"{dst}.mlp.fc2", out)
+        if "gamma_1" in src:
+            out[f"{dst}.gamma_1"] = _t(src["gamma_1"])
+            out[f"{dst}.gamma_2"] = _t(src["gamma_2"])
+    return out
+
+
+def load_torch_checkpoint(path: str):
+    """A released torch checkpoint's state dict, unwrapped from ``trunk``,
+    ``model``, ``state_dict`` or ``model_state`` as
+    ``tim_tpu/extract/cli.py:72-79`` does. Like it, this unpickles the
+    whole file (released checkpoints hold more than tensors): load only
+    checkpoints you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("trunk", "model", "state_dict", "model_state"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            return ckpt[key]
+    return ckpt
+
+
+def load_backbone_state(model: torch.nn.Module, state_dict: Mapping
+                        ) -> list:
+    """Load a reference-layout state dict into a port backbone: every
+    parameter of the model must be there (raises otherwise); keys the
+    model has no use for (a classifier head, Swin's derived
+    ``relative_position_index`` buffers) are skipped and returned."""
+    missing, unexpected = model.load_state_dict(dict(state_dict),
+                                                strict=False)
+    if missing:
+        raise KeyError(f"load_backbone_state: checkpoint lacks {missing}")
+    return list(unexpected)

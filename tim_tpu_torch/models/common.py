@@ -39,8 +39,10 @@ def exact_gelu(x):
 
 
 def linear(x, weight, bias, dtype: torch.dtype):
-    """x . weight^T + bias with the casts above; weight is [out, in]."""
-    return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+    """x . weight^T + bias with the casts above; weight is [out, in];
+    bias may be None."""
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -51,16 +53,20 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
 class TorchLinear(nn.Module):
     """nn.Linear-layout ``weight`` [out, in] and ``bias`` [out] (fp32),
     torch's default init U(+-1/sqrt(in)) unless ``bias_value`` fixes the
-    bias; applied with ``linear``'s casts."""
+    bias, or no bias with ``use_bias=False``; applied with ``linear``'s
+    casts."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, generator: torch.Generator,
-                 bias_value: float | None = None):
+                 bias_value: float | None = None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(
             torch.empty(out_features, in_features), bound, generator))
+        if not use_bias:
+            self.register_parameter("bias", None)
+            return
         bias = torch.empty(out_features)
         if bias_value is None:
             uniform_(bias, bound, generator)
@@ -127,13 +133,28 @@ class Int8Dense(nn.Module):
 
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` parameters, flax semantics: fp32 statistics with the
-    fast variance, eps 1e-5, fp32 output (callers cast)."""
+    fast variance, eps 1e-5 unless given (the ViT's are 1e-6), fp32 output
+    (callers cast)."""
 
-    def __init__(self, dim: int):
-        super().__init__(dim, eps=1e-5)
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
     def forward(self, x):
         return layer_norm_fp32(x, self.weight, self.bias, self.eps)
+
+
+class GeluMlp(nn.Module):
+    """``fc1`` -> exact GELU -> ``fc2`` in the compute dtype (the
+    backbones' ``mlp``)."""
+
+    def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype,
+                 generator: torch.Generator):
+        super().__init__()
+        self.fc1 = TorchLinear(dim, hidden, dtype=dtype, generator=generator)
+        self.fc2 = TorchLinear(hidden, dim, dtype=dtype, generator=generator)
+
+    def forward(self, x):
+        return self.fc2(exact_gelu(self.fc1(x)))
 
 
 def MLP(dims, *, dtype: torch.dtype, generator: torch.Generator,
@@ -149,3 +170,56 @@ def MLP(dims, *, dtype: torch.dtype, generator: torch.Generator,
     if final is not None:
         layers.append(final)
     return nn.Sequential(*layers)
+
+
+def conv3d_patch_embed(video, weight, bias, dtype: torch.dtype):
+    """flax ``nn.Conv(padding="VALID", strides=kernel)`` as a patch embed:
+    channels-last video [B, T, H, W, C_in] -> [B, T', H', W', C_out], the
+    input, kernel and bias cast to the compute dtype (flax's casts).
+    ``weight`` is torch's [C_out, C_in, kt, kh, kw]. fp32 stays fp32:
+    cuDNN's TF32, on by default for convolutions, is turned off here."""
+    x = video.to(dtype).permute(0, 4, 1, 2, 3)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = F.conv3d(x, weight.to(dtype), bias.to(dtype),
+                     stride=tuple(weight.shape[2:]))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+class Conv3dParams(nn.Module):
+    """``nn.Conv3d``'s ``weight`` [out, in, kt, kh, kw] and ``bias``
+    [out] (fp32), torch's default bound U(+-1/sqrt(fan_in)) drawn from
+    ``generator``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, *,
+                 generator: torch.Generator):
+        super().__init__()
+        kernel = tuple(kernel)
+        bound = 1.0 / math.sqrt(in_channels * math.prod(kernel))
+        self.weight = nn.Parameter(uniform_(
+            torch.empty(out_channels, in_channels, *kernel), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound,
+                                          generator))
+
+
+class PatchEmbed3D(nn.Module):
+    """Conv3D patch embedding, stride = kernel, channels-last in and out:
+    ``proj`` (the reference's ``patch_embed.proj``) and, with ``norm``,
+    a LayerNorm (``patch_embed.norm``, eps 1e-5) whose fp32 output is cast
+    to the compute dtype."""
+
+    def __init__(self, patch, dim: int, *, dtype: torch.dtype,
+                 generator: torch.Generator, in_channels: int = 3,
+                 norm: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.proj = Conv3dParams(in_channels, dim, patch, generator=generator)
+        self.norm = LayerNorm(dim) if norm else None
+
+    def forward(self, video):
+        x = conv3d_patch_embed(video, self.proj.weight, self.proj.bias,
+                               self.dtype)
+        if self.norm is not None:
+            x = self.norm(x).to(self.dtype)
+        return x

@@ -26,6 +26,10 @@ from tim_tpu_torch import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = 128   # C and FF must be multiples of the kernel's output tile
 EPS = 1e-5
+# tim_fused_post_attention(10 inputs, y, h, out, n, c, ff, bf16, eps,
+# stream)
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def layer_norm_fp32(x, weight, bias, eps: float = EPS):
@@ -118,10 +122,7 @@ def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
     y = torch.empty((n, c), dtype=dt, device=x.device)      # scratch
     h = torch.empty((n, ff), dtype=dt, device=x.device)     # scratch
     out = torch.empty(x.shape, dtype=dt, device=x.device)
-    fn = _build.library().tim_fused_post_attention
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.launcher("tim_fused_post_attention", _ARGTYPES)
     status = fn(*[t.data_ptr() for t in inputs + [y, h, out]],
                 n, c, ff, int(dt == torch.bfloat16), EPS,
                 torch.cuda.current_stream(x.device).cuda_stream)

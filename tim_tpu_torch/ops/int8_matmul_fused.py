@@ -30,6 +30,11 @@ _IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _ACTIVATIONS = (None, "gelu")
 _ALIGN = 8     # x's row strides, in elements, must be multiples of this
+# tim_int8_matmul_fused(x, w_q, w_scale, bias, out, sb, sr, batches, rows,
+# k, n, inv_sx, sx, gelu, x_bf16, out_bf16, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
+             + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _scales(act_scale: float):
@@ -125,11 +130,7 @@ def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
         raise ValueError("int8_matmul_fused: w_q must start 16-byte aligned")
     w_scale = w_scale.float().contiguous()
     bias_ptr = None if bias is None else bias.float().contiguous()
-    fn = _build.library().tim_int8_matmul_fused
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.launcher("tim_int8_matmul_fused", _ARGTYPES)
     status = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                 None if bias_ptr is None else bias_ptr.data_ptr(),
                 out.data_ptr(), sb, sr, batches, rows, k, n, inv_sx, sx,

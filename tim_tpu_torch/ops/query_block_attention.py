@@ -22,6 +22,10 @@ from tim_tpu_torch import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128, 256)
+# tim_query_block_attention(qq, kc, kq, vc, vq, out, strides, b, h, nq, f,
+# dh, bf16, scale, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def query_block_attention_plain(qq, kc, kq, vc, vq):
@@ -86,10 +90,7 @@ def query_block_attention(qq, kc, kq, vc, vq):
     tensors = (qq, kc, kq, vc, vq)
     strides = (ctypes.c_longlong * 15)(
         *[s for t in tensors for s in t.stride()[:3]])
-    fn = _build.library().tim_query_block_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.launcher("tim_query_block_attention", _ARGTYPES)
     status = fn(*[t.data_ptr() for t in tensors], out.data_ptr(), strides,
                 b, h, nq, kc.shape[2], dh, int(qq.dtype == torch.bfloat16),
                 1.0 / math.sqrt(dh),

@@ -1,14 +1,18 @@
-"""Where the device time of one dense-detection serving batch goes, on the
-CUDA card:
+"""Where the device time of one dense-detection serving batch, or of one
+backbone forward, goes, on the CUDA card:
 
-    python -m tim_tpu_torch.profile_serving [--mode bf16|int8|int8-fast]
-                                            [--batch 128] [--steps 3]
+    python -m tim_tpu_torch.profile_serving
+        [--mode bf16|int8|int8-fast|swin|vit] [--batch N] [--steps 3]
 
-Builds the full-width EPIC-KITCHENS-100 detection model (random weights
-from seed 0; ``int8`` modes through ``DetectionServer.quantized``,
-calibrated on 2 random windows, with the fused int8 heads; ``int8-fast``
-adds bf16 attention scores), runs ``make_inference_step`` (top-8 dump) on
-one random batch: 3 warm-up steps, then ``torch.profiler`` over
+Detection modes build the full-width EPIC-KITCHENS-100 detection model
+(random weights from seed 0; ``int8`` modes through
+``DetectionServer.quantized``, calibrated on 2 random windows, with the
+fused int8 heads; ``int8-fast`` adds bf16 attention scores) and run
+``make_inference_step`` (top-8 dump) on one random batch (default 128
+windows). ``swin`` and ``vit`` build the Omnivore Swin-B or VideoMAE
+ViT-L backbone in bf16 (random weights from seed 0, as the extraction
+CLI) and run its forward on random clips (default 8; 32 x 224^2 and
+16 x 224^2). Each runs 3 warm-up steps, then ``torch.profiler`` over
 ``--steps`` steps. Prints the card's name and power limit, the device
 milliseconds per step (CUDA events), the share of it in which a kernel
 ran, and the kernels by device time per step; the last line is one JSON
@@ -31,6 +35,9 @@ from tim_tpu_torch.serve import DetectionServer
 
 MODES = {"bf16": {}, "int8": {"quant_pallas_heads": True},
          "int8-fast": {"quant_pallas_heads": True, "fast_scores": True}}
+# backbone modes: (module, factory, clip shape)
+BACKBONE_MODES = {"swin": ("swin3d", "omnivore_swinB_epic", (32, 224, 224, 3)),
+                  "vit": ("vit", "videomae_vit_large", (16, 224, 224, 3))}
 
 
 def random_batch(cfg, n: int, rng) -> dict:
@@ -62,24 +69,43 @@ def build(mode: str, batch: int):
     return server, random_batch(cfg, batch, rng)
 
 
+def build_backbone(mode: str, batch: int):
+    """(forward, clips) of a bf16 backbone on the card."""
+    import importlib
+    module, factory, shape = BACKBONE_MODES[mode]
+    mod = importlib.import_module(f"tim_tpu_torch.models.backbones.{module}")
+    model = getattr(mod, factory)(dtype="bfloat16", device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+    clips = torch.randn(batch, *shape, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0))
+    return model, clips
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--mode", choices=sorted(MODES), default="bf16")
-    parser.add_argument("--batch", type=int, default=128)
+    parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES]),
+                        default="bf16")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="windows (default 128) or clips (default 8)")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    server, batch = build(args.mode, args.batch)
-    step = server._infer
+    if args.mode in BACKBONE_MODES:
+        args.batch = args.batch or 8
+        step, batch = build_backbone(args.mode, args.batch)
+    else:
+        args.batch = args.batch or 128
+        server, batch = build(args.mode, args.batch)
+        step = server._infer
     for _ in range(3):
         step(batch)
     torch.cuda.synchronize()
