@@ -5,9 +5,11 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card is required; prints nvidia-smi's name and power
-     limit; TF32 stays at PyTorch's defaults, as the entry points run;
+     limit; TF32 stays at PyTorch's defaults, as the entry points run; the
+     CPU references use no more threads than the host lets it use;
   2. build: compiles the CUDA kernels from ``tim_tpu_torch/csrc`` (one
-     nvcc per source, all started together);
+     nvcc per source, all started together); prints each source's compile
+     seconds and each attention kernel's registers and spills (ptxas);
   3. kernels: each kernel against its plain PyTorch version on the card
      (kernels 1 and 2 in fp32 and bf16 at batch 16; kernel 3 with fp32 and
      bf16 output, with and without bias and GELU, N in {3806, 44, 256},
@@ -44,18 +46,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``extract_features_for_video`` over a synthetic video of 64 clips
      per backbone: device and wall clips/s, kernel 4 (Swin-B) and kernel 5
      (ViT-L) launched 24 times per forward; bf16 vs fp32 features on 2
-     clips.
-The counts are set to 0 just before each serving or extraction run and
-read just after it. The line before the last is the kernels' JSON; the
+     clips;
+ 12. training kernels: the backward of kernel 4 at every Swin-B stage
+     shape (2 clips, shifted and unshifted) and of kernel 5 at
+     [2, 16, 1568, 64], S 160 (MAE encoder), ragged S 37 and the MAE
+     decoder's [2, 8, 1568, 64], against the plain backwards in fp32 and
+     bf16 (the bf16 gate shown to reject two faulty controls: D omitted,
+     dbias from one window), then timed at batch 8 beside the plain
+     backward and the backward of ``scaled_dot_product_attention``;
+ 13. fp32 gradient slices: full-width ViT-L (2 blocks) and Swin-B (depths
+     2, 2, 2, 2) ``TwoHeadViT`` on one clip, every parameter gradient on
+     the card against the CPU;
+ 14. finetune steps at full width and depth in bf16, batch 8:
+     ``BackboneFinetuneRunner`` over ViT-L (LLRD AdamW, mixup 0.8) and
+     ``make_two_head_step`` + AdamW over Swin-B, 2 warm-up and 5 timed
+     steps each: ms per step, clips/s, peak memory; 24 launches of
+     kernel 4 or 5 and 24 of its backward per step, nothing else;
+ 15. MAE pretraining: ``BackbonePretrainRunner`` over ``PretrainVideoMAE``
+     (ViT-L encoder, 512 x 12 decoder) in bf16, batch 8, mask 0.9: 36
+     launches of kernel 5 and 36 of its backward per step.
+The counts are set to 0 just before each serving, extraction or training
+run and read just after it. Each phase's wall seconds are printed after it,
+and all of them on one ``[time]`` line at the end. The line before the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()
 
 import numpy as np
 import torch
@@ -105,6 +130,19 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_S = {}   # wall seconds of each phase, for the closing [time] line
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as the phase ``name``: its wall seconds are
+    logged and kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = round(time.perf_counter() - t0, 2)
+    log(f"[time] {name}: {PHASE_S[name]:.2f} s")
+    return out
 
 
 def require(ok: bool, msg: str) -> None:
@@ -535,7 +573,9 @@ def launch_counters():
             "fused_post_attention": fpa.fused_post_attention,
             "int8_matmul_fused": i8.int8_matmul_fused,
             "window_attention": wa.window_attention,
-            "flash_mha": fm.flash_mha}
+            "flash_mha": fm.flash_mha,
+            "window_attention_bwd": wa.window_attention_bwd,
+            "flash_mha_bwd": fm.flash_mha_bwd}
 
 
 def serve_run(tag, server, video, threshold):
@@ -985,7 +1025,7 @@ def phase_backbone_slice_fp32(name, clips):
     kernel = BACKBONES[name][2]
     t0 = time.perf_counter()
     cpu_model = backbone(name, "float32", "cpu")
-    gpu_model = backbone(name, "float32", "cuda")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     log(f"[slice-{name}-fp32] built two full-width {name} backbones "
         f"({sum(p.numel() for p in cpu_model.parameters())} params) in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1094,18 +1134,643 @@ def phase_extract(name, fp32_feats, clips):
 
 def phase_backbones(gen):
     """Phases 9-11; returns (kernel report, launches by path)."""
-    report = phase_backbone_kernels(gen)
+    report = timed("backbone-kernels", phase_backbone_kernels, gen)
     by_path = {}
     for name in BACKBONES:
         rng = np.random.default_rng(SEED)
         clips = rng.normal(size=(2, *BACKBONES[name][1])).astype(np.float32)
-        fp32_feats, err = phase_backbone_slice_fp32(name, clips)
-        launches, m = phase_extract(name, fp32_feats, clips)
+        fp32_feats, err = timed(f"slice-{name}-fp32",
+                                phase_backbone_slice_fp32, name, clips)
+        launches, m = timed(f"extract-{name}", phase_extract, name,
+                            fp32_feats, clips)
         m["fp32_card_vs_cpu"] = err
         log(f"[extract-{name}] summary {json.dumps(m)}")
         by_path[f"extract-{name}"] = launches
         torch.cuda.empty_cache()
     return report, by_path
+
+# Backward kernels 4b and 5b against their plain versions: fp32 within
+# GRAD_F32_TOL of each gradient's largest value (sums in another order);
+# bf16 as attention_close, scaled to each gradient: elementwise two bf16
+# spacings + GRAD_BF16_FLOOR * max |want|, relative RMS <= GRAD_BF16_REL_RMS
+# (the kernel takes D = do . o from the rounded output o, the plain version
+# rowsum(dp * p); both round p and ds * scale to bf16 at the same points).
+GRAD_F32_TOL = 1e-4
+GRAD_BF16_FLOOR = 2.0 ** -7
+GRAD_BF16_REL_RMS = 1e-2
+# fp32 gradient slices, card vs CPU: of each parameter's largest gradient
+GRAD_SLICE_TOL = 1e-3
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_BATCH = 2, 5, 8
+# Kernel-5 shapes of the training paths: ViT-L [B, 16, 1568, 64], the MAE
+# encoder's 160 visible tokens, a ragged S, the MAE decoder's 8 heads
+FLASH_BWD_SHAPES = ((2, 16, 1568), (2, 16, 160), (3, 16, 37), (2, 8, 1568))
+
+
+def grad_close(got, want, bf16: bool):
+    """A backward kernel's output against its plain version: (ok, max abs
+    error, relative RMS error); ``bf16`` names the inputs' type (dbias is
+    fp32 either way)."""
+    err = (got.float() - want.float()).abs()
+    peak = want.float().abs().max()
+    rel = (err.norm() / want.float().norm()).item()
+    if not bf16:
+        ok = bool((err <= GRAD_F32_TOL * peak).all())
+    else:
+        ok = (bool((err <= 2 * bf16_spacing(want) + GRAD_BF16_FLOOR * peak)
+                   .all()) and rel <= GRAD_BF16_REL_RMS)
+    return ok, err.max().item(), rel
+
+
+def emulated_attention_bwd(s, q, k, v, do, *, sm_scale, drop_delta=False):
+    """(dq, dk, dv, ds) as the backward kernels compute them, from fp32
+    scores s [..., N, N]: the forward's output o from
+    ``online_attention`` (rounded to v's dtype), D = do . o, p = exp(s -
+    lse), p and ds * scale rounded to the operand type before their
+    products. ``drop_delta=True`` is a fault, the gate's control: ds = p
+    * dp without D."""
+    o = online_attention(s, v).float()
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    do32 = do.float()
+    dv = (p.to(v.dtype).float().transpose(-1, -2) @ do32).to(v.dtype)
+    dp = do32 @ v.float().transpose(-1, -2)
+    delta = 0.0 if drop_delta else (do32 * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dsc = (ds * sm_scale).to(q.dtype).float()
+    return ((dsc @ k.float()).to(q.dtype),
+            (dsc.transpose(-1, -2) @ q.float()).to(k.dtype), dv, ds)
+
+
+def check_grads(name, got, want, bf16, tag):
+    """Each gradient of ``got`` against ``want``; returns the worst max
+    abs error."""
+    worst = 0.0
+    for gname, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        ok, err, rel = grad_close(g, w, bf16)
+        log(f"[train-kernels] {name} {tag} {gname}: max_abs_err={err:.3e}, "
+            f"relative RMS {rel:.3e} (largest |want| "
+            f"{w.float().abs().max().item():.3e})")
+        require(g.shape == w.shape and ok, f"{name} {tag} {gname} disagrees "
+                f"with its plain version: max abs {err}, relative RMS {rel}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_controls(name, tag, want, controls):
+    """The bf16 gate must reject each faulty control: (name, index of the
+    gradient it replaces, its value)."""
+    for cname, i, bad in controls:
+        ok, err, rel = grad_close(bad, want[i], True)
+        log(f"[train-kernels] {name} {tag} control '{cname}': max abs "
+            f"{err:.3e}, relative RMS {rel:.3e}, "
+            f"{'passes' if ok else 'rejected'}")
+        require(not ok, f"{name} {tag}: the bf16 gate passes the faulty "
+                f"control '{cname}'")
+
+
+def flash_bwd_case(b, h, s, dtype, gen):
+    from tim_tpu_torch.ops import flash_mha as fm
+    q, k, v = vit_qkv(b, s, dtype, gen, heads=h)
+    out, lse = fm.flash_mha_with_lse(q, k, v, sm_scale=0.125)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (q, k, v), out, lse, do
+
+
+def window_bwd_case(batch, n_win, heads, dims, shifted, dtype, gen):
+    from tim_tpu_torch.ops import window_attention as wa
+    q, k, v = swin_qkv(batch, n_win, heads, dtype, gen)
+    bias, region = swin_bias(heads, dims, shifted, gen)
+    out, lse = wa.window_attention_with_lse(q, k, v, bias, region,
+                                            sm_scale=32 ** -0.5)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (q, k, v, bias, region), out, lse, do
+
+
+def sdpa_bwd_ms(q, k, v, do, mask=None):
+    """Device ms of the backward of one ``scaled_dot_product_attention``
+    call, through autograd (graph kept, backward repeated)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if mask is not None:
+        leaves.append(mask.detach().requires_grad_())
+    out = F.scaled_dot_product_attention(
+        *leaves[:3], attn_mask=leaves[3] if mask is not None else None,
+        scale=q.shape[-1] ** -0.5)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True), iters=5)
+
+
+def attention_bwd_bound(q, nbytes_):
+    """5 products of 2 N^2 dh per (batch, head) at the bf16 peak, or the
+    bytes at the memory rate, whichever is larger."""
+    b, h, n, dh = q.shape
+    return bound(nbytes_, 5 * 2 * b * h * n * n * dh, "bf16")
+
+
+def phase_training_kernels(gen):
+    """Kernels 4b and 5b against their plain backwards in fp32 and bf16,
+    the bf16 gate shown to reject two faulty controls, then both timed at
+    batch 8 beside the plain backward and the backward of one library
+    call."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import window_attention as wa
+
+    worst = {"window_attention_bwd": 0.0, "flash_mha_bwd": 0.0}
+    cases = 0
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for n_win, heads, dims in SWIN_STAGES:
+            for shifted in ((False, True) if n_win > 1 else (False,)):
+                args, out, lse, do = window_bwd_case(2, n_win, heads, dims,
+                                                     shifted, dtype, gen)
+                tag = f"{dtype} nW={n_win} H={heads} shifted={shifted} 2 clips"
+                got = wa.window_attention_bwd(*args, out, lse, do,
+                                              sm_scale=32 ** -0.5)
+                torch.cuda.synchronize()
+                want = wa.window_attention_bwd_plain(*args, do,
+                                                     sm_scale=32 ** -0.5)
+                worst["window_attention_bwd"] = max(
+                    worst["window_attention_bwd"],
+                    check_grads("window_attention_bwd", got, want, bf16, tag))
+                if bf16 and n_win == 64 and shifted:
+                    s = wa.window_scores(args[0], args[1], args[3], args[4],
+                                         sm_scale=32 ** -0.5)
+                    bad = emulated_attention_bwd(
+                        s, *args[:3], do, sm_scale=32 ** -0.5,
+                        drop_delta=True)
+                    ds = emulated_attention_bwd(
+                        s, *args[:3], do, sm_scale=32 ** -0.5)[3]
+                    check_controls("window_attention_bwd", tag, want, [
+                        ("D omitted", 0, bad[0]),
+                        ("dbias from one window only", 3, ds[0])])
+                    del s, bad, ds
+                cases += 1
+                del args, out, lse, do, got, want
+        for b, h, s_len in FLASH_BWD_SHAPES:
+            args, out, lse, do = flash_bwd_case(b, h, s_len, dtype, gen)
+            tag = f"{dtype} [{b}, {h}, {s_len}, 64]"
+            got = fm.flash_mha_bwd(*args, out, lse, do, sm_scale=0.125)
+            torch.cuda.synchronize()
+            want = fm.flash_mha_bwd_plain(*args, do, sm_scale=0.125)
+            worst["flash_mha_bwd"] = max(
+                worst["flash_mha_bwd"],
+                check_grads("flash_mha_bwd", got, want, bf16, tag))
+            if bf16 and s_len == 1568 and h == 16:
+                s = vit_scores(*args, sm_scale=0.125)
+                bad = emulated_attention_bwd(s, *args, do, sm_scale=0.125,
+                                             drop_delta=True)
+                check_controls("flash_mha_bwd", tag, want,
+                               [("D omitted, dq", 0, bad[0]),
+                                ("D omitted, dk", 1, bad[1])])
+                del s, bad
+            cases += 1
+            del args, out, lse, do, got, want
+    torch.cuda.empty_cache()
+    log(f"[train-kernels] {cases} cases agree with the plain backwards "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    report = {}
+    per_stage = []
+    for n_win, heads, dims in SWIN_STAGES:
+        shifted = n_win > 1
+        args, out, lse, do = window_bwd_case(8, n_win, heads, dims, shifted,
+                                             torch.bfloat16, gen)
+        q, k, v, bias, region = args
+        kw = {"sm_scale": 32 ** -0.5}
+        got = wa.window_attention_bwd(*args, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = wa.window_attention_bwd_plain(*args, do, **kw)
+        err = check_grads("window_attention_bwd", got, want, True,
+                          f"bf16 batch 8 nW={n_win}")
+        ms_bound, by = attention_bwd_bound(
+            q, nbytes(q, k, v, out, do, *got[:3], lse, bias, region, got[3]))
+        del got, want
+        torch.cuda.empty_cache()
+        row = {"stage": len(per_stage) + 1, "windows": q.shape[0],
+               "heads": heads, "shifted": shifted, "max_abs_err": err,
+               "ms": cuda_ms(lambda: wa.window_attention_bwd(
+                   *args, out, lse, do, **kw)),
+               "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(
+                   *args, do, **kw), iters=3, warmup=1),
+               "bound_ms": ms_bound, "bound_by": by}
+        # the forward as inference launches it, and as training does
+        # (writing the row log-sum-exp the backward reads)
+        row["forward_ms"], row["forward_lse_ms"] = (
+            cuda_ms(lambda: fn(q, k, v, bias, region, **kw))
+            for fn in (wa.window_attention, wa.window_attention_with_lse))
+        log(f"[train-kernels] window_attention stage {row['stage']} bf16 "
+            f"forward {row['forward_ms']:.4f} ms, writing lse (the training "
+            f"launch) {row['forward_lse_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+        lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
+        lib_do = do.reshape(lib_qkv[0].shape)
+        try:
+            row["library_ms"] = sdpa_bwd_ms(*lib_qkv, lib_do, mask)
+            lib = ("scaled_dot_product_attention backward with a float mask "
+                   "ab[type] that requires grad")
+        except RuntimeError as e:   # no backend gives the mask's gradient
+            log(f"[train-kernels] SDPA cannot give dbias here: {e}")
+            row["library_ms"] = sdpa_bwd_ms(*lib_qkv, lib_do, mask.detach())
+            lib = ("scaled_dot_product_attention backward, mask without "
+                   "grad (SDPA cannot give dbias)")
+        row["library"] = lib
+        log(f"[train-kernels] window_attention_bwd stage {row['stage']} "
+            f"[{q.shape[0]}, {heads}, 784, 32] bf16 shifted={shifted}: "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"{lib} {row['library_ms']:.4f} ms, bound {ms_bound:.4f} ms "
+            f"({by})")
+        per_stage.append(row)
+        del args, q, k, v, bias, region, out, lse, do, lib_qkv, mask, lib_do
+        torch.cuda.empty_cache()
+    first = per_stage[0]
+    report["window_attention_bwd"] = {
+        "max_abs_err": max(worst["window_attention_bwd"],
+                           *(r["max_abs_err"] for r in per_stage)),
+        **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        "per_stage": per_stage}
+
+    args, out, lse, do = flash_bwd_case(8, 16, 1568, torch.bfloat16, gen)
+    q, k, v = args
+    got = fm.flash_mha_bwd(*args, out, lse, do, sm_scale=0.125)
+    torch.cuda.synchronize()
+    err = check_grads("flash_mha_bwd", got,
+                      fm.flash_mha_bwd_plain(*args, do, sm_scale=0.125), True,
+                      "bf16 [8, 16, 1568, 64]")
+    ms_bound, by = attention_bwd_bound(q, nbytes(q, k, v, out, do, *got,
+                                                 lse))
+    del got
+    torch.cuda.empty_cache()
+    report["flash_mha_bwd"] = {
+        "max_abs_err": max(worst["flash_mha_bwd"], err),
+        "ms": cuda_ms(lambda: fm.flash_mha_bwd(*args, out, lse, do,
+                                               sm_scale=0.125)),
+        "plain_ms": cuda_ms(lambda: fm.flash_mha_bwd_plain(
+            *args, do, sm_scale=0.125), iters=3, warmup=1),
+        "library_ms": sdpa_bwd_ms(q, k, v, do),
+        "bound_ms": ms_bound, "bound_by": by}
+    r = report["flash_mha_bwd"]
+    log(f"[train-kernels] flash_mha_bwd [8, 16, 1568, 64] bf16: kernel "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention backward {r['library_ms']:.4f} ms, "
+        f"bound {ms_bound:.4f} ms ({by})")
+    r["forward_ms"], r["forward_lse_ms"] = (
+        cuda_ms(lambda: fn(q, k, v, sm_scale=0.125))
+        for fn in (fm.flash_mha, fm.flash_mha_with_lse))
+    log(f"[train-kernels] flash_mha [8, 16, 1568, 64] bf16 forward "
+        f"{r['forward_ms']:.4f} ms, writing lse (the training launch) "
+        f"{r['forward_lse_ms']:.4f} ms")
+    del args, q, k, v, out, lse, do
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_model(kind, dtype, device, **trunk_kw):
+    """A ``TwoHeadViT`` over the ViT-L or Swin-B trunk (random weights,
+    generator seeded ``SEED``) in ``dtype`` on ``device``."""
+    from tim_tpu_torch.models.backbones import swin3d, vit
+    from tim_tpu_torch.runner.backbone import TwoHeadViT
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "vit":
+        trunk = vit.videomae_vit_large(dtype, device=device, generator=gen,
+                                       **trunk_kw)
+    else:
+        trunk = swin3d.omnivore_swinB_epic(dtype, device=device,
+                                           generator=gen, **trunk_kw)
+    return TwoHeadViT(trunk, generator=gen)
+
+
+def two_head_loss(model, video, verbs, nouns):
+    from tim_tpu_torch.train.backbone_finetune import (
+        mixup_targets, soft_target_cross_entropy)
+    perm = torch.arange(video.shape[0], device=video.device)
+    lv, ln_ = model(video)
+    return (soft_target_cross_entropy(lv, mixup_targets(verbs, perm, 1.0, 97))
+            + soft_target_cross_entropy(ln_, mixup_targets(nouns, perm, 1.0,
+                                                           300)))
+
+
+def phase_grad_slice_fp32(kind):
+    """One clip through a full-width, reduced-depth ``TwoHeadViT`` in fp32
+    (ViT-L 2 blocks, Swin-B depths (2, 2, 2, 2)): every parameter gradient
+    on the card (kernels 4/5 both ways) against the CPU (plain versions)."""
+    kw = {"depth": 2} if kind == "vit" else {"depths": (2, 2, 2, 2)}
+    frames = 16 if kind == "vit" else 32
+    cpu_model = train_model(kind, "float32", "cpu", **kw)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(SEED)
+    clip = torch.from_numpy(rng.normal(size=(1, frames, 224, 224, 3))
+                            .astype(np.float32))
+    verbs, nouns = torch.tensor([3]), torch.tensor([17])
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loss = two_head_loss(gpu_model, clip.cuda(), verbs.cuda(), nouns.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    blocks = 2 if kind == "vit" else 8
+    kernel = "flash_mha" if kind == "vit" else "window_attention"
+    require(launches[kernel] == blocks and launches[f"{kernel}_bwd"] == blocks
+            and sum(launches.values()) == 2 * blocks,
+            f"{kind} fp32 slice launches {launches}")
+    t0 = time.perf_counter()
+    cpu_loss = two_head_loss(cpu_model, clip, verbs, nouns)
+    cpu_loss.backward()
+    log(f"[grad-slice-{kind}] CPU plain forward + backward of 1 clip: "
+        f"{time.perf_counter() - t0:.2f} s; loss card {loss.item():.6f}, "
+        f"CPU {cpu_loss.item():.6f}; launches {launches}")
+    worst, worst_name = 0.0, ""
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in gpu_model.named_parameters():
+        g, c = p.grad.cpu(), cpu_params[name].grad
+        require(bool(torch.isfinite(g).all()), f"{kind} {name}: non-finite")
+        rel = max_err(g, c) / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        require(rel <= GRAD_SLICE_TOL, f"{kind} fp32 gradient {name}: card "
+                f"vs CPU {rel} of its largest value > {GRAD_SLICE_TOL}")
+    log(f"[grad-slice-{kind}] {len(cpu_params)} parameter gradients, card "
+        f"vs CPU within {worst:.3e} of each tensor's largest value (worst "
+        f"{worst_name}; tol {GRAD_SLICE_TOL})")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return worst
+
+
+class SyntheticClips:
+    """``n`` EK100-style examples ({video, verb, noun}) cycling through 4
+    random clips of ``shape`` (seeded), labels drawn once."""
+
+    def __init__(self, n, shape, seed=SEED + 2):
+        rng = np.random.default_rng(seed)
+        self.base = [rng.normal(size=shape).astype(np.float32)
+                     for _ in range(4)]
+        self.verbs = rng.integers(0, 97, n)
+        self.nouns = rng.integers(0, 300, n)
+
+    def __len__(self):
+        return len(self.verbs)
+
+    def __getitem__(self, i):
+        return {"video": self.base[i % 4], "verb": self.verbs[i],
+                "noun": self.nouns[i]}
+
+
+def timed_steps(owner, attr, events, losses):
+    """Wrap ``owner.attr`` (a step function) so that each call records
+    CUDA events around it and keeps its loss."""
+    step = getattr(owner, attr)
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        losses.append(metrics["loss"])
+        return metrics
+
+    setattr(owner, attr, timed)
+
+
+def check_grads_finite(optimizer, flags):
+    """Before each optimizer step, record whether every gradient is finite
+    (a device flag; read once at the end)."""
+    def hook(opt, args, kwargs):
+        grads = [p.grad for g in opt.param_groups for p in g["params"]
+                 if p.grad is not None]
+        norms = torch._foreach_norm(grads)
+        flags.append(torch.isfinite(torch.stack(norms)).all())
+    return optimizer.register_step_pre_hook(hook)
+
+
+def train_run(tag, model, run, kernel, per_step, batch):
+    """``run(n_steps)`` TRAIN_WARMUP times one step (gradients checked
+    finite), then TRAIN_STEPS steps with every count set to 0 just before
+    and read just after; the events and losses come from the step wrapper
+    that ``run`` installs. Returns (launches, metrics)."""
+    events, losses, flags = [], [], []
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    hook = check_grads_finite(run.optimizer(), flags)
+    run(TRAIN_WARMUP, events, losses)
+    torch.cuda.synchronize()
+    hook.remove()
+    # (the hook may run twice a step: ClippedAdamW.step calls AdamW.step)
+    require(len(flags) >= TRAIN_WARMUP and bool(torch.stack(flags).all()),
+            f"{tag}: non-finite gradients in the warm-up steps")
+    events.clear()
+    losses.clear()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(TRAIN_STEPS, events, losses)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    loss_values = [float(x) for x in losses]
+    moved = sum(int(not torch.equal(b, p.detach()))
+                for b, p in zip(before, model.parameters()))
+    ms = sum(step_ms) / len(step_ms)
+    log(f"[{tag}] {len(step_ms)} steps of batch {batch}: device "
+        f"{ms:.3f} ms per step ({', '.join(f'{x:.3f}' for x in step_ms)}), "
+        f"{batch / (ms / 1e3):.2f} device clips/s; wall {wall:.3f} s, "
+        f"{len(step_ms) * batch / wall:.2f} wall clips/s; peak "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; losses "
+        f"{', '.join(f'{x:.5f}' for x in loss_values)}; launches {launches}")
+    require(len(step_ms) == TRAIN_STEPS, f"{tag}: {len(step_ms)} steps ran")
+    require(all(np.isfinite(loss_values)), f"{tag}: non-finite loss")
+    n_params = len(before)
+    require(moved == n_params, f"{tag}: {n_params - moved} of {n_params} "
+            f"parameter tensors did not move")
+    require(launches[kernel] == per_step * TRAIN_STEPS
+            and launches[f"{kernel}_bwd"] == per_step * TRAIN_STEPS
+            and sum(launches.values()) == 2 * per_step * TRAIN_STEPS,
+            f"{tag}: launches {launches}, expected {per_step} x "
+            f"{TRAIN_STEPS} of {kernel} and of {kernel}_bwd and nothing else")
+    return launches, {
+        "batch": batch, "steps": TRAIN_STEPS, "ms_per_step": ms,
+        "step_ms": step_ms, "device_clips_per_s": batch / (ms / 1e3),
+        "wall_s": wall, "wall_clips_per_s": TRAIN_STEPS * batch / wall,
+        "peak_bytes": peak, "losses": loss_values,
+        "launches_per_step": launches[kernel] / TRAIN_STEPS}
+
+
+class RunnerSteps:
+    """``fit`` of a runner over a dataset of ``n`` steps' worth of clips,
+    its step function wrapped by ``timed_steps``."""
+
+    def __init__(self, runner, shape, attr="train_ds"):
+        self.runner, self.shape, self.attr = runner, shape, attr
+
+    def optimizer(self):
+        return self.runner.state.optimizer
+
+    def __call__(self, n, events, losses):
+        setattr(self.runner, self.attr,
+                SyntheticClips(n * self.runner.batch_size, self.shape))
+        self.runner.epochs = 1
+        step = self.runner._step_fn
+        timed_steps(self.runner, "_step_fn", events, losses)
+        try:
+            self.runner.fit()
+        finally:
+            self.runner._step_fn = step
+
+
+def phase_finetune_vit():
+    """``BackboneFinetuneRunner`` over full-depth ViT-L in bf16 (LLRD
+    AdamW, mixup 0.8) at batch 8."""
+    from tim_tpu_torch.runner.backbone import BackboneFinetuneRunner
+    t0 = time.perf_counter()
+    model = train_model("vit", "bfloat16", "cuda")
+    built = time.perf_counter() - t0
+    shape = BACKBONES["videomae"][1]
+    runner = BackboneFinetuneRunner(
+        model, SyntheticClips(TRAIN_BATCH * (TRAIN_WARMUP + TRAIN_STEPS),
+                              shape), None,
+        batch_size=TRAIN_BATCH, epochs=1, lr=1e-3, mixup_alpha=0.8,
+        seed=SEED)
+    runner.init_state()
+    log(f"[finetune-vit] TwoHeadViT(ViT-L) bf16 "
+        f"({sum(p.numel() for p in model.parameters())} params) in "
+        f"{built:.2f} s, with its LLRD AdamW in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = train_run("finetune-vit", model, RunnerSteps(runner, shape),
+                    "flash_mha", 24, TRAIN_BATCH)
+    del runner, model
+    torch.cuda.empty_cache()
+    return out
+
+
+class SwinSteps:
+    """``make_two_head_step`` + AdamW(1e-4, wd 0.05), as
+    ``scripts/bench_finetune_swin.py`` drives Swin-B, on batches of
+    ``SyntheticClips`` moved to the card."""
+
+    def __init__(self, model, batch):
+        from tim_tpu_torch.runner.backbone import make_two_head_step
+        from tim_tpu_torch.train.state import TrainState
+        self.state = TrainState(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=0.05))
+        self.step = make_two_head_step(model, mixup_alpha=0.8, seed=SEED)
+        self.data = SyntheticClips(batch, BACKBONES["omnivore"][1])
+        self.batch = batch
+
+    def optimizer(self):
+        return self.state.optimizer
+
+    def __call__(self, n, events, losses):
+        step = self.step
+        timed_steps(self, "step", events, losses)
+        try:
+            for _ in range(n):
+                items = [self.data[i] for i in range(self.batch)]
+                batch = {k: torch.from_numpy(np.stack([e[k] for e in items]))
+                         .cuda() for k in items[0]}
+                self.step(self.state, batch)
+        finally:
+            self.step = step
+
+
+def phase_finetune_swin():
+    """Full-depth Swin-B in bf16 at batch 8 (it fits: about 24 GiB)."""
+    t0 = time.perf_counter()
+    model = train_model("swin", "bfloat16", "cuda")
+    log(f"[finetune-swin] TwoHeadViT(Swin-B) bf16 "
+        f"({sum(p.numel() for p in model.parameters())} params) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = train_run("finetune-swin", model, SwinSteps(model, TRAIN_BATCH),
+                    "window_attention", 24, TRAIN_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pretrain_mae():
+    """``BackbonePretrainRunner`` over ``PretrainVideoMAE`` (ViT-L encoder,
+    decoder 512 x 12 x 8 heads) in bf16 at batch 8, mask ratio 0.9."""
+    from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+    from tim_tpu_torch.runner.backbone import BackbonePretrainRunner
+    t0 = time.perf_counter()
+    model = PretrainVideoMAE(dtype="bfloat16", device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+    runner = BackbonePretrainRunner(
+        model, SyntheticClips(TRAIN_BATCH, BACKBONES["videomae"][1]),
+        mask_ratio=0.9, batch_size=TRAIN_BATCH, seed=SEED)
+    runner.init_state()
+    log(f"[pretrain-mae] PretrainVideoMAE bf16 "
+        f"({sum(p.numel() for p in model.parameters())} params; "
+        f"{runner.masking.total_masks} of "
+        f"{int(np.prod(model.grid))} tubes masked) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = train_run("pretrain-mae", model,
+                    RunnerSteps(runner, BACKBONES["videomae"][1], "dataset"),
+                    "flash_mha", 36, TRAIN_BATCH)
+    del runner, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training(gen):
+    """Phases 12-15; returns (kernel report, launches by path)."""
+    report = timed("train-kernels", phase_training_kernels, gen)
+    slices = {f"finetune-{kind}": timed(f"grad-slice-{kind}",
+                                        phase_grad_slice_fp32, kind)
+              for kind in ("vit", "swin")}
+    by_path = {}
+    for path, phase in (("finetune-vit", phase_finetune_vit),
+                        ("finetune-swin", phase_finetune_swin),
+                        ("pretrain-mae", phase_pretrain_mae)):
+        launches, metrics = timed(path, phase)
+        metrics["fp32_grad_slice_rel"] = slices.get(path)
+        log(f"[{path}] summary {json.dumps(metrics)}")
+        by_path[path] = launches
+    return report, by_path
+
+
+def usable_cpus() -> int:
+    """CPUs this process may use: its affinity, capped by the cgroup v2
+    quota when one is set (a container may see more CPUs than it may
+    use)."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()
+        if quota != "max":
+            n = min(n, max(1, int(quota) // int(period)))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+def phase_build():
+    """Phase 2: the library built from ``tim_tpu_torch/csrc``; logs each
+    source's compile seconds and, per attention kernel, the registers and
+    spill bytes ``ptxas`` reported."""
+    from tim_tpu_torch import _build
+    lib = _build.build()
+    _build.library()
+    sources, kernels = _build.resource_usage(lib)
+    log(f"[build] compile seconds per source: {', '.join(sources)}")
+    names = [k[0] for k in kernels]
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cu++filt")
+    pretty = names
+    if os.path.exists(tool):
+        filt = subprocess.run([tool], input="\n".join(names),
+                              capture_output=True, text=True, timeout=60)
+        if len(filt.stdout.splitlines()) == len(names):
+            pretty = filt.stdout.splitlines()
+    for (name, regs, st, ld), nice in zip(kernels, pretty):
+        if "tim_attn" in name:
+            log(f"[build] ptxas: {nice}: {regs} registers, spill stores "
+                f"{st} B, spill loads {ld} B")
+    return lib
 
 
 def main() -> int:
@@ -1121,29 +1786,33 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    # the plain CPU references: no more threads than the CPUs allowed
+    threads = min(torch.get_num_threads(), usable_cpus())
+    log(f"[device] host: {os.cpu_count()} CPUs visible, {usable_cpus()} "
+        f"usable; torch CPU threads {torch.get_num_threads()} -> {threads}")
+    torch.set_num_threads(threads)
 
-    from tim_tpu_torch import _build
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    log(f"[build] {lib} in {time.perf_counter() - t0:.2f} s")
+    lib = timed("build", phase_build)
+    log(f"[build] {lib}")
 
-    kernel_report = phase_kernels()
+    kernel_report = timed("kernels", phase_kernels)
     rng = np.random.default_rng(SEED)
-    state_dict, batch2, fp32_out = phase_slice_fp32(rng)
+    state_dict, batch2, fp32_out = timed("slice-fp32", phase_slice_fp32, rng)
     from tim_tpu_torch import config as C
     video = synthetic_video(C.epic_detection(), rng)
-    launches_bf16, serving, out16, threshold = phase_serve_bf16(
-        state_dict, batch2, fp32_out, video)
+    launches_bf16, serving, out16, threshold = timed(
+        "serve-bf16", phase_serve_bf16, state_dict, batch2, fp32_out, video)
     log(f"[serve-bf16] summary {json.dumps(serving)}")
-    err8, cal_rel = phase_int8_slice_fp32(state_dict, batch2)
-    launches_int8, serving8 = phase_serve_int8(
-        "serve-int8", state_dict, batch2, out16, video, threshold, False)
+    err8, cal_rel = timed("int8-slice-fp32", phase_int8_slice_fp32,
+                          state_dict, batch2)
+    launches_int8, serving8 = timed(
+        "serve-int8", phase_serve_int8, "serve-int8", state_dict, batch2,
+        out16, video, threshold, False)
     serving8.update(int8_fp32_card_vs_cpu=err8, calibration_rel=cal_rel)
     log(f"[serve-int8] summary {json.dumps(serving8)}")
-    launches_fast, serving_fast = phase_serve_int8(
-        "serve-int8-fast-scores", state_dict, batch2, out16, video,
-        threshold, True)
+    launches_fast, serving_fast = timed(
+        "serve-int8-fast-scores", phase_serve_int8, "serve-int8-fast-scores",
+        state_dict, batch2, out16, video, threshold, True)
     log(f"[serve-int8-fast-scores] summary {json.dumps(serving_fast)}")
     del state_dict, batch2, fp32_out, out16
     torch.cuda.empty_cache()
@@ -1151,8 +1820,12 @@ def main() -> int:
     backbone_report, backbone_paths = phase_backbones(
         torch.Generator(device="cuda").manual_seed(SEED))
     kernel_report.update(backbone_report)
+    training_report, training_paths = phase_training(
+        torch.Generator(device="cuda").manual_seed(SEED + 1))
+    kernel_report.update(training_report)
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
-               "serve-int8-fast-scores": launches_fast, **backbone_paths}
+               "serve-int8-fast-scores": launches_fast, **backbone_paths,
+               **training_paths}
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",
@@ -1168,7 +1841,14 @@ def main() -> int:
                              "extract-omnivore"),
         "flash_mha": ("tim_tpu_torch/csrc/flash_mha.cu",
                       "tim_tpu/ops/flash.py:82", "extract-videomae"),
+        "window_attention_bwd": ("tim_tpu_torch/csrc/window_attention_bwd.cu",
+                                 "tim_tpu/ops/pallas_swin.py:109",
+                                 "finetune-swin"),
+        "flash_mha_bwd": ("tim_tpu_torch/csrc/flash_mha_bwd.cu",
+                          "tim_tpu/ops/flash.py:71", "finetune-vit"),
     }
+    log(f"[time] {json.dumps(PHASE_S)}; total "
+        f"{time.perf_counter() - T_START:.2f} s from the start of the script")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": by_path[path][name], "path": path,

@@ -151,7 +151,9 @@ def test_serve_imports_no_jax():
     for module in ("ops.int8_matmul_fused", "ops.window_attention",
                    "ops.flash_mha", "models.backbones.swin3d",
                    "models.backbones.vit", "extract.pipeline",
-                   "extract.cli"):
+                   "extract.cli", "models.backbones.mae", "extract.masking",
+                   "train.backbone_finetune", "train.optim", "train.state",
+                   "runner.backbone", "utils.logging"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -185,8 +187,60 @@ def test_entry_points_default_to_the_card():
         SwinTransformer3D()
     with pytest.raises(RuntimeError, match="cuda"):
         VideoMAEViT()
+    from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+    from tim_tpu_torch.runner.backbone import TwoHeadViT
+    with pytest.raises(RuntimeError, match="cuda"):
+        PretrainVideoMAE()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TwoHeadViT(VideoMAEViT())
     for backbone in ("omnivore", "videomae"):
         with pytest.raises(RuntimeError, match="cuda"):
             make_visual_apply(build_parser().parse_args(
                 ["--backbone", backbone, "--feature_times", "x",
                  "--out_dir", "y"]))
+
+
+def test_masking_copy_equals_jax():
+    """``extract/masking.py`` is a copy: every generator gives the JAX
+    package's masks from the same numpy generator state."""
+    from tim_tpu.extract import masking as jm
+    from tim_tpu_torch.extract import masking as pm
+    for name in ("RandomMasking", "TubeMasking",
+                 "TemporalProgressiveMasking",
+                 "TemporalCenteringProgressiveMasking"):
+        ours, theirs = getattr(pm, name)((8, 14, 14), 0.9), \
+            getattr(jm, name)((8, 14, 14), 0.9)
+        for seed in (0, 1):
+            np.testing.assert_array_equal(
+                ours(np.random.default_rng(seed)),
+                theirs(np.random.default_rng(seed)))
+        got = pm.batch_mask_indices(ours, 3, np.random.default_rng(2))
+        want = jm.batch_mask_indices(theirs, 3, np.random.default_rng(2))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert pm.TubeMasking((8, 14, 14), 0.9).total_masks == 8 * 176
+
+
+def test_schedule_and_logging_copies_equal_jax(tmp_path):
+    """``train/optim.py::warmup_cosine_schedule`` and the logging helpers
+    are copies (the schedule in Python floats, JAX's in float32: 1e-5
+    relative, a few float32 ulps at the 1e-6 floor)."""
+    from tim_tpu.train.optim import warmup_cosine_schedule as jsched
+    from tim_tpu.utils import logging as jlog
+    from tim_tpu_torch.train.optim import warmup_cosine_schedule
+    from tim_tpu_torch.utils import logging as plog
+    ours, theirs = warmup_cosine_schedule(1e-3, 1e-6, 50, 5), \
+        jsched(1e-3, 1e-6, 50, 5)
+    np.testing.assert_allclose([ours(s) for s in range(60)],
+                               [float(theirs(s)) for s in range(60)],
+                               rtol=1e-5)
+    assert plog.is_master() and jlog.is_master()
+    for mod, name in ((plog, "port_copy"), (jlog, "jax_original")):
+        logger = mod.setup_logging(str(tmp_path / name), name=f"t_{name}")
+        assert mod.setup_logging(None, name=f"t_{name}") is logger
+        mod.log_json_stats(logger, {"b": 2, "a": np.float32(0.5)})
+        for h in logger.handlers:
+            h.flush()
+    lines = [(tmp_path / n / "stdout.log").read_text().split("] ", 1)[1]
+             for n in ("port_copy", "jax_original")]
+    assert lines[0] == lines[1] == 'json_stats: {"a": 0.5, "b": 2}\n'

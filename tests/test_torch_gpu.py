@@ -10,19 +10,23 @@ card every test skips."""
 import pytest
 import torch
 
-from chip_smoke import (attention_close, int8_close, int8_head_args,
-                        kernel_close, swin_bias, swin_qkv, tail_args, vit_qkv)
+from chip_smoke import (attention_close, flash_bwd_case, grad_close,
+                        int8_close, int8_head_args, kernel_close, swin_bias,
+                        swin_qkv, tail_args, vit_qkv, window_bwd_case)
 from tim_tpu_torch import config as C
 from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.ops.fused_post_attention import (
     fused_post_attention, fused_post_attention_plain)
 from tim_tpu_torch.ops.int8_matmul_fused import (
     int8_matmul_fused, int8_matmul_fused_plain)
-from tim_tpu_torch.ops.flash_mha import flash_mha, flash_mha_plain
+from tim_tpu_torch.ops.flash_mha import (
+    flash_mha, flash_mha_bwd, flash_mha_bwd_plain, flash_mha_plain,
+    flash_mha_qkv)
 from tim_tpu_torch.ops.query_block_attention import (
     query_block_attention, query_block_attention_plain)
 from tim_tpu_torch.ops.window_attention import (
-    window_attention, window_attention_plain)
+    window_attention, window_attention_bwd, window_attention_bwd_plain,
+    window_attention_plain, window_attention_qkv)
 
 # fp32: the same function with sums in another order; bf16: the bound
 # tests/test_pallas_fused.py holds the TPU kernel to (see kernel_close)
@@ -203,3 +207,96 @@ def test_backbones_default_to_the_card(gen):
     assert swin(clip).shape == (1, 32) and vit(clip).shape == (1, 64)
     assert (window_attention.launches, flash_mha.launches) == (
         counts[0] + 2, counts[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_win,heads,dims,shifted", [
+    (64, 4, (16, 56, 56), True),    # Swin-B stage 1, shifted
+    (16, 8, (16, 28, 28), False),   # stage 2, unshifted
+    (1, 32, (16, 7, 7), False),     # stage 4: one window type
+])
+def test_window_attention_bwd_kernel_matches_plain(gen, dtype, n_win, heads,
+                                                   dims, shifted):
+    args, out, lse, do = window_bwd_case(1, n_win, heads, dims, shifted,
+                                         dtype, gen)
+    before = window_attention_bwd.launches
+    got = window_attention_bwd(*args, out, lse, do, sm_scale=32 ** -0.5)
+    assert window_attention_bwd.launches == before + 1
+    want = window_attention_bwd_plain(*args, do, sm_scale=32 ** -0.5)
+    assert got[3].dtype == torch.float32 and got[3].shape == args[3].shape
+    for g, w in zip(got, want):
+        assert grad_close(g, w, dtype == torch.bfloat16)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,s", [(2, 16, 1568), (2, 16, 160), (3, 16, 37),
+                                   (2, 8, 1568)])
+def test_flash_mha_bwd_kernel_matches_plain(gen, dtype, b, h, s):
+    args, out, lse, do = flash_bwd_case(b, h, s, dtype, gen)
+    before = flash_mha_bwd.launches
+    got = flash_mha_bwd(*args, out, lse, do, sm_scale=0.125)
+    assert flash_mha_bwd.launches == before + 1
+    for g, w in zip(got, flash_mha_bwd_plain(*args, do, sm_scale=0.125)):
+        assert g.dtype == dtype
+        assert grad_close(g, w, dtype == torch.bfloat16)[0]
+
+
+def _unpacked(fn):
+    """``fn`` of separate q/k/v views taken from a packed qkv."""
+    return lambda qkv, *rest, **kw: fn(
+        *(qkv[:, :, i].transpose(1, 2) for i in range(3)), *rest, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False])
+def test_autograd_launches_each_kernel_once(gen, packed):
+    """Autograd through the packed entry points and through the ones that
+    take separate q, k, v: one forward and one backward launch each, the
+    gradient shaped like its input and equal to the plain version's
+    autograd on the CPU."""
+    bias = torch.randn(2, 37, 37, generator=gen, device="cuda")
+    fns = ((flash_mha_qkv, ()), (window_attention_qkv, (bias,))) if packed \
+        else ((_unpacked(flash_mha), ()), (_unpacked(window_attention),
+                                           (bias,)))
+    for (fn, extra), dh in zip(fns, (64, 32)):   # each kernel's head dim
+        qkv = torch.randn(2, 37, 3, 2, dh, generator=gen, device="cuda")
+        do = torch.randn(2, 2, 37, dh, generator=gen, device="cuda")
+        leaves = [qkv.clone().requires_grad_(),
+                  *(t.clone().requires_grad_() for t in extra)]
+        cpu = [t.detach().cpu().requires_grad_() for t in leaves]
+        counts = (flash_mha.launches, flash_mha_bwd.launches,
+                  window_attention.launches, window_attention_bwd.launches)
+        (fn(*leaves, sm_scale=0.2) * do).sum().backward()
+        (fn(*cpu, sm_scale=0.2) * do.cpu()).sum().backward()
+        after = (flash_mha.launches, flash_mha_bwd.launches,
+                 window_attention.launches, window_attention_bwd.launches)
+        assert sum(after) - sum(counts) == 2
+        for t, c in zip(leaves, cpu):
+            assert t.grad.shape == t.shape
+            err = (t.grad.cpu() - c.grad).abs().max().item()
+            assert err <= 1e-4 * c.grad.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_fp32_patch_embed_weight_grad_stays_fp32(gen):
+    """The patch embed's backward runs with TF32 off as its forward does:
+    a ViT-L-sized fp32 weight gradient on the card matches the CPU under
+    PyTorch's default flags."""
+    from tim_tpu_torch.models.common import conv3d_patch_embed
+    assert torch.backends.cudnn.allow_tf32   # PyTorch's default
+    video = torch.randn(2, 16, 224, 224, 3, generator=gen, device="cuda")
+    weight = torch.randn(1024, 3, 2, 16, 16, generator=gen,
+                         device="cuda").requires_grad_()
+    bias = torch.randn(1024, generator=gen, device="cuda").requires_grad_()
+    dy = torch.randn(2, 8, 14, 14, 1024, generator=gen, device="cuda")
+    (conv3d_patch_embed(video, weight, bias, torch.float32) * dy).sum() \
+        .backward()
+    w_cpu = weight.detach().cpu().requires_grad_()
+    b_cpu = bias.detach().cpu().requires_grad_()
+    (conv3d_patch_embed(video.cpu(), w_cpu, b_cpu, torch.float32)
+     * dy.cpu()).sum().backward()
+    assert torch.backends.cudnn.allow_tf32
+    for g, c in ((weight.grad, w_cpu.grad), (bias.grad, b_cpu.grad)):
+        assert (g.cpu() - c).abs().max().item() <= 1e-4 * c.abs().max().item()

@@ -79,3 +79,13 @@ def inference_batch(cfg, batch: int, seed: int = 1):
         "window_start": (np.arange(batch) * 1.0).astype(np.float32),
         "window_size": np.full(batch, 3.6, np.float32),
     }
+
+
+def perturbed(variables, seed: int, scale: float = 0.05):
+    """``{'params': tree}`` plus seeded numpy noise on every leaf (fp32
+    numpy leaves), so that no LayerNorm, bias or head sits at its trivial
+    init."""
+    rng = np.random.default_rng(seed)
+    return {"params": jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + rng.normal(scale=scale, size=x.shape))
+        .astype(np.float32), variables["params"])}

@@ -7,7 +7,9 @@ together, then one link; ``ctypes`` loads the result. The library lands in
 flags; a build that fails, or a host without ``nvcc``, raises
 ``RuntimeError``. There is no fallback: the plain PyTorch versions run
 only for tensors on the CPU. (``csrc/host/`` holds host C++ that
-``evals/nms.py`` builds with ``g++``.)
+``evals/nms.py`` builds with ``g++``.) Beside the library, a ``.log``
+keeps each source's compile seconds and ``ptxas``' resource report
+(registers, spills per kernel); ``resource_usage`` reads it.
 """
 
 from __future__ import annotations
@@ -16,16 +18,19 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -56,6 +61,14 @@ def _source_hash(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, src: str, obj: str):
+    """One nvcc over ``src``: (the finished process, its seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                          capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> str:
     """Compile the kernels if no library for these sources exists yet;
     returns the library's path."""
@@ -74,16 +87,16 @@ def build() -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for src, obj in zip(srcs, objs)]
-        failed = []
-        for src, proc in zip(srcs, procs):
-            stdout, stderr = proc.communicate()
+        with ThreadPoolExecutor(len(srcs)) as pool:
+            done = list(pool.map(lambda so: _compile(nvcc, *so),
+                                 zip(srcs, objs)))
+        failed, log = [], []
+        for src, (proc, seconds) in zip(srcs, done):
             if proc.returncode != 0:
-                failed.append(f"{src} ({proc.returncode}):\n{stdout}\n"
-                              f"{stderr}")
+                failed.append(f"{src} ({proc.returncode}):\n{proc.stdout}\n"
+                              f"{proc.stderr}")
+            log.append(f"== {os.path.basename(src)} {seconds:.2f} s\n"
+                       f"{proc.stderr}")
         if failed:
             raise RuntimeError("nvcc failed building " + "\n".join(failed))
         proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
@@ -91,12 +104,33 @@ def build() -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed linking {objs}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
+        with open(f"{out}.log", "w") as f:
+            f.write("\n".join(log))
         os.replace(tmp, out)
     finally:
         for path in objs:
             if os.path.exists(path):
                 os.remove(path)
     return out
+
+
+def resource_usage(lib: str) -> Tuple[List[str], List[tuple]]:
+    """From the build log beside ``lib``: the lines giving each source's
+    compile seconds, and (mangled kernel, registers, spill store bytes,
+    spill load bytes) per kernel as ``ptxas -v`` reported them."""
+    with open(f"{lib}.log") as f:
+        text = f.read()
+    sources = re.findall(r"^== (\S+ [0-9.]+ s)$", text, re.M)
+    kernels = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        kernels.append((name, int(regs.group(1)) if regs else -1,
+                        *(int(x) for x in (spill.groups() if spill
+                                           else (-1, -1)))))
+    return sources, kernels
 
 
 def library() -> ctypes.CDLL:

@@ -8,8 +8,10 @@ trained or converted on the JAX side load into
 params of ``tim_tpu.ops.quant.quantize_params`` (the layout of
 ``ops.quant.quantize_state_dict``), and ``act_scales_from_jax`` renames
 calibrated activation scales. ``swin_state_dict_from_jax`` and
-``vit_state_dict_from_jax`` invert the backbones' ``params_from_torch``,
-and ``load_torch_checkpoint`` / ``load_backbone_state`` read a released
+``vit_state_dict_from_jax`` invert the backbones' ``params_from_torch``;
+``two_head_state_dict_from_jax`` and ``mae_state_dict_from_jax`` convert
+the training models (``runner.backbone.TwoHeadViT``,
+``models.backbones.mae.PretrainVideoMAE``) the same way; and ``load_torch_checkpoint`` / ``load_backbone_state`` read a released
 backbone checkpoint into a port backbone. Works on plain numpy leaves; jax
 arrays convert through ``np.asarray``.
 """
@@ -198,19 +200,68 @@ def vit_state_dict_from_jax(variables: Mapping, depth: int = 24
     _conv(p["patch_embed"], "patch_embed.proj", out)
     _norm(p["fc_norm"], "fc_norm", out)
     for i in range(depth):
-        src, dst = p[f"block{i}"], f"blocks.{i}"
-        _norm(src["norm1"], f"{dst}.norm1", out)
-        _norm(src["norm2"], f"{dst}.norm2", out)
-        attn = src["attn"]
-        out[f"{dst}.attn.qkv.weight"] = _t(np.asarray(attn["qkv_kernel"]).T)
-        out[f"{dst}.attn.q_bias"] = _t(attn["q_bias"])
-        out[f"{dst}.attn.v_bias"] = _t(attn["v_bias"])
-        _linear(attn["proj"], f"{dst}.attn.proj", out)
-        _linear(src["fc1"], f"{dst}.mlp.fc1", out)
-        _linear(src["fc2"], f"{dst}.mlp.fc2", out)
-        if "gamma_1" in src:
-            out[f"{dst}.gamma_1"] = _t(src["gamma_1"])
-            out[f"{dst}.gamma_2"] = _t(src["gamma_2"])
+        _vit_block(p[f"block{i}"], f"blocks.{i}", out)
+    return out
+
+
+def _vit_block(src: Mapping, dst: str, out: Dict) -> None:
+    _norm(src["norm1"], f"{dst}.norm1", out)
+    _norm(src["norm2"], f"{dst}.norm2", out)
+    attn = src["attn"]
+    out[f"{dst}.attn.qkv.weight"] = _t(np.asarray(attn["qkv_kernel"]).T)
+    out[f"{dst}.attn.q_bias"] = _t(attn["q_bias"])
+    out[f"{dst}.attn.v_bias"] = _t(attn["v_bias"])
+    _linear(attn["proj"], f"{dst}.attn.proj", out)
+    _linear(src["fc1"], f"{dst}.mlp.fc1", out)
+    _linear(src["fc2"], f"{dst}.mlp.fc2", out)
+    if "gamma_1" in src:
+        out[f"{dst}.gamma_1"] = _t(src["gamma_1"])
+        out[f"{dst}.gamma_2"] = _t(src["gamma_2"])
+
+
+def _count(tree: Mapping, pattern: str) -> int:
+    return sum(1 for key in tree if re.fullmatch(pattern, key))
+
+
+def two_head_state_dict_from_jax(variables: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` of a flax ``TwoHeadViT`` (a ``VideoMAEViT`` or
+    ``SwinTransformer3D`` trunk; depths read off the tree) -> the port
+    ``TwoHeadViT``'s state dict: the trunk's under ``trunk.``, the
+    ``head_verb`` / ``head_noun`` Dense kernels as [out, in] weights."""
+    p = variables["params"]
+    trunk = p["trunk"]
+    if "block0" in trunk:
+        sd = vit_state_dict_from_jax({"params": trunk},
+                                     _count(trunk, r"block\d+"))
+    else:
+        depths = []
+        while _count(trunk, rf"layer{len(depths)}_block\d+"):
+            depths.append(_count(trunk, rf"layer{len(depths)}_block\d+"))
+        sd = swin_state_dict_from_jax({"params": trunk}, tuple(depths))
+    out = {f"trunk.{k}": v for k, v in sd.items()}
+    for head in ("head_verb", "head_noun"):
+        _linear(p[head], head, out)
+    return out
+
+
+def mae_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` of a flax ``PretrainVideoMAE`` -> the port
+    ``PretrainVideoMAE``'s state dict (encoder names as
+    ``vit_state_dict_from_jax``'s)."""
+    p = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["patch_embed"], "patch_embed.proj", out)
+    for i in range(_count(p, r"block\d+")):
+        _vit_block(p[f"block{i}"], f"blocks.{i}", out)
+    _norm(p["encoder_norm"], "encoder_norm", out)
+    out["encoder_to_decoder.weight"] = _t(
+        np.asarray(p["encoder_to_decoder"]["kernel"]).T)
+    out["mask_token"] = _t(p["mask_token"])
+    for i in range(_count(p, r"decoder_block\d+")):
+        _vit_block(p[f"decoder_block{i}"], f"decoder_blocks.{i}", out)
+    _norm(p["decoder_norm"], "decoder_norm", out)
+    _linear(p["decoder_head"], "decoder_head", out)
     return out
 
 

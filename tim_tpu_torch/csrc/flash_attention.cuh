@@ -1,7 +1,7 @@
-// Exact softmax attention, forward only, with an online softmax over key
-// tiles: the core shared by flash_mha.cu (kernel 5, no bias) and
+// Exact softmax attention, forward, with an online softmax over key tiles:
+// the core shared by flash_mha.cu (kernel 5, no bias) and
 // window_attention.cu (kernel 4, relative-position bias plus the shifted
-// windows' region mask).
+// windows' region mask). The backward is flash_attention_bwd.cuh.
 //
 //   out[b, h, i] = sum_j p_ij v[b, h, j] / sum_j p_ij,
 //   p_ij = exp(s_ij - m_i),  s_ij = (q_i . k_j) * scale [+ bias[h, i, j]
@@ -34,6 +34,12 @@
 // (they are strided views of one packed qkv projection); the last dim is
 // contiguous. out is written through its own strides, so a caller can ask
 // for the [B, S, H, dh] layout that the output projection reads.
+//
+// For training, a caller passes an lse buffer: each row's log-sum-exp
+// m_i + log(sum_j p_ij) of the fp32 scores goes to lse[(b * H + h) * S + i],
+// which the backward needs to recompute normalised probabilities. That
+// store is a compile-time variant (LSE): with a null pointer (inference)
+// the launch is the kernel without it, and nothing more is written.
 
 #pragma once
 
@@ -56,6 +62,7 @@ struct Params {
   Strides sq, sk, sv, so;
   int batch, heads, seq;
   float scale;
+  float* lse;   // [batch, heads, seq] fp32, or null (no row statistic)
   // kernel 4 only (BIAS = true): bias [heads, seq, seq] fp32, contiguous;
   // region [n_win, seq] int32 or null (no mask)
   const float* bias;
@@ -165,7 +172,7 @@ constexpr int bf16_smem_bytes() {
 
 // Three blocks an SM: 170 registers a thread at most (shared memory allows
 // three blocks of kernel 4 with dh 32).
-template <int DH, bool BIAS>
+template <int DH, bool BIAS, bool LSE>
 __global__ void __launch_bounds__(128, 3) attention_bf16_kernel(const Params p) {
   constexpr int BQ = kBQ, BK = kBK, LDB = kLDB;
   constexpr int LD = DH + 8;
@@ -371,6 +378,11 @@ __global__ void __launch_bounds__(128, 3) attention_bf16_kernel(const Params p) 
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const float inv = 1.f / sum;
+    if constexpr (LSE) {
+      if (tig == 0 && rows[r] < S)
+        p.lse[((long long)t.b * p.heads + t.h) * S + rows[r]] =
+            m[r] + logf(sum);
+    }
     if (rows[r] < S) {
 #pragma unroll
       for (int dt = 0; dt < DH / 8; ++dt) {
@@ -381,7 +393,7 @@ __global__ void __launch_bounds__(128, 3) attention_bf16_kernel(const Params p) 
   }
 }
 
-template <int DH, bool BIAS>
+template <int DH, bool BIAS, bool LSE>
 __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
   constexpr int BQ = 128, BK = 16;
   __shared__ __align__(16) float s_k[BK * DH];
@@ -472,6 +484,8 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
     float* out = static_cast<float*>(p.out) + t.b * p.so.b + t.h * p.so.h +
                  row * p.so.n;
     const float inv = 1.f / l;
+    if constexpr (LSE)
+      p.lse[((long long)t.b * p.heads + t.h) * S + row] = m + logf(l);
 #pragma unroll
     for (int c = 0; c < DH / 4; ++c)
       *reinterpret_cast<float4*>(out + 4 * c) =
@@ -480,7 +494,7 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
   }
 }
 
-template <int DH, bool BIAS>
+template <int DH, bool BIAS, bool LSE>
 int launch_dh(const Params& p, bool bf16, cudaStream_t stream) {
   const int rows = bf16 ? 64 : 128;
   const long long blocks = (long long)p.batch * p.heads *
@@ -488,26 +502,25 @@ int launch_dh(const Params& p, bool bf16, cudaStream_t stream) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if (bf16) {
     constexpr int smem = bf16_smem_bytes<DH, BIAS>();
-    auto kernel = attention_bf16_kernel<DH, BIAS>;
+    auto kernel = attention_bf16_kernel<DH, BIAS, LSE>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)blocks, 128, smem, stream>>>(p);
   } else
-    attention_f32_kernel<DH, BIAS><<<(unsigned)blocks, 128, 0, stream>>>(p);
+    attention_f32_kernel<DH, BIAS, LSE><<<(unsigned)blocks, 128, 0,
+                                          stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Launch for head dim 32 or 64; returns cudaGetLastError() after the
-// launch (0 on success).
-template <bool BIAS>
+// Launch for head dim DH (each caller builds the one head dim its models
+// use); returns cudaGetLastError() after the launch (0 on success).
+template <int DH, bool BIAS>
 int launch(const Params& p, int dh, bool bf16, cudaStream_t stream) {
+  if (dh != DH) return (int)cudaErrorInvalidValue;
   if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
-  switch (dh) {
-    case 32: return launch_dh<32, BIAS>(p, bf16, stream);
-    case 64: return launch_dh<64, BIAS>(p, bf16, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return p.lse != nullptr ? launch_dh<DH, BIAS, true>(p, bf16, stream)
+                          : launch_dh<DH, BIAS, false>(p, bf16, stream);
 }
 
 // strides: 12 element strides, (batch, head, row) for q, k, v and out.

@@ -1,4 +1,5 @@
-// Multi-head flash attention for Hopper (sm_90a), forward only.
+// Multi-head flash attention for Hopper (sm_90a), forward (the backward is
+// flash_mha_bwd.cu).
 //
 // Replaces: tim_tpu/ops/flash.py::flash_mha (the public Pallas TPU flash
 // kernel, fa.flash_attention at :104). Exact unmasked
@@ -20,17 +21,20 @@
 
 #include "flash_attention.cuh"
 
-// strides: 12 element strides, (batch, head, row) for q, k, v and out.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Head dim 64 (ViT-B/L and the MAE decoder); another returns
+// cudaErrorInvalidValue. strides: 12 element strides, (batch, head, row)
+// for q, k, v and out. lse: [batch, heads, seq] fp32 for the backward, or null. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int tim_flash_mha(const void* q, const void* k, const void* v,
-                             void* out, const long long* strides, int batch,
-                             int heads, int seq, int dh, int is_bf16,
-                             float scale, void* stream) {
+                             void* out, const long long* strides, float* lse,
+                             int batch, int heads, int seq, int dh,
+                             int is_bf16, float scale, void* stream) {
   tim_attn::Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out;
   tim_attn::set_strides(p, strides);
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
+  p.lse = lse;
   p.bias = nullptr; p.region = nullptr; p.n_win = 1;
-  return tim_attn::launch<false>(p, dh, is_bf16 != 0,
+  return tim_attn::launch<64, false>(p, dh, is_bf16 != 0,
                                  static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,5 @@
-// Swin3D (shifted-)window attention for Hopper (sm_90a), forward only.
+// Swin3D (shifted-)window attention for Hopper (sm_90a), forward (the
+// backward is window_attention_bwd.cu).
 //
 // Replaces: tim_tpu/ops/pallas_swin.py::window_attention_flash (forward
 // _kernel :71, pl.pallas_call :99). Per (window, head):
@@ -25,13 +26,15 @@
 
 #include "flash_attention.cuh"
 
+// Head dim 32 (every Swin stage); another returns cudaErrorInvalidValue.
 // strides: 12 element strides, (batch, head, row) for q, k, v and out.
 // bias: [heads, seq, seq] fp32, contiguous. region: [n_win, seq] int32,
-// or null for an unshifted block. Returns cudaGetLastError() after the
-// launch (0 on success).
+// or null for an unshifted block. lse: [batch, heads, seq] fp32 for the
+// backward, or null. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int tim_window_attention(const void* q, const void* k,
                                     const void* v, void* out,
-                                    const long long* strides,
+                                    const long long* strides, float* lse,
                                     const float* bias, const int* region,
                                     int n_win, int batch, int heads, int seq,
                                     int dh, int is_bf16, float scale,
@@ -40,7 +43,8 @@ extern "C" int tim_window_attention(const void* q, const void* k,
   p.q = q; p.k = k; p.v = v; p.out = out;
   tim_attn::set_strides(p, strides);
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
+  p.lse = lse;
   p.bias = bias; p.region = region; p.n_win = n_win > 0 ? n_win : 1;
-  return tim_attn::launch<true>(p, dh, is_bf16 != 0,
+  return tim_attn::launch<32, true>(p, dh, is_bf16 != 0,
                                 static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 """Omnivore SwinTransformer3D: counterpart of
-``tim_tpu/models/backbones/swin3d.py`` (forward).
+``tim_tpu/models/backbones/swin3d.py``.
 
 Conv3D patch embedding, stages of (shifted-)3D-window attention with a
 relative-position bias, 2x2 spatial patch merging between stages, a final
@@ -14,8 +14,13 @@ attn.relative_position_bias_table, norm2, mlp.fc1, mlp.fc2}``,
 ``layers.{i}.downsample.{norm, reduction}`` and ``norm``.
 
 The window-attention core is ``ops.window_attention`` (kernel 4 on the
-card): it takes the relative-position bias [H, N, N] and, in shifted
-blocks, the [nW, N] region ids whose differences are the -100 shift mask.
+card, forward and backward): it takes the relative-position bias
+[H, N, N] and, in shifted blocks, the [nW, N] region ids whose
+differences are the -100 shift mask; the bias gradient flows back through
+the index gather into ``relative_position_bias_table``. The model is
+built in eval mode, where its forward runs under ``torch.inference_mode``
+(feature extraction); after ``.train()`` and with grad enabled it records
+autograd.
 Reference quirks kept: effective windows clamp to the input extent and
 clamped dims do not shift; the bias index is row-sliced ``[:N, :N]`` when
 the window is clamped; the shift mask keeps the ``slice(-0, None)``
@@ -32,9 +37,9 @@ import torch
 import torch.nn as nn
 
 from tim_tpu_torch.models.common import (
-    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear)
+    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear, inference_unless_training)
 from tim_tpu_torch.models.tim import resolve_device
-from tim_tpu_torch.ops.window_attention import window_attention
+from tim_tpu_torch.ops.window_attention import window_attention_qkv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -128,11 +133,14 @@ def window_reverse(windows, window, b, d, h, w):
 
 def _on_device(cache: dict, key, make, device):
     """A numpy constant as a tensor on ``device``, made once per key and
-    device in the caller's ``cache``."""
+    device in the caller's ``cache``, outside inference mode (an inference
+    tensor cannot be saved for a backward, and ``index_select`` saves its
+    index)."""
     full = (key, str(device))
     if full not in cache:
-        cache[full] = torch.from_numpy(np.ascontiguousarray(make())).to(
-            device)
+        with torch.inference_mode(False):
+            cache[full] = torch.from_numpy(np.ascontiguousarray(make())).to(
+                device)
     return cache[full]
 
 
@@ -165,7 +173,6 @@ class WindowAttention3D(nn.Module):
         h = self.num_heads
         dh = c // h
         qkv = self.qkv(x).view(bn, n, 3, h, dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         idx = _on_device(self._consts, n, lambda: (
             relative_position_index(self.full_window)[:n, :n]
             .reshape(-1).astype(np.int64)), x.device)
@@ -173,7 +180,7 @@ class WindowAttention3D(nn.Module):
         bias = torch.index_select(
             self.relative_position_bias_table.t().contiguous(), 1,
             idx).view(h, n, n).float()
-        out = window_attention(q, k, v, bias, region_ids, sm_scale=dh ** -0.5)
+        out = window_attention_qkv(qkv, bias, region_ids, sm_scale=dh ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(bn, n, c))
 
 
@@ -256,7 +263,7 @@ class SwinStage(nn.Module):
 
 class SwinTransformer3D(nn.Module):
     """Video [B, D, H, W, 3] (channels-last) -> feature [B, 8 * embed_dim]
-    in the compute dtype.
+    (``num_features``) in the compute dtype.
 
     ``device``: the CUDA card by default (raises without one); the CPU
     only when asked for. ``generator`` seeds the random init (a fresh
@@ -288,10 +295,12 @@ class SwinTransformer3D(nn.Module):
                     if i < len(depths) - 1 else None)
             stages.append(SwinStage(blocks, down))
         self.layers = nn.ModuleList(stages)
-        self.norm = LayerNorm(int(embed_dim * 2 ** (len(depths) - 1)))
+        self.num_features = int(embed_dim * 2 ** (len(depths) - 1))
+        self.norm = LayerNorm(self.num_features)
         self.to(device)
+        self.eval()
 
-    @torch.inference_mode()
+    @inference_unless_training
     def forward(self, video, pool: bool = True, *, embed_only: bool = False,
                 embedded: bool = False):
         """``embed_only``: return the patch embedding (conv + patch norm)
@@ -315,8 +324,9 @@ class SwinTransformer3D(nn.Module):
 
 
 def omnivore_swinB_epic(dtype: str = "float32", *, device=None,
-                        generator: Optional[torch.Generator] = None
-                        ) -> SwinTransformer3D:
+                        generator: Optional[torch.Generator] = None,
+                        **kw) -> SwinTransformer3D:
     """The EPIC-KITCHENS Omnivore trunk config
     (``omnivore_model.py:136-162``)."""
-    return SwinTransformer3D(dtype=dtype, device=device, generator=generator)
+    return SwinTransformer3D(dtype=dtype, device=device, generator=generator,
+                             **kw)

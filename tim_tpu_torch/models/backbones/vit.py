@@ -1,5 +1,5 @@
 """VideoMAE vision transformer: counterpart of
-``tim_tpu/models/backbones/vit.py`` (forward).
+``tim_tpu/models/backbones/vit.py``.
 
 Tubelet Conv3D patch embedding, a fixed sin-cos position table, pre-norm
 ViT blocks with VideoMAE's packed qkv (q and v biases, no k bias) and
@@ -11,7 +11,13 @@ Parameter names are the reference checkpoint's, the keys that
 ``blocks.{i}.{norm1, attn.qkv.weight, attn.q_bias, attn.v_bias,
 attn.proj, norm2, mlp.fc1, mlp.fc2, gamma_1, gamma_2}`` and ``fc_norm``.
 
-The attention core is ``ops.flash_mha`` (kernel 5 on the card).
+The attention core is ``ops.flash_mha`` (kernel 5 on the card, forward
+and backward). The model is built in eval mode, where its forward runs
+under ``torch.inference_mode`` (feature extraction); after ``.train()``
+and with grad enabled it records autograd. ``remat_mlp`` recomputes each
+block's norm2 + MLP in the backward (``torch.utils.checkpoint``, the
+attention kernel outside it, as ``ViTBlock.remat_mlp`` in JAX); ``remat``
+recomputes whole blocks.
 """
 
 from __future__ import annotations
@@ -21,11 +27,13 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tim_tpu_torch.models.common import (
-    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear, linear, uniform_)
+    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear, inference_unless_training,
+    linear, uniform_)
 from tim_tpu_torch.models.tim import resolve_device
-from tim_tpu_torch.ops.flash_mha import flash_mha
+from tim_tpu_torch.ops.flash_mha import flash_mha_qkv
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 EPS = 1e-6
@@ -40,6 +48,18 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table
+
+
+def position_table(cache: dict, n: int, dim: int, dtype, device):
+    """The [n, dim] sin-cos table in ``dtype`` on ``device``, made once per
+    key in ``cache``, outside inference mode (an inference tensor cannot
+    take part in a training step)."""
+    key = (n, dim, str(device))
+    if key not in cache:
+        with torch.inference_mode(False):
+            cache[key] = torch.from_numpy(sinusoid_position_table(
+                n, dim)).to(device=device, dtype=dtype)
+    return cache[key]
 
 
 class _Weight(nn.Module):
@@ -76,17 +96,27 @@ class VideoMAEAttention(nn.Module):
         # the GEMM sums in fp32 and adds the bias before its one rounding
         # (in bf16 the bias itself is rounded first, as in common.linear)
         qkv = linear(x, self.qkv.weight, bias, self.dtype).view(b, n, 3, h, dh)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = flash_mha(q, k, v, sm_scale=dh ** -0.5)
+        out = flash_mha_qkv(qkv, sm_scale=dh ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(b, n, self.dim))
 
 
+def recompute(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward when a
+    gradient is being recorded (``jax.checkpoint``'s counterpart)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class ViTBlock(nn.Module):
+    """Pre-norm block; ``remat_mlp`` recomputes norm2 + MLP in the backward
+    (``tim_tpu/models/backbones/vit.py:142,190``)."""
+
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: float = 0.0, *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, remat_mlp: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat_mlp = dtype, remat_mlp
         self.norm1 = LayerNorm(dim, eps=EPS)
         self.attn = VideoMAEAttention(dim, num_heads, dtype=dtype,
                                       generator=generator)
@@ -104,15 +134,19 @@ class ViTBlock(nn.Module):
         if self.gamma_1 is not None:
             h = h * self.gamma_1.to(self.dtype)
         x = x + h
+        return x + (recompute(self._mlp, x) if self.remat_mlp
+                    else self._mlp(x))
+
+    def _mlp(self, x):
         h = self.mlp(self.norm2(x).to(self.dtype))
         if self.gamma_2 is not None:
             h = h * self.gamma_2.to(self.dtype)
-        return x + h
+        return h
 
 
 class VideoMAEViT(nn.Module):
     """forward_features path: video [B, T, H, W, 3] (channels-last) ->
-    feature [B, D] in the compute dtype.
+    feature [B, D] in the compute dtype (``num_features`` = D).
 
     ``device``: the CUDA card by default (raises without one); the CPU
     only when asked for. ``generator`` seeds the random init (a fresh
@@ -124,30 +158,31 @@ class VideoMAEViT(nn.Module):
                  mlp_ratio: float = 4.0, num_frames: int = 16,
                  tubelet_size: int = 2, init_values: float = 0.0,
                  dtype: str = "float32", *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False, remat_mlp: bool = False):
         super().__init__()
         device = resolve_device(device)
         gen = generator or torch.Generator().manual_seed(0)
         self.dtype = _DTYPES[str(dtype)]
-        self.embed_dim = embed_dim
+        self.embed_dim = self.num_features = embed_dim
+        self.depth, self.remat = depth, remat
         self.patch_embed = PatchEmbed3D(
             (tubelet_size, patch_size, patch_size), embed_dim,
             dtype=self.dtype, generator=gen)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio, init_values,
-                     dtype=self.dtype, generator=gen) for _ in range(depth))
+                     dtype=self.dtype, generator=gen, remat_mlp=remat_mlp)
+            for _ in range(depth))
         self.fc_norm = LayerNorm(embed_dim, eps=EPS)
         self._pos: dict = {}
         self.to(device)
+        self.eval()
 
     def _position_table(self, n: int, device) -> torch.Tensor:
-        key = (n, str(device))
-        if key not in self._pos:
-            self._pos[key] = torch.from_numpy(sinusoid_position_table(
-                n, self.embed_dim)).to(device=device, dtype=self.dtype)
-        return self._pos[key]
+        return position_table(self._pos, n, self.embed_dim, self.dtype,
+                              device)
 
-    @torch.inference_mode()
+    @inference_unless_training
     def forward(self, video, *, embed_only: bool = False,
                 embedded: bool = False):
         """``embed_only``: return the tubelet embedding only, [B, T/2,
@@ -160,13 +195,16 @@ class VideoMAEViT(nn.Module):
         x = x.reshape(b, -1, self.embed_dim)
         x = x + self._position_table(x.shape[1], x.device)[None]
         for block in self.blocks:
-            x = block(x)
+            x = recompute(block, x) if self.remat else block(x)
         x = self.fc_norm(x.float().mean(dim=1))
         return x.to(self.dtype)
 
 
 def videomae_vit_large(dtype: str = "float32", *, device=None,
-                       generator: Optional[torch.Generator] = None
-                       ) -> VideoMAEViT:
-    return VideoMAEViT(embed_dim=1024, depth=24, num_heads=16, dtype=dtype,
-                       device=device, generator=generator)
+                       generator: Optional[torch.Generator] = None,
+                       **kw) -> VideoMAEViT:
+    """ViT-L/16 (width 1024, 24 blocks, 16 heads); ``kw`` overrides any
+    other ``VideoMAEViT`` argument (e.g. a reduced ``depth``)."""
+    return VideoMAEViT(**{"embed_dim": 1024, "depth": 24, "num_heads": 16,
+                          **kw}, dtype=dtype, device=device,
+                       generator=generator)

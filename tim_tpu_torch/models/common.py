@@ -12,6 +12,7 @@ default distributions; released checkpoints load over it.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -172,18 +173,68 @@ def MLP(dims, *, dtype: torch.dtype, generator: torch.Generator,
     return nn.Sequential(*layers)
 
 
+def inference_unless_training(forward):
+    """Decorate a backbone's ``forward``: it runs under
+    ``torch.inference_mode`` unless the module is in training mode with
+    grad enabled, when it records autograd. Backbones are built in eval
+    mode (feature extraction); ``.train()`` makes them trainable."""
+
+    @functools.wraps(forward)
+    def wrapped(self, *args, **kwargs):
+        if self.training and torch.is_grad_enabled():
+            return forward(self, *args, **kwargs)
+        with torch.inference_mode():
+            return forward(self, *args, **kwargs)
+
+    return wrapped
+
+
+def no_tf32():
+    """cuDNN with TF32 off (it is on by default for convolutions), the
+    other flags as they are."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _PatchConv(torch.autograd.Function):
+    """A stride = kernel conv3d whose forward and backward both run with
+    TF32 off, so that an fp32 weight gradient stays fp32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        stride = tuple(weight.shape[2:])
+        with no_tf32():
+            y = F.conv3d(x, weight, bias, stride=stride)
+        ctx.save_for_backward(x, weight)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        stride = tuple(weight.shape[2:])
+        gx = gw = gb = None
+        with no_tf32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv3d_input(x.shape, weight, gy,
+                                                stride=stride)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv3d_weight(x, weight.shape, gy,
+                                                 stride=stride)
+        if ctx.needs_input_grad[2]:
+            gb = gy.sum((0, 2, 3, 4))
+        return gx, gw, gb
+
+
 def conv3d_patch_embed(video, weight, bias, dtype: torch.dtype):
     """flax ``nn.Conv(padding="VALID", strides=kernel)`` as a patch embed:
     channels-last video [B, T, H, W, C_in] -> [B, T', H', W', C_out], the
     input, kernel and bias cast to the compute dtype (flax's casts).
     ``weight`` is torch's [C_out, C_in, kt, kh, kw]. fp32 stays fp32:
-    cuDNN's TF32, on by default for convolutions, is turned off here."""
+    cuDNN's TF32, on by default for convolutions, is turned off here, in
+    the forward and the backward."""
     x = video.to(dtype).permute(0, 4, 1, 2, 3)
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        y = F.conv3d(x, weight.to(dtype), bias.to(dtype),
-                     stride=tuple(weight.shape[2:]))
+    y = _PatchConv.apply(x, weight.to(dtype), bias.to(dtype))
     return y.permute(0, 2, 3, 4, 1)
 
 

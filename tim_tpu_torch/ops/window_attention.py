@@ -14,7 +14,14 @@ window-type-major transpose is needed.
 
 ``window_attention`` launches the CUDA kernel (``csrc/window_attention.cu``)
 for CUDA tensors and runs ``window_attention_plain`` for CPU tensors.
-There is no fallback between the two.
+There is no fallback between the two. It is differentiable in q, k, v and
+the bias: on the CPU through the plain version's PyTorch ops, on the card
+through ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``), whose
+bias gradient [H, N, N] is dS summed over every window. (The JAX kernel's
+``dab`` [n_types, H, N, N] sums over the windows of each type; summed over
+the types it is the same quantity, and the gradient of the bias either
+way, since the shift mask is a constant.) ``window_attention_qkv`` takes
+the packed [BW, N, 3, H, dh] projection and returns its gradient packed.
 """
 
 from __future__ import annotations
@@ -24,14 +31,23 @@ import ctypes
 import torch
 
 from tim_tpu_torch import _build
-from tim_tpu_torch.ops.flash_mha import check_qkv, launch_args
+from tim_tpu_torch.ops.flash_mha import (
+    bwd_args, check_qkv, launch_args, needs_grad, pack_qkv, packed_grads,
+    row_stats, softmax_attention_bwd_plain, unpack_qkv)
 
 MASK_VALUE = -100.0
-# tim_window_attention(q, k, v, out, strides, bias, region_ids, n_win, bw,
-# h, n, dh, bf16, scale, stream)
+# The head dim the kernel is built for: every Swin stage
+HEAD_DIM = 32
+# tim_window_attention(q, k, v, out, strides, lse, bias, region_ids, n_win,
+# bw, h, n, dh, bf16, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+# tim_window_attention_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
+# bias, region_ids, n_win, dbias, bw, h, n, dh, bf16, scale, stream)
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def region_mask(region_ids):
@@ -70,6 +86,17 @@ def window_attention_plain(q, k, v, bias, region_ids=None, *,
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
+def window_attention_bwd_plain(q, k, v, bias, region_ids, do, *,
+                               sm_scale: float):
+    """The body of ``pallas_swin._bwd_kernel`` in plain PyTorch, ``ab``
+    materialised as ``attention_bias`` does: (dq, dk, dv) in the operand
+    dtypes and dbias [H, N, N] fp32, dS summed over every window."""
+    s = window_scores(q, k, bias, region_ids, sm_scale=sm_scale)
+    dq, dk, dv, ds = softmax_attention_bwd_plain(s, q, k, v, do,
+                                                 sm_scale=sm_scale)
+    return dq, dk, dv, ds.sum(0)
+
+
 def _check(q, bias, region_ids):
     bw, h, n, _ = q.shape
     if bias.dtype != torch.float32 or tuple(bias.shape) != (h, n, n) or \
@@ -90,27 +117,20 @@ def _check(q, bias, region_ids):
                              f"{region_ids.dtype} {tuple(region_ids.shape)}")
 
 
-def window_attention(q, k, v, bias, region_ids=None, *, sm_scale: float):
-    """Window attention for q/k/v [BW, H, N, dh] (dh 32 or 64, fp32 or
-    bf16), bias [H, N, N] fp32, region_ids [nW, N] int32 or None; returns
-    [BW, H, N, dh] in q's dtype, a view of a contiguous [BW, N, H, dh]
-    tensor. Inputs may be strided views of the packed qkv projection; the
-    kernel reads them in place. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias, region_ids,
-                                      sm_scale=sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_attention: no kernel for device {q.device}")
-    check_qkv("window_attention", q, k, v)
+def _region_args(region_ids):
+    return (None if region_ids is None else region_ids.data_ptr(),
+            1 if region_ids is None else region_ids.shape[0])
+
+
+def _launch_fwd(q, k, v, bias, region_ids, sm_scale, lse=None):
+    check_qkv("window_attention", q, k, v, HEAD_DIM)
     _check(q, bias, region_ids)
     bw, h, n, dh = q.shape
     view, strides = launch_args(q, k, v)
     fn = _build.launcher("tim_window_attention", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
-                strides, bias.data_ptr(),
-                None if region_ids is None else region_ids.data_ptr(),
-                1 if region_ids is None else region_ids.shape[0],
+                strides, None if lse is None else lse.data_ptr(),
+                bias.data_ptr(), *_region_args(region_ids),
                 bw, h, n, dh, int(q.dtype == torch.bfloat16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "window_attention")
@@ -118,5 +138,102 @@ def window_attention(q, k, v, bias, region_ids=None, *, sm_scale: float):
     return view
 
 
-# Number of kernel launches; the plain CPU version does not count.
+def window_attention_with_lse(q, k, v, bias, region_ids=None, *,
+                              sm_scale: float):
+    """(output, row log-sum-exp [BW, H, N] fp32) of one forward launch on
+    the card: what the autograd Function keeps for
+    ``window_attention_bwd``."""
+    lse = row_stats(q)
+    return _launch_fwd(q, k, v, bias, region_ids, sm_scale, lse), lse
+
+
+def window_attention_bwd(q, k, v, bias, region_ids, out, lse, do, *,
+                         sm_scale: float, grads=None):
+    """(dq, dk, dv, dbias) of ``window_attention`` for the output gradient
+    ``do``, given the forward's output ``out`` and row log-sum-exp ``lse``
+    [BW, H, N] fp32; dbias [H, N, N] fp32 sums over every window. CUDA
+    tensors launch the backward kernel (dq/dk/dv written into ``grads``
+    when given, else into views of one packed [BW, N, 3, H, dh] buffer) or
+    raise; CPU tensors take ``window_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return window_attention_bwd_plain(q, k, v, bias, region_ids, do,
+                                          sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    check_qkv("window_attention_bwd", q, k, v, HEAD_DIM)
+    _check(q, bias, region_ids)
+    grads = packed_grads(q) if grads is None else grads
+    check_qkv("window_attention_bwd", *grads, HEAD_DIM)
+    do, strides = bwd_args(q, k, v, out, do, grads)
+    bw, h, n, dh = q.shape
+    dbias = torch.empty_like(bias)
+    delta = torch.empty_like(lse)
+    fn = _build.launcher("tim_window_attention_bwd", _BWD_ARGTYPES)
+    status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
+                strides, lse.data_ptr(), delta.data_ptr(), bias.data_ptr(),
+                *_region_args(region_ids), dbias.data_ptr(), bw, h, n, dh,
+                int(q.dtype == torch.bfloat16), float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "window_attention_bwd")
+    window_attention_bwd.launches += 1
+    return (*grads, dbias)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """window_attention over a packed [BW, N, 3, H, dh] qkv on the card,
+    kernel both ways; the backward kernel writes the packed gradient
+    directly."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, region_ids, sm_scale):
+        out, lse = window_attention_with_lse(*unpack_qkv(qkv), bias,
+                                             region_ids, sm_scale=sm_scale)
+        ctx.save_for_backward(qkv, bias, region_ids, out, lse)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias, region_ids, out, lse = ctx.saved_tensors
+        grad = torch.empty_like(qkv)
+        *_, dbias = window_attention_bwd(
+            *unpack_qkv(qkv), bias, region_ids, out, lse, do,
+            sm_scale=ctx.sm_scale, grads=unpack_qkv(grad))
+        return grad, dbias, None, None
+
+
+def window_attention(q, k, v, bias, region_ids=None, *, sm_scale: float):
+    """Window attention for q/k/v [BW, H, N, dh] (dh 32 on the card, any
+    on the CPU; fp32 or bf16), bias [H, N, N] fp32, region_ids [nW, N]
+    int32 or None; returns [BW, H, N, dh] in q's dtype, a view of a
+    contiguous [BW, N, H, dh] tensor. Inputs may be strided views of the packed qkv projection; the
+    kernel reads them in place. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise, and when a gradient is needed the
+    forward also keeps its row statistic for ``window_attention_bwd`` (q,
+    k and v are then packed into one copy, whose gradient the backward
+    kernel writes)."""
+    if q.device.type == "cpu":
+        return window_attention_plain(q, k, v, bias, region_ids,
+                                      sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention: no kernel for device {q.device}")
+    if needs_grad(q, k, v, bias):
+        return _WindowAttention.apply(pack_qkv(q, k, v), bias, region_ids,
+                                      sm_scale)
+    return _launch_fwd(q, k, v, bias, region_ids, sm_scale)
+
+
+def window_attention_qkv(qkv, bias, region_ids=None, *, sm_scale: float):
+    """``window_attention`` of the packed projection qkv [BW, N, 3, H, dh];
+    its gradient comes back packed in the same layout."""
+    if qkv.device.type == "cuda" and needs_grad(qkv, bias):
+        return _WindowAttention.apply(qkv, bias, region_ids, sm_scale)
+    return window_attention(*unpack_qkv(qkv), bias, region_ids,
+                            sm_scale=sm_scale)
+
+
+# Numbers of kernel launches (forward, backward); the plain CPU versions
+# do not count.
 window_attention.launches = 0
+window_attention_bwd.launches = 0

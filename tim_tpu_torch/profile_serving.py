@@ -1,8 +1,9 @@
-"""Where the device time of one dense-detection serving batch, or of one
-backbone forward, goes, on the CUDA card:
+"""Where the device time of one dense-detection serving batch, of one
+backbone forward, or of one backbone training step goes, on the CUDA card:
 
     python -m tim_tpu_torch.profile_serving
-        [--mode bf16|int8|int8-fast|swin|vit] [--batch N] [--steps 3]
+        [--mode bf16|int8|int8-fast|swin|vit|vit-train|swin-train|mae]
+        [--batch N] [--steps 3]
 
 Detection modes build the full-width EPIC-KITCHENS-100 detection model
 (random weights from seed 0; ``int8`` modes through
@@ -12,7 +13,11 @@ fused int8 heads; ``int8-fast`` adds bf16 attention scores) and run
 windows). ``swin`` and ``vit`` build the Omnivore Swin-B or VideoMAE
 ViT-L backbone in bf16 (random weights from seed 0, as the extraction
 CLI) and run its forward on random clips (default 8; 32 x 224^2 and
-16 x 224^2). Each runs 3 warm-up steps, then ``torch.profiler`` over
+16 x 224^2). ``vit-train`` and ``swin-train`` run one finetune step of
+``TwoHeadViT`` over the same trunks in bf16 (ViT-L: the LLRD AdamW of
+``BackboneFinetuneRunner``, Swin-B: AdamW(1e-4, wd 0.05), mixup 0.8), and
+``mae`` one step of ``BackbonePretrainRunner`` over ``PretrainVideoMAE``
+(mask ratio 0.9). Each runs 3 warm-up steps, then ``torch.profiler`` over
 ``--steps`` steps. Prints the card's name and power limit, the device
 milliseconds per step (CUDA events), the share of it in which a kernel
 ran, and the kernels by device time per step; the last line is one JSON
@@ -38,6 +43,7 @@ MODES = {"bf16": {}, "int8": {"quant_pallas_heads": True},
 # backbone modes: (module, factory, clip shape)
 BACKBONE_MODES = {"swin": ("swin3d", "omnivore_swinB_epic", (32, 224, 224, 3)),
                   "vit": ("vit", "videomae_vit_large", (16, 224, 224, 3))}
+TRAIN_MODES = {"vit-train": "vit", "swin-train": "swin", "mae": "vit"}
 
 
 def random_batch(cfg, n: int, rng) -> dict:
@@ -82,9 +88,44 @@ def build_backbone(mode: str, batch: int):
     return model, clips
 
 
+def build_training(mode: str, batch: int):
+    """(step, batch) of one bf16 training step on the card."""
+    from tim_tpu_torch.runner import backbone as rb
+    shape = BACKBONE_MODES[TRAIN_MODES[mode]][2]
+    gen = torch.Generator().manual_seed(0)
+    clips = torch.randn(batch, *shape, device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(0))
+    if mode == "mae":
+        from tim_tpu_torch.extract.masking import batch_mask_indices
+        from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+        model = PretrainVideoMAE(dtype="bfloat16", device="cuda",
+                                 generator=gen)
+        runner = rb.BackbonePretrainRunner(model, None, mask_ratio=0.9)
+        state = runner.init_state()
+        vis, msk = (torch.from_numpy(m).cuda() for m in batch_mask_indices(
+            runner.masking, batch, np.random.default_rng(0)))
+        return (lambda video: runner._step_fn(state, video, vis, msk)), clips
+    trunk, _ = build_backbone(TRAIN_MODES[mode], 1)
+    model = rb.TwoHeadViT(trunk, generator=gen)
+    labels = {"verb": torch.randint(0, 97, (batch,), device="cuda"),
+              "noun": torch.randint(0, 300, (batch,), device="cuda")}
+    if mode == "vit-train":
+        runner = rb.BackboneFinetuneRunner(model, [None] * batch, None,
+                                           batch_size=batch)
+        state, step = runner.init_state(), runner._step_fn
+    else:
+        from tim_tpu_torch.train.state import TrainState
+        state = TrainState(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=0.05))
+        step = rb.make_two_head_step(model)
+    return (lambda video: step(state, {"video": video, **labels})), clips
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES]),
+    parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES,
+                                                  *TRAIN_MODES]),
                         default="bf16")
     parser.add_argument("--batch", type=int, default=None,
                         help="windows (default 128) or clips (default 8)")
@@ -99,7 +140,10 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    if args.mode in BACKBONE_MODES:
+    if args.mode in TRAIN_MODES:
+        args.batch = args.batch or 8
+        step, batch = build_training(args.mode, args.batch)
+    elif args.mode in BACKBONE_MODES:
         args.batch = args.batch or 8
         step, batch = build_backbone(args.mode, args.batch)
     else:
@@ -119,10 +163,14 @@ def main() -> None:
         end.record()
         torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / args.steps
+    # A record_function range (e.g. the optimizer's step) also shows up on
+    # the device timeline, spanning the kernels it launched: leave it out,
+    # or those kernels would count twice.
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3 / args.steps, e.count)
          for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)
          and e.self_device_time_total > 0),
         key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in kernels)
