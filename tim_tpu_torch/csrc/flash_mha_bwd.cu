@@ -11,23 +11,70 @@
 // What bounds it on the H100: at ViT-L's shapes ([8, 16, 1568, 64] bf16)
 // the gradient is 5 products of 2 S^2 dh per (batch, head): 201 GFLOP,
 // 0.20 ms at 989 TFLOP/s, against 0.1 GB of q/k/v/o/do/dq/dk/dv, so the
-// tensor cores bound it, not memory. This first version recomputes the
-// scores in two passes (dk/dv, then dq: 7 products, no atomics) with
-// mma.sync and 64 x 64 tiles; per-score softmax work and mma.sync's issue
-// rate are the likely limit. The core is in flash_attention_bwd.cuh.
+// tensor cores bound it, not memory. The bf16 route (flash_mha_bwd_sm90.cuh)
+// is one pass with those 5 products on wgmma, the only route to the
+// card's full tensor-core rate; dq sums across key blocks with fp32
+// atomic adds, so its last bits may change from run to run. The fp32
+// route (CUDA cores, no TF32, two passes, deterministic) is the parity
+// path, from flash_attention_bwd.cuh, whose bf16 kernels serve kernel 4b.
 
 #include "flash_attention_bwd.cuh"
+#include "flash_mha_bwd_sm90.cuh"
 
-// Head dim 64, as the forward. strides: 24 element strides, (batch, head, row) for q, k, v, o, do, dq,
-// dk and dv. lse: the forward's [batch, heads, seq] fp32 row statistic;
-// delta: [batch, heads, seq] fp32 scratch. Returns the first CUDA error of
-// the launches (0 on success).
+namespace {
+
+constexpr int kDH = 64;
+
+int launch_f32(const tim_attn::BwdParams& p, cudaStream_t stream) {
+  using namespace tim_attn;
+  const long long rows = (long long)p.batch * p.heads * p.seq;
+  if ((rows + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  delta_kernel<kDH, float><<<(unsigned)((rows + 255) / 256), 256, 0,
+                             stream>>>(p);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long blocks = (long long)p.batch * p.heads *
+                           ((p.seq + 127) / 128);
+  err = launch_smem(dkdv_f32_kernel<kDH, false>, blocks, 0, stream, p,
+                    kDH / dkdv_f32_dims<kDH>());
+  if (err != 0) return err;
+  return launch_smem(dq_f32_kernel<kDH, false>, blocks, 0, stream, p);
+}
+
+}  // namespace
+
+// Head dim 64, as the forward. strides: 24 element strides, (batch, head,
+// row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch, heads,
+// seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch;
+// dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 only; zeroed
+// here). Returns the first CUDA error of the launches (0 on success).
 extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, void* dq,
                                  void* dk, void* dv, const long long* strides,
-                                 const float* lse, float* delta, int batch,
-                                 int heads, int seq, int dh, int is_bf16,
-                                 float scale, void* stream) {
+                                 const float* lse, float* delta,
+                                 float* dq_accum, int batch, int heads,
+                                 int seq, int dh, int is_bf16, float scale,
+                                 void* stream) {
+  if (dh != kDH) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    tim_attn::sm90::Params p{};
+    p.q = static_cast<const bf*>(q); p.k = static_cast<const bf*>(k);
+    p.v = static_cast<const bf*>(v); p.o = static_cast<const bf*>(o);
+    p.dout = static_cast<const bf*>(dout);
+    p.dq = static_cast<bf*>(dq); p.dk = static_cast<bf*>(dk);
+    p.dv = static_cast<bf*>(dv);
+    tim_attn::Strides* s[8] = {&p.sq, &p.sk, &p.sv, &p.so,
+                               &p.sdo, &p.sdq, &p.sdk, &p.sdv};
+    for (int i = 0; i < 8; ++i)
+      *s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    p.lse = lse; p.delta = delta; p.dq_accum = dq_accum;
+    p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
+    return tim_attn::sm90::launch(p, st);
+  }
   tim_attn::BwdParams p{};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.dq = dq; p.dk = dk; p.dv = dv;
@@ -35,6 +82,5 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
   p.lse = lse; p.delta = delta;
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
   p.bias = nullptr; p.region = nullptr; p.n_win = 1; p.dbias = nullptr;
-  return tim_attn::launch_bwd<64, false>(p, dh, is_bf16 != 0,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_f32(p, st);
 }

@@ -31,10 +31,10 @@ HEAD_DIM = 64
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
                                       ctypes.c_void_p]
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-# tim_flash_mha_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta, b, h,
-# s, dh, bf16, scale, stream)
+# tim_flash_mha_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
+# dq_accum, b, h, s, dh, bf16, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -188,7 +188,9 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     CUDA tensors launch the backward kernel (written into ``grads``, three
     [B, H, S, dh] views, when given; else into views of one packed
     [B, S, 3, H, dh] buffer) or raise; CPU tensors take
-    ``flash_mha_bwd_plain`` (``out`` and ``lse`` unused)."""
+    ``flash_mha_bwd_plain`` (``out`` and ``lse`` unused). In bf16 the
+    kernel sums dq over key blocks with fp32 atomic adds, so dq may differ
+    in its last bits from run to run; dk and dv do not."""
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, do, sm_scale=sm_scale)
     if q.device.type != "cuda":
@@ -199,10 +201,16 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     do, strides = bwd_args(q, k, v, out, do, grads)
     b, h, s, dh = q.shape
     delta = torch.empty_like(lse)
+    bf16 = q.dtype == torch.bfloat16
+    # bf16: dq summed over key blocks in fp32 (zeroed by the kernel's
+    # preprocess), then rounded into dq
+    dq_accum = (torch.empty((b, h, s, dh), dtype=torch.float32,
+                            device=q.device) if bf16 else None)
     fn = _build.launcher("tim_flash_mha_bwd", _BWD_ARGTYPES)
     status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
-                strides, lse.data_ptr(), delta.data_ptr(), b, h, s, dh,
-                int(q.dtype == torch.bfloat16), float(sm_scale),
+                strides, lse.data_ptr(), delta.data_ptr(),
+                dq_accum.data_ptr() if bf16 else None, b, h, s, dh,
+                int(bf16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_mha_bwd")
     flash_mha_bwd.launches += 1

@@ -6,9 +6,10 @@ weighted sum of the context values and its own value. Internals are fp32,
 the output is in the input dtype.
 
 ``query_block_attention`` launches the CUDA kernel
-(``csrc/query_block_attention.cu``) for CUDA tensors and runs
-``query_block_attention_plain``, the same function in plain PyTorch, for
-CPU tensors. There is no fallback between the two.
+(``csrc/query_block_attention.cu``: tensor cores in bf16 at head dims 32,
+64 and 128, CUDA cores in fp32 and at head dim 256) for CUDA tensors and
+runs ``query_block_attention_plain``, the same function in plain
+PyTorch, for CPU tensors. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -66,6 +67,14 @@ def _check(qq, kc, kq, vc, vq):
     if dh not in _HEAD_DIMS:
         raise ValueError(f"query_block_attention: head dim {dh} not in "
                          f"{_HEAD_DIMS}")
+    if qq.dtype == torch.bfloat16 and dh != 256:
+        # the tensor-core design copies rows with 16-byte cp.async
+        for name, t in (("qq", qq), ("kc", kc), ("kq", kq), ("vc", vc),
+                        ("vq", vq)):
+            if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+                raise ValueError(f"query_block_attention: {name} needs "
+                                 f"16-byte aligned rows (strides "
+                                 f"{t.stride()})")
     if f < 1 or b * h > 65535:
         raise ValueError(f"query_block_attention: needs F >= 1 and "
                          f"B*H <= 65535, got F={f}, B*H={b * h}")
