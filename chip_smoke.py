@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: a CUDA card is required; prints nvidia-smi's name and power
-     limit; TF32 stays at PyTorch's defaults, as the entry points run; the
+     limit (and the SM clock, for the exponential floors); TF32 stays at
+     PyTorch's defaults, as the entry points run; the
      CPU references use no more threads than the host lets it use;
   2. build: compiles the CUDA kernels from ``tim_tpu_torch/csrc`` (one
      nvcc per source, all started together); prints each source's compile
@@ -18,7 +19,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ragged M, strided inputs), then timed (CUDA events) at the serving
      shapes (bf16, batch 128) beside its plain version and one library
      route for the same function; the least time the card could take is
-     computed from the same shapes;
+     computed from the same shapes; then the bf16 linear against its own
+     fp32-accumulator reference rounded per kind (TORCH_LINEAR, DENSE),
+     bit-equal on exact sums, timed beside the route before the repair,
+     and the linears' bias epilogue kernel (``csrc/bias_act.cu``: the
+     bias add rounded per kind, with the MLPs' GELU) against its plain
+     version at the backbones' shapes, timed;
   4. fp32 slice: ``make_inference_step`` of a full-width EPIC detection
      TimDetection (random weights from a seeded generator) on 2 windows,
      on the card with the kernels and on the CPU with the plain versions;
@@ -38,9 +44,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   9. backbone kernels: kernel 4 (window attention) against its plain
      version in fp32 and bf16 at each Swin-B stage shape of one 32 x 224^2
      clip (shifted and unshifted blocks; stage 4 has one window type) and
-     kernel 5 (flash attention) at [2, 16, 1568, 64] and a ragged S (the
-     bf16 gate also shown to reject two faulty controls), then both timed
-     at batch 8 beside the plain version and one library call;
+     kernel 5 (flash attention) at S 1568, 160 and a ragged 37 and the MAE
+     decoder's 8 heads, each as its inference and its training launch
+     (the row lse against the plain log-sum-exp; the bf16 gate also shown
+     to reject two faulty controls), then both timed at batch 8 at every
+     shape the paths launch (kernel 4: every stage; kernel 5: ViT-L, the
+     MAE encoder and decoder) beside the plain version, the library call
+     without and with inputs that require grad (the call that keeps its
+     lse), the bound and the exponential floor;
  10. backbone fp32 slices: full-width Swin-B (32 x 224^2) and ViT-L
      (16 x 224^2) on one clip, on the card with the kernels against the
      CPU with the plain versions; 24 launches per forward;
@@ -56,7 +67,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 (the bf16 gate shown to reject two faulty controls: D omitted,
      dbias from one window), then timed at batch 8 beside the plain
      backward and the backward of ``scaled_dot_product_attention``
-     (kernels 1 and 5b also report their share of the bound);
+     (kernels 1 and 5b also report their share of the bound); kernel 5b's
+     deterministic route (``torch.use_deterministic_algorithms``): two
+     calls bit-equal, within the gate, timed;
  13. fp32 gradient slices: full-width ViT-L (2 blocks) and Swin-B (depths
      2, 2, 2, 2) ``TwoHeadViT`` on one clip, every parameter gradient on
      the card against the CPU;
@@ -69,7 +82,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (ViT-L encoder, 512 x 12 decoder) in bf16, batch 8, mask 0.9: 36
      launches of kernel 5 and 36 of its backward per step.
 The counts are set to 0 just before each serving, extraction or training
-run and read just after it. Each phase's wall seconds are printed after it,
+run and read just after it (the bias epilogue's count must be the same in
+every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
 and all of them on one ``[time]`` line at the end. The line before the last is the kernels' JSON; the
 last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -105,6 +119,15 @@ SLICE_TOL = 1e-3         # fp32 card vs fp32 CPU, whole slice
 ATTN_F32_TOL = 1e-4
 ATTN_BF16_FLOOR = 2.0 ** -7      # of max |want|, beside two bf16 spacings
 ATTN_BF16_REL_RMS = 1e-2         # ||got - want|| / ||want||
+# the kernels' row log-sum-exp (natural log, about 8 at these shapes)
+# against torch.logsumexp of the plain fp32 scores: fp32 sums of up to 1568
+# exponentials in another order, ex2.approx (relative error 2^-22)
+LSE_TOL = 1e-4
+# kernel 5 checked at ViT-L's S, the MAE encoder's 160 visible tokens, a
+# ragged S and the MAE decoder's 8 heads; timed at batch 8 at the main
+# paths' shapes (ViT-L and the MAE encoder: 16 heads; the decoder: 8)
+FLASH_CHECK_SHAPES = ((2, 16, 1568), (2, 16, 160), (3, 16, 37), (2, 8, 1568))
+FLASH_SHAPES = ((16, 1568), (16, 160), (8, 1568))
 # bf16 vs fp32 backbone features, relative to the largest fp32 feature
 # (measured 5.9e-3 Swin-B, 4.4e-3 ViT-L; features scaled by 0.98 fail)
 BF16_FEATURE_TOL = 1.5e-2
@@ -129,6 +152,7 @@ ULP_ENVELOPE = 4.0
 # Card rates (NVIDIA's H100 SXM data sheet, dense): device memory bytes/s
 # and tensor-core operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
+SM_CLOCK_HZ = 1.98e9     # replaced by nvidia-smi's clocks.max.sm in main
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 
@@ -167,6 +191,30 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2):
+    """(mean device ms, mean host ms to issue one call) of ``fn``: the
+    calls are queued behind a spin kernel that outlasts their issue, so
+    the events time the device back to back whatever the host's speed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin_ms = 20.0
+    while True:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        torch.cuda._sleep(int(spin_ms * 1e-3 * SM_CLOCK_HZ))
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if host_ms < marks[0].elapsed_time(marks[1]):
+            return marks[1].elapsed_time(marks[2]) / iters, host_ms / iters
+        spin_ms *= 4
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -287,6 +335,116 @@ def int8_close(got, want) -> bool:
     return bool((err <= 1e-5 + 1e-5 * want.float().abs()).all())
 
 
+def phase_linear_rounding(gen):
+    """The bf16 linear on the card against its own fp32-accumulator
+    reference rounded per kind (TORCH_LINEAR: fp32 sum + fp32 bias, one
+    rounding; DENSE: the product rounded, then + the bf16 bias in bf16):
+    bit-equal where every fp32 sum is exact (signed powers of two), and
+    within a rounding flip in at most 1% of the outputs (sums in another
+    order) on normal inputs at ViT-L's qkv and fc1 shapes; timed beside
+    ``F.linear`` with a bf16 bias (the route before the repair)."""
+    from tim_tpu_torch.models.common import DENSE, TORCH_LINEAR, linear
+
+    def want(x, w, b, kind):
+        acc = x.float() @ w.to(torch.bfloat16).float().t()
+        if kind == TORCH_LINEAR:
+            return (acc + b).to(torch.bfloat16)
+        return acc.to(torch.bfloat16) + b.to(torch.bfloat16)
+
+    def pow2(*shape, lo):
+        e = torch.randint(lo, 1, shape, generator=gen, device="cuda")
+        sign = torch.randint(-1, 2, shape, generator=gen, device="cuda")
+        return torch.exp2(e.float()) * sign
+
+    report = {}
+    for kind in (TORCH_LINEAR, DENSE):
+        x, w = pow2(4, 37, 64, lo=-3), pow2(96, 64, lo=-4)
+        b = torch.rand(96, generator=gen, device="cuda") * 4 - 2
+        got = linear(x, w, b, torch.bfloat16, rounding=kind)
+        require(torch.equal(got, want(x.to(torch.bfloat16), w, b, kind)),
+                f"bf16 linear ({kind}) differs from its fp32 reference on "
+                f"exact sums")
+        for n_out in (3072, 4096):
+            x = torch.randn(8 * 1568, 1024, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            w = torch.randn(n_out, 1024, generator=gen, device="cuda") * 0.03
+            b = torch.randn(n_out, generator=gen, device="cuda")
+            got = linear(x, w, b, torch.bfloat16, rounding=kind)
+            share = (got != want(x, w, b, kind)).float().mean().item()
+            wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+            row = {"mismatch_share": share,
+                   "ms": cuda_ms(lambda: linear(x, w, b, torch.bfloat16,
+                                                rounding=kind)),
+                   "previous_ms": cuda_ms(lambda: F.linear(x, wb, bb))}
+            log(f"[linear] {kind} [12544, 1024] -> {n_out}: rounding flips "
+                f"in {share:.2e} of the outputs; {row['ms']:.4f} ms "
+                f"(previous route {row['previous_ms']:.4f} ms)")
+            require(share <= 1e-2, f"bf16 linear ({kind}) differs from "
+                    f"its fp32 reference in {share} of the outputs")
+            report[f"{kind}_{n_out}"] = row
+    return report
+
+
+# bias_act against its plain version: without a GELU the same roundings
+# (bit-equal); with one, erf in another library may move a result by one
+# bf16 spacing, in at most BIAS_ACT_FLIPS of the outputs
+BIAS_ACT_FLIPS = 1e-3
+
+
+def check_bias_act(gen):
+    """The bias epilogue kernel against its plain version at the main
+    paths' shapes (ViT-L's qkv and fc1, Swin-B's stage-1 fc1 and qkv, a
+    detection regression head's 2 columns), then timed at ViT-L's fc1 and
+    qkv."""
+    from tim_tpu_torch.ops.bias_act import bias_act, bias_act_plain
+    worst = 0.0
+    cases = ((8 * 1568, 3072, torch.float32, False),
+             (8 * 1568, 4096, torch.bfloat16, True),
+             (8 * 16 * 56 * 56, 512, torch.bfloat16, True),
+             (8 * 16 * 56 * 56, 384, torch.bfloat16, False),
+             (8 * 1568, 4096, torch.float32, True),
+             (4 * 399, 2, torch.float32, False),
+             (37, 12, torch.bfloat16, True))
+    for rows, cols, dtype, gelu in cases:
+        y = (torch.randn(rows, cols, generator=gen, device="cuda") * 3).to(
+            dtype)
+        b = torch.randn(cols, generator=gen, device="cuda")
+        got, pre = bias_act(y, b, gelu=gelu, keep_pre=True)
+        torch.cuda.synchronize()
+        want, h = bias_act_plain(y, b, gelu=gelu)
+        err = max_err(got, want)
+        flips = (got != want).float().mean().item()
+        tag = (f"[{rows}, {cols}] {str(dtype)[6:]} in"
+               f"{' + GELU' if gelu else ''}")
+        log(f"[linear] bias_act {tag}: max_abs_err={err:.3e}, "
+            f"{flips:.2e} of the outputs differ")
+        ok = (torch.equal(got, want) if not gelu else
+              bool(((got.float() - want.float()).abs()
+                    <= bf16_spacing(want)).all()) and flips <= BIAS_ACT_FLIPS)
+        require(ok and (pre is None or torch.equal(pre, h)),
+                f"bias_act {tag} disagrees with its plain version")
+        worst = max(worst, err)
+    rows, cols = 8 * 1568, 4096
+    y = torch.randn(rows, cols, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    b = torch.randn(cols, generator=gen, device="cuda")
+    ms_bound, by = bound(nbytes(y, b) + rows * cols * 2, 0, "bf16")
+    report = {"max_abs_err": worst,
+              "ms": cuda_ms(lambda: bias_act(y, b, gelu=True)),
+              "plain_ms": cuda_ms(lambda: bias_act_plain(y, b, gelu=True)),
+              "library_ms": None, "bound_ms": ms_bound, "bound_by": by}
+    y32 = torch.randn(rows, 3072, generator=gen, device="cuda")
+    b32 = torch.randn(3072, generator=gen, device="cuda")
+    report["fp32_in_ms"] = cuda_ms(lambda: bias_act(y32, b32, gelu=False))
+    fp32_in_bound = bound(nbytes(y32, b32) + rows * 3072 * 2, 0, "bf16")[0]
+    log(f"[linear] bias_act [{rows}, {cols}] bf16 + GELU (ViT-L fc1): "
+        f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, "
+        f"bound {ms_bound:.4f} ms ({by}); fp32 in [{rows}, 3072] (ViT-L "
+        f"qkv) {report['fp32_in_ms']:.4f} ms, bound "
+        f"{fp32_in_bound:.4f} ms")
+    return report
+
+
 def qkv_views(batch, dtype, gen):
     """q/k/v of one layer as the model hands them to attention: strided
     [B, H, S, dh] views of one packed projection."""
@@ -322,11 +480,12 @@ def unfused_tail(x, attn, ln1_w, ln1_b, w1, b1, w2, b2, ln2_w, ln2_b):
     """What EncoderLayer runs with use_fused_ffn=False: library bf16 GEMMs
     and separate LN/GELU/residual passes. Timed beside the kernel, since the
     plain version's products run in fp32."""
-    from tim_tpu_torch.models.common import exact_gelu, linear
+    from tim_tpu_torch.models.common import TORCH_LINEAR, exact_gelu, linear
     from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
     dt = x.dtype
     y = layer_norm_fp32(x + attn, ln1_w, ln1_b).to(dt)
-    h = linear(exact_gelu(linear(y, w1, b1, dt)), w2, b2, dt)
+    h = linear(exact_gelu(linear(y, w1, b1, dt, rounding=TORCH_LINEAR)), w2,
+               b2, dt, rounding=TORCH_LINEAR)
     return layer_norm_fp32(y + h, ln2_w, ln2_b).to(dt)
 
 
@@ -620,6 +779,7 @@ def synthetic_video(cfg, rng):
 
 
 def launch_counters():
+    from tim_tpu_torch.ops import bias_act as ba
     from tim_tpu_torch.ops import flash_mha as fm
     from tim_tpu_torch.ops import fused_post_attention as fpa
     from tim_tpu_torch.ops import int8_matmul_fused as i8
@@ -631,7 +791,22 @@ def launch_counters():
             "window_attention": wa.window_attention,
             "flash_mha": fm.flash_mha,
             "window_attention_bwd": wa.window_attention_bwd,
-            "flash_mha_bwd": fm.flash_mha_bwd}
+            "flash_mha_bwd": fm.flash_mha_bwd,
+            "bias_act": ba.bias_act}
+
+
+def attention_launches(launches):
+    """The launches of the TPU kernels' counterparts, without the bias
+    epilogue of the bf16 linears."""
+    return sum(n for name, n in launches.items() if name != "bias_act")
+
+
+def require_steady(tag, launches, calls):
+    """The bias epilogue of the bf16 linears launched the same number of
+    times, at least once, in each of ``calls`` forwards or steps."""
+    n = launches["bias_act"]
+    require(n > 0 and n % calls == 0, f"{tag}: bias_act launched {n} "
+            f"times in {calls} calls")
 
 
 def serve_run(tag, server, video, threshold):
@@ -901,33 +1076,53 @@ def vit_qkv(batch, seq, dtype, gen, heads=16, dh=64):
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
 
 
-def check_attention(name, kernel, plain, args, kw, tag, scores=None):
-    """The kernel against its plain version; returns (kernel output, max
-    abs error). In bf16, with ``scores`` (a function of the inputs giving
-    the fp32 scores), also requires that the gate rejects two faulty
-    controls: the plain output scaled by 0.98, and the online softmax that
-    does not rescale its running sum."""
+def check_attention(name, kernel, plain, scores, args, kw, tag,
+                    controls=False):
+    """The kernel's inference and training (lse) launches against the plain
+    version; the row log-sum-exp against torch.logsumexp of the plain fp32
+    scores (``scores``, a function of the inputs). Returns (inference
+    output, max abs error). In bf16, with ``controls``, also requires that
+    the gate rejects two faulty controls: the plain output scaled by 0.98,
+    and the online softmax that does not rescale its running sum."""
     got = kernel(*args, **kw)
+    got_lse, lse = kernel_with_lse(name)(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
-    ok, err, rel = attention_close(got, want)
-    log(f"[backbone-kernels] {name} {tag}: max_abs_err={err:.3e}, "
-        f"relative RMS {rel:.3e}")
-    require(got.shape == want.shape and ok,
-            f"{name} {tag} disagrees with its plain version: max abs {err}, "
-            f"relative RMS {rel}")
-    if scores is not None and got.dtype == torch.bfloat16:
-        controls = {"plain x 0.98": (want.float() * 0.98).to(want.dtype),
-                    "running sum not rescaled": online_attention(
-                        scores(*args, **kw), args[2], rescale_sum=False)}
-        for cname, bad in controls.items():
-            bad_ok, bad_err, bad_rel = attention_close(bad, want)
+    s = scores(*args, **kw)
+    lse_err = max_err(lse, torch.logsumexp(s, -1))
+    worst = 0.0
+    for launch, out in (("inference", got), ("lse", got_lse)):
+        ok, err, rel = attention_close(out, want)
+        log(f"[backbone-kernels] {name} {tag} {launch}: max_abs_err="
+            f"{err:.3e}, relative RMS {rel:.3e}")
+        require(out.shape == want.shape and ok,
+                f"{name} {tag} ({launch} launch) disagrees with its plain "
+                f"version: max abs {err}, relative RMS {rel}")
+        worst = max(worst, err)
+    log(f"[backbone-kernels] {name} {tag}: lse max_abs_err={lse_err:.3e} "
+        f"(tol {LSE_TOL})")
+    require(lse_err <= LSE_TOL, f"{name} {tag}: lse differs from the plain "
+            f"log-sum-exp by {lse_err}")
+    if controls and got.dtype == torch.bfloat16:
+        bad = {"plain x 0.98": (want.float() * 0.98).to(want.dtype),
+               "running sum not rescaled": online_attention(
+                   s, args[2], rescale_sum=False)}
+        for cname, out in bad.items():
+            bad_ok, bad_err, bad_rel = attention_close(out, want)
             log(f"[backbone-kernels] {name} {tag} control '{cname}': max "
                 f"abs {bad_err:.3e}, relative RMS {bad_rel:.3e}, "
                 f"{'passes' if bad_ok else 'rejected'}")
             require(not bad_ok, f"{name} {tag}: the bf16 gate passes the "
                     f"faulty control '{cname}'")
-    return got, err
+    return got, worst
+
+
+def kernel_with_lse(name):
+    """The training launch of kernel ``name``: (output, row lse)."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import window_attention as wa
+    return {"flash_mha": fm.flash_mha_with_lse,
+            "window_attention": wa.window_attention_with_lse}[name]
 
 
 def swin_scores(q, k, v, bias, region, *, sm_scale):
@@ -951,9 +1146,78 @@ def window_library_args(q, k, v, bias, region, n_win):
             ab.reshape(1, n_win * h, n, n).to(q.dtype))
 
 
+def sdpa_with_grad(*args, **kwargs):
+    """The forward of one ``scaled_dot_product_attention`` call on inputs
+    that require grad: the library call that also keeps its log-sum-exp
+    for the backward, beside a kernel's training launch."""
+    leaves = [t.detach().requires_grad_() for t in args]
+
+    def run():
+        with torch.enable_grad():
+            F.scaled_dot_product_attention(*leaves, **kwargs)
+    return run
+
+
+# numbers the kernels' reports carry for the log lines that are computed
+# from shapes (or from another number), not measured; the kernels' JSON line
+# leaves them out (its bound_ms is the one computed number it keeps)
+COMPUTED = ("exp_floor_ms", "share_of_bound")
+
+
+def measured(report):
+    """``report`` without the COMPUTED keys, at every depth."""
+    if isinstance(report, dict):
+        return {k: measured(v) for k, v in report.items()
+                if k not in COMPUTED}
+    if isinstance(report, list):
+        return [measured(v) for v in report]
+    return report
+
+
+def exp_floor_ms(n_scores):
+    """One exponential a score on the SMs' 16-a-clock units (132 SMs) at
+    the card's highest SM clock: the least time the softmax can take."""
+    return n_scores / (16 * 132 * SM_CLOCK_HZ) * 1e3
+
+
+def time_forward(kernel, with_lse, plain, library, library_grad, args, kw,
+                 nbytes_, n_scores, dh):
+    """The inference and training (lse) launches of a forward kernel at
+    batch 8 beside its plain version, its library call without and with
+    inputs that require grad, its bound and its exponential floor."""
+    ms_bound, by = bound(nbytes_, 4 * n_scores * dh, "bf16")
+    row = {}
+    row["ms"], row["host_ms"] = device_ms(lambda: kernel(*args, **kw))
+    row["lse_ms"], row["lse_host_ms"] = device_ms(
+        lambda: with_lse(*args, **kw))
+    row["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), iters=3)
+    row["library_ms"], row["library_host_ms"] = device_ms(library)
+    row["library_grad_ms"], _ = device_ms(library_grad)
+    row.update(bound_ms=ms_bound, bound_by=by,
+               exp_floor_ms=exp_floor_ms(n_scores))
+    row["share_of_bound"] = ms_bound / row["ms"]
+    return row
+
+
+def log_forward(name, tag, row, lib_name, lib_err):
+    log(f"[backbone-kernels] {name} {tag} bf16 (device ms, host ms a "
+        f"call): kernel {row['ms']:.4f} ms (host {row['host_ms']:.4f}), "
+        f"training launch (writes lse) {row['lse_ms']:.4f} ms (host "
+        f"{row['lse_host_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+        f"{lib_name} {row['library_ms']:.4f} ms (host "
+        f"{row['library_host_ms']:.4f}; max abs diff to the kernel "
+        f"{lib_err:.3e}), with inputs that require grad "
+        f"{row['library_grad_ms']:.4f} ms; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{100 * row['share_of_bound']:.1f}%), exponential floor "
+        f"{row['exp_floor_ms']:.4f} ms")
+
+
 def phase_backbone_kernels(gen):
-    """Kernels 4 and 5 against their plain versions, then timed at batch
-    8 (the extraction batch)."""
+    """Kernels 4 and 5 (inference and training launches) against their
+    plain versions, then timed at batch 8 (the extraction and training
+    batch) at every shape the main paths launch."""
+    from tim_tpu_torch import _build
     from tim_tpu_torch.ops import flash_mha as fm
     from tim_tpu_torch.ops import window_attention as wa
 
@@ -966,24 +1230,24 @@ def phase_backbone_kernels(gen):
                 bias, region = swin_bias(heads, dims, shifted, gen)
                 _, err = check_attention(
                     "window_attention", wa.window_attention,
-                    wa.window_attention_plain, (q, k, v, bias, region),
-                    {"sm_scale": 32 ** -0.5},
+                    wa.window_attention_plain, swin_scores,
+                    (q, k, v, bias, region), {"sm_scale": 32 ** -0.5},
                     f"{dtype} nW={n_win} H={heads} shifted={shifted} "
                     f"n_types={1 if region is None else n_win}",
-                    scores=(swin_scores if n_win == 64 and shifted
-                            else None))
+                    controls=n_win == 64 and shifted)
                 worst["window_attention"] = max(worst["window_attention"],
                                                 err)
                 cases += 1
-        for b, s in ((2, 1568), (2, 200), (3, 37)):
+        for b, h, s in FLASH_CHECK_SHAPES:
             _, err = check_attention(
-                "flash_mha", fm.flash_mha, fm.flash_mha_plain,
-                vit_qkv(b, s, dtype, gen), {"sm_scale": 0.125},
-                f"{dtype} [{b}, 16, {s}, 64]",
-                scores=vit_scores if s == 1568 else None)
+                "flash_mha", fm.flash_mha, fm.flash_mha_plain, vit_scores,
+                vit_qkv(b, s, dtype, gen, heads=h), {"sm_scale": 0.125},
+                f"{dtype} [{b}, {h}, {s}, 64]",
+                controls=s == 1568 and h == 16)
             worst["flash_mha"] = max(worst["flash_mha"], err)
             cases += 1
-    log(f"[backbone-kernels] {cases} cases agree with the plain versions")
+    log(f"[backbone-kernels] {cases} cases (each launch) agree with the "
+        f"plain versions")
 
     report = {}
     per_stage = []
@@ -992,68 +1256,78 @@ def phase_backbone_kernels(gen):
         q, k, v = swin_qkv(8, n_win, heads, torch.bfloat16, gen)
         bias, region = swin_bias(heads, dims, shifted, gen)
         args, kw = (q, k, v, bias, region), {"sm_scale": 32 ** -0.5}
-        out, err = check_attention("window_attention", wa.window_attention,
-                                   wa.window_attention_plain, args, kw,
-                                   f"bf16 batch 8 nW={n_win}")
         bw, h, n, dh = q.shape
-        ms_bound, by = bound(nbytes(q, k, v, bias, region, out),
-                             4 * bw * h * n * n * dh, "bf16")
+        out = wa.window_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ok, err, rel = attention_close(out, wa.window_attention_plain(*args,
+                                                                     **kw))
+        require(ok, f"window_attention bf16 batch 8 nW={n_win}: max abs "
+                f"{err}, relative RMS {rel}")
         lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
+        lib_kw = {"attn_mask": mask, "scale": 32 ** -0.5}
         lib_err = max_err(F.scaled_dot_product_attention(
-            *lib_qkv, attn_mask=mask, scale=32 ** -0.5).reshape(out.shape),
-            out)
-        del out
+            *lib_qkv, **lib_kw).reshape(out.shape), out)
         row = {"stage": len(per_stage) + 1, "windows": bw, "heads": h,
                "shifted": shifted, "max_abs_err": err,
-               "ms": cuda_ms(lambda: wa.window_attention(*args, **kw)),
-               "plain_ms": cuda_ms(
-                   lambda: wa.window_attention_plain(*args, **kw), iters=3),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   *lib_qkv, attn_mask=mask, scale=32 ** -0.5)),
-               "bound_ms": ms_bound, "bound_by": by}
-        log(f"[backbone-kernels] window_attention stage {row['stage']} "
-            f"[{bw}, {h}, {n}, {dh}] bf16 shifted={shifted}: kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, masked "
-            f"scaled_dot_product_attention {row['library_ms']:.4f} ms (max "
-            f"abs diff to the kernel {lib_err:.3e}), bound {ms_bound:.4f} ms "
-            f"({by})")
+               **time_forward(
+                   wa.window_attention, wa.window_attention_with_lse,
+                   wa.window_attention_plain,
+                   lambda: F.scaled_dot_product_attention(*lib_qkv, **lib_kw),
+                   sdpa_with_grad(*lib_qkv, **lib_kw), args, kw,
+                   nbytes(q, k, v, bias, region, out), bw * h * n * n, dh)}
+        log_forward("window_attention", f"stage {row['stage']} [{bw}, {h}, "
+                    f"{n}, {dh}] shifted={shifted}", row, "masked "
+                    "scaled_dot_product_attention", lib_err)
         per_stage.append(row)
-        del args, lib_qkv, mask, q, k, v
+        del args, lib_qkv, mask, q, k, v, out
         torch.cuda.empty_cache()
     first = per_stage[0]
     report["window_attention"] = {
         "max_abs_err": max(worst["window_attention"],
                            *(r["max_abs_err"] for r in per_stage)),
-        **{key: first[key] for key in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
+        **{key: first[key] for key in first if key.endswith(("ms", "_by"))},
         "per_stage": per_stage}
 
-    q, k, v = vit_qkv(8, 1568, torch.bfloat16, gen)
-    kw = {"sm_scale": 0.125}
-    out, err = check_attention("flash_mha", fm.flash_mha, fm.flash_mha_plain,
-                               (q, k, v), kw, "bf16 [8, 16, 1568, 64]")
-    b, h, s, dh = q.shape
-    ms_bound, by = bound(nbytes(q, k, v, out), 4 * b * h * s * s * dh,
-                         "bf16")
-    lib_err = max_err(F.scaled_dot_product_attention(q, k, v, **{
-        "scale": 0.125}), out)
-    del out
+    per_shape = []
+    for h, s in FLASH_SHAPES:
+        q, k, v = vit_qkv(8, s, torch.bfloat16, gen, heads=h)
+        kw = {"sm_scale": 0.125}
+        out = fm.flash_mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ok, err, rel = attention_close(out, fm.flash_mha_plain(q, k, v, **kw))
+        require(ok, f"flash_mha bf16 [8, {h}, {s}, 64]: max abs {err}, "
+                f"relative RMS {rel}")
+        lib_err = max_err(F.scaled_dot_product_attention(q, k, v, scale=0.125),
+                          out)
+        row = {"shape": [8, h, s, 64], "max_abs_err": err,
+               **time_forward(
+                   fm.flash_mha, fm.flash_mha_with_lse, fm.flash_mha_plain,
+                   lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          scale=0.125),
+                   sdpa_with_grad(q, k, v, scale=0.125), (q, k, v), kw,
+                   nbytes(q, k, v, out), 8 * h * s * s, 64)}
+        # the C launcher alone (tensor maps and launch), arguments made
+        # once: what of the wrapper's host time a call is not Python
+        c_fn = _build.launcher("tim_flash_mha", fm._ARGTYPES)
+        view, strides = fm.launch_args(q, k, v)
+        c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
+                  strides, None, 8, h, s, 64, 1, 0.125,
+                  torch.cuda.current_stream().cuda_stream)
+        _, row["launcher_host_ms"] = device_ms(lambda: c_fn(*c_args))
+        log_forward("flash_mha", f"[8, {h}, {s}, 64]", row,
+                    "scaled_dot_product_attention", lib_err)
+        log(f"[backbone-kernels] flash_mha [8, {h}, {s}, 64]: the C "
+            f"launcher alone {row['launcher_host_ms']:.4f} ms of host a "
+            f"call (the wrapper {row['host_ms']:.4f})")
+        per_shape.append(row)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    first = per_shape[0]
     report["flash_mha"] = {
-        "max_abs_err": max(worst["flash_mha"], err),
-        "ms": cuda_ms(lambda: fm.flash_mha(q, k, v, **kw)),
-        "plain_ms": cuda_ms(lambda: fm.flash_mha_plain(q, k, v, **kw),
-                            iters=3),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=0.125)),
-        "bound_ms": ms_bound, "bound_by": by}
-    log(f"[backbone-kernels] flash_mha [8, 16, 1568, 64] bf16: kernel "
-        f"{report['flash_mha']['ms']:.4f} ms, plain "
-        f"{report['flash_mha']['plain_ms']:.4f} ms, "
-        f"scaled_dot_product_attention {report['flash_mha']['library_ms']:.4f}"
-        f" ms (max abs diff to the kernel {lib_err:.3e}), bound "
-        f"{ms_bound:.4f} ms ({by})")
-    del q, k, v
-    torch.cuda.empty_cache()
+        "max_abs_err": max(worst["flash_mha"],
+                           *(r["max_abs_err"] for r in per_shape)),
+        **{key: first[key] for key in first if key.endswith(("ms", "_by"))},
+        "per_shape": per_shape}
     return report
 
 
@@ -1177,9 +1451,10 @@ def phase_extract(name, fp32_feats, clips):
             and bool(np.isfinite(bank).all()),
             f"{name} bank {bank.shape} or non-finite")
     require(launches[kernel] == 24 * forwards
-            and sum(launches.values()) == launches[kernel],
+            and attention_launches(launches) == launches[kernel],
             f"{name} extraction launches {launches}, expected 24 x "
             f"{forwards} of {kernel}")
+    require_steady(f"extract-{name}", launches, forwards)
     return launches, {
         "clips": EXTRACT_CLIPS, "batches": forwards, "device_ms": device_ms,
         "device_clips_per_s": EXTRACT_CLIPS / (device_ms / 1e3),
@@ -1321,6 +1596,39 @@ def attention_bwd_bound(q, nbytes_):
     return bound(nbytes_, 5 * 2 * b * h * n * n * dh, "bf16")
 
 
+def deterministic_flash_bwd(args, out, lse, do):
+    """Kernel 5b's route under ``torch.use_deterministic_algorithms(True)``
+    (dq from the atomic-free pass): two calls bit-equal in dq, dk and dv,
+    each gradient within the bf16 gate of the plain backward, dk and dv
+    bit-equal to the default route's; timed beside it."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    kw = {"sm_scale": 0.125}
+    default = [g.clone() for g in fm.flash_mha_bwd(*args, out, lse, do, **kw)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = [g.clone() for g in fm.flash_mha_bwd(*args, out, lse, do,
+                                                     **kw)]
+        second = fm.flash_mha_bwd(*args, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        equal = [torch.equal(a, b) for a, b in zip(first, second)]
+        del second
+        ms = cuda_ms(lambda: fm.flash_mha_bwd(*args, out, lse, do, **kw))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(all(equal), f"flash_mha_bwd deterministic route: two calls "
+            f"differ (dq, dk, dv bit-equal: {equal})")
+    require(torch.equal(first[1], default[1])
+            and torch.equal(first[2], default[2]),
+            "flash_mha_bwd deterministic route: dk or dv differ from the "
+            "default route's")
+    err = check_grads("flash_mha_bwd", first,
+                      fm.flash_mha_bwd_plain(*args, do, **kw), True,
+                      "bf16 [8, 16, 1568, 64] deterministic route")
+    log(f"[train-kernels] flash_mha_bwd deterministic route: dq, dk, dv "
+        f"bit-equal between two calls; {ms:.4f} ms a call")
+    return {"deterministic_ms": ms, "deterministic_max_abs_err": err}
+
+
 def phase_training_kernels(gen):
     """Kernels 4b and 5b against their plain backwards in fp32 and bf16,
     the bf16 gate shown to reject two faulty controls, then both timed at
@@ -1408,14 +1716,6 @@ def phase_training_kernels(gen):
                "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(
                    *args, do, **kw), iters=3, warmup=1),
                "bound_ms": ms_bound, "bound_by": by}
-        # the forward as inference launches it, and as training does
-        # (writing the row log-sum-exp the backward reads)
-        row["forward_ms"], row["forward_lse_ms"] = (
-            cuda_ms(lambda: fn(q, k, v, bias, region, **kw))
-            for fn in (wa.window_attention, wa.window_attention_with_lse))
-        log(f"[train-kernels] window_attention stage {row['stage']} bf16 "
-            f"forward {row['forward_ms']:.4f} ms, writing lse (the training "
-            f"launch) {row['forward_lse_ms']:.4f} ms")
         torch.cuda.empty_cache()
         lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
         lib_do = do.reshape(lib_qkv[0].shape)
@@ -1470,12 +1770,7 @@ def phase_training_kernels(gen):
         f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention backward {r['library_ms']:.4f} ms, "
         f"bound {ms_bound:.4f} ms ({by})")
-    r["forward_ms"], r["forward_lse_ms"] = (
-        cuda_ms(lambda: fn(q, k, v, sm_scale=0.125))
-        for fn in (fm.flash_mha, fm.flash_mha_with_lse))
-    log(f"[train-kernels] flash_mha [8, 16, 1568, 64] bf16 forward "
-        f"{r['forward_ms']:.4f} ms, writing lse (the training launch) "
-        f"{r['forward_lse_ms']:.4f} ms")
+    r.update(deterministic_flash_bwd(args, out, lse, do))
     del args, q, k, v, out, lse, do
     torch.cuda.empty_cache()
     return report
@@ -1647,9 +1942,11 @@ def train_run(tag, model, run, kernel, per_step, batch):
             f"parameter tensors did not move")
     require(launches[kernel] == per_step * TRAIN_STEPS
             and launches[f"{kernel}_bwd"] == per_step * TRAIN_STEPS
-            and sum(launches.values()) == 2 * per_step * TRAIN_STEPS,
+            and attention_launches(launches) == 2 * per_step * TRAIN_STEPS,
             f"{tag}: launches {launches}, expected {per_step} x "
-            f"{TRAIN_STEPS} of {kernel} and of {kernel}_bwd and nothing else")
+            f"{TRAIN_STEPS} of {kernel} and of {kernel}_bwd and no other "
+            f"attention kernel")
+    require_steady(tag, launches, TRAIN_STEPS)
     return launches, {
         "batch": batch, "steps": TRAIN_STEPS, "ms_per_step": ms,
         "step_ms": step_ms, "device_clips_per_s": batch / (ms / 1e3),
@@ -1840,6 +2137,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     log(smi.stdout.strip().splitlines()[0])
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0].split(",")
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(clock[0]) * 1e6
+    log(f"[device] SM clock: max {clock[0].strip()} MHz, now "
+        f"{clock[1].strip()} MHz (the exponential floors use the max)")
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {kind} x{torch.cuda.device_count()}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -1853,6 +2158,11 @@ def main() -> int:
     log(f"[build] {lib}")
 
     kernel_report = timed("kernels", phase_kernels)
+    linear_report = timed("linear", phase_linear_rounding,
+                          torch.Generator(device="cuda").manual_seed(SEED))
+    log(f"[linear] summary {json.dumps(linear_report)}")
+    kernel_report["bias_act"] = check_bias_act(
+        torch.Generator(device="cuda").manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     state_dict, batch2, fp32_out = timed("slice-fp32", phase_slice_fp32, rng)
     from tim_tpu_torch import config as C
@@ -1894,7 +2204,7 @@ def main() -> int:
         "int8_matmul_fused": ("tim_tpu_torch/csrc/int8_matmul_fused.cu",
                               "tim_tpu/ops/pallas_int8.py:50", "serve-int8"),
         "window_attention": ("tim_tpu_torch/csrc/window_attention.cu",
-                             "tim_tpu/ops/pallas_swin.py:207",
+                             "tim_tpu/ops/pallas_swin.py:71",
                              "extract-omnivore"),
         "flash_mha": ("tim_tpu_torch/csrc/flash_mha.cu",
                       "tim_tpu/ops/flash.py:82", "extract-videomae"),
@@ -1903,6 +2213,9 @@ def main() -> int:
                                  "finetune-swin"),
         "flash_mha_bwd": ("tim_tpu_torch/csrc/flash_mha_bwd.cu",
                           "tim_tpu/ops/flash.py:71", "finetune-vit"),
+        # replaces no TPU kernel (JAX leaves the bias add to XLA)
+        "bias_act": ("tim_tpu_torch/csrc/bias_act.cu", None,
+                     "extract-videomae"),
     }
     log(f"[time] {json.dumps(PHASE_S)}; total "
         f"{time.perf_counter() - T_START:.2f} s from the start of the script")
@@ -1911,7 +2224,7 @@ def main() -> int:
          "launches": by_path[path][name], "path": path,
          "launches_by_path": {p: counts[name] for p, counts in
                               by_path.items()},
-         **kernel_report[name]}
+         **measured(kernel_report[name])}
         for name, (src, rep, path) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ interpret mode at the context widths the kernel walks in 64-key chunks
 passes the kernel's arithmetic, emulated here, and rejects the two faulty
 controls; the wrapper refuses rows the kernel's 16-byte copies cannot
 read. The kernel itself runs on the card only (tests/test_torch_gpu.py).
-Also: each cut ``tim_tpu_torch.ablate`` times kernel 5b with still finds
-its span in the kernel's source."""
+Also: each cut ``tim_tpu_torch.ablate`` times kernel 5b, or the forward
+core of kernels 4 and 5, with still finds its span in the kernel's
+source."""
 
 import os
 
@@ -126,3 +127,15 @@ def test_ablation_cuts_find_their_spans():
         assert text.count(start) == 1
         out = ablate.cut(text, start, end, new)
         assert len(out) < len(text) and end in out
+
+
+@pytest.mark.parametrize("name", sorted(ablate.FORWARD_CUTS))
+def test_forward_ablation_cuts_find_their_spans(name):
+    """Each part the ablation removes from the forward core of kernels 4
+    and 5 is found there once, and removing it shortens the source."""
+    with open(os.path.join(_build._CSRC, ablate.FORWARD_HEADER)) as f:
+        text = f.read()
+    start, end, new = ablate.FORWARD_CUTS[name]
+    assert text.count(start) == 1
+    out = ablate.cut(text, start, end, new)
+    assert len(out) < len(text) and end in out

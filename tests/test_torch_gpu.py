@@ -10,23 +10,27 @@ card every test skips."""
 import pytest
 import torch
 
-from chip_smoke import (attention_close, flash_bwd_case, grad_close,
-                        int8_close, int8_head_args, kernel_close, swin_bias,
-                        swin_qkv, tail_args, vit_qkv, window_bwd_case)
+from chip_smoke import (LSE_TOL, SWIN_STAGES, attention_close,
+                        flash_bwd_case, grad_close, int8_close,
+                        int8_head_args, kernel_close, swin_bias, swin_qkv,
+                        swin_scores, tail_args, vit_qkv, vit_scores,
+                        window_bwd_case)
 from tim_tpu_torch import config as C
 from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.ops.fused_post_attention import (
     fused_post_attention, fused_post_attention_plain)
 from tim_tpu_torch.ops.int8_matmul_fused import (
     int8_matmul_fused, int8_matmul_fused_plain)
+from tim_tpu_torch.models.common import DENSE, TORCH_LINEAR, linear
+from tim_tpu_torch.ops.bias_act import bias_act, bias_act_plain
 from tim_tpu_torch.ops.flash_mha import (
     flash_mha, flash_mha_bwd, flash_mha_bwd_plain, flash_mha_plain,
-    flash_mha_qkv)
+    flash_mha_qkv, flash_mha_with_lse)
 from tim_tpu_torch.ops.query_block_attention import (
     query_block_attention, query_block_attention_plain)
 from tim_tpu_torch.ops.window_attention import (
     window_attention, window_attention_bwd, window_attention_bwd_plain,
-    window_attention_plain, window_attention_qkv)
+    window_attention_plain, window_attention_qkv, window_attention_with_lse)
 
 # fp32: the same function with sums in another order; bf16: the bound
 # tests/test_pallas_fused.py holds the TPU kernel to (see kernel_close).
@@ -204,6 +208,48 @@ def test_flash_mha_kernel_matches_plain(gen, dtype, batch, seq):
                                                 sm_scale=0.125))[0]
 
 
+def _check_both_launches(kernel, with_lse, plain, scores, args, kw):
+    """The inference and the training (lse) launch of a forward kernel
+    against its plain version, and the row log-sum-exp against
+    torch.logsumexp of the plain fp32 scores."""
+    want = plain(*args, **kw)
+    got = kernel(*args, **kw)
+    got_lse, lse = with_lse(*args, **kw)
+    for out in (got, got_lse):
+        assert out.dtype == want.dtype and out.shape == want.shape
+        assert attention_close(out, want)[0]
+    assert lse.shape == want.shape[:3] and lse.dtype == torch.float32
+    lse_want = torch.logsumexp(scores(*args, **kw), -1)
+    assert (lse - lse_want).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,s", [(2, 16, 1568), (2, 16, 160), (3, 16, 37),
+                                   (2, 8, 1568)])
+def test_flash_mha_launches_and_lse_match_plain(gen, dtype, b, h, s):
+    """Kernel 5 (bf16: the wgmma core) at ViT-L's S, the MAE encoder's 160
+    tokens, a ragged S and the MAE decoder's 8 heads."""
+    _check_both_launches(flash_mha, flash_mha_with_lse, flash_mha_plain,
+                         vit_scores, vit_qkv(b, s, dtype, gen, heads=h),
+                         {"sm_scale": 0.125})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_win,heads,dims", SWIN_STAGES)
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_launches_and_lse_match_plain(gen, dtype, n_win,
+                                                       heads, dims, shifted):
+    """Kernel 4 (bf16: the wgmma core) at every Swin-B stage of one clip,
+    shifted and unshifted (stage 4's one window needs no shift mask)."""
+    q, k, v = swin_qkv(1, n_win, heads, dtype, gen)
+    bias, region = swin_bias(heads, dims, shifted, gen)
+    _check_both_launches(window_attention, window_attention_with_lse,
+                         window_attention_plain, swin_scores,
+                         (q, k, v, bias, region), {"sm_scale": 32 ** -0.5})
+
+
 @pytest.mark.gpu
 def test_attention_kernels_refuse_other_head_dims(gen):
     q = torch.randn(1, 2, 40, 48, generator=gen, device="cuda")
@@ -293,6 +339,94 @@ def test_flash_mha_bwd_run_to_run(gen, b, h, s):
     assert grad_close(second[0], first[0], True)[0]
     assert torch.equal(second[1], first[1])
     assert torch.equal(second[2], first[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s", [(2, 16, 1568), (3, 16, 37), (2, 8, 1568)])
+def test_flash_mha_bwd_deterministic_route(gen, b, h, s):
+    """Under torch.use_deterministic_algorithms(True), bf16 dq comes from
+    the atomic-free pass: two calls agree bit for bit in dq, dk and dv,
+    dk and dv equal the default route's, and every gradient passes the
+    gate against the plain backward."""
+    args, out, lse, do = flash_bwd_case(b, h, s, torch.bfloat16, gen)
+    default = [t.clone() for t in flash_mha_bwd(*args, out, lse, do,
+                                                sm_scale=0.125)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = [t.clone() for t in flash_mha_bwd(*args, out, lse, do,
+                                                  sm_scale=0.125)]
+        second = flash_mha_bwd(*args, out, lse, do, sm_scale=0.125)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert torch.equal(first[1], default[1])
+    assert torch.equal(first[2], default[2])
+    for got, want in zip(first, flash_mha_bwd_plain(*args, do,
+                                                    sm_scale=0.125)):
+        assert grad_close(got, want, True)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounding", [TORCH_LINEAR, DENSE])
+def test_bf16_linear_rounds_per_kind_on_the_card(gen, rounding):
+    """The bf16 linear against its own fp32-accumulator reference rounded
+    per kind, bit for bit where every fp32 sum is exact (signed powers of
+    two); gradients reach the fp32 parameters."""
+    def pow2(*shape, lo):
+        e = torch.randint(lo, 1, shape, generator=gen, device="cuda")
+        sign = torch.randint(-1, 2, shape, generator=gen, device="cuda")
+        return torch.exp2(e.float()) * sign
+
+    x, w = pow2(3, 37, 64, lo=-3), pow2(96, 64, lo=-4)
+    b = torch.rand(96, generator=gen, device="cuda") * 4 - 2
+    acc = x @ w.t()
+    want = ((acc + b).to(torch.bfloat16) if rounding == TORCH_LINEAR
+            else acc.to(torch.bfloat16) + b.to(torch.bfloat16))
+    w.requires_grad_()
+    b.requires_grad_()
+    got = linear(x, w, b, torch.bfloat16, rounding=rounding)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    got.float().sum().backward()
+    assert w.grad.dtype == torch.float32 and b.grad.dtype == torch.float32
+    assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+    # with the GELU fused into the bias pass: the plain composition's value
+    # (erf from another library: within a bf16 spacing), and its gradients
+    fused = linear(x, w, b, torch.bfloat16, rounding=rounding, gelu=True)
+    plain = torch.nn.functional.gelu(want, approximate="none")
+    assert bool(((fused.float() - plain.float()).abs()
+                 <= plain.float().abs() * 2.0 ** -7 + 1e-30).all())
+    w.grad = b.grad = None
+    fused.float().sum().backward()
+    assert torch.isfinite(w.grad).all() and torch.isfinite(b.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,cols,dtype,gelu", [
+    (1568, 3072, torch.float32, False),    # ViT-L qkv (TORCH_LINEAR)
+    (1568, 4096, torch.bfloat16, True),    # ViT-L fc1 (DENSE + GELU)
+    (1568, 4096, torch.float32, True),
+    (1596, 2, torch.float32, False),       # a regression head: scalar path
+    (37, 12, torch.bfloat16, False),
+])
+def test_bias_act_kernel_matches_plain(gen, rows, cols, dtype, gelu):
+    """The bias epilogue kernel against its plain version: bit-equal
+    without a GELU; with one, within a bf16 spacing (erf from another
+    library) and the kept pre-activation bit-equal."""
+    y = (torch.randn(rows, cols, generator=gen, device="cuda") * 3).to(dtype)
+    b = torch.randn(cols, generator=gen, device="cuda")
+    before = bias_act.launches
+    got, pre = bias_act(y, b, gelu=gelu, keep_pre=True)
+    assert bias_act.launches == before + 1
+    want, h = bias_act_plain(y, b, gelu=gelu)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    if gelu:
+        assert torch.equal(pre, h)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2.0 ** (torch.floor(torch.log2(
+            want.float().abs().clamp_min(2.0 ** -126))) - 7)).all())
+    else:
+        assert pre is None and torch.equal(got, want)
 
 
 def _unpacked(fn):

@@ -14,17 +14,12 @@
 // running maximum grows. Neither pads S: keys past S score -inf, query rows
 // past S are computed from a clamped row and not stored.
 //
-// bf16 (tensor cores): one block per (batch, head, 64 query rows), four
-// warps of 16 rows each. q stays in registers as mma.sync A fragments. The
-// 64-key tiles of k and v (and, for kernel 4, the fp32 bias of the block's
-// rows against those keys) stream through a two-stage cp.async ring in
-// shared memory, the next tile loading while this one computes; B
-// fragments come from ldmatrix (.trans for v, which stays row-major).
-// Scores accumulate in fp32 m16n8k16 fragments, which are rescaled and
-// exponentiated in registers and repacked as bf16 A fragments for the PV
-// product (unnormalised probabilities rounded to bf16; the TPU kernels
-// round normalised ones). Row maxima and sums reduce over the four lanes
-// that share a row.
+// bf16 (tensor cores): flash_attention_sm90.cuh, wgmma products with the
+// softmax work overlapped (the unnormalised probabilities rounded to bf16
+// before the PV product; the TPU kernels round normalised ones). This file
+// keeps what both directions share (parameters, tiles, the mma.sync,
+// ldmatrix and cp.async helpers of the backward's bf16 kernels) and the
+// fp32 kernel.
 //
 // fp32 (CUDA cores, no TF32, so the function stays fp32): one thread per
 // query row, 128 rows per block, 16-key tiles of k and v in shared memory
@@ -159,239 +154,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(a));
 }
 
-// Shared memory of the bf16 kernel: the q tile and two stages of (k tile,
-// v tile), bf16 [rows][DH + 8] (16-byte rows; the 8 rows of an ldmatrix
-// fall in distinct banks), then for kernel 4 two stages of the bias tile,
-// fp32 [64 rows][64 + 8 keys].
-constexpr int kBQ = 64, kBK = 64, kLDB = kBK + 8;
-
-template <int DH, bool BIAS>
-constexpr int bf16_smem_bytes() {
-  return (kBQ + 4 * kBK) * (DH + 8) * 2 + (BIAS ? 2 * kBQ * kLDB * 4 : 0);
-}
-
-// Three blocks an SM: 170 registers a thread at most (shared memory allows
-// three blocks of kernel 4 with dh 32).
-template <int DH, bool BIAS, bool LSE>
-__global__ void __launch_bounds__(128, 3) attention_bf16_kernel(const Params p) {
-  constexpr int BQ = kBQ, BK = kBK, LDB = kLDB;
-  constexpr int LD = DH + 8;
-  constexpr int CH = DH / 8;   // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(dyn_smem);
-  float* s_bias = reinterpret_cast<float*>(smem + (BQ + 4 * BK) * LD);
-  __shared__ int s_region[2][BK];
-  __nv_bfloat16* s_q = smem;
-
-  const Tile t = block_tile(p, BQ);
-  const int S = p.seq;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
-                           t.b * p.sq.b + t.h * p.sq.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
-                           t.b * p.sk.b + t.h * p.sk.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
-                           t.b * p.sv.b + t.h * p.sv.h;
-  const int* region = (BIAS && p.region != nullptr)
-                          ? p.region + (long long)(t.b % p.n_win) * S
-                          : nullptr;
-  const int tid = threadIdx.x;
-  const int n_tiles = (S + BK - 1) / BK;
-
-  // stage s of the k/v ring
-  auto s_k = [&](int s) { return smem + (BQ + 2 * s * BK) * LD; };
-  auto s_v = [&](int s) { return smem + (BQ + (2 * s + 1) * BK) * LD; };
-  auto load_kv = [&](int tile, int s) {
-    const int k0 = tile * BK;
-    for (int i = tid; i < BK * CH; i += 128) {
-      const int r = i / CH, c = i % CH;
-      const int key = min(k0 + r, S - 1);
-      const int bytes = k0 + r < S ? 16 : 0;
-      cp_async16(s_k(s) + r * LD + c * 8, k + key * p.sk.n + c * 8, bytes);
-      cp_async16(s_v(s) + r * LD + c * 8, v + key * p.sv.n + c * 8, bytes);
-    }
-    if (region != nullptr && tid < BK)
-      s_region[s][tid] = region[min(k0 + tid, S - 1)];
-    if constexpr (BIAS) {
-      // the bias of the block's query rows x this tile's keys; 16-byte
-      // copies where rows of bias are 16-byte aligned (S % 4 == 0)
-      float* sb = s_bias + s * BQ * LDB;
-      const float* hb = p.bias + (long long)t.h * S * S;
-      if (S % 4 == 0) {
-        for (int i = tid; i < BQ * BK / 4; i += 128) {
-          const int r = i / (BK / 4), c = 4 * (i % (BK / 4));
-          const int row = min(t.q0 + r, S - 1), key = k0 + c;
-          cp_async16(sb + r * LDB + c, hb + (long long)row * S +
-                     min(key, S - 4), key < S ? 16 : 0);
-        }
-      } else {
-        for (int i = tid; i < BQ * BK; i += 128) {
-          const int r = i / BK, c = i % BK;
-          const int row = min(t.q0 + r, S - 1), key = k0 + c;
-          cp_async4(sb + r * LDB + c, hb + (long long)row * S +
-                    min(key, S - 1), key < S ? 4 : 0);
-        }
-      }
-    }
-  };
-
-  for (int i = tid; i < BQ * CH; i += 128) {
-    const int r = i / CH, c = i % CH;
-    const int row = min(t.q0 + r, S - 1);
-    cp_async16(s_q + r * LD + c * 8, q + row * p.sq.n + c * 8,
-               t.q0 + r < S ? 16 : 0);
-  }
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;   // fragment row group, column pair
-  const int mi = lane / 8, mr = lane % 8;   // ldmatrix: matrix, row
-
-  // this thread's two rows: r = 0 -> row g, r = 1 -> row g + 8 of the warp
-  int rows[2], region_row[2] = {0, 0};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    rows[r] = t.q0 + warp * 16 + g + 8 * r;
-    if (region != nullptr) region_row[r] = region[min(rows[r], S - 1)];
-  }
-
-  uint32_t qa[DH / 16][4];
-  float o[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {TIM_NEG_INF, TIM_NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt & 1, k0 = kt * BK;
-    if (kt + 1 < n_tiles) {
-      load_kv(kt + 1, st ^ 1);   // its stage was last read before the
-      cp_async_commit();         // barrier that ended the previous tile
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-      // A fragments of this warp's 16 query rows: matrices (rows 0-7 |
-      // 8-15) x (dims 0-7 | 8-15) of each 16-dim step
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        ldmatrix_x4(qa[ks], s_q + (warp * 16 + (mi & 1) * 8 + mr) * LD +
-                                ks * 16 + (mi >> 1) * 8);
-    }
-
-    // scores of this warp's 16 rows against the 64 keys: B fragments of
-    // key rows nt*8..+7, dims (ks, lo | hi) and (ks + 1, lo | hi)
-    const __nv_bfloat16* kt_s = s_k(st);
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ks += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, kt_s + (nt * 8 + mr) * LD + ks * 16 + mi * 8);
-        mma_bf16(s[nt], qa[ks], b[0], b[1]);
-        mma_bf16(s[nt], qa[ks + 1], b[2], b[3]);
-      }
-    }
-
-    float mx[2] = {TIM_NEG_INF, TIM_NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const int r = e >> 1;
-        float x = TIM_NEG_INF;
-        if (k0 + col < S) {
-          x = s[nt][e] * p.scale;
-          if constexpr (BIAS) {
-            x += s_bias[(st * BQ + warp * 16 + g + 8 * r) * LDB + col];
-            if (region != nullptr && region_row[r] != s_region[st][col])
-              x += kMaskValue;
-          }
-        }
-        s[nt][e] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // finite: key k0 < S
-      corr[r] = __expf(m[r] - m_new);          // 0 on the first tile
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
-      o[i][0] *= corr[0];
-      o[i][1] *= corr[0];
-      o[i][2] *= corr[1];
-      o[i][3] *= corr[1];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[nt][e] - m[e >> 1]);  // exp(-inf) = 0
-        s[nt][e] = pe;
-        l[e >> 1] += pe;
-      }
-    }
-
-    // out += P V: the score fragments of key tiles 2kk and 2kk+1 are the
-    // A fragment of keys [16kk, 16kk + 16); B fragments from v (row-major
-    // [key][dim]) through ldmatrix.trans: matrices (keys lo | hi) x
-    // (dims dt*8.. | dt*8+8..)
-    const __nv_bfloat16* vt_s = s_v(st);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; dt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vt_s + (kk * 16 + (mi & 1) * 8 + mr) * LD +
-                                 (dt + (mi >> 1)) * 8);
-        mma_bf16(o[dt], pa, b[0], b[1]);
-        mma_bf16(o[dt + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // this stage is free for the tile after next
-  }
-
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + t.b * p.so.b +
-                       t.h * p.so.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float inv = 1.f / sum;
-    if constexpr (LSE) {
-      if (tig == 0 && rows[r] < S)
-        p.lse[((long long)t.b * p.heads + t.h) * S + rows[r]] =
-            m[r] + logf(sum);
-    }
-    if (rows[r] < S) {
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(out + rows[r] * p.so.n + dt * 8 + 2 * tig) =
-            pack_bf16(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
-      }
-    }
-  }
-}
+// A 64-key fp32 bias tile's row, padded so that the 8 rows an ldmatrix-
+// shaped access touches fall in distinct banks (flash_attention_bwd.cuh).
+constexpr int kLDB = 64 + 8;
 
 template <int DH, bool BIAS, bool LSE>
 __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
@@ -494,33 +259,16 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
   }
 }
 
+// The fp32 kernel's launch (flash_attention_sm90.cuh's launch chooses
+// between it and the bf16 kernel); returns cudaGetLastError() after it.
 template <int DH, bool BIAS, bool LSE>
-int launch_dh(const Params& p, bool bf16, cudaStream_t stream) {
-  const int rows = bf16 ? 64 : 128;
+int launch_f32(const Params& p, cudaStream_t stream) {
   const long long blocks = (long long)p.batch * p.heads *
-                           ((p.seq + rows - 1) / rows);
+                           ((p.seq + 127) / 128);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (bf16) {
-    constexpr int smem = bf16_smem_bytes<DH, BIAS>();
-    auto kernel = attention_bf16_kernel<DH, BIAS, LSE>;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)blocks, 128, smem, stream>>>(p);
-  } else
-    attention_f32_kernel<DH, BIAS, LSE><<<(unsigned)blocks, 128, 0,
-                                          stream>>>(p);
+  attention_f32_kernel<DH, BIAS, LSE><<<(unsigned)blocks, 128, 0,
+                                        stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// Launch for head dim DH (each caller builds the one head dim its models
-// use); returns cudaGetLastError() after the launch (0 on success).
-template <int DH, bool BIAS>
-int launch(const Params& p, int dh, bool bf16, cudaStream_t stream) {
-  if (dh != DH) return (int)cudaErrorInvalidValue;
-  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
-  return p.lse != nullptr ? launch_dh<DH, BIAS, true>(p, bf16, stream)
-                          : launch_dh<DH, BIAS, false>(p, bf16, stream);
 }
 
 // strides: 12 element strides, (batch, head, row) for q, k, v and out.

@@ -13,13 +13,14 @@
 // q/k/v/out, about 1,600 operations per byte, so the bound is the tensor
 // cores (0.08 ms at 989 TFLOP/s), not memory. The einsum formulation also
 // writes and re-reads a [B, H, S, S] fp32 score tensor (1.26 GB); this
-// kernel keeps scores in registers. It is a first version (mma.sync
-// m16n8k16, not wgmma; 64 x 64 tiles; a two-stage cp.async ring): the
-// per-score softmax work and mma.sync's issue rate, not memory, are the
-// likely limit (the card's machine gives no profiler counters to confirm).
-// The core is in flash_attention.cuh.
+// kernel keeps scores in registers. Each score also takes one exponential
+// (315 M at this shape: 0.08 ms of the SM's 16-a-clock unit at 1.755 GHz,
+// computed), as much as the products, so bf16 runs on the wgmma core of
+// flash_attention_sm90.cuh, which overlaps the softmax work with the
+// products (128 queries a block, 64-key tiles through a four-stage TMA
+// ring). fp32 keeps flash_attention.cuh's CUDA-core kernel.
 
-#include "flash_attention.cuh"
+#include "flash_attention_sm90.cuh"
 
 // Head dim 64 (ViT-B/L and the MAE decoder); another returns
 // cudaErrorInvalidValue. strides: 12 element strides, (batch, head, row)

@@ -42,13 +42,34 @@ int launch_f32(const tim_attn::BwdParams& p, cudaStream_t stream) {
   return launch_smem(dq_f32_kernel<kDH, false>, blocks, 0, stream, p);
 }
 
+// The deterministic route's dq: the atomic-free pass of
+// flash_attention_bwd.cuh (one block per 64 queries walks the key tiles,
+// recomputing p from lse), reading the D that the main pass's
+// preprocess wrote.
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, void* dq, const long long* strides,
+                   const float* lse, float* delta, int batch, int heads,
+                   int seq, float scale, cudaStream_t stream) {
+  using namespace tim_attn;
+  BwdParams p{};
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.dq = dq;
+  set_bwd_strides(p, strides);
+  p.lse = lse; p.delta = delta;
+  p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
+  p.n_win = 1;
+  const long long blocks = (long long)batch * heads * ((seq + 63) / 64);
+  return launch_smem(dq_bf16_kernel<kDH, false>, blocks,
+                     dq_smem_bytes<kDH, false>(), stream, p);
+}
+
 }  // namespace
 
 // Head dim 64, as the forward. strides: 24 element strides, (batch, head,
 // row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch, heads,
 // seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch;
 // dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 only; zeroed
-// here). Returns the first CUDA error of the launches (0 on success).
+// here), or null for bf16's deterministic route (dq without atomic adds).
+// Returns the first CUDA error of the launches (0 on success).
 extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, void* dq,
                                  void* dk, void* dv, const long long* strides,
@@ -73,7 +94,10 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
       *s[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
     p.lse = lse; p.delta = delta; p.dq_accum = dq_accum;
     p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
-    return tim_attn::sm90::launch(p, st);
+    const int err = tim_attn::sm90::launch(p, st);
+    if (err != 0 || dq_accum != nullptr) return err;
+    return launch_dq_bf16(q, k, v, dout, dq, strides, lse, delta, batch,
+                          heads, seq, scale, st);
   }
   tim_attn::BwdParams p{};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;

@@ -30,7 +30,9 @@
 // a postprocess rounds it into dq. The order of those additions changes
 // from run to run, so dq may differ in its last bits between runs (as in
 // FlashAttention-2/3 and SDPA's backward); dk and dv are summed in a fixed
-// order and do not.
+// order and do not. The deterministic route (a null dq_accum, taken under
+// torch.use_deterministic_algorithms) skips the dQ partials here and
+// leaves dq to flash_attention_bwd.cuh's atomic-free dq pass.
 //
 // What the card showed (H100 80GB HBM3, 700 W; PERF.md): 0.88 ms at
 // [8, 16, 1568, 64], 23% of the operations bound, behind SDPA's backward.
@@ -61,6 +63,7 @@
 
 #include "common.cuh"
 #include "flash_attention.cuh"
+#include "wgmma.cuh"
 
 namespace tim_attn {
 namespace sm90 {
@@ -99,121 +102,12 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // byte offset (unused by these single-atom-wide operands), stride byte
 // offset 1024 (8 rows of 128 bytes).
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads or writes, or reusing
-// the registers of A fragments, across the asynchronous products: used
-// right after a wait, never between a product and its wait (ptxas would
-// serialise the products).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-#define TIM_ACC8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TIM_OUT8(i)                                                      \
-  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),            \
-      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
-#define TIM_D16                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define TIM_D32                                                          \
-  TIM_D16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-          "%28, %29, %30, %31"
-
-// The products, d (64 x N, fp32) = A B (ACC false: d's old value is
-// neither read nor kept, so no instruction has to zero it) or += A B.
-// _ss: both operands from shared memory (TA, TB: read transposed, i.e.
-// MN-major); _rs: d += A B, A from registers (bf16 fragments of the
-// warp's 16 rows).
-template <int TA, int TB, bool ACC>
-__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t a,
-                                               uint64_t b) {
-  if constexpr (ACC)
-    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 TIM_D32 "}, %32, %33, 1, 1, 1, %34, %35;\n"
-                 : TIM_ACC8(0), TIM_ACC8(8), TIM_ACC8(16), TIM_ACC8(24)
-                 : "l"(a), "l"(b), "n"(TA), "n"(TB));
-  else
-    asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-                 TIM_D32 "}, %32, %33, 0, 1, 1, %34, %35;\n"
-                 : TIM_OUT8(0), TIM_OUT8(8), TIM_OUT8(16), TIM_OUT8(24)
-                 : "l"(a), "l"(b), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t b) {
-  asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-               TIM_D32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1, %37;\n"
-               : TIM_ACC8(0), TIM_ACC8(8), TIM_ACC8(16), TIM_ACC8(24)
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-                 "n"(TB));
-}
-
-template <int TA, int TB, bool ACC>
-__device__ __forceinline__ void wgmma_64x32_ss(float (&d)[16], uint64_t a,
-                                               uint64_t b) {
-  if constexpr (ACC)
-    asm volatile("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-                 TIM_D16 "}, %16, %17, 1, 1, 1, %18, %19;\n"
-                 : TIM_ACC8(0), TIM_ACC8(8)
-                 : "l"(a), "l"(b), "n"(TA), "n"(TB));
-  else
-    asm volatile("wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-                 TIM_D16 "}, %16, %17, 0, 1, 1, %18, %19;\n"
-                 : TIM_OUT8(0), TIM_OUT8(8)
-                 : "l"(a), "l"(b), "n"(TA), "n"(TB));
-}
-
-#undef TIM_ACC8
-#undef TIM_OUT8
-#undef TIM_D16
-#undef TIM_D32
-
-// One 16-byte async copy (src_bytes 0 writes zeros) into a swizzled tile.
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
 }
 
 // rows [row0, row0 + n) of a [S, 64] bf16 operand (row stride ld) into a
@@ -229,8 +123,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
-// D = do . o per row, and the row of dq_accum zeroed: 8 lanes per row,
-// each reading 16 bytes of o and of do (a row is one 128-byte line).
+// D = do . o per row, and the row of dq_accum zeroed (when there is one):
+// 8 lanes per row, each reading 16 bytes of o and of do (a row is one
+// 128-byte line).
 __global__ void __launch_bounds__(256) preprocess_kernel(const Params p) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long i = t / 8;
@@ -253,6 +148,7 @@ __global__ void __launch_bounds__(256) preprocess_kernel(const Params p) {
     acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (!live) return;
   if (c == 0) p.delta[i] = acc;
+  if (p.dq_accum == nullptr) return;
   float4* z = reinterpret_cast<float4*>(p.dq_accum + i * kDH + c * 8);
   z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
@@ -278,6 +174,9 @@ __global__ void __launch_bounds__(256) postprocess_kernel(const Params p) {
                             row * p.sdq.n + c * 8) = out;
 }
 
+// DQ: the dQ partials and their atomic adds; without them (the
+// deterministic route) the kernel writes dk and dv only.
+template <bool DQ>
 __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const Params p) {
   extern __shared__ unsigned char dyn_smem[];
   // 1024-byte aligned tiles (the swizzle repeats every 8 rows of 128 B)
@@ -418,6 +317,15 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const Params p) {
     // dS^T (keys x queries, bf16) into shared memory for the dQ product:
     // fragment j of k-step kk holds row (j % 2) * 8 + g, columns
     // 16 kk + (j / 2) * 8 + 2 tig + {0, 1}
+    // (without DQ the tile ends once dV and dK are done)
+    if constexpr (!DQ) {
+      wg_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -478,7 +386,9 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_kernel(const Params p) {
 }
 
 // Preprocess, main pass, postprocess on one stream; returns the first
-// CUDA error of the launches (0 on success).
+// CUDA error of the launches (0 on success). With a null dq_accum (the
+// deterministic route) only the preprocess (D) and the main pass without
+// dQ run: dk and dv are written, dq is left to the caller's dq pass.
 inline int launch(const Params& p, cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.heads * p.seq;
   const long long blocks =
@@ -489,12 +399,13 @@ inline int launch(const Params& p, cudaStream_t stream) {
                       stream>>>(p);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
+  auto kernel = p.dq_accum != nullptr ? bwd_kernel<true> : bwd_kernel<false>;
   err = (int)cudaFuncSetAttribute(
-      bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != 0) return err;
-  bwd_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(p);
   err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (err != 0 || p.dq_accum == nullptr) return err;
   postprocess_kernel<<<(unsigned)((rows * (kDH / 8) + 255) / 256), 256, 0,
                        stream>>>(p);
   return (int)cudaGetLastError();

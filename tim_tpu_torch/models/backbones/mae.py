@@ -23,7 +23,8 @@ import torch.nn as nn
 
 from tim_tpu_torch.models.backbones.vit import (
     EPS, ViTBlock, position_table, recompute)
-from tim_tpu_torch.models.common import LayerNorm, PatchEmbed3D, linear
+from tim_tpu_torch.models.common import (
+    DENSE, LayerNorm, PatchEmbed3D, linear)
 from tim_tpu_torch.models.tim import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -110,14 +111,15 @@ class PretrainVideoMAE(nn.Module):
             -1, -1, self.embed_dim))
         xv = self._run(self.blocks, xv)
         xv = self.encoder_norm(xv).to(dt)
-        xv = linear(xv, self.encoder_to_decoder.weight, None, dt)
+        xv = linear(xv, self.encoder_to_decoder.weight, None, dt,
+                    rounding=DENSE)
         dpos = position_table(self._pos, n, self.decoder_dim, dt, x.device)
         d = torch.cat([xv + dpos[visible_idx],
                        self.mask_token.to(dt) + dpos[masked_idx]], dim=1)
         d = self._run(self.decoder_blocks, d)
         d = self.decoder_norm(d).to(dt)
         return linear(d[:, -masked_idx.shape[1]:], self.decoder_head.weight,
-                      self.decoder_head.bias, dt)
+                      self.decoder_head.bias, dt, rounding=DENSE)
 
 
 def patchify(video, tubelet: int, patch: int):

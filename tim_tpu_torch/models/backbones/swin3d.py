@@ -37,7 +37,8 @@ import torch
 import torch.nn as nn
 
 from tim_tpu_torch.models.common import (
-    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear, inference_unless_training)
+    DENSE, GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear,
+    inference_unless_training)
 from tim_tpu_torch.models.tim import resolve_device
 from tim_tpu_torch.ops.window_attention import window_attention_qkv
 
@@ -163,8 +164,10 @@ class WindowAttention3D(nn.Module):
         self.relative_position_bias_table = _init_normal(
             ((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads), 0.02,
             generator)
-        self.qkv = TorchLinear(dim, 3 * dim, dtype=dtype, generator=generator)
-        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator)
+        self.qkv = TorchLinear(dim, 3 * dim, dtype=dtype, generator=generator,
+                               rounding=DENSE)
+        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator,
+                                rounding=DENSE)
         self._consts: dict = {}
 
     def forward(self, x, region_ids: Optional[torch.Tensor]):
@@ -243,7 +246,8 @@ class PatchMerging(nn.Module):
         self.dtype = dtype
         self.norm = LayerNorm(4 * dim)
         self.reduction = TorchLinear(4 * dim, 2 * dim, dtype=dtype,
-                                     generator=generator, use_bias=False)
+                                     generator=generator, rounding=DENSE,
+                                     use_bias=False)
 
     def forward(self, x):
         b, d, h, w, c = x.shape

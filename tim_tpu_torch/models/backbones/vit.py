@@ -30,8 +30,8 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from tim_tpu_torch.models.common import (
-    GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear, inference_unless_training,
-    linear, uniform_)
+    DENSE, TORCH_LINEAR, GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear,
+    inference_unless_training, linear, uniform_)
 from tim_tpu_torch.models.tim import resolve_device
 from tim_tpu_torch.ops.flash_mha import flash_mha_qkv
 
@@ -85,7 +85,8 @@ class VideoMAEAttention(nn.Module):
         self.qkv = _Weight(dim, 3 * dim, generator=generator)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
-        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator)
+        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator,
+                                rounding=DENSE)
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -93,9 +94,10 @@ class VideoMAEAttention(nn.Module):
         dh = self.dim // h
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
-        # the GEMM sums in fp32 and adds the bias before its one rounding
-        # (in bf16 the bias itself is rounded first, as in common.linear)
-        qkv = linear(x, self.qkv.weight, bias, self.dtype).view(b, n, 3, h, dh)
+        # the GEMM sums in fp32 and adds the fp32 bias before its one
+        # rounding (JAX's packed qkv: a dot into fp32, then the bias)
+        qkv = linear(x, self.qkv.weight, bias, self.dtype,
+                     rounding=TORCH_LINEAR).view(b, n, 3, h, dh)
         out = flash_mha_qkv(qkv, sm_scale=dh ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(b, n, self.dim))
 

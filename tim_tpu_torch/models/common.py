@@ -1,10 +1,9 @@
 """Shared building blocks: counterpart of ``tim_tpu/models/common.py``.
 
-Parameters stay fp32; every layer casts its input, weight and bias to the
-compute dtype and the GEMM accumulates in fp32 and adds the bias before
-its one rounding to the output (``common.py:75-79`` adds an fp32 bias; in
-bf16 the bias here is rounded to bf16 first, in fp32 the casts are
-exact).
+Parameters stay fp32; every layer casts its input and weight to the
+compute dtype and the GEMM accumulates in fp32. In bf16 a linear rounds
+as the JAX layer it replaces (``linear``'s ``rounding``); in fp32 the
+casts are exact and both kinds are one fp32 GEMM plus bias.
 
 Random init draws from an explicit ``torch.Generator`` with torch's
 default distributions; released checkpoints load over it.
@@ -19,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tim_tpu_torch.ops.bias_act import bias_act
 from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
 from tim_tpu_torch.ops.int8_matmul_fused import int8_matmul_fused
 from tim_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
@@ -39,11 +39,95 @@ def exact_gelu(x):
     return F.gelu(x, approximate="none")
 
 
-def linear(x, weight, bias, dtype: torch.dtype):
-    """x . weight^T + bias with the casts above; weight is [out, in];
-    bias may be None."""
-    return F.linear(x.to(dtype), weight.to(dtype),
-                    None if bias is None else bias.to(dtype))
+# How a bf16 linear rounds, after the JAX layer it replaces:
+# TORCH_LINEAR: tim_tpu's ``TorchLinear`` (``common.py:76-79``) and the ViT's
+#   packed qkv add the fp32 bias to the fp32 accumulator and round once;
+# DENSE: flax ``nn.Dense(dtype=bf16)`` rounds the product to bf16, then adds
+#   the bias rounded to bf16, in bf16 (a second rounding).
+TORCH_LINEAR, DENSE = "torch_linear", "dense"
+
+
+class _LinearF32Bias(torch.autograd.Function):
+    """TORCH_LINEAR on the card: bf16 x [M, K] and w [N, K] into an fp32
+    GEMM output (``torch.mm`` with ``out_dtype``), then the bias epilogue
+    kernel (``ops/bias_act.py``): bf16(y + bias), and an exact GELU after
+    it with ``gelu``. The gradients are the plain route's: through the
+    GELU from the kept pre-activation, dx and dw from the bf16 output
+    gradient, db summed in fp32 (no fp32 copy of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gelu):
+        y = torch.mm(x, w.t(), out_dtype=torch.float32)
+        out, pre = bias_act(y, b, gelu=gelu,
+                            keep_pre=any(ctx.needs_input_grad))
+        ctx.gelu = gelu
+        ctx.save_for_backward(x, w, pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, pre = ctx.saved_tensors
+        if ctx.gelu:
+            g = torch.ops.aten.gelu_backward(g, pre, approximate="none")
+        need = ctx.needs_input_grad
+        return (g.mm(w) if need[0] else None,
+                g.t().mm(x) if need[1] else None,
+                g.sum(0, dtype=torch.float32) if need[2] else None, None)
+
+
+class _DenseBias(torch.autograd.Function):
+    """DENSE on the card: the bf16 product y [M, N] plus the bf16 bias (and
+    an exact GELU with ``gelu``) in one pass of the bias epilogue kernel;
+    the gradient through the GELU from the kept pre-activation, db summed
+    in fp32."""
+
+    @staticmethod
+    def forward(ctx, y, b, gelu):
+        out, pre = bias_act(y, b, gelu=gelu,
+                            keep_pre=any(ctx.needs_input_grad))
+        ctx.gelu = gelu
+        ctx.save_for_backward(pre)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pre, = ctx.saved_tensors
+        if ctx.gelu:
+            g = torch.ops.aten.gelu_backward(g, pre, approximate="none")
+        need = ctx.needs_input_grad
+        return (g if need[0] else None,
+                g.sum(0, dtype=torch.float32) if need[1] else None, None)
+
+
+def linear(x, weight, bias, dtype: torch.dtype, *, rounding: str,
+           gelu: bool = False):
+    """x . weight^T + bias in ``dtype``, then an exact GELU with ``gelu``;
+    weight is [out, in]; bias may be None. ``rounding`` (TORCH_LINEAR or
+    DENSE) names the JAX layer's rounding, which matters only in bf16 with
+    a bias: TORCH_LINEAR is round(fp32 sum + fp32 bias) (on the CPU
+    through fp32 operands, exact for bf16 inputs), DENSE is
+    round(round(x . weight^T) + round(bias)). On the card the bias add
+    (and the GELU) after the GEMM is one pass of the bias epilogue
+    kernel."""
+    if rounding not in (TORCH_LINEAR, DENSE):
+        raise ValueError(f"rounding {rounding!r} not in "
+                         f"{(TORCH_LINEAR, DENSE)}")
+    x, w = x.to(dtype), weight.to(dtype)
+    if bias is None or dtype == torch.float32:
+        y = F.linear(x, w, None if bias is None else bias.to(dtype))
+        return exact_gelu(y) if gelu else y
+    if x.device.type == "cuda":
+        x2 = x.reshape(-1, x.shape[-1])
+        if rounding == TORCH_LINEAR:
+            y = _LinearF32Bias.apply(x2, w, bias.float(), gelu)
+        else:
+            y = _DenseBias.apply(F.linear(x2, w), bias.float(), gelu)
+        return y.view(*x.shape[:-1], w.shape[0])
+    if rounding == DENSE:
+        y = F.linear(x, w) + bias.to(dtype)
+    else:
+        y = (F.linear(x.float(), w.float()) + bias.float()).to(dtype)
+    return exact_gelu(y) if gelu else y
 
 
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -54,14 +138,16 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
 class TorchLinear(nn.Module):
     """nn.Linear-layout ``weight`` [out, in] and ``bias`` [out] (fp32),
     torch's default init U(+-1/sqrt(in)) unless ``bias_value`` fixes the
-    bias, or no bias with ``use_bias=False``; applied with ``linear``'s
-    casts."""
+    bias, or no bias with ``use_bias=False``; applied by ``linear`` with
+    the ``rounding`` of the JAX layer it replaces."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, generator: torch.Generator,
-                 bias_value: float | None = None, use_bias: bool = True):
+                 rounding: str, bias_value: float | None = None,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.rounding = rounding
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(
             torch.empty(out_features, in_features), bound, generator))
@@ -75,8 +161,9 @@ class TorchLinear(nn.Module):
             bias.fill_(bias_value)
         self.bias = nn.Parameter(bias)
 
-    def forward(self, x):
-        return linear(x, self.weight, self.bias, self.dtype)
+    def forward(self, x, gelu: bool = False):
+        return linear(x, self.weight, self.bias, self.dtype,
+                      rounding=self.rounding, gelu=gelu)
 
 
 class Int8Dense(nn.Module):
@@ -146,28 +233,32 @@ class LayerNorm(nn.LayerNorm):
 
 class GeluMlp(nn.Module):
     """``fc1`` -> exact GELU -> ``fc2`` in the compute dtype (the
-    backbones' ``mlp``)."""
+    backbones' ``mlp``: flax ``nn.Dense`` layers in JAX)."""
 
     def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype,
                  generator: torch.Generator):
         super().__init__()
-        self.fc1 = TorchLinear(dim, hidden, dtype=dtype, generator=generator)
-        self.fc2 = TorchLinear(hidden, dim, dtype=dtype, generator=generator)
+        self.fc1 = TorchLinear(dim, hidden, dtype=dtype, generator=generator,
+                               rounding=DENSE)
+        self.fc2 = TorchLinear(hidden, dim, dtype=dtype, generator=generator,
+                               rounding=DENSE)
 
     def forward(self, x):
-        return self.fc2(exact_gelu(self.fc1(x)))
+        return self.fc2(self.fc1(x, gelu=True))
 
 
 def MLP(dims, *, dtype: torch.dtype, generator: torch.Generator,
         final: nn.Module | None = None) -> nn.Sequential:
     """Linear(dims[0]->dims[1]) -> ReLU -> ... -> Linear(->dims[-1]) [->
-    final]: linears at the even indices, as the reference's Sequentials."""
+    final]: linears at the even indices, as the reference's Sequentials
+    (JAX's ``MLP`` of ``TorchLinear`` layers)."""
     layers = []
     for i in range(len(dims) - 1):
         if i:
             layers.append(nn.ReLU())
         layers.append(TorchLinear(dims[i], dims[i + 1], dtype=dtype,
-                                  generator=generator))
+                                  generator=generator,
+                                  rounding=TORCH_LINEAR))
     if final is not None:
         layers.append(final)
     return nn.Sequential(*layers)

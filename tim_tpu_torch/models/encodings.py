@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tim_tpu_torch.models.common import LayerNorm, TorchLinear
+from tim_tpu_torch.models.common import TORCH_LINEAR, LayerNorm, TorchLinear
 
 
 class FeatureEmbedder(nn.Sequential):
@@ -26,7 +26,8 @@ class FeatureEmbedder(nn.Sequential):
                  generator: torch.Generator):
         super().__init__(
             nn.Identity(),
-            TorchLinear(in_dim, d_model, dtype=dtype, generator=generator),
+            TorchLinear(in_dim, d_model, dtype=dtype, generator=generator,
+                        rounding=TORCH_LINEAR),
             nn.GELU(approximate="none"),
             LayerNorm(d_model))
         self.dtype = dtype

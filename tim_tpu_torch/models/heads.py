@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from tim_tpu_torch.models.common import MLP, Int8Dense, TorchLinear
+from tim_tpu_torch.models.common import DENSE, MLP, Int8Dense, TorchLinear
 
 FOCAL_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -41,7 +41,7 @@ class DetectionClsHead(nn.Module):
                 return Int8Dense(d_model, n, dtype=dtype,
                                  pallas_fused=pallas_fused)
             return TorchLinear(d_model, n, dtype=dtype, generator=generator,
-                               bias_value=FOCAL_BIAS)
+                               rounding=DENSE, bias_value=FOCAL_BIAS)
 
         self.include_vn = (visual_classes is not None
                            and len(visual_classes) == 3)

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 
 from tim_tpu_torch.models.common import (
-    Int8Dense, LayerNorm, TorchLinear, exact_gelu, linear, uniform_)
+    DENSE, TORCH_LINEAR, Int8Dense, LayerNorm, TorchLinear, exact_gelu,
+    linear, uniform_)
 from tim_tpu_torch.ops.attention import tim_attention
 from tim_tpu_torch.ops.fused_post_attention import fused_post_attention
 
@@ -49,12 +50,14 @@ class SelfAttention(nn.Module):
             math.sqrt(6.0 / (4 * d_model)), generator))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = TorchLinear(d_model, d_model, dtype=dtype,
-                                    generator=generator, bias_value=0.0)
+                                    generator=generator, rounding=DENSE,
+                                    bias_value=0.0)
 
     def _project(self, x):
         if hasattr(self, "in_proj"):
             return self.in_proj(x)
-        return linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+        return linear(x, self.in_proj_weight, self.in_proj_bias, self.dtype,
+                      rounding=DENSE)
 
     def forward(self, x, num_ctx: int, shared_queries: bool = False):
         b, s, c = x.shape
@@ -97,9 +100,11 @@ class EncoderLayer(nn.Module):
             self.linear2 = Int8Dense(dim_feedforward, d_model, dtype=dtype)
         else:
             self.linear1 = TorchLinear(d_model, dim_feedforward, dtype=dtype,
-                                       generator=generator)
+                                       generator=generator,
+                                       rounding=TORCH_LINEAR)
             self.linear2 = TorchLinear(dim_feedforward, d_model, dtype=dtype,
-                                       generator=generator)
+                                       generator=generator,
+                                       rounding=TORCH_LINEAR)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
 

@@ -188,9 +188,12 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     CUDA tensors launch the backward kernel (written into ``grads``, three
     [B, H, S, dh] views, when given; else into views of one packed
     [B, S, 3, H, dh] buffer) or raise; CPU tensors take
-    ``flash_mha_bwd_plain`` (``out`` and ``lse`` unused). In bf16 the
-    kernel sums dq over key blocks with fp32 atomic adds, so dq may differ
-    in its last bits from run to run; dk and dv do not."""
+    ``flash_mha_bwd_plain`` (``out`` and ``lse`` unused). dk and dv are
+    the same bits every run. In bf16 the one-pass kernel sums dq over key
+    blocks with fp32 atomic adds, so dq may differ in its last bits from
+    run to run; under ``torch.use_deterministic_algorithms(True)`` dq
+    comes instead from an atomic-free pass over the key tiles (the same
+    bits every run, one more pass). fp32 is atomic-free either way."""
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, do, sm_scale=sm_scale)
     if q.device.type != "cuda":
@@ -203,13 +206,14 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     delta = torch.empty_like(lse)
     bf16 = q.dtype == torch.bfloat16
     # bf16: dq summed over key blocks in fp32 (zeroed by the kernel's
-    # preprocess), then rounded into dq
+    # preprocess), then rounded into dq; none on the deterministic route
+    atomic_dq = bf16 and not torch.are_deterministic_algorithms_enabled()
     dq_accum = (torch.empty((b, h, s, dh), dtype=torch.float32,
-                            device=q.device) if bf16 else None)
+                            device=q.device) if atomic_dq else None)
     fn = _build.launcher("tim_flash_mha_bwd", _BWD_ARGTYPES)
     status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
                 strides, lse.data_ptr(), delta.data_ptr(),
-                dq_accum.data_ptr() if bf16 else None, b, h, s, dh,
+                dq_accum.data_ptr() if atomic_dq else None, b, h, s, dh,
                 int(bf16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_mha_bwd")
