@@ -139,3 +139,22 @@ def test_forward_ablation_cuts_find_their_spans(name):
     assert text.count(start) == 1
     out = ablate.cut(text, start, end, new)
     assert len(out) < len(text) and end in out
+
+
+@pytest.mark.parametrize("header,cuts,name", [
+    *((ablate.WINDOW_BWD_HEADER, "WINDOW_BWD_CUTS", name)
+      for name in sorted(ablate.WINDOW_BWD_CUTS)),
+    *((ablate.TAIL_HEADER, "TAIL_CUTS", name)
+      for name in sorted(ablate.TAIL_CUTS)),
+])
+def test_backward_and_tail_ablation_cuts_find_their_spans(header, cuts,
+                                                          name):
+    """Each part the ablation removes from kernel 4b's bf16 backward or
+    kernel 2's bf16 tail is found there once, and removing it shortens the
+    source."""
+    with open(os.path.join(_build._CSRC, header)) as f:
+        text = f.read()
+    start, end, new = getattr(ablate, cuts)[name]
+    assert text.count(start) == 1
+    out = ablate.cut(text, start, end, new)
+    assert len(out) < len(text) and end in out

@@ -24,7 +24,8 @@ from tests.torch_port_helpers import (
 from tim_tpu.models import TimDetection as JaxTimDetection
 from tim_tpu.models.common import TorchLinear as JaxTorchLinear
 from tim_tpu.train.detection import make_inference_step as jax_inference_step
-from tim_tpu_torch.models.common import DENSE, TORCH_LINEAR, linear
+from tim_tpu_torch.models.common import (
+    DENSE, TORCH_LINEAR, exact_gelu, linear)
 from tim_tpu_torch.ops.bias_act import bias_act
 from tim_tpu_torch.train.detection import make_inference_step
 
@@ -113,13 +114,13 @@ def test_rounding_kinds_differ_and_are_required():
 @pytest.mark.parametrize("kind", [TORCH_LINEAR, DENSE])
 def test_linear_with_gelu_is_gelu_of_the_linear(kind):
     """``gelu=True`` (fused into the bias pass on the card) is the exact
-    GELU of the same linear on the CPU, bit for bit."""
+    GELU (``exact_gelu``: in bf16, ``jax.nn.gelu``'s steps) of the same
+    linear on the CPU, bit for bit."""
     x, w, b = (torch.from_numpy(a) for a in _random())
     args = (x, w.T.contiguous(), b, torch.bfloat16)
     np.testing.assert_array_equal(
         linear(*args, rounding=kind, gelu=True).float().numpy(),
-        F.gelu(linear(*args, rounding=kind),
-               approximate="none").float().numpy())
+        exact_gelu(linear(*args, rounding=kind)).float().numpy())
 
 
 @pytest.mark.parametrize("gelu", [False, True])
@@ -136,7 +137,7 @@ def test_bias_act_plain_rounds_per_kind(dtype, gelu):
     want = linear(x, w.T.contiguous(), b, torch.bfloat16, rounding=kind)
     assert torch.equal(h if gelu else got, want)
     if gelu:
-        assert torch.equal(got, F.gelu(want, approximate="none"))
+        assert torch.equal(got, exact_gelu(want))
     else:
         assert h is None
 

@@ -1,7 +1,7 @@
-"""Where the attention kernels' time goes: each bf16 kernel timed with one
-part of its loop removed at a time, on the CUDA card.
+"""Where the bf16 kernels' time goes: each kernel timed with one part of
+its loop removed at a time, on the CUDA card.
 
-    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|all]
+    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|all]
 
 - 5b, the flash-attention backward (``csrc/flash_mha_bwd_sm90.cuh``), at
   ViT-L's shape [8, 16, 1568, 64], beside the backward of
@@ -12,11 +12,17 @@ part of its loop removed at a time, on the CUDA card.
   its inference launch and as its training launch (which writes the row
   log-sum-exp), beside ``scaled_dot_product_attention`` (kernel 4: with
   the float mask ab[type]) without and with inputs that require grad (the
-  call that also keeps its log-sum-exp).
+  call that also keeps its log-sum-exp);
+- 4b, the window-attention backward (``csrc/window_attention_bwd_sm90.cuh``),
+  at Swin-B's stages 1 and 3 (shifted, batch 8), beside the masked
+  backward of ``scaled_dot_product_attention``;
+- 2, the post-attention tail (``csrc/fused_post_attention_sm90.cuh``) at
+  [128 x 898, 1024, 2048], beside its two bare products through
+  ``torch.matmul``.
 
 Each variant is the kernel's source with one text span cut out (so its
-outputs are wrong: it measures time only), compiled with the same nvcc
-flags as the library, all variants in parallel. Each is timed with CUDA
+outputs are wrong: it measures time only), compiled with the same nvcc flags as the library, all variants in
+parallel; a variant whose wgmma ptxas serialises or that spills is named. Each is timed with CUDA
 events (mean of 20 calls after 3) in two rounds of opposite order. The
 cost of a part is the full kernel's time less the variant's. Prints one
 JSON line with the card's name and power limit.
@@ -28,6 +34,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -82,14 +89,55 @@ FORWARD_CUTS = {
 }
 KERNEL_4_ONLY = ("bias load", "region compare")
 
+WINDOW_BWD_HEADER = "window_attention_bwd_sm90.cuh"
+# kernel 4b's variants (the bf16 one-pass backward)
+WINDOW_BWD_CUTS = {
+    "bias load": ("#pragma unroll\n    for (int i = 0; i < 32; ++i) {\n"
+                  "      const int col = min(qt * kBQ",
+                  "  };\n", "    for (int i = 0; i < 32; ++i) "
+                  "sc[i] = 0.f;\n"),
+    "region compare": ("          if (masked && rqe[e]",
+                       "          float pe = sm90::ex2", ""),
+    "dbias accumulate": ("          if ((q_full || q0 + col + e < S) && "
+                         "(SP || key_ok[r]))\n            partial[prow[r]", "        }\n      }\n"
+                         "      fwd90::pack_p<64>(sc, pa);", ""),
+    "dq adds": ("          if (q0 + row < S)\n            asm volatile("
+                "\"red.global.add", "        }\n      }\n"
+                "      // every thread of the warpgroup", "          ;\n"),
+    "softmax work": (
+        "#pragma unroll\n      for (int i = 0; i < 32; i += 2) {\n"
+        "        const int col = (i / 4) * 8 + 2 * tig;\n        const int r",
+        "      fwd90::pack_p<64>(sc, pa);", ""),
+}
+
+TAIL_HEADER = "fused_post_attention_sm90.cuh"
+# kernel 2's variants (the bf16 tail)
+TAIL_CUTS = {
+    "LN1 row pass": ("  int err = launch_ln_rows(x, attn",
+                     "  if (err != 0) return err;\n  CUtensorMap",
+                     "  int err = 0;\n"),
+    "GELU epilogue": ("        const float v0 = gelu_erf(",
+                      "        if (row < e.m)\n          *reinterpret_cast"
+                      "<uint32_t*>(e.out + (long long)row * e.n + col) =\n"
+                      "              tim_attn::pack_bf16(v0, v1);",
+                      "        const float v0 = acc[hf][i] + b.x, "
+                      "v1 = acc[hf][i + 1] + b.y;\n"),
+    "LN2 row pass": ("  return launch_ln_rows(out, nullptr",
+                     "\n}\n\n}  // namespace tim_fpa", "  return 0;"),
+    "second product (first alone)": ("  EpiParams e2{", "\n}\n\n}  // "
+                                     "namespace tim_fpa", "  return 0;"),
+    "first product (second alone)": ("  EpiParams e1{", "  EpiParams e2{",
+                                     ""),
+}
+
+
 def cut(text: str, start: str, end: str, new: str) -> str:
     i = text.index(start)
     return text[:i] + new + text[text.index(end, i):]
 
 
 def variants(header: str, cuts) -> dict:
-    """{name: the header's text}: the full kernel and one variant a
-    cut."""
+    """{name: the header's text}: the full kernel and one variant a cut."""
     with open(os.path.join(_build._CSRC, header)) as f:
         text = f.read()
     out = {"full kernel": text}
@@ -99,8 +147,8 @@ def variants(header: str, cuts) -> dict:
 
 
 def build(work: str, name: str, header: str, text: str, sources) -> str:
-    src = os.path.join(work, name.replace(" ", "_").replace("/", "_")
-                       .replace("(", "").replace(")", ""))
+    src = os.path.join(work, "".join(c if c.isalnum() or c in "-_" else "_"
+                                     for c in name))
     shutil.copytree(_build._CSRC, src)
     with open(os.path.join(src, header), "w") as f:
         f.write(text)
@@ -111,6 +159,13 @@ def build(work: str, name: str, header: str, text: str, sources) -> str:
         text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for '{name}':\n{proc.stderr}")
+    for code in ("C7515", "C7512"):
+        if code in proc.stderr:
+            print(f"[build] '{name}': ptxas serialises its wgmma ({code})")
+    spills = [line.strip() for line in proc.stderr.splitlines()
+              if re.search(r"\b[1-9]\d* bytes spill (stores|loads)", line)]
+    if spills:
+        print(f"[build] '{name}': {spills[:4]}")
     return lib
 
 
@@ -253,6 +308,86 @@ def ablate_4(libs, gen):
     return {"shape": [8 * n_win, heads, 784, 32], "ms": in_turns(calls)}
 
 
+def ablate_4b(libs, gen):
+    """Swin-B's stage 1 ([512, 4, 784, 32], shifted) and stage 3 ([32, 16,
+    784, 32], shifted) at batch 8, bf16, beside the masked backward of
+    ``scaled_dot_product_attention``."""
+    import chip_smoke as cs
+    out = {}
+    for stage in (1, 3):
+        n_win, heads, dims = cs.SWIN_STAGES[stage - 1]
+        args, o, lse, do = cs.window_bwd_case(8, n_win, heads, dims, True,
+                                              torch.bfloat16, gen)
+        q, k, v, bias, region = args
+        bw, h, n, dh = q.shape
+        grads = fm.packed_grads(q)
+        do, strides = fm.bwd_args(q, k, v, o, do, grads)
+        delta = torch.empty_like(lse)
+        acc = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+        groups = wa.bwd_groups(bw, h, n)
+        scratch = (torch.empty((groups, h, n, n), device="cuda")
+                   if groups > 1 else None)
+        dbias = torch.empty_like(bias)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in (q, k, v, o, do, *grads)]
+
+        def call(fn):
+            status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(),
+                        acc.data_ptr(), bias.data_ptr(), region.data_ptr(),
+                        n_win, dbias.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        groups, bw, h, n, dh, 1, 32 ** -0.5, stream)
+            _build.check(status, "window_attention_bwd variant")
+
+        calls = {}
+        for name, lib in libs.items():
+            fn = ctypes.CDLL(lib).tim_window_attention_bwd
+            fn.argtypes = wa._BWD_ARGTYPES
+            calls[name] = (lambda f: lambda: call(f))(fn)
+        times = in_turns(calls)
+        lib_qkv, mask = cs.window_library_args(q, k, v, bias, region, n_win)
+        leaves = [t.detach().requires_grad_() for t in (*lib_qkv, mask)]
+        res = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                             scale=32 ** -0.5)
+        lib_do = do.reshape(lib_qkv[0].shape)
+        times["masked scaled_dot_product_attention backward"] = [cuda_ms(
+            lambda: torch.autograd.grad(res, leaves, lib_do,
+                                        retain_graph=True))]
+        out[f"stage {stage}"] = {"shape": [bw, h, n, dh], "groups": groups,
+                                 "ms": times}
+        del args, o, lse, do, grads, acc, scratch, leaves, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def ablate_2(libs, gen):
+    """The bf16 tail at [128 x 898, 1024, 2048], beside the two bare bf16
+    products through ``torch.matmul``."""
+    import chip_smoke as cs
+    from tim_tpu_torch.ops import fused_post_attention as fpa
+    args = cs.tail_args(128, torch.bfloat16, gen)
+    x = args[0]
+    n, c = x.numel() // x.shape[-1], x.shape[-1]
+    ff = args[4].shape[0]
+    inputs = [x, args[1], args[2], args[3], args[4].to(x.dtype), args[5],
+              args[6].to(x.dtype), args[7], args[8], args[9]]
+    y = torch.empty((n, c), dtype=x.dtype, device="cuda")
+    h = torch.empty((n, ff), dtype=x.dtype, device="cuda")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in inputs + [y, h, out]]
+    calls = {}
+    for name, lib in libs.items():
+        fn = ctypes.CDLL(lib).tim_fused_post_attention
+        fn.argtypes = fpa._ARGTYPES
+        calls[name] = (lambda f: lambda: _build.check(
+            f(*ptrs, n, c, ff, 1, fpa.EPS, stream), "tail variant"))(fn)
+    y2 = x.reshape(n, c)
+    calls["torch.matmul, both products"] = lambda: torch.matmul(
+        torch.matmul(y2, inputs[4].t()), inputs[6].t())
+    return {"shape": [n, c, ff], "ms": in_turns(calls)}
+
+
 def report(name, result):
     ms = result["ms"]
     full = {launch: sum(ms[f"full kernel, {launch}"]) / 2
@@ -272,7 +407,8 @@ def report(name, result):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--kernel", choices=("5b", "5", "4", "forward",
-                                             "all"), default="all")
+                                             "4b", "2", "all"),
+                        default="all")
     which = parser.parse_args(argv).kernel
     if not torch.cuda.is_available():
         raise SystemExit("tim_tpu_torch.ablate needs a CUDA card")
@@ -283,6 +419,16 @@ def main(argv=None) -> int:
         jobs["forward"] = (FORWARD_HEADER,
                            variants(FORWARD_HEADER, FORWARD_CUTS),
                            ["flash_mha.cu", "window_attention.cu"])
+    if which in ("4b", "all"):
+        jobs["4b"] = (WINDOW_BWD_HEADER,
+                      variants(WINDOW_BWD_HEADER, WINDOW_BWD_CUTS),
+                      ["window_attention_bwd.cu",
+                       "window_attention_bwd_sm90.cu"])
+    if which in ("2", "all"):
+        jobs["2"] = (TAIL_HEADER,
+                     variants(TAIL_HEADER, TAIL_CUTS),
+                     ["fused_post_attention.cu",
+                      "fused_post_attention_sm90.cu"])
     work = tempfile.mkdtemp()
     try:
         tasks = [(job, name, header, text, sources)
@@ -302,6 +448,11 @@ def main(argv=None) -> int:
             results["5"] = ablate_5(libs["forward"], gen)
         if which in ("4", "forward", "all"):
             results["4"] = ablate_4(libs["forward"], gen)
+        if "4b" in jobs:
+            for stage, res in ablate_4b(libs["4b"], gen).items():
+                results[f"4b {stage}"] = res
+        if "2" in jobs:
+            results["2"] = ablate_2(libs["2"], gen)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

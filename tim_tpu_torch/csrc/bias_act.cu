@@ -8,9 +8,15 @@
 // rounds neither way:
 //   TORCH_LINEAR  h = bf16(y + bias),          y the GEMM's fp32 output;
 //   DENSE         h = bf16(y + bf16(bias)),    y the GEMM's bf16 output;
-//   out = gelu ? bf16(gelu_erf(h)) : h, gelu_erf(x) = x / 2 (1 + erf(x / sqrt 2))
-// (PyTorch's exact GELU formula, in fp32). With `pre`, h is also written
-// (the backward's input to the GELU derivative).
+//   no bias (null) h = bf16(y),                 the exact GELU alone;
+//   out = gelu ? gelu_bf16(h) : h,
+//   gelu_bf16(h) = bf16(bf16(0.5 h) * bf16(erfc(bf16(-h * 0.70703125)))),
+// jax.nn.gelu(approximate=False) on bf16 as XLA runs it: each step a bf16
+// operation (0.70703125 is sqrt(1/2) in bf16), computed here in fp32 and
+// rounded once (a product of two bf16 values is exact in fp32). With
+// `pre`, h is also written (the backward's input to the GELU derivative).
+// The fused tail's GELU (kernel 2) and the int8 heads' (kernel 3) are
+// fp32 in JAX, and are not this one.
 //
 // What bounds it on the H100: bytes. A row of y is read once (4 or 2 bytes
 // an element), the fp32 bias from L1/L2, out written once (2 bytes; 2 more
@@ -24,7 +30,7 @@
 namespace {
 
 __device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -37,8 +43,10 @@ __device__ __forceinline__ float add_bias(float y, float b) {
   return round_bf16(F32_IN ? y + b : y + round_bf16(b));
 }
 
-__device__ __forceinline__ float gelu_erf(float h) {
-  return h * 0.5f * (1.0f + erff(h * 0.70710678118654752440f));
+__device__ __forceinline__ float gelu_bf16(float h) {
+  const float half = round_bf16(__fmul_rn(h, 0.5f));
+  const float d = round_bf16(__fmul_rn(h, -0.70703125f));
+  return round_bf16(__fmul_rn(half, round_bf16(erfcf(d))));
 }
 
 template <bool F32_IN, bool GELU>
@@ -62,13 +70,18 @@ __global__ void __launch_bounds__(256) bias_act_kernel(
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[k] = __bfloat162float(e[k]);
     }
-    const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + c));
-    const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + c) + 1);
-    b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
-    b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
     float h[8];
+    if (bias != nullptr) {
+      const float4 b0 = __ldg(reinterpret_cast<const float4*>(bias + c));
+      const float4 b1 = __ldg(reinterpret_cast<const float4*>(bias + c) + 1);
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) h[k] = add_bias<F32_IN>(v[k], b[k]);
+      for (int k = 0; k < 8; ++k) h[k] = add_bias<F32_IN>(v[k], b[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) h[k] = round_bf16(v[k]);
+    }
     if (GELU && pre != nullptr) {
       uint4 w;
       w.x = pack2(h[0], h[1]); w.y = pack2(h[2], h[3]);
@@ -77,7 +90,7 @@ __global__ void __launch_bounds__(256) bias_act_kernel(
     }
     if constexpr (GELU) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) h[k] = gelu_erf(h[k]);
+      for (int k = 0; k < 8; ++k) h[k] = gelu_bf16(h[k]);
     }
     uint4 w;
     w.x = pack2(h[0], h[1]); w.y = pack2(h[2], h[3]);
@@ -96,9 +109,10 @@ __global__ void __launch_bounds__(256) bias_act_scalar_kernel(
     const float v = F32_IN ? static_cast<const float*>(y)[i]
                            : __bfloat162float(
                                  static_cast<const __nv_bfloat16*>(y)[i]);
-    float h = add_bias<F32_IN>(v, __ldg(bias + i % cols));
+    float h = bias != nullptr ? add_bias<F32_IN>(v, __ldg(bias + i % cols))
+                              : round_bf16(v);
     if (GELU && pre != nullptr) pre[i] = __float2bfloat16(h);
-    if (GELU) h = gelu_erf(h);
+    if (GELU) h = gelu_bf16(h);
     out[i] = __float2bfloat16(h);
   }
 }
@@ -120,7 +134,8 @@ void launch(const void* y, const float* bias, __nv_bfloat16* out,
 
 }  // namespace
 
-// y: [rows, cols] fp32 (y_f32) or bf16, contiguous; bias: [cols] fp32; out
+// y: [rows, cols] fp32 (y_f32) or bf16, contiguous; bias: [cols] fp32 or
+// null (no add); out
 // and pre (or null): [rows, cols] bf16, contiguous. Rows of a multiple of 8
 // columns with 16-byte aligned pointers take the 8-column kernel. Returns
 // cudaGetLastError() after the launch (0 on success).

@@ -1,6 +1,10 @@
-// Exact softmax attention, backward: the core shared by flash_mha_bwd.cu
-// (kernel 5, no bias) and window_attention_bwd.cu (kernel 4, bias plus the
-// shifted windows' region mask, and the bias gradient).
+// Exact softmax attention, backward: the fp32 routes (the parity paths)
+// of flash_mha_bwd.cu (kernel 5b, no bias) and window_attention_bwd.cu
+// (kernel 4b, bias plus the shifted windows' region mask, and the bias
+// gradient), and the atomic-free bf16 dq pass that both bf16 routes take
+// under torch.use_deterministic_algorithms (their default bf16 routes are
+// the one-pass wgmma cores flash_mha_bwd_sm90.cuh and
+// window_attention_bwd_sm90.cuh).
 //
 // With s_ij = (q_i . k_j) * scale [+ bias[h, i, j] - 100 * (region differs)]
 // and the forward's row statistic lse_i = log sum_j exp(s_ij):
@@ -10,7 +14,7 @@
 //   dp_ij = do_i . v_j
 //   ds_ij = p_ij (dp_ij - D_i),  D_i = do_i . o_i  (= sum_j p_ij dp_ij)
 //   dq_i  = sum_j (ds_ij * scale) k_j,  dk_j = sum_i (ds_ij * scale) q_i
-//   dbias[h, i, j] = sum over the batch's windows of ds_ij   (kernel 4)
+//   dbias[h, i, j] = sum over the batch's windows of ds_ij   (kernel 4b)
 //
 // as pallas_swin._bwd_kernel computes it: fp32 intermediates, each cast to
 // the operand dtype before its product (ds * scale is rounded, as dsc is
@@ -18,27 +22,16 @@
 // takes rowsum(dp * p), the same quantity up to the rounding of o.
 //
 // Blocks run in no order, so nothing is summed across blocks: there are no
-// atomics and the result does not change from run to run. One pass per
-// output, each recomputing the scores it needs:
-//   dkdv:  one block per (batch, head, 64 keys), walking the query tiles;
-//          dk and dv accumulate in fp32 registers (4 products a score);
-//   dq:    one block per (batch, head, 64 queries), walking the key tiles;
-//          the forward's tile walk (3 products a score);
-//   dbias: kernel 4 only, one block per (head, 64 queries, 64 keys),
-//          walking the batch's windows with the tile's sum in registers
-//          (2 products a score, and no [windows, H, N, N] tensor).
-// dq by a second pass costs 2 more products a score than fp32 atomics
-// from the dkdv pass would (FlashAttention-2's choice), but needs no
-// zeroed fp32 buffer, no cast pass and gives the same bits every run; the
-// dbias pass avoids the 1.3e9 atomics a score-per-window sum would need at
-// Swin-B stage 1. Ragged S is masked as in the forward (rows past S load
-// as zeros, score nothing and are not stored); nothing is padded.
-//
-// bf16 (tensor cores): mma.sync m16n8k16 with fp32 accumulators, the
-// forward's two-stage cp.async ring and ldmatrix fragments; score
-// accumulators are repacked in registers as bf16 A fragments for the next
-// product, as in the forward. fp32 (CUDA cores, no TF32): one thread per
-// row, as the forward's fp32 path.
+// atomics and the result does not change from run to run. fp32 (CUDA
+// cores, no TF32, one thread per row): one pass per output, each
+// recomputing the scores it needs: dk/dv (one block per (batch, head, 128
+// keys)), dq (per 128 queries) and, kernel 4b, dbias (per (head, 128
+// queries, 32 keys), walking the batch's windows with the sum in
+// registers). bf16 dq (mma.sync m16n8k16 with fp32 accumulators, a
+// two-stage cp.async ring, ldmatrix fragments): one block per (batch,
+// head, 64 queries) walks the key tiles (3 products a score). Ragged S is
+// masked as in the forward (rows past S load as zeros, score nothing and
+// are not stored); nothing is padded.
 
 #pragma once
 
@@ -234,129 +227,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ld,
   }
 }
 
-constexpr int kLDBT = 64 + 4;   // bias tile read transposed: no bank clash
-
-template <int DH, bool BIAS>
-constexpr int dkdv_smem_bytes() {
-  return (2 * 64 + 4 * 64) * (DH + 8) * 2 + (BIAS ? 2 * 64 * kLDBT * 4 : 0);
-}
-
-// dk, dv of 64 keys: warp w holds keys k0 + 16w.. as the rows of the
-// transposed products s^T = K Q^T and dp^T = V dO^T, with K and V as
-// register A fragments; then dv += P^T dO and dk += dS^T Q reuse those
-// fragments as A operands, with dO and Q as ldmatrix.trans B operands.
-template <int DH, bool BIAS>
-__global__ void __launch_bounds__(128, 2) dkdv_bf16_kernel(const BwdParams p) {
-  constexpr int BQ = 64, LD = DH + 8, LDBT = kLDBT;
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  bf* s_k = reinterpret_cast<bf*>(dyn_smem);
-  bf* s_v = s_k + 64 * LD;
-  auto s_q = [&](int s) { return s_v + (1 + 2 * s) * 64 * LD; };
-  auto s_do = [&](int s) { return s_v + (2 + 2 * s) * 64 * LD; };
-  float* s_bias = reinterpret_cast<float*>(s_k + 6 * 64 * LD);
-  __shared__ float s_lse[2][BQ], s_delta[2][BQ];
-  __shared__ int s_region[2][BQ];
-
-  const Tile t = bwd_tile(p, 64);
-  const int S = p.seq, k0 = t.q0;
-  const bf* q = at<bf>(p.q, p.sq, t.b, t.h);
-  const bf* dout = at<bf>(p.dout, p.sdo, t.b, t.h);
-  const long long bh = ((long long)t.b * p.heads + t.h) * S;
-  const int* region = (BIAS && p.region != nullptr)
-                          ? p.region + (long long)(t.b % p.n_win) * S
-                          : nullptr;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int n_qt = (S + BQ - 1) / BQ;
-
-  auto load_q = [&](int tile, int s) {
-    const int q0 = tile * BQ;
-    load_rows<DH>(s_q(s), q, p.sq.n, q0, S, tid);
-    load_rows<DH>(s_do(s), dout, p.sdo.n, q0, S, tid);
-    if (tid < BQ) {
-      const int row = min(q0 + tid, S - 1);
-      s_lse[s][tid] = p.lse[bh + row];
-      s_delta[s][tid] = p.delta[bh + row];
-      if (region != nullptr) s_region[s][tid] = region[row];
-    }
-    if constexpr (BIAS)
-      load_bias_tile(s_bias + s * BQ * LDBT, LDBT,
-                     p.bias + (long long)t.h * S * S, S, q0, k0, tid);
-  };
-
-  load_rows<DH>(s_k, at<bf>(p.k, p.sk, t.b, t.h), p.sk.n, k0, S, tid);
-  load_rows<DH>(s_v, at<bf>(p.v, p.sv, t.b, t.h), p.sv.n, k0, S, tid);
-  load_q(0, 0);
-  cp_async_commit();
-
-  int region_key[2] = {0, 0};
-  if (region != nullptr)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      region_key[r] = region[min(k0 + warp * 16 + g + 8 * r, S - 1)];
-
-  uint32_t ka[DH / 16][4], va[DH / 16][4];
-  float dk[DH / 8][4], dv[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int jt = 0; jt < n_qt; ++jt) {
-    const int st = jt & 1, q0 = jt * BQ;
-    if (jt + 1 < n_qt) {
-      load_q(jt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (jt == 0) {
-      load_a<DH>(ka, s_k, warp, lane);
-      load_a<DH>(va, s_v, warp, lane);
-    }
-
-    // p^T: rows = this warp's keys, columns = the tile's queries
-    float pt[8][4];
-    mma_abt<DH>(pt, ka, s_q(st), lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1), r = e >> 1;
-        float x = pt[nt][e] * p.scale;
-        if constexpr (BIAS) {
-          x += s_bias[(st * BQ + col) * LDBT + warp * 16 + g + 8 * r];
-          if (region != nullptr && region_key[r] != s_region[st][col])
-            x += kMaskValue;
-        }
-        pt[nt][e] = q0 + col < S ? __expf(x - s_lse[st][col]) : 0.f;
-      }
-    }
-    mma_xb<DH>(dv, pt, s_do(st), lane);     // dv += P^T dO
-
-    float dst[8][4];                        // dp^T, then dS^T * scale
-    mma_abt<DH>(dst, va, s_do(st), lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        dst[nt][e] = pt[nt][e] * (dst[nt][e] - s_delta[st][col]) * p.scale;
-      }
-    mma_xb<DH>(dk, dst, s_q(st), lane);     // dk += dS^T Q
-    __syncthreads();   // this stage is free for the tile after next
-  }
-
-  const int row0 = k0 + warp * 16;
-  store_rows<DH>(at_mut<bf>(p.dk, p.sdk, t.b, t.h), p.sdk.n, dk, row0, S,
-                 lane);
-  store_rows<DH>(at_mut<bf>(p.dv, p.sdv, t.b, t.h), p.sdv.n, dv, row0, S,
-                 lane);
-}
-
 template <int DH, bool BIAS>
 constexpr int dq_smem_bytes() {
   return (2 * 64 + 4 * 64) * (DH + 8) * 2 + (BIAS ? 2 * 64 * kLDB * 4 : 0);
@@ -465,109 +335,6 @@ __global__ void __launch_bounds__(128, 2) dq_bf16_kernel(const BwdParams p) {
   }
   store_rows<DH>(at_mut<bf>(p.dq, p.sdq, t.b, t.h), p.sdq.n, dq,
                  q0 + warp * 16, S, lane);
-}
-
-template <int DH>
-constexpr int dbias_smem_bytes() {
-  return 2 * 4 * 64 * (DH + 8) * 2;
-}
-
-// dbias of one (head, 64 queries, 64 keys) tile, summed over every window
-// of the batch in registers (the bias is shared by all windows; the region
-// mask is a constant): per window, s = Q K^T and dp = dO V^T from the four
-// 64-row tiles that the cp.async ring brings in, then dS summed.
-template <int DH>
-__global__ void __launch_bounds__(128, 2) dbias_bf16_kernel(const BwdParams p) {
-  constexpr int LD = DH + 8;
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  bf* smem = reinterpret_cast<bf*>(dyn_smem);
-  auto tile = [&](int s, int i) { return smem + (4 * s + i) * 64 * LD; };
-  __shared__ float s_lse[2][64], s_delta[2][64];
-  __shared__ int s_rq[2][64], s_rk[2][64];
-
-  const int S = p.seq, n_t = (S + 63) / 64;
-  const int h = blockIdx.x / (n_t * n_t), rem = blockIdx.x % (n_t * n_t);
-  const int q0 = (rem / n_t) * 64, k0 = (rem % n_t) * 64;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-
-  auto load_win = [&](int b, int s) {
-    load_rows<DH>(tile(s, 0), at<bf>(p.q, p.sq, b, h), p.sq.n, q0, S, tid);
-    load_rows<DH>(tile(s, 1), at<bf>(p.dout, p.sdo, b, h), p.sdo.n, q0, S,
-                  tid);
-    load_rows<DH>(tile(s, 2), at<bf>(p.k, p.sk, b, h), p.sk.n, k0, S, tid);
-    load_rows<DH>(tile(s, 3), at<bf>(p.v, p.sv, b, h), p.sv.n, k0, S, tid);
-    if (tid < 64) {
-      const long long bh = ((long long)b * p.heads + h) * S;
-      const int row = min(q0 + tid, S - 1);
-      s_lse[s][tid] = p.lse[bh + row];
-      s_delta[s][tid] = p.delta[bh + row];
-      if (p.region != nullptr) {
-        const int* rw = p.region + (long long)(b % p.n_win) * S;
-        s_rq[s][tid] = rw[row];
-        s_rk[s][tid] = rw[min(k0 + tid, S - 1)];
-      }
-    }
-  };
-
-  load_win(0, 0);
-  cp_async_commit();
-
-  // this thread's bias entries and sums: rows warp*16 + g (+8), columns
-  // nt*8 + 2 tig (+1) of the tile
-  const float* hb = p.bias + (long long)h * S * S;
-  float bias[8][4], acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = min(q0 + warp * 16 + g + 8 * (e >> 1), S - 1);
-      const int col = min(k0 + nt * 8 + 2 * tig + (e & 1), S - 1);
-      bias[nt][e] = hb[(long long)row * S + col];
-      acc[nt][e] = 0.f;
-    }
-
-  for (int b = 0; b < p.batch; ++b) {
-    const int st = b & 1;
-    if (b + 1 < p.batch) {
-      load_win(b + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    uint32_t qa[DH / 16][4], doa[DH / 16][4];
-    load_a<DH>(qa, tile(st, 0), warp, lane);
-    load_a<DH>(doa, tile(st, 1), warp, lane);
-    float sc[8][4], dp[8][4];
-    mma_abt<DH>(sc, qa, tile(st, 2), lane);
-    mma_abt<DH>(dp, doa, tile(st, 3), lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int lr = warp * 16 + g + 8 * (e >> 1);
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        float x = sc[nt][e] * p.scale + bias[nt][e];
-        if (p.region != nullptr && s_rq[st][lr] != s_rk[st][col])
-          x += kMaskValue;
-        const float pe = __expf(x - s_lse[st][lr]);
-        acc[nt][e] += pe * (dp[nt][e] - s_delta[st][lr]);
-      }
-    __syncthreads();
-  }
-
-  float* db = p.dbias + (long long)h * S * S;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = q0 + warp * 16 + g + 8 * (e >> 1);
-      const int col = k0 + nt * 8 + 2 * tig + (e & 1);
-      if (row < S && col < S) db[(long long)row * S + col] = acc[nt][e];
-    }
 }
 
 // fp32: dq, one thread per query row, 16-key tiles of k and v in shared
@@ -813,34 +580,19 @@ int launch_smem(Kernel kernel, long long blocks, int smem,
   return (int)cudaGetLastError();
 }
 
+// The fp32 route: D, then dk/dv, dq and (BIAS) dbias, on one stream;
+// returns the first launch's CUDA error (0 on success).
 template <int DH, bool BIAS>
-int launch_bwd_dh(const BwdParams& p, bool bf16, cudaStream_t stream) {
+int launch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   const long long rows = (long long)p.batch * p.heads * p.seq;
-  const long long bh = (long long)p.batch * p.heads;
+  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
   if ((rows + 255) / 256 > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  if (bf16)
-    delta_kernel<DH, __nv_bfloat16><<<(unsigned)((rows + 255) / 256), 256, 0,
-                                      stream>>>(p);
-  else
-    delta_kernel<DH, float><<<(unsigned)((rows + 255) / 256), 256, 0,
-                              stream>>>(p);
+  delta_kernel<DH, float><<<(unsigned)((rows + 255) / 256), 256, 0,
+                            stream>>>(p);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  if (bf16) {
-    const long long t64 = (p.seq + 63) / 64;
-    err = launch_smem(dkdv_bf16_kernel<DH, BIAS>, bh * t64,
-                      dkdv_smem_bytes<DH, BIAS>(), stream, p);
-    if (err != 0) return err;
-    err = launch_smem(dq_bf16_kernel<DH, BIAS>, bh * t64,
-                      dq_smem_bytes<DH, BIAS>(), stream, p);
-    if constexpr (BIAS) {
-      if (err == 0)
-        err = launch_smem(dbias_bf16_kernel<DH>, p.heads * t64 * t64,
-                          dbias_smem_bytes<DH>(), stream, p);
-    }
-    return err;
-  }
+  const long long bh = (long long)p.batch * p.heads;
   const long long t128 = (p.seq + 127) / 128;
   err = launch_smem(dkdv_f32_kernel<DH, BIAS>, bh * t128, 0, stream, p,
                     DH / dkdv_f32_dims<DH>());
@@ -852,16 +604,6 @@ int launch_bwd_dh(const BwdParams& p, bool bf16, cudaStream_t stream) {
                         p.heads * t128 * ((p.seq + 31) / 32), 0, stream, p);
   }
   return err;
-}
-
-// Launch the backward for head dim DH: D, then dk/dv, dq and (BIAS)
-// dbias, in that order on one stream; returns the first launch's CUDA
-// error (0 on success).
-template <int DH, bool BIAS>
-int launch_bwd(const BwdParams& p, int dh, bool bf16, cudaStream_t stream) {
-  if (dh != DH) return (int)cudaErrorInvalidValue;
-  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
-  return launch_bwd_dh<DH, BIAS>(p, bf16, stream);
 }
 
 // strides: 24 element strides, (batch, head, row) for q, k, v, o, do, dq,

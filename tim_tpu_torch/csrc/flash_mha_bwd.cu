@@ -16,7 +16,7 @@
 // card's full tensor-core rate; dq sums across key blocks with fp32
 // atomic adds, so its last bits may change from run to run. The fp32
 // route (CUDA cores, no TF32, two passes, deterministic) is the parity
-// path, from flash_attention_bwd.cuh, whose bf16 kernels serve kernel 4b.
+// path, from flash_attention_bwd.cuh, as is the deterministic route's dq.
 
 #include "flash_attention_bwd.cuh"
 #include "flash_mha_bwd_sm90.cuh"
@@ -24,23 +24,6 @@
 namespace {
 
 constexpr int kDH = 64;
-
-int launch_f32(const tim_attn::BwdParams& p, cudaStream_t stream) {
-  using namespace tim_attn;
-  const long long rows = (long long)p.batch * p.heads * p.seq;
-  if ((rows + 255) / 256 > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
-  delta_kernel<kDH, float><<<(unsigned)((rows + 255) / 256), 256, 0,
-                             stream>>>(p);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long blocks = (long long)p.batch * p.heads *
-                           ((p.seq + 127) / 128);
-  err = launch_smem(dkdv_f32_kernel<kDH, false>, blocks, 0, stream, p,
-                    kDH / dkdv_f32_dims<kDH>());
-  if (err != 0) return err;
-  return launch_smem(dq_f32_kernel<kDH, false>, blocks, 0, stream, p);
-}
 
 // The deterministic route's dq: the atomic-free pass of
 // flash_attention_bwd.cuh (one block per 64 queries walks the key tiles,
@@ -106,5 +89,5 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
   p.lse = lse; p.delta = delta;
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
   p.bias = nullptr; p.region = nullptr; p.n_win = 1; p.dbias = nullptr;
-  return launch_f32(p, st);
+  return tim_attn::launch_bwd_f32<kDH, false>(p, st);
 }

@@ -92,9 +92,19 @@ struct Params {
   Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   const float* lse;    // [batch, heads, seq]
   float* delta;        // [batch, heads, seq], written by the preprocess
-  float* dq_accum;     // [batch, heads, seq, 64] fp32, zeroed there
+  float* dq_accum;     // [batch, heads, seq, dh] fp32, zeroed there
   int batch, heads, seq;
   float scale;
+  // kernel 4b only (window_attention_bwd_sm90.cuh): bias [heads, seq, seq]
+  // fp32, region ids [n_win, seq] int32 or null, dbias [heads, seq, seq]
+  // fp32, and the per-group partials [groups, heads, seq, seq] fp32 (null
+  // with one group) of `groups` window groups
+  const float* bias;
+  const int* region;
+  int n_win;
+  float* dbias;
+  float* dbias_groups;
+  int groups;
 };
 
 // Byte offset of 16-byte chunk c of row r in a swizzled [rows][64] tile.
@@ -124,12 +134,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 }
 
 // D = do . o per row, and the row of dq_accum zeroed (when there is one):
-// 8 lanes per row, each reading 16 bytes of o and of do (a row is one
-// 128-byte line).
+// DH / 8 lanes per row, each reading 16 bytes of o and of do. Shared with
+// kernel 4b (head dim 32).
+template <int DH>
 __global__ void __launch_bounds__(256) preprocess_kernel(const Params p) {
+  constexpr int kLanes = DH / 8;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long i = t / 8;
-  const int c = (int)(t % 8);
+  const long long i = t / kLanes;
+  const int c = (int)(t % kLanes);
   const bool live = i < (long long)p.batch * p.heads * p.seq;
   const long long r = live ? i : 0;
   const int row = (int)(r % p.seq);
@@ -144,25 +156,26 @@ __global__ void __launch_bounds__(256) preprocess_kernel(const Params p) {
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
 #pragma unroll
-  for (int o = 4; o > 0; o >>= 1)
+  for (int o = kLanes / 2; o > 0; o >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (!live) return;
   if (c == 0) p.delta[i] = acc;
   if (p.dq_accum == nullptr) return;
-  float4* z = reinterpret_cast<float4*>(p.dq_accum + i * kDH + c * 8);
+  float4* z = reinterpret_cast<float4*>(p.dq_accum + i * DH + c * 8);
   z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // dq = bf16(dq_accum) into dq's strides; one thread per 8 dims of a row.
+template <int DH>
 __global__ void __launch_bounds__(256) postprocess_kernel(const Params p) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)p.batch * p.heads * p.seq * (kDH / 8)) return;
-  const int c = (int)(i % (kDH / 8));
-  const long long r = i / (kDH / 8);
+  if (i >= (long long)p.batch * p.heads * p.seq * (DH / 8)) return;
+  const int c = (int)(i % (DH / 8));
+  const long long r = i / (DH / 8);
   const int row = (int)(r % p.seq);
   const long long bh = r / p.seq;
   const int h = (int)(bh % p.heads), b = (int)(bh / p.heads);
-  const float4* src = reinterpret_cast<const float4*>(p.dq_accum + r * kDH +
+  const float4* src = reinterpret_cast<const float4*>(p.dq_accum + r * DH +
                                                       c * 8);
   const float4 x = src[0], y = src[1];
   uint4 out;
@@ -172,6 +185,26 @@ __global__ void __launch_bounds__(256) postprocess_kernel(const Params p) {
   out.w = pack_bf16(y.z, y.w);
   *reinterpret_cast<uint4*>(p.dq + b * p.sdq.b + h * p.sdq.h +
                             row * p.sdq.n + c * 8) = out;
+}
+
+// The preprocess over every row (DH / 8 threads a row); returns the launch
+// error.
+template <int DH>
+inline int launch_preprocess(const Params& p, cudaStream_t stream) {
+  const long long threads = (long long)p.batch * p.heads * p.seq * (DH / 8);
+  if ((threads + 255) / 256 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  preprocess_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0,
+                          stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+inline int launch_postprocess(const Params& p, cudaStream_t stream) {
+  const long long threads = (long long)p.batch * p.heads * p.seq * (DH / 8);
+  postprocess_kernel<DH><<<(unsigned)((threads + 255) / 256), 256, 0,
+                           stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // DQ: the dQ partials and their atomic adds; without them (the
@@ -395,9 +428,7 @@ inline int launch(const Params& p, cudaStream_t stream) {
       (long long)p.batch * p.heads * ((p.seq + kKeys - 1) / kKeys);
   if ((rows * (kDH / 8) + 255) / 256 > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  preprocess_kernel<<<(unsigned)((rows * 8 + 255) / 256), 256, 0,
-                      stream>>>(p);
-  int err = (int)cudaGetLastError();
+  int err = launch_preprocess<kDH>(p, stream);
   if (err != 0) return err;
   auto kernel = p.dq_accum != nullptr ? bwd_kernel<true> : bwd_kernel<false>;
   err = (int)cudaFuncSetAttribute(
@@ -406,9 +437,7 @@ inline int launch(const Params& p, cudaStream_t stream) {
   kernel<<<(unsigned)blocks, kThreads, kSmemBytes, stream>>>(p);
   err = (int)cudaGetLastError();
   if (err != 0 || p.dq_accum == nullptr) return err;
-  postprocess_kernel<<<(unsigned)((rows * (kDH / 8) + 255) / 256), 256, 0,
-                       stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_postprocess<kDH>(p, stream);
 }
 
 }  // namespace sm90

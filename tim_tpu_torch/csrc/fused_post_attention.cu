@@ -11,35 +11,26 @@
 //
 // What bounds it on the H100: the two FFN products, 4*N*C*FF flop
 // (0.96 TFLOP per layer at batch 128 x 898 tokens, C 1024, FF 2048), so
-// the tensor cores. The LN/GELU/residual passes are memory-bound and are
-// folded into the products' prologue and epilogues here. Measured at that
-// shape in bf16: 7.18 ms, 134 TFLOP/s or 13.5% of the data-sheet peak,
-// against 7.65 ms for the unfused cuBLAS tail and 29.4 ms for the plain
-// version's fp32 products (H100 80GB HBM3, 700 W power limit): WMMA tiles
-// of 64 x 128 with one block of 256 threads are latency-bound; larger
-// tiles, deeper pipelines and wgmma are the next steps.
+// the tensor cores. bf16 runs fused_post_attention_sm90.cuh: wgmma fed by
+// TMA, LN1 in a row pass that makes y, b1 + GELU in the first product's
+// epilogue, b2 and the residual in the second's, LN2 in a row pass after
+// it (4 launches). fp32 is the parity path and
+// runs true fp32 FMA on the CUDA cores (no TF32), in the design below.
 //
-// Design. The TPU kernel keeps all 8 MB of W1 and W2 resident in VMEM;
-// Hopper gives a block at most 227 KB of shared memory, so the weights are
-// streamed in [BN x BK] tiles (from L2 after the first block touches them).
-// LN2 needs whole 1024-wide rows and a block of 64 rows of the [rows, 2048]
-// hidden activation is 256 KB in bf16, which does not fit beside the
-// tiles, so the tail is two launches, each one block per 64 rows:
+// fp32 design. The TPU kernel keeps all 8 MB of W1 and W2 resident in
+// VMEM; Hopper gives a block at most 227 KB of shared memory, so the
+// weights are streamed in [BN x BK] tiles (from L2 after the first block
+// touches them). LN2 needs whole rows, so the tail is two launches, each
+// one block per 64 rows:
 //   1. ln1_ffn1: LN1(x + attn) -> y (written once, kept for the residual),
 //      then h = gelu(y W1^T + b1), one 64x128 output tile at a time.
 //   2. ffn2_ln2: o = h W2^T + b2, s = y + o into the output rows, then LN2
 //      over those rows in place (the block re-reads what it just wrote).
-// Products: bf16 runs WMMA 16x16x16 on the tensor cores with fp32
-// accumulators; fp32 is the parity path and runs true fp32 FMA on the CUDA
-// cores (no TF32). Weights stay in nn.Linear's [out, in] layout, which is
-// the column-major B operand the tiles want. bf16 tiles stream through a
-// two-stage cp.async double buffer; the fp32 parity path loads them
-// synchronously.
+// Weights stay in nn.Linear's [out, in] layout, the column-major B operand
+// the tiles want.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
 #include "common.cuh"
 
 namespace {
@@ -56,11 +47,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int LDC = BN + 4;  // fp32 accumulator tile row stride
 
 template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> {
-  static constexpr int BK = 32;
-  static constexpr int LDS = BK + 8;  // WMMA wants ldm % 8 == 0 (16-bit)
-  static constexpr int kStages = 2;   // cp.async double buffer
-};
 template <> struct Tile<float> {
   static constexpr int BK = 16;
   static constexpr int LDS = BK + 1;  // odd stride: conflict-free columns
@@ -71,95 +57,6 @@ template <typename T>
 constexpr size_t smem_bytes() {
   return (size_t)Tile<T>::kStages * (BM + BN) * Tile<T>::LDS * sizeof(T) +
          (size_t)BM * LDC * sizeof(float);
-}
-
-// 16-byte global -> shared copy that bypasses registers; `valid` false
-// writes zeros (src-size 0 reads nothing).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// sC[BM][LDC] = A[0:BM, 0:K] . W[0:BN, 0:K]^T in fp32. A is row-major with
-// row stride K and `rows` valid rows (the rest read as 0); W is row-major
-// [out, K] already offset to the tile's first output column. sA/sB hold
-// Tile<T>::kStages buffers each.
-__device__ void gemm_tile(const __nv_bfloat16* A, int rows,
-                          const __nv_bfloat16* W, int K, __nv_bfloat16* sA,
-                          __nv_bfloat16* sB, float* sC) {
-  using namespace nvcuda;
-  constexpr int BK = Tile<__nv_bfloat16>::BK, LDS = Tile<__nv_bfloat16>::LDS;
-  const int t = threadIdx.x, warp = t / 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps, 32x32 each
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // A: 64 x 32 bf16, one 16-byte copy per thread; W: 128 x 32, two.
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* a = sA + stage * BM * LDS;
-    __nv_bfloat16* b = sB + stage * BN * LDS;
-    const int r = t / 4, c = (t % 4) * 8;
-    cp_async16(a + r * LDS + c,
-               A + (long long)min(r, rows - 1) * K + k0 + c, r < rows);
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = t + it * kThreads, rw = idx / 4, cw = (idx % 4) * 8;
-      cp_async16(b + rw * LDS + cw, W + (long long)rw * K + k0 + cw, true);
-    }
-    cp_async_commit();
-  };
-
-  const int nk = K / BK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {  // the next tile streams in while this one computes
-      load_stage(cur ^ 1, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* a = sA + cur * BM * LDS;
-    const __nv_bfloat16* b = sB + cur * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], b + (wn * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
 }
 
 __device__ void gemm_tile(const float* A, int rows, const float* W, int K,
@@ -352,6 +249,14 @@ int launch(const void* x, const void* attn, const float* g1, const float* be1,
 
 }  // namespace
 
+// fused_post_attention_sm90.cu (its own source, so that the two compile in
+// parallel): the bf16 tail, same arguments.
+extern "C" int tim_fused_post_attention_sm90(
+    const void* x, const void* attn, const void* ln1_w, const void* ln1_b,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* ln2_w, const void* ln2_b, void* y, void* h, void* out, int n,
+    int c, int ff, float eps, cudaStream_t stream);
+
 // x, attn, out, y: [N, C]; h: [N, FF] (y and h are scratch the caller
 // allocates); w1 [FF, C], w2 [C, FF] in the input dtype; biases and LN
 // params fp32. C and FF must be multiples of 128. Returns
@@ -366,9 +271,9 @@ extern "C" int tim_fused_post_attention(
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, attn, f(ln1_w), f(ln1_b), w1, f(b1), w2,
-                                 f(b2), f(ln2_w), f(ln2_b), y, h, out, n, c,
-                                 ff, eps, st);
+    return tim_fused_post_attention_sm90(x, attn, ln1_w, ln1_b, w1, b1, w2,
+                                         b2, ln2_w, ln2_b, y, h, out, n, c,
+                                         ff, eps, st);
   return launch<float>(x, attn, f(ln1_w), f(ln1_b), w1, f(b1), w2, f(b2),
                        f(ln2_w), f(ln2_b), y, h, out, n, c, ff, eps, st);
 }

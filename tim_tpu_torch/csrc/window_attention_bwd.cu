@@ -14,36 +14,81 @@
 // windows x 4 heads, N = 784, dh = 32, bf16) the gradient is 5 products of
 // 2 N^2 dh per (window, head): 403 GFLOP, 0.41 ms at 989 TFLOP/s (the
 // bytes, 0.8 GB of q/k/v/o/do/dq/dk/dv plus 19.7 MB of bias and dbias,
-// give 0.25 ms). The TPU kernel sums dab over a type's windows in a VMEM
-// block the grid revisits; Hopper blocks run in no order, and one fp32
-// atomic per score per window would be 1.26e9 atomics at that shape.
-// Instead a third pass gives each (head, 64 x 64 tile) of dbias to one
-// block, which walks the batch's windows and keeps the sum in registers
-// (2 more products a score; no atomics, the same bits every run). The
-// core is in flash_attention_bwd.cuh.
+// give 0.25 ms); the per-score work (an exponential, the bias, the region
+// compare) weighs as much at dh 32. The TPU kernel sums dab over a type's
+// windows in a VMEM block the grid revisits; Hopper blocks run in no
+// order, and one fp32 atomic per score per window would be 1.26e9 atomics
+// at that shape. The bf16 route (window_attention_bwd_sm90.cuh) is one
+// wgmma pass whose blocks each sum dbias over a group of windows in
+// shared memory; the fp32 route (CUDA cores, no TF32, three atomic-free
+// passes) is the parity path, in flash_attention_bwd.cuh.
 
 #include "flash_attention_bwd.cuh"
+#include "flash_mha_bwd_sm90.cuh"
 
-// Head dim 32, as the forward. strides: 24 element strides, (batch, head, row) for q, k, v, o, do, dq,
-// dk and dv. bias: [heads, seq, seq] fp32, contiguous; region: [n_win, seq]
-// int32 or null; dbias: [heads, seq, seq] fp32, contiguous, overwritten.
-// lse: the forward's [batch, heads, seq] fp32 row statistic; delta:
-// [batch, heads, seq] fp32 scratch. Returns the first CUDA error of the
-// launches (0 on success).
+namespace {
+
+constexpr int kDH = 32;
+
+}  // namespace
+
+// window_attention_bwd_sm90.cu (its own source, so that the two compile in
+// parallel): the bf16 route's preprocess, one-pass kernel, groups' sum and,
+// with a dq_accum, dq's postprocess.
+extern "C" int tim_window_attention_bwd_sm90(
+    const tim_attn::sm90::Params* p, cudaStream_t stream);
+
+// Head dim 32, as the forward. strides: 24 element strides, (batch, head,
+// row) for q, k, v, o, do, dq, dk and dv. bias: [heads, seq, seq] fp32,
+// contiguous; region: [n_win, seq] int32 or null; dbias: [heads, seq, seq]
+// fp32, contiguous, overwritten. lse: the forward's [batch, heads, seq]
+// fp32 row statistic; delta: [batch, heads, seq] fp32 scratch. bf16 only:
+// dq_accum [batch, heads, seq, 32] fp32 scratch (zeroed here), or null for
+// the deterministic route (dq without atomic adds); dbias_groups
+// [groups, heads, seq, seq] fp32 scratch when groups (from
+// tim_window_attention_bwd_groups) is above 1, else null. Returns the first
+// CUDA error of the launches (0 on success).
 extern "C" int tim_window_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const long long* strides,
-    const float* lse, float* delta, const float* bias, const int* region,
-    int n_win, float* dbias, int batch, int heads, int seq, int dh,
-    int is_bf16, float scale, void* stream) {
-  tim_attn::BwdParams p{};
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
-  p.dq = dq; p.dk = dk; p.dv = dv;
-  tim_attn::set_bwd_strides(p, strides);
-  p.lse = lse; p.delta = delta;
+    const float* lse, float* delta, float* dq_accum, const float* bias,
+    const int* region, int n_win, float* dbias, float* dbias_groups,
+    int groups, int batch, int heads, int seq, int dh, int is_bf16,
+    float scale, void* stream) {
+  if (dh != kDH) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  tim_attn::BwdParams bp{};
+  bp.q = q; bp.k = k; bp.v = v; bp.o = o; bp.dout = dout;
+  bp.dq = dq; bp.dk = dk; bp.dv = dv;
+  tim_attn::set_bwd_strides(bp, strides);
+  bp.lse = lse; bp.delta = delta;
+  bp.batch = batch; bp.heads = heads; bp.seq = seq; bp.scale = scale;
+  bp.bias = bias; bp.region = region; bp.n_win = n_win > 0 ? n_win : 1;
+  bp.dbias = dbias;
+  if (!is_bf16) return tim_attn::launch_bwd_f32<kDH, true>(bp, st);
+
+  if (groups < 1 || (groups > 1 && dbias_groups == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  tim_attn::sm90::Params p{};
+  p.q = static_cast<const bf*>(q); p.k = static_cast<const bf*>(k);
+  p.v = static_cast<const bf*>(v); p.o = static_cast<const bf*>(o);
+  p.dout = static_cast<const bf*>(dout);
+  p.dq = static_cast<bf*>(dq); p.dk = static_cast<bf*>(dk);
+  p.dv = static_cast<bf*>(dv);
+  p.sq = bp.sq; p.sk = bp.sk; p.sv = bp.sv; p.so = bp.so;
+  p.sdo = bp.sdo; p.sdq = bp.sdq; p.sdk = bp.sdk; p.sdv = bp.sdv;
+  p.lse = lse; p.delta = delta; p.dq_accum = dq_accum;
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
-  p.bias = bias; p.region = region; p.n_win = n_win > 0 ? n_win : 1;
-  p.dbias = dbias;
-  return tim_attn::launch_bwd<32, true>(p, dh, is_bf16 != 0,
-                                    static_cast<cudaStream_t>(stream));
+  p.bias = bias; p.region = region; p.n_win = bp.n_win; p.dbias = dbias;
+  p.dbias_groups = dbias_groups; p.groups = groups;
+  const int err = tim_window_attention_bwd_sm90(&p, st);
+  if (err != 0 || dq_accum != nullptr) return err;
+  // the deterministic route's dq: the atomic-free pass of
+  // flash_attention_bwd.cuh (one block per 64 queries walks the key tiles),
+  // reading the D the preprocess wrote
+  const long long blocks = (long long)batch * heads * ((seq + 63) / 64);
+  return tim_attn::launch_smem(tim_attn::dq_bf16_kernel<kDH, true>, blocks,
+                               tim_attn::dq_smem_bytes<kDH, true>(), st, bp);
 }

@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tim_tpu_torch.ops.bias_act import bias_act
+from tim_tpu_torch.ops.bias_act import bias_act, gelu_bf16
 from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
 from tim_tpu_torch.ops.int8_matmul_fused import int8_matmul_fused
 from tim_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
@@ -34,8 +34,34 @@ def dtype_of(cfg) -> torch.dtype:
                          f"{sorted(_DTYPES)}") from None
 
 
+class _GeluBf16(torch.autograd.Function):
+    """``gelu_bf16`` forward; the backward is ``aten.gelu_backward`` on the
+    kept input, as the bf16 linears' GELU takes on the card. (JAX's bf16
+    backward rounds stepwise too; the bf16 training gradients are held to
+    their fp32 counterparts within a tolerance, not bit for bit.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type != "cuda":
+            return gelu_bf16(x)
+        # on the card one pass of the bias epilogue kernel, without a bias
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        return bias_act(x2, None, gelu=True)[0].view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x, approximate="none")
+
+
 def exact_gelu(x):
-    """erf-form GELU (torch's default; JAX's default is the tanh form)."""
+    """erf-form GELU (torch's default; JAX's default is the tanh form). In
+    bf16 it rounds at ``jax.nn.gelu``'s steps (``ops/bias_act.py::
+    gelu_bf16``); in fp32 it is ``F.gelu``, which agrees with JAX's fp32
+    form to ~1e-7."""
+    if x.dtype == torch.bfloat16:
+        return _GeluBf16.apply(x)
     return F.gelu(x, approximate="none")
 
 
@@ -51,8 +77,10 @@ class _LinearF32Bias(torch.autograd.Function):
     """TORCH_LINEAR on the card: bf16 x [M, K] and w [N, K] into an fp32
     GEMM output (``torch.mm`` with ``out_dtype``), then the bias epilogue
     kernel (``ops/bias_act.py``): bf16(y + bias), and an exact GELU after
-    it with ``gelu``. The gradients are the plain route's: through the
-    GELU from the kept pre-activation, dx and dw from the bf16 output
+    it with ``gelu`` (in ``jax.nn.gelu``'s bf16 steps). The gradients are
+    the plain route's: through the GELU from the kept pre-activation
+    (``aten.gelu_backward``, fp32 math; JAX's backward rounds stepwise,
+    and the bf16 gradients are gated against fp32, not bit for bit), dx and dw from the bf16 output
     gradient, db summed in fp32 (no fp32 copy of the gradient)."""
 
     @staticmethod

@@ -15,7 +15,15 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from tim_tpu_torch.models.common import TORCH_LINEAR, LayerNorm, TorchLinear
+from tim_tpu_torch.models.common import (
+    TORCH_LINEAR, LayerNorm, TorchLinear, exact_gelu)
+
+
+class ExactGelu(nn.Module):
+    """``exact_gelu`` as a parameter-free module (bf16: JAX's rounding)."""
+
+    def forward(self, x):
+        return exact_gelu(x)
 
 
 class FeatureEmbedder(nn.Sequential):
@@ -28,7 +36,7 @@ class FeatureEmbedder(nn.Sequential):
             nn.Identity(),
             TorchLinear(in_dim, d_model, dtype=dtype, generator=generator,
                         rounding=TORCH_LINEAR),
-            nn.GELU(approximate="none"),
+            ExactGelu(),
             LayerNorm(d_model))
         self.dtype = dtype
 

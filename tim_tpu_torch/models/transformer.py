@@ -117,7 +117,10 @@ class EncoderLayer(nn.Module):
                 self.linear2.weight, self.linear2.bias,
                 self.norm2.weight, self.norm2.bias)
         x = self.norm1(x + attn).to(self.dtype)
-        h = self.linear2(exact_gelu(self.linear1(x)))
+        if isinstance(self.linear1, Int8Dense):
+            h = self.linear2(exact_gelu(self.linear1(x)))
+        else:   # the GELU in the linear's bias pass (JAX: TorchLinear, gelu)
+            h = self.linear2(self.linear1(x, gelu=True))
         return self.norm2(x + h).to(self.dtype)
 
 

@@ -25,6 +25,7 @@ from tim_tpu_torch import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _TILE = 128   # C and FF must be multiples of the kernel's output tile
+_MAX_BF16_C = 2048
 EPS = 1e-5
 # tim_fused_post_attention(10 inputs, y, h, out, n, c, ff, bf16, eps,
 # stream)
@@ -79,6 +80,10 @@ def _check(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2, ln2_weight,
     if c % _TILE or ff % _TILE:
         raise ValueError(f"fused_post_attention: C={c} and FF={ff} must be "
                          f"multiples of {_TILE}")
+    if x.dtype == torch.bfloat16 and c > _MAX_BF16_C:
+        raise ValueError(f"fused_post_attention: bf16 rows of at most "
+                         f"{_MAX_BF16_C} channels (its LayerNorm passes keep "
+                         f"a row in registers), got C={c}")
     for name, t, n in (("ln1_weight", ln1_weight, c), ("ln1_bias", ln1_bias, c),
                        ("b1", b1, ff), ("b2", b2, c),
                        ("ln2_weight", ln2_weight, c), ("ln2_bias", ln2_bias, c)):
@@ -131,6 +136,7 @@ def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
     return out
 
 
-# Number of calls that launched the kernels (two launches each: LN1+FFN1
-# and FFN2+LN2); the plain CPU version does not count.
+# Number of calls that launched the kernels (bf16: four launches each, the
+# LN1 pass, the two products, the LN2 pass; fp32: two); the plain CPU
+# version does not count.
 fused_post_attention.launches = 0

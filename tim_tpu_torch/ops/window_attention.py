@@ -44,10 +44,14 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 # tim_window_attention_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
-# bias, region_ids, n_win, dbias, bw, h, n, dh, bf16, scale, stream)
+# dq_accum, bias, region_ids, n_win, dbias, dbias_groups, groups, bw, h, n,
+# dh, bf16, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_void_p])
+# tim_window_attention_bwd_groups(bw, h, n)
+_GROUPS_ARGTYPES = [ctypes.c_int] * 3
 
 
 def region_mask(region_ids):
@@ -147,6 +151,19 @@ def window_attention_with_lse(q, k, v, bias, region_ids=None, *,
     return _launch_fwd(q, k, v, bias, region_ids, sm_scale, lse), lse
 
 
+def bwd_groups(bw: int, h: int, n: int) -> int:
+    """The number of window groups the bf16 backward kernel sums dbias over
+    for [bw, h, n] on the current card: each group's blocks keep their own
+    partial sum, and more than one group adds a [groups, h, n, n] fp32
+    scratch summed by a short pass."""
+    groups = _build.launcher("tim_window_attention_bwd_groups",
+                             _GROUPS_ARGTYPES)(bw, h, n)
+    if groups < 1:
+        raise RuntimeError("window_attention_bwd: no device to size the "
+                           "window groups for")
+    return groups
+
+
 def window_attention_bwd(q, k, v, bias, region_ids, out, lse, do, *,
                          sm_scale: float, grads=None):
     """(dq, dk, dv, dbias) of ``window_attention`` for the output gradient
@@ -154,7 +171,11 @@ def window_attention_bwd(q, k, v, bias, region_ids, out, lse, do, *,
     [BW, H, N] fp32; dbias [H, N, N] fp32 sums over every window. CUDA
     tensors launch the backward kernel (dq/dk/dv written into ``grads``
     when given, else into views of one packed [BW, N, 3, H, dh] buffer) or
-    raise; CPU tensors take ``window_attention_bwd_plain``."""
+    raise; CPU tensors take ``window_attention_bwd_plain``. In bf16 dq is
+    summed over key blocks with fp32 atomics, so its last bits may change
+    from run to run (dk, dv, dbias do not); under
+    ``torch.use_deterministic_algorithms(True)`` dq comes instead from an
+    atomic-free pass over the key tiles. fp32 is atomic-free either way."""
     if q.device.type == "cpu":
         return window_attention_bwd_plain(q, k, v, bias, region_ids, do,
                                           sm_scale=sm_scale)
@@ -167,13 +188,25 @@ def window_attention_bwd(q, k, v, bias, region_ids, out, lse, do, *,
     check_qkv("window_attention_bwd", *grads, HEAD_DIM)
     do, strides = bwd_args(q, k, v, out, do, grads)
     bw, h, n, dh = q.shape
+    bf16 = q.dtype == torch.bfloat16
     dbias = torch.empty_like(bias)
     delta = torch.empty_like(lse)
+    # bf16: dq's fp32 sum over key blocks (zeroed by the kernel's
+    # preprocess), none on the deterministic route; dbias's partial sums of
+    # each window group when there is more than one group
+    atomic_dq = bf16 and not torch.are_deterministic_algorithms_enabled()
+    dq_accum = (torch.empty((bw, h, n, dh), dtype=torch.float32,
+                            device=q.device) if atomic_dq else None)
+    groups = bwd_groups(bw, h, n) if bf16 else 1
+    dbias_groups = (torch.empty((groups, h, n, n), dtype=torch.float32,
+                                device=q.device) if groups > 1 else None)
     fn = _build.launcher("tim_window_attention_bwd", _BWD_ARGTYPES)
     status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
-                strides, lse.data_ptr(), delta.data_ptr(), bias.data_ptr(),
-                *_region_args(region_ids), dbias.data_ptr(), bw, h, n, dh,
-                int(q.dtype == torch.bfloat16), float(sm_scale),
+                strides, lse.data_ptr(), delta.data_ptr(),
+                None if dq_accum is None else dq_accum.data_ptr(),
+                bias.data_ptr(), *_region_args(region_ids), dbias.data_ptr(),
+                None if dbias_groups is None else dbias_groups.data_ptr(),
+                groups, bw, h, n, dh, int(bf16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "window_attention_bwd")
     window_attention_bwd.launches += 1
