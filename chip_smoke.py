@@ -691,7 +691,10 @@ def phase_kernels():
 
 def phase_kernel_int8(gen):
     """Kernel 3 against its plain version, then timed at both serving
-    heads (fc_action N 3806, fc_audio N 44; 128 windows x 399 queries)."""
+    heads (fc_action N 3806, fc_audio N 44; 128 windows x 399 queries)
+    beside the library route, its bare product (``torch._int_mm`` of
+    pre-quantized rows, N padded to a multiple of 8) and a bf16
+    ``F.linear``."""
     from tim_tpu_torch.ops import int8_matmul_fused as i8
 
     worst, cases_run = 0.0, 0
@@ -745,20 +748,27 @@ def phase_kernel_int8(gen):
         w_pad = F.pad(w_q, (0, 0, 0, -n % 8))
         w_bf16 = (w_q.float() * w_scale[:, None]).to(torch.bfloat16)
         b_bf16 = b.to(torch.bfloat16)
+        inv_sx = i8._scales(sx)[0]
+        xq = torch.clamp(torch.round(x.reshape(m, 1024).float() * inv_sx),
+                         -127, 127).to(torch.int8)
         row = {
             "head": head, "m": m, "k": 1024, "n": n, "max_abs_err": err,
             "ms": cuda_ms(lambda: i8.int8_matmul_fused(*args)),
             "plain_ms": cuda_ms(lambda: i8.int8_matmul_fused_plain(*args)),
             "library_ms": cuda_ms(lambda: int8_library_route(
                 x, w_pad, w_scale, sx, b, n)),
+            "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, w_pad.t())),
             "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w_bf16, b_bf16)),
             "bound_ms": ms_bound, "bound_by": by}
         log(f"[kernels] int8_matmul_fused {head} [{m} x 1024] -> {n} bf16: "
             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"library route (quantize + _int_mm + epilogue) "
-            f"{row['library_ms']:.4f} ms, bf16 F.linear "
-            f"{row['bf16_linear_ms']:.4f} ms, bound {ms_bound:.4f} ms ({by})"
-            f", max_abs_err={err:.3e}")
+            f"{row['library_ms']:.4f} ms, its bare product (_int_mm, N "
+            f"{n + -n % 8}) {row['int_mm_ms']:.4f} ms, bf16 F.linear "
+            f"{row['bf16_linear_ms']:.4f} ms, bound {ms_bound:.4f} ms ({by}, "
+            f"{100 * ms_bound / row['ms']:.1f}% of it reached), "
+            f"max_abs_err={err:.3e}")
+        del xq
         shapes.append(row)
         del args
     del seq
@@ -2217,8 +2227,8 @@ def usable_cpus() -> int:
 
 def phase_build():
     """Phase 2: the library built from ``tim_tpu_torch/csrc``; logs each
-    source's compile seconds and, per attention kernel, the registers and
-    spill bytes ``ptxas`` reported."""
+    source's compile seconds and, per attention, tail and int8 kernel, the
+    registers and spill bytes ``ptxas`` reported."""
     from tim_tpu_torch import _build
     lib = _build.build()
     _build.library()
@@ -2233,7 +2243,8 @@ def phase_build():
         if len(filt.stdout.splitlines()) == len(names):
             pretty = filt.stdout.splitlines()
     for (name, regs, st, ld), nice in zip(kernels, pretty):
-        if "tim_attn" in name or "tim_qba" in name or "tim_fpa" in name:
+        if any(ns in name for ns in ("tim_attn", "tim_qba", "tim_fpa",
+                                     "tim_i8")):
             log(f"[build] ptxas: {nice}: {regs} registers, spill stores "
                 f"{st} B, spill loads {ld} B")
     return lib

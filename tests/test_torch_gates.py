@@ -6,9 +6,9 @@ interpret mode at the context widths the kernel walks in 64-key chunks
 passes the kernel's arithmetic, emulated here, and rejects the two faulty
 controls; the wrapper refuses rows the kernel's 16-byte copies cannot
 read. The kernel itself runs on the card only (tests/test_torch_gpu.py).
-Also: each cut ``tim_tpu_torch.ablate`` times kernel 5b, or the forward
-core of kernels 4 and 5, with still finds its span in the kernel's
-source."""
+Also: each cut ``tim_tpu_torch.ablate`` times kernel 5b, the forward
+core of kernels 4 and 5, kernel 4b, kernel 2 or kernel 3 with still finds
+its span in the kernel's source."""
 
 import os
 
@@ -146,11 +146,14 @@ def test_forward_ablation_cuts_find_their_spans(name):
       for name in sorted(ablate.WINDOW_BWD_CUTS)),
     *((ablate.TAIL_HEADER, "TAIL_CUTS", name)
       for name in sorted(ablate.TAIL_CUTS)),
+    *((ablate.INT8_SOURCE, "INT8_CUTS", name)
+      for name in sorted(ablate.INT8_CUTS)),
 ])
 def test_backward_and_tail_ablation_cuts_find_their_spans(header, cuts,
                                                           name):
-    """Each part the ablation removes from kernel 4b's bf16 backward or
-    kernel 2's bf16 tail is found there once, and removing it shortens the
+    """Each part the ablation removes from kernel 4b's bf16 backward,
+    kernel 2's bf16 tail or kernel 3 (the quantize, the epilogue's stores,
+    the GELU, the bias) is found there once, and removing it shortens the
     source."""
     with open(os.path.join(_build._CSRC, header)) as f:
         text = f.read()

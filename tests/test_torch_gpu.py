@@ -169,6 +169,51 @@ def test_int8_kernel_matches_plain(gen, dtype, bias, activation, b, n, rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [8, 48, 256, 264, 3806])
+@pytest.mark.parametrize("rows", [1, 63, 65, 399])
+def test_int8_kernel_tile_edges(gen, dtype, n, rows):
+    """N on both tile widths (48 for N <= 48, else 112) and past their
+    edges; 3 windows of 1 to 399 rows of a strided [3, 898, 1024] view, so
+    that M tiles of 128 rows cross window boundaries and end ragged; bias
+    and GELU where n is even. One launch a call."""
+    x, w_q, w_scale, sx, bias_t = int8_head_args(3, n, dtype, gen,
+                                                 rows=(5, 5 + rows))
+    act = "gelu" if n % 2 == 0 else None
+    before = int8_matmul_fused.launches
+    got = int8_matmul_fused(x, w_q, w_scale, sx, bias_t, act,
+                            out_dtype=dtype)
+    assert int8_matmul_fused.launches == before + 1
+    assert got.shape == (3, rows, n) and got.is_contiguous()
+    assert int8_close(got, int8_matmul_fused_plain(
+        x, w_q, w_scale, sx, bias_t, act, out_dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [
+    (16, 300),     # a k32 step half filled with zeros
+    (48, 44),      # the same on the narrow tile
+    (1040, 300),   # past 1024: 64-row M tiles
+    (2048, 37),    # the longest rows the tile takes; odd N, single stores
+])
+def test_int8_kernel_k_tails(gen, dtype, k, n):
+    x, w_q, w_scale, sx, bias_t = int8_head_args(2, n, dtype, gen,
+                                                 rows=(10, 140), k=k)
+    got = int8_matmul_fused(x, w_q, w_scale, sx, bias_t, out_dtype=dtype)
+    assert int8_close(got, int8_matmul_fused_plain(
+        x, w_q, w_scale, sx, bias_t, out_dtype=dtype))
+
+
+@pytest.mark.gpu
+def test_int8_kernel_rejects_rows_past_its_tile(gen):
+    x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen,
+                                            k=2064)
+    with pytest.raises(ValueError, match="up to 2048"):
+        int8_matmul_fused(x, w_q, w_scale, sx, b)
+
+
+@pytest.mark.gpu
 def test_int8_kernel_rejects_unaligned_k(gen):
     x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen, k=40)
     with pytest.raises(ValueError, match="multiple of 16"):

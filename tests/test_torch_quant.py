@@ -146,6 +146,66 @@ def test_fused_plain_matches_pallas(out_dtype, bias, activation):
                                atol=tol)
 
 
+def _quantize_edge_rows(m, k, sx, seed):
+    """[m, k] fp32 rows at kernel 3's quantize edges for the scale sx (a
+    power of two, so x / sx is exact): values that land on j + 0.5 (round
+    half to even), on both sides of +-127.5 and far past it (saturation),
+    and normal values between."""
+    rng = _rng(seed)
+    halves = (rng.integers(-140, 140, size=(m, k)) + 0.5) * sx
+    normal = rng.normal(size=(m, k)) * 40 * sx
+    x = np.where(rng.random((m, k)) < 0.5, halves, normal)
+    x[0, : min(k, 6)] = np.array([126.5, 127.5, 128.5, -127.5, -128.5,
+                                  1e4])[: min(k, 6)] * sx
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,n", [(16, 44), (48, 44), (16, 3806),
+                                 (48, 3806)])
+def test_fused_plain_quantize_edges_match_pallas(out_dtype, k, n):
+    """Kernel 3's quantization at its edges, the plain version against the
+    Pallas kernel in interpret mode: half-integer multiples of s_x (round
+    half to even), values past +-127 s_x (saturation to +-127), K 16 and 48
+    (the card's k32 steps half filled with zeros), N 44 (fc_audio) and 3806
+    (fc_action). The int8 sums are exact on both sides; a value rounded the
+    other way moves an output by s_x * w_scale * |w_q|, far past the
+    tolerance."""
+    _, w_q, scale, tw, tscale = _weights(k, n, seed=k + n)
+    sx = 2.0 ** -4
+    x = _quantize_edge_rows(21, k, sx, seed=k)
+    b = (_rng(7).normal(size=n) * 0.1).astype(np.float32)
+    want = jax_int8_fused(
+        jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale), sx,
+        bias=jnp.asarray(b), block_m=16, out_dtype=jnp.dtype(out_dtype),
+        interpret=True)
+    tdt = getattr(torch, out_dtype)
+    got = int8_matmul_fused(torch.from_numpy(x), tw, tscale, sx,
+                            torch.from_numpy(b), out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == want.shape
+    tol = {"float32": 1e-6, "bfloat16": 1e-2}[out_dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("k,ok", [(2048, True), (2064, False), (40, False)])
+def test_fused_check_takes_the_kernels_k(k, ok):
+    """The card's kernel keeps a tile of quantized rows in shared memory:
+    its wrapper takes K a multiple of 16 up to 2048 and refuses the rest
+    (checked here on CPU tensors, which themselves take the plain
+    version)."""
+    from tim_tpu_torch.ops import int8_matmul_fused as i8
+    x = torch.zeros(2, 5, k)
+    w_q = torch.zeros(24, k, dtype=torch.int8)
+    args = (x, w_q, torch.ones(24), None, None, torch.bfloat16)
+    if ok:
+        i8._check(*args)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16 up to 2048"):
+            i8._check(*args)
+
+
 def test_fused_reads_strided_views():
     """A [B, rows, K] slice of a wider sequence (the heads' query rows)
     gives what its contiguous copy gives."""

@@ -1,7 +1,7 @@
 """Where the bf16 kernels' time goes: each kernel timed with one part of
 its loop removed at a time, on the CUDA card.
 
-    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|all]
+    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|3|all]
 
 - 5b, the flash-attention backward (``csrc/flash_mha_bwd_sm90.cuh``), at
   ViT-L's shape [8, 16, 1568, 64], beside the backward of
@@ -18,7 +18,13 @@ its loop removed at a time, on the CUDA card.
   backward of ``scaled_dot_product_attention``;
 - 2, the post-attention tail (``csrc/fused_post_attention_sm90.cuh``) at
   [128 x 898, 1024, 2048], beside its two bare products through
-  ``torch.matmul``.
+  ``torch.matmul``;
+- 3, the fused int8 matmul (``csrc/int8_matmul_fused.cuh``) at the class
+  head fc_action ([128 x 399, 1024] bf16 rows of the [128, 898, 1024]
+  encoder output -> 3806) with bias, each variant with GELU (so that
+  every part is there to cut) and as the serving call (no GELU), beside
+  the bare int8 product ``torch._int_mm`` of pre-quantized rows (N
+  padded to 3808).
 
 Each variant is the kernel's source with one text span cut out (so its
 outputs are wrong: it measures time only), compiled with the same nvcc flags as the library, all variants in
@@ -128,6 +134,21 @@ TAIL_CUTS = {
                                      "namespace tim_fpa", "  return 0;"),
     "first product (second alone)": ("  EpiParams e1{", "  EpiParams e2{",
                                      ""),
+}
+
+INT8_SOURCE = "int8_matmul_fused.cuh"
+# kernel 3's variants
+INT8_CUTS = {
+    "quantize (x loads and quantize)": (
+        "    if (a.x_bf16)\n      fill_tile<", "    sm90::fence_async_smem();",
+        ""),
+    "epilogue stores": (
+        "        if (a.out_bf16)\n          store_pair(",
+        "\n      }\n    }\n    __syncwarp();\n  }\n}",
+        '        asm volatile("" ::"f"(y0), "f"(y1), "l"(at));'),
+    "GELU": ("  if constexpr (GELU) y = gelu_erf(y);\n", "  return y;", ""),
+    "bias": ("  if (a.bias) y = __fadd_rn(y, b);\n", "  if constexpr (GELU)",
+             ""),
 }
 
 
@@ -388,11 +409,49 @@ def ablate_2(libs, gen):
     return {"shape": [n, c, ff], "ms": in_turns(calls)}
 
 
+def ablate_3(libs, gen):
+    """fc_action at 128 windows, bf16, with bias, each variant with GELU
+    (every part there to cut) and as the serving call (no GELU); beside
+    ``torch._int_mm``."""
+    from tim_tpu_torch.ops import int8_matmul_fused as i8
+    seq = torch.randn(128, 898, 1024, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = seq[:, 100:499]
+    n = 3806
+    w_q = torch.randint(-127, 128, (n, 1024), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    w_scale = (0.5 + torch.rand(n, generator=gen, device="cuda")) * 3e-4
+    b = torch.randn(n, generator=gen, device="cuda") * 0.1
+    act_scale = x.float().abs().amax().item() / 127.0
+    inv_sx, sx = i8._scales(act_scale)
+    out = torch.empty((128, 399, n), dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(fn, gelu):
+        _build.check(fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                        b.data_ptr(), out.data_ptr(), x.stride(0),
+                        x.stride(1), 128, 399, 1024, n, inv_sx, sx, gelu, 1,
+                        1, stream), "int8_matmul_fused variant")
+
+    calls = {}
+    for name, lib in libs.items():
+        fn = ctypes.CDLL(lib).tim_int8_matmul_fused
+        fn.argtypes = i8._ARGTYPES
+        for launch, gelu in (("with GELU", 1), ("serving call", 0)):
+            calls[f"{name}, {launch}"] = (
+                lambda f, g: lambda: call(f, g))(fn, gelu)
+    xq = torch.clamp(torch.round(x.reshape(-1, 1024).float() * inv_sx),
+                     -127, 127).to(torch.int8)
+    w_pad = F.pad(w_q, (0, 0, 0, -n % 8))
+    calls["torch._int_mm, pre-quantized x"] = (
+        lambda: torch._int_mm(xq, w_pad.t()))
+    return {"shape": [128 * 399, 1024, n], "ms": in_turns(calls)}
+
+
 def report(name, result):
     ms = result["ms"]
-    full = {launch: sum(ms[f"full kernel, {launch}"]) / 2
-            for launch in ("inference", "lse")
-            if f"full kernel, {launch}" in ms}
+    full = {key.split(", ", 1)[1]: sum(times) / 2
+            for key, times in ms.items() if key.startswith("full kernel, ")}
     if "full kernel" in ms:
         full[None] = sum(ms["full kernel"]) / 2
     for variant, times in ms.items():
@@ -407,7 +466,7 @@ def report(name, result):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--kernel", choices=("5b", "5", "4", "forward",
-                                             "4b", "2", "all"),
+                                             "4b", "2", "3", "all"),
                         default="all")
     which = parser.parse_args(argv).kernel
     if not torch.cuda.is_available():
@@ -429,6 +488,9 @@ def main(argv=None) -> int:
                      variants(TAIL_HEADER, TAIL_CUTS),
                      ["fused_post_attention.cu",
                       "fused_post_attention_sm90.cu"])
+    if which in ("3", "all"):
+        jobs["3"] = (INT8_SOURCE, variants(INT8_SOURCE, INT8_CUTS),
+                     ["int8_matmul_fused.cu", "int8_matmul_fused_gelu.cu"])
     work = tempfile.mkdtemp()
     try:
         tasks = [(job, name, header, text, sources)
@@ -453,6 +515,8 @@ def main(argv=None) -> int:
                 results[f"4b {stage}"] = res
         if "2" in jobs:
             results["2"] = ablate_2(libs["2"], gen)
+        if "3" in jobs:
+            results["3"] = ablate_3(libs["3"], gen)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -117,6 +117,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// a box of a 2-d tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // Byte offset of 16-byte chunk c of row r in a swizzled [rows][DH] tile:
 // address bits [4, 7) ^= [7, 10) for 128-byte rows, [4, 6) ^= [7, 9) for
 // 64-byte rows.
@@ -530,6 +541,27 @@ inline EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(ptr);
   }();
   return fn;
+}
+
+// The TMA map of a row-major [rows, cols] matrix of `type` (elem_bytes
+// each, rows contiguous, 16-byte aligned), boxes of box_rows rows x 128
+// bytes in the 128-byte swizzle: the K-major GEMM operand tiles of kernels
+// 2 and 3. Rows and columns past the end read as zeros. Returns a CUDA
+// error code.
+inline int row_major_map(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* base, long long rows, long long cols,
+                         int elem_bytes, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)(cols * elem_bytes)};
+  cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The TMA map of a [batch, heads, seq, DH] bf16 view with element strides

@@ -57,6 +57,7 @@ using tim_attn::fwd90::mbar_arrive;
 using tim_attn::fwd90::mbar_expect_tx;
 using tim_attn::fwd90::mbar_init;
 using tim_attn::fwd90::mbar_wait;
+using tim_attn::fwd90::tma_load_2d;
 
 // output tiles of 128 x 256: two m64n128 products a consumer a k-step
 constexpr int kBM = 128, kBN = 256, kBK = 64;
@@ -88,16 +89,6 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
 }
 
 // The epilogue EPI of a consumer thread's accumulators for the output
@@ -342,18 +333,8 @@ inline int launch_ln_rows(const __nv_bfloat16* a, const __nv_bfloat16* b,
 inline int tile_map(CUtensorMap* map, const void* base, long long rows,
                     int cols) {
   // boxes of 128 rows (a 256-row B tile is two of them)
-  const auto encode = tim_attn::fwd90::encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  cuuint32_t box[2] = {kBK, kBM};
-  cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return tim_attn::fwd90::row_major_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                        base, rows, cols, 2, kBM);
 }
 
 constexpr int kMaxDevices = 64;

@@ -9,10 +9,11 @@ int32: the rounding points of the TPU kernel body, which multiplies by the
 reciprocal where ``ops.quant.int8_matmul_static`` divides by s_x (the two
 can round a value near .5 to neighbouring integers).
 
-``int8_matmul_fused`` launches the CUDA kernel (``csrc/int8_matmul_fused.cu``)
-for CUDA tensors and runs ``int8_matmul_fused_plain`` for CPU tensors.
-Weights come in the port's [N, K] layout (the TPU kernel's [K, N]
-transposed).
+``int8_matmul_fused`` launches the CUDA kernel (``csrc/int8_matmul_fused.cu``:
+wgmma s8 products against a tile of quantized rows kept in shared memory,
+so K is at most 2048) for CUDA tensors and runs ``int8_matmul_fused_plain``
+for CPU tensors. Weights come in the port's [N, K] layout (the TPU
+kernel's [K, N] transposed).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ _IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _ACTIVATIONS = (None, "gelu")
 _ALIGN = 8     # x's row strides, in elements, must be multiples of this
+# the kernel keeps a tile of quantized rows (128 rows of up to 1024, or 64
+# of up to 2048 values) in shared memory
+_MAX_K = 2048
 # tim_int8_matmul_fused(x, w_q, w_scale, bias, out, sb, sr, batches, rows,
 # k, n, inv_sx, sx, gelu, x_bf16, out_bf16, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
@@ -96,12 +100,13 @@ def _check(x, w_q, w_scale, bias, activation, out_dtype):
             raise ValueError(f"int8_matmul_fused: {name} on {t.device}, x "
                              f"on {x.device}")
     _, _, sb, sr = _row_view(x)
-    if (x.stride(-1) != 1 or k % 16 or sb % _ALIGN or sr % _ALIGN
-            or x.data_ptr() % 16):
+    if (x.stride(-1) != 1 or k % 16 or k > _MAX_K or sb % _ALIGN
+            or sr % _ALIGN or x.data_ptr() % 16):
         raise ValueError(
             f"int8_matmul_fused: x needs a contiguous last dim, K a "
-            f"multiple of 16, row strides that are multiples of {_ALIGN} "
-            f"and a 16-byte aligned start (K={k}, strides {x.stride()})")
+            f"multiple of 16 up to {_MAX_K}, row strides that are multiples "
+            f"of {_ALIGN} and a 16-byte aligned start (K={k}, strides "
+            f"{x.stride()})")
 
 
 def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
