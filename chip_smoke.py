@@ -85,7 +85,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      kernel 4 or 5 and 24 of its backward per step, nothing else;
  15. MAE pretraining: ``BackbonePretrainRunner`` over ``PretrainVideoMAE``
      (ViT-L encoder, 512 x 12 decoder) in bf16, batch 8, mask 0.9: 36
-     launches of kernel 5 and 36 of its backward per step.
+     launches of kernel 5 and 36 of its backward per step;
+ 16. TIM detection training at the full width of ``epic_detection``
+     (S = 898, 3806 + 44 classes), on synthetic splits of 484 windows
+     built from numpy (real feature widths, two augmentation sets):
+     a. one fp32 train step of the model cut to 2 encoder layers (every
+        dropout rate 0, drloc 0.3) on 2 windows, card vs CPU with the same
+        draws: losses and metrics within 1e-4 relative, every parameter
+        gradient within 1e-3 of its largest value, the normaliser;
+     b. ``DetectionRunner.train_epoch`` on the banked path, bf16, batch
+        64, every dropout on: 2 warm-up and 5 timed steps (ms a step,
+        device and wall windows/s, peak memory); finite losses and
+        gradient norms, every parameter moved, the normaliser moved off
+        250, kernels 1 and 2 never launched, the bias epilogue steady;
+     c. ``validate`` of those weights in bf16 on the banked and the host
+        path and in fp32: kernel 1 six times a batch, kernel 2 never;
+        the paths within 1e-3, bf16 vs fp32 within 2e-2 relative;
+     d. the state saved, ``resume``d into a fresh runner (step,
+        normaliser, optimizer state and parameters equal), one more step
+        from both: parameters within 1e-5 of each tensor's largest.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -2210,6 +2228,413 @@ def phase_training(gen):
     return report, by_path
 
 
+# Phase 16: TIM detection training and validation, EPIC-KITCHENS-100
+# detection at full width (d_model 512, encoder 1024, 8 heads, FFN 2048,
+# 3806 + 44 classes, 2 x 399 queries, S = 898), bf16, batch 64.
+DET_BATCH, DET_WARMUP, DET_STEPS = 64, 2, 5
+DET_METRIC_RTOL = 1e-4     # fp32 slice, card vs CPU: losses and metrics
+DET_VAL_PATHS_RTOL = 1e-3  # bf16 validation, host vs banked path
+DET_VAL_BF16_RTOL = 2e-2   # bf16 vs fp32 validation losses, same weights
+DET_RESUME_TOL = 1e-5      # resumed vs uninterrupted step, of each largest
+
+
+def det_split(cfg, videos, rng, *, seconds=150.0, num_aug=2):
+    """A synthetic detection split built from numpy alone (no pandas):
+    ``videos`` videos of ``seconds`` s, a 1 s feature every 0.2 s (``num_aug``
+    augmentation sets, real widths), 30 s windows at a 1 s stride (feature
+    stride 3), 40 actions a video of 1-8 s; a window's GT are the actions
+    fully inside it. Returns a ``DetectionDataset`` (121 windows a video)."""
+    from tim_tpu_torch.data.dataset import DetectionDataset, FeatureStore
+    from tim_tpu_torch.data.windows import (
+        Window, WindowSet, window_feat_indices)
+    size, gap, stride = 30.0, 0.2, 3
+    feats = {"v": {}, "a": {}}
+    times, windows = {}, []
+    max_v = max_a = 0
+    for i in range(videos):
+        vid = f"P{i:02d}_{i:02d}"
+        starts = np.arange(0.0, seconds - 1.0, gap, dtype=np.float32)
+        times[vid] = np.stack([starts, starts + 1.0], -1)
+        for m, dim in (("v", cfg.visual_input_dim),
+                       ("a", cfg.audio_input_dim)):
+            feats[m][vid] = rng.standard_normal(
+                (len(starts), num_aug, dim), dtype=np.float32)
+        acts = []
+        for audio in (False, True):
+            start = rng.uniform(0.0, seconds - 8.0, 40)
+            stop = start + rng.uniform(1.0, 8.0, 40)
+            labels = np.stack([
+                rng.integers(0, 97, 40), rng.integers(0, 300, 40),
+                rng.integers(0, cfg.visual_classes[-1], 40),
+                rng.integers(0, cfg.audio_classes, 40)], -1)
+            labels[:, 3 if not audio else slice(0, 3)] = -1
+            acts.append((np.stack([start, stop], -1).astype(np.float32),
+                         labels))
+        for w in range(int(seconds - size) + 1):
+            lo, hi = float(w), float(w) + size
+            win = Window(video_id=vid, start_sec=lo, stop_sec=hi,
+                         feat_indices=window_feat_indices(
+                             times[vid], lo, hi, stride, cfg.num_feats))
+            (vq, vl), (aq, al) = [
+                (q[(q[:, 0] >= lo) & (q[:, 1] <= hi)],
+                 lab[(q[:, 0] >= lo) & (q[:, 1] <= hi)]) for q, lab in acts]
+            win.v_queries, win.v_labels = vq, vl
+            win.a_queries, win.a_labels = aq, al
+            max_v, max_a = max(max_v, len(vq)), max(max_a, len(aq))
+            windows.append(win)
+    ws = WindowSet(windows=windows, max_visual_actions=max_v,
+                   max_audio_actions=max_a, num_actions=80 * videos,
+                   window_size=size)
+    return DetectionDataset(
+        ws, FeatureStore(feats["v"], times), FeatureStore(feats["a"], times),
+        dataset_name="synthetic")
+
+
+def det_batch(ds, n, device):
+    """The first ``n`` windows of ``ds`` as a batch of tensors on
+    ``device``."""
+    from tim_tpu_torch.data.dataset import batch_iterator
+    batch = next(batch_iterator(ds, n, shuffle=False))
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items() if not k.startswith("_")}
+
+
+def det_state(model, tcfg):
+    from tim_tpu_torch.train.optim import make_optimizer
+    from tim_tpu_torch.train.state import create_train_state
+    return create_train_state(model, make_optimizer(
+        model.parameters(), tcfg.lr, tcfg.weight_decay, 100, 10,
+        min_lr=tcfg.min_lr, clip_norm=tcfg.clip_norm),
+        normaliser=tcfg.normaliser_init)
+
+
+def captured_grads(state):
+    """{name: gradient} as the optimizer's step is about to use them."""
+    grads = {}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+
+    def hook(opt, args, kwargs):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                grads[names[id(p)]] = p.grad.detach().clone()
+    state.optimizer.register_step_pre_hook(hook)
+    return grads
+
+
+def phase_det_grad_slice_fp32(train_ds):
+    """16a: one fp32 train step of full-width ``epic_detection`` with 2
+    encoder layers (every dropout rate 0, drloc 0.3) on 2 windows, on the
+    card and on the CPU with the same draws: losses and metrics, every
+    parameter gradient and the normaliser."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.models import TimDetection
+    from tim_tpu_torch.train.detection import make_train_step
+    cfg = C.epic_detection(compute_dtype="float32", num_layers=2,
+                           enc_dropout=0.0, feat_dropout=0.0,
+                           seq_dropout=0.0)
+    tcfg = C.TrainConfig(lambda_drloc=0.3)
+    cpu_model = TimDetection(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(SEED))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = det_batch(train_ds, 2, "cpu")   # its augmentation sets drawn once
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        state = det_state(model, tcfg)
+        grads = captured_grads(state)
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metrics = make_train_step(model, cfg, tcfg)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        metrics = {k: v.double().cpu() for k, v in metrics.items()}
+        out[dev] = (metrics, grads, float(state.normaliser),
+                    {n: fn.launches for n, fn in counters.items()},
+                    time.perf_counter() - t0)
+    (gm, gg, gn, launches, g_s), (cm, cg, cn, _, c_s) = out["cuda"], out["cpu"]
+    log(f"[det-grad-slice] fp32 step of 2 windows, 2 layers: card "
+        f"{g_s:.2f} s, CPU {c_s:.2f} s; launches on the card {launches}")
+    require(launches["query_block_attention"] == 0
+            and launches["fused_post_attention"] == 0
+            and attention_launches(launches) == 0,
+            f"det fp32 train step launched {launches}")
+    require(sorted(gm) == sorted(cm), "det fp32 slice: metric keys differ")
+    rels = {k: abs(float(gm[k]) - float(cm[k])) / max(abs(float(cm[k])),
+                                                      1e-30) for k in cm}
+    for k in sorted(cm):
+        log(f"[det-grad-slice] {k}: card {float(gm[k]):.8g}, CPU "
+            f"{float(cm[k]):.8g} (rel {rels[k]:.2e})")
+    worst_m = max(rels.values())
+    require(worst_m <= DET_METRIC_RTOL, f"det fp32 slice metrics: card vs "
+            f"CPU {worst_m} > {DET_METRIC_RTOL}")
+    require(abs(gn - cn) <= DET_METRIC_RTOL * abs(cn) and gn != 250.0,
+            f"det fp32 slice normaliser: card {gn}, CPU {cn}")
+    require(sorted(gg) == sorted(cg) and len(cg) == len(list(
+        cpu_model.parameters())), "det fp32 slice: gradients missing")
+    worst, worst_name = 0.0, ""
+    for name in cg:
+        g, c = gg[name].cpu(), cg[name]
+        require(bool(torch.isfinite(g).all()), f"det {name}: non-finite")
+        rel = max_err(g, c) / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        require(rel <= GRAD_SLICE_TOL, f"det fp32 gradient {name}: card vs "
+                f"CPU {rel} of its largest value > {GRAD_SLICE_TOL}")
+    log(f"[det-grad-slice] {len(cg)} parameter gradients within {worst:.3e} "
+        f"of each tensor's largest value (worst {worst_name}; tol "
+        f"{GRAD_SLICE_TOL}); metrics within {worst_m:.2e} (tol "
+        f"{DET_METRIC_RTOL}); normaliser card {gn:.6f}, CPU {cn:.6f}")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return {"grad_rel": worst, "metric_rel": worst_m}
+
+
+def det_runner(cfg, train_ds, val_ds, banked):
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    tcfg = C.TrainConfig(batch_size=DET_BATCH, epochs=1, seed=SEED)
+    runner = DetectionRunner(cfg, tcfg, train_ds, val_ds, print_freq=1000,
+                             use_device_bank=banked, device="cuda")
+    runner.init_state()
+    return runner
+
+
+def phase_det_train(train_ds, val_ds):
+    """16b: ``DetectionRunner.train_epoch`` (banked: the split on the card,
+    a batch a tensor of window ids) over 7 batches of 64 windows, bf16,
+    every dropout on: 2 warm-up steps, then 5 timed steps with every count
+    set to 0 just before them and read just after."""
+    from tim_tpu_torch import config as C
+    runner = det_runner(C.epic_detection(), train_ds, val_ds, True)
+    require(runner._tables.num_windows // DET_BATCH == DET_WARMUP + DET_STEPS,
+            f"det split of {runner._tables.num_windows} windows")
+    before = [p.detach().clone() for p in runner.model.parameters()]
+    counters = launch_counters()
+    events, metrics, marks = [], [], {}
+    step = runner._bank_step
+
+    def timed_step(state, batch):
+        if len(metrics) == DET_WARMUP:
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            marks["t0"] = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(out)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    runner._bank_step = timed_step
+    try:
+        runner.train_epoch(0)
+    finally:
+        runner._bank_step = step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks["t0"]
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events[DET_WARMUP:]]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    normaliser = float(runner.state.normaliser)
+    moved = sum(int(not torch.equal(b, p.detach()))
+                for b, p in zip(before, runner.model.parameters()))
+    ms = sum(step_ms) / len(step_ms)
+    log(f"[det-train] {len(step_ms)} steps of batch {DET_BATCH}: device "
+        f"{ms:.3f} ms per step ({', '.join(f'{x:.3f}' for x in step_ms)}), "
+        f"{DET_BATCH / (ms / 1e3):.2f} device windows/s; wall {wall:.3f} s, "
+        f"{DET_STEPS * DET_BATCH / wall:.2f} wall windows/s; peak "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}; normaliser "
+        f"{normaliser:.4f}; launches {launches}")
+    require(len(step_ms) == DET_STEPS, f"det-train: {len(step_ms)} steps")
+    require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+            "det-train: non-finite loss or gradient norm")
+    n_params = len(before)
+    require(moved == n_params, f"det-train: {n_params - moved} of "
+            f"{n_params} parameter tensors did not move")
+    require(normaliser != 250.0, "det-train: the normaliser stayed 250")
+    require(attention_launches(launches) == 0,
+            f"det-train: launches {launches}, expected no kernel 1, 2 or "
+            f"other attention kernel in a train step")
+    require_steady("det-train", launches, DET_STEPS)
+    return runner, launches, {
+        "batch": DET_BATCH, "steps": DET_STEPS, "ms_per_step": ms,
+        "step_ms": step_ms, "device_windows_per_s": DET_BATCH / (ms / 1e3),
+        "wall_s": wall, "wall_windows_per_s": DET_STEPS * DET_BATCH / wall,
+        "peak_bytes": peak, "losses": losses, "grad_norms": norms,
+        "normaliser": normaliser,
+        "bias_act_per_step": launches["bias_act"] / DET_STEPS}
+
+
+def det_validate(tag, runner):
+    """``runner.validate()`` with every count set to 0 just before and read
+    just after, its val steps timed by CUDA events. Returns (losses,
+    launches, batches, metrics)."""
+    counters = launch_counters()
+    events = []
+    step = runner._val_step
+
+    def timed(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch)
+        end.record()
+        events.append((start, end))
+        return out
+
+    runner._val_step = timed
+    try:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = runner.validate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        runner._val_step = step
+    n_batches = len(events)
+    windows = n_batches * DET_BATCH
+    device = sum(s.elapsed_time(e) for s, e in events)
+    log(f"[{tag}] {n_batches} batches of {DET_BATCH}: device {device:.3f} "
+        f"ms, {windows / (device / 1e3):.2f} device windows/s; wall "
+        f"{wall:.3f} s, {windows / wall:.2f} wall windows/s; losses "
+        f"{json.dumps(losses)}; launches {launches}")
+    require(all(np.isfinite(v) for v in losses.values()),
+            f"{tag}: non-finite losses")
+    return losses, launches, n_batches, {
+        "batches": n_batches, "device_ms": device,
+        "device_windows_per_s": windows / (device / 1e3),
+        "wall_s": wall, "wall_windows_per_s": windows / wall}
+
+
+def phase_det_val(runner, val_ds):
+    """16c: ``validate`` of the trained weights in bf16 on the banked path
+    (the runner of 16b) and on the host path, and in fp32 (host path):
+    kernel 1 six times a batch, kernel 2 never; host vs banked losses;
+    bf16 vs fp32 losses."""
+    from tim_tpu_torch import config as C
+    sd = runner.model.state_dict()
+    out = {}
+    for tag, cfg, banked in (
+            ("det-val-banked", C.epic_detection(), True),
+            ("det-val-host", C.epic_detection(), False),
+            ("det-val-fp32", C.epic_detection(compute_dtype="float32"),
+             False)):
+        r = runner if banked else det_runner(cfg, None, val_ds, False)
+        if r is not runner:
+            r.load_torch_checkpoint(sd)
+            r.state.normaliser = runner.state.normaliser.clone()
+        losses, launches, n_batches, m = det_validate(tag, r)
+        if cfg.compute_dtype == "bfloat16":
+            require(launches["query_block_attention"]
+                    == cfg.num_layers * n_batches
+                    and launches["fused_post_attention"] == 0,
+                    f"{tag}: launches {launches}, expected kernel 1 "
+                    f"{cfg.num_layers} x {n_batches} batches, kernel 2 never")
+            require_steady(tag, launches, n_batches)
+        out[tag] = (losses, launches, m)
+        if r is not runner:
+            del r
+            torch.cuda.empty_cache()
+    banked, host, fp32 = (out[t][0] for t in (
+        "det-val-banked", "det-val-host", "det-val-fp32"))
+    require(sorted(banked) == sorted(host) == sorted(fp32),
+            "det-val: loss keys differ")
+    rel_paths = max(abs(banked[k] - host[k]) / max(abs(host[k]), 1e-30)
+                    for k in host)
+    rel_bf16 = max(abs(host[k] - fp32[k]) / max(abs(fp32[k]), 1e-30)
+                   for k in fp32)
+    log(f"[det-val] banked vs host losses within {rel_paths:.3e} (tol "
+        f"{DET_VAL_PATHS_RTOL}); bf16 vs fp32 within {rel_bf16:.3e} (tol "
+        f"{DET_VAL_BF16_RTOL})")
+    require(rel_paths <= DET_VAL_PATHS_RTOL,
+            f"det-val: banked vs host {rel_paths} > {DET_VAL_PATHS_RTOL}")
+    require(rel_bf16 <= DET_VAL_BF16_RTOL,
+            f"det-val: bf16 vs fp32 {rel_bf16} > {DET_VAL_BF16_RTOL}")
+    metrics = {t: out[t][2] for t in out}
+    metrics.update(paths_rel=rel_paths, bf16_vs_fp32_rel=rel_bf16)
+    return out["det-val-banked"][1], metrics
+
+
+def phase_det_resume(runner, train_ds):
+    """16d: save the state after the timed steps, ``resume`` it into a
+    fresh runner: step, normaliser, optimizer state and parameters equal;
+    then one more step from both: parameters within DET_RESUME_TOL."""
+    import tempfile
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.train.checkpoint import save_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, runner.state, epoch=1)
+        fresh = det_runner(C.epic_detection(), train_ds, None, True)
+        epoch = fresh.resume(tmp)
+        io_s = time.perf_counter() - t0
+    a, b = runner.state, fresh.state
+    require(epoch == 1 and a.step == b.step
+            and torch.equal(a.normaliser, b.normaliser),
+            f"det-resume: epoch {epoch}, step {a.step} vs {b.step}, "
+            f"normaliser {float(a.normaliser)} vs {float(b.normaliser)}")
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    same = all(torch.equal(sa["state"][i][k], sb["state"][i][k])
+               for i in sa["state"] for k in sa["state"][i])
+    same &= all(torch.equal(sa["if_finite"][k], sb["if_finite"][k])
+                for k in sa["if_finite"])
+    same &= all(torch.equal(p, q) for p, q in zip(
+        a.model.state_dict().values(), b.model.state_dict().values()))
+    require(same and len(sa["state"]) == len(sb["state"]),
+            "det-resume: optimizer state or parameters differ after resume")
+    ids = torch.arange(DET_BATCH, device="cuda")
+    for r in (runner, fresh):
+        r._bank_step(r.state, r._tables.batch(ids))
+    pairs = list(zip(a.model.parameters(), b.model.parameters()))
+    worst = max(max_err(p, q) / max(p.abs().max().item(), 1e-30)
+                for p, q in pairs)
+    equal = sum(int(torch.equal(p, q)) for p, q in pairs)
+    log(f"[det-resume] checkpoint save + resume {io_s:.2f} s; state equal "
+        f"after resume; one more step from both: parameters within "
+        f"{worst:.3e} of each tensor's largest value (tol {DET_RESUME_TOL}), "
+        f"{equal} of {len(pairs)} tensors bit-equal")
+    require(worst <= DET_RESUME_TOL, f"det-resume: {worst} > "
+            f"{DET_RESUME_TOL}")
+    del fresh
+    torch.cuda.empty_cache()
+    return {"resume_rel": worst, "save_resume_s": io_s}
+
+
+def phase_detection_training():
+    """Phase 16; returns the launches of the train and validation paths."""
+    from tim_tpu_torch import config as C
+    cfg = C.epic_detection()
+    rng = np.random.default_rng(SEED + 3)
+    t0 = time.perf_counter()
+    train_ds, val_ds = det_split(cfg, 4, rng), det_split(cfg, 4, rng)
+    log(f"[det] synthetic splits of {len(train_ds)} and {len(val_ds)} "
+        f"windows ({cfg.visual_input_dim} + {cfg.audio_input_dim} wide "
+        f"features) in {time.perf_counter() - t0:.2f} s")
+    summary = {"grad_slice": timed("det-grad-slice",
+                                   phase_det_grad_slice_fp32, train_ds)}
+    runner, train_launches, summary["train"] = timed(
+        "det-train", phase_det_train, train_ds, val_ds)
+    val_launches, summary["val"] = timed("det-val", phase_det_val, runner,
+                                         val_ds)
+    summary["resume"] = timed("det-resume", phase_det_resume, runner,
+                              train_ds)
+    log(f"[det] summary {json.dumps(summary)}")
+    del runner
+    torch.cuda.empty_cache()
+    return {"det-train": train_launches, "det-val": val_launches}
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -2313,9 +2738,10 @@ def main() -> int:
     training_report, training_paths = phase_training(
         torch.Generator(device="cuda").manual_seed(SEED + 1))
     kernel_report.update(training_report)
+    detection_paths = phase_detection_training()
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
-               **training_paths}
+               **training_paths, **detection_paths}
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",

@@ -81,11 +81,20 @@ def test_window_helpers_equal_jax():
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "DetectionConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "DetectionConfig",
+                                  "TrainConfig"])
 def test_config_copy_equals_jax(name):
+    """Same fields, order and defaults; ``TrainConfig`` leaves out exactly
+    the JAX package's two TPU-only fields."""
     ours, theirs = getattr(PC, name), getattr(C, name)
+    tpu_only = ({"xla_fusion_cost_model", "rng_impl"}
+                if name == "TrainConfig" else set())
     assert ([(f.name, f.default) for f in dataclasses.fields(ours)]
-            == [(f.name, f.default) for f in dataclasses.fields(theirs)])
+            == [(f.name, f.default) for f in dataclasses.fields(theirs)
+                if f.name not in tpu_only])
+    assert tpu_only <= {f.name for f in dataclasses.fields(theirs)}
+    if name == "TrainConfig":
+        return
     for preset in ("epic_detection", "perception_detection"):
         assert (dataclasses.asdict(getattr(PC, preset)(num_layers=2))
                 == dataclasses.asdict(getattr(C, preset)(num_layers=2)))
@@ -153,7 +162,11 @@ def test_serve_imports_no_jax():
                    "models.backbones.vit", "extract.pipeline",
                    "extract.cli", "models.backbones.mae", "extract.masking",
                    "train.backbone_finetune", "train.optim", "train.state",
-                   "runner.backbone", "utils.logging"):
+                   "runner.backbone", "utils.logging", "ops.intervals",
+                   "ops.losses", "ops.dropout", "data.dataset",
+                   "data.device_bank", "data.synthetic", "train.checkpoint",
+                   "train.detection", "evals.metrics", "evals.meters",
+                   "runner.detection"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

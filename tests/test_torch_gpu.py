@@ -631,3 +631,85 @@ def test_fp32_patch_embed_weight_grad_stays_fp32(gen):
     assert torch.backends.cudnn.allow_tf32
     for g, c in ((weight.grad, w_cpu.grad), (bias.grad, b_cpu.grad)):
         assert (g.cpu() - c).abs().max().item() <= 1e-4 * c.abs().max().item()
+
+
+def _det_cfg(**kw):
+    """A small detection configuration whose widths every kernel takes
+    (encoder width 128, head dim 64, FFN 256)."""
+    base = dict(d_model=64, num_layers=2, nhead=2, num_feats=8,
+                visual_input_dim=32, audio_input_dim=24,
+                visual_classes=(11,), audio_classes=5,
+                train_query_size=0.05, inference_query_size=0.1)
+    base.update(kw)
+    return C.epic_detection(**base)
+
+
+def _det_launches(run):
+    from chip_smoke import launch_counters
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {n: fn.launches for n, fn in counters.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_detection_train_step_launches_neither_kernel_1_nor_2(gen, dtype):
+    """A train step (dropout on, ``use_fused_ffn`` on) runs the plain
+    attention with dropout and the unfused tail: kernels 1 and 2 are
+    never launched, as in JAX; bf16 linears launch the bias epilogue."""
+    import numpy as np
+    from chip_smoke import det_batch, det_split, det_state
+    from tim_tpu_torch.train.detection import make_train_step
+    cfg = _det_cfg(compute_dtype=dtype, use_fused_ffn=True)
+    tcfg = C.TrainConfig(batch_size=4)
+    model = TimDetection(cfg)
+    state = det_state(model, tcfg)
+    batch = det_batch(det_split(cfg, 1, np.random.default_rng(0),
+                                seconds=40.0), 4, "cuda")
+    step = make_train_step(model, cfg, tcfg)
+    metrics, launches = _det_launches(lambda: step(state, batch))
+    assert launches["query_block_attention"] == 0
+    assert launches["fused_post_attention"] == 0
+    assert (launches["bias_act"] > 0) == (dtype == "bfloat16")
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+    assert state.step == 1 and float(state.normaliser) != 250.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_detection_val_step_launches_kernel_1_per_layer(gen, fused):
+    """The validation step is deterministic: kernel 1 once per encoder
+    layer, kernel 2 once per layer with ``use_fused_ffn``, else never."""
+    import numpy as np
+    from chip_smoke import det_batch, det_split, det_state
+    from tim_tpu_torch.train.detection import make_val_step
+    cfg = _det_cfg(use_fused_ffn=fused)
+    model = TimDetection(cfg)
+    state = det_state(model, C.TrainConfig())
+    batch = det_batch(det_split(cfg, 1, np.random.default_rng(0),
+                                seconds=40.0), 4, "cuda")
+    step = make_val_step(model, cfg, C.TrainConfig())
+    metrics, launches = _det_launches(lambda: step(state, batch))
+    assert launches["query_block_attention"] == cfg.num_layers
+    assert launches["fused_post_attention"] == (cfg.num_layers if fused
+                                                else 0)
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_on_grad_inputs(gen):
+    """Kernel 1 on inputs that require grad, with grad mode on, raises
+    instead of returning a result without ``grad_fn``; under no_grad it
+    runs."""
+    q = torch.randn(1, 2, 8, 64, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    args = [q, q.clone(), q.clone(), q.clone(), q.clone()]
+    args[1].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        query_block_attention(*args)
+    with torch.no_grad():
+        assert query_block_attention(*args).grad_fn is None

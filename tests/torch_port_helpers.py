@@ -35,6 +35,15 @@ def port_cfg(cfg) -> PC.DetectionConfig:
                                  for f in dataclasses.fields(cfg)})
 
 
+def port_train_cfg(tcfg) -> PC.TrainConfig:
+    """The port's ``TrainConfig`` with every field of ``tcfg`` (a JAX
+    package config) but the two TPU-only ones it leaves out."""
+    fields = {f.name for f in dataclasses.fields(PC.TrainConfig)}
+    return PC.TrainConfig(**{f.name: getattr(tcfg, f.name)
+                             for f in dataclasses.fields(tcfg)
+                             if f.name in fields})
+
+
 def num_queries(cfg) -> int:
     return generate_query_pyramid(cfg.inference_query_size).shape[0]
 

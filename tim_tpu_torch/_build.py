@@ -26,6 +26,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "build")
@@ -149,6 +151,18 @@ def launcher(name: str, argtypes) -> ctypes._CFuncPtr:
     if fn.argtypes is None:
         fn.argtypes = argtypes
     return fn
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires grad: a
+    kernel that writes its output through raw pointers and defines no
+    backward would return a result without ``grad_fn``, and the
+    gradients would go missing without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it "
+                           f"under torch.no_grad() or inference_mode, or "
+                           f"on inputs that do not require grad")
 
 
 def check(status: int, name: str) -> None:

@@ -1,7 +1,9 @@
-"""Model configuration: a copy of ``tim_tpu/config.py``'s ``ModelConfig``,
-``DetectionConfig`` and the detection presets, with the same field names
-and defaults, so that one configuration reads the same in both packages
-(tests pin the two to equality).
+"""Configuration: a copy of ``tim_tpu/config.py``'s ``ModelConfig``,
+``DetectionConfig``, ``TrainConfig`` and the detection presets, with the
+same field names and defaults, so that one configuration reads the same
+in both packages (tests pin the two to equality). ``TrainConfig`` leaves
+out the JAX package's two TPU-only fields, ``xla_fusion_cost_model`` and
+``rng_impl`` (XLA compiler options and the TPU's random-bit generator).
 
 Frozen dataclasses (hashable); presets are plain functions. Fields whose
 code paths are not ported yet are kept, and ``models.tim.TimDetection``
@@ -115,6 +117,35 @@ class DetectionConfig(ModelConfig):
     def vis_mul(self) -> int:
         # detection shares one query token set across verb/noun/action
         return 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization schedule (the reference recipe)."""
+
+    batch_size: int = 64
+    epochs: int = 100
+    warmup_epochs: int = 2
+    lr: float = 1e-4
+    min_lr: float = 1e-6
+    weight_decay: float = 1e-4
+    clip_norm: float = 1.0
+
+    label_smoothing: float = 0.2     # recognition CE smoothing
+    mixup_alpha: float = 0.2
+    lambda_audio: float = 1.0
+    lambda_drloc: float = 0.3
+    m_drloc: int = 32
+
+    # Detection-only knobs.
+    lambda_reg: float = 0.5
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    normaliser_init: float = 250.0
+    normaliser_momentum: float = 0.9
+
+    seed: int = 0
+    early_stop_period: int = -1
 
 
 def epic_detection(**overrides) -> DetectionConfig:

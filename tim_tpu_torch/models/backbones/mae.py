@@ -5,7 +5,7 @@ An asymmetric encoder over the visible tubes, a shallow wide-token decoder
 over the whole sequence, per-patch-normalised pixel MSE (Tong et al.,
 NeurIPS 2022). The encoder's names are ``VideoMAEViT``'s
 (``patch_embed.proj``, ``blocks.{i}``), so a pretrained encoder loads into
-the finetune trunk with ``runner.backbone.shape_matched_merge``. Every
+the finetune trunk with ``train.checkpoint.shape_matched_merge``. Every
 attention core is ``ops.flash_mha`` (kernel 5 on the card, forward and
 backward): S = 160 visible tokens in the encoder at mask ratio 0.9 and
 the full 1568 in the decoder.

@@ -8,15 +8,23 @@
   query-interval time encodings.
 
 Sequence: [vis*F | aud*F | visual_action_cls*Nv | audio_action_cls*Na].
+
+Training (a ``generator`` given): Bernoulli dropout (flax ``nn.Dropout``,
+whatever ``dropout_bits`` says, as in JAX) of ``feat_dropout`` on each
+embedder's input (slot 0 of its Sequential) and of ``seq_dropout`` on
+the assembled sequence.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from tim_tpu_torch.models.common import (
     TORCH_LINEAR, LayerNorm, TorchLinear, exact_gelu)
+from tim_tpu_torch.ops.dropout import dropout
 
 
 class ExactGelu(nn.Module):
@@ -26,22 +34,35 @@ class ExactGelu(nn.Module):
         return exact_gelu(x)
 
 
+class Dropout(nn.Module):
+    """Bernoulli dropout of ``rate``, parameter-free: identity unless a
+    generator is given."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, generator is None, 32, generator)
+
+
 class FeatureEmbedder(nn.Sequential):
-    """Indices follow the reference: 0 dropout slot (identity at
-    inference), 1 Linear, 2 GELU, 3 LayerNorm."""
+    """Indices follow the reference: 0 dropout, 1 Linear, 2 GELU, 3
+    LayerNorm."""
 
     def __init__(self, in_dim: int, d_model: int, *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, feat_dropout: float = 0.5):
         super().__init__(
-            nn.Identity(),
+            Dropout(feat_dropout),
             TorchLinear(in_dim, d_model, dtype=dtype, generator=generator,
                         rounding=TORCH_LINEAR),
             ExactGelu(),
             LayerNorm(d_model))
         self.dtype = dtype
 
-    def forward(self, x):
-        return super().forward(x.to(self.dtype)).to(self.dtype)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = self[0](x.to(self.dtype), generator)
+        return self[3](self[2](self[1](x))).to(self.dtype)
 
 
 def _token(shape, generator):
@@ -55,20 +76,24 @@ class FeatureEncoding(nn.Module):
     def __init__(self, d_model: int, input_modality: str,
                  data_modality: str, num_feats: int, visual_input_dim: int,
                  audio_input_dim: int, *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, feat_dropout: float = 0.5,
+                 seq_dropout: float = 0.5):
         super().__init__()
         self.d_model = d_model
         self.input_modality = input_modality
         self.data_modality = data_modality
         self.num_feats = num_feats
         self.dtype = dtype
+        self.seq_dropout = Dropout(seq_dropout)
         wide = 2 * d_model
         if "visual" in input_modality:
             self.visual_embedder = FeatureEmbedder(
-                visual_input_dim, d_model, dtype=dtype, generator=generator)
+                visual_input_dim, d_model, dtype=dtype, generator=generator,
+                feat_dropout=feat_dropout)
         if "audio" in input_modality:
             self.audio_embedder = FeatureEmbedder(
-                audio_input_dim, d_model, dtype=dtype, generator=generator)
+                audio_input_dim, d_model, dtype=dtype, generator=generator,
+                feat_dropout=feat_dropout)
         if input_modality == "audio_visual":
             self.visual_modality_encoding = _token((1, 1, wide), generator)
             self.audio_modality_encoding = _token((1, 1, wide), generator)
@@ -78,10 +103,12 @@ class FeatureEncoding(nn.Module):
             self.audio_action_cls = _token((1, 1, d_model), generator)
 
     def forward(self, v_feats, a_feats, time_encodings, num_v_queries: int,
-                num_a_queries: int):
+                num_a_queries: int,
+                generator: Optional[torch.Generator] = None):
         """v_feats/a_feats: [B, F, D] or None; time_encodings [B, T, d]:
         the first rows encode feature times, the rest query intervals
-        (visual then audio). Returns [B, S, 2*d_model]."""
+        (visual then audio). ``generator``: the dropout generator
+        (training), else None. Returns [B, S, 2*d_model]."""
         dt = self.dtype
         av = self.input_modality == "audio_visual"
         nf = self.num_feats
@@ -91,7 +118,7 @@ class FeatureEncoding(nn.Module):
         for mod, feats in (("visual", v_feats), ("audio", a_feats)):
             if mod not in self.input_modality:
                 continue
-            x = getattr(self, f"{mod}_embedder")(feats)
+            x = getattr(self, f"{mod}_embedder")(feats, generator)
             x = torch.cat([x, te[:, offset:offset + nf]], dim=-1)
             if av:
                 x = x + getattr(self, f"{mod}_modality_encoding").to(dt)
@@ -118,4 +145,4 @@ class FeatureEncoding(nn.Module):
                 self.audio_action_cls, num_a_queries,
                 query_te[:, -num_a_queries:],
                 self.audio_modality_encoding if av else None))
-        return torch.cat(parts, dim=1)
+        return self.seq_dropout(torch.cat(parts, dim=1), generator)

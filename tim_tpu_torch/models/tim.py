@@ -5,6 +5,12 @@ Parameter names follow the reference torch ``state_dict``
 released detection checkpoints load with ``load_state_dict(strict=True)``:
 ``time_mlp.{0,2,4,6}``, ``feature_encoding.*``, ``backbone.layers.N.*``,
 ``cls_head.fc_*``, ``reg_head.fc_*_action.{0,2,4}``, ``drloc_mlp.{0,2,4}``.
+
+``encoder_forward(..., dropout_seed=None)`` is the deterministic
+(inference, validation) forward; an int ``dropout_seed`` makes it the
+training forward: the feature encoding's dropout draws from a device
+generator seeded ``dropout_seed``, encoder layer i's from one seeded
+``dropout_seed + 1 + i`` (its own, so that ``remat`` replays it).
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ def resolve_device(device) -> torch.device:
 
 
 class TimDetection(nn.Module):
-    """Detection variant, inference only: shared query tokens, cls +
-    interval-regression heads.
+    """Detection variant: shared query tokens, cls + interval-regression
+    heads, and the drloc MLP of the training loss.
 
     ``device``: the CUDA card by default (raises without one); the CPU
     only when asked for. ``generator`` seeds the random init (a fresh
@@ -73,14 +79,16 @@ class TimDetection(nn.Module):
             LayerNorm(d))
         self.feature_encoding = FeatureEncoding(
             d, cfg.input_modality, cfg.data_modality, cfg.num_feats,
-            cfg.visual_input_dim, cfg.audio_input_dim, dtype=dt, generator=g)
+            cfg.visual_input_dim, cfg.audio_input_dim, dtype=dt, generator=g,
+            feat_dropout=cfg.feat_dropout, seq_dropout=cfg.seq_dropout)
         quantized = cfg.quantized_inference
         self.backbone = Encoder(
             width, cfg.nhead, d * cfg.feedforward_scale, cfg.num_layers,
             dtype=dt, fused=cfg.use_fused_ffn, generator=g,
-            quantized=quantized, fast_scores=cfg.fast_scores)
-        # drloc is a training loss; its parameters are here so that
-        # checkpoints load strictly.
+            quantized=quantized, fast_scores=cfg.fast_scores,
+            dropout_rate=cfg.enc_dropout, dropout_bits=cfg.dropout_bits,
+            remat=cfg.remat)
+        # Linear(4d->d) -> ReLU -> Linear(d->d) -> ReLU -> Linear(d->1)
         self.drloc_mlp = MLP((2 * width, d, d, 1), dtype=dt, generator=g)
         vis = (cfg.visual_classes if "visual" in cfg.data_modality
                else None)
@@ -110,16 +118,29 @@ class TimDetection(nn.Module):
         """[..., 2] interval (start, end) -> [..., d_model] encoding."""
         return self.time_mlp(times.to(self.dtype)).to(self.dtype)
 
+    def drloc(self, x):
+        """Concatenated token pairs [..., 4*d_model] -> |dt| predictions."""
+        return self.drloc_mlp(x)[..., 0]
+
     def encoder_forward(self, v_feats, a_feats, time_encodings,
                         num_v_queries: int, num_a_queries: int, *,
-                        shared_queries: bool = False):
+                        shared_queries: bool = False,
+                        dropout_seed: Optional[int] = None):
         """Returns (cls logits 4-tuple (verb, noun, action, audio), (v_reg,
         a_reg) each [B, Nq, 2], context tokens). ``shared_queries``: set
         only when the query tokens are identical across the batch (dense
-        inference grids)."""
+        inference grids). ``dropout_seed``: None for the deterministic
+        forward, an int for the training forward (module docstring)."""
+        gen, layer_seeds = None, None
+        if dropout_seed is not None:
+            gen = torch.Generator(device=time_encodings.device).manual_seed(
+                dropout_seed)
+            layer_seeds = [dropout_seed + 1 + i
+                           for i in range(len(self.backbone.layers))]
         x = self.feature_encoding(v_feats, a_feats, time_encodings,
-                                  num_v_queries, num_a_queries)
-        x = self.backbone(x, self.cfg.num_context, shared_queries)
+                                  num_v_queries, num_a_queries, gen)
+        x = self.backbone(x, self.cfg.num_context, shared_queries,
+                          layer_seeds)
         cls_scores = self.cls_head(x, num_v_queries, num_a_queries)
         reg_scores = self.reg_head(x, num_v_queries, num_a_queries)
         return cls_scores, reg_scores, x[:, :self.cfg.num_context]

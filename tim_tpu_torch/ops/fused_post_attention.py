@@ -104,7 +104,8 @@ def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
     """LN2(y + FFN(y)) with y = LN1(x + attn). x/attn: [..., C] in the
     compute dtype; w1 [FF, C], w2 [C, FF] (cast to x's dtype); biases and
     LN params fp32. CPU tensors take the plain version; CUDA tensors launch
-    the kernels or raise."""
+    the kernels or raise (also for inputs that require grad while grad mode
+    is on: the kernels have no backward)."""
     if x.device.type == "cpu":
         return fused_post_attention_plain(x, attn, ln1_weight, ln1_bias, w1,
                                           b1, w2, b2, ln2_weight, ln2_bias)
@@ -113,6 +114,8 @@ def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
                          f"{x.device}")
     _check(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2, ln2_weight,
            ln2_bias)
+    _build.refuse_grad("fused_post_attention", x, attn, ln1_weight, ln1_bias,
+                       w1, b1, w2, b2, ln2_weight, ln2_bias)
     dt = x.dtype
     c = x.shape[-1]
     ff = w1.shape[0]

@@ -116,7 +116,8 @@ def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
     (contiguous). x may be a strided [B, rows, K] view (the heads' query
     slice of the encoder output): the kernel reads it through its (batch,
     row) strides, without a copy. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise (also for inputs that require grad
+    while grad mode is on: the kernel has no backward)."""
     if x.device.type == "cpu":
         return int8_matmul_fused_plain(x, w_q, w_scale, act_scale, bias,
                                        activation, out_dtype=out_dtype)
@@ -124,6 +125,7 @@ def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
         raise ValueError(f"int8_matmul_fused: no kernel for device "
                          f"{x.device}")
     _check(x, w_q, w_scale, bias, activation, out_dtype)
+    _build.refuse_grad("int8_matmul_fused", x, w_q, w_scale, bias)
     batches, rows, sb, sr = _row_view(x)
     k, n = x.shape[-1], w_q.shape[0]
     out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)

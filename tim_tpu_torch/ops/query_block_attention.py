@@ -87,13 +87,15 @@ def query_block_attention(qq, kc, kq, vc, vq):
     (e.g. of the packed q/k/v projection, or batch-broadcast) as long as
     their last dim is contiguous; the kernel reads them through their
     strides. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise (also for inputs that require grad while grad mode is
+    on: the kernel has no backward)."""
     if qq.device.type == "cpu":
         return query_block_attention_plain(qq, kc, kq, vc, vq)
     if qq.device.type != "cuda":
         raise ValueError(f"query_block_attention: no kernel for device "
                          f"{qq.device}")
     _check(qq, kc, kq, vc, vq)
+    _build.refuse_grad("query_block_attention", qq, kc, kq, vc, vq)
     b, h, nq, dh = qq.shape
     out = torch.empty((b, h, nq, dh), dtype=qq.dtype, device=qq.device)
     tensors = (qq, kc, kq, vc, vq)

@@ -2,7 +2,8 @@
 backbone forward, or of one backbone training step goes, on the CUDA card:
 
     python -m tim_tpu_torch.profile_serving
-        [--mode bf16|int8|int8-fast|swin|vit|vit-train|swin-train|mae]
+        [--mode bf16|int8|int8-fast|swin|vit|vit-train|swin-train|mae|
+                det-train|det-val]
         [--batch N] [--steps 3]
 
 Detection modes build the full-width EPIC-KITCHENS-100 detection model
@@ -17,7 +18,14 @@ CLI) and run its forward on random clips (default 8; 32 x 224^2 and
 ``TwoHeadViT`` over the same trunks in bf16 (ViT-L: the LLRD AdamW of
 ``BackboneFinetuneRunner``, Swin-B: AdamW(1e-4, wd 0.05), mixup 0.8), and
 ``mae`` one step of ``BackbonePretrainRunner`` over ``PretrainVideoMAE``
-(mask ratio 0.9). Each runs 3 warm-up steps, then ``torch.profiler`` over
+(mask ratio 0.9). ``det-train`` runs one train step of the full-width
+EPIC detection model in bf16 (``make_train_step`` with the TIM optimizer,
+every dropout on; default batch 64) and ``det-val`` one validation batch
+(``make_val_step``), on random windows with GT segments; ``det-train``
+also times two of its parts alone, forward and backward: the smoothed
+focal loss over the visual logits and one layer's attention on the
+training route. Each runs 3
+warm-up steps, then ``torch.profiler`` over
 ``--steps`` steps. Prints the card's name and power limit, the device
 milliseconds per step (CUDA events), the share of it in which a kernel
 ran, and the kernels by device time per step; the last line is one JSON
@@ -36,6 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tim_tpu_torch import config as C
 from tim_tpu_torch.models import TimDetection
+from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.serve import DetectionServer
 
 MODES = {"bf16": {}, "int8": {"quant_pallas_heads": True},
@@ -44,6 +53,7 @@ MODES = {"bf16": {}, "int8": {"quant_pallas_heads": True},
 BACKBONE_MODES = {"swin": ("swin3d", "omnivore_swinB_epic", (32, 224, 224, 3)),
                   "vit": ("vit", "videomae_vit_large", (16, 224, 224, 3))}
 TRAIN_MODES = {"vit-train": "vit", "swin-train": "swin", "mae": "vit"}
+DETECTION_TRAIN_MODES = ("det-train", "det-val")
 
 
 def random_batch(cfg, n: int, rng) -> dict:
@@ -57,6 +67,94 @@ def random_batch(cfg, n: int, rng) -> dict:
     }
     return {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
             for k, v in batch.items()}
+
+
+def random_train_batch(cfg, n: int, rng) -> dict:
+    """``random_batch`` plus 8 GT segments a window (3-27% of it, 6 real)
+    with random labels, the keys ``make_train_step`` reads."""
+    out = random_batch(cfg, n, rng)
+    start = rng.uniform(0.0, 0.7, (n, 8))
+    seg = np.stack([start, start + rng.uniform(0.03, 0.27, (n, 8))], -1)
+    seg[:, 6:] = 0.0
+    labels = {"verb": 97, "noun": 300, "action": cfg.visual_classes[-1],
+              "class_id": cfg.audio_classes}
+    for key, classes in labels.items():
+        lab = rng.integers(0, classes, (n, 8))
+        lab[:, 6:] = -1
+        out[key] = torch.from_numpy(lab).cuda()
+    for key in ("v_gt_segments", "a_gt_segments"):
+        out[key] = torch.from_numpy(seg.astype(np.float32)).cuda()
+    return out
+
+
+def build_detection_training(mode: str, batch: int):
+    """(step, batch) of one bf16 detection train step or validation batch
+    on the card."""
+    from tim_tpu_torch.train import detection as det
+    from tim_tpu_torch.train.optim import make_optimizer
+    from tim_tpu_torch.train.state import create_train_state
+    cfg, tcfg = C.epic_detection(), C.TrainConfig(batch_size=batch)
+    model = TimDetection(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(
+        model.parameters(), tcfg.lr, tcfg.weight_decay, 100, 10),
+        normaliser=tcfg.normaliser_init)
+    data = random_train_batch(cfg, batch, np.random.default_rng(0))
+    if mode == "det-train":
+        step = det.make_train_step(model, cfg, tcfg)
+    else:
+        step = det.make_val_step(model, cfg, tcfg)
+    return (lambda b: step(state, b)), data
+
+
+def _events_ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def detection_components(batch: int) -> dict:
+    """Device ms of two parts of the bf16 detection train step at its
+    shapes, forward and backward each: the smoothed focal loss over the
+    [batch x 399, 3806] visual logits (fp32 math), and one encoder layer's
+    attention on the training route ([batch, 8, 898, 128], dropout 0.1
+    with uint8 masks)."""
+    from tim_tpu_torch.ops.attention import tim_attention
+    from tim_tpu_torch.ops.losses import sigmoid_focal_loss_smoothed
+    cfg = C.epic_detection()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    nq = generate_query_pyramid(cfg.inference_query_size).shape[0]
+    n, c = batch * nq, cfg.visual_classes[-1]
+    bf16 = torch.bfloat16
+    logits = torch.randn(n, c, device="cuda", generator=g,
+                         dtype=bf16).requires_grad_()
+    labels = torch.randint(-1, c, (n,), device="cuda", generator=g)
+    weights = torch.rand(n, device="cuda", generator=g)
+    shape = (batch, cfg.nhead, cfg.seq_len(nq, nq),
+             cfg.encoder_width // cfg.nhead)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g, dtype=bf16)
+               .requires_grad_() for _ in range(3))
+    grad_out = torch.randn(shape, device="cuda", generator=g, dtype=bf16)
+
+    def focal():
+        sigmoid_focal_loss_smoothed(logits, labels, cfg.label_smoothing,
+                                    weights=weights).backward()
+
+    def attention():
+        tim_attention(q, k, v, cfg.num_context, deterministic=False,
+                      dropout_rate=cfg.enc_dropout,
+                      dropout_bits=cfg.dropout_bits,
+                      generator=g).backward(grad_out)
+
+    return {"focal_visual_fwd_bwd_ms": _events_ms(focal),
+            "attention_train_fwd_bwd_ms_per_layer": _events_ms(attention)}
 
 
 def build(mode: str, batch: int):
@@ -125,10 +223,12 @@ def build_training(mode: str, batch: int):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES,
-                                                  *TRAIN_MODES]),
+                                                  *TRAIN_MODES,
+                                                  *DETECTION_TRAIN_MODES]),
                         default="bf16")
     parser.add_argument("--batch", type=int, default=None,
-                        help="windows (default 128) or clips (default 8)")
+                        help="windows (default 128; det-train, det-val: "
+                             "64) or clips (default 8)")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args()
@@ -140,7 +240,10 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    if args.mode in TRAIN_MODES:
+    if args.mode in DETECTION_TRAIN_MODES:
+        args.batch = args.batch or 64
+        step, batch = build_detection_training(args.mode, args.batch)
+    elif args.mode in TRAIN_MODES:
         args.batch = args.batch or 8
         step, batch = build_training(args.mode, args.batch)
     elif args.mode in BACKBONE_MODES:
@@ -179,9 +282,13 @@ def main() -> None:
           f"({100 * busy_ms / step_ms:.1f}% busy)")
     for name, ms, count in kernels[:args.top]:
         print(f"{ms:9.3f} ms  {count // args.steps:4d}x  {name[:110]}")
+    components = {}
+    if args.mode == "det-train":
+        components = detection_components(args.batch)
+        print(f"parts alone, forward + backward: {json.dumps(components)}")
     print(json.dumps({
         "card": card, "mode": args.mode, "batch": args.batch,
-        "step_ms": step_ms, "kernel_ms": busy_ms,
+        "step_ms": step_ms, "kernel_ms": busy_ms, **components,
         "kernels": [{"name": n[:200], "ms_per_step": ms,
                      "calls_per_step": c // args.steps}
                     for n, ms, c in kernels[:args.top]]}))

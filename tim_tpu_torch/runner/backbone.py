@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from tim_tpu_torch.extract.masking import TubeMasking, batch_mask_indices
 from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+from tim_tpu_torch.train.checkpoint import shape_matched_merge
 from tim_tpu_torch.train.backbone_finetune import (
     Mixup, make_llrd_optimizer, make_pretrain_step, mixup_targets,
     soft_target_cross_entropy)
@@ -122,29 +123,6 @@ def _batches(dataset, batch_size: int, rng: np.random.Generator,
                 "noun": batch["noun"].reshape(-1),
             }
         yield batch
-
-
-def shape_matched_merge(init: Mapping[str, torch.Tensor],
-                        loaded: Mapping[str, torch.Tensor]) -> Dict:
-    """Keep loaded entries whose name and shape match ``init`` (a state
-    dict); keep ``init``'s values elsewhere, logging both directions
-    (``tim_tpu/train/checkpoint.py:182``'s non-strict load)."""
-    merged = {}
-    for key, val in init.items():
-        if key in loaded and tuple(loaded[key].shape) == tuple(val.shape):
-            merged[key] = loaded[key]
-        else:
-            if key in loaded:
-                logger.warning("shape mismatch for %s: ckpt %s vs init %s",
-                               key, tuple(loaded[key].shape),
-                               tuple(val.shape))
-            else:
-                logger.warning("missing from checkpoint: %s", key)
-            merged[key] = val
-    for key in loaded:
-        if key not in init:
-            logger.warning("unused checkpoint entry: %s", key)
-    return merged
 
 
 def _to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:

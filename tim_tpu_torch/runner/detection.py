@@ -1,0 +1,253 @@
+"""Detection training and validation on one device: counterpart of
+``tim_tpu/runner/detection.py``, without a mesh.
+
+``DetectionRunner`` builds the model on its device (the CUDA card unless
+``device="cpu"`` is asked for; without a card it raises), trains it with
+``make_train_step`` and the TIM optimizer, validates with
+``make_val_step`` (deterministic: kernel 1 on the card), keeps the best
+model by validation loss, stops early and writes checkpoints
+(``train.checkpoint``). Two data paths, as in JAX:
+
+- host: ``batch_iterator`` over a ``DetectionDataset`` (numpy), each
+  batch moved to the device;
+- banked (``use_device_bank``): the whole split on the device
+  (``DeviceFeatureBank``, ``DetectionWindowTables``), a batch a tensor of
+  window ids; validation sums the losses on the device and reads them
+  back once.
+
+The mAP half (``extract_dense_predictions``, ``evaluate_mAP``,
+``fit(eval_mAP_gt=...)``) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from tim_tpu_torch.config import DetectionConfig, TrainConfig
+from tim_tpu_torch.data.dataset import DetectionDataset, batch_iterator
+from tim_tpu_torch.data.device_bank import (
+    DetectionWindowTables, DeviceFeatureBank, host_to_device)
+from tim_tpu_torch.evals.meters import LossAverager
+from tim_tpu_torch.models.tim import TimDetection, resolve_device
+from tim_tpu_torch.train import checkpoint as ckpt
+from tim_tpu_torch.train import detection as steps
+from tim_tpu_torch.train.optim import make_optimizer
+from tim_tpu_torch.train.state import TrainState, create_train_state
+from tim_tpu_torch.utils.logging import log_json_stats, setup_logging
+
+_NOT_PORTED = ("the detection mAP half (extract_dense_predictions, "
+               "evaluate_mAP, fit(eval_mAP_gt=...)) is not ported yet "
+               "(ROADMAP.md, queue 1 item 1b)")
+
+
+def _tables(ds: DetectionDataset, device) -> tuple:
+    """(v_bank, a_bank, DetectionWindowTables) of a split on ``device``."""
+    v_bank = (DeviceFeatureBank(ds.visual.feats, device=device)
+              if ds.visual is not None else None)
+    a_bank = (DeviceFeatureBank(ds.audio.feats, device=device)
+              if ds.audio is not None else None)
+    tables = DetectionWindowTables(
+        ds.windows, v_bank, a_bank,
+        ds.visual.feat_times if ds.visual is not None else None,
+        ds.audio.feat_times if ds.audio is not None else None,
+        verb_only=ds.verb_only, include_verb_noun=ds.include_verb_noun,
+        dataset_name=ds.dataset_name)
+    return v_bank, a_bank, tables
+
+
+class DetectionRunner:
+    def __init__(
+        self,
+        cfg: DetectionConfig,
+        tcfg: TrainConfig,
+        train_ds: Optional[DetectionDataset],
+        val_ds: Optional[DetectionDataset],
+        *,
+        output_dir: Optional[str] = None,
+        print_freq: int = 100,
+        use_device_bank: bool = False,
+        experiment_logger=None,
+        device: Optional[torch.device | str] = None,
+    ):
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.output_dir = output_dir
+        self.print_freq = print_freq
+        self.logger = setup_logging(output_dir)
+        self.exp_logger = experiment_logger
+        self.device = resolve_device(device)
+        self.model = TimDetection(
+            cfg, device=self.device,
+            generator=torch.Generator().manual_seed(tcfg.seed))
+        self.steps_per_epoch = (max(len(train_ds) // tcfg.batch_size, 1)
+                                if train_ds else 1)
+        self._train_step = steps.make_train_step(self.model, cfg, tcfg)
+        self._val_step = steps.make_val_step(self.model, cfg, tcfg)
+
+        self._bank_step = self._val_banks = None
+        if use_device_bank and train_ds is not None:
+            v_bank, a_bank, self._tables = _tables(train_ds, self.device)
+            self._bank_step = steps.make_bank_train_step(
+                self.model, cfg, tcfg, v_bank, a_bank)
+        if use_device_bank and val_ds is not None:
+            self._val_banks = _tables(val_ds, self.device)
+
+        self.state: Optional[TrainState] = None
+        self.best_loss = float("inf")
+        self.last_best_epoch = 0
+
+    # ------------------------------------------------------------------
+    def init_state(self, pretrained: Optional[str] = None) -> TrainState:
+        """The optimizer over the model's parameters, after merging the
+        shape-matched parameters of the checkpoint at ``pretrained`` into
+        the model; the normaliser at ``TrainConfig.normaliser_init``."""
+        if pretrained:
+            payload = ckpt.load_checkpoint(pretrained)
+            self.model.load_state_dict(ckpt.shape_matched_merge(
+                self.model.state_dict(), payload["params"]))
+        tcfg = self.tcfg
+        optimizer = make_optimizer(
+            self.model.parameters(), tcfg.lr, tcfg.weight_decay,
+            total_steps=self.steps_per_epoch * tcfg.epochs,
+            warmup_steps=self.steps_per_epoch * tcfg.warmup_epochs,
+            min_lr=tcfg.min_lr, clip_norm=tcfg.clip_norm)
+        self.state = create_train_state(self.model, optimizer,
+                                        normaliser=tcfg.normaliser_init)
+        return self.state
+
+    def resume(self, path: str) -> int:
+        """Full training resume (parameters, optimizer, step, normaliser);
+        returns the epoch to continue from."""
+        if self.state is None:
+            self.init_state()
+        payload = ckpt.load_checkpoint(path)
+        ckpt.restore_train_state(self.state, payload)
+        return int(payload.get("epoch", 0))
+
+    def load_torch_checkpoint(self, state_dict: Mapping[str, torch.Tensor]
+                              ) -> TrainState:
+        """Load a reference detection checkpoint's state dict (the port
+        uses its parameter names) strictly."""
+        if self.state is None:
+            self.init_state()
+        self.model.load_state_dict(state_dict, strict=True)
+        return self.state
+
+    # ------------------------------------------------------------------
+    def _to_device(self, batch: Mapping) -> Dict[str, torch.Tensor]:
+        return {k: host_to_device(torch.from_numpy(np.asarray(v)),
+                                  self.device)
+                for k, v in batch.items() if not k.startswith("_")}
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch, shuffled by a generator seeded ``seed + epoch``; the
+        metrics of every ``print_freq``-th step are read back, logged and
+        averaged."""
+        if self.state is None:
+            self.init_state()
+        avg = LossAverager()
+        epoch_rng = np.random.default_rng(self.tcfg.seed + epoch)
+        bs = self.tcfg.batch_size
+        if self._bank_step is not None:
+            order = epoch_rng.permutation(self._tables.num_windows)
+            batches = (self._tables.batch(host_to_device(
+                torch.from_numpy(order[i:i + bs]), self.device))
+                for i in range(0, len(order) - bs + 1, bs))
+            step, tag = self._bank_step, " (banked)"
+        else:
+            batches = (self._to_device(b) for b in batch_iterator(
+                self.train_ds, bs, shuffle=True, rng=epoch_rng))
+            step, tag = self._train_step, ""
+        for i, batch in enumerate(batches):
+            metrics = step(self.state, batch)
+            if i % self.print_freq == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                avg.update(metrics)
+                self.logger.info("epoch %d iter %d | loss %.4f | "
+                                 "normaliser %.1f%s", epoch + 1, i,
+                                 metrics["loss"], metrics["normaliser"], tag)
+        return self._log(avg, "train", epoch)
+
+    # ------------------------------------------------------------------
+    def validate(self, epoch: int = 0) -> Dict[str, float]:
+        """The detection losses on the validation windows (the reference
+        keeps the model of least validation loss), last partial batch
+        dropped. The banked path sums them on the device and reads the
+        sums back once."""
+        if self.state is None:
+            self.init_state()
+        self.val_ds.sample_augmentations = False
+        bs = self.tcfg.batch_size
+        avg = LossAverager()
+        if self._val_banks is not None:
+            v_bank, a_bank, tables = self._val_banks
+            sums, n_batches = {}, tables.num_windows // bs
+            ids = torch.arange(n_batches * bs, device=self.device)
+            for chunk in ids.view(n_batches, bs):
+                batch = steps.with_bank_features(tables.batch(chunk), v_bank,
+                                                 a_bank)
+                for k, val in self._val_step(self.state, batch).items():
+                    sums[k] = sums.get(k, 0.0) + val.float()
+            if n_batches:
+                host = torch.stack(list(sums.values())).cpu().tolist()
+                avg.update({k: s / n_batches for k, s in zip(sums, host)})
+        else:
+            for batch in batch_iterator(self.val_ds, bs, shuffle=False):
+                metrics = self._val_step(self.state, self._to_device(batch))
+                avg.update({k: float(v) for k, v in metrics.items()})
+        return self._log(avg, "val", epoch)
+
+    def _log(self, avg: LossAverager, split: str, epoch: int
+             ) -> Dict[str, float]:
+        stats = avg.averages()
+        log_json_stats(self.logger, {"split": split, "epoch": epoch + 1,
+                                     **stats})
+        if self.exp_logger is not None:
+            self.exp_logger.log({f"{split}/{k}": v for k, v in stats.items()})
+        return stats
+
+    # ------------------------------------------------------------------
+    def fit(self, epochs: Optional[int] = None, start_epoch: int = 0,
+            eval_mAP_gt=None) -> Dict[str, float]:
+        """Train and validate each epoch; the best model by validation
+        loss is checkpointed (``best_loss.pt``) beside the last
+        (``checkpoint.pt``) when ``output_dir`` is set; stops early after
+        ``early_stop_period`` epochs without a better loss."""
+        if eval_mAP_gt is not None:
+            raise NotImplementedError(f"fit(eval_mAP_gt=...): {_NOT_PORTED}")
+        epochs = epochs or self.tcfg.epochs
+        if self.state is None:
+            self.init_state()
+        final: Dict[str, float] = {}
+        for epoch in range(start_epoch, epochs):
+            self.train_epoch(epoch)
+            stats = self.validate(epoch)
+            final = stats
+            is_best = "none"
+            if stats.get("loss", float("inf")) < self.best_loss:
+                self.best_loss = stats["loss"]
+                self.last_best_epoch = epoch
+                is_best = "loss"
+            if self.output_dir:
+                ckpt.save_checkpoint(
+                    self.output_dir, self.state, epoch=epoch + 1,
+                    extra={"val_stats": {k: float(v)
+                                         for k, v in stats.items()}},
+                    is_best=is_best)
+            if (self.tcfg.early_stop_period > 0 and
+                    epoch - self.last_best_epoch >
+                    self.tcfg.early_stop_period):
+                self.logger.info("early stop at epoch %d", epoch + 1)
+                break
+        return final
+
+    def extract_dense_predictions(self, dataset=None, top_k=None):
+        raise NotImplementedError(f"extract_dense_predictions: {_NOT_PORTED}")
+
+    def evaluate_mAP(self, gt_columns, dataset=None, **kwargs):
+        raise NotImplementedError(f"evaluate_mAP: {_NOT_PORTED}")

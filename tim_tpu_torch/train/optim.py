@@ -1,9 +1,20 @@
-"""Learning-rate schedule: a copy of ``tim_tpu/train/optim.py``'s
-``warmup_cosine_schedule`` (plain Python floats, no JAX)."""
+"""Optimizer and learning-rate schedule: counterpart of
+``tim_tpu/train/optim.py``.
+
+``warmup_cosine_schedule`` is a copy in plain Python floats (the backbone
+runners set each param group's lr from it on the host).
+``make_optimizer`` is the TIM recipe, ``optax.apply_if_finite(chain(
+clip_by_global_norm, adamw), max_consecutive_errors=8)``, as one torch
+optimizer (``AdamWIfFinite``) whose every decision stays on the device:
+no step reads a value back to the host.
+"""
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Dict, Iterable
+
+import torch
 
 
 def warmup_cosine_schedule(lr: float, min_lr: float, total_steps: int,
@@ -19,3 +30,157 @@ def warmup_cosine_schedule(lr: float, min_lr: float, total_steps: int,
         return cosine * warm
 
     return schedule
+
+
+def warmup_cosine_schedule_fp32(lr: float, min_lr: float, total_steps: int,
+                                warmup_steps: int):
+    """``warmup_cosine_schedule`` of a device step count (an int tensor),
+    in fp32 on that device, as the JAX package computes it."""
+
+    def schedule(step: torch.Tensor) -> torch.Tensor:
+        t = torch.clamp(step, max=total_steps).float()
+        cosine = min_lr + 0.5 * (lr - min_lr) * (
+            1.0 + torch.cos(math.pi * t / max(total_steps, 1)))
+        if warmup_steps > 0:
+            cosine = cosine * torch.clamp((t + 1.0) / warmup_steps, max=1.0)
+        return cosine
+
+    return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (fp32, on the tensors'
+    device)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [t.float() for t in tensors])))
+
+
+class AdamWIfFinite(torch.optim.Optimizer):
+    """``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(
+    clip_norm), optax.adamw(schedule, b1, b2, eps, weight_decay)),
+    max_consecutive_errors)``:
+
+    - the gradients (a parameter without one counts as zeros, as JAX's
+      zero cotangent) are clipped to a global norm of ``clip_norm``
+      (scaled by ``clip_norm / norm`` when the norm reaches it);
+    - Adam moments with optax's bias correction, decoupled weight decay
+      on every parameter, lr ``schedule(count)``:
+      ``p += -lr * (mu_hat / (sqrt(nu_hat) + eps) + wd * p)``;
+    - a step whose gradients hold a NaN or inf is skipped: parameters and
+      moments stay, and ``count``, the number of applied updates that the
+      schedule and the bias correction read, does not advance. After
+      ``max_consecutive_errors`` skips in a row the next non-finite step
+      is applied anyway, as optax gives up.
+
+    The counters (``count``, ``notfinite_count``, ``total_notfinite``,
+    ``last_finite``) are device tensors, saved by ``state_dict``.
+    ``step()`` returns the gradients' global norm before clipping."""
+
+    COUNTERS = ("count", "notfinite_count", "total_notfinite",
+                "last_finite")
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], *,
+                 schedule: Callable[[torch.Tensor], torch.Tensor],
+                 weight_decay: float, clip_norm: float,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 max_consecutive_errors: int = 8):
+        super().__init__(params, dict(weight_decay=weight_decay,
+                                      betas=betas, eps=eps))
+        self.schedule = schedule
+        self.clip_norm = clip_norm
+        self.max_consecutive_errors = max_consecutive_errors
+        device = self.param_groups[0]["params"][0].device
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        self.counters: Dict[str, torch.Tensor] = {
+            "count": zero.clone(), "notfinite_count": zero.clone(),
+            "total_notfinite": zero.clone(),
+            "last_finite": torch.ones((), dtype=torch.bool, device=device)}
+
+    @torch.no_grad()
+    def step(self, closure=None) -> torch.Tensor:
+        if closure is not None:
+            raise ValueError("AdamWIfFinite.step takes no closure")
+        c = self.counters
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        norm = global_norm(grads)
+        finite = torch.isfinite(torch.stack(
+            torch._foreach_norm(grads, math.inf))).all()
+        c["notfinite_count"] = torch.where(finite, 0,
+                                           c["notfinite_count"] + 1)
+        apply = finite | (c["notfinite_count"]
+                          > self.max_consecutive_errors)
+        c["total_notfinite"] = torch.where(finite, c["total_notfinite"],
+                                           c["total_notfinite"] + 1)
+        c["last_finite"] = finite
+
+        # a skipped step's gradients become zeros and its clip scale 1, so
+        # that nothing below turns finite state into NaN; its lr and
+        # moment weights of 0 then keep the state as it is
+        grads = [torch.where(apply, g, 0.0) for g in grads]
+        clip = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
+        torch._foreach_mul_(grads, torch.where(apply, clip, 1.0))
+        lr = torch.where(apply, self.schedule(c["count"]), 0.0)
+        t = (c["count"] + 1).float()
+        start = 0
+        for group in self.param_groups:
+            n = len(group["params"])
+            self._adamw(group, params[start:start + n],
+                        grads[start:start + n], apply, lr, t)
+            start += n
+        c["count"] = c["count"] + apply.int()
+        return norm
+
+    def _adamw(self, group, params, grads, apply, lr, t):
+        b1, b2 = group["betas"]
+        for p in params:
+            if not self.state[p]:
+                self.state[p]["exp_avg"] = torch.zeros_like(p)
+                self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
+        mu = [self.state[p]["exp_avg"] for p in params]
+        nu = [self.state[p]["exp_avg_sq"] for p in params]
+        one = torch.ones((), device=lr.device)
+        # mu = b1 mu + (1 - b1) g and nu = b2 nu + (1 - b2) g^2 when the
+        # step applies, else mu and nu times 1 plus 0
+        torch._foreach_mul_(mu, torch.where(apply, b1, one))
+        torch._foreach_add_(mu, torch._foreach_mul(
+            grads, torch.where(apply, 1.0 - b1, 0.0)))
+        torch._foreach_mul_(nu, torch.where(apply, b2, one))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, torch.where(apply, 1.0 - b2, 0.0))
+        torch._foreach_add_(nu, sq)
+        den = torch._foreach_div(nu, 1.0 - torch.pow(b2 * one, t))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, group["eps"])
+        upd = torch._foreach_div(mu, 1.0 - torch.pow(b1 * one, t))
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(upd, torch._foreach_mul(
+            params, group["weight_decay"]))
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+
+    def state_dict(self):
+        out = super().state_dict()
+        out["if_finite"] = {k: v.clone() for k, v in self.counters.items()}
+        return out
+
+    def load_state_dict(self, state_dict) -> None:
+        state_dict = dict(state_dict)
+        counters = state_dict.pop("if_finite")
+        super().load_state_dict(state_dict)
+        for k in self.COUNTERS:
+            self.counters[k] = counters[k].to(self.counters[k].device)
+
+
+def make_optimizer(params, lr: float, weight_decay: float, total_steps: int,
+                   warmup_steps: int, *, min_lr: float = 1e-6,
+                   clip_norm: float = 1.0) -> AdamWIfFinite:
+    """The TIM recipe: global-norm clip, AdamW (betas 0.9, 0.999, eps 1e-8,
+    decay on every parameter) on the warmup-cosine schedule, non-finite
+    steps skipped (up to 8 in a row)."""
+    return AdamWIfFinite(
+        params, schedule=warmup_cosine_schedule_fp32(lr, min_lr, total_steps,
+                                                     warmup_steps),
+        weight_decay=weight_decay, clip_norm=clip_norm, betas=(0.9, 0.999),
+        eps=1e-8, max_consecutive_errors=8)
