@@ -103,7 +103,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
         the paths within 1e-3, bf16 vs fp32 within 2e-2 relative;
      d. the state saved, ``resume``d into a fresh runner (step,
         normaliser, optimizer state and parameters equal), one more step
-        from both: parameters within 1e-5 of each tensor's largest.
+        from both: parameters within 1e-5 of each tensor's largest;
+ 18. the detection mAP chain, on phase 16's runner (its regression heads'
+     two sigmoids biased apart) and validation split:
+     ``extract_dense_predictions`` top-8 on the banked path (kernel 1 six
+     times a batch) and the host path (the same rows, within 1e-3), the
+     top-8 columns against a dense dump of 64 windows, ``evaluate_detections``
+     of the banked dump against the split's GT (seconds of the dump and of
+     the evaluation); an fp32 dump of 4 windows card vs CPU (within 1e-3)
+     and their avg mAP against GT made of the CPU dump's best detections
+     (within 1e-6); the GT fed back as predictions gives avg mAP 1.0;
+ 17. TIM recognition at the full width of ``epic_recognition`` (4
+     layers, heads 97/300/3806/44), the class heads' weights x4 so that
+     random logits spread, on synthetic splits of 484 windows from numpy:
+     a. the fp32 forward of 2 windows card vs CPU (1e-3 of the largest
+        logit; kernel 1 once a layer);
+     b. kernel 1 against its plain version at the recognition shapes,
+        serving [64, 8, 4, 128] and validation [64, 8, 3 nv + na, 128],
+        fp32 and bf16 (the gate rejecting the self term dropped), timed
+        beside its plain version and masked SDPA;
+     c. ``RecognitionServer.classify_intervals`` (ensemble 5, batch 64) of
+        200 intervals of a synthetic 300 s video in fp32, bf16, int8
+        static and bf16 with the fused tail (kernel 1 four times a batch
+        on each, kernel 2 only on the last, kernel 3 never): device and
+        wall intervals/s; bf16 vs fp32 probabilities within 0.1; int8 vs
+        fp32 top-1 agreement >= 0.75 and probabilities within 0.25;
+     d. an fp32 train step at depth 2 card vs CPU (losses 1e-4 relative,
+        gradients 1e-3 of each largest but the k bias); 2 + 5 bf16
+        ``RecognitionRunner`` steps on the banked path at batch 64, every
+        dropout on, mixup 0.2, drloc 0.3 (ms a step, windows/s, peak
+        memory; kernels 1 and 2 never), one host-path step; the state
+        resumed into a fresh runner, one more step from both bit-equal;
+     e. ``validate`` banked and host (statistics within 1e-5, kernel 1 four
+        times a batch), two banked vote sums bit-equal, and
+        ``extract_predictions`` on both paths.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -114,6 +147,7 @@ last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -2612,7 +2646,8 @@ def phase_det_resume(runner, train_ds):
 
 
 def phase_detection_training():
-    """Phase 16; returns the launches of the train and validation paths."""
+    """Phases 16 and 18; returns the launches of the train, validation and
+    mAP paths."""
     from tim_tpu_torch import config as C
     cfg = C.epic_detection()
     rng = np.random.default_rng(SEED + 3)
@@ -2629,10 +2664,874 @@ def phase_detection_training():
                                          val_ds)
     summary["resume"] = timed("det-resume", phase_det_resume, runner,
                               train_ds)
+    map_launches, summary["map"] = timed("det-map", phase_det_map, runner,
+                                         val_ds)
     log(f"[det] summary {json.dumps(summary)}")
     del runner
     torch.cuda.empty_cache()
-    return {"det-train": train_launches, "det-val": val_launches}
+    return {"det-train": train_launches, "det-val": val_launches,
+            "det-map": map_launches}
+
+
+# Phase 17: TIM recognition at the full width of ``epic_recognition``
+# (d_model 512, encoder 1024, 8 heads of 128, 4 layers, FFN 2048, 100
+# context tokens, heads 97/300/3806/44), random weights from the seed.
+REC_BATCH, REC_WARMUP, REC_STEPS = 64, 2, 5
+REC_INTERVALS, REC_ENSEMBLE = 200, 5
+REC_SLICE_TOL = 1e-3        # fp32 logits card vs CPU, of the largest
+REC_BF16_DP = 0.1           # bf16 vs fp32 serving probabilities
+# int8 static vs fp32 serving: tests/test_serve.py's contract
+REC_INT8_AGREE, REC_INT8_DP = 0.75, 0.25
+REC_VAL_RTOL = 1e-5         # banked vs host validation statistics
+REC_METRIC_RTOL = 1e-4      # fp32 train step, card vs CPU: losses
+# Random class heads give near-uniform scores over 3806 classes, whose
+# top-1 any rounding flips; their weights are scaled up so that the
+# logits spread (std ~2) and the top-1 and agreement gates mean something.
+REC_HEAD_GAIN = 4.0
+
+
+def rec_split(cfg, videos, rng, *, seconds=150.0, num_aug=2, per_video=40):
+    """A synthetic recognition split built from numpy alone (no pandas):
+    ``videos`` videos of ``seconds`` s, a 1 s feature every 0.2 s
+    (``num_aug`` augmentation sets, real widths), 30 s windows at a 1 s
+    stride (feature stride 3), ``per_video`` visual and as many audio
+    actions a video of 1-8 s, each with its own action id; a window's
+    queries are the actions fully inside it (every action is inside one).
+    Returns a ``RecognitionDataset`` (121 windows a video)."""
+    from tim_tpu_torch.data.dataset import FeatureStore, RecognitionDataset
+    from tim_tpu_torch.data.windows import (
+        Window, WindowSet, window_feat_indices)
+    size, gap, stride = 30.0, 0.2, 3
+    vc = cfg.visual_classes
+    feats = {"v": {}, "a": {}}
+    times, windows = {}, []
+    max_v = max_a = next_id = 0
+    for i in range(videos):
+        vid = f"P{i:02d}_{i:02d}"
+        starts = np.arange(0.0, seconds - 1.0, gap, dtype=np.float32)
+        times[vid] = np.stack([starts, starts + 1.0], -1)
+        for m, dim in (("v", cfg.visual_input_dim),
+                       ("a", cfg.audio_input_dim)):
+            feats[m][vid] = rng.standard_normal(
+                (len(starts), num_aug, dim), dtype=np.float32)
+        acts = []
+        for prefix in ("v", "a"):
+            start = rng.uniform(0.0, seconds - 8.0, per_video)
+            stop = start + rng.uniform(1.0, 8.0, per_video)
+            labels = -np.ones((per_video, 4), np.int64)
+            if prefix == "v":
+                for col, n in enumerate((vc[0], vc[1], vc[-1])):
+                    labels[:, col] = rng.integers(0, n, per_video)
+            else:
+                labels[:, 3] = rng.integers(0, cfg.audio_classes, per_video)
+            ids = np.arange(next_id, next_id + per_video)
+            next_id += per_video
+            acts.append((prefix, np.stack([start, stop], -1).astype(
+                np.float32), labels, ids))
+        for w in range(int(seconds - size) + 1):
+            lo, hi = float(w), float(w) + size
+            win = Window(video_id=vid, start_sec=lo, stop_sec=hi,
+                         feat_indices=window_feat_indices(
+                             times[vid], lo, hi, stride, cfg.num_feats))
+            for prefix, q, lab, ids in acts:
+                inside = np.flatnonzero((q[:, 0] >= lo) & (q[:, 1] <= hi))
+                setattr(win, f"{prefix}_queries", q[inside])
+                setattr(win, f"{prefix}_labels", lab[inside])
+                setattr(win, f"{prefix}_action_ids", ids[inside])
+                setattr(win, f"{prefix}_narration_ids",
+                        [f"{prefix}_{j}" for j in ids[inside]])
+            max_v = max(max_v, len(win.v_queries))
+            max_a = max(max_a, len(win.a_queries))
+            windows.append(win)
+    ws = WindowSet(windows=windows, max_visual_actions=max_v,
+                   max_audio_actions=max_a, num_actions=next_id,
+                   window_size=size)
+    return RecognitionDataset(ws, FeatureStore(feats["v"], times),
+                              FeatureStore(feats["a"], times),
+                              rng=np.random.default_rng(SEED))
+
+
+class EventTimed:
+    """``fn`` with each call's device time recorded by CUDA events."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.events = []
+
+    def __call__(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def device_ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def zero_counts():
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counts(counters):
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def rec_cpu_model(cfg):
+    """A full-width ``TimRecognition`` on the CPU from the seed, its class
+    heads scaled by REC_HEAD_GAIN, and its state dict."""
+    from tim_tpu_torch.models import TimRecognition
+    model = TimRecognition(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for name, p in model.cls_head.named_parameters():
+            if name.endswith("weight"):
+                p.mul_(REC_HEAD_GAIN)
+    return model, model.state_dict()
+
+
+def rec_inputs(cfg, b, nv, na, rng, device):
+    """A random forward batch (v, a, times) on ``device``."""
+    f = cfg.num_feats
+    v = rng.normal(size=(b, f, cfg.visual_input_dim)).astype(np.float32)
+    a = rng.normal(size=(b, f, cfg.audio_input_dim)).astype(np.float32)
+    t = np.sort(rng.uniform(0, 1, (b, cfg.num_context + nv + na, 2)),
+                -1).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (v, a, t))
+
+
+def phase_rec_slice_fp32(rng):
+    """17a: the fp32 forward of full-width ``TimRecognition`` on 2 windows
+    (3 visual queries a head, 2 audio), card vs CPU, kernel 1 once a
+    layer on the card; returns the state dict."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.models import TimRecognition
+    cfg = C.epic_recognition(compute_dtype="float32")
+    cpu_model, sd = rec_cpu_model(cfg)
+    gpu_model = TimRecognition(cfg, device="cuda")
+    gpu_model.load_state_dict(sd, strict=True)
+    nv, na = 3, 2
+    inputs = rec_inputs(cfg, 2, nv, na, rng, "cpu")
+    counters = zero_counts()
+    with torch.inference_mode():
+        got, gctx = gpu_model(*(x.cuda() for x in inputs), nv, na)
+    launches = read_counts(counters)
+    with torch.inference_mode():
+        want, wctx = cpu_model(*inputs, nv, na)
+    require(launches["query_block_attention"] == cfg.num_layers,
+            f"rec-slice-fp32: launches {launches}")
+    worst = 0.0
+    for name, g, w in zip(("verb", "noun", "action", "audio"), got, want):
+        rel = max_err(g.cpu(), w) / w.abs().max().item()
+        worst = max(worst, rel)
+        log(f"[rec-slice-fp32] {name} logits {tuple(w.shape)}: card vs CPU "
+            f"max abs {max_err(g.cpu(), w):.3e}, {rel:.3e} of the largest "
+            f"{w.abs().max().item():.3f} (tol {REC_SLICE_TOL})")
+        require(bool(torch.isfinite(g).all()) and rel <= REC_SLICE_TOL,
+                f"rec-slice-fp32 {name}: {rel} > {REC_SLICE_TOL}")
+    ctx_rel = max_err(gctx.cpu(), wctx) / wctx.abs().max().item()
+    require(ctx_rel <= REC_SLICE_TOL, f"rec-slice-fp32 context {ctx_rel}")
+    log(f"[rec-slice-fp32] context tokens within {ctx_rel:.3e}; launches "
+        f"{launches}")
+    return sd, {"logits_rel": worst, "context_rel": ctx_rel}
+
+
+def rec_qkv_views(batch, nq, dtype, gen, f=100, heads=8, dh=128):
+    """Kernel 1's inputs as a recognition layer hands them over: strided
+    [B, H, S, dh] views of one packed projection of S = F + Nq tokens."""
+    s, width = f + nq, heads * dh
+    qkv = torch.randn(batch, s, 3 * width, generator=gen, device="cuda")
+    q, k, v = qkv.to(dtype).view(batch, s, 3, heads, dh).permute(
+        2, 0, 3, 1, 4)
+    return (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
+
+
+def phase_rec_kernels(gen, nq_val):
+    """17b: kernel 1 against its plain version at the recognition shapes:
+    serving [64, 8, 4, 128] (one query a head: verb, noun, action, audio)
+    and validation [64, 8, 3 nv + na, 128], fp32 and bf16 (the bf16 gate
+    shown to reject the self term dropped); timed in bf16 beside the plain
+    version and masked SDPA, with the bound."""
+    from tim_tpu_torch.ops import query_block_attention as qba
+    report = {}
+    for tag, nq in (("serve", 4), ("val", nq_val)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = rec_qkv_views(REC_BATCH, nq, dtype, gen)
+            got = qba.query_block_attention(*args)
+            want = qba.query_block_attention_plain(*args)
+            ok, err, rel = query_block_close(got, want)
+            log(f"[rec-kernels] query_block_attention {tag} {dtype} "
+                f"{tuple(got.shape)}: max_abs_err={err:.3e}, relative RMS "
+                f"{rel:.3e}")
+            require(ok, f"rec-kernels {tag} {dtype}: kernel 1 disagrees "
+                    f"({err}, {rel})")
+        c_ok, c_err, _ = query_block_close(
+            query_block_without_self(*args), want)
+        log(f"[rec-kernels] {tag} bf16 control 'self term dropped': max abs "
+            f"{c_err:.3e}, {'passes' if c_ok else 'rejected'}")
+        require(not c_ok, f"rec-kernels {tag}: the bf16 gate passes the "
+                f"self term dropped")
+        b, h, _, dh = args[0].shape
+        f = args[1].shape[2]
+        ms, host_ms = device_ms(lambda: qba.query_block_attention(*args))
+        plain_ms = cuda_ms(lambda: qba.query_block_attention_plain(*args))
+        sdpa = masked_sdpa_args(*args)
+        library_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+            sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3]))
+        bound_ms, by = bound(nbytes(*args) + nbytes(got),
+                             4 * b * h * nq * (f + 1) * dh, "bf16")
+        report[tag] = {"shape": [b, h, nq, dh], "max_abs_err": err,
+                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": by}
+        log(f"[rec-kernels] query_block_attention {tag} bf16 "
+            f"{[b, h, nq, dh]}: kernel {ms:.4f} ms (host {host_ms:.4f} ms a "
+            f"call), plain {plain_ms:.4f} ms, masked SDPA "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({by}, "
+            f"{100 * bound_ms / ms:.1f}%)")
+        del args, got, want, sdpa
+    return report
+
+
+def rec_video(cfg, rng, n_intervals=REC_INTERVALS):
+    """A ~300 s video (a feature every 0.2 s) and ``n_intervals`` random
+    intervals of 1-8 s in it."""
+    v, a, feat_times, duration = synthetic_video(cfg, rng)
+    start = rng.uniform(0.0, duration - 9.0, n_intervals)
+    intervals = np.stack([start, start + rng.uniform(1.0, 8.0, n_intervals)],
+                         -1).astype(np.float32)
+    return v, a, feat_times, intervals
+
+
+def rec_calibration_batch(cfg, video, n, window_size=30.0):
+    """(v, a, times) of the first ``n`` intervals, each in its first
+    covering window, assembled as ``classify_intervals`` assembles them."""
+    from tim_tpu_torch.data.windows import window_feat_indices
+    v, a, feat_times, intervals = video
+    vs, as_, ts = [], [], []
+    for s, e in intervals[:n]:
+        ws = max(0.0, float(np.ceil(max(0.0, e - window_size))))
+        idx = window_feat_indices(feat_times, ws,
+                                  min(ws + window_size, feat_times[-1, 1]),
+                                  3, cfg.num_feats)
+        t = np.concatenate([feat_times[idx, :2]] * 2
+                           + [np.asarray([[s, e]], np.float32)] * 2)
+        vs.append(v[idx])
+        as_.append(a[idx])
+        ts.append(np.clip((t - ws) / window_size, 0.0, None))
+    return tuple(np.stack(x).astype(np.float32) for x in (vs, as_, ts))
+
+
+def rec_serve_run(tag, server, video, per_batch):
+    """A warm-up on 8 intervals, then ``classify_intervals`` over the
+    video's intervals with every count set to 0 just before and read just
+    after; its forwards timed by CUDA events. Returns (scores, launches,
+    metrics)."""
+    v, a, feat_times, intervals = video
+    server.classify_intervals(v, a, feat_times, intervals[:8])
+    jobs = sum(len(server._covering_windows(float(s), float(e)))
+               for s, e in intervals)
+    n_batches = -(-jobs // server.batch_size)
+    model = server.model
+    server.model = timed_model = EventTimed(model)
+    try:
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        out = server.classify_intervals(v, a, feat_times, intervals)
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        server.model = model
+    device = timed_model.device_ms()
+    n = len(intervals)
+    log(f"[{tag}] {n} intervals, {jobs} windows in {n_batches} batches of "
+        f"{server.batch_size}: device {device:.3f} ms, "
+        f"{n / (device / 1e3):.2f} device intervals/s; wall {wall:.3f} s, "
+        f"{n / wall:.2f} wall intervals/s; launches {launches}")
+    require(sorted(out) == ["action", "audio", "noun", "verb"],
+            f"{tag}: heads {sorted(out)}")
+    for name, p in out.items():
+        require(bool(np.isfinite(p).all()) and p.shape[0] == n
+                and np.allclose(p.sum(-1), 1.0, atol=1e-6),
+                f"{tag} {name}: not a distribution per interval")
+    require_launches(tag, launches, per_batch, n_batches)
+    if server.cfg.compute_dtype == "bfloat16":
+        require_steady(tag, launches, n_batches)
+    return out, launches, {
+        "intervals": n, "windows": jobs, "batches": n_batches,
+        "device_ms": device, "device_intervals_per_s": n / (device / 1e3),
+        "wall_s": wall, "wall_intervals_per_s": n / wall}
+
+
+def score_agreement(got, want):
+    """(top-1 agreement over every head's intervals, max |delta p|)."""
+    agree = total = 0
+    dp = 0.0
+    for head in want:
+        agree += int((got[head].argmax(-1) == want[head].argmax(-1)).sum())
+        total += len(want[head])
+        dp = max(dp, float(np.abs(got[head] - want[head]).max()))
+    return agree / total, dp
+
+
+def phase_rec_serve(sd, rng):
+    """17c: ``RecognitionServer.classify_intervals`` (ensemble 5, batch 64)
+    over 200 intervals of a synthetic 300 s video in fp32, bf16, int8
+    static (calibrated on 16 of the intervals' windows) and bf16 with the
+    fused tail (kernel 2): kernel 1 once a layer a batch on every path,
+    kernel 2 only with the fused tail, kernel 3 never (int8 recognition
+    heads are the static int8 linear, as in JAX); bf16 and int8 scores
+    against fp32."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.serve import RecognitionServer
+    video = rec_video(C.epic_recognition(), rng)
+    kw = dict(device="cuda", ensemble=REC_ENSEMBLE, batch_size=REC_BATCH)
+    layers = C.epic_recognition().num_layers
+    plain = {"query_block_attention": layers, "fused_post_attention": 0,
+             "int8_matmul_fused": 0}
+    runs, launches, metrics = {}, {}, {}
+    for tag, cfg, quantized in (
+            ("serve-rec-fp32", C.epic_recognition(compute_dtype="float32"),
+             False),
+            ("serve-rec-bf16", C.epic_recognition(), False),
+            ("serve-rec-int8", C.epic_recognition(), True),
+            ("serve-rec-fused", C.epic_recognition(use_fused_ffn=True),
+             False)):
+        t0 = time.perf_counter()
+        if quantized:
+            server = RecognitionServer.quantized(
+                cfg, sd, [rec_calibration_batch(cfg, video, 16)], **kw)
+        else:
+            server = RecognitionServer(cfg, sd, **kw)
+        log(f"[{tag}] server built in {time.perf_counter() - t0:.2f} s")
+        per_batch = dict(plain)
+        if cfg.use_fused_ffn:
+            per_batch["fused_post_attention"] = layers
+        runs[tag], launches[tag], metrics[tag] = rec_serve_run(
+            tag, server, video, per_batch)
+        del server
+        torch.cuda.empty_cache()
+    want = runs["serve-rec-fp32"]
+    for tag, limit, agree_min in (
+            ("serve-rec-bf16", REC_BF16_DP, None),
+            ("serve-rec-fused", REC_BF16_DP, None),
+            ("serve-rec-int8", REC_INT8_DP, REC_INT8_AGREE)):
+        agree, dp = score_agreement(runs[tag], want)
+        metrics[tag].update(top1_agreement_vs_fp32=agree, max_dp_vs_fp32=dp)
+        log(f"[{tag}] vs fp32: top-1 agreement {agree:.4f}, max |dp| "
+            f"{dp:.4e} (tol {limit}"
+            + (f", agreement >= {agree_min})" if agree_min else ")"))
+        require(dp <= limit, f"{tag}: max |dp| vs fp32 {dp} > {limit}")
+        if agree_min is not None:
+            require(agree >= agree_min, f"{tag}: top-1 agreement {agree} < "
+                    f"{agree_min}")
+    top = want["action"].max(-1)
+    log(f"[serve-rec] fp32 action top-1 probability: median "
+        f"{np.median(top):.4f}, min {top.min():.4f}")
+    return launches, metrics
+
+
+def rec_runner(cfg, train_ds, val_ds, banked, **tkw):
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.runner.recognition import RecognitionRunner
+    tcfg = C.TrainConfig(batch_size=REC_BATCH, epochs=1, seed=SEED, **tkw)
+    runner = RecognitionRunner(cfg, tcfg, train_ds, val_ds, print_freq=1000,
+                               use_device_bank=banked, device="cuda")
+    runner.init_state()
+    return runner
+
+
+def phase_rec_grad_slice_fp32(train_ds):
+    """17d (i): one fp32 train step of full-width ``epic_recognition``
+    cut to 2 encoder layers (every dropout rate 0, mixup 0.2, drloc 0.3)
+    on 2 windows, on the card and on the CPU with the same draws: losses
+    and every parameter gradient (the middle third of ``in_proj_bias``,
+    the k bias, whose gradient is 0 in exact arithmetic, excepted)."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.data.dataset import batch_iterator
+    from tim_tpu_torch.models import TimRecognition
+    from tim_tpu_torch.train.recognition import make_train_step
+    cfg = C.epic_recognition(compute_dtype="float32", num_layers=2,
+                             enc_dropout=0.0, feat_dropout=0.0,
+                             seq_dropout=0.0)
+    tcfg = C.TrainConfig(mixup_alpha=0.2, lambda_drloc=0.3)
+    cpu_model = TimRecognition(cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(SEED))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    train_ds.sample_augmentations = False
+    batch = next(batch_iterator(train_ds, 2, shuffle=False))
+    train_ds.sample_augmentations = True
+    ws = train_ds.windows
+    nv, na = ws.max_visual_actions, ws.max_audio_actions
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        state = det_state(model, tcfg)
+        grads = captured_grads(state)
+        counters = zero_counts()
+        metrics = make_train_step(model, cfg, tcfg, nv, na)(
+            state, {k: torch.from_numpy(np.asarray(v)).to(dev)
+                    for k, v in batch.items() if not k.startswith("_")
+                    and not k.endswith("action_ids")})
+        out[dev] = ({k: float(v) for k, v in metrics.items()}, grads,
+                    read_counts(counters))
+    (gm, gg, launches), (cm, cg, _) = out["cuda"], out["cpu"]
+    require(attention_launches(launches) == 0,
+            f"rec fp32 train step launched {launches}")
+    rels = {k: abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30) for k in cm}
+    worst_m = max(rels.values())
+    log(f"[rec-grad-slice] metrics card vs CPU: "
+        f"{json.dumps({k: [gm[k], cm[k]] for k in sorted(cm)})}; worst "
+        f"relative {worst_m:.3e} (tol {REC_METRIC_RTOL})")
+    require(sorted(gm) == sorted(cm) and worst_m <= REC_METRIC_RTOL,
+            f"rec fp32 slice metrics: {worst_m} > {REC_METRIC_RTOL}")
+    require(len(cg) == len(list(cpu_model.parameters())) == len(gg),
+            "rec fp32 slice: gradients missing")
+    worst, worst_name = 0.0, ""
+    for name in cg:
+        g, c = gg[name].cpu(), cg[name]
+        if name.endswith("in_proj_bias"):
+            third = len(c) // 3
+            g = torch.cat([g[:third], g[2 * third:]])
+            c = torch.cat([c[:third], c[2 * third:]])
+        require(bool(torch.isfinite(g).all()), f"rec {name}: non-finite")
+        rel = max_err(g, c) / max(c.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+        require(rel <= GRAD_SLICE_TOL, f"rec fp32 gradient {name}: card vs "
+                f"CPU {rel} of its largest value > {GRAD_SLICE_TOL}")
+    log(f"[rec-grad-slice] {len(cg)} parameter gradients within {worst:.3e} "
+        f"of each tensor's largest value (worst {worst_name}; tol "
+        f"{GRAD_SLICE_TOL})")
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return {"grad_rel": worst, "metric_rel": worst_m}
+
+
+def phase_rec_train(train_ds, val_ds):
+    """17d (ii): ``RecognitionRunner.train_epoch`` on the banked path over
+    7 batches of 64 windows, bf16, every dropout of the preset on, mixup
+    0.2, drloc 0.3: 2 warm-up steps, then 5 timed steps with every count
+    set to 0 just before them and read just after; then one step on the
+    host path."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.data.dataset import batch_iterator
+    runner = rec_runner(C.epic_recognition(), train_ds, val_ds, True,
+                        mixup_alpha=0.2, lambda_drloc=0.3)
+    require(runner._tables.num_windows // REC_BATCH
+            == REC_WARMUP + REC_STEPS,
+            f"rec split of {runner._tables.num_windows} windows")
+    before = [p.detach().clone() for p in runner.model.parameters()]
+    step = runner._bank_step
+    metrics, marks = [], {}
+    timed_step = EventTimed(step)
+
+    def counted(state, batch):
+        if len(metrics) == REC_WARMUP:
+            marks["counters"] = zero_counts()
+            timed_step.events.clear()
+            marks["t0"] = time.perf_counter()
+        out = timed_step(state, batch)
+        metrics.append(out)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    runner._bank_step = counted
+    try:
+        runner.train_epoch(0)
+    finally:
+        runner._bank_step = step
+    launches = read_counts(marks["counters"])
+    wall = time.perf_counter() - marks["t0"]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in timed_step.events]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    moved = sum(int(not torch.equal(b, p.detach()))
+                for b, p in zip(before, runner.model.parameters()))
+    ms = sum(step_ms) / len(step_ms)
+    # one step on the host path: a numpy batch moved to the card
+    host_batch = runner._to_device(next(batch_iterator(
+        train_ds, REC_BATCH, shuffle=False)))
+    host_timed = EventTimed(runner._train_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_metrics = host_timed(runner.state, host_batch)
+    host_loss = float(host_metrics["loss"])
+    host_wall = (time.perf_counter() - t0) * 1e3
+    host_ms = host_timed.device_ms()
+    log(f"[rec-train] {len(step_ms)} banked steps of batch {REC_BATCH} "
+        f"(S = {runner.model.cfg.num_context + 3 * runner.nv + runner.na}): "
+        f"device {ms:.3f} ms per step ({', '.join(f'{x:.3f}' for x in step_ms)}),"
+        f" {REC_BATCH / (ms / 1e3):.2f} device windows/s; wall {wall:.3f} s,"
+        f" {REC_STEPS * REC_BATCH / wall:.2f} wall windows/s; peak "
+        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.4f}' for x in norms)}; launches {launches}")
+    log(f"[rec-train] host-path step: device {host_ms:.3f} ms, wall "
+        f"{host_wall:.3f} ms, loss {host_loss:.5f}")
+    require(len(step_ms) == REC_STEPS, f"rec-train: {len(step_ms)} steps")
+    require(all(np.isfinite(losses + norms + [host_loss])),
+            "rec-train: non-finite loss or gradient norm")
+    require(moved == len(before), f"rec-train: {len(before) - moved} of "
+            f"{len(before)} parameter tensors did not move")
+    require(attention_launches(launches) == 0,
+            f"rec-train: launches {launches}, expected no kernel 1, 2 or "
+            f"other attention kernel in a train step")
+    require_steady("rec-train", launches, REC_STEPS)
+    return runner, launches, {
+        "batch": REC_BATCH, "steps": REC_STEPS, "ms_per_step": ms,
+        "step_ms": step_ms, "device_windows_per_s": REC_BATCH / (ms / 1e3),
+        "wall_s": wall, "wall_windows_per_s": REC_STEPS * REC_BATCH / wall,
+        "peak_bytes": peak, "losses": losses, "grad_norms": norms,
+        "host_step_device_ms": host_ms, "host_step_wall_ms": host_wall}
+
+
+def rec_validate(tag, runner):
+    """``runner.validate()`` with every count set to 0 just before and
+    read just after, its eval steps timed by CUDA events. Returns (stats,
+    launches, metrics)."""
+    step = runner._eval_step
+    runner._eval_step = timed_eval = EventTimed(step)
+    try:
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        stats = runner.validate()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        runner._eval_step = step
+    n_batches = len(timed_eval.events)
+    windows = runner.val_ds.windows
+    n = len(windows.windows)
+    device = timed_eval.device_ms()
+    log(f"[{tag}] {n} windows in {n_batches} batches of {REC_BATCH}: device "
+        f"{device:.3f} ms, {n / (device / 1e3):.2f} device windows/s; wall "
+        f"{wall:.3f} s, {n / wall:.2f} wall windows/s; stats "
+        f"{json.dumps(stats)}; launches {launches}")
+    require(all(np.isfinite(v) for v in stats.values()),
+            f"{tag}: non-finite statistics")
+    require(launches["query_block_attention"]
+            == runner.cfg.num_layers * n_batches
+            and launches["fused_post_attention"] == 0,
+            f"{tag}: launches {launches}, expected kernel 1 "
+            f"{runner.cfg.num_layers} x {n_batches} batches, kernel 2 never")
+    require_steady(tag, launches, n_batches)
+    return stats, launches, {
+        "windows": n, "batches": n_batches, "device_ms": device,
+        "device_windows_per_s": n / (device / 1e3), "wall_s": wall,
+        "wall_windows_per_s": n / wall}
+
+
+def phase_rec_val(runner, val_ds):
+    """17e: ``validate`` of the trained weights in bf16 on the banked path
+    (twice: the vote sums bit-equal) and on the host path (every statistic
+    within REC_VAL_RTOL); ``extract_predictions`` on both paths."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.evals.meters import WindowVoteAccumulator
+    from tim_tpu_torch.runner.recognition import _head_spec
+    banked, launches, m_banked = rec_validate("rec-val-banked", runner)
+    host_runner = rec_runner(C.epic_recognition(), None, val_ds, False)
+    host_runner.load_torch_checkpoint(runner.model.state_dict())
+    host, _, m_host = rec_validate("rec-val-host", host_runner)
+    require(sorted(banked) == sorted(host), "rec-val: statistic keys differ")
+    rel = max(abs(banked[k] - host[k]) / max(abs(host[k]), 1e-30)
+              for k in host)
+    accs = []
+    for _ in range(2):
+        acc = WindowVoteAccumulator(val_ds.windows.num_actions,
+                                    _head_spec(runner.cfg))
+        runner._run_bank_accum(acc)
+        accs.append(acc)
+    same = all(np.array_equal(accs[0].sums[h], accs[1].sums[h])
+               for h in accs[0].sums)
+    log(f"[rec-val] banked vs host statistics within {rel:.3e} (tol "
+        f"{REC_VAL_RTOL}); two banked vote sums bit-equal: {same}")
+    require(rel <= REC_VAL_RTOL, f"rec-val: banked vs host {rel}")
+    require(same, "rec-val: two banked validations differ")
+    t0 = time.perf_counter()
+    dump = runner.extract_predictions()
+    dump_s = time.perf_counter() - t0
+    dump_host = host_runner.extract_predictions()
+    worst = max(float(np.abs(dump[k] - dump_host[k]).max())
+                for k in ("verb", "noun", "action", "audio"))
+    n_v = len(dump["v_narration_ids"])
+    log(f"[rec-val] extract_predictions (banked) {dump_s:.3f} s: action "
+        f"{dump['action'].shape}, audio {dump['audio'].shape}; banked vs "
+        f"host scores within {worst:.3e}")
+    require(dump["action"].shape[0] == n_v
+            and dump_host["v_narration_ids"] == dump["v_narration_ids"]
+            and np.allclose(dump["action"].sum(1), 1.0, atol=1e-6)
+            and worst <= REC_VAL_RTOL,
+            f"rec-val: extract_predictions differ ({worst})")
+    del host_runner
+    torch.cuda.empty_cache()
+    return launches, {"banked": m_banked, "host": m_host, "paths_rel": rel,
+                      "extract_s": dump_s, "extract_rel": worst}
+
+
+def phase_rec_resume(runner, train_ds):
+    """17d (iii): save the state after the timed steps, ``resume`` it into
+    a fresh runner; one more banked step from both: bit-equal
+    parameters."""
+    import tempfile
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.train.checkpoint import save_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, runner.state, epoch=1)
+        fresh = rec_runner(C.epic_recognition(), train_ds, None, True,
+                           mixup_alpha=0.2, lambda_drloc=0.3)
+        epoch = fresh.resume(tmp)
+    require(epoch == 1 and fresh.state.step == runner.state.step,
+            f"rec-resume: epoch {epoch}, step {fresh.state.step}")
+    ids = torch.arange(REC_BATCH, device="cuda")
+    for r in (runner, fresh):
+        r._bank_step(r.state, r._tables.batch(ids))
+    pairs = list(zip(runner.model.parameters(), fresh.model.parameters()))
+    equal = sum(int(torch.equal(p, q)) for p, q in pairs)
+    log(f"[rec-resume] one more step from the resumed and the uninterrupted "
+        f"state: {equal} of {len(pairs)} parameter tensors bit-equal")
+    require(equal == len(pairs), f"rec-resume: {len(pairs) - equal} tensors "
+            f"differ")
+    del fresh
+    torch.cuda.empty_cache()
+    return {"bit_equal": equal, "tensors": len(pairs)}
+
+
+def phase_recognition(gen):
+    """Phase 17; returns (kernel 1's recognition report, launches by
+    path)."""
+    from tim_tpu_torch import config as C
+    cfg = C.epic_recognition()
+    rng = np.random.default_rng(SEED + 4)
+    t0 = time.perf_counter()
+    train_ds, val_ds = rec_split(cfg, 4, rng), rec_split(cfg, 4, rng)
+    # one query count a head for both splits (the banked eval step's
+    # shapes are the train split's)
+    for key in ("max_visual_actions", "max_audio_actions"):
+        most = max(getattr(ds.windows, key) for ds in (train_ds, val_ds))
+        for ds in (train_ds, val_ds):
+            setattr(ds.windows, key, most)
+    ws = val_ds.windows
+    nq_val = 3 * ws.max_visual_actions + ws.max_audio_actions
+    log(f"[rec] synthetic splits of {len(train_ds)} and {len(val_ds)} "
+        f"windows ({ws.num_actions} actions, up to "
+        f"{ws.max_visual_actions} visual and {ws.max_audio_actions} audio "
+        f"queries a window) in {time.perf_counter() - t0:.2f} s")
+    summary = {}
+    sd, summary["slice"] = timed("rec-slice-fp32", phase_rec_slice_fp32, rng)
+    report = timed("rec-kernels", phase_rec_kernels, gen, nq_val)
+    serve_launches, summary["serve"] = timed("rec-serve", phase_rec_serve,
+                                             sd, rng)
+    del sd
+    summary["grad_slice"] = timed("rec-grad-slice",
+                                  phase_rec_grad_slice_fp32, train_ds)
+    runner, train_launches, summary["train"] = timed(
+        "rec-train", phase_rec_train, train_ds, val_ds)
+    val_launches, summary["val"] = timed("rec-val", phase_rec_val, runner,
+                                         val_ds)
+    summary["resume"] = timed("rec-resume", phase_rec_resume, runner,
+                              train_ds)
+    log(f"[rec] summary {json.dumps(summary)}")
+    del runner
+    torch.cuda.empty_cache()
+    return report, {"serve-rec-bf16": serve_launches["serve-rec-bf16"],
+                    "serve-rec-int8": serve_launches["serve-rec-int8"],
+                    "serve-rec-fused": serve_launches["serve-rec-fused"],
+                    "rec-train": train_launches, "rec-val": val_launches}
+
+
+# Phase 18: the detection mAP chain on phase 16's runner and validation
+# split.
+MAP_TOPK = 8
+MAP_CANDIDATES = 20000     # the score threshold: what about this many clear
+MAP_SCORE_TOL = 1e-3       # fp32 dumps, card vs CPU
+MAP_AVG_TOL = 1e-6         # avg mAP of the card's and the CPU's fp32 dumps
+MAP_FP32_WINDOWS = 4
+MAP_PSEUDO_GT = 100
+
+
+def det_gt(ds):
+    """Evaluator GT columns of a detection split: its windows' visual
+    actions, each once."""
+    from tim_tpu_torch.evals.format_predictions import gt_to_columns
+    rows = {}
+    for w in ds.windows.windows:
+        for (s, e), lab in zip(w.v_queries, w.v_labels):
+            rows[(w.video_id, float(s), float(e), int(lab[2]))] = None
+    vids, starts, stops, labels = zip(*rows)
+    return gt_to_columns(np.asarray(vids, object), np.asarray(starts),
+                         np.asarray(stops), np.asarray(labels))
+
+
+def det_subset(ds, n):
+    """The first ``n`` windows of ``ds`` as a split of their own."""
+    sub = copy.copy(ds)
+    sub.windows = dataclasses.replace(ds.windows,
+                                      windows=ds.windows.windows[:n])
+    return sub
+
+
+def threshold_for(values, n):
+    """The score that ``n`` of ``values`` clear."""
+    flat = np.sort(np.asarray(values).ravel())
+    return float(flat[max(len(flat) - n, 0)])
+
+
+def phase_det_map(runner, val_ds):
+    """Phase 18: on phase 16's trained runner (its regression heads' two
+    sigmoids biased apart, so that proposals are intervals):
+    ``extract_dense_predictions`` top-8 on the banked path (kernel 1 six
+    times a batch) and the host path (the same rows), the top-8 columns
+    against a dense dump, ``evaluate_detections`` of the banked dump
+    against the split's GT; an fp32 card vs CPU dump of 4 windows and the
+    mAP of each against GT made of the CPU dump's 100 best detections,
+    shifted; GT fed back as the predictions gives avg mAP 1.0."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.evals.format_predictions import (
+        evaluate_detections, gt_to_columns, nms_per_video,
+        threshold_predictions)
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    with torch.no_grad():
+        for mlp in (runner.model.reg_head.fc_visual_action,
+                    runner.model.reg_head.fc_audio_action):
+            mlp[4].bias.copy_(torch.tensor([-1.0, 1.0]))
+    sd = runner.model.state_dict()
+    gt = det_gt(val_ds)
+    n_win = len(val_ds)
+    n_batches = -(-n_win // DET_BATCH)
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    dump = runner.extract_dense_predictions(top_k=MAP_TOPK)
+    dump_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    require(launches["query_block_attention"] == 6 * n_batches
+            and launches["fused_post_attention"] == 0,
+            f"det-map: launches {launches}, expected kernel 1 6 x "
+            f"{n_batches} batches")
+    require_steady("det-map", launches, n_batches)
+    rows = n_win * runner.num_queries
+    require(len(dump["video_ids"]) == rows
+            and dump["action_topk_values"].shape == (rows, MAP_TOPK),
+            f"det-map: dump of {len(dump['video_ids'])} rows")
+    thr = threshold_for(dump["action_topk_values"], MAP_CANDIDATES)
+    t0 = time.perf_counter()
+    m_ap, avg, sub = evaluate_detections(
+        dump["video_ids"], dump["v_proposals"],
+        (dump["action_topk_values"], dump["action_topk_classes"]), gt,
+        score_threshold=thr, topk_num_classes=runner.cfg.visual_classes[-1])
+    eval_s = time.perf_counter() - t0
+    n_det = sum(len(v) for v in sub["results"].values())
+    log(f"[det-map] banked top-{MAP_TOPK} dump of {n_win} windows ({rows} "
+        f"rows) {dump_s:.3f} s; evaluate_detections (threshold {thr:.5f}, "
+        f"{n_det} detections after Soft-NMS, {len(gt['label'])} GT) "
+        f"{eval_s:.3f} s: mAP {np.round(m_ap, 6).tolist()}, avg {avg:.6f}; "
+        f"launches {launches}")
+    require(n_det > 0 and np.isfinite(avg), "det-map: no detections")
+
+    host = det_runner(C.epic_detection(), None, val_ds, False)
+    host.load_torch_checkpoint(sd)
+    t0 = time.perf_counter()
+    hdump = host.extract_dense_predictions(top_k=MAP_TOPK)
+    host_s = time.perf_counter() - t0
+    same_rows = (np.array_equal(hdump["video_ids"], dump["video_ids"])
+                 and np.array_equal(hdump["queries"], dump["queries"]))
+    h_err = max(float(np.abs(hdump[k] - dump[k]).max())
+                for k in ("action_topk_values", "v_proposals"))
+    log(f"[det-map] host-path dump {host_s:.3f} s: the same rows {same_rows}"
+        f", top-{MAP_TOPK} scores and proposals within {h_err:.3e} of the "
+        f"banked dump")
+    require(same_rows and h_err <= MAP_SCORE_TOL,
+            f"det-map: host vs banked dumps ({same_rows}, {h_err})")
+    # the top-k columns against the dense scores of the same windows
+    sub64 = det_subset(val_ds, DET_BATCH)
+    dense = host.extract_dense_predictions(dataset=sub64)["action"]
+    topk = host.extract_dense_predictions(dataset=sub64, top_k=MAP_TOPK)
+    vals, cls = topk["action_topk_values"], topk["action_topk_classes"]
+    picked = np.take_along_axis(dense, cls.astype(np.int64), -1)
+    rest = dense.copy()
+    np.put_along_axis(rest, cls.astype(np.int64), -np.inf, -1)
+    k_err = float(np.abs(picked - vals).max())
+    order_ok = bool((rest.max(-1) <= vals.min(-1) + 1e-6).all())
+    log(f"[det-map] top-{MAP_TOPK} columns vs the dense dump of "
+        f"{DET_BATCH} windows: values within {k_err:.3e}, no class left out "
+        f"scores above the k-th: {order_ok}")
+    require(k_err <= 1e-6 and order_ok, "det-map: top-k columns disagree "
+            "with the dense scores")
+    del host, dense, rest, picked
+    torch.cuda.empty_cache()
+
+    # fp32, card vs CPU, on 4 windows in one batch of 4
+    sub4 = det_subset(val_ds, MAP_FP32_WINDOWS)
+    cfg32 = C.epic_detection(compute_dtype="float32")
+    tcfg4 = C.TrainConfig(batch_size=MAP_FP32_WINDOWS, epochs=1, seed=SEED)
+    dumps, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        r = DetectionRunner(cfg32, tcfg4, None, sub4, print_freq=1000,
+                            device=dev)
+        r.load_torch_checkpoint(sd)
+        t0 = time.perf_counter()
+        dumps[dev] = r.extract_dense_predictions()
+        secs[dev] = time.perf_counter() - t0
+        del r
+    g, c = dumps["cuda"], dumps["cpu"]
+    f_err = max(float(np.abs(g[k] - c[k]).max())
+                for k in ("action", "audio", "v_proposals", "a_proposals"))
+    # GT that random weights can hit: the CPU dump's MAP_PSEUDO_GT best
+    # detections after Soft-NMS, each shifted by up to 60% of its length
+    # (tIoU 0.25-1 with the detection), so that the mAP compared lies
+    # between 0 and 1 and moves with the scores' order and the proposals
+    thr4 = threshold_for(c["action"], 2000)
+    dets = nms_per_video(threshold_predictions(
+        c["video_ids"], c["v_proposals"], c["action"], thr4))
+    flat = [(s, v, seg, lab) for v, d in dets.items()
+            for s, seg, lab in zip(d["scores"], d["segments"], d["labels"])]
+    flat.sort(key=lambda r: -r[0])
+    _, g_vid, g_seg, g_lab = zip(*flat[:MAP_PSEUDO_GT])
+    g_seg = np.asarray(g_seg, np.float64)
+    shift = (np.random.default_rng(SEED).uniform(-0.6, 0.6, len(g_seg))
+             * (g_seg[:, 1] - g_seg[:, 0]))
+    gt4 = gt_to_columns(np.asarray(g_vid, object), g_seg[:, 0] + shift,
+                        g_seg[:, 1] + shift, np.asarray(g_lab))
+    maps = {}
+    for dev, d in dumps.items():
+        maps[dev] = evaluate_detections(d["video_ids"], d["v_proposals"],
+                                        d["action"], gt4,
+                                        score_threshold=thr4)[:2]
+    d_avg = abs(maps["cuda"][1] - maps["cpu"][1])
+    log(f"[det-map] fp32 dump of {MAP_FP32_WINDOWS} windows: card "
+        f"{secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s, scores and "
+        f"proposals within {f_err:.3e} (tol {MAP_SCORE_TOL}); avg mAP card "
+        f"{maps['cuda'][1]:.8f}, CPU {maps['cpu'][1]:.8f} (|diff| "
+        f"{d_avg:.2e}, tol {MAP_AVG_TOL})")
+    require(np.array_equal(g["video_ids"], c["video_ids"])
+            and f_err <= MAP_SCORE_TOL, f"det-map fp32: {f_err}")
+    require(d_avg <= MAP_AVG_TOL and 0.05 < maps["cpu"][1] < 0.95,
+            f"det-map fp32 avg mAP differ by {d_avg} (CPU "
+            f"{maps['cpu'][1]})")
+
+    # control: the GT fed back as proposals scores avg mAP 1.0
+    labels = np.asarray(gt["label"], np.int64)
+    onehot = np.full((len(labels), runner.cfg.visual_classes[-1]), 1e-4,
+                     np.float32)
+    onehot[np.arange(len(labels)), labels] = 0.9
+    _, perfect, _ = evaluate_detections(
+        gt["video-id"], np.stack([gt["t-start"], gt["t-end"]], -1), onehot,
+        gt)
+    log(f"[det-map] control: GT fed back as the predictions, avg mAP "
+        f"{perfect:.6f}")
+    require(abs(perfect - 1.0) <= 1e-9, f"det-map control: {perfect}")
+    return launches, {
+        "windows": n_win, "dump_s": dump_s, "host_dump_s": host_s,
+        "eval_s": eval_s, "avg_mAP": avg, "detections": n_det,
+        "fp32_dump_card_s": secs["cuda"], "fp32_dump_cpu_s": secs["cpu"],
+        "fp32_rel": f_err, "fp32_avg_diff": d_avg, "control_avg": perfect}
 
 
 def usable_cpus() -> int:
@@ -2739,9 +3638,17 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(SEED + 1))
     kernel_report.update(training_report)
     detection_paths = phase_detection_training()
+    rec_report, recognition_paths = phase_recognition(
+        torch.Generator(device="cuda").manual_seed(SEED + 2))
+    kernel_report["query_block_attention"]["recognition"] = rec_report
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
-               **training_paths, **detection_paths}
+               **training_paths, **detection_paths, **recognition_paths}
+    for path in ("serve-rec-bf16", "rec-val", "det-map"):
+        require(by_path[path]["query_block_attention"] > 0,
+                f"{path}: kernel 1 never launched")
+    require(by_path["rec-train"]["query_block_attention"] == 0,
+            "rec-train: kernel 1 launched")
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",

@@ -1,6 +1,7 @@
 """Checkpoint layout and the port's copies of the JAX package's code:
 ``detection_state_dict_from_jax`` inverts ``detection_params_from_torch``
-and loads strictly; the config dataclasses, the query pyramid, the window
+and loads strictly (recognition's: ``tests/test_torch_recognition.py``);
+the config dataclasses and presets, the query pyramid, the window
 helpers, thresholding and per-video Soft-NMS equal the JAX package's; the
 port imports nothing of JAX or of the JAX package, and its entry points
 default to the CUDA card."""
@@ -95,9 +96,13 @@ def test_config_copy_equals_jax(name):
     assert tpu_only <= {f.name for f in dataclasses.fields(theirs)}
     if name == "TrainConfig":
         return
-    for preset in ("epic_detection", "perception_detection"):
+    for preset in ("epic_detection", "perception_detection",
+                   "epic_recognition", "epic_visual_only",
+                   "perception_recognition", "ave_recognition"):
         assert (dataclasses.asdict(getattr(PC, preset)(num_layers=2))
                 == dataclasses.asdict(getattr(C, preset)(num_layers=2)))
+        assert (dataclasses.asdict(getattr(PC, preset)())
+                == dataclasses.asdict(getattr(C, preset)()))
     cfg = PC.epic_detection()
     assert (cfg.encoder_width, cfg.num_context, cfg.vis_mul,
             cfg.seq_len(399, 399)) == (1024, 100, 1, 898)
@@ -166,7 +171,8 @@ def test_serve_imports_no_jax():
                    "ops.losses", "ops.dropout", "data.dataset",
                    "data.device_bank", "data.synthetic", "train.checkpoint",
                    "train.detection", "evals.metrics", "evals.meters",
-                   "runner.detection"):
+                   "runner.detection", "evals.anet", "evals.ek100",
+                   "models.pool", "train.recognition", "runner.recognition"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -194,6 +200,15 @@ def test_entry_points_default_to_the_card():
         TimDetection(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         DetectionServer(cfg, {})
+    from tim_tpu_torch.models import TimRecognition
+    from tim_tpu_torch.serve import RecognitionServer
+    rcfg = PC.epic_recognition(d_model=16, num_layers=1, nhead=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TimRecognition(rcfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        RecognitionServer(rcfg, {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        RecognitionServer.quantized(rcfg, {}, [None])
     from tim_tpu_torch.extract.cli import build_parser, make_visual_apply
     from tim_tpu_torch.models.backbones import SwinTransformer3D, VideoMAEViT
     with pytest.raises(RuntimeError, match="cuda"):

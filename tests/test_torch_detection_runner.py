@@ -10,7 +10,8 @@ the JAX package on the CPU, fp32, at small sizes:
   steps;
 - ``DetectionRunner.validate`` (host and banked paths) equal to JAX's
   runner's on the same weights; a short training whose loss falls, and
-  ``fit`` writing its checkpoints; the mAP half raises.
+  ``fit`` writing its checkpoints; the mAP half runs
+  (``tests/test_torch_evals.py`` holds it to JAX's).
 """
 
 import dataclasses
@@ -192,8 +193,16 @@ def test_meters_copy_equal_jax():
 def test_shape_matched_merge_three_cases(caplog):
     init = {"a": torch.zeros(2, 2), "b": torch.zeros(3), "c": torch.zeros(1)}
     loaded = {"a": torch.ones(2, 2), "b": torch.ones(4), "d": torch.ones(1)}
-    with caplog.at_level(logging.WARNING):
-        merged = ckpt.shape_matched_merge(init, loaded)
+    # caplog's handler sits on the root logger; a runner built earlier in
+    # this process stops the port's loggers from propagating to it
+    # (``utils.logging.setup_logging``), so listen on the module's logger
+    logger = logging.getLogger(ckpt.__name__)
+    logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING):
+            merged = ckpt.shape_matched_merge(init, loaded)
+    finally:
+        logger.removeHandler(caplog.handler)
     assert torch.equal(merged["a"], torch.ones(2, 2))
     assert torch.equal(merged["b"], torch.zeros(3))
     assert torch.equal(merged["c"], torch.zeros(1))
@@ -341,15 +350,21 @@ def test_training_loss_falls_and_fit_checkpoints(bundle, tmp_path):
 
 
 def test_runner_defaults_to_the_card_and_the_map_half_raises(bundle):
+    """The runner defaults to the card. The mAP half, which raised until it
+    was ported, now runs (``tests/test_torch_evals.py`` holds it to
+    JAX's): no ``NotImplementedError`` is left."""
     ds = _dataset(pds, pwin, bundle)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             DetectionRunner(port_cfg(_cfg()), port_train_cfg(_tcfg()), ds, ds)
     runner = DetectionRunner(port_cfg(_cfg()), port_train_cfg(_tcfg()), ds, ds,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="mAP"):
-        runner.fit(eval_mAP_gt={})
-    with pytest.raises(NotImplementedError, match="mAP"):
-        runner.extract_dense_predictions()
-    with pytest.raises(NotImplementedError, match="mAP"):
-        runner.evaluate_mAP({})
+    dump = runner.extract_dense_predictions()
+    assert len(dump["video_ids"]) == len(ds) * runner.num_queries
+    gt = {"video-id": np.asarray(["P00_00"], object),
+          "t-start": np.zeros(1), "t-end": np.ones(1),
+          "label": np.zeros(1, np.int64)}
+    m_ap, avg, _ = runner.evaluate_mAP(gt)
+    assert m_ap.shape == (5,) and 0.0 <= avg <= 1.0
+    stats = runner.fit(eval_mAP_gt=gt, eval_mAP_every=1)
+    assert 0.0 <= stats["val_avg_mAP"] <= 1.0

@@ -65,6 +65,8 @@ def query_block_close(got, want):
     (2, 8, 898, 100, 128, False),   # the detection layer's shapes
     (3, 8, 898, 100, 128, True),    # layer 0: batch-broadcast query rows
     (2, 2, 48, 11, 32, False),      # ragged tile, odd F, narrow heads
+    (64, 8, 104, 100, 128, False),  # recognition serving: 4 queries
+    (64, 8, 152, 100, 128, False),  # recognition validation: 3 nv + na
 ])
 def test_query_block_kernel_matches_plain(gen, dtype, b, h, s, f, dh,
                                           shared):
@@ -221,6 +223,45 @@ def test_int8_kernel_rejects_unaligned_k(gen):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recognition_eval_step_on_the_card_matches_the_cpu(gen, dtype):
+    """A small ``TimRecognition``'s eval step: the card (kernel 1 once a
+    layer) against the CPU's plain versions, fp32 within 1e-4 of the
+    largest logit, bf16 within 2e-2."""
+    import copy
+    from tim_tpu_torch.models import TimRecognition
+    from tim_tpu_torch.train.recognition import make_eval_step
+    cfg = C.epic_recognition(d_model=64, num_layers=2, nhead=2, num_feats=6,
+                             visual_input_dim=16, audio_input_dim=8,
+                             visual_classes=(5, 6, 9), audio_classes=4,
+                             compute_dtype=dtype)
+    cpu = TimRecognition(cfg, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    tcfg = C.TrainConfig()
+    nv, na = 3, 2
+    g = torch.Generator().manual_seed(1)
+    batch = {"v_feats": torch.randn(4, 6, 16, generator=g),
+             "a_feats": torch.randn(4, 6, 8, generator=g),
+             "times": torch.rand(4, 12 + nv + na, 2, generator=g).sort(-1)[0],
+             "verb": torch.randint(0, 5, (4, nv), generator=g),
+             "noun": torch.randint(0, 6, (4, nv), generator=g),
+             "action": torch.randint(0, 9, (4, nv), generator=g),
+             "class_id": torch.randint(0, 4, (4, na), generator=g)}
+    before = query_block_attention.launches
+    got, got_loss = make_eval_step(card, cfg, tcfg, nv, na)(
+        {k: v.cuda() for k, v in batch.items()})
+    assert query_block_attention.launches == before + cfg.num_layers
+    want, want_loss = make_eval_step(cpu, cfg, tcfg, nv, na)(batch)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for k in want:
+        w = want[k].float()
+        assert (got[k].float().cpu() - w).abs().max() <= tol * w.abs().max()
+    for k in want_loss:
+        assert abs(float(got_loss[k]) - float(want_loss[k])) <= (
+            tol * abs(float(want_loss[k])))
+
+
+@pytest.mark.gpu
 def test_models_default_to_the_card(gen):
     cfg = C.epic_detection(d_model=32, num_layers=1, nhead=2, num_feats=4,
                            visual_input_dim=16, audio_input_dim=8,
@@ -231,6 +272,17 @@ def test_models_default_to_the_card(gen):
     server = DetectionServer(cfg, model.state_dict())
     assert server.device.type == "cuda"
     assert next(server.model.parameters()).device.type == "cuda"
+    from tim_tpu_torch.models import TimRecognition
+    from tim_tpu_torch.serve import RecognitionServer
+    rcfg = C.epic_recognition(d_model=32, num_layers=1, nhead=2, num_feats=4,
+                              visual_input_dim=16, audio_input_dim=8,
+                              visual_classes=(5, 6, 7), audio_classes=3)
+    rmodel = TimRecognition(rcfg)
+    assert next(rmodel.parameters()).device.type == "cuda"
+    for server in (RecognitionServer(rcfg, rmodel.state_dict()),
+                   RecognitionServer.quantized(rcfg, rmodel.state_dict(),
+                                               [None])):
+        assert next(server.model.parameters()).device.type == "cuda"
 
 
 @pytest.mark.gpu

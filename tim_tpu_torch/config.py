@@ -1,16 +1,18 @@
 """Configuration: a copy of ``tim_tpu/config.py``'s ``ModelConfig``,
-``DetectionConfig``, ``TrainConfig`` and the detection presets, with the
+``DetectionConfig``, ``TrainConfig`` and the recognition and detection
+presets, with the
 same field names and defaults, so that one configuration reads the same
 in both packages (tests pin the two to equality). ``TrainConfig`` leaves
 out the JAX package's two TPU-only fields, ``xla_fusion_cost_model`` and
 ``rng_impl`` (XLA compiler options and the TPU's random-bit generator).
 
 Frozen dataclasses (hashable); presets are plain functions. Fields whose
-code paths are not ported yet are kept, and ``models.tim.TimDetection``
-refuses values it cannot run.
+code paths are not ported yet are kept, and the models (``models.tim``)
+refuse values they cannot run.
 
 ``quant_act_scales`` holds (module name, scale) pairs under the port's
-module names (``backbone.layers.0.self_attn.in_proj``, ...);
+module names (``backbone.layers.0.self_attn.in_proj`` in detection,
+``transformer_encoder.layers.0.self_attn.in_proj`` in recognition, ...);
 ``convert.act_scales_from_jax`` maps the JAX package's param paths to
 them.
 """
@@ -146,6 +148,30 @@ class TrainConfig:
 
     seed: int = 0
     early_stop_period: int = -1
+
+
+def epic_recognition(**overrides) -> ModelConfig:
+    return dataclasses.replace(ModelConfig(), **overrides)
+
+
+def epic_visual_only(**overrides) -> ModelConfig:
+    cfg = ModelConfig(input_modality="visual", data_modality="visual")
+    return dataclasses.replace(cfg, **overrides)
+
+
+def perception_recognition(**overrides) -> ModelConfig:
+    cfg = ModelConfig(visual_classes=(63,), audio_classes=17,
+                      include_verb_noun=False)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def ave_recognition(**overrides) -> ModelConfig:
+    # AVEL feature widths: VGG 7x7x512 maps (stored flat as [T, A, 49*512])
+    # and 128-d audio
+    cfg = ModelConfig(visual_classes=(29,), audio_classes=29,
+                      include_verb_noun=False, apply_feature_pooling=True,
+                      visual_input_dim=512, audio_input_dim=128)
+    return dataclasses.replace(cfg, **overrides)
 
 
 def epic_detection(**overrides) -> DetectionConfig:

@@ -1,11 +1,12 @@
-"""Flax detection params -> reference-layout torch ``state_dict``.
+"""Flax TIM params -> reference-layout torch ``state_dict``.
 
-``detection_state_dict_from_jax`` is the exact inverse of
-``tim_tpu/convert/torch_import.py::detection_params_from_torch``: weights
-trained or converted on the JAX side load into
-``tim_tpu_torch.models.TimDetection`` with ``load_state_dict(strict=True)``.
-``quantized_detection_state_dict_from_jax`` does the same for the int8
-params of ``tim_tpu.ops.quant.quantize_params`` (the layout of
+``detection_state_dict_from_jax`` and ``recognition_state_dict_from_jax``
+are the exact inverses of ``tim_tpu/convert/torch_import.py::
+{detection,recognition}_params_from_torch``: weights trained or converted
+on the JAX side load into ``tim_tpu_torch.models.TimDetection`` /
+``TimRecognition`` with ``load_state_dict(strict=True)``.
+``quantized_{detection,recognition}_state_dict_from_jax`` do the same for
+the int8 params of ``tim_tpu.ops.quant.quantize_params`` (the layout of
 ``ops.quant.quantize_state_dict``), and ``act_scales_from_jax`` renames
 calibrated activation scales. ``swin_state_dict_from_jax`` and
 ``vit_state_dict_from_jax`` invert the backbones' ``params_from_torch``;
@@ -79,28 +80,44 @@ _REG_HEADS = {"reg_visual": "fc_visual_action",
               "reg_audio": "fc_audio_action"}
 
 
+def _trunk(p: Mapping, encoder: str, out: Dict,
+           unprefixed_tokens: bool = False) -> None:
+    """The shared trunk: time MLP, feature encoding, encoder (under the
+    state-dict name ``encoder``), drloc MLP, AVGA pool."""
+    _mlp(p["time_mlp"], "time_mlp", out)
+    _norm(p["time_norm"], "time_mlp.6", out)
+    for name, leaf in p["feature_encoding"].items():
+        if name.endswith("_embedder"):
+            key = f"feature_encoding.{name}"
+            _linear(leaf["proj"], f"{key}.1", out)
+            _norm(leaf["norm"], f"{key}.3", out)
+            continue
+        if unprefixed_tokens and name.endswith("_cls"):
+            name = name.split("_", 1)[1]
+        out[f"feature_encoding.{name}"] = _t(leaf)
+    for i in range(len(p["encoder"])):
+        _encoder_layer(p["encoder"][f"layer{i}"], f"{encoder}.layers.{i}",
+                       out)
+    _mlp(p["drloc_mlp"], "drloc_mlp", out)
+    if "pool" in p:
+        for name, tree in p["pool"].items():
+            if "bias" in tree:
+                _linear(tree, f"pool.{name}", out)
+            else:
+                out[f"pool.{name}.weight"] = _t(np.asarray(tree["kernel"]).T)
+
+
 def detection_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{'params': tree}`` of a flax ``TimDetection`` -> reference-layout
     ``state_dict`` (fp32 CPU tensors; int8 ``weight_q`` where the tree
     holds ``kernel_q``)."""
     p = variables["params"]
     out: Dict[str, torch.Tensor] = {}
-    _mlp(p["time_mlp"], "time_mlp", out)
-    _norm(p["time_norm"], "time_mlp.6", out)
-    for name, leaf in p["feature_encoding"].items():
-        key = f"feature_encoding.{name}"
-        if name.endswith("_embedder"):
-            _linear(leaf["proj"], f"{key}.1", out)
-            _norm(leaf["norm"], f"{key}.3", out)
-        else:
-            out[key] = _t(leaf)
-    for i in range(len(p["encoder"])):
-        _encoder_layer(p["encoder"][f"layer{i}"], f"backbone.layers.{i}", out)
+    _trunk(p, "backbone", out)
     for name, tree in p["cls_head"].items():
         _linear(tree, f"cls_head.{_CLS_HEADS[name]}", out)
     for name, tree in p["reg_head"].items():
         _mlp(tree, f"reg_head.{_REG_HEADS[name]}", out)
-    _mlp(p["drloc_mlp"], "drloc_mlp", out)
     return out
 
 
@@ -114,23 +131,53 @@ def quantized_detection_state_dict_from_jax(qparams: Mapping
     return detection_state_dict_from_jax({"params": qparams})
 
 
+def recognition_state_dict_from_jax(variables: Mapping
+                                    ) -> Dict[str, torch.Tensor]:
+    """``{'params': tree}`` of a flax ``TimRecognition`` -> the reference
+    recognition ``state_dict`` (encoder ``transformer_encoder``, AVGA
+    ``pool``). A model whose features and queries are of one modality
+    names its CLS tokens without the modality prefix, as the reference
+    (and ``models.tim.TimRecognition``) does."""
+    p = variables["params"]
+    fe = p["feature_encoding"]
+    embedders = [n for n in fe if n.endswith("_embedder")]
+    modalities = {n.split("_", 1)[0] for n in fe if n.endswith("_cls")}
+    single = (len(embedders) == 1
+              and modalities == {embedders[0].split("_", 1)[0]})
+    out: Dict[str, torch.Tensor] = {}
+    _trunk(p, "transformer_encoder", out, unprefixed_tokens=single)
+    for name, tree in p["cls_head"].items():
+        _linear(tree, f"cls_head.{_CLS_HEADS[name]}", out)
+    return out
+
+
+def quantized_recognition_state_dict_from_jax(qparams: Mapping
+                                              ) -> Dict[str, torch.Tensor]:
+    """The param tree of ``tim_tpu.ops.quant.quantize_params`` of a JAX
+    ``TimRecognition`` -> the quantized port ``TimRecognition``'s state
+    dict (as ``quantized_detection_state_dict_from_jax``)."""
+    return recognition_state_dict_from_jax({"params": qparams})
+
+
 _JAX_SCALE_PATHS = (
     (re.compile(r"^encoder/layer(\d+)/self_attn/(q|k|v)$"),
-     r"backbone.layers.\1.self_attn.in_proj"),
+     r"{encoder}.layers.\1.self_attn.in_proj"),
     (re.compile(r"^encoder/layer(\d+)/self_attn/out$"),
-     r"backbone.layers.\1.self_attn.out_proj"),
+     r"{encoder}.layers.\1.self_attn.out_proj"),
     (re.compile(r"^encoder/layer(\d+)/(linear[12])$"),
-     r"backbone.layers.\1.\2"),
+     r"{encoder}.layers.\1.\2"),
 )
 
 
-def act_scales_from_jax(act_scales) -> Tuple[Tuple[str, float], ...]:
+def act_scales_from_jax(act_scales, encoder: str = "backbone"
+                        ) -> Tuple[Tuple[str, float], ...]:
     """The JAX package's calibrated (param path, scale) tuple
     (``quant.act_scales_tuple``; paths like
     ``'encoder/layer0/self_attn/q'``) -> the port's (module name, scale)
     tuple. q/k/v map onto the one packed ``in_proj`` and must carry the
     same scale (they see the same input); raises when they differ or a
-    path has no port module."""
+    path has no port module. ``encoder``: the encoder's state-dict name,
+    ``backbone`` (detection) or ``transformer_encoder`` (recognition)."""
     out: Dict[str, float] = {}
     for path, scale in act_scales:
         head = re.fullmatch(r"cls_head/(fc_\w+)", path)
@@ -139,7 +186,7 @@ def act_scales_from_jax(act_scales) -> Tuple[Tuple[str, float], ...]:
         else:
             for pattern, repl in _JAX_SCALE_PATHS:
                 if pattern.match(path):
-                    name = pattern.sub(repl, path)
+                    name = pattern.sub(repl.format(encoder=encoder), path)
                     break
             else:
                 raise ValueError(f"act_scales_from_jax: no port module for "

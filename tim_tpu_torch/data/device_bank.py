@@ -1,15 +1,16 @@
 """Device-resident feature banks with an on-device window gather:
-counterpart of ``tim_tpu/data/device_bank.py`` (detection).
+counterpart of ``tim_tpu/data/device_bank.py``.
 
 Each split's per-video feature banks go to the card once (videos
 concatenated along time into one [sum_T, A, D] tensor), with every
-window's global feature rows, normalised times, GT segments and labels
-precomputed as device tensors (``DetectionWindowTables``). A batch is
+window's global feature rows, normalised times and labels (and GT
+segments in detection) precomputed as device tensors
+(``DeviceWindowTables`` for recognition, ``DetectionWindowTables``). A
+batch is
 then a tensor of window ids: the host only shuffles integers, and the
 gather runs on the card. One augmentation set per feature token is drawn
 on a CPU ``torch.Generator`` (a few KB of ids a step, moved to the card),
-so the card and the CPU draw the same sets. The recognition tables
-(``DeviceWindowTables``) are not ported yet.
+so the card and the CPU draw the same sets.
 """
 
 from __future__ import annotations
@@ -96,6 +97,64 @@ def _check_aligned_banks(v_bank: Optional[DeviceFeatureBank],
             f"(totals {v_bank.bank.shape[0]} vs {a_bank.bank.shape[0]}; "
             f"first differing videos: {bad[:3]}). Re-extract the two "
             "modalities on a common feature-time grid.")
+
+
+class DeviceWindowTables:
+    """A recognition split resident on the banks' device: per-window
+    feature-row indices, normalised times (feature times, then the query
+    intervals, visual then audio, zero-padded) and -1-padded labels.
+    Mirrors ``RecognitionDataset.__getitem__``. ``labels_host`` keeps the
+    numpy labels for the runner's vote tables."""
+
+    def __init__(self, windows: WindowSet,
+                 v_bank: Optional[DeviceFeatureBank],
+                 a_bank: Optional[DeviceFeatureBank],
+                 v_feat_times: Optional[Dict[str, np.ndarray]] = None,
+                 a_feat_times: Optional[Dict[str, np.ndarray]] = None):
+        ws = windows
+        nv, na = ws.max_visual_actions, ws.max_audio_actions
+        n = len(ws.windows)
+        _check_aligned_banks(v_bank, a_bank)
+        ref_bank = v_bank or a_bank
+        feat_idx = window_index_table(ws, ref_bank)
+        nf = feat_idx.shape[1]
+        n_mod = (v_bank is not None) + (a_bank is not None)
+        times = np.zeros((n, n_mod * nf + nv + na, 2), np.float32)
+        labels = {k: -np.ones((n, m), np.int64) for k, m in (
+            ("verb", nv), ("noun", nv), ("action", nv), ("class_id", na))}
+
+        # the reference's normalisation: (t - start) / window_size, >= 0
+        for i, w in enumerate(ws.windows):
+            row = 0
+            for bank, ft in ((v_bank, v_feat_times), (a_bank, a_feat_times)):
+                if bank is None:
+                    continue
+                if ft is None:
+                    raise ValueError("DeviceWindowTables: feature times "
+                                     "required per modality")
+                times[i, row:row + nf] = ft[w.video_id][w.feat_indices, :2]
+                row += nf
+            times[i, row:row + len(w.v_queries)] = w.v_queries
+            times[i, row + nv:row + nv + len(w.a_queries)] = w.a_queries
+            times[i] = np.clip((times[i] - w.start_sec) / ws.window_size,
+                               0.0, None)
+            for col, key in enumerate(("verb", "noun", "action")):
+                labels[key][i, :len(w.v_labels)] = w.v_labels[:, col]
+            labels["class_id"][i, :len(w.a_labels)] = w.a_labels[:, 3]
+
+        device = ref_bank.bank.device
+        tables = {"feat_indices": feat_idx.astype(np.int64), "times": times,
+                  **labels}
+        self.tables = {k: torch.from_numpy(v).to(device)
+                       for k, v in tables.items()}
+        self.labels_host = labels
+        self.num_windows = n
+
+    def batch(self, window_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The batch of [B] window ids (a tensor on the tables' device):
+        ``feat_indices`` [B, F], ``times`` and the label rows."""
+        return {k: v.index_select(0, window_ids)
+                for k, v in self.tables.items()}
 
 
 class DetectionWindowTables:

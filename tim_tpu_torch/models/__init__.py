@@ -1,3 +1,3 @@
-from tim_tpu_torch.models.tim import TimDetection
+from tim_tpu_torch.models.tim import TimDetection, TimRecognition
 
-__all__ = ["TimDetection"]
+__all__ = ["TimDetection", "TimRecognition"]

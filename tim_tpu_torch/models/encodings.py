@@ -1,5 +1,5 @@
 """Feature + CLS-token sequence assembly: counterpart of
-``tim_tpu/models/encodings.py``, detection layout (no verb/noun CLS sets).
+``tim_tpu/models/encodings.py``.
 
 - per-modality embedder: Dropout -> Linear(D_in -> d) -> GELU -> LayerNorm;
 - time encodings are concatenated channel-wise (tokens become 2d wide);
@@ -7,7 +7,16 @@
 - learnable CLS tokens are expanded per query and concatenated with the
   query-interval time encodings.
 
-Sequence: [vis*F | aud*F | visual_action_cls*Nv | audio_action_cls*Na].
+Sequence (recognition, ``use_verb_noun_cls``):
+  [vis*F | aud*F | verb_cls*Nv | noun_cls*Nv | action_cls*Nv | audio_cls*Na];
+detection drops the verb/noun CLS sets. The heads slice from the tail in
+this order.
+
+Token names are the reference's: ``visual_{verb,noun,action}_cls`` and
+``audio_action_cls``; a recognition model whose input and queries are of
+one modality (visual-only, audio-only) names them without the modality
+prefix (``verb_cls``, ``noun_cls``, ``action_cls``), as the reference does
+(``prefix_tokens=False``).
 
 Training (a ``generator`` given): Bernoulli dropout (flax ``nn.Dropout``,
 whatever ``dropout_bits`` says, as in JAX) of ``feat_dropout`` on each
@@ -77,9 +86,15 @@ class FeatureEncoding(nn.Module):
                  data_modality: str, num_feats: int, visual_input_dim: int,
                  audio_input_dim: int, *, dtype: torch.dtype,
                  generator: torch.Generator, feat_dropout: float = 0.5,
-                 seq_dropout: float = 0.5):
+                 seq_dropout: float = 0.5, use_verb_noun_cls: bool = False,
+                 prefix_tokens: bool = True):
         super().__init__()
         self.d_model = d_model
+        self.use_verb_noun_cls = use_verb_noun_cls
+        self._token_names = {} if prefix_tokens else {
+            "visual_verb_cls": "verb_cls", "visual_noun_cls": "noun_cls",
+            "visual_action_cls": "action_cls",
+            "audio_action_cls": "action_cls"}
         self.input_modality = input_modality
         self.data_modality = data_modality
         self.num_feats = num_feats
@@ -97,10 +112,21 @@ class FeatureEncoding(nn.Module):
         if input_modality == "audio_visual":
             self.visual_modality_encoding = _token((1, 1, wide), generator)
             self.audio_modality_encoding = _token((1, 1, wide), generator)
+        tokens = []
         if "visual" in data_modality:
-            self.visual_action_cls = _token((1, 1, d_model), generator)
+            tokens.append("visual_action_cls")
+            if use_verb_noun_cls:
+                tokens += ["visual_verb_cls", "visual_noun_cls"]
         if "audio" in data_modality:
-            self.audio_action_cls = _token((1, 1, d_model), generator)
+            tokens.append("audio_action_cls")
+        for name in tokens:
+            setattr(self, self._token_names.get(name, name),
+                    _token((1, 1, d_model), generator))
+
+    def cls_token(self, name: str) -> torch.Tensor:
+        """The CLS token ``name`` (its prefixed name), whatever it is
+        called in the state dict."""
+        return getattr(self, self._token_names.get(name, name))
 
     def forward(self, v_feats, a_feats, time_encodings, num_v_queries: int,
                 num_a_queries: int,
@@ -136,13 +162,16 @@ class FeatureEncoding(nn.Module):
             return tok
 
         if "visual" in self.data_modality and num_v_queries > 0:
-            parts.append(cls_tokens(
-                self.visual_action_cls, num_v_queries,
-                query_te[:, :num_v_queries],
-                self.visual_modality_encoding if av else None))
+            names = (("visual_verb_cls", "visual_noun_cls")
+                     if self.use_verb_noun_cls else ())
+            for name in names + ("visual_action_cls",):
+                parts.append(cls_tokens(
+                    self.cls_token(name), num_v_queries,
+                    query_te[:, :num_v_queries],
+                    self.visual_modality_encoding if av else None))
         if "audio" in self.data_modality and num_a_queries > 0:
             parts.append(cls_tokens(
-                self.audio_action_cls, num_a_queries,
+                self.cls_token("audio_action_cls"), num_a_queries,
                 query_te[:, -num_a_queries:],
                 self.audio_modality_encoding if av else None))
         return self.seq_dropout(torch.cat(parts, dim=1), generator)

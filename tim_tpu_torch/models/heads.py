@@ -1,6 +1,10 @@
-"""Detection heads: counterpart of ``tim_tpu/models/heads.py``.
+"""Classification and regression heads: counterpart of
+``tim_tpu/models/heads.py``.
 
-The classifier shares the visual query tokens across its verb/noun/action
+The recognition classifier slices each task's CLS tokens off the sequence
+tail in the order verb -> noun -> action -> audio, a linear each
+(``TORCH_LINEAR``; ``Int8Dense`` when quantized, never kernel 3, as in
+JAX). The detection classifier shares the visual query tokens across its verb/noun/action
 linears, whose bias starts at the RetinaNet focal prior; the regression
 head is a 3-layer sigmoid MLP per modality giving a normalised
 [start, end]. Outputs keep the [B, Nq, C] shape.
@@ -14,7 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from tim_tpu_torch.models.common import DENSE, MLP, Int8Dense, TorchLinear
+from tim_tpu_torch.models.common import (
+    DENSE, MLP, TORCH_LINEAR, Int8Dense, TorchLinear)
 
 FOCAL_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -22,6 +27,50 @@ FOCAL_BIAS = -math.log((1 - 0.01) / 0.01)
 def _query_slices(s: int, num_v_queries: int, num_a_queries: int):
     aud_start = s - num_a_queries if num_a_queries > 0 else s
     return aud_start - num_v_queries, aud_start
+
+
+class RecognitionClsHead(nn.Module):
+    """``fc_visual_{verb,noun,action}`` and ``fc_audio_action`` over the
+    tail-sliced CLS tokens; ``visual_classes`` (action,) or (verb, noun,
+    action), ``audio_classes`` an int or None. With ``quantized`` each is
+    an ``Int8Dense`` (static scales once set)."""
+
+    def __init__(self, d_model: int,
+                 visual_classes: Optional[Tuple[int, ...]],
+                 audio_classes: Optional[int], *, dtype: torch.dtype,
+                 generator: torch.Generator, quantized: bool = False):
+        super().__init__()
+
+        def dense(n):
+            if quantized:
+                return Int8Dense(d_model, n, dtype=dtype)
+            return TorchLinear(d_model, n, dtype=dtype, generator=generator,
+                               rounding=TORCH_LINEAR)
+
+        self.include_vn = (visual_classes is not None
+                           and len(visual_classes) == 3)
+        if visual_classes is not None:
+            if self.include_vn:
+                self.fc_visual_verb = dense(visual_classes[0])
+                self.fc_visual_noun = dense(visual_classes[1])
+            self.fc_visual_action = dense(visual_classes[-1])
+        if audio_classes is not None:
+            self.fc_audio_action = dense(audio_classes)
+
+    def forward(self, x, num_v_queries: int, num_a_queries: int):
+        act_start, aud_start = _query_slices(x.shape[1], num_v_queries,
+                                             num_a_queries)
+        verb = noun = action = audio = None
+        if hasattr(self, "fc_visual_action") and num_v_queries > 0:
+            if self.include_vn:
+                noun_start = act_start - num_v_queries
+                verb_start = noun_start - num_v_queries
+                verb = self.fc_visual_verb(x[:, verb_start:noun_start])
+                noun = self.fc_visual_noun(x[:, noun_start:act_start])
+            action = self.fc_visual_action(x[:, act_start:aud_start])
+        if hasattr(self, "fc_audio_action") and num_a_queries > 0:
+            audio = self.fc_audio_action(x[:, aud_start:])
+        return verb, noun, action, audio
 
 
 class DetectionClsHead(nn.Module):

@@ -1,5 +1,8 @@
-"""Detection loss primitives: counterpart of ``tim_tpu/ops/losses.py``.
+"""Loss primitives: counterpart of ``tim_tpu/ops/losses.py``.
 
+- label-smoothed cross entropy with ignored labels, and its mixup form;
+- mixup of a batch's inputs, on a permutation and weight drawn by the
+  caller;
 - RetinaNet sigmoid focal loss, on explicit (soft) targets and on the
   detection's smoothed one-hot targets given by integer labels;
 - 1-D center DIoU loss;
@@ -8,7 +11,6 @@
 
 Plain PyTorch (autograd takes the gradients). Masked reductions use
 weights, not boolean indexing, so that shapes do not depend on the data.
-The recognition losses (cross entropy, mixup) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,66 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def cross_entropy(logits, labels, *, label_smoothing: float = 0.0,
+                  ignore_index: int = -1, weights=None,
+                  reduction: str = "mean"):
+    """Label-smoothed cross entropy over the last axis, in fp32: per row
+    ``(1 - eps) * nll + eps * (-mean log p)``. Rows whose label is
+    ``ignore_index`` or out of [0, C) add nothing (JAX cannot raise under
+    jit, so it ignores them; so does the port), and the mean divides by
+    the count of the other rows (at least 1)."""
+    num_classes = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
+    safe = torch.where(valid, labels, 0).long()
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    smooth = -logp.mean(-1)
+    loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    loss = torch.where(valid, loss, 0.0)
+    if weights is not None:
+        loss = loss * weights
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    return loss.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def mixup_draws(rng: np.random.Generator, batch: int, alpha: float
+                ) -> Tuple[torch.Tensor, float]:
+    """(perm [batch] int64, lam): the batch permutation and the weight
+    ``lam ~ Beta(alpha, alpha)`` (1.0 when ``alpha <= 0``), drawn from
+    ``rng``, weight first."""
+    lam = float(rng.beta(alpha, alpha)) if alpha > 0 else 1.0
+    return torch.from_numpy(rng.permutation(batch)), lam
+
+
+def mixup(inputs, perm: torch.Tensor, lam: float):
+    """``lam * x + (1 - lam) * x[perm]`` along the batch axis for every x
+    of ``inputs``, the JAX way: ``lam`` is first rounded to the dtype of
+    ``inputs[0]``, then each x mixes in the promotion of that dtype and
+    its own (so bf16 time encodings mix in fp32 beside fp32 features, and
+    in bf16 steps beside bf16 ones)."""
+    lam_t = torch.tensor(np.float32(lam)).to(inputs[0].dtype)
+    out = []
+    for x in inputs:
+        dt = torch.promote_types(lam_t.dtype, x.dtype)
+        lam_x = lam_t.to(device=x.device, dtype=dt)
+        x = x.to(dt)
+        out.append(lam_x * x + (1.0 - lam_x) * x[perm.to(x.device)])
+    return tuple(out)
+
+
+def mixup_cross_entropy(logits, labels_a, labels_b, lam, *,
+                        label_smoothing: float = 0.0):
+    """``lam * CE(logits, labels_a) + (1 - lam) * CE(logits, labels_b)``,
+    each the mean over its own valid rows (the reference selects each
+    side's valid rows apart)."""
+    loss_a = cross_entropy(logits, labels_a, label_smoothing=label_smoothing)
+    loss_b = cross_entropy(logits, labels_b, label_smoothing=label_smoothing)
+    return lam * loss_a + (1.0 - lam) * loss_b
 
 
 def _focal(x, t, alpha: float, gamma: float):

@@ -116,15 +116,16 @@ def calibrate_act_scales(layers: Mapping[str, torch.nn.Module],
 # Encoder matmuls and class heads carry ~95% of inference FLOPs; the time
 # MLP, embedders, regression heads and drloc stay in the compute dtype.
 _QUANTIZED = re.compile(
-    r"^(backbone\.layers\.\d+\.(self_attn\.(in_proj|out_proj)|linear[12])"
-    r"|cls_head\.fc_\w+)$")
+    r"^((backbone|transformer_encoder)\.layers\.\d+\."
+    r"(self_attn\.(in_proj|out_proj)|linear[12])|cls_head\.fc_\w+)$")
 
 
 def quantize_state_dict(state_dict: Mapping[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
-    """fp32 reference-layout detection state dict -> the layout of the
-    quantized ``TimDetection``: every encoder and class-head weight [out,
-    in] becomes ``<name>.weight_q`` int8 and ``<name>.weight_scale`` fp32
+    """fp32 reference-layout TIM state dict (detection or recognition) ->
+    the layout of the quantized model: every encoder and class-head
+    weight [out, in] becomes ``<name>.weight_q`` int8 and
+    ``<name>.weight_scale`` fp32
     (the packed q/k/v ``in_proj_weight`` under ``self_attn.in_proj``, its
     bias as ``self_attn.in_proj.bias``). Per-output-row scales, so the
     packed rows quantize exactly as the JAX package's separate q/k/v."""

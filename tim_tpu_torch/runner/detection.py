@@ -15,8 +15,11 @@ model by validation loss, stops early and writes checkpoints
   window ids; validation sums the losses on the device and reads them
   back once.
 
-The mAP half (``extract_dense_predictions``, ``evaluate_mAP``,
-``fit(eval_mAP_gt=...)``) is not ported yet and raises.
+The mAP chain: ``extract_dense_predictions`` dumps every window's dense
+query scores and proposals (``make_inference_step``: kernel 1 on the
+card), ``evaluate_mAP`` runs the dump through ``evals.format_predictions.
+evaluate_detections`` (threshold, Soft-NMS, submission, mAP), and
+``fit(eval_mAP_gt=...)`` reports it every ``eval_mAP_every`` epochs.
 """
 
 from __future__ import annotations
@@ -30,7 +33,9 @@ from tim_tpu_torch.config import DetectionConfig, TrainConfig
 from tim_tpu_torch.data.dataset import DetectionDataset, batch_iterator
 from tim_tpu_torch.data.device_bank import (
     DetectionWindowTables, DeviceFeatureBank, host_to_device)
+from tim_tpu_torch.evals.format_predictions import evaluate_detections
 from tim_tpu_torch.evals.meters import LossAverager
+from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection, resolve_device
 from tim_tpu_torch.train import checkpoint as ckpt
 from tim_tpu_torch.train import detection as steps
@@ -38,9 +43,8 @@ from tim_tpu_torch.train.optim import make_optimizer
 from tim_tpu_torch.train.state import TrainState, create_train_state
 from tim_tpu_torch.utils.logging import log_json_stats, setup_logging
 
-_NOT_PORTED = ("the detection mAP half (extract_dense_predictions, "
-               "evaluate_mAP, fit(eval_mAP_gt=...)) is not ported yet "
-               "(ROADMAP.md, queue 1 item 1b)")
+# the dump's column names of the inference step's score keys' heads
+_HEAD_NAMES = {"v": "action", "verb": "verb", "noun": "noun", "a": "audio"}
 
 
 def _tables(ds: DetectionDataset, device) -> tuple:
@@ -88,6 +92,9 @@ class DetectionRunner:
                                 if train_ds else 1)
         self._train_step = steps.make_train_step(self.model, cfg, tcfg)
         self._val_step = steps.make_val_step(self.model, cfg, tcfg)
+        self.num_queries = generate_query_pyramid(
+            cfg.inference_query_size).shape[0]
+        self._infer_steps = {}     # top_k -> make_inference_step
 
         self._bank_step = self._val_banks = None
         if use_device_bank and train_ds is not None:
@@ -213,13 +220,15 @@ class DetectionRunner:
 
     # ------------------------------------------------------------------
     def fit(self, epochs: Optional[int] = None, start_epoch: int = 0,
-            eval_mAP_gt=None) -> Dict[str, float]:
+            eval_mAP_gt=None, eval_mAP_every: int = 5,
+            **map_kwargs) -> Dict[str, float]:
         """Train and validate each epoch; the best model by validation
         loss is checkpointed (``best_loss.pt``) beside the last
         (``checkpoint.pt``) when ``output_dir`` is set; stops early after
-        ``early_stop_period`` epochs without a better loss."""
-        if eval_mAP_gt is not None:
-            raise NotImplementedError(f"fit(eval_mAP_gt=...): {_NOT_PORTED}")
+        ``early_stop_period`` epochs without a better loss.
+        ``eval_mAP_gt`` (the evaluator's GT columns) adds the validation
+        split's mAP (``evaluate_mAP(eval_mAP_gt, **map_kwargs)``) as
+        ``val_avg_mAP`` every ``eval_mAP_every`` epochs."""
         epochs = epochs or self.tcfg.epochs
         if self.state is None:
             self.init_state()
@@ -227,6 +236,13 @@ class DetectionRunner:
         for epoch in range(start_epoch, epochs):
             self.train_epoch(epoch)
             stats = self.validate(epoch)
+            if (eval_mAP_gt is not None and eval_mAP_every > 0
+                    and (epoch + 1) % eval_mAP_every == 0):
+                _, avg, _ = self.evaluate_mAP(eval_mAP_gt, **map_kwargs)
+                stats["val_avg_mAP"] = float(avg)
+                log_json_stats(self.logger, {
+                    "split": "val_mAP", "epoch": epoch + 1,
+                    "avg_mAP": float(avg)})
             final = stats
             is_best = "none"
             if stats.get("loss", float("inf")) < self.best_loss:
@@ -246,8 +262,99 @@ class DetectionRunner:
                 break
         return final
 
-    def extract_dense_predictions(self, dataset=None, top_k=None):
-        raise NotImplementedError(f"extract_dense_predictions: {_NOT_PORTED}")
+    # ------------------------------------------------------------------
+    def _infer_step(self, top_k: Optional[int]):
+        if top_k not in self._infer_steps:
+            self._infer_steps[top_k] = steps.make_inference_step(
+                self.model, self.cfg, top_k)
+        return self._infer_steps[top_k]
 
-    def evaluate_mAP(self, gt_columns, dataset=None, **kwargs):
-        raise NotImplementedError(f"evaluate_mAP: {_NOT_PORTED}")
+    def extract_dense_predictions(self, dataset=None, top_k=None
+                                  ) -> Dict[str, np.ndarray]:
+        """The dense proposal dump over every window of ``dataset`` (the
+        validation split by default): column arrays for
+        ``evals.format_predictions``, a row per (window, query), windows
+        in ascending order: ``video_ids``, ``queries`` and
+        ``v_proposals`` in video time, and per head its scores
+        (``action``, ``verb``, ``noun``, ``audio``, ``a_proposals``).
+
+        ``top_k``: only the k best classes per query, as
+        ``<head>_topk_values`` / ``<head>_topk_classes`` (identical eval
+        results whenever every class above the threshold fits in k;
+        ``threshold_predictions_topk`` warns otherwise).
+
+        On the banked path (the validation split, ``use_device_bank``) a
+        batch is a range of window ids, the last one padded with its last
+        window; on the host path ``batch_iterator`` pads with the batch's
+        first window. Padded rows are dropped."""
+        if self.state is None:
+            self.init_state()
+        ds = dataset or self.val_ds
+        ds.sample_augmentations = False
+        infer = self._infer_step(top_k)
+        bs = self.tcfg.batch_size
+        win_idx, cols = [], {}
+
+        def collect(out, idxs, take):
+            win_idx.append(np.asarray(idxs[:take]))
+            for key, val in out.items():
+                if "_topk_" in key:
+                    base, suffix = key.split("_topk_")
+                    key = f"{_HEAD_NAMES[base]}_topk_{suffix}"
+                elif key.endswith("_scores"):
+                    key = _HEAD_NAMES[key[:-len("_scores")]]
+                cols.setdefault(key, []).append(
+                    val[:take].cpu().numpy())
+
+        if self._val_banks is not None and dataset is None:
+            v_bank, a_bank, tables = self._val_banks
+            n = tables.num_windows
+            for i in range(0, n, bs):
+                ids = np.arange(i, min(i + bs, n))
+                take = len(ids)
+                ids = np.concatenate([ids, np.full(bs - take, ids[-1])])
+                batch = steps.with_bank_features(tables.batch(host_to_device(
+                    torch.from_numpy(ids), self.device)), v_bank, a_bank)
+                collect(infer(batch), ids, take)
+        else:
+            for batch in batch_iterator(ds, bs, shuffle=False,
+                                        drop_last=False, with_indices=True):
+                take = bs - batch["_pad"]
+                idxs = batch["_indices"]
+                collect(infer(self._to_device(batch)), idxs, take)
+
+        # ascending window ids with their first occurrence (JAX's order,
+        # which its multi-process gather makes independent of sharding)
+        win_idx = np.concatenate(win_idx).astype(np.int64)
+        _, keep = np.unique(win_idx, return_index=True)
+        win_idx = win_idx[keep]
+        windows = ds.windows.windows
+        video_ids = np.asarray([windows[int(j)].video_id for j in win_idx],
+                               object)
+        result = {"video_ids": np.repeat(video_ids, self.num_queries)}
+        for key, chunks in cols.items():
+            arr = np.concatenate(chunks)[keep]
+            result[key] = arr.reshape(-1, arr.shape[-1])
+        return result
+
+    def evaluate_mAP(self, gt_columns, dataset=None, *, task="action",
+                     score_key="action", proposals_key="v_proposals",
+                     top_k=None, **eval_kwargs):
+        """(mAP per tIoU, average mAP, submission) of the dense dump of
+        ``dataset`` against ``gt_columns`` (``evals.format_predictions.
+        gt_to_columns``); ``eval_kwargs`` go to ``evaluate_detections``.
+        With ``top_k`` the top-k dump is evaluated, its class count taken
+        from the head that ``score_key`` names."""
+        dump = self.extract_dense_predictions(dataset, top_k=top_k)
+        sc = (dump[score_key] if top_k is None else
+              (dump[f"{score_key}_topk_values"],
+               dump[f"{score_key}_topk_classes"]))
+        if top_k is not None:
+            vc = self.cfg.visual_classes
+            head_sizes = {"audio": self.cfg.audio_classes, "verb": vc[0],
+                          "noun": vc[1] if len(vc) == 3 else vc[-1]}
+            eval_kwargs.setdefault(
+                "topk_num_classes", head_sizes.get(score_key, vc[-1]))
+        return evaluate_detections(
+            dump["video_ids"], dump[proposals_key], sc,
+            gt_columns, task=task, **eval_kwargs)

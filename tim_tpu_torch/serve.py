@@ -1,5 +1,15 @@
-"""Serving API: untrimmed-video action detection in one call; counterpart
-of ``tim_tpu/serve.py::DetectionServer`` (feature-domain serving).
+"""Serving API over pre-extracted features: counterpart of
+``tim_tpu/serve.py``'s ``RecognitionServer`` and ``DetectionServer``.
+
+``RecognitionServer.classify_intervals`` classifies given [start, end]
+intervals of an untrimmed video, each from up to ``ensemble`` windows that
+hold it (logits averaged, then softmaxed):
+
+    server = RecognitionServer(cfg, state_dict)        # on the CUDA card
+    scores = server.classify_intervals(v_feats, a_feats, feat_times, ivals)
+
+``DetectionServer.detect_video`` is untrimmed-video action detection in
+one call.
 
 Given per-timestep feature banks for one video, slide fixed windows, score
 the dense query pyramid on the device in fixed-size batches, then threshold
@@ -21,14 +31,188 @@ from typing import Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from tim_tpu_torch.config import DetectionConfig
+from tim_tpu_torch.config import DetectionConfig, ModelConfig
 from tim_tpu_torch.data.windows import window_feat_indices
 from tim_tpu_torch.evals.format_predictions import (
     nms_per_video, threshold_predictions, threshold_predictions_topk)
 from tim_tpu_torch.models.queries import generate_query_pyramid
-from tim_tpu_torch.models.tim import TimDetection, resolve_device
+from tim_tpu_torch.models.tim import (
+    TimDetection, TimRecognition, resolve_device)
 from tim_tpu_torch.ops import quant
 from tim_tpu_torch.train.detection import make_inference_step
+
+
+class RecognitionServer:
+    """Classify given intervals of an untrimmed video with window-vote
+    ensembling: each interval is answered from up to ``ensemble`` windows
+    that contain it, its logits averaged over them and softmaxed (the
+    reference's inference meter as a serving call). Every window holds
+    one query per head; the batch is fixed (the last one padded with its
+    last job, whose rows do not vote)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        state_dict: Mapping[str, torch.Tensor],
+        *,
+        device: Optional[torch.device | str] = None,
+        feat_stride: int = 3,
+        feat_gap: float = 0.2,
+        window_stride: float = 1.0,
+        ensemble: int = 5,
+        batch_size: int = 64,
+    ):
+        """``state_dict``: reference-layout recognition weights (a
+        released checkpoint, or ``convert.recognition_state_dict_from_jax``;
+        the quantized layout when ``cfg.quantized_inference``). ``device``:
+        the CUDA card unless given (raises without one)."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.feat_stride = feat_stride
+        self.window_stride = window_stride
+        self.window_size = cfg.num_feats * feat_gap * feat_stride
+        self.ensemble = ensemble
+        self.batch_size = batch_size
+        self.model = TimRecognition(cfg, device=self.device)
+        self.model.load_state_dict(state_dict, strict=True)
+        self._nv = 1 if "visual" in cfg.data_modality else 0
+        self._na = 1 if "audio" in cfg.data_modality else 0
+
+    @classmethod
+    def quantized(cls, cfg: ModelConfig,
+                  state_dict: Mapping[str, torch.Tensor],
+                  calibration_batches: Iterable, *,
+                  device: Optional[torch.device | str] = None,
+                  **kwargs) -> "RecognitionServer":
+        """Static-int8 recognition serving: counterpart of the JAX
+        ``RecognitionServer.quantized``. Quantizes the fp32 ``state_dict``
+        (``ops.quant.quantize_state_dict``), runs ``calibration_batches``
+        once through the dynamic-int8 model to record each int8 layer's
+        input abs-max, and serves with those static scales.
+
+        ``calibration_batches``: (v, a, times) tuples shaped like the
+        forward's inputs (tensors or numpy arrays; v or a None for an
+        absent modality), or None for a zero batch of one window with
+        zero times, as the JAX package feeds it."""
+        device = resolve_device(device)
+        qcfg = dataclasses.replace(cfg, quantized_inference=True)
+        qstate = quant.quantize_state_dict(state_dict)
+        qmodel = TimRecognition(qcfg, device=device)
+        qmodel.load_state_dict(qstate, strict=True)
+        nv = 1 if "visual" in cfg.data_modality else 0
+        na = 1 if "audio" in cfg.data_modality else 0
+
+        def tensor(a):
+            return (None if a is None else
+                    torch.as_tensor(a, dtype=torch.float32, device=device))
+
+        @torch.inference_mode()
+        def run(batch):
+            if batch is None:
+                v = (torch.zeros((1, cfg.num_feats, cfg.visual_input_dim),
+                                 device=device)
+                     if "visual" in cfg.input_modality else None)
+                a = (torch.zeros((1, cfg.num_feats, cfg.audio_input_dim),
+                                 device=device)
+                     if "audio" in cfg.input_modality else None)
+                times = torch.zeros((1, cfg.num_context + nv + na, 2),
+                                    device=device)
+            else:
+                v, a, times = (tensor(x) for x in batch)
+            qmodel(v, a, times, nv, na)
+
+        scales = quant.calibrate_act_scales(
+            qmodel.int8_layers(), run, calibration_batches)
+        scfg = dataclasses.replace(qcfg, quant_static_acts=True,
+                                   quant_act_scales=scales)
+        return cls(scfg, qstate, device=device, **kwargs)
+
+    # a copy of tim_tpu/serve.py's (that module imports jax); tests pin it
+    # to the original
+    def _covering_windows(self, start: float, end: float) -> np.ndarray:
+        """Up to ``ensemble`` window starts whose window contains (or best
+        clips) the interval."""
+        lo = max(0.0, end - self.window_size)
+        lo = math.ceil(lo / self.window_stride) * self.window_stride
+        hi = max(start, 0.0)
+        starts = np.arange(lo, hi + 1e-6, self.window_stride)
+        if len(starts) == 0:
+            starts = np.asarray([max(0.0, start)])
+        if len(starts) > self.ensemble:
+            sel = np.linspace(0, len(starts) - 1, self.ensemble).astype(int)
+            starts = starts[sel]
+        return starts
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            self.device)
+
+    def classify_intervals(
+        self,
+        v_feats: Optional[np.ndarray],      # [T, Dv]
+        a_feats: Optional[np.ndarray],      # [T, Da]
+        feat_times: np.ndarray,             # [T, >=2]
+        intervals: np.ndarray,              # [N, 2] video-time
+    ) -> Dict[str, np.ndarray]:
+        """Returns the softmax scores [N, C] of each head (``verb``,
+        ``noun``, ``action``, ``audio``, as the model has them)."""
+        nf = self.cfg.num_feats
+        jobs = [(float(ws), qi)
+                for qi, (s, e) in enumerate(intervals)
+                for ws in self._covering_windows(float(s), float(e))]
+        n = len(intervals)
+        sums: Dict[str, np.ndarray] = {}
+        counts = np.zeros(n)
+
+        for i in range(0, len(jobs), self.batch_size):
+            chunk = jobs[i:i + self.batch_size]
+            pad = self.batch_size - len(chunk)
+            chunk_p = chunk + [chunk[-1]] * pad
+
+            feats_v, feats_a, batch_times = [], [], []
+            for ws, qi in chunk_p:
+                idx = window_feat_indices(
+                    feat_times, ws,
+                    min(ws + self.window_size, feat_times[-1, 1]),
+                    self.feat_stride, nf)
+                t_parts = []
+                if v_feats is not None:
+                    feats_v.append(v_feats[idx])
+                    t_parts.append(feat_times[idx, :2])
+                if a_feats is not None:
+                    feats_a.append(a_feats[idx])
+                    t_parts.append(feat_times[idx, :2])
+                q = intervals[qi][None].astype(np.float32)
+                t = np.concatenate(
+                    t_parts + [q] * (self._nv + self._na), axis=0)
+                batch_times.append(np.clip(
+                    (t - ws) / self.window_size, 0.0, None))
+
+            with torch.inference_mode():
+                logits, _ = self.model(
+                    self._to_device(np.stack(feats_v)) if feats_v else None,
+                    self._to_device(np.stack(feats_a)) if feats_a else None,
+                    self._to_device(np.stack(batch_times)), self._nv,
+                    self._na)
+            for name, lg in zip(("verb", "noun", "action", "audio"),
+                                logits):
+                if lg is None:
+                    continue
+                lg = lg[:, 0].float().cpu().numpy()          # [B, C]
+                if name not in sums:
+                    sums[name] = np.zeros((n, lg.shape[-1]))
+                for row, (ws, qi) in enumerate(chunk):
+                    sums[name][qi] += lg[row]
+            for ws, qi in chunk:
+                counts[qi] += 1
+
+        out = {}
+        denom = np.maximum(counts, 1.0)[:, None]
+        for name, s in sums.items():
+            mean = s / denom
+            e = np.exp(mean - mean.max(-1, keepdims=True))
+            out[name] = e / e.sum(-1, keepdims=True)
+        return out
 
 
 class DetectionServer:
