@@ -136,7 +136,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
         resumed into a fresh runner, one more step from both bit-equal;
      e. ``validate`` banked and host (statistics within 1e-5, kernel 1 four
         times a batch), two banked vote sums bit-equal, and
-        ``extract_predictions`` on both paths.
+        ``extract_predictions`` on both paths;
+ 19. the command lines and the checkpoint gate, on phase 16's and 17's
+     splits: ``cli.run`` (banked, bf16, batch 64) ``--variant detection
+     --train`` for one epoch (the CLI's EPIC model: 97 verb and 44 audio
+     classes), then ``--validate`` and ``--extract_feats --extract_top_k
+     8`` resumed from its checkpoint, each against a ``DetectionRunner``
+     resumed from the same file (within 1e-3; kernel 1 six times a batch,
+     kernel 2 never); ``--variant recognition --validate`` and
+     ``--extract_feats`` with ``--torch_checkpoint`` on phase 17's trained
+     weights saved in the reference's format, against a
+     ``RecognitionRunner`` (kernel 1 four times a batch); then
+     ``validate_checkpoint`` on both full-width checkpoints (load, infer,
+     convert and contract PASS, parity SKIPs without the reference tree;
+     kernel 1 once a layer, kernel 3 twice in the detection contract),
+     with each stage's seconds and the contract's numbers;
+ 20. audio: full-size Auditory SlowFast (R50, width 64, 2304-d feature)
+     in fp32 on one clip's spectrogram [1, 1, 200, 128], card vs CPU
+     within 1e-3; ``make_audio_apply`` and ``extract_features_for_video``
+     with the CLI's clip function over a synthetic 60 s waveform (1.1 s
+     records every 0.2 s, a clean and a SpecAugment set, batch 8): device
+     and wall clips/s, peak memory, the clean set against per-clip
+     forwards (within 1e-4).
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -2647,7 +2668,7 @@ def phase_det_resume(runner, train_ds):
 
 def phase_detection_training():
     """Phases 16 and 18; returns the launches of the train, validation and
-    mAP paths."""
+    mAP paths, and the splits."""
     from tim_tpu_torch import config as C
     cfg = C.epic_detection()
     rng = np.random.default_rng(SEED + 3)
@@ -2670,7 +2691,7 @@ def phase_detection_training():
     del runner
     torch.cuda.empty_cache()
     return {"det-train": train_launches, "det-val": val_launches,
-            "det-map": map_launches}
+            "det-map": map_launches}, (train_ds, val_ds)
 
 
 # Phase 17: TIM recognition at the full width of ``epic_recognition``
@@ -3306,7 +3327,7 @@ def phase_rec_resume(runner, train_ds):
 
 def phase_recognition(gen):
     """Phase 17; returns (kernel 1's recognition report, launches by
-    path)."""
+    path, (the validation split, the trained state dict on the CPU))."""
     from tim_tpu_torch import config as C
     cfg = C.epic_recognition()
     rng = np.random.default_rng(SEED + 4)
@@ -3339,12 +3360,15 @@ def phase_recognition(gen):
     summary["resume"] = timed("rec-resume", phase_rec_resume, runner,
                               train_ds)
     log(f"[rec] summary {json.dumps(summary)}")
+    trained = {k: v.detach().cpu() for k, v in
+               runner.model.state_dict().items()}
     del runner
     torch.cuda.empty_cache()
     return report, {"serve-rec-bf16": serve_launches["serve-rec-bf16"],
                     "serve-rec-int8": serve_launches["serve-rec-int8"],
                     "serve-rec-fused": serve_launches["serve-rec-fused"],
-                    "rec-train": train_launches, "rec-val": val_launches}
+                    "rec-train": train_launches,
+                    "rec-val": val_launches}, (val_ds, trained)
 
 
 # Phase 18: the detection mAP chain on phase 16's runner and validation
@@ -3534,6 +3558,377 @@ def phase_det_map(runner, val_ds):
         "fp32_rel": f_err, "fp32_avg_diff": d_avg, "control_avg": perfect}
 
 
+# Phase 19: the command lines and the checkpoint gate, on phase 16's and
+# 17's full-width splits: the TIM CLI (``cli.run``, banked, bf16, batch 64)
+# builds the EPIC models of its defaults (detection: the 97-verb head and
+# 44 audio classes; recognition: 97/300/3806/44).
+CLI_TOL = 1e-3             # CLI runs vs the runner's own, same weights
+CLI_TOPK = 8
+GATE_NUM_FEATS = "50"      # the CLI's models take 50 features a window
+
+
+def cli_args(variant, out, *extra):
+    """Parsed TIM CLI flags at the parser's defaults, banked, output to
+    ``out``."""
+    from tim_tpu_torch import cli
+    return cli.build_parser().parse_args(
+        ["--variant", variant, "--output_dir", str(out), "--device_bank",
+         "true", "--print-freq", "1000", *extra])
+
+
+def epic_detection_split(ds, train):
+    """``ds``'s windows and banks as ``cli.load_datasets`` builds an EPIC
+    detection split: verb labels (``--verb_only``, the CLI's 97-class
+    head), augmentation sets sampled on the train split only."""
+    from tim_tpu_torch.data.dataset import DetectionDataset
+    return DetectionDataset(ds.windows, ds.visual, ds.audio,
+                            sample_augmentations=train, verb_only=True,
+                            include_verb_noun=False, dataset_name="epic")
+
+
+def cli_run(tag, args, train_ds, val_ds):
+    """``cli.run`` on the card with every count set to 0 just before and
+    read just after. Returns (result, launches, seconds)."""
+    from tim_tpu_torch import cli
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    out = cli.run(args, train_ds, val_ds, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    log(f"[{tag}] cli.run {secs:.3f} s; launches {launches}")
+    return out, launches, secs
+
+
+def stats_diff(tag, got, want):
+    """The largest |got - want| of two statistics dicts, relative to
+    max(1, |want|); fails unless every value is finite and within
+    CLI_TOL."""
+    require(sorted(got) == sorted(want), f"{tag}: statistics keys differ")
+    diff = max(abs(float(got[k]) - float(want[k]))
+               / max(1.0, abs(float(want[k]))) for k in want)
+    require(all(np.isfinite(float(v)) for v in got.values()),
+            f"{tag}: non-finite statistics {got}")
+    require(diff <= CLI_TOL, f"{tag}: {diff} > {CLI_TOL}")
+    return diff
+
+
+def dump_diff(tag, got, want, keys):
+    """The largest difference of two dumps' numeric columns, each relative
+    to max(1, its largest |want|)."""
+    require(all(k in got for k in keys), f"{tag}: dump keys {sorted(got)}")
+    diff = max(float(np.abs(np.asarray(got[k], np.float64)
+                            - np.asarray(want[k], np.float64)).max())
+               / max(1.0, float(np.abs(want[k]).max())) for k in keys)
+    require(diff <= CLI_TOL, f"{tag}: dumps differ by {diff}")
+    return diff
+
+
+def require_kernel1(tag, launches, per_batch, batches):
+    require(launches["query_block_attention"] == per_batch * batches
+            and launches["fused_post_attention"] == 0,
+            f"{tag}: launches {launches}, expected kernel 1 {per_batch} x "
+            f"{batches} batches, kernel 2 never")
+
+
+def phase_cli_detection(train_ds, val_ds, out):
+    """19a: ``--train`` for one epoch, then ``--validate`` and
+    ``--extract_feats --extract_top_k 8`` resumed from its checkpoint,
+    each against a ``DetectionRunner`` resumed from the same checkpoint.
+    Returns (launches by path, metrics, the reference-format checkpoint)."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    train_ds = epic_detection_split(train_ds, True)
+    val_ds = epic_detection_split(val_ds, False)
+    n_val = len(val_ds)
+    val_batches, dump_batches = n_val // DET_BATCH, -(-n_val // DET_BATCH)
+    args = cli_args("detection", out, "--train", "--finetune_epochs", "1")
+    mcfg, tcfg = cli.configs_from_args(args)
+    layers = mcfg.num_layers
+    fit_stats, l_train, s_train = cli_run("cli-det-train", args, train_ds,
+                                          val_ds)
+    require_kernel1("cli-det-train", l_train, layers, val_batches)
+    payload = torch.load(out / "checkpoint.pt", map_location="cpu",
+                         weights_only=True)
+    require(payload["epoch"] == 1 and payload["step"] == len(train_ds)
+            // DET_BATCH, f"cli-det-train: checkpoint epoch "
+            f"{payload['epoch']}, step {payload['step']}")
+
+    args = cli_args("detection", out, "--validate", "--resume", str(out))
+    val_stats, l_val, s_val = cli_run("cli-det-val", args, None, val_ds)
+    require_kernel1("cli-det-val", l_val, layers, val_batches)
+    runner = DetectionRunner(mcfg, tcfg, None, val_ds, print_freq=1000,
+                             use_device_bank=True, device="cuda")
+    runner.resume(str(out))
+    own = runner.validate()
+    d_val = stats_diff("cli-det-val", val_stats, own)
+    d_fit = stats_diff("cli-det-train", fit_stats, own)
+
+    args = cli_args("detection", out, "--extract_feats", "--extract_top_k",
+                    str(CLI_TOPK), "--resume", str(out))
+    dump, l_dump, s_dump = cli_run("cli-det-dump", args, None, val_ds)
+    require_kernel1("cli-det-dump", l_dump, layers, dump_batches)
+    with np.load(out / "dense_predictions.npz", allow_pickle=True) as f:
+        saved = {k: f[k] for k in f.files}
+    require(sorted(saved) == sorted(dump)
+            and list(saved["video_ids"]) == list(dump["video_ids"]),
+            "cli-det-dump: the file differs from the returned dump")
+    own_dump = runner.extract_dense_predictions(top_k=CLI_TOPK)
+    cols = ("queries", "v_proposals", "a_proposals", "action_topk_values",
+            "audio_topk_values")
+    d_dump = dump_diff("cli-det-dump", saved, own_dump, cols)
+    rows = len(dump["video_ids"])
+    require(rows == n_val * runner.num_queries
+            and dump["action_topk_values"].shape == (rows, CLI_TOPK),
+            f"cli-det-dump: {rows} rows")
+    sizes = {f.name: f.stat().st_size for f in sorted(out.glob("*.pt"))}
+    log(f"[cli-det] train 1 epoch ({len(train_ds)} windows) {s_train:.3f} "
+        f"s (checkpoint files {json.dumps(sizes)} bytes), stats "
+        f"{json.dumps(fit_stats)}; validate {s_val:.3f} s; dump "
+        f"{s_dump:.3f} s ({rows} rows, top-{CLI_TOPK}); against the "
+        f"runner's own: validate {d_val:.3e}, train's last validation "
+        f"{d_fit:.3e}, dump {d_dump:.3e} (tol {CLI_TOL})")
+    path = out / "tim_detection.pyth"
+    torch.save({"state_dict": payload["params"], "epoch": payload["epoch"]},
+               path)
+    del runner
+    torch.cuda.empty_cache()
+    return ({"cli-det-train": l_train, "cli-det-val": l_val,
+             "cli-det-dump": l_dump},
+            {"train_s": s_train, "val_s": s_val, "dump_s": s_dump,
+             "val_diff": d_val, "fit_diff": d_fit, "dump_diff": d_dump},
+            path)
+
+
+def phase_cli_recognition(val_ds, state_dict, out):
+    """19b: phase 17's trained weights saved in the reference's format,
+    ``--validate`` and ``--extract_feats`` with ``--torch_checkpoint`` on
+    them, each against a ``RecognitionRunner`` with the same weights.
+    Returns (launches by path, metrics, the checkpoint)."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch.runner.recognition import RecognitionRunner
+    path = out / "tim_recognition.pyth"
+    torch.save({"state_dict": state_dict, "epoch": 1}, path)
+    args = cli_args("recognition", out, "--validate", "--torch_checkpoint",
+                    str(path))
+    mcfg, tcfg = cli.configs_from_args(args)
+    runner = RecognitionRunner(mcfg, tcfg, None, val_ds, print_freq=1000,
+                               use_device_bank=True, device="cuda")
+    runner.load_torch_checkpoint(state_dict)
+    counters = zero_counts()
+    own = runner.validate()
+    l_own = read_counts(counters)
+    stats, l_val, s_val = cli_run("cli-rec-val", args, None, val_ds)
+    batches = -(-len(val_ds) // REC_BATCH)
+    require_kernel1("cli-rec-val", l_val, mcfg.num_layers, batches)
+    require(l_val == l_own, f"cli-rec-val: launches {l_val}, the runner's "
+            f"own {l_own}")
+    d_val = stats_diff("cli-rec-val", stats, own)
+
+    args = cli_args("recognition", out, "--extract_feats",
+                    "--torch_checkpoint", str(path))
+    preds, l_dump, s_dump = cli_run("cli-rec-dump", args, None, val_ds)
+    require_kernel1("cli-rec-dump", l_dump, mcfg.num_layers, batches)
+    require((out / "val_features.pkl").exists(),
+            "cli-rec-dump: no val_features.pkl")
+    own_preds = runner.extract_predictions()
+    require(preds["v_narration_ids"] == own_preds["v_narration_ids"]
+            and preds["a_narration_ids"] == own_preds["a_narration_ids"],
+            "cli-rec-dump: narration ids differ")
+    d_dump = dump_diff("cli-rec-dump", preds, own_preds,
+                       ("verb", "noun", "action", "audio"))
+    log(f"[cli-rec] validate {s_val:.3f} s, stats {json.dumps(stats)}; "
+        f"extract {s_dump:.3f} s (action {preds['action'].shape}); against "
+        f"the runner's own: validate {d_val:.3e}, predictions {d_dump:.3e} "
+        f"(tol {CLI_TOL})")
+    del runner
+    torch.cuda.empty_cache()
+    return ({"cli-rec-val": l_val, "cli-rec-dump": l_dump},
+            {"val_s": s_val, "dump_s": s_dump, "val_diff": d_val,
+             "dump_diff": d_dump}, path)
+
+
+def phase_gate(task, path):
+    """19c: ``validate_checkpoint`` on a full-width checkpoint on the card:
+    load, infer, convert and contract PASS, parity SKIPs (no reference
+    tree); the contract's fp32 model launches kernel 1 once a layer, the
+    detection contract's fused int8 class heads kernel 3 twice."""
+    from tim_tpu_torch import validate_checkpoint as VC
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    gate = VC.validate([str(path), "--task", task, "--num_feats",
+                        GATE_NUM_FEATS], device="cuda")
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    tag = f"gate-{task}"
+    contract = gate.numbers.get("contract", {})
+    log(f"[{tag}] stages {json.dumps(gate.tags)}; seconds "
+        f"{json.dumps({k: round(v, 3) for k, v in gate.seconds.items()})}, "
+        f"{secs:.3f} s in all; contract {json.dumps(contract)}; launches "
+        f"{launches}")
+    want = {"load": "PASS", "infer": "PASS", "convert": "PASS",
+            "parity": "SKIP", "contract": "PASS"}
+    require(gate.tags == want, f"{tag}: stages {gate.tags}")
+    layers = gate.numbers["infer"]["num_layers"]
+    heads = 2 if task == "detection" else 0
+    require(launches["query_block_attention"] == layers
+            and launches["int8_matmul_fused"] == heads,
+            f"{tag}: launches {launches}, expected kernel 1 {layers} "
+            f"times, kernel 3 {heads}")
+    return launches, {"contract": contract, "seconds": gate.seconds,
+                      "total_s": secs}
+
+
+def phase_cli_and_gate(det_splits, rec_val_ds, rec_state_dict):
+    """Phase 19; returns the launches by path."""
+    import pathlib
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        det_out = pathlib.Path(tmp) / "detection"
+        rec_out = pathlib.Path(tmp) / "recognition"
+        det_out.mkdir()
+        rec_out.mkdir()
+        det_l, det_m, det_path = timed("cli-detection", phase_cli_detection,
+                                       *det_splits, det_out)
+        rec_l, rec_m, rec_path = timed("cli-recognition",
+                                       phase_cli_recognition, rec_val_ds,
+                                       rec_state_dict, rec_out)
+        paths, gates = {**det_l, **rec_l}, {}
+        for task, path in (("detection", det_path),
+                           ("recognition", rec_path)):
+            paths[f"gate-{task}"], gates[task] = timed(
+                f"gate-{task}", phase_gate, task, path)
+    log(f"[cli] summary {json.dumps({'detection': det_m, 'recognition': rec_m, 'gate': gates})}")
+    return paths
+
+
+# Phase 20: Auditory SlowFast at the EPIC-Sounds defaults (R50, width 64,
+# alpha 4, beta_inv 8, 2304-d feature) in fp32, random weights from the
+# seed; audio extraction over a synthetic 60 s waveform.
+AUDIO_SR = 24000
+AUDIO_SECONDS, AUDIO_HOP, AUDIO_RECORD = 60.0, 0.2, 1.1
+AUDIO_NUM_AUG, AUDIO_BATCH = 2, 8
+AUDIO_TOL = 1e-3           # fp32 card vs CPU, of the largest feature / logit
+AUDIO_CLIP_TOL = 1e-4      # bank rows vs per-clip forwards on the card
+AUDIO_CHECK_CLIPS = 12
+
+
+def phase_audio_slice_fp32(wave):
+    """20a: full-size ``AuditorySlowFast()`` on one clip (a 0.999 s crop's
+    spectrogram, [1, 1, 200, 128]), card against CPU."""
+    from tim_tpu_torch.extract.audio import (
+        extract_clip_spectrogram, record_clip_bounds)
+    from tim_tpu_torch.models.backbones.slowfast import (
+        AuditorySlowFast, pack_pathways)
+    lo, hi = record_clip_bounds(0, int(round(AUDIO_RECORD * AUDIO_SR)),
+                                int(round(0.999 * AUDIO_SR)), 0, 1)
+    spec = extract_clip_spectrogram(wave, lo, hi, sampling_rate=AUDIO_SR)
+    x = torch.from_numpy(spec)[None, None]
+    models = {d: AuditorySlowFast(device=d, generator=torch.Generator()
+                                  .manual_seed(SEED))
+              for d in ("cpu", "cuda")}
+    out, secs = {}, {}
+    for dev, model in models.items():
+        t0 = time.perf_counter()
+        out[dev] = [t.float().cpu() for t in
+                    model(*pack_pathways(x.to(dev), model.alpha))]
+        secs[dev] = time.perf_counter() - t0
+    (g_logits, g_feat), (c_logits, c_feat) = out["cuda"], out["cpu"]
+    err_f = ((g_feat - c_feat).abs().max() / c_feat.abs().max()).item()
+    err_l = ((g_logits - c_logits).abs().max() / c_logits.abs().max()).item()
+    n_params = sum(p.numel() for p in models["cpu"].parameters())
+    log(f"[audio-slice-fp32] AuditorySlowFast ({n_params} parameters) on "
+        f"[1, 1, {spec.shape[0]}, {spec.shape[1]}]: feature "
+        f"{tuple(c_feat.shape)}, card vs CPU feature {err_f:.3e}, "
+        f"probabilities {err_l:.3e} of the largest (tol {AUDIO_TOL}); "
+        f"card {secs['cuda']:.3f} s, CPU {secs['cpu']:.3f} s; cuDNN TF32 "
+        f"flag {torch.backends.cudnn.allow_tf32} (restored)")
+    require(tuple(c_feat.shape) == (1, 2304) and spec.shape == (200, 128),
+            f"audio-slice: feature {tuple(c_feat.shape)}, spectrogram "
+            f"{spec.shape}")
+    require(err_f <= AUDIO_TOL and err_l <= AUDIO_TOL,
+            f"audio-slice: card vs CPU {err_f}, {err_l}")
+    return {"feature_rel": err_f, "prob_rel": err_l, "card_s": secs["cuda"],
+            "cpu_s": secs["cpu"]}
+
+
+def phase_audio_extract(wave):
+    """20b: ``make_audio_apply`` and ``extract_features_for_video`` over
+    the waveform with the CLI's clip function (records of 1.1 s every
+    0.2 s, two augmentation sets: the clean crop and a SpecAugment one,
+    batch 8); counts set to 0 just before and read just after; device
+    (CUDA events) and wall clips/s, peak memory; the clean set against
+    per-clip forwards."""
+    import random
+    from tim_tpu_torch.extract import cli as ecli
+    from tim_tpu_torch.extract.pipeline import extract_features_for_video
+    args = ecli.build_parser().parse_args(
+        ["--backbone", "slowfast", "--feature_times", "-", "--out_dir", "-",
+         "--num_aug", str(AUDIO_NUM_AUG), "--batch_size", str(AUDIO_BATCH)])
+    apply_fn = ecli.make_audio_apply(args, device="cuda")
+    starts = np.arange(0.0, AUDIO_SECONDS - AUDIO_RECORD + 1e-6, AUDIO_HOP)
+    n = len(starts)
+    clip_fn = ecli.audio_clip_fn(wave, starts, starts + AUDIO_RECORD,
+                                 AUDIO_SR, AUDIO_NUM_AUG)
+    timed_apply = EventTimed(apply_fn)
+    timed_apply.device = apply_fn.device
+    random.seed(SEED)                        # SpecAugment's draws
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    bank = extract_features_for_video(clip_fn, n, AUDIO_NUM_AUG, timed_apply,
+                                      batch_size=AUDIO_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    clips = n * AUDIO_NUM_AUG
+    device = timed_apply.device_ms()
+    t0 = time.perf_counter()
+    for t in range(min(n, 16)):
+        clip_fn(t, 1)
+    aug_ms = (time.perf_counter() - t0) * 1e3 / min(n, 16)
+    worst = 0.0
+    for t in np.linspace(0, n - 1, AUDIO_CHECK_CLIPS).astype(int):
+        one = apply_fn(torch.from_numpy(clip_fn(int(t), 0))[None].cuda())
+        want = one[0].cpu().numpy()
+        worst = max(worst, float(np.abs(bank[t, 0] - want).max()
+                                 / np.abs(want).max()))
+    log(f"[audio-extract] {n} records x {AUDIO_NUM_AUG} sets = {clips} clips "
+        f"of a {AUDIO_SECONDS:.0f} s waveform, batch {AUDIO_BATCH}: device "
+        f"{device:.3f} ms ({len(timed_apply.events)} batches), "
+        f"{clips / (device / 1e3):.2f} device clips/s; wall {wall:.3f} s, "
+        f"{clips / wall:.2f} wall clips/s (a SpecAugment clip's host "
+        f"spectrogram {aug_ms:.2f} ms); peak max_memory_allocated "
+        f"{peak / 2 ** 30:.3f} GiB; bank {bank.shape}; clean set vs "
+        f"{AUDIO_CHECK_CLIPS} per-clip forwards {worst:.3e} (tol "
+        f"{AUDIO_CLIP_TOL}); launches {launches}")
+    require(bank.shape == (n, AUDIO_NUM_AUG, 2304)
+            and np.isfinite(bank).all(), f"audio-extract: bank {bank.shape}")
+    require(not np.allclose(bank[:, 0], bank[:, 1]),
+            "audio-extract: the SpecAugment set equals the clean set")
+    require(worst <= AUDIO_CLIP_TOL, f"audio-extract: clean set vs per-clip "
+            f"forwards {worst}")
+    return launches, {
+        "records": n, "clips": clips, "device_ms": device,
+        "device_clips_per_s": clips / (device / 1e3), "wall_s": wall,
+        "wall_clips_per_s": clips / wall, "spec_augment_clip_ms": aug_ms,
+        "peak_bytes": peak, "clean_vs_per_clip": worst}
+
+
+def phase_audio():
+    """Phase 20; returns the extraction's launches by path."""
+    wave = np.random.default_rng(SEED).normal(
+        scale=0.1, size=int(AUDIO_SECONDS * AUDIO_SR)).astype(np.float32)
+    summary = {"slice": timed("audio-slice-fp32", phase_audio_slice_fp32,
+                              wave)}
+    launches, summary["extract"] = timed("audio-extract",
+                                         phase_audio_extract, wave)
+    log(f"[audio] summary {json.dumps(summary)}")
+    torch.cuda.empty_cache()
+    return {"audio-extract": launches}
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -3637,16 +4032,24 @@ def main() -> int:
     training_report, training_paths = phase_training(
         torch.Generator(device="cuda").manual_seed(SEED + 1))
     kernel_report.update(training_report)
-    detection_paths = phase_detection_training()
-    rec_report, recognition_paths = phase_recognition(
-        torch.Generator(device="cuda").manual_seed(SEED + 2))
+    detection_paths, det_splits = phase_detection_training()
+    rec_report, recognition_paths, (rec_val_ds, rec_trained) = \
+        phase_recognition(torch.Generator(device="cuda").manual_seed(SEED + 2))
     kernel_report["query_block_attention"]["recognition"] = rec_report
+    cli_paths = phase_cli_and_gate(det_splits, rec_val_ds, rec_trained)
+    del det_splits, rec_val_ds, rec_trained
+    audio_paths = phase_audio()
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
-               **training_paths, **detection_paths, **recognition_paths}
-    for path in ("serve-rec-bf16", "rec-val", "det-map"):
+               **training_paths, **detection_paths, **recognition_paths,
+               **cli_paths, **audio_paths}
+    for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
+                 "cli-det-val", "cli-det-dump", "cli-rec-val",
+                 "cli-rec-dump", "gate-detection", "gate-recognition"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
+    require(by_path["gate-detection"]["int8_matmul_fused"] > 0,
+            "gate-detection: kernel 3 never launched")
     require(by_path["rec-train"]["query_block_attention"] == 0,
             "rec-train: kernel 1 launched")
     sources = {

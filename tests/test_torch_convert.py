@@ -159,8 +159,8 @@ def _port_modules():
 
 
 def test_serve_imports_no_jax():
-    """Importing every module of the port loads no module of JAX, flax or
-    the JAX package (tim_tpu)."""
+    """Importing every module of the port loads no module of JAX, flax,
+    the JAX package (tim_tpu) or the tests."""
     modules = sorted(_port_modules())
     for module in ("ops.int8_matmul_fused", "ops.window_attention",
                    "ops.flash_mha", "models.backbones.swin3d",
@@ -172,15 +172,28 @@ def test_serve_imports_no_jax():
                    "data.device_bank", "data.synthetic", "train.checkpoint",
                    "train.detection", "evals.metrics", "evals.meters",
                    "runner.detection", "evals.anet", "evals.ek100",
-                   "models.pool", "train.recognition", "runner.recognition"):
+                   "models.pool", "train.recognition", "runner.recognition",
+                   "cli", "evals.__main__", "validate_checkpoint",
+                   "models.backbones.slowfast", "extract.audio",
+                   "extract.spec_warp", "extract.augment"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('tim_tpu', 'jax', 'jaxlib', 'flax')]\n"
+            "('tim_tpu', 'jax', 'jaxlib', 'flax', 'tests')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT)
+
+
+@pytest.mark.parametrize("sd", [
+    {"a.w": 1, "b": 2}, {"module.a.w": 1, "module.b": 2},
+    {"module._orig_mod.a": 1, "module._orig_mod.b": 2},
+    {"_orig_mod.module.a": 1}, {"module.a": 1, "b": 2}, {}])
+def test_strip_wrapper_copy_equals_jax(sd):
+    from tim_tpu.convert.torch_import import _strip_wrapper as jax_strip
+    from tim_tpu_torch.convert import _strip_wrapper
+    assert _strip_wrapper(sd) == jax_strip(sd)
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():

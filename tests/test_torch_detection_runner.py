@@ -349,7 +349,7 @@ def test_training_loss_falls_and_fit_checkpoints(bundle, tmp_path):
         assert torch.equal(a, b), k
 
 
-def test_runner_defaults_to_the_card_and_the_map_half_raises(bundle):
+def test_runner_defaults_to_the_card_and_the_map_half_runs(bundle):
     """The runner defaults to the card. The mAP half, which raised until it
     was ported, now runs (``tests/test_torch_evals.py`` holds it to
     JAX's): no ``NotImplementedError`` is left."""

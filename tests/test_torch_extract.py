@@ -101,7 +101,8 @@ def test_parser_has_the_jax_flags():
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--backbone", "slowfast"], NotImplementedError, "SlowFast"),
+    (["--backbone", "slowfast", "--quantize_backbone", "on"],
+     NotImplementedError, "int8"),
     (["--backbone", "videomae", "--quantize_backbone", "on"],
      NotImplementedError, "int8"),
     (["--backbone", "omnivore", "--num_aug", "2"], NotImplementedError,
@@ -110,8 +111,10 @@ def test_parser_has_the_jax_flags():
 def test_unported_options_raise(argv, error, match):
     args = pcli.build_parser().parse_args(
         argv + ["--feature_times", "x", "--out_dir", "y"])
+    make = (pcli.make_audio_apply if args.backbone == "slowfast"
+            else pcli.make_visual_apply)
     with pytest.raises(error, match=match):
-        pcli.make_visual_apply(args, device="cpu")
+        make(args, device="cpu")
 
 
 def test_flash_off_is_refused_on_the_card_only():

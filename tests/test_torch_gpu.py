@@ -765,3 +765,144 @@ def test_kernels_without_a_backward_raise_on_grad_inputs(gen):
         query_block_attention(*args)
     with torch.no_grad():
         assert query_block_attention(*args).grad_fn is None
+
+
+def _small_slowfast(device):
+    from tim_tpu_torch.models.backbones.slowfast import AuditorySlowFast
+    return AuditorySlowFast(num_classes=5, width=8, alpha=4, beta_inv=4,
+                            device=device,
+                            generator=torch.Generator().manual_seed(0))
+
+
+@pytest.mark.gpu
+def test_slowfast_on_the_card_matches_the_cpu_with_tf32_off(gen):
+    """A small Auditory SlowFast (R50 depths, width 8) in fp32 on the card
+    against the CPU: features and softmaxed logits within 1e-4 of the
+    largest (TF32 convolutions, cuDNN's default, would miss it); cuDNN's
+    flag is as it was after the forward."""
+    from tim_tpu_torch.models.backbones.slowfast import pack_pathways
+    assert torch.backends.cudnn.allow_tf32   # PyTorch's default
+    cpu, card = _small_slowfast("cpu"), _small_slowfast("cuda")
+    spec = torch.randn(4, 1, 200, 128, generator=gen, device="cuda")
+    got = card(*pack_pathways(spec, 4))
+    want = cpu(*pack_pathways(spec.cpu(), 4))
+    assert torch.backends.cudnn.allow_tf32
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.gpu
+def test_small_gate_on_the_card_launches_kernels_3_and_1(gen, tmp_path,
+                                                          capsys):
+    """The checkpoint gate on a small detection checkpoint: load, infer,
+    convert and contract PASS, parity SKIPs (no reference tree); the
+    contract launches kernel 3 twice (the two fused int8 class heads) and
+    kernel 1 once a layer (the fp32 server's batch)."""
+    from tim_tpu_torch import validate_checkpoint as VC
+    cfg = C.epic_detection(d_model=32, num_layers=2, nhead=2, num_feats=6,
+                           visual_input_dim=16, audio_input_dim=8,
+                           visual_classes=(7,), audio_classes=3,
+                           compute_dtype="float32")
+    path = tmp_path / "det.pth"
+    torch.save({"state_dict": TimDetection(cfg, device="cpu").state_dict(),
+                "epoch": 1}, path)
+    before = int8_matmul_fused.launches, query_block_attention.launches
+    gate = VC.validate([str(path), "--task", "detection", "--nhead", "2",
+                        "--num_feats", "6"])
+    out = capsys.readouterr().out
+    assert not gate.failed, out
+    assert "parity     SKIP" in out and "(cuda" in out
+    assert (int8_matmul_fused.launches - before[0],
+            query_block_attention.launches - before[1]) == (2, 2)
+
+
+class _Table:
+    """The part of a pandas DataFrame that the extraction CLI reads, over
+    numpy columns, for hosts without pandas."""
+
+    def __init__(self, cols):
+        self.cols = cols
+        self.iloc = self
+
+    def __getitem__(self, key):
+        import numpy as np
+        if isinstance(key, str):
+            return _Column(self.cols[key])
+        if isinstance(key, (int, np.integer)):
+            return {k: v[key] for k, v in self.cols.items()}
+        return _Table({k: v[np.asarray(key)] for k, v in self.cols.items()})
+
+    def __len__(self):
+        return len(self.cols["video_id"])
+
+    def __contains__(self, column):
+        return column in self.cols
+
+    def sort_values(self, column):
+        import numpy as np
+        return self[np.argsort(self.cols[column], kind="stable")]
+
+
+class _Column:
+    def __init__(self, values):
+        self.values = values
+
+    def __eq__(self, other):
+        return self.values == other
+
+    def unique(self):
+        import numpy as np
+        return np.unique(self.values)
+
+    def to_numpy(self, dtype=None):
+        import numpy as np
+        return np.asarray(self.values, dtype)
+
+
+@pytest.mark.gpu
+def test_slowfast_extraction_through_the_cli_on_the_card(gen, tmp_path,
+                                                         monkeypatch):
+    """``--backbone slowfast`` through ``extract.cli.main`` on the card (a
+    small model, one WAV of 3 s, 10 records, two augmentation sets): the
+    bank is finite, [10, 2, 320], and its clean set equals the CPU's
+    forward of the same spectrograms within 1e-4 of the largest."""
+    import functools
+    import sys
+    import types
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from tim_tpu_torch.extract import cli as pcli
+    from tim_tpu_torch.extract.audio import (
+        extract_clip_spectrogram, record_clip_bounds)
+    from tim_tpu_torch.models.backbones import slowfast as psf
+    sr = 24000
+    wave = np.random.default_rng(0).normal(scale=0.2, size=3 * sr)
+    wavfile.write(tmp_path / "v1.wav", sr, (wave * 32767).astype(np.int16))
+    starts = np.arange(10, dtype=np.float64) * 0.2
+    table = _Table({"video_id": np.asarray(["v1"] * 10, object),
+                    "start_sec": starts, "stop_sec": starts + 1.1})
+    monkeypatch.setitem(sys.modules, "pandas", types.SimpleNamespace(
+        read_pickle=lambda path: table))
+    monkeypatch.setattr(psf, "AuditorySlowFast", functools.partial(
+        psf.AuditorySlowFast, num_classes=5, width=8, alpha=4, beta_inv=4))
+    pcli.main(["--backbone", "slowfast", "--audio_dir", str(tmp_path),
+               "--feature_times", str(tmp_path / "ctx.pkl"),
+               "--out_dir", str(tmp_path / "out"), "--split", "val",
+               "--num_aug", "2"])
+    bank = np.load(tmp_path / "out" / "val" / "v1.npy")
+    assert bank.shape == (10, 2, 320) and np.isfinite(bank).all()
+    data = wavfile.read(tmp_path / "v1.wav")[1].astype(np.float32) / 32767
+    specs = []
+    for s, e in zip(starts, starts + 1.1):
+        lo, hi = record_clip_bounds(int(round(s * sr)), int(round(e * sr)),
+                                    int(round(0.999 * sr)), 0, 2)
+        specs.append(extract_clip_spectrogram(data, lo, min(hi, len(data)),
+                                              sampling_rate=sr))
+    cpu = psf.AuditorySlowFast(device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.stack(specs))[:, None]
+    _, want = cpu(*psf.pack_pathways(x, 4))
+    assert np.abs(bank[:, 0] - want.numpy()).max() <= (
+        1e-4 * want.abs().max().item())

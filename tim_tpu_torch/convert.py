@@ -12,8 +12,11 @@ calibrated activation scales. ``swin_state_dict_from_jax`` and
 ``vit_state_dict_from_jax`` invert the backbones' ``params_from_torch``;
 ``two_head_state_dict_from_jax`` and ``mae_state_dict_from_jax`` convert
 the training models (``runner.backbone.TwoHeadViT``,
-``models.backbones.mae.PretrainVideoMAE``) the same way; and ``load_torch_checkpoint`` / ``load_backbone_state`` read a released
-backbone checkpoint into a port backbone. Works on plain numpy leaves; jax
+``models.backbones.mae.PretrainVideoMAE``) the same way;
+``slowfast_state_dict_from_jax`` inverts ``slowfast.params_from_torch``
+(params and BatchNorm statistics); and ``load_torch_checkpoint`` /
+``load_backbone_state`` read a released backbone checkpoint into a port
+backbone. Works on plain numpy leaves; jax
 arrays convert through ``np.asarray``.
 """
 
@@ -24,6 +27,21 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+
+def _strip_wrapper(sd: Mapping) -> Mapping:
+    """Drop a uniform DataParallel/compile wrapper prefix if present (a
+    copy of ``tim_tpu/convert/torch_import.py``'s). The reference saves
+    ``model.module.state_dict()`` for multi-GPU runs, so released files
+    should be bare, but files saved from a wrapped model still load."""
+    changed = True
+    while changed and sd:
+        changed = False
+        for prefix in ("module.", "_orig_mod."):
+            if all(k.startswith(prefix) for k in sd):
+                sd = {k[len(prefix):]: v for k, v in sd.items()}
+                changed = True
+    return sd
 
 
 def _t(x, dtype=np.float32) -> torch.Tensor:
@@ -309,6 +327,55 @@ def mae_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         _vit_block(p[f"decoder_block{i}"], f"decoder_blocks.{i}", out)
     _norm(p["decoder_norm"], "decoder_norm", out)
     _linear(p["decoder_head"], "decoder_head", out)
+    return out
+
+
+def _conv2d(tree: Mapping, prefix: str, out: Dict) -> None:
+    # flax Conv kernel [h, w, in, out] -> torch [out, in, h, w]
+    out[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).transpose(
+        3, 2, 0, 1))
+
+
+def _batch_norm(params: Mapping, stats: Mapping, prefix: str,
+                out: Dict) -> None:
+    _norm(params, prefix, out)
+    out[f"{prefix}.running_mean"] = _t(stats["mean"])
+    out[f"{prefix}.running_var"] = _t(stats["var"])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def slowfast_state_dict_from_jax(variables: Mapping,
+                                 depths=(3, 4, 6, 3)
+                                 ) -> Dict[str, torch.Tensor]:
+    """``{'params', 'batch_stats'}`` of a flax ``AuditorySlowFast`` -> the
+    reference checkpoint's ``state_dict`` (the inverse of
+    ``slowfast.params_from_torch``; ``num_batches_tracked`` 0, which the
+    JAX package does not keep)."""
+    p, st = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+    for i in (0, 1):
+        name = f"s1_pathway{i}_stem"
+        _conv2d(p[name]["conv"], f"s1.pathway{i}_stem.conv", out)
+        _batch_norm(p[name]["bn"], st[name]["bn"], f"s1.pathway{i}_stem.bn",
+                    out)
+    for name in ("s1_fuse", "s2_fuse", "s3_fuse", "s4_fuse"):
+        _conv2d(p[name]["conv_f2s"], f"{name}.conv_f2s", out)
+        _batch_norm(p[name]["bn"], st[name]["bn"], f"{name}.bn", out)
+    for s, depth in enumerate(depths):
+        for i in (0, 1):
+            for j in range(depth):
+                src = f"s{s + 2}_pathway{i}_res{j}"
+                dst = f"s{s + 2}.pathway{i}_res{j}"
+                bp, bs = p[src]["branch2"], st[src]["branch2"]
+                for leaf in ("a", "b", "c"):
+                    _conv2d(bp[leaf], f"{dst}.branch2.{leaf}", out)
+                    _batch_norm(bp[f"{leaf}_bn"], bs[f"{leaf}_bn"],
+                                f"{dst}.branch2.{leaf}_bn", out)
+                if "branch1" in p[src]:
+                    _conv2d(p[src]["branch1"], f"{dst}.branch1", out)
+                    _batch_norm(p[src]["branch1_bn"], st[src]["branch1_bn"],
+                                f"{dst}.branch1_bn", out)
+    _linear(p["projection"], "head.projection", out)
     return out
 
 

@@ -1,2 +1,2 @@
-"""Feature extraction: counterparts of ``tim_tpu/extract`` (the visual
-half: clips -> backbone -> per-video npy banks)."""
+"""Feature extraction: counterparts of ``tim_tpu/extract`` (clips or
+audio records -> backbone -> per-video npy banks)."""

@@ -2,8 +2,8 @@
 backbone forward, or of one backbone training step goes, on the CUDA card:
 
     python -m tim_tpu_torch.profile_serving
-        [--mode bf16|int8|int8-fast|swin|vit|vit-train|swin-train|mae|
-                det-train|det-val]
+        [--mode bf16|int8|int8-fast|swin|vit|slowfast|vit-train|
+                swin-train|mae|det-train|det-val]
         [--batch N] [--steps 3]
 
 Detection modes build the full-width EPIC-KITCHENS-100 detection model
@@ -14,7 +14,10 @@ fused int8 heads; ``int8-fast`` adds bf16 attention scores) and run
 windows). ``swin`` and ``vit`` build the Omnivore Swin-B or VideoMAE
 ViT-L backbone in bf16 (random weights from seed 0, as the extraction
 CLI) and run its forward on random clips (default 8; 32 x 224^2 and
-16 x 224^2). ``vit-train`` and ``swin-train`` run one finetune step of
+16 x 224^2); ``slowfast`` builds full-size Auditory SlowFast in fp32
+(random weights from seed 0) and runs it on random spectrograms (default
+8; [1, 200, 128], through ``pack_pathways``). ``vit-train`` and
+``swin-train`` run one finetune step of
 ``TwoHeadViT`` over the same trunks in bf16 (ViT-L: the LLRD AdamW of
 ``BackboneFinetuneRunner``, Swin-B: AdamW(1e-4, wd 0.05), mixup 0.8), and
 ``mae`` one step of ``BackbonePretrainRunner`` over ``PretrainVideoMAE``
@@ -186,6 +189,18 @@ def build_backbone(mode: str, batch: int):
     return model, clips
 
 
+def build_slowfast(batch: int):
+    """(forward, spectrograms) of full-size Auditory SlowFast in fp32 on
+    the card."""
+    from tim_tpu_torch.models.backbones.slowfast import (
+        AuditorySlowFast, pack_pathways)
+    model = AuditorySlowFast(device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    spec = torch.randn(batch, 1, 200, 128, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    return (lambda x: model(*pack_pathways(x, model.alpha))), spec
+
+
 def build_training(mode: str, batch: int):
     """(step, batch) of one bf16 training step on the card."""
     from tim_tpu_torch.runner import backbone as rb
@@ -223,7 +238,7 @@ def build_training(mode: str, batch: int):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES,
-                                                  *TRAIN_MODES,
+                                                  "slowfast", *TRAIN_MODES,
                                                   *DETECTION_TRAIN_MODES]),
                         default="bf16")
     parser.add_argument("--batch", type=int, default=None,
@@ -249,6 +264,9 @@ def main() -> None:
     elif args.mode in BACKBONE_MODES:
         args.batch = args.batch or 8
         step, batch = build_backbone(args.mode, args.batch)
+    elif args.mode == "slowfast":
+        args.batch = args.batch or 8
+        step, batch = build_slowfast(args.batch)
     else:
         args.batch = args.batch or 128
         server, batch = build(args.mode, args.batch)
