@@ -157,7 +157,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with the CLI's clip function over a synthetic 60 s waveform (1.1 s
      records every 0.2 s, a clean and a SpecAugment set, batch 8): device
      and wall clips/s, peak memory, the clean set against per-clip
-     forwards (within 1e-4).
+     forwards (within 1e-4);
+ 21. raw media, at ``scripts/bench_serve_frames.py``'s geometry (50 fps
+     224^2 uint8 frames, a 1.1 s clip every 0.2 s, Swin-B 32 and ViT-L 16
+     frames from one origin, spectrograms [400, 128], 30 s windows):
+     a. ``make_visual_apply(--quantize_backbone on)`` for Swin-B and ViT-L
+        (bf16): features of 2 clips against the bf16 backbone's, dynamic
+        (<= 0.08 of the largest) and a calibrated static twin (<= 0.12);
+        extraction of 64 clips each way timed (24 launches a forward);
+        the int8 forward in fp32 at reduced depth on one clip, card
+        against CPU (SLICE_TOL, or ULP_ENVELOPE times the CPU's one-ulp
+        spread);
+     b. ``DetectionServer.detect_video_frames`` with [Swin-B, ViT-L] and
+        SlowFast on bf16 ``epic_detection`` (kernel 2 fused, top-8, batch
+        16) over a 40 s video in the modes naive, stream, gather and
+        pair_embed: real-time factor each, features within the bf16
+        feature gate of naive's, detections against ``detect_video``
+        over naive's features (scores within the bf16 score gate, labels
+        of the top 50 equal); the stream run's launches (kernels 4 and 5
+        24 a forward of 8 clips, 1 and 2 six a detection batch); seconds
+        per stage; the device's busy share (``torch.profiler``); the
+        bench's own ``fast_scores`` server (dense dump, batch 16); the
+        80 s video in stream mode;
+     c. one short fp32 raw-media call (4 timesteps), backbones and
+        SlowFast cut in depth, the detector at full width, card against
+        CPU: labels equal, segments and scores within SLICE_TOL;
+     d. ``DetectionServer.quantized`` (fused heads) with the int8
+        backbones over the 40 s video: kernel 3 twice a batch.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -1539,7 +1565,6 @@ def phase_extract(name, fp32_feats, clips):
     """``make_visual_apply`` + ``extract_features_for_video`` in bf16 over
     a synthetic video of EXTRACT_CLIPS clips at batch 8."""
     from tim_tpu_torch.extract.cli import build_parser, make_visual_apply
-    from tim_tpu_torch.extract.pipeline import extract_features_for_video
 
     frames = BACKBONES[name][1][0]
     args = build_parser().parse_args(
@@ -1556,6 +1581,18 @@ def phase_extract(name, fp32_feats, clips):
     log(f"[extract-{name}] bf16 vs fp32 features, 2 clips: relative max "
         f"diff {rel:.4e} (tol {BF16_FEATURE_TOL})")
     require(rel <= BF16_FEATURE_TOL, f"{name} bf16 features drift {rel}")
+
+    launches, metrics = time_extraction(f"extract-{name}", name, apply_fn)
+    metrics["bf16_vs_fp32_rel"] = rel
+    return launches, metrics
+
+
+def time_extraction(tag, name, apply_fn):
+    """``extract_features_for_video`` of EXTRACT_CLIPS synthetic clips
+    through ``apply_fn`` at batch 8, after a warm-up; counts set to 0 just
+    before and read just after; device (CUDA events) and wall clips/s;
+    24 launches of the backbone's kernel per forward."""
+    from tim_tpu_torch.extract.pipeline import extract_features_for_video
 
     rng = np.random.default_rng(SEED + 1)
     shape = BACKBONES[name][1]
@@ -1592,24 +1629,23 @@ def phase_extract(name, fp32_feats, clips):
     device_ms = sum(s.elapsed_time(e) for s, e in events)
     forwards = len(events)
     kernel = BACKBONES[name][2]
-    log(f"[extract-{name}] {EXTRACT_CLIPS} clips in {forwards} batches of 8:"
+    log(f"[{tag}] {EXTRACT_CLIPS} clips in {forwards} batches of 8:"
         f" device {device_ms:.3f} ms, {EXTRACT_CLIPS / (device_ms / 1e3):.2f}"
         f" device clips/s; wall {wall:.3f} s, "
         f"{EXTRACT_CLIPS / wall:.2f} wall clips/s; launches {launches}")
     require(bank.shape == (EXTRACT_CLIPS, 1, 1024)
             and bool(np.isfinite(bank).all()),
-            f"{name} bank {bank.shape} or non-finite")
+            f"{tag} bank {bank.shape} or non-finite")
     require(launches[kernel] == 24 * forwards
             and attention_launches(launches) == launches[kernel],
-            f"{name} extraction launches {launches}, expected 24 x "
+            f"{tag} extraction launches {launches}, expected 24 x "
             f"{forwards} of {kernel}")
-    require_steady(f"extract-{name}", launches, forwards)
+    require_steady(tag, launches, forwards)
     return launches, {
         "clips": EXTRACT_CLIPS, "batches": forwards, "device_ms": device_ms,
         "device_clips_per_s": EXTRACT_CLIPS / (device_ms / 1e3),
         "wall_s": wall, "wall_clips_per_s": EXTRACT_CLIPS / wall,
-        "launches_per_forward": launches[kernel] / forwards,
-        "bf16_vs_fp32_rel": rel}
+        "launches_per_forward": launches[kernel] / forwards}
 
 
 def phase_backbones(gen):
@@ -3929,6 +3965,570 @@ def phase_audio():
     return {"audio-extract": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: raw media. scripts/bench_serve_frames.py's geometry: 50 fps
+# 224^2 uint8 frames, a 1.1 s clip every 0.2 s (Swin-B 32 frames, ViT-L 16,
+# one origin), spectrograms [400, 128], 30 s windows at stride 1 s.
+# ---------------------------------------------------------------------------
+MEDIA_FPS, MEDIA_HOP, MEDIA_INTERVAL = 50.0, 0.2, 1.1
+MEDIA_SECONDS, MEDIA_LONG_SECONDS = 40.0, 80.0
+MEDIA_RES = 224
+MEDIA_SPEC = (400, 128)
+MEDIA_BATCH = 16         # the bench script's detection batch
+MEDIA_TOP = 50           # the best detections whose labels are compared
+# Random weights give scores whose spread no fixed threshold fits: each
+# raw-media server thresholds at the score about this many top-8
+# candidates a window clear, read off a first call with no candidates
+MEDIA_CANDIDATES = 100
+MEDIA_MODES = ("naive", "stream", "gather", "pair_embed")
+# int8 vs fp32 contracts of tests/test_backbone_quant.py, held here
+# against bf16 (the int8 backbones compute in bf16)
+INT8_DYNAMIC_REL, INT8_STATIC_REL = 0.08, 0.12
+# the fp32 card-vs-CPU call: 2 timesteps (one 30 s window), backbones cut
+# in depth, the detector at full width
+MEDIA_FP32_STEPS = 2
+# the busy share is read off a profiled call over the first 40 timesteps
+# (8 s of video), which keeps the trace's post-processing short
+MEDIA_PROFILE_STEPS = 40
+SWIN_CUT, VIT_CUT, SLOWFAST_CUT = (2, 1, 1, 1), 2, (1, 1, 1, 1)
+
+
+def media_clip_table(n_steps, n_samples):
+    """``scripts/bench_media_ingest.py::clip_table(rebase=False)``:
+    ``omnivore_frame_indices`` rows at the 0.2 s hop, 0-based."""
+    from tim_tpu_torch.extract.pipeline import omnivore_frame_indices
+    span = int(round(MEDIA_INTERVAL * MEDIA_FPS))
+    rows = [omnivore_frame_indices(
+        span, int(round(t * MEDIA_HOP * MEDIA_FPS)) + 1, 10 ** 9,
+        num_samples=n_samples) for t in range(n_steps)]
+    return np.stack(rows) - 1
+
+
+def media_tables(n_steps):
+    """[Swin table (32 frames), ViT table (16)] from one origin."""
+    ts, tv = media_clip_table(n_steps, 32), media_clip_table(n_steps, 16)
+    origin = int(min(ts.min(), tv.min()))
+    return [ts - origin, tv - origin]
+
+
+def media_inputs(n_steps, frames, specs):
+    """(frames, the two clip tables, feature times, spectrograms) of the
+    first ``n_steps`` timesteps."""
+    tables = media_tables(n_steps)
+    n_frames = max(int(t.max()) for t in tables) + 1
+    starts = (np.arange(n_steps) * MEDIA_HOP).astype(np.float32)
+    feat_times = np.stack([starts, starts + MEDIA_INTERVAL], -1)
+    return frames[:n_frames], tables, feat_times, specs[:n_steps]
+
+
+def media_backbones(dtype, device, **cut):
+    """Swin-B and ViT-L (generator seeded SEED, as ``make_visual_apply``
+    builds them), ``cut`` in depth if given."""
+    from tim_tpu_torch.models.backbones import swin3d, vit
+    gen = torch.Generator
+    swin = swin3d.omnivore_swinB_epic(
+        dtype=dtype, device=device, generator=gen().manual_seed(SEED),
+        **({"depths": cut["swin"]} if cut else {}))
+    vitm = vit.videomae_vit_large(
+        dtype=dtype, device=device, generator=gen().manual_seed(SEED),
+        **({"depth": cut["vit"]} if cut else {}))
+    return [swin.eval(), vitm.eval()]
+
+
+class MediaSpy:
+    """Records what ``detect_video_frames`` computes on its way: each
+    backbone's features (``dense_media.extract_dense_visual``), the audio
+    features (``server._extract``), and, with ``stages``, each stage's
+    wall seconds (the features end in a read-back; the detection batches
+    by CUDA events; Soft-NMS by the host clock)."""
+
+    def __init__(self, server, stages: bool = False):
+        import tim_tpu_torch.serve as serve_mod
+        from tim_tpu_torch.extract import dense_media
+        self.server, self.stages = server, stages
+        self.visual, self.audio, self.secs = [], None, {}
+        self.infer_events = []
+        self._dm, self._serve = dense_media, serve_mod
+        self._orig = (dense_media.extract_dense_visual, server._extract,
+                      server._infer, serve_mod.nms_per_video)
+
+    def __enter__(self):
+        dm_extract, s_extract, s_infer, nms = self._orig
+
+        def extract(model, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = dm_extract(model, *args, **kwargs)
+            self.add("swin" if hasattr(model, "layers") else "vit", t0)
+            self.visual.append(out)
+            return out
+
+        def audio(*args, **kwargs):
+            t0 = time.perf_counter()
+            self.audio = s_extract(*args, **kwargs)
+            self.add("slowfast", t0)
+            return self.audio
+
+        def infer(batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = s_infer(batch)
+            end.record()
+            self.infer_events.append((start, end))
+            return out
+
+        def nms_per_video(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = nms(*args, **kwargs)
+            self.add("nms", t0)
+            return out
+
+        self._dm.extract_dense_visual = extract
+        self.server._extract = audio
+        self.server._infer = infer
+        self._serve.nms_per_video = nms_per_video
+        return self
+
+    def add(self, stage, t0):
+        if self.stages:
+            torch.cuda.synchronize()
+        self.secs[stage] = self.secs.get(stage, 0.0) + time.perf_counter() - t0
+
+    def __exit__(self, *exc):
+        self._dm.extract_dense_visual = self._orig[0]
+        self._serve.nms_per_video = self._orig[3]
+        del self.server._extract            # the class's method again
+        self.server._infer = self._orig[2]
+        return False
+
+    def detection_s(self):
+        return sum(s.elapsed_time(e) for s, e in self.infer_events) / 1e3
+
+
+def media_call(server, models, video, mode, threshold, *,
+               count_launches=False, extract_batch=8):
+    """One ``detect_video_frames`` call (uint8 frames, the device
+    normalizer); returns (detections, wall seconds, launches or None)."""
+    from tim_tpu_torch.extract.dense_media import uint8_normalizer
+    frames, tables, feat_times, specs = video
+    duration = len(feat_times) * MEDIA_HOP
+    counts = zero_counts() if count_launches else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets = server.detect_video_frames(
+        frames, tables, feat_times, duration, visual_model=models,
+        audio_specs=specs, audio_extractor=server.media_audio,
+        extract_batch=extract_batch, mode=mode,
+        frame_transform=uint8_normalizer(
+            dtype=str(models[0].dtype).split(".")[-1]),
+        score_threshold=threshold)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dets, wall, (read_counts(counts) if count_launches else None)
+
+
+def media_threshold(server, models, video):
+    """A first ``detect_video_frames`` call (threshold 1: no candidates)
+    whose top-8 scores of proposals of positive length set the threshold
+    that MEDIA_CANDIDATES a window clear; it also warms the path up."""
+    import tim_tpu_torch.serve as serve_mod
+    seen = []
+    orig = serve_mod.threshold_predictions_topk
+
+    def spy(vids, props, vals, classes, **kwargs):
+        props = np.round(np.asarray(props, np.float64), 3)
+        seen.append(vals[props[:, 1] > props[:, 0]])   # the rows kept
+        return orig(vids, props, vals, classes, **kwargs)
+    serve_mod.threshold_predictions_topk = spy
+    try:
+        media_call(server, models, video, "stream", 1.0)
+    finally:
+        serve_mod.threshold_predictions_topk = orig
+    vals = np.sort(np.concatenate([v.ravel() for v in seen]))[::-1]
+    windows = len(server._window_starts(len(video[2]) * MEDIA_HOP))
+    return float(vals[min(len(vals) - 1, MEDIA_CANDIDATES * windows)])
+
+
+def require_media_dets(tag, dets):
+    segs, scores = dets["segments"], dets["scores"]
+    require(len(scores) > 0, f"{tag}: no detections")
+    require(bool(np.isfinite(segs).all() and np.isfinite(scores).all()),
+            f"{tag}: non-finite detections")
+    require(bool((segs[:, 1] > segs[:, 0]).all()), f"{tag}: empty segments")
+    require(bool((np.diff(scores) <= 1e-6).all()),
+            f"{tag}: detections not score-sorted")
+
+
+def compare_media_dets(tag, got, want):
+    """The best MEDIA_TOP detections of two runs: scores within the bf16
+    score gate; their labels equal as multisets over the leading k whose
+    k-th and (k+1)-th reference scores are farther apart than the scores'
+    largest difference (an order within that difference is undecided)."""
+    n = min(MEDIA_TOP, len(got["scores"]), len(want["scores"]))
+    require(n > 0, f"{tag}: no detections to compare")
+    d = float(np.abs(got["scores"][:n] - want["scores"][:n]).max())
+    ws = want["scores"]
+    k = n
+    while k > 0 and k < len(ws) and ws[k - 1] - ws[k] <= d:
+        k -= 1
+    same = sorted(got["labels"][:k].tolist()) == sorted(
+        want["labels"][:k].tolist())
+    log(f"[{tag}] vs naive: top-{n} scores max diff {d:.3e} (tol "
+        f"{BF16_SCORE_TOL}); labels of the top {k} equal: {same}")
+    require(d <= BF16_SCORE_TOL, f"{tag}: scores drift {d}")
+    require(same, f"{tag}: labels of the top {k} differ")
+    return {"score_diff": d, "labels_compared": k}
+
+
+def media_launches_expected(tag, launches, n_steps, n_batches, kernels):
+    """Kernels 4 and 5: 24 a forward of 8 clips; 1 and 2: 6 a detection
+    batch (where ``kernels`` names them)."""
+    forwards = -(-n_steps // 8)
+    want = {"window_attention": 24 * forwards, "flash_mha": 24 * forwards,
+            "query_block_attention": 6 * n_batches,
+            "fused_post_attention": 6 * n_batches}
+    for name in kernels:
+        require(launches[name] == want[name], f"{tag}: {name} launched "
+                f"{launches[name]} times, expected {want[name]}")
+
+
+def phase_int8_backbones(clips_by_name, bf16_models):
+    """21a: ``make_visual_apply(--quantize_backbone on)`` for Swin-B and
+    ViT-L in bf16: features against the bf16 backbone's (dynamic and a
+    calibrated static twin), timed extraction of EXTRACT_CLIPS clips each
+    way, and an fp32 int8 forward of one clip at reduced depth, card
+    against CPU."""
+    from tim_tpu_torch.extract.cli import build_parser, make_visual_apply
+    from tim_tpu_torch.ops import quant
+    paths, summary, int8_models = {}, {}, []
+    bf16 = dict(zip(BACKBONES, bf16_models))
+    for name, clips in clips_by_name.items():
+        args = build_parser().parse_args(
+            ["--backbone", name, "--feature_times", "-", "--out_dir", "-",
+             "--compute_dtype", "bfloat16", "--quantize_backbone", "on",
+             "--num_frames", str(BACKBONES[name][1][0])])
+        t0 = time.perf_counter()
+        apply_q = make_visual_apply(args)
+        build_s = time.perf_counter() - t0
+        model = apply_q.model
+        x = torch.from_numpy(clips).cuda()
+        want = bf16[name](x).float()
+        dyn = apply_q(x)
+        rel = (max_err(dyn, want) / want.abs().max()).item()
+        launches, m_dyn = time_extraction(f"extract-{name}-int8", name,
+                                          apply_q)
+        scales = quant.calibrate_act_scales(model.int8_layers(), model, [x])
+        model.set_act_scales(scales)
+        static = apply_q(x)
+        rel_s = (max_err(static, want) / want.abs().max()).item()
+        _, m_static = time_extraction(f"extract-{name}-int8-static", name,
+                                      apply_q)
+        model.set_act_scales(())
+        int8_models.append(model)
+        log(f"[int8-{name}] quantized from fp32 in {build_s:.2f} s, "
+            f"{len(scales)} int8 layers; vs bf16 features (2 clips): "
+            f"dynamic {rel:.4e} (tol {INT8_DYNAMIC_REL}), calibrated static "
+            f"{rel_s:.4e} (tol {INT8_STATIC_REL})")
+        require(rel <= INT8_DYNAMIC_REL, f"{name} int8 dynamic drift {rel}")
+        require(rel_s <= INT8_STATIC_REL, f"{name} int8 static drift {rel_s}")
+        err, lim = int8_backbone_card_vs_cpu(name, clips[:1])
+        paths[f"extract-{name}-int8"] = launches
+        summary[name] = {"dynamic_rel": rel, "static_rel": rel_s,
+                         "fp32_card_vs_cpu": err, "fp32_limit": lim,
+                         "dynamic": m_dyn, "static": m_static,
+                         "build_s": build_s}
+        del apply_q, model
+    torch.cuda.empty_cache()
+    return paths, summary, int8_models
+
+
+def int8_backbone_card_vs_cpu(name, clip):
+    """The int8 backbone in fp32 at reduced depth (Swin-B SWIN_CUT, ViT-L
+    VIT_CUT blocks) on one clip, card against CPU: within SLICE_TOL of the
+    largest feature, or ULP_ENVELOPE times the CPU's own spread under a
+    one-ulp input change where that is larger (int8 codes sitting on a
+    rounding tie flip with the fp32 sums' order, as in phase 6)."""
+    from tim_tpu_torch.ops.quant import quantize_backbone_state_dict
+    cut = {"swin": SWIN_CUT, "vit": VIT_CUT}
+    fp = media_backbones("float32", "cpu", **cut)[list(BACKBONES).index(name)]
+    factory = type(fp)
+    kw = {"depths": SWIN_CUT} if name == "omnivore" else {"depth": VIT_CUT}
+    state = quantize_backbone_state_dict(fp.state_dict())
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = factory(**kw, device=dev, quantized=True)
+        models[dev].load_state_dict(state, strict=True)
+    x = torch.from_numpy(clip)
+    counts = zero_counts()
+    gpu = models["cuda"](x.cuda()).float().cpu()
+    launches = read_counts(counts)
+    t0 = time.perf_counter()
+    cpu = models["cpu"](x)
+    cpu_s = time.perf_counter() - t0
+    cpu_up = models["cpu"](x * (1 + 2.0 ** -23))
+    scale = cpu.abs().max().item()
+    err = max_err(gpu, cpu) / scale
+    spread = max_err(cpu_up, cpu) / scale
+    lim = max(SLICE_TOL, ULP_ENVELOPE * spread)
+    kernel = BACKBONES[name][2]
+    blocks = sum(SWIN_CUT) if name == "omnivore" else VIT_CUT
+    log(f"[int8-{name}-fp32] {blocks} blocks, one clip: card vs CPU "
+        f"{err:.3e} of the largest feature (limit {lim:.3e}: the CPU's "
+        f"one-ulp spread {spread:.3e}); CPU {cpu_s:.2f} s; launches "
+        f"{launches}")
+    require(launches[kernel] == blocks, f"int8 {name} fp32: {kernel} "
+            f"launched {launches[kernel]} times, expected {blocks}")
+    require(err <= lim, f"int8 {name} fp32 card vs CPU {err} > {lim}")
+    return err, lim
+
+
+def media_server(cfg, state_dict, device, audio, batch_size=MEDIA_BATCH,
+                 **kwargs):
+    from tim_tpu_torch.serve import DetectionServer
+    server = DetectionServer(cfg, state_dict, device=device,
+                             batch_size=batch_size, **kwargs)
+    server.media_audio = audio
+    return server
+
+
+def audio_apply(device, **kw):
+    """Auditory SlowFast (generator seeded SEED) as the extraction CLI
+    applies it: spectrograms [B, T, F, 1] -> fp32 features [B, 2304]."""
+    from tim_tpu_torch.extract.cli import AudioApply
+    from tim_tpu_torch.models.backbones.slowfast import AuditorySlowFast
+    model = AuditorySlowFast(device=device, **kw,
+                             generator=torch.Generator().manual_seed(SEED))
+    return AudioApply(model.eval(), torch.device(device))
+
+
+def phase_media_serving(models, state_dict, frames, specs):
+    """21b: ``detect_video_frames`` with [Swin-B, ViT-L] and SlowFast on
+    ``epic_detection`` in bf16 (kernel 2 fused, top-8, batch 16) over the
+    40 s video in every mode, each against ``detect_video`` over the naive
+    path's features; the stream run's launches; a stage breakdown; the
+    device's busy share; the bench's own ``fast_scores`` server; the 80 s
+    video in stream mode."""
+    from torch.profiler import ProfilerActivity, profile
+    from tim_tpu_torch import config as C
+    n_steps = int(round(MEDIA_SECONDS / MEDIA_HOP))
+    video = media_inputs(n_steps, frames, specs)
+    audio = audio_apply("cuda")
+    cfg = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True)
+    server = media_server(cfg, state_dict, "cuda", audio, top_k=8)
+    n_batches = -(-len(server._window_starts(MEDIA_SECONDS)) // MEDIA_BATCH)
+    threshold = media_threshold(server, models, video)
+    log(f"[media] {MEDIA_SECONDS:.0f} s video: {n_steps} timesteps, "
+        f"{len(video[0])} unique uint8 frames ({video[0].nbytes / 1e6:.1f} "
+        f"MB), {n_batches} detection batch(es) of {MEDIA_BATCH}; score "
+        f"threshold {threshold:.6f} ({MEDIA_CANDIDATES} top-8 candidates a "
+        f"window)")
+    out, summary = {}, {"modes": {}, "threshold": threshold}
+    for mode in MEDIA_MODES:
+        with MediaSpy(server) as spy:
+            dets, wall, launches = media_call(
+                server, models, video, mode, threshold,
+                count_launches=mode == "stream")
+        require_media_dets(f"media-{mode}", dets)
+        out[mode] = (dets, spy.visual, spy.audio)
+        summary["modes"][mode] = {"wall_s": wall,
+                                  "real_time": MEDIA_SECONDS / wall,
+                                  "detections": len(dets["scores"])}
+        log(f"[media-{mode}] {wall:.3f} s wall: "
+            f"{MEDIA_SECONDS / wall:.3f}x real time, "
+            f"{len(dets['scores'])} detections")
+        if mode == "stream":
+            media_launches_expected("media-frames-bf16", launches, n_steps,
+                                    n_batches, ("window_attention",
+                                                "flash_mha",
+                                                "query_block_attention",
+                                                "fused_post_attention"))
+            log(f"[media-stream] launches {launches}")
+            bf16_launches = launches
+    _, naive_visual, naive_audio = out["naive"]
+    ref = server.detect_video(
+        np.concatenate([f.float().numpy() for f in naive_visual], -1),
+        naive_audio, video[2], MEDIA_SECONDS, score_threshold=threshold)
+    require_media_dets("media-reference", ref)
+    for mode in MEDIA_MODES:
+        dets, visual, _ = out[mode]
+        rel = max((max_err(g.float(), w.float()) / w.float().abs().max()
+                   ).item() for g, w in zip(visual, naive_visual))
+        log(f"[media-{mode}] features vs naive: {rel:.4e} of the largest "
+            f"(tol {BF16_FEATURE_TOL})")
+        require(rel <= BF16_FEATURE_TOL, f"media {mode} features {rel}")
+        summary["modes"][mode].update(feature_rel=rel,
+                                      **compare_media_dets(
+                                          f"media-{mode}", dets, ref))
+
+    # stages, one stream call with a synchronize after each
+    bank = torch.from_numpy(video[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank.pin_memory().cuda()
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
+    with MediaSpy(server, stages=True) as spy:
+        _, wall, _ = media_call(server, models, video, "stream", threshold)
+    stages = {"upload (whole bank, pinned, alone)": upload, **spy.secs,
+              "detection (device)": spy.detection_s(), "wall": wall}
+    log(f"[media-stages] seconds: {json.dumps(stages)}")
+    summary["stages_s"] = stages
+    # the device's busy share over one stream call
+    short = media_inputs(MEDIA_PROFILE_STEPS, frames, specs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall, _ = media_call(server, models, short, "stream", threshold)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e6
+    log(f"[media-busy] profiled stream call over {MEDIA_PROFILE_STEPS} "
+        f"timesteps: {wall:.3f} s wall, kernels {busy:.3f} s: "
+        f"{100 * busy / wall:.1f}% busy")
+    summary["busy_share"] = busy / wall
+
+    # the bench script's own server: bf16 scores, dense dump, batch 16
+    fast = media_server(C.epic_detection(compute_dtype="bfloat16",
+                                         fast_scores=True),
+                        state_dict, "cuda", audio)
+    media_call(fast, models, media_inputs(20, frames, specs), "stream",
+               1.0)                                         # warm-up
+    dets, wall, fast_launches = media_call(fast, models, video, "stream",
+                                           threshold, count_launches=True)
+    require_media_dets("media-frames-fast", dets)
+    media_launches_expected("media-frames-fast", fast_launches, n_steps,
+                            n_batches, ("window_attention", "flash_mha"))
+    require(fast_launches["query_block_attention"] == 0
+            and fast_launches["fused_post_attention"] == 0,
+            f"media-frames-fast: {fast_launches}")
+    summary["fast_scores"] = {"wall_s": wall,
+                              "real_time": MEDIA_SECONDS / wall,
+                              "detections": len(dets["scores"])}
+    log(f"[media-frames-fast] {wall:.3f} s: {MEDIA_SECONDS / wall:.3f}x "
+        f"real time; launches {fast_launches}")
+    del fast
+
+    long = media_inputs(int(round(MEDIA_LONG_SECONDS / MEDIA_HOP)), frames,
+                        specs)
+    dets, wall, _ = media_call(server, models, long, "stream", threshold)
+    require_media_dets("media-80s", dets)
+    summary["stream_80s"] = {"wall_s": wall,
+                             "real_time": MEDIA_LONG_SECONDS / wall,
+                             "detections": len(dets["scores"]),
+                             "frames": len(long[0])}
+    log(f"[media-80s] {MEDIA_LONG_SECONDS:.0f} s video, {len(long[0])} "
+        f"frames: {wall:.3f} s, {MEDIA_LONG_SECONDS / wall:.3f}x real time")
+    del server
+    torch.cuda.empty_cache()
+    return {"media-frames-bf16": bf16_launches,
+            "media-frames-fast": fast_launches}, summary
+
+
+def phase_media_fp32(state_dict, frames, specs):
+    """21c: one short fp32 ``detect_video_frames`` (MEDIA_FP32_STEPS
+    timesteps, one window) with Swin-B and ViT-L cut in depth, SlowFast
+    cut to one block a stage and the detector at full width, card against
+    CPU: labels equal, segments and scores within SLICE_TOL."""
+    from tim_tpu_torch import config as C
+    video = media_inputs(MEDIA_FP32_STEPS, frames, specs)
+    cfg = C.epic_detection(compute_dtype="float32")
+    dets, secs = {}, {}
+    cut = {"swin": SWIN_CUT, "vit": VIT_CUT}
+    threshold = None
+    for dev in ("cuda", "cpu"):
+        server = media_server(cfg, state_dict, dev,
+                              audio_apply(dev, depths=SLOWFAST_CUT),
+                              batch_size=1, top_k=8)
+        models = media_backbones("float32", dev, **cut)
+        if threshold is None:
+            threshold = media_threshold(server, models, video)
+        t0 = time.perf_counter()
+        # one extraction batch of the timesteps (no padded clips)
+        dets[dev], _, _ = media_call(server, models, video, "stream",
+                                     threshold,
+                                     extract_batch=MEDIA_FP32_STEPS)
+        secs[dev] = time.perf_counter() - t0
+    g, c = dets["cuda"], dets["cpu"]
+    require_media_dets("media-fp32 CPU", c)
+    same = np.array_equal(g["labels"], c["labels"])
+    err = (max(float(np.abs(g["segments"] - c["segments"]).max()),
+               float(np.abs(g["scores"] - c["scores"]).max()))
+           if same else float("inf"))
+    log(f"[media-fp32] {MEDIA_FP32_STEPS} timesteps, {len(c['scores'])} "
+        f"detections: labels equal {same}, segments and scores card vs CPU "
+        f"{err:.3e} (tol {SLICE_TOL}); card {secs['cuda']:.2f} s, CPU "
+        f"{secs['cpu']:.2f} s")
+    require(same and err <= SLICE_TOL, f"media fp32 card vs CPU: labels "
+            f"equal {same}, {err}")
+    return {"card_vs_cpu": err, "detections": len(c["scores"]),
+            "cpu_s": secs["cpu"]}
+
+
+def phase_media_int8(models, state_dict, batch2, frames, specs):
+    """21d: ``DetectionServer.quantized`` (int8 static, fused heads, bf16)
+    over the 40 s video with 21a's int8 backbones
+    (``make_visual_apply(--quantize_backbone on)``, dynamic), stream mode:
+    kernels 4 and 5 24 times a forward, kernel 3 twice a batch."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.serve import DetectionServer
+    n_steps = int(round(MEDIA_SECONDS / MEDIA_HOP))
+    video = media_inputs(n_steps, frames, specs)
+    cfg = C.epic_detection(compute_dtype="bfloat16", quant_pallas_heads=True)
+    server = DetectionServer.quantized(cfg, state_dict, [batch2],
+                                       device="cuda", batch_size=MEDIA_BATCH,
+                                       top_k=8)
+    server.media_audio = audio_apply("cuda")
+    threshold = media_threshold(server, models, video)
+    dets, wall, launches = media_call(server, models, video, "stream",
+                                      threshold, count_launches=True)
+    require_media_dets("media-int8", dets)
+    n_batches = -(-len(server._window_starts(MEDIA_SECONDS)) // MEDIA_BATCH)
+    media_launches_expected("media-int8", launches, n_steps, n_batches,
+                            ("window_attention", "flash_mha",
+                             "query_block_attention"))
+    require(launches["int8_matmul_fused"] == 2 * n_batches,
+            f"media-int8: kernel 3 launched {launches['int8_matmul_fused']}"
+            f" times, expected 2 x {n_batches}")
+    log(f"[media-int8] {wall:.3f} s: {MEDIA_SECONDS / wall:.3f}x real time,"
+        f" {len(dets['scores'])} detections (threshold {threshold:.6f}); "
+        f"launches {launches}")
+    del server, models
+    torch.cuda.empty_cache()
+    return launches, {"wall_s": wall, "real_time": MEDIA_SECONDS / wall,
+                      "detections": len(dets["scores"])}
+
+
+def phase_media(state_dict, batch2):
+    """Phase 21; returns the launches by path."""
+    rng = np.random.default_rng(SEED + 3)
+    n_long = int(round(MEDIA_LONG_SECONDS / MEDIA_HOP))
+    n_frames = max(int(t.max()) for t in media_tables(n_long)) + 1
+    t0 = time.perf_counter()
+    frames = rng.integers(0, 256, (n_frames, MEDIA_RES, MEDIA_RES, 3),
+                          dtype=np.uint8)
+    specs = (rng.normal(size=(n_long, *MEDIA_SPEC, 1)) * 0.1).astype(
+        np.float32)
+    log(f"[media] {len(frames)} uint8 frames ({frames.nbytes / 1e6:.1f} MB) "
+        f"and {n_long} spectrograms made in {time.perf_counter() - t0:.2f} s")
+    clips = {name: np.random.default_rng(SEED).normal(
+        size=(2, *BACKBONES[name][1])).astype(np.float32)
+        for name in BACKBONES}
+    bf16_models = media_backbones("bfloat16", "cuda")
+    paths, summary, int8_models = timed(
+        "int8-backbones", phase_int8_backbones, clips, bf16_models)
+    media_paths, summary["serving"] = timed(
+        "media-serving", phase_media_serving, bf16_models, state_dict,
+        frames, specs)
+    del bf16_models
+    paths.update(media_paths)
+    summary["fp32"] = timed("media-fp32", phase_media_fp32, state_dict,
+                            frames, specs)
+    paths["media-int8"], summary["int8"] = timed(
+        "media-int8", phase_media_int8, int8_models, state_dict, batch2,
+        frames, specs)
+    log(f"[media] summary {json.dumps(summary)}")
+    return paths
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -4023,7 +4623,7 @@ def main() -> int:
         "serve-int8-fast-scores", phase_serve_int8, "serve-int8-fast-scores",
         state_dict, batch2, out16, video, threshold, True)
     log(f"[serve-int8-fast-scores] summary {json.dumps(serving_fast)}")
-    del state_dict, batch2, fp32_out, out16
+    del fp32_out, out16          # state_dict, batch2: phase 21
     torch.cuda.empty_cache()
 
     backbone_report, backbone_paths = phase_backbones(
@@ -4039,10 +4639,12 @@ def main() -> int:
     cli_paths = phase_cli_and_gate(det_splits, rec_val_ds, rec_trained)
     del det_splits, rec_val_ds, rec_trained
     audio_paths = phase_audio()
+    media_paths = phase_media(state_dict, batch2)
+    del state_dict, batch2
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
-               **cli_paths, **audio_paths}
+               **cli_paths, **audio_paths, **media_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition"):
@@ -4052,6 +4654,18 @@ def main() -> int:
             "gate-detection: kernel 3 never launched")
     require(by_path["rec-train"]["query_block_attention"] == 0,
             "rec-train: kernel 1 launched")
+    for path, kernels in (
+            ("media-frames-bf16", ("window_attention", "flash_mha",
+                                   "query_block_attention",
+                                   "fused_post_attention")),
+            ("media-frames-fast", ("window_attention", "flash_mha")),
+            ("media-int8", ("window_attention", "flash_mha",
+                            "int8_matmul_fused")),
+            ("extract-omnivore-int8", ("window_attention",)),
+            ("extract-videomae-int8", ("flash_mha",))):
+        for name in kernels:
+            require(by_path[path][name] > 0,
+                    f"{path}: {name} never launched")
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",

@@ -175,7 +175,9 @@ def test_serve_imports_no_jax():
                    "models.pool", "train.recognition", "runner.recognition",
                    "cli", "evals.__main__", "validate_checkpoint",
                    "models.backbones.slowfast", "extract.audio",
-                   "extract.spec_warp", "extract.augment"):
+                   "extract.spec_warp", "extract.augment",
+                   "extract.autoaug", "extract.dense_media",
+                   "extract.media", "extract.tables", "models.fused"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -235,10 +237,17 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         TwoHeadViT(VideoMAEViT())
     for backbone in ("omnivore", "videomae"):
-        with pytest.raises(RuntimeError, match="cuda"):
-            make_visual_apply(build_parser().parse_args(
-                ["--backbone", backbone, "--feature_times", "x",
-                 "--out_dir", "y"]))
+        for quantize in ("off", "on"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make_visual_apply(build_parser().parse_args(
+                    ["--backbone", backbone, "--feature_times", "x",
+                     "--out_dir", "y", "--quantize_backbone", quantize]))
+    from tim_tpu_torch.models.fused import (
+        FusedDetectionPipeline, FusedRecognitionPipeline)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedDetectionPipeline(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedRecognitionPipeline(rcfg)
 
 
 def test_masking_copy_equals_jax():

@@ -1,9 +1,13 @@
 """The port's visual extraction against the JAX package on the CPU: the
 two CLIs on a tiny synthetic frames dir with the same weights give equal
-banks (fp32); the port's copies of the pipeline helpers and transforms
-equal the originals; what is not ported raises."""
+banks (fp32), also with int8 backbones and a RandAugment set
+(``--quantize_backbone on --num_aug 2``); the port's copies of the
+pipeline helpers and transforms equal the originals; what the port
+refuses raises."""
 
 import os
+import random
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -100,13 +104,72 @@ def test_parser_has_the_jax_flags():
     assert flags(pcli.build_parser()) == flags(jcli.build_parser())
 
 
+@pytest.mark.parametrize("backbone,num_frames", [("omnivore", 8),
+                                                 ("videomae", 4)])
+def test_int8_and_rand_augment_sets_match_jax_cli(tmp_path, monkeypatch,
+                                                  backbone, num_frames):
+    """``--quantize_backbone on --num_aug 2``: both CLIs quantize the same
+    fp32 weights (the JAX CLI's own init, handed to the port as a
+    checkpoint) and draw the same RandAugment set from one seed of
+    ``random`` and ``np.random``; the banks agree within 1e-4."""
+    _write_frames(tmp_path, "v1", 30, seed=2)
+    build_feature_time_table({"v1": 1.5}, interval=1.1, hop=0.2,
+                             fps=25.0).to_pickle(tmp_path / "ctx.pkl")
+    if backbone == "omnivore":
+        jmod, pmod, name, kw = jswin, pswin, "omnivore_swinB_epic", SWIN
+        jcls, pcls = jswin.SwinTransformer3D, pswin.SwinTransformer3D
+    else:
+        jmod, pmod, name, kw = jvit, pvit, "videomae_vit_large", VIT
+        jcls, pcls = jvit.VideoMAEViT, pvit.VideoMAEViT
+    monkeypatch.setattr(jmod, name,
+                        lambda dtype="float32", use_flash=False,
+                        quantized=False: jcls(**kw, quantized=quantized))
+    monkeypatch.setattr(pmod, name,
+                        lambda dtype="float32", device=None, generator=None,
+                        quantized=False: pcls(**kw, dtype=dtype,
+                                              device=device,
+                                              generator=generator,
+                                              quantized=quantized))
+    variables = jax.tree_util.tree_map(np.asarray, jcls(**kw).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, num_frames, 32, 32, 3))))
+    sd = (swin_state_dict_from_jax(variables, SWIN["depths"])
+          if backbone == "omnivore"
+          else vit_state_dict_from_jax(variables, VIT["depth"]))
+    torch.save({"model": sd}, tmp_path / "ckpt.pt")
+
+    common = ["--backbone", backbone, "--frames_dir", str(tmp_path / "frames"),
+              "--feature_times", str(tmp_path / "ctx.pkl"), "--split", "val",
+              "--batch_size", "3", "--num_frames", str(num_frames),
+              "--crop_size", "32", "--compute_dtype", "float32",
+              "--num_aug", "2", "--quantize_backbone", "on"]
+    for pkg, out, extra in ((jcli, "jax", []),
+                            (pcli, "port",
+                             ["--checkpoint", str(tmp_path / "ckpt.pt")])):
+        random.seed(5)
+        np.random.seed(6)
+        kwargs = {} if pkg is jcli else {"device": "cpu"}
+        pkg.main(common + ["--out_dir", str(tmp_path / out)] + extra,
+                 **kwargs)
+    want = np.load(tmp_path / "jax" / "val" / "v1.npy")
+    got = np.load(tmp_path / "port" / "val" / "v1.npy")
+    assert got.shape == want.shape and got.shape[1] == 2
+    # the augmented set differs from the clean one
+    assert np.abs(want[:, 1] - want[:, 0]).max() > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_rand_augment_sets_without_pil_name_it(monkeypatch):
+    args = pcli.build_parser().parse_args(
+        ["--backbone", "videomae", "--num_aug", "2", "--feature_times", "x",
+         "--out_dir", "y"])
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="PIL"):
+        pcli.rand_augment(args)
+
+
 @pytest.mark.parametrize("argv,error,match", [
     (["--backbone", "slowfast", "--quantize_backbone", "on"],
-     NotImplementedError, "int8"),
-    (["--backbone", "videomae", "--quantize_backbone", "on"],
-     NotImplementedError, "int8"),
-    (["--backbone", "omnivore", "--num_aug", "2"], NotImplementedError,
-     "RandAugment"),
+     ValueError, "no int8 layout"),
 ])
 def test_unported_options_raise(argv, error, match):
     args = pcli.build_parser().parse_args(

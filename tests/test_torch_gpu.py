@@ -7,12 +7,14 @@ installed:
 (``--noconftest``: the repo's conftest configures JAX.) Without a CUDA
 card every test skips."""
 
+import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (LSE_TOL, SWIN_STAGES, attention_close,
+from chip_smoke import (LSE_TOL, SWIN_STAGES, ULP_ENVELOPE, attention_close,
                         emulated_attention_bwd, flash_bwd_case, fused_close,
                         grad_close, int8_close, int8_head_args, kernel_close,
+                        launch_counters,
                         swin_bias, swin_qkv, swin_scores, tail_args,
                         tail_with_ln2_over_half, vit_qkv, vit_scores,
                         window_bwd_case)
@@ -906,3 +908,106 @@ def test_slowfast_extraction_through_the_cli_on_the_card(gen, tmp_path,
     _, want = cpu(*psf.pack_pathways(x, 4))
     assert np.abs(bank[:, 0] - want.numpy()).max() <= (
         1e-4 * want.abs().max().item())
+
+
+def _small_media_models(device, dtype="float32"):
+    """A small Swin (head dim 32, a shifted block) and ViT (head dim 64),
+    the kernels' head dims, seeded alike on every device."""
+    from tim_tpu_torch.models.backbones.swin3d import SwinTransformer3D
+    from tim_tpu_torch.models.backbones.vit import VideoMAEViT
+    swin = SwinTransformer3D(patch_size=(2, 4, 4), embed_dim=32,
+                             depths=(2, 2), num_heads=(1, 2),
+                             window_size=(2, 3, 3), dtype=dtype,
+                             device=device,
+                             generator=torch.Generator().manual_seed(1))
+    vit = VideoMAEViT(img_size=32, patch_size=16, embed_dim=64, depth=1,
+                      num_heads=1, num_frames=8, dtype=dtype, device=device,
+                      generator=torch.Generator().manual_seed(2))
+    return [swin, vit]
+
+
+@pytest.mark.gpu
+def test_stream_mode_serving_on_the_card_matches_the_cpu(gen):
+    """``detect_video_frames`` in stream mode (pinned ring, side-stream
+    uploads) on a small fp32 detector over a uint8 video, card against
+    CPU: equal labels, segments and scores within 1e-3; kernels 4 and 5
+    launch for every forward, kernel 1 once a layer a batch."""
+    from tim_tpu_torch.extract.dense_media import uint8_normalizer
+    from tim_tpu_torch.serve import DetectionServer
+    cfg = C.epic_detection(d_model=64, num_layers=2, nhead=2, num_feats=6,
+                           visual_input_dim=64 + 64, audio_input_dim=12,
+                           visual_classes=(11,), audio_classes=5,
+                           compute_dtype="float32", inference_query_size=0.2)
+    state = TimDetection(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0)
+                         ).state_dict()
+    rng = np.random.default_rng(0)
+    n_steps = 50
+    table = np.stack([np.arange(8) + 2 * t for t in range(n_steps)])
+    frames = rng.integers(0, 256, (table.max() + 1, 32, 32, 3),
+                          dtype=np.uint8)
+    starts = (np.arange(n_steps) * 0.2).astype(np.float32)
+    feat_times = np.stack([starts, starts + 1.1], -1)
+    specs = rng.normal(size=(n_steps, 8, 12)).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=(8 * 12, 12)).astype(np.float32)
+                         * 0.1)
+
+    def audio(s):
+        return s.reshape(len(s), -1) @ w.to(s.device)
+    dets, launches = {}, None
+    for device in ("cuda", "cpu"):
+        server = DetectionServer(cfg, state, device=device, feat_stride=2,
+                                 batch_size=4)
+        counters = launch_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        dets[device] = server.detect_video_frames(
+            frames, [table, table], feat_times, n_steps * 0.2,
+            visual_model=_small_media_models(device), audio_specs=specs,
+            audio_extractor=audio, extract_batch=4, mode="stream",
+            frame_transform=uint8_normalizer(dtype="float32"),
+            score_threshold=0.005)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counters.items()}
+    forwards = -(-n_steps // 4)
+    assert launches["window_attention"] == 4 * forwards
+    assert launches["flash_mha"] == forwards
+    n_batches = -(-len(server._window_starts(n_steps * 0.2)) // 4)
+    assert launches["query_block_attention"] == 2 * n_batches
+    g, c = dets["cuda"], dets["cpu"]
+    assert len(c["scores"]) > 0
+    np.testing.assert_array_equal(g["labels"], c["labels"])
+    np.testing.assert_allclose(g["segments"], c["segments"], atol=1e-3)
+    np.testing.assert_allclose(g["scores"], c["scores"], atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_quantized_small_vit_on_the_card_matches_the_cpu(gen):
+    """A small int8 ViT (head dim 64, dynamic scales) in fp32, card
+    (``torch._int_mm`` products, kernel 5) against CPU: within 1e-3 of the
+    largest feature, or ULP_ENVELOPE times the CPU's own spread under a
+    one-ulp input change where that is larger (chip_smoke phase 6's rule
+    for int8 rounding ties)."""
+    from tim_tpu_torch.models.backbones.vit import VideoMAEViT
+    from tim_tpu_torch.ops.quant import quantize_backbone_state_dict
+    kw = dict(img_size=32, patch_size=16, embed_dim=128, depth=2,
+              num_heads=2, num_frames=8)
+    fp = VideoMAEViT(**kw, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    state = quantize_backbone_state_dict(fp.state_dict())
+    models = {}
+    for device in ("cpu", "cuda"):
+        models[device] = VideoMAEViT(**kw, device=device, quantized=True)
+        models[device].load_state_dict(state, strict=True)
+    x = torch.randn(3, 8, 32, 32, 3, generator=gen, device="cuda")
+    counters = launch_counters()
+    counters["flash_mha"].launches = 0
+    got = models["cuda"](x).cpu()
+    assert counters["flash_mha"].launches == 2
+    want = models["cpu"](x.cpu())
+    up = models["cpu"](x.cpu() * (1 + 2.0 ** -23))
+    scale = want.abs().max()
+    spread = ((up - want).abs().max() / scale).item()
+    err = ((got - want).abs().max() / scale).item()
+    assert err <= max(1e-3, ULP_ENVELOPE * spread), (err, spread)

@@ -292,3 +292,39 @@ def batched_nms(
 
     order = np.argsort(-new_scores, kind="stable")
     return new_segs[order], new_scores[order], new_cls[order]
+
+
+def nms_1d_torch(segs, scores, iou_threshold: float, max_keep: int):
+    """On-device greedy NMS with a static output size: counterpart of the
+    JAX package's ``nms_1d_jax``. ``segs`` [N, 2] and ``scores`` [N] are
+    tensors on any device; returns (keep indices [max_keep], -1 where
+    invalid; valid mask [max_keep]) on that device, with no read-back.
+    O(N * max_keep) masked ops, for proposals that already live on the
+    card."""
+    import torch
+
+    n = segs.shape[0]
+    lens = segs[:, 1] - segs[:, 0] + 1e-6
+    alive = torch.ones(n, dtype=torch.bool, device=segs.device)
+    rows = torch.arange(n, device=segs.device)
+    neg_inf = torch.full((), float("-inf"), dtype=scores.dtype,
+                         device=scores.device)
+    keep, valid = [], []
+    for _ in range(max_keep):
+        masked = torch.where(alive, scores, neg_inf)
+        i = torch.argmax(masked)
+        ok = masked[i] > neg_inf
+        lo = torch.maximum(segs[i, 0], segs[:, 0])
+        hi = torch.minimum(segs[i, 1], segs[:, 1])
+        inter = torch.clamp_min(hi - lo, 0.0)
+        iou = inter / (lens[i] + lens - inter)
+        # the selected index is removed explicitly: a zero-length top
+        # segment can have self-IoU below the threshold and would
+        # otherwise be selected again every step
+        alive = alive & ~(iou >= iou_threshold) & ok & (rows != i)
+        keep.append(torch.where(ok, i, torch.full_like(i, -1)))
+        valid.append(ok)
+    if not keep:
+        return (torch.zeros(0, dtype=torch.long, device=segs.device),
+                torch.zeros(0, dtype=torch.bool, device=segs.device))
+    return torch.stack(keep), torch.stack(valid)

@@ -18,13 +18,18 @@ Auditory SlowFast in fp32 (cuDNN's convolutions, TF32 off; no TPU kernel
 there) over log-mel spectrograms of the records in ``--audio_hdf5``
 (``h5py``, imported only then) or ``--audio_dir`` (WAV through
 ``scipy.io.wavfile``); its augmentation sets after the first are
-SpecAugment. Not ported yet (ROADMAP.md, "Still to port"):
-``--quantize_backbone on`` (int8 backbones; ``auto`` means off away from
-a TPU, as in the JAX CLI) and, for the visual backbones, ``--num_aug > 1``
-(the RandAugment sets of ``extract/autoaug.py``); they raise
-``NotImplementedError``. Without ``--checkpoint`` the weights are random,
-from a generator seeded 0. ``pandas`` is imported by ``main`` (the
-feature-time table) and PIL by the visual transforms.
+SpecAugment. For the visual backbones ``--num_aug > 1`` adds RandAugment
+sets (``extract/autoaug.py``, PIL): ``omnivore_clip_augment`` on the BGR
+frames for Swin, ``VideoRandAugment("rand-m7-n4-mstd0.5-inc1")`` (bicubic)
+for the ViT. ``--quantize_backbone on`` builds the int8 backbone
+(``quantized=True``) from the fp32 weights, random or ``--checkpoint``
+(``ops.quant.quantize_backbone_state_dict``), with dynamic per-row
+activation scales; ``auto`` means off away from a TPU, as in the JAX CLI.
+SlowFast has no int8 layout: ``--backbone slowfast --quantize_backbone on``
+raises ``ValueError`` (the JAX CLI ignores the flag there and runs fp32).
+Without ``--checkpoint`` the weights are random, from a generator seeded
+0. ``pandas`` is imported by ``main`` (the feature-time table) and PIL by
+the visual transforms and RandAugment.
 """
 
 from __future__ import annotations
@@ -38,9 +43,6 @@ import torch
 
 from tim_tpu_torch.models.backbones.slowfast import pack_pathways
 from tim_tpu_torch.models.tim import resolve_device
-
-_ROADMAP = "ROADMAP.md, 'Still to port'"
-
 
 def build_parser():
     p = argparse.ArgumentParser(description="TIM feature extraction "
@@ -76,23 +78,21 @@ def build_parser():
                         "(off raises there)")
     p.add_argument("--quantize_backbone", default="off",
                    choices=["auto", "on", "off"],
-                   help="int8 backbones: not ported (on raises; auto is "
-                        "off away from a TPU)")
+                   help="int8 backbones (Swin, ViT) with dynamic per-row "
+                        "activation scales; auto is off away from a TPU; "
+                        "SlowFast has no int8 layout (on raises)")
     return p
 
 
 def check_supported(args, device: torch.device) -> None:
     """Raise for what the port does not run (see the module docstring)."""
-    if args.quantize_backbone == "on":
-        raise NotImplementedError(
-            f"--quantize_backbone on: int8 backbones "
-            f"(quantize_backbone_params) are not ported yet ({_ROADMAP})")
     if args.backbone == "slowfast":
+        if args.quantize_backbone == "on":
+            raise ValueError(
+                "--quantize_backbone on: Auditory SlowFast has no int8 "
+                "layout (the JAX CLI ignores the flag for slowfast and runs "
+                "fp32); drop the flag")
         return
-    if args.num_aug > 1:
-        raise NotImplementedError(
-            f"--num_aug {args.num_aug}: the RandAugment sets "
-            f"(extract/autoaug.py) are not ported yet ({_ROADMAP})")
     if device.type == "cuda" and args.flash_attention == "off":
         raise ValueError("--flash_attention off: on the card the attention "
                          "cores always run the hand-written kernels (no "
@@ -120,22 +120,30 @@ def make_visual_apply(args, device=None) -> VisualApply:
     """The backbone of ``args.backbone`` (Swin-B for omnivore, ViT-L for
     videomae) in ``args.compute_dtype``, with the ``--checkpoint`` weights
     or random ones (generator seeded 0), on ``device`` (the card by
-    default)."""
+    default). With ``--quantize_backbone on`` the fp32 weights are built
+    on the CPU, quantized and loaded into the int8 backbone on
+    ``device``."""
     device = resolve_device(device)
     _require_backbone(args, ("omnivore", "videomae"), "make_audio_apply")
     check_supported(args, device)
     from tim_tpu_torch.convert import load_backbone_state, load_torch_checkpoint
     from tim_tpu_torch.models.backbones import swin3d, vit
+    from tim_tpu_torch.ops.quant import quantize_backbone_state_dict
 
-    gen = torch.Generator().manual_seed(0)
-    if args.backbone == "omnivore":
-        model = swin3d.omnivore_swinB_epic(dtype=args.compute_dtype,
-                                           device=device, generator=gen)
-    else:
-        model = vit.videomae_vit_large(dtype=args.compute_dtype,
-                                       device=device, generator=gen)
+    factory = (swin3d.omnivore_swinB_epic if args.backbone == "omnivore"
+               else vit.videomae_vit_large)
+    quant_on = args.quantize_backbone == "on"
+    model = factory(dtype=args.compute_dtype,
+                    device="cpu" if quant_on else device,
+                    generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         load_backbone_state(model, load_torch_checkpoint(args.checkpoint))
+    if quant_on:
+        state = quantize_backbone_state_dict(model.state_dict())
+        model = factory(dtype=args.compute_dtype, device=device,
+                        generator=torch.Generator().manual_seed(0),
+                        quantized=True)
+        model.load_state_dict(state, strict=True)
     model.eval()
     return VisualApply(model, device)
 
@@ -179,7 +187,34 @@ def make_audio_apply(args, device=None) -> AudioApply:
     return AudioApply(model, device)
 
 
+def rand_augment(args):
+    """The RandAugment of the augmentation sets after the first (uint8
+    frames [T, H, W, 3] in and out): ``epickitchens.py:107-123``'s fresh
+    rand-m15-mstd0.5-inc1 transform per frame with one clip seed, fill
+    the ImageNet mean, for omnivore; ``feature_extraction.py:104-112``'s
+    one timm transform per clip, bicubic, for videomae. Needs PIL."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            f"--num_aug {args.num_aug}: the RandAugment sets "
+            f"(extract/autoaug.py) need PIL, which is not installed") from e
+    from tim_tpu_torch.extract.autoaug import (
+        VideoRandAugment, omnivore_clip_augment)
+
+    if args.backbone == "omnivore":
+        def ra(frames):
+            return omnivore_clip_augment(
+                frames, crop_size=args.crop_size,
+                mean=(0.485, 0.456, 0.406))
+        return ra
+    return VideoRandAugment("rand-m7-n4-mstd0.5-inc1",
+                            crop_size=args.crop_size,
+                            interpolation="bicubic")
+
+
 def extract_visual(args, table, video_ids, device=None):
+    ra = rand_augment(args) if args.num_aug > 1 else None
     from PIL import Image
 
     from tim_tpu_torch.extract.pipeline import (
@@ -207,10 +242,16 @@ def extract_visual(args, table, video_ids, device=None):
                 np.asarray(Image.open(frame_files[i - 1]).convert("RGB"))
                 for i in idx])
             if args.backbone == "omnivore":
-                # the reference loads frames with cv2 (BGR) and runs the
-                # pixel block on that order, flipping to RGB inside it
+                # the reference loads frames with cv2 (BGR) and runs both
+                # RandAugment and the pixel block on that order, flipping
+                # to RGB inside the pixel block
+                frames = frames[..., ::-1]
+                if a > 0:
+                    frames = ra(frames)
                 return omnivore_test_transform(
-                    frames[..., ::-1], size=args.crop_size, input_bgr=True)
+                    frames, size=args.crop_size, input_bgr=True)
+            if a > 0:
+                frames = ra(frames)
             return preprocess_video_clip(frames, size=args.crop_size)
 
         bank = extract_features_for_video(

@@ -25,20 +25,29 @@ Reference quirks kept: effective windows clamp to the input extent and
 clamped dims do not shift; the bias index is row-sliced ``[:N, :N]`` when
 the window is clamped; the shift mask keeps the ``slice(-0, None)``
 behaviour; patch merging pads odd H/W.
+
+``quantized=True`` is the int8 serving mode (no reference counterpart,
+as in JAX): ``attn.qkv``, ``attn.proj``, ``mlp.fc1`` and ``mlp.fc2`` are
+``Int8Dense`` (load ``ops.quant.quantize_backbone_state_dict`` weights),
+each with its output in the compute dtype after the fp32 bias. Without
+calibrated scales every int8 layer quantizes its activations per row;
+``act_scales`` (the JAX package's (path, scale) tuple, paths such as
+``layer0_block1/attn/qkv``; ``set_act_scales``, ``int8_layers``) makes
+them static.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from tim_tpu_torch.models.common import (
-    DENSE, GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear,
-    inference_unless_training)
+    DENSE, GeluMlp, Int8Dense, Int8GeluMlp, LayerNorm, PatchEmbed3D,
+    TorchLinear, inference_unless_training, set_act_scales)
 from tim_tpu_torch.models.tim import resolve_device
 from tim_tpu_torch.ops.window_attention import window_attention_qkv
 
@@ -156,7 +165,7 @@ class WindowAttention3D(nn.Module):
 
     def __init__(self, dim: int, full_window: Tuple[int, int, int],
                  num_heads: int, *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, quantized: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
         self.full_window = tuple(full_window)
@@ -164,10 +173,14 @@ class WindowAttention3D(nn.Module):
         self.relative_position_bias_table = _init_normal(
             ((2 * wd - 1) * (2 * wh - 1) * (2 * ww - 1), num_heads), 0.02,
             generator)
-        self.qkv = TorchLinear(dim, 3 * dim, dtype=dtype, generator=generator,
-                               rounding=DENSE)
-        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator,
-                                rounding=DENSE)
+        if quantized:
+            self.qkv = Int8Dense(dim, 3 * dim, dtype=dtype)
+            self.proj = Int8Dense(dim, dim, dtype=dtype)
+        else:
+            self.qkv = TorchLinear(dim, 3 * dim, dtype=dtype,
+                                   generator=generator, rounding=DENSE)
+            self.proj = TorchLinear(dim, dim, dtype=dtype,
+                                    generator=generator, rounding=DENSE)
         self._consts: dict = {}
 
     def forward(self, x, region_ids: Optional[torch.Tensor]):
@@ -191,16 +204,19 @@ class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int,
                  window_size: Tuple[int, int, int], shift: bool, *,
                  mlp_ratio: float, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, quantized: bool = False):
         super().__init__()
         self.window_size, self.shift, self.dtype = (
             tuple(window_size), shift, dtype)
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention3D(dim, window_size, num_heads,
-                                      dtype=dtype, generator=generator)
+                                      dtype=dtype, generator=generator,
+                                      quantized=quantized)
         self.norm2 = LayerNorm(dim)
-        self.mlp = GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype,
-                           generator=generator)
+        self.mlp = (Int8GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype)
+                    if quantized else
+                    GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype,
+                            generator=generator))
         self._consts: dict = {}
 
     def forward(self, x):
@@ -273,14 +289,16 @@ class SwinTransformer3D(nn.Module):
     only when asked for. ``generator`` seeds the random init (a fresh
     generator seeded 0 when None); parameters are built on the CPU and
     then moved to ``device``. Released trunks load over the init
-    (``convert.load_backbone_state``)."""
+    (``convert.load_backbone_state``). ``quantized`` / ``act_scales``:
+    the int8 serving mode (module docstring)."""
 
     def __init__(self, patch_size=(2, 4, 4), embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32),
                  window_size=(16, 7, 7), mlp_ratio: float = 4.0,
                  patch_norm: bool = True, dtype: str = "float32", *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 quantized: bool = False, act_scales: tuple = ()):
         super().__init__()
         device = resolve_device(device)
         gen = generator or torch.Generator().manual_seed(0)
@@ -294,15 +312,39 @@ class SwinTransformer3D(nn.Module):
             dim = int(embed_dim * 2 ** i)
             blocks = [SwinBlock3D(dim, heads, window_size, shift=(j % 2 == 1),
                                   mlp_ratio=mlp_ratio, dtype=self.dtype,
-                                  generator=gen) for j in range(depth)]
+                                  generator=gen, quantized=quantized)
+                      for j in range(depth)]
             down = (PatchMerging(dim, dtype=self.dtype, generator=gen)
                     if i < len(depths) - 1 else None)
             stages.append(SwinStage(blocks, down))
         self.layers = nn.ModuleList(stages)
         self.num_features = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = LayerNorm(self.num_features)
+        if quantized:
+            self.set_act_scales(act_scales)
         self.to(device)
         self.eval()
+
+    def int8_layers(self) -> Dict[str, Int8Dense]:
+        """The int8 linears (empty unless quantized) by the JAX package's
+        param path: ``layer{i}_block{j}/attn/qkv``, ``.../attn/proj``,
+        ``.../fc1``, ``.../fc2``."""
+        out = {}
+        for i, stage in enumerate(self.layers):
+            for j, block in enumerate(stage.blocks):
+                for path, m in (("attn/qkv", block.attn.qkv),
+                                ("attn/proj", block.attn.proj),
+                                ("fc1", block.mlp.fc1),
+                                ("fc2", block.mlp.fc2)):
+                    if isinstance(m, Int8Dense):
+                        out[f"layer{i}_block{j}/{path}"] = m
+        return out
+
+    def set_act_scales(self, act_scales) -> None:
+        """Static activation scales from a (path, scale) tuple; a layer it
+        misses stays dynamic (with a warning when the tuple is not
+        empty)."""
+        set_act_scales(self.int8_layers(), act_scales)
 
     @inference_unless_training
     def forward(self, video, pool: bool = True, *, embed_only: bool = False,
@@ -329,8 +371,10 @@ class SwinTransformer3D(nn.Module):
 
 def omnivore_swinB_epic(dtype: str = "float32", *, device=None,
                         generator: Optional[torch.Generator] = None,
+                        quantized: bool = False,
                         **kw) -> SwinTransformer3D:
     """The EPIC-KITCHENS Omnivore trunk config
-    (``omnivore_model.py:136-162``)."""
+    (``omnivore_model.py:136-162``); ``quantized``: the int8 serving
+    mode, its weights from ``ops.quant.quantize_backbone_state_dict``."""
     return SwinTransformer3D(dtype=dtype, device=device, generator=generator,
-                             **kw)
+                             quantized=quantized, **kw)

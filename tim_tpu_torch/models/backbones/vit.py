@@ -18,11 +18,20 @@ and with grad enabled it records autograd. ``remat_mlp`` recomputes each
 block's norm2 + MLP in the backward (``torch.utils.checkpoint``, the
 attention kernel outside it, as ``ViTBlock.remat_mlp`` in JAX); ``remat``
 recomputes whole blocks.
+
+``quantized=True`` is the int8 serving mode (as in JAX): ``attn.qkv``
+(packed, no bias; its output kept in fp32, the q / 0 / v bias added in
+fp32 and the sum cast once), ``attn.proj``, ``mlp.fc1`` and ``mlp.fc2``
+are ``Int8Dense`` (load ``ops.quant.quantize_backbone_state_dict``
+weights). Without calibrated scales every int8 layer quantizes its
+activations per row; ``act_scales`` (the JAX package's (path, scale)
+tuple, paths such as ``block3/attn/qkv``; ``set_act_scales``,
+``int8_layers``) makes them static.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,8 +39,9 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from tim_tpu_torch.models.common import (
-    DENSE, TORCH_LINEAR, GeluMlp, LayerNorm, PatchEmbed3D, TorchLinear,
-    inference_unless_training, linear, uniform_)
+    DENSE, TORCH_LINEAR, GeluMlp, Int8Dense, Int8GeluMlp, LayerNorm,
+    PatchEmbed3D, TorchLinear, inference_unless_training, linear,
+    set_act_scales, uniform_)
 from tim_tpu_torch.models.tim import resolve_device
 from tim_tpu_torch.ops.flash_mha import flash_mha_qkv
 
@@ -79,14 +89,17 @@ class VideoMAEAttention(nn.Module):
     matching the checkpoint layout (``modeling_finetune.py:75-129``)."""
 
     def __init__(self, dim: int, num_heads: int, *, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, quantized: bool = False):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
-        self.qkv = _Weight(dim, 3 * dim, generator=generator)
+        self.qkv = (Int8Dense(dim, 3 * dim, dtype=torch.float32,
+                              use_bias=False) if quantized
+                    else _Weight(dim, 3 * dim, generator=generator))
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
-        self.proj = TorchLinear(dim, dim, dtype=dtype, generator=generator,
-                                rounding=DENSE)
+        self.proj = (Int8Dense(dim, dim, dtype=dtype) if quantized
+                     else TorchLinear(dim, dim, dtype=dtype,
+                                      generator=generator, rounding=DENSE))
 
     def forward(self, x):
         b, n, _ = x.shape
@@ -94,10 +107,16 @@ class VideoMAEAttention(nn.Module):
         dh = self.dim // h
         bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias),
                           self.v_bias])
-        # the GEMM sums in fp32 and adds the fp32 bias before its one
-        # rounding (JAX's packed qkv: a dot into fp32, then the bias)
-        qkv = linear(x, self.qkv.weight, bias, self.dtype,
-                     rounding=TORCH_LINEAR).view(b, n, 3, h, dh)
+        if isinstance(self.qkv, Int8Dense):
+            # fp32 int8 product + fp32 bias, one rounding (JAX's
+            # Int8Dense(dtype=float32), then the bias, then the cast)
+            qkv = (self.qkv(x) + bias.float()).to(self.dtype)
+        else:
+            # the GEMM sums in fp32 and adds the fp32 bias before its one
+            # rounding (JAX's packed qkv: a dot into fp32, then the bias)
+            qkv = linear(x, self.qkv.weight, bias, self.dtype,
+                         rounding=TORCH_LINEAR)
+        qkv = qkv.view(b, n, 3, h, dh)
         out = flash_mha_qkv(qkv, sm_scale=dh ** -0.5)
         return self.proj(out.transpose(1, 2).reshape(b, n, self.dim))
 
@@ -116,15 +135,19 @@ class ViTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: float = 0.0, *, dtype: torch.dtype,
-                 generator: torch.Generator, remat_mlp: bool = False):
+                 generator: torch.Generator, remat_mlp: bool = False,
+                 quantized: bool = False):
         super().__init__()
         self.dtype, self.remat_mlp = dtype, remat_mlp
         self.norm1 = LayerNorm(dim, eps=EPS)
         self.attn = VideoMAEAttention(dim, num_heads, dtype=dtype,
-                                      generator=generator)
+                                      generator=generator,
+                                      quantized=quantized)
         self.norm2 = LayerNorm(dim, eps=EPS)
-        self.mlp = GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype,
-                           generator=generator)
+        self.mlp = (Int8GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype)
+                    if quantized else
+                    GeluMlp(dim, int(dim * mlp_ratio), dtype=dtype,
+                            generator=generator))
         if init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
             self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
@@ -153,7 +176,8 @@ class VideoMAEViT(nn.Module):
     ``device``: the CUDA card by default (raises without one); the CPU
     only when asked for. ``generator`` seeds the random init (a fresh
     generator seeded 0 when None); parameters are built on the CPU and
-    then moved to ``device``."""
+    then moved to ``device``. ``quantized`` / ``act_scales``: the int8
+    serving mode (module docstring)."""
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
@@ -161,7 +185,8 @@ class VideoMAEViT(nn.Module):
                  tubelet_size: int = 2, init_values: float = 0.0,
                  dtype: str = "float32", *, device=None,
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False, remat_mlp: bool = False):
+                 remat: bool = False, remat_mlp: bool = False,
+                 quantized: bool = False, act_scales: tuple = ()):
         super().__init__()
         device = resolve_device(device)
         gen = generator or torch.Generator().manual_seed(0)
@@ -173,12 +198,34 @@ class VideoMAEViT(nn.Module):
             dtype=self.dtype, generator=gen)
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio, init_values,
-                     dtype=self.dtype, generator=gen, remat_mlp=remat_mlp)
+                     dtype=self.dtype, generator=gen, remat_mlp=remat_mlp,
+                     quantized=quantized)
             for _ in range(depth))
         self.fc_norm = LayerNorm(embed_dim, eps=EPS)
         self._pos: dict = {}
+        if quantized:
+            self.set_act_scales(act_scales)
         self.to(device)
         self.eval()
+
+    def int8_layers(self) -> Dict[str, Int8Dense]:
+        """The int8 linears (empty unless quantized) by the JAX package's
+        param path: ``block{i}/attn/qkv``, ``.../attn/proj``, ``.../fc1``,
+        ``.../fc2``."""
+        out = {}
+        for i, block in enumerate(self.blocks):
+            for path, m in (("attn/qkv", block.attn.qkv),
+                            ("attn/proj", block.attn.proj),
+                            ("fc1", block.mlp.fc1), ("fc2", block.mlp.fc2)):
+                if isinstance(m, Int8Dense):
+                    out[f"block{i}/{path}"] = m
+        return out
+
+    def set_act_scales(self, act_scales) -> None:
+        """Static activation scales from a (path, scale) tuple; a layer it
+        misses stays dynamic (with a warning when the tuple is not
+        empty)."""
+        set_act_scales(self.int8_layers(), act_scales)
 
     def _position_table(self, n: int, device) -> torch.Tensor:
         return position_table(self._pos, n, self.embed_dim, self.dtype,
@@ -206,7 +253,9 @@ def videomae_vit_large(dtype: str = "float32", *, device=None,
                        generator: Optional[torch.Generator] = None,
                        **kw) -> VideoMAEViT:
     """ViT-L/16 (width 1024, 24 blocks, 16 heads); ``kw`` overrides any
-    other ``VideoMAEViT`` argument (e.g. a reduced ``depth``)."""
+    other ``VideoMAEViT`` argument (e.g. a reduced ``depth``, or
+    ``quantized=True`` for the int8 serving mode, its weights from
+    ``ops.quant.quantize_backbone_state_dict``)."""
     return VideoMAEViT(**{"embed_dim": 1024, "depth": 24, "num_heads": 16,
                           **kw}, dtype=dtype, device=device,
                        generator=generator)

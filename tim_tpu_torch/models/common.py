@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Mapping
 
 import torch
 import torch.nn as nn
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 from tim_tpu_torch.ops.bias_act import bias_act, gelu_bf16
 from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
 from tim_tpu_torch.ops.int8_matmul_fused import int8_matmul_fused
-from tim_tpu_torch.ops.quant import int8_matmul, int8_matmul_static
+from tim_tpu_torch.ops.quant import (
+    int8_matmul, int8_matmul_static, scale_for)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -197,8 +199,9 @@ class TorchLinear(nn.Module):
 class Int8Dense(nn.Module):
     """Linear for int8 serving: counterpart of ``tim_tpu/models/common.py::
     Int8Dense``. ``weight_q`` int8 [out, in] and ``weight_scale`` fp32
-    [out] (per output channel, from ``ops.quant.quantize_state_dict``),
-    ``bias`` fp32; the output in the compute dtype.
+    [out] (per output channel, from ``ops.quant.quantize_state_dict`` or
+    ``quantize_backbone_state_dict``), ``bias`` fp32 (none with
+    ``use_bias=False``); the output in the compute dtype.
 
     Activation quantization:
     - ``act_scale`` None: dynamic per-row abs-max scales;
@@ -211,14 +214,18 @@ class Int8Dense(nn.Module):
     arrives)."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 dtype: torch.dtype, pallas_fused: bool = False):
+                 dtype: torch.dtype, pallas_fused: bool = False,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.pallas_fused = pallas_fused
         self.register_buffer("weight_q", torch.zeros(
             out_features, in_features, dtype=torch.int8))
         self.register_buffer("weight_scale", torch.ones(out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features))
+        else:
+            self.register_parameter("bias", None)
         self.act_scale: float | None = None
         self.act_absmax: torch.Tensor | None = None
         self._calibrating = False
@@ -244,7 +251,19 @@ class Int8Dense(nn.Module):
         else:
             y = int8_matmul_static(x, self.weight_q, self.weight_scale,
                                    self.act_scale)
-        return (y + self.bias.float()).to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(self.dtype)
+
+
+def set_act_scales(layers: Mapping[str, Int8Dense], act_scales) -> None:
+    """Give each int8 layer its scale from the (path, scale) tuple
+    ``act_scales`` (``ops.quant.scale_for``: a layer the tuple misses
+    keeps dynamic per-row scales, with a warning when the tuple is not
+    empty); ``layers`` maps each layer's path to it."""
+    for path, layer in layers.items():
+        s = scale_for(act_scales, path)
+        layer.act_scale = s if s > 0.0 else None
 
 
 class LayerNorm(nn.LayerNorm):
@@ -273,6 +292,20 @@ class GeluMlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(self.fc1(x, gelu=True))
+
+
+class Int8GeluMlp(nn.Module):
+    """``GeluMlp`` for int8 serving: ``fc1`` and ``fc2`` are ``Int8Dense``
+    (output in the compute dtype after the fp32 bias), the exact GELU
+    between them in the compute dtype."""
+
+    def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype):
+        super().__init__()
+        self.fc1 = Int8Dense(dim, hidden, dtype=dtype)
+        self.fc2 = Int8Dense(hidden, dim, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(exact_gelu(self.fc1(x)))
 
 
 def MLP(dims, *, dtype: torch.dtype, generator: torch.Generator,

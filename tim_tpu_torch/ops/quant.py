@@ -145,3 +145,61 @@ def quantize_state_dict(state_dict: Mapping[str, torch.Tensor]
         out[f"{name}.weight_q"] = torch.from_numpy(np.ascontiguousarray(w_q.T))
         out[f"{name}.weight_scale"] = torch.from_numpy(scale)
     return out
+
+
+# ---------------------------------------------------------------------------
+# backbones (Swin3D, VideoMAE ViT)
+# ---------------------------------------------------------------------------
+
+def scale_for(act_scales, name: str, default: float = 0.0) -> float:
+    """A layer's calibrated activation scale in a (path, scale) tuple
+    (paths '/'-joined, the JAX package's param paths). A miss against a
+    non-empty tuple is almost always a calibration or naming fault (the
+    layer keeps its dynamic per-row scales): it warns, as the JAX
+    package's ``scale_for`` does."""
+    for path, s in act_scales:
+        if path == name:
+            return float(s)
+    if act_scales:
+        import logging
+        logging.getLogger(__name__).warning(
+            "scale_for: no calibrated activation scale for %r (tuple has "
+            "%d entries, e.g. %r); the layer keeps dynamic per-row "
+            "scales", name, len(act_scales), act_scales[0][0])
+    return default
+
+
+def filter_scales(act_scales, prefix: str):
+    """Sub-tuple of scales under ``prefix`` with the prefix stripped."""
+    pre = prefix + "/"
+    return tuple((p[len(pre):], s) for p, s in act_scales
+                 if p.startswith(pre))
+
+
+# Backbone matmuls that carry ~99% of extraction FLOPs (Swin/ViT qkv,
+# attention out-proj, FFN). Conv patch embeds, LayerNorms, the rel-pos
+# table and the PatchMerging reductions stay as they are.
+BACKBONE_QUANT_MODULES = ("qkv", "proj", "fc1", "fc2")
+
+
+def quantize_backbone_state_dict(state_dict: Mapping[str, torch.Tensor]
+                                 ) -> Dict[str, torch.Tensor]:
+    """fp32 reference-layout backbone state dict (Swin3D or VideoMAE ViT)
+    -> the layout of the ``quantized=True`` backbone: every 2-D weight
+    [out, in] of a ``qkv`` / ``proj`` / ``fc1`` / ``fc2`` module becomes
+    ``<name>.weight_q`` int8 and ``<name>.weight_scale`` fp32 [out]
+    (counterpart of ``quantize_backbone_params``; the ViT's bias-free
+    packed ``attn.qkv.weight`` becomes an int8 layer without bias, its
+    ``q_bias`` / ``v_bias`` stay beside it). Per-output-row scales, bit-equal
+    to the JAX package's per-output-channel ones."""
+    out = {}
+    for key, w in state_dict.items():
+        name = key[:-len(".weight")] if key.endswith(".weight") else None
+        if (name is None or w.ndim != 2
+                or name.rsplit(".", 1)[-1] not in BACKBONE_QUANT_MODULES):
+            out[key] = w
+            continue
+        w_q, scale = quantize_kernel(w.detach().cpu().float().numpy().T)
+        out[f"{name}.weight_q"] = torch.from_numpy(np.ascontiguousarray(w_q.T))
+        out[f"{name}.weight_scale"] = torch.from_numpy(scale)
+    return out

@@ -2,8 +2,8 @@
 backbone forward, or of one backbone training step goes, on the CUDA card:
 
     python -m tim_tpu_torch.profile_serving
-        [--mode bf16|int8|int8-fast|swin|vit|slowfast|vit-train|
-                swin-train|mae|det-train|det-val]
+        [--mode bf16|int8|int8-fast|swin|vit|swin-int8|vit-int8|slowfast|
+                vit-train|swin-train|mae|det-train|det-val|media]
         [--batch N] [--steps 3]
 
 Detection modes build the full-width EPIC-KITCHENS-100 detection model
@@ -14,7 +14,10 @@ fused int8 heads; ``int8-fast`` adds bf16 attention scores) and run
 windows). ``swin`` and ``vit`` build the Omnivore Swin-B or VideoMAE
 ViT-L backbone in bf16 (random weights from seed 0, as the extraction
 CLI) and run its forward on random clips (default 8; 32 x 224^2 and
-16 x 224^2); ``slowfast`` builds full-size Auditory SlowFast in fp32
+16 x 224^2); ``swin-int8`` and ``vit-int8`` the same backbones quantized
+(``quantize_backbone_state_dict`` of the fp32 weights, dynamic int8
+activations, bf16 elsewhere, as ``extract.cli --quantize_backbone on``);
+``slowfast`` builds full-size Auditory SlowFast in fp32
 (random weights from seed 0) and runs it on random spectrograms (default
 8; [1, 200, 128], through ``pack_pathways``). ``vit-train`` and
 ``swin-train`` run one finetune step of
@@ -27,7 +30,14 @@ every dropout on; default batch 64) and ``det-val`` one validation batch
 (``make_val_step``), on random windows with GT segments; ``det-train``
 also times two of its parts alone, forward and backward: the smoothed
 focal loss over the visual logits and one layer's attention on the
-training route. Each runs 3
+training route. ``media`` runs ``DetectionServer.detect_video_frames``
+(stream mode, uint8 50 fps 224^2 frames with the device normalizer,
+Swin-B 32-frame and ViT-L 16-frame clips every 0.2 s, SlowFast over
+[400, 128] spectrograms, the bf16 EPIC detector with kernel 2 fused,
+top-8) over ``--batch`` timesteps (default 40, 8 s of video: 5
+extraction batches of 8 a backbone, one detection batch of 16) and also
+times each host stage alone (Swin-B, ViT-L, SlowFast, detection). Each
+runs 3
 warm-up steps, then ``torch.profiler`` over
 ``--steps`` steps. Prints the card's name and power limit, the device
 milliseconds per step (CUDA events), the share of it in which a kernel
@@ -55,6 +65,7 @@ MODES = {"bf16": {}, "int8": {"quant_pallas_heads": True},
 # backbone modes: (module, factory, clip shape)
 BACKBONE_MODES = {"swin": ("swin3d", "omnivore_swinB_epic", (32, 224, 224, 3)),
                   "vit": ("vit", "videomae_vit_large", (16, 224, 224, 3))}
+INT8_MODES = {"swin-int8": "swin", "vit-int8": "vit"}
 TRAIN_MODES = {"vit-train": "vit", "swin-train": "swin", "mae": "vit"}
 DETECTION_TRAIN_MODES = ("det-train", "det-val")
 
@@ -177,12 +188,20 @@ def build(mode: str, batch: int):
 
 
 def build_backbone(mode: str, batch: int):
-    """(forward, clips) of a bf16 backbone on the card."""
+    """(forward, clips) of a bf16 backbone on the card (int8 for the
+    ``-int8`` modes)."""
     import importlib
-    module, factory, shape = BACKBONE_MODES[mode]
+    module, factory, shape = BACKBONE_MODES[INT8_MODES.get(mode, mode)]
     mod = importlib.import_module(f"tim_tpu_torch.models.backbones.{module}")
-    model = getattr(mod, factory)(dtype="bfloat16", device="cuda",
-                                  generator=torch.Generator().manual_seed(0))
+    factory = getattr(mod, factory)
+    model = factory(dtype="bfloat16", device="cuda",
+                    generator=torch.Generator().manual_seed(0))
+    if mode in INT8_MODES:
+        from tim_tpu_torch.ops.quant import quantize_backbone_state_dict
+        state = quantize_backbone_state_dict(
+            {k: v.cpu() for k, v in model.state_dict().items()})
+        model = factory(dtype="bfloat16", device="cuda", quantized=True)
+        model.load_state_dict(state, strict=True)
     clips = torch.randn(batch, *shape, device="cuda",
                         generator=torch.Generator(device="cuda")
                         .manual_seed(0))
@@ -199,6 +218,78 @@ def build_slowfast(batch: int):
     spec = torch.randn(batch, 1, 200, 128, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(0))
     return (lambda x: model(*pack_pathways(x, model.alpha))), spec
+
+
+def build_media(n_steps: int):
+    """(step, None, stages): one ``detect_video_frames`` call over
+    ``n_steps`` timesteps of a synthetic uint8 video, and a function that
+    times each stage alone (host clock, synchronised)."""
+    import time
+
+    from tim_tpu_torch.extract.cli import AudioApply
+    from tim_tpu_torch.extract.dense_media import (
+        build_clip_plan, extract_dense_visual, uint8_normalizer)
+    from tim_tpu_torch.extract.pipeline import omnivore_frame_indices
+    from tim_tpu_torch.models.backbones import swin3d, vit
+    from tim_tpu_torch.models.backbones.slowfast import AuditorySlowFast
+
+    def table(n):
+        return np.stack([omnivore_frame_indices(55, 10 * t + 1, 10 ** 9, n)
+                         for t in range(n_steps)]) - 1
+    tables = [table(32), table(16)]
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (max(t.max() for t in tables) + 1, 224,
+                                   224, 3), dtype=np.uint8)
+    specs = (rng.normal(size=(n_steps, 400, 128, 1)) * 0.1).astype(
+        np.float32)
+    starts = (np.arange(n_steps) * 0.2).astype(np.float32)
+    feat_times = np.stack([starts, starts + 1.1], -1)
+    gen = torch.Generator
+    models = [swin3d.omnivore_swinB_epic(dtype="bfloat16", device="cuda",
+                                         generator=gen().manual_seed(0)),
+              vit.videomae_vit_large(dtype="bfloat16", device="cuda",
+                                     generator=gen().manual_seed(0))]
+    audio = AudioApply(AuditorySlowFast(device="cuda").eval(),
+                       torch.device("cuda"))
+    cfg = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True)
+    state = TimDetection(C.epic_detection(compute_dtype="float32"),
+                         device="cpu",
+                         generator=torch.Generator().manual_seed(0)
+                         ).state_dict()
+    server = DetectionServer(cfg, state, device="cuda", batch_size=16,
+                             top_k=8)
+    tf = uint8_normalizer()
+    duration = n_steps * 0.2
+
+    def step(_):
+        return server.detect_video_frames(
+            frames, tables, feat_times, duration, visual_model=models,
+            audio_specs=specs, audio_extractor=audio, mode="stream",
+            frame_transform=tf, score_threshold=0.02)
+
+    def stages():
+        out = {}
+
+        def clock(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            out[name] = time.perf_counter() - t0
+            return result
+        feats = []
+        for name, model, tab in zip(("swin_s", "vit_s"), models, tables):
+            plan = build_clip_plan(tab)
+            feats.append(clock(name, lambda: extract_dense_visual(
+                model, frames[plan.unique_frames], plan, mode="stream",
+                frame_transform=tf)).float().numpy())
+        a_feats = clock("slowfast_s",
+                        lambda: server._extract(specs, audio, 8))
+        clock("detection_and_nms_s", lambda: server.detect_video(
+            np.concatenate(feats, -1), a_feats, feat_times, duration,
+            score_threshold=0.02))
+        return out
+    return step, None, stages
 
 
 def build_training(mode: str, batch: int):
@@ -238,12 +329,14 @@ def build_training(mode: str, batch: int):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mode", choices=sorted([*MODES, *BACKBONE_MODES,
-                                                  "slowfast", *TRAIN_MODES,
+                                                  *INT8_MODES, "slowfast",
+                                                  *TRAIN_MODES, "media",
                                                   *DETECTION_TRAIN_MODES]),
                         default="bf16")
     parser.add_argument("--batch", type=int, default=None,
                         help="windows (default 128; det-train, det-val: "
-                             "64) or clips (default 8)")
+                             "64), clips (default 8) or media timesteps "
+                             "(default 40)")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args()
@@ -255,13 +348,17 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card)
 
-    if args.mode in DETECTION_TRAIN_MODES:
+    stages = None
+    if args.mode == "media":
+        args.batch = args.batch or 40
+        step, batch, stages = build_media(args.batch)
+    elif args.mode in DETECTION_TRAIN_MODES:
         args.batch = args.batch or 64
         step, batch = build_detection_training(args.mode, args.batch)
     elif args.mode in TRAIN_MODES:
         args.batch = args.batch or 8
         step, batch = build_training(args.mode, args.batch)
-    elif args.mode in BACKBONE_MODES:
+    elif args.mode in BACKBONE_MODES or args.mode in INT8_MODES:
         args.batch = args.batch or 8
         step, batch = build_backbone(args.mode, args.batch)
     elif args.mode == "slowfast":
@@ -304,6 +401,9 @@ def main() -> None:
     if args.mode == "det-train":
         components = detection_components(args.batch)
         print(f"parts alone, forward + backward: {json.dumps(components)}")
+    if stages is not None:
+        components = {"stages_alone": stages()}
+        print(f"host stages alone, s: {json.dumps(components)}")
     print(json.dumps({
         "card": card, "mode": args.mode, "batch": args.batch,
         "step_ms": step_ms, "kernel_ms": busy_ms, **components,

@@ -20,6 +20,12 @@ JAX package's code and native kernel):
     detections = server.detect_video(v_feats, a_feats, feat_times, duration)
 
 ``DetectionServer.quantized`` builds the int8 static serving mode.
+
+Raw media in, detections out: ``detect_video_frames`` (the unique frames
+of a video, one clip table per visual backbone, spectrograms; the frame
+bank deduplicated on the card, ``extract/dense_media.py``) and
+``detect_video_media`` (a preprocessed clip per timestep through given
+extractors) run the backbones and then ``detect_video``.
 """
 
 from __future__ import annotations
@@ -331,6 +337,151 @@ class DetectionServer:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _extract(self, inputs: np.ndarray, extractor,
+                 batch: int) -> np.ndarray:
+        """[T, D] fp32 features of every timestep's input through
+        ``extractor`` (batched, the last batch padded), its batches sent
+        to ``extractor.device`` or, without one, to the server's device."""
+        from tim_tpu_torch.extract.pipeline import extract_features_for_video
+
+        if not hasattr(extractor, "device"):
+            extractor = _Placed(extractor, self.device)
+        return extract_features_for_video(
+            lambda t, a: inputs[t], len(inputs), 1, extractor,
+            batch_size=batch)[:, 0]
+
+    # ------------------------------------------------------------------
+    def detect_video_media(
+        self,
+        video_clips: Optional[np.ndarray],   # [T, ...] raw clip per step
+        audio_specs: Optional[np.ndarray],   # [T, ...] spectrogram per step
+        feat_times: np.ndarray,              # [T, >=2]
+        duration: float,
+        *,
+        visual_extractor=None,               # [B, ...] -> [B, Dv]
+        audio_extractor=None,                # [B, ...] -> [B, Da]
+        extract_batch: int = 8,
+        **detect_kwargs,
+    ) -> Dict[str, np.ndarray]:
+        """Raw-media serving: run the extractors over every feature
+        timestep, then ``detect_video`` over the resulting banks (the
+        reference's three offline programs as one call). Extractors are
+        callables on batched tensors (e.g. ``extract.cli.make_visual_apply``
+        / ``make_audio_apply``, a backbone, or a fused pipeline's
+        ``extract_visual``); a batch goes to the extractor's ``device``
+        attribute, else to the server's device. Each timestep's clip or
+        spectrogram is already preprocessed."""
+        v_feats = a_feats = None
+        if video_clips is not None:
+            if visual_extractor is None:
+                raise ValueError("video clips given without a "
+                                 "visual_extractor")
+            v_feats = self._extract(video_clips, visual_extractor,
+                                    extract_batch)
+        if audio_specs is not None:
+            if audio_extractor is None:
+                raise ValueError("audio spectrograms given without an "
+                                 "audio_extractor")
+            a_feats = self._extract(audio_specs, audio_extractor,
+                                    extract_batch)
+        return self.detect_video(v_feats, a_feats, feat_times, duration,
+                                 **detect_kwargs)
+
+    # ------------------------------------------------------------------
+    def detect_video_frames(
+        self,
+        frames: np.ndarray,                  # [Nf, H, W, 3] unique frames
+        clip_frames,                         # [T, F] frame idx per timestep
+        feat_times: np.ndarray,              # [T, >=2]
+        duration: float,
+        *,
+        visual_model,                        # nn.Module or sequence
+        audio_specs: Optional[np.ndarray] = None,
+        audio_extractor=None,
+        extract_batch: int = 8,
+        mode: str = "auto",
+        tubelet: int = 2,
+        frame_transform=None,                # on the card, after gather
+        **detect_kwargs,
+    ) -> Dict[str, np.ndarray]:
+        """Overlap-aware raw-media serving: ``detect_video_media`` without
+        its redundant uploads and embeds. Each unique frame crosses to the
+        card once, clips are gathered there, and with ``pair_embed`` each
+        unique frame pair is patch-embedded once
+        (``extract/dense_media.py``; exact). ``clip_frames`` holds 0-based
+        row indices into ``frames``: rebase 1-based sampler output such as
+        ``omnivore_frame_indices`` rows with ``table - 1``, one origin for
+        every backbone. An empty table or an index out of range raises
+        ``ValueError``.
+
+        ``visual_model``: a backbone module (it owns its weights, so the
+        JAX method's ``visual_variables`` is gone), or a sequence of them
+        with one frame table each in ``clip_frames`` (the production EPIC
+        features are Omnivore 1024 ‖ VideoMAE 1024 concatenated in list
+        order, ``merge_features.py:80-83``). ``mode``: ``stream`` for
+        ``auto`` (per-batch mini-banks whose uploads overlap the previous
+        batch's compute), or ``gather``, ``pair_embed``, ``naive``.
+
+        Ship ``frames`` as uint8 with
+        ``frame_transform=dense_media.uint8_normalizer()`` to quarter the
+        host -> card bytes against fp32; the normalization runs on the
+        card after the gather. ``audio_specs`` go through
+        ``audio_extractor`` as in ``detect_video_media``; the rest of the
+        keywords go to ``detect_video``."""
+        from tim_tpu_torch.extract.dense_media import (
+            build_clip_plan, extract_dense_visual)
+
+        models = (list(visual_model)
+                  if isinstance(visual_model, (list, tuple))
+                  else [visual_model])
+        tables = (list(clip_frames)
+                  if isinstance(clip_frames, (list, tuple))
+                  else [clip_frames] * len(models))
+        if len(models) != len(tables):
+            raise ValueError(f"visual_model/clip_frames lengths differ: "
+                             f"{len(models)}/{len(tables)}")
+
+        parts = []
+        for m, table in zip(models, tables):
+            table = np.asarray(table)
+            if table.size == 0:
+                raise ValueError(f"clip_frames table of shape {table.shape} "
+                                 f"is empty: one row of frame indices per "
+                                 f"feature timestep is needed")
+            if table.min() < 0 or table.max() >= len(frames):
+                raise ValueError(
+                    f"clip_frames must be 0-based indices into frames "
+                    f"[0, {len(frames)}); got range "
+                    f"[{table.min()}, {table.max()}] — rebase 1-based "
+                    f"sampler rows with `table - 1` (one shared origin "
+                    f"for all backbones)")
+            plan = build_clip_plan(table, tubelet=tubelet)
+            rows = plan.unique_frames
+            # skip the fancy-index host copy when the table already
+            # touches every frame
+            bank = (frames if len(rows) == len(frames)
+                    and np.array_equal(rows, np.arange(len(frames)))
+                    else frames[rows])
+            parts.append(extract_dense_visual(
+                m, bank, plan, batch_size=extract_batch,
+                mode="stream" if mode == "auto" else mode,
+                frame_transform=frame_transform).float().numpy())
+        if len({len(p) for p in parts}) > 1:
+            raise ValueError(
+                f"backbone frame tables produced different timestep "
+                f"counts: {[len(p) for p in parts]}")
+        v_feats = (parts[0] if len(parts) == 1
+                   else np.concatenate(parts, axis=-1))
+        a_feats = None
+        if audio_specs is not None:
+            if audio_extractor is None:
+                raise ValueError("audio spectrograms given without an "
+                                 "audio_extractor")
+            a_feats = self._extract(audio_specs, audio_extractor,
+                                    extract_batch)
+        return self.detect_video(v_feats, a_feats, feat_times, duration,
+                                 **detect_kwargs)
+
     # ------------------------------------------------------------------
     def detect_video(
         self,
@@ -407,3 +558,14 @@ class DetectionServer:
         d = dets["__video__"]
         return {"segments": d["segments"], "scores": d["scores"],
                 "labels": d["labels"]}
+
+
+class _Placed:
+    """An extractor without a ``device`` attribute, given one: where
+    ``extract_features_for_video`` sends its batches."""
+
+    def __init__(self, fn, device: torch.device):
+        self.fn, self.device = fn, device
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
