@@ -184,6 +184,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
         CPU: labels equal, segments and scores within SLICE_TOL;
      d. ``DetectionServer.quantized`` (fused heads) with the int8
         backbones over the 40 s video: kernel 3 twice a batch.
+ 22. the backbone finetune CLI (``extract/finetune_cli.py::run``) at ViT-L's
+     full width (depth 24, 16 x 224^2, 97 / 300 classes), bf16, batch 8, on
+     24 segments of seeded uint8 256 x 456 frames with ``dict`` annotations
+     and identity RandAugment (no PIL, cv2 or pandas on the card's
+     machine): ``--mode pretrain`` (MAE, mask 0.9, 3 steps; 36 launches of
+     kernels 5 and 5b a step), then ``--mode finetune --pretrained`` on its
+     ``checkpoint.pt`` (every ``blocks.*`` entry loads; num_sample 2, mixup
+     0.8, 3 steps: 24 and 24 a step) and its validation (24 of kernel 5 a
+     batch): per step the host's data and the step's seconds
+     (``PhaseTimer``), clips/s, peak memory; then the finetune CLI in fp32
+     at depth 2, one step of 2 segments, card vs CPU: metrics within 1e-4
+     relative, every gradient within 1e-4 of its largest;
+ 23. the data-parallel path (``parallel.multihost``, ``parallel.mesh``): a
+     process group of one rank over NCCL, ``cli.run`` ``--train`` (3
+     banked steps of 64 and 2 validation batches) and ``--extract_feats``
+     for detection (top-8) and recognition on phase 16's and 17's splits,
+     each bit-equal to the same runs without a process group (statistics,
+     every parameter, every dump column); collective calls per train step
+     (not 0); kernel 1 six / four times a batch. The machine has one card:
+     two ranks run in the CPU tests only.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -3363,7 +3383,8 @@ def phase_rec_resume(runner, train_ds):
 
 def phase_recognition(gen):
     """Phase 17; returns (kernel 1's recognition report, launches by
-    path, (the validation split, the trained state dict on the CPU))."""
+    path, (the train and validation splits, the trained state dict on the
+    CPU))."""
     from tim_tpu_torch import config as C
     cfg = C.epic_recognition()
     rng = np.random.default_rng(SEED + 4)
@@ -3404,7 +3425,7 @@ def phase_recognition(gen):
                     "serve-rec-int8": serve_launches["serve-rec-int8"],
                     "serve-rec-fused": serve_launches["serve-rec-fused"],
                     "rec-train": train_launches,
-                    "rec-val": val_launches}, (val_ds, trained)
+                    "rec-val": val_launches}, (train_ds, val_ds, trained)
 
 
 # Phase 18: the detection mAP chain on phase 16's runner and validation
@@ -4529,6 +4550,417 @@ def phase_media(state_dict, batch2):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the backbone finetune CLI (``extract/finetune_cli.py``) at
+# ViT-L's full width (embed 1024, depth 24, 16 heads, 16 x 224^2, tubelet
+# 2; 97 verbs, 300 nouns), bf16, batch 8, on synthetic uint8 EPIC-sized
+# frames from a seeded reader and ``dict`` annotations (the card's machine
+# has no pandas, cv2 or PIL: identity RandAugment on the finetune clips).
+# ---------------------------------------------------------------------------
+FT_SEGMENTS = 24           # annotation rows: 3 steps of batch 8 a mode
+FT_BATCH = 8
+FT_FRAME_HW = (256, 456)   # EPIC-KITCHENS frames
+FT_PER_STEP = {"pretrain": 36, "finetune": 24}   # kernel 5 / 5b a step
+FT_METRIC_RTOL = 1e-4      # fp32 slice card vs CPU: the step's metrics
+FT_GRAD_TOL = 1e-4         # and every gradient, of each one's largest
+
+
+def ft_annotations(n, seed):
+    """``n`` EPIC-style segments of 4 videos as a ``dict`` of arrays."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, 400, n)
+    return {"video_id": np.asarray([f"P01_{i % 4:02d}" for i in range(n)]),
+            "start_frame": start,
+            "stop_frame": start + rng.integers(20, 120, n),
+            "verb_class": rng.integers(0, 97, n),
+            "noun_class": rng.integers(0, 300, n)}
+
+
+def ft_reader(video_id, indices, offset):
+    """Seeded uint8 frames [T, 256, 456, 3], a function of the video, the
+    frame and the segment's offset (the reader ``jpeg_frame_reader``
+    stands for)."""
+    h, w = FT_FRAME_HW
+    vid = int(video_id.rsplit("_", 1)[1])
+    return np.stack([np.random.default_rng([vid, int(i) + int(offset)])
+                     .integers(0, 256, (h, w, 3), np.uint8)
+                     for i in indices])
+
+
+def ft_args(mode, out, *extra):
+    from tim_tpu_torch.extract import finetune_cli
+    return finetune_cli.build_parser().parse_args(
+        ["--mode", mode, "--anno_train", "unused.csv", "--data_path",
+         "unused", "--output_dir", str(out), "--epochs", "1",
+         "--warmup_epochs", "0", "--batch_size", str(FT_BATCH),
+         "--seed", str(SEED), *extra])
+
+
+def ft_datasets(args, n, seed=SEED + 7):
+    from tim_tpu_torch.extract import finetune_cli
+    return finetune_cli.datasets(
+        args, ft_annotations(n, seed), None, ft_reader,
+        rand_augment=finetune_cli.identity_augment)
+
+
+class StepClock:
+    """Per-step phase times of a backbone runner: ``runner.backbone.
+    _batches`` wrapped so that each fetch is timed (``PhaseTimer``: data =
+    the host making a batch of clips, net = the step, read at the next
+    fetch after a synchronize)."""
+
+    def __init__(self):
+        from tim_tpu_torch.runner import backbone as rb
+        from tim_tpu_torch.utils.logging import PhaseTimer
+        self.module, self.orig = rb, rb._batches
+        self.timer, self.steps = PhaseTimer(), []
+
+    def __enter__(self):
+        orig, timer, steps = self.orig, self.timer, self.steps
+
+        def batches(*a, **kw):
+            it = orig(*a, **kw)
+            timer.iter_tic()
+            while True:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                timer.data_toc()
+                yield batch
+                torch.cuda.synchronize()
+                timer.net_toc()
+                timer.iter_toc()
+                steps.append((timer.data_time, timer.net_time,
+                              timer.iter_time))
+                timer.iter_tic()
+
+        self.module._batches = batches
+        return self
+
+    def __exit__(self, *exc):
+        self.module._batches = self.orig
+
+
+def ft_cli_run(tag, mode, args, train_ds, val_ds):
+    """``finetune_cli.run`` on the card, every count set to 0 just before
+    and read just after; the train steps' phase times and peak memory.
+    Returns (stats, launches, step times, seconds)."""
+    from tim_tpu_torch.extract import finetune_cli
+    from tim_tpu_torch.utils.memory import memory_summary
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counts()
+    t0 = time.perf_counter()
+    with StepClock() as clock:
+        stats = finetune_cli.run(args, train_ds, val_ds, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts(counters)
+    steps = clock.steps
+    train_steps = len(train_ds) // FT_BATCH
+    val_batches = 0 if val_ds is None else -(-len(val_ds) // FT_BATCH)
+    clips = FT_BATCH * (2 if mode == "finetune" else 1)
+    last = steps[train_steps - 1]
+    log(f"[{tag}] finetune_cli.run --mode {mode}: {secs:.3f} s; "
+        f"{train_steps} steps of {clips} clips ({FT_BATCH} segments), per "
+        f"step data / net / wall s "
+        f"{[tuple(round(x, 4) for x in s) for s in steps[:train_steps]]}; "
+        f"last step {last[2]:.3f} s, {clips / last[2]:.2f} wall clips/s, "
+        f"host share {last[0] / last[2]:.3f}; {memory_summary('cuda')}; "
+        f"peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; stats "
+        f"{json.dumps(stats)}; launches {launches}")
+    per = FT_PER_STEP[mode]
+    require(launches["flash_mha"] == per * train_steps
+            + args.depth * val_batches
+            and launches["flash_mha_bwd"] == per * train_steps
+            and launches["window_attention"] == 0
+            and launches["query_block_attention"] == 0,
+            f"{tag}: launches {launches}, expected {per} of kernels 5 and 5b "
+            f"a step ({train_steps} steps) and 24 of kernel 5 a validation "
+            f"batch ({val_batches})")
+    require(all(np.isfinite(float(v)) for v in stats.values()),
+            f"{tag}: non-finite statistics {stats}")
+    return stats, launches, {
+        "steps": train_steps, "clips_per_step": clips,
+        "step_s": [s[2] for s in steps[:train_steps]],
+        "data_s": [s[0] for s in steps[:train_steps]],
+        "net_s": [s[1] for s in steps[:train_steps]],
+        "wall_clips_per_s": clips / last[2],
+        "host_share": last[0] / last[2], "seconds": secs,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches_per_step": {
+            "flash_mha": (launches["flash_mha"] - args.depth * val_batches)
+            / train_steps,
+            "flash_mha_bwd": launches["flash_mha_bwd"] / train_steps}}
+
+
+def ft_cli_slice_fp32(out):
+    """The finetune CLI in fp32 at reduced depth (2 blocks, one step of 2
+    segments, mixup on): the step's metrics and every gradient, card
+    (kernels 5 and 5b) against the CPU (plain versions)."""
+    from tim_tpu_torch.extract import finetune_cli
+    from tim_tpu_torch.runner import backbone as rb
+    from tim_tpu_torch.train.state import TrainState
+    results = {}
+    for device in ("cuda", "cpu"):
+        args = ft_args("finetune", out / f"slice-{device}", "--depth", "2",
+                       "--batch_size", "2", "--num_sample", "1",
+                       "--compute_dtype", "float32")
+        train_ds, val_ds = ft_datasets(args, 2)
+        seen = {}
+        apply, fit = TrainState.apply_gradients, rb.BackboneFinetuneRunner.fit
+
+        def capture(state, *a, **kw):
+            seen["grads"] = {n: p.grad.detach().float().cpu().clone()
+                             for n, p in state.model.named_parameters()}
+            return apply(state, *a, **kw)
+
+        def fit_capture(runner):
+            seen["metrics"] = fit(runner)
+            return seen["metrics"]
+
+        TrainState.apply_gradients = capture
+        rb.BackboneFinetuneRunner.fit = fit_capture
+        try:
+            t0 = time.perf_counter()
+            finetune_cli.run(args, train_ds, val_ds, device=device)
+            seen["seconds"] = time.perf_counter() - t0
+        finally:
+            TrainState.apply_gradients = apply
+            rb.BackboneFinetuneRunner.fit = fit
+        results[device] = seen
+    card, cpu = results["cuda"], results["cpu"]
+    for k, want in cpu["metrics"].items():
+        got = card["metrics"][k]
+        require(abs(got - want) <= FT_METRIC_RTOL * max(abs(want), 1e-30),
+                f"ft-cli-slice: {k} card {got} vs CPU {want}")
+    worst, worst_name = 0.0, ""
+    for name, want in cpu["grads"].items():
+        got = card["grads"][name]
+        require(bool(torch.isfinite(got).all()), f"ft-cli-slice {name}")
+        rel = max_err(got, want) / max(want.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"[ft-cli-slice] fp32, depth 2, one step: metrics card "
+        f"{json.dumps(card['metrics'])}, CPU {json.dumps(cpu['metrics'])}; "
+        f"{len(cpu['grads'])} gradients within {worst:.3e} of each one's "
+        f"largest (worst {worst_name}; tol {FT_GRAD_TOL}); CPU run "
+        f"{cpu['seconds']:.2f} s, card {card['seconds']:.2f} s")
+    require(worst <= FT_GRAD_TOL, f"ft-cli-slice: gradient {worst_name} "
+            f"card vs CPU {worst} of its largest > {FT_GRAD_TOL}")
+    return worst
+
+
+def phase_finetune_cli():
+    """Phase 22: MAE pretraining through the CLI (mask 0.9), then the
+    finetune mode warm-started from its ``checkpoint.pt`` (num_sample 2,
+    mixup 0.8) and its validation; then the fp32 slice card vs CPU."""
+    import pathlib
+    import tempfile
+    from tim_tpu_torch.extract import finetune_cli
+    from tim_tpu_torch.models.backbones.vit import VideoMAEViT
+    log("[ft-cli] train clips take identity RandAugment: the card's machine "
+        "has no PIL (VideoRandAugment); frames are seeded uint8 arrays "
+        f"{FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (no cv2 to decode JPEGs)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        args = ft_args("pretrain", tmp / "pre", "--mask_ratio", "0.9")
+        train_ds, _ = ft_datasets(args, FT_SEGMENTS)
+        pre_stats, pre_l, pre_m = timed(
+            "ft-cli-pretrain", ft_cli_run, "ft-cli-pretrain", "pretrain",
+            args, train_ds, None)
+        path = str(tmp / "pre" / "checkpoint.pt")
+        trunk = VideoMAEViT(device="cpu")
+        params, missing = finetune_cli.load_pretrained_encoder(path, trunk)
+        total = len(trunk.state_dict())
+        blocks = [k for k in trunk.state_dict() if k.startswith("blocks.")]
+        require(all(k in params for k in blocks)
+                and missing == ["fc_norm.weight", "fc_norm.bias"],
+                f"ft-cli: the pretrained encoder misses {missing}")
+        log(f"[ft-cli] --pretrained {path}: {total - len(missing)} of "
+            f"{total} trunk entries load ({len(blocks)} of blocks.*), "
+            f"missing {missing}")
+        del trunk, params
+        args = ft_args("finetune", tmp / "ft", "--pretrained", path,
+                       "--num_sample", "2", "--mixup", "0.8")
+        train_ds, val_ds = ft_datasets(args, FT_SEGMENTS)
+        ft_stats, ft_l, ft_m = timed(
+            "ft-cli-finetune", ft_cli_run, "ft-cli-finetune", "finetune",
+            args, train_ds, val_ds)
+        require(sorted(ft_stats) == ["noun_top1", "verb_top1"],
+                f"ft-cli-finetune: statistics {ft_stats}")
+        worst = timed("ft-cli-slice-fp32", ft_cli_slice_fp32, tmp)
+    summary = {"pretrain": pre_m, "finetune": ft_m,
+               "encoder_entries_loaded": total - len(missing),
+               "slice_fp32_worst_grad": worst}
+    log(f"[ft-cli] summary {json.dumps(summary)}")
+    return {"ft-cli-pretrain": pre_l, "ft-cli-finetune": ft_l}
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the data-parallel path on the card: a process group of one
+# rank over NCCL (the machine has one card; two ranks run in the CPU tests,
+# tests/test_torch_parallel.py), ``cli.run`` --train (3 steps) with its
+# validation and the dump, detection and recognition, each bit-equal to
+# the same run without a process group.
+# ---------------------------------------------------------------------------
+DP_STEPS, DP_VAL_BATCHES = 3, 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class StepCollectives:
+    """The collective calls between consecutive optimizer updates (a
+    train step's), read at each ``TrainState.apply_gradients``."""
+
+    def __init__(self):
+        from tim_tpu_torch.parallel import multihost
+        from tim_tpu_torch.train.state import TrainState
+        self.multihost, self.cls = multihost, TrainState
+        self.apply, self.marks = TrainState.apply_gradients, []
+
+    def __enter__(self):
+        apply, marks, mh = self.apply, self.marks, self.multihost
+
+        def counted(state, *a, **kw):
+            marks.append(mh.collective.calls)
+            return apply(state, *a, **kw)
+
+        self.cls.apply_gradients = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply_gradients = self.apply
+
+    def per_step(self):
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def dp_runs(variant, train_ds, val_ds, out):
+    """``--train`` one epoch, then ``--extract_feats`` resumed from its
+    checkpoint (detection: top-8). Returns (train statistics, parameters,
+    dump, launches by run, collectives: total and per step)."""
+    from tim_tpu_torch.parallel import multihost
+    extra = ["--extract_top_k", str(CLI_TOPK)] if variant == "detection" \
+        else []
+    tag = f"dp-{variant[:3]}"
+    multihost.collective.calls = 0
+    with StepCollectives() as steps:
+        stats, l_train, s_train = cli_run(
+            f"{tag}-train", cli_args(variant, out, "--train",
+                                     "--finetune_epochs", "1"),
+            train_ds, val_ds)
+    train_calls = multihost.collective.calls
+    payload = torch.load(out / "checkpoint.pt", map_location="cpu",
+                         weights_only=True)
+    multihost.collective.calls = 0
+    dump, l_dump, s_dump = cli_run(
+        f"{tag}-dump", cli_args(variant, out, "--extract_feats", "--resume",
+                                str(out), *extra), None, val_ds)
+    return (stats, payload["params"], dump,
+            {f"{tag}-train": l_train, f"{tag}-dump": l_dump},
+            {"train": train_calls, "per_step": steps.per_step(),
+             "updates": len(steps.marks), "dump": multihost.collective.calls,
+             "seconds": (s_train, s_dump)})
+
+
+def dp_equal(tag, got, want):
+    """Bit-equality of two runs' statistics, parameters and dumps."""
+    g_stats, g_params, g_dump = got[:3]
+    w_stats, w_params, w_dump = want[:3]
+    require(g_stats == w_stats, f"{tag}: statistics {g_stats} vs "
+            f"{w_stats}")
+    require(sorted(g_params) == sorted(w_params) and all(
+        torch.equal(g_params[k], w_params[k]) for k in w_params),
+        f"{tag}: parameters differ")
+    require(sorted(g_dump) == sorted(w_dump), f"{tag}: dump keys differ")
+    for k, w in w_dump.items():
+        g = g_dump[k]
+        same = (g == w if isinstance(w, list)
+                else np.array_equal(np.asarray(g), np.asarray(w)))
+        require(same, f"{tag}: dump column {k} differs")
+
+
+def phase_data_parallel(det_splits, rec_splits):
+    """Phase 23; returns the launches by path."""
+    import pathlib
+    import tempfile
+    from tim_tpu_torch.parallel import multihost
+    det_train, det_val = det_splits
+    rec_train, rec_val = rec_splits
+    splits = {
+        "detection": (
+            epic_detection_split(det_subset(det_train, DP_STEPS * DET_BATCH),
+                                 True),
+            epic_detection_split(det_subset(det_val,
+                                            DP_VAL_BATCHES * DET_BATCH),
+                                 False)),
+        "recognition": (det_subset(rec_train, DP_STEPS * REC_BATCH),
+                        det_subset(rec_val, DP_VAL_BATCHES * REC_BATCH))}
+    paths, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for variant, (train_ds, val_ds) in splits.items():
+            (tmp / variant / "plain").mkdir(parents=True)
+            (tmp / variant / "group").mkdir(parents=True)
+            plain = dp_runs(variant, train_ds, val_ds, tmp / variant / "plain")
+            require(plain[4]["train"] == 0 and plain[4]["dump"] == 0,
+                    f"dp-{variant}: collectives without a process group")
+            t0 = time.perf_counter()
+            multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                                 single=True)
+            init_s = time.perf_counter() - t0
+            try:
+                require(torch.distributed.get_backend() == "nccl",
+                        f"dp-{variant}: backend "
+                        f"{torch.distributed.get_backend()}")
+                grouped = dp_runs(variant, train_ds, val_ds,
+                                  tmp / variant / "group")
+            finally:
+                multihost.finalize()
+            dp_equal(f"dp-{variant}", grouped, plain)
+            calls = grouped[4]
+            require(plain[4]["updates"] == calls["updates"] == DP_STEPS,
+                    f"dp-{variant}: {calls['updates']} optimizer updates, "
+                    f"expected {DP_STEPS}")
+            require(calls["per_step"] and min(calls["per_step"]) > 0,
+                    f"dp-{variant}: no collective in a train step "
+                    f"({calls})")
+            paths.update(grouped[3])
+            summary[variant] = {
+                "steps": len(train_ds) // (DET_BATCH if variant == "detection"
+                                           else REC_BATCH),
+                "collectives_per_step": calls["per_step"],
+                "collectives_train_run": calls["train"],
+                "collectives_dump": calls["dump"],
+                "nccl_init_s": init_s,
+                "seconds_plain": plain[4]["seconds"],
+                "seconds_nccl": calls["seconds"]}
+            log(f"[dp-{variant}] one-rank NCCL group (init {init_s:.3f} s): "
+                f"--train and the dump bit-equal to the runs without a "
+                f"group (statistics, every parameter, every dump column); "
+                f"collectives per step {calls['per_step']}, the train run "
+                f"{calls['train']}, the dump {calls['dump']}; seconds "
+                f"plain {plain[4]['seconds']}, NCCL {calls['seconds']}")
+    log("[dp] one card on this machine: two ranks run only in the CPU "
+        "tests (tests/test_torch_parallel.py, gloo)")
+    log(f"[dp] summary {json.dumps(summary)}")
+    for variant, per_batch in (("det", 6), ("rec", 4)):
+        for run in ("train", "dump"):
+            launches = paths[f"dp-{variant}-{run}"]
+            require(launches["query_block_attention"] > 0
+                    and launches["query_block_attention"] % per_batch == 0,
+                    f"dp-{variant}-{run}: kernel 1 launches {launches}")
+    return paths
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -4633,21 +5065,29 @@ def main() -> int:
         torch.Generator(device="cuda").manual_seed(SEED + 1))
     kernel_report.update(training_report)
     detection_paths, det_splits = phase_detection_training()
-    rec_report, recognition_paths, (rec_val_ds, rec_trained) = \
+    rec_report, recognition_paths, (rec_train_ds, rec_val_ds,
+                                    rec_trained) = \
         phase_recognition(torch.Generator(device="cuda").manual_seed(SEED + 2))
     kernel_report["query_block_attention"]["recognition"] = rec_report
     cli_paths = phase_cli_and_gate(det_splits, rec_val_ds, rec_trained)
-    del det_splits, rec_val_ds, rec_trained
+    dp_paths = timed("data-parallel", phase_data_parallel, det_splits,
+                     (rec_train_ds, rec_val_ds))
+    del det_splits, rec_train_ds, rec_val_ds, rec_trained
     audio_paths = phase_audio()
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
+    torch.cuda.empty_cache()
+    ft_cli_paths = timed("finetune-cli", phase_finetune_cli)
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
-               **cli_paths, **audio_paths, **media_paths}
+               **cli_paths, **dp_paths, **audio_paths, **media_paths,
+               **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
-                 "cli-rec-dump", "gate-detection", "gate-recognition"):
+                 "cli-rec-dump", "gate-detection", "gate-recognition",
+                 "dp-det-train", "dp-det-dump", "dp-rec-train",
+                 "dp-rec-dump"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
     require(by_path["gate-detection"]["int8_matmul_fused"] > 0,
@@ -4662,7 +5102,9 @@ def main() -> int:
             ("media-int8", ("window_attention", "flash_mha",
                             "int8_matmul_fused")),
             ("extract-omnivore-int8", ("window_attention",)),
-            ("extract-videomae-int8", ("flash_mha",))):
+            ("extract-videomae-int8", ("flash_mha",)),
+            ("ft-cli-pretrain", ("flash_mha", "flash_mha_bwd")),
+            ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")

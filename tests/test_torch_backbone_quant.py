@@ -194,7 +194,25 @@ def test_calibrated_static_forward_matches_jax(setups, which, monkeypatch):
     assert _rel(got, fp32) < 0.12        # JAX's static int8 contract
 
 
-def test_scale_tuple_missing_a_layer_warns_and_stays_dynamic(setups, caplog):
+@pytest.fixture()
+def quant_logs(caplog):
+    """caplog's handler on both packages' quant loggers, each record
+    once: a runner built earlier in this process stops the packages'
+    loggers from propagating to the root (``setup_logging``)."""
+    loggers = [logging.getLogger(m.__name__) for m in (pquant, jquant)]
+    saved = [lg.propagate for lg in loggers]
+    for lg in loggers:
+        lg.addHandler(caplog.handler)
+        lg.propagate = False
+    yield caplog
+    for lg, propagate in zip(loggers, saved):
+        lg.removeHandler(caplog.handler)
+        lg.propagate = propagate
+
+
+def test_scale_tuple_missing_a_layer_warns_and_stays_dynamic(setups,
+                                                             quant_logs):
+    caplog = quant_logs
     s = setups["vit"]
     q = s["pcls"](**s["kw"], device="cpu", quantized=True)
     q.load_state_dict(s["qsd"], strict=True)

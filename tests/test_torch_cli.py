@@ -198,10 +198,19 @@ def test_train_writes_a_checkpoint_that_resume_restores(
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num_shards", "2"], ["--mesh_data", "2"], ["--mesh_model", "2"],
-    ["--sequence_parallel", "true"]])
+    ["--mesh_data", "3"], ["--num_shards", "2", "--shard_id", "2"],
+    ["--mesh_model", "2"], ["--sequence_parallel", "true"]])
 def test_multi_gpu_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Tensor and sequence parallelism are not ported: they raise
+    ``NotImplementedError`` naming the ROADMAP item. A data axis other than
+    -1 or ``--num_shards``, or a shard id outside ``[0, num_shards)``, does
+    not fit one process per card: ``ValueError``. (``--num_shards 2`` and
+    ``--mesh_data 2`` run: ``tests/test_torch_parallel.py``.)"""
+    if flags[0] in ("--mesh_model", "--sequence_parallel"):
+        error, match = NotImplementedError, "item 8"
+    else:
+        error, match = ValueError, "one process per card|shard_id"
+    with pytest.raises(error, match=match):
         pcli.main(["--validate", "--output_dir", str(tmp_path)] + flags,
                   device="cpu")
 

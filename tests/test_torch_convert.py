@@ -177,7 +177,10 @@ def test_serve_imports_no_jax():
                    "models.backbones.slowfast", "extract.audio",
                    "extract.spec_warp", "extract.augment",
                    "extract.autoaug", "extract.dense_media",
-                   "extract.media", "extract.tables", "models.fused"):
+                   "extract.media", "extract.tables", "models.fused",
+                   "extract.clips", "extract.finetune_cli", "parallel",
+                   "parallel.mesh", "parallel.multihost", "utils.memory",
+                   "utils.profiling"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -294,3 +297,23 @@ def test_schedule_and_logging_copies_equal_jax(tmp_path):
     lines = [(tmp_path / n / "stdout.log").read_text().split("] ", 1)[1]
              for n in ("port_copy", "jax_original")]
     assert lines[0] == lines[1] == 'json_stats: {"a": 0.5, "b": 2}\n'
+
+
+def test_clips_and_phase_timer_copies_equal_jax():
+    """``extract/clips.py``'s constants and index samplers and
+    ``utils/logging.py::PhaseTimer`` are copies of the JAX package's."""
+    import inspect
+
+    from tim_tpu.extract import clips as jclips
+    from tim_tpu.utils import logging as jlog
+    from tim_tpu_torch.extract import clips as pclips
+    from tim_tpu_torch.utils import logging as plog
+    for name in ("IMAGENET_MEAN", "IMAGENET_STD"):
+        np.testing.assert_array_equal(getattr(pclips, name),
+                                      getattr(jclips, name))
+    for name in ("sample_train_indices", "sample_val_indices",
+                 "sample_test_indices", "normalize", "center_crop"):
+        assert (inspect.getsource(getattr(pclips, name))
+                == inspect.getsource(getattr(jclips, name))), name
+    assert inspect.getsource(plog.PhaseTimer) == \
+        inspect.getsource(jlog.PhaseTimer)

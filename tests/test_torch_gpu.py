@@ -1011,3 +1011,106 @@ def test_quantized_small_vit_on_the_card_matches_the_cpu(gen):
     spread = ((up - want).abs().max() / scale).item()
     err = ((got - want).abs().max() / scale).item()
     assert err <= max(1e-3, ULP_ENVELOPE * spread), (err, spread)
+
+
+def _tiny_finetune_args(mode, out, *extra):
+    """The finetune CLI's flags for a small ViT whose head dim kernel 5
+    takes (64)."""
+    from tim_tpu_torch.extract import finetune_cli
+    return finetune_cli.build_parser().parse_args(
+        ["--mode", mode, "--anno_train", "x.csv", "--data_path", "x",
+         "--output_dir", str(out), "--input_size", "32", "--patch_size",
+         "8", "--embed_dim", "128", "--depth", "2", "--num_heads", "2",
+         "--num_frames", "4", "--epochs", "1", "--warmup_epochs", "0", "--batch_size", "2",
+         *extra])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["pretrain", "finetune"])
+def test_finetune_cli_on_the_card_launches_kernels_5_and_5b(gen, tmp_path,
+                                                             mode):
+    """``finetune_cli.run`` on the card: kernel 5 and its backward once a
+    block a step (the MAE's 12 decoder blocks too), kernel 5 once a block
+    a validation batch; finite statistics and a checkpoint."""
+    import inspect
+    from chip_smoke import ft_annotations, ft_reader
+    from tim_tpu_torch.extract import finetune_cli
+    from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+    args = _tiny_finetune_args(mode, tmp_path)
+    train_ds, val_ds = finetune_cli.datasets(
+        args, ft_annotations(6, 0), None, ft_reader,
+        rand_augment=finetune_cli.identity_augment)
+    stats, launches = _det_launches(
+        lambda: finetune_cli.run(args, train_ds, val_ds))
+    steps = 3
+    blocks = args.depth
+    if mode == "pretrain":
+        blocks += inspect.signature(PretrainVideoMAE).parameters[
+            "decoder_depth"].default
+    val = 0 if val_ds is None else 3 * args.depth
+    assert launches["flash_mha"] == blocks * steps + val
+    assert launches["flash_mha_bwd"] == blocks * steps
+    assert all(np.isfinite(v) for v in stats.values())
+    assert (tmp_path / "checkpoint.pt").exists()
+
+
+@pytest.mark.gpu
+def test_finetune_cli_refuses_plain_attention_on_the_card(gen, tmp_path):
+    from tim_tpu_torch.extract import finetune_cli
+    args = _tiny_finetune_args("finetune", tmp_path, "--flash_attention",
+                               "off")
+    with pytest.raises(ValueError, match="kernel 5"):
+        finetune_cli.run(args, None, None)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_group_leaves_a_detection_run_bit_equal(gen):
+    """Through the data-parallel path (collectives over NCCL) with one
+    rank: one epoch, validation and the top-2 dump bit-equal to the run
+    without a group."""
+    import socket
+    from chip_smoke import det_split
+    from tim_tpu_torch.parallel import multihost
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    cfg = _det_cfg()
+    rng = np.random.default_rng(0)
+    train_ds, val_ds = (det_split(cfg, 1, rng, seconds=40.0)
+                        for _ in range(2))
+
+    def run():
+        runner = DetectionRunner(cfg, C.TrainConfig(batch_size=4, epochs=1),
+                                 train_ds, val_ds, print_freq=1000,
+                                 use_device_bank=True)
+        runner.init_state()
+        runner.train_epoch(0)
+        stats = runner.validate()
+        dump = runner.extract_dense_predictions(top_k=2)
+        return stats, {k: v.cpu() for k, v in
+                       runner.model.state_dict().items()}, dump
+
+    want = run()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.collective.calls = 0
+    multihost.initialize(f"localhost:{port}", 1, 0, single=True)
+    try:
+        got = run()
+        calls = multihost.collective.calls
+    finally:
+        multihost.finalize()
+    assert calls > 0
+    assert got[0] == want[0]
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+    for k, v in want[2].items():
+        np.testing.assert_array_equal(got[2][k], v, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_device_memory_on_the_card(gen):
+    from tim_tpu_torch.utils.memory import device_memory_gb, memory_summary
+    x = torch.ones(1 << 20, device="cuda")
+    mem = device_memory_gb()
+    assert sorted(mem) == ["in_use_gb", "limit_gb", "peak_gb"]
+    assert 0 < mem["in_use_gb"] <= mem["peak_gb"] < mem["limit_gb"]
+    assert " hbm " in memory_summary() and x.numel()

@@ -17,9 +17,20 @@ raises without one) or, when asked, on the CPU, and then trains
 ``val_features.pkl`` for recognition). ``--torch_checkpoint`` loads a
 released reference checkpoint strictly (the port uses its parameter
 names); ``--resume`` continues from a checkpoint ``--train`` wrote.
-Not ported yet (ROADMAP.md, item 8): several processes
-(``--num_shards > 1``), a device mesh (``--mesh_data`` or ``--mesh_model``
-other than their defaults) and ``--sequence_parallel true``; they raise
+
+Several processes, one card each (data parallelism):
+
+    python -m tim_tpu_torch.cli ... --num_shards 2 --shard_id 0 \
+        --init_method tcp://host0:29500     # and --shard_id 1 beside it
+
+``--num_shards > 1`` joins the process group at ``--init_method``
+(``tcp://host:port`` or ``host:port``) as rank ``--shard_id`` before the
+first device query (``parallel.multihost.initialize``: NCCL, each rank on
+card ``shard_id % device_count``; gloo for ``device="cpu"``); the runners
+then split every batch of ``--batch-size`` windows across the ranks.
+``--mesh_data`` takes -1 or ``--num_shards``. Not ported yet
+(``ROADMAP.md``, queue 1 item 8: tensor and sequence parallelism):
+``--mesh_model > 1`` and ``--sequence_parallel true`` raise
 ``NotImplementedError``.
 """
 
@@ -31,8 +42,7 @@ from pathlib import Path
 import numpy as np
 
 from tim_tpu_torch import config as C
-
-_ROADMAP = "ROADMAP.md, item 8: multi-GPU"
+from tim_tpu_torch.parallel.mesh import TENSOR_PARALLEL as _ROADMAP
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,16 +125,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--print-freq", "-p", dest="print_freq", type=int,
                    default=100)
     p.add_argument("--num_shards", type=int, default=1,
-                   help="total number of host processes (not ported: "
-                        "more than 1 raises)")
+                   help="total number of processes, one card each")
     p.add_argument("--shard_id", type=int, default=0,
                    help="this process's index in [0, num_shards)")
     p.add_argument("--init_method", default="tcp://localhost:9999",
                    help="coordinator address (tcp://host:port or "
                         "host:port)")
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="data-parallel mesh axis (-1: all devices; not "
-                        "ported: another value raises)")
+                   help="data-parallel mesh axis (-1 or --num_shards: one "
+                        "process per card)")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel mesh axis (not ported: another "
                         "value raises)")
@@ -151,19 +160,36 @@ def _str2bool(v):
 
 
 def check_supported(args) -> None:
-    """Raise for the multi-GPU options the port does not run yet."""
-    if args.num_shards > 1:
+    """Raise for the parallel options the port does not run:
+    ``NotImplementedError`` for tensor and sequence parallelism,
+    ``ValueError`` for a shard or data axis that does not fit
+    ``--num_shards`` (one process per card)."""
+    if args.mesh_model != 1:
         raise NotImplementedError(
-            f"--num_shards {args.num_shards}: several processes are not "
+            f"--mesh_model {args.mesh_model}: tensor parallelism is not "
             f"ported yet ({_ROADMAP})")
-    if args.mesh_data != -1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: "
-            f"a device mesh is not ported yet ({_ROADMAP})")
     if args.sequence_parallel:
         raise NotImplementedError(
             f"--sequence_parallel: sequence parallelism is not ported yet "
             f"({_ROADMAP})")
+    if args.num_shards < 1 or not 0 <= args.shard_id < args.num_shards:
+        raise ValueError(f"--shard_id {args.shard_id} outside [0, "
+                         f"--num_shards {args.num_shards})")
+    if args.mesh_data not in (-1, args.num_shards):
+        raise ValueError(
+            f"--mesh_data {args.mesh_data}: the port runs one process per "
+            f"card, so the data axis is -1 or --num_shards "
+            f"({args.num_shards})")
+
+
+def initialize(args, device=None) -> None:
+    """Join the process group of ``--num_shards`` processes (nothing for
+    one, or when this process has joined one already); NCCL unless
+    ``device`` is the CPU."""
+    from tim_tpu_torch.parallel import multihost
+    if args.num_shards > 1 and not multihost.initialized():
+        multihost.initialize(args.init_method, args.num_shards,
+                             args.shard_id, device=device)
 
 
 def configs_from_args(args):
@@ -320,8 +346,12 @@ def run(args, train_ds, val_ds, *, device=None):
     ``--torch_checkpoint`` and ``--resume`` loaded, then ``--train``
     (returns the last epoch's validation statistics), ``--validate``
     (prints and returns the statistics) or ``--extract_feats`` (writes the
-    dump into ``--output_dir`` and returns it)."""
+    dump into ``--output_dir`` and returns it). ``--num_shards > 1``: this
+    process is rank ``--shard_id`` (the group joined here unless it was
+    already); rank 0 prints and writes."""
+    from tim_tpu_torch.parallel import multihost
     check_supported(args)
+    initialize(args, device)
     detection = args.variant == "detection"
     mcfg, tcfg = configs_from_args(args)
     if detection:
@@ -329,6 +359,7 @@ def run(args, train_ds, val_ds, *, device=None):
     else:
         from tim_tpu_torch.runner.recognition import RecognitionRunner as cls
     runner = cls(mcfg, tcfg, train_ds, val_ds,
+                 mesh_cfg=C.MeshConfig(args.mesh_data, args.mesh_model),
                  output_dir=str(args.output_dir),
                  print_freq=args.print_freq,
                  use_device_bank=args.device_bank, device=device)
@@ -344,13 +375,15 @@ def run(args, train_ds, val_ds, *, device=None):
         return runner.fit(start_epoch=start_epoch)
     if args.validate:
         stats = runner.validate()
-        print(stats)
+        if multihost.is_master():
+            print(stats)
         return stats
     if args.extract_feats:
         if detection:
             dump = runner.extract_dense_predictions(
                 top_k=args.extract_top_k or None)
-            np.savez(args.output_dir / "dense_predictions.npz", **dump)
+            if multihost.is_master():
+                np.savez(args.output_dir / "dense_predictions.npz", **dump)
             return dump
         return runner.extract_predictions(
             path=str(args.output_dir / "val_features.pkl"))
@@ -361,6 +394,7 @@ def main(argv=None, *, device=None):
     from tim_tpu_torch.models.tim import resolve_device
     args = build_parser().parse_args(argv)
     check_supported(args)
+    initialize(args, device)            # before the first device query
     device = resolve_device(device)     # before reading any data
     mcfg, _ = configs_from_args(args)
     train_ds, val_ds = load_datasets(args, mcfg,

@@ -1,6 +1,6 @@
 """Configuration: a copy of ``tim_tpu/config.py``'s ``ModelConfig``,
-``DetectionConfig``, ``TrainConfig`` and the recognition and detection
-presets, with the
+``DetectionConfig``, ``TrainConfig``, ``MeshConfig`` and the recognition
+and detection presets, with the
 same field names and defaults, so that one configuration reads the same
 in both packages (tests pin the two to equality). ``TrainConfig`` leaves
 out the JAX package's two TPU-only fields, ``xla_fusion_cost_model`` and
@@ -148,6 +148,16 @@ class TrainConfig:
 
     seed: int = 0
     early_stop_period: int = -1
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: ``data`` shards the batch over the processes
+    (one card each; -1: all of them), ``model`` the tensor-parallel axis
+    (``parallel.mesh.make_mesh`` takes 1 only)."""
+
+    data: int = -1
+    model: int = 1
 
 
 def epic_recognition(**overrides) -> ModelConfig:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from tim_tpu_torch.data.windows import WindowSet
+from tim_tpu_torch.ops.dropout import draw
 
 
 def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
@@ -249,7 +250,9 @@ def gather_window_batch(
     """(v_feats, a_feats) for a batch of windows, gathered on the banks'
     device, with one augmentation set per feature token drawn from
     ``generator`` (a CPU generator; visual first, then audio) like the host
-    dataset; ``generator`` None takes the clean set 0."""
+    dataset; ``generator`` None takes the clean set 0. A
+    ``ops.dropout.BatchRows`` generator draws the sets of the global batch
+    and keeps this rank's rows."""
     out = []
     for bank in (v_bank, a_bank):
         if bank is None:
@@ -257,7 +260,8 @@ def gather_window_batch(
             continue
         aug = None
         if generator is not None and bank.num_aug > 1:
-            aug = torch.randint(0, bank.num_aug, tuple(indices.shape),
-                                generator=generator)
+            aug = draw(generator, tuple(indices.shape),
+                       lambda s, g, n=bank.num_aug: torch.randint(
+                           0, n, s, generator=g))
         out.append(bank.gather(indices, aug))
     return out[0], out[1]

@@ -1,6 +1,7 @@
 """Window-vote ensembling and validation accumulators: a copy of
-``tim_tpu/evals/meters.py`` for one process (the multi-host reduction,
-``reduce_across_processes``, waits for the port's multi-GPU work).
+``tim_tpu/evals/meters.py``; ``reduce_across_processes`` merges the ranks'
+accumulators over ``torch.distributed`` (``parallel.multihost``) in two
+collectives, the sums in float64.
 
 The reference's characteristic eval mechanic
 (``recognition/.../utils/meters.py:490-599``): each GT action appears in
@@ -70,6 +71,26 @@ class WindowVoteAccumulator:
             np.add.at(self.sums["audio"], ids, flat[valid])
             np.add.at(self.seen, ids, 1.0)
             self.a_labels[ids] = labels["class_id"].reshape(-1)[valid]
+
+    def reduce_across_processes(self) -> None:
+        """Merge the ranks' accumulators: logit sums and seen-counts add
+        (each action may be voted on from several ranks; float64, summed
+        by the collective, no atomics), labels take the max (-1 where
+        unseen). No-op without a process group."""
+        from tim_tpu_torch.parallel.multihost import allreduce_host_array
+        heads = list(self.sums)
+        parts = [self.sums[h] for h in heads] + [self.seen]
+        flat = allreduce_host_array(
+            np.concatenate([p.reshape(-1) for p in parts]), "sum")
+        pieces = np.split(flat, np.cumsum([p.size for p in parts])[:-1])
+        for h, piece in zip(heads, pieces):
+            self.sums[h] = piece.reshape(self.sums[h].shape)
+        self.seen = pieces[-1]
+        n_v = self.v_labels.size
+        labels = allreduce_host_array(np.concatenate(
+            [self.v_labels.reshape(-1), self.a_labels]), "max")
+        self.v_labels = labels[:n_v].reshape(self.v_labels.shape)
+        self.a_labels = labels[n_v:]
 
     def ensembled_scores(self, head: str) -> Tuple[np.ndarray, np.ndarray]:
         """(softmaxed mean logits, labels) over actions seen for ``head``."""

@@ -14,12 +14,15 @@ recognition, ``backbone.layers.N.*`` in detection), ``cls_head.fc_*``,
 (inference, validation) forward; an int ``dropout_seed`` makes it the
 training forward: the feature encoding's dropout draws from a device
 generator seeded ``dropout_seed``, encoder layer i's from one seeded
-``dropout_seed + 1 + i`` (its own, so that ``remat`` replays it).
+``dropout_seed + 1 + i`` (its own, so that ``remat`` replays it). With
+``dropout_rows`` (this rank's first row, the global batch's rows) each
+mask is drawn for the global batch and this rank keeps its rows
+(``ops.dropout.BatchRows``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,6 +34,7 @@ from tim_tpu_torch.models.heads import (
     DetectionClsHead, DetectionRegHead, RecognitionClsHead)
 from tim_tpu_torch.models.pool import AVGA
 from tim_tpu_torch.models.transformer import Encoder
+from tim_tpu_torch.ops.dropout import layer_generator
 
 # Config options whose code paths are not ported yet, with the value the
 # port supports.
@@ -134,13 +138,14 @@ class _TimBase(nn.Module):
 
     def _encode_sequence(self, v_feats, a_feats, time_encodings,
                          num_v_queries: int, num_a_queries: int,
-                         shared_queries: bool, dropout_seed: Optional[int]):
+                         shared_queries: bool, dropout_seed: Optional[int],
+                         dropout_rows: Optional[Tuple[int, int]] = None):
         """The encoder's output [B, S, 2*d_model]."""
         cfg = self.cfg
         gen, layer_seeds = None, None
         if dropout_seed is not None:
-            gen = torch.Generator(device=time_encodings.device).manual_seed(
-                dropout_seed)
+            gen = layer_generator(dropout_seed, time_encodings.device,
+                                  dropout_rows)
             layer_seeds = [dropout_seed + 1 + i
                            for i in range(len(self.encoder.layers))]
         if cfg.apply_feature_pooling:
@@ -152,7 +157,8 @@ class _TimBase(nn.Module):
             v_feats = self.pool(a_feats, v_feats)
         x = self.feature_encoding(v_feats, a_feats, time_encodings,
                                   num_v_queries, num_a_queries, gen)
-        return self.encoder(x, cfg.num_context, shared_queries, layer_seeds)
+        return self.encoder(x, cfg.num_context, shared_queries, layer_seeds,
+                            dropout_rows)
 
 
 class TimRecognition(_TimBase):
@@ -179,14 +185,16 @@ class TimRecognition(_TimBase):
 
     def encoder_forward(self, v_feats, a_feats, time_encodings,
                         num_v_queries: int, num_a_queries: int, *,
-                        dropout_seed: Optional[int] = None):
+                        dropout_seed: Optional[int] = None,
+                        dropout_rows: Optional[Tuple[int, int]] = None):
         """Returns ((verb, noun, action, audio) logits, each [B, Nq, C] or
         None, context tokens [B, num_context, 2*d_model]).
         ``dropout_seed``: None for the deterministic forward, an int for
-        the training forward (module docstring)."""
+        the training forward; ``dropout_rows``: several processes (module
+        docstring)."""
         x = self._encode_sequence(v_feats, a_feats, time_encodings,
                                   num_v_queries, num_a_queries, False,
-                                  dropout_seed)
+                                  dropout_seed, dropout_rows)
         logits = self.cls_head(x, num_v_queries, num_a_queries)
         return logits, x[:, :self.cfg.num_context]
 
@@ -226,15 +234,17 @@ class TimDetection(_TimBase):
     def encoder_forward(self, v_feats, a_feats, time_encodings,
                         num_v_queries: int, num_a_queries: int, *,
                         shared_queries: bool = False,
-                        dropout_seed: Optional[int] = None):
+                        dropout_seed: Optional[int] = None,
+                        dropout_rows: Optional[Tuple[int, int]] = None):
         """Returns (cls logits 4-tuple (verb, noun, action, audio), (v_reg,
         a_reg) each [B, Nq, 2], context tokens). ``shared_queries``: set
         only when the query tokens are identical across the batch (dense
         inference grids). ``dropout_seed``: None for the deterministic
-        forward, an int for the training forward (module docstring)."""
+        forward, an int for the training forward; ``dropout_rows``:
+        several processes (module docstring)."""
         x = self._encode_sequence(v_feats, a_feats, time_encodings,
                                   num_v_queries, num_a_queries,
-                                  shared_queries, dropout_seed)
+                                  shared_queries, dropout_seed, dropout_rows)
         cls_scores = self.cls_head(x, num_v_queries, num_a_queries)
         reg_scores = self.reg_head(x, num_v_queries, num_a_queries)
         return cls_scores, reg_scores, x[:, :self.cfg.num_context]

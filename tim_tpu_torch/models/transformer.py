@@ -21,7 +21,7 @@ masks.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,7 +31,7 @@ from tim_tpu_torch.models.common import (
     DENSE, TORCH_LINEAR, Int8Dense, LayerNorm, TorchLinear, exact_gelu,
     linear, uniform_)
 from tim_tpu_torch.ops.attention import tim_attention
-from tim_tpu_torch.ops.dropout import dropout
+from tim_tpu_torch.ops.dropout import dropout, layer_generator
 from tim_tpu_torch.ops.fused_post_attention import fused_post_attention
 
 
@@ -132,14 +132,16 @@ class EncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, x, num_ctx: int, shared_queries: bool = False,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None):
         """``dropout_seed`` None: deterministic (inference); an int: the
         training route, every mask of the layer drawn from a device
-        generator seeded with it."""
+        generator seeded with it (with ``dropout_rows``, this rank's rows
+        of masks drawn for the global batch: ``ops.dropout.BatchRows``)."""
         deterministic = dropout_seed is None
         gen = None
         if not deterministic:
-            gen = torch.Generator(device=x.device).manual_seed(dropout_seed)
+            gen = layer_generator(dropout_seed, x.device, dropout_rows)
 
         def drop(t):
             return dropout(t, self.dropout_rate, deterministic,
@@ -182,12 +184,15 @@ class Encoder(nn.Module):
             for _ in range(num_layers)])
 
     def forward(self, x, num_ctx: int, shared_queries: bool = False,
-                dropout_seeds: Optional[Sequence[int]] = None):
-        """``dropout_seeds``: one seed per layer (training), or None."""
+                dropout_seeds: Optional[Sequence[int]] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None):
+        """``dropout_seeds``: one seed per layer (training), or None;
+        ``dropout_rows``: see ``EncoderLayer.forward``."""
         for i, layer in enumerate(self.layers):
             # only layer 0 sees batch-identical query tokens
             args = (x, num_ctx, shared_queries and i == 0,
-                    None if dropout_seeds is None else dropout_seeds[i])
+                    None if dropout_seeds is None else dropout_seeds[i],
+                    dropout_rows)
             if self.remat and torch.is_grad_enabled():
                 # the layer seeds its own generator, so the default
                 # generators' states need not be kept for the replay

@@ -9,14 +9,37 @@ exactly. Masks come from an explicit ``torch.Generator`` on the tensor's
 device; the draws are statistically, not bitwise, those of JAX's PRNG.
 (The JAX package's ``TIM_TPU_DROPOUT_MUL`` switch gives the same values
 as its default form, so it has no counterpart.)
+
+Several processes: a rank given ``BatchRows`` in place of a generator
+draws each mask for the whole global batch and keeps its own rows, so
+that the ranks together draw what one process draws on that batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+class BatchRows:
+    """A generator for one rank's rows ``start:start + b`` of a global
+    batch of ``total`` rows: ``draw`` makes the draw of the global shape
+    (leading axis ``total``) and keeps those rows."""
+
+    def __init__(self, generator: torch.Generator, start: int, total: int):
+        self.generator, self.start, self.total = generator, start, total
+
+
+def draw(generator, shape: Tuple[int, ...],
+         fn: Callable[[Tuple[int, ...], torch.Generator], torch.Tensor]):
+    """``fn(shape, generator)``; for ``BatchRows``, the rows of this rank
+    of ``fn`` at the global batch's shape."""
+    if not isinstance(generator, BatchRows):
+        return fn(tuple(shape), generator)
+    full = fn((generator.total,) + tuple(shape[1:]), generator.generator)
+    return full[generator.start:generator.start + shape[0]]
 
 
 def _rounded(value: float, x) -> float:
@@ -29,22 +52,23 @@ def keep_quantized(rate: float) -> int:
     return int(np.round((1.0 - rate) * 256.0))
 
 
-def coarse_dropout(x, rate: float, generator: torch.Generator):
+def coarse_dropout(x, rate: float, generator):
     """uint8-mask dropout with an exactly-unbiased quantized keep prob."""
     keep_q = keep_quantized(rate)
     if keep_q >= 256:
         return x
     if keep_q <= 0:
         return torch.zeros_like(x)
-    bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
-                         device=x.device, generator=generator)
+    bits = draw(generator, x.shape, lambda s, g: torch.randint(
+        0, 256, s, dtype=torch.uint8, device=x.device, generator=g))
     return torch.where(bits < keep_q, x * _rounded(256.0 / keep_q, x), 0.0)
 
 
 def dropout(x, rate: float, deterministic: bool, bits: int = 32,
-            generator: Optional[torch.Generator] = None):
+            generator=None):
     """Dropout dispatch: identity when ``deterministic`` or ``rate`` 0;
-    ``bits=32`` Bernoulli, ``bits=8`` the uint8-mask variant."""
+    ``bits=32`` Bernoulli, ``bits=8`` the uint8-mask variant.
+    ``generator``: a ``torch.Generator`` on x's device or ``BatchRows``."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -53,6 +77,14 @@ def dropout(x, rate: float, deterministic: bool, bits: int = 32,
                          "for eval")
     if bits == 8:
         return coarse_dropout(x, rate, generator)
-    keep = torch.rand(x.shape, device=x.device,
-                      generator=generator) < (1.0 - rate)
+    keep = draw(generator, x.shape, lambda s, g: torch.rand(
+        s, device=x.device, generator=g)) < (1.0 - rate)
     return torch.where(keep, x / _rounded(1.0 - rate, x), 0.0)
+
+
+def layer_generator(seed: int, device,
+                    rows: Optional[Tuple[int, int]] = None):
+    """A device generator seeded ``seed``; with ``rows`` (this rank's
+    first row, the global batch's rows) wrapped in ``BatchRows``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return gen if rows is None else BatchRows(gen, *rows)

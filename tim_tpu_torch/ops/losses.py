@@ -22,17 +22,23 @@ import torch
 import torch.nn.functional as F
 
 
+def valid_labels(labels, num_classes: int, ignore_index: int = -1):
+    """The rows whose label counts: not ``ignore_index``, in [0, C)."""
+    return (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
+
+
 def cross_entropy(logits, labels, *, label_smoothing: float = 0.0,
                   ignore_index: int = -1, weights=None,
-                  reduction: str = "mean"):
+                  reduction: str = "mean", count=None):
     """Label-smoothed cross entropy over the last axis, in fp32: per row
     ``(1 - eps) * nll + eps * (-mean log p)``. Rows whose label is
     ``ignore_index`` or out of [0, C) add nothing (JAX cannot raise under
     jit, so it ignores them; so does the port), and the mean divides by
-    the count of the other rows (at least 1)."""
+    the count of the other rows (at least 1), or by ``count`` when given
+    (a rank's share of a global batch's mean: the global count)."""
     num_classes = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
-    valid = (labels != ignore_index) & (labels >= 0) & (labels < num_classes)
+    valid = valid_labels(labels, num_classes, ignore_index)
     safe = torch.where(valid, labels, 0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     smooth = -logp.mean(-1)
@@ -44,7 +50,8 @@ def cross_entropy(logits, labels, *, label_smoothing: float = 0.0,
         return loss
     if reduction == "sum":
         return loss.sum()
-    return loss.sum() / torch.clamp(valid.sum(), min=1)
+    return loss.sum() / torch.clamp(valid.sum() if count is None else count,
+                                    min=1)
 
 
 def mixup_draws(rng: np.random.Generator, batch: int, alpha: float
@@ -73,12 +80,15 @@ def mixup(inputs, perm: torch.Tensor, lam: float):
 
 
 def mixup_cross_entropy(logits, labels_a, labels_b, lam, *,
-                        label_smoothing: float = 0.0):
+                        label_smoothing: float = 0.0, counts=(None, None)):
     """``lam * CE(logits, labels_a) + (1 - lam) * CE(logits, labels_b)``,
     each the mean over its own valid rows (the reference selects each
-    side's valid rows apart)."""
-    loss_a = cross_entropy(logits, labels_a, label_smoothing=label_smoothing)
-    loss_b = cross_entropy(logits, labels_b, label_smoothing=label_smoothing)
+    side's valid rows apart); ``counts``: each side's denominator, when
+    given (see ``cross_entropy``)."""
+    loss_a = cross_entropy(logits, labels_a, label_smoothing=label_smoothing,
+                           count=counts[0])
+    loss_b = cross_entropy(logits, labels_b, label_smoothing=label_smoothing,
+                           count=counts[1])
     return lam * loss_a + (1.0 - lam) * loss_b
 
 

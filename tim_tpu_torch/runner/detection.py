@@ -15,6 +15,17 @@ model by validation loss, stops early and writes checkpoints
   window ids; validation sums the losses on the device and reads them
   back once.
 
+Several processes (``parallel.multihost.initialize``, one card each):
+the runner's ``DataMesh`` splits every global batch of ``batch_size``
+windows into equal rank shares. The host path iterates each rank's
+shard of the split (``batch_iterator(num_shards=, shard_index=)``, JAX's
+wrap-around padding included); on the banked path every card holds the
+whole bank, every rank draws the same window order and takes its slice of
+each batch of ids. The steps sum the ranks' shares of the global loss
+(``train.detection``); the dense dump gathers every rank's rows, then
+keeps each window once, in window order. Rank 0 writes the checkpoints
+and logs; every rank reads ``resume``.
+
 The mAP chain: ``extract_dense_predictions`` dumps every window's dense
 query scores and proposals (``make_inference_step``: kernel 1 on the
 card), ``evaluate_mAP`` runs the dump through ``evals.format_predictions.
@@ -29,7 +40,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from tim_tpu_torch.config import DetectionConfig, TrainConfig
+from tim_tpu_torch.config import DetectionConfig, MeshConfig, TrainConfig
 from tim_tpu_torch.data.dataset import DetectionDataset, batch_iterator
 from tim_tpu_torch.data.device_bank import (
     DetectionWindowTables, DeviceFeatureBank, host_to_device)
@@ -37,6 +48,8 @@ from tim_tpu_torch.evals.format_predictions import evaluate_detections
 from tim_tpu_torch.evals.meters import LossAverager
 from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection, resolve_device
+from tim_tpu_torch.parallel import multihost
+from tim_tpu_torch.parallel.mesh import make_mesh, shard_train_state
 from tim_tpu_torch.train import checkpoint as ckpt
 from tim_tpu_torch.train import detection as steps
 from tim_tpu_torch.train.optim import make_optimizer
@@ -70,6 +83,7 @@ class DetectionRunner:
         train_ds: Optional[DetectionDataset],
         val_ds: Optional[DetectionDataset],
         *,
+        mesh_cfg: MeshConfig = MeshConfig(),
         output_dir: Optional[str] = None,
         print_freq: int = 100,
         use_device_bank: bool = False,
@@ -90,8 +104,13 @@ class DetectionRunner:
             generator=torch.Generator().manual_seed(tcfg.seed))
         self.steps_per_epoch = (max(len(train_ds) // tcfg.batch_size, 1)
                                 if train_ds else 1)
-        self._train_step = steps.make_train_step(self.model, cfg, tcfg)
-        self._val_step = steps.make_val_step(self.model, cfg, tcfg)
+        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
+        self._local_bs = mesh.local_batch(tcfg.batch_size)
+        self._share = mesh.share(tcfg.batch_size)
+        self._shard_args = mesh.shard_args
+        self._train_step = steps.make_train_step(self.model, cfg, tcfg,
+                                                 mesh=mesh)
+        self._val_step = steps.make_val_step(self.model, cfg, tcfg, mesh)
         self.num_queries = generate_query_pyramid(
             cfg.inference_query_size).shape[0]
         self._infer_steps = {}     # top_k -> make_inference_step
@@ -100,7 +119,7 @@ class DetectionRunner:
         if use_device_bank and train_ds is not None:
             v_bank, a_bank, self._tables = _tables(train_ds, self.device)
             self._bank_step = steps.make_bank_train_step(
-                self.model, cfg, tcfg, v_bank, a_bank)
+                self.model, cfg, tcfg, v_bank, a_bank, mesh=mesh)
         if use_device_bank and val_ds is not None:
             self._val_banks = _tables(val_ds, self.device)
 
@@ -123,17 +142,20 @@ class DetectionRunner:
             total_steps=self.steps_per_epoch * tcfg.epochs,
             warmup_steps=self.steps_per_epoch * tcfg.warmup_epochs,
             min_lr=tcfg.min_lr, clip_norm=tcfg.clip_norm)
-        self.state = create_train_state(self.model, optimizer,
-                                        normaliser=tcfg.normaliser_init)
+        self.state = shard_train_state(create_train_state(
+            self.model, optimizer, normaliser=tcfg.normaliser_init),
+            self.mesh)
         return self.state
 
     def resume(self, path: str) -> int:
         """Full training resume (parameters, optimizer, step, normaliser);
-        returns the epoch to continue from."""
+        returns the epoch to continue from. Every rank reads the
+        checkpoint."""
         if self.state is None:
             self.init_state()
         payload = ckpt.load_checkpoint(path)
-        ckpt.restore_train_state(self.state, payload)
+        shard_train_state(ckpt.restore_train_state(self.state, payload),
+                          self.mesh)
         return int(payload.get("epoch", 0))
 
     def load_torch_checkpoint(self, state_dict: Mapping[str, torch.Tensor]
@@ -143,7 +165,7 @@ class DetectionRunner:
         if self.state is None:
             self.init_state()
         self.model.load_state_dict(state_dict, strict=True)
-        return self.state
+        return shard_train_state(self.state, self.mesh)
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -161,14 +183,16 @@ class DetectionRunner:
         epoch_rng = np.random.default_rng(self.tcfg.seed + epoch)
         bs = self.tcfg.batch_size
         if self._bank_step is not None:
+            # the same order on every rank, each taking its share
             order = epoch_rng.permutation(self._tables.num_windows)
             batches = (self._tables.batch(host_to_device(
-                torch.from_numpy(order[i:i + bs]), self.device))
+                torch.from_numpy(order[i:i + bs][self._share]), self.device))
                 for i in range(0, len(order) - bs + 1, bs))
             step, tag = self._bank_step, " (banked)"
         else:
             batches = (self._to_device(b) for b in batch_iterator(
-                self.train_ds, bs, shuffle=True, rng=epoch_rng))
+                self.train_ds, self._local_bs, shuffle=True, rng=epoch_rng,
+                **self._shard_args))
             step, tag = self._train_step, ""
         for i, batch in enumerate(batches):
             metrics = step(self.state, batch)
@@ -195,7 +219,7 @@ class DetectionRunner:
             v_bank, a_bank, tables = self._val_banks
             sums, n_batches = {}, tables.num_windows // bs
             ids = torch.arange(n_batches * bs, device=self.device)
-            for chunk in ids.view(n_batches, bs):
+            for chunk in ids.view(n_batches, bs)[:, self._share]:
                 batch = steps.with_bank_features(tables.batch(chunk), v_bank,
                                                  a_bank)
                 for k, val in self._val_step(self.state, batch).items():
@@ -204,7 +228,8 @@ class DetectionRunner:
                 host = torch.stack(list(sums.values())).cpu().tolist()
                 avg.update({k: s / n_batches for k, s in zip(sums, host)})
         else:
-            for batch in batch_iterator(self.val_ds, bs, shuffle=False):
+            for batch in batch_iterator(self.val_ds, self._local_bs,
+                                        shuffle=False, **self._shard_args):
                 metrics = self._val_step(self.state, self._to_device(batch))
                 avg.update({k: float(v) for k, v in metrics.items()})
         return self._log(avg, "val", epoch)
@@ -249,7 +274,7 @@ class DetectionRunner:
                 self.best_loss = stats["loss"]
                 self.last_best_epoch = epoch
                 is_best = "loss"
-            if self.output_dir:
+            if self.output_dir and multihost.is_master():
                 ckpt.save_checkpoint(
                     self.output_dir, self.state, epoch=epoch + 1,
                     extra={"val_stats": {k: float(v)
@@ -286,46 +311,53 @@ class DetectionRunner:
         On the banked path (the validation split, ``use_device_bank``) a
         batch is a range of window ids, the last one padded with its last
         window; on the host path ``batch_iterator`` pads with the batch's
-        first window. Padded rows are dropped."""
+        first window. Padded rows are dropped. Several processes: each
+        rank infers its rows, every rank gathers all of them
+        (``allgather_host_arrays``; the same row count on each), and each
+        window is kept once, in window order."""
         if self.state is None:
             self.init_state()
         ds = dataset or self.val_ds
         ds.sample_augmentations = False
         infer = self._infer_step(top_k)
         bs = self.tcfg.batch_size
-        win_idx, cols = [], {}
+        win_idx, real, cols = [], [], {}
 
-        def collect(out, idxs, take):
-            win_idx.append(np.asarray(idxs[:take]))
+        def collect(out, idxs, ok):
+            win_idx.append(np.asarray(idxs))
+            real.append(ok)
             for key, val in out.items():
                 if "_topk_" in key:
                     base, suffix = key.split("_topk_")
                     key = f"{_HEAD_NAMES[base]}_topk_{suffix}"
                 elif key.endswith("_scores"):
                     key = _HEAD_NAMES[key[:-len("_scores")]]
-                cols.setdefault(key, []).append(
-                    val[:take].cpu().numpy())
+                cols.setdefault(key, []).append(val.cpu().numpy())
 
         if self._val_banks is not None and dataset is None:
             v_bank, a_bank, tables = self._val_banks
             n = tables.num_windows
             for i in range(0, n, bs):
                 ids = np.arange(i, min(i + bs, n))
-                take = len(ids)
-                ids = np.concatenate([ids, np.full(bs - take, ids[-1])])
+                ok = np.arange(bs) < len(ids)
+                ids = np.concatenate([ids, np.full(bs - len(ids), ids[-1])])
+                ids, ok = ids[self._share], ok[self._share]
                 batch = steps.with_bank_features(tables.batch(host_to_device(
                     torch.from_numpy(ids), self.device)), v_bank, a_bank)
-                collect(infer(batch), ids, take)
+                collect(infer(batch), ids, ok)
         else:
-            for batch in batch_iterator(ds, bs, shuffle=False,
-                                        drop_last=False, with_indices=True):
-                take = bs - batch["_pad"]
-                idxs = batch["_indices"]
-                collect(infer(self._to_device(batch)), idxs, take)
+            lb = self._local_bs
+            for batch in batch_iterator(ds, lb, shuffle=False,
+                                        drop_last=False, with_indices=True,
+                                        **self._shard_args):
+                collect(infer(self._to_device(batch)), batch["_indices"],
+                        np.arange(lb) < lb - batch["_pad"])
 
-        # ascending window ids with their first occurrence (JAX's order,
-        # which its multi-process gather makes independent of sharding)
-        win_idx = np.concatenate(win_idx).astype(np.int64)
+        # every rank's rows; then ascending window ids with their first
+        # occurrence (JAX's order, independent of the sharding)
+        real = multihost.allgather_host_arrays(np.concatenate(real))
+        win_idx = multihost.allgather_host_arrays(
+            np.concatenate(win_idx).astype(np.int64))[real]
         _, keep = np.unique(win_idx, return_index=True)
         win_idx = win_idx[keep]
         windows = ds.windows.windows
@@ -333,7 +365,8 @@ class DetectionRunner:
                                object)
         result = {"video_ids": np.repeat(video_ids, self.num_queries)}
         for key, chunks in cols.items():
-            arr = np.concatenate(chunks)[keep]
+            arr = multihost.allgather_host_arrays(
+                np.concatenate(chunks))[real][keep]
             result[key] = arr.reshape(-1, arr.shape[-1])
         return result
 

@@ -21,8 +21,22 @@ paths, as in JAX:
   which action is known on the host beforehand), so that no float
   atomics make two validations differ.
 
-One process: ``WindowVoteAccumulator.reduce_across_processes`` has no
-counterpart yet.
+Several processes (``parallel.multihost.initialize``, one card each):
+the runner's ``DataMesh`` splits every global batch of ``batch_size``
+windows into equal rank shares. On the host path each rank iterates its
+shard of the split (``batch_iterator(num_shards=, shard_index=)``, JAX's
+wrap-around padding included) and, after validation, the ranks'
+accumulators are merged (``reduce_across_processes``). On the banked path
+every card holds the whole bank, every rank draws the same window order
+and takes its slice of each batch of ids; validation sums the ranks' vote
+tables on the device (one float64 ``all_reduce``) and counts the votes
+and labels from the host tables. The steps sum the ranks' shares of the
+global loss (``train.recognition``). Rank 0 writes the checkpoints and
+dumps and logs; every rank reads ``resume``.
+
+The log line of every ``print_freq``-th step carries the iteration's,
+data's and step's seconds (``utils.logging.PhaseTimer``) and
+``utils.memory.memory_summary``, as JAX's host path logs them.
 """
 
 from __future__ import annotations
@@ -34,19 +48,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tim_tpu_torch.config import ModelConfig, TrainConfig
+from tim_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from tim_tpu_torch.data.dataset import (
     RecognitionDataset, batch_iterator, pad_rows)
 from tim_tpu_torch.data.device_bank import (
     DeviceFeatureBank, DeviceWindowTables, host_to_device)
 from tim_tpu_torch.evals.meters import LossAverager, WindowVoteAccumulator
 from tim_tpu_torch.models.tim import TimRecognition, resolve_device
+from tim_tpu_torch.parallel import multihost
+from tim_tpu_torch.parallel.mesh import make_mesh, shard_train_state
 from tim_tpu_torch.train import checkpoint as ckpt
 from tim_tpu_torch.train import recognition as steps
 from tim_tpu_torch.train.detection import with_bank_features
 from tim_tpu_torch.train.optim import make_optimizer
 from tim_tpu_torch.train.state import TrainState, create_train_state
-from tim_tpu_torch.utils.logging import log_json_stats, setup_logging
+from tim_tpu_torch.utils.logging import (
+    PhaseTimer, log_json_stats, setup_logging)
+from tim_tpu_torch.utils.memory import memory_summary
 
 _VISUAL_HEADS = ("verb", "noun", "action")
 
@@ -84,7 +102,9 @@ class _VotePlan:
     x [R, C], float64: exact products, fixed order), added to the U
     distinct actions' rows."""
 
-    def __init__(self, ids_table: np.ndarray, n: int, bs: int, device):
+    def __init__(self, ids_table: np.ndarray, n: int, bs: int, device,
+                 share: slice = slice(None)):
+        """``share``: this rank's rows of each batch."""
         self.device = device
         self.batches: List[np.ndarray] = []
         self.groups = []       # per batch: (actions [U], row -> group [R])
@@ -92,11 +112,12 @@ class _VotePlan:
             chunk = np.arange(start, min(start + bs, n))
             take = len(chunk)
             chunk = np.concatenate([chunk, np.full(bs - take, chunk[0])])
-            self.batches.append(chunk)
+            self.batches.append(chunk[share])
             if ids_table is None:
                 continue
             rows = ids_table[chunk].copy()
             rows[take:] = -1
+            rows = rows[share]
             flat = rows.reshape(-1)
             ok = flat >= 0
             actions, inverse = np.unique(flat[ok], return_inverse=True)
@@ -124,6 +145,7 @@ class RecognitionRunner:
         train_ds: Optional[RecognitionDataset],
         val_ds: Optional[RecognitionDataset],
         *,
+        mesh_cfg: MeshConfig = MeshConfig(),
         output_dir: Optional[str] = None,
         dataset_name: str = "epic",
         print_freq: int = 100,
@@ -150,16 +172,21 @@ class RecognitionRunner:
             generator=torch.Generator().manual_seed(tcfg.seed))
         self.steps_per_epoch = (max(len(train_ds) // tcfg.batch_size, 1)
                                 if train_ds else 1)
+        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
+        self._local_bs = mesh.local_batch(tcfg.batch_size)
+        self._share = mesh.share(tcfg.batch_size)
+        self._shard_args = mesh.shard_args
         self._train_step = steps.make_train_step(self.model, cfg, tcfg,
-                                                 self.nv, self.na)
+                                                 self.nv, self.na, mesh=mesh)
         self._eval_step = steps.make_eval_step(self.model, cfg, tcfg,
-                                               self.nv, self.na)
+                                               self.nv, self.na, mesh=mesh)
 
         self._bank_step = self._val_banks = None
         if use_device_bank and train_ds is not None:
             v_bank, a_bank, self._tables = _tables(train_ds, self.device)
             self._bank_step = steps.make_bank_train_step(
-                self.model, cfg, tcfg, self.nv, self.na, v_bank, a_bank)
+                self.model, cfg, tcfg, self.nv, self.na, v_bank, a_bank,
+                mesh=mesh)
         if use_device_bank and val_ds is not None:
             ws_val = val_ds.windows
             if (ws_val.max_visual_actions, ws_val.max_audio_actions) != (
@@ -178,8 +205,10 @@ class RecognitionRunner:
                 pad_rows(w.a_action_ids, self.na, -1, np.int64)
                 for w in ws_val.windows])
                 if "audio" in cfg.data_modality and self.na > 0 else None)
-            self._v_plan = _VotePlan(self._val_v_ids, n, bs, self.device)
-            self._a_plan = _VotePlan(self._val_a_ids, n, bs, self.device)
+            self._v_plan = _VotePlan(self._val_v_ids, n, bs, self.device,
+                                     self._share)
+            self._a_plan = _VotePlan(self._val_a_ids, n, bs, self.device,
+                                     self._share)
 
         self.state: Optional[TrainState] = None
         self.best = {"visual": 0.0, "visual_mt": 0.0, "audio": 0.0,
@@ -201,16 +230,18 @@ class RecognitionRunner:
             total_steps=self.steps_per_epoch * tcfg.epochs,
             warmup_steps=self.steps_per_epoch * tcfg.warmup_epochs,
             min_lr=tcfg.min_lr, clip_norm=tcfg.clip_norm)
-        self.state = create_train_state(self.model, optimizer)
+        self.state = shard_train_state(
+            create_train_state(self.model, optimizer), self.mesh)
         return self.state
 
     def resume(self, path: str) -> int:
         """Full training resume (parameters, optimizer, step); returns the
-        epoch to continue from."""
+        epoch to continue from. Every rank reads the checkpoint."""
         if self.state is None:
             self.init_state()
         payload = ckpt.load_checkpoint(path)
-        ckpt.restore_train_state(self.state, payload)
+        shard_train_state(ckpt.restore_train_state(self.state, payload),
+                          self.mesh)
         return int(payload.get("epoch", 0))
 
     def load_torch_checkpoint(self, state_dict: Mapping[str, torch.Tensor]
@@ -220,7 +251,7 @@ class RecognitionRunner:
         if self.state is None:
             self.init_state()
         self.model.load_state_dict(state_dict, strict=True)
-        return self.state
+        return shard_train_state(self.state, self.mesh)
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Mapping) -> Dict[str, torch.Tensor]:
@@ -232,30 +263,41 @@ class RecognitionRunner:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch, shuffled by a generator seeded ``seed + epoch``; the
-        metrics of every ``print_freq``-th step are read back, logged and
-        averaged."""
+        metrics of every ``print_freq``-th step are read back, logged with
+        the phase times and memory, and averaged."""
         if self.state is None:
             self.init_state()
         avg = LossAverager()
         epoch_rng = np.random.default_rng(self.tcfg.seed + epoch)
         bs = self.tcfg.batch_size
         if self._bank_step is not None:
+            # the same order on every rank, each taking its share
             order = epoch_rng.permutation(self._tables.num_windows)
             batches = (self._tables.batch(host_to_device(
-                torch.from_numpy(order[i:i + bs]), self.device))
+                torch.from_numpy(order[i:i + bs][self._share]), self.device))
                 for i in range(0, len(order) - bs + 1, bs))
             step, tag = self._bank_step, " (banked)"
         else:
             batches = (self._to_device(b) for b in batch_iterator(
-                self.train_ds, bs, shuffle=True, rng=epoch_rng))
+                self.train_ds, self._local_bs, shuffle=True, rng=epoch_rng,
+                **self._shard_args))
             step, tag = self._train_step, ""
+        timer = PhaseTimer()
+        timer.iter_tic()
         for i, batch in enumerate(batches):
+            timer.data_toc()
             metrics = step(self.state, batch)
             if i % self.print_freq == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
+                timer.net_toc()
+                timer.iter_toc()
                 avg.update(metrics)
-                self.logger.info("epoch %d iter %d | loss %.4f%s",
-                                 epoch + 1, i, metrics["loss"], tag)
+                self.logger.info(
+                    "epoch %d iter %d | loss %.4f | iter %.3fs (data %.3fs "
+                    "net %.3fs) | %s%s", epoch + 1, i, metrics["loss"],
+                    timer.iter_time, timer.data_time, timer.net_time,
+                    memory_summary(self.device), tag)
+            timer.iter_tic()
         return self._log(avg.averages(), "train", epoch)
 
     def _log(self, stats: Dict[str, float], split: str, epoch: int
@@ -292,8 +334,12 @@ class RecognitionRunner:
                 self._a_plan.add(sums["audio"], logits["audio"], k)
             for key, val in losses.items():
                 loss_sum[key] = loss_sum.get(key, 0.0) + val.float()
-        for h, s in sums.items():
-            acc.sums[h] += s.cpu().numpy()
+        # every rank voted with its rows: one float64 sum over the ranks
+        flat = self.mesh.all_reduce_sum(
+            torch.cat([s.reshape(-1) for s in sums.values()]))
+        for (h, s), piece in zip(sums.items(), flat.split(
+                [s.numel() for s in sums.values()])):
+            acc.sums[h] += piece.view(s.shape).cpu().numpy()
         # the counts and labels are known on the host, from the tables
         for ids, col in ((self._val_v_ids, None), (self._val_a_ids, 3)):
             if ids is None or (col == 3 and "audio" not in sums):
@@ -316,8 +362,9 @@ class RecognitionRunner:
         """(logits, losses, v_ids, a_ids, labels) per eval batch on the
         host path, each row of the batch's padded tail left out."""
         ds.sample_augmentations = False
-        bs = self.tcfg.batch_size
-        for batch in batch_iterator(ds, bs, shuffle=False, drop_last=False):
+        bs = self._local_bs
+        for batch in batch_iterator(ds, bs, shuffle=False, drop_last=False,
+                                    **self._shard_args):
             take = bs - batch["_pad"]
             logits, losses = self._eval_step(self._to_device(batch))
             yield ({k: v[:take].float().cpu().numpy()
@@ -346,6 +393,7 @@ class RecognitionRunner:
                     self._eval_batches(self.val_ds):
                 acc.update(logits, v_ids, a_ids, labels)
                 avg.update({k: float(v) for k, v in losses.items()})
+            acc.reduce_across_processes()
         stats = acc.summarize(self.dataset_name)
         stats.update(avg.averages())
         return self._log(stats, "val", epoch)
@@ -383,7 +431,7 @@ class RecognitionRunner:
             stats = self.validate(epoch)
             final = stats
             is_best = self._best_tag(stats, epoch)
-            if self.output_dir:
+            if self.output_dir and multihost.is_master():
                 ckpt.save_checkpoint(
                     self.output_dir, self.state, epoch=epoch + 1,
                     extra={"val_stats": {k: float(v)
@@ -412,6 +460,7 @@ class RecognitionRunner:
         else:
             for logits, _, v_ids, a_ids, labels in self._eval_batches(ds):
                 acc.update(logits, v_ids, a_ids, labels)
+            acc.reduce_across_processes()
 
         v_nid, a_nid = {}, {}
         for w in ds.windows.windows:
@@ -437,7 +486,7 @@ class RecognitionRunner:
             out["audio"], _ = acc.ensembled_scores("audio")
             valid = np.flatnonzero(acc.a_labels != -1)
             out["a_narration_ids"] = [a_nid[int(i)] for i in valid]
-        if path:
+        if path and multihost.is_master():
             with open(path, "wb") as f:
                 pickle.dump(out, f)
         return out

@@ -17,6 +17,21 @@ generators seeded from the step's ``dropout_seed`` (``models.tim``). All
 of a step's draws are made by one function (``make_step_draws``), which
 ``make_train_step`` takes as an argument.
 
+Several processes (a distributed ``parallel.mesh.DataMesh``). JAX runs
+one program over the global batch, so its counts are global; here each
+rank holds its rows of the global batch and its loss is its share of the
+global loss: the positive counts of both modalities are summed over the
+ranks (one ``all_reduce``) before the EMA normaliser, which therefore
+stays the same on every rank, and the focal and DIoU sums of the rank's
+rows divide by it; the drloc mean is weighted by the rank's share of the
+rows. The shares' gradients and the loss metrics are then summed over the
+ranks in one bucketed ``all_reduce`` (``DataMesh.sync_gradients``) before
+the optimizer's clip and non-finite skip. The draws are those of the
+global batch: the drloc positions are drawn for it and sliced, the
+dropout masks and the bank's augmentation sets drawn at its shape
+(``ops.dropout.BatchRows``). The validation step sums its loss shares
+over the ranks. Without a process group nothing of this runs.
+
 Kernels. The train step runs the model with dropout (``deterministic``
 false), so it never reaches kernel 1 (query-block attention) or kernel 2
 (the fused tail), as in JAX; the validation and inference steps are
@@ -37,6 +52,8 @@ from tim_tpu_torch.models import queries as Q
 from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection
 from tim_tpu_torch.ops import losses as L
+from tim_tpu_torch.ops.dropout import BatchRows
+from tim_tpu_torch.parallel.mesh import distributed
 from tim_tpu_torch.train.state import TrainState
 
 
@@ -46,15 +63,19 @@ def _flat(x):
 
 def _modality_losses(cls_logits, reg_preds, targets, labels, ious,
                      cfg: DetectionConfig, tcfg: TrainConfig, normaliser,
-                     modality: str, *, update_normaliser: bool = True):
+                     modality: str, *, update_normaliser: bool = True,
+                     num_pos=None):
     """Focal cls (IoU-weighted) + DIoU reg for one modality. Returns
     (cls_loss, reg_loss, new_normaliser, num_pos).
     ``update_normaliser=False`` divides by the incoming value unchanged
-    (the reference's validation takes a fixed normaliser)."""
+    (the reference's validation takes a fixed normaliser). ``num_pos``:
+    the global batch's positive count (several processes), else this
+    batch's."""
     flat_targets = _flat(targets)
     flat_ious = ious.reshape(-1)
     positives = torch.isfinite(flat_targets[:, 0])
-    num_pos = positives.sum()
+    if num_pos is None:
+        num_pos = positives.sum()
 
     if update_normaliser:
         # EMA normaliser of the positive count
@@ -141,48 +162,67 @@ def _visual_labels(batch, cfg):
 
 
 def _detection_losses(cls_logits, reg_preds, v_queries, a_queries, batch,
-                      cfg, tcfg, normaliser, update_normaliser: bool):
+                      cfg, tcfg, normaliser, update_normaliser: bool,
+                      mesh=None):
     """Labels the queries and sums the modalities' losses. Returns
-    (total, metrics, normaliser)."""
+    (total, metrics, normaliser). With a distributed ``mesh`` and
+    ``update_normaliser``, the positive counts are the global batch's."""
+    labelled = []
+    if v_queries is not None:
+        labelled.append(("visual", reg_preds[0], Q.label_queries(
+            v_queries, batch["v_gt_segments"], _visual_labels(batch, cfg),
+            cfg.iou_threshold)))
+    if a_queries is not None:
+        labelled.append(("audio", reg_preds[1], Q.label_queries(
+            a_queries, batch["a_gt_segments"], batch["class_id"][..., None],
+            cfg.iou_threshold)))
+    counts = [None] * len(labelled)
+    if update_normaliser and distributed(mesh):
+        counts = list(mesh.all_reduce_sum(torch.stack([
+            torch.isfinite(_flat(targets)[:, 0]).sum()
+            for _, _, (targets, _, _) in labelled])))
+
     metrics = {}
     total = torch.zeros((), device=batch["times"].device)
     norm = normaliser
-    if v_queries is not None:
-        targets, labels, ious = Q.label_queries(
-            v_queries, batch["v_gt_segments"], _visual_labels(batch, cfg),
-            cfg.iou_threshold)
+    for (modality, preds, (targets, labels, ious)), count in zip(labelled,
+                                                                  counts):
         cls, reg, norm, pos = _modality_losses(
-            cls_logits, reg_preds[0], targets, labels, ious, cfg, tcfg, norm,
-            "visual", update_normaliser=update_normaliser)
-        metrics.update(loss_visual=cls, loss_visual_reg=reg)
+            cls_logits, preds, targets, labels, ious, cfg, tcfg, norm,
+            modality, update_normaliser=update_normaliser, num_pos=count)
+        metrics.update({f"loss_{modality}": cls,
+                        f"loss_{modality}_reg": reg})
         if update_normaliser:
-            metrics["num_pos_visual"] = pos
-        total = total + cls + reg
-    if a_queries is not None:
-        targets, labels, ious = Q.label_queries(
-            a_queries, batch["a_gt_segments"], batch["class_id"][..., None],
-            cfg.iou_threshold)
-        cls, reg, norm, pos = _modality_losses(
-            cls_logits, reg_preds[1], targets, labels, ious, cfg, tcfg, norm,
-            "audio", update_normaliser=update_normaliser)
-        metrics.update(loss_audio=cls, loss_audio_reg=reg)
-        if update_normaliser:
-            metrics["num_pos_audio"] = pos
-        scale = tcfg.lambda_audio if v_queries is not None else 1.0
+            metrics[f"num_pos_{modality}"] = pos
+        scale = (tcfg.lambda_audio if modality == "audio"
+                 and v_queries is not None else 1.0)
         total = total + scale * (cls + reg)
     return total, metrics, norm
 
 
+def sum_loss_shares(mesh, model, metrics: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """``metrics`` with each ``loss*`` share summed over the ranks, in the
+    one ``all_reduce`` that sums the parameters' gradients."""
+    keys = [k for k in metrics if k.startswith("loss")]
+    summed = mesh.sync_gradients(list(model.parameters()),
+                                 [metrics[k] for k in keys])
+    return {**metrics, **dict(zip(keys, summed))}
+
+
 def make_train_step(model: TimDetection, cfg: DetectionConfig,
                     tcfg: TrainConfig, num_queries: Optional[int] = None,
-                    draws: Optional[Callable[[int, int], StepDraws]] = None):
+                    draws: Optional[Callable[[int, int], StepDraws]] = None,
+                    mesh=None):
     """Returns train_step(state, batch) -> metrics: forward with dropout,
     losses, backward, one optimizer update (``state.apply_gradients``).
 
     ``batch``: tensors on the model's device, the ``DetectionDataset``
     keys. Each step samples ``num_queries`` (default: the inference grid's
     size) of the fine train pool, shared across the batch. ``draws``
-    (default ``make_step_draws``) makes the step's random draws."""
+    (default ``make_step_draws``) makes the step's random draws.
+    ``mesh``: a ``parallel.mesh.DataMesh``; distributed, ``batch`` is this
+    rank's rows of the global batch (module docstring)."""
     if num_queries is None:
         num_queries = generate_query_pyramid(
             cfg.inference_query_size).shape[0]
@@ -194,7 +234,11 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = batch["times"].device
         b = batch["times"].shape[0]
-        d = draws(state.step, b)
+        rows = mesh.rows(b) if distributed(mesh) else None
+        d = draws(state.step, b if rows is None else rows[1])
+        drloc = d.drloc
+        if rows is not None and drloc is not None:
+            drloc = tuple(p[rows[0]:rows[0] + b] for p in drloc)
         qs = [None if q is None else host_to_device(q, device)
               for q in (d.v_queries, d.a_queries)]
 
@@ -205,22 +249,26 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
                 te.append(model.encode_times(q[None]).expand(b, -1, -1))
         cls_logits, reg_preds, ctx = model.encoder_forward(
             batch.get("v_feats"), batch.get("a_feats"), torch.cat(te, 1),
-            nv, na, dropout_seed=d.dropout_seed)
+            nv, na, dropout_seed=d.dropout_seed, dropout_rows=rows)
         total, metrics, norm = _detection_losses(
             cls_logits, reg_preds,
             *[None if q is None else q[None].expand(b, -1, -1) for q in qs],
-            batch, cfg, tcfg, state.normaliser, True)
+            batch, cfg, tcfg, state.normaliser, True, mesh)
 
         if tcfg.lambda_drloc > 0.0:
             pairs = ((ctx[:, :nf], ctx[:, nf:2 * nf])
                      if cfg.input_modality == "audio_visual" else (ctx, ctx))
-            dr = L.drloc_loss(d.drloc, *pairs, model.drloc)
+            dr = L.drloc_loss(drloc, *pairs, model.drloc)
+            if rows is not None:     # this rank's share of the global mean
+                dr = dr * (b / rows[1])
             total = total + tcfg.lambda_drloc * dr
             metrics["loss_drloc"] = dr
         metrics["loss"] = total
         total.backward()
         norm = norm.detach()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if rows is not None:
+            metrics = sum_loss_shares(mesh, model, metrics)
         metrics["grad_norm"] = state.apply_gradients(normaliser=norm)
         metrics["normaliser"] = norm
         return metrics
@@ -243,20 +291,30 @@ def with_bank_features(batch: Dict[str, torch.Tensor], v_bank, a_bank,
     return full
 
 
+def bank_generator(seed: int, step: int, batch: Dict[str, torch.Tensor],
+                   mesh=None):
+    """The CPU generator of a banked step's augmentation sets, seeded by
+    ``step_seeds(seed, step, 11)``; distributed, it draws the global
+    batch's sets and keeps this rank's rows."""
+    gen = torch.Generator().manual_seed(step_seeds(seed, step, 11)[0])
+    if not distributed(mesh):
+        return gen
+    return BatchRows(gen, *mesh.rows(batch["feat_indices"].shape[0]))
+
+
 def make_bank_train_step(model: TimDetection, cfg: DetectionConfig,
                          tcfg: TrainConfig, v_bank=None, a_bank=None,
                          num_queries: Optional[int] = None,
-                         draws: Optional[Callable] = None):
+                         draws: Optional[Callable] = None, mesh=None):
     """The train step on features gathered from device-resident banks:
     the batch carries ``feat_indices`` [B, F] (``data.device_bank.
     DetectionWindowTables``) in place of the features; one augmentation
     set per token comes from a CPU generator seeded by
-    ``step_seeds(tcfg.seed, step, 11)``."""
-    base = make_train_step(model, cfg, tcfg, num_queries, draws)
+    ``step_seeds(tcfg.seed, step, 11)`` (``bank_generator``)."""
+    base = make_train_step(model, cfg, tcfg, num_queries, draws, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        gen = torch.Generator().manual_seed(
-            step_seeds(tcfg.seed, state.step, 11)[0])
+        gen = bank_generator(tcfg.seed, state.step, batch, mesh)
         return base(state, with_bank_features(batch, v_bank, a_bank, gen))
 
     return step
@@ -276,10 +334,11 @@ def _grid_forward(model, grid, batch, nv, na):
 
 
 def make_val_step(model: TimDetection, cfg: DetectionConfig,
-                  tcfg: TrainConfig):
+                  tcfg: TrainConfig, mesh=None):
     """Returns val_step(state, batch) -> metrics: the losses on the fixed
     inference grid, deterministic (no dropout; kernel 1 on the card). The
-    normaliser is read from the state, not advanced."""
+    normaliser is read from the state, not advanced. With a distributed
+    ``mesh`` the ranks' loss shares are summed (one ``all_reduce``)."""
     device = next(model.parameters()).device
     grid = torch.from_numpy(
         generate_query_pyramid(cfg.inference_query_size)).to(device)
@@ -296,6 +355,9 @@ def make_val_step(model: TimDetection, cfg: DetectionConfig,
             queries if na else None, batch, cfg, tcfg, state.normaliser,
             False)
         metrics["loss"] = total
+        if distributed(mesh):
+            summed = mesh.all_reduce_sum(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, summed))
         return metrics
 
     return val_step

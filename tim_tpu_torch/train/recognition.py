@@ -14,6 +14,22 @@ permutation from a numpy generator, the drloc positions from a CPU
 dropout masks from device generators seeded from the step's
 ``dropout_seed`` (``models.tim``).
 
+Several processes (a distributed ``parallel.mesh.DataMesh``). JAX mixes
+the global batch (``x[perm]`` reaches across devices) and divides each
+cross entropy by the global batch's count of valid labels. Here each rank
+holds its rows of the global batch: the step gathers the batch's inputs
+and label rows from every rank (``all_gather``), encodes the global
+times, mixes the global batch with the permutation drawn for it and keeps
+its own rows, so that the time MLP's gradient through the mixed-in rows is
+taken where JAX takes it; its loss is its share of the global loss (each
+cross entropy's sum over its rows divided by the global count, the drloc
+mean weighted by its share of the rows). The shares' gradients and the
+loss metrics are summed over the ranks in one bucketed ``all_reduce``
+before the optimizer's clip and non-finite skip. The drloc positions,
+dropout masks and the bank's augmentation sets are drawn for the global
+batch and sliced. The eval step sums each cross entropy's sum and count
+over the ranks (one ``all_reduce``) and divides.
+
 Kernels. The train step runs the model with dropout, so it never reaches
 kernel 1 (query-block attention) or kernel 2 (the fused tail), as in JAX;
 the eval step is deterministic and reaches them on the card.
@@ -31,7 +47,9 @@ from tim_tpu_torch.config import ModelConfig, TrainConfig
 from tim_tpu_torch.data.device_bank import host_to_device
 from tim_tpu_torch.models.tim import TimRecognition
 from tim_tpu_torch.ops import losses as L
-from tim_tpu_torch.train.detection import step_seeds, with_bank_features
+from tim_tpu_torch.parallel.mesh import distributed
+from tim_tpu_torch.train.detection import (
+    bank_generator, step_seeds, sum_loss_shares, with_bank_features)
 from tim_tpu_torch.train.state import TrainState
 
 
@@ -39,33 +57,52 @@ def _flat(x):
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
+# the batch keys a distributed train step gathers from every rank
+_GATHERED = ("times", "v_feats", "a_feats", "verb", "noun", "action",
+             "class_id")
+
+
 def _head_losses(logits, batch, perm, lam: float, cfg: ModelConfig,
-                 tcfg: TrainConfig):
+                 tcfg: TrainConfig, shares=None):
     """The mixup-weighted masked cross entropy of each head. Returns
-    (total, metrics)."""
+    (total, metrics). ``shares`` (several processes): (the global batch,
+    this rank's first row); the mixed-in labels are the global rows
+    ``perm[start:start + b]`` and each mean divides by the global batch's
+    count."""
     verb_l, noun_l, action_l, audio_l = logits
 
-    def mix_ce(head_logits, labels):
+    def mix_ce(head_logits, key):
+        labels = batch[key]
+        if shares is None:
+            return L.mixup_cross_entropy(
+                _flat(head_logits), labels.reshape(-1),
+                labels[perm].reshape(-1), lam,
+                label_smoothing=tcfg.label_smoothing)
+        full, start = shares
+        mixed = full[key][perm]
+        c = head_logits.shape[-1]
         return L.mixup_cross_entropy(
             _flat(head_logits), labels.reshape(-1),
-            labels[perm].reshape(-1), lam,
-            label_smoothing=tcfg.label_smoothing)
+            mixed[start:start + labels.shape[0]].reshape(-1), lam,
+            label_smoothing=tcfg.label_smoothing,
+            counts=(L.valid_labels(full[key], c).sum(),
+                    L.valid_labels(mixed, c).sum()))
 
     out = {}
     device = batch["times"].device
     visual_loss = audio_loss = torch.zeros((), device=device)
     if "visual" in cfg.data_modality:
-        action_loss = mix_ce(action_l, batch["action"])
+        action_loss = mix_ce(action_l, "action")
         if cfg.include_verb_noun:
-            verb_loss = mix_ce(verb_l, batch["verb"])
-            noun_loss = mix_ce(noun_l, batch["noun"])
+            verb_loss = mix_ce(verb_l, "verb")
+            noun_loss = mix_ce(noun_l, "noun")
             visual_loss = (verb_loss + noun_loss + action_loss) / 3.0
             out.update(loss_verb=verb_loss, loss_noun=noun_loss)
         else:
             visual_loss = action_loss
         out.update(loss_action=action_loss, loss_visual=visual_loss)
     if "audio" in cfg.data_modality:
-        audio_loss = mix_ce(audio_l, batch["class_id"])
+        audio_loss = mix_ce(audio_l, "class_id")
         out.update(loss_audio=audio_loss)
 
     if cfg.data_modality == "visual":
@@ -124,7 +161,8 @@ def make_step_draws(cfg: ModelConfig, tcfg: TrainConfig
 def make_train_step(model: TimRecognition, cfg: ModelConfig,
                     tcfg: TrainConfig, num_v_queries: int,
                     num_a_queries: int,
-                    draws: Optional[Callable[[int, int], StepDraws]] = None):
+                    draws: Optional[Callable[[int, int], StepDraws]] = None,
+                    mesh=None):
     """Returns train_step(state, batch) -> metrics: time encoding, mixup,
     the forward with dropout, the head and drloc losses, backward, one
     optimizer update (``state.apply_gradients``).
@@ -132,30 +170,49 @@ def make_train_step(model: TimRecognition, cfg: ModelConfig,
     ``batch``: tensors on the model's device with the
     ``RecognitionDataset`` keys (``times``, ``v_feats``/``a_feats``, the
     label rows). ``draws`` (default ``make_step_draws``) makes the step's
-    random draws."""
+    random draws. ``mesh``: a ``parallel.mesh.DataMesh``; distributed,
+    ``batch`` is this rank's rows of the global batch (module
+    docstring)."""
     draws = draws or make_step_draws(cfg, tcfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = batch["times"].device
-        d = draws(state.step, batch["times"].shape[0])
+        b = batch["times"].shape[0]
+        rows = mesh.rows(b) if distributed(mesh) else None
+        d = draws(state.step, b if rows is None else rows[1])
         perm = host_to_device(d.perm, device)
-        inputs = [batch[k] for k, mod in (("v_feats", "visual"),
-                                          ("a_feats", "audio"))
+        drloc, full = d.drloc, batch
+        if rows is not None:
+            full = {k: mesh.all_gather(v) for k, v in batch.items()
+                    if k in _GATHERED}
+            if drloc is not None:
+                drloc = tuple(p[rows[0]:rows[0] + b] for p in drloc)
+        inputs = [full[k] for k, mod in (("v_feats", "visual"),
+                                         ("a_feats", "audio"))
                   if mod in cfg.input_modality]
-        *feats, te = L.mixup(inputs + [model.encode_times(batch["times"])],
-                             perm, d.lam)
+        mixed = L.mixup(inputs + [model.encode_times(full["times"])],
+                        perm, d.lam)
+        if rows is not None:
+            mixed = [x[rows[0]:rows[0] + b] for x in mixed]
+        *feats, te = mixed
         v = feats[0] if "visual" in cfg.input_modality else None
         a = feats[-1] if "audio" in cfg.input_modality else None
         logits, ctx = model.encoder_forward(
             v, a, te, num_v_queries, num_a_queries,
-            dropout_seed=d.dropout_seed)
-        total, metrics = _head_losses(logits, batch, perm, d.lam, cfg, tcfg)
-        dr = _drloc(d.drloc, ctx, model, cfg, tcfg)
+            dropout_seed=d.dropout_seed, dropout_rows=rows)
+        total, metrics = _head_losses(
+            logits, batch, perm, d.lam, cfg, tcfg,
+            None if rows is None else (full, rows[0]))
+        dr = _drloc(drloc, ctx, model, cfg, tcfg)
+        if rows is not None:     # this rank's share of the global mean
+            dr = dr * (b / rows[1])
         total = total + tcfg.lambda_drloc * dr
         metrics["loss_drloc"] = dr
         metrics["loss"] = total
         total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if rows is not None:
+            metrics = sum_loss_shares(mesh, model, metrics)
         metrics["grad_norm"] = state.apply_gradients()
         return metrics
 
@@ -165,18 +222,18 @@ def make_train_step(model: TimRecognition, cfg: ModelConfig,
 def make_bank_train_step(model: TimRecognition, cfg: ModelConfig,
                          tcfg: TrainConfig, num_v_queries: int,
                          num_a_queries: int, v_bank=None, a_bank=None,
-                         draws: Optional[Callable] = None):
+                         draws: Optional[Callable] = None, mesh=None):
     """The train step on features gathered from device-resident banks:
     the batch carries ``feat_indices`` [B, F] (``data.device_bank.
     DeviceWindowTables``) in place of the features; one augmentation set
     per token comes from a CPU generator seeded by
-    ``step_seeds(tcfg.seed, step, 11)``."""
+    ``step_seeds(tcfg.seed, step, 11)`` (``train.detection.
+    bank_generator``)."""
     base = make_train_step(model, cfg, tcfg, num_v_queries, num_a_queries,
-                           draws)
+                           draws, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        gen = torch.Generator().manual_seed(
-            step_seeds(tcfg.seed, state.step, 11)[0])
+        gen = bank_generator(tcfg.seed, state.step, batch, mesh)
         return base(state, with_bank_features(batch, v_bank, a_bank, gen))
 
     return step
@@ -184,39 +241,56 @@ def make_bank_train_step(model: TimRecognition, cfg: ModelConfig,
 
 def make_eval_step(model: TimRecognition, cfg: ModelConfig,
                    tcfg: TrainConfig, num_v_queries: int,
-                   num_a_queries: int):
+                   num_a_queries: int, mesh=None):
     """Returns eval_step(batch) -> (logits, losses): the raw logits [B, Nq,
     C] of each head (in the compute dtype, for the window-vote ensemble)
     and the cross entropy of each head, from the deterministic forward
-    (kernel 1 on the card)."""
+    (kernel 1 on the card). With a distributed ``mesh`` the logits are this
+    rank's rows, and each cross entropy is the global batch's: the ranks'
+    sums and valid-label counts summed (one ``all_reduce``), divided."""
+
+    def cross_entropies(heads, batch):
+        """The cross entropy of each (label key, logits) of ``heads``."""
+        flat = [(_flat(logits), batch[key].reshape(-1))
+                for key, logits in heads]
+        if not distributed(mesh):
+            return [L.cross_entropy(x, y, label_smoothing=tcfg.label_smoothing)
+                    for x, y in flat]
+        sums = torch.stack([L.cross_entropy(
+            x, y, label_smoothing=tcfg.label_smoothing, reduction="sum")
+            for x, y in flat])
+        counts = torch.stack([L.valid_labels(y, x.shape[-1]).sum()
+                              for x, y in flat]).float()
+        total = mesh.all_reduce_sum(torch.cat([sums, counts]))
+        n = len(flat)
+        return list(total[:n] / torch.clamp(total[n:], min=1))
 
     @torch.inference_mode()
     def eval_step(batch: Dict[str, torch.Tensor]):
         (verb_l, noun_l, action_l, audio_l), _ = model(
             batch.get("v_feats"), batch.get("a_feats"), batch["times"],
             num_v_queries, num_a_queries)
-        out_logits, out_losses = {}, {}
-
-        def ce(head_logits, labels):
-            return L.cross_entropy(_flat(head_logits), labels.reshape(-1),
-                                   label_smoothing=tcfg.label_smoothing)
-
+        heads = {}           # label key -> (output name, logits)
         if "visual" in cfg.data_modality:
-            out_logits["action"] = action_l
-            action_loss = ce(action_l, batch["action"])
-            visual_loss = action_loss
+            heads["action"] = ("action", action_l)
             if cfg.include_verb_noun:
-                out_logits["verb"] = verb_l
-                out_logits["noun"] = noun_l
-                verb_loss = ce(verb_l, batch["verb"])
-                noun_loss = ce(noun_l, batch["noun"])
-                visual_loss = (verb_loss + noun_loss + action_loss) / 3.0
-                out_losses.update(loss_verb=verb_loss, loss_noun=noun_loss)
-            out_losses.update(loss_action=action_loss,
+                heads["verb"] = ("verb", verb_l)
+                heads["noun"] = ("noun", noun_l)
+        if "audio" in cfg.data_modality:
+            heads["class_id"] = ("audio", audio_l)
+        ce = dict(zip(heads, cross_entropies(
+            [(key, logits) for key, (_, logits) in heads.items()], batch)))
+        out_logits = {name: logits for name, logits in heads.values()}
+        out_losses = {}
+        if "visual" in cfg.data_modality:
+            visual_loss = ce["action"]
+            if cfg.include_verb_noun:
+                visual_loss = (ce["verb"] + ce["noun"] + ce["action"]) / 3.0
+                out_losses.update(loss_verb=ce["verb"], loss_noun=ce["noun"])
+            out_losses.update(loss_action=ce["action"],
                               loss_visual=visual_loss)
         if "audio" in cfg.data_modality:
-            out_logits["audio"] = audio_l
-            out_losses["loss_audio"] = ce(audio_l, batch["class_id"])
+            out_losses["loss_audio"] = ce["class_id"]
         return out_logits, out_losses
 
     return eval_step

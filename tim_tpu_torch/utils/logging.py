@@ -1,6 +1,7 @@
-"""Process-0-only logging to stdout + ``<output_dir>/stdout.log``: a copy
-of ``tim_tpu/utils/logging.py``'s ``setup_logging`` and
-``log_json_stats``, with the process rank from ``torch.distributed``."""
+"""Process-0-only logging to stdout + ``<output_dir>/stdout.log``, and the
+iter/data/net phase timers: a copy of ``tim_tpu/utils/logging.py``'s
+``setup_logging``, ``log_json_stats`` and ``PhaseTimer``, with the process
+rank from ``torch.distributed``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import json
 import logging
 import os
 import sys
+import time
 from typing import Optional
 
 import torch.distributed as dist
@@ -48,3 +50,29 @@ def setup_logging(output_dir: Optional[str] = None,
 def log_json_stats(logger: logging.Logger, stats: dict) -> None:
     logger.info("json_stats: %s", json.dumps(stats, sort_keys=True,
                                              default=float))
+
+
+class PhaseTimer:
+    """iter/data/net triplet: call ``data_toc`` after batch fetch,
+    ``net_toc`` after device step, ``iter_toc`` at loop end."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t0 = time.perf_counter()
+        self.data_time = 0.0
+        self.net_time = 0.0
+        self.iter_time = 0.0
+
+    def iter_tic(self):
+        self._t0 = time.perf_counter()
+
+    def data_toc(self):
+        self.data_time = time.perf_counter() - self._t0
+
+    def net_toc(self):
+        self.net_time = time.perf_counter() - self._t0 - self.data_time
+
+    def iter_toc(self):
+        self.iter_time = time.perf_counter() - self._t0
