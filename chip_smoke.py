@@ -256,6 +256,9 @@ LSE_TOL = 1e-4
 # ragged S and the MAE decoder's 8 heads; timed at batch 8 at the main
 # paths' shapes (ViT-L and the MAE encoder: 16 heads; the decoder: 8)
 FLASH_CHECK_SHAPES = ((2, 16, 1568), (2, 16, 160), (3, 16, 37), (2, 8, 1568))
+# the finetune CLI's ViT-L attention (phase 22: batch 8 x num_sample 2
+# clips), checked in bf16 forward and backward
+FT_CLI_ATTENTION = (16, 16, 1568)
 FLASH_SHAPES = ((16, 1568), (16, 160), (8, 1568))
 # bf16 vs fp32 backbone features, relative to the largest fp32 feature
 # (measured 5.9e-3 Swin-B, 4.4e-3 ViT-L; features scaled by 0.98 fail)
@@ -1433,12 +1436,13 @@ def phase_backbone_kernels(gen):
                 worst["window_attention"] = max(worst["window_attention"],
                                                 err)
                 cases += 1
-        for b, h, s in FLASH_CHECK_SHAPES:
+        for b, h, s in FLASH_CHECK_SHAPES + (
+                (FT_CLI_ATTENTION,) if dtype == torch.bfloat16 else ()):
             _, err = check_attention(
                 "flash_mha", fm.flash_mha, fm.flash_mha_plain, vit_scores,
                 vit_qkv(b, s, dtype, gen, heads=h), {"sm_scale": 0.125},
                 f"{dtype} [{b}, {h}, {s}, 64]",
-                controls=s == 1568 and h == 16)
+                controls=(b, h, s) == (2, 16, 1568))
             worst["flash_mha"] = max(worst["flash_mha"], err)
             cases += 1
     log(f"[backbone-kernels] {cases} cases (each launch) agree with the "
@@ -1913,7 +1917,8 @@ def phase_training_kernels(gen):
                     del s, bad, ds
                 cases += 1
                 del args, out, lse, do, got, want
-        for b, h, s_len in FLASH_BWD_SHAPES:
+        for b, h, s_len in FLASH_BWD_SHAPES + (
+                (FT_CLI_ATTENTION,) if bf16 else ()):
             args, out, lse, do = flash_bwd_case(b, h, s_len, dtype, gen)
             tag = f"{dtype} [{b}, {h}, {s_len}, 64]"
             got = fm.flash_mha_bwd(*args, out, lse, do, sm_scale=0.125)
@@ -1922,7 +1927,7 @@ def phase_training_kernels(gen):
             worst["flash_mha_bwd"] = max(
                 worst["flash_mha_bwd"],
                 check_grads("flash_mha_bwd", got, want, bf16, tag))
-            if bf16 and s_len == 1568 and h == 16:
+            if bf16 and (b, h, s_len) == (2, 16, 1568):
                 s = vit_scores(*args, sm_scale=0.125)
                 bad = emulated_attention_bwd(s, *args, do, sm_scale=0.125,
                                              drop_delta=True)
@@ -4804,9 +4809,13 @@ def phase_finetune_cli():
 # rank over NCCL (the machine has one card; two ranks run in the CPU tests,
 # tests/test_torch_parallel.py), ``cli.run`` --train (3 steps) with its
 # validation and the dump, detection and recognition, each bit-equal to
-# the same run without a process group.
+# the same run without a process group; then the group's cost on a train
+# step and a dump, each timed alone (``dp_costs``).
 # ---------------------------------------------------------------------------
 DP_STEPS, DP_VAL_BATCHES = 3, 2
+# the one-rank group's cost: train steps and dumps timed one by one after
+# a warm-up, the plain runner before and after the group's
+DP_TIMED, DP_WARMUP = 20, 3
 
 
 def free_port() -> int:
@@ -4814,6 +4823,180 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def join_group_of_one() -> float:
+    """A process group of one rank over NCCL (``multihost.initialize``
+    joins none for one process, as JAX's does); returns its seconds."""
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0)
+    require(torch.distributed.get_backend() == "nccl",
+            f"dp: backend {torch.distributed.get_backend()}")
+    return time.perf_counter() - t0
+
+
+def each_ms(fn, n=DP_TIMED, warmup=DP_WARMUP):
+    """(device ms between CUDA events, wall ms) of each of ``n`` calls of
+    ``fn`` after ``warmup`` calls, each call synchronised."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    dev, wall = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return dev, wall
+
+
+def median(xs):
+    return float(np.median(xs))
+
+
+def dp_timed_runner(variant, train_ds, val_ds, out):
+    """The CLI's runner (banked) and the calls to time: one train step on
+    the split's first batch, and the dump (detection: top-8)."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch.data.device_bank import host_to_device
+    runner = cli.make_runner(cli_args(variant, out), train_ds, val_ds,
+                             device="cuda")
+    bs = runner.tcfg.batch_size
+    batch = runner._tables.batch(host_to_device(
+        torch.arange(bs)[runner._share], runner.device))
+    if variant == "detection":
+        dump = lambda: runner.extract_dense_predictions(  # noqa: E731
+            top_k=CLI_TOPK)
+    else:
+        dump = runner.extract_predictions
+    return (runner, lambda: runner._bank_step(runner.state, batch), dump)
+
+
+class CallEvents:
+    """CUDA events around every call of ``owner.name`` (a module's function
+    or an instance's method, wrapped in place while inside): the device ms
+    that the calls took."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.events = owner, name, []
+
+    def __enter__(self):
+        orig, events = getattr(self.owner, self.name), self.events
+        self.own = self.name in vars(self.owner)
+        self.orig = orig
+
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.owner, self.name, self.orig)
+        else:
+            delattr(self.owner, self.name)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def each_ms_by_call(fn, owners):
+    """``each_ms(fn)`` with the device ms a call of ``fn`` spent in each
+    of ``owners`` ((object, attribute) pairs: the collectives)."""
+    watches = [CallEvents(o, n) for o, n in owners]
+    for w in watches:
+        w.__enter__()
+    try:
+        dev, wall = each_ms(fn)
+    finally:
+        for w in reversed(watches):
+            w.__exit__()
+    calls = DP_WARMUP + DP_TIMED
+    return dev, wall, {w.name: w.ms() / calls for w in watches}
+
+
+def dp_costs(variant, train_ds, val_ds, out):
+    """The one-rank NCCL group's cost on the CLI's runner: the median of
+    ``DP_TIMED`` train steps and dumps, each timed alone, plain (before
+    the group), in the group, plain again. In the group also: the first
+    collective (the communicator); the device ms a step and a dump spend
+    in each collective helper; the gradient bucket alone, and its copy
+    back as one ``_foreach_copy_`` against a ``copy_`` a tensor."""
+    from tim_tpu_torch.parallel import multihost
+    plain, p_step, p_dump = dp_timed_runner(variant, train_ds, val_ds, out)
+    res = {"plain": {"step": each_ms(p_step), "dump": each_ms(p_dump)}}
+    res["group_s"] = join_group_of_one()
+    try:
+        t0 = time.perf_counter()
+        multihost.allreduce_host_array(np.zeros(1))
+        res["first_collective_s"] = time.perf_counter() - t0
+        grouped, g_step, g_dump = dp_timed_runner(variant, train_ds, val_ds,
+                                                  out)
+        mesh = grouped.mesh
+        helpers = [(mesh, "sync_gradients"), (mesh, "all_gather"),
+                   (mesh, "all_reduce_sum"),
+                   (multihost, "allgather_host_arrays"),
+                   (multihost, "allreduce_host_array")]
+        *step, res["step_in_collectives_ms"] = each_ms_by_call(g_step,
+                                                               helpers)
+        *dump, res["dump_in_collectives_ms"] = each_ms_by_call(g_dump,
+                                                               helpers)
+        res["group"] = {"step": step, "dump": dump}
+        params = list(grouped.model.parameters())
+        grads = [torch.zeros_like(p) for p in params]
+        zero = torch.zeros((), device="cuda")
+        for p, g in zip(params, grads):
+            p.grad = g
+        res["group"]["gradient_bucket"] = each_ms(
+            lambda: mesh.sync_gradients(params, [zero]))
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        pieces = [q.view(g.shape) for g, q in
+                  zip(grads, flat.split([g.numel() for g in grads]))]
+        res["group"]["copy_back_foreach"] = each_ms(
+            lambda: torch._foreach_copy_(grads, pieces))
+        res["group"]["copy_back_per_tensor"] = each_ms(
+            lambda: [g.copy_(q) for g, q in zip(grads, pieces)])
+        res["bucket_tensors"] = len(params)
+        res["bucket_mib"] = flat.numel() * flat.element_size() / 2 ** 20
+        grouped.model.zero_grad(set_to_none=True)
+        del flat, pieces, grads
+    finally:
+        multihost.finalize()
+    res["plain_again"] = {"step": each_ms(p_step), "dump": each_ms(p_dump)}
+    del plain, grouped
+    torch.cuda.empty_cache()
+    summary = {k: res[k] for k in (
+        "group_s", "first_collective_s", "bucket_tensors", "bucket_mib",
+        "step_in_collectives_ms", "dump_in_collectives_ms")}
+    for run in ("plain", "group", "plain_again"):
+        for what, (dev, wall) in res[run].items():
+            summary[f"{run}_{what}_ms"] = {"device": median(dev),
+                                           "wall": median(wall)}
+    for what in ("step", "dump"):
+        base = min(summary[f"{run}_{what}_ms"]["device"]
+                   for run in ("plain", "plain_again"))
+        summary[f"group_{what}_extra"] = (
+            summary[f"group_{what}_ms"]["device"] / base - 1.0)
+    log(f"[dp-{variant}] one-rank NCCL cost, medians of {DP_TIMED} calls "
+        f"after {DP_WARMUP} (device ms between CUDA events / wall ms; in "
+        f"collectives: device ms a call): {json.dumps(summary)}")
+    return summary
 
 
 class StepCollectives:
@@ -4913,14 +5096,8 @@ def phase_data_parallel(det_splits, rec_splits):
             plain = dp_runs(variant, train_ds, val_ds, tmp / variant / "plain")
             require(plain[4]["train"] == 0 and plain[4]["dump"] == 0,
                     f"dp-{variant}: collectives without a process group")
-            t0 = time.perf_counter()
-            multihost.initialize(f"localhost:{free_port()}", 1, 0,
-                                 single=True)
-            init_s = time.perf_counter() - t0
+            init_s = join_group_of_one()
             try:
-                require(torch.distributed.get_backend() == "nccl",
-                        f"dp-{variant}: backend "
-                        f"{torch.distributed.get_backend()}")
                 grouped = dp_runs(variant, train_ds, val_ds,
                                   tmp / variant / "group")
             finally:
@@ -4949,6 +5126,9 @@ def phase_data_parallel(det_splits, rec_splits):
                 f"collectives per step {calls['per_step']}, the train run "
                 f"{calls['train']}, the dump {calls['dump']}; seconds "
                 f"plain {plain[4]['seconds']}, NCCL {calls['seconds']}")
+            (tmp / variant / "timed").mkdir()
+            summary[variant]["cost"] = dp_costs(variant, train_ds, val_ds,
+                                                tmp / variant / "timed")
     log("[dp] one card on this machine: two ranks run only in the CPU "
         "tests (tests/test_torch_parallel.py, gloo)")
     log(f"[dp] summary {json.dumps(summary)}")

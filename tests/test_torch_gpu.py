@@ -1068,8 +1068,8 @@ def test_one_rank_nccl_group_leaves_a_detection_run_bit_equal(gen):
     """Through the data-parallel path (collectives over NCCL) with one
     rank: one epoch, validation and the top-2 dump bit-equal to the run
     without a group."""
-    import socket
     from chip_smoke import det_split
+    from tests import torch_parallel_worker as worker
     from tim_tpu_torch.parallel import multihost
     from tim_tpu_torch.runner.detection import DetectionRunner
     cfg = _det_cfg()
@@ -1089,11 +1089,8 @@ def test_one_rank_nccl_group_leaves_a_detection_run_bit_equal(gen):
                        runner.model.state_dict().items()}, dump
 
     want = run()
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     multihost.collective.calls = 0
-    multihost.initialize(f"localhost:{port}", 1, 0, single=True)
+    worker.join_group_of_one("nccl")
     try:
         got = run()
         calls = multihost.collective.calls

@@ -16,6 +16,10 @@ process:
   within 5e-3 relative (as ``tests/test_multihost.py``);
 - ``DetectionRunner``'s top-2 dense dump with 1 and 2 processes: the same
   rows, top-k values within 1e-5;
+- ``cli.run --train`` with ``--num_shards 2 --shard_id r --init_method
+  localhost:PORT --mesh_data 2`` (the command line joins the group) against
+  the same command line in one process, as the runners; rank 0 alone writes
+  the checkpoint;
 - the host helpers against numpy, the collective count, the mesh's
   refusals, the draws of a rank's rows, ``MeshConfig``; a group of one
   rank leaves a run bit-equal to the run without a group.
@@ -23,7 +27,6 @@ process:
 
 import dataclasses
 import os
-import socket
 import subprocess
 import sys
 
@@ -69,12 +72,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _recognition_case():
@@ -163,7 +160,7 @@ def two_ranks(tmp_path_factory):
         cases[kind], references[kind] = make()
     inputs = tmp / "inputs.pt"
     torch.save(cases, inputs)
-    port = str(_free_port())
+    port = str(worker.free_port())
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, WORKER, str(RANKS), str(r), port, str(inputs),
@@ -259,6 +256,23 @@ def test_detection_dump_two_processes_match_one(two_ranks, tag):
             == two_ranks["ranks"][1][f"detection_runner_{tag}"]["normaliser"])
 
 
+def test_cli_with_two_shards_matches_one_process(two_ranks, tmp_path):
+    single = worker.cli_recognition_stats(tmp_path)
+    assert os.path.exists(tmp_path / "checkpoint.pt")
+    for r, rank in enumerate(two_ranks["ranks"]):
+        assert rank["cli_group"] == RANKS
+        assert rank["cli_checkpoint"] == (r == 0)
+        double = rank["cli_recognition"]
+        assert sorted(double) == sorted(single) and single
+        for k, want in single.items():
+            if "top" in k:
+                np.testing.assert_allclose(double[k], want, atol=1e-6,
+                                           err_msg=k)
+            else:
+                np.testing.assert_allclose(double[k], want, rtol=5e-3,
+                                           err_msg=k)
+
+
 def test_host_helpers_over_gloo_match_numpy(two_ranks):
     per_rank = [np.arange(6, dtype=np.float64).reshape(2, 3) + 10 * r
                 for r in range(RANKS)]
@@ -327,8 +341,7 @@ def test_a_group_of_one_rank_leaves_the_runs_bit_equal():
     plain = (worker.detection_runner_digest(True),
              worker.recognition_runner_stats(False))
     multihost.collective.calls = 0
-    multihost.initialize(f"localhost:{_free_port()}", 1, 0, device="cpu",
-                         single=True)
+    worker.join_group_of_one("gloo")
     try:
         grouped = (worker.detection_runner_digest(True),
                    worker.recognition_runner_stats(False))

@@ -4,14 +4,16 @@ and the worker that runs them in several processes over gloo:
     PYTHONPATH=. python tests/torch_parallel_worker.py NPROC RANK PORT \
         INPUTS OUTDIR
 
-Each rank joins the process group at ``localhost:PORT``
-(``parallel.multihost.initialize(device="cpu")``), runs every case on the
-CPU and writes ``OUTDIR/rank<RANK>.pt``. The runner cases are plain
-functions, so the test runs them in one process too. Imports nothing of
-JAX.
+Each rank joins the process group at ``localhost:PORT`` through the TIM
+command line (``cli.run`` with ``--num_shards NPROC --shard_id RANK
+--init_method localhost:PORT --mesh_data NPROC``, gloo on the CPU), runs
+every case on the CPU and writes ``OUTDIR/rank<RANK>.pt``. The runner and
+command-line cases are plain functions, so the test runs them in one
+process too. Imports nothing of JAX.
 """
 
 import os
+import socket
 import sys
 
 import numpy as np
@@ -33,10 +35,27 @@ def _bundle():
         audio_classes=3)
 
 
-def recognition_runner_stats(banked: bool, device="cpu") -> dict:
-    """``RecognitionRunner``: validate, one epoch at batch 8, validate
-    (dropout, mixup and drloc off; the reference worker's setting)."""
-    from tim_tpu_torch.runner.recognition import RecognitionRunner
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def join_group_of_one(backend: str) -> None:
+    """A process group of one rank (``backend`` ``"gloo"`` or ``"nccl"``)
+    on a free localhost port: the data-parallel path whose collectives
+    leave every value as it is. ``multihost.initialize`` joins none for
+    one process, as JAX's does."""
+    import torch.distributed as dist
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+
+
+def _recognition_splits():
+    """(train, validation) ``RecognitionDataset`` of the bundle, without
+    augmentation sampling."""
     b = _bundle()
     ws = pwin.build_recognition_windows(
         pwin.normalize_actions(b["v_actions"], "visual"),
@@ -44,6 +63,34 @@ def recognition_runner_stats(banked: bool, device="cpu") -> dict:
         b["v_feat_times"], num_feats=6, feat_stride=2, feat_gap=0.2)
     stores = (pds.FeatureStore(b["v_feats"], b["v_feat_times"]),
               pds.FeatureStore(b["a_feats"], b["a_feat_times"]))
+    return tuple(pds.RecognitionDataset(ws, *stores,
+                                        sample_augmentations=False)
+                 for _ in range(2))
+
+
+def cli_recognition_stats(out, shard_flags=()) -> dict:
+    """``cli.run --train`` (one epoch at batch 8, then its validation) of
+    a one-layer width-16 recognition model in fp32 on the CPU, dropout,
+    mixup and drloc off; ``shard_flags`` make this process one rank of
+    several (the command line joins the group)."""
+    from tim_tpu_torch import cli
+    args = cli.build_parser().parse_args([
+        "--output_dir", str(out), "--train", "--finetune_epochs", "1",
+        "--warmup_epochs", "0", "--lr", "1e-3", "--num_feats", "6",
+        "--feat_stride", "2", "--d_model", "16", "--nhead", "2",
+        "--num_layers", "1", "--visual_input_dim", "24",
+        "--audio_input_dim", "16", "--compute_dtype", "float32",
+        "--batch-size", "8", "--enc_dropout", "0", "--feat_dropout", "0",
+        "--seq_dropout", "0", "--mixup_alpha", "0", "--lambda_drloc", "0",
+        "--seed", "0", "--print-freq", "100", *shard_flags])
+    stats = cli.run(args, *_recognition_splits(), device="cpu")
+    return {k: float(v) for k, v in stats.items()}
+
+
+def recognition_runner_stats(banked: bool, device="cpu") -> dict:
+    """``RecognitionRunner``: validate, one epoch at batch 8, validate
+    (dropout, mixup and drloc off; the reference worker's setting)."""
+    from tim_tpu_torch.runner.recognition import RecognitionRunner
     cfg = PC.ModelConfig(
         visual_classes=(5, 6, 4), audio_classes=3, visual_input_dim=24,
         audio_input_dim=16, d_model=16, nhead=2, num_layers=1, num_feats=6,
@@ -52,10 +99,8 @@ def recognition_runner_stats(banked: bool, device="cpu") -> dict:
     tcfg = PC.TrainConfig(batch_size=8, epochs=1, warmup_epochs=0, lr=1e-3,
                           mixup_alpha=0.0, lambda_drloc=0.0, seed=0)
     runner = RecognitionRunner(
-        cfg, tcfg, pds.RecognitionDataset(ws, *stores,
-                                          sample_augmentations=False),
-        pds.RecognitionDataset(ws, *stores, sample_augmentations=False),
-        print_freq=100, use_device_bank=banked, device=device)
+        cfg, tcfg, *_recognition_splits(), print_freq=100,
+        use_device_bank=banked, device=device)
     runner.init_state()
     pre = runner.validate()
     runner.train_epoch(0)
@@ -189,12 +234,18 @@ def main():
     nproc, rank, port = (int(a) for a in sys.argv[1:4])
     inputs, outdir = sys.argv[4], sys.argv[5]
     torch.set_num_threads(1)
-    multihost.initialize(f"localhost:{port}", nproc, rank, device="cpu")
+    cli_out = os.path.join(outdir, f"cli{rank}")
+    out = {"cli_recognition": cli_recognition_stats(cli_out, [
+        "--num_shards", str(nproc), "--shard_id", str(rank),
+        "--init_method", f"localhost:{port}", "--mesh_data", str(nproc)])}
+    out["cli_group"] = multihost.process_count()
+    out["cli_checkpoint"] = os.path.exists(
+        os.path.join(cli_out, "checkpoint.pt"))
     from tim_tpu_torch.parallel.mesh import make_mesh
     mesh = make_mesh(-1, 1)
     cases = torch.load(inputs, weights_only=False)
     multihost.collective.calls = 0
-    out = {"helpers": helpers_case(rank)}
+    out["helpers"] = helpers_case(rank)
     out["helper_collectives"] = multihost.collective.calls
     for kind in ("recognition", "detection"):
         multihost.collective.calls = 0

@@ -339,22 +339,16 @@ def load_datasets(args, mcfg, detection: bool):
     return train_ds, val_ds
 
 
-def run(args, train_ds, val_ds, *, device=None):
-    """The run that ``args`` asks for over the given splits (built by
-    ``load_datasets`` or otherwise): the runner on ``device`` (the card by
-    default), its state initialised (``--pretrained_model``), the
-    ``--torch_checkpoint`` and ``--resume`` loaded, then ``--train``
-    (returns the last epoch's validation statistics), ``--validate``
-    (prints and returns the statistics) or ``--extract_feats`` (writes the
-    dump into ``--output_dir`` and returns it). ``--num_shards > 1``: this
-    process is rank ``--shard_id`` (the group joined here unless it was
-    already); rank 0 prints and writes."""
-    from tim_tpu_torch.parallel import multihost
+def make_runner(args, train_ds, val_ds, *, device=None):
+    """The ``DetectionRunner`` or ``RecognitionRunner`` that ``args``
+    configures over the given splits, on ``device`` (the card by default),
+    its state initialised (``--pretrained_model``). ``--num_shards > 1``:
+    this process is rank ``--shard_id`` (the group joined here unless it
+    was already)."""
     check_supported(args)
     initialize(args, device)
-    detection = args.variant == "detection"
     mcfg, tcfg = configs_from_args(args)
-    if detection:
+    if args.variant == "detection":
         from tim_tpu_torch.runner.detection import DetectionRunner as cls
     else:
         from tim_tpu_torch.runner.recognition import RecognitionRunner as cls
@@ -364,6 +358,20 @@ def run(args, train_ds, val_ds, *, device=None):
                  print_freq=args.print_freq,
                  use_device_bank=args.device_bank, device=device)
     runner.init_state(pretrained=args.pretrained_model or None)
+    return runner
+
+
+def run(args, train_ds, val_ds, *, device=None):
+    """The run that ``args`` asks for over the given splits (built by
+    ``load_datasets`` or otherwise): the runner of ``make_runner``, the
+    ``--torch_checkpoint`` and ``--resume`` loaded, then ``--train``
+    (returns the last epoch's validation statistics), ``--validate``
+    (prints and returns the statistics) or ``--extract_feats`` (writes the
+    dump into ``--output_dir`` and returns it). Several processes: rank 0
+    prints and writes."""
+    from tim_tpu_torch.parallel import multihost
+    detection = args.variant == "detection"
+    runner = make_runner(args, train_ds, val_ds, device=device)
     if args.torch_checkpoint:
         import torch
         ckpt = torch.load(args.torch_checkpoint, map_location="cpu",

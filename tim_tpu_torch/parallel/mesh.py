@@ -15,7 +15,8 @@ process group's data axis alone (``DataMesh``):
   takes the same update; ``all_reduce_sum`` and ``all_gather`` serve the
   steps' global counts and batches.
 
-Without a process group the mesh has one rank and no collective runs.
+Without a process group the mesh has one rank and no collective runs:
+the steps take the same path in one process as in many.
 ``shard_batch`` is the device move and ``host_local_rows`` the identity.
 Not here: ``PARTITION_RULES`` and ``param_shardings`` (tensor
 parallelism, ``ROADMAP.md`` queue 1 item 8), ``put_ids`` (TPU machinery:
@@ -94,7 +95,8 @@ class DataMesh:
 
     def _bucketed(self, tensors: Sequence[torch.Tensor], op) -> None:
         """``op(flat)`` on one flat copy of the tensors of each dtype, the
-        result copied back in place (bool travels as uint8)."""
+        result copied back in place by one ``_foreach_copy_`` (a copy a
+        tensor costs a launch each; bool travels as uint8)."""
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
@@ -103,8 +105,9 @@ class DataMesh:
             if dtype == torch.bool:
                 flat = flat.to(torch.uint8)
             op(flat)
-            for t, piece in zip(ts, flat.split([t.numel() for t in ts])):
-                t.copy_(piece.view(t.shape).to(dtype))
+            torch._foreach_copy_(ts, [
+                piece.view(t.shape).to(dtype)
+                for t, piece in zip(ts, flat.split([t.numel() for t in ts]))])
 
     def sync_gradients(self, params: Sequence[torch.nn.Parameter],
                        shares: Sequence[torch.Tensor] = ()
@@ -133,11 +136,6 @@ class DataMesh:
                            lambda flat: collective(dist.broadcast, flat, 0))
 
 
-def distributed(mesh) -> bool:
-    """Whether ``mesh`` (a ``DataMesh`` or None) spans a process group."""
-    return mesh is not None and mesh.distributed
-
-
 def make_mesh(data: int = -1, model: int = 1) -> DataMesh:
     """The data axis over the process group. ``model`` must be 1 (tensor
     parallelism is not ported) and ``data`` -1 or the process count: the
@@ -157,8 +155,6 @@ def make_mesh(data: int = -1, model: int = 1) -> DataMesh:
 def shard_train_state(state, mesh: DataMesh):
     """Rank 0's parameters, buffers, optimizer state and normaliser on
     every rank (in place); returns ``state``."""
-    if not mesh.distributed:
-        return state
     tensors = list(state.model.state_dict().values())
     opt = state.optimizer
     for p_state in opt.state.values():

@@ -50,17 +50,15 @@ def _address(coordinator_address: str) -> str:
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, *, device=None,
-               single: bool = False) -> None:
+               process_id: Optional[int] = None, *, device=None) -> None:
     """Join the process group of ``num_processes`` ranks at
     ``coordinator_address`` (``tcp://host:port`` or ``host:port``) as rank
-    ``process_id``; nothing for one process unless ``single`` (a group of
-    one, whose collectives leave every value as it is). ``device``: None
+    ``process_id``; nothing for one process, as in JAX. ``device``: None
     or a CUDA device for NCCL, each rank on card ``process_id %
     device_count`` (set as the current device, so that ``"cuda"`` means
     it); ``"cpu"`` for gloo."""
     num_processes = num_processes or 1
-    if num_processes <= 1 and not single:
+    if num_processes <= 1:
         return
     process_id = process_id or 0
     if not 0 <= process_id < num_processes:

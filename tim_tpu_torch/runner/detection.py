@@ -1,5 +1,5 @@
-"""Detection training and validation on one device: counterpart of
-``tim_tpu/runner/detection.py``, without a mesh.
+"""Detection training and validation, one card a process: counterpart of
+``tim_tpu/runner/detection.py``.
 
 ``DetectionRunner`` builds the model on its device (the CUDA card unless
 ``device="cpu"`` is asked for; without a card it raises), trains it with

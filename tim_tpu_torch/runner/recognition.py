@@ -1,5 +1,5 @@
-"""Recognition training, validation and prediction dumps on one device:
-counterpart of ``tim_tpu/runner/recognition.py``, without a mesh.
+"""Recognition training, validation and prediction dumps, one card a
+process: counterpart of ``tim_tpu/runner/recognition.py``.
 
 ``RecognitionRunner`` builds a ``TimRecognition`` on its device (the CUDA
 card unless ``device="cpu"`` is asked for; without a card it raises),

@@ -17,20 +17,21 @@ generators seeded from the step's ``dropout_seed`` (``models.tim``). All
 of a step's draws are made by one function (``make_step_draws``), which
 ``make_train_step`` takes as an argument.
 
-Several processes (a distributed ``parallel.mesh.DataMesh``). JAX runs
-one program over the global batch, so its counts are global; here each
-rank holds its rows of the global batch and its loss is its share of the
-global loss: the positive counts of both modalities are summed over the
-ranks (one ``all_reduce``) before the EMA normaliser, which therefore
-stays the same on every rank, and the focal and DIoU sums of the rank's
-rows divide by it; the drloc mean is weighted by the rank's share of the
-rows. The shares' gradients and the loss metrics are then summed over the
-ranks in one bucketed ``all_reduce`` (``DataMesh.sync_gradients``) before
-the optimizer's clip and non-finite skip. The draws are those of the
-global batch: the drloc positions are drawn for it and sliced, the
-dropout masks and the bank's augmentation sets drawn at its shape
+Several processes (``parallel.mesh.DataMesh``). JAX runs one program
+over the global batch, so its counts are global; here each rank holds its
+rows of the global batch and its loss is its share of the global loss:
+the positive counts of both modalities are summed over the ranks (one
+``all_reduce``) before the EMA normaliser, which therefore stays the same
+on every rank, and the focal and DIoU sums of the rank's rows divide by
+it; the drloc mean is weighted by the rank's share of the rows. The
+shares' gradients and the loss metrics are then summed over the ranks in
+one bucketed ``all_reduce`` (``DataMesh.sync_gradients``) before the
+optimizer's clip and non-finite skip. The draws are those of the global
+batch: the drloc positions are drawn for it and sliced, the dropout masks
+and the bank's augmentation sets drawn at its shape
 (``ops.dropout.BatchRows``). The validation step sums its loss shares
-over the ranks. Without a process group nothing of this runs.
+over the ranks. One process is a mesh of one rank: the same code, whose
+collectives leave every value as it is.
 
 Kernels. The train step runs the model with dropout (``deterministic``
 false), so it never reaches kernel 1 (query-block attention) or kernel 2
@@ -53,7 +54,7 @@ from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection
 from tim_tpu_torch.ops import losses as L
 from tim_tpu_torch.ops.dropout import BatchRows
-from tim_tpu_torch.parallel.mesh import distributed
+from tim_tpu_torch.parallel.mesh import DataMesh
 from tim_tpu_torch.train.state import TrainState
 
 
@@ -163,10 +164,10 @@ def _visual_labels(batch, cfg):
 
 def _detection_losses(cls_logits, reg_preds, v_queries, a_queries, batch,
                       cfg, tcfg, normaliser, update_normaliser: bool,
-                      mesh=None):
+                      mesh: DataMesh):
     """Labels the queries and sums the modalities' losses. Returns
-    (total, metrics, normaliser). With a distributed ``mesh`` and
-    ``update_normaliser``, the positive counts are the global batch's."""
+    (total, metrics, normaliser). With ``update_normaliser`` the positive
+    counts are the global batch's (summed over ``mesh``)."""
     labelled = []
     if v_queries is not None:
         labelled.append(("visual", reg_preds[0], Q.label_queries(
@@ -177,7 +178,7 @@ def _detection_losses(cls_logits, reg_preds, v_queries, a_queries, batch,
             a_queries, batch["a_gt_segments"], batch["class_id"][..., None],
             cfg.iou_threshold)))
     counts = [None] * len(labelled)
-    if update_normaliser and distributed(mesh):
+    if update_normaliser:
         counts = list(mesh.all_reduce_sum(torch.stack([
             torch.isfinite(_flat(targets)[:, 0]).sum()
             for _, _, (targets, _, _) in labelled])))
@@ -221,12 +222,14 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
     keys. Each step samples ``num_queries`` (default: the inference grid's
     size) of the fine train pool, shared across the batch. ``draws``
     (default ``make_step_draws``) makes the step's random draws.
-    ``mesh``: a ``parallel.mesh.DataMesh``; distributed, ``batch`` is this
-    rank's rows of the global batch (module docstring)."""
+    ``batch`` is this rank's rows of the global batch; ``mesh``: the
+    ``parallel.mesh.DataMesh`` (default: the process group's; module
+    docstring)."""
     if num_queries is None:
         num_queries = generate_query_pyramid(
             cfg.inference_query_size).shape[0]
     draws = draws or make_step_draws(cfg, tcfg, num_queries)
+    mesh = mesh or DataMesh()
     nv = num_queries if "visual" in cfg.data_modality else 0
     na = num_queries if "audio" in cfg.data_modality else 0
     nf = cfg.num_feats
@@ -234,11 +237,10 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = batch["times"].device
         b = batch["times"].shape[0]
-        rows = mesh.rows(b) if distributed(mesh) else None
-        d = draws(state.step, b if rows is None else rows[1])
-        drloc = d.drloc
-        if rows is not None and drloc is not None:
-            drloc = tuple(p[rows[0]:rows[0] + b] for p in drloc)
+        start, total_rows = mesh.rows(b)
+        d = draws(state.step, total_rows)
+        drloc = (None if d.drloc is None
+                 else tuple(p[start:start + b] for p in d.drloc))
         qs = [None if q is None else host_to_device(q, device)
               for q in (d.v_queries, d.a_queries)]
 
@@ -249,7 +251,8 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
                 te.append(model.encode_times(q[None]).expand(b, -1, -1))
         cls_logits, reg_preds, ctx = model.encoder_forward(
             batch.get("v_feats"), batch.get("a_feats"), torch.cat(te, 1),
-            nv, na, dropout_seed=d.dropout_seed, dropout_rows=rows)
+            nv, na, dropout_seed=d.dropout_seed,
+            dropout_rows=(start, total_rows))
         total, metrics, norm = _detection_losses(
             cls_logits, reg_preds,
             *[None if q is None else q[None].expand(b, -1, -1) for q in qs],
@@ -258,17 +261,15 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
         if tcfg.lambda_drloc > 0.0:
             pairs = ((ctx[:, :nf], ctx[:, nf:2 * nf])
                      if cfg.input_modality == "audio_visual" else (ctx, ctx))
-            dr = L.drloc_loss(drloc, *pairs, model.drloc)
-            if rows is not None:     # this rank's share of the global mean
-                dr = dr * (b / rows[1])
+            # this rank's share of the global mean
+            dr = L.drloc_loss(drloc, *pairs, model.drloc) * (b / total_rows)
             total = total + tcfg.lambda_drloc * dr
             metrics["loss_drloc"] = dr
         metrics["loss"] = total
         total.backward()
         norm = norm.detach()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if rows is not None:
-            metrics = sum_loss_shares(mesh, model, metrics)
+        metrics = sum_loss_shares(mesh, model, {k: v.detach()
+                                                for k, v in metrics.items()})
         metrics["grad_norm"] = state.apply_gradients(normaliser=norm)
         metrics["normaliser"] = norm
         return metrics
@@ -292,13 +293,11 @@ def with_bank_features(batch: Dict[str, torch.Tensor], v_bank, a_bank,
 
 
 def bank_generator(seed: int, step: int, batch: Dict[str, torch.Tensor],
-                   mesh=None):
+                   mesh: DataMesh):
     """The CPU generator of a banked step's augmentation sets, seeded by
-    ``step_seeds(seed, step, 11)``; distributed, it draws the global
-    batch's sets and keeps this rank's rows."""
+    ``step_seeds(seed, step, 11)``: it draws the global batch's sets and
+    keeps this rank's rows."""
     gen = torch.Generator().manual_seed(step_seeds(seed, step, 11)[0])
-    if not distributed(mesh):
-        return gen
     return BatchRows(gen, *mesh.rows(batch["feat_indices"].shape[0]))
 
 
@@ -311,6 +310,7 @@ def make_bank_train_step(model: TimDetection, cfg: DetectionConfig,
     DetectionWindowTables``) in place of the features; one augmentation
     set per token comes from a CPU generator seeded by
     ``step_seeds(tcfg.seed, step, 11)`` (``bank_generator``)."""
+    mesh = mesh or DataMesh()
     base = make_train_step(model, cfg, tcfg, num_queries, draws, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -337,8 +337,10 @@ def make_val_step(model: TimDetection, cfg: DetectionConfig,
                   tcfg: TrainConfig, mesh=None):
     """Returns val_step(state, batch) -> metrics: the losses on the fixed
     inference grid, deterministic (no dropout; kernel 1 on the card). The
-    normaliser is read from the state, not advanced. With a distributed
-    ``mesh`` the ranks' loss shares are summed (one ``all_reduce``)."""
+    normaliser is read from the state, not advanced. The ranks' loss
+    shares are summed over ``mesh`` (one ``all_reduce``; default: the
+    process group's)."""
+    mesh = mesh or DataMesh()
     device = next(model.parameters()).device
     grid = torch.from_numpy(
         generate_query_pyramid(cfg.inference_query_size)).to(device)
@@ -353,12 +355,10 @@ def make_val_step(model: TimDetection, cfg: DetectionConfig,
         total, metrics, _ = _detection_losses(
             cls_logits, reg_preds, queries if nv else None,
             queries if na else None, batch, cfg, tcfg, state.normaliser,
-            False)
+            False, mesh)
         metrics["loss"] = total
-        if distributed(mesh):
-            summed = mesh.all_reduce_sum(torch.stack(list(metrics.values())))
-            metrics = dict(zip(metrics, summed))
-        return metrics
+        summed = mesh.all_reduce_sum(torch.stack(list(metrics.values())))
+        return dict(zip(metrics, summed))
 
     return val_step
 

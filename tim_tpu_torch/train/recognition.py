@@ -14,21 +14,22 @@ permutation from a numpy generator, the drloc positions from a CPU
 dropout masks from device generators seeded from the step's
 ``dropout_seed`` (``models.tim``).
 
-Several processes (a distributed ``parallel.mesh.DataMesh``). JAX mixes
-the global batch (``x[perm]`` reaches across devices) and divides each
-cross entropy by the global batch's count of valid labels. Here each rank
-holds its rows of the global batch: the step gathers the batch's inputs
-and label rows from every rank (``all_gather``), encodes the global
-times, mixes the global batch with the permutation drawn for it and keeps
-its own rows, so that the time MLP's gradient through the mixed-in rows is
-taken where JAX takes it; its loss is its share of the global loss (each
-cross entropy's sum over its rows divided by the global count, the drloc
-mean weighted by its share of the rows). The shares' gradients and the
-loss metrics are summed over the ranks in one bucketed ``all_reduce``
-before the optimizer's clip and non-finite skip. The drloc positions,
-dropout masks and the bank's augmentation sets are drawn for the global
-batch and sliced. The eval step sums each cross entropy's sum and count
-over the ranks (one ``all_reduce``) and divides.
+Several processes (``parallel.mesh.DataMesh``). JAX mixes the global
+batch (``x[perm]`` reaches across devices) and divides each cross entropy
+by the global batch's count of valid labels. Here each rank holds its rows
+of the global batch: the step gathers the batch's inputs and label rows
+from every rank (``all_gather``), encodes the global times, mixes the
+global batch with the permutation drawn for it and keeps its own rows, so
+that the time MLP's gradient through the mixed-in rows is taken where JAX
+takes it; its loss is its share of the global loss (each cross entropy's
+sum over its rows divided by the global count, the drloc mean weighted by
+its share of the rows). The shares' gradients and the loss metrics are
+summed over the ranks in one bucketed ``all_reduce`` before the
+optimizer's clip and non-finite skip. The drloc positions, dropout masks
+and the bank's augmentation sets are drawn for the global batch and
+sliced. The eval step sums each cross entropy's sum and count over the
+ranks (one ``all_reduce``) and divides. One process is a mesh of one
+rank: the same code, whose collectives leave every value as it is.
 
 Kernels. The train step runs the model with dropout, so it never reaches
 kernel 1 (query-block attention) or kernel 2 (the fused tail), as in JAX;
@@ -47,7 +48,7 @@ from tim_tpu_torch.config import ModelConfig, TrainConfig
 from tim_tpu_torch.data.device_bank import host_to_device
 from tim_tpu_torch.models.tim import TimRecognition
 from tim_tpu_torch.ops import losses as L
-from tim_tpu_torch.parallel.mesh import distributed
+from tim_tpu_torch.parallel.mesh import DataMesh
 from tim_tpu_torch.train.detection import (
     bank_generator, step_seeds, sum_loss_shares, with_bank_features)
 from tim_tpu_torch.train.state import TrainState
@@ -57,28 +58,22 @@ def _flat(x):
     return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
-# the batch keys a distributed train step gathers from every rank
+# the batch keys a train step gathers from every rank
 _GATHERED = ("times", "v_feats", "a_feats", "verb", "noun", "action",
              "class_id")
 
 
-def _head_losses(logits, batch, perm, lam: float, cfg: ModelConfig,
-                 tcfg: TrainConfig, shares=None):
-    """The mixup-weighted masked cross entropy of each head. Returns
-    (total, metrics). ``shares`` (several processes): (the global batch,
-    this rank's first row); the mixed-in labels are the global rows
-    ``perm[start:start + b]`` and each mean divides by the global batch's
-    count."""
+def _head_losses(logits, batch, full, start: int, perm, lam: float,
+                 cfg: ModelConfig, tcfg: TrainConfig):
+    """The mixup-weighted masked cross entropy of each head, this rank's
+    share of the global batch ``full`` whose rows ``start:start + b`` are
+    ``batch``: the mixed-in labels are the global rows ``perm[start:start
+    + b]`` and each mean divides by the global batch's count. Returns
+    (total, metrics)."""
     verb_l, noun_l, action_l, audio_l = logits
 
     def mix_ce(head_logits, key):
         labels = batch[key]
-        if shares is None:
-            return L.mixup_cross_entropy(
-                _flat(head_logits), labels.reshape(-1),
-                labels[perm].reshape(-1), lam,
-                label_smoothing=tcfg.label_smoothing)
-        full, start = shares
         mixed = full[key][perm]
         c = head_logits.shape[-1]
         return L.mixup_cross_entropy(
@@ -169,50 +164,43 @@ def make_train_step(model: TimRecognition, cfg: ModelConfig,
 
     ``batch``: tensors on the model's device with the
     ``RecognitionDataset`` keys (``times``, ``v_feats``/``a_feats``, the
-    label rows). ``draws`` (default ``make_step_draws``) makes the step's
-    random draws. ``mesh``: a ``parallel.mesh.DataMesh``; distributed,
-    ``batch`` is this rank's rows of the global batch (module
+    label rows), this rank's rows of the global batch. ``draws`` (default
+    ``make_step_draws``) makes the step's random draws. ``mesh``: the
+    ``parallel.mesh.DataMesh`` (default: the process group's; module
     docstring)."""
     draws = draws or make_step_draws(cfg, tcfg)
+    mesh = mesh or DataMesh()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = batch["times"].device
         b = batch["times"].shape[0]
-        rows = mesh.rows(b) if distributed(mesh) else None
-        d = draws(state.step, b if rows is None else rows[1])
+        start, total_rows = mesh.rows(b)
+        d = draws(state.step, total_rows)
         perm = host_to_device(d.perm, device)
-        drloc, full = d.drloc, batch
-        if rows is not None:
-            full = {k: mesh.all_gather(v) for k, v in batch.items()
-                    if k in _GATHERED}
-            if drloc is not None:
-                drloc = tuple(p[rows[0]:rows[0] + b] for p in drloc)
+        full = {k: mesh.all_gather(v) for k, v in batch.items()
+                if k in _GATHERED}
+        drloc = (None if d.drloc is None
+                 else tuple(p[start:start + b] for p in d.drloc))
         inputs = [full[k] for k, mod in (("v_feats", "visual"),
                                          ("a_feats", "audio"))
                   if mod in cfg.input_modality]
-        mixed = L.mixup(inputs + [model.encode_times(full["times"])],
-                        perm, d.lam)
-        if rows is not None:
-            mixed = [x[rows[0]:rows[0] + b] for x in mixed]
-        *feats, te = mixed
+        *feats, te = [x[start:start + b] for x in L.mixup(
+            inputs + [model.encode_times(full["times"])], perm, d.lam)]
         v = feats[0] if "visual" in cfg.input_modality else None
         a = feats[-1] if "audio" in cfg.input_modality else None
         logits, ctx = model.encoder_forward(
             v, a, te, num_v_queries, num_a_queries,
-            dropout_seed=d.dropout_seed, dropout_rows=rows)
-        total, metrics = _head_losses(
-            logits, batch, perm, d.lam, cfg, tcfg,
-            None if rows is None else (full, rows[0]))
-        dr = _drloc(drloc, ctx, model, cfg, tcfg)
-        if rows is not None:     # this rank's share of the global mean
-            dr = dr * (b / rows[1])
+            dropout_seed=d.dropout_seed, dropout_rows=(start, total_rows))
+        total, metrics = _head_losses(logits, batch, full, start, perm,
+                                      d.lam, cfg, tcfg)
+        # this rank's share of the global mean
+        dr = _drloc(drloc, ctx, model, cfg, tcfg) * (b / total_rows)
         total = total + tcfg.lambda_drloc * dr
         metrics["loss_drloc"] = dr
         metrics["loss"] = total
         total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if rows is not None:
-            metrics = sum_loss_shares(mesh, model, metrics)
+        metrics = sum_loss_shares(mesh, model, {k: v.detach()
+                                                for k, v in metrics.items()})
         metrics["grad_norm"] = state.apply_gradients()
         return metrics
 
@@ -229,6 +217,7 @@ def make_bank_train_step(model: TimRecognition, cfg: ModelConfig,
     per token comes from a CPU generator seeded by
     ``step_seeds(tcfg.seed, step, 11)`` (``train.detection.
     bank_generator``)."""
+    mesh = mesh or DataMesh()
     base = make_train_step(model, cfg, tcfg, num_v_queries, num_a_queries,
                            draws, mesh)
 
@@ -245,17 +234,16 @@ def make_eval_step(model: TimRecognition, cfg: ModelConfig,
     """Returns eval_step(batch) -> (logits, losses): the raw logits [B, Nq,
     C] of each head (in the compute dtype, for the window-vote ensemble)
     and the cross entropy of each head, from the deterministic forward
-    (kernel 1 on the card). With a distributed ``mesh`` the logits are this
-    rank's rows, and each cross entropy is the global batch's: the ranks'
-    sums and valid-label counts summed (one ``all_reduce``), divided."""
+    (kernel 1 on the card). The logits are this rank's rows, and each
+    cross entropy is the global batch's: the ranks' sums and valid-label
+    counts summed (one ``all_reduce``), divided. ``mesh``: as
+    ``make_train_step``'s."""
+    mesh = mesh or DataMesh()
 
     def cross_entropies(heads, batch):
         """The cross entropy of each (label key, logits) of ``heads``."""
         flat = [(_flat(logits), batch[key].reshape(-1))
                 for key, logits in heads]
-        if not distributed(mesh):
-            return [L.cross_entropy(x, y, label_smoothing=tcfg.label_smoothing)
-                    for x, y in flat]
         sums = torch.stack([L.cross_entropy(
             x, y, label_smoothing=tcfg.label_smoothing, reduction="sum")
             for x, y in flat])
