@@ -203,7 +203,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      each bit-equal to the same runs without a process group (statistics,
      every parameter, every dump column); collective calls per train step
      (not 0); kernel 1 six / four times a batch. The machine has one card:
-     two ranks run in the CPU tests only.
+     two NCCL ranks run in the CPU tests only (gloo);
+ 24. tensor and sequence parallelism (``parallel.mesh``'s model axis): two
+     processes on cuda:0 over gloo with CUDA tensors (data 1 x model 2),
+     ``DetectionRunner`` on full-width EPIC detection (6 layers, 3806 + 44
+     classes, S = 898), 3 banked bf16 train steps at a global batch of 16
+     with sequence parallelism off and on and an fp32 2-layer slice, each
+     against the same run in one process (fp32: losses and every parameter
+     within 1e-4 of each largest value; bf16: losses within the paths'
+     gate, top-8 scores within a same-precision gate that two faulty
+     copies of the dump fail); kernel 1 six times a
+     validation batch a rank at [16, 4, 798, 128], its first launch held
+     to its plain version; ``use_fused_ffn`` validation launching kernel 2
+     six times on the gathered FFN weights; the ranks' checkpoint loaded
+     strictly into a one-process ``TimDetection`` with the same validation;
+     ``dryrun_multichip(1)``; step seconds and collectives per step per
+     rank (gloo on one card: not a tensor-parallel speed).
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -5141,6 +5156,348 @@ def phase_data_parallel(det_splits, rec_splits):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: tensor and sequence parallelism on the card. The machine has one
+# card and NCCL refuses two ranks on one device, so two processes share
+# cuda:0 over gloo with CUDA tensors (data 1 x model 2;
+# ``multihost.collective`` stages the collectives gloo has no CUDA route for
+# through host memory, and logs them). ``DetectionRunner`` with
+# ``MeshConfig(1, 2)`` on EPIC detection at full width and depth (encoder
+# 1024, 8 heads, 6 layers, 3806 + 44 classes, S = 898), bf16: 3 banked train
+# steps at a global batch of 16 (a cut: phase 16 trains at 64), the
+# validation of one batch (kernel 1 at [16, 4, 798, 128], six times a rank)
+# and its top-8 dump, with sequence parallelism off and on; an fp32 slice of
+# 2 layers; ``use_fused_ffn`` validation on the trained weights (kernel 2 on
+# the gathered FFN weights). Each against the same runs in one process;
+# then the ranks' checkpoint loaded strictly into a one-process
+# ``TimDetection``, and ``dryrun_multichip(1)``. gloo on one card: the step
+# times are not a tensor-parallel speed.
+# ---------------------------------------------------------------------------
+TP_BATCH, TP_STEPS = 16, 3
+TP_DEVICE = "cuda"
+TP_SCRIPT = os.path.abspath(__file__)    # the ranks run this file
+TP_SLICE_TOL = 1e-4     # fp32 slice: of each tensor's largest value; losses
+# bf16 top-8 scores against bf16 (two ranks vs one process, use_fused_ffn
+# vs the unfused sharded run, the ranks' checkpoint in one process): the
+# same precision, so tighter than BF16_SCORE_TOL (bf16 vs fp32); measured
+# 1.39e-3 to 1.79e-3 (PERF.md, PR 14). Two faulty copies of the dump must
+# lie outside it (``tp_score_controls``).
+TP_SCORE_TOL = 1e-2
+# The key bias's gradient is zero in exact arithmetic (it adds one constant
+# to every score of a query), so both runs step it by Adam on rounding
+# noise: the key third of each in_proj_bias is held to this share of the
+# tensor's largest value instead (measured 1.4e-3 in a CPU run at width 32)
+TP_KEY_BIAS_TOL = 1e-2
+TP_TIMEOUT = 900
+TP_RUNS = {             # name: epic_detection overrides
+    "fp32-slice": dict(compute_dtype="float32", num_layers=2),
+    "bf16": {},
+    "bf16-sp": dict(sequence_parallel=True),
+}
+
+
+def tp_splits():
+    """The phase's train (3 batches) and validation (1 batch) windows,
+    built alike in every process from the seed."""
+    from tim_tpu_torch import config as C
+    cfg = C.epic_detection()
+    rng = np.random.default_rng(SEED + 24)
+    train, val = det_split(cfg, 1, rng), det_split(cfg, 1, rng)
+    return det_subset(train, TP_STEPS * TP_BATCH), det_subset(val, TP_BATCH)
+
+
+def tp_validate(runner):
+    """(validation losses, launches, top-8 dump values, kernel 1's inputs
+    of its first launch), every count set to 0 just before and read just
+    after the validation."""
+    from tim_tpu_torch.ops import attention as att
+    captured = []
+    launch = att.query_block_attention
+
+    def capture(*args):
+        if not captured:
+            captured.append([a.detach().clone() for a in args])
+        return launch(*args)
+
+    att.query_block_attention = capture
+    try:
+        counters = zero_counts()
+        losses = runner.validate()
+        launches = read_counts(counters)
+    finally:
+        att.query_block_attention = launch
+    dump = runner.extract_dense_predictions(top_k=CLI_TOPK)
+    tops = {k: np.asarray(dump[k]) for k in ("action_topk_values",
+                                             "audio_topk_values")}
+    return losses, launches, tops, captured[0] if captured else None
+
+
+def tp_run(name, mesh_cfg, splits, out):
+    """One run of phase 24 in this process (a rank of the group, or one
+    process): 3 train steps, each timed (synchronised) with its metrics and
+    collectives; the validation and dump; kernel 1's first launch against
+    its plain version; the state saved to ``out/name``; the fp32 slice's
+    whole parameters; after ``bf16-sp``, the ``use_fused_ffn``
+    validation."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.ops import query_block_attention as qba
+    from tim_tpu_torch.parallel import multihost
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    from tim_tpu_torch.train import checkpoint as ckpt
+    cfg = C.epic_detection(**TP_RUNS[name])
+    tcfg = C.TrainConfig(batch_size=TP_BATCH, epochs=1, seed=SEED)
+    train_ds, val_ds = splits
+    runner = DetectionRunner(cfg, tcfg, train_ds, val_ds, mesh_cfg=mesh_cfg,
+                             print_freq=1000, use_device_bank=True,
+                             device=TP_DEVICE)
+    runner.init_state()
+    res = {"steps": [], "step_s": [], "collectives": [],
+           "mesh": runner.mesh.shape}
+    step = runner._bank_step
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        calls, t0 = multihost.collective.calls, time.perf_counter()
+        metrics = {k: float(v) for k, v in step(state, batch).items()}
+        torch.cuda.synchronize()
+        res["step_s"].append(time.perf_counter() - t0)
+        res["collectives"].append(multihost.collective.calls - calls)
+        res["steps"].append(metrics)
+        return metrics
+
+    runner._bank_step = timed_step
+    counters = zero_counts()
+    runner.train_epoch(0)
+    res["train_launches"] = read_counts(counters)
+    runner._bank_step = step
+    require(len(res["steps"]) == TP_STEPS,
+            f"tp-{name}: {len(res['steps'])} steps, expected {TP_STEPS}")
+    res["val"], res["val_launches"], res["dump"], args = tp_validate(runner)
+    require(args is not None, f"tp-{name}: kernel 1 never launched")
+    want = qba.query_block_attention_plain(*args)
+    got = qba.query_block_attention(*args)
+    res["qba_shape"] = tuple(args[0].shape)
+    res["qba"] = query_block_close(got, want)
+    ckpt.save_checkpoint(os.path.join(out, name), runner.state, epoch=1)
+    whole = runner.model.full_state_dict()      # every rank gathers
+    if cfg.compute_dtype == "float32" and multihost.is_master():
+        res["params"] = {k: v.detach().cpu() for k, v in whole.items()}
+    if name == "bf16-sp":
+        fused = DetectionRunner(dataclasses.replace(cfg, use_fused_ffn=True),
+                                tcfg, None, val_ds, mesh_cfg=mesh_cfg,
+                                print_freq=1000, use_device_bank=True,
+                                device=TP_DEVICE)
+        fused.load_torch_checkpoint(whole)
+        fused.state.normaliser = runner.state.normaliser.clone()
+        (res["fused_val"], res["fused_launches"], res["fused_dump"],
+         _) = tp_validate(fused)
+        del fused
+    del runner, whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_main(rank: int, port: int, out: str) -> int:
+    """A rank of phase 24: joins the gloo group of two on cuda:0, runs
+    every run of ``TP_RUNS`` and writes ``out/rank<rank>.pt``."""
+    from tim_tpu_torch.config import MeshConfig
+    from tim_tpu_torch.parallel import multihost
+    if TP_DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+        rank=rank)
+    splits = tp_splits()
+    results = {name: tp_run(name, MeshConfig(1, 2), splits, out)
+               for name in TP_RUNS}
+    results["staged"] = sorted(multihost.collective.staged)
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    multihost.finalize()
+    return 0
+
+
+def rel_diff(got, want) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def tp_compare(tag, got, want, loss_tol, score_tol):
+    """Losses of every step and of the validation within ``loss_tol``
+    relative, the top-8 dump values within ``score_tol``; returns the
+    largest differences."""
+    out = {"steps": 0.0, "val": 0.0, "dump": 0.0}
+    for g, w in zip(got["steps"], want["steps"]):
+        for k in w:
+            if k.startswith("loss"):
+                out["steps"] = max(out["steps"], rel_diff(g[k], w[k]))
+    require(sorted(got["val"]) == sorted(want["val"]),
+            f"{tag}: validation keys differ")
+    out["val"] = max(rel_diff(got["val"][k], want["val"][k])
+                     for k in want["val"])
+    out["dump"] = max(float(np.abs(got["dump"][k] - want["dump"][k]).max())
+                      for k in want["dump"])
+    require(out["steps"] <= loss_tol and out["val"] <= loss_tol,
+            f"{tag}: losses differ by {out} (tol {loss_tol})")
+    require(out["dump"] <= score_tol,
+            f"{tag}: top-8 scores differ by {out['dump']} (tol {score_tol})")
+    return out
+
+
+def tp_score_controls(dump):
+    """How far two faulty copies of a top-8 dump lie from it (its windows
+    shifted by one: scores on the wrong windows; each window's top 8 in
+    reverse order: a ranking fault), and its largest score."""
+    def worst(fault):
+        return max(float(np.abs(fault(v) - v).max()) for v in dump.values())
+
+    return {"shifted": worst(lambda v: np.roll(v, 1, axis=0)),
+            "reversed": worst(lambda v: v[..., ::-1]),
+            "largest": max(float(np.abs(v).max()) for v in dump.values())}
+
+
+def phase_tensor_parallel(card: str):
+    """Phase 24; returns the launches of the ranks' paths."""
+    import pathlib
+    import tempfile
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.dryrun import dryrun_multichip
+    from tim_tpu_torch.models import TimDetection
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    summary, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        port = free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, TP_SCRIPT, "--tp-rank", str(r),
+             str(port), str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=TP_TIMEOUT)[0].decode(
+                errors="replace") for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            for line in text.splitlines():
+                if line.startswith(("[", "WARNING", "Traceback")) or \
+                        "staged" in line or "Error" in line:
+                    log(f"[tp rank {r}] {line}")
+            require(p.returncode == 0, f"tp: rank {r} exited "
+                    f"{p.returncode}:\n{text[-4000:]}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"[tp] two ranks on cuda:0 over gloo ({ranks_s:.1f} s); "
+            f"collectives staged through host memory: {ranks[0]['staged']}")
+        splits = tp_splits()
+        one = {name: tp_run(name, C.MeshConfig(), splits, str(tmp / "one"))
+               for name in ("fp32-slice", "bf16")}
+        for r, rank in enumerate(ranks):
+            for name in TP_RUNS:
+                res = rank[name]
+                require(res["mesh"] == {"data": 1, "model": 2},
+                        f"tp-{name}: mesh {res['mesh']}")
+                ok, err, rel = res["qba"]
+                require(res["qba_shape"] == (TP_BATCH, 4, 798, 128) and ok,
+                        f"tp-{name} rank {r}: kernel 1 at {res['qba_shape']} "
+                        f"vs its plain version: max err {err}, rel RMS {rel}")
+                per_batch = C.epic_detection(**TP_RUNS[name]).num_layers
+                require(res["val_launches"]["query_block_attention"]
+                        == per_batch
+                        and res["val_launches"]["fused_post_attention"] == 0,
+                        f"tp-{name} rank {r}: validation launches "
+                        f"{res['val_launches']}")
+                require(res["train_launches"]["query_block_attention"] == 0,
+                        f"tp-{name}: kernel 1 launched in training")
+                require(min(res["collectives"]) > 0,
+                        f"tp-{name}: no collective in a step")
+                log(f"[tp-{name}] rank {r} ({card}; gloo on one card, "
+                    f"not a tensor-parallel speed): step seconds "
+                    f"{[round(x, 4) for x in res['step_s']]}, collectives "
+                    f"per step {res['collectives']}; kernel 1 at "
+                    f"{list(res['qba_shape'])} vs plain: max err {err:.3e}, "
+                    f"rel RMS {rel:.3e}; validation launches "
+                    f"{res['val_launches']}")
+        # the fp32 slice: every loss and parameter within TP_SLICE_TOL
+        got, want = ranks[0]["fp32-slice"], one["fp32-slice"]
+        diff = tp_compare("tp-fp32-slice", got, want, TP_SLICE_TOL,
+                          TP_SLICE_TOL)
+        require(sorted(got["params"]) == sorted(want["params"]),
+                "tp-fp32-slice: parameter names differ")
+        worst, key_bias = 0.0, 0.0
+        for k, w in want["params"].items():
+            err = (got["params"][k] - w).abs()
+            scale = max(w.abs().max().item(), 1e-30)
+            if k.endswith("self_attn.in_proj_bias"):
+                q, key, v = err.chunk(3)
+                key_bias = max(key_bias, key.max().item() / scale)
+                err = torch.cat([q, v])
+            worst = max(worst, err.max().item() / scale)
+        require(worst <= TP_SLICE_TOL and key_bias <= TP_KEY_BIAS_TOL,
+                f"tp-fp32-slice: parameters within {worst} of each largest "
+                f"value (tol {TP_SLICE_TOL}), key biases {key_bias} (tol "
+                f"{TP_KEY_BIAS_TOL})")
+        diff.update(params=worst, key_bias=key_bias)
+        summary["fp32-slice"] = diff
+        for name in ("bf16", "bf16-sp"):
+            summary[name] = tp_compare(f"tp-{name}", ranks[0][name],
+                                       one["bf16"], DET_VAL_PATHS_RTOL,
+                                       TP_SCORE_TOL)
+        controls = tp_score_controls(one["bf16"]["dump"])
+        summary["score_controls"] = controls
+        require(min(controls["shifted"], controls["reversed"])
+                > TP_SCORE_TOL, f"tp: the score gate {TP_SCORE_TOL} passes "
+                f"a faulty dump: {controls}")
+        for name in TP_RUNS:
+            for k in ("steps", "val", "dump"):
+                a, b = ranks[0][name], ranks[1][name]
+                require(a[k] == b[k] if k != "dump" else all(
+                    np.array_equal(a[k][c], b[k][c]) for c in a[k]),
+                    f"tp-{name}: ranks' {k} differ")
+        # use_fused_ffn: kernel 2 on the gathered FFN weights
+        sp = ranks[0]["bf16-sp"]
+        fl = sp["fused_launches"]
+        require(fl["fused_post_attention"] == 6
+                and fl["query_block_attention"] == 6,
+                f"tp-fused: validation launches {fl}")
+        summary["fused"] = tp_compare(
+            "tp-fused", {"steps": [], "val": sp["fused_val"],
+                         "dump": sp["fused_dump"]},
+            {"steps": [], "val": sp["val"], "dump": sp["dump"]},
+            DET_VAL_PATHS_RTOL, TP_SCORE_TOL)
+        # the ranks' checkpoint, strictly into one process
+        payload = torch.load(tmp / "bf16-sp" / "checkpoint.pt",
+                             map_location="cpu", weights_only=True)
+        TimDetection(C.epic_detection(), device=TP_DEVICE).load_state_dict(
+            payload["params"], strict=True)
+        runner = DetectionRunner(
+            C.epic_detection(), C.TrainConfig(batch_size=TP_BATCH, epochs=1,
+                                              seed=SEED),
+            None, splits[1], print_freq=1000, use_device_bank=True,
+            device=TP_DEVICE)
+        runner.load_torch_checkpoint(payload["params"])
+        runner.state.normaliser = payload["normaliser"].to(TP_DEVICE)
+        val, launches, dump, _ = tp_validate(runner)
+        summary["checkpoint"] = tp_compare(
+            "tp-checkpoint", {"steps": [], "val": val, "dump": dump},
+            {"steps": [], "val": sp["val"], "dump": sp["dump"]},
+            DET_VAL_PATHS_RTOL, TP_SCORE_TOL)
+        del runner, one
+        torch.cuda.empty_cache()
+    dry = dryrun_multichip(1, device=TP_DEVICE)
+    dry.pop("errors")
+    summary["dryrun"] = dry
+    log(f"[tp] {card}: every run within its gates; summary "
+        f"{json.dumps(summary)}")
+    for name in TP_RUNS:
+        paths[f"tp-{name}-train"] = ranks[0][name]["train_launches"]
+        paths[f"tp-{name}-val"] = ranks[0][name]["val_launches"]
+    paths["tp-fused-val"] = sp["fused_launches"]
+    return paths
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -5252,6 +5609,8 @@ def main() -> int:
     cli_paths = phase_cli_and_gate(det_splits, rec_val_ds, rec_trained)
     dp_paths = timed("data-parallel", phase_data_parallel, det_splits,
                      (rec_train_ds, rec_val_ds))
+    tp_paths = timed("tensor-parallel", phase_tensor_parallel,
+                     smi.stdout.strip().splitlines()[0])
     del det_splits, rec_train_ds, rec_val_ds, rec_trained
     audio_paths = phase_audio()
     media_paths = phase_media(state_dict, batch2)
@@ -5261,17 +5620,20 @@ def main() -> int:
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
-               **cli_paths, **dp_paths, **audio_paths, **media_paths,
-               **ft_cli_paths}
+               **cli_paths, **dp_paths, **tp_paths, **audio_paths,
+               **media_paths, **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
                  "dp-det-train", "dp-det-dump", "dp-rec-train",
-                 "dp-rec-dump"):
+                 "dp-rec-dump", "tp-bf16-val", "tp-bf16-sp-val",
+                 "tp-fused-val"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
     require(by_path["gate-detection"]["int8_matmul_fused"] > 0,
             "gate-detection: kernel 3 never launched")
+    require(by_path["tp-fused-val"]["fused_post_attention"] > 0,
+            "tp-fused-val: kernel 2 never launched")
     require(by_path["rec-train"]["query_block_attention"] == 0,
             "rec-train: kernel 1 launched")
     for path, kernels in (
@@ -5328,4 +5690,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:     # a rank of phase 24
+        sys.exit(tp_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
     sys.exit(main())

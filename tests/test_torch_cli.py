@@ -4,7 +4,8 @@ the reference-format files of ``tests/test_cli.py``:
 - ``python -m tim_tpu_torch.cli``: ``--validate`` and ``--extract_feats``
   of both variants with ``--torch_checkpoint`` on one saved port model:
   statistics and dumps within 1e-4 of the JAX CLI's; ``--train`` writes
-  a checkpoint that ``--resume`` restores; the multi-GPU flags raise;
+  a checkpoint that ``--resume`` restores; the process grids that one
+  process per card cannot lay out raise, ``--sequence_parallel`` runs;
   the parser, the configurations and the hidden defaults equal JAX's;
   without pandas the loader names it;
 - ``python -m tim_tpu_torch.evals`` against ``python -m tim_tpu.evals`` on
@@ -200,19 +201,31 @@ def test_train_writes_a_checkpoint_that_resume_restores(
 @pytest.mark.parametrize("flags", [
     ["--mesh_data", "3"], ["--num_shards", "2", "--shard_id", "2"],
     ["--mesh_model", "2"], ["--sequence_parallel", "true"]])
-def test_multi_gpu_flags_raise(flags, tmp_path):
-    """Tensor and sequence parallelism are not ported: they raise
-    ``NotImplementedError`` naming the ROADMAP item. A data axis other than
-    -1 or ``--num_shards``, or a shard id outside ``[0, num_shards)``, does
-    not fit one process per card: ``ValueError``. (``--num_shards 2`` and
-    ``--mesh_data 2`` run: ``tests/test_torch_parallel.py``.)"""
-    if flags[0] in ("--mesh_model", "--sequence_parallel"):
-        error, match = NotImplementedError, "item 8"
-    else:
-        error, match = ValueError, "one process per card|shard_id"
-    with pytest.raises(error, match=match):
-        pcli.main(["--validate", "--output_dir", str(tmp_path)] + flags,
-                  device="cpu")
+def test_multi_gpu_flags_raise(flags, disk_bundle, checkpoints,  # noqa: F811
+                               tiny_configs, tmp_path, capsys):
+    """The process grids that one process per card cannot lay out raise
+    ``ValueError``: a data axis other than -1 or ``--num_shards /
+    --mesh_model``, a shard id outside ``[0, num_shards)``, a model axis
+    that does not divide ``--num_shards`` (here 1). ``--sequence_parallel
+    true`` runs: in one process (no model axis) ``--validate`` gives the
+    statistics of the run without it. (``--num_shards 2 --mesh_model 2``
+    with and without sequence parallelism run over two ranks:
+    ``tests/test_torch_tensor_parallel.py``.)"""
+    if flags[0] != "--sequence_parallel":
+        with pytest.raises(ValueError, match="one process per card|shard_id|"
+                           "does not divide"):
+            pcli.main(["--validate", "--output_dir", str(tmp_path)] + flags,
+                      device="cpu")
+        return
+    argv = (_common_args(disk_bundle, tmp_path)
+            + ["--torch_checkpoint", str(checkpoints["recognition"]),
+               "--validate"])
+    want = pcli.main(argv, device="cpu")
+    got = pcli.main(argv + flags, device="cpu")
+    capsys.readouterr()
+    assert sorted(got) == sorted(want) and want
+    for k in want:
+        assert got[k] == want[k], k
 
 
 def test_parser_has_the_jax_flags():

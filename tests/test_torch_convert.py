@@ -180,7 +180,7 @@ def test_serve_imports_no_jax():
                    "extract.media", "extract.tables", "models.fused",
                    "extract.clips", "extract.finetune_cli", "parallel",
                    "parallel.mesh", "parallel.multihost", "utils.memory",
-                   "utils.profiling"):
+                   "utils.profiling", "dryrun"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"

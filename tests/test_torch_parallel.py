@@ -21,8 +21,9 @@ process:
   the same command line in one process, as the runners; rank 0 alone writes
   the checkpoint;
 - the host helpers against numpy, the collective count, the mesh's
-  refusals, the draws of a rank's rows, ``MeshConfig``; a group of one
-  rank leaves a run bit-equal to the run without a group.
+  refusals (a model axis that does not divide one process), the draws of
+  a rank's rows, ``MeshConfig``; a group of one rank leaves a run
+  bit-equal to the run without a group.
 """
 
 import dataclasses
@@ -304,7 +305,10 @@ def test_helpers_are_the_identity_without_a_group():
 
 
 def test_mesh_refuses_what_one_process_per_card_cannot_run():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """A model axis that does not divide the processes and a data axis
+    other than -1 or their count over it raise; ``make_mesh(-1, 2)`` runs
+    over two ranks (``tests/test_torch_tensor_parallel.py``)."""
+    with pytest.raises(ValueError, match="must divide the process count"):
         pmesh.make_mesh(-1, 2)
     with pytest.raises(ValueError, match="one process per card"):
         pmesh.make_mesh(3, 1)

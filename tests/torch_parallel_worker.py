@@ -1,8 +1,10 @@
 """Cases of the port's data-parallel tests (``tests/test_torch_parallel.py``)
-and the worker that runs them in several processes over gloo:
+and model-axis tests (``tests/test_torch_tensor_parallel.py``, with
+``model2``: two ranks at data 1 x model 2) and the worker that runs them
+in several processes over gloo:
 
     PYTHONPATH=. python tests/torch_parallel_worker.py NPROC RANK PORT \
-        INPUTS OUTDIR
+        INPUTS OUTDIR [model2]
 
 Each rank joins the process group at ``localhost:PORT`` through the TIM
 command line (``cli.run`` with ``--num_shards NPROC --shard_id RANK
@@ -166,47 +168,80 @@ def _fixed_draws(cls, total: int, **fields):
     return draws
 
 
-def train_step_case(kind: str, case: dict, mesh) -> dict:
-    """One train step of ``case`` (built by the test: configs, weights,
-    the global batch, the draws) on this rank's rows."""
+def train_state_case(kind: str, case: dict, mesh):
+    """(model, train state, train step) of ``case`` (built by the test:
+    configs, weights, the global batch, the draws) on ``mesh``: the model
+    built whole and sharded over its model axis, the weights loaded."""
     from tim_tpu_torch.models.tim import TimDetection, TimRecognition
     from tim_tpu_torch.train import detection as pdet
     from tim_tpu_torch.train import recognition as prec
     from tim_tpu_torch.train.optim import make_optimizer
     from tim_tpu_torch.train.state import create_train_state
     tcfg = PC.TrainConfig(**case["tcfg"])
-    batch = case["batch"]
-    total = len(batch["times"])
-    local = total // mesh.size
-    rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
-    mine = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
-            for k, v in batch.items()}
+    total = len(case["batch"]["times"])
     d = case["draws"]
     if kind == "detection":
         cfg = PC.DetectionConfig(**case["cfg"])
-        model = TimDetection(cfg, device="cpu")
+        model = TimDetection(cfg, device="cpu", mesh=mesh)
         draws = _fixed_draws(pdet.StepDraws, total, v_queries=d["v_queries"],
                              a_queries=d["a_queries"], drloc=d["drloc"],
                              dropout_seed=0)
-        make = lambda m: pdet.make_train_step(  # noqa: E731
-            m, cfg, tcfg, draws=draws, mesh=mesh)
+        step = pdet.make_train_step(model, cfg, tcfg, draws=draws, mesh=mesh)
     else:
         cfg = PC.ModelConfig(**case["cfg"])
-        model = TimRecognition(cfg, device="cpu")
+        model = TimRecognition(cfg, device="cpu", mesh=mesh)
         draws = _fixed_draws(prec.StepDraws, total, perm=d["perm"],
                              lam=d["lam"], drloc=d["drloc"], dropout_seed=0)
-        make = lambda m: prec.make_train_step(  # noqa: E731
-            m, cfg, tcfg, case["nv"], case["na"], draws=draws, mesh=mesh)
+        step = prec.make_train_step(model, cfg, tcfg, case["nv"], case["na"],
+                                    draws=draws, mesh=mesh)
     model.load_state_dict(case["state_dict"], strict=True)
     state = create_train_state(model, make_optimizer(
         model.parameters(), tcfg.lr, tcfg.weight_decay, case["total_steps"],
         case["warmup_steps"], min_lr=tcfg.min_lr, clip_norm=tcfg.clip_norm),
         normaliser=tcfg.normaliser_init)
-    metrics = make(model)(state, mine)
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "params": {k: v.detach().clone()
-                       for k, v in model.named_parameters()},
-            "normaliser": float(state.normaliser)}
+    return model, state, step
+
+
+def train_step_case(kind: str, case: dict, mesh, save_to=None) -> dict:
+    """One train step of ``case`` on this rank's rows (of its data
+    group); the whole parameters after it, the gradients it applied
+    (``grads``: this rank's slices of the sharded ones) and, with
+    ``save_to``, the state saved there (``train.checkpoint``)."""
+    model, state, step = train_state_case(kind, case, mesh)
+    batch = case["batch"]
+    rows = mesh.share(len(batch["times"]))
+    mine = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
+            for k, v in batch.items()}
+    grads = {}
+    apply = state.optimizer.step
+
+    def recorded():
+        grads.update({k: v.grad.clone() for k, v in model.named_parameters()
+                      if v.grad is not None})
+        return apply()
+
+    state.optimizer.step = recorded
+    metrics = step(state, mine)
+    names = dict(model.named_parameters())
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "params": {k: v.clone() for k, v in
+                      model.full_state_dict().items() if k in names},
+           "grads": grads, "sharded": dict(model.shard_specs),
+           "tokens_sharded": model.encoder.tokens_sharded,
+           "normaliser": float(state.normaliser)}
+    if save_to is not None:
+        from tim_tpu_torch.train import checkpoint as ckpt
+        ckpt.save_checkpoint(save_to, state, epoch=1)
+    return out
+
+
+def resave_case(kind: str, case: dict, mesh, src: str, dst: str) -> None:
+    """Resume ``case``'s state from the checkpoint at ``src`` and save it
+    to ``dst`` (on a model axis: sliced on load, gathered on save)."""
+    from tim_tpu_torch.train import checkpoint as ckpt
+    _, state, _ = train_state_case(kind, case, mesh)
+    ckpt.restore_train_state(state, ckpt.load_checkpoint(src))
+    ckpt.save_checkpoint(dst, state, epoch=1)
 
 
 def helpers_case(rank: int) -> dict:
@@ -230,10 +265,50 @@ def helpers_case(rank: int) -> dict:
     return out
 
 
+def tensor_parallel_main(rank: int, port: int, inputs: str, outdir: str):
+    """The cases of ``tests/test_torch_tensor_parallel.py`` on two ranks
+    at data 1 x model 2: the command line with ``--mesh_model 2
+    --sequence_parallel true`` (it joins the group), then each train step
+    case with sequence parallelism off and on, the checkpoint cases and
+    the sharding of each ``rules`` configuration."""
+    from tim_tpu_torch.models.tim import TimDetection, TimRecognition
+    from tim_tpu_torch.parallel.mesh import make_mesh
+    cli_out = os.path.join(outdir, f"cli{rank}")
+    out = {"cli": cli_recognition_stats(cli_out, [
+        "--num_shards", "2", "--shard_id", str(rank), "--init_method",
+        f"localhost:{port}", "--mesh_model", "2",
+        "--sequence_parallel", "true"])}
+    mesh = make_mesh(-1, 2)
+    out["mesh"] = (mesh.shape, mesh.data_rank, mesh.model_rank)
+    cases = torch.load(inputs, weights_only=False)
+    for name, (kind, case) in cases["steps"].items():
+        multihost.collective.calls = 0
+        save_to = (os.path.join(outdir, f"ckpt_{name}")
+                   if name == cases["save"] else None)
+        out[name] = train_step_case(kind, case, mesh, save_to)
+        out[name]["collectives"] = multihost.collective.calls
+    kind, case = cases["steps"][cases["save"]]
+    resave_case(kind, case, mesh, cases["resave_from"],
+                os.path.join(outdir, "ckpt_resaved"))
+    out["rules"] = {}
+    for name, (kind, cfg) in cases["rules"].items():
+        cls = TimDetection if kind == "detection" else TimRecognition
+        cfg = (PC.DetectionConfig if kind == "detection"
+               else PC.ModelConfig)(**cfg)
+        model = cls(cfg, device="cpu", mesh=mesh)
+        out["rules"][name] = {k: tuple(v.shape)
+                              for k, v in model.named_parameters()}
+    multihost.barrier("done")
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    multihost.finalize()
+
+
 def main():
     nproc, rank, port = (int(a) for a in sys.argv[1:4])
     inputs, outdir = sys.argv[4], sys.argv[5]
     torch.set_num_threads(1)
+    if sys.argv[6:] == ["model2"]:
+        return tensor_parallel_main(rank, port, inputs, outdir)
     cli_out = os.path.join(outdir, f"cli{rank}")
     out = {"cli_recognition": cli_recognition_stats(cli_out, [
         "--num_shards", str(nproc), "--shard_id", str(rank),

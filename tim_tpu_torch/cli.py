@@ -18,7 +18,8 @@ raises without one) or, when asked, on the CPU, and then trains
 released reference checkpoint strictly (the port uses its parameter
 names); ``--resume`` continues from a checkpoint ``--train`` wrote.
 
-Several processes, one card each (data parallelism):
+Several processes, one card each (data, tensor and sequence
+parallelism):
 
     python -m tim_tpu_torch.cli ... --num_shards 2 --shard_id 0 \
         --init_method tcp://host0:29500     # and --shard_id 1 beside it
@@ -26,12 +27,14 @@ Several processes, one card each (data parallelism):
 ``--num_shards > 1`` joins the process group at ``--init_method``
 (``tcp://host:port`` or ``host:port``) as rank ``--shard_id`` before the
 first device query (``parallel.multihost.initialize``: NCCL, each rank on
-card ``shard_id % device_count``; gloo for ``device="cpu"``); the runners
-then split every batch of ``--batch-size`` windows across the ranks.
-``--mesh_data`` takes -1 or ``--num_shards``. Not ported yet
-(``ROADMAP.md``, queue 1 item 8: tensor and sequence parallelism):
-``--mesh_model > 1`` and ``--sequence_parallel true`` raise
-``NotImplementedError``.
+card ``shard_id % device_count``; gloo for ``device="cpu"``). The
+processes form a ``--mesh_data`` x ``--mesh_model`` mesh
+(``parallel.mesh``): ``--mesh_model M`` (dividing ``--num_shards``) puts
+the encoder's heads and FFN units and the divisible class heads over
+groups of M consecutive ranks, ``--sequence_parallel true`` the
+encoder's post-LN regions on token shards over them; the runners split
+every batch of ``--batch-size`` windows across the data axis
+(``--mesh_data``: -1 or ``--num_shards / --mesh_model``).
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ from pathlib import Path
 import numpy as np
 
 from tim_tpu_torch import config as C
-from tim_tpu_torch.parallel.mesh import TENSOR_PARALLEL as _ROADMAP
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,11 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coordinator address (tcp://host:port or "
                         "host:port)")
     p.add_argument("--mesh_data", type=int, default=-1,
-                   help="data-parallel mesh axis (-1 or --num_shards: one "
-                        "process per card)")
+                   help="data-parallel mesh axis (-1 or --num_shards / "
+                        "--mesh_model: one process per card)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel mesh axis (not ported: another "
-                        "value raises)")
+                   help="tensor-parallel mesh axis (divides --num_shards)")
     p.add_argument("--device_bank", type=_str2bool, default=False,
                    help="keep the splits resident in device memory and "
                         "gather windows on the device")
@@ -145,8 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fast_scores", type=_str2bool, default=False,
                    help="bf16 attention scores/softmax (serving knob)")
     p.add_argument("--sequence_parallel", type=_str2bool, default=False,
-                   help="shard the token axis over the model mesh axis "
-                        "(not ported: true raises)")
+                   help="shard the token axis over the model mesh axis")
     p.add_argument("--remat", type=_str2bool, default=False,
                    help="recompute encoder layers in the backward "
                         "(memory <-> FLOPs trade)")
@@ -160,26 +160,22 @@ def _str2bool(v):
 
 
 def check_supported(args) -> None:
-    """Raise for the parallel options the port does not run:
-    ``NotImplementedError`` for tensor and sequence parallelism,
-    ``ValueError`` for a shard or data axis that does not fit
-    ``--num_shards`` (one process per card)."""
-    if args.mesh_model != 1:
-        raise NotImplementedError(
-            f"--mesh_model {args.mesh_model}: tensor parallelism is not "
-            f"ported yet ({_ROADMAP})")
-    if args.sequence_parallel:
-        raise NotImplementedError(
-            f"--sequence_parallel: sequence parallelism is not ported yet "
-            f"({_ROADMAP})")
+    """Raise ``ValueError`` for a process grid that one process per card
+    cannot lay out: a shard id outside ``--num_shards``, a model axis
+    that does not divide it, a data axis other than -1 or
+    ``--num_shards / --mesh_model``."""
     if args.num_shards < 1 or not 0 <= args.shard_id < args.num_shards:
         raise ValueError(f"--shard_id {args.shard_id} outside [0, "
                          f"--num_shards {args.num_shards})")
-    if args.mesh_data not in (-1, args.num_shards):
+    if args.mesh_model < 1 or args.num_shards % args.mesh_model:
+        raise ValueError(f"--mesh_model {args.mesh_model} does not divide "
+                         f"--num_shards {args.num_shards}")
+    data = args.num_shards // args.mesh_model
+    if args.mesh_data not in (-1, data):
         raise ValueError(
             f"--mesh_data {args.mesh_data}: the port runs one process per "
-            f"card, so the data axis is -1 or --num_shards "
-            f"({args.num_shards})")
+            f"card, so the data axis is -1 or --num_shards / --mesh_model "
+            f"({data})")
 
 
 def initialize(args, device=None) -> None:

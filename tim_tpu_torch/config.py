@@ -6,9 +6,7 @@ in both packages (tests pin the two to equality). ``TrainConfig`` leaves
 out the JAX package's two TPU-only fields, ``xla_fusion_cost_model`` and
 ``rng_impl`` (XLA compiler options and the TPU's random-bit generator).
 
-Frozen dataclasses (hashable); presets are plain functions. Fields whose
-code paths are not ported yet are kept, and the models (``models.tim``)
-refuse values they cannot run.
+Frozen dataclasses (hashable); presets are plain functions.
 
 ``quant_act_scales`` holds (module name, scale) pairs under the port's
 module names (``backbone.layers.0.self_attn.in_proj`` in detection,
@@ -153,8 +151,8 @@ class TrainConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh layout: ``data`` shards the batch over the processes
-    (one card each; -1: all of them), ``model`` the tensor-parallel axis
-    (``parallel.mesh.make_mesh`` takes 1 only)."""
+    (one card each; -1: the process count over ``model``), ``model`` the
+    tensor-parallel axis (``parallel.mesh.make_mesh``)."""
 
     data: int = -1
     model: int = 1

@@ -1,6 +1,6 @@
 """Window-vote ensembling and validation accumulators: a copy of
 ``tim_tpu/evals/meters.py``; ``reduce_across_processes`` merges the ranks'
-accumulators over ``torch.distributed`` (``parallel.multihost``) in two
+accumulators over a mesh's data group (``parallel.mesh.Mesh``) in two
 collectives, the sums in float64.
 
 The reference's characteristic eval mechanic
@@ -72,22 +72,22 @@ class WindowVoteAccumulator:
             np.add.at(self.seen, ids, 1.0)
             self.a_labels[ids] = labels["class_id"].reshape(-1)[valid]
 
-    def reduce_across_processes(self) -> None:
-        """Merge the ranks' accumulators: logit sums and seen-counts add
+    def reduce_across_processes(self, mesh) -> None:
+        """Merge the ranks' accumulators over ``mesh``'s data group (its
+        model ranks hold the same votes): logit sums and seen-counts add
         (each action may be voted on from several ranks; float64, summed
         by the collective, no atomics), labels take the max (-1 where
-        unseen). No-op without a process group."""
-        from tim_tpu_torch.parallel.multihost import allreduce_host_array
+        unseen). No-op on one data rank."""
         heads = list(self.sums)
         parts = [self.sums[h] for h in heads] + [self.seen]
-        flat = allreduce_host_array(
+        flat = mesh.allreduce_host_array(
             np.concatenate([p.reshape(-1) for p in parts]), "sum")
         pieces = np.split(flat, np.cumsum([p.size for p in parts])[:-1])
         for h, piece in zip(heads, pieces):
             self.sums[h] = piece.reshape(self.sums[h].shape)
         self.seen = pieces[-1]
         n_v = self.v_labels.size
-        labels = allreduce_host_array(np.concatenate(
+        labels = mesh.allreduce_host_array(np.concatenate(
             [self.v_labels.reshape(-1), self.a_labels]), "max")
         self.v_labels = labels[:n_v].reshape(self.v_labels.shape)
         self.a_labels = labels[n_v:]

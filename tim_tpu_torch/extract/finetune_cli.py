@@ -28,8 +28,8 @@ when asked, on the CPU:
   the encoder of a checkpoint that ``--mode pretrain`` wrote
   (``checkpoint.pt``) into the trunk (the MAE encoder's names are the
   ViT's: every ``blocks.{i}`` entry loads, ``fc_norm`` keeps its init).
-  A JAX ``.msgpack`` checkpoint is not read (the msgpack and orbax
-  backends: ``ROADMAP.md`` queue 1 item 8).
+  A JAX ``.msgpack`` checkpoint is not read (the msgpack reader:
+  ``ROADMAP.md`` queue 1 item 8).
 
 Each mode ends with ``train.checkpoint.save_checkpoint`` and returns its
 statistics. The ViT's attention is kernel 5 (and 5b) on the card and its
@@ -53,7 +53,7 @@ import torch
 
 from tim_tpu_torch.train import checkpoint as ckpt
 
-_BACKENDS = "ROADMAP.md, queue 1 item 8: the msgpack and orbax backends"
+_BACKENDS = "ROADMAP.md, queue 1 item 8: the msgpack reader"
 
 
 def build_parser():

@@ -160,6 +160,52 @@ def linear(x, weight, bias, dtype: torch.dtype, *, rounding: str,
     return exact_gelu(y) if gelu else y
 
 
+class _ProductF32(torch.autograd.Function):
+    """bf16 x [M, K] . w [N, K]^T into an fp32 output on the card
+    (``torch.mm`` with ``out_dtype``); dx and dw from the output gradient
+    in bf16, as ``_LinearF32Bias`` takes them (the gradient of a bf16
+    output, so the cast is exact)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        need = ctx.needs_input_grad
+        return (g.mm(w) if need[0] else None,
+                g.t().mm(x) if need[1] else None)
+
+
+def row_parallel_linear(x, weight, bias, dtype: torch.dtype, *,
+                        rounding: str, reduce):
+    """A linear whose input columns are split over the model ranks: this
+    rank's partial product x . weight^T in fp32 (operands in ``dtype``),
+    ``reduce`` (the sum over the ranks: ``Mesh.reduce_from_model`` or
+    ``scatter_tokens``), then the bias added once and rounded once as
+    ``linear``'s ``rounding`` does it after one fp32 sum."""
+    if rounding not in (TORCH_LINEAR, DENSE):
+        raise ValueError(f"rounding {rounding!r} not in "
+                         f"{(TORCH_LINEAR, DENSE)}")
+    x, w = x.to(dtype), weight.to(dtype)
+    if dtype != torch.float32 and x.device.type == "cuda":
+        y = _ProductF32.apply(x.reshape(-1, x.shape[-1]), w).view(
+            *x.shape[:-1], w.shape[0])
+    else:
+        y = F.linear(x.float(), w.float())
+    y = reduce(y)
+    if dtype == torch.float32:
+        return y if bias is None else y + bias
+    if bias is None:
+        return y.to(dtype)
+    if rounding == DENSE:
+        return y.to(dtype) + bias.to(dtype)
+    return (y + bias.float()).to(dtype)
+
+
 def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
     with torch.no_grad():
         return t.uniform_(-bound, bound, generator=generator)
@@ -191,7 +237,12 @@ class TorchLinear(nn.Module):
             bias.fill_(bias_value)
         self.bias = nn.Parameter(bias)
 
-    def forward(self, x, gelu: bool = False):
+    def forward(self, x, gelu: bool = False, reduce=None):
+        """``reduce``: the layer is row-parallel, this rank holding a slice
+        of its input columns (``row_parallel_linear``)."""
+        if reduce is not None:
+            return row_parallel_linear(x, self.weight, self.bias, self.dtype,
+                                       rounding=self.rounding, reduce=reduce)
         return linear(x, self.weight, self.bias, self.dtype,
                       rounding=self.rounding, gelu=gelu)
 

@@ -8,6 +8,11 @@ JAX). The detection classifier shares the visual query tokens across its verb/no
 linears, whose bias starts at the RetinaNet focal prior; the regression
 head is a 3-layer sigmoid MLP per modality giving a normalised
 [start, end]. Outputs keep the [B, Nq, C] shape.
+
+On a model axis (``shard``) a class linear whose class count the axis
+divides is column-parallel: this rank's classes from its slice of the
+weight and bias, the logits gathered over the model ranks (a slice of
+the gradient backward) before the losses; the others stay replicated.
 """
 
 from __future__ import annotations
@@ -29,7 +34,28 @@ def _query_slices(s: int, num_v_queries: int, num_a_queries: int):
     return aud_start - num_v_queries, aud_start
 
 
-class RecognitionClsHead(nn.Module):
+class _ClassLinears(nn.Module):
+    """The class linears of a head, each applied by ``_fc``: replicated,
+    or column-parallel once ``shard`` names it."""
+
+    mesh = None
+    sharded = frozenset()
+
+    def shard(self, mesh, names) -> None:
+        """Run the linears ``names`` (this rank holds a slice of their
+        classes) column-parallel on ``mesh``'s model axis."""
+        self.mesh, self.sharded = mesh, frozenset(names)
+
+    def _fc(self, name: str, x):
+        """``name``'s logits [..., C] of ``x``."""
+        fc = getattr(self, name)
+        if name not in self.sharded:
+            return fc(x)
+        return self.mesh.gather_from_model(fc(self.mesh.copy_to_model(x)),
+                                           x.dim() - 1)
+
+
+class RecognitionClsHead(_ClassLinears):
     """``fc_visual_{verb,noun,action}`` and ``fc_audio_action`` over the
     tail-sliced CLS tokens; ``visual_classes`` (action,) or (verb, noun,
     action), ``audio_classes`` an int or None. With ``quantized`` each is
@@ -65,15 +91,16 @@ class RecognitionClsHead(nn.Module):
             if self.include_vn:
                 noun_start = act_start - num_v_queries
                 verb_start = noun_start - num_v_queries
-                verb = self.fc_visual_verb(x[:, verb_start:noun_start])
-                noun = self.fc_visual_noun(x[:, noun_start:act_start])
-            action = self.fc_visual_action(x[:, act_start:aud_start])
+                verb = self._fc("fc_visual_verb",
+                                x[:, verb_start:noun_start])
+                noun = self._fc("fc_visual_noun", x[:, noun_start:act_start])
+            action = self._fc("fc_visual_action", x[:, act_start:aud_start])
         if hasattr(self, "fc_audio_action") and num_a_queries > 0:
-            audio = self.fc_audio_action(x[:, aud_start:])
+            audio = self._fc("fc_audio_action", x[:, aud_start:])
         return verb, noun, action, audio
 
 
-class DetectionClsHead(nn.Module):
+class DetectionClsHead(_ClassLinears):
     """``fc_visual_{verb,noun,action}`` and ``fc_audio_action``; with
     ``quantized`` each is an ``Int8Dense``, fused (kernel 3 on the card
     once its static scale is set) with ``pallas_fused``."""
@@ -109,11 +136,11 @@ class DetectionClsHead(nn.Module):
         if hasattr(self, "fc_visual_action") and num_v_queries > 0:
             vx = x[:, vis_start:aud_start]
             if self.include_vn:
-                verb = self.fc_visual_verb(vx)
-                noun = self.fc_visual_noun(vx)
-            action = self.fc_visual_action(vx)
+                verb = self._fc("fc_visual_verb", vx)
+                noun = self._fc("fc_visual_noun", vx)
+            action = self._fc("fc_visual_action", vx)
         if hasattr(self, "fc_audio_action") and num_a_queries > 0:
-            audio = self.fc_audio_action(x[:, aud_start:])
+            audio = self._fc("fc_audio_action", x[:, aud_start:])
         return verb, noun, action, audio
 
 

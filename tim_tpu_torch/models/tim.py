@@ -18,11 +18,21 @@ generator seeded ``dropout_seed``, encoder layer i's from one seeded
 ``dropout_rows`` (this rank's first row, the global batch's rows) each
 mask is drawn for the global batch and this rank keeps its rows
 (``ops.dropout.BatchRows``).
+
+``mesh`` (a ``parallel.mesh.Mesh`` of several model ranks): the model is
+built whole from the generator on every rank, then each rank keeps its
+slices of the parameters that ``parallel.mesh.PARTITION_RULES`` shard
+(``shard_specs``: the encoder's heads and FFN units, the divisible class
+heads' classes; the rest stays replicated), and the encoder and class
+heads run on the model axis (``models.transformer``, ``models.heads``),
+with ``cfg.sequence_parallel`` the encoder's post-LN regions on a token
+shard. ``load_state_dict`` takes the reference's whole tensors and keeps
+this rank's slices; ``full_state_dict`` gathers them back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -35,10 +45,7 @@ from tim_tpu_torch.models.heads import (
 from tim_tpu_torch.models.pool import AVGA
 from tim_tpu_torch.models.transformer import Encoder
 from tim_tpu_torch.ops.dropout import layer_generator
-
-# Config options whose code paths are not ported yet, with the value the
-# port supports.
-_UNPORTED = {"sequence_parallel": False}
+from tim_tpu_torch.parallel.mesh import param_specs
 
 
 def resolve_device(device) -> torch.device:
@@ -68,13 +75,17 @@ class _TimBase(nn.Module):
     ENCODER = "backbone"
 
     def __init__(self, cfg: ModelConfig, *, device, generator,
-                 use_verb_noun_cls: bool, prefix_tokens: bool = True):
+                 use_verb_noun_cls: bool, prefix_tokens: bool = True,
+                 mesh=None):
         super().__init__()
-        for name, value in _UNPORTED.items():
-            if getattr(cfg, name) != value:
-                raise ValueError(f"{type(self).__name__}: {name}="
-                                 f"{getattr(cfg, name)!r} is not ported "
-                                 f"(supported: {value!r})")
+        if mesh is not None and mesh.model_size == 1:
+            mesh = None
+        if mesh is not None and cfg.quantized_inference:
+            raise ValueError(f"{type(self).__name__}: int8 serving runs on "
+                             f"one model rank (JAX's rules shard no int8 "
+                             f"layer); mesh model axis {mesh.model_size}")
+        self.mesh = mesh
+        self.shard_specs: Dict[str, Tuple[int, int]] = {}
         self._device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -106,7 +117,11 @@ class _TimBase(nn.Module):
                              dtype=dt, generator=g)
 
     def _finish(self) -> None:
-        """Set the static activation scales and move to the device."""
+        """Set the static activation scales, keep this rank's slices on a
+        model axis and move to the device. Each sliced parameter carries
+        the mesh as ``model_mesh`` (the optimizer's global norm and
+        non-finite test reduce over its model ranks:
+        ``train.optim.AdamWIfFinite``)."""
         cfg = self.cfg
         if cfg.quantized_inference and cfg.quant_static_acts:
             scales = dict(cfg.quant_act_scales)
@@ -117,7 +132,62 @@ class _TimBase(nn.Module):
                                      f"cfg.quant_act_scales")
                 layer.act_scale = scales[name]
         del self._generator
+        if self.mesh is not None:
+            self._shard()
         self.to(self._device)
+        for name in self.shard_specs:
+            self.get_parameter(name).model_mesh = self.mesh
+
+    def _shard(self) -> None:
+        """Slice the parameters that the rules shard (heads the model axis
+        does not divide keep the attention replicated) and put the
+        encoder and class heads on the model axis."""
+        mesh = self.mesh
+        specs = param_specs({n: p.shape for n, p in self.named_parameters()},
+                            mesh.model_size)
+        if self.cfg.nhead % mesh.model_size:
+            specs = {n: s for n, s in specs.items() if ".self_attn." not in n}
+        with torch.no_grad():
+            for name, (dim, blocks) in specs.items():
+                p = self.get_parameter(name)
+                p.data = mesh.local_slice(p.data, dim, blocks).clone()
+        self.shard_specs = specs
+        prefix = f"{self.ENCODER}."
+        self.encoder.shard(mesh, self.cfg.sequence_parallel, {
+            n[len(prefix):] for n in specs if n.startswith(prefix)})
+        self.cls_head.shard(mesh, {
+            n.split(".")[1] for n in specs if n.startswith("cls_head.")})
+
+    def shard_state_dict(self, state_dict: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+        """``state_dict`` with this rank's slice of each whole tensor that
+        the model holds sharded (a slice already sharded is kept)."""
+        out = dict(state_dict)
+        own = dict(self.named_parameters())
+        for name, (dim, blocks) in self.shard_specs.items():
+            t = out.get(name)
+            if t is not None and t.shape != own[name].shape:
+                out[name] = self.mesh.local_slice(t, dim, blocks)
+        return out
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict`` of whole (reference) or sharded
+        tensors: on a model axis each rank keeps its slices."""
+        return super().load_state_dict(self.shard_state_dict(state_dict),
+                                       strict=strict, assign=assign)
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The reference-named state dict of whole tensors (on a model
+        axis: the sharded ones gathered over the model ranks, one
+        collective every rank joins)."""
+        out = self.state_dict()
+        if self.shard_specs:
+            names = list(self.shard_specs)
+            whole = self.mesh.gather_params(
+                [(out[n].detach(), *self.shard_specs[n]) for n in names])
+            out.update(zip(names, whole))
+        return out
 
     @property
     def encoder(self) -> Encoder:
@@ -169,12 +239,12 @@ class TimRecognition(_TimBase):
 
     def __init__(self, cfg: ModelConfig, *,
                  device: Optional[torch.device | str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         single = (cfg.input_modality != "audio_visual"
                   and cfg.data_modality == cfg.input_modality)
         super().__init__(cfg, device=device, generator=generator,
                          use_verb_noun_cls=cfg.include_verb_noun,
-                         prefix_tokens=not single)
+                         prefix_tokens=not single, mesh=mesh)
         vis = (cfg.visual_classes if "visual" in cfg.data_modality
                else None)
         aud = cfg.audio_classes if "audio" in cfg.data_modality else None
@@ -209,15 +279,15 @@ class TimRecognition(_TimBase):
 
 class TimDetection(_TimBase):
     """Detection variant: shared query tokens, cls + interval-regression
-    heads, and the drloc MLP of the training loss. Device, init and
+    heads, and the drloc MLP of the training loss. Device, init, mesh and
     quantization as ``_TimBase``; ``cfg.quant_pallas_heads`` fuses the
     int8 class heads (kernel 3 on the card)."""
 
     def __init__(self, cfg: DetectionConfig, *,
                  device: Optional[torch.device | str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__(cfg, device=device, generator=generator,
-                         use_verb_noun_cls=False)
+                         use_verb_noun_cls=False, mesh=mesh)
         width = cfg.encoder_width
         vis = (cfg.visual_classes if "visual" in cfg.data_modality
                else None)

@@ -12,12 +12,16 @@ as its default form, so it has no counterpart.)
 
 Several processes: a rank given ``BatchRows`` in place of a generator
 draws each mask for the whole global batch and keeps its own rows, so
-that the ranks together draw what one process draws on that batch.
+that the ranks together draw what one process draws on that batch. On a
+model axis a layer adds the other dimensions it holds a slice of
+(``BatchRows.along``: heads, FFN columns, tokens): every mask is drawn at
+the global shape, in the order of one process, and sliced, so that each
+later draw of the layer stays the one process's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,20 +30,35 @@ import torch
 class BatchRows:
     """A generator for one rank's rows ``start:start + b`` of a global
     batch of ``total`` rows: ``draw`` makes the draw of the global shape
-    (leading axis ``total``) and keeps those rows."""
+    (leading axis ``total``) and keeps those rows; ``slices`` maps any
+    other dimension this rank holds a slice of to its (start, global
+    size)."""
 
-    def __init__(self, generator: torch.Generator, start: int, total: int):
+    def __init__(self, generator: torch.Generator, start: int, total: int,
+                 slices: Optional[Dict[int, Tuple[int, int]]] = None):
         self.generator, self.start, self.total = generator, start, total
+        self.slices = dict(slices or {})
+
+    def along(self, dim: int, start: int, total: int) -> "BatchRows":
+        """The same generator, this rank holding ``start:`` of a global
+        ``total`` along ``dim`` too."""
+        return BatchRows(self.generator, self.start, self.total,
+                         {**self.slices, dim: (start, total)})
 
 
 def draw(generator, shape: Tuple[int, ...],
          fn: Callable[[Tuple[int, ...], torch.Generator], torch.Tensor]):
-    """``fn(shape, generator)``; for ``BatchRows``, the rows of this rank
-    of ``fn`` at the global batch's shape."""
+    """``fn(shape, generator)``; for ``BatchRows``, this rank's slice of
+    ``fn`` at the global shape."""
     if not isinstance(generator, BatchRows):
         return fn(tuple(shape), generator)
-    full = fn((generator.total,) + tuple(shape[1:]), generator.generator)
-    return full[generator.start:generator.start + shape[0]]
+    spans = {0: (generator.start, generator.total), **generator.slices}
+    full_shape = [spans[d][1] if d in spans else n
+                  for d, n in enumerate(shape)]
+    full = fn(tuple(full_shape), generator.generator)
+    for d, (start, _) in spans.items():
+        full = full.narrow(d, start, shape[d])
+    return full
 
 
 def _rounded(value: float, x) -> float:

@@ -1,5 +1,5 @@
-"""Data parallelism over processes, one card each: counterpart of
-``tim_tpu/parallel`` on ``torch.distributed``."""
+"""Data and model parallelism over processes, one card each:
+counterpart of ``tim_tpu/parallel`` on ``torch.distributed``."""
 
 from tim_tpu_torch.parallel.mesh import (  # noqa: F401
-    DataMesh, make_mesh, shard_batch, shard_train_state)
+    Mesh, make_mesh, shard_batch, shard_train_state)

@@ -16,7 +16,7 @@ model by validation loss, stops early and writes checkpoints
   back once.
 
 Several processes (``parallel.multihost.initialize``, one card each):
-the runner's ``DataMesh`` splits every global batch of ``batch_size``
+the runner's ``Mesh`` splits every global batch of ``batch_size``
 windows into equal rank shares. The host path iterates each rank's
 shard of the split (``batch_iterator(num_shards=, shard_index=)``, JAX's
 wrap-around padding included); on the banked path every card holds the
@@ -48,7 +48,6 @@ from tim_tpu_torch.evals.format_predictions import evaluate_detections
 from tim_tpu_torch.evals.meters import LossAverager
 from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection, resolve_device
-from tim_tpu_torch.parallel import multihost
 from tim_tpu_torch.parallel.mesh import make_mesh, shard_train_state
 from tim_tpu_torch.train import checkpoint as ckpt
 from tim_tpu_torch.train import detection as steps
@@ -99,12 +98,12 @@ class DetectionRunner:
         self.logger = setup_logging(output_dir)
         self.exp_logger = experiment_logger
         self.device = resolve_device(device)
+        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
         self.model = TimDetection(
             cfg, device=self.device,
-            generator=torch.Generator().manual_seed(tcfg.seed))
+            generator=torch.Generator().manual_seed(tcfg.seed), mesh=mesh)
         self.steps_per_epoch = (max(len(train_ds) // tcfg.batch_size, 1)
                                 if train_ds else 1)
-        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
         self._local_bs = mesh.local_batch(tcfg.batch_size)
         self._share = mesh.share(tcfg.batch_size)
         self._shard_args = mesh.shard_args
@@ -133,9 +132,8 @@ class DetectionRunner:
         shape-matched parameters of the checkpoint at ``pretrained`` into
         the model; the normaliser at ``TrainConfig.normaliser_init``."""
         if pretrained:
-            payload = ckpt.load_checkpoint(pretrained)
-            self.model.load_state_dict(ckpt.shape_matched_merge(
-                self.model.state_dict(), payload["params"]))
+            ckpt.merge_params(self.model,
+                              ckpt.load_checkpoint(pretrained)["params"])
         tcfg = self.tcfg
         optimizer = make_optimizer(
             self.model.parameters(), tcfg.lr, tcfg.weight_decay,
@@ -274,7 +272,7 @@ class DetectionRunner:
                 self.best_loss = stats["loss"]
                 self.last_best_epoch = epoch
                 is_best = "loss"
-            if self.output_dir and multihost.is_master():
+            if self.output_dir:      # rank 0 writes
                 ckpt.save_checkpoint(
                     self.output_dir, self.state, epoch=epoch + 1,
                     extra={"val_stats": {k: float(v)
@@ -355,8 +353,8 @@ class DetectionRunner:
 
         # every rank's rows; then ascending window ids with their first
         # occurrence (JAX's order, independent of the sharding)
-        real = multihost.allgather_host_arrays(np.concatenate(real))
-        win_idx = multihost.allgather_host_arrays(
+        real = self.mesh.allgather_host_arrays(np.concatenate(real))
+        win_idx = self.mesh.allgather_host_arrays(
             np.concatenate(win_idx).astype(np.int64))[real]
         _, keep = np.unique(win_idx, return_index=True)
         win_idx = win_idx[keep]
@@ -365,7 +363,7 @@ class DetectionRunner:
                                object)
         result = {"video_ids": np.repeat(video_ids, self.num_queries)}
         for key, chunks in cols.items():
-            arr = multihost.allgather_host_arrays(
+            arr = self.mesh.allgather_host_arrays(
                 np.concatenate(chunks))[real][keep]
             result[key] = arr.reshape(-1, arr.shape[-1])
         return result

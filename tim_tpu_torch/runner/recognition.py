@@ -22,7 +22,7 @@ paths, as in JAX:
   atomics make two validations differ.
 
 Several processes (``parallel.multihost.initialize``, one card each):
-the runner's ``DataMesh`` splits every global batch of ``batch_size``
+the runner's ``Mesh`` splits every global batch of ``batch_size``
 windows into equal rank shares. On the host path each rank iterates its
 shard of the split (``batch_iterator(num_shards=, shard_index=)``, JAX's
 wrap-around padding included) and, after validation, the ranks'
@@ -167,12 +167,12 @@ class RecognitionRunner:
         ws = (train_ds or val_ds).windows
         self.nv = ws.max_visual_actions
         self.na = ws.max_audio_actions
+        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
         self.model = TimRecognition(
             cfg, device=self.device,
-            generator=torch.Generator().manual_seed(tcfg.seed))
+            generator=torch.Generator().manual_seed(tcfg.seed), mesh=mesh)
         self.steps_per_epoch = (max(len(train_ds) // tcfg.batch_size, 1)
                                 if train_ds else 1)
-        self.mesh = mesh = make_mesh(mesh_cfg.data, mesh_cfg.model)
         self._local_bs = mesh.local_batch(tcfg.batch_size)
         self._share = mesh.share(tcfg.batch_size)
         self._shard_args = mesh.shard_args
@@ -221,9 +221,8 @@ class RecognitionRunner:
         shape-matched parameters of the checkpoint at ``pretrained`` into
         the model."""
         if pretrained:
-            payload = ckpt.load_checkpoint(pretrained)
-            self.model.load_state_dict(ckpt.shape_matched_merge(
-                self.model.state_dict(), payload["params"]))
+            ckpt.merge_params(self.model,
+                              ckpt.load_checkpoint(pretrained)["params"])
         tcfg = self.tcfg
         optimizer = make_optimizer(
             self.model.parameters(), tcfg.lr, tcfg.weight_decay,
@@ -393,7 +392,7 @@ class RecognitionRunner:
                     self._eval_batches(self.val_ds):
                 acc.update(logits, v_ids, a_ids, labels)
                 avg.update({k: float(v) for k, v in losses.items()})
-            acc.reduce_across_processes()
+            acc.reduce_across_processes(self.mesh)
         stats = acc.summarize(self.dataset_name)
         stats.update(avg.averages())
         return self._log(stats, "val", epoch)
@@ -431,7 +430,7 @@ class RecognitionRunner:
             stats = self.validate(epoch)
             final = stats
             is_best = self._best_tag(stats, epoch)
-            if self.output_dir and multihost.is_master():
+            if self.output_dir:      # rank 0 writes
                 ckpt.save_checkpoint(
                     self.output_dir, self.state, epoch=epoch + 1,
                     extra={"val_stats": {k: float(v)
@@ -460,7 +459,7 @@ class RecognitionRunner:
         else:
             for logits, _, v_ids, a_ids, labels in self._eval_batches(ds):
                 acc.update(logits, v_ids, a_ids, labels)
-            acc.reduce_across_processes()
+            acc.reduce_across_processes(self.mesh)
 
         v_nid, a_nid = {}, {}
         for w in ds.windows.windows:

@@ -17,7 +17,7 @@ generators seeded from the step's ``dropout_seed`` (``models.tim``). All
 of a step's draws are made by one function (``make_step_draws``), which
 ``make_train_step`` takes as an argument.
 
-Several processes (``parallel.mesh.DataMesh``). JAX runs one program
+Several processes (``parallel.mesh.Mesh``). JAX runs one program
 over the global batch, so its counts are global; here each rank holds its
 rows of the global batch and its loss is its share of the global loss:
 the positive counts of both modalities are summed over the ranks (one
@@ -25,7 +25,7 @@ the positive counts of both modalities are summed over the ranks (one
 on every rank, and the focal and DIoU sums of the rank's rows divide by
 it; the drloc mean is weighted by the rank's share of the rows. The
 shares' gradients and the loss metrics are then summed over the ranks in
-one bucketed ``all_reduce`` (``DataMesh.sync_gradients``) before the
+one bucketed ``all_reduce`` (``Mesh.sync_gradients``) before the
 optimizer's clip and non-finite skip. The draws are those of the global
 batch: the drloc positions are drawn for it and sliced, the dropout masks
 and the bank's augmentation sets drawn at its shape
@@ -54,7 +54,7 @@ from tim_tpu_torch.models.queries import generate_query_pyramid
 from tim_tpu_torch.models.tim import TimDetection
 from tim_tpu_torch.ops import losses as L
 from tim_tpu_torch.ops.dropout import BatchRows
-from tim_tpu_torch.parallel.mesh import DataMesh
+from tim_tpu_torch.parallel.mesh import Mesh
 from tim_tpu_torch.train.state import TrainState
 
 
@@ -164,7 +164,7 @@ def _visual_labels(batch, cfg):
 
 def _detection_losses(cls_logits, reg_preds, v_queries, a_queries, batch,
                       cfg, tcfg, normaliser, update_normaliser: bool,
-                      mesh: DataMesh):
+                      mesh: Mesh):
     """Labels the queries and sums the modalities' losses. Returns
     (total, metrics, normaliser). With ``update_normaliser`` the positive
     counts are the global batch's (summed over ``mesh``)."""
@@ -203,8 +203,11 @@ def _detection_losses(cls_logits, reg_preds, v_queries, a_queries, batch,
 
 def sum_loss_shares(mesh, model, metrics: Dict[str, torch.Tensor]
                     ) -> Dict[str, torch.Tensor]:
-    """``metrics`` with each ``loss*`` share summed over the ranks, in the
-    one ``all_reduce`` that sums the parameters' gradients."""
+    """``metrics`` with each ``loss*`` share summed over the data ranks,
+    in the one ``all_reduce`` that sums the parameters' gradients; under
+    sequence parallelism the gradients that the model ranks' token shards
+    left partial are summed over the model group first."""
+    mesh.sum_model_gradients(model.encoder.token_partial_parameters())
     keys = [k for k in metrics if k.startswith("loss")]
     summed = mesh.sync_gradients(list(model.parameters()),
                                  [metrics[k] for k in keys])
@@ -223,13 +226,13 @@ def make_train_step(model: TimDetection, cfg: DetectionConfig,
     size) of the fine train pool, shared across the batch. ``draws``
     (default ``make_step_draws``) makes the step's random draws.
     ``batch`` is this rank's rows of the global batch; ``mesh``: the
-    ``parallel.mesh.DataMesh`` (default: the process group's; module
+    ``parallel.mesh.Mesh`` (default: the process group's; module
     docstring)."""
     if num_queries is None:
         num_queries = generate_query_pyramid(
             cfg.inference_query_size).shape[0]
     draws = draws or make_step_draws(cfg, tcfg, num_queries)
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
     nv = num_queries if "visual" in cfg.data_modality else 0
     na = num_queries if "audio" in cfg.data_modality else 0
     nf = cfg.num_feats
@@ -293,7 +296,7 @@ def with_bank_features(batch: Dict[str, torch.Tensor], v_bank, a_bank,
 
 
 def bank_generator(seed: int, step: int, batch: Dict[str, torch.Tensor],
-                   mesh: DataMesh):
+                   mesh: Mesh):
     """The CPU generator of a banked step's augmentation sets, seeded by
     ``step_seeds(seed, step, 11)``: it draws the global batch's sets and
     keeps this rank's rows."""
@@ -310,7 +313,7 @@ def make_bank_train_step(model: TimDetection, cfg: DetectionConfig,
     DetectionWindowTables``) in place of the features; one augmentation
     set per token comes from a CPU generator seeded by
     ``step_seeds(tcfg.seed, step, 11)`` (``bank_generator``)."""
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
     base = make_train_step(model, cfg, tcfg, num_queries, draws, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -340,7 +343,7 @@ def make_val_step(model: TimDetection, cfg: DetectionConfig,
     normaliser is read from the state, not advanced. The ranks' loss
     shares are summed over ``mesh`` (one ``all_reduce``; default: the
     process group's)."""
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
     device = next(model.parameters()).device
     grid = torch.from_numpy(
         generate_query_pyramid(cfg.inference_query_size)).to(device)

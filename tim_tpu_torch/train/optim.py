@@ -7,6 +7,13 @@ runners set each param group's lr from it on the host).
 clip_by_global_norm, adamw), max_consecutive_errors=8)``, as one torch
 optimizer (``AdamWIfFinite``) whose every decision stays on the device:
 no step reads a value back to the host.
+
+On a model axis (parameters of which each model rank holds a slice
+carry the mesh as ``model_mesh``: ``models.tim``) the global norm sums
+the squares of the sharded gradients over the model ranks and counts the
+replicated ones once, and a non-finite gradient on any rank skips the
+step on all (one ``all_reduce`` of both), so that the ranks clip by one
+norm and skip together.
 """
 
 from __future__ import annotations
@@ -48,11 +55,28 @@ def warmup_cosine_schedule_fp32(lr: float, min_lr: float, total_steps: int,
     return schedule
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (fp32, on the tensors'
-    device)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-        [t.float() for t in tensors])))
+def global_norm_and_finite(tensors, sharded=(), mesh=None):
+    """(sqrt of the sum of squares, every element finite), fp32 on the
+    tensors' device, of ``tensors`` and, on a model axis (``mesh``), of
+    the model ranks' ``sharded`` slices (one ``all_reduce``)."""
+    def norms(ts, order=2.0):
+        if not ts:
+            return torch.zeros(0, device=device)
+        return torch.stack(torch._foreach_norm([t.float() for t in ts],
+                                               order))
+
+    device = (list(tensors) + list(sharded))[0].device
+    if mesh is None:
+        return (torch.linalg.vector_norm(norms(tensors)),
+                torch.isfinite(norms(tensors, math.inf)).all())
+    # the sharded slices' squares and largest magnitudes summed over the
+    # ranks: a non-finite element on any rank makes the sum non-finite
+    part = torch.stack([norms(sharded).square().sum(),
+                        norms(sharded, math.inf).sum()])
+    mesh.model_all_reduce(part)
+    norm = torch.sqrt(norms(tensors).square().sum() + part[0])
+    return norm, torch.isfinite(norms(tensors, math.inf)).all() & \
+        torch.isfinite(part[1])
 
 
 class AdamWIfFinite(torch.optim.Optimizer):
@@ -74,7 +98,9 @@ class AdamWIfFinite(torch.optim.Optimizer):
 
     The counters (``count``, ``notfinite_count``, ``total_notfinite``,
     ``last_finite``) are device tensors, saved by ``state_dict``.
-    ``step()`` returns the gradients' global norm before clipping."""
+    ``step()`` returns the gradients' global norm before clipping; the
+    parameters' ``model_mesh`` makes it the norm over a model axis
+    (module docstring)."""
 
     COUNTERS = ("count", "notfinite_count", "total_notfinite",
                 "last_finite")
@@ -104,9 +130,14 @@ class AdamWIfFinite(torch.optim.Optimizer):
         params = [p for g in self.param_groups for p in g["params"]]
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        norm = global_norm(grads)
-        finite = torch.isfinite(torch.stack(
-            torch._foreach_norm(grads, math.inf))).all()
+        meshes = [getattr(p, "model_mesh", None) for p in params]
+        mesh = next((m for m in meshes if m is not None), None)
+        if mesh is None:
+            norm, finite = global_norm_and_finite(grads)
+        else:
+            norm, finite = global_norm_and_finite(
+                [g for m, g in zip(meshes, grads) if m is None],
+                [g for m, g in zip(meshes, grads) if m is not None], mesh)
         c["notfinite_count"] = torch.where(finite, 0,
                                            c["notfinite_count"] + 1)
         apply = finite | (c["notfinite_count"]

@@ -14,7 +14,7 @@ permutation from a numpy generator, the drloc positions from a CPU
 dropout masks from device generators seeded from the step's
 ``dropout_seed`` (``models.tim``).
 
-Several processes (``parallel.mesh.DataMesh``). JAX mixes the global
+Several processes (``parallel.mesh.Mesh``). JAX mixes the global
 batch (``x[perm]`` reaches across devices) and divides each cross entropy
 by the global batch's count of valid labels. Here each rank holds its rows
 of the global batch: the step gathers the batch's inputs and label rows
@@ -48,7 +48,7 @@ from tim_tpu_torch.config import ModelConfig, TrainConfig
 from tim_tpu_torch.data.device_bank import host_to_device
 from tim_tpu_torch.models.tim import TimRecognition
 from tim_tpu_torch.ops import losses as L
-from tim_tpu_torch.parallel.mesh import DataMesh
+from tim_tpu_torch.parallel.mesh import Mesh
 from tim_tpu_torch.train.detection import (
     bank_generator, step_seeds, sum_loss_shares, with_bank_features)
 from tim_tpu_torch.train.state import TrainState
@@ -166,10 +166,10 @@ def make_train_step(model: TimRecognition, cfg: ModelConfig,
     ``RecognitionDataset`` keys (``times``, ``v_feats``/``a_feats``, the
     label rows), this rank's rows of the global batch. ``draws`` (default
     ``make_step_draws``) makes the step's random draws. ``mesh``: the
-    ``parallel.mesh.DataMesh`` (default: the process group's; module
+    ``parallel.mesh.Mesh`` (default: the process group's; module
     docstring)."""
     draws = draws or make_step_draws(cfg, tcfg)
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         device = batch["times"].device
@@ -217,7 +217,7 @@ def make_bank_train_step(model: TimRecognition, cfg: ModelConfig,
     per token comes from a CPU generator seeded by
     ``step_seeds(tcfg.seed, step, 11)`` (``train.detection.
     bank_generator``)."""
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
     base = make_train_step(model, cfg, tcfg, num_v_queries, num_a_queries,
                            draws, mesh)
 
@@ -238,7 +238,7 @@ def make_eval_step(model: TimRecognition, cfg: ModelConfig,
     cross entropy is the global batch's: the ranks' sums and valid-label
     counts summed (one ``all_reduce``), divided. ``mesh``: as
     ``make_train_step``'s."""
-    mesh = mesh or DataMesh()
+    mesh = mesh or model.mesh or Mesh()
 
     def cross_entropies(heads, batch):
         """The cross entropy of each (label key, logits) of ``heads``."""
