@@ -218,7 +218,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      six times on the gathered FFN weights; the ranks' checkpoint loaded
      strictly into a one-process ``TimDetection`` with the same validation;
      ``dryrun_multichip(1)``; step seconds and collectives per step per
-     rank (gloo on one card: not a tensor-parallel speed).
+     rank (gloo on one card: not a tensor-parallel speed);
+ 25. the JAX package's msgpack checkpoints (after 24; the card's machine
+     has no flax, so each file is written by the port's encoder,
+     ``train.checkpoint.save_jax_checkpoint``): a. an EPIC detection
+     ``DetectionRunner`` (bf16, batch 64, phase 16's split) takes 2 banked
+     steps and saves ``checkpoint.pt`` and ``checkpoint.msgpack``; fresh
+     runners ``resume`` each and take one more step: parameters, moments,
+     counters, step, normaliser, epoch and loss bit-equal between the
+     routes; the file's bytes, write and decode seconds and MB/s; b.
+     ``--pretrained_model`` from each directory into bf16 ``detect_video``
+     (kernels 1 and 2) and ``DetectionServer.quantized`` (kernel 3) over 90
+     s of the video: detections bit-equal; c. phase 17's recognition
+     weights in a state saved both ways, ``cli.run --validate
+     --pretrained_model`` (kernel 1): statistics bit-equal; d. (inside
+     phase 22) its ``--mode pretrain`` state (ViT-L ``PretrainVideoMAE``,
+     AdamW) written as msgpack and the same finetune run from
+     ``--pretrained`` on it: the trunk's missing entries and the first
+     step's loss (kernels 5 and 5b) bit-equal to the .pt route's; e. the
+     file with ``mu`` and ``nu`` swapped in one leaf must resume unequal.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -4773,14 +4791,81 @@ def ft_cli_slice_fp32(out):
     return worst
 
 
-def phase_finetune_cli():
+class Recorded:
+    """Within the block, ``owner.attr`` (a function) keeps what each call
+    returns, or with ``factory`` what each call of the function that each
+    call returns returns (a step function's metrics)."""
+
+    def __init__(self, owner, attr, factory=False):
+        self.owner, self.attr, self.factory = owner, attr, factory
+        self.orig, self.values = getattr(owner, attr), []
+
+    def __enter__(self):
+        orig, values = self.orig, self.values
+
+        def keep(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                values.append(out)
+                return out
+            return call
+
+        setattr(self.owner, self.attr,
+                (lambda *a, **kw: keep(orig(*a, **kw))) if self.factory
+                else keep(orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.orig)
+
+
+def jax_mae_checkpoint(state, tmp, trunk, missing_pt, card):
+    """25d, first half: the pretraining state (``PretrainVideoMAE`` at
+    ViT-L width, ``torch.optim.AdamW``) written as the JAX package's
+    msgpack file, decoded back, and merged into a ViT-L trunk as the
+    finetune CLI's ``--pretrained`` merges it: the same missing entries
+    as the .pt route's. Returns the directory."""
+    from tim_tpu_torch.extract import finetune_cli
+    from tim_tpu_torch.train import checkpoint as ckpt
+    from tim_tpu_torch.utils import msgpack
+    out = tmp / "pre_jax"
+    t0 = time.perf_counter()
+    nbytes = ckpt.save_jax_checkpoint(str(out), state, epoch=1)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = msgpack.load(str(out / "checkpoint.msgpack"))
+    read_s = time.perf_counter() - t0
+    count = int(payload["opt_state"]["0"]["count"])
+    require(count == int(state.optimizer.state_dict()["state"][0]["step"])
+            and int(payload["step"]) == state.step,
+            f"jax-ckpt-mae: Adam count {count}, step {int(payload['step'])}")
+    del payload
+    params, missing = finetune_cli.load_pretrained_encoder(str(out), trunk)
+    require(missing == missing_pt, f"jax-ckpt-mae: --pretrained from "
+            f"msgpack misses {missing}, from .pt {missing_pt}")
+    del params
+    log(f"[jax-ckpt-mae] {card}: PretrainVideoMAE state ({state.step} steps) "
+        f"checkpoint.msgpack {nbytes} bytes, written in {write_s:.3f} s "
+        f"({rate(nbytes, write_s):.1f} MB/s), decoded in {read_s:.3f} s "
+        f"({rate(nbytes, read_s):.1f} MB/s); the trunk misses {missing}, as "
+        f"from the .pt file")
+    return out, {"bytes": nbytes, "write_s": write_s, "read_s": read_s,
+                 "write_mb_s": rate(nbytes, write_s),
+                 "read_mb_s": rate(nbytes, read_s)}
+
+
+def phase_finetune_cli(card: str):
     """Phase 22: MAE pretraining through the CLI (mask 0.9), then the
     finetune mode warm-started from its ``checkpoint.pt`` (num_sample 2,
-    mixup 0.8) and its validation; then the fp32 slice card vs CPU."""
+    mixup 0.8) and its validation; then the fp32 slice card vs CPU. Phase
+    25d runs here, on the pretraining state: written as msgpack, the same
+    finetune warm-started from it, its first step's loss bit-equal to the
+    .pt route's."""
     import pathlib
     import tempfile
     from tim_tpu_torch.extract import finetune_cli
     from tim_tpu_torch.models.backbones.vit import VideoMAEViT
+    from tim_tpu_torch.runner import backbone as rb
     log("[ft-cli] train clips take identity RandAugment: the card's machine "
         "has no PIL (VideoRandAugment); frames are seeded uint8 arrays "
         f"{FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (no cv2 to decode JPEGs)")
@@ -4788,9 +4873,10 @@ def phase_finetune_cli():
         tmp = pathlib.Path(tmp)
         args = ft_args("pretrain", tmp / "pre", "--mask_ratio", "0.9")
         train_ds, _ = ft_datasets(args, FT_SEGMENTS)
-        pre_stats, pre_l, pre_m = timed(
-            "ft-cli-pretrain", ft_cli_run, "ft-cli-pretrain", "pretrain",
-            args, train_ds, None)
+        with Recorded(rb.BackbonePretrainRunner, "init_state") as pre_state:
+            pre_stats, pre_l, pre_m = timed(
+                "ft-cli-pretrain", ft_cli_run, "ft-cli-pretrain", "pretrain",
+                args, train_ds, None)
         path = str(tmp / "pre" / "checkpoint.pt")
         trunk = VideoMAEViT(device="cpu")
         params, missing = finetune_cli.load_pretrained_encoder(path, trunk)
@@ -4802,21 +4888,41 @@ def phase_finetune_cli():
         log(f"[ft-cli] --pretrained {path}: {total - len(missing)} of "
             f"{total} trunk entries load ({len(blocks)} of blocks.*), "
             f"missing {missing}")
-        del trunk, params
-        args = ft_args("finetune", tmp / "ft", "--pretrained", path,
-                       "--num_sample", "2", "--mixup", "0.8")
-        train_ds, val_ds = ft_datasets(args, FT_SEGMENTS)
-        ft_stats, ft_l, ft_m = timed(
-            "ft-cli-finetune", ft_cli_run, "ft-cli-finetune", "finetune",
-            args, train_ds, val_ds)
+        del params
+        jax_dir, jax_mae = timed("jax-ckpt-mae", jax_mae_checkpoint,
+                                 pre_state.values[0], tmp, trunk, missing,
+                                 card)
+        del trunk, pre_state
+        torch.cuda.empty_cache()
+        runs = {}
+        for tag, pretrained in (("ft-cli-finetune", path),
+                                ("jax-ft-cli-finetune", str(jax_dir))):
+            args = ft_args("finetune", tmp / tag, "--pretrained", pretrained,
+                           "--num_sample", "2", "--mixup", "0.8")
+            train_ds, val_ds = ft_datasets(args, FT_SEGMENTS)
+            with Recorded(rb, "make_two_head_step", factory=True) as steps:
+                runs[tag] = timed(tag, ft_cli_run, tag, "finetune", args,
+                                  train_ds, val_ds)
+            runs[tag] += (steps.values[0]["loss"],)
+            os.remove(tmp / tag / "checkpoint.pt")
+        ft_stats, ft_l, ft_m, first = runs["ft-cli-finetune"]
         require(sorted(ft_stats) == ["noun_top1", "verb_top1"],
                 f"ft-cli-finetune: statistics {ft_stats}")
+        jax_first = runs["jax-ft-cli-finetune"][3]
+        require(torch.equal(first, jax_first),
+                f"jax-ft-cli-finetune: first step loss {float(jax_first)} vs "
+                f"the .pt route's {float(first)}")
+        log(f"[jax-ckpt-mae] finetune CLI --pretrained checkpoint.msgpack: "
+            f"first ViT-L step loss {float(jax_first):.7f}, bit-equal to the "
+            f".pt route's")
         worst = timed("ft-cli-slice-fp32", ft_cli_slice_fp32, tmp)
     summary = {"pretrain": pre_m, "finetune": ft_m,
                "encoder_entries_loaded": total - len(missing),
-               "slice_fp32_worst_grad": worst}
+               "slice_fp32_worst_grad": worst, "jax_mae_checkpoint": jax_mae,
+               "jax_finetune": runs["jax-ft-cli-finetune"][2]}
     log(f"[ft-cli] summary {json.dumps(summary)}")
-    return {"ft-cli-pretrain": pre_l, "ft-cli-finetune": ft_l}
+    return {"ft-cli-pretrain": pre_l, "ft-cli-finetune": ft_l,
+            "jax-ft-cli-finetune": runs["jax-ft-cli-finetune"][1]}
 
 
 # ---------------------------------------------------------------------------
@@ -5498,6 +5604,254 @@ def phase_tensor_parallel(card: str):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the JAX package's msgpack checkpoints on the card. The card's
+# machine has no flax: each file is written by the port's encoder
+# (``train.checkpoint.save_jax_checkpoint``, ``utils/msgpack.py``) and read
+# back through the entry points, every route against the same state saved
+# as ``checkpoint.pt``: (a) an EPIC detection ``DetectionRunner`` resumed
+# and stepped, (b) ``--pretrained_model`` into bf16 and int8 serving, (c)
+# recognition ``cli.run --validate --pretrained_model``, (d) (inside phase
+# 22, which holds the pretraining state) a full-width MAE state into the
+# finetune CLI's ``--pretrained``, (e) a faulty control.
+# ---------------------------------------------------------------------------
+JAX_SERVE_SECONDS = 90.0   # the serving routes' cut of the 300 s video
+
+
+def rate(nbytes, secs):
+    return nbytes / max(secs, 1e-9) / 1e6
+
+
+def det_state_diff(a, b):
+    """The parts in which two detection train states differ: parameters,
+    both moments, the four counters, step and normaliser (empty:
+    bit-equal)."""
+    bad = [f"param {n}" for (n, p), q in zip(a.model.state_dict().items(),
+                                              b.model.state_dict().values())
+           if not torch.equal(p, q)]
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if sorted(sa["state"]) != sorted(sb["state"]):
+        bad.append("moment slots")
+    for i in sa["state"]:
+        for k in ("exp_avg", "exp_avg_sq"):
+            if i in sb["state"] and not torch.equal(sa["state"][i][k],
+                                                    sb["state"][i][k]):
+                bad.append(f"{k} {i}")
+    bad += [f"counter {k}" for k in sa["if_finite"]
+            if not torch.equal(sa["if_finite"][k], sb["if_finite"][k])]
+    if a.step != b.step:
+        bad.append("step")
+    if not torch.equal(a.normaliser, b.normaliser):
+        bad.append("normaliser")
+    return bad
+
+
+def jax_det_resume(train_ds, tmp, card):
+    """25a and 25e: 2 banked steps of EPIC detection, saved as
+    ``checkpoint.pt`` and as ``checkpoint.msgpack``; fresh runners resume
+    each and take one more step: states and losses bit-equal. A copy of
+    the msgpack file with ``mu`` and ``nu`` swapped in one leaf, resumed
+    by the first runner, must differ from the .pt route in exactly those
+    two moments."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.train import checkpoint as ckpt
+    from tim_tpu_torch.utils import msgpack
+    cfg = C.epic_detection()
+    runner = det_runner(cfg, train_ds, None, True)
+    batches = [runner._tables.batch(torch.arange(
+        i * DET_BATCH, (i + 1) * DET_BATCH, device="cuda")) for i in range(3)]
+    for batch in batches[:2]:
+        runner._bank_step(runner.state, batch)
+    torch.cuda.synchronize()
+    extra = {"val_stats": {"loss": 1.5, "top1": 37.5}}
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(str(tmp / "pt"), runner.state, epoch=1, extra=extra)
+    pt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbytes = ckpt.save_jax_checkpoint(str(tmp / "jax"), runner.state,
+                                      epoch=1, extra=extra)
+    write_s = time.perf_counter() - t0
+    fname = str(tmp / "jax" / "checkpoint.msgpack")
+    t0 = time.perf_counter()
+    payload = msgpack.load(fname)
+    read_s = time.perf_counter() - t0
+    require(os.path.getsize(fname) == nbytes
+            and int(payload["step"]) == 2 and int(payload["epoch"]) == 1,
+            "jax-ckpt: the msgpack payload's size, step or epoch")
+    fresh = {}
+    for route in ("pt", "jax"):
+        fresh[route] = det_runner(cfg, train_ds, None, True)
+        t0 = time.perf_counter()
+        epoch = fresh[route].resume(str(tmp / route))
+        secs = time.perf_counter() - t0
+        require(epoch == 1, f"jax-ckpt-{route}: epoch {epoch}")
+        fresh[f"{route}_s"] = secs
+    same = det_state_diff(fresh["pt"].state, fresh["jax"].state)
+    same += det_state_diff(fresh["pt"].state, runner.state)
+    require(not same, f"jax-ckpt: resumed states differ: {same[:6]}")
+
+    # 25e: the file with mu and nu swapped in one leaf fails that check
+    adam = payload["opt_state"]["inner_state"]["1"]["0"]
+    mu, nu = (adam[m]["encoder"]["layer0"]["linear1"] for m in ("mu", "nu"))
+    mu["kernel"], nu["kernel"] = nu["kernel"], mu["kernel"]
+    os.makedirs(tmp / "control")
+    with open(tmp / "control" / "checkpoint.msgpack", "wb") as f:
+        f.write(msgpack.msgpack_serialize(payload))
+    del payload
+    runner.resume(str(tmp / "control"))
+    rejected = det_state_diff(fresh["pt"].state, runner.state)
+    require(len(rejected) == 2, f"jax-ckpt-control: the state resumed from "
+            f"swapped moments differs in {rejected[:6]}, expected the two "
+            f"moments of one parameter")
+
+    losses = {}
+    for route in ("pt", "jax"):
+        r = fresh[route]
+        losses[route] = r._bank_step(r.state, batches[2])["loss"]
+    after = det_state_diff(fresh["pt"].state, fresh["jax"].state)
+    require(not after and torch.equal(losses["pt"], losses["jax"]),
+            f"jax-ckpt: one step after the resume differs: {after[:6]}, "
+            f"loss {float(losses['pt'])} vs {float(losses['jax'])}")
+    log(f"[jax-ckpt] {card}: EPIC detection state after 2 banked bf16 "
+        f"steps of {DET_BATCH}: checkpoint.msgpack {nbytes} bytes, written in "
+        f"{write_s:.3f} s ({rate(nbytes, write_s):.1f} MB/s, gather + "
+        f"convert + encode + write; checkpoint.pt {pt_s:.3f} s), decoded in "
+        f"{read_s:.3f} s ({rate(nbytes, read_s):.1f} MB/s), resumed in "
+        f"{fresh['jax_s']:.3f} s (checkpoint.pt {fresh['pt_s']:.3f} s); "
+        f"parameters, moments, counters, step, normaliser and epoch "
+        f"bit-equal to the .pt route, after one more step too (loss "
+        f"{float(losses['jax']):.6f}); the swapped-moments control differs "
+        f"in {len(rejected)} parts ({rejected[:2]})")
+    del runner, fresh
+    torch.cuda.empty_cache()
+    return {"bytes": nbytes, "write_s": write_s, "read_s": read_s,
+            "write_mb_s": rate(nbytes, write_s),
+            "read_mb_s": rate(nbytes, read_s), "pt_write_s": pt_s}
+
+
+def jax_det_serve(train_ds, tmp, video, batch2):
+    """25b: ``init_state(pretrained=...)`` (``--pretrained_model``) from the
+    msgpack directory and from the .pt one, each model's weights served
+    by bf16 ``detect_video`` (kernels 1 and 2) and by
+    ``DetectionServer.quantized`` (kernel 3) over a cut of the video:
+    detections bit-equal between the routes."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    from tim_tpu_torch.serve import DetectionServer
+    from tim_tpu_torch.train.detection import make_inference_step
+    v, a, feat_times, _ = video
+    n = int(JAX_SERVE_SECONDS / 0.2)
+    cut = (v[:n], a[:n], feat_times[:n], JAX_SERVE_SECONDS)
+    tcfg = C.TrainConfig(batch_size=DET_BATCH, epochs=1, seed=SEED)
+    cfg16 = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True)
+    cfg8 = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True,
+                            quant_pallas_heads=True)
+    dets, paths, threshold = {}, {}, None
+    for route in ("pt", "jax"):
+        runner = DetectionRunner(C.epic_detection(), tcfg, train_ds, None,
+                                 print_freq=1000, device="cuda")
+        runner.init_state(pretrained=str(tmp / route))
+        sd = runner.model.state_dict()
+        del runner
+        for kind in ("bf16", "int8"):
+            if kind == "bf16":
+                server = DetectionServer(cfg16, sd, device="cuda",
+                                         batch_size=128, top_k=8)
+                if threshold is None:
+                    # as phase 5 reads it off: the score that about
+                    # TARGET_CANDIDATES candidates over the cut would clear
+                    # if every window scored like batch2's
+                    scores = make_inference_step(server.model, cfg16)(
+                        to_torch(batch2, "cuda"))["v_scores"]
+                    top = torch.sort(scores.flatten(), descending=True).values
+                    n_windows = len(server._window_starts(cut[3]))
+                    threshold = top[int(TARGET_CANDIDATES / n_windows
+                                        * len(batch2["times"]))].item()
+            else:
+                server = DetectionServer.quantized(
+                    cfg8, sd, [to_torch(batch2, "cuda")], device="cuda",
+                    batch_size=128, top_k=8)
+            counters = zero_counts()
+            dets[route, kind] = server.detect_video(
+                *cut, score_threshold=threshold)
+            paths[f"jax-serve-{kind}", route] = read_counts(counters)
+            del server
+        del sd
+    for kind in ("bf16", "int8"):
+        got, want = dets["jax", kind], dets["pt", kind]
+        require(sorted(got) == sorted(want) and all(
+            np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+            for k in want) and len(want["scores"]) > 0,
+            f"jax-serve-{kind}: detections differ from the .pt route's")
+        require(paths[f"jax-serve-{kind}", "jax"]
+                == paths[f"jax-serve-{kind}", "pt"],
+                f"jax-serve-{kind}: launches differ between the routes")
+    l16, l8 = paths["jax-serve-bf16", "jax"], paths["jax-serve-int8", "jax"]
+    require(l16["query_block_attention"] > 0 and l16["fused_post_attention"]
+            > 0 and l8["int8_matmul_fused"] > 0,
+            f"jax-serve: launches bf16 {l16}, int8 {l8}")
+    log(f"[jax-ckpt-serve] --pretrained_model from checkpoint.msgpack: bf16 "
+        f"detect_video over {JAX_SERVE_SECONDS:.0f} s "
+        f"({len(dets['jax', 'bf16']['scores'])} detections) and int8 "
+        f"({len(dets['jax', 'int8']['scores'])}) bit-equal to the .pt "
+        f"route (score threshold {threshold:.6f}); launches bf16 {l16}, int8 "
+        f"{l8}")
+    torch.cuda.empty_cache()
+    return {"jax-serve-bf16": l16, "jax-serve-int8": l8}
+
+
+def jax_rec_validate(val_ds, state_dict, tmp):
+    """25c: phase 17's trained recognition weights in a train state saved
+    as .pt and as msgpack; ``cli.run --validate --pretrained_model`` on
+    each (kernel 1): statistics bit-equal."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch.runner.recognition import RecognitionRunner
+    from tim_tpu_torch.train import checkpoint as ckpt
+    args = cli_args("recognition", tmp / "rec", "--validate")
+    mcfg, tcfg = cli.configs_from_args(args)
+    runner = RecognitionRunner(mcfg, tcfg, None, val_ds, print_freq=1000,
+                               use_device_bank=True, device="cuda")
+    runner.load_torch_checkpoint(state_dict)
+    ckpt.save_checkpoint(str(tmp / "rec_pt"), runner.state, epoch=1)
+    nbytes = ckpt.save_jax_checkpoint(str(tmp / "rec_jax"), runner.state,
+                                      epoch=1)
+    del runner
+    stats, launches = {}, {}
+    for route in ("pt", "jax"):
+        args = cli_args("recognition", tmp / f"rec_out_{route}", "--validate",
+                        "--pretrained_model", str(tmp / f"rec_{route}"))
+        stats[route], launches[route], _ = cli_run(
+            f"jax-cli-rec-val-{route}", args, None, val_ds)
+    batches = -(-len(val_ds) // REC_BATCH)
+    require_kernel1("jax-cli-rec-val", launches["jax"], mcfg.num_layers,
+                    batches)
+    require(stats["jax"] == stats["pt"] and launches["jax"] == launches["pt"],
+            f"jax-cli-rec-val: {stats['jax']} vs the .pt route's "
+            f"{stats['pt']}")
+    log(f"[jax-ckpt-rec] cli.run --validate --pretrained_model "
+        f"checkpoint.msgpack ({nbytes} bytes): statistics bit-equal to the "
+        f".pt route's {json.dumps(stats['jax'])}")
+    torch.cuda.empty_cache()
+    return {"jax-cli-rec-val": launches["jax"]}
+
+
+def phase_jax_checkpoints(det_splits, rec_val_ds, rec_state_dict, video,
+                          batch2, card):
+    """Phase 25 (a, b, c, e); returns the launches of its paths."""
+    import pathlib
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        summary = {"resume": timed("jax-ckpt-resume", jax_det_resume,
+                                   det_splits[0], tmp, card)}
+        paths = timed("jax-ckpt-serve", jax_det_serve, det_splits[0], tmp,
+                      video, batch2)
+        paths.update(timed("jax-ckpt-rec", jax_rec_validate, rec_val_ds,
+                           rec_state_dict, tmp))
+    log(f"[jax-ckpt] summary {json.dumps(summary)}")
+    return paths
+
+
 def usable_cpus() -> int:
     """CPUs this process may use: its affinity, capped by the cgroup v2
     quota when one is set (a container may see more CPUs than it may
@@ -5609,31 +5963,36 @@ def main() -> int:
     cli_paths = phase_cli_and_gate(det_splits, rec_val_ds, rec_trained)
     dp_paths = timed("data-parallel", phase_data_parallel, det_splits,
                      (rec_train_ds, rec_val_ds))
-    tp_paths = timed("tensor-parallel", phase_tensor_parallel,
-                     smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    tp_paths = timed("tensor-parallel", phase_tensor_parallel, card)
+    jax_paths = timed("jax-checkpoints", phase_jax_checkpoints, det_splits,
+                      rec_val_ds, rec_trained, video, batch2, card)
     del det_splits, rec_train_ds, rec_val_ds, rec_trained
     audio_paths = phase_audio()
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
     torch.cuda.empty_cache()
-    ft_cli_paths = timed("finetune-cli", phase_finetune_cli)
+    ft_cli_paths = timed("finetune-cli", phase_finetune_cli, card)
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
-               **cli_paths, **dp_paths, **tp_paths, **audio_paths,
-               **media_paths, **ft_cli_paths}
+               **cli_paths, **dp_paths, **tp_paths, **jax_paths,
+               **audio_paths, **media_paths, **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
                  "dp-det-train", "dp-det-dump", "dp-rec-train",
                  "dp-rec-dump", "tp-bf16-val", "tp-bf16-sp-val",
-                 "tp-fused-val"):
+                 "tp-fused-val", "jax-serve-bf16", "jax-cli-rec-val"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
     require(by_path["gate-detection"]["int8_matmul_fused"] > 0,
             "gate-detection: kernel 3 never launched")
-    require(by_path["tp-fused-val"]["fused_post_attention"] > 0,
-            "tp-fused-val: kernel 2 never launched")
+    require(by_path["jax-serve-int8"]["int8_matmul_fused"] > 0,
+            "jax-serve-int8: kernel 3 never launched")
+    for path in ("tp-fused-val", "jax-serve-bf16"):
+        require(by_path[path]["fused_post_attention"] > 0,
+                f"{path}: kernel 2 never launched")
     require(by_path["rec-train"]["query_block_attention"] == 0,
             "rec-train: kernel 1 launched")
     for path, kernels in (
@@ -5646,7 +6005,8 @@ def main() -> int:
             ("extract-omnivore-int8", ("window_attention",)),
             ("extract-videomae-int8", ("flash_mha",)),
             ("ft-cli-pretrain", ("flash_mha", "flash_mha_bwd")),
-            ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd"))):
+            ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd")),
+            ("jax-ft-cli-finetune", ("flash_mha", "flash_mha_bwd"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")

@@ -13,7 +13,8 @@ written by cv2 and annotation CSVs read by pandas (tiny ViT, fp32):
   entry of the trunk loads (only ``fc_norm``, which the MAE lacks, keeps
   its init);
 - the errors: PIL for the finetune RandAugment, cv2 for the frames,
-  ``--flash_attention off`` on the card, a JAX msgpack checkpoint.
+  ``--flash_attention off`` on the card (a JAX msgpack checkpoint is
+  read: ``tests/test_torch_jax_checkpoint.py``).
 """
 
 import functools
@@ -220,8 +221,6 @@ def test_the_cli_names_what_it_cannot_do(clip_data, monkeypatch, tmp_path):
         _argv(clip_data, "finetune", tmp_path, "--flash_attention", "off"))
     with pytest.raises(ValueError, match="kernel 5"):
         pcli.run(args, None, None)                 # the card
-    with pytest.raises(ValueError, match="msgpack"):
-        pcli.load_pretrained_encoder(str(tmp_path / "enc.msgpack"), None)
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match="PIL.*--mode finetune|"
                                           "--mode finetune.*PIL"):

@@ -23,7 +23,9 @@ S = 24):
   against the same command line in one process;
 - a checkpoint saved under model 2 resumes bit-equal under model 1 and
   loads strictly into a one-process ``TimDetection``, and the other way
-  round;
+  round; a JAX-written msgpack checkpoint resumed by the two ranks (each
+  keeps its slices of the parameters and moments) takes the step that
+  one process takes from it;
 - ``dryrun_multichip(4, device="cpu")``: data 2 x model 2 with sequence
   parallelism, every rank equal to one process.
 """
@@ -49,13 +51,15 @@ from tim_tpu.models import TimDetection as JaxTimDetection
 from tim_tpu.models import TimRecognition as JaxTimRecognition
 from tim_tpu.models import queries as JQ
 from tim_tpu.parallel import mesh as jmesh
+from tim_tpu.train import checkpoint as jckpt
 from tim_tpu.train import detection as jdet
 from tim_tpu.train import recognition as jrec
 from tim_tpu.train.optim import make_optimizer as jax_make_optimizer
 from tim_tpu.train.state import create_train_state as jax_train_state
 from tim_tpu_torch import config as PC
 from tim_tpu_torch.convert import (
-    detection_state_dict_from_jax, recognition_state_dict_from_jax)
+    detection_params_to_jax, detection_state_dict_from_jax,
+    recognition_state_dict_from_jax)
 from tim_tpu_torch.dryrun import dryrun_multichip
 from tim_tpu_torch.models import TimDetection
 from tim_tpu_torch.parallel import mesh as pmesh
@@ -163,6 +167,33 @@ def _detection_case(rate=0.0, remat=False):
     return case, reference
 
 
+def _jax_checkpoint(case, path):
+    """A msgpack checkpoint of the detection ``case``'s model written by
+    the JAX package (``save_checkpoint``): its weights perturbed, Adam
+    moments drawn (nu > 0), 3 updates and 1 skip counted."""
+    from flax import serialization
+    rng = np.random.default_rng(9)
+    params = jax.tree_util.tree_map(
+        lambda t: (np.asarray(t) + rng.normal(scale=0.01, size=t.shape))
+        .astype(np.float32), detection_params_to_jax(case["state_dict"]))
+    state = jax_train_state(params, jax_make_optimizer(
+        1e-3, 0.0, TOTAL_STEPS, WARMUP_STEPS))
+    sd = serialization.to_state_dict(state.opt_state)
+    adam = sd["inner_state"]["1"]["0"]
+    adam["mu"] = jax.tree_util.tree_map(
+        lambda p: rng.normal(scale=1e-3, size=p.shape).astype(np.float32),
+        params)
+    adam["nu"] = jax.tree_util.tree_map(
+        lambda p: rng.uniform(1e-8, 1e-6, p.shape).astype(np.float32),
+        params)
+    adam["count"] = sd["inner_state"]["1"]["2"]["count"] = np.int32(3)
+    sd["total_notfinite"] = np.int32(1)
+    state = state.replace(
+        step=jnp.int32(4), normaliser=jnp.float32(200.0),
+        opt_state=serialization.from_state_dict(state.opt_state, sd))
+    jckpt.save_checkpoint(path, state, epoch=2)
+
+
 def _sequence_parallel(case):
     return {**case, "cfg": {**case["cfg"], "sequence_parallel": True}}
 
@@ -206,10 +237,12 @@ def model_ranks(tmp_path_factory):
     # a checkpoint of one process, for the ranks to resume and save again
     worker.train_step_case("detection", steps["detection_tp"][1], one,
                            save_to=str(tmp / "ckpt_one"))
+    _jax_checkpoint(steps["detection_sp"][1], str(tmp / "ckpt_jax"))
     rules = _rules_cfgs()
     inputs = tmp / "inputs.pt"
     torch.save({"steps": steps, "save": "detection_sp",
                 "resave_from": str(tmp / "ckpt_one"),
+                "jax_resume_from": str(tmp / "ckpt_jax"),
                 "rules": {n: (kind, dataclasses.asdict(pcfg))
                           for n, (kind, _, pcfg) in rules.items()}}, inputs)
     port = str(worker.free_port())
@@ -224,6 +257,8 @@ def model_ranks(tmp_path_factory):
         single = {name: worker.train_step_case(kind, case, one)
                   for name, (kind, case) in steps.items()
                   if name.endswith("_dropout") or name in REPLICATED_REGIONS}
+        single["jax_resume"] = worker.train_step_case(
+            *steps["detection_sp"], one, resume_from=str(tmp / "ckpt_jax"))
         for p in procs:
             logs.append(p.communicate(timeout=600)[0].decode())
     finally:
@@ -452,6 +487,28 @@ def test_checkpoint_saved_under_model_1_resumes_bit_equal_under_model_2(
     tmp = model_ranks["tmp"]
     _assert_payload_equal(ckpt.load_checkpoint(str(tmp / "ckpt_resaved")),
                           ckpt.load_checkpoint(str(tmp / "ckpt_one")))
+
+
+def test_jax_msgpack_checkpoint_resumes_under_model_2_as_in_one_process(
+        model_ranks):
+    """The JAX package's ``checkpoint.msgpack`` of the detection model,
+    resumed by the two ranks (each keeps its slices of the parameters and
+    moments) and stepped with sequence parallelism: the loss, normaliser
+    and parameters of the step one process takes from the same file."""
+    single = model_ranks["single"]["jax_resume"]
+    for rank in model_ranks["ranks"]:
+        got = rank["jax_resume"]
+        assert got["sharded"]
+        for k, want in single["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], want,
+                                       rtol=LOSS_RTOL, atol=1e-9, err_msg=k)
+        np.testing.assert_allclose(got["normaliser"], single["normaliser"],
+                                   rtol=LOSS_RTOL)
+        _params_close(got["params"], single["params"])
+    # the step started from the file, not from the case's weights
+    fresh = model_ranks["ranks"][0]["detection_sp"]["params"]
+    assert not all(torch.equal(t, fresh[n])
+                   for n, t in single["params"].items())
 
 
 def test_dryrun_multichip_four_ranks_on_the_cpu():

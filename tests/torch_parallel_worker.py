@@ -202,12 +202,18 @@ def train_state_case(kind: str, case: dict, mesh):
     return model, state, step
 
 
-def train_step_case(kind: str, case: dict, mesh, save_to=None) -> dict:
+def train_step_case(kind: str, case: dict, mesh, save_to=None,
+                    resume_from=None) -> dict:
     """One train step of ``case`` on this rank's rows (of its data
     group); the whole parameters after it, the gradients it applied
     (``grads``: this rank's slices of the sharded ones) and, with
-    ``save_to``, the state saved there (``train.checkpoint``)."""
+    ``save_to``, the state saved there (``train.checkpoint``). With
+    ``resume_from`` (a checkpoint, ``.pt`` or the JAX package's msgpack)
+    the state is restored from it before the step."""
     model, state, step = train_state_case(kind, case, mesh)
+    if resume_from is not None:
+        from tim_tpu_torch.train import checkpoint as ckpt
+        ckpt.restore_train_state(state, ckpt.load_checkpoint(resume_from))
     batch = case["batch"]
     rows = mesh.share(len(batch["times"]))
     mine = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
@@ -269,7 +275,8 @@ def tensor_parallel_main(rank: int, port: int, inputs: str, outdir: str):
     """The cases of ``tests/test_torch_tensor_parallel.py`` on two ranks
     at data 1 x model 2: the command line with ``--mesh_model 2
     --sequence_parallel true`` (it joins the group), then each train step
-    case with sequence parallelism off and on, the checkpoint cases and
+    case with sequence parallelism off and on, the checkpoint cases (a
+    port checkpoint resaved, a JAX msgpack one resumed and stepped) and
     the sharding of each ``rules`` configuration."""
     from tim_tpu_torch.models.tim import TimDetection, TimRecognition
     from tim_tpu_torch.parallel.mesh import make_mesh
@@ -290,6 +297,8 @@ def tensor_parallel_main(rank: int, port: int, inputs: str, outdir: str):
     kind, case = cases["steps"][cases["save"]]
     resave_case(kind, case, mesh, cases["resave_from"],
                 os.path.join(outdir, "ckpt_resaved"))
+    out["jax_resume"] = train_step_case(kind, case, mesh,
+                                        resume_from=cases["jax_resume_from"])
     out["rules"] = {}
     for name, (kind, cfg) in cases["rules"].items():
         cls = TimDetection if kind == "detection" else TimRecognition

@@ -16,7 +16,9 @@ raises without one) or, when asked, on the CPU, and then trains
 ``<head>_topk_*`` columns with ``--extract_top_k``;
 ``val_features.pkl`` for recognition). ``--torch_checkpoint`` loads a
 released reference checkpoint strictly (the port uses its parameter
-names); ``--resume`` continues from a checkpoint ``--train`` wrote.
+names); ``--resume`` continues from a checkpoint ``--train`` wrote or
+from the JAX package's ``checkpoint.msgpack``, and ``--pretrained_model``
+warm-starts from either (``train.checkpoint.load_checkpoint``).
 
 Several processes, one card each (data, tensor and sequence
 parallelism):

@@ -1,4 +1,4 @@
-"""Flax TIM params -> reference-layout torch ``state_dict``.
+"""Flax TIM params <-> reference-layout torch ``state_dict``.
 
 ``detection_state_dict_from_jax`` and ``recognition_state_dict_from_jax``
 are the exact inverses of ``tim_tpu/convert/torch_import.py::
@@ -17,9 +17,24 @@ the training models (``runner.backbone.TwoHeadViT``,
 (params and BatchNorm statistics); and ``load_torch_checkpoint`` /
 ``load_backbone_state`` read a released backbone checkpoint into a port
 backbone. Works on plain numpy leaves; jax
-arrays convert through ``np.asarray``.
-"""
+arrays and CPU tensors convert through ``np.asarray``.
 
+The other way, ``{detection,recognition,mae,vit}_params_to_jax`` take a
+port state dict (``TimDetection``, ``TimRecognition``,
+``PretrainVideoMAE``, ``VideoMAEViT``) and return the flax param tree
+(not wrapped in ``{'params': ...}``) of CPU tensors: q/k/v unpacked from
+``in_proj``, Dense kernels transposed, conv kernels permuted. They are
+the port's copies of ``{detection,recognition}_params_from_torch`` and
+of the ViT's ``params_from_torch``, and what ``train.checkpoint`` writes
+the JAX package's msgpack files with.
+
+Every converter here, in both directions, is a pure rearrangement of its
+leaves: transposes, permutations, splits and concatenations, no
+arithmetic (the ``*_from_jax`` functions store fp32, the dtype of every
+training state, which an fp32 leaf passes unchanged). So a tree shaped
+like the params, such as Adam's ``mu`` and ``nu``, converts through the
+same functions, and a leaf converts bit for bit.
+"""
 from __future__ import annotations
 
 import re
@@ -403,3 +418,169 @@ def load_backbone_state(model: torch.nn.Module, state_dict: Mapping
     if missing:
         raise KeyError(f"load_backbone_state: checkpoint lacks {missing}")
     return list(unexpected)
+
+
+# ---------------------------------------------------------------------------
+# port state dict -> flax param tree
+# ---------------------------------------------------------------------------
+
+def _leaf(t) -> torch.Tensor:
+    return t.detach().cpu().contiguous()
+
+
+def _linear_to_jax(sd: Mapping, prefix: str) -> Dict:
+    return {"kernel": _leaf(sd[f"{prefix}.weight"].t()),
+            "bias": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _norm_to_jax(sd: Mapping, prefix: str) -> Dict:
+    return {"scale": _leaf(sd[f"{prefix}.weight"]),
+            "bias": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _mlp_to_jax(sd: Mapping, prefix: str) -> Dict:
+    """``{fc0, fc1, ...}`` of the linears at ``prefix.0``, ``prefix.2``,
+    ... (a norm after them has a 1-d weight and ends the run)."""
+    out, i = {}, 0
+    while sd.get(f"{prefix}.{2 * i}.weight", torch.empty(0)).dim() == 2:
+        out[f"fc{i}"] = _linear_to_jax(sd, f"{prefix}.{2 * i}")
+        i += 1
+    return out
+
+
+def _indices(sd: Mapping, pattern: str) -> int:
+    """The number of consecutive indices ``i`` from 0 for which some key
+    starts with ``pattern.format(i)``."""
+    n = 0
+    while any(k.startswith(pattern.format(n)) for k in sd):
+        n += 1
+    return n
+
+
+def _encoder_layer_to_jax(sd: Mapping, prefix: str) -> Dict:
+    attn = f"{prefix}.self_attn"
+    weights = sd[f"{attn}.in_proj_weight"].chunk(3, dim=0)
+    biases = sd[f"{attn}.in_proj_bias"].chunk(3)
+    out = {"self_attn": {
+        name: {"kernel": _leaf(w.t()), "bias": _leaf(b)}
+        for name, w, b in zip(("q", "k", "v"), weights, biases)}}
+    out["self_attn"]["out"] = _linear_to_jax(sd, f"{attn}.out_proj")
+    for name in ("norm1", "norm2"):
+        out[name] = _norm_to_jax(sd, f"{prefix}.{name}")
+    for name in ("linear1", "linear2"):
+        out[name] = _linear_to_jax(sd, f"{prefix}.{name}")
+    return out
+
+
+_MODALITIES = ("visual", "audio")
+
+
+def _trunk_to_jax(sd: Mapping, encoder: str) -> Dict:
+    """The inverse of ``_trunk``; a one-modality model's unprefixed CLS
+    tokens get the modality of its one embedder back."""
+    p = {"time_mlp": _mlp_to_jax(sd, "time_mlp"),
+         "time_norm": _norm_to_jax(sd, "time_mlp.6")}
+    fe, tokens = {}, {}
+    for key in sd:
+        if not key.startswith("feature_encoding."):
+            continue
+        name = key[len("feature_encoding."):]
+        if "." not in name:
+            tokens[name] = _leaf(sd[key])
+        elif name.endswith("_embedder.1.weight"):
+            emb = name[:-len(".1.weight")]
+            fe[emb] = {"proj": _linear_to_jax(sd, f"feature_encoding.{emb}.1"),
+                       "norm": _norm_to_jax(sd, f"feature_encoding.{emb}.3")}
+    embedders = [n for n in fe if n.endswith("_embedder")]
+    cls = [n for n in tokens if n.endswith("_cls")]
+    if len(embedders) == 1 and cls and not any(
+            n.split("_", 1)[0] in _MODALITIES for n in cls):
+        modality = embedders[0].split("_", 1)[0]
+        tokens = {(f"{modality}_{n}" if n in cls else n): t
+                  for n, t in tokens.items()}
+    p["feature_encoding"] = {**fe, **tokens}
+    p["encoder"] = {
+        f"layer{i}": _encoder_layer_to_jax(sd, f"{encoder}.layers.{i}")
+        for i in range(_indices(sd, encoder + ".layers.{}."))}
+    p["drloc_mlp"] = _mlp_to_jax(sd, "drloc_mlp")
+    pool = sorted({k.split(".")[1] for k in sd if k.startswith("pool.")})
+    if pool:
+        p["pool"] = {name: (_linear_to_jax(sd, f"pool.{name}")
+                            if f"pool.{name}.bias" in sd else
+                            {"kernel": _leaf(sd[f"pool.{name}.weight"].t())})
+                     for name in pool}
+    return p
+
+
+def _heads_to_jax(sd: Mapping) -> Dict:
+    names = {v: k for k, v in _CLS_HEADS.items()}
+    return {names[port]: _linear_to_jax(sd, f"cls_head.{port}")
+            for port in names if f"cls_head.{port}.weight" in sd}
+
+
+def detection_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port ``TimDetection`` state dict -> the flax ``TimDetection``
+    param tree (the inverse of ``detection_state_dict_from_jax``)."""
+    p = _trunk_to_jax(sd, "backbone")
+    p["cls_head"] = _heads_to_jax(sd)
+    reg = {v: k for k, v in _REG_HEADS.items()}
+    p["reg_head"] = {reg[port]: _mlp_to_jax(sd, f"reg_head.{port}")
+                     for port in reg if f"reg_head.{port}.0.weight" in sd}
+    return p
+
+
+def recognition_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port ``TimRecognition`` state dict -> the flax ``TimRecognition``
+    param tree (the inverse of ``recognition_state_dict_from_jax``)."""
+    p = _trunk_to_jax(sd, "transformer_encoder")
+    p["cls_head"] = _heads_to_jax(sd)
+    return p
+
+
+def _conv_to_jax(sd: Mapping, prefix: str) -> Dict:
+    # torch [out, in, t, h, w] -> flax [t, h, w, in, out]
+    return {"kernel": _leaf(sd[f"{prefix}.weight"].permute(2, 3, 4, 1, 0)),
+            "bias": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _vit_block_to_jax(sd: Mapping, src: str) -> Dict:
+    out = {"norm1": _norm_to_jax(sd, f"{src}.norm1"),
+           "norm2": _norm_to_jax(sd, f"{src}.norm2"),
+           "attn": {"qkv_kernel": _leaf(sd[f"{src}.attn.qkv.weight"].t()),
+                    "q_bias": _leaf(sd[f"{src}.attn.q_bias"]),
+                    "v_bias": _leaf(sd[f"{src}.attn.v_bias"]),
+                    "proj": _linear_to_jax(sd, f"{src}.attn.proj")},
+           "fc1": _linear_to_jax(sd, f"{src}.mlp.fc1"),
+           "fc2": _linear_to_jax(sd, f"{src}.mlp.fc2")}
+    if f"{src}.gamma_1" in sd:
+        out["gamma_1"] = _leaf(sd[f"{src}.gamma_1"])
+        out["gamma_2"] = _leaf(sd[f"{src}.gamma_2"])
+    return out
+
+
+def vit_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port ``VideoMAEViT`` state dict -> the flax ``VideoMAEViT`` param
+    tree (the inverse of ``vit_state_dict_from_jax``)."""
+    p = {"patch_embed": _conv_to_jax(sd, "patch_embed.proj"),
+         "fc_norm": _norm_to_jax(sd, "fc_norm")}
+    for i in range(_indices(sd, "blocks.{}.")):
+        p[f"block{i}"] = _vit_block_to_jax(sd, f"blocks.{i}")
+    return p
+
+
+def mae_params_to_jax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A port ``PretrainVideoMAE`` state dict -> the flax
+    ``PretrainVideoMAE`` param tree (the inverse of
+    ``mae_state_dict_from_jax``)."""
+    p = {"patch_embed": _conv_to_jax(sd, "patch_embed.proj"),
+         "encoder_norm": _norm_to_jax(sd, "encoder_norm"),
+         "encoder_to_decoder": {
+             "kernel": _leaf(sd["encoder_to_decoder.weight"].t())},
+         "mask_token": _leaf(sd["mask_token"]),
+         "decoder_norm": _norm_to_jax(sd, "decoder_norm"),
+         "decoder_head": _linear_to_jax(sd, "decoder_head")}
+    for i in range(_indices(sd, "blocks.{}.")):
+        p[f"block{i}"] = _vit_block_to_jax(sd, f"blocks.{i}")
+    for i in range(_indices(sd, "decoder_blocks.{}.")):
+        p[f"decoder_block{i}"] = _vit_block_to_jax(sd, f"decoder_blocks.{i}")
+    return p

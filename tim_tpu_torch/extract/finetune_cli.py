@@ -27,9 +27,10 @@ when asked, on the CPU:
   ``TwoHeadViT(VideoMAEViT)``, then ``validate()``; ``--pretrained`` merges
   the encoder of a checkpoint that ``--mode pretrain`` wrote
   (``checkpoint.pt``) into the trunk (the MAE encoder's names are the
-  ViT's: every ``blocks.{i}`` entry loads, ``fc_norm`` keeps its init).
-  A JAX ``.msgpack`` checkpoint is not read (the msgpack reader:
-  ``ROADMAP.md`` queue 1 item 8).
+  ViT's: every ``blocks.{i}`` entry loads, ``fc_norm`` keeps its init),
+  or of the JAX package's ``checkpoint.msgpack`` of its pretraining
+  (merged as JAX merges it, by flax path and shape:
+  ``train.checkpoint.jax_merge``).
 
 Each mode ends with ``train.checkpoint.save_checkpoint`` and returns its
 statistics. The ViT's attention is kernel 5 (and 5b) on the card and its
@@ -45,15 +46,12 @@ MLP sub-block, kernel 5 outside the recomputation of the latter
 from __future__ import annotations
 
 import argparse
-import os
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from tim_tpu_torch.train import checkpoint as ckpt
-
-_BACKENDS = "ROADMAP.md, queue 1 item 8: the msgpack reader"
 
 
 def build_parser():
@@ -88,7 +86,8 @@ def build_parser():
     p.add_argument("--mask_ratio", type=float, default=0.9)
     p.add_argument("--pretrained", default="",
                    help="checkpoint written by --mode pretrain "
-                        "(checkpoint.pt) whose encoder warm-starts the "
+                        "(checkpoint.pt, or the JAX package's "
+                        "checkpoint.msgpack) whose encoder warm-starts the "
                         "finetune trunk")
     p.add_argument("--compute_dtype", default="bfloat16",
                    help="bfloat16 or float32")
@@ -153,17 +152,12 @@ def load_pretrained_encoder(path: str, trunk: torch.nn.Module
                             ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """(the parameters of the checkpoint at ``path``, the entries of
     ``trunk``'s state dict that it lacks or holds at another shape). The
-    checkpoint is one that ``--mode pretrain`` wrote; a JAX msgpack one
-    raises ``ValueError``."""
-    if path.endswith(".msgpack") or (
-            os.path.isdir(path)
-            and not os.path.exists(os.path.join(path, ckpt.FILENAME))
-            and os.path.exists(os.path.join(path, "checkpoint.msgpack"))):
-        raise ValueError(
-            f"--pretrained {path}: a JAX msgpack checkpoint, which the port "
-            f"does not read ({_BACKENDS}); pass the {ckpt.FILENAME} that "
-            f"this CLI's --mode pretrain wrote")
+    checkpoint is one that ``--mode pretrain`` wrote, or a JAX msgpack one
+    (then the parameters are the trunk's whole state dict with the file's
+    encoder merged in, ``train.checkpoint.jax_merge``)."""
     params = ckpt.load_checkpoint(path)["params"]
+    if ckpt.is_flax_tree(params):
+        return ckpt.jax_merge(trunk, params)
     missing = [k for k, v in trunk.state_dict().items()
                if k not in params or tuple(params[k].shape) != tuple(v.shape)]
     return params, missing

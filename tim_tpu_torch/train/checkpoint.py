@@ -1,12 +1,25 @@
-"""Checkpoint save/load: counterpart of ``tim_tpu/train/checkpoint.py`` in
-a torch format.
+"""Checkpoint save/load: counterpart of ``tim_tpu/train/checkpoint.py``,
+in a torch format and in the JAX package's msgpack format.
 
 ``<path>/checkpoint.pt`` holds the full train state (parameters under the
 reference's state-dict names, optimizer state, step, normaliser, epoch,
 extra stats), plus a ``best_<tag>.pt`` copy per tag of ``is_best``, as the
 reference names its best checkpoints. The payload holds tensors, numbers,
 strings and containers of them only, so ``torch.load(weights_only=True)``
-reads it. (The JAX package's msgpack backend is not ported.)
+reads it. The command lines write this format.
+
+The JAX package's files, ``<path>/checkpoint.msgpack`` and
+``best_<tag>.msgpack`` (flax's msgpack layout, ``utils.msgpack``), are
+read by ``load_checkpoint`` and written by ``save_jax_checkpoint``: the
+payload ``{epoch (int64), step (int32), params (the flax param tree),
+opt_state (optax's state dict), normaliser (float32), extra}``. A loaded
+msgpack payload stays a flax tree until a model is known: ``merge_params``
+and ``restore_train_state`` pick the names from the model's class
+(``TimDetection``, ``TimRecognition``, ``PretrainVideoMAE``,
+``VideoMAEViT``; ``convert``'s converters), merge the parameters as JAX's
+``shape_matched_merge`` merges them (by flax path and shape), and map
+the optimizer state through ``optim.if_finite_from_optax``. JAX's orbax
+directories (``<path>/orbax/<epoch>``) are not read.
 
 States sharded over a model axis (``models.tim``'s ``shard_specs``): the
 counterpart of JAX's orbax route is one file as well. Save gathers each
@@ -23,16 +36,24 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from tim_tpu_torch import convert
+from tim_tpu_torch.models.backbones.mae import PretrainVideoMAE
+from tim_tpu_torch.models.backbones.vit import VideoMAEViT
+from tim_tpu_torch.models.tim import TimDetection, TimRecognition
 from tim_tpu_torch.parallel import multihost
+from tim_tpu_torch.train import optim
 from tim_tpu_torch.train.state import TrainState
+from tim_tpu_torch.utils import msgpack
 
 logger = logging.getLogger(__name__)
 
 FILENAME = "checkpoint.pt"
+JAX_FILENAME = "checkpoint.msgpack"
 
 
 def _to_cpu(tree):
@@ -119,9 +140,35 @@ def save_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
                 torch.save(payload, os.path.join(path, f"best_{tag}.pt"))
 
 
+def _checkpoint_file(path: str) -> str:
+    """The file that ``load_checkpoint(path)`` reads: ``path`` itself when
+    it ends in ``.pt`` or ``.msgpack``; in a directory ``checkpoint.pt``
+    where it holds one, else ``checkpoint.msgpack``. A directory holding
+    neither but JAX's ``orbax/`` raises ``ValueError``."""
+    if path.endswith((".pt", ".msgpack")):
+        return path
+    pt, jax_file = (os.path.join(path, f) for f in (FILENAME, JAX_FILENAME))
+    if os.path.exists(pt) or not os.path.isdir(path):
+        return pt
+    if os.path.exists(jax_file):
+        return jax_file
+    if os.path.isdir(os.path.join(path, "orbax")):
+        raise ValueError(
+            f"{path}: only an orbax/ checkpoint directory, the JAX package's "
+            f"orbax backend, which the port does not read; write "
+            f"{JAX_FILENAME} (JAX's save_checkpoint) instead")
+    return pt
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Read ``<path>/checkpoint.pt`` (or a ``.pt`` file path) to the CPU."""
-    fname = path if path.endswith(".pt") else os.path.join(path, FILENAME)
+    """Read the checkpoint at ``path`` (``_checkpoint_file``) to the CPU: a
+    ``.pt`` payload, or a JAX msgpack payload whose ``params`` and
+    ``opt_state`` are flax trees (``merge_params`` and
+    ``restore_train_state`` take either)."""
+    fname = _checkpoint_file(path)
+    logger.info("reading checkpoint %s", fname)
+    if fname.endswith(".msgpack"):
+        return msgpack.load(fname)
     return torch.load(fname, map_location="cpu", weights_only=True)
 
 
@@ -148,23 +195,172 @@ def shape_matched_merge(init: Mapping[str, torch.Tensor],
     return merged
 
 
-def merge_params(model: torch.nn.Module,
-                 params: Mapping[str, torch.Tensor]) -> None:
-    """Load the entries of ``params`` (whole tensors) whose name and shape
+def is_flax_tree(params: Mapping) -> bool:
+    """True for a flax param tree (nested dicts, a JAX msgpack payload's
+    ``params``), False for a state dict (name -> tensor)."""
+    return any(isinstance(v, Mapping) for v in params.values())
+
+
+def _jax_names(model: torch.nn.Module
+              ) -> Tuple[Callable[[Mapping], Dict], Callable[[Mapping], Dict]]:
+    """(state dict -> flax tree, flax tree -> state dict) of the model's
+    class."""
+    if isinstance(model, TimDetection):
+        return (convert.detection_params_to_jax,
+                lambda t: convert.detection_state_dict_from_jax({"params": t}))
+    if isinstance(model, TimRecognition):
+        return (convert.recognition_params_to_jax,
+                lambda t: convert.recognition_state_dict_from_jax(
+                    {"params": t}))
+    if isinstance(model, PretrainVideoMAE):
+        return (convert.mae_params_to_jax,
+                lambda t: convert.mae_state_dict_from_jax({"params": t}))
+    if isinstance(model, VideoMAEViT):
+        return (convert.vit_params_to_jax,
+                lambda t: convert.vit_state_dict_from_jax({"params": t},
+                                                          model.depth))
+    raise ValueError(f"no flax parameter names for a {type(model).__name__}")
+
+
+def _whole_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict with whole tensors (gathered over a model
+    axis: every rank calls it), on the CPU."""
+    full = getattr(model, "full_state_dict", model.state_dict)
+    return _to_cpu(full())
+
+
+def _flatten(tree, prefix=()) -> Dict[str, Any]:
+    out = {}
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+    else:
+        out["/".join(prefix)] = tree
+    return out
+
+
+def _unflatten(flat: Mapping[str, Any]) -> Dict:
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def jax_merge(model: torch.nn.Module, tree: Mapping
+              ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """(the model's whole state dict with the flax param tree ``tree``
+    merged in, the names of the entries not loaded whole). The merge is
+    JAX's ``shape_matched_merge(to_state_dict(params), tree)``: a leaf
+    loads where its flax path and shape match the model's, and the three
+    warnings name flax paths as JAX's do. Since the converters only
+    rearrange, an entry is loaded whole when every leaf it is made of
+    loaded (found by converting a tree of 0/1 flags)."""
+    to_jax, from_jax = _jax_names(model)
+    whole = _whole_state_dict(model)
+    init, loaded = _flatten(to_jax(whole)), _flatten(tree)
+    merged, flags = {}, {}
+    for key, val in init.items():
+        got = loaded.get(key)
+        ok = got is not None and tuple(np.shape(got)) == tuple(val.shape)
+        if not ok:
+            if key in loaded:
+                logger.warning("shape mismatch for %s: ckpt %s vs init %s",
+                               key, tuple(np.shape(got)), tuple(val.shape))
+            else:
+                logger.warning("missing from checkpoint: %s", key)
+        merged[key] = got if ok else val
+        flags[key] = np.full((1,) * val.dim(), float(ok), np.float32)
+    for key in loaded:
+        if key not in init:
+            logger.warning("unused checkpoint entry: %s", key)
+    state = from_jax(_unflatten(merged))
+    loaded_flags = from_jax(_unflatten(flags))
+    kept = [n for n in whole
+            if n in loaded_flags and not bool(loaded_flags[n].all())]
+    return {**whole, **state}, kept
+
+
+def merge_params(model: torch.nn.Module, params: Mapping) -> None:
+    """Load the entries of ``params`` (whole tensors: a state dict, or a
+    JAX payload's flax tree, merged by ``jax_merge``) whose name and shape
     match the model's, keeping its values elsewhere (a non-strict load,
     ``shape_matched_merge``); on a model axis each rank keeps its
     slices."""
+    if is_flax_tree(params):
+        params, _ = jax_merge(model, params)
     shard = getattr(model, "shard_state_dict", dict)
     model.load_state_dict(shape_matched_merge(model.state_dict(),
                                               shard(params)))
 
 
+def _param_names(state: TrainState) -> List[str]:
+    """The model's name of each of the optimizer's parameters, in its
+    order."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
 def restore_train_state(state: TrainState, payload: Mapping) -> TrainState:
     """Full resume in place: parameters (shape-matched), optimizer state,
-    step and normaliser; on a model axis each rank keeps its slices."""
+    step and normaliser, from a ``.pt`` or a JAX msgpack payload; on a
+    model axis each rank keeps its slices."""
     merge_params(state.model, payload["params"])
-    state.optimizer.load_state_dict(
-        _sliced_optimizer_state(state, payload["opt_state"]))
+    opt_state = payload["opt_state"]
+    if "inner_state" in opt_state:
+        _, from_jax = _jax_names(state.model)
+        opt_state = optim.if_finite_from_optax(
+            opt_state, _param_names(state), from_jax,
+            state.optimizer.state_dict()["param_groups"])
+    state.optimizer.load_state_dict(_sliced_optimizer_state(state,
+                                                            opt_state))
     state.step = int(payload["step"])
-    state.normaliser = payload["normaliser"].to(state.normaliser.device)
+    state.normaliser = torch.as_tensor(payload["normaliser"]).to(
+        device=state.normaliser.device, dtype=torch.float32)
     return state
+
+
+def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
+                        extra: Optional[Dict[str, Any]] = None,
+                        is_best: str = "none") -> Optional[int]:
+    """Write ``<path>/checkpoint.msgpack`` and, for each ``_``-separated
+    tag of ``is_best``, ``<path>/best_<tag>.msgpack``: the JAX package's
+    payload (``tim_tpu/train/checkpoint.py::save_checkpoint``), which its
+    ``load_checkpoint`` + ``restore_train_state`` resume from. TIM states
+    (``AdamWIfFinite``) and the MAE pretraining state
+    (``torch.optim.AdamW``). Every rank calls it (a sharded state is
+    gathered first); global rank 0 writes and gets the file's bytes."""
+    to_jax, _ = _jax_names(state.model)
+    params = _whole_state_dict(state.model)
+    opt = _whole_optimizer_state(state)
+    if not multihost.is_master():
+        return None
+    pairs = [(n, params[n]) for n in _param_names(state)]
+    if isinstance(state.optimizer, optim.AdamWIfFinite):
+        opt_tree = optim.if_finite_to_optax(opt, pairs, to_jax)
+    elif isinstance(state.optimizer, torch.optim.AdamW):
+        opt_tree = optim.adamw_to_optax(opt, pairs, to_jax)
+    else:
+        raise ValueError(f"no optax layout for a "
+                         f"{type(state.optimizer).__name__}")
+    payload = {
+        "epoch": np.asarray(int(epoch), np.int64),
+        "step": np.asarray(int(state.step), np.int32),
+        "params": to_jax(params),
+        "opt_state": opt_tree,
+        "normaliser": _to_cpu(state.normaliser).to(torch.float32)
+        .reshape(()),
+        "extra": extra or {},
+    }
+    os.makedirs(path, exist_ok=True)
+    blob = msgpack.msgpack_serialize(payload)
+    tags = [] if is_best in (None, "none") else [
+        t for t in is_best.split("_") if t]
+    for name in [JAX_FILENAME] + [f"best_{t}.msgpack" for t in tags]:
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(blob)
+    return len(blob)

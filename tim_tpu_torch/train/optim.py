@@ -14,12 +14,19 @@ the squares of the sharded gradients over the model ranks and counts the
 replicated ones once, and a non-finite gradient on any rank skips the
 step on all (one ``all_reduce`` of both), so that the ranks clip by one
 norm and skip together.
+
+``if_finite_to_optax`` / ``if_finite_from_optax`` map an
+``AdamWIfFinite`` state dict onto the ``flax.serialization.
+to_state_dict`` layout of the JAX package's optimizer state and back
+(the JAX package's msgpack checkpoints, ``train.checkpoint``);
+``adamw_to_optax`` writes a ``torch.optim.AdamW`` state (the MAE
+pretraining runner's) in ``optax.adamw``'s layout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Mapping, Sequence, Tuple
 
 import torch
 
@@ -215,3 +222,99 @@ def make_optimizer(params, lr: float, weight_decay: float, total_steps: int,
                                                      warmup_steps),
         weight_decay=weight_decay, clip_norm=clip_norm, betas=(0.9, 0.999),
         eps=1e-8, max_consecutive_errors=8)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's optimizer state (optax's to_state_dict layout)
+# ---------------------------------------------------------------------------
+
+Converter = Callable[[Mapping[str, torch.Tensor]], Dict]
+MOMENTS = (("mu", "exp_avg"), ("nu", "exp_avg_sq"))
+
+
+def _moment_trees(state: Mapping, params: Sequence[Tuple[str, torch.Tensor]],
+                  to_jax: Converter) -> Dict:
+    """{"mu": tree, "nu": tree} of a torch optimizer's ``state`` (indexed
+    as ``params``, (name, whole tensor) pairs in the optimizer's order;
+    a parameter without state has zero moments, as optax's init)."""
+    out = {}
+    for jax_name, slot in MOMENTS:
+        out[jax_name] = to_jax({
+            name: (state[i][slot] if slot in state.get(i, {})
+                   else torch.zeros_like(p)).detach().cpu()
+            for i, (name, p) in enumerate(params)})
+    return out
+
+
+def _count(value) -> torch.Tensor:
+    return torch.as_tensor(value).detach().cpu().to(torch.int32).reshape(
+        ()).clone()
+
+
+def if_finite_to_optax(opt_state: Mapping,
+                       params: Sequence[Tuple[str, torch.Tensor]],
+                       to_jax: Converter) -> Dict:
+    """An ``AdamWIfFinite`` state dict (whole moments) -> the
+    ``to_state_dict`` of ``optax.apply_if_finite(chain(
+    clip_by_global_norm, adamw(schedule)))``'s state:
+    ``{notfinite_count, last_finite, total_notfinite, inner_state: {'0':
+    {} (the clip), '1': {'0': {count, mu, nu} (Adam), '1': {} (weight
+    decay), '2': {count} (the schedule)}}}``. The counters map by name,
+    ``count`` fills both counts, the moments go through ``to_jax`` (the
+    model's param converter; ``params``: (name, whole tensor) in the
+    optimizer's order)."""
+    c = opt_state["if_finite"]
+    count = _count(c["count"])
+    adam = {"count": count, **_moment_trees(opt_state["state"], params,
+                                            to_jax)}
+    return {"notfinite_count": _count(c["notfinite_count"]),
+            "last_finite": torch.as_tensor(c["last_finite"]).detach().cpu()
+            .to(torch.bool).reshape(()),
+            "total_notfinite": _count(c["total_notfinite"]),
+            "inner_state": {"0": {}, "1": {"0": adam, "1": {},
+                                           "2": {"count": count.clone()}}}}
+
+
+def if_finite_from_optax(tree: Mapping, names: Sequence[str],
+                         from_jax: Converter, param_groups) -> Dict:
+    """The inverse of ``if_finite_to_optax``: an ``AdamWIfFinite`` state
+    dict (whole moments, indexed by ``names``, the model's parameter
+    names in the optimizer's order; ``param_groups`` as the optimizer's
+    own). Raises when the Adam and schedule counts differ or a moment is
+    missing."""
+    inner = tree["inner_state"]["1"]
+    count, schedule = inner["0"]["count"], inner["2"]["count"]
+    if int(count) != int(schedule):
+        raise ValueError(f"optimizer state: Adam count {int(count)} and "
+                         f"schedule count {int(schedule)} differ")
+    moments = {slot: from_jax(inner["0"][jax_name])
+               for jax_name, slot in MOMENTS}
+    state = {}
+    for i, name in enumerate(names):
+        missing = [slot for slot, m in moments.items() if name not in m]
+        if missing:
+            raise ValueError(f"optimizer state: no {missing} for {name}")
+        state[i] = {slot: moments[slot][name] for slot in moments}
+    counters = {"count": _count(count),
+                "notfinite_count": _count(tree["notfinite_count"]),
+                "total_notfinite": _count(tree["total_notfinite"]),
+                "last_finite": torch.as_tensor(tree["last_finite"])
+                .to(torch.bool).reshape(()).clone()}
+    return {"state": state, "param_groups": param_groups,
+            "if_finite": counters}
+
+
+def adamw_to_optax(opt_state: Mapping,
+                   params: Sequence[Tuple[str, torch.Tensor]],
+                   to_jax: Converter) -> Dict:
+    """A ``torch.optim.AdamW`` state dict (one step count for every
+    parameter) -> the ``to_state_dict`` of ``optax.adamw(lr)``'s state:
+    ``{'0': {count, mu, nu}, '1': {} (weight decay), '2': {} (the
+    learning rate)}``."""
+    steps = {int(s["step"]) for s in opt_state["state"].values()}
+    if len(steps) > 1:
+        raise ValueError(f"AdamW state: parameters at steps {sorted(steps)}")
+    count = _count(steps.pop() if steps else 0)
+    return {"0": {"count": count, **_moment_trees(opt_state["state"], params,
+                                                  to_jax)},
+            "1": {}, "2": {}}
