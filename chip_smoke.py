@@ -236,7 +236,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      AdamW) written as msgpack and the same finetune run from
      ``--pretrained`` on it: the trunk's missing entries and the first
      step's loss (kernels 5 and 5b) bit-equal to the .pt route's; e. the
-     file with ``mu`` and ``nu`` swapped in one leaf must resume unequal.
+     file with ``mu`` and ``nu`` swapped in one leaf must resume unequal;
+ 26. JAX's orbax checkpoint directories (inside phase 25; the card's
+     machine has no JAX, orbax or tensorstore: ``utils/{orbax,ocdbt,
+     zstd}.py`` over the system's libzstd): a. phase 25's EPIC detection
+     state written by ``save_checkpoint_orbax`` (bytes, seconds, MB/s)
+     and b. read back by ``load_checkpoint_orbax`` (seconds, MB/s), its
+     payload bit-equal to the msgpack file's; a fresh runner ``resume``s
+     the directory (``load_checkpoint`` falls back to ``orbax/1``) and
+     takes the step: state and loss bit-equal to the .pt and msgpack
+     routes; c. ``--pretrained_model`` from it into bf16 and int8
+     ``detect_video`` (kernels 1, 2 and 3): detections bit-equal to the
+     msgpack route's; d. the committed fixture ``tests/data/torch_orbax``
+     (written by JAX: tensorstore's zstd frames) decoded on the card,
+     bit-equal to its ``checkpoint.msgpack`` twin, and loaded strictly
+     into a small ``TimDetection`` on the card from both; e. a flipped
+     byte in one chunk and then a truncated data file of the EPIC
+     directory each raise ``ValueError`` naming the key.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -5613,9 +5629,16 @@ def phase_tensor_parallel(card: str):
 # and stepped, (b) ``--pretrained_model`` into bf16 and int8 serving, (c)
 # recognition ``cli.run --validate --pretrained_model``, (d) (inside phase
 # 22, which holds the pretraining state) a full-width MAE state into the
-# finetune CLI's ``--pretrained``, (e) a faulty control.
+# finetune CLI's ``--pretrained``, (e) a faulty control. Phase 26, JAX's
+# orbax directories (``train.checkpoint.save_checkpoint_orbax`` /
+# ``load_checkpoint_orbax``), runs inside it as a third route beside the
+# two, with the JAX-written fixture and two faults.
 # ---------------------------------------------------------------------------
 JAX_SERVE_SECONDS = 90.0   # the serving routes' cut of the 300 s video
+JAX_ROUTES = ("pt", "jax", "orbax")   # .pt, msgpack, orbax directory
+ORBAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data", "torch_orbax")
+ORBAX_FLIP_KEY = "params.encoder.layer0.linear1.kernel/0.0"
 
 
 def rate(nbytes, secs):
@@ -5646,13 +5669,49 @@ def det_state_diff(a, b):
     return bad
 
 
+def payload_diff(got, want, path="payload"):
+    """The leaves in which two checkpoint payloads differ (empty: the same
+    keys, tensors of the same dtype, shape and bits, equal numbers)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path]
+        return [d for k in want for d in payload_diff(got[k], want[k],
+                                                      f"{path}/{k}")]
+    if isinstance(want, torch.Tensor):
+        ok = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+              and torch.equal(got, want))
+        return [] if ok else [path]
+    return [] if type(got) is type(want) and got == want else [path]
+
+
+def orbax_write_read(runner, tmp, extra, msgpack_payload):
+    """26a, b: the runner's state as an orbax directory and back; its
+    payload bit-equal to the msgpack file's."""
+    from tim_tpu_torch.train import checkpoint as ckpt
+    t0 = time.perf_counter()
+    sizes = ckpt.save_checkpoint_orbax(str(tmp / "orbax"), runner.state,
+                                       epoch=1, extra=extra)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    payload = ckpt.load_checkpoint_orbax(str(tmp / "orbax"))
+    read_s = time.perf_counter() - t0
+    diff = payload_diff(payload, msgpack_payload)
+    require(not diff, f"orbax: the payload differs from the msgpack "
+            f"file's in {diff[:6]}")
+    return {"orbax_bytes": sizes["total"], "orbax_value_bytes":
+            sizes["values"], "orbax_write_s": write_s,
+            "orbax_read_s": read_s,
+            "orbax_write_mb_s": rate(sizes["total"], write_s),
+            "orbax_read_mb_s": rate(sizes["total"], read_s)}
+
+
 def jax_det_resume(train_ds, tmp, card):
-    """25a and 25e: 2 banked steps of EPIC detection, saved as
-    ``checkpoint.pt`` and as ``checkpoint.msgpack``; fresh runners resume
-    each and take one more step: states and losses bit-equal. A copy of
-    the msgpack file with ``mu`` and ``nu`` swapped in one leaf, resumed
-    by the first runner, must differ from the .pt route in exactly those
-    two moments."""
+    """25a, 25e and 26a, b: 2 banked steps of EPIC detection, saved as
+    ``checkpoint.pt``, as ``checkpoint.msgpack`` and as an orbax
+    directory; fresh runners resume each and take one more step: states
+    and losses bit-equal. A copy of the msgpack file with ``mu`` and
+    ``nu`` swapped in one leaf, resumed by the first runner, must differ
+    from the .pt route in exactly those two moments."""
     from tim_tpu_torch import config as C
     from tim_tpu_torch.train import checkpoint as ckpt
     from tim_tpu_torch.utils import msgpack
@@ -5678,8 +5737,10 @@ def jax_det_resume(train_ds, tmp, card):
     require(os.path.getsize(fname) == nbytes
             and int(payload["step"]) == 2 and int(payload["epoch"]) == 1,
             "jax-ckpt: the msgpack payload's size, step or epoch")
+    orbax = timed("orbax-write-read", orbax_write_read, runner, tmp, extra,
+                  payload)
     fresh = {}
-    for route in ("pt", "jax"):
+    for route in JAX_ROUTES:
         fresh[route] = det_runner(cfg, train_ds, None, True)
         t0 = time.perf_counter()
         epoch = fresh[route].resume(str(tmp / route))
@@ -5687,6 +5748,7 @@ def jax_det_resume(train_ds, tmp, card):
         require(epoch == 1, f"jax-ckpt-{route}: epoch {epoch}")
         fresh[f"{route}_s"] = secs
     same = det_state_diff(fresh["pt"].state, fresh["jax"].state)
+    same += det_state_diff(fresh["pt"].state, fresh["orbax"].state)
     same += det_state_diff(fresh["pt"].state, runner.state)
     require(not same, f"jax-ckpt: resumed states differ: {same[:6]}")
 
@@ -5705,13 +5767,15 @@ def jax_det_resume(train_ds, tmp, card):
             f"moments of one parameter")
 
     losses = {}
-    for route in ("pt", "jax"):
+    for route in JAX_ROUTES:
         r = fresh[route]
         losses[route] = r._bank_step(r.state, batches[2])["loss"]
-    after = det_state_diff(fresh["pt"].state, fresh["jax"].state)
-    require(not after and torch.equal(losses["pt"], losses["jax"]),
-            f"jax-ckpt: one step after the resume differs: {after[:6]}, "
-            f"loss {float(losses['pt'])} vs {float(losses['jax'])}")
+    for route in JAX_ROUTES[1:]:
+        after = det_state_diff(fresh["pt"].state, fresh[route].state)
+        require(not after and torch.equal(losses["pt"], losses[route]),
+                f"jax-ckpt-{route}: one step after the resume differs: "
+                f"{after[:6]}, loss {float(losses['pt'])} vs "
+                f"{float(losses[route])}")
     log(f"[jax-ckpt] {card}: EPIC detection state after 2 banked bf16 "
         f"steps of {DET_BATCH}: checkpoint.msgpack {nbytes} bytes, written in "
         f"{write_s:.3f} s ({rate(nbytes, write_s):.1f} MB/s, gather + "
@@ -5722,19 +5786,31 @@ def jax_det_resume(train_ds, tmp, card):
         f"bit-equal to the .pt route, after one more step too (loss "
         f"{float(losses['jax']):.6f}); the swapped-moments control differs "
         f"in {len(rejected)} parts ({rejected[:2]})")
+    log(f"[orbax-ckpt] {card}: the same state as orbax/1 (OCDBT, zarr, "
+        f"zstd level 1): {orbax['orbax_bytes']} bytes "
+        f"({orbax['orbax_value_bytes']} of chunks in the data file), "
+        f"written in {orbax['orbax_write_s']:.3f} s "
+        f"({orbax['orbax_write_mb_s']:.1f} MB/s, gather + convert + "
+        f"compress + write), read in {orbax['orbax_read_s']:.3f} s "
+        f"({orbax['orbax_read_mb_s']:.1f} MB/s), its payload bit-equal to "
+        f"the msgpack file's; resumed in {fresh['orbax_s']:.3f} s "
+        f"(load_checkpoint's fallback to orbax/1): the state and the next "
+        f"step bit-equal to the .pt and msgpack routes (loss "
+        f"{float(losses['orbax']):.6f})")
     del runner, fresh
     torch.cuda.empty_cache()
     return {"bytes": nbytes, "write_s": write_s, "read_s": read_s,
             "write_mb_s": rate(nbytes, write_s),
-            "read_mb_s": rate(nbytes, read_s), "pt_write_s": pt_s}
+            "read_mb_s": rate(nbytes, read_s), "pt_write_s": pt_s,
+            **orbax}
 
 
 def jax_det_serve(train_ds, tmp, video, batch2):
-    """25b: ``init_state(pretrained=...)`` (``--pretrained_model``) from the
-    msgpack directory and from the .pt one, each model's weights served
-    by bf16 ``detect_video`` (kernels 1 and 2) and by
-    ``DetectionServer.quantized`` (kernel 3) over a cut of the video:
-    detections bit-equal between the routes."""
+    """25b and 26c: ``init_state(pretrained=...)``
+    (``--pretrained_model``) from the .pt, the msgpack and the orbax
+    directories, each model's weights served by bf16 ``detect_video``
+    (kernels 1 and 2) and by ``DetectionServer.quantized`` (kernel 3)
+    over a cut of the video: detections bit-equal between the routes."""
     from tim_tpu_torch import config as C
     from tim_tpu_torch.runner.detection import DetectionRunner
     from tim_tpu_torch.serve import DetectionServer
@@ -5747,7 +5823,7 @@ def jax_det_serve(train_ds, tmp, video, batch2):
     cfg8 = C.epic_detection(compute_dtype="bfloat16", use_fused_ffn=True,
                             quant_pallas_heads=True)
     dets, paths, threshold = {}, {}, None
-    for route in ("pt", "jax"):
+    for route in JAX_ROUTES:
         runner = DetectionRunner(C.epic_detection(), tcfg, train_ds, None,
                                  print_freq=1000, device="cuda")
         runner.init_state(pretrained=str(tmp / route))
@@ -5778,14 +5854,17 @@ def jax_det_serve(train_ds, tmp, video, batch2):
             del server
         del sd
     for kind in ("bf16", "int8"):
-        got, want = dets["jax", kind], dets["pt", kind]
-        require(sorted(got) == sorted(want) and all(
-            np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
-            for k in want) and len(want["scores"]) > 0,
-            f"jax-serve-{kind}: detections differ from the .pt route's")
-        require(paths[f"jax-serve-{kind}", "jax"]
-                == paths[f"jax-serve-{kind}", "pt"],
-                f"jax-serve-{kind}: launches differ between the routes")
+        for route in JAX_ROUTES[1:]:
+            got, want = dets[route, kind], dets["pt", kind]
+            require(sorted(got) == sorted(want) and all(
+                np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+                for k in want) and len(want["scores"]) > 0,
+                f"jax-serve-{kind}-{route}: detections differ from the .pt "
+                f"route's")
+            require(paths[f"jax-serve-{kind}", route]
+                    == paths[f"jax-serve-{kind}", "pt"],
+                    f"jax-serve-{kind}-{route}: launches differ between the "
+                    f"routes")
     l16, l8 = paths["jax-serve-bf16", "jax"], paths["jax-serve-int8", "jax"]
     require(l16["query_block_attention"] > 0 and l16["fused_post_attention"]
             > 0 and l8["int8_matmul_fused"] > 0,
@@ -5795,9 +5874,11 @@ def jax_det_serve(train_ds, tmp, video, batch2):
         f"({len(dets['jax', 'bf16']['scores'])} detections) and int8 "
         f"({len(dets['jax', 'int8']['scores'])}) bit-equal to the .pt "
         f"route (score threshold {threshold:.6f}); launches bf16 {l16}, int8 "
-        f"{l8}")
+        f"{l8}; the same from the orbax directory, bit-equal too")
     torch.cuda.empty_cache()
-    return {"jax-serve-bf16": l16, "jax-serve-int8": l8}
+    return {"jax-serve-bf16": l16, "jax-serve-int8": l8,
+            "orbax-serve-bf16": paths["jax-serve-bf16", "orbax"],
+            "orbax-serve-int8": paths["jax-serve-int8", "orbax"]}
 
 
 def jax_rec_validate(val_ds, state_dict, tmp):
@@ -5835,9 +5916,89 @@ def jax_rec_validate(val_ds, state_dict, tmp):
     return {"jax-cli-rec-val": launches["jax"]}
 
 
+def orbax_fixture(card):
+    """26d: the JAX-written fixture: its orbax payload (tensorstore's zstd
+    frames, decoded by libzstd here) bit-equal to its msgpack twin; a
+    small ``TimDetection`` on the card loaded strictly from each, state
+    dicts bit-equal."""
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.models.tim import TimDetection
+    from tim_tpu_torch.train import checkpoint as ckpt
+    from tim_tpu_torch.utils import ocdbt
+    with open(os.path.join(ORBAX_FIXTURE, "config.json")) as f:
+        cfg = C.DetectionConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in json.load(f).items()})
+    t0 = time.perf_counter()
+    payloads = {"orbax": ckpt.load_checkpoint_orbax(ORBAX_FIXTURE),
+                "msgpack": ckpt.load_checkpoint(ORBAX_FIXTURE)}
+    read_s = time.perf_counter() - t0
+    diff = payload_diff(payloads["orbax"], payloads["msgpack"])
+    require(not diff, f"orbax-fixture: the payload differs from its msgpack "
+            f"twin in {diff[:6]}")
+    states = {}
+    for route, payload in payloads.items():
+        model = TimDetection(cfg, device="cuda")
+        sd, kept = ckpt.jax_merge(model, payload["params"])
+        require(not kept, f"orbax-fixture-{route}: not in the file: "
+                f"{kept[:4]}")
+        model.load_state_dict(sd, strict=True)
+        states[route] = model.state_dict()
+    bad = [n for n, t in states["msgpack"].items()
+           if not (t.is_cuda and torch.equal(states["orbax"][n], t))]
+    require(not bad, f"orbax-fixture: the card's models differ in {bad[:6]}")
+    values = ocdbt.read_store(os.path.join(ORBAX_FIXTURE, "orbax", "1"))
+    frames = sum(not k.endswith(".zarray") for k in values)
+    log(f"[orbax-fixture] {card}: the JAX-written tests/data/torch_orbax "
+        f"({frames} zstd chunk frames, {len(states['orbax'])} state dict "
+        f"entries) read in {read_s:.3f} s with its msgpack twin: payloads "
+        f"bit-equal, loaded strictly into TimDetection on the card from "
+        f"both, bit-equal")
+    return {"frames": frames, "read_s": read_s}
+
+
+def orbax_controls(tmp):
+    """26e: faults in the EPIC orbax directory: a flipped byte in one chunk
+    (then put back), then its data file cut short by one byte: each load
+    raises ``ValueError`` naming the key."""
+    from tim_tpu_torch.train import checkpoint as ckpt
+    from tim_tpu_torch.utils import ocdbt
+    step = os.path.join(str(tmp / "orbax"), "orbax", "1")
+    where = {}
+    ocdbt.read_store(step, locations=where)
+
+    def rejected(tag, key):
+        try:
+            ckpt.load_checkpoint(str(tmp / "orbax"))
+        except ValueError as e:
+            require(key in str(e), f"orbax-control-{tag}: {e} names not "
+                    f"{key}")
+            return str(e)
+        require(False, f"orbax-control-{tag}: the faulty directory loaded")
+
+    rel, offset, length = where[ORBAX_FLIP_KEY]
+    fname = os.path.join(step, rel)
+    with open(fname, "r+b") as f:
+        f.seek(offset + length // 2)
+        byte = f.read(1)[0]
+        f.seek(offset + length // 2)
+        f.write(bytes([byte ^ 0x01]))
+    flip = rejected("flip", ORBAX_FLIP_KEY)
+    with open(fname, "r+b") as f:
+        f.seek(offset + length // 2)
+        f.write(bytes([byte]))
+    last, (rel, offset, length) = max(where.items(), key=lambda kv: kv[1][1])
+    with open(os.path.join(step, rel), "r+b") as f:
+        f.truncate(offset + length - 1)
+    cut = rejected("truncate", last)
+    log(f"[orbax-controls] a flipped byte in {ORBAX_FLIP_KEY}: {flip}; the "
+        f"data file one byte short: {cut}")
+    return {"flip": flip, "truncate": cut}
+
+
 def phase_jax_checkpoints(det_splits, rec_val_ds, rec_state_dict, video,
                           batch2, card):
-    """Phase 25 (a, b, c, e); returns the launches of its paths."""
+    """Phase 25 (a, b, c, e) with phase 26; returns the launches of its
+    paths."""
     import pathlib
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
@@ -5848,6 +6009,9 @@ def phase_jax_checkpoints(det_splits, rec_val_ds, rec_state_dict, video,
                       video, batch2)
         paths.update(timed("jax-ckpt-rec", jax_rec_validate, rec_val_ds,
                            rec_state_dict, tmp))
+        summary["orbax_fixture"] = timed("orbax-fixture", orbax_fixture,
+                                         card)
+        timed("orbax-controls", orbax_controls, tmp)
     log(f"[jax-ckpt] summary {json.dumps(summary)}")
     return paths
 
@@ -5983,14 +6147,14 @@ def main() -> int:
                  "cli-rec-dump", "gate-detection", "gate-recognition",
                  "dp-det-train", "dp-det-dump", "dp-rec-train",
                  "dp-rec-dump", "tp-bf16-val", "tp-bf16-sp-val",
-                 "tp-fused-val", "jax-serve-bf16", "jax-cli-rec-val"):
+                 "tp-fused-val", "jax-serve-bf16", "jax-cli-rec-val",
+                 "orbax-serve-bf16", "orbax-serve-int8"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
-    require(by_path["gate-detection"]["int8_matmul_fused"] > 0,
-            "gate-detection: kernel 3 never launched")
-    require(by_path["jax-serve-int8"]["int8_matmul_fused"] > 0,
-            "jax-serve-int8: kernel 3 never launched")
-    for path in ("tp-fused-val", "jax-serve-bf16"):
+    for path in ("gate-detection", "jax-serve-int8", "orbax-serve-int8"):
+        require(by_path[path]["int8_matmul_fused"] > 0,
+                f"{path}: kernel 3 never launched")
+    for path in ("tp-fused-val", "jax-serve-bf16", "orbax-serve-bf16"):
         require(by_path[path]["fused_post_attention"] > 0,
                 f"{path}: kernel 2 never launched")
     require(by_path["rec-train"]["query_block_attention"] == 0,

@@ -160,8 +160,8 @@ def _port_modules():
 
 def test_serve_imports_no_jax():
     """Importing every module of the port loads no module of JAX, flax,
-    optax, msgpack, orbax, the JAX package (tim_tpu) or the tests (the
-    card's machine has none of them)."""
+    optax, msgpack, orbax, tensorstore, zstandard, the JAX package
+    (tim_tpu) or the tests (the card's machine has none of them)."""
     modules = sorted(_port_modules())
     for module in ("ops.int8_matmul_fused", "ops.window_attention",
                    "ops.flash_mha", "models.backbones.swin3d",
@@ -181,13 +181,14 @@ def test_serve_imports_no_jax():
                    "extract.media", "extract.tables", "models.fused",
                    "extract.clips", "extract.finetune_cli", "parallel",
                    "parallel.mesh", "parallel.multihost", "utils.memory",
-                   "utils.profiling", "dryrun", "utils.msgpack"):
+                   "utils.profiling", "dryrun", "utils.msgpack",
+                   "utils.orbax", "utils.ocdbt", "utils.zstd"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('tim_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
-            "'orbax', 'tests')]\n"
+            "'orbax', 'tensorstore', 'zstandard', 'tests')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT)

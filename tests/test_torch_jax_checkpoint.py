@@ -24,7 +24,7 @@
 - ``--pretrained_model`` through ``cli.run`` and the finetune CLI's
   ``--pretrained`` on a JAX MAE file: the warnings (loaded, missing,
   mismatched, unused) are JAX's ``shape_matched_merge``'s;
-- an orbax-only directory raises.
+- an orbax-only directory is read as JAX reads it.
 """
 
 import functools
@@ -188,9 +188,11 @@ def test_bad_files_raise_with_the_offset(tmp_path):
         ckpt.load_checkpoint(str(tmp_path))
 
 
-def test_orbax_only_directory_raises(tmp_path):
+def test_orbax_only_directory_is_read(tmp_path):
     """The directory ``tests/test_train.py``'s orbax test writes: the port
-    names the backend it does not read instead of falling back."""
+    falls back to its newest epoch, as JAX's ``load_checkpoint`` does, and
+    reads JAX's payload leaf for leaf (the empty optax states as
+    ``{}``)."""
     from tim_tpu.train.optim import make_optimizer
     from tim_tpu.train.state import create_train_state
     params = {"w": np.arange(12, dtype=np.float32).reshape(3, 4)}
@@ -198,8 +200,11 @@ def test_orbax_only_directory_raises(tmp_path):
                                make_optimizer(1e-3, 1e-4, 10, 2),
                                normaliser=2.0)
     jckpt.save_checkpoint_orbax(str(tmp_path), state, epoch=4)
-    with pytest.raises(ValueError, match="orbax"):
-        ckpt.load_checkpoint(str(tmp_path))
+    want = jckpt.load_checkpoint(str(tmp_path))
+    got = ckpt.load_checkpoint(str(tmp_path))
+    _assert_tree_equal(got, jax.tree_util.tree_map(np.asarray, want))
+    assert int(got["epoch"]) == 4
+    assert got["opt_state"]["inner_state"]["0"] == {}
 
 
 # ---------------------------------------------------------------------------

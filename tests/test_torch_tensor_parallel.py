@@ -23,9 +23,10 @@ S = 24):
   against the same command line in one process;
 - a checkpoint saved under model 2 resumes bit-equal under model 1 and
   loads strictly into a one-process ``TimDetection``, and the other way
-  round; a JAX-written msgpack checkpoint resumed by the two ranks (each
-  keeps its slices of the parameters and moments) takes the step that
-  one process takes from it;
+  round; a JAX-written msgpack checkpoint, and the same state as a JAX
+  orbax directory, resumed by the two ranks (each keeps its slices of the
+  parameters and moments) take the step that one process takes from
+  them;
 - ``dryrun_multichip(4, device="cpu")``: data 2 x model 2 with sequence
   parallelism, every rank equal to one process.
 """
@@ -167,10 +168,11 @@ def _detection_case(rate=0.0, remat=False):
     return case, reference
 
 
-def _jax_checkpoint(case, path):
+def _jax_checkpoint(case, path, orbax=False):
     """A msgpack checkpoint of the detection ``case``'s model written by
-    the JAX package (``save_checkpoint``): its weights perturbed, Adam
-    moments drawn (nu > 0), 3 updates and 1 skip counted."""
+    the JAX package (``save_checkpoint``; with ``orbax``, an orbax one,
+    ``save_checkpoint_orbax``): its weights perturbed, Adam moments drawn
+    (nu > 0), 3 updates and 1 skip counted."""
     from flax import serialization
     rng = np.random.default_rng(9)
     params = jax.tree_util.tree_map(
@@ -191,7 +193,10 @@ def _jax_checkpoint(case, path):
     state = state.replace(
         step=jnp.int32(4), normaliser=jnp.float32(200.0),
         opt_state=serialization.from_state_dict(state.opt_state, sd))
-    jckpt.save_checkpoint(path, state, epoch=2)
+    if orbax:
+        jckpt.save_checkpoint_orbax(path, state, epoch=2)
+    else:
+        jckpt.save_checkpoint(path, state, epoch=2)
 
 
 def _sequence_parallel(case):
@@ -238,11 +243,14 @@ def model_ranks(tmp_path_factory):
     worker.train_step_case("detection", steps["detection_tp"][1], one,
                            save_to=str(tmp / "ckpt_one"))
     _jax_checkpoint(steps["detection_sp"][1], str(tmp / "ckpt_jax"))
+    _jax_checkpoint(steps["detection_sp"][1], str(tmp / "ckpt_jax_orbax"),
+                    orbax=True)
     rules = _rules_cfgs()
     inputs = tmp / "inputs.pt"
     torch.save({"steps": steps, "save": "detection_sp",
                 "resave_from": str(tmp / "ckpt_one"),
                 "jax_resume_from": str(tmp / "ckpt_jax"),
+                "jax_orbax_resume_from": str(tmp / "ckpt_jax_orbax"),
                 "rules": {n: (kind, dataclasses.asdict(pcfg))
                           for n, (kind, _, pcfg) in rules.items()}}, inputs)
     port = str(worker.free_port())
@@ -259,6 +267,9 @@ def model_ranks(tmp_path_factory):
                   if name.endswith("_dropout") or name in REPLICATED_REGIONS}
         single["jax_resume"] = worker.train_step_case(
             *steps["detection_sp"], one, resume_from=str(tmp / "ckpt_jax"))
+        single["jax_orbax_resume"] = worker.train_step_case(
+            *steps["detection_sp"], one,
+            resume_from=str(tmp / "ckpt_jax_orbax"))
         for p in procs:
             logs.append(p.communicate(timeout=600)[0].decode())
     finally:
@@ -509,6 +520,29 @@ def test_jax_msgpack_checkpoint_resumes_under_model_2_as_in_one_process(
     fresh = model_ranks["ranks"][0]["detection_sp"]["params"]
     assert not all(torch.equal(t, fresh[n])
                    for n, t in single["params"].items())
+
+
+def test_jax_orbax_checkpoint_resumes_under_model_2_as_in_one_process(
+        model_ranks):
+    """The same JAX state as an orbax directory (``orbax/2``, no
+    ``checkpoint.msgpack`` beside it): one process steps from it exactly
+    as from the msgpack file, and the two ranks (each keeps its slices)
+    take the step one process takes."""
+    single = model_ranks["single"]["jax_orbax_resume"]
+    from_msgpack = model_ranks["single"]["jax_resume"]
+    assert single["metrics"] == from_msgpack["metrics"]
+    assert single["normaliser"] == from_msgpack["normaliser"]
+    for name, t in from_msgpack["params"].items():
+        assert torch.equal(single["params"][name], t), name
+    for rank in model_ranks["ranks"]:
+        got = rank["jax_orbax_resume"]
+        assert got["sharded"]
+        for k, want in single["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], want,
+                                       rtol=LOSS_RTOL, atol=1e-9, err_msg=k)
+        np.testing.assert_allclose(got["normaliser"], single["normaliser"],
+                                   rtol=LOSS_RTOL)
+        _params_close(got["params"], single["params"])
 
 
 def test_dryrun_multichip_four_ranks_on_the_cpu():

@@ -208,7 +208,8 @@ def train_step_case(kind: str, case: dict, mesh, save_to=None,
     group); the whole parameters after it, the gradients it applied
     (``grads``: this rank's slices of the sharded ones) and, with
     ``save_to``, the state saved there (``train.checkpoint``). With
-    ``resume_from`` (a checkpoint, ``.pt`` or the JAX package's msgpack)
+    ``resume_from`` (a checkpoint: ``.pt``, the JAX package's msgpack or
+    its orbax directory)
     the state is restored from it before the step."""
     model, state, step = train_state_case(kind, case, mesh)
     if resume_from is not None:
@@ -276,7 +277,8 @@ def tensor_parallel_main(rank: int, port: int, inputs: str, outdir: str):
     at data 1 x model 2: the command line with ``--mesh_model 2
     --sequence_parallel true`` (it joins the group), then each train step
     case with sequence parallelism off and on, the checkpoint cases (a
-    port checkpoint resaved, a JAX msgpack one resumed and stepped) and
+    port checkpoint resaved, a JAX msgpack one and a JAX orbax one resumed
+    and stepped) and
     the sharding of each ``rules`` configuration."""
     from tim_tpu_torch.models.tim import TimDetection, TimRecognition
     from tim_tpu_torch.parallel.mesh import make_mesh
@@ -299,6 +301,8 @@ def tensor_parallel_main(rank: int, port: int, inputs: str, outdir: str):
                 os.path.join(outdir, "ckpt_resaved"))
     out["jax_resume"] = train_step_case(kind, case, mesh,
                                         resume_from=cases["jax_resume_from"])
+    out["jax_orbax_resume"] = train_step_case(
+        kind, case, mesh, resume_from=cases["jax_orbax_resume_from"])
     out["rules"] = {}
     for name, (kind, cfg) in cases["rules"].items():
         cls = TimDetection if kind == "detection" else TimRecognition

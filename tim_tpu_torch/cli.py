@@ -17,8 +17,9 @@ raises without one) or, when asked, on the CPU, and then trains
 ``val_features.pkl`` for recognition). ``--torch_checkpoint`` loads a
 released reference checkpoint strictly (the port uses its parameter
 names); ``--resume`` continues from a checkpoint ``--train`` wrote or
-from the JAX package's ``checkpoint.msgpack``, and ``--pretrained_model``
-warm-starts from either (``train.checkpoint.load_checkpoint``).
+from the JAX package's ``checkpoint.msgpack`` or ``orbax/<epoch>``
+directory, and ``--pretrained_model`` warm-starts from any of them
+(``train.checkpoint.load_checkpoint``).
 
 Several processes, one card each (data, tensor and sequence
 parallelism):

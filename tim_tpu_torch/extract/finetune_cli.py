@@ -152,9 +152,9 @@ def load_pretrained_encoder(path: str, trunk: torch.nn.Module
                             ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """(the parameters of the checkpoint at ``path``, the entries of
     ``trunk``'s state dict that it lacks or holds at another shape). The
-    checkpoint is one that ``--mode pretrain`` wrote, or a JAX msgpack one
-    (then the parameters are the trunk's whole state dict with the file's
-    encoder merged in, ``train.checkpoint.jax_merge``)."""
+    checkpoint is one that ``--mode pretrain`` wrote, or a JAX msgpack or
+    orbax one (then the parameters are the trunk's whole state dict with
+    the file's encoder merged in, ``train.checkpoint.jax_merge``)."""
     params = ckpt.load_checkpoint(path)["params"]
     if ckpt.is_flax_tree(params):
         return ckpt.jax_merge(trunk, params)

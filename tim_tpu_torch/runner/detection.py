@@ -130,8 +130,8 @@ class DetectionRunner:
     def init_state(self, pretrained: Optional[str] = None) -> TrainState:
         """The optimizer over the model's parameters, after merging the
         shape-matched parameters of the checkpoint at ``pretrained`` (a
-        ``.pt`` or the JAX package's msgpack checkpoint) into the model;
-        the normaliser at ``TrainConfig.normaliser_init``."""
+        ``.pt`` or the JAX package's msgpack or orbax checkpoint) into the
+        model; the normaliser at ``TrainConfig.normaliser_init``."""
         if pretrained:
             ckpt.merge_params(self.model,
                               ckpt.load_checkpoint(pretrained)["params"])
@@ -148,8 +148,9 @@ class DetectionRunner:
 
     def resume(self, path: str) -> int:
         """Full training resume (parameters, optimizer, step, normaliser)
-        from a ``.pt`` or the JAX package's msgpack checkpoint; returns
-        the epoch to continue from. Every rank reads the checkpoint."""
+        from a ``.pt`` or the JAX package's msgpack or orbax checkpoint;
+        returns the epoch to continue from. Every rank reads the
+        checkpoint."""
         if self.state is None:
             self.init_state()
         payload = ckpt.load_checkpoint(path)

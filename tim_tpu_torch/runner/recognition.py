@@ -219,7 +219,8 @@ class RecognitionRunner:
     def init_state(self, pretrained: Optional[str] = None) -> TrainState:
         """The optimizer over the model's parameters, after merging the
         shape-matched parameters of the checkpoint at ``pretrained`` (a
-        ``.pt`` or the JAX package's msgpack checkpoint) into the model."""
+        ``.pt`` or the JAX package's msgpack or orbax checkpoint) into the
+        model."""
         if pretrained:
             ckpt.merge_params(self.model,
                               ckpt.load_checkpoint(pretrained)["params"])
@@ -235,8 +236,8 @@ class RecognitionRunner:
 
     def resume(self, path: str) -> int:
         """Full training resume (parameters, optimizer, step) from a
-        ``.pt`` or the JAX package's msgpack checkpoint; returns the epoch
-        to continue from. Every rank reads the checkpoint."""
+        ``.pt`` or the JAX package's msgpack or orbax checkpoint; returns
+        the epoch to continue from. Every rank reads the checkpoint."""
         if self.state is None:
             self.init_state()
         payload = ckpt.load_checkpoint(path)

@@ -18,15 +18,22 @@ and ``restore_train_state`` pick the names from the model's class
 (``TimDetection``, ``TimRecognition``, ``PretrainVideoMAE``,
 ``VideoMAEViT``; ``convert``'s converters), merge the parameters as JAX's
 ``shape_matched_merge`` merges them (by flax path and shape), and map
-the optimizer state through ``optim.if_finite_from_optax``. JAX's orbax
-directories (``<path>/orbax/<epoch>``) are not read.
+the optimizer state through ``optim.if_finite_from_optax``.
 
-States sharded over a model axis (``models.tim``'s ``shard_specs``): the
-counterpart of JAX's orbax route is one file as well. Save gathers each
-sharded parameter and its Adam moments over the model ranks into the
-reference-named whole state (every rank joins the gather; global rank 0
-writes ``checkpoint.pt``); load reads the whole file and each rank keeps
-its slices. The largest TIM state, EPIC detection, is about 60 M fp32
+JAX's orbax directories, ``<path>/orbax/<epoch>`` (its runners write them
+for states sharded across hosts), hold the same payload:
+``load_checkpoint_orbax`` reads the newest (or a given) epoch, and
+``load_checkpoint`` falls back to it where a directory holds neither
+``checkpoint.pt`` nor ``checkpoint.msgpack``, as JAX's does;
+``save_checkpoint_orbax`` writes one (``utils.orbax``: OCDBT, zarr and
+zstd with no JAX package). The command lines write ``.pt``.
+
+States sharded over a model axis (``models.tim``'s ``shard_specs``) are
+saved whole in every format, orbax's too (where JAX writes each host's
+shards): save gathers each sharded parameter and its Adam moments over
+the model ranks into the whole state (every rank joins the gather;
+global rank 0 writes); load reads whole arrays and each rank keeps its
+slices. The largest TIM state, EPIC detection, is about 60 M fp32
 parameters plus two moments, about 0.7 GB: the gather is cheap at that
 size, and one format resumes under any mesh and loads strictly into a
 one-process ``TimDetection``.
@@ -36,6 +43,8 @@ from __future__ import annotations
 
 import logging
 import os
+import shutil
+import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -48,12 +57,13 @@ from tim_tpu_torch.models.tim import TimDetection, TimRecognition
 from tim_tpu_torch.parallel import multihost
 from tim_tpu_torch.train import optim
 from tim_tpu_torch.train.state import TrainState
-from tim_tpu_torch.utils import msgpack
+from tim_tpu_torch.utils import msgpack, orbax
 
 logger = logging.getLogger(__name__)
 
 FILENAME = "checkpoint.pt"
 JAX_FILENAME = "checkpoint.msgpack"
+ORBAX_DIR = "orbax"
 
 
 def _to_cpu(tree):
@@ -140,11 +150,11 @@ def save_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
                 torch.save(payload, os.path.join(path, f"best_{tag}.pt"))
 
 
-def _checkpoint_file(path: str) -> str:
+def _checkpoint_file(path: str) -> Optional[str]:
     """The file that ``load_checkpoint(path)`` reads: ``path`` itself when
     it ends in ``.pt`` or ``.msgpack``; in a directory ``checkpoint.pt``
-    where it holds one, else ``checkpoint.msgpack``. A directory holding
-    neither but JAX's ``orbax/`` raises ``ValueError``."""
+    where it holds one, else ``checkpoint.msgpack``; ``None`` for a
+    directory that holds neither but JAX's ``orbax/``."""
     if path.endswith((".pt", ".msgpack")):
         return path
     pt, jax_file = (os.path.join(path, f) for f in (FILENAME, JAX_FILENAME))
@@ -152,24 +162,44 @@ def _checkpoint_file(path: str) -> str:
         return pt
     if os.path.exists(jax_file):
         return jax_file
-    if os.path.isdir(os.path.join(path, "orbax")):
-        raise ValueError(
-            f"{path}: only an orbax/ checkpoint directory, the JAX package's "
-            f"orbax backend, which the port does not read; write "
-            f"{JAX_FILENAME} (JAX's save_checkpoint) instead")
+    if os.path.isdir(os.path.join(path, ORBAX_DIR)):
+        return None
     return pt
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Read the checkpoint at ``path`` (``_checkpoint_file``) to the CPU: a
-    ``.pt`` payload, or a JAX msgpack payload whose ``params`` and
-    ``opt_state`` are flax trees (``merge_params`` and
-    ``restore_train_state`` take either)."""
+    ``.pt`` payload, or a JAX msgpack or orbax payload (the newest epoch,
+    ``load_checkpoint_orbax``) whose ``params`` and ``opt_state`` are flax
+    trees (``merge_params`` and ``restore_train_state`` take either)."""
     fname = _checkpoint_file(path)
+    if fname is None:
+        return load_checkpoint_orbax(path)
     logger.info("reading checkpoint %s", fname)
     if fname.endswith(".msgpack"):
         return msgpack.load(fname)
     return torch.load(fname, map_location="cpu", weights_only=True)
+
+
+def load_checkpoint_orbax(path: str, epoch: Optional[int] = None
+                          ) -> Dict[str, Any]:
+    """Read JAX's orbax checkpoint ``<path>/orbax/<epoch>`` (the newest
+    committed epoch when ``epoch`` is None: a directory whose name is not
+    all digits is a save orbax has not finished) to the CPU: the payload
+    of the msgpack route, its arrays as tensors, ``extra``'s numbers as
+    Python numbers and optax's empty states as ``{}``. JAX's
+    ``params_shardings`` (restoring onto a mesh) has no counterpart: the
+    whole arrays are read, and on a model axis each rank keeps its slices
+    in ``merge_params`` / ``restore_train_state``."""
+    root = os.path.join(os.path.abspath(path), ORBAX_DIR)
+    if epoch is None:
+        epochs = [int(d) for d in os.listdir(root) if d.isdigit()]
+        if not epochs:
+            raise FileNotFoundError(f"no orbax checkpoints under {root}")
+        epoch = max(epochs)
+    step_dir = os.path.join(root, str(epoch))
+    logger.info("reading orbax checkpoint %s", step_dir)
+    return orbax.read_tree(step_dir)
 
 
 def shape_matched_merge(init: Mapping[str, torch.Tensor],
@@ -324,16 +354,11 @@ def restore_train_state(state: TrainState, payload: Mapping) -> TrainState:
     return state
 
 
-def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
-                        extra: Optional[Dict[str, Any]] = None,
-                        is_best: str = "none") -> Optional[int]:
-    """Write ``<path>/checkpoint.msgpack`` and, for each ``_``-separated
-    tag of ``is_best``, ``<path>/best_<tag>.msgpack``: the JAX package's
-    payload (``tim_tpu/train/checkpoint.py::save_checkpoint``), which its
-    ``load_checkpoint`` + ``restore_train_state`` resume from. TIM states
-    (``AdamWIfFinite``) and the MAE pretraining state
-    (``torch.optim.AdamW``). Every rank calls it (a sharded state is
-    gathered first); global rank 0 writes and gets the file's bytes."""
+def _jax_payload(state: TrainState, epoch: int,
+                 extra: Optional[Dict[str, Any]]) -> Optional[Dict]:
+    """The JAX package's checkpoint payload of ``state`` on global rank 0
+    (``None`` elsewhere); every rank calls it (a sharded state is
+    gathered first)."""
     to_jax, _ = _jax_names(state.model)
     params = _whole_state_dict(state.model)
     opt = _whole_optimizer_state(state)
@@ -347,7 +372,7 @@ def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
     else:
         raise ValueError(f"no optax layout for a "
                          f"{type(state.optimizer).__name__}")
-    payload = {
+    return {
         "epoch": np.asarray(int(epoch), np.int64),
         "step": np.asarray(int(state.step), np.int32),
         "params": to_jax(params),
@@ -356,6 +381,21 @@ def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
         .reshape(()),
         "extra": extra or {},
     }
+
+
+def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
+                        extra: Optional[Dict[str, Any]] = None,
+                        is_best: str = "none") -> Optional[int]:
+    """Write ``<path>/checkpoint.msgpack`` and, for each ``_``-separated
+    tag of ``is_best``, ``<path>/best_<tag>.msgpack``: the JAX package's
+    payload (``tim_tpu/train/checkpoint.py::save_checkpoint``), which its
+    ``load_checkpoint`` + ``restore_train_state`` resume from. TIM states
+    (``AdamWIfFinite``) and the MAE pretraining state
+    (``torch.optim.AdamW``). Every rank calls it (a sharded state is
+    gathered first); global rank 0 writes and gets the file's bytes."""
+    payload = _jax_payload(state, epoch, extra)
+    if payload is None:
+        return None
     os.makedirs(path, exist_ok=True)
     blob = msgpack.msgpack_serialize(payload)
     tags = [] if is_best in (None, "none") else [
@@ -364,3 +404,36 @@ def save_jax_checkpoint(path: str, state: TrainState, *, epoch: int = 0,
         with open(os.path.join(path, name), "wb") as f:
             f.write(blob)
     return len(blob)
+
+
+def save_checkpoint_orbax(path: str, state: TrainState, *, epoch: int = 0,
+                          extra: Optional[Dict[str, Any]] = None
+                          ) -> Optional[Dict[str, int]]:
+    """Write ``<path>/orbax/<epoch>`` as JAX's ``save_checkpoint_orbax``
+    does from one process on the CPU (``utils.orbax.write_tree``): the
+    payload of ``save_jax_checkpoint``, its parameters and optimizer state
+    as ``jax.Array`` leaves, ``epoch``, ``step`` and ``normaliser`` as
+    ``np.ndarray`` and ``extra``'s Python numbers as scalars (orbax stores
+    no strings). TIM states and the MAE pretraining state. Every rank
+    calls it (a sharded state is gathered first); global rank 0 writes
+    into ``<epoch>.orbax-checkpoint-tmp-<ns>`` and renames it when done,
+    replacing an earlier save of the epoch, so an interrupted save is
+    never taken for the newest epoch; it gets the bytes written. The
+    write is synchronous, as the JAX runners' saves are."""
+    payload = _jax_payload(state, epoch, extra)
+    if payload is None:
+        return None
+    payload["normaliser"] = payload["normaliser"].numpy()
+    root = os.path.join(os.path.abspath(path), ORBAX_DIR)
+    final = os.path.join(root, str(int(epoch)))
+    tmp = f"{final}.orbax-checkpoint-tmp-{time.time_ns()}"
+    os.makedirs(root, exist_ok=True)
+    try:
+        sizes = orbax.write_tree(tmp, payload)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return sizes
