@@ -253,6 +253,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      into a small ``TimDetection`` on the card from both; e. a flipped
      byte in one chunk and then a truncated data file of the EPIC
      directory each raise ``ValueError`` naming the key.
+ 27. the command lines on the reference's files (after 20; the port
+     needs neither pandas nor pyarrow: ``utils/pdpickle.py`` and
+     ``data/table.py``): a. every file of ``tests/data/torch_tables``
+     (EPIC-KITCHENS-100 annotations in pandas 1.x's layout and in pandas
+     3's with pyarrow strings, EPIC-Sounds ones with object columns,
+     feature-time and video-info tables, a ``.pkl.gz``, the finetune CSV)
+     read and held to its ``.npz`` twin (columns, index, numbers bit for
+     bit; bytes and read seconds); b. seeded npy banks at the CLI's EPIC
+     widths, then ``cli.main --variant detection --train --validate`` (one
+     epoch, bf16, batch 64, banked, full width and depth) on the files;
+     c. the same flags through ``cli.run`` on splits the port built from
+     the twins: train losses, validation statistics and weights bit-equal;
+     d. ``cli.main --extract_feats --extract_top_k 8`` and the ``evals``
+     main on that dump against the EPIC-100 validation pickle (verb mAP;
+     random weights); e. ``cli.main --variant recognition --validate``;
+     f. ``extract.cli.main --backbone slowfast --audio_dir`` over the
+     fixture's 60 s video (a wav from ``scipy.io.wavfile``), its bank
+     bit-equal to phase 20's direct route; g. neither pandas nor pyarrow
+     loaded. Kernel 1 six times a detection validation or dump batch,
+     once a layer a recognition batch; the phase's seconds (limit 60).
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -4041,6 +4061,318 @@ def phase_audio():
 
 
 # ---------------------------------------------------------------------------
+# Phase 27: the command lines on the reference's files. The port needs
+# neither pandas nor pyarrow: it reads the DataFrame pickles and the CSV
+# of tests/data/torch_tables (EPIC-KITCHENS-100 and EPIC-Sounds annotations,
+# feature-time and video-info tables, written by its make_fixture.py) with
+# utils.pdpickle and data.table; each file's .npz twin (numpy alone) says
+# what the file holds.
+# ---------------------------------------------------------------------------
+TABLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "data", "torch_tables")
+FILES_SPLITS = {  # the CLI's split name: (EPIC-100, EPIC-Sounds, times)
+    "train": ("EPIC_100_train.pkl", "EPIC_Sounds_train.pkl",
+              "feature_times_train.pkl"),
+    "val": ("EPIC_100_validation.pkl", "EPIC_Sounds_validation.pkl",
+            "feature_times_validation.pkl.gz")}
+# extract.cli's --num_shards / --shard_id over the train feature times: the
+# fourth of its four videos (sorted), the 60 s one without annotations
+FILES_AUDIO_SHARD = (4, 3)
+FILES_AUDIO_NUM_AUG = 2
+FILES_TOPK = 8
+
+
+def tables_fixture():
+    """``tests/data/torch_tables/make_fixture.py`` as a module (numpy
+    alone at import: ``read_twin`` and the file names)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_tables_fixture", os.path.join(TABLES_DIR, "make_fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def files_read(fixture):
+    """27a: every fixture file read by ``read_pickle`` / ``read_csv``
+    against its twin: columns, dtypes and index equal, numbers bit for
+    bit, NaN in the same places."""
+    from tim_tpu_torch.data.table import read_csv
+    from tim_tpu_torch.utils.pdpickle import read_pickle
+    out = {}
+    for name in fixture.PICKLES + fixture.CSVS:
+        path = os.path.join(TABLES_DIR, name)
+        t0 = time.perf_counter()
+        table = read_csv(path) if name.endswith(".csv") else \
+            read_pickle(path)
+        secs = time.perf_counter() - t0
+        require(table.equals(fixture.read_twin(fixture.twin_path(path))),
+                f"files-read: {name} differs from its twin")
+        out[name] = {"bytes": os.path.getsize(path), "rows": len(table),
+                     "read_s": secs}
+        log(f"[files-read] {name}: {out[name]['bytes']} bytes, {len(table)} "
+            f"rows x {len(table.columns)} columns, read in {secs:.6f} s, "
+            f"equal to its twin")
+    return out
+
+
+def files_argv(banks, out, variant, *extra):
+    """The TIM CLI's flags over the fixture's files and the variant's npy
+    banks under ``banks``, at the parser's defaults (EPIC, bf16, batch
+    64), banked."""
+    argv = ["--variant", variant, "--output_dir", str(out),
+            "--device_bank", "true", "--print-freq", "1000",
+            "--video_data_path", str(banks / variant / "visual"),
+            "--audio_data_path", str(banks / variant / "audio"),
+            "--video_info_pickle", os.path.join(TABLES_DIR, "video_info.pkl")]
+    for split, (actions, sounds, times) in FILES_SPLITS.items():
+        for flag, name in (("video_{}_action_pickle", actions),
+                           ("audio_{}_action_pickle", sounds),
+                           ("video_{}_context_pickle", times),
+                           ("audio_{}_context_pickle", times)):
+            argv += ["--" + flag.format(split),
+                     os.path.join(TABLES_DIR, name)]
+    return argv + list(extra)
+
+
+def files_banks(fixture, banks):
+    """Seeded [T, 2, dim] float32 banks at the CLI's EPIC widths of each
+    variant (detection's visual 2048, recognition's 1024, audio 2304) for
+    every video of the feature-time tables (T its rows there; recognition
+    only validates: its val split alone). Returns the bytes written."""
+    from tim_tpu_torch import cli
+    rng = np.random.default_rng(SEED + 27)
+    n = 0
+    for variant, splits in (("detection", ("train", "val")),
+                            ("recognition", ("val",))):
+        mcfg, _ = cli.configs_from_args(cli.build_parser().parse_args(
+            ["--variant", variant]))
+        for split in splits:
+            table = fixture.read_twin(fixture.twin_path(
+                os.path.join(TABLES_DIR, FILES_SPLITS[split][2])))
+            for modality, dim in (("visual", mcfg.visual_input_dim),
+                                  ("audio", mcfg.audio_input_dim)):
+                folder = banks / variant / modality / split
+                folder.mkdir(parents=True)
+                for vid in table.unique("video_id"):
+                    rows = int((table["video_id"] == vid).sum())
+                    np.save(folder / f"{vid}.npy", rng.standard_normal(
+                        (rows, 2, dim), np.float32))
+                    n += rows * 2 * dim * 4
+    return n
+
+
+def files_cli(tag, run):
+    """``run()`` (a command line's entry) with every count set to 0 just
+    before and read just after, and each ``DetectionRunner.train_epoch``'s
+    statistics kept. Returns (result, launches, epochs, seconds)."""
+    from tim_tpu_torch.runner.detection import DetectionRunner
+    epochs, orig = [], DetectionRunner.train_epoch
+
+    def train_epoch(self, epoch):
+        epochs.append(orig(self, epoch))
+        return epochs[-1]
+
+    DetectionRunner.train_epoch = train_epoch
+    try:
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(counters)
+    finally:
+        DetectionRunner.train_epoch = orig
+    log(f"[{tag}] {secs:.3f} s; launches {launches}")
+    return out, launches, epochs, secs
+
+
+def twin_read_pickle(fixture):
+    """``utils.pdpickle.read_pickle`` replaced by the twin of each file."""
+    from tim_tpu_torch.data.table import Table
+
+    def read(path) -> Table:
+        return fixture.read_twin(fixture.twin_path(os.fspath(path)))
+
+    return read
+
+
+def files_det(fixture, banks, tmp):
+    """27b-d: ``cli.main --train --validate`` on the files, the same flags
+    through ``cli.run`` on splits the port built from the twins (bit-equal
+    losses, validation statistics and weights), the top-8 dump and the
+    ``evals`` main on it against the EPIC-100 validation pickle."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch.evals.__main__ import main as evals_main
+    from tim_tpu_torch.utils import pdpickle
+    out_main, out_run = tmp / "det-main", tmp / "det-run"
+    train = ("--train", "--validate", "--finetune_epochs", "1")
+    argv = files_argv(banks, out_main, "detection", *train)
+    stats, l_train, ep_main, s_train = files_cli(
+        "files-det-train", lambda: cli.main(argv, device="cuda"))
+    args = cli.build_parser().parse_args(
+        files_argv(banks, out_run, "detection", *train))
+    mcfg, _ = cli.configs_from_args(args)
+    orig = pdpickle.read_pickle
+    pdpickle.read_pickle = twin_read_pickle(fixture)
+    try:
+        t0 = time.perf_counter()
+        splits = cli.load_datasets(args, mcfg, True)
+        s_twins = time.perf_counter() - t0
+    finally:
+        pdpickle.read_pickle = orig
+    want, l_run, ep_run, s_run = files_cli(
+        "files-det-run", lambda: cli.run(args, *splits, device="cuda"))
+    n_train, n_val = (len(ds) for ds in splits)
+    require(stats == want and ep_main == ep_run and len(ep_main) == 1,
+            f"files-det: cli.main {stats} {ep_main}, cli.run {want} "
+            f"{ep_run}")
+    a, b = (torch.load(o / "checkpoint.pt", map_location="cpu",
+                       weights_only=True)["params"]
+            for o in (out_main, out_run))
+    require(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                           for k in a),
+            "files-det: cli.main's weights differ from cli.run's")
+    val_batches = n_val // DET_BATCH
+    require_kernel1("files-det-train", l_train, mcfg.num_layers, val_batches)
+    require(l_run == l_train, f"files-det: launches {l_train} vs {l_run}")
+
+    argv = files_argv(banks, out_main, "detection", "--extract_feats",
+                      "--extract_top_k", str(FILES_TOPK), "--resume",
+                      str(out_main))
+    dump, l_dump, _, s_dump = files_cli(
+        "files-det-dump", lambda: cli.main(argv, device="cuda"))
+    require_kernel1("files-det-dump", l_dump, mcfg.num_layers,
+                    -(-n_val // DET_BATCH))
+    t0 = time.perf_counter()
+    result = evals_main([
+        "--dump", str(out_main / "dense_predictions.npz"),
+        "--gt", os.path.join(TABLES_DIR, FILES_SPLITS["val"][0]),
+        "--task", "verb", "--num_classes", str(mcfg.visual_classes[0]),
+        "--submission", str(tmp / "verb_submission.json")])
+    s_evals = time.perf_counter() - t0
+    require(len(result["mAP"]) == 5 and all(
+        0.0 <= v <= 1.0 for v in result["mAP"]),
+        f"files-evals: {result}")
+    log(f"[files-det] cli.main --train --validate: {n_train} train / "
+        f"{n_val} val windows, {s_train:.3f} s, train {json.dumps(ep_main)}"
+        f", validation {json.dumps(stats)}; cli.run on the twins' splits "
+        f"(built in {s_twins:.3f} s) {s_run:.3f} s: losses, statistics "
+        f"and weights bit-equal; dump (top-{FILES_TOPK}, "
+        f"{len(dump['video_ids'])} rows) {s_dump:.3f} s; evals {s_evals:.3f} "
+        f"s: verb mAP {json.dumps(result['mAP'])}, average "
+        f"{result['avg_mAP']} (random weights)")
+    return ({"files-det-train": l_train, "files-det-run": l_run,
+             "files-det-dump": l_dump},
+            {"train_s": s_train, "run_s": s_run, "twin_splits_s": s_twins,
+             "dump_s": s_dump, "evals_s": s_evals, "train_windows": n_train,
+             "val_windows": n_val, "mAP": result["mAP"]})
+
+
+def files_rec(banks, tmp):
+    """27e: ``cli.main --variant recognition --validate`` on the files."""
+    from tim_tpu_torch import cli
+    argv = files_argv(banks, tmp / "rec", "recognition", "--validate")
+    args = cli.build_parser().parse_args(argv)
+    mcfg, _ = cli.configs_from_args(args)
+    stats, launches, _, secs = files_cli(
+        "files-rec-val", lambda: cli.main(argv, device="cuda"))
+    require(stats and all(np.isfinite(float(v)) for v in stats.values()),
+            f"files-rec-val: statistics {stats}")
+    per_batch = launches["query_block_attention"] // mcfg.num_layers
+    require(per_batch > 0 and launches["query_block_attention"]
+            == per_batch * mcfg.num_layers
+            and launches["fused_post_attention"] == 0,
+            f"files-rec-val: launches {launches}")
+    log(f"[files-rec] cli.main --variant recognition --validate {secs:.3f} "
+        f"s ({per_batch} batches of {args.batch_size}), statistics "
+        f"{json.dumps(stats)}")
+    return launches, {"val_s": secs, "batches": per_batch}
+
+
+def files_audio(fixture, tmp):
+    """27f: ``extract.cli.main --backbone slowfast --audio_dir`` over the
+    60 s video of the train feature times (a wav written by
+    ``scipy.io.wavfile``), its bank bit-equal to phase 20's direct route
+    (``make_audio_apply`` + ``extract_features_for_video`` over the same
+    records) with the same SpecAugment draws."""
+    import random
+    from scipy.io import wavfile
+    from tim_tpu_torch.extract import cli as ecli
+    from tim_tpu_torch.extract.pipeline import extract_features_for_video
+    times = os.path.join(TABLES_DIR, FILES_SPLITS["train"][2])
+    table = fixture.read_twin(fixture.twin_path(times))
+    vid = sorted(table.unique("video_id"))[FILES_AUDIO_SHARD[1]]
+    rows = table.where(table["video_id"] == vid).sort_by("start_sec")
+    seconds = float(rows["stop_sec"].max()) + 1.0
+    wave = np.random.default_rng(SEED + 28).normal(
+        scale=0.1, size=int(seconds * AUDIO_SR)).astype(np.float32)
+    (tmp / "wav").mkdir()
+    wavfile.write(tmp / "wav" / f"{vid}.wav", AUDIO_SR, wave)
+    argv = ["--backbone", "slowfast", "--audio_dir", str(tmp / "wav"),
+            "--feature_times", times, "--out_dir", str(tmp / "audio"),
+            "--split", "train", "--num_aug", str(FILES_AUDIO_NUM_AUG),
+            "--batch_size", str(AUDIO_BATCH), "--sampling_rate",
+            str(AUDIO_SR), "--num_shards", str(FILES_AUDIO_SHARD[0]),
+            "--shard_id", str(FILES_AUDIO_SHARD[1])]
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    ecli.main(argv, device="cuda")
+    s_main = time.perf_counter() - t0
+    bank = np.load(tmp / "audio" / "train" / f"{vid}.npy")
+    args = ecli.build_parser().parse_args(argv)
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    want = extract_features_for_video(
+        ecli.audio_clip_fn(wave, rows["start_sec"].astype(np.float64),
+                           rows["stop_sec"].astype(np.float64), AUDIO_SR,
+                           FILES_AUDIO_NUM_AUG),
+        len(rows), FILES_AUDIO_NUM_AUG,
+        ecli.make_audio_apply(args, device="cuda"),
+        batch_size=AUDIO_BATCH)
+    s_direct = time.perf_counter() - t0
+    require(bank.shape == want.shape == (len(rows), FILES_AUDIO_NUM_AUG,
+                                         2304)
+            and np.isfinite(bank).all(),
+            f"files-audio: bank {bank.shape}, direct {want.shape}")
+    require(bank.tobytes() == want.tobytes(),
+            f"files-audio: extract.cli.main's bank differs from the direct "
+            f"route by {np.abs(bank - want).max()}")
+    log(f"[files-audio] extract.cli.main --backbone slowfast over {vid} "
+        f"({len(rows)} records x {FILES_AUDIO_NUM_AUG} sets, {seconds:.1f} "
+        f"s wav) {s_main:.3f} s, bank {bank.shape} bit-equal to the direct "
+        f"route ({s_direct:.3f} s)")
+    return {"main_s": s_main, "direct_s": s_direct, "records": len(rows)}
+
+
+def phase_files(card: str):
+    """Phase 27; returns the launches by path."""
+    import pathlib
+    import tempfile
+    t0 = time.perf_counter()
+    fixture = tables_fixture()
+    summary = {"card": card, "read": files_read(fixture)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t1 = time.perf_counter()
+        nbytes = files_banks(fixture, tmp / "banks")
+        summary["banks"] = {"bytes": nbytes,
+                            "write_s": time.perf_counter() - t1}
+        paths, summary["detection"] = files_det(fixture, tmp / "banks", tmp)
+        paths["files-rec-val"], summary["recognition"] = files_rec(
+            tmp / "banks", tmp)
+        summary["audio"] = files_audio(fixture, tmp)
+    loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
+                    and m.split(".")[0] in ("pandas", "pyarrow"))
+    require(not loaded, f"files: loaded {loaded}")
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[files] summary {json.dumps(summary)}; neither pandas nor pyarrow "
+        f"loaded; {summary['seconds']:.2f} s (the phase's limit is 60 s)")
+    torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 21: raw media. scripts/bench_serve_frames.py's geometry: 50 fps
 # 224^2 uint8 frames, a 1.1 s clip every 0.2 s (Swin-B 32 frames, ViT-L 16,
 # one origin), spectrograms [400, 128], 30 s windows at stride 1 s.
@@ -6133,6 +6465,7 @@ def main() -> int:
                       rec_val_ds, rec_trained, video, batch2, card)
     del det_splits, rec_train_ds, rec_val_ds, rec_trained
     audio_paths = phase_audio()
+    files_paths = timed("files", phase_files, card)
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
     torch.cuda.empty_cache()
@@ -6141,14 +6474,15 @@ def main() -> int:
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
-               **audio_paths, **media_paths, **ft_cli_paths}
+               **audio_paths, **files_paths, **media_paths, **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
                  "dp-det-train", "dp-det-dump", "dp-rec-train",
                  "dp-rec-dump", "tp-bf16-val", "tp-bf16-sp-val",
                  "tp-fused-val", "jax-serve-bf16", "jax-cli-rec-val",
-                 "orbax-serve-bf16", "orbax-serve-int8"):
+                 "orbax-serve-bf16", "orbax-serve-int8", "files-det-train",
+                 "files-det-run", "files-det-dump", "files-rec-val"):
         require(by_path[path]["query_block_attention"] > 0,
                 f"{path}: kernel 1 never launched")
     for path in ("gate-detection", "jax-serve-int8", "orbax-serve-int8"):

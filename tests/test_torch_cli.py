@@ -7,15 +7,20 @@ the reference-format files of ``tests/test_cli.py``:
   a checkpoint that ``--resume`` restores; the process grids that one
   process per card cannot lay out raise, ``--sequence_parallel`` runs;
   the parser, the configurations and the hidden defaults equal JAX's;
-  without pandas the loader names it;
+  without pandas the loader reads the pickles, names a global it refuses,
+  and in a process where pandas, pyarrow, PIL, cv2, h5py and JAX cannot
+  be imported ``main`` gives the JAX CLI's validation, ``cli.run``'s
+  training on JAX-built windows and the JAX ``evals`` main's mAP;
 - ``python -m tim_tpu_torch.evals`` against ``python -m tim_tpu.evals`` on
   one dump and GT pickle: equal submission JSON, mAP within 1e-6.
 """
 
+import collections
 import dataclasses
 import json
 import os
 import pickle
+import subprocess
 import sys
 
 import numpy as np
@@ -95,6 +100,32 @@ def _capture_jax_validate(monkeypatch):
     return got
 
 
+@pytest.fixture(scope="module")
+def jax_validate_stats(disk_bundle, checkpoints,  # noqa: F811
+                       tmp_path_factory):
+    """``variant -> the JAX CLI's --validate statistics`` with the
+    variant's saved model, each computed once for the module."""
+    cache = {}
+
+    def stats(variant):
+        if variant not in cache:
+            mp = pytest.MonkeyPatch()
+            try:
+                _patch_configs(mp)
+                got = _capture_jax_validate(mp)
+                jcli.main(_common_args(disk_bundle,
+                                       tmp_path_factory.mktemp("jax"))
+                          + _variant_args(variant)
+                          + ["--torch_checkpoint", str(checkpoints[variant]),
+                             "--validate"])
+                cache[variant] = got["stats"]
+            finally:
+                mp.undo()
+        return cache[variant]
+
+    return stats
+
+
 def _stats_close(got, want):
     assert sorted(got) == sorted(want)
     for k in want:
@@ -104,15 +135,15 @@ def _stats_close(got, want):
 
 @pytest.mark.parametrize("variant", ["recognition", "detection"])
 def test_validate_matches_jax(variant, disk_bundle, checkpoints,  # noqa: F811
-                              tiny_configs, monkeypatch, tmp_path, capsys):
+                              jax_validate_stats, tiny_configs, tmp_path,
+                              capsys):
     argv = (_common_args(disk_bundle, tmp_path) + _variant_args(variant)
             + ["--torch_checkpoint", str(checkpoints[variant]),
                "--validate"])
-    want = _capture_jax_validate(monkeypatch)
-    jcli.main(argv)
+    want = jax_validate_stats(variant)
     got = pcli.main(argv, device="cpu")
     capsys.readouterr()
-    _stats_close(got, want["stats"])
+    _stats_close(got, want)
 
 
 def test_extract_feats_recognition_matches_jax(
@@ -254,11 +285,137 @@ def test_configs_equal_jax(argv):
     assert all(theirs[k] == v for k, v in dataclasses.asdict(tcfg).items())
 
 
-def test_without_pandas_the_loader_names_it(monkeypatch, tmp_path):
+def test_without_pandas_the_loader_names_it(disk_bundle, tmp_path,  # noqa: F811
+                                            monkeypatch):
+    """Without pandas, ``main`` reads the reference's pickles with the
+    port's own reader, which refuses a pickle holding a global outside its
+    whitelist and names the global."""
     monkeypatch.setitem(sys.modules, "pandas", None)
-    with pytest.raises(ImportError, match="pandas"):
-        pcli.main(["--validate", "--output_dir", str(tmp_path)],
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    bad = tmp_path / "video_info.pkl"
+    with open(bad, "wb") as f:
+        pickle.dump(collections.OrderedDict(duration=[40.0]), f)
+    with pytest.raises(pickle.UnpicklingError,
+                       match="collections.OrderedDict"):
+        pcli.main(_common_args(disk_bundle, tmp_path)
+                  + ["--validate", "--video_info_pickle", str(bad)],
                   device="cpu")
+
+
+# Runs the port's command lines where pandas, pyarrow, PIL, cv2, h5py and
+# JAX cannot be imported (the port needs none of them): argv[1] is a JSON
+# spec of the runs; prints their results and the packages loaded.
+NO_PANDAS_RUN = """
+import dataclasses, json, sys
+for name in ("pandas", "pyarrow", "PIL", "cv2", "h5py", "jax"):
+    sys.modules[name] = None
+from tim_tpu_torch import cli
+from tim_tpu_torch.evals.__main__ import main as evals_main
+spec = json.loads(sys.argv[1])
+
+def patched(args, _orig=cli.configs_from_args):
+    mcfg, *rest = _orig(args)
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in spec["classes"].items()}
+    return (dataclasses.replace(mcfg, **kw), *rest)
+
+cli.configs_from_args = patched
+out = {run: {k: float(v) for k, v in cli.main(argv, device="cpu").items()}
+       for run, argv in spec["cli"].items()}
+if spec["evals"]:
+    out["evals"] = evals_main(spec["evals"])
+loaded = sorted(m for m in ("pandas", "pyarrow", "jax", "tim_tpu")
+                if sys.modules.get(m) is not None)
+print(json.dumps({"out": out, "loaded": loaded}))
+"""
+
+
+def _jax_built_splits(args, detection):
+    """``cli.load_datasets``'s splits, their windows built by the JAX
+    package from pandas's reading of the same pickles."""
+    import pandas as pd
+    from tim_tpu.data import windows as jwin
+    from tim_tpu_torch.data import dataset as pds
+    from tim_tpu_torch.data.table import Table
+    wsz = args.num_feats * args.feat_gap * args.feat_stride
+    info = pd.read_pickle(args.video_info_pickle)
+    mcfg, _ = pcli.configs_from_args(args)
+
+    def split(name, v_pkl, a_pkl, v_ctx, a_ctx, sample_aug):
+        v, a = (jwin.normalize_actions(pd.read_pickle(p), m, args.dataset,
+                                       detection=detection, window_size=wsz)
+                for p, m in ((v_pkl, "visual"), (a_pkl, "audio")))
+        stores = [pds.FeatureStore.from_npy_dir(
+            str(root), name, Table.from_frame(pd.read_pickle(ctx)))
+            for root, ctx in ((args.video_data_path, v_ctx),
+                              (args.audio_data_path, a_ctx))]
+        build = (jwin.build_detection_windows if detection
+                 else jwin.build_recognition_windows)
+        ws = build(v, a, info, stores[0].feat_times,
+                   num_feats=args.num_feats, feat_stride=args.feat_stride,
+                   feat_gap=args.feat_gap, window_stride=args.window_stride)
+        if detection:
+            return pds.DetectionDataset(
+                ws, *stores, sample_augmentations=sample_aug,
+                verb_only=args.verb_only,
+                include_verb_noun=mcfg.include_verb_noun,
+                dataset_name=args.dataset)
+        return pds.RecognitionDataset(ws, *stores,
+                                      sample_augmentations=sample_aug)
+
+    return (split("train", args.video_train_action_pickle,
+                  args.audio_train_action_pickle,
+                  args.video_train_context_pickle,
+                  args.audio_train_context_pickle, True),
+            split("val", args.video_val_action_pickle,
+                  args.audio_val_action_pickle,
+                  args.video_val_context_pickle,
+                  args.audio_val_context_pickle, False))
+
+
+@pytest.mark.parametrize("variant", ["recognition", "detection"])
+def test_main_without_pandas_matches_jax(
+        variant, disk_bundle, checkpoints, detection_dumps,  # noqa: F811
+        jax_validate_stats, tiny_configs, tmp_path, capsys):
+    """In a process where pandas, pyarrow, PIL, cv2, h5py and JAX cannot
+    be imported: ``cli.main --validate`` gives the JAX CLI's statistics
+    within 1e-4; ``--train`` (one epoch) ``--validate`` gives those of
+    ``cli.run`` on splits whose windows the JAX package built from
+    pandas's reading of the same pickles, within 1e-4; and the ``evals``
+    main on the detection dump gives the JAX one's mAP within 1e-6.
+    Neither pandas, pyarrow, JAX nor ``tim_tpu`` is loaded."""
+    base = (_common_args(disk_bundle, tmp_path) + _variant_args(variant)
+            + ["--torch_checkpoint", str(checkpoints[variant])])
+    train = base + ["--train", "--validate", "--finetune_epochs", "1",
+                    "--warmup_epochs", "0"]
+    evals = ([] if variant == "recognition" else [
+        "--dump", str(detection_dumps["port"]),
+        "--gt", str(disk_bundle / "v_actions.pkl"), "--task", "verb",
+        "--score_threshold", "0.005"])
+    spec = {"classes": CLASSES[variant], "evals": evals,
+            "cli": {"validate": base + ["--validate"], "train": train}}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_PANDAS_RUN, json.dumps(spec)],
+        capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["loaded"] == []
+
+    _stats_close(got["out"]["validate"], jax_validate_stats(variant))
+    args = pcli.build_parser().parse_args(train)
+    ref = pcli.run(args, *_jax_built_splits(args, variant == "detection"),
+                   device="cpu")
+    _stats_close(got["out"]["train"], ref)
+    if evals:
+        theirs = jax_evals_main(evals)
+        ours = got["out"]["evals"]
+        np.testing.assert_allclose(ours["mAP"], theirs["mAP"], rtol=0,
+                                   atol=1e-6)
+        assert abs(ours["avg_mAP"] - theirs["avg_mAP"]) <= 1e-6
+    capsys.readouterr()
 
 
 def test_cli_defaults_to_the_card(disk_bundle, tmp_path):  # noqa: F811

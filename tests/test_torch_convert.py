@@ -6,6 +6,7 @@ helpers, thresholding and per-video Soft-NMS equal the JAX package's; the
 port imports nothing of JAX or of the JAX package, and its entry points
 default to the CUDA card."""
 
+import ast
 import dataclasses
 import os
 import re
@@ -182,7 +183,8 @@ def test_serve_imports_no_jax():
                    "extract.clips", "extract.finetune_cli", "parallel",
                    "parallel.mesh", "parallel.multihost", "utils.memory",
                    "utils.profiling", "dryrun", "utils.msgpack",
-                   "utils.orbax", "utils.ocdbt", "utils.zstd"):
+                   "utils.orbax", "utils.ocdbt", "utils.zstd",
+                   "utils.pdpickle", "data.table"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -202,6 +204,48 @@ def test_strip_wrapper_copy_equals_jax(sd):
     from tim_tpu.convert.torch_import import _strip_wrapper as jax_strip
     from tim_tpu_torch.convert import _strip_wrapper
     assert _strip_wrapper(sd) == jax_strip(sd)
+
+
+def test_no_module_imports_pandas_or_pyarrow():
+    """No module of the port, and not ``chip_smoke.py``, imports pandas or
+    pyarrow, at any depth (inside functions too): the port reads their
+    files with ``utils.pdpickle`` and ``data.table`` and runs where
+    neither is installed."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(dirpath, f) for dirpath, _, files in
+        os.walk(os.path.join(ROOT, "tim_tpu_torch")) for f in files
+        if f.endswith(".py")]
+    found = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            found += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
+                      for n in names
+                      if n.split(".")[0] in ("pandas", "pyarrow")]
+    assert len(paths) > 50 and not found, found
+
+
+@pytest.mark.parametrize("fps", [50.0, {"a": 30.0, "b": 25.0, "c": 60.0,
+                                        "d": 59.94}])
+def test_extract_tables_equal_the_jax_frames(fps):
+    """``extract/tables.py``'s ``Table``s against the JAX copy's DataFrames
+    through ``Table.from_frame``: columns, dtypes, index and values bit
+    for bit (a video shorter than one interval gives no row)."""
+    from tim_tpu.extract import tables as jtables
+    from tim_tpu_torch.data.table import Table
+    from tim_tpu_torch.extract import tables as ptables
+    durations = {"a": 150.0, "b": 1.05, "c": 62, "d": 3.7}
+    for kw in ({}, {"interval": 2.0, "hop": 0.5}):
+        got = ptables.build_feature_time_table(durations, fps=fps, **kw)
+        want = jtables.build_feature_time_table(durations, fps=fps, **kw)
+        assert got.equals(Table.from_frame(want)) and len(got) > 400
+    assert ptables.build_video_info(durations, fps).equals(
+        Table.from_frame(jtables.build_video_info(durations, fps)))
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():

@@ -32,6 +32,7 @@ from tim_tpu.runner import DetectionRunner as JaxDetectionRunner
 from tim_tpu_torch.data import dataset as pds
 from tim_tpu_torch.data import synthetic as psyn
 from tim_tpu_torch.data import windows as pwin
+from tim_tpu_torch.data.table import Table
 from tim_tpu_torch.data.device_bank import (
     DetectionWindowTables, DeviceFeatureBank)
 from tim_tpu_torch.evals import meters as pmeters
@@ -44,11 +45,21 @@ from tim_tpu_torch.train.state import create_train_state
 NUM_FEATS = 8
 
 
+BUNDLE = dict(seed=7, num_videos=2, video_seconds=40.0, per_video=8,
+              visual_dim=24, audio_dim=16, visual_classes=(5, 6, 4),
+              audio_classes=3)
+
+
 @pytest.fixture(scope="module")
 def bundle():
-    return psyn.synthetic_epic(seed=7, num_videos=2, video_seconds=40.0,
-                               per_video=8, visual_dim=24, audio_dim=16,
-                               visual_classes=(5, 6, 4), audio_classes=3)
+    """The port's synthetic split (``Table``s)."""
+    return psyn.synthetic_epic(**BUNDLE)
+
+
+@pytest.fixture(scope="module")
+def jax_bundle():
+    """The JAX package's (DataFrames), for the JAX side of a comparison."""
+    return jsyn.synthetic_epic(**BUNDLE)
 
 
 def _windows(mod, b, **kw):
@@ -90,12 +101,10 @@ def _tcfg(**kw):
 # the copies
 # ---------------------------------------------------------------------------
 
-def test_synthetic_and_windows_copies_equal_jax(bundle):
-    theirs = jsyn.synthetic_epic(seed=7, num_videos=2, video_seconds=40.0,
-                                 per_video=8, visual_dim=24, audio_dim=16,
-                                 visual_classes=(5, 6, 4), audio_classes=3)
+def test_synthetic_and_windows_copies_equal_jax(bundle, jax_bundle):
+    theirs = jax_bundle
     for key in ("v_actions", "a_actions", "video_info"):
-        assert bundle[key].equals(theirs[key]), key
+        assert bundle[key].equals(Table.from_frame(theirs[key])), key
     for key in ("v_feats", "a_feats", "v_feat_times"):
         for vid in theirs[key]:
             np.testing.assert_array_equal(bundle[key][vid], theirs[key][vid])
@@ -115,9 +124,10 @@ def test_synthetic_and_windows_copies_equal_jax(bundle):
 
 
 @pytest.mark.parametrize("drop_last", [True, False])
-def test_dataset_and_batch_iterator_equal_jax(bundle, drop_last):
+def test_dataset_and_batch_iterator_equal_jax(bundle, jax_bundle,
+                                              drop_last):
     ours = _dataset(pds, pwin, bundle, rng=np.random.default_rng(3))
-    want = _dataset(jds, jwin, bundle, rng=np.random.default_rng(3))
+    want = _dataset(jds, jwin, jax_bundle, rng=np.random.default_rng(3))
     assert len(ours) == len(want)
     got_batches = list(pds.batch_iterator(
         ours, 7, rng=np.random.default_rng(1), drop_last=drop_last,
@@ -290,12 +300,12 @@ def test_checkpoint_round_trip_and_resume_bit_equal(bundle, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("banked", [False, True])
-def test_runner_validate_matches_jax(bundle, banked):
+def test_runner_validate_matches_jax(bundle, jax_bundle, banked):
     """Both runners load the same reference-format weights; their
     validation losses agree (fp32)."""
     cfg, tcfg = _cfg(), _tcfg()
-    jtrain = _dataset(jds, jwin, bundle)
-    jval = _dataset(jds, jwin, bundle, sample_augmentations=False)
+    jtrain = _dataset(jds, jwin, jax_bundle)
+    jval = _dataset(jds, jwin, jax_bundle, sample_augmentations=False)
     jrun = JaxDetectionRunner(cfg, tcfg, jtrain, jval,
                               mesh_cfg=C.MeshConfig(data=1),
                               use_device_bank=banked)

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_detection_runner import (
-    _cfg, _dataset, _tcfg, bundle)  # noqa: F401 (bundle is a fixture)
+from tests.test_torch_detection_runner import (  # noqa: F401 (fixtures)
+    _cfg, _dataset, _tcfg, bundle, jax_bundle)
 from tests.torch_port_helpers import port_cfg, port_train_cfg
 from tim_tpu import config as C
 from tim_tpu.data import dataset as jds
@@ -27,6 +27,7 @@ from tim_tpu.evals import format_predictions as jfp
 from tim_tpu.runner import DetectionRunner as JaxDetectionRunner
 from tim_tpu_torch.data import dataset as pds
 from tim_tpu_torch.data import windows as pwin
+from tim_tpu_torch.data.table import Table
 from tim_tpu_torch.evals import anet as panet
 from tim_tpu_torch.evals import ek100 as pek
 from tim_tpu_torch.evals import format_predictions as pfp
@@ -121,12 +122,14 @@ def test_ek100_copy_equals_jax():
     submission = {"version": "0.2", "challenge": "action_detection",
                   "results": results}
     for task in ("verb", "noun", "action"):
-        _equal(pek.gt_columns_from_annotations(ann, task, 5),
+        _equal(pek.gt_columns_from_annotations(Table.from_frame(ann), task,
+                                               5),
                jek.gt_columns_from_annotations(ann, task, 5), task)
         _equal(pek.prediction_columns_from_submission(submission, task, 5),
                jek.prediction_columns_from_submission(submission, task, 5),
                task)
-        _equal(pek.evaluate_ek100(ann, submission, task, num_nouns=5),
+        _equal(pek.evaluate_ek100(Table.from_frame(ann), submission, task,
+                                  num_nouns=5),
                jek.evaluate_ek100(ann, submission, task, num_nouns=5), task)
 
 
@@ -242,9 +245,9 @@ def test_ground_truth_fed_back_gives_map_one():
 # DetectionRunner's mAP chain against JAX's
 # ---------------------------------------------------------------------------
 
-def _runners(bundle, banked, **cfg_kw):
+def _runners(bundle, jax_bundle, banked, **cfg_kw):
     cfg, tcfg = _cfg(**cfg_kw), _tcfg()
-    jval = _dataset(jds, jwin, bundle, sample_augmentations=False)
+    jval = _dataset(jds, jwin, jax_bundle, sample_augmentations=False)
     jrun = JaxDetectionRunner(cfg, tcfg, jval, jval,
                               mesh_cfg=C.MeshConfig(data=1),
                               use_device_bank=banked)
@@ -269,16 +272,15 @@ def _runners(bundle, banked, **cfg_kw):
 def _gt(bundle, ds):
     v = pwin.normalize_actions(bundle["v_actions"], "visual", detection=True,
                                window_size=ds.windows.window_size)
-    return pfp.gt_to_columns(v["video_id"].to_numpy(object),
-                             v["start_sec"].to_numpy(),
-                             v["stop_sec"].to_numpy(),
-                             v["action_class"].to_numpy())
+    return pfp.gt_to_columns(v["video_id"], v["start_sec"], v["stop_sec"],
+                             v["action_class"])
 
 
 @pytest.mark.parametrize("banked", [False, True])
 @pytest.mark.parametrize("top_k", [None, 3])
-def test_dense_dump_and_map_match_jax(bundle, banked, top_k):  # noqa: F811
-    jrun, prun, pval = _runners(bundle, banked)
+def test_dense_dump_and_map_match_jax(bundle, jax_bundle,  # noqa: F811
+                                      banked, top_k):
+    jrun, prun, pval = _runners(bundle, jax_bundle, banked)
     want = jrun.extract_dense_predictions(top_k=top_k)
     got = prun.extract_dense_predictions(top_k=top_k)
     assert sorted(got) == sorted(want)
@@ -309,9 +311,10 @@ def test_dense_dump_and_map_match_jax(bundle, banked, top_k):  # noqa: F811
     assert abs(g_avg - w_avg) <= 1e-6 and len(sub["results"]) > 0
 
 
-def test_banked_and_host_dumps_agree_and_fit_reports_map(bundle):  # noqa: F811
-    _, host, pval = _runners(bundle, False)
-    _, banked, _ = _runners(bundle, True)
+def test_banked_and_host_dumps_agree_and_fit_reports_map(
+        bundle, jax_bundle):  # noqa: F811
+    _, host, pval = _runners(bundle, jax_bundle, False)
+    _, banked, _ = _runners(bundle, jax_bundle, True)
     a, b = host.extract_dense_predictions(), banked.extract_dense_predictions()
     assert sorted(a) == sorted(b)
     for k in a:

@@ -1,6 +1,6 @@
 """The port's backbone finetune / pretraining CLI
 (``tim_tpu_torch/extract/finetune_cli.py``) on the CPU, on JPEG frames
-written by cv2 and annotation CSVs read by pandas (tiny ViT, fp32):
+written by cv2 and annotation CSVs written by pandas (tiny ViT, fp32):
 
 - as ``tests/test_finetune_cli.py``: both modes run one epoch and write
   ``checkpoint.pt``; pretraining samples its clips ``mode="train"``;
@@ -12,7 +12,8 @@ written by cv2 and annotation CSVs read by pandas (tiny ViT, fp32):
 - the chain from ``--mode pretrain`` to ``--pretrained``: every encoder
   entry of the trunk loads (only ``fc_norm``, which the MAE lacks, keeps
   its init);
-- the errors: PIL for the finetune RandAugment, cv2 for the frames,
+- the errors: PIL for the finetune RandAugment, cv2 for the frames (which
+  ``main`` reaches without pandas, after reading the CSVs),
   ``--flash_attention off`` on the card (a JAX msgpack checkpoint is
   read: ``tests/test_torch_jax_checkpoint.py``).
 """
@@ -225,6 +226,12 @@ def test_the_cli_names_what_it_cannot_do(clip_data, monkeypatch, tmp_path):
     with pytest.raises(ImportError, match="PIL.*--mode finetune|"
                                           "--mode finetune.*PIL"):
         pcli.datasets(args, pd.read_csv(clip_data[1]), None, None)
+    # without pandas the CSVs are read (data.table.read_csv) and main
+    # stops only at the frames' cv2
+    monkeypatch.setitem(sys.modules, "pandas", None)
     monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="cv2"):
         pcli.main(_argv(clip_data, "pretrain", tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        pcli.main(_argv(clip_data, "pretrain", tmp_path) + [
+            "--anno_train", str(tmp_path / "missing.csv")], device="cpu")

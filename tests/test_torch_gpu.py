@@ -818,49 +818,6 @@ def test_small_gate_on_the_card_launches_kernels_3_and_1(gen, tmp_path,
             query_block_attention.launches - before[1]) == (2, 2)
 
 
-class _Table:
-    """The part of a pandas DataFrame that the extraction CLI reads, over
-    numpy columns, for hosts without pandas."""
-
-    def __init__(self, cols):
-        self.cols = cols
-        self.iloc = self
-
-    def __getitem__(self, key):
-        import numpy as np
-        if isinstance(key, str):
-            return _Column(self.cols[key])
-        if isinstance(key, (int, np.integer)):
-            return {k: v[key] for k, v in self.cols.items()}
-        return _Table({k: v[np.asarray(key)] for k, v in self.cols.items()})
-
-    def __len__(self):
-        return len(self.cols["video_id"])
-
-    def __contains__(self, column):
-        return column in self.cols
-
-    def sort_values(self, column):
-        import numpy as np
-        return self[np.argsort(self.cols[column], kind="stable")]
-
-
-class _Column:
-    def __init__(self, values):
-        self.values = values
-
-    def __eq__(self, other):
-        return self.values == other
-
-    def unique(self):
-        import numpy as np
-        return np.unique(self.values)
-
-    def to_numpy(self, dtype=None):
-        import numpy as np
-        return np.asarray(self.values, dtype)
-
-
 @pytest.mark.gpu
 def test_slowfast_extraction_through_the_cli_on_the_card(gen, tmp_path,
                                                          monkeypatch):
@@ -869,12 +826,13 @@ def test_slowfast_extraction_through_the_cli_on_the_card(gen, tmp_path,
     bank is finite, [10, 2, 320], and its clean set equals the CPU's
     forward of the same spectrograms within 1e-4 of the largest."""
     import functools
-    import sys
-    import types
+    import importlib.util
+    import os
 
     import numpy as np
     from scipy.io import wavfile
 
+    from tim_tpu_torch.data.table import Table
     from tim_tpu_torch.extract import cli as pcli
     from tim_tpu_torch.extract.audio import (
         extract_clip_spectrogram, record_clip_bounds)
@@ -883,10 +841,19 @@ def test_slowfast_extraction_through_the_cli_on_the_card(gen, tmp_path,
     wave = np.random.default_rng(0).normal(scale=0.2, size=3 * sr)
     wavfile.write(tmp_path / "v1.wav", sr, (wave * 32767).astype(np.int16))
     starts = np.arange(10, dtype=np.float64) * 0.2
-    table = _Table({"video_id": np.asarray(["v1"] * 10, object),
-                    "start_sec": starts, "stop_sec": starts + 1.1})
-    monkeypatch.setitem(sys.modules, "pandas", types.SimpleNamespace(
-        read_pickle=lambda path: table))
+    # the feature-time table as a DataFrame pickle in pandas 1.x's layout,
+    # written with numpy alone (tests/data/torch_tables/make_fixture.py)
+    spec = importlib.util.spec_from_file_location(
+        "torch_tables_fixture", os.path.join(
+            os.path.dirname(__file__), "data", "torch_tables",
+            "make_fixture.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    fixture.write_pandas1_pickle(
+        Table({"video_id": ["v1"] * 10, "start_sec": starts,
+               "stop_sec": starts + 1.1},
+              index=[f"v1_{i}" for i in range(10)],
+              index_name="narration_id"), tmp_path / "ctx.pkl")
     monkeypatch.setattr(psf, "AuditorySlowFast", functools.partial(
         psf.AuditorySlowFast, num_classes=5, width=8, alpha=4, beta_inv=4))
     pcli.main(["--backbone", "slowfast", "--audio_dir", str(tmp_path),

@@ -40,7 +40,7 @@ from flax import serialization
 
 from tests import test_torch_detection_train as tdet
 from tests import test_torch_recognition as trec
-from tests.torch_port_helpers import port_cfg, port_train_cfg
+from tests.torch_port_helpers import port_cfg, port_tables, port_train_cfg
 from tim_tpu import config as C
 from tim_tpu.data import dataset as jds
 from tim_tpu.data import synthetic as jsyn
@@ -302,7 +302,7 @@ def _bundle():
 
 
 def _splits(kind, data_mod, win_mod):
-    b = _bundle()
+    b = _bundle() if win_mod is jwin else port_tables(_bundle())
     stores = (data_mod.FeatureStore(b["v_feats"], b["v_feat_times"]),
               data_mod.FeatureStore(b["a_feats"], b["a_feat_times"]))
     if kind == "detection":

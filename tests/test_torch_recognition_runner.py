@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from tests.test_torch_train import assert_state_close
-from tests.torch_port_helpers import port_train_cfg
+from tests.torch_port_helpers import jax_frames, port_train_cfg
 from tim_tpu import config as C
 from tim_tpu.data import dataset as jds
 from tim_tpu.data import windows as jwin
@@ -54,6 +54,8 @@ def rec_bundle(num_aug: int = 1):
 
 
 def _windows(mod, b):
+    if mod is jwin:
+        b = jax_frames(b)
     return mod.build_recognition_windows(
         mod.normalize_actions(b["v_actions"], "visual"),
         mod.normalize_actions(b["a_actions"], "audio"),

@@ -19,6 +19,24 @@ from tim_tpu_torch.convert import detection_state_dict_from_jax
 from tim_tpu_torch.models import TimDetection
 
 
+def port_tables(bundle: dict) -> dict:
+    """A JAX synthetic bundle with its DataFrames as the port's ``Table``s
+    (``Table.from_frame``), for the port's side of a comparison."""
+    from tim_tpu_torch.data.table import Table
+    return {k: Table.from_frame(v) if hasattr(v, "columns") else v
+            for k, v in bundle.items()}
+
+
+def jax_frames(bundle: dict) -> dict:
+    """A port synthetic bundle with its ``Table``s as DataFrames (same
+    columns, index and values), for the JAX side of a comparison."""
+    import pandas as pd
+    from tim_tpu_torch.data.table import Table
+    return {k: pd.DataFrame({c: v[c] for c in v.columns},
+                            index=pd.Index(v.index, name=v.index_name))
+            if isinstance(v, Table) else v for k, v in bundle.items()}
+
+
 def small_cfg(**overrides):
     kw = dict(d_model=32, num_layers=2, nhead=2, num_feats=6,
               visual_input_dim=16, audio_input_dim=12,

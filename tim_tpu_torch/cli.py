@@ -7,10 +7,11 @@ the counterpart of ``tim_tpu/cli.py``.
 
 The parser has the JAX CLI's flags and defaults, and the data files are
 the reference's pickles and npy banks. ``main`` parses, loads the splits
-(``load_datasets``: ``pandas`` is imported there, and only there) and
-hands them to ``run``, which builds a ``DetectionRunner`` or a
-``RecognitionRunner`` on the CUDA card (``device="cuda"``, the default;
-raises without one) or, when asked, on the CPU, and then trains
+(``load_datasets``: the DataFrame pickles through the port's own reader,
+``utils.pdpickle.read_pickle``, with no pandas) and hands them to
+``run``, which builds a ``DetectionRunner`` or a ``RecognitionRunner``
+on the CUDA card (``device="cuda"``, the default; raises without one)
+or, when asked, on the CPU, and then trains
 (``--train``), validates (``--validate``) or dumps the validation split
 (``--extract_feats``: ``dense_predictions.npz`` for detection, its
 ``<head>_topk_*`` columns with ``--extract_top_k``;
@@ -268,23 +269,16 @@ def configs_from_args(args):
 
 def load_datasets(args, mcfg, detection: bool):
     """(train_ds, val_ds) from the reference's pickles and npy banks
-    (train_ds None unless ``--train``). Needs ``pandas``."""
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(
-            "tim_tpu_torch.cli reads the reference's pickles with pandas, "
-            "which is not installed; build the splits another way and call "
-            "tim_tpu_torch.cli.run(args, train_ds, val_ds)") from e
-
+    (train_ds None unless ``--train``)."""
     from tim_tpu_torch.data.dataset import (
         DetectionDataset, FeatureStore, RecognitionDataset)
     from tim_tpu_torch.data.windows import (
         build_detection_windows, build_recognition_windows,
         normalize_actions)
+    from tim_tpu_torch.utils.pdpickle import read_pickle
 
     window_size = args.num_feats * args.feat_gap * args.feat_stride
-    video_info = pd.read_pickle(args.video_info_pickle)
+    video_info = read_pickle(args.video_info_pickle)
 
     def split(split_name, v_pkl, a_pkl, v_ctx, a_ctx, sample_aug):
         v_norm = a_norm = None
@@ -292,19 +286,19 @@ def load_datasets(args, mcfg, detection: bool):
         feat_times = None
         if "visual" in args.data_modality:
             v_norm = normalize_actions(
-                pd.read_pickle(v_pkl), "visual", args.dataset,
+                read_pickle(v_pkl), "visual", args.dataset,
                 detection=detection, window_size=window_size)
         if "audio" in args.data_modality:
             a_norm = normalize_actions(
-                pd.read_pickle(a_pkl), "audio", args.dataset,
+                read_pickle(a_pkl), "audio", args.dataset,
                 detection=detection, window_size=window_size)
         if "visual" in args.model_modality:
-            ctx = pd.read_pickle(v_ctx)
+            ctx = read_pickle(v_ctx)
             v_store = FeatureStore.from_npy_dir(
                 str(args.video_data_path), split_name, ctx)
             feat_times = v_store.feat_times
         if "audio" in args.model_modality:
-            ctx = pd.read_pickle(a_ctx)
+            ctx = read_pickle(a_ctx)
             a_store = FeatureStore.from_npy_dir(
                 str(args.audio_data_path), split_name, ctx)
             feat_times = feat_times or a_store.feat_times

@@ -46,16 +46,20 @@ class FeatureStore:
     def from_npy_dir(cls, data_path: str, split: str, feat_time_table,
                      video_ids=None) -> "FeatureStore":
         """Load ``<data_path>/<split>/<video_id>.npy`` files for every video
-        in the feature-time pickle (``sliding_window.py:19-32``)."""
+        in the feature-time ``Table`` (``utils.pdpickle.read_pickle`` of
+        the reference's pickle; ``sliding_window.py:19-32``): a video's
+        rows in table order, sorted by ``start_sec``, the remaining columns
+        but ``video_id`` and ``narration_sec`` as float32 in the table's
+        column order."""
         feats, times = {}, {}
         if video_ids is None:
-            video_ids = feat_time_table["video_id"].unique().tolist()
+            video_ids = feat_time_table.unique("video_id").tolist()
+        by_video = feat_time_table.groups("video_id")
         for vid in video_ids:
-            rows = feat_time_table[feat_time_table["video_id"] == vid]
-            rows = rows.sort_values("start_sec")
-            drop = [c for c in ("video_id", "narration_sec")
-                    if c in rows.columns]
-            times[vid] = rows.drop(columns=drop).to_numpy(np.float32)
+            rows = by_video.get(vid, feat_time_table.take([]))
+            rows = rows.sort_by("start_sec")
+            drop = [c for c in ("video_id", "narration_sec") if c in rows]
+            times[vid] = rows.drop(drop).to_numpy(np.float32)
             feats[vid] = np.load(
                 os.path.join(data_path, split, f"{vid}.npy"), mmap_mode="r")
         return cls(feats, times)

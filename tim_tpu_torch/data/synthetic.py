@@ -3,9 +3,10 @@
 
 Fabricates videos with per-timestep features and overlapping action
 annotations in the exact schema the reference consumes (annotation
-DataFrames with ``start_timestamp``/``stop_timestamp``, feature-time
-tables, per-video ``[T, A, D]`` banks). The annotation builders import
-``pandas`` inside the functions that need it.
+tables with ``start_timestamp``/``stop_timestamp``, feature-time
+tables, per-video ``[T, A, D]`` banks). The tables are the port's
+``data.table.Table``s, with the columns, index and values of the JAX
+copy's DataFrames.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+
+from tim_tpu_torch.data.table import Table
 
 
 def _fmt_ts(sec: float) -> str:
@@ -22,15 +25,11 @@ def _fmt_ts(sec: float) -> str:
     return f"{h:02d}:{m:02d}:{s:09.6f}"
 
 
-def make_video_info(durations: Dict[str, float]):
-    import pandas as pd
-
-    df = pd.DataFrame({
+def make_video_info(durations: Dict[str, float]) -> Table:
+    return Table({
         "duration": list(durations.values()),
         "fps": [50.0] * len(durations),
-    }, index=list(durations.keys()))
-    df.index.name = "video_id"
-    return df
+    }, index=list(durations.keys()), index_name="video_id")
 
 
 def make_feat_times(
@@ -56,9 +55,7 @@ def make_actions(
     audio: bool = False,
     min_len: float = 0.4,
     max_len: float = 8.0,
-):
-    import pandas as pd
-
+) -> Table:
     rows = []
     for vid, dur in durations.items():
         for _ in range(per_video):
@@ -81,11 +78,10 @@ def make_actions(
                     row["action_class"] = int(rng.integers(0, classes[0]))
                 row["narration"] = "do thing"
             rows.append(row)
-    df = pd.DataFrame(rows)
     prefix = "a" if audio else "v"
-    df.index = pd.Index(
-        [f"{prefix}{i:05d}" for i in range(len(df))], name="narration_id")
-    return df
+    return Table.from_records(
+        rows, index=[f"{prefix}{i:05d}" for i in range(len(rows))],
+        index_name="narration_id")
 
 
 def make_features(

@@ -1,7 +1,7 @@
 """Sliding-window construction over untrimmed videos: a copy of
 ``tim_tpu/data/windows.py`` (tests pin the two to equality).
 
-Host-side numpy/pandas preprocessing that replicates the reference's window
+Host-side numpy preprocessing that replicates the reference's window
 semantics exactly (float rounding included):
 
 - recognition: windows keep actions that *overlap* the window, clipped to
@@ -12,9 +12,12 @@ semantics exactly (float rounding included):
   dropped globally.
 
 The output is a flat list of fixed-schema ``Window`` records plus padding
-maxima, ready for fixed-shape batching. ``pandas`` is imported only inside
-the annotation builders (``normalize_actions``, ``build_*_windows``):
-``Window``, ``WindowSet`` and ``window_feat_indices`` need numpy alone.
+maxima, ready for fixed-shape batching. The annotation builders
+(``normalize_actions``, ``build_*_windows``) take the port's
+``data.table.Table`` (``utils.pdpickle.read_pickle`` of the reference's
+pickles) where the JAX package takes DataFrames, with the same
+semantics: row order, the merged table's positional action ids, NaN and
+the dtypes of the label columns alike.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from tim_tpu_torch.data.table import Table, isin
 
 
 def timestamp_to_seconds(timestamp: str) -> float:
@@ -120,50 +125,57 @@ def normalize_actions(
     df, modality: str, dataset_name: str = "epic", detection: bool = False,
     window_size: Optional[float] = None,
 ):
-    """Bring a raw annotation DataFrame to the shared schema
+    """Bring a raw annotation ``Table`` to the shared schema
     (``sliding_window.py:157-194``): seconds columns, -1 fill for absent
     label columns, modality-prefixed narration ids."""
-    import pandas as pd  # noqa: F401  (the DataFrame methods below)
-
     df = df.copy()
-    if "start_sec" not in df.columns:
-        df["start_sec"] = df["start_timestamp"].apply(timestamp_to_seconds)
-        df["stop_sec"] = df["stop_timestamp"].apply(timestamp_to_seconds)
+    if "start_sec" not in df:
+        for col in ("start", "stop"):
+            df[f"{col}_sec"] = np.asarray(
+                [timestamp_to_seconds(t) for t in df[f"{col}_timestamp"]],
+                np.float64)
 
     if modality == "visual":
         if dataset_name == "ave" and not detection:
             df["action_class"] = df["class_id"]
         else:
             df["class_id"] = -1
-        if "verb_class" not in df.columns:
+        if "verb_class" not in df:
             df["verb_class"] = -1
             df["noun_class"] = -1
-        if "action_class" not in df.columns:
+        if "action_class" not in df:
             df["action_class"] = -1
     else:
         for col in ("verb_class", "noun_class", "action_class"):
             df[col] = -1
 
     keep = ["video_id", "start_sec", "stop_sec", *LABEL_COLS]
-    df = df[keep]
-    df.index = df.index.set_names(["narration_id"])
+    df = df.select(keep)
+    df.index_name = "narration_id"
     if detection:
         assert window_size is not None
-        df = df[(df["stop_sec"] - df["start_sec"]) < window_size]
+        df = df.where((df["stop_sec"] - df["start_sec"]) < window_size)
     df = df.reset_index()
     prefix = "v_" if modality == "visual" else "a_"
-    df["narration_id"] = df["narration_id"].apply(lambda x: f"{prefix}{x}")
+    df["narration_id"] = [f"{prefix}{x}" for x in df["narration_id"]]
     return df
 
 
-def _merge_actions(v_actions, a_actions, data_modality: str):
-    import pandas as pd
-
+def _merge_actions(v_actions, a_actions, data_modality: str) -> Table:
     if data_modality == "visual":
         return v_actions
     if data_modality == "audio":
         return a_actions
-    return pd.concat([v_actions, a_actions], axis=0).reset_index(drop=True)
+    return Table.concat([v_actions, a_actions]).reset_index(drop=True)
+
+
+def _clipped_group(grouped, vid, video_duration) -> Table:
+    """A video's actions (``get_group``) with their stops clipped to the
+    video's rounded-up duration (``.clip(upper=...)`` on the copy)."""
+    vid_actions = grouped[vid].copy()
+    vid_actions["stop_sec"] = np.minimum(vid_actions["stop_sec"],
+                                         video_duration)
+    return vid_actions
 
 
 def build_recognition_windows(
@@ -180,32 +192,31 @@ def build_recognition_windows(
     data_modality: str = "audio_visual",
 ) -> WindowSet:
     """Precompute recognition windows. ``v_actions``/``a_actions`` are
-    normalized DataFrames (see ``normalize_actions``) or None; ``feat_times``
+    normalized Tables (see ``normalize_actions``) or None; ``video_info``
+    is indexed by video id with a ``duration`` column; ``feat_times``
     maps video_id -> [T, >=2] (start, end) per feature row."""
     window_size = num_feats * feat_gap * feat_stride
     actions = _merge_actions(v_actions, a_actions, data_modality)
-    num_actions = actions.shape[0]
+    num_actions = len(actions)
 
-    video_info = video_info[video_info.index.isin(
-        actions["video_id"].unique())]
+    video_info = video_info.where(isin(video_info.index,
+                                       actions.unique("video_id")))
     all_n_ids = set(actions["narration_id"].tolist())
-    grouped = actions.groupby("video_id")
+    grouped = actions.groups("video_id")
 
     windows: List[Window] = []
     seen: set = set()
     max_vis = max_aud = 0
     min_query, max_query = 2 * window_size, 0.0
 
-    for vid, vinfo in video_info.iterrows():
+    for vid, vinfo in video_info.rows():
         video_duration = math.ceil(vinfo["duration"])
         n_win = max(math.ceil(
             (math.ceil(video_duration) - window_size) / window_stride) + 1, 1)
-        vid_actions = grouped.get_group(vid).copy()
-        vid_actions["stop_sec"] = vid_actions["stop_sec"].clip(
-            upper=video_duration)
+        vid_actions = _clipped_group(grouped, vid, video_duration)
 
-        starts = vid_actions["start_sec"].to_numpy()
-        stops = vid_actions["stop_sec"].to_numpy()
+        starts = vid_actions["start_sec"]
+        stops = vid_actions["stop_sec"]
         full_dur = np.round(stops - starts, 3)
         vt = feat_times[vid]
 
@@ -226,10 +237,10 @@ def build_recognition_windows(
             sel = np.flatnonzero(overlap)[keep]
             q_times = np.stack(
                 [c_start[keep], c_stop[keep]], axis=-1).astype(np.float32)
-            q_labels = vid_actions.iloc[sel][list(LABEL_COLS)].to_numpy(
+            q_labels = vid_actions.take(sel).select(LABEL_COLS).to_numpy(
                 np.int64)
-            n_ids = vid_actions.iloc[sel]["narration_id"].tolist()
-            a_ids = vid_actions.index[sel].to_numpy(np.int64)
+            n_ids = vid_actions["narration_id"][sel].tolist()
+            a_ids = vid_actions.index[sel].astype(np.int64)
 
             is_vis = np.asarray(["v_" in n for n in n_ids])
             is_aud = np.asarray(["a_" in n for n in n_ids])
@@ -291,24 +302,22 @@ def build_detection_windows(
     (``detection/.../loader.py`` get_gt_segments=False)."""
     window_size = num_feats * feat_gap * feat_stride
     actions = _merge_actions(v_actions, a_actions, data_modality)
-    num_actions = actions.shape[0]
-    video_info = video_info[video_info.index.isin(
-        actions["video_id"].unique())]
-    grouped = actions.groupby("video_id")
+    num_actions = len(actions)
+    video_info = video_info.where(isin(video_info.index,
+                                       actions.unique("video_id")))
+    grouped = actions.groups("video_id")
 
     windows: List[Window] = []
     max_vis = max_aud = 0
     min_query, max_query = 2 * window_size, 0.0
 
-    for vid, vinfo in video_info.iterrows():
+    for vid, vinfo in video_info.rows():
         video_duration = math.ceil(vinfo["duration"])
         n_win = max(math.ceil(
             (math.ceil(video_duration) - window_size) / window_stride) + 1, 1)
-        vid_actions = grouped.get_group(vid).copy()
-        vid_actions["stop_sec"] = vid_actions["stop_sec"].clip(
-            upper=video_duration)
-        starts = vid_actions["start_sec"].to_numpy()
-        stops = vid_actions["stop_sec"].to_numpy()
+        vid_actions = _clipped_group(grouped, vid, video_duration)
+        starts = vid_actions["start_sec"]
+        stops = vid_actions["stop_sec"]
         vt = feat_times[vid]
 
         for w in range(n_win):
@@ -328,9 +337,9 @@ def build_detection_windows(
                     max_query = max(max_query, float(dur.max()))
                     q_times = np.stack(
                         [starts[inside], stops[inside]], -1).astype(np.float32)
-                    q_labels = vid_actions.iloc[sel][list(LABEL_COLS)]\
+                    q_labels = vid_actions.take(sel).select(LABEL_COLS)\
                         .to_numpy(np.int64)
-                    n_ids = vid_actions.iloc[sel]["narration_id"].tolist()
+                    n_ids = vid_actions["narration_id"][sel].tolist()
                     is_vis = np.asarray(["v_" in n for n in n_ids])
                     is_aud = np.asarray(["a_" in n for n in n_ids])
                     if int(is_vis.sum()) > max_vis:

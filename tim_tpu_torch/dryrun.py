@@ -23,8 +23,7 @@ on then), else 1. Each rank runs, at tiny widths (S divisible by 2):
 The same work then runs in this process without a process group, and
 every rank's results must be finite and equal it: losses within 1e-4
 relative, parameters and everything else within atol 1e-4 / rtol 1e-3.
-The splits are built from numpy alone (the card's machine has no
-pandas); every head is as wide as the card's kernels take (TIM's 32, the
+The splits are built from numpy alone; every head is as wide as the card's kernels take (TIM's 32, the
 Swin's 32, the ViT's 64). Imports nothing of JAX.
 """
 

@@ -1,7 +1,8 @@
 """File-level detection evaluation CLI: counterpart of
 ``tim_tpu/evals/__main__.py`` over the port's copies of the evaluation
-code (``evals/{format_predictions,ek100,anet}.py``). No device work;
-``pandas`` is imported by ``main`` (the GT pickle).
+code (``evals/{format_predictions,ek100,anet}.py``). No device work; the
+GT pickle is read by the port's own reader (``utils.pdpickle``), with no
+pandas.
 
 Reproduces the reference's two-program eval chain in one command
 (``detection/eval_detection/format_predictions_epic.py:114-198`` →
@@ -73,35 +74,32 @@ def build_parser():
 
 
 def _generic_gt_columns(annotations, label_column: str):
-    """GT columns for Perception/EPIC-Sounds pickles: plain second-valued
-    start/stop columns plus a class-id column
+    """GT columns for Perception/EPIC-Sounds pickles (a ``Table``): plain
+    second-valued start/stop columns plus a class-id column
     (``format_predictions.py`` input contract)."""
     from tim_tpu_torch.evals.format_predictions import gt_to_columns
 
     cols = set(annotations.columns)
     if {"start_seconds", "stop_seconds"} <= cols:
-        starts = annotations["start_seconds"].to_numpy(float)
-        stops = annotations["stop_seconds"].to_numpy(float)
+        starts = np.asarray(annotations["start_seconds"], float)
+        stops = np.asarray(annotations["stop_seconds"], float)
     elif {"start_timestamp", "stop_timestamp"} <= cols:
         from tim_tpu_torch.data.windows import timestamp_to_seconds
-        starts = annotations["start_timestamp"].apply(
-            timestamp_to_seconds).to_numpy(float)
-        stops = annotations["stop_timestamp"].apply(
-            timestamp_to_seconds).to_numpy(float)
+        starts, stops = (np.asarray([timestamp_to_seconds(t) for t in
+                                     annotations[c]], float)
+                         for c in ("start_timestamp", "stop_timestamp"))
     else:
         raise SystemExit(
             f"GT pickle has no recognised time columns (got {sorted(cols)})")
-    return gt_to_columns(annotations["video_id"].to_numpy(object),
-                         starts, stops,
-                         annotations[label_column].to_numpy())
+    return gt_to_columns(annotations["video_id"].astype(object),
+                         starts, stops, annotations[label_column])
 
 
 def main(argv=None):
-    import pandas as pd
-
     from tim_tpu_torch.evals.ek100 import gt_columns_from_annotations
     from tim_tpu_torch.evals.format_predictions import (
         evaluate_detections, validate_submission)
+    from tim_tpu_torch.utils.pdpickle import read_pickle
 
     args = build_parser().parse_args(argv)
     score_key, prop_key = TASK_KEYS[args.task]
@@ -134,7 +132,7 @@ def main(argv=None):
     video_ids = dump["video_ids"]
     proposals = dump[prop_key]
 
-    annotations = pd.read_pickle(args.gt)
+    annotations = read_pickle(args.gt)
     if args.dataset == "epic" and "verb_class" in annotations.columns:
         gt_cols = gt_columns_from_annotations(
             annotations, task=args.task, num_nouns=args.noun_count)

@@ -143,7 +143,7 @@ def _rows_by_label(labels: np.ndarray) -> dict:
 class DetectionEvaluator:
     """mAP over classes present in the ground truth.
 
-    Inputs are column dicts (or DataFrames) with keys
+    Inputs are column dicts (or ``Table``s) with keys
     ``video-id, t-start, t-end, label`` (+ ``score`` for predictions).
     Predictions with labels absent from the GT are dropped, matching
     ``evaluate_detection_json_ek100.py:98-105``.

@@ -3,8 +3,8 @@
 
 A task-aware wrapper over the mAP evaluator, as the reference's
 ``detection/eval_detection/evaluate_detection_json_ek100.py``: ground truth
-from the EPIC annotation table (timestamps + verb/noun classes; action id
-= verb * 300 + noun), predictions from the challenge submission dict
+from the EPIC annotation table (a ``data.table.Table``: timestamps +
+verb/noun classes; action id = verb * 300 + noun), predictions from the challenge submission dict
 (entries carry verb, noun and an "v,n" composite action), evaluated per
 task at tIoU {0.1..0.5}.
 """
@@ -22,14 +22,13 @@ from tim_tpu_torch.evals.anet import DetectionEvaluator
 def gt_columns_from_annotations(
     annotations, task: str = "action", num_nouns: int = 300
 ) -> Dict:
-    """EPIC annotation DataFrame -> evaluator columns
+    """EPIC annotation ``Table`` -> evaluator columns
     (``evaluate_detection_json_ek100.py:24-43``)."""
-    starts = annotations["start_timestamp"].apply(
-        timestamp_to_seconds).to_numpy(float)
-    stops = annotations["stop_timestamp"].apply(
-        timestamp_to_seconds).to_numpy(float)
-    verbs = annotations["verb_class"].to_numpy()
-    nouns = annotations["noun_class"].to_numpy()
+    starts, stops = (np.asarray([timestamp_to_seconds(t) for t in
+                                 annotations[c]], float)
+                     for c in ("start_timestamp", "stop_timestamp"))
+    verbs = annotations["verb_class"]
+    nouns = annotations["noun_class"]
     if task == "verb":
         label = verbs
     elif task == "noun":
@@ -37,7 +36,7 @@ def gt_columns_from_annotations(
     else:
         label = verbs * num_nouns + nouns
     return {
-        "video-id": annotations["video_id"].to_numpy(object),
+        "video-id": annotations["video_id"].astype(object),
         "t-start": starts,
         "t-end": stops,
         "label": label,

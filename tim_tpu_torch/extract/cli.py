@@ -28,8 +28,9 @@ activation scales; ``auto`` means off away from a TPU, as in the JAX CLI.
 SlowFast has no int8 layout: ``--backbone slowfast --quantize_backbone on``
 raises ``ValueError`` (the JAX CLI ignores the flag there and runs fp32).
 Without ``--checkpoint`` the weights are random, from a generator seeded
-0. ``pandas`` is imported by ``main`` (the feature-time table) and PIL by
-the visual transforms and RandAugment.
+0. ``main`` reads the feature-time table with the port's own DataFrame
+pickle reader (``utils.pdpickle``, no pandas); PIL is imported by the
+visual transforms and RandAugment.
 """
 
 from __future__ import annotations
@@ -228,16 +229,15 @@ def extract_visual(args, table, video_ids, device=None):
         if not frame_files:
             print(f"skipping {vid}: no frames")
             continue
-        rows = table[table["video_id"] == vid].sort_values("start_sec")
+        rows = table.where(table["video_id"] == vid).sort_by("start_sec")
+        start_frames, stop_frames = rows["start_frame"], rows["stop_frame"]
 
         def clip_fn(t, a):
-            row = rows.iloc[t]
             # 'like omnivore' segment-center sampling; indices are 1-based
             # frame numbers (reference jpg naming)
             idx = omnivore_frame_indices(
-                int(row["stop_frame"]) - int(row["start_frame"]),
-                int(row["start_frame"]), len(frame_files),
-                args.num_frames)
+                int(stop_frames[t]) - int(start_frames[t]),
+                int(start_frames[t]), len(frame_files), args.num_frames)
             frames = np.stack([
                 np.asarray(Image.open(frame_files[i - 1]).convert("RGB"))
                 for i in idx])
@@ -312,9 +312,9 @@ def extract_audio(args, table, video_ids, device=None):
         return data.astype(np.float32)
 
     for vid in video_ids:
-        rows = table[table["video_id"] == vid].sort_values("start_sec")
-        starts = rows["start_sec"].to_numpy(np.float64)
-        stops = (rows["stop_sec"].to_numpy(np.float64) if "stop_sec" in rows
+        rows = table.where(table["video_id"] == vid).sort_by("start_sec")
+        starts = rows["start_sec"].astype(np.float64)
+        stops = (rows["stop_sec"].astype(np.float64) if "stop_sec" in rows
                  else starts + 1.1)
         bank = extract_features_for_video(
             audio_clip_fn(load_waveform(vid), starts, stops, sr,
@@ -325,12 +325,12 @@ def extract_audio(args, table, video_ids, device=None):
 
 
 def main(argv=None, *, device=None):
-    import pandas as pd
+    from tim_tpu_torch.utils.pdpickle import read_pickle
 
     args = build_parser().parse_args(argv)
     device = resolve_device(device)     # before reading any data
-    table = pd.read_pickle(args.feature_times)
-    video_ids = sorted(table["video_id"].unique().tolist())
+    table = read_pickle(args.feature_times)
+    video_ids = sorted(table.unique("video_id").tolist())
     video_ids = video_ids[args.shard_id::args.num_shards]
     if args.backbone in ("omnivore", "videomae"):
         extract_visual(args, table, video_ids, device=device)

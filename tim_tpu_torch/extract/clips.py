@@ -24,9 +24,9 @@ the erasing seed) is taken from the generator in JAX's order, so the same
 generator gives the same clips. ``jpeg_frame_reader`` reads JPEGs with
 ``cv2``, imported when called.
 
-``annotations`` is anything that gives arrays by column name: a pandas
-DataFrame (as in JAX) or a ``dict`` of numpy arrays (the card's machine
-has no pandas).
+``annotations`` is anything that gives arrays by column name: the port's
+``data.table.Table`` (``read_csv`` of the reference's CSVs), a ``dict``
+of numpy arrays, or a pandas DataFrame (as in JAX).
 """
 
 from __future__ import annotations
@@ -215,9 +215,9 @@ class EK100ClipDataset:
     """Annotation rows -> augmented clips + (verb, noun) labels.
 
     ``annotations``: video_id / start_frame / stop_frame / verb_class /
-    noun_class columns (the reference's csv schema), as a DataFrame or a
-    ``dict`` of arrays. ``frame_reader(video_id, indices, frame_offset) ->
-    uint8 [T, H, W, 3]`` — injectable so that clips come from any source.
+    noun_class columns (the reference's csv schema), as a ``Table``, a
+    ``dict`` of arrays or a DataFrame. ``frame_reader(video_id, indices,
+    frame_offset) -> uint8 [T, H, W, 3]`` — injectable so that clips come from any source.
     ``rand_augment`` None: the finetune recipe's ``VideoRandAugment``
     (needs PIL).
     """

@@ -14,9 +14,9 @@ pretraining launcher its tree references but omits):
 
 The parser has the JAX CLI's flags and defaults. ``main`` reads the
 annotation CSVs (video_id, start_frame, stop_frame, verb_class,
-noun_class) with ``pandas`` and the frames with ``cv2``
-(``extract.clips.jpeg_frame_reader``), both imported there only, builds the
-clip datasets (``datasets``) and hands them to ``run``, which trains on
+noun_class) with the port's own reader (``data.table.read_csv``, no
+pandas) and the frames with ``cv2`` (``extract.clips.jpeg_frame_reader``,
+imported there only), builds the clip datasets (``datasets``) and hands them to ``run``, which trains on
 the CUDA card (``device="cuda"``, the default; raises without one) or,
 when asked, on the CPU:
 
@@ -117,9 +117,9 @@ def identity_augment(frames):
 def datasets(args, anno_train, anno_val, reader: Callable, *,
              rand_augment: Optional[Callable] = None):
     """(train_ds, val_ds) of ``args.mode`` over annotation columns (a
-    DataFrame or a ``dict`` of arrays) and a frame reader: pretraining
-    takes train clips with identity RandAugment and no erasing (val_ds
-    None); finetuning takes ``--num_sample`` views a clip with
+    ``Table``, a DataFrame or a ``dict`` of arrays) and a frame reader:
+    pretraining takes train clips with identity RandAugment and no erasing
+    (val_ds None); finetuning takes ``--num_sample`` views a clip with
     ``rand_augment`` (None: the recipe's ``VideoRandAugment``, which needs
     PIL) and erasing at ``--reprob``, and validation clips of
     ``anno_val`` (``anno_train`` when None)."""
@@ -241,22 +241,16 @@ def run(args, train_ds, val_ds=None, *, device=None,
 
 
 def main(argv=None, *, device=None):
-    """Parse, read the CSVs (pandas) and frames (cv2), run."""
+    """Parse, read the CSVs (``read_csv``) and frames (cv2), run."""
+    from tim_tpu_torch.data.table import read_csv
     from tim_tpu_torch.extract.clips import jpeg_frame_reader
     from tim_tpu_torch.models.tim import resolve_device
     args = build_parser().parse_args(argv)
     device = resolve_device(device)
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(
-            "tim_tpu_torch.extract.finetune_cli reads the annotation CSVs "
-            "with pandas, which is not installed; build the datasets with "
-            "finetune_cli.datasets and call finetune_cli.run") from e
+    anno_train = read_csv(args.anno_train)
+    anno_val = read_csv(args.anno_val) if args.anno_val else None
     reader = jpeg_frame_reader(args.data_path, args.filename_tmpl)
-    anno_val = pd.read_csv(args.anno_val) if args.anno_val else None
-    train_ds, val_ds = datasets(args, pd.read_csv(args.anno_train), anno_val,
-                                reader)
+    train_ds, val_ds = datasets(args, anno_train, anno_val, reader)
     return run(args, train_ds, val_ds, device=device)
 
 

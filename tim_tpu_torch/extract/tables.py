@@ -1,6 +1,7 @@
-"""Feature-time and video-info tables. A copy of
-``tim_tpu/extract/tables.py`` (pandas imported inside each function; a test
-pins it to the original).
+"""Feature-time and video-info tables: a copy of
+``tim_tpu/extract/tables.py`` that returns the port's ``data.table.Table``
+where the original returns a DataFrame, with the same columns, index and
+values (a test pins the two).
 
 Equivalents of the reference's data-prep scripts
 (``feature_extractors/make_framepickle.py`` — fixed 1.1 s intervals every
@@ -11,7 +12,9 @@ fps are passed in).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
+
+from tim_tpu_torch.data.table import Table
 
 
 def build_feature_time_table(
@@ -20,12 +23,10 @@ def build_feature_time_table(
     interval: float = 1.1,
     hop: float = 0.2,
     fps: Dict[str, float] | float = 50.0,
-):
-    """DataFrame with narration_id index and columns (video_id, start_sec,
+) -> Table:
+    """Table with narration_id index and columns (video_id, start_sec,
     stop_sec, narration_sec, start_frame, stop_frame), one row per fixed
     feature interval (``make_framepickle.py:37-86``)."""
-    import pandas as pd
-
     rows, ids = [], []
     for vid, duration in durations.items():
         vid_fps = fps[vid] if isinstance(fps, dict) else fps
@@ -43,19 +44,15 @@ def build_feature_time_table(
             ids.append(f"{vid}_{index}")
             start += hop
             index += 1
-    df = pd.DataFrame(rows, index=pd.Index(ids, name="narration_id"))
-    return df
+    return Table.from_records(rows, index=ids, index_name="narration_id")
 
 
 def build_video_info(
     durations: Dict[str, float], fps: Dict[str, float] | float = 50.0
-):
+) -> Table:
     """video_id-indexed (duration, fps) table (``make_videoinfo.py``)."""
-    import pandas as pd
-
-    df = pd.DataFrame({
+    return Table({
         "duration": list(durations.values()),
         "fps": [fps[v] if isinstance(fps, dict) else fps
                 for v in durations],
-    }, index=pd.Index(list(durations.keys()), name="video_id"))
-    return df
+    }, index=list(durations.keys()), index_name="video_id")
