@@ -273,6 +273,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bit-equal to phase 20's direct route; g. neither pandas nor pyarrow
      loaded. Kernel 1 six times a detection validation or dump batch,
      once a layer a recognition batch; the phase's seconds (limit 60).
+ 28. ``--audio_hdf5`` without h5py (after 27; ``utils/hdf5.py``): a. every
+     dataset of ``tests/data/torch_hdf5`` (h5py's default format with a
+     two-level root B-tree, the earliest and latest formats: filters,
+     compact, fill values, the five chunk indexes, compact and dense
+     groups) read and held to its ``.npz`` twin bit for bit (seconds,
+     MB/s); b. ``extract.cli.main --backbone slowfast --audio_hdf5`` over
+     its three EPIC-named waveforms at full width (fp32, ``--num_aug 2``),
+     each bank bit-equal to the ``--audio_dir`` route over float32 WAVs of
+     the twins' samples under the same ``random.seed`` (the routes in
+     turns, hdf5, wav, wav, hdf5: wall clips/s of each run; launches of
+     path ``hdf5-audio``, its first run: 0 of each kernel); c. a
+     flipped byte in a dataset's ``OHDR`` and the file cut inside a
+     waveform refused, the structure named; d. h5py never loaded; the
+     phase within 30 s.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -4373,6 +4387,188 @@ def phase_files(card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 28: --audio_hdf5 on the card's machine, which has no h5py: the
+# port's reader (utils.hdf5) on tests/data/torch_hdf5, whose .npz twins
+# (numpy alone) say what each file holds.
+# ---------------------------------------------------------------------------
+HDF5_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_hdf5")
+HDF5_LIMIT_S = 30.0
+
+
+def hdf5_fixture():
+    """``tests/data/torch_hdf5/make_fixture.py`` as a module (numpy alone
+    at import: ``read_twin``, the file names, the waveforms)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_hdf5_fixture", os.path.join(HDF5_DIR, "make_fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def hdf5_walk(group, out, prefix="/"):
+    """Every dataset a walk of the reader's groups reaches, by path."""
+    from tim_tpu_torch.utils import hdf5
+    for key in group.keys():
+        obj = group[key]
+        if isinstance(obj, hdf5.Group):
+            hdf5_walk(obj, out, prefix + key + "/")
+        else:
+            out[prefix + key] = obj
+    return out
+
+
+def hdf5_read(fixture):
+    """28a: every dataset of the three files read by ``utils.hdf5`` and
+    held to its twin: the same paths, dtype, shape and bytes."""
+    from tim_tpu_torch.utils import hdf5
+    out = {}
+    for name in fixture.H5_FILES:
+        path = os.path.join(HDF5_DIR, name)
+        twins = fixture.read_twin(path)
+        t0 = time.perf_counter()
+        with hdf5.File(path) as f:
+            arrays = {k: d.read() for k, d in hdf5_walk(f, {}).items()}
+        secs = time.perf_counter() - t0
+        require(sorted(arrays) == sorted(twins),
+                f"hdf5-read: {name} holds {sorted(arrays)}, its twin "
+                f"{sorted(twins)}")
+        for key, want in twins.items():
+            got = arrays[key]
+            require(got.dtype == want.dtype and got.shape == want.shape
+                    and got.tobytes() == want.tobytes(),
+                    f"hdf5-read: {name}{key} differs from its twin")
+        nbytes = sum(a.nbytes for a in arrays.values())
+        out[name] = {"file_bytes": os.path.getsize(path),
+                     "data_bytes": nbytes, "datasets": len(arrays),
+                     "read_s": secs, "MB_per_s": rate(nbytes, secs)}
+        log(f"[hdf5-read] {name}: {len(arrays)} datasets, {nbytes} bytes of "
+            f"data ({out[name]['file_bytes']} in the file) read in "
+            f"{secs:.6f} s ({out[name]['MB_per_s']:.1f} MB/s), each "
+            f"bit-equal to its twin")
+    return out
+
+
+def hdf5_extract(fixture, tmp):
+    """28b: ``extract.cli.main --backbone slowfast --audio_hdf5`` over the
+    fixture's three waveforms at full width, its banks bit-equal to the
+    ``--audio_dir`` route over float32 WAVs of the twins' samples, both
+    under the same ``random.seed``. Returns (launches, numbers)."""
+    import random
+    from scipy.io import wavfile
+    from tim_tpu_torch.extract import cli as ecli
+    epic = os.path.join(HDF5_DIR, "epic_audio.h5")
+    twins = fixture.read_twin(epic)
+    (tmp / "wav").mkdir()
+    for vid in fixture.WAVEFORMS:
+        wavfile.write(tmp / "wav" / f"{vid}.wav", fixture.SAMPLING_RATE,
+                      twins["/" + vid])
+    common = ["--backbone", "slowfast", "--feature_times",
+              os.path.join(HDF5_DIR, "feature_times.pkl"), "--split", "val",
+              "--num_aug", "2", "--batch_size", str(AUDIO_BATCH),
+              "--sampling_rate", str(fixture.SAMPLING_RATE)]
+    sources = {"hdf5": ["--audio_hdf5", epic],
+               "wav": ["--audio_dir", str(tmp / "wav")]}
+    seconds = {"hdf5": [], "wav": []}
+    launches = None
+    for i, route in enumerate(("hdf5", "wav", "wav", "hdf5")):  # in turns
+        random.seed(SEED)
+        counters = zero_counts()
+        t0 = time.perf_counter()
+        ecli.main(common + sources[route]
+                  + ["--out_dir", str(tmp / f"{route}{i}")], device="cuda")
+        torch.cuda.synchronize()
+        seconds[route].append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_counts(counters)
+    clips = 0
+    for vid in fixture.WAVEFORMS:
+        got, *others = (np.load(tmp / out / "val" / f"{vid}.npy")
+                        for out in ("hdf50", "wav1", "wav2", "hdf53"))
+        require(got.shape[1:] == (2, 2304) and np.isfinite(got).all(),
+                f"hdf5-audio: {vid} bank {got.shape}")
+        for want in others:
+            require(got.shape == want.shape and got.tobytes()
+                    == want.tobytes(),
+                    f"hdf5-audio: {vid}: the --audio_hdf5 bank differs from "
+                    f"another run's (--audio_dir's or its own)")
+        clips += got.shape[0] * got.shape[1]
+    require(not any(launches.values()),
+            f"hdf5-audio: SlowFast in fp32 launches no kernel: {launches}")
+    rates = {route: [clips / t for t in ts] for route, ts in seconds.items()}
+    log(f"[hdf5-audio] extract.cli.main over {len(fixture.WAVEFORMS)} "
+        f"waveforms ({clips} clips, num_aug 2, batch {AUDIO_BATCH}), in "
+        f"turns hdf5, wav, wav, hdf5: --audio_hdf5 {seconds['hdf5']} s "
+        f"({rates['hdf5']} wall clips/s), --audio_dir {seconds['wav']} s "
+        f"({rates['wav']} clips/s); the four banks bit-equal; launches "
+        f"{launches}")
+    return launches, {"clips": clips, "hdf5_s": seconds["hdf5"],
+                      "wav_s": seconds["wav"],
+                      "hdf5_clips_per_s": rates["hdf5"],
+                      "wav_clips_per_s": rates["wav"]}
+
+
+def hdf5_controls(tmp):
+    """28c: a flipped byte in a dataset's ``OHDR`` (the latest-format file)
+    and the EPIC file cut inside a waveform must be refused, each error
+    naming the structure."""
+    from tim_tpu_torch.utils import hdf5
+    src = os.path.join(HDF5_DIR, "layouts_latest.h5")
+    with hdf5.File(src) as f:
+        _, addr = f["index"]._find("fixed_paged")
+    data = bytearray(open(src, "rb").read())
+    data[addr + 30] ^= 0x10
+    (tmp / "flipped.h5").write_bytes(bytes(data))
+    epic = os.path.join(HDF5_DIR, "epic_audio.h5")
+    with hdf5.File(epic) as f:
+        wave = f["P30_10"]
+        cut = wave._address + wave.dtype.itemsize * wave.shape[0] // 2
+    (tmp / "cut.h5").write_bytes(open(epic, "rb").read()[:cut])
+    out = {}
+    for tag, path, name, kind, words in (
+            ("flipped-ohdr", tmp / "flipped.h5", "index/fixed_paged",
+             ValueError, ("OHDR of /index/fixed_paged", "checksum mismatch")),
+            ("cut-waveform", tmp / "cut.h5", "P30_10", OSError,
+             ("truncated", "end-of-file address"))):
+        try:
+            with hdf5.File(path) as f:
+                np.asarray(f[name], np.float32)
+        except kind as e:
+            msg = str(e)
+        else:
+            msg = None
+        require(msg is not None and all(w in msg for w in words),
+                f"hdf5-controls: {tag} was not refused as expected: {msg}")
+        out[tag] = msg
+        log(f"[hdf5-controls] {tag}: refused: {msg}")
+    return out
+
+
+def phase_hdf5(card: str):
+    """Phase 28; returns the launches by path."""
+    import pathlib
+    import tempfile
+    t0 = time.perf_counter()
+    fixture = hdf5_fixture()
+    summary = {"card": card, "read": hdf5_read(fixture)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        launches, summary["audio"] = hdf5_extract(fixture, tmp)
+        summary["controls"] = hdf5_controls(tmp)
+    require(sys.modules.get("h5py") is None, "hdf5: h5py was imported")
+    import importlib.util
+    summary["h5py_installed"] = importlib.util.find_spec("h5py") is not None
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[hdf5] summary {json.dumps(summary)}; h5py not loaded; "
+        f"{summary['seconds']:.2f} s (limit {HDF5_LIMIT_S:.0f} s)")
+    require(summary["seconds"] <= HDF5_LIMIT_S,
+            f"hdf5: {summary['seconds']:.2f} s, past its limit")
+    torch.cuda.empty_cache()
+    return {"hdf5-audio": launches}
+
+
+# ---------------------------------------------------------------------------
 # Phase 21: raw media. scripts/bench_serve_frames.py's geometry: 50 fps
 # 224^2 uint8 frames, a 1.1 s clip every 0.2 s (Swin-B 32 frames, ViT-L 16,
 # one origin), spectrograms [400, 128], 30 s windows at stride 1 s.
@@ -6466,6 +6662,7 @@ def main() -> int:
     del det_splits, rec_train_ds, rec_val_ds, rec_trained
     audio_paths = phase_audio()
     files_paths = timed("files", phase_files, card)
+    hdf5_paths = timed("hdf5", phase_hdf5, card)
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
     torch.cuda.empty_cache()
@@ -6474,7 +6671,8 @@ def main() -> int:
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
-               **audio_paths, **files_paths, **media_paths, **ft_cli_paths}
+               **audio_paths, **files_paths, **hdf5_paths, **media_paths,
+               **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",

@@ -161,7 +161,7 @@ def _port_modules():
 
 def test_serve_imports_no_jax():
     """Importing every module of the port loads no module of JAX, flax,
-    optax, msgpack, orbax, tensorstore, zstandard, the JAX package
+    optax, msgpack, orbax, tensorstore, zstandard, h5py, the JAX package
     (tim_tpu) or the tests (the card's machine has none of them)."""
     modules = sorted(_port_modules())
     for module in ("ops.int8_matmul_fused", "ops.window_attention",
@@ -184,13 +184,13 @@ def test_serve_imports_no_jax():
                    "parallel.mesh", "parallel.multihost", "utils.memory",
                    "utils.profiling", "dryrun", "utils.msgpack",
                    "utils.orbax", "utils.ocdbt", "utils.zstd",
-                   "utils.pdpickle", "data.table"):
+                   "utils.pdpickle", "data.table", "utils.hdf5"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('tim_tpu', 'jax', 'jaxlib', 'flax', 'optax', 'msgpack', "
-            "'orbax', 'tensorstore', 'zstandard', 'tests')]\n"
+            "'orbax', 'tensorstore', 'zstandard', 'h5py', 'tests')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=ROOT)
@@ -206,11 +206,9 @@ def test_strip_wrapper_copy_equals_jax(sd):
     assert _strip_wrapper(sd) == jax_strip(sd)
 
 
-def test_no_module_imports_pandas_or_pyarrow():
-    """No module of the port, and not ``chip_smoke.py``, imports pandas or
-    pyarrow, at any depth (inside functions too): the port reads their
-    files with ``utils.pdpickle`` and ``data.table`` and runs where
-    neither is installed."""
+def _imports_of(packages):
+    """(files parsed, every import of ``packages`` at any depth, inside
+    functions too) in the port and ``chip_smoke.py``."""
     paths = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(dirpath, f) for dirpath, _, files in
         os.walk(os.path.join(ROOT, "tim_tpu_torch")) for f in files
@@ -225,8 +223,24 @@ def test_no_module_imports_pandas_or_pyarrow():
                      [node.module or ""] if isinstance(node, ast.ImportFrom)
                      else [])
             found += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
-                      for n in names
-                      if n.split(".")[0] in ("pandas", "pyarrow")]
+                      for n in names if n.split(".")[0] in packages]
+    return paths, found
+
+
+def test_no_module_imports_pandas_or_pyarrow():
+    """No module of the port, and not ``chip_smoke.py``, imports pandas or
+    pyarrow, at any depth (inside functions too): the port reads their
+    files with ``utils.pdpickle`` and ``data.table`` and runs where
+    neither is installed."""
+    paths, found = _imports_of(("pandas", "pyarrow"))
+    assert len(paths) > 50 and not found, found
+
+
+def test_no_module_imports_h5py():
+    """No module of the port, and not ``chip_smoke.py``, imports h5py at
+    any depth: ``--audio_hdf5`` is read by ``utils.hdf5``, and the card's
+    machine has no h5py."""
+    paths, found = _imports_of(("h5py",))
     assert len(paths) > 50 and not found, found
 
 

@@ -16,9 +16,10 @@ the CPU. On the card the visual attention cores always launch kernels 4
 plain versions run whatever the flag says. ``--backbone slowfast`` runs
 Auditory SlowFast in fp32 (cuDNN's convolutions, TF32 off; no TPU kernel
 there) over log-mel spectrograms of the records in ``--audio_hdf5``
-(``h5py``, imported only then) or ``--audio_dir`` (WAV through
-``scipy.io.wavfile``); its augmentation sets after the first are
-SpecAugment. For the visual backbones ``--num_aug > 1`` adds RandAugment
+(read by the port's own HDF5 reader, ``utils.hdf5``; no h5py) or
+``--audio_dir`` (WAV through ``scipy.io.wavfile``); its augmentation sets
+after the first are SpecAugment. For the visual backbones
+``--num_aug > 1`` adds RandAugment
 sets (``extract/autoaug.py``, PIL): ``omnivore_clip_augment`` on the BGR
 frames for Swin, ``VideoRandAugment("rand-m7-n4-mstd0.5-inc1")`` (bicubic)
 for the ViT. ``--quantize_backbone on`` builds the int8 backbone
@@ -295,9 +296,14 @@ def extract_audio(args, table, video_ids, device=None):
     sr = args.sampling_rate
 
     def load_waveform(vid) -> np.ndarray:
+        """The video's samples as float32. From ``--audio_hdf5`` they are
+        what the JAX CLI's ``np.asarray(h5py.File(...)[vid], np.float32)``
+        gives, quirks kept for parity: an integer dataset is cast
+        unscaled (the WAV route divides by the integer maximum) and a 2-D
+        dataset stays 2-D (the WAV route averages the channels)."""
         if args.audio_hdf5:
-            import h5py
-            with h5py.File(args.audio_hdf5, "r") as f:
+            from tim_tpu_torch.utils.hdf5 import File
+            with File(args.audio_hdf5) as f:
                 return np.asarray(f[vid], np.float32)
         from scipy.io import wavfile
         rate, data = wavfile.read(
