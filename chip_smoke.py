@@ -187,8 +187,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
  22. the backbone finetune CLI (``extract/finetune_cli.py::run``) at ViT-L's
      full width (depth 24, 16 x 224^2, 97 / 300 classes), bf16, batch 8, on
      24 segments of seeded uint8 256 x 456 frames with ``dict`` annotations
-     and identity RandAugment (no PIL, cv2 or pandas on the card's
-     machine): ``--mode pretrain`` (MAE, mask 0.9, 3 steps; 36 launches of
+     and identity RandAugment (the card's machine is promised no PIL): ``--mode pretrain`` (MAE, mask 0.9, 3 steps; 36 launches of
      kernels 5 and 5b a step), then ``--mode finetune --pretrained`` on its
      ``checkpoint.pt`` (every ``blocks.*`` entry loads; num_sample 2, mixup
      0.8, 3 steps: 24 and 24 a step) and its validation (24 of kernel 5 a
@@ -287,6 +286,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      flipped byte in a dataset's ``OHDR`` and the file cut inside a
      waveform refused, the structure named; d. h5py never loaded; the
      phase within 30 s.
+ 29. JPEG frames without PIL or cv2 (after 28; ``utils/jpeg.py`` over
+     ``csrc/host/jpeg.cc``, built with g++, and ``extract/image.py``): a.
+     every file of ``tests/data/torch_jpeg`` decoded without and with the
+     Exif orientation and both uint8 resizes (Pillow's BILINEAR, cv2's
+     INTER_LINEAR) of the first decode held to its ``.npz`` twin (SHA-256
+     of Pillow's and cv2's outputs) bit for bit; decode and resize
+     frames/s of the EPIC frames; b.
+     ``extract.cli.main --backbone omnivore`` and ``--backbone videomae``
+     (full-width Swin-B and ViT-L, bf16, ``--num_aug 1``, batch 4) over the
+     fixture's two EPIC frame directories (456 x 256, 4:2:0), twice each,
+     every bank bit-equal to ``extract_features_for_video`` over the
+     twin-checked decodes through the port's transforms; wall clips/s;
+     launches of paths ``jpeg-extract-omnivore`` (kernel 4, 24 a forward)
+     and ``jpeg-extract-videomae`` (kernel 5, 24 a forward); c.
+     ``jpeg_frame_reader`` + ``EK100ClipDataset(mode="validation")`` clips
+     bit-equal to the twins' route; d. a truncated frame and a flipped
+     byte inside its scan refused with the offset named; neither PIL nor
+     cv2 loaded in a-d; e. where the machine has PIL and cv2, in a
+     subprocess: their decodes and resizes of every file against the
+     port's, cv2's row tails over a grid of widths (any mismatch fails),
+     and PIL's, cv2's and the port's frames/s side by side; the phase
+     within 60 s.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -4569,6 +4590,429 @@ def phase_hdf5(card: str):
 
 
 # ---------------------------------------------------------------------------
+# Phase 29: JPEG frames and the uint8 resizes without PIL or cv2: the port's
+# decoder (utils.jpeg over csrc/host/jpeg.cc) and resizes (extract.image) on
+# tests/data/torch_jpeg, whose .npz twins (numpy alone) hold the SHA-256 of
+# Pillow's and cv2's decodes and of both resizes of each file.
+# ---------------------------------------------------------------------------
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "torch_jpeg")
+# in a whole smoke run the phase took 19.85 s; alone from a fresh checkout
+# (the host library's g++ build and kernels 4 and 5 built in it) 17.5-36.4
+# s, the hosts' CPU rates differing 2.2x between calls
+JPEG_LIMIT_S = 40.0
+JPEG_BATCH = 4
+# backbone -> (frames a clip, the kernel its attention launches)
+JPEG_BACKBONES = {"omnivore": (32, "window_attention"),
+                  "videomae": (16, "flash_mha")}
+
+
+def jpeg_fixture():
+    """``tests/data/torch_jpeg/make_fixture.py`` as a module (numpy alone
+    at import: ``read_twin``, ``digest``, the file names)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_jpeg_fixture", os.path.join(JPEG_DIR, "make_fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def seconds(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def jpeg_read(fixture):
+    """29a: every fixture file decoded without and with the Exif
+    orientation, and Pillow's and cv2's resizes of the first decode at the
+    transforms' sizes, each held to its twin's digest; the EPIC frames'
+    decode rate (one ``read_jpegs`` call) and both resizes' rate at 256 x
+    456 -> 224, one pass each over warm files. Returns ({path: (plain,
+    oriented)}, numbers)."""
+    from tim_tpu_torch.extract.image import (
+        resize_cv2_linear_u8, resize_pil_bilinear_u8)
+    from tim_tpu_torch.utils.jpeg import library, read_jpeg, read_jpegs
+    t0 = time.perf_counter()
+    library()           # g++ builds it here on a fresh checkout
+    build_s = time.perf_counter() - t0
+    decoded = {}
+    t0 = time.perf_counter()
+    for path in fixture.jpeg_files():
+        twin = fixture.read_twin(path)
+        plain = read_jpeg(path, apply_orientation=False)
+        oriented = read_jpeg(path, apply_orientation=True)
+        width, height = fixture.pil_resize_size(*plain.shape[:2])
+        s = fixture.cv2_scale(plain.shape[0])
+        got = {"pil": plain, "cv2": oriented,
+               "pil_resize": resize_pil_bilinear_u8(plain[None], width,
+                                                    height)[0],
+               "cv2_resize": resize_cv2_linear_u8(plain[None], s, s)[0]}
+        for key in fixture.TWIN_KEYS:
+            require(fixture.digest(got[key]) == twin[key],
+                    f"jpeg-read: {os.path.relpath(path, JPEG_DIR)}: {key} "
+                    f"{fixture.digest(got[key])} differs from its twin "
+                    f"{twin[key]}")
+        decoded[path] = (plain, oriented)
+    check_s = time.perf_counter() - t0
+    epic = [p for ps in fixture.frame_paths().values() for p in ps]
+    decode_s = seconds(lambda: read_jpegs(epic, apply_orientation=False))
+    frames = np.stack([decoded[p][0] for p in epic])
+    width, height = fixture.pil_resize_size(*frames.shape[1:3])
+    s = fixture.cv2_scale(frames.shape[1])
+    pil_s = seconds(lambda: resize_pil_bilinear_u8(frames, width, height))
+    cv2_s = seconds(lambda: resize_cv2_linear_u8(frames, s, s))
+    numbers = {
+        "library_s": build_s, "files": len(decoded), "check_s": check_s,
+        "epic_frames": len(epic), "epic_jpeg_bytes": sum(
+            os.path.getsize(p) for p in epic),
+        "decode_frames_per_s": len(epic) / decode_s,
+        "resize_pil_frames_per_s": len(epic) / pil_s,
+        "resize_cv2_frames_per_s": len(epic) / cv2_s}
+    log(f"[jpeg-read] the host library built and loaded in {build_s:.3f} s; "
+        f"{len(decoded)} files: both decodes and both resizes "
+        f"bit-equal to their twins ({check_s:.3f} s); EPIC 456 x 256 4:2:0 "
+        f"frames ({len(epic)}, {numbers['epic_jpeg_bytes']} bytes): "
+        f"decode {numbers['decode_frames_per_s']:.1f} frames/s; resizes to "
+        f"224: Pillow's BILINEAR "
+        f"{numbers['resize_pil_frames_per_s']:.1f} frames/s, cv2's "
+        f"INTER_LINEAR {numbers['resize_cv2_frames_per_s']:.1f} frames/s")
+    return decoded, numbers
+
+
+def jpeg_extract(fixture, decoded, tmp):
+    """29b: ``extract.cli.main --backbone omnivore|videomae`` (full width,
+    bf16, ``--num_aug 1``) over the fixture's EPIC frame directories, twice
+    each (the first run builds the backbone, which the second reuses), each
+    bank bit-equal to ``extract_features_for_video`` over the twin-checked
+    decodes through the port's transforms. The host's part of a run: the
+    transforms timed in the twins' route, and each clip's distinct frames
+    decoded again alone with ``read_jpegs``. Returns (launches by path,
+    numbers)."""
+    from tim_tpu_torch.extract import cli as ecli
+    from tim_tpu_torch.extract.pipeline import (
+        extract_features_for_video, omnivore_frame_indices,
+        omnivore_test_transform, preprocess_video_clip)
+    from tim_tpu_torch.utils.jpeg import read_jpegs
+    from tim_tpu_torch.utils.pdpickle import read_pickle
+
+    times = os.path.join(JPEG_DIR, "feature_times.pkl")
+    table = read_pickle(times)
+    built, real = {}, ecli.make_visual_apply
+
+    def reuse(args, device=None):
+        if args.backbone not in built:
+            built[args.backbone] = real(args, device)
+        return built[args.backbone]
+
+    paths, numbers = {}, {}
+    ecli.make_visual_apply = reuse
+    try:
+        for name, (num_frames, kernel) in JPEG_BACKBONES.items():
+            argv = ["--backbone", name, "--frames_dir",
+                    os.path.join(JPEG_DIR, "frames"), "--feature_times",
+                    times, "--split", "val", "--num_frames", str(num_frames),
+                    "--batch_size", str(JPEG_BATCH)]
+            walls = []
+            for run in range(2):
+                counters = zero_counts()
+                t0 = time.perf_counter()
+                ecli.main(argv + ["--out_dir", str(tmp / f"{name}{run}")],
+                          device="cuda")
+                launches = read_counts(counters)
+                walls.append(time.perf_counter() - t0)
+            apply_fn, clips, forwards = built[name], 0, 0
+            host = {"decode_s": 0.0, "transform_s": 0.0}
+            for vid, files in fixture.frame_paths().items():
+                video = np.stack([decoded[p][0] for p in files])
+                rows = table.where(table["video_id"] == vid).sort_by(
+                    "start_sec")
+                starts, stops = rows["start_frame"], rows["stop_frame"]
+
+                def clip_fn(t, a, video=video, starts=starts, stops=stops,
+                            files=files):
+                    idx = omnivore_frame_indices(
+                        int(stops[t]) - int(starts[t]), int(starts[t]),
+                        len(video), num_frames)
+                    t0 = time.perf_counter()
+                    read_jpegs([files[i - 1] for i in np.unique(idx)],
+                               apply_orientation=False)
+                    t1 = time.perf_counter()
+                    frames = video[idx - 1]
+                    if name == "omnivore":
+                        clip = omnivore_test_transform(frames[..., ::-1],
+                                                       size=224)
+                    else:
+                        clip = preprocess_video_clip(frames, size=224)
+                    host["decode_s"] += t1 - t0
+                    host["transform_s"] += time.perf_counter() - t1
+                    return clip
+
+                want = extract_features_for_video(
+                    clip_fn, len(rows), 1, apply_fn, batch_size=JPEG_BATCH)
+                require(want.shape == (len(rows), 1, 1024)
+                        and bool(np.isfinite(want).all()),
+                        f"jpeg-extract-{name}: {vid} bank {want.shape} or "
+                        f"non-finite")
+                for run in range(2):
+                    got = np.load(tmp / f"{name}{run}" / "val" / f"{vid}.npy")
+                    require(got.shape == want.shape
+                            and got.tobytes() == want.tobytes(),
+                            f"jpeg-extract-{name}: {vid}: run {run}'s bank "
+                            f"differs from the twins' route")
+                clips += len(rows)
+                forwards += -(-len(rows) // JPEG_BATCH)
+            require(launches[kernel] == 24 * forwards
+                    and attention_launches(launches) == launches[kernel],
+                    f"jpeg-extract-{name}: launches {launches}, expected 24 "
+                    f"x {forwards} of {kernel}")
+            paths[f"jpeg-extract-{name}"] = launches
+            numbers[name] = {"clips": clips, "forwards": forwards,
+                             "first_run_s": walls[0], "wall_s": walls[1],
+                             "wall_clips_per_s": clips / walls[1], **host}
+            log(f"[jpeg-extract-{name}] extract.cli.main over "
+                f"{len(fixture.VIDEOS)} EPIC frame directories, {clips} "
+                f"clips of {num_frames} frames, bf16, batch {JPEG_BATCH}: "
+                f"first run (with the backbone's build) {walls[0]:.3f} s, "
+                f"second {walls[1]:.3f} s ({clips / walls[1]:.2f} wall "
+                f"clips/s; the host's decode {host['decode_s']:.3f} s and "
+                f"transforms {host['transform_s']:.3f} s, timed in the "
+                f"twins' route); both banks bit-equal to the twins' route; "
+                f"launches of the second {launches} ({forwards} forwards, "
+                f"{launches[kernel] / forwards:.0f} of {kernel} each)")
+    finally:
+        ecli.make_visual_apply = real
+        built.clear()
+        torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def jpeg_clips(fixture, decoded):
+    """29c: ``jpeg_frame_reader`` + ``EK100ClipDataset(mode="validation")``
+    at the finetune CLI's clip size gives the clips of a reader over the
+    twin-checked (oriented) decodes, bit for bit."""
+    from tim_tpu_torch.extract.clips import EK100ClipDataset, jpeg_frame_reader
+    files = fixture.frame_paths()
+
+    def twins(video_id, indices, offset):
+        return np.stack([decoded[files[video_id][int(i) + offset]][1]
+                         for i in indices])
+
+    annotations = {"video_id": np.asarray(["P01_01", "P02_03", "P01_01"]),
+                   "start_frame": np.asarray([0, 1, 4]),
+                   "stop_frame": np.asarray([12, 10, 9]),
+                   "verb_class": np.asarray([3, 1, 2]),
+                   "noun_class": np.asarray([7, 0, 4])}
+    kw = dict(annotations=annotations, mode="validation", num_frames=16,
+              crop_size=224, rand_augment=lambda f: f)
+    port = EK100ClipDataset(frame_reader=jpeg_frame_reader(
+        os.path.join(JPEG_DIR, "frames"), "frame_{:010d}.jpg"), **kw)
+    ref = EK100ClipDataset(frame_reader=twins, **kw)
+    t0 = time.perf_counter()
+    items = [port[i] for i in range(len(annotations["video_id"]))]
+    secs = time.perf_counter() - t0
+    for i, got in enumerate(items):
+        want = ref[i]
+        require(sorted(got) == sorted(want) and all(
+            np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes()
+            for k in want), f"jpeg-clips: item {i} differs from the twins'")
+    log(f"[jpeg-clips] jpeg_frame_reader + EK100ClipDataset(validation, 16 x "
+        f"224^2): {len(items)} clips {items[0]['video'].shape} bit-equal to "
+        f"the twins' route ({secs:.3f} s)")
+    return {"clips": len(items), "seconds": secs}
+
+
+def jpeg_controls(fixture, tmp):
+    """29d: the first EPIC frame cut in half, and with the byte at
+    ``fixture.FLIP_OFFSET`` inside its scan flipped, each refused with the
+    offset named."""
+    from tim_tpu_torch.utils.jpeg import read_jpeg
+    src = fixture.frame_paths()["P01_01"][0]
+    with open(src, "rb") as f:
+        data = f.read()
+    flipped = bytearray(data)
+    flipped[fixture.FLIP_OFFSET] ^= 0xFF
+    out = {}
+    for tag, blob, words in (
+            ("truncated", data[:len(data) // 2], ("truncated", "byte offset")),
+            ("flipped", bytes(flipped), ("marker", "byte offset"))):
+        path = tmp / f"{tag}.jpg"
+        path.write_bytes(blob)
+        try:
+            read_jpeg(str(path), apply_orientation=False)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            msg = None
+        require(msg is not None and all(w in msg for w in words),
+                f"jpeg-controls: the {tag} frame was not refused as expected:"
+                f" {msg}")
+        out[tag] = msg
+        log(f"[jpeg-controls] {tag}: refused: {msg}")
+    return out
+
+
+JPEG_COMPARE = r'''
+import importlib.util, json, os, sys, time
+import numpy as np
+import cv2
+import PIL
+from PIL import Image, features
+from tim_tpu_torch.extract import image as I
+from tim_tpu_torch.utils import jpeg as J
+
+root = sys.argv[1]
+spec = importlib.util.spec_from_file_location(
+    "fx", os.path.join(root, "make_fixture.py"))
+fx = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fx)
+
+
+def diff(a, b):
+    return -1 if a.shape != b.shape else int((a != b).sum())
+
+
+out = {"cv2": cv2.__version__, "PIL": PIL.__version__,
+       "libjpeg_turbo": features.version("libjpeg_turbo"),
+       "cv2_threads": cv2.getNumThreads(), "files": {}}
+for path in fx.jpeg_files():
+    with Image.open(path) as im:
+        pil = np.asarray(im.convert("RGB"))
+    cv = cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
+    w, h = fx.pil_resize_size(*pil.shape[:2])
+    s = fx.cv2_scale(pil.shape[0])
+    out["files"][os.path.relpath(path, root)] = {
+        "pil": diff(J.read_jpeg(path, apply_orientation=False), pil),
+        "cv2": diff(J.read_jpeg(path, apply_orientation=True), cv),
+        "pil_resize": diff(I.resize_pil_bilinear_u8(pil[None], w, h)[0],
+                           np.asarray(Image.fromarray(pil).resize(
+                               (w, h), Image.BILINEAR))),
+        "cv2_resize": diff(I.resize_cv2_linear_u8(pil[None], s, s)[0],
+                           cv2.resize(pil, (0, 0), fx=s, fy=s))}
+# row tails: every output row width from 1 to 80 pixels (3 to 240 bytes)
+# and some wider, at the transform's scale, an upscale and cv2's 2x route
+rng = np.random.default_rng(0)
+tails = {"cases": 0, "mismatched_values": 0, "mismatched_cases": []}
+for w in list(range(1, 81)) + [127, 128, 129, 255, 341, 399, 455, 456, 457]:
+    for h, f in ((256, 224 / 256), (37, 1.7), (64, 0.5)):
+        if round(w * f) < 1:
+            continue
+        a = rng.integers(0, 256, (1, h, w, 3), np.uint8)
+        n = diff(I.resize_cv2_linear_u8(a, f, f)[0],
+                 cv2.resize(a[0], (0, 0), fx=f, fy=f))
+        tails["cases"] += 1
+        if n:
+            tails["mismatched_values"] += max(n, 0)
+            tails["mismatched_cases"].append([h, w, f, n])
+out["cv2_row_tails"] = tails
+
+
+def rate(fn, items):
+    t0 = time.perf_counter()
+    for x in items:
+        fn(x)
+    return len(items) / (time.perf_counter() - t0)
+
+
+epic = [p for ps in fx.frame_paths().values() for p in ps]
+out["decode_frames_per_s"] = {
+    "pil": rate(lambda p: np.asarray(Image.open(p).convert("RGB")), epic),
+    "cv2": rate(lambda p: cv2.imread(p, cv2.IMREAD_COLOR), epic),
+    "port": rate(lambda p: J.read_jpeg(p, apply_orientation=False), epic)}
+frames = [J.read_jpeg(p, apply_orientation=False) for p in epic]
+w, h = fx.pil_resize_size(*frames[0].shape[:2])
+s = fx.cv2_scale(frames[0].shape[0])
+out["resize_frames_per_s"] = {
+    "pil": rate(lambda a: Image.fromarray(a).resize((w, h), Image.BILINEAR),
+                frames),
+    "port_pil": rate(lambda a: I.resize_pil_bilinear_u8(a[None], w, h),
+                     frames),
+    "cv2": rate(lambda a: cv2.resize(a, (0, 0), fx=s, fy=s), frames),
+    "port_cv2": rate(lambda a: I.resize_cv2_linear_u8(a[None], s, s),
+                     frames)}
+print(json.dumps(out))
+'''
+
+
+def jpeg_compare():
+    """29e, where the card's machine has PIL and cv2: in a subprocess (so
+    that this process never loads them), Pillow's and cv2's decodes and
+    resizes of every fixture file against the port's, cv2's row tails over
+    a grid of widths, and the three decoders' and the resizes' frames/s
+    one frame at a time."""
+    import importlib.util
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "cv2")}
+    if not all(have.values()):
+        log(f"[jpeg-compare] skipped: the machine lacks {have}")
+        return {"skipped": have}
+    run = subprocess.run(
+        [sys.executable, "-c", JPEG_COMPARE, JPEG_DIR], capture_output=True,
+        text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    require(run.returncode == 0, f"jpeg-compare failed:\n{run.stderr[-3000:]}")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    bad = {f: m for f, m in out["files"].items() if any(m.values())}
+    tails = out["cv2_row_tails"]
+    log(f"[jpeg-compare] PIL {out['PIL']} (libjpeg-turbo "
+        f"{out['libjpeg_turbo']}), cv2 {out['cv2']} ({out['cv2_threads']} "
+        f"threads): {len(out['files'])} files, mismatches per file "
+        f"(decodes and resizes) {json.dumps(bad) if bad else 'none'}; cv2 "
+        f"row tails: {tails['cases']} resizes, {tails['mismatched_values']} "
+        f"values differ {tails['mismatched_cases'][:10]}")
+    d, r = out["decode_frames_per_s"], out["resize_frames_per_s"]
+    log(f"[jpeg-compare] EPIC frames one at a time: decode frames/s PIL "
+        f"{d['pil']:.1f}, cv2 {d['cv2']:.1f}, port {d['port']:.1f}; resize "
+        f"to 224 frames/s PIL {r['pil']:.1f} vs port {r['port_pil']:.1f}, "
+        f"cv2 {r['cv2']:.1f} vs port {r['port_cv2']:.1f}")
+    require(not bad and not tails["mismatched_values"],
+            f"jpeg-compare: the port differs from PIL or cv2: {bad}, "
+            f"{tails['mismatched_cases']}")
+    return out
+
+
+def phase_jpeg(card: str):
+    """Phase 29; returns the launches by path."""
+    import pathlib
+    import tempfile
+    t0 = time.perf_counter()
+    before = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
+    require(not before, f"jpeg: PIL or cv2 loaded before phase 29: {before}")
+    fixture = jpeg_fixture()
+    parts, mark = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal mark
+        now = time.perf_counter()
+        parts[part], mark = now - mark, now
+
+    decoded, summary = jpeg_read(fixture)
+    summary = {"card": card, "read": summary, "part_seconds": parts}
+    lap("a")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        paths, summary["extract"] = jpeg_extract(fixture, decoded, tmp)
+        lap("b")
+        summary["clips"] = jpeg_clips(fixture, decoded)
+        summary["controls"] = jpeg_controls(fixture, tmp)
+        lap("c_d")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
+    require(not loaded, f"jpeg: PIL or cv2 was imported: {loaded}")
+    summary["seconds_a_to_d"] = time.perf_counter() - t0
+    compare = jpeg_compare()
+    lap("e")
+    files = compare.pop("files", {})
+    summary["compare"] = dict(compare, files=len(files), mismatched_files={
+        f: m for f, m in files.items() if any(m.values())})
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[jpeg] summary {json.dumps(summary)}; neither PIL nor cv2 loaded "
+        f"in a-d; {summary['seconds']:.2f} s (limit {JPEG_LIMIT_S:.0f} s)")
+    require(summary["seconds"] <= JPEG_LIMIT_S,
+            f"jpeg: {summary['seconds']:.2f} s, past its limit")
+    return paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 21: raw media. scripts/bench_serve_frames.py's geometry: 50 fps
 # 224^2 uint8 frames, a 1.1 s clip every 0.2 s (Swin-B 32 frames, ViT-L 16,
 # one origin), spectrograms [400, 128], 30 s windows at stride 1 s.
@@ -5411,8 +5855,8 @@ def phase_finetune_cli(card: str):
     from tim_tpu_torch.models.backbones.vit import VideoMAEViT
     from tim_tpu_torch.runner import backbone as rb
     log("[ft-cli] train clips take identity RandAugment: the card's machine "
-        "has no PIL (VideoRandAugment); frames are seeded uint8 arrays "
-        f"{FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (no cv2 to decode JPEGs)")
+        "is promised no PIL (VideoRandAugment); frames are seeded uint8 "
+        f"arrays {FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (phase 29 reads JPEGs)")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         args = ft_args("pretrain", tmp / "pre", "--mask_ratio", "0.9")
@@ -6663,6 +7107,7 @@ def main() -> int:
     audio_paths = phase_audio()
     files_paths = timed("files", phase_files, card)
     hdf5_paths = timed("hdf5", phase_hdf5, card)
+    jpeg_paths = timed("jpeg", phase_jpeg, card)
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
     torch.cuda.empty_cache()
@@ -6671,8 +7116,8 @@ def main() -> int:
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
-               **audio_paths, **files_paths, **hdf5_paths, **media_paths,
-               **ft_cli_paths}
+               **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
+               **media_paths, **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
@@ -6699,6 +7144,8 @@ def main() -> int:
             ("media-int8", ("window_attention", "flash_mha",
                             "int8_matmul_fused")),
             ("extract-omnivore-int8", ("window_attention",)),
+            ("jpeg-extract-omnivore", ("window_attention",)),
+            ("jpeg-extract-videomae", ("flash_mha",)),
             ("extract-videomae-int8", ("flash_mha",)),
             ("ft-cli-pretrain", ("flash_mha", "flash_mha_bwd")),
             ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd")),

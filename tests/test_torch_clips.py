@@ -9,11 +9,15 @@ against the JAX package's on the CPU, under the same generators:
 - ``EK100ClipDataset`` train, validation and test items equal JAX's on a
   synthetic reader (identity and default RandAugment, erasing on and off,
   DataFrame and ``dict`` annotations), pixels within 1e-5;
-- ``jpeg_frame_reader`` equals JAX's on JPEGs written by cv2, and says
-  so when cv2 is missing.
+- ``jpeg_frame_reader`` equals JAX's (``cv2.imread``) on JPEGs written by
+  cv2, an Exif-rotated frame among them, with cv2 and PIL blocked in the
+  port; a validation ``EK100ClipDataset`` over the EPIC-sized frames of
+  ``tests/data/torch_jpeg`` gives JAX's clips with both blocked.
 """
 
+import os
 import random
+import struct
 import sys
 
 import numpy as np
@@ -158,23 +162,69 @@ def test_validation_and_test_items_equal_jax(mode):
                  range(3 if mode == "validation" else 18))
 
 
-def test_jpeg_frame_reader_equals_jax(tmp_path):
+def _block_pil_and_cv2(monkeypatch):
+    """From here on ``import cv2`` and ``import PIL`` raise (the JAX side
+    has run by then)."""
+    for name in ("cv2", "PIL", "PIL.Image"):
+        monkeypatch.setitem(sys.modules, name, None)
+
+
+def _exif6():
+    """Pillow's ``exif=`` bytes: Orientation 6 (rotate 90 degrees
+    clockwise), big endian."""
+    ifd = (struct.pack(">H", 1) + struct.pack(">HHIHH", 0x0112, 3, 1, 6, 0)
+           + struct.pack(">I", 0))
+    return b"Exif\x00\x00MM" + struct.pack(">HI", 42, 8) + ifd
+
+
+def test_jpeg_frame_reader_equals_jax(tmp_path, monkeypatch):
+    from PIL import Image
     rng = np.random.default_rng(0)
     d = tmp_path / "v1"
     d.mkdir()
     for i in range(1, 13):
-        cv2.imwrite(str(d / f"img_{i:05d}.jpg"),
-                    rng.integers(0, 255, (20, 28, 3), np.uint8))
+        frame = rng.integers(0, 255, (20, 28, 3), np.uint8)
+        if i == 6:
+            # stored 28 x 20 with Orientation 6: imread turns it to 20 x 28
+            Image.fromarray(np.ascontiguousarray(
+                frame.transpose(1, 0, 2)[::-1])).save(
+                    d / f"img_{i:05d}.jpg", exif=_exif6())
+        else:
+            cv2.imwrite(str(d / f"img_{i:05d}.jpg"), frame)
     idx = np.asarray([0, 3, 7])
-    got = P.jpeg_frame_reader(str(tmp_path))("v1", idx, 2)
     want = J.jpeg_frame_reader(str(tmp_path))("v1", idx, 2)
+    _block_pil_and_cv2(monkeypatch)
+    got = P.jpeg_frame_reader(str(tmp_path))("v1", idx, 2)
     np.testing.assert_array_equal(got, want)
     assert got.shape == (3, 20, 28, 3) and got.dtype == np.uint8
     with pytest.raises(FileNotFoundError):
         P.jpeg_frame_reader(str(tmp_path))("v1", np.asarray([20]), 0)
 
 
-def test_jpeg_frame_reader_names_cv2_when_missing(monkeypatch):
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="cv2"):
-        P.jpeg_frame_reader("frames")
+def test_jpeg_frame_reader_runs_without_cv2_or_pil(monkeypatch):
+    """Validation clips of the EPIC-sized fixture frames through the port's
+    reader with cv2 and PIL blocked equal JAX's through ``cv2.imread``."""
+    frames = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data", "torch_jpeg", "frames")
+    annotations = {"video_id": np.asarray(["P01_01", "P02_03", "P01_01"]),
+                   "start_frame": np.asarray([0, 2, 5]),
+                   "stop_frame": np.asarray([11, 9, 6]),
+                   "verb_class": np.asarray([3, 1, 2]),
+                   "noun_class": np.asarray([7, 0, 4])}
+    kw = dict(annotations=annotations, mode="validation", num_frames=4,
+              crop_size=24, short_side_size=32, rand_augment=lambda f: f)
+    tmpl = "frame_{:010d}.jpg"
+    jax = J.EK100ClipDataset(
+        frame_reader=J.jpeg_frame_reader(frames, tmpl), **kw)
+    want = [jax[i] for i in range(3)]
+    _block_pil_and_cv2(monkeypatch)
+    port = P.EK100ClipDataset(
+        frame_reader=P.jpeg_frame_reader(frames, tmpl), **kw)
+    for i in range(3):
+        got = port[i]
+        assert sorted(got) == sorted(want[i])
+        for k in want[i]:
+            if k == "video":
+                _close(got[k], want[i][k])
+            else:
+                np.testing.assert_array_equal(got[k], want[i][k])

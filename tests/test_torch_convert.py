@@ -184,7 +184,8 @@ def test_serve_imports_no_jax():
                    "parallel.mesh", "parallel.multihost", "utils.memory",
                    "utils.profiling", "dryrun", "utils.msgpack",
                    "utils.orbax", "utils.ocdbt", "utils.zstd",
-                   "utils.pdpickle", "data.table", "utils.hdf5"):
+                   "utils.pdpickle", "data.table", "utils.hdf5",
+                   "utils.jpeg", "extract.image"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -242,6 +243,86 @@ def test_no_module_imports_h5py():
     machine has no h5py."""
     paths, found = _imports_of(("h5py",))
     assert len(paths) > 50 and not found, found
+
+
+def test_pil_only_under_rand_augment_and_cv2_nowhere():
+    """The port decodes and resizes frames itself: no module, and not
+    ``chip_smoke.py``, imports cv2, and PIL is imported only by the
+    RandAugment sets (``extract/{autoaug,augment}.py``) and the two
+    functions that check for them before building them."""
+    paths, found = _imports_of(("cv2",))
+    assert len(paths) > 50 and not found, found
+    _, found = _imports_of(("PIL",))
+    allowed = {"tim_tpu_torch/extract/autoaug.py": None,
+               "tim_tpu_torch/extract/augment.py": None,
+               "tim_tpu_torch/extract/cli.py": "rand_augment",
+               "tim_tpu_torch/extract/finetune_cli.py": "datasets"}
+    assert found
+    for entry in found:
+        path, line = entry.split(" ")[0].rsplit(":", 1)
+        assert path in allowed, entry
+        if allowed[path] is None:
+            continue
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        owners = [node.name for node in ast.walk(tree)
+                  if isinstance(node, ast.FunctionDef)
+                  and node.lineno <= int(line) <= node.end_lineno]
+        assert owners == [allowed[path]], entry
+
+
+JPEG_ROUTES = r"""
+import sys
+import numpy as np
+import torch
+from tim_tpu_torch.extract import cli, clips, image
+from tim_tpu_torch.models.backbones import swin3d, vit
+from tim_tpu_torch.utils import jpeg
+
+fixture, out = sys.argv[1], sys.argv[2]
+swin3d.omnivore_swinB_epic = lambda dtype="float32", device=None, \
+    generator=None: swin3d.SwinTransformer3D(
+        patch_size=(2, 4, 4), embed_dim=16, depths=(2, 2), num_heads=(2, 4),
+        window_size=(8, 3, 3), dtype=dtype, device=device,
+        generator=generator)
+vit.videomae_vit_large = lambda dtype="float32", device=None, \
+    generator=None: vit.VideoMAEViT(
+        img_size=32, patch_size=8, embed_dim=32, depth=2, num_heads=4,
+        num_frames=4, tubelet_size=2, dtype=dtype, device=device,
+        generator=generator)
+for backbone, frames in (("omnivore", 8), ("videomae", 4)):
+    cli.main(["--backbone", backbone, "--frames_dir", fixture + "/frames",
+              "--feature_times", fixture + "/feature_times.pkl",
+              "--out_dir", out + "/" + backbone, "--split", "val",
+              "--num_frames", str(frames), "--crop_size", "32",
+              "--batch_size", "4", "--compute_dtype", "float32"],
+             device="cpu")
+reader = clips.jpeg_frame_reader(fixture + "/frames", "frame_{:010d}.jpg")
+ds = clips.EK100ClipDataset(
+    {"video_id": np.asarray(["P01_01"]), "start_frame": np.asarray([0]),
+     "stop_frame": np.asarray([11]), "verb_class": np.asarray([1]),
+     "noun_class": np.asarray([2])}, reader, mode="validation",
+    num_frames=4, crop_size=24, short_side_size=32, rand_augment=lambda f: f)
+assert ds[0]["video"].shape == (4, 24, 24, 3)
+image.resize_cv2_linear_u8(np.zeros((1, 8, 8, 3), np.uint8), 0.5, 0.5)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
+assert not loaded, loaded
+"""
+
+
+def test_jpeg_routes_load_neither_pil_nor_cv2(tmp_path):
+    """``extract.cli.main --backbone omnivore|videomae --num_aug 1`` over
+    the JPEG fixture's EPIC frames (small backbones), ``jpeg_frame_reader``
+    with a validation ``EK100ClipDataset``, and the resizes: no module of
+    PIL or cv2 loaded in the process."""
+    subprocess.run(
+        [sys.executable, "-c", JPEG_ROUTES,
+         os.path.join(ROOT, "tests", "data", "torch_jpeg"), str(tmp_path)],
+        check=True, timeout=300, cwd=ROOT)
+    for backbone in ("omnivore", "videomae"):
+        for vid in ("P01_01", "P02_03"):
+            bank = np.load(tmp_path / backbone / "val" / f"{vid}.npy")
+            assert bank.shape[1] == 1 and np.isfinite(bank).all()
 
 
 @pytest.mark.parametrize("fps", [50.0, {"a": 30.0, "b": 25.0, "c": 60.0,

@@ -1,6 +1,7 @@
 """The port's visual extraction against the JAX package on the CPU: the
 two CLIs on a tiny synthetic frames dir with the same weights give equal
-banks (fp32), also with int8 backbones and a RandAugment set
+banks (fp32; the port's run with PIL and cv2 blocked: its own JPEG decoder
+and uint8 resizes), also with int8 backbones and a RandAugment set
 (``--quantize_backbone on --num_aug 2``); the port's copies of the
 pipeline helpers and transforms equal the originals; what the port
 refuses raises."""
@@ -87,6 +88,9 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, backbone, num_frames):
               "--batch_size", "3", "--num_frames", str(num_frames),
               "--crop_size", "32", "--compute_dtype", "float32"]
     jcli.main(common + ["--out_dir", str(tmp_path / "jax")])
+    # the port decodes and resizes the frames without PIL or cv2
+    for name in ("PIL", "PIL.Image", "cv2"):
+        monkeypatch.setitem(sys.modules, name, None)
     pcli.main(common + ["--out_dir", str(tmp_path / "port"),
                         "--checkpoint", str(tmp_path / "ckpt.pt")],
               device="cpu")
@@ -259,3 +263,18 @@ def test_transforms_equal_jax(shape):
                                               spatial_idx=spatial_idx))
     np.testing.assert_array_equal(ppipe.OMNIVORE_MEAN, jpipe.OMNIVORE_MEAN)
     np.testing.assert_array_equal(ppipe.OMNIVORE_STD, jpipe.OMNIVORE_STD)
+
+
+@pytest.mark.parametrize("backbone", ["omnivore", "videomae"])
+def test_transforms_equal_jax_on_epic_frames(backbone):
+    """EPIC's 256 x 456 frames through the 224 transforms, bit for bit."""
+    frames = np.random.default_rng(7).integers(0, 255, (2, 256, 456, 3),
+                                               dtype=np.uint8)
+    if backbone == "omnivore":
+        got = ppipe.omnivore_test_transform(frames[..., ::-1], size=224)
+        want = jpipe.omnivore_test_transform(frames[..., ::-1], size=224)
+    else:
+        got = ppipe.preprocess_video_clip(frames, size=224)
+        want = jpipe.preprocess_video_clip(frames, size=224)
+    assert got.shape == (2, 224, 224, 3)
+    np.testing.assert_array_equal(got, want)

@@ -18,20 +18,24 @@ Auditory SlowFast in fp32 (cuDNN's convolutions, TF32 off; no TPU kernel
 there) over log-mel spectrograms of the records in ``--audio_hdf5``
 (read by the port's own HDF5 reader, ``utils.hdf5``; no h5py) or
 ``--audio_dir`` (WAV through ``scipy.io.wavfile``); its augmentation sets
-after the first are SpecAugment. For the visual backbones
-``--num_aug > 1`` adds RandAugment
-sets (``extract/autoaug.py``, PIL): ``omnivore_clip_augment`` on the BGR
-frames for Swin, ``VideoRandAugment("rand-m7-n4-mstd0.5-inc1")`` (bicubic)
-for the ViT. ``--quantize_backbone on`` builds the int8 backbone
-(``quantized=True``) from the fp32 weights, random or ``--checkpoint``
+after the first are SpecAugment. The visual backbones read their JPEG
+frames with the port's own decoder (``utils.jpeg.read_jpegs``, one call a
+clip, Pillow's pixels: the Exif orientation is not applied) and resize
+them with its copies of Pillow's and cv2's uint8 resizes
+(``extract.image``): ``--num_aug 1`` loads neither PIL nor cv2.
+``--num_aug > 1`` adds RandAugment sets (``extract/autoaug.py``, which
+needs PIL): ``omnivore_clip_augment`` on the BGR frames for Swin,
+``VideoRandAugment("rand-m7-n4-mstd0.5-inc1")`` (bicubic) for the ViT.
+``--quantize_backbone on`` builds the int8 backbone (``quantized=True``)
+from the fp32 weights, random or ``--checkpoint``
 (``ops.quant.quantize_backbone_state_dict``), with dynamic per-row
 activation scales; ``auto`` means off away from a TPU, as in the JAX CLI.
 SlowFast has no int8 layout: ``--backbone slowfast --quantize_backbone on``
 raises ``ValueError`` (the JAX CLI ignores the flag there and runs fp32).
 Without ``--checkpoint`` the weights are random, from a generator seeded
 0. ``main`` reads the feature-time table with the port's own DataFrame
-pickle reader (``utils.pdpickle``, no pandas); PIL is imported by the
-visual transforms and RandAugment.
+pickle reader (``utils.pdpickle``, no pandas); PIL is imported by
+RandAugment only.
 """
 
 from __future__ import annotations
@@ -217,11 +221,10 @@ def rand_augment(args):
 
 def extract_visual(args, table, video_ids, device=None):
     ra = rand_augment(args) if args.num_aug > 1 else None
-    from PIL import Image
-
     from tim_tpu_torch.extract.pipeline import (
         extract_features_for_video, omnivore_frame_indices,
         omnivore_test_transform, preprocess_video_clip, save_feature_bank)
+    from tim_tpu_torch.utils.jpeg import read_jpegs
 
     apply_fn = make_visual_apply(args, device)
     for vid in video_ids:
@@ -239,9 +242,11 @@ def extract_visual(args, table, video_ids, device=None):
             idx = omnivore_frame_indices(
                 int(stop_frames[t]) - int(start_frames[t]),
                 int(start_frames[t]), len(frame_files), args.num_frames)
-            frames = np.stack([
-                np.asarray(Image.open(frame_files[i - 1]).convert("RGB"))
-                for i in idx])
+            # each distinct frame decoded once, with Pillow's pixels (no
+            # Exif orientation), as the JAX CLI's Image.open(...).convert
+            uniq, inverse = np.unique(idx, return_inverse=True)
+            frames = read_jpegs([frame_files[i - 1] for i in uniq],
+                                apply_orientation=False)[inverse]
             if args.backbone == "omnivore":
                 # the reference loads frames with cv2 (BGR) and runs both
                 # RandAugment and the pixel block on that order, flipping

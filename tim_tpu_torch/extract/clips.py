@@ -22,7 +22,10 @@ value at 256 x 456 -> 224 x 224, where this function is within 1e-6.)
 Every random draw (``random_resized_crop``'s tries and fallback, the flip,
 the erasing seed) is taken from the generator in JAX's order, so the same
 generator gives the same clips. ``jpeg_frame_reader`` reads JPEGs with
-``cv2``, imported when called.
+the port's own decoder (``utils.jpeg.read_jpegs``), pixels bit-equal to
+the JAX package's ``cv2.imread`` + ``cvtColor(BGR2RGB)``, the Exif
+orientation applied as ``imread`` applies it; neither cv2 nor PIL is
+imported.
 
 ``annotations`` is anything that gives arrays by column name: the port's
 ``data.table.Table`` (``read_csv`` of the reference's CSVs), a ``dict``
@@ -182,27 +185,17 @@ def jpeg_frame_reader(data_path: str,
                       filename_tmpl: str = "img_{:05d}.jpg") -> Callable:
     """Reader for the reference's frame-dir layout: 1-based JPEG names
     offset by the segment's start frame (``ek100.py:282-286,320-326``).
-    Needs ``cv2``."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "jpeg_frame_reader decodes JPEG frames with cv2 (opencv), which "
-            "is not installed; pass EK100ClipDataset another frame_reader"
-        ) from e
+    A clip's frames are decoded in one call into uint8 [T, H, W, 3] RGB,
+    oriented as ``cv2.imread`` orients them; a missing frame raises
+    ``FileNotFoundError``."""
+    from tim_tpu_torch.utils.jpeg import read_jpegs
 
     def read(video_id: str, indices: np.ndarray,
              frame_offset: int) -> np.ndarray:
-        frames = []
-        for idx in indices:
-            path = os.path.join(
-                data_path, video_id,
-                filename_tmpl.format(int(idx) + 1 + frame_offset))
-            img = cv2.imread(path, cv2.IMREAD_COLOR)
-            if img is None:
-                raise FileNotFoundError(path)
-            frames.append(cv2.cvtColor(img, cv2.COLOR_BGR2RGB))
-        return np.stack(frames)
+        return read_jpegs(
+            [os.path.join(data_path, video_id,
+                          filename_tmpl.format(int(idx) + 1 + frame_offset))
+             for idx in indices], apply_orientation=True)
 
     return read
 

@@ -15,9 +15,10 @@ pretraining launcher its tree references but omits):
 The parser has the JAX CLI's flags and defaults. ``main`` reads the
 annotation CSVs (video_id, start_frame, stop_frame, verb_class,
 noun_class) with the port's own reader (``data.table.read_csv``, no
-pandas) and the frames with ``cv2`` (``extract.clips.jpeg_frame_reader``,
-imported there only), builds the clip datasets (``datasets``) and hands them to ``run``, which trains on
-the CUDA card (``device="cuda"``, the default; raises without one) or,
+pandas) and the frames with the port's own JPEG decoder
+(``extract.clips.jpeg_frame_reader``: cv2.imread's pixels and orientation,
+no cv2), builds the clip datasets (``datasets``) and hands them to
+``run``, which trains on the CUDA card (``device="cuda"``, the default; raises without one) or,
 when asked, on the CPU:
 
 - ``--mode pretrain``: ``BackbonePretrainRunner`` over
@@ -241,7 +242,8 @@ def run(args, train_ds, val_ds=None, *, device=None,
 
 
 def main(argv=None, *, device=None):
-    """Parse, read the CSVs (``read_csv``) and frames (cv2), run."""
+    """Parse, read the CSVs (``read_csv``) and the JPEG frames
+    (``jpeg_frame_reader``), run."""
     from tim_tpu_torch.data.table import read_csv
     from tim_tpu_torch.extract.clips import jpeg_frame_reader
     from tim_tpu_torch.models.tim import resolve_device

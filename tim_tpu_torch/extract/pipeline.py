@@ -4,7 +4,9 @@ The port's copy of ``tim_tpu/extract/pipeline.py``: clips for every
 feature interval stream through a backbone in fixed-size batches, land in
 a ``[T, num_aug, D]`` array per video, and save straight into the layout
 ``FeatureStore.from_npy_dir`` reads. Batches go to the apply function's
-device as torch tensors. PIL and cv2 load inside the two transforms only.
+device as torch tensors. The two transforms resize uint8 frames with the
+port's own copies of Pillow's BILINEAR and cv2's INTER_LINEAR
+(``extract.image``, bit for bit); neither PIL nor cv2 is imported.
 """
 
 from __future__ import annotations
@@ -114,20 +116,18 @@ def preprocess_video_clip(
     """uint8 RGB frames [T, H, W, 3] -> normalized float clip
     [T, size, size, 3]: short-side resize + center crop + ImageNet
     normalize (the VideoMAE extractor's eval transform,
-    ``VideoMAE/feature_extraction.py:88-96``)."""
-    from PIL import Image
+    ``VideoMAE/feature_extraction.py:88-96``). The resize is Pillow's
+    ``BILINEAR`` on uint8 (``extract.image.resize_pil_bilinear_u8``)."""
+    from tim_tpu_torch.extract.image import resize_pil_bilinear_u8
 
     t, h, w, _ = frames.shape
     scale = size / min(h, w)
     nh, nw = int(round(h * scale)), int(round(w * scale))
-    out = np.empty((t, size, size, 3), np.float32)
     top = (nh - size) // 2
     left = (nw - size) // 2
-    for i in range(t):
-        img = Image.fromarray(frames[i]).resize((nw, nh), Image.BILINEAR)
-        arr = np.asarray(img, np.float32)[top:top + size,
-                                          left:left + size] / 255.0
-        out[i] = arr
+    resized = resize_pil_bilinear_u8(frames, nw, nh)
+    out = resized[:, top:top + size, left:left + size].astype(
+        np.float32) / 255.0
     return (out - OMNIVORE_MEAN) / OMNIVORE_STD
 
 
@@ -140,7 +140,8 @@ def omnivore_test_transform(
 ) -> np.ndarray:
     """Exact port of the omnivore test-mode pixel block
     (``epickitchens.py:126-155``, identical in perception.py / ave.py):
-    HEIGHT-based cv2 scaling (``scale = crop/frames.shape[1]``), channel
+    HEIGHT-based cv2 scaling (``scale = crop/frames.shape[1]``, cv2's
+    uint8 ``INTER_LINEAR``: ``extract.image.resize_cv2_linear_u8``), channel
     flip (the reference's cv2 frame loader yields BGR — pass frames in
     BGR with ``input_bgr=True`` to match it bit-for-bit), /255, ImageNet
     normalize, then ``uniform_crop`` with CEIL offsets
@@ -152,12 +153,11 @@ def omnivore_test_transform(
     uint8 [T, H, W, 3] -> float32 [T, size, size, 3] (channels-last; the
     reference permutes to C T H W for torch, our backbones take
     channels-last)."""
-    import cv2
+    from tim_tpu_torch.extract.image import resize_cv2_linear_u8
 
     assert spatial_idx in (0, 1, 2)
     scale = size / frames.shape[1]
-    resized = np.stack([
-        cv2.resize(f, (0, 0), fx=scale, fy=scale) for f in frames])
+    resized = resize_cv2_linear_u8(frames, scale, scale)
     if input_bgr:
         resized = resized[..., ::-1]
     out = resized.astype(np.float32) / 255.0
