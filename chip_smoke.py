@@ -187,7 +187,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
  22. the backbone finetune CLI (``extract/finetune_cli.py::run``) at ViT-L's
      full width (depth 24, 16 x 224^2, 97 / 300 classes), bf16, batch 8, on
      24 segments of seeded uint8 256 x 456 frames with ``dict`` annotations
-     and identity RandAugment (the card's machine is promised no PIL): ``--mode pretrain`` (MAE, mask 0.9, 3 steps; 36 launches of
+     (the finetune clips through the recipe's ``VideoRandAugment`` with PIL
+     blocked, ``random`` and ``np.random`` seeded before each run):
+     ``--mode pretrain`` (MAE, mask 0.9, 3 steps; 36 launches of
      kernels 5 and 5b a step), then ``--mode finetune --pretrained`` on its
      ``checkpoint.pt`` (every ``blocks.*`` entry loads; num_sample 2, mixup
      0.8, 3 steps: 24 and 24 a step) and its validation (24 of kernel 5 a
@@ -307,7 +309,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      subprocess: their decodes and resizes of every file against the
      port's, cv2's row tails over a grid of widths (any mismatch fails),
      and PIL's, cv2's and the port's frames/s side by side; the phase
-     within 60 s.
+     within 40 s.
+ 30. RandAugment without PIL (after 29, on its decodes, host library and
+     backbones; ``extract/imageops.py``, its affine resample and SMOOTH
+     filter in ``csrc/host/imageops.cc``): a. every case of
+     ``tests/data/torch_autoaug`` (each op name at magnitudes 0, 5, 10 and
+     a draw of 7 with std 0.5, the geometric ops at NEAREST, BILINEAR and
+     BICUBIC with two fills, on three EPIC frames and two odd ones; the
+     clip front doors ``omnivore_clip_augment`` of 32 frames and
+     ``VideoRandAugment`` of 16) held to the SHA-256 of Pillow's result;
+     each C++ loop held to its numpy twin; frames/s of the point, enhance
+     and bicubic affine ops; b. ``extract.cli.main --num_aug 2`` for Swin-B
+     and ViT-L (full width, bf16, batch 4) over the EPIC frame
+     directories: set 0 bit-equal to phase 29's banks, set 1 to
+     ``extract_features_for_video`` over the decodes augmented by the numpy
+     twins under the same seeds; wall clips/s; launches of paths
+     ``autoaug-extract-omnivore`` (kernel 4, 24 a forward) and
+     ``autoaug-extract-videomae`` (kernel 5, 24 a forward); c. an
+     ``EK100ClipDataset(mode="train")`` item through ``jpeg_frame_reader``
+     and the default ``VideoRandAugment`` bit-equal to the numpy twins'
+     route; d. a fixture output and a bank with one byte changed refused;
+     PIL and cv2 blocked in a-d; e. where the machine has PIL, in a
+     subprocess: Pillow's ops against the port's over the fixture's grid
+     and a seeded random grid (any mismatch fails), Pillow's and the
+     port's frames/s side by side; the phase within 40 s.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -4689,7 +4714,9 @@ def jpeg_extract(fixture, decoded, tmp):
     decodes through the port's transforms. The host's part of a run: the
     transforms timed in the twins' route, and each clip's distinct frames
     decoded again alone with ``read_jpegs``. Returns (launches by path,
-    numbers)."""
+    numbers, and for phase 30: the built backbones by name, which stay
+    built, the twins' banks by (name, video) and their clips by (name,
+    video, row))."""
     from tim_tpu_torch.extract import cli as ecli
     from tim_tpu_torch.extract.pipeline import (
         extract_features_for_video, omnivore_frame_indices,
@@ -4706,7 +4733,7 @@ def jpeg_extract(fixture, decoded, tmp):
             built[args.backbone] = real(args, device)
         return built[args.backbone]
 
-    paths, numbers = {}, {}
+    paths, numbers, banks, clean = {}, {}, {}, {}
     ecli.make_visual_apply = reuse
     try:
         for name, (num_frames, kernel) in JPEG_BACKBONES.items():
@@ -4747,10 +4774,12 @@ def jpeg_extract(fixture, decoded, tmp):
                         clip = preprocess_video_clip(frames, size=224)
                     host["decode_s"] += t1 - t0
                     host["transform_s"] += time.perf_counter() - t1
+                    clean[(name, vid, t)] = clip
                     return clip
 
                 want = extract_features_for_video(
                     clip_fn, len(rows), 1, apply_fn, batch_size=JPEG_BATCH)
+                banks[(name, vid)] = want
                 require(want.shape == (len(rows), 1, 1024)
                         and bool(np.isfinite(want).all()),
                         f"jpeg-extract-{name}: {vid} bank {want.shape} or "
@@ -4783,9 +4812,7 @@ def jpeg_extract(fixture, decoded, tmp):
                 f"{launches[kernel] / forwards:.0f} of {kernel} each)")
     finally:
         ecli.make_visual_apply = real
-        built.clear()
-        torch.cuda.empty_cache()
-    return paths, numbers
+    return paths, numbers, built, banks, clean
 
 
 def jpeg_clips(fixture, decoded):
@@ -4972,7 +4999,9 @@ def jpeg_compare():
 
 
 def phase_jpeg(card: str):
-    """Phase 29; returns the launches by path."""
+    """Phase 29; returns the launches by path and what phase 30 reuses:
+    the fixture module, the decodes, the built backbones, the twins' banks
+    and clips."""
     import pathlib
     import tempfile
     t0 = time.perf_counter()
@@ -4991,7 +5020,8 @@ def phase_jpeg(card: str):
     lap("a")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        paths, summary["extract"] = jpeg_extract(fixture, decoded, tmp)
+        paths, summary["extract"], built, banks, clean = jpeg_extract(
+            fixture, decoded, tmp)
         lap("b")
         summary["clips"] = jpeg_clips(fixture, decoded)
         summary["controls"] = jpeg_controls(fixture, tmp)
@@ -5009,6 +5039,610 @@ def phase_jpeg(card: str):
         f"in a-d; {summary['seconds']:.2f} s (limit {JPEG_LIMIT_S:.0f} s)")
     require(summary["seconds"] <= JPEG_LIMIT_S,
             f"jpeg: {summary['seconds']:.2f} s, past its limit")
+    return paths, {"fixture": fixture, "decoded": decoded, "built": built,
+                   "banks": banks, "clean": clean}
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: RandAugment without PIL: Pillow's ops of the port's own
+# (extract/imageops.py; the affine resample and the SMOOTH filter as C++
+# loops in csrc/host/imageops.cc, in phase 29's host library) under the
+# augmentation sets of visual extraction and the finetune clips, on
+# tests/data/torch_autoaug, whose digests.json (numpy alone reads it) holds
+# the SHA-256 of Pillow's results.
+# ---------------------------------------------------------------------------
+AUTOAUG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "torch_autoaug")
+AUTOAUG_LIMIT_S = 40.0
+AUTOAUG_SEED = SEED + 30
+AUTOAUG_FILL = [124, 116, 104]           # the ImageNet mean's fill
+# (class, imageops function, arguments after the frames): the ops whose
+# frames/s 30a prints, each over phase 29's EPIC frames in one call (30e
+# beside Pillow's)
+AUTOAUG_RATE_OPS = (
+    ("point", "autocontrast", []), ("point", "equalize", []),
+    ("point", "invert", []), ("point", "posterize", [2]),
+    ("point", "solarize", [128]), ("point", "solarize_add", [55]),
+    ("enhance", "color", [1.45]), ("enhance", "contrast", [0.55]),
+    ("enhance", "brightness", [1.45]), ("enhance", "sharpness", [0.55]),
+    ("affine_bicubic", "rotate", [15.0, 3, AUTOAUG_FILL]),
+    ("affine_bicubic", "affine", [[1, 0.3, 0, 0, 1, 0], 3, AUTOAUG_FILL]),
+    ("affine_bicubic", "affine", [[1, 0, 102.6, 0, 1, 0], 3, AUTOAUG_FILL]),
+)
+
+
+def autoaug_fixture():
+    """``tests/data/torch_autoaug/make_fixture.py`` as a module (numpy
+    alone: the cases, ``run_case``, ``digest``, ``read_digests``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_autoaug_fixture", os.path.join(AUTOAUG_DIR, "make_fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def same(got, want) -> bool:
+    """The phase's comparison: the same shape, dtype and bytes."""
+    got, want = np.asarray(got), np.asarray(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and got.tobytes() == want.tobytes())
+
+
+class PlainTwins:
+    """``imageops.affine`` and ``imageops.smooth`` swapped for their numpy
+    twins while inside, each frame of a clip computed once for a given
+    frame and arguments (both are pure functions of them; a clip repeats
+    its frames)."""
+
+    def __enter__(self):
+        import hashlib
+        from tim_tpu_torch.extract import imageops
+        self.module = imageops
+        self.saved = (imageops.affine, imageops.smooth)
+        cache = {}
+
+        def per_frame(plain):
+            def run(img, *args):
+                clip = imageops.as_frames(img)
+                frames = clip[None] if clip.ndim == 3 else clip
+                out = []
+                for f in frames:
+                    f = np.ascontiguousarray(f)
+                    key = (plain.__name__, f.shape,
+                           hashlib.sha1(f.tobytes()).hexdigest(), repr(args))
+                    if key not in cache:
+                        cache[key] = plain(f, *args)
+                    out.append(cache[key])
+                return out[0] if clip.ndim == 3 else np.stack(out)
+            return run
+
+        imageops.affine = per_frame(imageops.affine_plain)
+        imageops.smooth = per_frame(imageops.smooth_plain)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.affine, self.module.smooth = self.saved
+
+
+def block_modules(names):
+    """``import`` of each of ``names`` raises until ``unblock_modules``;
+    returns what ``sys.modules`` held for them."""
+    saved = {name: sys.modules.get(name) for name in names}
+    for name in names:
+        sys.modules[name] = None
+    return saved
+
+
+def unblock_modules(saved):
+    for name, module in saved.items():
+        if module is None:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = module
+
+
+def autoaug_rates(clip):
+    """Frames/s of each op of ``AUTOAUG_RATE_OPS`` over ``clip`` in one
+    call, and of each class (its frames over its ops' summed seconds)."""
+    from tim_tpu_torch.extract import imageops
+    ops, classes = {}, {}
+    for cls, name, args in AUTOAUG_RATE_OPS:
+        fn = getattr(imageops, name)
+        secs = seconds(lambda: fn(clip, *args))
+        ops[f"{name}{args}"] = len(clip) / secs
+        n, s = classes.get(cls, (0, 0.0))
+        classes[cls] = (n + len(clip), s + secs)
+    return ops, {cls: n / s for cls, (n, s) in classes.items()}
+
+
+def autoaug_ops(fx, jpeg_fixture, decoded):
+    """30a: every case of the fixture (each op at each magnitude, resample
+    and fill on three EPIC frames and two odd ones; the two clip front
+    doors) held to its digest; each C++ loop held to its numpy twin on an
+    EPIC frame; frames/s of each op class over the 22 EPIC frames."""
+    from tim_tpu_torch.extract import autoaug
+    from tim_tpu_torch.extract import imageops as O
+    want = fx.read_digests()
+    frames = fx.frames(lambda p: decoded[p][0])
+    t0 = time.perf_counter()
+    bad = [c["key"] for c in fx.cases()
+           if fx.digest(fx.run_case(autoaug, frames[c["frame"]], c))
+           != want["digests"][c["key"]]]
+    single_s = time.perf_counter() - t0
+    epic = [decoded[p][0] for ps in jpeg_fixture.frame_paths().values()
+            for p in ps]
+    t0 = time.perf_counter()
+    for key, door, seed in fx.clip_cases():
+        out = fx.run_clip(autoaug, epic, door, seed)
+        if (out.shape != want["shapes"][key]
+                or fx.digest(out) != want["digests"][key]):
+            bad.append(key)
+    clips_s = time.perf_counter() - t0
+    require(not bad, f"autoaug-ops: {len(bad)} cases differ from Pillow's "
+            f"digests: {bad[:10]}")
+    # the C++ loops against their numpy twins, on each route
+    frame = frames["epic0"]
+    h, w = frame.shape[:2]
+    matrices = {"shear_x": (1, 0.3, 0, 0, 1, 0),
+                "shear_y": (1, 0, 0, -0.3, 1, 0),
+                "translate_x": (1, 0, 0.45 * w, 0, 1, 0),
+                "rotate_30": tuple(O.rotation_matrix(w, h, 30.0)),
+                "general": (0.9, -0.4, 5.5, 0.35, 1.1, -6.0)}
+    twins = 0
+    t0 = time.perf_counter()
+    for name, m in matrices.items():
+        for resample in (O.NEAREST, O.BILINEAR, O.BICUBIC):
+            require(same(O.affine(frame, m, resample, AUTOAUG_FILL),
+                         O.affine_plain(frame, m, resample, AUTOAUG_FILL)),
+                    f"autoaug-ops: affine {name} at {resample} differs "
+                    f"from affine_plain")
+            twins += 1
+    three = np.stack([frames[k] for k in fx.EPIC_FRAMES])
+    require(same(O.smooth(three), O.smooth_plain(three)),
+            "autoaug-ops: smooth differs from smooth_plain")
+    twins_s = time.perf_counter() - t0
+    rates, classes = autoaug_rates(np.stack(epic))
+    numbers = {"cases": len(want["digests"]), "single_op_s": single_s,
+               "clip_cases_s": clips_s, "twin_checks": twins + 1,
+               "twins_s": twins_s, "frames_per_s": classes,
+               "op_frames_per_s": rates, "pillow_of_fixture": want["pillow"]}
+    log(f"[autoaug-ops] {len(want['digests'])} fixture cases (Pillow "
+        f"{want['pillow']}) bit-equal to their digests ({single_s:.3f} s "
+        f"the single ops, {clips_s:.3f} s the {len(fx.clip_cases())} clip "
+        f"front doors); affine at 5 matrices x 3 resamples and smooth of 3 "
+        f"EPIC frames bit-equal to their numpy twins ({twins_s:.3f} s); "
+        f"frames/s over {len(epic)} EPIC 456 x 256 frames, one call an op: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in classes.items()))
+    return numbers
+
+
+def autoaug_twin_clips(name, num_frames, argv, out_dir):
+    """The set-1 clips of the numpy twins' route, in the CLI's order (a
+    worker process of 30b): for each video (sorted) and row, the clip
+    function's frames of the twin-checked decodes
+    (``out_dir/<video>.npy``), augmented by the CLI's RandAugment with
+    ``imageops``' C++ loops swapped for their numpy twins, then
+    transformed; ``random`` and ``np.random`` seeded as before the CLI's
+    run. Each clip is saved to ``out_dir/<video>_<row>.npy``."""
+    import random
+    from tim_tpu_torch.extract import cli as ecli
+    from tim_tpu_torch.extract.pipeline import (
+        omnivore_frame_indices, omnivore_test_transform,
+        preprocess_video_clip)
+    from tim_tpu_torch.utils.pdpickle import read_pickle
+    table = read_pickle(os.path.join(JPEG_DIR, "feature_times.pkl"))
+    with PlainTwins():
+        random.seed(AUTOAUG_SEED)
+        np.random.seed(AUTOAUG_SEED)
+        ra = ecli.rand_augment(ecli.build_parser().parse_args(argv))
+        for vid in sorted(table.unique("video_id").tolist()):
+            video = np.load(os.path.join(out_dir, f"{vid}.npy"))
+            rows = table.where(table["video_id"] == vid).sort_by("start_sec")
+            starts, stops = rows["start_frame"], rows["stop_frame"]
+            for t in range(len(rows)):
+                idx = omnivore_frame_indices(
+                    int(stops[t]) - int(starts[t]), int(starts[t]),
+                    len(video), num_frames)
+                frames = video[idx - 1]
+                if name == "omnivore":
+                    clip = omnivore_test_transform(ra(frames[..., ::-1]),
+                                                   size=224, input_bgr=True)
+                else:
+                    clip = preprocess_video_clip(ra(frames), size=224)
+                np.save(os.path.join(out_dir, f"{vid}_{t}.npy"), clip)
+
+
+def autoaug_extract(jpeg_fixture, state, tmp):
+    """30b: ``extract.cli.main --num_aug 2`` for Swin-B and ViT-L (full
+    width, bf16, batch 4) over phase 29's EPIC frame directories, with
+    ``random`` and ``np.random`` seeded; set 0 of each bank bit-equal to
+    phase 29's bank, set 1 to ``extract_features_for_video`` over the
+    twin-checked decodes augmented by the numpy twins under the same seeds
+    (``autoaug_twin_clips``, one worker process a backbone, both started
+    first and run beside the CLIs; set 0 there: phase 29's twins' clips),
+    in the CLI's batches. Returns (launches by path, numbers, the CLI's
+    banks by (name, video))."""
+    import multiprocessing
+    import random
+    from tim_tpu_torch.extract import cli as ecli
+    from tim_tpu_torch.extract.pipeline import extract_features_for_video
+    from tim_tpu_torch.utils.pdpickle import read_pickle
+
+    times = os.path.join(JPEG_DIR, "feature_times.pkl")
+    table = read_pickle(times)
+    built, banks, clean = state["built"], state["banks"], state["clean"]
+    files = jpeg_fixture.frame_paths()
+    real = ecli.make_visual_apply
+    ecli.make_visual_apply = lambda args, device=None: built[args.backbone]
+    spawn = multiprocessing.get_context("spawn")
+    argvs, workers = {}, {}
+    paths, numbers, sets = {}, {}, {}
+    try:
+        # the twins' augmentation and transforms (host only: numpy and the
+        # host library) in one worker a backbone, beside the CLIs' runs
+        t0 = time.perf_counter()
+        for name, (num_frames, _) in JPEG_BACKBONES.items():
+            argvs[name] = [
+                "--backbone", name, "--frames_dir",
+                os.path.join(JPEG_DIR, "frames"), "--feature_times", times,
+                "--split", "val", "--num_frames", str(num_frames),
+                "--batch_size", str(JPEG_BATCH), "--num_aug", "2",
+                "--out_dir", str(tmp / name)]
+            twin_dir = tmp / f"{name}_twins"
+            twin_dir.mkdir()
+            # the decodes go by file: a spawned worker reads its arguments
+            # only after its imports, and start() waits for a large pickle
+            for vid, ps in files.items():
+                np.save(twin_dir / f"{vid}.npy",
+                        np.stack([state["decoded"][p][0] for p in ps]))
+            workers[name] = spawn.Process(target=autoaug_twin_clips, args=(
+                name, num_frames, argvs[name], str(twin_dir)))
+            workers[name].start()
+        numbers["workers_start_s"] = time.perf_counter() - t0
+        for name, (num_frames, kernel) in JPEG_BACKBONES.items():
+            random.seed(AUTOAUG_SEED)
+            np.random.seed(AUTOAUG_SEED)
+            counters = zero_counts()
+            t0 = time.perf_counter()
+            ecli.main(argvs[name], device="cuda")
+            launches = read_counts(counters)
+            wall = time.perf_counter() - t0
+            worker, twin_dir = workers[name], tmp / f"{name}_twins"
+            worker.join(timeout=300)
+            twin_wait = time.perf_counter() - t0 - wall
+            require(worker.exitcode == 0,
+                    f"autoaug-extract-{name}: the twins' worker exited "
+                    f"{worker.exitcode}")
+            clips = forwards = 0
+            t0 = time.perf_counter()
+            for vid in sorted(files):
+                rows = len(table.where(table["video_id"] == vid))
+
+                def clip_fn(t, a, vid=vid):
+                    if a == 0:
+                        return clean[(name, vid, t)]
+                    return np.load(twin_dir / f"{vid}_{t}.npy")
+
+                want = extract_features_for_video(
+                    clip_fn, rows, 2, built[name], batch_size=JPEG_BATCH)
+                got = np.load(tmp / name / "val" / f"{vid}.npy")
+                require(got.shape == (rows, 2, 1024)
+                        and bool(np.isfinite(got).all()),
+                        f"autoaug-extract-{name}: {vid} bank {got.shape} or "
+                        f"non-finite")
+                require(same(got[:, :1], banks[(name, vid)]),
+                        f"autoaug-extract-{name}: {vid}: set 0 differs from "
+                        f"phase 29's bank")
+                require(same(got[:, 1], want[:, 1]),
+                        f"autoaug-extract-{name}: {vid}: set 1 differs from "
+                        f"the numpy twins' RandAugment route")
+                require(not same(got[:, 1], got[:, 0]),
+                        f"autoaug-extract-{name}: {vid}: set 1 equals set 0")
+                sets[(name, vid)] = got
+                clips += rows
+                forwards += -(-2 * rows // JPEG_BATCH)
+            twin_s = time.perf_counter() - t0
+            require(launches[kernel] == 24 * forwards
+                    and attention_launches(launches) == launches[kernel],
+                    f"autoaug-extract-{name}: launches {launches}, expected "
+                    f"24 x {forwards} of {kernel}")
+            paths[f"autoaug-extract-{name}"] = launches
+            numbers[name] = {"clips": clips, "sets": 2, "forwards": forwards,
+                             "wall_s": wall,
+                             "wall_clips_per_s": 2 * clips / wall,
+                             "twins_wait_s": twin_wait,
+                             "twins_forwards_s": twin_s}
+            log(f"[autoaug-extract-{name}] extract.cli.main --num_aug 2 over "
+                f"{len(files)} EPIC frame directories, {clips} clips x 2 "
+                f"sets of {num_frames} frames, bf16, batch {JPEG_BATCH}: "
+                f"{wall:.3f} s ({2 * clips / wall:.2f} wall clips/s); set 0 "
+                f"bit-equal to phase 29's banks, set 1 to the numpy twins' "
+                f"route (waited {twin_wait:.3f} s for its worker after the "
+                f"CLI, its forwards {twin_s:.3f} s); launches {launches} "
+                f"({forwards} forwards, {launches[kernel] / forwards:.0f} of "
+                f"{kernel} each)")
+    finally:
+        ecli.make_visual_apply = real
+        for worker in workers.values():
+            if worker.is_alive():
+                worker.kill()
+            worker.join()
+    return paths, numbers, sets
+
+
+def autoaug_clip(jpeg_fixture, decoded):
+    """30c: one ``EK100ClipDataset(mode="train")`` item, frames through
+    ``jpeg_frame_reader`` and the default ``VideoRandAugment``, bit-equal
+    to the same item over the twin-checked (oriented) decodes with the
+    numpy twins, under the same seeds."""
+    import random
+    from tim_tpu_torch.extract.clips import EK100ClipDataset, jpeg_frame_reader
+    from tim_tpu_torch.extract.autoaug import VideoRandAugment
+    files = jpeg_fixture.frame_paths()
+
+    def twins(video_id, indices, offset):
+        return np.stack([decoded[files[video_id][int(i) + offset]][1]
+                         for i in indices])
+
+    kw = dict(annotations={"video_id": np.asarray(["P01_01"]),
+                           "start_frame": np.asarray([0]),
+                           "stop_frame": np.asarray([12]),
+                           "verb_class": np.asarray([3]),
+                           "noun_class": np.asarray([7])},
+              mode="train", num_frames=16, crop_size=224)
+    port = EK100ClipDataset(frame_reader=jpeg_frame_reader(
+        os.path.join(JPEG_DIR, "frames"), "frame_{:010d}.jpg"), **kw)
+    require(isinstance(port.rand_augment, VideoRandAugment),
+            f"autoaug-clip: the default RandAugment is "
+            f"{type(port.rand_augment)}")
+    random.seed(AUTOAUG_SEED)
+    np.random.seed(AUTOAUG_SEED)
+    t0 = time.perf_counter()
+    got = port[0]
+    port_s = time.perf_counter() - t0
+    with PlainTwins():
+        ref = EK100ClipDataset(frame_reader=twins, **kw)
+        random.seed(AUTOAUG_SEED)
+        np.random.seed(AUTOAUG_SEED)
+        want = ref[0]
+    require(sorted(got) == sorted(want)
+            and all(same(got[k], want[k]) for k in want),
+            "autoaug-clip: the training item differs from the twins' route")
+    log(f"[autoaug-clip] EK100ClipDataset(train, 16 x 224^2, num_sample 2) "
+        f"with VideoRandAugment: item {got['video'].shape} bit-equal to the "
+        f"numpy twins' route ({port_s:.3f} s)")
+    return {"item_s": port_s, "shape": list(got["video"].shape)}
+
+
+def autoaug_control(fx, decoded, sets):
+    """30d: a fixture output and a set-1 bank with one byte changed are
+    refused by the comparisons above."""
+    from tim_tpu_torch.extract import autoaug
+    case = next(c for c in fx.cases()
+                if c["key"] == "epic1/Rotate/m7s0.5/bicubic/imagenet")
+    frames = fx.frames(lambda p: decoded[p][0])
+    out = np.array(fx.run_case(autoaug, frames[case["frame"]], case))
+    want = fx.read_digests()["digests"][case["key"]]
+    require(fx.digest(out) == want, "autoaug-control: the case itself fails")
+    out.reshape(-1)[out.size // 2] ^= 1
+    require(fx.digest(out) != want,
+            "autoaug-control: a changed byte passed the digest check")
+    bank = sets[("videomae", "P01_01")]
+    flipped = bank.copy()
+    flipped.view(np.uint8).reshape(-1)[flipped.nbytes // 3] ^= 1
+    require(same(bank, bank.copy()) and not same(flipped, bank),
+            "autoaug-control: a changed bank byte passed the comparison")
+    log(f"[autoaug-control] one byte changed: {case['key']}'s output "
+        f"refused by its digest, a set-1 bank refused by the comparison")
+    return {"case": case["key"], "refused": True}
+
+
+AUTOAUG_COMPARE = r'''
+import importlib.util, json, os, sys, time
+import numpy as np
+import PIL
+from PIL import Image, ImageEnhance, ImageFilter, ImageOps
+from tim_tpu_torch.extract import imageops as O
+
+root, jpeg_root, rate_ops = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+spec = importlib.util.spec_from_file_location(
+    "fx", os.path.join(root, "make_fixture.py"))
+fx = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(fx)
+
+
+def solarize_add(im, add):
+    return im.point([min(255, i + add) if i < 128 else i
+                     for i in range(256)] * 3)
+
+
+PIL_OPS = {
+    "autocontrast": ImageOps.autocontrast, "equalize": ImageOps.equalize,
+    "invert": ImageOps.invert, "posterize": ImageOps.posterize,
+    "solarize": ImageOps.solarize, "solarize_add": solarize_add,
+    "color": lambda im, f: ImageEnhance.Color(im).enhance(f),
+    "contrast": lambda im, f: ImageEnhance.Contrast(im).enhance(f),
+    "brightness": lambda im, f: ImageEnhance.Brightness(im).enhance(f),
+    "sharpness": lambda im, f: ImageEnhance.Sharpness(im).enhance(f),
+    "smooth": lambda im: im.filter(ImageFilter.SMOOTH),
+    "rotate": lambda im, a, rs, fill: im.rotate(a, resample=rs,
+                                                fillcolor=tuple(fill)),
+    "affine": lambda im, m, rs, fill: im.transform(
+        im.size, Image.AFFINE, tuple(m), resample=rs, fillcolor=tuple(fill)),
+}
+
+
+def grid(w, h):
+    fills = ([128, 128, 128], [124, 116, 104])
+    out = [("autocontrast", []), ("equalize", []), ("invert", []),
+           ("smooth", [])]
+    out += [("posterize", [b]) for b in range(9)]
+    out += [("solarize", [t]) for t in (0, 64, 128, 192, 256)]
+    out += [("solarize_add", [a]) for a in (0, 27, 55, 110)]
+    out += [(e, [f]) for e in ("color", "contrast", "brightness", "sharpness")
+            for f in (0.0, 0.1, 0.55, 1.0, 1.45, 1.9, -0.5, 2.5)]
+    for rs in (0, 2, 3):
+        for fill in fills:
+            out += [("rotate", [a, rs, fill])
+                    for a in (0.0, 7.5, -7.5, 15.0, -30.0, 90.0, 180.0)]
+            out += [("affine", [m, rs, fill]) for m in (
+                [1, 0.3, 0, 0, 1, 0], [1, -0.15, 0, 0, 1, 0],
+                [1, 0, 0, 0.3, 1, 0], [1, 0, 0, -0.15, 1, 0],
+                [1, 0, 0.225 * w, 0, 1, 0], [1, 0, 0, 0, 1, -0.45 * h],
+                [1, 0, -100, 0, 1, 0], [1, 0, 0, 0, 1, 100])]
+    return out
+
+
+def random_grid(rng, n):
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(1, 65, 2))
+        frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        fill = [int(v) for v in rng.integers(0, 256, 3)]
+        rs = int(rng.choice([0, 2, 3]))
+        kind = int(rng.integers(0, 5))
+        if kind == 0:
+            case = ("rotate", [float(rng.uniform(-180, 180)), rs, fill])
+        elif kind == 1:
+            s = float(rng.uniform(-1, 1))
+            case = ("affine", [[1, s, 0, 0, 1, 0] if rng.random() < 0.5
+                               else [1, 0, 0, s, 1, 0], rs, fill])
+        elif kind == 2:
+            case = ("affine", [[1, 0, float(rng.uniform(-w, w)), 0, 1,
+                                float(rng.uniform(-h, h))], rs, fill])
+        elif kind == 3:
+            case = ("affine", [[float(v) for v in rng.uniform(-2, 2, 6)], rs,
+                               fill])
+        else:
+            case = (str(rng.choice(["color", "contrast", "brightness",
+                                    "sharpness"])),
+                    [float(rng.uniform(-1, 3))])
+        out.append((frame, case))
+    return out
+
+
+def differs(frame, name, args):
+    want = np.asarray(PIL_OPS[name](Image.fromarray(frame), *args))
+    got = getattr(O, name)(frame, *args)
+    return -1 if got.shape != want.shape else int((got != want).sum())
+
+
+def pil_read(path):
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+frames = fx.frames(pil_read)
+out = {"PIL": PIL.__version__, "grid": {"cases": 0, "mismatched": []},
+       "random": {"cases": 0, "mismatched": []}}
+for frame_name in ("epic0", "odd_17x9", "odd_1x33"):
+    frame = frames[frame_name]
+    for name, args in grid(frame.shape[1], frame.shape[0]):
+        n = differs(frame, name, args)
+        out["grid"]["cases"] += 1
+        if n:
+            out["grid"]["mismatched"].append([frame_name, name, args, n])
+for frame, (name, args) in random_grid(np.random.default_rng(30), 400):
+    n = differs(frame, name, args)
+    out["random"]["cases"] += 1
+    if n:
+        out["random"]["mismatched"].append([list(frame.shape), name, args, n])
+# frames/s: Pillow one frame at a time (images made beforehand), the port
+# one call over the clip
+epic = np.stack([pil_read(p) for p in fx.epic_paths()])
+images = [Image.fromarray(f) for f in epic]
+rates = {}
+for cls, name, args in rate_ops:
+    t0 = time.perf_counter()
+    for im in images:
+        PIL_OPS[name](im, *args)
+    pil_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    getattr(O, name)(epic, *args)
+    port_s = time.perf_counter() - t0
+    n, p, q = rates.get(cls, (0, 0.0, 0.0))
+    rates[cls] = (n + len(epic), p + pil_s, q + port_s)
+out["frames_per_s"] = {cls: {"pil": n / p, "port": n / q}
+                       for cls, (n, p, q) in rates.items()}
+print(json.dumps(out))
+'''
+
+
+def autoaug_compare():
+    """30e, where the card's machine has PIL: in a subprocess (so that
+    this process never loads it), Pillow's ops against the port's over the
+    fixture's grid (an EPIC frame and the two odd ones: every op, bits,
+    thresholds, factors, angles, shears, translations, resamples and
+    fills) and a seeded random grid of sizes, angles, shears, matrices and
+    factors; any mismatch fails; Pillow's and the port's frames/s of each
+    op class side by side."""
+    import importlib.util
+    if importlib.util.find_spec("PIL") is None:
+        log("[autoaug-compare] skipped: the machine has no PIL")
+        return {"skipped": True}
+    run = subprocess.run(
+        [sys.executable, "-c", AUTOAUG_COMPARE, AUTOAUG_DIR, JPEG_DIR,
+         json.dumps(AUTOAUG_RATE_OPS)], capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    require(run.returncode == 0,
+            f"autoaug-compare failed:\n{run.stderr[-3000:]}")
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    g, r = out["grid"], out["random"]
+    log(f"[autoaug-compare] PIL {out['PIL']}: fixture grid {g['cases']} "
+        f"cases, {len(g['mismatched'])} differ {g['mismatched'][:5]}; random "
+        f"grid {r['cases']} cases, {len(r['mismatched'])} differ "
+        f"{r['mismatched'][:5]}; EPIC frames/s, Pillow one frame at a time "
+        f"vs the port one call a clip: " + ", ".join(
+            f"{cls} {v['pil']:.1f} vs {v['port']:.1f}"
+            for cls, v in out["frames_per_s"].items()))
+    require(not g["mismatched"] and not r["mismatched"],
+            f"autoaug-compare: the port differs from Pillow: "
+            f"{g['mismatched'][:10]} {r['mismatched'][:10]}")
+    return out
+
+
+def phase_autoaug(card: str, state):
+    """Phase 30 on phase 29's fixture module, decodes and backbones;
+    returns the launches by path."""
+    import pathlib
+    import tempfile
+    t0 = time.perf_counter()
+    blocked = ("PIL", "cv2")
+    saved = block_modules(blocked)
+    fx, jpeg_fixture = autoaug_fixture(), state["fixture"]
+    parts, mark = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal mark
+        now = time.perf_counter()
+        parts[part], mark = now - mark, now
+
+    try:
+        summary = {"card": card, "part_seconds": parts,
+                   "ops": autoaug_ops(fx, jpeg_fixture, state["decoded"])}
+        lap("a")
+        with tempfile.TemporaryDirectory() as tmp:
+            paths, summary["extract"], sets = autoaug_extract(
+                jpeg_fixture, state, pathlib.Path(tmp))
+        lap("b")
+        summary["clip"] = autoaug_clip(jpeg_fixture, state["decoded"])
+        summary["control"] = autoaug_control(fx, state["decoded"], sets)
+        lap("c_d")
+    finally:
+        unblock_modules(saved)
+        state["built"].clear()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in blocked and sys.modules[m])
+    require(not loaded, f"autoaug: PIL or cv2 was imported: {loaded}")
+    summary["seconds_a_to_d"] = time.perf_counter() - t0
+    summary["compare"] = autoaug_compare()
+    lap("e")
+    summary["seconds"] = time.perf_counter() - t0
+    log(f"[autoaug] summary {json.dumps(summary)}; PIL and cv2 blocked in "
+        f"a-d; {summary['seconds']:.2f} s (limit {AUTOAUG_LIMIT_S:.0f} s)")
+    require(summary["seconds"] <= AUTOAUG_LIMIT_S,
+            f"autoaug: {summary['seconds']:.2f} s, past its limit")
     return paths
 
 
@@ -5580,8 +6214,9 @@ def phase_media(state_dict, batch2):
 # Phase 22: the backbone finetune CLI (``extract/finetune_cli.py``) at
 # ViT-L's full width (embed 1024, depth 24, 16 heads, 16 x 224^2, tubelet
 # 2; 97 verbs, 300 nouns), bf16, batch 8, on synthetic uint8 EPIC-sized
-# frames from a seeded reader and ``dict`` annotations (the card's machine
-# has no pandas, cv2 or PIL: identity RandAugment on the finetune clips).
+# frames from a seeded reader and ``dict`` annotations; the finetune clips
+# take the recipe's ``VideoRandAugment`` (Pillow's ops of the port's own)
+# with PIL blocked, ``random`` and ``np.random`` seeded before each run.
 # ---------------------------------------------------------------------------
 FT_SEGMENTS = 24           # annotation rows: 3 steps of batch 8 a mode
 FT_BATCH = 8
@@ -5623,10 +6258,11 @@ def ft_args(mode, out, *extra):
 
 
 def ft_datasets(args, n, seed=SEED + 7):
+    """``finetune_cli.datasets`` with its default RandAugment: identity
+    for pretraining, the recipe's ``VideoRandAugment`` for finetuning."""
     from tim_tpu_torch.extract import finetune_cli
-    return finetune_cli.datasets(
-        args, ft_annotations(n, seed), None, ft_reader,
-        rand_augment=finetune_cli.identity_augment)
+    return finetune_cli.datasets(args, ft_annotations(n, seed), None,
+                                 ft_reader)
 
 
 class StepClock:
@@ -5725,7 +6361,9 @@ def ft_cli_run(tag, mode, args, train_ds, val_ds):
 def ft_cli_slice_fp32(out):
     """The finetune CLI in fp32 at reduced depth (2 blocks, one step of 2
     segments, mixup on): the step's metrics and every gradient, card
-    (kernels 5 and 5b) against the CPU (plain versions)."""
+    (kernels 5 and 5b) against the CPU (plain versions); the clips'
+    RandAugment draws seeded alike on both."""
+    import random
     from tim_tpu_torch.extract import finetune_cli
     from tim_tpu_torch.runner import backbone as rb
     from tim_tpu_torch.train.state import TrainState
@@ -5750,6 +6388,8 @@ def ft_cli_slice_fp32(out):
         TrainState.apply_gradients = capture
         rb.BackboneFinetuneRunner.fit = fit_capture
         try:
+            random.seed(SEED + 23)
+            np.random.seed(SEED + 23)
             t0 = time.perf_counter()
             finetune_cli.run(args, train_ds, val_ds, device=device)
             seen["seconds"] = time.perf_counter() - t0
@@ -5854,9 +6494,13 @@ def phase_finetune_cli(card: str):
     from tim_tpu_torch.extract import finetune_cli
     from tim_tpu_torch.models.backbones.vit import VideoMAEViT
     from tim_tpu_torch.runner import backbone as rb
-    log("[ft-cli] train clips take identity RandAugment: the card's machine "
-        "is promised no PIL (VideoRandAugment); frames are seeded uint8 "
-        f"arrays {FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (phase 29 reads JPEGs)")
+    import random
+    from tim_tpu_torch.extract.autoaug import VideoRandAugment
+    log("[ft-cli] finetune clips take the recipe's VideoRandAugment "
+        "(rand-m7-n4-mstd0.5-inc1, bicubic; extract.imageops) with PIL "
+        "blocked, random and np.random seeded before each run; frames are "
+        f"seeded uint8 arrays {FT_FRAME_HW[0]} x {FT_FRAME_HW[1]} (phase 29 "
+        "reads JPEGs)")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         args = ft_args("pretrain", tmp / "pre", "--mask_ratio", "0.9")
@@ -5887,10 +6531,19 @@ def phase_finetune_cli(card: str):
                                 ("jax-ft-cli-finetune", str(jax_dir))):
             args = ft_args("finetune", tmp / tag, "--pretrained", pretrained,
                            "--num_sample", "2", "--mixup", "0.8")
-            train_ds, val_ds = ft_datasets(args, FT_SEGMENTS)
-            with Recorded(rb, "make_two_head_step", factory=True) as steps:
-                runs[tag] = timed(tag, ft_cli_run, tag, "finetune", args,
-                                  train_ds, val_ds)
+            saved = block_modules(("PIL",))
+            try:
+                train_ds, val_ds = ft_datasets(args, FT_SEGMENTS)
+                require(isinstance(train_ds.rand_augment, VideoRandAugment),
+                        f"{tag}: RandAugment {type(train_ds.rand_augment)}")
+                random.seed(SEED + 22)
+                np.random.seed(SEED + 22)
+                with Recorded(rb, "make_two_head_step",
+                              factory=True) as steps:
+                    runs[tag] = timed(tag, ft_cli_run, tag, "finetune",
+                                      args, train_ds, val_ds)
+            finally:
+                unblock_modules(saved)
             runs[tag] += (steps.values[0]["loss"],)
             os.remove(tmp / tag / "checkpoint.pt")
         ft_stats, ft_l, ft_m, first = runs["ft-cli-finetune"]
@@ -7107,7 +7760,10 @@ def main() -> int:
     audio_paths = phase_audio()
     files_paths = timed("files", phase_files, card)
     hdf5_paths = timed("hdf5", phase_hdf5, card)
-    jpeg_paths = timed("jpeg", phase_jpeg, card)
+    jpeg_paths, jpeg_state = timed("jpeg", phase_jpeg, card)
+    autoaug_paths = timed("autoaug", phase_autoaug, card, jpeg_state)
+    del jpeg_state
+    torch.cuda.empty_cache()
     media_paths = phase_media(state_dict, batch2)
     del state_dict, batch2
     torch.cuda.empty_cache()
@@ -7117,6 +7773,7 @@ def main() -> int:
                **training_paths, **detection_paths, **recognition_paths,
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
                **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
+               **autoaug_paths,
                **media_paths, **ft_cli_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
@@ -7146,6 +7803,8 @@ def main() -> int:
             ("extract-omnivore-int8", ("window_attention",)),
             ("jpeg-extract-omnivore", ("window_attention",)),
             ("jpeg-extract-videomae", ("flash_mha",)),
+            ("autoaug-extract-omnivore", ("window_attention",)),
+            ("autoaug-extract-videomae", ("flash_mha",)),
             ("extract-videomae-int8", ("flash_mha",)),
             ("ft-cli-pretrain", ("flash_mha", "flash_mha_bwd")),
             ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd")),

@@ -185,7 +185,7 @@ def test_serve_imports_no_jax():
                    "utils.profiling", "dryrun", "utils.msgpack",
                    "utils.orbax", "utils.ocdbt", "utils.zstd",
                    "utils.pdpickle", "data.table", "utils.hdf5",
-                   "utils.jpeg", "extract.image"):
+                   "utils.jpeg", "extract.image", "extract.imageops"):
         assert f"tim_tpu_torch.{module}" in modules
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -246,29 +246,16 @@ def test_no_module_imports_h5py():
 
 
 def test_pil_only_under_rand_augment_and_cv2_nowhere():
-    """The port decodes and resizes frames itself: no module, and not
-    ``chip_smoke.py``, imports cv2, and PIL is imported only by the
-    RandAugment sets (``extract/{autoaug,augment}.py``) and the two
-    functions that check for them before building them."""
+    """The port decodes, resizes and augments frames itself: no module,
+    and not ``chip_smoke.py``, imports PIL or cv2 at any depth (the
+    RandAugment sets run ``extract/imageops.py``, Pillow's ops of the
+    port's own)."""
     paths, found = _imports_of(("cv2",))
     assert len(paths) > 50 and not found, found
     _, found = _imports_of(("PIL",))
-    allowed = {"tim_tpu_torch/extract/autoaug.py": None,
-               "tim_tpu_torch/extract/augment.py": None,
-               "tim_tpu_torch/extract/cli.py": "rand_augment",
-               "tim_tpu_torch/extract/finetune_cli.py": "datasets"}
-    assert found
-    for entry in found:
-        path, line = entry.split(" ")[0].rsplit(":", 1)
-        assert path in allowed, entry
-        if allowed[path] is None:
-            continue
-        with open(os.path.join(ROOT, path)) as f:
-            tree = ast.parse(f.read())
-        owners = [node.name for node in ast.walk(tree)
-                  if isinstance(node, ast.FunctionDef)
-                  and node.lineno <= int(line) <= node.end_lineno]
-        assert owners == [allowed[path]], entry
+    allowed = {}
+    assert all(entry.split(":")[0] in allowed for entry in found), found
+    assert not found, found
 
 
 JPEG_ROUTES = r"""

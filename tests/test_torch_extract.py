@@ -115,7 +115,8 @@ def test_int8_and_rand_augment_sets_match_jax_cli(tmp_path, monkeypatch,
     """``--quantize_backbone on --num_aug 2``: both CLIs quantize the same
     fp32 weights (the JAX CLI's own init, handed to the port as a
     checkpoint) and draw the same RandAugment set from one seed of
-    ``random`` and ``np.random``; the banks agree within 1e-4."""
+    ``random`` and ``np.random`` (the port's run with PIL and cv2
+    blocked); the banks agree within 1e-4."""
     _write_frames(tmp_path, "v1", 30, seed=2)
     build_feature_time_table({"v1": 1.5}, interval=1.1, hop=0.2,
                              fps=25.0).to_pickle(tmp_path / "ctx.pkl")
@@ -152,6 +153,9 @@ def test_int8_and_rand_augment_sets_match_jax_cli(tmp_path, monkeypatch,
         random.seed(5)
         np.random.seed(6)
         kwargs = {} if pkg is jcli else {"device": "cpu"}
+        if pkg is pcli:         # the port runs with PIL and cv2 blocked
+            monkeypatch.setitem(sys.modules, "PIL", None)
+            monkeypatch.setitem(sys.modules, "cv2", None)
         pkg.main(common + ["--out_dir", str(tmp_path / out)] + extra,
                  **kwargs)
     want = np.load(tmp_path / "jax" / "val" / "v1.npy")
@@ -163,12 +167,34 @@ def test_int8_and_rand_augment_sets_match_jax_cli(tmp_path, monkeypatch,
 
 
 def test_rand_augment_sets_without_pil_name_it(monkeypatch):
-    args = pcli.build_parser().parse_args(
-        ["--backbone", "videomae", "--num_aug", "2", "--feature_times", "x",
-         "--out_dir", "y"])
+    """With PIL blocked ``rand_augment`` builds for both visual backbones,
+    and one clip's augmented set equals JAX's under the same seeds (the
+    JAX CLI's ``extract_visual`` builds the same two transforms)."""
+    from tim_tpu.extract import autoaug as jaug
+    frames = np.random.default_rng(8).integers(0, 256, (4, 30, 40, 3),
+                                               dtype=np.uint8)
+    jax_ra = {"omnivore": lambda f: jaug.omnivore_clip_augment(
+                  f, crop_size=32, mean=(0.485, 0.456, 0.406)),
+              "videomae": jaug.VideoRandAugment(
+                  "rand-m7-n4-mstd0.5-inc1", crop_size=32,
+                  interpolation="bicubic")}
+    want = {}
+    for backbone, ra in jax_ra.items():
+        random.seed(9)
+        np.random.seed(10)
+        want[backbone] = ra(frames)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="PIL"):
-        pcli.rand_augment(args)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for backbone in ("omnivore", "videomae"):
+        argv = ["--backbone", backbone, "--num_aug", "2", "--crop_size",
+                "32", "--feature_times", "x", "--out_dir", "y"]
+        ra = pcli.rand_augment(pcli.build_parser().parse_args(argv))
+        random.seed(9)
+        np.random.seed(10)
+        got = ra(frames)
+        assert got.dtype == np.uint8 and got.shape == frames.shape
+        np.testing.assert_array_equal(got, want[backbone])
+        assert not np.array_equal(got, frames)
 
 
 @pytest.mark.parametrize("argv,error,match", [

@@ -12,11 +12,11 @@ written by cv2 and annotation CSVs written by pandas (tiny ViT, fp32):
 - the chain from ``--mode pretrain`` to ``--pretrained``: every encoder
   entry of the trunk loads (only ``fc_norm``, which the MAE lacks, keeps
   its init);
-- the errors: PIL for the finetune RandAugment, ``--flash_attention off``
-  on the card (a JAX msgpack checkpoint is read:
-  ``tests/test_torch_jax_checkpoint.py``); without pandas, cv2 and PIL
-  ``main --mode pretrain`` reads the CSVs and decodes the frames itself
-  and runs.
+- the errors: ``--flash_attention off`` on the card (a JAX msgpack
+  checkpoint is read: ``tests/test_torch_jax_checkpoint.py``); with PIL
+  blocked ``datasets`` builds ``--mode finetune`` whose RandAugment gives
+  JAX's frames; without pandas, cv2 and PIL ``main --mode pretrain``
+  reads the CSVs and decodes the frames itself and runs.
 """
 
 import functools
@@ -38,6 +38,7 @@ from tim_tpu.extract import finetune_cli as jcli  # noqa: E402
 from tim_tpu.runner import backbone as jrunner  # noqa: E402
 from tim_tpu_torch.convert import (  # noqa: E402
     mae_state_dict_from_jax, two_head_state_dict_from_jax)
+from tim_tpu_torch.extract import autoaug as pautoaug  # noqa: E402
 from tim_tpu_torch.extract import clips as pclips  # noqa: E402
 from tim_tpu_torch.extract import finetune_cli as pcli  # noqa: E402
 from tim_tpu_torch.models.backbones.vit import VideoMAEViT  # noqa: E402
@@ -223,10 +224,48 @@ def test_the_cli_names_what_it_cannot_do(clip_data, monkeypatch, tmp_path):
         _argv(clip_data, "finetune", tmp_path, "--flash_attention", "off"))
     with pytest.raises(ValueError, match="kernel 5"):
         pcli.run(args, None, None)                 # the card
+    # --mode finetune builds with PIL blocked: the recipe's
+    # VideoRandAugment over the port's own Pillow ops gives JAX's
+    # augmented frames (bit for bit) under the same seeds, and so JAX's
+    # training clips (within the resize's 1e-5, tests/test_torch_clips.py)
+    from tim_tpu.extract import clips as jclips
+    tmp, csv = clip_data
+    anno = pd.read_csv(csv)
+    jtrain = jclips.EK100ClipDataset(
+        anno, jclips.jpeg_frame_reader(str(tmp / "frames")), mode="train",
+        num_sample=args.num_sample, reprob=args.reprob,
+        num_frames=args.num_frames, crop_size=args.input_size)
+
+    def recorded(ds, store):
+        augment = ds.rand_augment
+        ds.rand_augment = lambda frames: store.append(augment(frames)) or \
+            store[-1]
+
+    jframes, pframes = [], []
+    recorded(jtrain, jframes)
+    random.seed(4)
+    np.random.seed(4)
+    want = [jtrain[i] for i in range(2)]
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="PIL.*--mode finetune|"
-                                          "--mode finetune.*PIL"):
-        pcli.datasets(args, pd.read_csv(clip_data[1]), None, None)
+    train_ds, _ = pcli.datasets(
+        args, anno, None, pclips.jpeg_frame_reader(str(tmp / "frames")))
+    assert isinstance(train_ds.rand_augment, pautoaug.VideoRandAugment)
+    recorded(train_ds, pframes)
+    random.seed(4)
+    np.random.seed(4)
+    got = [train_ds[i] for i in range(2)]
+    assert len(pframes) == len(jframes) == 2 * args.num_sample
+    for g, w in zip(pframes, jframes):
+        assert g.dtype == w.dtype == np.uint8
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            if k == "video":
+                assert g[k].shape == w[k].shape
+                assert np.abs(g[k] - w[k]).max() <= 1e-5 * np.abs(w[k]).max()
+            else:
+                np.testing.assert_array_equal(g[k], w[k])
     # without pandas, cv2 and PIL (blocked above) the CSVs are read
     # (data.table.read_csv) and the frames decoded by the port
     # (utils.jpeg): --mode pretrain runs

@@ -1,6 +1,7 @@
-"""Host-side training augmentations for feature extraction. A copy of
-``tim_tpu/extract/augment.py`` (numpy; PIL imported lazily by the
-RandAugment ops; a test pins it to the original).
+"""Host-side training augmentations for feature extraction. The
+counterpart of ``tim_tpu/extract/augment.py`` (numpy; its RandAugment ops
+run through ``extract.imageops``, Pillow's arithmetic without PIL, where
+the original calls PIL; a test pins it to the original).
 
 - SpecAugment for audio spectrograms
   (``auditory_slowfast/slowfast/datasets/spec_augment.py``): time warp,
@@ -8,11 +9,12 @@ RandAugment ops; a test pins it to the original).
   time warp here is a piecewise-linear temporal resample with the same
   (point, distance) sampling as the reference's sparse_image_warp variant —
   distributionally equivalent, far cheaper on CPU.
-- RandAugment for video frames (PIL), the timm policy subset the reference
-  uses ("rand-m15-mstd0.5-inc1" for Omnivore, "rand-m7-n4-mstd0.5-inc1"
-  for VideoMAE): increasing-magnitude transforms, std-0.5 magnitude noise.
+- RandAugment for video frames (Pillow's ops), the timm policy subset the
+  reference uses ("rand-m15-mstd0.5-inc1" for Omnivore,
+  "rand-m7-n4-mstd0.5-inc1" for VideoMAE): increasing-magnitude
+  transforms, std-0.5 magnitude noise.
 
-These run on the host data path (augmentations are PIL/byte-image bound),
+These run on the host data path (augmentations are byte-image bound),
 never on the device, matching where the reference runs them.
 """
 
@@ -22,6 +24,8 @@ import random
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from tim_tpu_torch.extract import imageops as ops
 
 # ---------------------------------------------------------------------------
 # SpecAugment
@@ -163,7 +167,7 @@ def random_erasing(
 
 
 # ---------------------------------------------------------------------------
-# RandAugment (timm-style, PIL)
+# RandAugment (timm-style, Pillow's ops)
 # ---------------------------------------------------------------------------
 
 _MAX_LEVEL = 10.0
@@ -175,52 +179,47 @@ def _enhance_factor_inc(level):
     return 1.0 + (level / _MAX_LEVEL) * 0.9 * random.choice([-1, 1])
 
 
-def _apply_op(img, name: str, level: float):
-    from PIL import Image, ImageEnhance, ImageOps
-
+def _apply_op(img: np.ndarray, name: str, level: float) -> np.ndarray:
+    """One op on one uint8 frame [H, W, 3] (``imageops``: Pillow's
+    arithmetic; ``rotate`` and ``transform`` at Pillow's default NEAREST)."""
     if name == "AutoContrast":
-        return ImageOps.autocontrast(img)
+        return ops.autocontrast(img)
     if name == "Equalize":
-        return ImageOps.equalize(img)
+        return ops.equalize(img)
     if name == "Invert":
-        return ImageOps.invert(img)
+        return ops.invert(img)
     if name == "Rotate":
         deg = (level / _MAX_LEVEL) * 30.0 * random.choice([-1, 1])
-        return img.rotate(deg, fillcolor=_FILL)
+        return ops.rotate(img, deg, ops.NEAREST, _FILL)
     if name == "Posterize":
         bits = 4 - int((level / _MAX_LEVEL) * 4)
-        return ImageOps.posterize(img, max(bits, 1))
+        return ops.posterize(img, max(bits, 1))
     if name == "Solarize":
         thresh = 256 - int((level / _MAX_LEVEL) * 256)
-        return ImageOps.solarize(img, thresh)
+        return ops.solarize(img, thresh)
     if name == "SolarizeAdd":
-        add = int((level / _MAX_LEVEL) * 110)
-        arr = np.asarray(img, np.int32)
-        arr = np.where(arr < 128, np.clip(arr + add, 0, 255), arr)
-        return Image.fromarray(arr.astype(np.uint8))
+        # np.where(i < 128, clip(i + add, 0, 255), i) in the original: the
+        # same bytes as timm's table for every integer add
+        return ops.solarize_add(img, int((level / _MAX_LEVEL) * 110))
     if name == "Color":
-        return ImageEnhance.Color(img).enhance(_enhance_factor_inc(level))
+        return ops.color(img, _enhance_factor_inc(level))
     if name == "Contrast":
-        return ImageEnhance.Contrast(img).enhance(
-            _enhance_factor_inc(level))
+        return ops.contrast(img, _enhance_factor_inc(level))
     if name == "Brightness":
-        return ImageEnhance.Brightness(img).enhance(
-            _enhance_factor_inc(level))
+        return ops.brightness(img, _enhance_factor_inc(level))
     if name == "Sharpness":
-        return ImageEnhance.Sharpness(img).enhance(
-            _enhance_factor_inc(level))
+        return ops.sharpness(img, _enhance_factor_inc(level))
+    h, w = img.shape[:2]
     if name in ("ShearX", "ShearY"):
         shear = (level / _MAX_LEVEL) * 0.3 * random.choice([-1, 1])
         mat = (1, shear, 0, 0, 1, 0) if name == "ShearX" else \
             (1, 0, 0, shear, 1, 0)
-        return img.transform(img.size, Image.AFFINE, mat,
-                             fillcolor=_FILL)
+        return ops.affine(img, mat, ops.NEAREST, _FILL)
     if name in ("TranslateX", "TranslateY"):
         frac = (level / _MAX_LEVEL) * 0.45 * random.choice([-1, 1])
-        dx = frac * img.size[0] if name == "TranslateX" else 0
-        dy = frac * img.size[1] if name == "TranslateY" else 0
-        return img.transform(img.size, Image.AFFINE, (1, 0, dx, 0, 1, dy),
-                             fillcolor=_FILL)
+        dx = frac * w if name == "TranslateX" else 0
+        dy = frac * h if name == "TranslateY" else 0
+        return ops.affine(img, (1, 0, dx, 0, 1, dy), ops.NEAREST, _FILL)
     raise ValueError(f"unknown op {name}")
 
 
@@ -252,18 +251,18 @@ class RandAugment:
             chosen.append((name, float(np.clip(level, 0, _MAX_LEVEL))))
         return chosen
 
-    def apply(self, img, ops: Optional[List] = None):
-        ops = ops if ops is not None else self.sample_ops()
-        for name, level in ops:
+    def apply(self, img, chosen: Optional[List] = None) -> np.ndarray:
+        """One uint8 frame [H, W, 3] through ``chosen`` (default: a fresh
+        ``sample_ops()``)."""
+        img = ops.as_frames(img)
+        chosen = chosen if chosen is not None else self.sample_ops()
+        for name, level in chosen:
             img = _apply_op(img, name, level)
         return img
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
-        """uint8 frames [T, H, W, 3], one op sequence per clip."""
-        from PIL import Image
-
-        ops = self.sample_ops()
-        out = np.stack([
-            np.asarray(self.apply(Image.fromarray(f), ops))
-            for f in frames])
-        return out
+        """uint8 frames [T, H, W, 3], one op sequence per clip (the signs
+        are drawn again for every frame, in frame order)."""
+        chosen = self.sample_ops()
+        return np.stack([self.apply(f, chosen)
+                         for f in ops.as_frames(frames)])

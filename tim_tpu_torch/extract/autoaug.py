@@ -1,6 +1,8 @@
-"""Exact timm-derived RandAugment engine (draw-for-draw compatible). A copy
-of ``tim_tpu/extract/autoaug.py`` (numpy and PIL, PIL imported where an op
-runs; a test pins it to the original, pixel for pixel).
+"""Exact timm-derived RandAugment engine (draw-for-draw compatible). The
+counterpart of ``tim_tpu/extract/autoaug.py``, whose ops run in PIL: here
+they run on uint8 arrays through ``extract.imageops`` (Pillow's arithmetic
+in numpy and host C++, no PIL); a test pins it to the original, pixel for
+pixel.
 
 The reference ships two near-identical copies of Ross Wightman's
 ``autoaugment.py``, with different knobs:
@@ -41,9 +43,11 @@ from __future__ import annotations
 
 import random
 import re
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from tim_tpu_torch.extract import imageops as ops
 
 MAX_MAG = 10.0
 GRAY = (128, 128, 128)
@@ -110,58 +114,61 @@ def _resolve(name: str, mag: float, hp: Dict) -> tuple:
     return ()  # AutoContrast / Equalize / Invert
 
 
-def _paint(img, name: str, args: tuple, kw: Dict):
-    """Apply one resolved op to one PIL image."""
-    from PIL import Image, ImageEnhance, ImageOps
-
+def _paint(frames: np.ndarray, name: str, args: tuple, kw: Dict):
+    """Apply one resolved op to uint8 frames [T, H, W, 3] (``imageops``:
+    Pillow's arithmetic)."""
     if name == "AutoContrast":
-        return ImageOps.autocontrast(img)
+        return ops.autocontrast(frames)
     if name == "Equalize":
-        return ImageOps.equalize(img)
+        return ops.equalize(frames)
     if name == "Invert":
-        return ImageOps.invert(img)
+        return ops.invert(frames)
     if name.startswith("Posterize"):
         bits = args[0]
-        return img if bits >= 8 else ImageOps.posterize(img, bits)
+        return frames if bits >= 8 else ops.posterize(frames, bits)
     if name in ("Solarize", "SolarizeIncreasing"):
-        return ImageOps.solarize(img, args[0])
+        return ops.solarize(frames, args[0])
     if name == "SolarizeAdd":
-        if img.mode not in ("L", "RGB"):
-            return img
-        add = args[0]
-        lut = [min(255, i + add) if i < 128 else i for i in range(256)]
-        return img.point(lut * 3 if img.mode == "RGB" else lut)
+        return ops.solarize_add(frames, args[0])
     if name.startswith("Color"):
-        return ImageEnhance.Color(img).enhance(args[0])
+        return ops.color(frames, args[0])
     if name.startswith("Contrast"):
-        return ImageEnhance.Contrast(img).enhance(args[0])
+        return ops.contrast(frames, args[0])
     if name.startswith("Brightness"):
-        return ImageEnhance.Brightness(img).enhance(args[0])
+        return ops.brightness(frames, args[0])
     if name.startswith("Sharpness"):
-        return ImageEnhance.Sharpness(img).enhance(args[0])
+        return ops.sharpness(frames, args[0])
 
-    # geometric: one interpolation draw per application — the reference
-    # calls aug_fn(img, *args, **self.kwargs), and **-unpacking copies
-    # the dict, so _check_args_tf's mutation never persists
+    # geometric: one interpolation draw per frame, in frame order — the
+    # reference calls aug_fn(img, *args, **self.kwargs) per frame, and
+    # **-unpacking copies the dict, so _check_args_tf's mutation never
+    # persists
     rs = kw["resample"]
     if isinstance(rs, (list, tuple)):
-        rs = random.choice(rs)
+        draws = np.asarray([random.choice(rs) for _ in range(len(frames))])
+    else:
+        draws = np.full(len(frames), rs)
     fill = kw["fillcolor"]
-    if name == "Rotate":
-        return img.rotate(args[0], resample=rs, fillcolor=fill)
+    h, w = frames.shape[1:3]
     v = args[0]
-    if name == "ShearX":
-        mat = (1, v, 0, 0, 1, 0)
-    elif name == "ShearY":
-        mat = (1, 0, 0, v, 1, 0)
-    elif name in ("TranslateX", "TranslateXRel"):
-        px = v * img.size[0] if name.endswith("Rel") else v
-        mat = (1, 0, px, 0, 1, 0)
-    else:  # TranslateY / TranslateYRel
-        px = v * img.size[1] if name.endswith("Rel") else v
-        mat = (1, 0, 0, 0, 1, px)
-    return img.transform(img.size, Image.AFFINE, mat,
-                         resample=rs, fillcolor=fill)
+    out = np.empty_like(frames)
+    for resample in np.unique(draws):      # the frames of each draw at once
+        sel = draws == resample
+        if name == "Rotate":
+            out[sel] = ops.rotate(frames[sel], v, int(resample), fill)
+            continue
+        if name == "ShearX":
+            mat = (1, v, 0, 0, 1, 0)
+        elif name == "ShearY":
+            mat = (1, 0, 0, v, 1, 0)
+        elif name in ("TranslateX", "TranslateXRel"):
+            px = v * w if name.endswith("Rel") else v
+            mat = (1, 0, px, 0, 1, 0)
+        else:  # TranslateY / TranslateYRel
+            px = v * h if name.endswith("Rel") else v
+            mat = (1, 0, 0, 0, 1, px)
+        out[sel] = ops.affine(frames[sel], mat, int(resample), fill)
+    return out
 
 
 class ExactAugmentOp:
@@ -180,10 +187,12 @@ class ExactAugmentOp:
             "resample": self.hp.get("interpolation", None),
         }
         if self.kw["resample"] is None:
-            from PIL import Image
-            self.kw["resample"] = (Image.BILINEAR, Image.BICUBIC)
+            self.kw["resample"] = (ops.BILINEAR, ops.BICUBIC)
 
     def __call__(self, x):
+        """uint8 frame [H, W, 3] or frames [T, H, W, 3] (or a list of
+        frames) in; uint8 array of the same shape out."""
+        x = ops.as_frames(x)
         if self.seed is not None:
             np.random.seed(self.seed)
             random.seed(self.seed)
@@ -194,8 +203,8 @@ class ExactAugmentOp:
             mag = random.gauss(mag, self.mstd)
         mag = min(MAX_MAG, max(0.0, mag))
         args = _resolve(self.name, mag, self.hp)
-        if isinstance(x, list):
-            return [_paint(im, self.name, args, self.kw) for im in x]
+        if x.ndim == 3:
+            return _paint(x[None], self.name, args, self.kw)[0]
         return _paint(x, self.name, args, self.kw)
 
 
@@ -209,6 +218,7 @@ class ExactRandAugment:
         self.choice_weights = choice_weights
 
     def __call__(self, x):
+        x = ops.as_frames(x)
         picks = np.random.choice(
             len(self.ops), self.num_layers,
             replace=self.choice_weights is None, p=self.choice_weights)
@@ -292,8 +302,6 @@ def omnivore_clip_augment(frames: np.ndarray, *, crop_size: int = 224,
     the global RNGs, frame 0's op pair is chosen from the ambient
     ``np.random`` state but frames 1..T-1 all draw from the re-seeded
     state — so they receive one identical op pair."""
-    from PIL import Image
-
     if seed is None:
         seed = random.randint(0, 100000000)
     hp = dict(
@@ -303,7 +311,7 @@ def omnivore_clip_augment(frames: np.ndarray, *, crop_size: int = 224,
     out = []
     for f in frames:
         t = rand_augment_omnivore("rand-m15-mstd0.5-inc1", hp, seed)
-        out.append(np.asarray(t(Image.fromarray(f))))
+        out.append(t(f))
     return np.stack(out)
 
 
@@ -317,17 +325,13 @@ class VideoRandAugment:
                  crop_size: int = 224, interpolation: str = "bicubic"):
         hp: Dict = {"translate_const": int(crop_size * 0.45)}
         if interpolation and interpolation != "random":
-            from PIL import Image
             hp["interpolation"] = {
-                "bilinear": Image.BILINEAR,
-                "bicubic": Image.BICUBIC,
-                "lanczos": Image.LANCZOS,
-                "nearest": Image.NEAREST,
+                "bilinear": ops.BILINEAR,
+                "bicubic": ops.BICUBIC,
+                "lanczos": ops.LANCZOS,
+                "nearest": ops.NEAREST,
             }[interpolation]
         self.transform = rand_augment_transform(config_str, hp)
 
     def __call__(self, frames: np.ndarray) -> np.ndarray:
-        from PIL import Image
-
-        imgs: List = [Image.fromarray(f) for f in frames]
-        return np.stack([np.asarray(i) for i in self.transform(imgs)])
+        return self.transform(ops.as_frames(frames))

@@ -22,10 +22,11 @@ after the first are SpecAugment. The visual backbones read their JPEG
 frames with the port's own decoder (``utils.jpeg.read_jpegs``, one call a
 clip, Pillow's pixels: the Exif orientation is not applied) and resize
 them with its copies of Pillow's and cv2's uint8 resizes
-(``extract.image``): ``--num_aug 1`` loads neither PIL nor cv2.
-``--num_aug > 1`` adds RandAugment sets (``extract/autoaug.py``, which
-needs PIL): ``omnivore_clip_augment`` on the BGR frames for Swin,
+(``extract.image``). ``--num_aug > 1`` adds RandAugment sets
+(``extract/autoaug.py`` over ``extract.imageops``, Pillow's ops of the
+port's own): ``omnivore_clip_augment`` on the BGR frames for Swin,
 ``VideoRandAugment("rand-m7-n4-mstd0.5-inc1")`` (bicubic) for the ViT.
+No route loads PIL or cv2.
 ``--quantize_backbone on`` builds the int8 backbone (``quantized=True``)
 from the fp32 weights, random or ``--checkpoint``
 (``ops.quant.quantize_backbone_state_dict``), with dynamic per-row
@@ -34,8 +35,7 @@ SlowFast has no int8 layout: ``--backbone slowfast --quantize_backbone on``
 raises ``ValueError`` (the JAX CLI ignores the flag there and runs fp32).
 Without ``--checkpoint`` the weights are random, from a generator seeded
 0. ``main`` reads the feature-time table with the port's own DataFrame
-pickle reader (``utils.pdpickle``, no pandas); PIL is imported by
-RandAugment only.
+pickle reader (``utils.pdpickle``, no pandas).
 """
 
 from __future__ import annotations
@@ -198,13 +198,7 @@ def rand_augment(args):
     frames [T, H, W, 3] in and out): ``epickitchens.py:107-123``'s fresh
     rand-m15-mstd0.5-inc1 transform per frame with one clip seed, fill
     the ImageNet mean, for omnivore; ``feature_extraction.py:104-112``'s
-    one timm transform per clip, bicubic, for videomae. Needs PIL."""
-    try:
-        import PIL  # noqa: F401
-    except ImportError as e:
-        raise ImportError(
-            f"--num_aug {args.num_aug}: the RandAugment sets "
-            f"(extract/autoaug.py) need PIL, which is not installed") from e
+    one timm transform per clip, bicubic, for videomae."""
     from tim_tpu_torch.extract.autoaug import (
         VideoRandAugment, omnivore_clip_augment)
 

@@ -212,7 +212,7 @@ class EK100ClipDataset:
     ``dict`` of arrays or a DataFrame. ``frame_reader(video_id, indices,
     frame_offset) -> uint8 [T, H, W, 3]`` — injectable so that clips come from any source.
     ``rand_augment`` None: the finetune recipe's ``VideoRandAugment``
-    (needs PIL).
+    (Pillow's ops of the port's own, ``extract.imageops``).
     """
 
     def __init__(

@@ -17,7 +17,9 @@ annotation CSVs (video_id, start_frame, stop_frame, verb_class,
 noun_class) with the port's own reader (``data.table.read_csv``, no
 pandas) and the frames with the port's own JPEG decoder
 (``extract.clips.jpeg_frame_reader``: cv2.imread's pixels and orientation,
-no cv2), builds the clip datasets (``datasets``) and hands them to
+no cv2), builds the clip datasets (``datasets``; the finetune clips'
+RandAugment is ``VideoRandAugment`` over the port's own Pillow ops,
+``extract.imageops``, so neither mode loads PIL) and hands them to
 ``run``, which trains on the CUDA card (``device="cuda"``, the default; raises without one) or,
 when asked, on the CPU:
 
@@ -121,25 +123,15 @@ def datasets(args, anno_train, anno_val, reader: Callable, *,
     ``Table``, a DataFrame or a ``dict`` of arrays) and a frame reader:
     pretraining takes train clips with identity RandAugment and no erasing
     (val_ds None); finetuning takes ``--num_sample`` views a clip with
-    ``rand_augment`` (None: the recipe's ``VideoRandAugment``, which needs
-    PIL) and erasing at ``--reprob``, and validation clips of
-    ``anno_val`` (``anno_train`` when None)."""
+    ``rand_augment`` (None: the recipe's ``VideoRandAugment``) and erasing
+    at ``--reprob``, and validation clips of ``anno_val`` (``anno_train``
+    when None)."""
     from tim_tpu_torch.extract.clips import EK100ClipDataset
     common = dict(num_frames=args.num_frames, crop_size=args.input_size)
     if args.mode == "pretrain":
         return EK100ClipDataset(
             anno_train, reader, mode="train", num_sample=1, reprob=0.0,
             rand_augment=identity_augment, **common), None
-    if rand_augment is None:
-        try:
-            import PIL  # noqa: F401
-        except ImportError as e:
-            raise ImportError(
-                "--mode finetune: the training clips' RandAugment "
-                "(rand-m7-n4-mstd0.5-inc1, VideoRandAugment) needs PIL, "
-                "which is not installed; build the datasets with "
-                "finetune_cli.datasets(..., rand_augment=...) and call "
-                "finetune_cli.run") from e
     train_ds = EK100ClipDataset(
         anno_train, reader, mode="train", num_sample=args.num_sample,
         reprob=args.reprob, rand_augment=rand_augment, **common)

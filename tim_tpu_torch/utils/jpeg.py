@@ -1,6 +1,8 @@
 """JPEG frames without PIL or cv2: the port's own decoder,
 ``csrc/host/jpeg.cc``, compiled with ``g++`` on first use into
-``tim_tpu_torch/build/`` and loaded with ctypes.
+``tim_tpu_torch/build/`` and loaded with ctypes. The same host library
+holds the per-pixel loops of ``extract.image`` (``jpeg.cc``'s resizes) and
+``extract.imageops`` (``csrc/host/imageops.cc``).
 
 It reproduces libjpeg-turbo's default decompression, which is what both of
 the reference's frame readers give: ``np.asarray(Image.open(f).convert(
@@ -38,7 +40,8 @@ from typing import Optional, Sequence
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "host", "jpeg.cc")
+_SRCS = tuple(os.path.join(_PKG, "csrc", "host", name)
+              for name in ("jpeg.cc", "imageops.cc"))
 _LIB_DIR = os.path.join(_PKG, "build")
 _LIB = os.path.join(_LIB_DIR, "libtimjpeg.so")
 _ERR = 512
@@ -51,18 +54,19 @@ def _build() -> None:
     compiler = shutil.which("g++")
     if compiler is None:
         raise RuntimeError(
-            "the port's JPEG decoder and uint8 resizes (csrc/host/jpeg.cc) "
-            "are compiled with g++, which is not on PATH")
+            "the port's JPEG decoder, uint8 resizes and image ops "
+            "(csrc/host/jpeg.cc, imageops.cc) are compiled with g++, which "
+            "is not on PATH")
     os.makedirs(_LIB_DIR, exist_ok=True)
     # a unique temporary name and an atomic rename: no process loads a
     # half-written library
     tmp = f"{_LIB}.{os.getpid()}.{threading.get_ident()}.tmp"
     run = subprocess.run(
         [compiler, "-O2", "-std=c++17", "-shared", "-fPIC",
-         "-ffp-contract=off", _SRC, "-o", tmp], capture_output=True,
+         "-ffp-contract=off", *_SRCS, "-o", tmp], capture_output=True,
         text=True)
     if run.returncode:
-        raise RuntimeError(f"g++ failed to build {_SRC}:\n{run.stderr}")
+        raise RuntimeError(f"g++ failed to build {_SRCS}:\n{run.stderr}")
     os.replace(tmp, _LIB)
 
 
@@ -72,8 +76,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB) or (
-                os.path.getmtime(_SRC) > os.path.getmtime(_LIB)):
+        if not os.path.exists(_LIB) or max(
+                map(os.path.getmtime, _SRCS)) > os.path.getmtime(_LIB):
             _build()
         lib = ctypes.CDLL(_LIB)
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -96,6 +100,11 @@ def library() -> ctypes.CDLL:
         lib.resize_cv2_linear_u8.argtypes = [
             u8p, c_int, c_int, c_int, u8p, c_int, c_int, ctypes.c_double,
             ctypes.c_double]
+        lib.affine_u8.restype = None
+        lib.affine_u8.argtypes = [u8p, c_int, c_int, c_int, u8p,
+                                  ctypes.POINTER(ctypes.c_double), c_int, u8p]
+        lib.smooth_u8.restype = None
+        lib.smooth_u8.argtypes = [u8p, c_int, c_int, c_int, u8p]
         _lib = lib
         return lib
 
