@@ -333,6 +333,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      subprocess: Pillow's ops against the port's over the fixture's grid
      and a seeded random grid (any mismatch fails), Pillow's and the
      port's frames/s side by side; the phase within 40 s.
+ 31. the widths the command lines take past the presets (last): a. kernel
+     5 and 5b at ViT-H/16's [8, 16, 1568, 80] and at [2, 16, 1568, 91]
+     (the wrapper's zero-padded copy to the 128 instance), kernel 1 at the
+     wide TIM's [128, 16, 798, 160] (F 100, bf16 on its tensor-core
+     instance) and at head dim 91 on strided views of a packed qkv,
+     kernel 2 at [128 x 898, 2560] FF 5120 and [128 x 898, 728] FF 1456,
+     kernel 3 at fc_action's [51,072 x 2560] -> 3806 (two chunks of K),
+     K 728 (w_q padded once) and K 726 (x's rows unaligned), each in fp32
+     and bf16 against its plain version under the gates in force, each
+     bf16 gate shown to reject its controls, the bf16 calls timed beside
+     the plain version, the library call (SDPA and its backward, masked
+     SDPA, the unfused tail, quantize + ``_int_mm``) and the bound, with
+     their launches; b. TIM detection at ``--d_model 1280 --nhead 16``
+     (C 2560): an fp32 2-layer slice card vs CPU, then 6 layers on the
+     card, bf16 vs fp32 scores, one bf16 batch of 128 windows (kernels 1
+     and 2, paths ``widths-tim-wide-bf16``) and int8 static serving with
+     the fused heads (kernels 1 and 3, ``widths-tim-wide-int8``); the
+     same at ``--d_model 364 --nhead 8`` (C 728, head dim 91) at 2 layers
+     (``widths-tim-odd-*``); c. ``finetune_cli.run --mode finetune`` at
+     ViT-H/16 (``--embed_dim 1280 --depth 32 --num_heads 16``: 32
+     launches of kernels 5 and 5b a step, ``widths-vit-h``), two steps of
+     8 clips and one validation batch; peak memory and seconds a step.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -346,6 +368,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -6304,7 +6327,7 @@ class StepClock:
         self.module._batches = self.orig
 
 
-def ft_cli_run(tag, mode, args, train_ds, val_ds):
+def ft_cli_run(tag, mode, args, train_ds, val_ds, per=None):
     """``finetune_cli.run`` on the card, every count set to 0 just before
     and read just after; the train steps' phase times and peak memory.
     Returns (stats, launches, step times, seconds)."""
@@ -6322,7 +6345,7 @@ def ft_cli_run(tag, mode, args, train_ds, val_ds):
     steps = clock.steps
     train_steps = len(train_ds) // FT_BATCH
     val_batches = 0 if val_ds is None else -(-len(val_ds) // FT_BATCH)
-    clips = FT_BATCH * (2 if mode == "finetune" else 1)
+    clips = FT_BATCH * (args.num_sample if mode == "finetune" else 1)
     last = steps[train_steps - 1]
     log(f"[{tag}] finetune_cli.run --mode {mode}: {secs:.3f} s; "
         f"{train_steps} steps of {clips} clips ({FT_BATCH} segments), per "
@@ -6333,7 +6356,7 @@ def ft_cli_run(tag, mode, args, train_ds, val_ds):
         f"peak max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; stats "
         f"{json.dumps(stats)}; launches {launches}")
-    per = FT_PER_STEP[mode]
+    per = FT_PER_STEP[mode] if per is None else per
     require(launches["flash_mha"] == per * train_steps
             + args.depth * val_batches
             and launches["flash_mha_bwd"] == per * train_steps
@@ -7678,7 +7701,513 @@ def phase_build():
                                      "tim_i8")):
             log(f"[build] ptxas: {nice}: {regs} registers, spill stores "
                 f"{st} B, spill loads {ld} B")
+    # the wgmma kernels (by namespace and name, mangled or not) spill
+    # nothing, and ptxas serialised none of their products (its warnings
+    # C7510-C7520)
+    wgmma = (("fwd90", "attention_kernel"), ("sm90", "bwd_kernel"),
+             ("tim_fpa", "gemm_kernel"), ("tim_i8", "int8_matmul_kernel"))
+    spilled = [nice for (name, regs, st, ld), nice in zip(kernels, pretty)
+               if any(a in name and b in name for a, b in wgmma)
+               and (st or ld)]
+    with open(f"{lib}.log") as f:
+        serial = sorted(set(re.findall(r"[^\n]*C75[12]\d[^\n]*", f.read())))
+    log(f"[build] ptxas wgmma serialisation warnings: "
+        f"{serial if serial else 'none'}; wgmma kernels that spill: "
+        f"{spilled if spilled else 'none'}")
+    require(not serial and not spilled, "a wgmma kernel spills or has its "
+            "products serialised")
     return lib
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: the widths the command lines take
+# ---------------------------------------------------------------------------
+
+# The wide TIM (cli --d_model 1280 --nhead 16: C 2560, head dim 160, FF
+# 5120), an odd-width TIM (--d_model 364 --nhead 8: C 728, head dim 91, FF
+# 1456) and VideoMAE ViT-H/16 (finetune_cli --embed_dim 1280 --depth 32
+# --num_heads 16: head dim 80)
+WIDE_TIM = {"d_model": 1280, "nhead": 16}
+ODD_TIM = {"d_model": 364, "nhead": 8}
+VIT_H = ("--embed_dim", "1280", "--depth", "32", "--num_heads", "16")
+# kernel 5 / 5b: ViT-H's attention and a head dim off the 16-byte rule
+WIDTH_FLASH = ((8, 16, 1568, 80), (2, 16, 1568, 91))
+
+
+def packed_views(batch, seq, heads, dh, dtype, gen, f=None):
+    """q/k/v of one layer as strided views of a packed [B, S, 3, H, dh]
+    projection: the ViT's [B, H, S, dh] triple, or (``f``: TIM's F context
+    tokens first) kernel 1's five views."""
+    qkv = torch.randn(batch, seq, 3, heads, dh, generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if f is None:
+        return q, k, v
+    return (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
+
+
+def launches_of(counter, call) -> int:
+    """The launches ``counter`` (a wrapper with a ``launches`` count)
+    records during one ``call()``."""
+    before = counter.launches
+    call()
+    return counter.launches - before
+
+
+def widths_flash(gen):
+    """Kernels 5 and 5b at ViT-H's head dim 80 and at 91 (through the
+    wrapper's zero-padded copy to the 128 instance), fp32 and bf16, against
+    their plain versions under the gates in force, the bf16 gates shown to
+    reject their faulty controls; timed in bf16 at ViT-H's shape beside
+    SDPA, the copy timed alone."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    rows_f, rows_b = [], []
+    for b, h, s, dh in WIDTH_FLASH:
+        scale = dh ** -0.5
+        w, _ = fm.launch_plan(dh)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tag = f"{dtype} [{b}, {h}, {s}, {dh}] (instance {w})"
+            q, k, v = packed_views(b, s, h, dh, dtype, gen)
+            kw = {"sm_scale": scale}
+            got, err = check_attention("flash_mha", fm.flash_mha,
+                                       fm.flash_mha_plain, vit_scores,
+                                       (q, k, v), kw, f"widths {tag}",
+                                       controls=bf16)
+            out, lse = fm.flash_mha_with_lse(q, k, v, **kw)
+            do = torch.randn(out.shape, generator=gen,
+                             device="cuda").to(dtype)
+            grads = fm.flash_mha_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            want = fm.flash_mha_bwd_plain(q, k, v, do, **kw)
+            gerr = check_grads("flash_mha_bwd", grads, want, bf16,
+                               f"widths {tag}")
+            if bf16 and dh == 80:
+                sc = vit_scores(q, k, v, **kw)
+                bad = emulated_attention_bwd(sc, q, k, v, do, drop_delta=True,
+                                             **kw)
+                check_controls("flash_mha_bwd", f"widths {tag}", want,
+                               [("D omitted, dq", 0, bad[0]),
+                                ("D omitted, dk", 1, bad[1])])
+                del sc, bad
+            del got, grads, want
+            torch.cuda.empty_cache()
+            if not bf16 or dh != 80:
+                rows_f.append({"shape": [b, h, s, dh], "dtype": str(dtype),
+                               "max_abs_err": err})
+                rows_b.append({"shape": [b, h, s, dh], "dtype": str(dtype),
+                               "max_abs_err": gerr})
+                del q, k, v, out, lse, do
+                continue
+            n_scores = b * h * s * s
+            nb = nbytes(q, k, v, out)
+            row = time_forward(fm.flash_mha, fm.flash_mha_with_lse,
+                               fm.flash_mha_plain,
+                               lambda: F.scaled_dot_product_attention(
+                                   q, k, v, scale=scale),
+                               sdpa_with_grad(q, k, v, scale=scale),
+                               (q, k, v), kw, nb, n_scores, dh)
+            row.update(shape=[b, h, s, dh], dtype=str(dtype),
+                       max_abs_err=err, instance=w,
+                       launches=launches_of(fm.flash_mha, lambda: fm.flash_mha(
+                           q, k, v, **kw)),
+                       pad_copy_ms=cuda_ms(
+                           lambda: fm.padded_qkv(q, k, v, w)))
+            lib_err = max_err(F.scaled_dot_product_attention(
+                q, k, v, scale=scale), fm.flash_mha(q, k, v, **kw))
+            log_forward("flash_mha", f"widths [{b}, {h}, {s}, {dh}]", row,
+                        "scaled_dot_product_attention", lib_err)
+            log(f"[widths] flash_mha [{b}, {h}, {s}, {dh}] bf16: the "
+                f"zero-padded copy to the {w} instance alone "
+                f"{row['pad_copy_ms']:.4f} ms (in the kernel's time above); "
+                f"{row['launches']} launch a call")
+            rows_f.append(row)
+            brow = {"shape": [b, h, s, dh], "dtype": str(dtype),
+                    "max_abs_err": gerr, "instance": w,
+                    "launches": launches_of(
+                        fm.flash_mha_bwd, lambda: fm.flash_mha_bwd(
+                            q, k, v, out, lse, do, **kw))}
+            brow["ms"] = cuda_ms(lambda: fm.flash_mha_bwd(
+                q, k, v, out, lse, do, **kw))
+            brow["plain_ms"] = cuda_ms(lambda: fm.flash_mha_bwd_plain(
+                q, k, v, do, **kw), iters=3, warmup=1)
+            brow["library_ms"] = sdpa_bwd_ms(q, k, v, do)
+            brow["bound_ms"], brow["bound_by"] = attention_bwd_bound(
+                q, 2 * nbytes(q, k, v) + nbytes(out, do, lse))
+            brow["share_of_bound"] = brow["bound_ms"] / brow["ms"]
+            log(f"[widths] flash_mha_bwd [{b}, {h}, {s}, {dh}] bf16 (wide "
+                f"mma.sync passes at {w}, padded copies included): kernel "
+                f"{brow['ms']:.4f} ms ({brow['launches']} launch a call), "
+                f"plain {brow['plain_ms']:.4f} ms, "
+                f"scaled_dot_product_attention backward "
+                f"{brow['library_ms']:.4f} ms, bound {brow['bound_ms']:.4f} "
+                f"ms ({brow['bound_by']}, "
+                f"{100 * brow['share_of_bound']:.1f}%)")
+            rows_b.append(brow)
+            del q, k, v, out, lse, do
+            torch.cuda.empty_cache()
+    return {"flash_mha": rows_f, "flash_mha_bwd": rows_b}
+
+
+def widths_query_block(gen):
+    """Kernel 1 at the wide TIM's [128, 16, 798, 160] (F 100; bf16 on the
+    tensor-core instance at 160) and at head dim 91 on strided views of a
+    packed qkv (rows off 16 bytes: the CUDA-core design, lanes masked),
+    fp32 and bf16, bf16's gate shown to reject its two controls; timed
+    beside masked SDPA."""
+    from tim_tpu_torch.ops import query_block_attention as qba
+    rows = []
+    for batch, heads, dh in ((128, 16, 160), (128, 8, 91)):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = packed_views(batch, 898, heads, dh, dtype, gen, f=100)
+            plan = qba.launch_plan(dh, dtype, *args)
+            tag = f"{dtype} [{batch}, {heads}, 798, {dh}] F 100 ({plan})"
+            got = qba.query_block_attention(*args)
+            torch.cuda.synchronize()
+            want = qba.query_block_attention_plain(*args)
+            ok, err, rel = query_block_close(got, want)
+            log(f"[widths] query_block_attention {tag}: max_abs_err="
+                f"{err:.3e}, relative RMS {rel:.3e}")
+            require(got.shape == want.shape and ok,
+                    f"query_block_attention {tag} disagrees with its plain "
+                    f"version: max abs {err}, relative RMS {rel}")
+            row = {"shape": [batch, heads, 798, dh], "f": 100,
+                   "dtype": str(dtype), "plan": plan, "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                for cname, bad in (("self term dropped",
+                                    query_block_without_self(*args)),
+                                   ("output x 0.98",
+                                    (want.float() * 0.98).to(want.dtype))):
+                    c_ok, c_err, c_rel = query_block_close(bad, want)
+                    log(f"[widths] query_block_attention {tag} control "
+                        f"'{cname}': max abs {c_err:.3e}, relative RMS "
+                        f"{c_rel:.3e}, {'passes' if c_ok else 'rejected'}")
+                    require(not c_ok, f"query_block_attention {tag}: the "
+                            f"bf16 gate passes the faulty control '{cname}'")
+                    del bad
+                qq, kc = args[0], args[1]
+                ops = 4 * batch * heads * 798 * 101 * dh
+                row["ms"] = cuda_ms(lambda: qba.query_block_attention(*args))
+                row["plain_ms"] = cuda_ms(
+                    lambda: qba.query_block_attention_plain(*args), iters=3)
+                sdpa = masked_sdpa_args(*args)
+                row["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3]))
+                del sdpa
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes(*args) + nbytes(got), ops, "bf16")
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                row["launches"] = launches_of(
+                    qba.query_block_attention,
+                    lambda: qba.query_block_attention(*args))
+                log(f"[widths] query_block_attention {tag}: kernel "
+                    f"{row['ms']:.4f} ms ({row['launches']} launch a call), "
+                    f"plain {row['plain_ms']:.4f} ms, "
+                    f"masked scaled_dot_product_attention "
+                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
+                    f" ms ({row['bound_by']}, "
+                    f"{100 * row['share_of_bound']:.1f}%)")
+            rows.append(row)
+            del args, got, want
+            torch.cuda.empty_cache()
+    return rows
+
+
+def widths_tail(gen):
+    """Kernel 2 at the wide TIM's C 2560 / FF 5120 and the odd TIM's C 728
+    / FF 1456 (bf16 at batch 128, fp32 at 16; S 898): the presets' checks
+    and controls, bf16 timed beside the unfused library-GEMM tail."""
+    from tim_tpu_torch.ops import fused_post_attention as fpa
+    rows = []
+    for c, ff in ((2560, 5120), (728, 1456)):
+        for dtype, batch in ((torch.bfloat16, 128), (torch.float32, 16)):
+            args = tail_args(batch, dtype, gen, c=c, ff=ff)
+            tag = f"{dtype} [{batch} x 898, {c}] FF {ff}"
+            got = fpa.fused_post_attention(*args)
+            torch.cuda.synchronize()
+            want = fpa.fused_post_attention_plain(*args)
+            ok, err, rel = fused_close(got, want)
+            log(f"[widths] fused_post_attention {tag}: max_abs_err="
+                f"{err:.3e}, relative RMS {rel:.3e}")
+            require(got.shape == want.shape and ok,
+                    f"fused_post_attention {tag} disagrees with its plain "
+                    f"version: max abs {err}, relative RMS {rel}")
+            row = {"shape": [batch * 898, c, ff], "dtype": str(dtype),
+                   "max_abs_err": err, "relative_rms": rel,
+                   "plan": list(fpa.launch_plan(c, ff, dtype))}
+            if dtype == torch.bfloat16:
+                no_b2 = list(args)
+                no_b2[7] = torch.zeros_like(args[7])
+                controls = (("b2 omitted",
+                             fpa.fused_post_attention_plain(*no_b2)),
+                            ("LN2 statistics over half the row",
+                             tail_with_ln2_over_half(*args)))
+                for cname, bad in controls:
+                    c_ok, c_err, c_rel = fused_close(bad, want)
+                    log(f"[widths] fused_post_attention {tag} control "
+                        f"'{cname}': max abs {c_err:.3e}, relative RMS "
+                        f"{c_rel:.3e}, {'passes' if c_ok else 'rejected'}")
+                    require(not c_ok, f"fused_post_attention {tag}: the "
+                            f"bf16 gate passes the faulty control '{cname}'")
+                del controls, bad, no_b2, want
+                torch.cuda.empty_cache()
+                n = batch * 898
+                row["ms"] = cuda_ms(lambda: fpa.fused_post_attention(*args))
+                row["plain_ms"] = cuda_ms(
+                    lambda: fpa.fused_post_attention_plain(*args), iters=2,
+                    warmup=1)
+                row["library_ms"] = cuda_ms(lambda: unfused_tail(*args))
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes(*args) + nbytes(got), 4 * n * c * ff, "bf16")
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                row["launches"] = launches_of(
+                    fpa.fused_post_attention,
+                    lambda: fpa.fused_post_attention(*args))
+                log(f"[widths] fused_post_attention {tag}: kernel "
+                    f"{row['ms']:.4f} ms ({row['launches']} launch a call), "
+                    f"plain {row['plain_ms']:.4f} ms, "
+                    f"unfused library-GEMM tail {row['library_ms']:.4f} ms, "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                    f"{100 * row['share_of_bound']:.1f}%)")
+            rows.append(row)
+            del args, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def widths_int8(gen):
+    """Kernel 3 at the wide TIM's fc_action (K 2560: two chunks through the
+    tile) and at K 728 (w_q padded once to 736), plus K 726 (x's rows off
+    16 bytes) and fp32 inputs at a small batch: the plain version's int8
+    gate and a control without the bias; bf16 timed beside the library
+    route (quantize + _int_mm + epilogue)."""
+    from tim_tpu_torch.ops import int8_matmul_fused as i8
+    rows = []
+    for k, batch, dtype, timed_ in ((2560, 128, torch.bfloat16, True),
+                                    (728, 128, torch.bfloat16, True),
+                                    (2560, 4, torch.float32, False),
+                                    (726, 4, torch.bfloat16, False),
+                                    (726, 4, torch.float32, False)):
+        n = 3806
+        x, w_q, w_scale, sx, b = int8_head_args(batch, n, dtype, gen, k=k)
+        w_k = i8.pad_weight(w_q)
+        tag = (f"{dtype} [{x.shape[0] * x.shape[1]} x {k}] -> {n} "
+               f"(plan {i8.launch_plan(k)})")
+        got = i8.int8_matmul_fused(x, w_k, w_scale, sx, b)
+        got_unpadded = i8.int8_matmul_fused(x, w_q, w_scale, sx, b)
+        torch.cuda.synchronize()
+        want = i8.int8_matmul_fused_plain(x, w_q, w_scale, sx, b)
+        err = max_err(got, want)
+        log(f"[widths] int8_matmul_fused {tag}: max_abs_err={err:.3e}")
+        require(int8_close(got, want) and torch.equal(got, got_unpadded),
+                f"int8_matmul_fused {tag} disagrees with its plain version "
+                f"(max abs {err}) or with its unpadded-weight call")
+        bad = i8.int8_matmul_fused_plain(x, w_q, w_scale, sx, None)
+        require(not int8_close(bad, want), f"int8_matmul_fused {tag}: the "
+                f"gate passes the control without the bias")
+        del bad, got_unpadded
+        row = {"m": x.shape[0] * x.shape[1], "k": k, "n": n,
+               "dtype": str(dtype), "max_abs_err": err,
+               "launches_per_call": i8.launch_plan(k)[0]}
+        if timed_:
+            m = row["m"]
+            w_pad = F.pad(w_q, (0, 0, 0, -n % 8))
+            row["ms"] = cuda_ms(lambda: i8.int8_matmul_fused(
+                x, w_k, w_scale, sx, b))
+            row["plain_ms"] = cuda_ms(lambda: i8.int8_matmul_fused_plain(
+                x, w_q, w_scale, sx, b), iters=2, warmup=1)
+            row["library_ms"] = cuda_ms(lambda: int8_library_route(
+                x, w_pad, w_scale, sx, b, n))
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes(x, w_q, w_scale, b, got), 2 * m * k * n, "int8")
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["launches"] = launches_of(
+                i8.int8_matmul_fused,
+                lambda: i8.int8_matmul_fused(x, w_k, w_scale, sx, b))
+            log(f"[widths] int8_matmul_fused {tag}: kernel "
+                f"{row['ms']:.4f} ms ({row['launches']} launch a call, "
+                f"{row['launches_per_call']} chunk(s) of K), "
+                f"plain {row['plain_ms']:.4f} ms, "
+                f"library route (quantize + _int_mm + epilogue) "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, {100 * row['share_of_bound']:.1f}%)")
+            del w_pad
+        rows.append(row)
+        del x, w_q, w_k, w_scale, b, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def widths_kernels(gen):
+    """Phase 31a: each widened kernel against its plain version at the
+    command lines' new shapes."""
+    report = widths_flash(gen)
+    report["query_block_attention"] = widths_query_block(gen)
+    report["fused_post_attention"] = widths_tail(gen)
+    report["int8_matmul_fused"] = widths_int8(gen)
+    return report
+
+
+def timed_forward(tag, step, batch):
+    """One warm-up and one measured call of an inference step with every
+    kernel's count set to 0 just before the measured call and read just
+    after it: (launches, device ms, peak GiB, outputs)."""
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for key, v in out.items():
+        require(bool(torch.isfinite(v.float()).all()),
+                f"{tag}: non-finite {key}")
+    log(f"[{tag}] {batch['v_feats'].shape[0]} windows: {ms:.3f} device ms, "
+        f"peak {peak:.2f} GiB, launches {launches}")
+    return launches, ms, peak, out
+
+
+def widths_tim(tag, widths, layers, rng):
+    """Phase 31b for one TIM width: an fp32 2-layer slice card vs CPU on 2
+    windows; then ``layers`` layers (None: the preset's 6) on the card,
+    bf16 against the card's fp32 on 2 windows and one batch of 128
+    windows (kernels 1 and 2), and int8 static serving (fused heads,
+    kernels 1 and 3) on the same 128."""
+    import dataclasses
+    from tim_tpu_torch import config as C
+    from tim_tpu_torch.models import TimDetection
+    from tim_tpu_torch.serve import DetectionServer
+    from tim_tpu_torch.train.detection import make_inference_step
+
+    cfg32 = C.epic_detection(**widths, num_layers=2,
+                             compute_dtype="float32", use_fused_ffn=True)
+    cpu_model = TimDetection(cfg32, device="cpu", generator=torch.Generator()
+                             .manual_seed(SEED + 31))
+    gpu_model = TimDetection(cfg32, device="cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    batch2 = window_batch(cfg32, 2, rng)
+    counters = zero_counts()
+    gpu_out = make_inference_step(gpu_model, cfg32)(to_torch(batch2, "cuda"))
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    require(launches["query_block_attention"] == 2
+            and launches["fused_post_attention"] == 2,
+            f"{tag}-slice-fp32: launches {launches}")
+    t0 = time.perf_counter()
+    cpu_out = make_inference_step(cpu_model, cfg32)(to_torch(batch2, "cpu"))
+    log(f"[{tag}-slice-fp32] C {cfg32.encoder_width}, head dim "
+        f"{cfg32.encoder_width // cfg32.nhead}, FF "
+        f"{cfg32.feedforward_scale * cfg32.d_model}: CPU plain forward of 2 "
+        f"windows {time.perf_counter() - t0:.2f} s; card launches {launches}")
+    compare_outputs(f"{tag}-slice-fp32", gpu_out, cpu_out, SLICE_TOL)
+    del cpu_model, gpu_model, gpu_out, cpu_out
+
+    over = dict(widths) if layers is None else dict(widths, num_layers=layers)
+    cfg = C.epic_detection(**over, compute_dtype="float32",
+                           use_fused_ffn=True)
+    torch.manual_seed(SEED + 31)
+    model32 = TimDetection(cfg, device="cuda")
+    state_dict = model32.state_dict()
+    out32 = make_inference_step(model32, cfg)(to_torch(batch2, "cuda"))
+    del model32
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    server = DetectionServer(cfg16, state_dict, device="cuda",
+                             batch_size=128)
+    step16 = make_inference_step(server.model, cfg16)
+    out16 = step16(to_torch(batch2, "cuda"))
+    diff = max(max_err(out16[k], out32[k]) for k in ("v_scores", "a_scores"))
+    log(f"[{tag}-bf16] {cfg.num_layers} layers, "
+        f"{sum(p.numel() for p in server.model.parameters())} params: bf16 "
+        f"vs fp32 sigmoid scores on the card, 2 windows: max abs diff "
+        f"{diff:.4e} (tol {BF16_SCORE_TOL})")
+    require(diff <= BF16_SCORE_TOL, f"{tag}-bf16: scores drift {diff}")
+    big = to_torch(window_batch(cfg16, 128, rng), "cuda")
+    launches16, ms16, peak16, _ = timed_forward(f"{tag}-bf16", step16, big)
+    layers_n = cfg.num_layers
+    require(launches16["query_block_attention"] == layers_n
+            and launches16["fused_post_attention"] == layers_n
+            and launches16["int8_matmul_fused"] == 0,
+            f"{tag}-bf16: launches {launches16}")
+    del server, step16
+    torch.cuda.empty_cache()
+
+    cfg8 = dataclasses.replace(cfg16, quant_pallas_heads=True)
+    server8 = DetectionServer.quantized(cfg8, state_dict,
+                                        [to_torch(batch2, "cuda")],
+                                        device="cuda", batch_size=128)
+    step8 = make_inference_step(server8.model, server8.cfg)
+    out8 = step8(to_torch(batch2, "cuda"))
+    deltas = torch.cat([(out8[k] - out16[k]).abs().flatten()
+                        for k in ("v_scores", "a_scores")])
+    d_max, d_mean = deltas.max().item(), deltas.mean().item()
+    log(f"[{tag}-int8] int8 vs bf16 sigmoid scores, 2 windows: max abs diff "
+        f"{d_max:.4e} (tol {INT8_SCORE_MAX}), mean {d_mean:.4e} (tol "
+        f"{INT8_SCORE_MEAN})")
+    require(d_max <= INT8_SCORE_MAX and d_mean <= INT8_SCORE_MEAN,
+            f"{tag}-int8: int8 scores drift max {d_max} mean {d_mean}")
+    launches8, ms8, peak8, _ = timed_forward(f"{tag}-int8", step8, big)
+    require(launches8["query_block_attention"] == layers_n
+            and launches8["int8_matmul_fused"] == 2
+            and launches8["fused_post_attention"] == 0,
+            f"{tag}-int8: launches {launches8}")
+    del server8, step8, big, state_dict
+    torch.cuda.empty_cache()
+    summary = {"layers": layers_n, "c": cfg.encoder_width,
+               "head_dim": cfg.encoder_width // cfg.nhead,
+               "ff": cfg.feedforward_scale * cfg.d_model,
+               "bf16_ms_128_windows": ms16, "bf16_peak_gib": peak16,
+               "int8_ms_128_windows": ms8, "int8_peak_gib": peak8,
+               "bf16_vs_fp32": diff, "int8_vs_bf16_max": d_max,
+               "int8_vs_bf16_mean": d_mean}
+    log(f"[{tag}] summary {json.dumps(summary)}")
+    return {f"{tag}-bf16": launches16, f"{tag}-int8": launches8}
+
+
+def widths_vit_h(tmp):
+    """Phase 31c: the finetune CLI at VideoMAE ViT-H/16's width and depth
+    (--embed_dim 1280 --depth 32 --num_heads 16: head dim 80, kernels 5
+    and 5b on the 128 instance through the padded copy): two finetune
+    steps of 8 clips and one validation batch."""
+    import random
+    from tim_tpu_torch.extract import finetune_cli
+    args = ft_args("finetune", tmp / "vit-h", *VIT_H, "--num_sample", "1")
+    train_ds, val_ds = finetune_cli.datasets(
+        args, ft_annotations(2 * FT_BATCH, SEED + 31),
+        ft_annotations(FT_BATCH, SEED + 32), ft_reader)
+    random.seed(SEED + 31)
+    np.random.seed(SEED + 31)
+    stats, launches, metrics = ft_cli_run("widths-vit-h", "finetune", args,
+                                          train_ds, val_ds, per=args.depth)
+    log(f"[widths-vit-h] summary {json.dumps(metrics)}")
+    return {"widths-vit-h": launches}
+
+
+def phase_widths(card: str):
+    """Phase 31: the widths the command lines take beyond the presets.
+    31a, each widened kernel against its plain version at the new shapes;
+    31b, TIM detection at --d_model 1280 --nhead 16 (full depth) and
+    --d_model 364 --nhead 8 (2 layers); 31c, the finetune CLI at ViT-H/16.
+    Returns (the kernels' rows, launches by path)."""
+    import pathlib
+    import tempfile
+    log(f"[widths] {card}")
+    report = timed("widths-kernels", widths_kernels,
+                   torch.Generator(device="cuda").manual_seed(SEED + 31))
+    rng = np.random.default_rng(SEED + 31)
+    paths = timed("widths-tim-wide", widths_tim, "widths-tim-wide",
+                  WIDE_TIM, None, rng)
+    paths.update(timed("widths-tim-odd", widths_tim, "widths-tim-odd",
+                       ODD_TIM, 2, rng))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(timed("widths-vit-h", widths_vit_h, pathlib.Path(tmp)))
+    return report, paths
 
 
 def main() -> int:
@@ -7768,13 +8297,16 @@ def main() -> int:
     del state_dict, batch2
     torch.cuda.empty_cache()
     ft_cli_paths = timed("finetune-cli", phase_finetune_cli, card)
+    widths_report, widths_paths = timed("widths", phase_widths, card)
+    for name, rows in widths_report.items():
+        kernel_report[name]["widths"] = rows
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
                **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
                **autoaug_paths,
-               **media_paths, **ft_cli_paths}
+               **media_paths, **ft_cli_paths, **widths_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
@@ -7808,7 +8340,16 @@ def main() -> int:
             ("extract-videomae-int8", ("flash_mha",)),
             ("ft-cli-pretrain", ("flash_mha", "flash_mha_bwd")),
             ("ft-cli-finetune", ("flash_mha", "flash_mha_bwd")),
-            ("jax-ft-cli-finetune", ("flash_mha", "flash_mha_bwd"))):
+            ("jax-ft-cli-finetune", ("flash_mha", "flash_mha_bwd")),
+            ("widths-tim-wide-bf16", ("query_block_attention",
+                                      "fused_post_attention")),
+            ("widths-tim-wide-int8", ("query_block_attention",
+                                      "int8_matmul_fused")),
+            ("widths-tim-odd-bf16", ("query_block_attention",
+                                     "fused_post_attention")),
+            ("widths-tim-odd-int8", ("query_block_attention",
+                                     "int8_matmul_fused")),
+            ("widths-vit-h", ("flash_mha", "flash_mha_bwd"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")

@@ -245,7 +245,16 @@ def test_no_module_imports_h5py():
     assert len(paths) > 50 and not found, found
 
 
-def test_pil_only_under_rand_augment_and_cv2_nowhere():
+def test_no_module_imports_joblib():
+    """No module of the port, and not ``chip_smoke.py``, imports joblib at
+    any depth: ``n_jobs > 1`` of the mAP chain runs on the standard
+    library's process pool (``evals.anet.parallel_map``), and the card's
+    machine has no joblib."""
+    paths, found = _imports_of(("joblib",))
+    assert len(paths) > 50 and not found, found
+
+
+def test_no_module_imports_pil_or_cv2():
     """The port decodes, resizes and augments frames itself: no module,
     and not ``chip_smoke.py``, imports PIL or cv2 at any depth (the
     RandAugment sets run ``extract/imageops.py``, Pillow's ops of the

@@ -98,24 +98,26 @@ def test_query_block_fp32_gate_stays_flat():
 @pytest.mark.parametrize("dh,refused", [(128, True), (64, True),
                                         (256, False)])
 def test_query_block_check_refuses_unaligned_bf16_rows(dh, refused):
-    """The bf16 tensor-core kernel (head dims 32-128) copies rows with
-    16-byte cp.async: a row stride or base address off 16 bytes is refused
-    (the CUDA-core instance at head dim 256 reads any)."""
+    """The bf16 tensor-core kernel (head dims 32-160) copies rows with
+    16-byte cp.async, so it refuses a row stride or base address off 16
+    bytes (``refused``): the launch plan sends such rows to the CUDA-core
+    design, which reads any (as it does every row at head dim 256). The
+    wrapper's check takes them all."""
     b, h, nq, f = 1, 2, 24, 10
     ok = [torch.zeros(b, h, n, dh, dtype=torch.bfloat16)
           for n in (nq, f, nq, f, nq)]
     qba._check(*ok)
+    assert qba.launch_plan(dh, torch.bfloat16, *ok) == (
+        qba.TENSOR_CORES if refused else qba.CUDA_CORES)
     padded = torch.zeros(b, h, nq, dh + 4, dtype=torch.bfloat16)[..., :dh]
     shifted = torch.zeros(b * h * nq * dh + 1,
                           dtype=torch.bfloat16)[1:].view(b, h, nq, dh)
     for bad in (padded, shifted):
         args = [bad, ok[1], ok[2], ok[3], ok[4]]
-        if refused:
-            with pytest.raises(ValueError, match="16-byte aligned"):
-                qba._check(*args)
-        else:
-            qba._check(*args)
+        qba._check(*args)
+        assert qba.launch_plan(dh, torch.bfloat16, *args) == qba.CUDA_CORES
     qba._check(*[t.float() for t in ok])   # fp32: the CUDA-core instance
+    assert qba.launch_plan(dh, torch.float32, *ok) == qba.CUDA_CORES
 
 
 def test_ablation_cuts_find_their_spans():

@@ -92,6 +92,16 @@ def test_query_block_kernel_matches_plain(gen, dtype, b, h, s, f, dh,
     # head dim 256: the CUDA-core instance in both dtypes
     (torch.bfloat16, 2, 2, 237, 100, 256, False),
     (torch.float32, 2, 2, 237, 100, 256, False),
+    # the wide TIM's 160 (bf16 on its tensor-core instance); 91 (bf16
+    # copied to the 128 instance, fp32 on masked CUDA-core lanes); 200
+    # (bf16 past 160: the CUDA-core design, lanes masked); 13, 48
+    (torch.bfloat16, 2, 4, 330, 100, 160, False),
+    (torch.float32, 2, 4, 330, 100, 160, True),
+    (torch.bfloat16, 2, 4, 330, 100, 91, True),
+    (torch.float32, 2, 4, 330, 100, 91, False),
+    (torch.bfloat16, 2, 2, 237, 100, 200, False),
+    (torch.bfloat16, 2, 2, 237, 50, 13, False),
+    (torch.float32, 2, 2, 237, 50, 48, False),
 ])
 def test_query_block_kernel_wide_context_and_head_dims(gen, dtype, b, h, s,
                                                        f, dh, shared):
@@ -145,10 +155,19 @@ def test_fused_kernel_gate_rejects_faulty_controls(gen):
 
 
 @pytest.mark.gpu
-def test_fused_kernel_rejects_untiled_widths(gen):
-    args = tail_args(1, torch.float32, gen, seq=8, c=64, ff=128)
-    with pytest.raises(ValueError, match="multiples"):
-        fused_post_attention(*args)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_kernel_rejects_untiled_widths(gen, dtype):
+    """Widths off the 128-column tiles (C 64, FF 128; C 52, FF 104, which
+    bf16 pads to multiples of 8) run and agree with the plain version;
+    weights that do not fit C are still refused."""
+    for c, ff in ((64, 128), (52, 104)):
+        args = tail_args(2, dtype, gen, seq=40, c=c, ff=ff)
+        assert fused_close(fused_post_attention(*args),
+                           fused_post_attention_plain(*args))[0]
+    bad = list(args)
+    bad[4] = bad[4][:, :-1]
+    with pytest.raises(ValueError, match="do not fit"):
+        fused_post_attention(*bad)
 
 
 @pytest.mark.gpu
@@ -211,17 +230,29 @@ def test_int8_kernel_k_tails(gen, dtype, k, n):
 
 @pytest.mark.gpu
 def test_int8_kernel_rejects_rows_past_its_tile(gen):
-    x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen,
-                                            k=2064)
-    with pytest.raises(ValueError, match="up to 2048"):
-        int8_matmul_fused(x, w_q, w_scale, sx, b)
+    """K past the tile's 2048 runs in chunks (two launches, the int32 sums
+    met in a scratch) and agrees with the plain version; a w_q of another
+    width is refused."""
+    for k in (2064, 4160):
+        x, w_q, w_scale, sx, b = int8_head_args(1, 50, torch.float32, gen,
+                                                k=k)
+        assert int8_close(int8_matmul_fused(x, w_q, w_scale, sx, b),
+                          int8_matmul_fused_plain(x, w_q, w_scale, sx, b))
+    with pytest.raises(ValueError, match="w_q must be int8"):
+        int8_matmul_fused(x, w_q[:, :-32], w_scale, sx, b)
 
 
 @pytest.mark.gpu
 def test_int8_kernel_rejects_unaligned_k(gen):
-    x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen, k=40)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        int8_matmul_fused(x, w_q, w_scale, sx, b)
+    """K off 16 (40) and off 8 (38, x's rows unaligned): w_q padded to a
+    multiple of 16, given padded or not, agrees with the plain version."""
+    from tim_tpu_torch.ops.int8_matmul_fused import pad_weight
+    for k in (40, 38):
+        x, w_q, w_scale, sx, b = int8_head_args(1, 16, torch.float32, gen,
+                                                k=k)
+        want = int8_matmul_fused_plain(x, w_q, w_scale, sx, b)
+        for w in (w_q, pad_weight(w_q)):
+            assert int8_close(int8_matmul_fused(x, w, w_scale, sx, b), want)
 
 
 @pytest.mark.gpu
@@ -365,12 +396,37 @@ def test_window_attention_launches_and_lse_match_plain(gen, dtype, n_win,
 
 @pytest.mark.gpu
 def test_attention_kernels_refuse_other_head_dims(gen):
+    """Kernel 4 takes head dim 32 only; kernel 5 any head dim up to 256
+    (48 through the zero-padded copy to the 64 instance), not 257."""
     q = torch.randn(1, 2, 40, 48, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head dim 48"):
-        flash_mha(q, q, q, sm_scale=0.1)
+    assert attention_close(flash_mha(q, q, q, sm_scale=0.1),
+                           flash_mha_plain(q, q, q, sm_scale=0.1))[0]
+    big = torch.randn(1, 2, 40, 257, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dim 257"):
+        flash_mha(big, big, big, sm_scale=0.1)
     bias = torch.zeros(2, 40, 40, device="cuda")
     with pytest.raises(ValueError, match="head dim 48"):
         window_attention(q, q, q, bias, sm_scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [16, 80, 128, 200, 256])
+def test_flash_mha_at_other_head_dims(gen, dtype, dh):
+    """Kernel 5 and 5b at head dims on and off their instances (64, 128,
+    256), both launches, the lse, and the backward against the plain
+    backward's gates."""
+    q, k, v = vit_qkv(2, 150, dtype, gen, heads=3, dh=dh)
+    kw = {"sm_scale": dh ** -0.5}
+    _check_both_launches(flash_mha, flash_mha_with_lse, flash_mha_plain,
+                         vit_scores, (q, k, v), kw)
+    out, lse = flash_mha_with_lse(q, k, v, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    got = flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_mha_bwd_plain(q, k, v, do, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert grad_close(g, w, dtype == torch.bfloat16)[0]
 
 
 @pytest.mark.gpu

@@ -192,18 +192,21 @@ def test_fused_plain_quantize_edges_match_pallas(out_dtype, k, n):
 @pytest.mark.parametrize("k,ok", [(2048, True), (2064, False), (40, False)])
 def test_fused_check_takes_the_kernels_k(k, ok):
     """The card's kernel keeps a tile of quantized rows in shared memory:
-    its wrapper takes K a multiple of 16 up to 2048 and refuses the rest
+    K a multiple of 16 up to 2048 runs in one launch on w_q as it is
+    (``ok``); longer K in chunks of 2048 and other K on w_q zero-padded to
+    a multiple of 16 (the launch plan). The wrapper's check takes every K,
+    with w_q unpadded or padded, and refuses a w_q of another width
     (checked here on CPU tensors, which themselves take the plain
     version)."""
     from tim_tpu_torch.ops import int8_matmul_fused as i8
     x = torch.zeros(2, 5, k)
     w_q = torch.zeros(24, k, dtype=torch.int8)
     args = (x, w_q, torch.ones(24), None, None, torch.bfloat16)
-    if ok:
-        i8._check(*args)
-    else:
-        with pytest.raises(ValueError, match="multiple of 16 up to 2048"):
-            i8._check(*args)
+    i8._check(*args)
+    i8._check(x, i8.pad_weight(w_q), *args[2:])
+    assert (i8.launch_plan(k) == (1, k)) == ok
+    with pytest.raises(ValueError, match="w_q must be int8"):
+        i8._check(x, torch.zeros(24, k + 32, dtype=torch.int8), *args[2:])
 
 
 def test_fused_reads_strided_views():

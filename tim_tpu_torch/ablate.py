@@ -81,16 +81,18 @@ FORWARD_HEADER = "flash_attention_sm90.cuh"
 FORWARD_CUTS = {
     "bias load": ("    if constexpr (BIAS) {\n      if (kt + 1 < "
                   "n_tiles) load_bias", "    sm90::wg_wait<0>();\n"
-                  "    sm90::fence_regs(o);", ""),
+                  "#pragma unroll\n    for (int j = 0; j < NC; ++j) "
+                  "sm90::fence_regs(o[j]);", ""),
     "region compare": ("      if (rc.masked) {", "    }\n    if (ragged) {",
                        ""),
     "exponentials": ("sm90::ex2(fmaf(sc[i], rc.c, -mc[r]));",
                      "   // -inf -> 0", "fmaf(sc[i], rc.c, -mc[r]);"),
     "lse store": ("    if constexpr (LSE) {\n      if (rc.tig == 0",
-                  "  }\n#pragma unroll\n  for (int i = 0; i < DH / 2; "
+                  "  }\n#pragma unroll\n  for (int j = 0; j < NC; ++j)\n"
+                  "#pragma unroll\n    for (int i = 0; i < DH / 2 / NC; "
                   "i += 2) {", ""),
     "second product (P V)": (
-        "    issue_pv<DH, BK>(o, pa, dv(kt - 1));\n",
+        "    issue_pv<DH, BK, NC>(o, pa, dv(kt - 1));\n",
         "    sm90::wg_commit();\n    sm90::wg_wait<1>();", ""),
 }
 KERNEL_4_ONLY = ("bias load", "region compare")
@@ -402,7 +404,7 @@ def ablate_2(libs, gen):
         fn = ctypes.CDLL(lib).tim_fused_post_attention
         fn.argtypes = fpa._ARGTYPES
         calls[name] = (lambda f: lambda: _build.check(
-            f(*ptrs, n, c, ff, 1, fpa.EPS, stream), "tail variant"))(fn)
+            f(*ptrs, n, c, ff, c, 1, fpa.EPS, stream), "tail variant"))(fn)
     y2 = x.reshape(n, c)
     calls["torch.matmul, both products"] = lambda: torch.matmul(
         torch.matmul(y2, inputs[4].t()), inputs[6].t())
@@ -430,8 +432,9 @@ def ablate_3(libs, gen):
     def call(fn, gelu):
         _build.check(fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                         b.data_ptr(), out.data_ptr(), x.stride(0),
-                        x.stride(1), 128, 399, 1024, n, inv_sx, sx, gelu, 1,
-                        1, stream), "int8_matmul_fused variant")
+                        x.stride(1), 128, 399, 1024, 1024, n, inv_sx, sx,
+                        gelu, 1, 1, None, stream),
+                     "int8_matmul_fused variant")
 
     calls = {}
     for name, lib in libs.items():

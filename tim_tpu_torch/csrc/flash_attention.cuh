@@ -259,6 +259,99 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
   }
 }
 
+// fp32 past head dim 64 (128, 256; no bias): a thread's q row and its
+// DH output sums would not fit its registers, so each block takes 64 of
+// the output dims (blockIdx.y) and keeps its 128 q rows in shared memory
+// (rows padded to an odd length: a warp's 32 rows fall in 32 banks); the
+// blocks of one query tile each recompute its scores. Otherwise the walk
+// of attention_f32_kernel.
+constexpr int kWideDims = 64;
+
+template <int DH>
+constexpr int f32_wide_smem_bytes() {
+  return (128 * (DH + 1) + 16 * DH + 16 * kWideDims) * 4;
+}
+
+template <int DH, bool LSE>
+__global__ void __launch_bounds__(128) attention_f32_wide_kernel(
+    const Params p) {
+  constexpr int BQ = 128, BK = 16, DO = kWideDims, LQ = DH + 1;
+  extern __shared__ __align__(16) float wide_smem[];
+  float* s_q = wide_smem;              // [BQ][LQ]
+  float* s_k = s_q + BQ * LQ;          // [BK][DH]
+  float* s_v = s_k + BK * DH;          // [BK][DO]: this block's dims
+
+  const Tile t = block_tile(p, BQ);
+  const int S = p.seq, d0 = blockIdx.y * DO;
+  const float* q = static_cast<const float*>(p.q) + t.b * p.sq.b + t.h * p.sq.h;
+  const float* k = static_cast<const float*>(p.k) + t.b * p.sk.b + t.h * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + t.b * p.sv.b + t.h * p.sv.h;
+  const int tid = threadIdx.x;
+  const int row = t.q0 + tid;
+  for (int i = tid; i < BQ * DH; i += 128) {
+    const int r = i / DH, c = i % DH, qr = min(t.q0 + r, S - 1);
+    s_q[r * LQ + c] = q[qr * p.sq.n + c];
+  }
+  const float* qs = s_q + tid * LQ;
+
+  float acc[DO];
+#pragma unroll
+  for (int d = 0; d < DO; ++d) acc[d] = 0.f;
+  float m = TIM_NEG_INF, l = 0.f;
+
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    __syncthreads();   // also: the q rows are in before the first tile
+    for (int i = tid; i < BK * DH; i += 128) {
+      const int r = i / DH, c = i % DH, key = k0 + r;
+      s_k[i] = key < S ? k[key * p.sk.n + c] : 0.f;
+    }
+    for (int i = tid; i < BK * DO; i += 128) {
+      const int r = i / DO, c = i % DO, key = k0 + r;
+      s_v[i] = key < S ? v[key * p.sv.n + d0 + c] : 0.f;
+    }
+    __syncthreads();
+
+    float s[BK];
+    float mx = TIM_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < DH; ++d) dot = fmaf(qs[d], s_k[j * DH + d], dot);
+      s[j] = k0 + j < S ? dot * p.scale : TIM_NEG_INF;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float corr = expf(m - m_new);
+    m = m_new;
+    l *= corr;
+#pragma unroll
+    for (int d = 0; d < DO; ++d) acc[d] *= corr;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      const float pj = expf(s[j] - m);
+      l += pj;
+#pragma unroll
+      for (int d = 0; d < DO; ++d) acc[d] = fmaf(pj, s_v[j * DO + d], acc[d]);
+    }
+  }
+
+  if (row < S) {
+    float* out = static_cast<float*>(p.out) + t.b * p.so.b + t.h * p.so.h +
+                 row * p.so.n + d0;
+    const float inv = 1.f / l;
+    if constexpr (LSE) {
+      if (blockIdx.y == 0)
+        p.lse[((long long)t.b * p.heads + t.h) * S + row] = m + logf(l);
+    }
+#pragma unroll
+    for (int c = 0; c < DO / 4; ++c)
+      *reinterpret_cast<float4*>(out + 4 * c) =
+          make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
+                      acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
+  }
+}
+
 // The fp32 kernel's launch (flash_attention_sm90.cuh's launch chooses
 // between it and the bf16 kernel); returns cudaGetLastError() after it.
 template <int DH, bool BIAS, bool LSE>
@@ -266,8 +359,18 @@ int launch_f32(const Params& p, cudaStream_t stream) {
   const long long blocks = (long long)p.batch * p.heads *
                            ((p.seq + 127) / 128);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  attention_f32_kernel<DH, BIAS, LSE><<<(unsigned)blocks, 128, 0,
-                                        stream>>>(p);
+  if constexpr (DH > kWideDims) {
+    static_assert(!BIAS, "the wide fp32 kernel takes no bias");
+    constexpr int smem = f32_wide_smem_bytes<DH>();
+    auto kernel = attention_f32_wide_kernel<DH, LSE>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((unsigned)blocks, DH / kWideDims), 128, smem, stream>>>(p);
+  } else {
+    attention_f32_kernel<DH, BIAS, LSE><<<(unsigned)blocks, 128, 0,
+                                          stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

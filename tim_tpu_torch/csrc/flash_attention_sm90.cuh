@@ -139,6 +139,17 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
     return (uint32_t)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
 }
 
+// Head dims past 64 (128, 256) keep a tile as DH / 64 column blocks, each
+// a [ROWS][64] tile in the 128-byte swizzle (one TMA box and one wgmma
+// operand width each): chunk c of row r lies in block c / 8.
+template <int DH, int ROWS>
+__device__ __forceinline__ uint32_t tile_at(int r, int c) {
+  if constexpr (DH <= 64)
+    return swz<DH>(r, c);
+  else
+    return (uint32_t)((c >> 3) * ROWS * 128) + swz<64>(r, c & 7);
+}
+
 // wgmma descriptor of a swizzled [rows][DH] tile at addr: the stride
 // between 8-row groups is 8 rows; the leading byte offset is unused by
 // these one-swizzle-atom-wide operands. A k16 step along a row adds 32
@@ -154,8 +165,12 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
 template <int DH, bool BIAS>
 struct Shape {
   // keys a tile: 48 for kernel 4 keeps its registers at two blocks an SM
-  // (128 a thread) free of spills
-  static constexpr int kKeys = BIAS ? 48 : 64;
+  // (128 a thread) free of spills; 32 at head dim 256 keeps four stages
+  // of K and V (and Q) in shared memory
+  static constexpr int kKeys = BIAS ? 48 : (DH > 128 ? 32 : 64);
+  // column blocks of a tile (DH / 64 past 64) and their width
+  static constexpr int kBW = DH < 64 ? DH : 64;
+  static constexpr int kNC = DH / kBW;
   static constexpr int kStages = 4;               // ring stages
   static constexpr int kAhead = kStages - 2;      // tiles loaded ahead
   // blocks an SM: two for kernel 4 (at most 128 registers a thread),
@@ -212,26 +227,37 @@ __device__ __forceinline__ void load_bias(float (&bias)[BK / 2],
   }
 }
 
-// S = Q K^T of one key tile: DH / 16 k-steps of m64 x BK x k16.
-template <int DH, int BK>
+// S = Q K^T of one key tile: DH / 16 k-steps of m64 x BK x k16; past
+// head dim 64 the k-steps walk the column blocks (QB, KB: a Q and a K
+// column block's bytes).
+template <int DH, int BK, int QB, int KB>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t dq,
                                         uint64_t dk) {
+  constexpr int kPer = DH < 64 ? DH / 16 : 4;   // k-steps a column block
   sm90::wgmma_ss<0, 0, false>(sc, dq, dk);
 #pragma unroll
-  for (int ks = 1; ks < DH / 16; ++ks)
-    sm90::wgmma_ss<0, 0, true>(sc, dq + 2 * ks, dk + 2 * ks);
+  for (int ks = 1; ks < DH / 16; ++ks) {
+    const int j = ks / kPer, kk = ks % kPer;
+    sm90::wgmma_ss<0, 0, true>(sc, dq + j * (QB >> 4) + 2 * kk,
+                               dk + j * (KB >> 4) + 2 * kk);
+  }
 }
 
-// O += P V of one key tile: BK / 16 k-steps of m64 x DH x k16, P's bf16
-// fragments from registers, V [keys][DH] read transposed.
-template <int DH, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[DH / 2],
+// O += P V of one key tile: BK / 16 k-steps of m64 x DH x k16 (one
+// product a column block past head dim 64), P's bf16 fragments from
+// registers, V [keys][DH] read transposed.
+template <int DH, int BK, int NC>
+__device__ __forceinline__ void issue_pv(float (&o)[NC][DH / 2 / NC],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint64_t dv) {
-  constexpr int kStep = (16 * DH * 2) >> 4;   // 16 key rows
+  constexpr int BW = DH / NC;
+  constexpr int kStep = (16 * BW * 2) >> 4;   // 16 key rows
+  constexpr int kBlock = (BK * BW * 2) >> 4;  // a column block of V
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    sm90::wgmma_rs<1>(o, pa[kk], dv + kk * kStep);
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::wgmma_rs<1>(o[j], pa[kk], dv + j * kBlock + kk * kStep);
 }
 
 // The softmax step of one key tile, in place on the fp32 scores: the
@@ -306,11 +332,13 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
     }
 }
 
-template <int NO>
-__device__ __forceinline__ void rescale(float (&o)[NO],
+template <int NC, int NO>
+__device__ __forceinline__ void rescale(float (&o)[NC][NO],
                                         const float (&corr)[2]) {
 #pragma unroll
-  for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[j][i] *= corr[(i >> 1) & 1];
 }
 
 // One block for 128 query rows of one (batch, head) (kernel 5) or 64 rows
@@ -327,6 +355,9 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
   constexpr int BK = Sh::kKeys, NS = Sh::kStages, AHEAD = Sh::kAhead;
   constexpr int RB = Sh::kRowBytes, CH = RB / 16;
   constexpr bool PAIR = Sh::kPair;
+  // column blocks: count, width, bytes of a Q and of a K/V block
+  constexpr int NC = Sh::kNC, BW = Sh::kBW;
+  constexpr int QB = kRows * BW * 2, KVB = BK * BW * 2;
   extern __shared__ unsigned char dyn_smem[];
   // 1024-byte aligned tiles (the swizzles repeat every 1024 or 512 bytes)
   const uint32_t raw = sm90::smem_u32(dyn_smem);
@@ -384,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     const bf* qr = static_cast<const bf*>(p.q) +
                    min(rb, p.batch - 1) * p.sq.b + h * p.sq.h +
                    min(row, S - 1) * p.sq.n;
-    sm90::cp16(s_q + swz<DH>(r, c), qr + c * 8,
+    sm90::cp16(s_q + tile_at<DH, kRows>(r, c), qr + c * 8,
                row < S && rb < p.batch ? 16 : 0);
   }
   // the windows' region ids, and whether each holds more than one region
@@ -413,10 +444,13 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
       const int st = j % NS;
       if (j >= NS) mbar_wait(empty(st), (j / NS - 1) & 1);
       mbar_expect_tx(full(st), 2 * Sh::kKVBytes);
-      tma_load_4d(s_k + st * Sh::kKVBytes, &tm_k, 0, j * BK, h, b,
-                  full(st));
-      tma_load_4d(s_v + st * Sh::kKVBytes, &tm_v, 0, j * BK, h, b,
-                  full(st));
+#pragma unroll
+      for (int cb = 0; cb < NC; ++cb) {
+        tma_load_4d(s_k + st * Sh::kKVBytes + cb * KVB, &tm_k, cb * BW,
+                    j * BK, h, b, full(st));
+        tma_load_4d(s_v + st * Sh::kKVBytes + cb * KVB, &tm_v, cb * BW,
+                    j * BK, h, b, full(st));
+      }
     }
     __syncwarp();   // the warp converges before its next wgmma
   };
@@ -440,22 +474,24 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     rc.bias[r] = BIAS ? p.bias + ((long long)h * S + row) * S : nullptr;
   }
 
-  float sc[BK / 2], o[DH / 2];
+  float sc[BK / 2], o[NC][DH / 2 / NC];
   float bias[BIAS ? BK / 2 : 1];
   uint32_t pa[BK / 16][4];
   float m[2] = {TIM_NEG_INF, TIM_NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
-  const uint64_t dq = desc<DH>(s_q + wg * 64 * RB);
-  auto dk = [&](int kt) { return desc<DH>(s_k + (kt % NS) * Sh::kKVBytes); };
-  auto dv = [&](int kt) { return desc<DH>(s_v + (kt % NS) * Sh::kKVBytes); };
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < DH / 2 / NC; ++i) o[j][i] = 0.f;
+  const uint64_t dq = desc<BW>(s_q + wg * 64 * BW * 2);
+  auto dk = [&](int kt) { return desc<BW>(s_k + (kt % NS) * Sh::kKVBytes); };
+  auto dv = [&](int kt) { return desc<BW>(s_v + (kt % NS) * Sh::kKVBytes); };
   auto arrived = [&](int kt) { mbar_wait(full(kt % NS), (kt / NS) & 1); };
   if constexpr (BIAS) load_bias<BK>(bias, rc, 0, S);
 
   // tile 0: its scores and probabilities (O is still zero)
   arrived(0);
   sm90::wg_fence();
-  issue_s<DH, BK>(sc, dq, dk(0));
+  issue_s<DH, BK, QB, KVB>(sc, dq, dk(0));
   sm90::wg_commit();
   sm90::wg_wait<0>();
   sm90::fence_regs(sc);
@@ -469,9 +505,9 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
   for (int kt = 1; kt < n_tiles; ++kt) {
     arrived(kt);
     sm90::wg_fence();
-    issue_s<DH, BK>(sc, dq, dk(kt));
+    issue_s<DH, BK, QB, KVB>(sc, dq, dk(kt));
     sm90::wg_commit();
-    issue_pv<DH, BK>(o, pa, dv(kt - 1));
+    issue_pv<DH, BK, NC>(o, pa, dv(kt - 1));
     sm90::wg_commit();
     sm90::wg_wait<1>();   // S_kt done; the PV product still runs
     sm90::fence_regs(sc);
@@ -480,7 +516,8 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
       if (kt + 1 < n_tiles) load_bias<BK>(bias, rc, (kt + 1) * BK, S);
     }
     sm90::wg_wait<0>();
-    sm90::fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) sm90::fence_regs(o[j]);
     sm90::fence_regs(pa);
     mbar_arrive(empty((kt - 1) % NS));   // done with tile kt - 1
     rescale(o, corr);
@@ -488,10 +525,11 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     if (kt + AHEAD < n_tiles) load(kt + AHEAD);
   }
   sm90::wg_fence();
-  issue_pv<DH, BK>(o, pa, dv(n_tiles - 1));
+  issue_pv<DH, BK, NC>(o, pa, dv(n_tiles - 1));
   sm90::wg_commit();
   sm90::wg_wait<0>();
-  sm90::fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) sm90::fence_regs(o[j]);
   sm90::fence_regs(pa);
 
   bf* out = static_cast<bf*>(p.out) + b * p.so.b + h * p.so.h;
@@ -511,14 +549,16 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     }
   }
 #pragma unroll
-  for (int i = 0; i < DH / 2; i += 2) {
-    const int r = (i >> 1) & 1;
-    const int row = row0 + 8 * r;
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(out + row * p.so.n + (i / 4) * 8 +
-                                   2 * rc.tig) =
-          pack_bf16(o[i] * inv[r], o[i + 1] * inv[r]);
-  }
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int i = 0; i < DH / 2 / NC; i += 2) {
+      const int r = (i >> 1) & 1;
+      const int row = row0 + 8 * r;
+      if (row < S)
+        *reinterpret_cast<uint32_t*>(out + row * p.so.n + j * BW +
+                                     (i / 4) * 8 + 2 * rc.tig) =
+            pack_bf16(o[j][i] * inv[r], o[j][i + 1] * inv[r]);
+    }
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link
@@ -544,17 +584,19 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The TMA map of a row-major [rows, cols] matrix of `type` (elem_bytes
-// each, rows contiguous, 16-byte aligned), boxes of box_rows rows x 128
-// bytes in the 128-byte swizzle: the K-major GEMM operand tiles of kernels
-// 2 and 3. Rows and columns past the end read as zeros. Returns a CUDA
-// error code.
+// each, rows contiguous, 16-byte aligned, `pitch` elements apart), boxes
+// of box_rows rows x 128 bytes in the 128-byte swizzle: the K-major GEMM
+// operand tiles of kernels 2 and 3. Rows and columns past the end read as
+// zeros. Returns a CUDA error code.
 inline int row_major_map(CUtensorMap* map, CUtensorMapDataType type,
                          const void* base, long long rows, long long cols,
-                         int elem_bytes, int box_rows) {
+                         int elem_bytes, int box_rows, long long pitch = 0) {
+  // pitch: the row stride in elements (0: cols), a multiple of 16 bytes
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)(cols * elem_bytes)};
+  cuuint64_t strides[1] = {(cuuint64_t)((pitch > 0 ? pitch : cols) *
+                                        elem_bytes)};
   cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
   cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
@@ -582,12 +624,14 @@ int kv_map(CUtensorMap* map, const void* base, const Strides& s, int batch,
     strides[i] = (cuuint64_t)(dims[i + 1] > 1 ? st[i] : extent) * 2;
     extent = (long long)(strides[i] / 2) * (long long)dims[i + 1];
   }
-  cuuint32_t box[4] = {(cuuint32_t)DH, (cuuint32_t)rows, 1, 1};
+  // past 64 a box is one 64-column block (the 128-byte swizzle's limit)
+  constexpr int BW = DH < 64 ? DH : 64;
+  cuuint32_t box[4] = {(cuuint32_t)BW, (cuuint32_t)rows, 1, 1};
   cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
       dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      DH == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      BW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -19,13 +19,20 @@
 // flash_attention_sm90.cuh, which overlaps the softmax work with the
 // products (128 queries a block, 64-key tiles through a four-stage TMA
 // ring). fp32 keeps flash_attention.cuh's CUDA-core kernel.
+//
+// Head dims 128 and 256 (ViT-H/16's 80 and TIM-width heads arrive here
+// zero-padded by the wrapper) take the same core with each tile split
+// into 64-column blocks (one TMA box and one wgmma operand each); 256
+// streams 32-key tiles so that four stages still fit beside Q.
 
 #include "flash_attention_sm90.cuh"
 
-// Head dim 64 (ViT-B/L and the MAE decoder); another returns
-// cudaErrorInvalidValue. strides: 12 element strides, (batch, head, row)
-// for q, k, v and out. lse: [batch, heads, seq] fp32 for the backward, or null. Returns
-// cudaGetLastError() after the launch (0 on success).
+// Head dims 64 (ViT-B/L and the MAE decoder), 128 and 256 (the wrapper,
+// ops/flash_mha.py, zero-pads any other head dim up to the next of the
+// three); another returns cudaErrorInvalidValue. strides: 12 element
+// strides, (batch, head, row) for q, k, v and out. lse: [batch, heads,
+// seq] fp32 for the backward, or null. Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int tim_flash_mha(const void* q, const void* k, const void* v,
                              void* out, const long long* strides, float* lse,
                              int batch, int heads, int seq, int dh,
@@ -36,6 +43,12 @@ extern "C" int tim_flash_mha(const void* q, const void* k, const void* v,
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
   p.lse = lse;
   p.bias = nullptr; p.region = nullptr; p.n_win = 1;
-  return tim_attn::launch<64, false>(p, dh, is_bf16 != 0,
-                                 static_cast<cudaStream_t>(stream));
+  const bool bf16 = is_bf16 != 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 64: return tim_attn::launch<64, false>(p, dh, bf16, st);
+    case 128: return tim_attn::launch<128, false>(p, dh, bf16, st);
+    case 256: return tim_attn::launch<256, false>(p, dh, bf16, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

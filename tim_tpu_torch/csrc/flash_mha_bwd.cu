@@ -47,8 +47,9 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Head dim 64, as the forward. strides: 24 element strides, (batch, head,
-// row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch, heads,
+// Head dims 64, 128 and 256, as the forward (bf16 past 64 takes the wide
+// mma.sync passes of flash_attention_bwd.cuh, atomic-free). strides: 24
+// element strides, (batch, head, row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch, heads,
 // seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch;
 // dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 only; zeroed
 // here), or null for bf16's deterministic route (dq without atomic adds).
@@ -60,9 +61,23 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
                                  float* dq_accum, int batch, int heads,
                                  int seq, int dh, int is_bf16, float scale,
                                  void* stream) {
-  if (dh != kDH) return (int)cudaErrorInvalidValue;
+  if (dh != kDH && dh != 128 && dh != 256) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh != kDH) {
+    tim_attn::BwdParams p{};
+    p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+    p.dq = dq; p.dk = dk; p.dv = dv;
+    tim_attn::set_bwd_strides(p, strides);
+    p.lse = lse; p.delta = delta;
+    p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
+    p.bias = nullptr; p.region = nullptr; p.n_win = 1; p.dbias = nullptr;
+    if (is_bf16)
+      return dh == 128 ? tim_attn::launch_bwd_bf16_wide<128>(p, st)
+                       : tim_attn::launch_bwd_bf16_wide<256>(p, st);
+    return dh == 128 ? tim_attn::launch_bwd_f32<128, false>(p, st)
+                     : tim_attn::launch_bwd_f32<256, false>(p, st);
+  }
   if (is_bf16) {
     using bf = __nv_bfloat16;
     tim_attn::sm90::Params p{};

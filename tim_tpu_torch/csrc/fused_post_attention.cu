@@ -27,7 +27,8 @@
 //   2. ffn2_ln2: o = h W2^T + b2, s = y + o into the output rows, then LN2
 //      over those rows in place (the block re-reads what it just wrote).
 // Weights stay in nn.Linear's [out, in] layout, the column-major B operand
-// the tiles want.
+// the tiles want. C or FF off the tiles (128 columns, 16 of K) take the
+// TAIL instances, which load each element on its own, masked.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,8 +60,12 @@ constexpr size_t smem_bytes() {
          (size_t)BM * LDC * sizeof(float);
 }
 
+// TAIL: K or the tile's output columns (n_valid of BN) ragged, so every
+// element is loaded on its own and masked (zeros past K and past n_valid).
+template <bool TAIL = false>
 __device__ void gemm_tile(const float* A, int rows, const float* W, int K,
-                          float* sA, float* sB, float* sC) {
+                          float* sA, float* sB, float* sC,
+                          int n_valid = BN) {
   constexpr int BK = Tile<float>::BK, LDS = Tile<float>::LDS;
   const int t = threadIdx.x;
   const int ty = t / 16, tx = t % 16;  // rows ty + 16i, cols tx + 16j
@@ -71,6 +76,17 @@ __device__ void gemm_tile(const float* A, int rows, const float* W, int K,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
+    if constexpr (TAIL) {
+      for (int i = t; i < BM * BK; i += kThreads) {
+        const int r = i / BK, c = i % BK, k = k0 + c;
+        sA[r * LDS + c] = r < rows && k < K ? A[(long long)r * K + k] : 0.f;
+      }
+      for (int i = t; i < BN * BK; i += kThreads) {
+        const int r = i / BK, c = i % BK, k = k0 + c;
+        sB[r * LDS + c] =
+            r < n_valid && k < K ? W[(long long)r * K + k] : 0.f;
+      }
+    } else {
     {  // A: 64 x 16 fp32, one float4 per thread
       const int r = t / 4, c = (t % 4) * 4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -86,6 +102,7 @@ __device__ void gemm_tile(const float* A, int rows, const float* W, int K,
           *reinterpret_cast<const float4*>(W + (long long)r * K + k0 + c);
       float* d = sB + r * LDS + c;
       d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    }
     }
     __syncthreads();
 #pragma unroll
@@ -136,7 +153,7 @@ struct Smem {
   }
 };
 
-template <typename T>
+template <typename T, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
     ln1_ffn1_kernel(const T* __restrict__ x, const T* __restrict__ attn,
                     const float* __restrict__ g1, const float* __restrict__ be1,
@@ -167,11 +184,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* yb = y + (long long)row0 * C;
   for (int n0 = 0; n0 < FF; n0 += BN) {
-    gemm_tile(yb, rows, w1 + (long long)n0 * C, C, sm.sA, sm.sB, sm.sC);
+    gemm_tile<TAIL>(yb, rows, w1 + (long long)n0 * C, C, sm.sA, sm.sB,
+                    sm.sC, FF - n0);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
       const int r = i / BN, c = i % BN;
       if (r >= rows) break;
+      if (TAIL && n0 + c >= FF) continue;
       const float v = round_to<T>(sm.sC[r * LDC + c] + b1[n0 + c]);
       h[(long long)(row0 + r) * FF + n0 + c] = from_f<T>(gelu_erf(v));
     }
@@ -179,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool TAIL>
 __global__ void __launch_bounds__(kThreads)
     ffn2_ln2_kernel(const T* __restrict__ h, const T* __restrict__ y,
                     const T* __restrict__ w2, const float* __restrict__ b2,
@@ -193,11 +212,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* hb = h + (long long)row0 * FF;
   for (int n0 = 0; n0 < C; n0 += BN) {
-    gemm_tile(hb, rows, w2 + (long long)n0 * FF, FF, sm.sA, sm.sB, sm.sC);
+    gemm_tile<TAIL>(hb, rows, w2 + (long long)n0 * FF, FF, sm.sA, sm.sB,
+                    sm.sC, C - n0);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
       const int r = i / BN, c = i % BN;
       if (r >= rows) break;
+      if (TAIL && n0 + c >= C) continue;
       const long long off = (long long)(row0 + r) * C + n0 + c;
       const float o = round_to<T>(sm.sC[r * LDC + c] + b2[n0 + c]);
       z[off] = from_f<T>(to_f(y[off]) + o);
@@ -219,28 +240,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+// TAIL: C or FF not a multiple of the tiles (BN columns, BK of K).
+template <typename T, bool TAIL>
 int launch(const void* x, const void* attn, const float* g1, const float* be1,
            const void* w1, const float* b1, const void* w2, const float* b2,
            const float* g2, const float* be2, void* y, void* h, void* out,
            int N, int C, int FF, float eps, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      ln1_ffn1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln1_ffn1_kernel<T, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ffn2_ln2_kernel<T>,
+  err = cudaFuncSetAttribute(ffn2_ln2_kernel<T, TAIL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + BM - 1) / BM;
-  ln1_ffn1_kernel<T><<<blocks, kThreads, smem, stream>>>(
+  ln1_ffn1_kernel<T, TAIL><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(attn), g1, be1,
       static_cast<const T*>(w1), b1, static_cast<T*>(y), static_cast<T*>(h),
       N, C, FF, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ffn2_ln2_kernel<T><<<blocks, kThreads, smem, stream>>>(
+  ffn2_ln2_kernel<T, TAIL><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(y),
       static_cast<const T*>(w2), b2, g2, be2, static_cast<T*>(out), N, C, FF,
       eps);
@@ -255,25 +277,37 @@ extern "C" int tim_fused_post_attention_sm90(
     const void* x, const void* attn, const void* ln1_w, const void* ln1_b,
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* ln2_w, const void* ln2_b, void* y, void* h, void* out, int n,
-    int c, int ff, float eps, cudaStream_t stream);
+    int c, int ff, int c_valid, float eps, cudaStream_t stream);
 
 // x, attn, out, y: [N, C]; h: [N, FF] (y and h are scratch the caller
 // allocates); w1 [FF, C], w2 [C, FF] in the input dtype; biases and LN
-// params fp32. C and FF must be multiples of 128. Returns
-// cudaGetLastError() after the launches (0 on success).
+// params fp32. fp32: any C and FF (c_valid = C). bf16: C and FF multiples
+// of 8 (TMA's row pitch); the caller may pad a row of c_valid channels to
+// C with zeros (weights, biases and LN parameters zero there too): the
+// LayerNorms then take their statistics over c_valid and write zeros past
+// it. Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int tim_fused_post_attention(
     const void* x, const void* attn, const void* ln1_w, const void* ln1_b,
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* ln2_w, const void* ln2_b, void* y, void* h, void* out, int n,
-    int c, int ff, int is_bf16, float eps, void* stream) {
+    int c, int ff, int c_valid, int is_bf16, float eps, void* stream) {
   if (n <= 0) return 0;
-  if (c % BN != 0 || ff % BN != 0) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || ff <= 0 || c_valid <= 0 || c_valid > c)
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16) {
+    if (c % 8 != 0 || ff % 8 != 0) return (int)cudaErrorInvalidValue;
     return tim_fused_post_attention_sm90(x, attn, ln1_w, ln1_b, w1, b1, w2,
                                          b2, ln2_w, ln2_b, y, h, out, n, c,
-                                         ff, eps, st);
-  return launch<float>(x, attn, f(ln1_w), f(ln1_b), w1, f(b1), w2, f(b2),
-                       f(ln2_w), f(ln2_b), y, h, out, n, c, ff, eps, st);
+                                         ff, c_valid, eps, st);
+  }
+  if (c_valid != c) return (int)cudaErrorInvalidValue;
+  if (c % BN != 0 || ff % BN != 0)
+    return launch<float, true>(x, attn, f(ln1_w), f(ln1_b), w1, f(b1), w2,
+                               f(b2), f(ln2_w), f(ln2_b), y, h, out, n, c,
+                               ff, eps, st);
+  return launch<float, false>(x, attn, f(ln1_w), f(ln1_b), w1, f(b1), w2,
+                              f(b2), f(ln2_w), f(ln2_b), y, h, out, n, c,
+                              ff, eps, st);
 }

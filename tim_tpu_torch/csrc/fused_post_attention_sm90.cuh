@@ -16,7 +16,8 @@
 //
 // Design: four launches.
 //   1. ln1: one warp a row, kept in registers (C a multiple of 128 up to
-//      2048): y = bf16(LN1(bf16(x + attn))).
+//      2048; any other C takes a two-pass row kernel that re-reads the
+//      row): y = bf16(LN1(bf16(x + attn))).
 //   2. GEMM1 y W1^T with b1 + GELU in its epilogue, h into device memory.
 //   3. GEMM2 h W2^T with b2 and the residual y in its epilogue (through a
 //      staging tile in shared memory, stored 16 bytes a thread), writing
@@ -95,7 +96,7 @@ __device__ __forceinline__ float gelu_erf(float v) {
 // tile at (m0, n0) (halves: its 128-column halves that lie inside n).
 // Element i of half hf is row (i / 2) % 2 * 8 + lane / 4 of the warp's 16,
 // column hf * 128 + (i / 4) * 8 + 2 (lane % 4) + i % 2.
-template <int EPI>
+template <int EPI, bool TAIL>
 __device__ __forceinline__ void epilogue(float (&acc)[kHalves][64],
                                          const EpiParams& e, int m0, int n0,
                                          int halves, unsigned char* s_stage,
@@ -111,6 +112,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[kHalves][64],
       for (int i = 0; i < 64; i += 2) {
         const int row = m0 + lrow + 8 * ((i / 2) & 1);
         const int col = n0 + hf * 128 + (i / 4) * 8 + 2 * tig;
+        if (TAIL && col >= e.n) continue;   // n even: col + 1 < n too
         const float2 b =
             __ldg(reinterpret_cast<const float2*>(e.bias + col));
         const float v0 = gelu_erf(round_bf16(acc[hf][i] + b.x));
@@ -134,8 +136,9 @@ __device__ __forceinline__ void epilogue(float (&acc)[kHalves][64],
     for (int i = 0; i < 64; i += 2) {
       const int r = (i / 2) & 1;
       const int col = hf * 128 + (i / 4) * 8 + 2 * tig;
-      const float2 b =
-          __ldg(reinterpret_cast<const float2*>(e.bias + n0 + col));
+      // TAIL: columns past n read a clamped bias; they are never stored
+      const float2 b = __ldg(reinterpret_cast<const float2*>(
+          e.bias + (TAIL ? min(n0 + col, e.n - 2) : n0 + col)));
       *reinterpret_cast<uint32_t*>(stage + (lrow + 8 * r) * kStageLd + col) =
           tim_attn::pack_bf16(acc[hf][i] + b.x, acc[hf][i + 1] + b.y);
     }
@@ -143,7 +146,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[kHalves][64],
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
   // then a warp a row, 8 columns (16 bytes) a lane a step: bf16(y + o)
   // into out
-  const int cols = halves * 128;
+  const int cols = TAIL ? min(halves * 128, e.n - n0) : halves * 128;
   const int cw = (tid - 128) / 32;   // the consumers' warp, 0..7
   for (int r = cw; r < kBM; r += 8) {
     if (m0 + r >= e.m) break;
@@ -169,9 +172,12 @@ __device__ __forceinline__ void epilogue(float (&acc)[kHalves][64],
 // epilogue EPI. A block walks tiles blockIdx.x, + gridDim.x, ...: GEMM1
 // (kGelu) is launched one block an SM, so its producer loads the next
 // tile while the consumers take the last one's epilogue; GEMM2 (kResidual
-// stages its tile in the ring) one block a tile. n is a multiple of 128: a
-// 256-wide tile whose second half lies past n stores only its first.
-template <int EPI>
+// stages its tile in the ring) one block a tile. A 256-wide tile whose
+// second half lies past n stores only its first; n not a multiple of 128
+// (a multiple of 8: TMA's row pitch) takes the TAIL instances, which mask
+// the columns past n. k need not be a multiple of 64: the last k-step's
+// boxes read zeros past k (TMA's fill), on both operands.
+template <int EPI, bool TAIL>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
                 const __grid_constant__ CUtensorMap tm_b, const EpiParams e) {
@@ -186,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int n_tiles = (e.n + kBN - 1) / kBN;
   const int units = (e.m + kBM - 1) / kBM * n_tiles;
-  const int nk = e.k / kBK;
+  const int nk = (e.k + kBK - 1) / kBK;
   const int tid = threadIdx.x, wg = tid / 128;
 
   if (tid == 0) {
@@ -252,8 +258,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         tim_attn::sm90::fence_regs(acc[hf]);
       mbar_arrive(empty(st));   // the stage is free for the producer
     }
-    epilogue<EPI>(acc, e, m0, n0, min(kHalves, (e.n - n0) / 128), gbase,
-                  tid);
+    epilogue<EPI, TAIL>(acc, e, m0, n0,
+                        min(kHalves, (e.n - n0 + (TAIL ? 127 : 0)) / 128),
+                        gbase, tid);
   }
 }
 
@@ -304,14 +311,77 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The row pass for cols a multiple of 128 up to 2048 (the tail's C);
-// returns the launch error.
+// The row pass at any width: one warp a row, 8 columns (16 bytes) a lane
+// a step, two passes over the row in device memory (the statistics, then
+// the normalised row, re-reading a and b, mostly from L2). Rows have ld
+// columns (a multiple of 8); the statistics and gamma/beta cover the
+// first cols of them, and the rest of out's row is written as zeros (the
+// caller's zero padding). out may be a.
+__global__ void __launch_bounds__(256)
+    ln_rows_any_kernel(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                       const float* gamma, const float* beta,
+                       __nv_bfloat16* out, int rows, int cols, int ld,
+                       float eps) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  auto load = [&](int c, float (&v)[8]) {
+    tim::load_floats<__nv_bfloat16, 8>(a + row * ld + c, v);
+    if (b != nullptr) {
+      float y[8];
+      tim::load_floats<__nv_bfloat16, 8>(b + row * ld + c, y);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[t] = round_bf16(v[t] + y[t]);
+    }
+  };
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane * 8; c < cols; c += 256) {
+    float v[8];
+    load(c, v);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (c + t < cols) {
+        sum += v[t];
+        sq += v[t] * v[t];
+      }
+  }
+  const float mu = tim::warp_sum(sum) / cols;
+  const float rstd =
+      rsqrtf(fmaxf(tim::warp_sum(sq) / cols - mu * mu, 0.f) + eps);
+  for (int c = lane * 8; c < ld; c += 256) {
+    float v[8];
+    load(c, v);
+    uint32_t w[4];
+#pragma unroll
+    for (int t = 0; t < 8; t += 2) {
+      float z[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        z[u] = c + t + u < cols
+                   ? (v[t + u] - mu) * rstd * gamma[c + t + u] +
+                         beta[c + t + u]
+                   : 0.f;
+      w[t / 2] = tim_attn::pack_bf16(z[0], z[1]);
+    }
+    *reinterpret_cast<uint4*>(out + row * ld + c) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The row pass: the register-resident kernel for cols a multiple of 128
+// up to 2048 in rows of exactly cols (the presets' C), else the two-pass
+// kernel above; returns the launch error.
 inline int launch_ln_rows(const __nv_bfloat16* a, const __nv_bfloat16* b,
                           const float* gamma, const float* beta,
-                          __nv_bfloat16* out, int rows, int cols, float eps,
-                          cudaStream_t stream) {
+                          __nv_bfloat16* out, int rows, int cols, int ld,
+                          float eps, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((rows + 7) / 8);
-  switch (cols / 128 * (cols % 128 == 0)) {
+  if (cols % 128 != 0 || cols > 2048 || ld != cols) {
+    ln_rows_any_kernel<<<blocks, 256, 0, stream>>>(a, b, gamma, beta, out,
+                                                   rows, cols, ld, eps);
+    return (int)cudaGetLastError();
+  }
+  switch (cols / 128) {
 #define TIM_LN_ROWS(NC)                                               \
   case NC:                                                            \
     ln_rows_kernel<NC><<<blocks, 256, 0, stream>>>(a, b, gamma, beta, \
@@ -339,23 +409,23 @@ inline int tile_map(CUtensorMap* map, const void* base, long long rows,
 
 constexpr int kMaxDevices = 64;
 namespace {
-template <int EPI>
+template <int EPI, bool TAIL>
 int smem_set[kMaxDevices] = {};
 }  // namespace
 
-template <int EPI>
+template <int EPI, bool TAIL>
 int launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
                 const EpiParams& e, cudaStream_t stream) {
-  auto kernel = gemm_kernel<EPI>;
+  auto kernel = gemm_kernel<EPI, TAIL>;
   int device = 0;
   int err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set<EPI>[device]) {
+  if (!smem_set<EPI, TAIL>[device]) {
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != 0) return err;
-    smem_set<EPI>[device] = 1;
+    smem_set<EPI, TAIL>[device] = 1;
   }
   const long long units =
       (long long)((e.m + kBM - 1) / kBM) * ((e.n + kBN - 1) / kBN);
@@ -373,15 +443,16 @@ int launch_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
 }
 
 // The bf16 tail: x, attn, y, out [n, c], h [n, ff], w1 [ff, c], w2 [c, ff]
-// bf16, contiguous; the rest fp32. c and ff multiples of 128. Returns the
-// first launch error.
+// bf16, contiguous; the rest fp32. c and ff multiples of 8 (any multiple
+// of 128 takes the presets' instances); the LayerNorms over the first
+// c_valid channels. Returns the first launch error.
 inline int launch(const __nv_bfloat16* x, const __nv_bfloat16* attn,
                   const float* g1, const float* be1, const __nv_bfloat16* w1,
                   const float* b1, const __nv_bfloat16* w2, const float* b2,
                   const float* g2, const float* be2, __nv_bfloat16* y,
                   __nv_bfloat16* h, __nv_bfloat16* out, int n, int c, int ff,
-                  float eps, cudaStream_t stream) {
-  int err = launch_ln_rows(x, attn, g1, be1, y, n, c, eps, stream);
+                  int c_valid, float eps, cudaStream_t stream) {
+  int err = launch_ln_rows(x, attn, g1, be1, y, n, c_valid, c, eps, stream);
   if (err != 0) return err;
   CUtensorMap tm_y, tm_w1, tm_h, tm_w2;
   err = tile_map(&tm_y, y, n, c);
@@ -390,12 +461,15 @@ inline int launch(const __nv_bfloat16* x, const __nv_bfloat16* attn,
   if (err == 0) err = tile_map(&tm_w2, w2, c, ff);
   if (err != 0) return err;
   EpiParams e1{n, ff, c, b1, h, nullptr};
-  err = launch_gemm<kGelu>(tm_y, tm_w1, e1, stream);
+  err = ff % 128 ? launch_gemm<kGelu, true>(tm_y, tm_w1, e1, stream)
+                 : launch_gemm<kGelu, false>(tm_y, tm_w1, e1, stream);
   if (err != 0) return err;
   EpiParams e2{n, c, ff, b2, out, y};
-  err = launch_gemm<kResidual>(tm_h, tm_w2, e2, stream);
+  err = c % 128 ? launch_gemm<kResidual, true>(tm_h, tm_w2, e2, stream)
+                : launch_gemm<kResidual, false>(tm_h, tm_w2, e2, stream);
   if (err != 0) return err;
-  return launch_ln_rows(out, nullptr, g2, be2, out, n, c, eps, stream);
+  return launch_ln_rows(out, nullptr, g2, be2, out, n, c_valid, c, eps,
+                        stream);
 }
 
 }  // namespace tim_fpa

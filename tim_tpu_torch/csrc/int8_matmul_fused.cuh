@@ -61,11 +61,17 @@
 //   one more partial M tile a block to quantize (~4 fills a block, 531 in
 //   all against 399). fc_audio is 399 one-item M tiles, 3 or 4 a block.
 // - K up to 1024 takes 128-row M tiles; K up to 2048 the same design at 64
-//   rows (one m64 product a k32 step), so the tile stays 128 KB. The
-//   wrapper refuses longer rows. K pads to the tile with zeros (rows
-//   quantized as zeros, weight boxes past K filled with zeros by TMA), so
-//   every k32 step of a multiple-of-16 K adds only what it should; ragged
-//   M and N are masked at the stores.
+//   rows (one m64 product a k32 step), so the tile stays 128 KB. Longer
+//   rows run in chunks of 2048 through the tile, one launch a chunk, the
+//   int32 sums meeting in an [M, N] scratch (the PART instances; the last
+//   chunk's epilogue adds them): the int8 sums are exact, so the chunks
+//   add to what one pass would. K pads to the tile with zeros (rows
+//   quantized as zeros past K, weight boxes past K filled with zeros by
+//   TMA), so every k32 step adds only what it should; w's rows are padded
+//   to a multiple of 16 bytes once where the layer is built (TMA's row
+//   pitch), and x's rows, where K or their strides leave them unaligned,
+//   are read one value at a time. Ragged M and N are masked at the
+//   stores.
 // Where the time goes: `python -m tim_tpu_torch.ablate --kernel 3` and
 // PERF.md. Tried on the card and slower, so not kept: the epilogue
 // straight from the accumulator layout (quads on 8 rows; with the scales
@@ -115,6 +121,14 @@ struct Args {
   int m, k, n;
   float inv_sx, sx;
   int x_bf16, out_bf16;
+  // x's rows read 16 bytes at a time (K a multiple of the values a load
+  // holds, strides and start aligned); else one value at a time
+  int vec;
+  // K past the resident tile (the PART instances): the int32 sums of one
+  // chunk of K at a time meet in partial [M, N]: part 1 writes them, 2
+  // adds to them, 3 adds them to this chunk's and runs the epilogue
+  int* partial;
+  int part;
 };
 
 // BN: the N tile (112, or 48 for narrow heads); MR: m64 row groups an M
@@ -190,8 +204,16 @@ __device__ __forceinline__ void fill_tile(unsigned char* s_tile,
       for (int q = 0; q < CPL; ++q) {
         const int k = (lane + 32 * q) * V;
         v[rr][q] = make_uint4(0u, 0u, 0u, 0u);
-        if (gm < a.m && k < a.k)
-          v[rr][q] = *reinterpret_cast<const uint4*>(p + k);
+        if (gm < a.m && k < a.k) {
+          if (a.vec) {
+            v[rr][q] = *reinterpret_cast<const uint4*>(p + k);
+          } else {   // unaligned rows or K's ragged end: zeros past K
+            T* e = reinterpret_cast<T*>(&v[rr][q]);
+#pragma unroll
+            for (int i = 0; i < V; ++i)
+              if (k + i < a.k) e[i] = p[k + i];
+          }
+        }
       }
     }
 #pragma unroll
@@ -363,7 +385,7 @@ __device__ __forceinline__ float epilogue_value(int acc, float ws, float b,
 // edges, where the quads of the accumulator layout would write 16 bytes of
 // each of 8 rows and leave every sector half written. The rows' work is
 // independent, so one warp a scheduler keeps several in flight.
-template <int BN, int MR, bool GELU>
+template <int BN, int MR, bool GELU, bool PART>
 __device__ __forceinline__ void store_tile(const int (&acc)[MR][BN / 2],
                                            const Args& a, int m0, int n0,
                                            int wtid, unsigned char* slab,
@@ -386,10 +408,22 @@ __device__ __forceinline__ void store_tile(const int (&acc)[MR][BN / 2],
 #pragma unroll 4
       for (int q = 0; q < 8; ++q) {
         if (row0 + q >= a.m) break;
-        const int2 v = *reinterpret_cast<const int2*>(slab + slab_at(q, lc));
+        int2 v = *reinterpret_cast<const int2*>(slab + slab_at(q, lc));
+        const long long at = (long long)(row0 + q) * a.n + col;
+        if constexpr (PART) {   // K in chunks: the sums meet in partial
+          int* pp = a.partial + at;
+          if (a.part >= 2) {
+            v.x += pp[0];
+            if (two) v.y += pp[1];
+          }
+          if (a.part < 3) {
+            pp[0] = v.x;
+            if (two) pp[1] = v.y;
+            continue;
+          }
+        }
         const float y0 = epilogue_value<GELU>(v.x, ws.x, bs.x, a);
         const float y1 = epilogue_value<GELU>(v.y, ws.y, bs.y, a);
-        const long long at = (long long)(row0 + q) * a.n + col;
         if (a.out_bf16)
           store_pair(static_cast<__nv_bfloat16*>(a.out) + at, y0, y1, pairs,
                      two);
@@ -401,7 +435,7 @@ __device__ __forceinline__ void store_tile(const int (&acc)[MR][BN / 2],
   }
 }
 
-template <int BN, int MR, bool GELU>
+template <int BN, int MR, bool GELU, bool PART>
 __global__ void __launch_bounds__(kThreads, 1)
     int8_matmul_kernel(const __grid_constant__ CUtensorMap tm_w,
                        const Args a) {
@@ -493,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         s_scale[128 + wtid] = bs;
       }
       bar_sync(4 + wg, 128);
-      store_tile<BN, MR, GELU>(acc, a, m0, n0, wtid, slab, s_scale);
+      store_tile<BN, MR, GELU, PART>(acc, a, m0, n0, wtid, slab, s_scale);
     }
     seg = seg_end;
   }
@@ -504,27 +538,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 // by every library that holds this kernel (ablate.py loads several builds).
 constexpr int kMaxDevices = 64;
 namespace {
-template <int BN, int MR, bool GELU>
+template <int BN, int MR, bool GELU, bool PART>
 int smem_set[kMaxDevices] = {};
 }  // namespace
 
-template <int BN, int MR, bool GELU>
-int launch(const Args& a, const void* w, cudaStream_t stream) {
+// w: [N, kw] int8 rows (kw >= a.k a multiple of 16, zeros past a.k), of
+// which the first a.k columns are read
+template <int BN, int MR, bool GELU, bool PART>
+int launch(const Args& a, const void* w, int kw, cudaStream_t stream) {
   using Sh = Shape<BN, MR>;
   CUtensorMap tm_w;
   int err = tim_attn::fwd90::row_major_map(
-      &tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, a.n, a.k, 1, BN);
+      &tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, a.n, a.k, 1, BN, kw);
   if (err != 0) return err;
-  auto kernel = int8_matmul_kernel<BN, MR, GELU>;
+  auto kernel = int8_matmul_kernel<BN, MR, GELU, PART>;
   int device = 0;
   err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
   if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set<BN, MR, GELU>[device]) {
+  if (!smem_set<BN, MR, GELU, PART>[device]) {
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
     if (err != 0) return err;
-    smem_set<BN, MR, GELU>[device] = 1;
+    smem_set<BN, MR, GELU, PART>[device] = 1;
   }
   int sms = 0;
   err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -538,20 +574,43 @@ int launch(const Args& a, const void* w, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// K a launch takes at most: the resident tile's 64-row width
+constexpr int kMaxChunk = 2048;
+
 // The instance for a's shape: BN 48 for N <= 48, else 112; 128-row M
-// tiles for K <= 1024, else 64 (the caller checks K <= 2048).
+// tiles for K <= 1024, else 64. K past 2048 runs in chunks of 2048
+// through the same tile, one launch each (x and w offset to the chunk),
+// the int32 sums meeting in a.partial: the PART instances (64 rows),
+// whose last launch adds the earlier chunks' sums before the epilogue.
 template <bool GELU>
-int launch_any(const Args& a, const void* w, cudaStream_t stream) {
-  if (a.n <= 48)
-    return a.k <= 1024 ? launch<48, 2, GELU>(a, w, stream)
-                       : launch<48, 1, GELU>(a, w, stream);
-  return a.k <= 1024 ? launch<112, 2, GELU>(a, w, stream)
-                     : launch<112, 1, GELU>(a, w, stream);
+int launch_any(const Args& a, const void* w, int kw, cudaStream_t stream) {
+  if (a.k <= kMaxChunk) {
+    if (a.n <= 48)
+      return a.k <= 1024 ? launch<48, 2, GELU, false>(a, w, kw, stream)
+                         : launch<48, 1, GELU, false>(a, w, kw, stream);
+    return a.k <= 1024 ? launch<112, 2, GELU, false>(a, w, kw, stream)
+                       : launch<112, 1, GELU, false>(a, w, kw, stream);
+  }
+  if (a.partial == nullptr) return (int)cudaErrorInvalidValue;
+  const int chunks = (a.k + kMaxChunk - 1) / kMaxChunk;
+  const int elem = a.x_bf16 ? 2 : 4;
+  for (int c = 0; c < chunks; ++c) {
+    Args ac = a;
+    ac.x = static_cast<const char*>(a.x) + (long long)c * kMaxChunk * elem;
+    ac.k = min(kMaxChunk, a.k - c * kMaxChunk);
+    ac.part = c == 0 ? 1 : (c + 1 < chunks ? 2 : 3);
+    const void* wc = static_cast<const char*>(w) + (long long)c * kMaxChunk;
+    const int err = a.n <= 48
+                        ? launch<48, 1, GELU, true>(ac, wc, kw, stream)
+                        : launch<112, 1, GELU, true>(ac, wc, kw, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // The GELU instances, compiled in int8_matmul_fused_gelu.cu beside the
 // others (int8_matmul_fused.cu), so that the two build in parallel.
-int launch_gelu(const Args& a, const void* w, cudaStream_t stream);
+int launch_gelu(const Args& a, const void* w, int kw, cudaStream_t stream);
 
 }  // namespace tim_i8
 

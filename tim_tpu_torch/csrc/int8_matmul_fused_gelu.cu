@@ -5,8 +5,8 @@
 
 namespace tim_i8 {
 
-int launch_gelu(const Args& a, const void* w, cudaStream_t stream) {
-  return launch_any<true>(a, w, stream);
+int launch_gelu(const Args& a, const void* w, int kw, cudaStream_t stream) {
+  return launch_any<true>(a, w, kw, stream);
 }
 
 }  // namespace tim_i8

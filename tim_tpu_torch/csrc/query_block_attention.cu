@@ -43,14 +43,22 @@
 // at the detection shape, 42% of the bytes bound, against 3.96 ms for the
 // CUDA-core design and 1.42 ms for masked scaled_dot_product_attention.
 //
-// fp32 (the parity path) and bf16 at head dim 256 (whose 128 fp32 output
+// Head dims: the bf16 tensor-core instances are 32, 64, 128 and 160 (the
+// wide TIM's 2560 / 16 heads: its 160 x 168 rows do not fit the resident
+// ring, so it streams the context); ops/query_block_attention.py copies
+// bf16 inputs at other head dims up to 160, or with rows cp.async cannot
+// copy, zero-padded onto the next of them.
+//
+// fp32 (the parity path) and bf16 past head dim 160 (whose fp32 output
 // accumulators a thread, beside its A fragments, do not fit the register
 // file) keep the CUDA-core design: one block per (batch * head, 128
 // queries), kc and vc in shared memory, each warp walking its queries one
 // at a time, context scores by warp-shuffle reductions 32 keys at a time,
 // fp32 softmax and value sums. It is bound by issuing shared-memory loads
 // and shuffles per key (3.96 ms at the bf16 shape above, H100 80GB HBM3,
-// 700 W).
+// 700 W). Head dims other than 32, 64, 128 and 256 take its TAIL
+// instances: a lane's DPL dims past dh are masked, and shared-memory rows
+// are dh rounded up to 8 values.
 //
 // q/k/v arrive as strided views of the packed projection (and, in layer 0,
 // a batch-broadcast query block): both designs take (batch, head, row)
@@ -88,6 +96,7 @@ struct Args {
   void* out;  // contiguous [B, H, Nq, dh]
   Strides s_qq, s_kc, s_kq, s_vc, s_vq;
   int heads, nq, f;
+  int dh;   // the head dim (the TAIL instances' row length)
   float scale;
 };
 
@@ -97,10 +106,34 @@ __device__ __forceinline__ const T* head_ptr(const void* p, const Strides& s,
   return static_cast<const T*>(p) + b * s.b + h * s.h;
 }
 
-template <typename T, int DPL>  // DPL = dh / 32 dims per lane
+// The CUDA-core instances' row length in shared memory: dh, rounded up to
+// 8 values in the TAIL instances (16-byte rows).
+template <bool TAIL>
+__host__ __device__ __forceinline__ int row_len(int dpl, int dh) {
+  return TAIL ? (dh + 7) / 8 * 8 : dpl * 32;
+}
+
+// DPL of this lane's dims from p (already offset to them) into x: a vector
+// load where the row holds them all (dh = 32 DPL), else one value at a
+// time, the dims past dh read as zeros (TAIL: any dh <= 32 DPL).
+template <typename T, int DPL, bool TAIL>
+__device__ __forceinline__ void lane_dims(const T* p, int d0, int dh,
+                                          float (&x)[DPL]) {
+  if constexpr (TAIL) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) x[i] = d0 + i < dh ? to_f(p[i]) : 0.f;
+  } else {
+    load_floats<T, DPL>(p, x);
+  }
+}
+
+// DPL = dims per lane: dh / 32, or (TAIL) any dh up to 32 DPL, the lanes'
+// dims past dh masked
+template <typename T, int DPL, bool TAIL>
 __global__ void __launch_bounds__(kWarps * 32)
     query_block_kernel(const Args a) {
-  constexpr int DH = DPL * 32;
+  const int dh = TAIL ? a.dh : DPL * 32;
+  const int DH = row_len<TAIL>(DPL, dh);
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_kc = reinterpret_cast<T*>(smem);
   T* s_vc = s_kc + a.f * DH;
@@ -112,8 +145,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* vc = head_ptr<T>(a.vc, a.s_vc, b, h);
   for (int i = threadIdx.x; i < a.f * DH; i += blockDim.x) {
     const int j = i / DH, d = i % DH;
-    s_kc[i] = kc[j * a.s_kc.n + d];
-    s_vc[i] = vc[j * a.s_vc.n + d];
+    s_kc[i] = d < dh ? kc[j * a.s_kc.n + d] : from_f<T>(0.f);
+    s_vc[i] = d < dh ? vc[j * a.s_vc.n + d] : from_f<T>(0.f);
   }
   __syncthreads();
 
@@ -122,7 +155,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const T* qq = head_ptr<T>(a.qq, a.s_qq, b, h);
   const T* kq = head_ptr<T>(a.kq, a.s_kq, b, h);
   const T* vq = head_ptr<T>(a.vq, a.s_vq, b, h);
-  T* out = static_cast<T*>(a.out) + (long long)bh * a.nq * DH;
+  T* out = static_cast<T*>(a.out) + (long long)bh * a.nq * dh;
 
   const int q0 = blockIdx.x * kQueriesPerBlock;
   const int q1 = min(a.nq, q0 + kQueriesPerBlock);
@@ -132,8 +165,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     float self = 0.f;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      q[i] = to_f(qq[n * a.s_qq.n + d0 + i]) * a.scale;
-      self += q[i] * to_f(kq[n * a.s_kq.n + d0 + i]);
+      const bool in = !TAIL || d0 + i < dh;
+      q[i] = in ? to_f(qq[n * a.s_qq.n + d0 + i]) * a.scale : 0.f;
+      self += in ? q[i] * to_f(kq[n * a.s_kq.n + d0 + i]) : 0.f;
     }
     self = warp_sum(self);
 
@@ -147,7 +181,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       for (int t = 0; t < 32; ++t) {
         float k[DPL];
         // rows past F repeat row F-1; their scores are dropped below
-        load_floats<T, DPL>(s_kc + min(j0 + t, a.f - 1) * DH + d0, k);
+        lane_dims<T, DPL, TAIL>(s_kc + min(j0 + t, a.f - 1) * DH + d0, d0,
+                                dh, k);
         float s = 0.f;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) s += q[i] * k[i];
@@ -191,25 +226,27 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int j = 0; j < a.f; ++j) {
       const float w = p[j] * inv;
       float v[DPL];
-      load_floats<T, DPL>(s_vc + j * DH + d0, v);
+      lane_dims<T, DPL, TAIL>(s_vc + j * DH + d0, d0, dh, v);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[i] += w * v[i];
     }
     const float w_self = e_self * inv;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      out[(long long)n * DH + d0 + i] =
-          from_f<T>(acc[i] + w_self * to_f(vq[n * a.s_vq.n + d0 + i]));
+      if (!TAIL || d0 + i < dh)
+        out[(long long)n * dh + d0 + i] =
+            from_f<T>(acc[i] + w_self * to_f(vq[n * a.s_vq.n + d0 + i]));
     }
     __syncwarp();  // p is rewritten by this warp's next query
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, bool TAIL = false>
 int launch(const Args& a, int bh, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)a.f * DPL * 32 * sizeof(T) +
-                      (size_t)kWarps * a.f * sizeof(float);
-  auto kernel = query_block_kernel<T, DPL>;
+  const size_t smem =
+      2 * (size_t)a.f * row_len<TAIL>(DPL, a.dh) * sizeof(T) +
+      (size_t)kWarps * a.f * sizeof(float);
+  auto kernel = query_block_kernel<T, DPL, TAIL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -563,23 +600,42 @@ int launch_bf16_tc(const Args& a, int bh, cudaStream_t stream) {
                    a, stream);
 }
 
-int dispatch(const Args& a, int bh, int dh, bool bf16_in,
+// The fp32 CUDA-core design at any head dim up to 256: DPL the least
+// power of two with 32 DPL >= dh, masked (TAIL) where 32 DPL != dh.
+int launch_f32_tail(const Args& a, int bh, int dh, cudaStream_t stream) {
+  if (dh <= 32) return launch<float, 1, true>(a, bh, stream);
+  if (dh <= 64) return launch<float, 2, true>(a, bh, stream);
+  if (dh <= 128) return launch<float, 4, true>(a, bh, stream);
+  if (dh <= 256) return launch<float, 8, true>(a, bh, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// cuda_cores: the wrapper's plan sends bf16 to the CUDA-core design: a
+// head dim past the tensor-core instances (up to 160 the wrapper copies
+// other head dims and unaligned rows onto them, zero-padded).
+int dispatch(const Args& a, int bh, int dh, bool bf16_in, bool cuda_cores,
              cudaStream_t stream) {
-  if (bf16_in) {
+  if (bf16_in && !cuda_cores) {
     switch (dh) {
       case 32: return launch_bf16_tc<32>(a, bh, stream);
       case 64: return launch_bf16_tc<64>(a, bh, stream);
       case 128: return launch_bf16_tc<128>(a, bh, stream);
+      case 160: return launch_bf16_tc<160>(a, bh, stream);
       case 256: return launch<bf16, 8>(a, bh, stream);
       default: return (int)cudaErrorInvalidValue;
     }
+  }
+  if (bf16_in) {
+    if (dh == 256) return launch<bf16, 8>(a, bh, stream);
+    if (dh > 160 && dh < 256) return launch<bf16, 8, true>(a, bh, stream);
+    return (int)cudaErrorInvalidValue;
   }
   switch (dh) {
     case 32: return launch<float, 1>(a, bh, stream);
     case 64: return launch<float, 2>(a, bh, stream);
     case 128: return launch<float, 4>(a, bh, stream);
     case 256: return launch<float, 8>(a, bh, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_f32_tail(a, bh, dh, stream);
   }
 }
 
@@ -590,8 +646,8 @@ int dispatch(const Args& a, int bh, int dh, bool bf16_in,
 extern "C" int tim_query_block_attention(
     const void* qq, const void* kc, const void* kq, const void* vc,
     const void* vq, void* out, const long long* strides, int batch,
-    int heads, int nq, int f, int dh, int is_bf16, float scale,
-    void* stream) {
+    int heads, int nq, int f, int dh, int is_bf16, int cuda_cores,
+    float scale, void* stream) {
   tim_qba::Args a;
   a.qq = qq; a.kc = kc; a.kq = kq; a.vc = vc; a.vq = vq; a.out = out;
   tim_qba::Strides* s[5] = {&a.s_qq, &a.s_kc, &a.s_kq, &a.s_vc, &a.s_vq};
@@ -600,9 +656,9 @@ extern "C" int tim_query_block_attention(
     s[t]->h = strides[3 * t + 1];
     s[t]->n = strides[3 * t + 2];
   }
-  a.heads = heads; a.nq = nq; a.f = f; a.scale = scale;
+  a.heads = heads; a.nq = nq; a.f = f; a.dh = dh; a.scale = scale;
   const int bh = batch * heads;
   if (nq <= 0 || bh <= 0) return 0;
-  return tim_qba::dispatch(a, bh, dh, is_bf16 != 0,
+  return tim_qba::dispatch(a, bh, dh, is_bf16 != 0, cuda_cores != 0,
                            static_cast<cudaStream_t>(stream));
 }

@@ -6,14 +6,37 @@ The evaluation protocol of the reference's
 ActivityNet devkit protocol): per-class VOC-interpolated average
 precision at tIoU thresholds {0.1..0.5}, greedy one-to-one GT matching in
 descending score order, averaged over classes then thresholds.
-``joblib`` is imported only for ``n_jobs > 1``.
+``n_jobs > 1`` spreads the classes over worker processes
+(``parallel_map``: the standard library's process pool, results in input
+order, so the same AP array as ``n_jobs = 1``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
+
+
+def _call(fn_args):
+    fn, args = fn_args
+    return fn(*args)
+
+
+def parallel_map(fn: Callable, items: Iterable[tuple], n_jobs: int) -> List:
+    """``[fn(*args) for args in items]``, over ``n_jobs`` worker processes
+    (a ``concurrent.futures.ProcessPoolExecutor``, spawned, so a parent
+    that holds a CUDA context is safe) where ``n_jobs > 1``; results in
+    the order of ``items``. ``fn`` must be a module-level function."""
+    items = list(items)
+    if n_jobs <= 1 or len(items) <= 1:
+        return [fn(*args) for args in items]
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(
+            max_workers=min(n_jobs, len(items)),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(_call, [(fn, args) for args in items]))
 
 
 def segment_iou(target: np.ndarray, candidates: np.ndarray) -> np.ndarray:
@@ -193,11 +216,10 @@ class DetectionEvaluator:
     def evaluate(self) -> Tuple[np.ndarray, float, np.ndarray]:
         """Returns (mAP per tIoU, average mAP, per-class AP [T, C])."""
         if self.n_jobs > 1:
-            from joblib import Parallel, delayed
             # ship only each class's slices to the workers, not self
-            results = Parallel(n_jobs=self.n_jobs)(
-                delayed(compute_average_precision_detection)(
-                    *self._class_slices(lb)) for lb in self.labels)
+            results = parallel_map(
+                compute_average_precision_detection,
+                [self._class_slices(lb) for lb in self.labels], self.n_jobs)
         else:
             results = [self._one_class(lb) for lb in self.labels]
         ap = np.stack(results, axis=1) if results else np.zeros(

@@ -6,8 +6,9 @@ The reference's chained programs (``format_predictions_epic.py`` then
 ``evaluate_detection_json_ek100.py``) in one process: threshold the scores
 (> 0.03), expand multi-label proposals, multi-class Soft-NMS per video
 (iou 0.1, sigma 0.25, min_score 0.001), build the EPIC challenge dict and
-evaluate it (``evals/anet.py``). ``joblib`` is imported only for
-``n_jobs > 1``."""
+evaluate it (``evals/anet.py``). ``n_jobs > 1`` spreads the videos'
+Soft-NMS over worker processes (``anet.parallel_map``), with results in
+input order."""
 
 from __future__ import annotations
 
@@ -17,8 +18,20 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from tim_tpu_torch.evals.anet import DetectionEvaluator
+from tim_tpu_torch.evals.anet import DetectionEvaluator, parallel_map
 from tim_tpu_torch.evals.nms import batched_nms
+
+
+def _nms_video(vid, entry, iou_threshold, min_score, sigma, method,
+               nms_kind):
+    """One video's multi-class Soft-NMS, detections score-sorted."""
+    segs, scores, labels = batched_nms(
+        entry["segments"], entry["scores"], entry["labels"],
+        iou_threshold=iou_threshold, min_score=min_score, sigma=sigma,
+        method=method, nms_kind=nms_kind, multi_class=True)
+    order = np.argsort(-scores, kind="stable")
+    return vid, {"segments": np.round(segs[order], 3),
+                 "scores": scores[order], "labels": labels[order]}
 
 
 def _build_candidates(video_ids, proposals, row_fn, score_threshold):
@@ -105,23 +118,10 @@ def nms_per_video(
     n_jobs: int = 1,
 ) -> Dict[str, Dict[str, np.ndarray]]:
     """Multi-class Soft-NMS per video, detections score-sorted."""
-
-    def one(vid, entry):
-        segs, scores, labels = batched_nms(
-            entry["segments"], entry["scores"], entry["labels"],
-            iou_threshold=iou_threshold, min_score=min_score, sigma=sigma,
-            method=method, nms_kind=nms_kind, multi_class=True)
-        order = np.argsort(-scores, kind="stable")
-        return vid, {"segments": np.round(segs[order], 3),
-                     "scores": scores[order], "labels": labels[order]}
-
-    if n_jobs > 1:
-        from joblib import Parallel, delayed
-        results = Parallel(n_jobs=n_jobs)(
-            delayed(one)(vid, entry) for vid, entry in candidates.items())
-    else:
-        results = [one(v, e) for v, e in candidates.items()]
-    return dict(results)
+    return dict(parallel_map(
+        _nms_video, [(vid, entry, iou_threshold, min_score, sigma, method,
+                      nms_kind) for vid, entry in candidates.items()],
+        n_jobs))
 
 
 def _build_submission_dict(detections, label_fields, challenge: str) -> Dict:

@@ -21,7 +21,8 @@ import torch.nn.functional as F
 
 from tim_tpu_torch.ops.bias_act import bias_act, gelu_bf16
 from tim_tpu_torch.ops.fused_post_attention import layer_norm_fp32
-from tim_tpu_torch.ops.int8_matmul_fused import int8_matmul_fused
+from tim_tpu_torch.ops.int8_matmul_fused import (
+    int8_matmul_fused, pad_weight, padded_k)
 from tim_tpu_torch.ops.quant import (
     int8_matmul, int8_matmul_static, scale_for)
 
@@ -280,6 +281,8 @@ class Int8Dense(nn.Module):
         self.act_scale: float | None = None
         self.act_absmax: torch.Tensor | None = None
         self._calibrating = False
+        self._w_kernel = None       # kernel 3's padded weight_q, and
+        self._w_kernel_key = None   # the weight it was made from
 
     def start_calibration(self) -> None:
         self._calibrating = True
@@ -287,6 +290,19 @@ class Int8Dense(nn.Module):
 
     def stop_calibration(self) -> None:
         self._calibrating = False
+
+    def kernel_weight(self):
+        """weight_q as kernel 3 reads it on the card: its rows zero-padded
+        to a multiple of 16 bytes (``padded_k``), made once and again only
+        after weight_q changes (a load, ``.to()``); weight_q itself where
+        K is a multiple of 16 or the layer is on the CPU."""
+        w = self.weight_q
+        if w.device.type != "cuda" or padded_k(w.shape[1]) == w.shape[1]:
+            return w
+        key = (w.data_ptr(), w._version, w.shape)
+        if self._w_kernel_key != key:
+            self._w_kernel, self._w_kernel_key = pad_weight(w), key
+        return self._w_kernel
 
     def forward(self, x):
         if self._calibrating:
@@ -296,7 +312,8 @@ class Int8Dense(nn.Module):
         if self.act_scale is None:
             y = int8_matmul(x, self.weight_q, self.weight_scale)
         elif self.pallas_fused:
-            return int8_matmul_fused(x, self.weight_q, self.weight_scale,
+            return int8_matmul_fused(x, self.kernel_weight(),
+                                     self.weight_scale,
                                      self.act_scale, self.bias,
                                      out_dtype=self.dtype)
         else:

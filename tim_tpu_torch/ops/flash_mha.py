@@ -13,6 +13,15 @@ kernel, ``csrc/flash_mha_bwd.cu``), which needs the forward's row
 log-sum-exp. ``flash_mha_qkv`` takes the packed [B, S, 3, H, dh]
 projection the models produce and returns its gradient packed the same
 way, so autograd adds no copies for the three slices.
+
+The kernels are built at head dims 64, 128 and 256 (``HEAD_DIMS``). Any
+other head dim up to 256 (ViT-H/16's 80, say) runs on the next of them:
+the wrapper copies q, k and v once into a zero-padded packed buffer
+(``padded_qkv``; zero columns add nothing to the scores, and give zero
+output and gradient columns), keeps ``sm_scale`` as given (1/sqrt of the
+true head dim) and returns views of the outputs' first dh columns
+(``launch_plan``). Rows that the kernels cannot read in place (not
+16-byte aligned) take the same copy.
 """
 
 from __future__ import annotations
@@ -24,8 +33,9 @@ import torch
 from tim_tpu_torch import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# The head dim the kernel is built for: ViT-B/L and the MAE decoder
-HEAD_DIM = 64
+# The head dims the kernels are built for (64: ViT-B/L and the MAE
+# decoder); others run zero-padded
+HEAD_DIMS = (64, 128, 256)
 # tim_flash_mha(q, k, v, out, strides, lse, b, h, s, dh, bf16, scale,
 # stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
@@ -73,7 +83,7 @@ def flash_mha_bwd_plain(q, k, v, do, *, sm_scale: float):
                                        sm_scale=sm_scale)[:3]
 
 
-def check_qkv(name: str, q, k, v, head_dim: int = HEAD_DIM) -> None:
+def check_qkv(name: str, q, k, v, head_dim: int) -> None:
     """What the kernels of ``csrc/flash_attention.cuh`` take: q/k/v of one
     shape [B, H, S, dh] and dtype on one device, dh the ``head_dim`` the
     kernel is built for, the
@@ -100,6 +110,60 @@ def check_qkv(name: str, q, k, v, head_dim: int = HEAD_DIM) -> None:
             raise ValueError(f"{name}: {tname} needs a contiguous last dim "
                              f"and 16-byte aligned rows (strides "
                              f"{t.stride()})")
+
+
+def instance_dim(dh: int) -> int:
+    """The head dim of the kernel instance that head dim ``dh`` runs on:
+    the least of ``HEAD_DIMS`` that holds it. Raises past 256."""
+    for w in HEAD_DIMS:
+        if dh <= w:
+            return w
+    raise ValueError(f"flash_mha: head dim {dh} > {HEAD_DIMS[-1]}, the "
+                     f"widest instance")
+
+
+def launch_plan(dh: int, *tensors):
+    """(instance head dim, whether q/k/v go through a zero-padded copy):
+    the copy is taken when dh is not an instance's or a row cannot be read
+    in place (``aligned``)."""
+    w = instance_dim(dh)
+    return w, w != dh or not all(aligned(t) for t in tensors)
+
+
+def check_args(name: str, q, k, v) -> None:
+    """What ``flash_mha`` takes on the card: q/k/v [B, H, S, dh] of one
+    shape and dtype (fp32 or bf16) on one device, 1 <= dh <= 256; any
+    strides (``launch_plan`` copies rows it cannot read in place)."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B, H, S, dh], got "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
+    if not 1 <= q.shape[-1] <= HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} not in [1, "
+                         f"{HEAD_DIMS[-1]}]")
+    for tname, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} is {t.dtype} on {t.device}, "
+                             f"q is {q.dtype} on {q.device}")
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {tname} has shape {tuple(t.shape)}, "
+                             f"q {tuple(q.shape)}")
+
+
+def padded_qkv(q, k, v, width: int):
+    """One zero-padded packed [B, S, 3, H, width] copy of q, k, v
+    [B, H, S, dh] (dh <= width): the layout glue of ``launch_plan``."""
+    b, h, s, dh = q.shape
+    buf = q.new_zeros((b, s, 3, h, width))
+    for i, t in enumerate((q, k, v)):
+        buf[:, :, i, :, :dh] = t.transpose(1, 2)
+    return buf
+
+
+def pad_last(t, width: int):
+    """t zero-padded in its last dim to ``width`` (a new tensor)."""
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
 
 
 def launch_args(q, k, v):
@@ -162,7 +226,10 @@ def packed_grads(q):
 
 
 def _launch_fwd(q, k, v, sm_scale, lse=None):
-    check_qkv("flash_mha", q, k, v)
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_mha: no instance at head dim "
+                         f"{q.shape[-1]} (built: {HEAD_DIMS})")
+    check_qkv("flash_mha", q, k, v, q.shape[-1])
     b, h, s, dh = q.shape
     view, strides = launch_args(q, k, v)
     fn = _build.launcher("tim_flash_mha", _ARGTYPES)
@@ -175,11 +242,23 @@ def _launch_fwd(q, k, v, sm_scale, lse=None):
     return view
 
 
+def _forward(q, k, v, sm_scale, lse=None):
+    """One forward launch for any head dim up to 256: through a padded
+    copy where ``launch_plan`` says so, the output sliced back."""
+    check_args("flash_mha", q, k, v)
+    dh = q.shape[-1]
+    w, pad = launch_plan(dh, q, k, v)
+    if not pad:
+        return _launch_fwd(q, k, v, sm_scale, lse)
+    out = _launch_fwd(*unpack_qkv(padded_qkv(q, k, v, w)), sm_scale, lse)
+    return out[..., :dh]
+
+
 def flash_mha_with_lse(q, k, v, *, sm_scale: float):
     """(output, row log-sum-exp [B, H, S] fp32) of one forward launch on
     the card: what the autograd Function keeps for ``flash_mha_bwd``."""
     lse = row_stats(q)
-    return _launch_fwd(q, k, v, sm_scale, lse), lse
+    return _forward(q, k, v, sm_scale, lse), lse
 
 
 def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
@@ -198,9 +277,21 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
         return flash_mha_bwd_plain(q, k, v, do, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bwd: no kernel for device {q.device}")
-    check_qkv("flash_mha_bwd", q, k, v)
+    check_args("flash_mha_bwd", q, k, v)
+    dh = q.shape[-1]
+    w, pad = launch_plan(dh, q, k, v, out)
+    if pad:
+        qkv = padded_qkv(q, k, v, w)
+        got = flash_mha_bwd(*unpack_qkv(qkv), pad_last(out, w), lse,
+                            pad_last(do.to(q.dtype), w), sm_scale=sm_scale)
+        got = tuple(g[..., :dh] for g in got)
+        if grads is None:
+            return got
+        for g, x in zip(grads, got):
+            g.copy_(x)
+        return grads
     grads = packed_grads(q) if grads is None else grads
-    check_qkv("flash_mha_bwd", *grads)
+    check_qkv("flash_mha_bwd", *grads, dh)
     do, strides = bwd_args(q, k, v, out, do, grads)
     b, h, s, dh = q.shape
     delta = torch.empty_like(lse)
@@ -227,25 +318,37 @@ class _FlashMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, sm_scale):
-        out, lse = flash_mha_with_lse(*unpack_qkv(qkv), sm_scale=sm_scale)
-        ctx.save_for_backward(qkv, out, lse)
-        ctx.sm_scale = sm_scale
-        return out
+        dh = qkv.shape[-1]
+        check_args("flash_mha", *unpack_qkv(qkv))
+        w, pad = launch_plan(dh, *unpack_qkv(qkv))
+        # past the instances' head dims: one zero-padded copy, kept for the
+        # backward, whose padded gradient columns are sliced away
+        qkv_k = pad_last(qkv, w) if pad else qkv
+        lse = row_stats(unpack_qkv(qkv)[0])
+        out = _launch_fwd(*unpack_qkv(qkv_k), sm_scale, lse)
+        ctx.save_for_backward(qkv_k, out, lse)
+        ctx.sm_scale, ctx.dh = sm_scale, dh
+        return out[..., :dh] if pad else out
 
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
+        w = qkv.shape[-1]
+        if w != ctx.dh:
+            do = pad_last(do.to(qkv.dtype), w)
         grad = torch.empty_like(qkv)
         flash_mha_bwd(*unpack_qkv(qkv), out, lse, do, sm_scale=ctx.sm_scale,
                       grads=unpack_qkv(grad))
-        return grad, None
+        return (grad[..., :ctx.dh] if w != ctx.dh else grad), None
 
 
 def flash_mha(q, k, v, *, sm_scale: float):
-    """softmax(q k^T * sm_scale) v for q/k/v [B, H, S, dh] (dh 64 on the
-    card, any on the CPU; fp32 or bf16, any S >= 1); returns [B, H, S, dh] in q's dtype, a view
-    of a contiguous [B, S, H, dh] tensor. Inputs may be strided views (e.g.
-    of the packed qkv projection); the kernel reads them in place. CPU
+    """softmax(q k^T * sm_scale) v for q/k/v [B, H, S, dh] (dh up to 256
+    on the card, any on the CPU; fp32 or bf16, any S >= 1); returns
+    [B, H, S, dh] in q's dtype, a view of a contiguous [B, S, H, dh']
+    tensor (dh' the instance's head dim, ``launch_plan``). Inputs may be
+    strided views (e.g. of the packed qkv projection); the kernel reads
+    them in place (or copies them once, ``launch_plan``). CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise, and when a gradient is needed the forward also keeps its row
     statistic for ``flash_mha_bwd`` (q, k and v are then packed into one
@@ -256,7 +359,7 @@ def flash_mha(q, k, v, *, sm_scale: float):
         raise ValueError(f"flash_mha: no kernel for device {q.device}")
     if needs_grad(q, k, v):
         return _FlashMHA.apply(pack_qkv(q, k, v), sm_scale)
-    return _launch_fwd(q, k, v, sm_scale)
+    return _forward(q, k, v, sm_scale)
 
 
 def flash_mha_qkv(qkv, *, sm_scale: float):

@@ -12,6 +12,13 @@ dtype where the TPU kernel rounds them.
 ``fused_post_attention_plain`` for CPU tensors. Weights come in
 ``nn.Linear``'s [out, in] layout (w1 [FF, C], w2 [C, FF]); the TPU
 kernel's flax layout is their transpose.
+
+On the card any C and FF run. fp32 masks the ragged tiles in the kernel.
+bf16 feeds its products by TMA, whose rows must be multiples of 16 bytes:
+C and FF that are multiples of 8 run in place (ragged K and N tiles
+masked, LayerNorms of any width); others go through a copy zero-padded to
+the next multiple of 8 (``launch_plan``), with the LayerNorms' statistics
+over the true C and the padding sliced off the output.
 """
 
 from __future__ import annotations
@@ -24,12 +31,12 @@ import torch.nn.functional as F
 from tim_tpu_torch import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE = 128   # C and FF must be multiples of the kernel's output tile
-_MAX_BF16_C = 2048
+# bf16 rows are read by TMA: C and FF multiples of this many values
+PAD_TO = 8
 EPS = 1e-5
-# tim_fused_post_attention(10 inputs, y, h, out, n, c, ff, bf16, eps,
-# stream)
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+# tim_fused_post_attention(10 inputs, y, h, out, n, c, ff, c_valid, bf16,
+# eps, stream)
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -77,13 +84,9 @@ def _check(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2, ln2_weight,
     if tuple(w1.shape) != (ff, c) or tuple(w2.shape) != (c, ff):
         raise ValueError(f"fused_post_attention: w1 {tuple(w1.shape)} / w2 "
                          f"{tuple(w2.shape)} do not fit C={c}")
-    if c % _TILE or ff % _TILE:
+    if c < 1 or ff < 1:
         raise ValueError(f"fused_post_attention: C={c} and FF={ff} must be "
-                         f"multiples of {_TILE}")
-    if x.dtype == torch.bfloat16 and c > _MAX_BF16_C:
-        raise ValueError(f"fused_post_attention: bf16 rows of at most "
-                         f"{_MAX_BF16_C} channels (its LayerNorm passes keep "
-                         f"a row in registers), got C={c}")
+                         f"positive")
     for name, t, n in (("ln1_weight", ln1_weight, c), ("ln1_bias", ln1_bias, c),
                        ("b1", b1, ff), ("b2", b2, c),
                        ("ln2_weight", ln2_weight, c), ("ln2_bias", ln2_bias, c)):
@@ -97,6 +100,23 @@ def _check(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2, ln2_weight,
         if t.device != x.device:
             raise ValueError(f"fused_post_attention: {name} on {t.device}, "
                              f"x on {x.device}")
+
+
+def launch_plan(c: int, ff: int, dtype):
+    """(C, FF) as the kernels take them: bf16 pads each to a multiple of
+    ``PAD_TO`` (TMA's 16-byte rows) through a zero-padded copy; fp32 runs
+    any C and FF in place. Equal to (c, ff) where no copy is made."""
+    if dtype != torch.bfloat16:
+        return c, ff
+    return -(-c // PAD_TO) * PAD_TO, -(-ff // PAD_TO) * PAD_TO
+
+
+def _pad(t, *sizes):
+    """t zero-padded at the end of each dim to ``sizes``."""
+    pads = []
+    for dim, size in reversed(list(enumerate(sizes))):
+        pads += [0, size - t.shape[dim]]
+    return F.pad(t, pads) if any(pads) else t
 
 
 def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
@@ -120,23 +140,30 @@ def fused_post_attention(x, attn, ln1_weight, ln1_bias, w1, b1, w2, b2,
     c = x.shape[-1]
     ff = w1.shape[0]
     n = x.numel() // c
+    cp, ffp = launch_plan(c, ff, dt)
     # kernel argument order; every tensor contiguous, weights in dt,
-    # biases and LN params fp32 (the kernel reads them as raw pointers)
-    inputs = [x.contiguous(), attn.contiguous(),
+    # biases and LN params fp32 (the kernel reads them as raw pointers);
+    # zero-padded to (cp, ffp) where the plan pads
+    inputs = [_pad(x.reshape(n, c), n, cp).contiguous(),
+              _pad(attn.reshape(n, c), n, cp).contiguous(),
               ln1_weight.float().contiguous(), ln1_bias.float().contiguous(),
-              w1.to(dt).contiguous(), b1.float().contiguous(),
-              w2.to(dt).contiguous(), b2.float().contiguous(),
+              _pad(w1.to(dt), ffp, cp).contiguous(),
+              _pad(b1.float(), ffp).contiguous(),
+              _pad(w2.to(dt), cp, ffp).contiguous(),
+              _pad(b2.float(), cp).contiguous(),
               ln2_weight.float().contiguous(), ln2_bias.float().contiguous()]
-    y = torch.empty((n, c), dtype=dt, device=x.device)      # scratch
-    h = torch.empty((n, ff), dtype=dt, device=x.device)     # scratch
-    out = torch.empty(x.shape, dtype=dt, device=x.device)
+    y = torch.empty((n, cp), dtype=dt, device=x.device)      # scratch
+    h = torch.empty((n, ffp), dtype=dt, device=x.device)     # scratch
+    out = torch.empty((n, cp), dtype=dt, device=x.device)
     fn = _build.launcher("tim_fused_post_attention", _ARGTYPES)
     status = fn(*[t.data_ptr() for t in inputs + [y, h, out]],
-                n, c, ff, int(dt == torch.bfloat16), EPS,
+                n, cp, ffp, c, int(dt == torch.bfloat16), EPS,
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "fused_post_attention")
     fused_post_attention.launches += 1
-    return out
+    if cp != c:
+        out = out[:, :c].contiguous()
+    return out.view(x.shape)
 
 
 # Number of calls that launched the kernels (bf16: four launches each, the

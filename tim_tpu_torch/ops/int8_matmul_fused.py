@@ -10,10 +10,15 @@ reciprocal where ``ops.quant.int8_matmul_static`` divides by s_x (the two
 can round a value near .5 to neighbouring integers).
 
 ``int8_matmul_fused`` launches the CUDA kernel (``csrc/int8_matmul_fused.cu``:
-wgmma s8 products against a tile of quantized rows kept in shared memory,
-so K is at most 2048) for CUDA tensors and runs ``int8_matmul_fused_plain``
-for CPU tensors. Weights come in the port's [N, K] layout (the TPU
-kernel's [K, N] transposed).
+wgmma s8 products against a tile of quantized rows kept in shared memory)
+for CUDA tensors and runs ``int8_matmul_fused_plain`` for CPU tensors.
+Weights come in the port's [N, K] layout (the TPU kernel's [K, N]
+transposed). On the card any K runs (``launch_plan``): K past 2048 in
+chunks of 2048 through the tile (one launch each, the exact int32 sums
+meeting in an [M, N] scratch), and w_q's rows at a multiple of 16 bytes
+(TMA's row pitch): a caller may hand w_q already zero-padded to
+``padded_k(K)`` columns (``models.common.Int8Dense`` pads once when the
+layer is built); an unpadded w_q at another K is padded on each call.
 """
 
 from __future__ import annotations
@@ -30,15 +35,16 @@ from tim_tpu_torch import _build
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _ACTIVATIONS = (None, "gelu")
-_ALIGN = 8     # x's row strides, in elements, must be multiples of this
 # the kernel keeps a tile of quantized rows (128 rows of up to 1024, or 64
-# of up to 2048 values) in shared memory
-_MAX_K = 2048
+# of up to 2048 values) in shared memory; longer K runs in chunks of this
+MAX_CHUNK = 2048
+# w_q's rows are read by TMA: a multiple of this many bytes
+W_PITCH = 16
 # tim_int8_matmul_fused(x, w_q, w_scale, bias, out, sb, sr, batches, rows,
-# k, n, inv_sx, sx, gelu, x_bf16, out_bf16, stream)
+# k, kw, n, inv_sx, sx, gelu, x_bf16, out_bf16, partial, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-             + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
 
 
 def _scales(act_scale: float):
@@ -55,6 +61,7 @@ def int8_matmul_fused_plain(x, w_q, w_scale, act_scale: float, bias=None,
     The product sums exactly in float64 (on any device)."""
     inv_sx, sx = _scales(act_scale)
     k = x.shape[-1]
+    w_q = w_q[:, :k]   # a w_q padded past K holds zeros there
     x32 = x.reshape(-1, k).float()
     inv = torch.tensor(inv_sx, dtype=torch.float32, device=x.device)
     xq = torch.clamp(torch.round(x32 * inv), -127, 127)
@@ -79,6 +86,24 @@ def _row_view(x):
                      f"{tuple(x.shape)}")
 
 
+def padded_k(k: int) -> int:
+    """w_q's row length on the card: K rounded up to ``W_PITCH``."""
+    return -(-k // W_PITCH) * W_PITCH
+
+
+def launch_plan(k: int):
+    """(launches, w_q's padded row length) for K: one launch a chunk of
+    ``MAX_CHUNK`` values of K."""
+    return -(-k // MAX_CHUNK), padded_k(k)
+
+
+def pad_weight(w_q):
+    """w_q [N, K] zero-padded to [N, padded_k(K)] (itself where K is a
+    multiple of 16): the layout the card's kernel reads in place."""
+    k = w_q.shape[1]
+    return w_q if padded_k(k) == k else F.pad(w_q, (0, padded_k(k) - k))
+
+
 def _check(x, w_q, w_scale, bias, activation, out_dtype):
     k = x.shape[-1]
     n = w_q.shape[0]
@@ -88,9 +113,11 @@ def _check(x, w_q, w_scale, bias, activation, out_dtype):
     if activation not in _ACTIVATIONS:
         raise ValueError(f"int8_matmul_fused: activation {activation!r} "
                          f"not in {_ACTIVATIONS}")
-    if w_q.dtype != torch.int8 or tuple(w_q.shape) != (n, k):
-        raise ValueError(f"int8_matmul_fused: w_q must be int8 [N, {k}], "
-                         f"got {w_q.dtype} {tuple(w_q.shape)}")
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[1] not in (
+            k, padded_k(k)):
+        raise ValueError(f"int8_matmul_fused: w_q must be int8 [N, {k}] "
+                         f"(or zero-padded to [N, {padded_k(k)}]), got "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
     for name, t in (("w_scale", w_scale), ("bias", bias)):
         if t is not None and tuple(t.shape) != (n,):
             raise ValueError(f"int8_matmul_fused: {name} has shape "
@@ -99,14 +126,9 @@ def _check(x, w_q, w_scale, bias, activation, out_dtype):
         if t is not None and t.device != x.device:
             raise ValueError(f"int8_matmul_fused: {name} on {t.device}, x "
                              f"on {x.device}")
-    _, _, sb, sr = _row_view(x)
-    if (x.stride(-1) != 1 or k % 16 or k > _MAX_K or sb % _ALIGN
-            or sr % _ALIGN or x.data_ptr() % 16):
-        raise ValueError(
-            f"int8_matmul_fused: x needs a contiguous last dim, K a "
-            f"multiple of 16 up to {_MAX_K}, row strides that are multiples "
-            f"of {_ALIGN} and a 16-byte aligned start (K={k}, strides "
-            f"{x.stride()})")
+    _row_view(x)
+    if k < 1:
+        raise ValueError("int8_matmul_fused: K must be positive")
 
 
 def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
@@ -126,28 +148,35 @@ def int8_matmul_fused(x, w_q, w_scale, act_scale: float, bias=None,
                          f"{x.device}")
     _check(x, w_q, w_scale, bias, activation, out_dtype)
     _build.refuse_grad("int8_matmul_fused", x, w_q, w_scale, bias)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
     batches, rows, sb, sr = _row_view(x)
     k, n = x.shape[-1], w_q.shape[0]
     out = torch.empty((*x.shape[:-1], n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     inv_sx, sx = _scales(act_scale)
-    w_q = w_q.contiguous()
+    chunks, kw = launch_plan(k)
+    w_q = pad_weight(w_q).contiguous()
     if w_q.data_ptr() % 16:
-        raise ValueError("int8_matmul_fused: w_q must start 16-byte aligned")
+        w_q = w_q.clone()
+    partial = (torch.empty((batches * rows, n), dtype=torch.int32,
+                           device=x.device) if chunks > 1 else None)
     w_scale = w_scale.float().contiguous()
     bias_ptr = None if bias is None else bias.float().contiguous()
     fn = _build.launcher("tim_int8_matmul_fused", _ARGTYPES)
     status = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                 None if bias_ptr is None else bias_ptr.data_ptr(),
-                out.data_ptr(), sb, sr, batches, rows, k, n, inv_sx, sx,
+                out.data_ptr(), sb, sr, batches, rows, k, kw, n, inv_sx, sx,
                 int(activation == "gelu"), int(x.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16),
+                None if partial is None else partial.data_ptr(),
                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "int8_matmul_fused")
     int8_matmul_fused.launches += 1
     return out
 
 
-# Number of kernel launches; the plain CPU version does not count.
+# Number of calls that launched the kernel (one launch a chunk of K); the
+# plain CPU version does not count.
 int8_matmul_fused.launches = 0

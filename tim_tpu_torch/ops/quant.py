@@ -42,10 +42,11 @@ def int8_product(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     ``astype(float32)`` rounds them."""
     if x_q.device.type == "cpu":
         return (x_q.double() @ w_q.double().t()).float()
-    # torch._int_mm on CUDA takes M > 16 rows and N a multiple of 8
-    m, n = x_q.shape[0], w_q.shape[0]
-    x8 = F.pad(x_q.to(torch.int8), (0, 0, 0, max(17 - m, 0)))
-    w8 = F.pad(w_q, (0, 0, 0, -n % 8))
+    # torch._int_mm on CUDA takes M > 16 rows, and K and N multiples of 8
+    # (zero columns of K add nothing)
+    m, n, k = x_q.shape[0], w_q.shape[0], w_q.shape[1]
+    x8 = F.pad(x_q.to(torch.int8), (0, -k % 8, 0, max(17 - m, 0)))
+    w8 = F.pad(w_q, (0, -k % 8, 0, -n % 8))
     return torch._int_mm(x8, w8.t())[:m, :n].float()
 
 

@@ -6,10 +6,17 @@ weighted sum of the context values and its own value. Internals are fp32,
 the output is in the input dtype.
 
 ``query_block_attention`` launches the CUDA kernel
-(``csrc/query_block_attention.cu``: tensor cores in bf16 at head dims 32,
-64 and 128, CUDA cores in fp32 and at head dim 256) for CUDA tensors and
-runs ``query_block_attention_plain``, the same function in plain
-PyTorch, for CPU tensors. There is no fallback between the two.
+(``csrc/query_block_attention.cu``) for CUDA tensors and runs
+``query_block_attention_plain``, the same function in plain PyTorch, for
+CPU tensors. There is no fallback between the two. On the card it takes
+any head dim from 1 to 256 and any row strides (``launch_plan``): bf16
+rows that are 16-byte aligned at head dims 32, 64, 128 and 160 take the
+tensor-core design in place; other bf16 inputs up to head dim 160 are
+copied once into zero-padded rows of the next of those head dims
+(``copy_width``; zero columns add nothing to the scores, the scale stays
+1/sqrt(dh), the output's padding is sliced off); fp32, and bf16 past 160,
+take the CUDA-core design (its lanes' dims past dh masked where dh is not
+32, 64, 128 or 256).
 """
 
 from __future__ import annotations
@@ -20,13 +27,17 @@ import math
 import torch
 
 from tim_tpu_torch import _build
+from tim_tpu_torch.ops.flash_mha import aligned
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256
+# head dims of the bf16 tensor-core instances
+TENSOR_CORE_HEAD_DIMS = (32, 64, 128, 160)
+TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
 # tim_query_block_attention(qq, kc, kq, vc, vq, out, strides, b, h, nq, f,
-# dh, bf16, scale, stream)
+# dh, bf16, cuda_cores, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def query_block_attention_plain(qq, kc, kq, vc, vq):
@@ -64,20 +75,36 @@ def _check(qq, kc, kq, vc, vq):
     if qq.dtype not in _DTYPES:
         raise ValueError(f"query_block_attention: dtype {qq.dtype} not in "
                          f"{_DTYPES}")
-    if dh not in _HEAD_DIMS:
+    if not 1 <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"query_block_attention: head dim {dh} not in "
-                         f"{_HEAD_DIMS}")
-    if qq.dtype == torch.bfloat16 and dh != 256:
-        # the tensor-core design copies rows with 16-byte cp.async
-        for name, t in (("qq", qq), ("kc", kc), ("kq", kq), ("vc", vc),
-                        ("vq", vq)):
-            if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-                raise ValueError(f"query_block_attention: {name} needs "
-                                 f"16-byte aligned rows (strides "
-                                 f"{t.stride()})")
+                         f"[1, {MAX_HEAD_DIM}]")
     if f < 1 or b * h > 65535:
         raise ValueError(f"query_block_attention: needs F >= 1 and "
                          f"B*H <= 65535, got F={f}, B*H={b * h}")
+
+
+def launch_plan(dh: int, dtype, *tensors) -> str:
+    """The kernel design that runs these inputs: ``TENSOR_CORES`` for bf16
+    at a tensor-core head dim with every row 16-byte aligned, else
+    ``CUDA_CORES`` (fp32 always; bf16 at any other head dim, or with rows
+    that the tensor-core design's 16-byte cp.async copies cannot read,
+    ``flash_mha.aligned``)."""
+    if (dtype == torch.bfloat16 and dh in TENSOR_CORE_HEAD_DIMS
+            and all(aligned(t) for t in tensors)):
+        return TENSOR_CORES
+    return CUDA_CORES
+
+
+def copy_width(dh: int, dtype, *tensors):
+    """The head dim of the zero-padded copy that takes bf16 inputs the
+    tensor-core design cannot read in place onto it (the least tensor-core
+    head dim >= dh), or None: no copy (fp32, in-place tensor cores, or dh
+    past 160, which the CUDA-core design takes)."""
+    if (dtype != torch.bfloat16
+            or launch_plan(dh, dtype, *tensors) == TENSOR_CORES
+            or dh > TENSOR_CORE_HEAD_DIMS[-1]):
+        return None
+    return min(w for w in TENSOR_CORE_HEAD_DIMS if w >= dh)
 
 
 def query_block_attention(qq, kc, kq, vc, vq):
@@ -97,14 +124,28 @@ def query_block_attention(qq, kc, kq, vc, vq):
     _check(qq, kc, kq, vc, vq)
     _build.refuse_grad("query_block_attention", qq, kc, kq, vc, vq)
     b, h, nq, dh = qq.shape
-    out = torch.empty((b, h, nq, dh), dtype=qq.dtype, device=qq.device)
     tensors = (qq, kc, kq, vc, vq)
+    width = copy_width(dh, qq.dtype, *tensors)
+    if width is not None:
+        out = _launch([torch.nn.functional.pad(t, (0, width - dh))
+                       for t in tensors], 1.0 / math.sqrt(dh))
+        return out[..., :dh]
+    return _launch(tensors, 1.0 / math.sqrt(dh))
+
+
+def _launch(tensors, scale: float):
+    """One launch on ``tensors`` (qq, kc, kq, vc, vq) at their head dim,
+    scores scaled by ``scale``; returns the contiguous output."""
+    qq, kc = tensors[0], tensors[1]
+    b, h, nq, dh = qq.shape
+    out = torch.empty((b, h, nq, dh), dtype=qq.dtype, device=qq.device)
     strides = (ctypes.c_longlong * 15)(
         *[s for t in tensors for s in t.stride()[:3]])
     fn = _build.launcher("tim_query_block_attention", _ARGTYPES)
+    plan = launch_plan(dh, qq.dtype, *tensors)
     status = fn(*[t.data_ptr() for t in tensors], out.data_ptr(), strides,
                 b, h, nq, kc.shape[2], dh, int(qq.dtype == torch.bfloat16),
-                1.0 / math.sqrt(dh),
+                int(plan == CUDA_CORES), scale,
                 torch.cuda.current_stream(qq.device).cuda_stream)
     _build.check(status, "query_block_attention")
     query_block_attention.launches += 1
