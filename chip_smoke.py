@@ -334,8 +334,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and a seeded random grid (any mismatch fails), Pillow's and the
      port's frames/s side by side; the phase within 40 s.
  31. the widths the command lines take past the presets (last): a. kernel
-     5 and 5b at ViT-H/16's [8, 16, 1568, 80] and at [2, 16, 1568, 91]
-     (the wrapper's zero-padded copy to the 128 instance), kernel 1 at the
+     5 and 5b at [8, 16, 1568, dh] for VideoMAE's dh 80, 88 and 128 and at
+     [2, 16, 1568, 104] (bf16: the wgmma instances 80, 96, 112 and 128
+     reading q, k and v in place, shown by their route counts; the
+     backward bit-equal call to call and to its deterministic route) and
+     at [2, 16, 1568, 91] (the zero-padded copy to the 96 instance),
+     kernel 1 at the
      wide TIM's [128, 16, 798, 160] (F 100, bf16 on its tensor-core
      instance) and at head dim 91 on strided views of a packed qkv,
      kernel 2 at [128 x 898, 2560] FF 5120 and [128 x 898, 728] FF 1456,
@@ -353,8 +357,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      same at ``--d_model 364 --nhead 8`` (C 728, head dim 91) at 2 layers
      (``widths-tim-odd-*``); c. ``finetune_cli.run --mode finetune`` at
      ViT-H/16 (``--embed_dim 1280 --depth 32 --num_heads 16``: 32
-     launches of kernels 5 and 5b a step, ``widths-vit-h``), two steps of
-     8 clips and one validation batch; peak memory and seconds a step.
+     launches of kernels 5 and 5b a step, all on their 80 instances with
+     no copy, ``widths-vit-h``), two steps of 8 clips and one validation
+     batch; peak memory, seconds and device ms a step.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -364,6 +369,7 @@ last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
@@ -1128,6 +1134,30 @@ def synthetic_video(cfg, rng):
     return v, a, feat_times, duration
 
 
+class RouteCount:
+    """The launches of some of a kernel wrapper's routes (its ``routes``
+    counts, named by ``ops.flash_mha.route``), read and set to 0 as a
+    wrapper's ``launches`` count is."""
+
+    def __init__(self, fn, names):
+        self.fn, self.names = fn, tuple(names)
+
+    @property
+    def launches(self) -> int:
+        return sum(self.fn.routes[n] for n in self.names)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        require(value == 0, f"a route count is only set to 0, not {value}")
+        for n in self.names:
+            self.fn.routes.pop(n, None)
+
+
+# counts that are a part of another kernel's (kernel 5 / 5b's routes at
+# head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu)
+ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide")
+
+
 def launch_counters():
     from tim_tpu_torch.ops import bias_act as ba
     from tim_tpu_torch.ops import flash_mha as fm
@@ -1135,6 +1165,7 @@ def launch_counters():
     from tim_tpu_torch.ops import int8_matmul_fused as i8
     from tim_tpu_torch.ops import query_block_attention as qba
     from tim_tpu_torch.ops import window_attention as wa
+    bf16 = torch.bfloat16
     return {"query_block_attention": qba.query_block_attention,
             "fused_post_attention": fpa.fused_post_attention,
             "int8_matmul_fused": i8.int8_matmul_fused,
@@ -1142,13 +1173,21 @@ def launch_counters():
             "flash_mha": fm.flash_mha,
             "window_attention_bwd": wa.window_attention_bwd,
             "flash_mha_bwd": fm.flash_mha_bwd,
-            "bias_act": ba.bias_act}
+            "bias_act": ba.bias_act,
+            "flash_mha_wide": RouteCount(fm.flash_mha, [
+                fm.route(bf16, w, c) for w in fm.HEAD_DIMS if 64 < w < 128
+                for c in (False, True)]),
+            "flash_mha_bwd_wide": RouteCount(fm.flash_mha_bwd, [
+                fm.route(bf16, w, c, backward=True) for w in fm.WIDE
+                for c in (False, True)])}
 
 
 def attention_launches(launches):
     """The launches of the TPU kernels' counterparts, without the bias
-    epilogue of the bf16 linears."""
-    return sum(n for name, n in launches.items() if name != "bias_act")
+    epilogue of the bf16 linears (and without the route counts, which are
+    parts of theirs)."""
+    return sum(n for name, n in launches.items()
+               if name != "bias_act" and name not in ROUTE_COUNTS)
 
 
 def require_steady(tag, launches, calls):
@@ -1662,7 +1701,7 @@ def phase_backbone_kernels(gen):
         c_fn = _build.launcher("tim_flash_mha", fm._ARGTYPES)
         view, strides = fm.launch_args(q, k, v)
         c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
-                  strides, None, 8, h, s, 64, 1, 0.125,
+                  strides, None, 8, h, s, 64, 64, 1, 0.125,
                   torch.cuda.current_stream().cuda_stream)
         _, row["launcher_host_ms"] = device_ms(lambda: c_fn(*c_args))
         log_forward("flash_mha", f"[8, {h}, {s}, 64]", row,
@@ -3006,10 +3045,14 @@ class EventTimed:
 
 
 def zero_counts():
+    """Every count set to 0, kernel 5 / 5b's route counts whole."""
+    from tim_tpu_torch.ops import flash_mha as fm
     counters = launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    fm.flash_mha.routes.clear()
+    fm.flash_mha_bwd.routes.clear()
     return counters
 
 
@@ -6292,7 +6335,9 @@ class StepClock:
     """Per-step phase times of a backbone runner: ``runner.backbone.
     _batches`` wrapped so that each fetch is timed (``PhaseTimer``: data =
     the host making a batch of clips, net = the step, read at the next
-    fetch after a synchronize)."""
+    fetch after a synchronize), and the step's device ms (CUDA events
+    recorded when the batch is handed over and when the next is asked
+    for)."""
 
     def __init__(self):
         from tim_tpu_torch.runner import backbone as rb
@@ -6312,12 +6357,16 @@ class StepClock:
                 except StopIteration:
                     return
                 timer.data_toc()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
                 yield batch
+                end.record()
                 torch.cuda.synchronize()
                 timer.net_toc()
                 timer.iter_toc()
                 steps.append((timer.data_time, timer.net_time,
-                              timer.iter_time))
+                              timer.iter_time, start.elapsed_time(end)))
                 timer.iter_tic()
 
         self.module._batches = batches
@@ -6372,6 +6421,7 @@ def ft_cli_run(tag, mode, args, train_ds, val_ds, per=None):
         "step_s": [s[2] for s in steps[:train_steps]],
         "data_s": [s[0] for s in steps[:train_steps]],
         "net_s": [s[1] for s in steps[:train_steps]],
+        "device_ms": [s[3] for s in steps[:train_steps]],
         "wall_clips_per_s": clips / last[2],
         "host_share": last[0] / last[2], "seconds": secs,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -7705,6 +7755,7 @@ def phase_build():
     # nothing, and ptxas serialised none of their products (its warnings
     # C7510-C7520)
     wgmma = (("fwd90", "attention_kernel"), ("sm90", "bwd_kernel"),
+             ("bwd90", "dkdv_kernel"), ("bwd90", "dq_kernel"),
              ("tim_fpa", "gemm_kernel"), ("tim_i8", "int8_matmul_kernel"))
     spilled = [nice for (name, regs, st, ld), nice in zip(kernels, pretty)
                if any(a in name and b in name for a, b in wgmma)
@@ -7730,8 +7781,12 @@ def phase_build():
 WIDE_TIM = {"d_model": 1280, "nhead": 16}
 ODD_TIM = {"d_model": 364, "nhead": 8}
 VIT_H = ("--embed_dim", "1280", "--depth", "32", "--num_heads", "16")
-# kernel 5 / 5b: ViT-H's attention and a head dim off the 16-byte rule
-WIDTH_FLASH = ((8, 16, 1568, 80), (2, 16, 1568, 91))
+# kernel 5 / 5b at the VideoMAE head dims past 64 (ViT-H/16's 80, ViT-g/14's
+# 88 and ViT-G/14's 104, read in place by the bf16 instances 80, 96 and
+# 112; 128 on its own instance) and at 91 (no multiple of 8: the
+# zero-padded copy); the batch-8 shapes are timed
+WIDTH_FLASH = ((8, 16, 1568, 80), (8, 16, 1568, 88), (2, 16, 1568, 104),
+               (8, 16, 1568, 128), (2, 16, 1568, 91))
 
 
 def packed_views(batch, seq, heads, dh, dtype, gen, f=None):
@@ -7754,20 +7809,81 @@ def launches_of(counter, call) -> int:
     return counter.launches - before
 
 
+def routes_of(call):
+    """The (forward, backward) route counts of kernels 5 / 5b
+    (``flash_mha.routes``) that one ``call()`` adds."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    before = (collections.Counter(fm.flash_mha.routes),
+              collections.Counter(fm.flash_mha_bwd.routes))
+    call()
+    torch.cuda.synchronize()
+    return (dict(fm.flash_mha.routes - before[0]),
+            dict(fm.flash_mha_bwd.routes - before[1]))
+
+
+def widths_flash_routes(tag, q, k, v, out, lse, do, kw):
+    """The bf16 routes of one shape: one forward, one backward and one
+    autograd step on the packed projection each launch the plan's
+    instance, with no copy where the head dim is a multiple of 8; the
+    backward's two calls under ``torch.use_deterministic_algorithms``
+    bit-equal to each other and to the default route's. Returns the
+    routes."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    dh = q.shape[-1]
+    w, copied = fm.launch_plan(dh, q.dtype, q, k, v)
+    require(copied == (dh % 8 != 0), f"widths {tag}: plan {w}, copied "
+            f"{copied}")
+    want_f = {fm.route(q.dtype, w, copied): 1}
+    want_b = {fm.route(q.dtype, w, copied, backward=True): 1}
+    got_f, _ = routes_of(lambda: fm.flash_mha(q, k, v, **kw))
+    _, got_b = routes_of(lambda: fm.flash_mha_bwd(q, k, v, out, lse, do,
+                                                  **kw))
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
+    leaf = qkv.detach().requires_grad_()
+    step_f, step_b = routes_of(lambda: (fm.flash_mha_qkv(
+        leaf, **kw).float() * do.float()).sum().backward())
+    log(f"[widths] flash_mha {tag} routes: forward {got_f}, backward "
+        f"{got_b}, autograd step {step_f} + {step_b} (plan: instance {w}, "
+        f"{'copied' if copied else 'read in place'})")
+    require(got_f == want_f and got_b == want_b and step_f == want_f
+            and step_b == want_b, f"widths {tag}: routes {got_f}, {got_b}, "
+            f"{step_f}, {step_b}; expected {want_f}, {want_b}")
+    default = [g.clone() for g in fm.flash_mha_bwd(q, k, v, out, lse, do,
+                                                   **kw)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = [g.clone() for g in fm.flash_mha_bwd(q, k, v, out, lse, do,
+                                                     **kw)]
+        second = fm.flash_mha_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    as_default = [torch.equal(a, b) for a, b in zip(first, default)]
+    log(f"[widths] flash_mha_bwd {tag} deterministic route: two calls "
+        f"bit-equal (dq, dk, dv) {same}, equal to the default route "
+        f"{as_default}")
+    require(all(same) and all(as_default), f"widths {tag}: the backward is "
+            f"not bit-stable: {same}, {as_default}")
+    return {"forward": got_f, "backward": got_b}
+
+
 def widths_flash(gen):
-    """Kernels 5 and 5b at ViT-H's head dim 80 and at 91 (through the
-    wrapper's zero-padded copy to the 128 instance), fp32 and bf16, against
-    their plain versions under the gates in force, the bf16 gates shown to
-    reject their faulty controls; timed in bf16 at ViT-H's shape beside
-    SDPA, the copy timed alone."""
+    """Kernels 5 and 5b at the VideoMAE head dims past 64 (bf16 on the
+    instances that read them in place) and at 91 (the zero-padded copy),
+    fp32 and bf16, against their plain versions under the gates in force,
+    the bf16 gates shown to reject their faulty controls; in bf16 the
+    routes each call takes and the backward's bit-stability; the batch-8
+    shapes timed beside SDPA (the backward's deterministic route too)."""
     from tim_tpu_torch.ops import flash_mha as fm
     rows_f, rows_b = [], []
     for b, h, s, dh in WIDTH_FLASH:
         scale = dh ** -0.5
-        w, _ = fm.launch_plan(dh)
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
-            tag = f"{dtype} [{b}, {h}, {s}, {dh}] (instance {w})"
+            w, copied = fm.launch_plan(dh, dtype)
+            tag = (f"{dtype} [{b}, {h}, {s}, {dh}] (instance {w}, "
+                   f"{'copied' if copied else 'in place'})")
             q, k, v = packed_views(b, s, h, dh, dtype, gen)
             kw = {"sm_scale": scale}
             got, err = check_attention("flash_mha", fm.flash_mha,
@@ -7782,7 +7898,8 @@ def widths_flash(gen):
             want = fm.flash_mha_bwd_plain(q, k, v, do, **kw)
             gerr = check_grads("flash_mha_bwd", grads, want, bf16,
                                f"widths {tag}")
-            if bf16 and dh == 80:
+            routes = None
+            if bf16:
                 sc = vit_scores(q, k, v, **kw)
                 bad = emulated_attention_bwd(sc, q, k, v, do, drop_delta=True,
                                              **kw)
@@ -7790,13 +7907,16 @@ def widths_flash(gen):
                                [("D omitted, dq", 0, bad[0]),
                                 ("D omitted, dk", 1, bad[1])])
                 del sc, bad
+                routes = widths_flash_routes(tag, q, k, v, out, lse, do, kw)
             del got, grads, want
             torch.cuda.empty_cache()
-            if not bf16 or dh != 80:
+            if not bf16 or b != 8:
                 rows_f.append({"shape": [b, h, s, dh], "dtype": str(dtype),
+                               "instance": w, "copied": copied,
                                "max_abs_err": err})
                 rows_b.append({"shape": [b, h, s, dh], "dtype": str(dtype),
-                               "max_abs_err": gerr})
+                               "instance": w, "copied": copied,
+                               "max_abs_err": gerr, "routes": routes})
                 del q, k, v, out, lse, do
                 continue
             n_scores = b * h * s * s
@@ -7808,40 +7928,47 @@ def widths_flash(gen):
                                sdpa_with_grad(q, k, v, scale=scale),
                                (q, k, v), kw, nb, n_scores, dh)
             row.update(shape=[b, h, s, dh], dtype=str(dtype),
-                       max_abs_err=err, instance=w,
+                       max_abs_err=err, instance=w, copied=copied,
+                       routes=routes["forward"],
                        launches=launches_of(fm.flash_mha, lambda: fm.flash_mha(
-                           q, k, v, **kw)),
-                       pad_copy_ms=cuda_ms(
-                           lambda: fm.padded_qkv(q, k, v, w)))
+                           q, k, v, **kw)))
             lib_err = max_err(F.scaled_dot_product_attention(
                 q, k, v, scale=scale), fm.flash_mha(q, k, v, **kw))
             log_forward("flash_mha", f"widths [{b}, {h}, {s}, {dh}]", row,
                         "scaled_dot_product_attention", lib_err)
-            log(f"[widths] flash_mha [{b}, {h}, {s}, {dh}] bf16: the "
-                f"zero-padded copy to the {w} instance alone "
-                f"{row['pad_copy_ms']:.4f} ms (in the kernel's time above); "
-                f"{row['launches']} launch a call")
+            log(f"[widths] flash_mha [{b}, {h}, {s}, {dh}] bf16: instance "
+                f"{w}, {'copied' if copied else 'read in place'}; "
+                f"{row['launches']} launch a call; kernel / SDPA "
+                f"{row['ms'] / row['library_ms']:.3f}")
             rows_f.append(row)
             brow = {"shape": [b, h, s, dh], "dtype": str(dtype),
-                    "max_abs_err": gerr, "instance": w,
+                    "max_abs_err": gerr, "instance": w, "copied": copied,
+                    "routes": routes["backward"],
                     "launches": launches_of(
                         fm.flash_mha_bwd, lambda: fm.flash_mha_bwd(
                             q, k, v, out, lse, do, **kw))}
             brow["ms"] = cuda_ms(lambda: fm.flash_mha_bwd(
                 q, k, v, out, lse, do, **kw))
+            torch.use_deterministic_algorithms(True)
+            try:
+                brow["deterministic_ms"] = cuda_ms(lambda: fm.flash_mha_bwd(
+                    q, k, v, out, lse, do, **kw))
+            finally:
+                torch.use_deterministic_algorithms(False)
             brow["plain_ms"] = cuda_ms(lambda: fm.flash_mha_bwd_plain(
                 q, k, v, do, **kw), iters=3, warmup=1)
             brow["library_ms"] = sdpa_bwd_ms(q, k, v, do)
             brow["bound_ms"], brow["bound_by"] = attention_bwd_bound(
                 q, 2 * nbytes(q, k, v) + nbytes(out, do, lse))
             brow["share_of_bound"] = brow["bound_ms"] / brow["ms"]
-            log(f"[widths] flash_mha_bwd [{b}, {h}, {s}, {dh}] bf16 (wide "
-                f"mma.sync passes at {w}, padded copies included): kernel "
-                f"{brow['ms']:.4f} ms ({brow['launches']} launch a call), "
-                f"plain {brow['plain_ms']:.4f} ms, "
-                f"scaled_dot_product_attention backward "
-                f"{brow['library_ms']:.4f} ms, bound {brow['bound_ms']:.4f} "
-                f"ms ({brow['bound_by']}, "
+            log(f"[widths] flash_mha_bwd [{b}, {h}, {s}, {dh}] bf16 "
+                f"({routes['backward']}): kernel {brow['ms']:.4f} ms "
+                f"({brow['launches']} launch a call), deterministic route "
+                f"{brow['deterministic_ms']:.4f} ms, plain "
+                f"{brow['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                f"backward {brow['library_ms']:.4f} ms (kernel / SDPA "
+                f"{brow['ms'] / brow['library_ms']:.3f}), bound "
+                f"{brow['bound_ms']:.4f} ms ({brow['bound_by']}, "
                 f"{100 * brow['share_of_bound']:.1f}%)")
             rows_b.append(brow)
             del q, k, v, out, lse, do
@@ -8173,8 +8300,10 @@ def widths_tim(tag, widths, layers, rng):
 def widths_vit_h(tmp):
     """Phase 31c: the finetune CLI at VideoMAE ViT-H/16's width and depth
     (--embed_dim 1280 --depth 32 --num_heads 16: head dim 80, kernels 5
-    and 5b on the 128 instance through the padded copy): two finetune
-    steps of 8 clips and one validation batch."""
+    and 5b on their 80 instances, q, k and v read in place): two finetune
+    steps of 8 clips and one validation batch; each step's device ms
+    (CUDA events) beside its wall seconds and host share."""
+    from tim_tpu_torch.ops import flash_mha as fm
     import random
     from tim_tpu_torch.extract import finetune_cli
     args = ft_args("finetune", tmp / "vit-h", *VIT_H, "--num_sample", "1")
@@ -8185,6 +8314,22 @@ def widths_vit_h(tmp):
     np.random.seed(SEED + 31)
     stats, launches, metrics = ft_cli_run("widths-vit-h", "finetune", args,
                                           train_ds, val_ds, per=args.depth)
+    routes = (dict(fm.flash_mha.routes), dict(fm.flash_mha_bwd.routes))
+    bf16 = torch.bfloat16
+    want = ({fm.route(bf16, 80, False): launches["flash_mha"]},
+            {fm.route(bf16, 80, False, backward=True):
+             launches["flash_mha_bwd"]})
+    log(f"[widths-vit-h] routes: forward {routes[0]}, backward {routes[1]}")
+    require(routes == want and launches["flash_mha_wide"]
+            == launches["flash_mha"] and launches["flash_mha_bwd_wide"]
+            == launches["flash_mha_bwd"], f"widths-vit-h: routes {routes}, "
+            f"expected {want} (the 80 instances, no copy)")
+    for i, (wall, dev) in enumerate(zip(metrics["step_s"],
+                                        metrics["device_ms"])):
+        data = metrics["data_s"][i]
+        log(f"[widths-vit-h] step {i}: wall {wall:.4f} s, device "
+            f"{dev:.3f} ms (CUDA events over the step), host's data "
+            f"{data:.4f} s ({100 * data / wall:.1f}% of the wall)")
     log(f"[widths-vit-h] summary {json.dumps(metrics)}")
     return {"widths-vit-h": launches}
 
@@ -8300,6 +8445,16 @@ def main() -> int:
     widths_report, widths_paths = timed("widths", phase_widths, card)
     for name, rows in widths_report.items():
         kernel_report[name]["widths"] = rows
+    # the routes at head dims 65-128: ViT-H/16's [8, 16, 1568, 80] first,
+    # every timed shape beside it
+    for name in ("flash_mha", "flash_mha_bwd"):
+        timed_rows = [r for r in widths_report[name] if "ms" in r]
+        first = timed_rows[0]
+        kernel_report[f"{name}_wide"] = {
+            **{key: first[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")},
+            "shape": first["shape"], "per_shape": timed_rows}
     by_path = {"serve-bf16": launches_bf16, "serve-int8": launches_int8,
                "serve-int8-fast-scores": launches_fast, **backbone_paths,
                **training_paths, **detection_paths, **recognition_paths,
@@ -8349,7 +8504,8 @@ def main() -> int:
                                      "fused_post_attention")),
             ("widths-tim-odd-int8", ("query_block_attention",
                                      "int8_matmul_fused")),
-            ("widths-vit-h", ("flash_mha", "flash_mha_bwd"))):
+            ("widths-vit-h", ("flash_mha", "flash_mha_bwd", "flash_mha_wide",
+                              "flash_mha_bwd_wide"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")
@@ -8373,6 +8529,11 @@ def main() -> int:
                                  "finetune-swin"),
         "flash_mha_bwd": ("tim_tpu_torch/csrc/flash_mha_bwd.cu",
                           "tim_tpu/ops/flash.py:71", "finetune-vit"),
+        # kernel 5 / 5b's routes at head dims 65-128 (ViT-H/16's step)
+        "flash_mha_wide": ("tim_tpu_torch/csrc/flash_mha_wide.cu",
+                           "tim_tpu/ops/flash.py:82", "widths-vit-h"),
+        "flash_mha_bwd_wide": ("tim_tpu_torch/csrc/flash_mha_bwd_wide.cu",
+                               "tim_tpu/ops/flash.py:71", "widths-vit-h"),
         # replaces no TPU kernel (JAX leaves the bias add to XLA)
         "bias_act": ("tim_tpu_torch/csrc/bias_act.cu", None,
                      "extract-videomae"),

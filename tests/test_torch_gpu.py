@@ -411,11 +411,11 @@ def test_attention_kernels_refuse_other_head_dims(gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("dh", [16, 80, 128, 200, 256])
+@pytest.mark.parametrize("dh", [16, 80, 88, 91, 104, 120, 128, 200, 256])
 def test_flash_mha_at_other_head_dims(gen, dtype, dh):
     """Kernel 5 and 5b at head dims on and off their instances (64, 128,
-    256), both launches, the lse, and the backward against the plain
-    backward's gates."""
+    256; bf16 80, 96, 112, which read 88 and 104 in place), both launches,
+    the lse, and the backward against the plain backward's gates."""
     q, k, v = vit_qkv(2, 150, dtype, gen, heads=3, dh=dh)
     kw = {"sm_scale": dh ** -0.5}
     _check_both_launches(flash_mha, flash_mha_with_lse, flash_mha_plain,
@@ -427,6 +427,43 @@ def test_flash_mha_at_other_head_dims(gen, dtype, dh):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert grad_close(g, w, dtype == torch.bfloat16)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [80, 88, 104, 120, 128])
+@pytest.mark.parametrize("s", [37, 150])
+def test_flash_mha_wide_routes_read_in_place_and_repeat(gen, dh, s):
+    """bf16 past 64 up to 128: each call launches the plan's instance with
+    no copy (the route counts), and the two-pass backward gives the same
+    bits call to call and under torch.use_deterministic_algorithms."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    q, k, v = vit_qkv(3, s, torch.bfloat16, gen, heads=4, dh=dh)
+    kw = {"sm_scale": dh ** -0.5}
+    inst = -(-dh // 16) * 16
+    fm.flash_mha.routes.clear()
+    fm.flash_mha_bwd.routes.clear()
+    out, lse = flash_mha_with_lse(q, k, v, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(q.dtype)
+    first = [g.clone() for g in flash_mha_bwd(q, k, v, out, lse, do, **kw)]
+    second = flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    torch.use_deterministic_algorithms(True)
+    try:
+        third = flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the models' route: the autograd Function on the packed projection
+    packed = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
+    leaf = packed.detach().requires_grad_()
+    (flash_mha_qkv(leaf, **kw).float() * do.float()).sum().backward()
+    assert dict(fm.flash_mha.routes) == {f"wgmma {inst}": 2}
+    assert dict(fm.flash_mha_bwd.routes) == {
+        f"wgmma two passes {inst}": 4}
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for i, g in enumerate(first):
+        assert torch.equal(leaf.grad[:, :, i].transpose(1, 2), g)
+    for g, w in zip(first, flash_mha_bwd_plain(q, k, v, do, **kw)):
+        assert grad_close(g, w, True)[0]
 
 
 @pytest.mark.gpu

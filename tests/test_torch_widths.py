@@ -169,8 +169,8 @@ def test_two_head_vit_at_head_dim_20_steps_match_jax():
                                num_verbs=5, num_nouns=7)
     model.load_state_dict(two_head_state_dict_from_jax(variables),
                           strict=True)
-    assert fm.launch_plan(VIT_HD20["embed_dim"] // VIT_HD20["num_heads"]) \
-        == (64, True)
+    assert fm.launch_plan(VIT_HD20["embed_dim"] // VIT_HD20["num_heads"],
+                          torch.bfloat16) == (64, True)
     batch = {"video": clip, "verb": _labels(2)[0], "noun": _labels(2)[1]}
     kw = dict(depth=2, lr=1e-3, total_steps=3, warmup_steps=2)
     state = create_train_state(variables["params"], jft.make_llrd_optimizer(
@@ -194,23 +194,61 @@ def test_two_head_vit_at_head_dim_20_steps_match_jax():
     assert pstate.step == 3
 
 
-@pytest.mark.parametrize("dh,width", [(1, 64), (64, 64), (65, 128),
-                                      (80, 128), (128, 128), (129, 256),
-                                      (160, 256), (256, 256)])
-def test_flash_instance_per_head_dim(dh, width):
-    assert fm.instance_dim(dh) == width
-    assert fm.launch_plan(dh) == (width, width != dh)
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+# (head dim, dtype, instance, whether q/k/v are copied): bf16 past 64 up to
+# 128 runs on dh rounded up to 16 and reads multiples of 8 in place; fp32
+# keeps the instances 64, 128 and 256
+@pytest.mark.parametrize("dh,dtype,width,copied", [
+    (1, BF16, 64, True), (64, BF16, 64, False), (65, BF16, 80, True),
+    (72, BF16, 80, False), (80, BF16, 80, False), (88, BF16, 96, False),
+    (91, BF16, 96, True), (96, BF16, 96, False), (104, BF16, 112, False),
+    (112, BF16, 112, False), (120, BF16, 128, False),
+    (127, BF16, 128, True), (128, BF16, 128, False), (129, BF16, 256, True),
+    (160, BF16, 256, True), (256, BF16, 256, False), (1, F32, 64, True),
+    (64, F32, 64, False), (80, F32, 128, True), (88, F32, 128, True),
+    (128, F32, 128, False), (200, F32, 256, True), (256, F32, 256, False)])
+def test_flash_instance_per_head_dim(dh, dtype, width, copied):
+    assert fm.instance_dim(dh, dtype) == width
+    assert fm.launch_plan(dh, dtype) == (width, copied)
+    assert (width in fm.HEAD_DIMS if dtype == BF16
+            else width in fm.F32_HEAD_DIMS)
+
+
+def test_flash_plan_over_every_head_dim():
+    """Head dims 1-256 in both dtypes: one instance each, the least that
+    holds dh (bf16 65-128 in steps of 16); no copy exactly where dh is the
+    instance's or, in bf16 on 80-128, a multiple of 8 within 16 below it."""
+    for dtype in (BF16, F32):
+        built = fm.HEAD_DIMS if dtype == BF16 else fm.F32_HEAD_DIMS
+        for dh in range(1, 257):
+            w, copied = fm.launch_plan(dh, dtype)
+            assert w == min(x for x in built if x >= dh), (dh, dtype)
+            in_place = dh == w or (dtype == BF16 and 80 <= w <= 128
+                                   and dh % 8 == 0)
+            assert copied == (not in_place), (dh, dtype)
 
 
 def test_flash_plan_copies_rows_it_cannot_read_and_checks_shapes():
     q = torch.zeros(2, 3, 5, 64)
-    assert fm.launch_plan(64, q, q, q) == (64, False)
+    assert fm.launch_plan(64, q.dtype, q, q, q) == (64, False)
     ragged = torch.zeros(2, 3, 5, 66)[..., :64]
     shifted = torch.zeros(2 * 3 * 5 * 64 + 1)[1:].view(2, 3, 5, 64)
     for bad in (ragged, shifted):
-        assert fm.launch_plan(64, q, bad, q) == (64, True)
+        assert fm.launch_plan(64, q.dtype, q, bad, q) == (64, True)
+    # bf16 rows of 80 read in place on the 80 instance, unless a row is
+    # not 16-byte aligned (a packed qkv of head dim 80 with a 4-element
+    # shift, or rows of 84 elements)
+    q80 = torch.zeros(2, 3, 5, 80, dtype=BF16)
+    assert fm.launch_plan(80, BF16, q80, q80, q80) == (80, False)
+    packed = torch.zeros(2 * 5 * 3 * 3 * 80 + 4, dtype=BF16)[4:].view(
+        2, 5, 3, 3, 80)
+    assert fm.launch_plan(80, BF16, *fm.unpack_qkv(packed)) == (80, True)
+    rows84 = torch.zeros(2, 3, 5, 84, dtype=BF16)[..., :80]
+    assert fm.launch_plan(80, BF16, q80, rows84, q80) == (80, True)
     with pytest.raises(ValueError, match="> 256"):
-        fm.instance_dim(257)
+        fm.instance_dim(257, BF16)
     for dh in (1, 80, 91, 256):
         t = torch.zeros(1, 2, 3, dh)
         fm.check_args("flash_mha", t, t, t)
@@ -225,6 +263,23 @@ def test_flash_plan_copies_rows_it_cannot_read_and_checks_shapes():
         fm.check_args("flash_mha", *(t.half(),) * 3)
     with pytest.raises(ValueError, match="is torch.bfloat16"):
         fm.check_args("flash_mha", t, t.bfloat16(), t)
+
+
+def test_flash_routes_name_each_launch():
+    """The route a launch counts on: one name per (dtype, instance,
+    direction), with the copy marked."""
+    assert fm.route(BF16, 80, False) == "wgmma 80"
+    assert fm.route(BF16, 96, True) == "wgmma 96 via copy"
+    assert fm.route(BF16, 80, False, backward=True) == "wgmma two passes 80"
+    assert fm.route(BF16, 64, False, backward=True) == "wgmma one pass 64"
+    assert fm.route(BF16, 64, False, backward=True, deterministic=True) \
+        == "wgmma one pass 64 + dq pass"
+    assert fm.route(BF16, 256, True, backward=True) \
+        == "mma.sync two passes 256 via copy"
+    assert fm.route(F32, 128, True) == "fp32 cuda cores 128 via copy"
+    names = {fm.route(BF16, w, c, backward=b) for w in fm.HEAD_DIMS
+             for c in (False, True) for b in (False, True)}
+    assert len(names) == 4 * len(fm.HEAD_DIMS)
 
 
 def test_flash_padded_copy_is_zero_past_the_head_dim():

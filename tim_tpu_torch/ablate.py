@@ -2,13 +2,17 @@
 its loop removed at a time, on the CUDA card.
 
     python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|3|all]
+                                   [--head_dim 64]
 
-- 5b, the flash-attention backward (``csrc/flash_mha_bwd_sm90.cuh``), at
-  ViT-L's shape [8, 16, 1568, 64], beside the backward of
-  ``scaled_dot_product_attention``;
+- 5b, the flash-attention backward, at [8, 16, 1568, head_dim] (ViT-L's
+  64 by default: the one-pass core ``csrc/flash_mha_bwd_sm90.cuh``; bf16
+  65-128: the two passes of ``csrc/flash_mha_bwd_wide_sm90.cuh``, on the
+  instance ``ops.flash_mha.launch_plan`` picks, q, k, v read in place
+  where it does), beside the backward of ``scaled_dot_product_attention``;
 - 5, the flash-attention forward, and 4, the window-attention forward
-  (their shared core ``csrc/flash_attention_sm90.cuh``), at ViT-L's shape
-  and at Swin-B's stage 1 ([512, 4, 784, 32], shifted, batch 8), each as
+  (their shared core ``csrc/flash_attention_sm90.cuh``), at
+  [8, 16, 1568, head_dim] and at Swin-B's stage 1 ([512, 4, 784, 32],
+  shifted, batch 8), each as
   its inference launch and as its training launch (which writes the row
   log-sum-exp), beside ``scaled_dot_product_attention`` (kernel 4: with
   the float mask ab[type]) without and with inputs that require grad (the
@@ -75,6 +79,31 @@ CUTS = {
         "    if (false)\n"),
 }
 
+WIDE_HEADER = "flash_mha_bwd_wide_sm90.cuh"
+# kernel 5b's variants past head dim 64 (the two wgmma passes)
+WIDE_CUTS = {
+    "dk/dv pass": ("  err = launch_pass(dkdv_kernel<DH>",
+                   "  return launch_pass(dq_kernel", ""),
+    "dq pass": ("  return launch_pass(dq_kernel<DH>",
+                "\n}\n\n}  // namespace bwd90", "  return 0;"),
+    "dk/dv pass: S/dP products": (
+        "    product_rows<DH, kRows>(sc, sm.res_a, wg * 64, "
+        "sm.a(jt % kStages));", "  };\n  // dV += P^T dO", ""),
+    "dk/dv pass: softmax work": (
+        "#pragma unroll\n    for (int i = 0; i < 32; i += 2) {\n"
+        "      const int col = (i / 4) * 8 + 2 * tig;\n      const float2 l2",
+        "  };\n\n  if constexpr (kPipe<DH>)", ""),
+    "dk/dv pass: dV/dK products": (
+        "    product_cols<DH>(dv, dv_t, pa, sm.b(jt % kStages));",
+        "  };\n  auto retire_dvdk", ""),
+    "dq pass: dQ products": (
+        "    product_cols<DH>(dq, dq_t, da, sm.a(prev));",
+        "    sm90::wg_commit();\n    sm90::wg_wait<1>();", ""),
+    "dq pass: softmax work": (
+        "#pragma unroll\n    for (int i = 0; i < 32; ++i) {\n"
+        "      const int r = (i >> 1) & 1;", "  };\n\n  // tile 0", ""),
+}
+
 FORWARD_HEADER = "flash_attention_sm90.cuh"
 # the forward core's variants; the bias and region cuts change kernel 4
 # only (kernel 5's instance has neither)
@@ -88,9 +117,7 @@ FORWARD_CUTS = {
     "exponentials": ("sm90::ex2(fmaf(sc[i], rc.c, -mc[r]));",
                      "   // -inf -> 0", "fmaf(sc[i], rc.c, -mc[r]);"),
     "lse store": ("    if constexpr (LSE) {\n      if (rc.tig == 0",
-                  "  }\n#pragma unroll\n  for (int j = 0; j < NC; ++j)\n"
-                  "#pragma unroll\n    for (int i = 0; i < DH / 2 / NC; "
-                  "i += 2) {", ""),
+                  "  }\n  // a column pair of an accumulator's element", ""),
     "second product (P V)": (
         "    issue_pv<DH, BK, NC>(o, pa, dv(kt - 1));\n",
         "    sm90::wg_commit();\n    sm90::wg_wait<1>();", ""),
@@ -225,22 +252,37 @@ def sdpa_with_grad(*args, **kwargs):
     return run
 
 
-def ablate_5b(libs, gen):
-    qkv = torch.randn(8, 1568, 3, 16, 64, generator=gen, device="cuda")
+def packed_qkv(dh, gen):
+    """q, k, v [8, 16, 1568, dh] bf16 as views of one packed projection, and
+    the instance they run on (which reads them in place)."""
+    qkv = torch.randn(8, 1568, 3, 16, dh, generator=gen, device="cuda")
     q, k, v = fm.unpack_qkv(qkv.to(torch.bfloat16))
-    out, lse = fm.flash_mha_with_lse(q, k, v, sm_scale=0.125)
+    inst, copied = fm.launch_plan(dh, torch.bfloat16, q, k, v)
+    if copied:
+        raise SystemExit(f"--head_dim {dh}: no bf16 instance reads it in "
+                         f"place (the wrapper would copy it to {inst})")
+    return q, k, v, inst
+
+
+def ablate_5b(libs, gen, dh):
+    q, k, v, inst = packed_qkv(dh, gen)
+    scale = dh ** -0.5
+    out, lse = fm.flash_mha_with_lse(q, k, v, sm_scale=scale)
     do = torch.randn(out.shape, generator=gen, device="cuda").to(
         torch.bfloat16)
     grads = fm.packed_grads(q)
     do, strides = fm.bwd_args(q, k, v, out, do, grads)
-    delta = torch.empty_like(lse)
-    acc = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    delta = fm.bwd_scratch(lse, inst, True)
+    # the fp32 dq sum of the one-pass core (head dim 64 only)
+    acc = (torch.empty(q.shape, dtype=torch.float32, device="cuda")
+           if inst == 64 else None)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, out, do, *grads)]
 
     def call(fn):
         status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(),
-                    acc.data_ptr(), 8, 16, 1568, 64, 1, 0.125, stream)
+                    None if acc is None else acc.data_ptr(), 8, 16, 1568,
+                    dh, inst, 1, scale, stream)
         _build.check(status, "flash_mha_bwd variant")
 
     calls = {}
@@ -250,10 +292,10 @@ def ablate_5b(libs, gen):
         calls[name] = (lambda f: lambda: call(f))(fn)
     times = in_turns(calls)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    o = F.scaled_dot_product_attention(*leaves, scale=0.125)
+    o = F.scaled_dot_product_attention(*leaves, scale=scale)
     times["scaled_dot_product_attention backward"] = [cuda_ms(
         lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))]
-    return {"shape": [8, 16, 1568, 64], "ms": times}
+    return {"shape": [8, 16, 1568, dh], "instance": inst, "ms": times}
 
 
 def forward_calls(libs, symbol, argtypes, args_of, cuts_apply):
@@ -271,10 +313,9 @@ def forward_calls(libs, symbol, argtypes, args_of, cuts_apply):
     return calls
 
 
-def ablate_5(libs, gen):
-    qkv = torch.randn(8, 1568, 3, 16, 64, generator=gen,
-                      device="cuda").to(torch.bfloat16)
-    q, k, v = fm.unpack_qkv(qkv)
+def ablate_5(libs, gen, dh):
+    q, k, v, inst = packed_qkv(dh, gen)
+    scale = dh ** -0.5
     view, strides = fm.launch_args(q, k, v)
     lse = fm.row_stats(q)
     stream = torch.cuda.current_stream().cuda_stream
@@ -282,16 +323,17 @@ def ablate_5(libs, gen):
     def args_of(launch):
         return (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
                 strides, lse.data_ptr() if launch == "lse" else None, 8, 16,
-                1568, 64, 1, 0.125, stream)
+                1568, dh, inst, 1, scale, stream)
 
     calls = forward_calls(libs, "tim_flash_mha", fm._ARGTYPES, args_of,
                           lambda name: not any(c in name for c in
                                                KERNEL_4_ONLY))
     calls["scaled_dot_product_attention"] = (
-        lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     calls["scaled_dot_product_attention, inputs require grad"] = (
-        sdpa_with_grad(q, k, v, scale=0.125))
-    return {"shape": [8, 16, 1568, 64], "ms": in_turns(calls)}
+        sdpa_with_grad(q, k, v, scale=scale))
+    return {"shape": [8, 16, 1568, dh], "instance": inst,
+            "ms": in_turns(calls)}
 
 
 def ablate_4(libs, gen):
@@ -471,16 +513,25 @@ def main(argv=None) -> int:
     parser.add_argument("--kernel", choices=("5b", "5", "4", "forward",
                                              "4b", "2", "3", "all"),
                         default="all")
-    which = parser.parse_args(argv).kernel
+    parser.add_argument("--head_dim", type=int, default=64,
+                        help="kernels 5 and 5b's head dim: 64, or one that "
+                        "a bf16 instance past 64 reads in place (a "
+                        "multiple of 8 from 72 to 128)")
+    parsed = parser.parse_args(argv)
+    which, dh = parsed.kernel, parsed.head_dim
     if not torch.cuda.is_available():
         raise SystemExit("tim_tpu_torch.ablate needs a CUDA card")
     jobs = {}
     if which in ("5b", "all"):
-        jobs["5b"] = (HEADER, variants(HEADER, CUTS), ["flash_mha_bwd.cu"])
+        header, cuts = (HEADER, CUTS) if dh == 64 else (WIDE_HEADER,
+                                                        WIDE_CUTS)
+        jobs["5b"] = (header, variants(header, cuts),
+                      ["flash_mha_bwd.cu", "flash_mha_bwd_wide.cu"])
     if which in ("5", "4", "forward", "all"):
         jobs["forward"] = (FORWARD_HEADER,
                            variants(FORWARD_HEADER, FORWARD_CUTS),
-                           ["flash_mha.cu", "window_attention.cu"])
+                           ["flash_mha.cu", "flash_mha_wide.cu",
+                            "window_attention.cu"])
     if which in ("4b", "all"):
         jobs["4b"] = (WINDOW_BWD_HEADER,
                       variants(WINDOW_BWD_HEADER, WINDOW_BWD_CUTS),
@@ -508,9 +559,9 @@ def main(argv=None) -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         results = {}
         if "5b" in jobs:
-            results["5b"] = ablate_5b(libs["5b"], gen)
+            results["5b"] = ablate_5b(libs["5b"], gen, dh)
         if which in ("5", "forward", "all"):
-            results["5"] = ablate_5(libs["forward"], gen)
+            results["5"] = ablate_5(libs["forward"], gen, dh)
         if which in ("4", "forward", "all"):
             results["4"] = ablate_4(libs["forward"], gen)
         if "4b" in jobs:

@@ -63,6 +63,10 @@ struct Params {
   const float* bias;
   const int* region;
   int n_win;
+  // the bf16 instances past head dim 64 only: the head dim of q, k, v and
+  // out (their instance's, or 8 less: read in place, the columns past it
+  // zero); the others read their instance's head dim
+  int dh;
 };
 
 constexpr float kMaskValue = -100.f;  // shift_attention_mask's value

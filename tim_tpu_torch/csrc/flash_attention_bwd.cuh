@@ -337,11 +337,13 @@ __global__ void __launch_bounds__(128, 2) dq_bf16_kernel(const BwdParams p) {
                  q0 + warp * 16, S, lane);
 }
 
-// ---- bf16 past head dim 64 (128, 256): kernel 5b's wide route ----
+// ---- bf16 at head dim 256: kernel 5b's widest route ----
 //
 // The one-pass wgmma core (flash_mha_bwd_sm90.cuh) holds dq, dk and dv
-// accumulators of a 64-wide head in 225 registers a thread; at 128 or 256
-// they do not fit. These two mma.sync passes (the dq pass's design, with
+// accumulators of a 64-wide head in 225 registers a thread; past 64 they
+// do not fit. Up to 128 the two wgmma passes of flash_mha_bwd_wide_sm90.cuh
+// keep one kind of sum each; at 256 even dk and dv alone do not fit
+// there. These two mma.sync passes (the dq pass's design, with
 // no atomics, so the same bits every run) keep no A fragments resident:
 // each k16 step's fragment is read from shared memory where it is used,
 // and a block accumulates at most 128 output columns (a head of 256 takes
@@ -860,7 +862,7 @@ int launch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
   return err;
 }
 
-// The bf16 route past head dim 64: D, then dk/dv and dq (the two wide
+// The bf16 route at head dim 256: D, then dk/dv and dq (the two wide
 // passes above), on one stream; returns the first launch's CUDA error.
 template <int DH>
 int launch_bwd_bf16_wide(const BwdParams& p, cudaStream_t stream) {

@@ -1,7 +1,7 @@
 // Exact softmax attention, forward, bf16, on Hopper's warpgroup tensor-core
 // products (wgmma, sm_90a): the bf16 core of kernel 5 (flash_mha.cu, head
-// dim 64, no bias) and kernel 4 (window_attention.cu, head dim 32, bias and
-// region ids). The fp32 instances keep the CUDA-core kernel of
+// dims 64, 128, 256; flash_mha_wide.cu, 80, 96, 112; no bias) and kernel 4
+// (window_attention.cu, head dim 32, bias and region ids). The fp32 instances keep the CUDA-core kernel of
 // flash_attention.cuh, whose comment gives the function:
 //
 //   out[b, h, i] = sum_j p_ij v[b, h, j] / sum_j p_ij,  p_ij = exp(s_ij - m_i),
@@ -58,7 +58,13 @@
 //
 // Shared-memory tiles are [rows][dh] bf16 in the swizzle that TMA writes
 // and wgmma's descriptors name: 128-byte rows in the 128-byte swizzle
-// (dh 64), 64-byte rows in the 64-byte swizzle (dh 32), 1024-byte aligned.
+// (dh 64), 64-byte rows in the 64-byte swizzle (dh 32), 1024-byte aligned;
+// past 64 a tile is kept as column blocks (Cols): 64-column blocks, then
+// a 32- and / or 16-column tail in the 64- / 32-byte swizzle, each its own
+// TMA box and wgmma operand. Past 64 the TMA maps span the head dim that
+// was passed (Params::dh), which may be 8 below the instance's: TMA fills
+// the columns past it with zeros, Q's loads do the same, and the output
+// columns past it are not stored.
 //
 // Ragged S is not padded: K and V rows past S arrive as zeros (TMA fills
 // boxes past the tensor's end) and their scores are -inf in the last key
@@ -128,36 +134,65 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
-// Byte offset of 16-byte chunk c of row r in a swizzled [rows][DH] tile:
-// address bits [4, 7) ^= [7, 10) for 128-byte rows, [4, 6) ^= [7, 9) for
-// 64-byte rows.
-template <int DH>
+// Byte offset of 16-byte chunk c of row r in a swizzled [rows][W] tile:
+// address bits [4, 7) ^= [7, 10) for 128-byte rows (W 64), [4, 6) ^= [7, 9)
+// for 64-byte rows (W 32), bit 4 ^= bit 7 for 32-byte rows (W 16).
+template <int W>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  if constexpr (DH == 64)
+  if constexpr (W == 64)
     return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-  else
+  else if constexpr (W == 32)
     return (uint32_t)(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+  else
+    return (uint32_t)(r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
 }
 
-// Head dims past 64 (128, 256) keep a tile as DH / 64 column blocks, each
-// a [ROWS][64] tile in the 128-byte swizzle (one TMA box and one wgmma
-// operand width each): chunk c of row r lies in block c / 8.
+// The column blocks of a [rows][DH] tile: up to head dim 64 one block of
+// DH columns; past it DH / 64 blocks of 64 columns in the 128-byte swizzle
+// (the widest a swizzle atom and a TMA box of it can be), then, for head
+// dims that are no multiple of 64 (80, 96, 112), a block of 32 columns in
+// the 64-byte swizzle and / or one of 16 in the 32-byte swizzle. Each
+// block is one TMA box and one wgmma operand width; a block of w columns
+// holds rows * w * 2 bytes, so the blocks of one tile lie back to back,
+// each 1024-byte aligned when the tile is.
+template <int DH>
+struct Cols {
+  static constexpr int kBW = DH < 64 ? DH : 64;     // the main blocks' width
+  static constexpr int kNC = DH / kBW;              // main blocks
+  static constexpr int kTail = DH - kNC * kBW;      // 0, 16, 32 or 48
+  static constexpr bool kT32 = (kTail & 32) != 0;   // a 32-column block
+  static constexpr bool kT16 = (kTail & 16) != 0;   // a 16-column block
+  static constexpr int kC32 = kNC * kBW;            // their first columns
+  static constexpr int kC16 = kC32 + (kT32 ? 32 : 0);
+  static constexpr int kNT = (kT32 ? 1 : 0) + (kT16 ? 1 : 0);
+};
+
+// Chunk c of row r of a [ROWS][DH] tile kept as its column blocks.
 template <int DH, int ROWS>
 __device__ __forceinline__ uint32_t tile_at(int r, int c) {
-  if constexpr (DH <= 64)
+  using C = Cols<DH>;
+  if constexpr (DH <= 64) {
     return swz<DH>(r, c);
-  else
+  } else {
+    if constexpr (C::kTail != 0) {
+      if (c >= C::kC16 / 8 && C::kT16)
+        return (uint32_t)(ROWS * C::kC16 * 2) + swz<16>(r, c - C::kC16 / 8);
+      if (c >= C::kC32 / 8)
+        return (uint32_t)(ROWS * C::kC32 * 2) + swz<32>(r, c - C::kC32 / 8);
+    }
     return (uint32_t)((c >> 3) * ROWS * 128) + swz<64>(r, c & 7);
+  }
 }
 
-// wgmma descriptor of a swizzled [rows][DH] tile at addr: the stride
-// between 8-row groups is 8 rows; the leading byte offset is unused by
-// these one-swizzle-atom-wide operands. A k16 step along a row adds 32
-// bytes (2 in descriptor units), a step of 16 rows 16 * 2 DH bytes.
-template <int DH>
+// wgmma descriptor of a swizzled [rows][W] tile (or column block) at addr:
+// the stride between 8-row groups is 8 rows; the leading byte offset is
+// unused by these one-swizzle-atom-wide operands. A k16 step along a row
+// adds 32 bytes (2 in descriptor units), a step of 16 rows 16 * 2 W bytes.
+template <int W>
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  constexpr uint64_t kMode = DH == 64 ? 1 : 2;   // 128- / 64-byte swizzle
-  constexpr uint64_t kGroup = 8 * DH * 2;        // bytes of 8 rows
+  // 128-, 64- or 32-byte swizzle
+  constexpr uint64_t kMode = W == 64 ? 1 : (W == 32 ? 2 : 3);
+  constexpr uint64_t kGroup = 8 * W * 2;        // bytes of 8 rows
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((kGroup >> 4) << 32) | (kMode << 62);
 }
@@ -168,9 +203,9 @@ struct Shape {
   // (128 a thread) free of spills; 32 at head dim 256 keeps four stages
   // of K and V (and Q) in shared memory
   static constexpr int kKeys = BIAS ? 48 : (DH > 128 ? 32 : 64);
-  // column blocks of a tile (DH / 64 past 64) and their width
-  static constexpr int kBW = DH < 64 ? DH : 64;
-  static constexpr int kNC = DH / kBW;
+  // main column blocks of a tile (Cols) and their width
+  static constexpr int kBW = Cols<DH>::kBW;
+  static constexpr int kNC = Cols<DH>::kNC;
   static constexpr int kStages = 4;               // ring stages
   static constexpr int kAhead = kStages - 2;      // tiles loaded ahead
   // blocks an SM: two for kernel 4 (at most 128 registers a thread),
@@ -227,19 +262,74 @@ __device__ __forceinline__ void load_bias(float (&bias)[BK / 2],
   }
 }
 
-// S = Q K^T of one key tile: DH / 16 k-steps of m64 x BK x k16; past
-// head dim 64 the k-steps walk the column blocks (QB, KB: a Q and a K
-// column block's bytes).
+// S = Q K^T of one key tile over the main column blocks: k-steps of m64 x
+// BK x k16; past head dim 64 they walk the column blocks (QB, KB: a Q and
+// a K column block's bytes). issue_s_tail adds the tail blocks' steps.
 template <int DH, int BK, int QB, int KB>
 __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t dq,
                                         uint64_t dk) {
-  constexpr int kPer = DH < 64 ? DH / 16 : 4;   // k-steps a column block
+  constexpr int kPer = Cols<DH>::kBW / 16;   // k-steps a column block
   sm90::wgmma_ss<0, 0, false>(sc, dq, dk);
 #pragma unroll
-  for (int ks = 1; ks < DH / 16; ++ks) {
+  for (int ks = 1; ks < Cols<DH>::kNC * kPer; ++ks) {
     const int j = ks / kPer, kk = ks % kPer;
     sm90::wgmma_ss<0, 0, true>(sc, dq + j * (QB >> 4) + 2 * kk,
                                dk + j * (KB >> 4) + 2 * kk);
+  }
+}
+
+// The k-steps of S = Q K^T over the tail column blocks (Cols): two of the
+// 32-column block, one of the 16-column block (q_tail, k_tail: the Q
+// block of this warpgroup's rows and the K block, 32-column first).
+template <int DH, int BK>
+__device__ __forceinline__ void issue_s_tail(float (&sc)[BK / 2],
+                                             uint32_t s_q, int wg,
+                                             uint32_t s_k) {
+  using C = Cols<DH>;
+  if constexpr (C::kT32) {
+    const uint64_t dq = desc<32>(s_q + kRows * C::kC32 * 2 + wg * 64 * 64);
+    const uint64_t dk = desc<32>(s_k + BK * C::kC32 * 2);
+    sm90::wgmma_ss<0, 0, true>(sc, dq, dk);
+    sm90::wgmma_ss<0, 0, true>(sc, dq + 2, dk + 2);
+  }
+  if constexpr (C::kT16)
+    sm90::wgmma_ss<0, 0, true>(
+        sc, desc<16>(s_q + kRows * C::kC16 * 2 + wg * 64 * 32),
+        desc<16>(s_k + BK * C::kC16 * 2));
+}
+
+// The output columns of the tail blocks (Cols): m64n32 and m64n16
+// accumulators, element i at column (i / 4) * 8 + 2 (lane % 4) + i % 2 of
+// its block (a one-element placeholder where a block is absent).
+template <int DH>
+struct TailAcc {
+  float a32[Cols<DH>::kT32 ? 16 : 1];
+  float a16[Cols<DH>::kT16 ? 8 : 1];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < (Cols<DH>::kT32 ? 16 : 0); ++i) a32[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (Cols<DH>::kT16 ? 8 : 0); ++i) a16[i] = 0.f;
+  }
+};
+
+// O_tail += P V_tail of one key tile (s_v: the stage's V tile).
+template <int DH, int BK>
+__device__ __forceinline__ void issue_pv_tail(TailAcc<DH>& o,
+                                              const uint32_t (&pa)[BK / 16][4],
+                                              uint32_t s_v) {
+  using C = Cols<DH>;
+  if constexpr (C::kT32) {
+    const uint64_t dv = desc<32>(s_v + BK * C::kC32 * 2);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::wgmma_rs<1>(o.a32, pa[kk], dv + kk * ((16 * 32 * 2) >> 4));
+  }
+  if constexpr (C::kT16) {
+    const uint64_t dv = desc<16>(s_v + BK * C::kC16 * 2);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::wgmma_rs<1>(o.a16, pa[kk], dv + kk * ((16 * 16 * 2) >> 4));
   }
 }
 
@@ -247,10 +337,10 @@ __device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint64_t dq,
 // product a column block past head dim 64), P's bf16 fragments from
 // registers, V [keys][DH] read transposed.
 template <int DH, int BK, int NC>
-__device__ __forceinline__ void issue_pv(float (&o)[NC][DH / 2 / NC],
+__device__ __forceinline__ void issue_pv(float (&o)[NC][Cols<DH>::kBW / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint64_t dv) {
-  constexpr int BW = DH / NC;
+  constexpr int BW = Cols<DH>::kBW;
   constexpr int kStep = (16 * BW * 2) >> 4;   // 16 key rows
   constexpr int kBlock = (BK * BW * 2) >> 4;  // a column block of V
 #pragma unroll
@@ -341,6 +431,33 @@ __device__ __forceinline__ void rescale(float (&o)[NC][NO],
     for (int i = 0; i < NO; ++i) o[j][i] *= corr[(i >> 1) & 1];
 }
 
+template <int DH>
+__device__ __forceinline__ void rescale(TailAcc<DH>& o,
+                                        const float (&corr)[2]) {
+  if constexpr (Cols<DH>::kT32) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o.a32[i] *= corr[(i >> 1) & 1];
+  }
+  if constexpr (Cols<DH>::kT16) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o.a16[i] *= corr[(i >> 1) & 1];
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ void fence_tail(TailAcc<DH>& o) {
+  if constexpr (Cols<DH>::kT32) sm90::fence_regs(o.a32);
+  if constexpr (Cols<DH>::kT16) sm90::fence_regs(o.a16);
+}
+
+// The TMA maps of the tail column blocks' boxes (Cols), K then V for the
+// 32-column block, then for the 16-column one; one unused entry where
+// there is no tail.
+template <int DH>
+struct TailMaps {
+  CUtensorMap m[Cols<DH>::kNT > 0 ? 2 * Cols<DH>::kNT : 1];
+};
+
 // One block for 128 query rows of one (batch, head) (kernel 5) or 64 rows
 // of a pair of windows (kernel 4). K and V tiles arrive by TMA (tm_k,
 // tm_v: [batch, heads, seq, DH] maps of the strided views, boxes of kKeys
@@ -349,8 +466,10 @@ __device__ __forceinline__ void rescale(float (&o)[NC][NO],
 template <int DH, bool BIAS, bool LSE>
 __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     attention_kernel(const Params p, const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v) {
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ TailMaps<DH> tm_tail) {
   using Sh = Shape<DH, BIAS>;
+  using Co = Cols<DH>;
   using bf = __nv_bfloat16;
   constexpr int BK = Sh::kKeys, NS = Sh::kStages, AHEAD = Sh::kAhead;
   constexpr int RB = Sh::kRowBytes, CH = RB / 16;
@@ -364,6 +483,8 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = dyn_smem + (base - raw);
   const int S = p.seq;
+  // the head dim read: past 64 up to DH, columns past it zero-filled
+  const int dh = DH > 64 ? p.dh : DH;
   const int n_tiles = (S + BK - 1) / BK;
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -415,8 +536,9 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     const bf* qr = static_cast<const bf*>(p.q) +
                    min(rb, p.batch - 1) * p.sq.b + h * p.sq.h +
                    min(row, S - 1) * p.sq.n;
-    sm90::cp16(s_q + tile_at<DH, kRows>(r, c), qr + c * 8,
-               row < S && rb < p.batch ? 16 : 0);
+    const bool in = c * 8 < dh;
+    sm90::cp16(s_q + tile_at<DH, kRows>(r, c), qr + (in ? c * 8 : 0),
+               row < S && rb < p.batch && in ? 16 : 0);
   }
   // the windows' region ids, and whether each holds more than one region
   // (most shifted windows hold one; their mask is 0 and is skipped)
@@ -451,6 +573,19 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
         tma_load_4d(s_v + st * Sh::kKVBytes + cb * KVB, &tm_v, cb * BW,
                     j * BK, h, b, full(st));
       }
+      if constexpr (Co::kT32) {
+        tma_load_4d(s_k + st * Sh::kKVBytes + BK * Co::kC32 * 2,
+                    &tm_tail.m[0], Co::kC32, j * BK, h, b, full(st));
+        tma_load_4d(s_v + st * Sh::kKVBytes + BK * Co::kC32 * 2,
+                    &tm_tail.m[1], Co::kC32, j * BK, h, b, full(st));
+      }
+      if constexpr (Co::kT16) {
+        constexpr int m16 = Co::kT32 ? 2 : 0;
+        tma_load_4d(s_k + st * Sh::kKVBytes + BK * Co::kC16 * 2,
+                    &tm_tail.m[m16], Co::kC16, j * BK, h, b, full(st));
+        tma_load_4d(s_v + st * Sh::kKVBytes + BK * Co::kC16 * 2,
+                    &tm_tail.m[m16 + 1], Co::kC16, j * BK, h, b, full(st));
+      }
     }
     __syncwarp();   // the warp converges before its next wgmma
   };
@@ -474,24 +609,29 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     rc.bias[r] = BIAS ? p.bias + ((long long)h * S + row) * S : nullptr;
   }
 
-  float sc[BK / 2], o[NC][DH / 2 / NC];
+  float sc[BK / 2], o[NC][BW / 2];
+  TailAcc<DH> ot;
   float bias[BIAS ? BK / 2 : 1];
   uint32_t pa[BK / 16][4];
   float m[2] = {TIM_NEG_INF, TIM_NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
   for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int i = 0; i < DH / 2 / NC; ++i) o[j][i] = 0.f;
+    for (int i = 0; i < BW / 2; ++i) o[j][i] = 0.f;
+  ot.zero();
   const uint64_t dq = desc<BW>(s_q + wg * 64 * BW * 2);
   auto dk = [&](int kt) { return desc<BW>(s_k + (kt % NS) * Sh::kKVBytes); };
   auto dv = [&](int kt) { return desc<BW>(s_v + (kt % NS) * Sh::kKVBytes); };
   auto arrived = [&](int kt) { mbar_wait(full(kt % NS), (kt / NS) & 1); };
+  auto stage_k = [&](int kt) { return s_k + (kt % NS) * Sh::kKVBytes; };
+  auto stage_v = [&](int kt) { return s_v + (kt % NS) * Sh::kKVBytes; };
   if constexpr (BIAS) load_bias<BK>(bias, rc, 0, S);
 
   // tile 0: its scores and probabilities (O is still zero)
   arrived(0);
   sm90::wg_fence();
   issue_s<DH, BK, QB, KVB>(sc, dq, dk(0));
+  issue_s_tail<DH, BK>(sc, s_q, wg, stage_k(0));
   sm90::wg_commit();
   sm90::wg_wait<0>();
   sm90::fence_regs(sc);
@@ -506,8 +646,10 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     arrived(kt);
     sm90::wg_fence();
     issue_s<DH, BK, QB, KVB>(sc, dq, dk(kt));
+    issue_s_tail<DH, BK>(sc, s_q, wg, stage_k(kt));
     sm90::wg_commit();
     issue_pv<DH, BK, NC>(o, pa, dv(kt - 1));
+    issue_pv_tail<DH, BK>(ot, pa, stage_v(kt - 1));
     sm90::wg_commit();
     sm90::wg_wait<1>();   // S_kt done; the PV product still runs
     sm90::fence_regs(sc);
@@ -518,18 +660,22 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
     sm90::wg_wait<0>();
 #pragma unroll
     for (int j = 0; j < NC; ++j) sm90::fence_regs(o[j]);
+    fence_tail(ot);
     sm90::fence_regs(pa);
     mbar_arrive(empty((kt - 1) % NS));   // done with tile kt - 1
     rescale(o, corr);
+    rescale(ot, corr);
     pack_p<BK>(sc, pa);
     if (kt + AHEAD < n_tiles) load(kt + AHEAD);
   }
   sm90::wg_fence();
   issue_pv<DH, BK, NC>(o, pa, dv(n_tiles - 1));
+  issue_pv_tail<DH, BK>(ot, pa, stage_v(n_tiles - 1));
   sm90::wg_commit();
   sm90::wg_wait<0>();
 #pragma unroll
   for (int j = 0; j < NC; ++j) sm90::fence_regs(o[j]);
+  fence_tail(ot);
   sm90::fence_regs(pa);
 
   bf* out = static_cast<bf*>(p.out) + b * p.so.b + h * p.so.h;
@@ -548,17 +694,30 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
             m[r] * m_scale + logf(l[r]);
     }
   }
+  // a column pair of an accumulator's element i: past 64 only those
+  // below the head dim read are stored
+  auto store = [&](int c0, int i, float x0, float x1) {
+    const int r = (i >> 1) & 1;
+    const int row = row0 + 8 * r;
+    const int col = c0 + (i / 4) * 8 + 2 * rc.tig;
+    if (row < S && (DH <= 64 || col < dh))
+      *reinterpret_cast<uint32_t*>(out + row * p.so.n + col) =
+          pack_bf16(x0 * inv[r], x1 * inv[r]);
+  };
 #pragma unroll
   for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int i = 0; i < DH / 2 / NC; i += 2) {
-      const int r = (i >> 1) & 1;
-      const int row = row0 + 8 * r;
-      if (row < S)
-        *reinterpret_cast<uint32_t*>(out + row * p.so.n + j * BW +
-                                     (i / 4) * 8 + 2 * rc.tig) =
-            pack_bf16(o[j][i] * inv[r], o[j][i + 1] * inv[r]);
-    }
+    for (int i = 0; i < BW / 2; i += 2) store(j * BW, i, o[j][i], o[j][i + 1]);
+  if constexpr (Co::kT32) {
+#pragma unroll
+    for (int i = 0; i < 16; i += 2)
+      store(Co::kC32, i, ot.a32[i], ot.a32[i + 1]);
+  }
+  if constexpr (Co::kT16) {
+#pragma unroll
+    for (int i = 0; i < 8; i += 2)
+      store(Co::kC16, i, ot.a16[i], ot.a16[i + 1]);
+  }
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link
@@ -606,34 +765,52 @@ inline int row_major_map(CUtensorMap* map, CUtensorMapDataType type,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The TMA map of a [batch, heads, seq, DH] bf16 view with element strides
-// s (the last dim contiguous), boxes of `rows` rows in the swizzle of the
-// kernel's tiles; rows past seq read as zeros. Returns a CUDA error code.
-template <int DH>
-int kv_map(CUtensorMap* map, const void* base, const Strides& s, int batch,
-           int heads, int seq, int rows) {
+// The TMA map of a [batch, heads, seq, dh] bf16 view with element strides
+// s (the last dim contiguous), boxes of `rows` rows x `cols` columns (64,
+// 32 or 16: one column block, Cols) in the block's swizzle; rows past seq
+// and columns past dh read as zeros (so a head dim below the kernel's
+// instance is read in place). Returns a CUDA error code.
+inline int kv_map(CUtensorMap* map, const void* base, const Strides& s,
+                  int batch, int heads, int seq, int dh, int rows, int cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)seq, (cuuint64_t)heads,
+  cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)seq, (cuuint64_t)heads,
                         (cuuint64_t)batch};
   // bytes; a dim of one element takes a stride that is never used
   long long st[3] = {s.n, s.h, s.b};
   cuuint64_t strides[3];
-  long long extent = DH;
+  long long extent = dh;
   for (int i = 0; i < 3; ++i) {
     strides[i] = (cuuint64_t)(dims[i + 1] > 1 ? st[i] : extent) * 2;
     extent = (long long)(strides[i] / 2) * (long long)dims[i + 1];
   }
-  // past 64 a box is one 64-column block (the 128-byte swizzle's limit)
-  constexpr int BW = DH < 64 ? DH : 64;
-  cuuint32_t box[4] = {(cuuint32_t)BW, (cuuint32_t)rows, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
       dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      BW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B),
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The maps of a [batch, heads, seq, dh] view's column blocks for DH's
+// tiles (Cols): the main blocks' (one map, the box moved along) into
+// `main`, the tails' into tail[t0], tail[t0 + step] (32, then 16 columns).
+template <int DH>
+int block_maps(CUtensorMap* main, CUtensorMap* tail, int step,
+               const void* base, const Strides& s, int batch, int heads,
+               int seq, int dh, int rows) {
+  using C = Cols<DH>;
+  int err = kv_map(main, base, s, batch, heads, seq, dh, rows, C::kBW);
+  if (err == 0 && C::kT32)
+    err = kv_map(tail, base, s, batch, heads, seq, dh, rows, 32);
+  if (err == 0 && C::kT16)
+    err = kv_map(tail + (C::kT32 ? step : 0), base, s, batch, heads, seq,
+                 dh, rows, 16);
+  return err;
 }
 
 // The dynamic shared memory each kernel instance was allowed, per device.
@@ -656,10 +833,13 @@ int launch(const Params& p, cudaStream_t stream) {
                            ((p.seq + Sh::kBlockRows - 1) / Sh::kBlockRows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   CUtensorMap tm_k, tm_v;
-  int err = kv_map<DH>(&tm_k, p.k, p.sk, p.batch, p.heads, p.seq,
-                       Sh::kKeys);
+  TailMaps<DH> tm_tail;
+  const int dh = DH > 64 ? p.dh : DH;
+  int err = block_maps<DH>(&tm_k, &tm_tail.m[0], 2, p.k, p.sk, p.batch,
+                           p.heads, p.seq, dh, Sh::kKeys);
   if (err == 0)
-    err = kv_map<DH>(&tm_v, p.v, p.sv, p.batch, p.heads, p.seq, Sh::kKeys);
+    err = block_maps<DH>(&tm_v, &tm_tail.m[1], 2, p.v, p.sv, p.batch,
+                         p.heads, p.seq, dh, Sh::kKeys);
   if (err != 0) return err;
   auto kernel = attention_kernel<DH, BIAS, LSE>;
   // the shared-memory limit is raised once for each device, and again
@@ -675,7 +855,8 @@ int launch(const Params& p, cudaStream_t stream) {
     if (err != 0) return err;
     allowed = smem;
   }
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, tm_k, tm_v);
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, tm_k, tm_v,
+                                                      tm_tail);
   return (int)cudaGetLastError();
 }
 
@@ -686,13 +867,18 @@ int launch(const Params& p, cudaStream_t stream) {
 // CUDA-core kernel, with the lse store compiled in only when lse is given;
 // returns cudaGetLastError() after the launch (0 on success).
 template <int DH, bool BIAS>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
+  return p.lse != nullptr ? fwd90::launch<DH, BIAS, true>(p, stream)
+                          : fwd90::launch<DH, BIAS, false>(p, stream);
+}
+
+template <int DH, bool BIAS>
 int launch(const Params& p, int dh, bool bf16, cudaStream_t stream) {
   if (dh != DH) return (int)cudaErrorInvalidValue;
+  if (bf16) return launch_bf16<DH, BIAS>(p, stream);
   if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
   const bool lse = p.lse != nullptr;
-  if (bf16)
-    return lse ? fwd90::launch<DH, BIAS, true>(p, stream)
-               : fwd90::launch<DH, BIAS, false>(p, stream);
   return lse ? launch_f32<DH, BIAS, true>(p, stream)
              : launch_f32<DH, BIAS, false>(p, stream);
 }

@@ -20,22 +20,32 @@
 // products (128 queries a block, 64-key tiles through a four-stage TMA
 // ring). fp32 keeps flash_attention.cuh's CUDA-core kernel.
 //
-// Head dims 128 and 256 (ViT-H/16's 80 and TIM-width heads arrive here
-// zero-padded by the wrapper) take the same core with each tile split
-// into 64-column blocks (one TMA box and one wgmma operand each); 256
-// streams 32-key tiles so that four stages still fit beside Q.
+// Head dims 128 and 256 take the same core with each tile split into
+// 64-column blocks (one TMA box and one wgmma operand each); 256 streams
+// 32-key tiles so that four stages still fit beside Q. bf16 head dims 80,
+// 96 and 112 (VideoMAE ViT-H/16's 80, ViT-g/14's 88 and ViT-G/14's 104
+// read in place) are flash_mha_wide.cu's instances of the same core, with
+// a 32- and / or 16-column tail block in the 64- and 32-byte swizzles.
 
 #include "flash_attention_sm90.cuh"
 
-// Head dims 64 (ViT-B/L and the MAE decoder), 128 and 256 (the wrapper,
-// ops/flash_mha.py, zero-pads any other head dim up to the next of the
-// three); another returns cudaErrorInvalidValue. strides: 12 element
-// strides, (batch, head, row) for q, k, v and out. lse: [batch, heads,
-// seq] fp32 for the backward, or null. Returns cudaGetLastError() after
-// the launch (0 on success).
+namespace tim_attn {
+// flash_mha_wide.cu: bf16 at instances 80, 96 and 112
+int launch_mha_bf16_wide(const Params& p, int inst, cudaStream_t stream);
+}  // namespace tim_attn
+
+// The instance `inst`: 64 (ViT-B/L and the MAE decoder), 128 and 256, and
+// in bf16 80, 96 and 112 (the wrapper, ops/flash_mha.py, picks it and
+// zero-pads the head dims it cannot read in place); another returns
+// cudaErrorInvalidValue. dh: the head dim of q, k, v and out, the
+// instance's, or in bf16 past 64 up to 8 less (read in place: TMA fills
+// the columns past it with zeros, and they are not stored). strides: 12
+// element strides, (batch, head, row) for q, k, v and out. lse: [batch,
+// heads, seq] fp32 for the backward, or null. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int tim_flash_mha(const void* q, const void* k, const void* v,
                              void* out, const long long* strides, float* lse,
-                             int batch, int heads, int seq, int dh,
+                             int batch, int heads, int seq, int dh, int inst,
                              int is_bf16, float scale, void* stream) {
   tim_attn::Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out;
@@ -43,12 +53,20 @@ extern "C" int tim_flash_mha(const void* q, const void* k, const void* v,
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
   p.lse = lse;
   p.bias = nullptr; p.region = nullptr; p.n_win = 1;
+  p.dh = dh;
   const bool bf16 = is_bf16 != 0;
+  const bool in_place = bf16 && inst > 64 && inst <= 128 && dh == inst - 8;
+  if (dh != inst && !in_place) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 64: return tim_attn::launch<64, false>(p, dh, bf16, st);
-    case 128: return tim_attn::launch<128, false>(p, dh, bf16, st);
-    case 256: return tim_attn::launch<256, false>(p, dh, bf16, st);
+  switch (inst) {
+    case 64: return tim_attn::launch<64, false>(p, inst, bf16, st);
+    case 128: return tim_attn::launch<128, false>(p, inst, bf16, st);
+    case 256: return tim_attn::launch<256, false>(p, inst, bf16, st);
+    case 80:
+    case 96:
+    case 112:
+      return bf16 ? tim_attn::launch_mha_bf16_wide(p, inst, st)
+                  : (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -17,9 +17,26 @@
 // atomic adds, so its last bits may change from run to run. The fp32
 // route (CUDA cores, no TF32, two passes, deterministic) is the parity
 // path, from flash_attention_bwd.cuh, as is the deterministic route's dq.
+//
+// Past head dim 64 the one-pass sums do not fit in registers: bf16 head
+// dims 80, 96, 112 and 128 (ViT-H/16's 80, ViT-g/14's 88 and ViT-G/14's 104
+// read in place) take flash_mha_bwd_wide.cu's two atomic-free wgmma passes
+// (dk/dv, then dq); bf16 256 the two mma.sync passes of
+// flash_attention_bwd.cuh.
 
 #include "flash_attention_bwd.cuh"
 #include "flash_mha_bwd_sm90.cuh"
+
+namespace tim_attn {
+// flash_mha_bwd_wide.cu: bf16 at instances 80, 96, 112 and 128, the
+// arguments of tim_flash_mha_bwd below
+int launch_mha_bwd_bf16_wide(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout, void* dq,
+                             void* dk, void* dv, const long long* strides,
+                             const float* lse, float* delta, int batch,
+                             int heads, int seq, int dh, int inst,
+                             float scale, cudaStream_t stream);
+}  // namespace tim_attn
 
 namespace {
 
@@ -47,24 +64,40 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Head dims 64, 128 and 256, as the forward (bf16 past 64 takes the wide
-// mma.sync passes of flash_attention_bwd.cuh, atomic-free). strides: 24
-// element strides, (batch, head, row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch, heads,
-// seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch;
-// dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 only; zeroed
-// here), or null for bf16's deterministic route (dq without atomic adds).
+// The instance `inst` as the forward's (64, 128, 256; in bf16 also 80, 96,
+// 112): bf16 64 on the one-pass wgmma core, bf16 80-128 on the two wgmma
+// passes of flash_mha_bwd_wide.cu (atomic-free), bf16 256 on the wide
+// mma.sync passes (atomic-free), fp32 on the CUDA-core passes. dh: the
+// head dim of every operand, the instance's, or in bf16 at 80-128 8 less
+// (read in place, as the forward). strides: 24 element strides, (batch,
+// head, row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch,
+// heads, seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch
+// (bf16 at 80-128: 2 x batch x heads x seq rounded up to 4 floats);
+// dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 at 64 only; zeroed
+// here), or null for the deterministic route (dq without atomic adds).
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
                                  const void* o, const void* dout, void* dq,
                                  void* dk, void* dv, const long long* strides,
                                  const float* lse, float* delta,
                                  float* dq_accum, int batch, int heads,
-                                 int seq, int dh, int is_bf16, float scale,
-                                 void* stream) {
-  if (dh != kDH && dh != 128 && dh != 256) return (int)cudaErrorInvalidValue;
+                                 int seq, int dh, int inst, int is_bf16,
+                                 float scale, void* stream) {
+  const bool wgmma_wide = is_bf16 && inst > kDH && inst <= 128 &&
+                          inst % 16 == 0;
+  if (dh != inst && !(wgmma_wide && dh == inst - 8))
+    return (int)cudaErrorInvalidValue;
+  if (inst != kDH && inst != 128 && inst != 256 && !wgmma_wide)
+    return (int)cudaErrorInvalidValue;
   if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh != kDH) {
+  using bf = __nv_bfloat16;
+  if (wgmma_wide)
+    return tim_attn::launch_mha_bwd_bf16_wide(q, k, v, o, dout, dq, dk, dv,
+                                              strides, lse, delta, batch,
+                                              heads, seq, dh, inst, scale,
+                                              st);
+  if (inst != kDH) {
     tim_attn::BwdParams p{};
     p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
     p.dq = dq; p.dk = dk; p.dv = dv;
@@ -72,14 +105,11 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
     p.lse = lse; p.delta = delta;
     p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
     p.bias = nullptr; p.region = nullptr; p.n_win = 1; p.dbias = nullptr;
-    if (is_bf16)
-      return dh == 128 ? tim_attn::launch_bwd_bf16_wide<128>(p, st)
-                       : tim_attn::launch_bwd_bf16_wide<256>(p, st);
-    return dh == 128 ? tim_attn::launch_bwd_f32<128, false>(p, st)
-                     : tim_attn::launch_bwd_f32<256, false>(p, st);
+    if (is_bf16) return tim_attn::launch_bwd_bf16_wide<256>(p, st);
+    return inst == 128 ? tim_attn::launch_bwd_f32<128, false>(p, st)
+                       : tim_attn::launch_bwd_f32<256, false>(p, st);
   }
   if (is_bf16) {
-    using bf = __nv_bfloat16;
     tim_attn::sm90::Params p{};
     p.q = static_cast<const bf*>(q); p.k = static_cast<const bf*>(k);
     p.v = static_cast<const bf*>(v); p.o = static_cast<const bf*>(o);

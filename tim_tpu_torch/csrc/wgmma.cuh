@@ -257,6 +257,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, 1, 1, 1, %13;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[16],
                                          const uint32_t (&a)[4], uint64_t b) {
   asm volatile(

@@ -14,18 +14,27 @@ log-sum-exp. ``flash_mha_qkv`` takes the packed [B, S, 3, H, dh]
 projection the models produce and returns its gradient packed the same
 way, so autograd adds no copies for the three slices.
 
-The kernels are built at head dims 64, 128 and 256 (``HEAD_DIMS``). Any
-other head dim up to 256 (ViT-H/16's 80, say) runs on the next of them:
-the wrapper copies q, k and v once into a zero-padded packed buffer
-(``padded_qkv``; zero columns add nothing to the scores, and give zero
-output and gradient columns), keeps ``sm_scale`` as given (1/sqrt of the
-true head dim) and returns views of the outputs' first dh columns
-(``launch_plan``). Rows that the kernels cannot read in place (not
-16-byte aligned) take the same copy.
+The kernels are built at instances (head dims) 64, 128 and 256, and in
+bf16 also 80, 96 and 112 (``HEAD_DIMS``; ``launch_plan`` picks one route a
+head dim and dtype). bf16 past 64 up to 128 runs on the head dim rounded up
+to 16, the instances whose tiles add a 32- and / or 16-column block to the
+64-column ones (``WIDE``): the kernels' TMA maps span the true head dim and
+fill the columns past it with zeros, so a head dim that is a multiple of 8
+(ViT-H/16's 80, ViT-g/14's 88, ViT-G/14's 104) is read in place. Any other
+head dim up to 256 (91, say; fp32 at 80) runs on the next instance through
+one copy of q, k and v into a zero-padded packed buffer (``padded_qkv``;
+zero columns add nothing to the scores, and give zero output and gradient
+columns), with ``sm_scale`` as given (1/sqrt of the true head dim) and
+views of the outputs' first dh columns returned. Rows that the kernels
+cannot read in place (not 16-byte aligned) take the same copy. A route's
+launch raises if it fails: nothing falls back to another. Each launch
+counts one on its wrapper (``launches``) and on its route
+(``routes[route(...)]``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -33,18 +42,21 @@ import torch
 from tim_tpu_torch import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# The head dims the kernels are built for (64: ViT-B/L and the MAE
-# decoder); others run zero-padded
-HEAD_DIMS = (64, 128, 256)
-# tim_flash_mha(q, k, v, out, strides, lse, b, h, s, dh, bf16, scale,
-# stream)
+# The instances the kernels are built for (64: ViT-B/L and the MAE
+# decoder); fp32 has 64, 128 and 256; others run zero-padded
+HEAD_DIMS = (64, 80, 96, 112, 128, 256)
+F32_HEAD_DIMS = (64, 128, 256)
+# bf16 past 64: the instances that read a head dim 8 below theirs in place
+WIDE = (80, 96, 112, 128)
+# tim_flash_mha(q, k, v, out, strides, lse, b, h, s, dh, instance, bf16,
+# scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
                                       ctypes.c_void_p]
-             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 # tim_flash_mha_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
-# dq_accum, b, h, s, dh, bf16, scale, stream)
+# dq_accum, b, h, s, dh, instance, bf16, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -83,20 +95,20 @@ def flash_mha_bwd_plain(q, k, v, do, *, sm_scale: float):
                                        sm_scale=sm_scale)[:3]
 
 
-def check_qkv(name: str, q, k, v, head_dim: int) -> None:
-    """What the kernels of ``csrc/flash_attention.cuh`` take: q/k/v of one
-    shape [B, H, S, dh] and dtype on one device, dh the ``head_dim`` the
-    kernel is built for, the
-    last dim contiguous and the other strides and base addresses aligned
-    to 16 bytes (so that a row loads as 16-byte vectors)."""
+def check_qkv(name: str, q, k, v, inst: int) -> None:
+    """What the kernels of instance ``inst`` take: q/k/v of one shape
+    [B, H, S, dh] and dtype on one device, dh the instance's (or one that
+    the instance reads in place, ``reads_in_place``), the last dim
+    contiguous and the other strides and base addresses aligned to 16
+    bytes (so that a row loads as 16-byte vectors)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [B, H, S, dh], got "
                          f"{tuple(q.shape)}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
-    if q.shape[-1] != head_dim:
+    if not reads_in_place(q.shape[-1], q.dtype, inst):
         raise ValueError(f"{name}: head dim {q.shape[-1]}, the kernel is "
-                         f"built for {head_dim}")
+                         f"built for {inst}")
     per16 = 16 // q.element_size()
     for tname, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
@@ -112,22 +124,56 @@ def check_qkv(name: str, q, k, v, head_dim: int) -> None:
                              f"{t.stride()})")
 
 
-def instance_dim(dh: int) -> int:
-    """The head dim of the kernel instance that head dim ``dh`` runs on:
-    the least of ``HEAD_DIMS`` that holds it. Raises past 256."""
-    for w in HEAD_DIMS:
-        if dh <= w:
-            return w
-    raise ValueError(f"flash_mha: head dim {dh} > {HEAD_DIMS[-1]}, the "
-                     f"widest instance")
+def instance_dim(dh: int, dtype) -> int:
+    """The head dim of the kernel instance that head dim ``dh`` runs on in
+    ``dtype``: bf16 past 64 up to 128 dh rounded up to 16 (``WIDE``), else
+    the least of ``F32_HEAD_DIMS`` that holds it. Raises past 256."""
+    if dh > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_mha: head dim {dh} > {HEAD_DIMS[-1]}, the "
+                         f"widest instance")
+    if dtype == torch.bfloat16 and WIDE[0] - 16 < dh <= WIDE[-1]:
+        return -(-dh // 16) * 16
+    return min(w for w in F32_HEAD_DIMS if w >= dh)
 
 
-def launch_plan(dh: int, *tensors):
+def reads_in_place(dh: int, dtype, inst: int) -> bool:
+    """Whether instance ``inst`` reads head dim ``dh`` where it lies: its
+    own, or in bf16 on the ``WIDE`` instances a multiple of 8 below it (the
+    TMA maps span dh; TMA fills the columns up to the instance with
+    zeros)."""
+    return dh == inst or (dtype == torch.bfloat16 and inst in WIDE
+                          and dh % 8 == 0 and inst - 16 < dh < inst)
+
+
+def launch_plan(dh: int, dtype, *tensors):
     """(instance head dim, whether q/k/v go through a zero-padded copy):
-    the copy is taken when dh is not an instance's or a row cannot be read
-    in place (``aligned``)."""
-    w = instance_dim(dh)
-    return w, w != dh or not all(aligned(t) for t in tensors)
+    the copy is taken when the instance does not read dh in place
+    (``reads_in_place``) or a row cannot be read in place (``aligned``)."""
+    w = instance_dim(dh, dtype)
+    return w, not (reads_in_place(dh, dtype, w)
+                   and all(aligned(t) for t in tensors))
+
+
+def route(dtype, inst: int, copied: bool, backward: bool = False,
+          deterministic: bool = False) -> str:
+    """The name of the route that a launch at instance ``inst`` takes (the
+    key of its count in ``flash_mha.routes`` / ``flash_mha_bwd.routes``):
+    fp32 on the CUDA cores; bf16 forward on the wgmma core; bf16 backward on
+    the one-pass wgmma core at 64 (with the atomic-free dq pass instead of
+    atomic adds when ``deterministic``), the two wgmma passes on ``WIDE``,
+    the two mma.sync passes at 256; " via copy" when the zero-padded copy
+    was taken."""
+    if dtype == torch.float32:
+        name = f"fp32 cuda cores {inst}"
+    elif not backward:
+        name = f"wgmma {inst}"
+    elif inst == 64:
+        name = "wgmma one pass 64" + (" + dq pass" if deterministic else "")
+    elif inst in WIDE:
+        name = f"wgmma two passes {inst}"
+    else:
+        name = f"mma.sync two passes {inst}"
+    return name + (" via copy" if copied else "")
 
 
 def check_args(name: str, q, k, v) -> None:
@@ -225,20 +271,24 @@ def packed_grads(q):
                                   device=q.device))
 
 
-def _launch_fwd(q, k, v, sm_scale, lse=None):
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_mha: no instance at head dim "
-                         f"{q.shape[-1]} (built: {HEAD_DIMS})")
-    check_qkv("flash_mha", q, k, v, q.shape[-1])
+def _launch_fwd(q, k, v, sm_scale, lse, inst, copied):
+    """One launch of instance ``inst`` on q/k/v that it reads in place
+    (``copied``: they are the zero-padded copy, for the route's count)."""
+    if inst not in (HEAD_DIMS if q.dtype == torch.bfloat16
+                    else F32_HEAD_DIMS):
+        raise ValueError(f"flash_mha: no {q.dtype} instance at head dim "
+                         f"{inst}")
+    check_qkv("flash_mha", q, k, v, inst)
     b, h, s, dh = q.shape
     view, strides = launch_args(q, k, v)
     fn = _build.launcher("tim_flash_mha", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
                 strides, None if lse is None else lse.data_ptr(), b, h, s,
-                dh, int(q.dtype == torch.bfloat16), float(sm_scale),
+                dh, inst, int(q.dtype == torch.bfloat16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_mha")
     flash_mha.launches += 1
+    flash_mha.routes[route(q.dtype, inst, copied)] += 1
     return view
 
 
@@ -247,10 +297,11 @@ def _forward(q, k, v, sm_scale, lse=None):
     copy where ``launch_plan`` says so, the output sliced back."""
     check_args("flash_mha", q, k, v)
     dh = q.shape[-1]
-    w, pad = launch_plan(dh, q, k, v)
+    w, pad = launch_plan(dh, q.dtype, q, k, v)
     if not pad:
-        return _launch_fwd(q, k, v, sm_scale, lse)
-    out = _launch_fwd(*unpack_qkv(padded_qkv(q, k, v, w)), sm_scale, lse)
+        return _launch_fwd(q, k, v, sm_scale, lse, w, False)
+    out = _launch_fwd(*unpack_qkv(padded_qkv(q, k, v, w)), sm_scale, lse, w,
+                      True)
     return out[..., :dh]
 
 
@@ -268,47 +319,72 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     [B, H, S, dh] views, when given; else into views of one packed
     [B, S, 3, H, dh] buffer) or raise; CPU tensors take
     ``flash_mha_bwd_plain`` (``out`` and ``lse`` unused). dk and dv are
-    the same bits every run. In bf16 the one-pass kernel sums dq over key
-    blocks with fp32 atomic adds, so dq may differ in its last bits from
-    run to run; under ``torch.use_deterministic_algorithms(True)`` dq
-    comes instead from an atomic-free pass over the key tiles (the same
-    bits every run, one more pass). fp32 is atomic-free either way."""
+    the same bits every run. In bf16 at head dim 64 the one-pass kernel
+    sums dq over key blocks with fp32 atomic adds, so dq may differ in its
+    last bits from run to run; under
+    ``torch.use_deterministic_algorithms(True)`` dq comes instead from an
+    atomic-free pass over the key tiles (the same bits every run, one more
+    pass). Every other route (fp32; bf16 past 64: two passes, dk/dv then
+    dq) is atomic-free either way."""
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, do, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bwd: no kernel for device {q.device}")
     check_args("flash_mha_bwd", q, k, v)
     dh = q.shape[-1]
-    w, pad = launch_plan(dh, q, k, v, out)
+    w, pad = launch_plan(dh, q.dtype, q, k, v, out)
     if pad:
         qkv = padded_qkv(q, k, v, w)
-        got = flash_mha_bwd(*unpack_qkv(qkv), pad_last(out, w), lse,
-                            pad_last(do.to(q.dtype), w), sm_scale=sm_scale)
+        got = _launch_bwd(*unpack_qkv(qkv), pad_last(out, w), lse,
+                          pad_last(do.to(q.dtype), w), sm_scale, None, w,
+                          True)
         got = tuple(g[..., :dh] for g in got)
         if grads is None:
             return got
         for g, x in zip(grads, got):
             g.copy_(x)
         return grads
+    return _launch_bwd(q, k, v, out, lse, do, sm_scale, grads, w, False)
+
+
+def bwd_scratch(lse, inst: int, bf16: bool):
+    """The backward's fp32 scratch for D (the C launcher's ``delta``): like
+    ``lse``, [B, H, S]; the two passes of the bf16 ``WIDE`` instances keep
+    lse and D in rows padded to 4 (16 bytes, their TMA boxes' alignment),
+    2 x B x H x S rounded up to 4."""
+    if bf16 and inst in WIDE:
+        b, h, s = lse.shape
+        return lse.new_empty(2 * b * h * (-(-s // 4) * 4))
+    return torch.empty_like(lse)
+
+
+def _launch_bwd(q, k, v, out, lse, do, sm_scale, grads, inst, copied):
+    """One launch of the backward at instance ``inst`` on operands that it
+    reads in place (``copied``: the zero-padded copy, for the route's
+    count)."""
     grads = packed_grads(q) if grads is None else grads
-    check_qkv("flash_mha_bwd", *grads, dh)
+    check_qkv("flash_mha_bwd", *grads, inst)
     do, strides = bwd_args(q, k, v, out, do, grads)
     b, h, s, dh = q.shape
-    delta = torch.empty_like(lse)
     bf16 = q.dtype == torch.bfloat16
-    # bf16: dq summed over key blocks in fp32 (zeroed by the kernel's
-    # preprocess), then rounded into dq; none on the deterministic route
-    atomic_dq = bf16 and not torch.are_deterministic_algorithms_enabled()
+    delta = bwd_scratch(lse, inst, bf16)
+    # bf16 at 64: dq summed over key blocks in fp32 (zeroed by the
+    # kernel's preprocess), then rounded into dq; none on the deterministic
+    # route or past 64
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    atomic_dq = bf16 and inst == 64 and not deterministic
     dq_accum = (torch.empty((b, h, s, dh), dtype=torch.float32,
                             device=q.device) if atomic_dq else None)
     fn = _build.launcher("tim_flash_mha_bwd", _BWD_ARGTYPES)
     status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
                 strides, lse.data_ptr(), delta.data_ptr(),
                 dq_accum.data_ptr() if atomic_dq else None, b, h, s, dh,
-                int(bf16), float(sm_scale),
+                inst, int(bf16), float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_mha_bwd")
     flash_mha_bwd.launches += 1
+    flash_mha_bwd.routes[route(q.dtype, inst, copied, backward=True,
+                               deterministic=deterministic and bf16)] += 1
     return grads
 
 
@@ -320,26 +396,29 @@ class _FlashMHA(torch.autograd.Function):
     def forward(ctx, qkv, sm_scale):
         dh = qkv.shape[-1]
         check_args("flash_mha", *unpack_qkv(qkv))
-        w, pad = launch_plan(dh, *unpack_qkv(qkv))
-        # past the instances' head dims: one zero-padded copy, kept for the
-        # backward, whose padded gradient columns are sliced away
+        w, pad = launch_plan(dh, qkv.dtype, *unpack_qkv(qkv))
+        # a head dim the instance cannot read in place: one zero-padded
+        # copy, kept for the backward, whose padded gradient columns are
+        # sliced away
         qkv_k = pad_last(qkv, w) if pad else qkv
         lse = row_stats(unpack_qkv(qkv)[0])
-        out = _launch_fwd(*unpack_qkv(qkv_k), sm_scale, lse)
+        out = _launch_fwd(*unpack_qkv(qkv_k), sm_scale, lse, w, pad)
         ctx.save_for_backward(qkv_k, out, lse)
-        ctx.sm_scale, ctx.dh = sm_scale, dh
+        ctx.sm_scale, ctx.dh, ctx.inst, ctx.pad = sm_scale, dh, w, pad
         return out[..., :dh] if pad else out
 
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
-        w = qkv.shape[-1]
-        if w != ctx.dh:
-            do = pad_last(do.to(qkv.dtype), w)
+        # the saved qkv: the input (read in place), or its copy padded to
+        # the instance
+        width = qkv.shape[-1]
+        if width != ctx.dh:
+            do = pad_last(do.to(qkv.dtype), width)
         grad = torch.empty_like(qkv)
-        flash_mha_bwd(*unpack_qkv(qkv), out, lse, do, sm_scale=ctx.sm_scale,
-                      grads=unpack_qkv(grad))
-        return (grad[..., :ctx.dh] if w != ctx.dh else grad), None
+        _launch_bwd(*unpack_qkv(qkv), out, lse, do, ctx.sm_scale,
+                    unpack_qkv(grad), ctx.inst, ctx.pad)
+        return (grad[..., :ctx.dh] if width != ctx.dh else grad), None
 
 
 def flash_mha(q, k, v, *, sm_scale: float):
@@ -370,7 +449,9 @@ def flash_mha_qkv(qkv, *, sm_scale: float):
     return flash_mha(*unpack_qkv(qkv), sm_scale=sm_scale)
 
 
-# Numbers of kernel launches (forward, backward); the plain CPU versions
-# do not count.
+# Numbers of kernel launches (forward, backward), and of each by route
+# (``route``); the plain CPU versions do not count.
 flash_mha.launches = 0
 flash_mha_bwd.launches = 0
+flash_mha.routes = collections.Counter()
+flash_mha_bwd.routes = collections.Counter()
