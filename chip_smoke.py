@@ -360,6 +360,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      launches of kernels 5 and 5b a step, all on their 80 instances with
      no copy, ``widths-vit-h``), two steps of 8 clips and one validation
      batch; peak memory, seconds and device ms a step.
+ 31d. Head dims past 256 (phase "heads", after 31): kernels 1, 5 and 5b
+     on their column-slice routes (``csrc/*_cols.cu``), kernel 1 at
+     [128, H, 798, dh] F 100 for (H, dh) (2, 512), (1, 1024) and (3, 300:
+     the copy to 320), kernels 5 / 5b at [8, 2, 1568, 512], [8, 1, 1568,
+     1024] and [2, 3, 1568, 320], fp32 at a smaller batch, on strided views
+     of a packed projection, under 31a's gates and controls, the bf16
+     calls timed beside SDPA (its backend named); TIM detection at
+     ``--d_model 512 --nhead 2`` (6 layers, ``widths-tim-h2-*``),
+     ``--nhead 1`` and ``--d_model 450 --nhead 3`` (2 layers,
+     ``widths-tim-h1-*``, ``widths-tim-h3-*``) as in b; ``cli.run --train
+     --validate`` and a resumed ``--validate`` at ``--nhead 2``
+     (``widths-cli-h2-*``); ``finetune_cli.run --mode finetune`` at
+     ``--embed_dim 1024 --depth 24 --num_heads 2`` (``widths-vit-l-h2``)
+     as in c. Every launch of kernels 1, 5 and 5b on these paths counts on
+     a column-slice route.
 The counts are set to 0 just before each serving, extraction or training
 run and read just after it (the bias epilogue's count must be the same in
 every forward or step of a run, and not 0). Each phase's wall seconds are printed after it,
@@ -1136,26 +1151,40 @@ def synthetic_video(cfg, rng):
 
 class RouteCount:
     """The launches of some of a kernel wrapper's routes (its ``routes``
-    counts, named by ``ops.flash_mha.route``), read and set to 0 as a
-    wrapper's ``launches`` count is."""
+    counts, named by ``ops.flash_mha.route`` / ``query_block_attention.
+    route``): those in ``names``, or those ``match`` accepts; read and set
+    to 0 as a wrapper's ``launches`` count is."""
 
-    def __init__(self, fn, names):
-        self.fn, self.names = fn, tuple(names)
+    def __init__(self, fn, names=(), match=None):
+        self.fn, self.names, self.match = fn, tuple(names), match
+
+    def _keys(self):
+        return [n for n in self.fn.routes
+                if n in self.names or (self.match and self.match(n))]
 
     @property
     def launches(self) -> int:
-        return sum(self.fn.routes[n] for n in self.names)
+        return sum(self.fn.routes[n] for n in self._keys())
 
     @launches.setter
     def launches(self, value: int) -> None:
         require(value == 0, f"a route count is only set to 0, not {value}")
-        for n in self.names:
+        for n in self._keys():
             self.fn.routes.pop(n, None)
 
 
+def sliced(route: str) -> bool:
+    """Whether a route name is one of the column-slice routes (head dims
+    past 256)."""
+    return " slices " in route
+
+
 # counts that are a part of another kernel's (kernel 5 / 5b's routes at
-# head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu)
-ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide")
+# head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu;
+# kernels 1, 5 and 5b past 256, the *_cols.cu sources)
+ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide",
+                "query_block_attention_cols", "flash_mha_cols",
+                "flash_mha_bwd_cols")
 
 
 def launch_counters():
@@ -1179,7 +1208,12 @@ def launch_counters():
                 for c in (False, True)]),
             "flash_mha_bwd_wide": RouteCount(fm.flash_mha_bwd, [
                 fm.route(bf16, w, c, backward=True) for w in fm.WIDE
-                for c in (False, True)])}
+                for c in (False, True)]),
+            "query_block_attention_cols": RouteCount(
+                qba.query_block_attention, match=sliced),
+            "flash_mha_cols": RouteCount(fm.flash_mha, match=sliced),
+            "flash_mha_bwd_cols": RouteCount(fm.flash_mha_bwd,
+                                             match=sliced)}
 
 
 def attention_launches(launches):
@@ -3045,14 +3079,16 @@ class EventTimed:
 
 
 def zero_counts():
-    """Every count set to 0, kernel 5 / 5b's route counts whole."""
+    """Every count set to 0, kernels 1 and 5 / 5b's route counts whole."""
     from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import query_block_attention as qba
     counters = launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     fm.flash_mha.routes.clear()
     fm.flash_mha_bwd.routes.clear()
+    qba.query_block_attention.routes.clear()
     return counters
 
 
@@ -7756,7 +7792,9 @@ def phase_build():
     # C7510-C7520)
     wgmma = (("fwd90", "attention_kernel"), ("sm90", "bwd_kernel"),
              ("bwd90", "dkdv_kernel"), ("bwd90", "dq_kernel"),
-             ("tim_fpa", "gemm_kernel"), ("tim_i8", "int8_matmul_kernel"))
+             ("cols90", "cols_kernel"), ("colsbwd90", "bwd_kernel"),
+             ("tim_fpa", "gemm_kernel"),
+             ("tim_i8", "int8_matmul_kernel"))
     spilled = [nice for (name, regs, st, ld), nice in zip(kernels, pretty)
                if any(a in name and b in name for a, b in wgmma)
                and (st or ld)]
@@ -7807,6 +7845,14 @@ def launches_of(counter, call) -> int:
     before = counter.launches
     call()
     return counter.launches - before
+
+
+def routes_by_name(fn, call):
+    """The route counts (``fn.routes``) that one ``call()`` adds."""
+    before = collections.Counter(fn.routes)
+    call()
+    torch.cuda.synchronize()
+    return dict(fn.routes - before)
 
 
 def routes_of(call):
@@ -7868,19 +7914,32 @@ def widths_flash_routes(tag, q, k, v, out, lse, do, kw):
     return {"forward": got_f, "backward": got_b}
 
 
-def widths_flash(gen):
+def sdpa_backend(*args, **kwargs) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    arguments (its dispatcher's choice, ``torch.nn.attention.SDPBackend``)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
+    except Exception as e:  # noqa: BLE001 (a torch without the dispatcher)
+        return f"unknown ({type(e).__name__})"
+
+
+def widths_flash(gen, shapes=None, f32_batch=None, time_all=False):
     """Kernels 5 and 5b at the VideoMAE head dims past 64 (bf16 on the
     instances that read them in place) and at 91 (the zero-padded copy),
-    fp32 and bf16, against their plain versions under the gates in force,
-    the bf16 gates shown to reject their faulty controls; in bf16 the
-    routes each call takes and the backward's bit-stability; the batch-8
-    shapes timed beside SDPA (the backward's deterministic route too)."""
+    or at ``shapes`` (fp32 at batch ``f32_batch`` where given), fp32 and
+    bf16, against their plain versions under the gates in force, the bf16
+    gates shown to reject their faulty controls; in bf16 the routes each
+    call takes and the backward's bit-stability; the batch-8 shapes (every
+    bf16 shape with ``time_all``) timed beside SDPA (the backward's
+    deterministic route too), SDPA's backend named."""
     from tim_tpu_torch.ops import flash_mha as fm
     rows_f, rows_b = [], []
-    for b, h, s, dh in WIDTH_FLASH:
+    for b0, h, s, dh in shapes or WIDTH_FLASH:
         scale = dh ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
+            b = b0 if bf16 or not f32_batch else f32_batch
             w, copied = fm.launch_plan(dh, dtype)
             tag = (f"{dtype} [{b}, {h}, {s}, {dh}] (instance {w}, "
                    f"{'copied' if copied else 'in place'})")
@@ -7910,7 +7969,7 @@ def widths_flash(gen):
                 routes = widths_flash_routes(tag, q, k, v, out, lse, do, kw)
             del got, grads, want
             torch.cuda.empty_cache()
-            if not bf16 or b != 8:
+            if not bf16 or (b != 8 and not time_all):
                 rows_f.append({"shape": [b, h, s, dh], "dtype": str(dtype),
                                "instance": w, "copied": copied,
                                "max_abs_err": err})
@@ -7929,7 +7988,8 @@ def widths_flash(gen):
                                (q, k, v), kw, nb, n_scores, dh)
             row.update(shape=[b, h, s, dh], dtype=str(dtype),
                        max_abs_err=err, instance=w, copied=copied,
-                       routes=routes["forward"],
+                       routes=routes["forward"], library=sdpa_backend(
+                           q, k, v, scale=scale),
                        launches=launches_of(fm.flash_mha, lambda: fm.flash_mha(
                            q, k, v, **kw)))
             lib_err = max_err(F.scaled_dot_product_attention(
@@ -7939,7 +7999,8 @@ def widths_flash(gen):
             log(f"[widths] flash_mha [{b}, {h}, {s}, {dh}] bf16: instance "
                 f"{w}, {'copied' if copied else 'read in place'}; "
                 f"{row['launches']} launch a call; kernel / SDPA "
-                f"{row['ms'] / row['library_ms']:.3f}")
+                f"{row['ms'] / row['library_ms']:.3f} (SDPA's backend "
+                f"{row['library']})")
             rows_f.append(row)
             brow = {"shape": [b, h, s, dh], "dtype": str(dtype),
                     "max_abs_err": gerr, "instance": w, "copied": copied,
@@ -7958,6 +8019,7 @@ def widths_flash(gen):
             brow["plain_ms"] = cuda_ms(lambda: fm.flash_mha_bwd_plain(
                 q, k, v, do, **kw), iters=3, warmup=1)
             brow["library_ms"] = sdpa_bwd_ms(q, k, v, do)
+            brow["library"] = row["library"]
             brow["bound_ms"], brow["bound_by"] = attention_bwd_bound(
                 q, 2 * nbytes(q, k, v) + nbytes(out, do, lse))
             brow["share_of_bound"] = brow["bound_ms"] / brow["ms"]
@@ -7976,16 +8038,20 @@ def widths_flash(gen):
     return {"flash_mha": rows_f, "flash_mha_bwd": rows_b}
 
 
-def widths_query_block(gen):
+def widths_query_block(gen, shapes=((128, 16, 160), (128, 8, 91)),
+                       f32_batch=None):
     """Kernel 1 at the wide TIM's [128, 16, 798, 160] (F 100; bf16 on the
     tensor-core instance at 160) and at head dim 91 on strided views of a
-    packed qkv (rows off 16 bytes: the CUDA-core design, lanes masked),
-    fp32 and bf16, bf16's gate shown to reject its two controls; timed
-    beside masked SDPA."""
+    packed qkv (rows off 16 bytes: the CUDA-core design, lanes masked), or
+    at ``shapes`` ((batch, heads, head dim); fp32 at batch ``f32_batch``
+    where given), fp32 and bf16, bf16's gate shown to reject its two
+    controls; bf16 timed beside masked SDPA, its backend named."""
     from tim_tpu_torch.ops import query_block_attention as qba
     rows = []
-    for batch, heads, dh in ((128, 16, 160), (128, 8, 91)):
+    for batch0, heads, dh in shapes:
         for dtype in (torch.bfloat16, torch.float32):
+            batch = batch0 if dtype == torch.bfloat16 or not f32_batch \
+                else f32_batch
             args = packed_views(batch, 898, heads, dh, dtype, gen, f=100)
             plan = qba.launch_plan(dh, dtype, *args)
             tag = f"{dtype} [{batch}, {heads}, 798, {dh}] F 100 ({plan})"
@@ -7999,7 +8065,10 @@ def widths_query_block(gen):
                     f"query_block_attention {tag} disagrees with its plain "
                     f"version: max abs {err}, relative RMS {rel}")
             row = {"shape": [batch, heads, 798, dh], "f": 100,
-                   "dtype": str(dtype), "plan": plan, "max_abs_err": err}
+                   "dtype": str(dtype), "plan": plan, "max_abs_err": err,
+                   "route": routes_by_name(qba.query_block_attention,
+                                           lambda: qba.query_block_attention(
+                                               *args))}
             if dtype == torch.bfloat16:
                 for cname, bad in (("self term dropped",
                                     query_block_without_self(*args)),
@@ -8021,6 +8090,8 @@ def widths_query_block(gen):
                 row["library_ms"] = cuda_ms(
                     lambda: F.scaled_dot_product_attention(
                         sdpa[0], sdpa[1], sdpa[2], attn_mask=sdpa[3]))
+                row["library"] = sdpa_backend(sdpa[0], sdpa[1], sdpa[2],
+                                              attn_mask=sdpa[3])
                 del sdpa
                 row["bound_ms"], row["bound_by"] = bound(
                     nbytes(*args) + nbytes(got), ops, "bf16")
@@ -8029,11 +8100,11 @@ def widths_query_block(gen):
                     qba.query_block_attention,
                     lambda: qba.query_block_attention(*args))
                 log(f"[widths] query_block_attention {tag}: kernel "
-                    f"{row['ms']:.4f} ms ({row['launches']} launch a call), "
-                    f"plain {row['plain_ms']:.4f} ms, "
+                    f"{row['ms']:.4f} ms ({row['launches']} launch a call, "
+                    f"route {row['route']}), plain {row['plain_ms']:.4f} ms, "
                     f"masked scaled_dot_product_attention "
-                    f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f}"
-                    f" ms ({row['bound_by']}, "
+                    f"{row['library_ms']:.4f} ms ({row['library']}), bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
                     f"{100 * row['share_of_bound']:.1f}%)")
             rows.append(row)
             del args, got, want
@@ -8297,41 +8368,128 @@ def widths_tim(tag, widths, layers, rng):
     return {f"{tag}-bf16": launches16, f"{tag}-int8": launches8}
 
 
-def widths_vit_h(tmp):
+def widths_vit(tmp, tag="widths-vit-h", flags=VIT_H, dh=80,
+               counts=("flash_mha_wide", "flash_mha_bwd_wide")):
     """Phase 31c: the finetune CLI at VideoMAE ViT-H/16's width and depth
     (--embed_dim 1280 --depth 32 --num_heads 16: head dim 80, kernels 5
-    and 5b on their 80 instances, q, k and v read in place): two finetune
-    steps of 8 clips and one validation batch; each step's device ms
-    (CUDA events) beside its wall seconds and host share."""
+    and 5b on their 80 instances, q, k and v read in place), or at
+    ``flags`` (head dim ``dh``, read in place; ``counts``: the route counts
+    that must take every launch): two finetune steps of 8 clips and one
+    validation batch; each step's device ms (CUDA events) beside its wall
+    seconds and host share."""
     from tim_tpu_torch.ops import flash_mha as fm
     import random
     from tim_tpu_torch.extract import finetune_cli
-    args = ft_args("finetune", tmp / "vit-h", *VIT_H, "--num_sample", "1")
+    args = ft_args("finetune", tmp / tag, *flags, "--num_sample", "1")
     train_ds, val_ds = finetune_cli.datasets(
         args, ft_annotations(2 * FT_BATCH, SEED + 31),
         ft_annotations(FT_BATCH, SEED + 32), ft_reader)
     random.seed(SEED + 31)
     np.random.seed(SEED + 31)
-    stats, launches, metrics = ft_cli_run("widths-vit-h", "finetune", args,
-                                          train_ds, val_ds, per=args.depth)
+    stats, launches, metrics = ft_cli_run(tag, "finetune", args, train_ds,
+                                          val_ds, per=args.depth)
     routes = (dict(fm.flash_mha.routes), dict(fm.flash_mha_bwd.routes))
     bf16 = torch.bfloat16
-    want = ({fm.route(bf16, 80, False): launches["flash_mha"]},
-            {fm.route(bf16, 80, False, backward=True):
+    want = ({fm.route(bf16, dh, False): launches["flash_mha"]},
+            {fm.route(bf16, dh, False, backward=True):
              launches["flash_mha_bwd"]})
-    log(f"[widths-vit-h] routes: forward {routes[0]}, backward {routes[1]}")
-    require(routes == want and launches["flash_mha_wide"]
-            == launches["flash_mha"] and launches["flash_mha_bwd_wide"]
-            == launches["flash_mha_bwd"], f"widths-vit-h: routes {routes}, "
-            f"expected {want} (the 80 instances, no copy)")
+    log(f"[{tag}] routes: forward {routes[0]}, backward {routes[1]}")
+    require(routes == want and launches[counts[0]] == launches["flash_mha"]
+            and launches[counts[1]] == launches["flash_mha_bwd"],
+            f"{tag}: routes {routes}, expected {want} (the {dh} route, no "
+            f"copy)")
     for i, (wall, dev) in enumerate(zip(metrics["step_s"],
                                         metrics["device_ms"])):
         data = metrics["data_s"][i]
-        log(f"[widths-vit-h] step {i}: wall {wall:.4f} s, device "
+        log(f"[{tag}] step {i}: wall {wall:.4f} s, device "
             f"{dev:.3f} ms (CUDA events over the step), host's data "
             f"{data:.4f} s ({100 * data / wall:.1f}% of the wall)")
-    log(f"[widths-vit-h] summary {json.dumps(metrics)}")
-    return {"widths-vit-h": launches}
+    log(f"[{tag}] summary {json.dumps(metrics)}")
+    return {tag: launches}
+
+
+# Phase 31d: head dims past 256 (the column-slice routes of kernels 1, 5
+# and 5b). TIM at cli --d_model 512 --nhead 2 (C 1024, head dim 512, FF
+# 2048), --nhead 1 (1024) and --d_model 450 --nhead 3 (C 900, head dim
+# 300: kernel 1 through the zero-padded copy to 320); ViT-L at
+# finetune_cli --embed_dim 1024 --depth 24 --num_heads 2 (head dim 512).
+HEADS_TIM = {"d_model": 512, "nhead": 2}
+HEADS_TIM_1 = {"d_model": 512, "nhead": 1}
+HEADS_TIM_3 = {"d_model": 450, "nhead": 3}
+VIT_L_H2 = ("--embed_dim", "1024", "--depth", "24", "--num_heads", "2")
+# kernel 1 at (batch, heads, head dim), F 100; kernels 5 / 5b at [B, H, S,
+# dh]; fp32 at batch HEADS_F32_BATCH (kernel 1) and 1 (kernels 5 / 5b)
+HEADS_QBA = ((128, 2, 512), (128, 1, 1024), (128, 3, 300))
+HEADS_FLASH = ((8, 2, 1568, 512), (8, 1, 1568, 1024), (2, 3, 1568, 320))
+HEADS_F32_BATCH = 16
+
+
+def heads_cli(tmp, rng):
+    """``cli.run --train --validate`` (one epoch, validation after it) at
+    --d_model 512 --nhead 2 on numpy windows (EPIC widths, 2 videos to
+    train, 1 to validate), then ``--validate`` resumed from its
+    checkpoint: kernel 1 on its column-slice route in every validation
+    batch, the resumed statistics equal to the fit's."""
+    from tim_tpu_torch import cli
+    from tim_tpu_torch import config as C
+    cfg = C.epic_detection()
+    train_ds = epic_detection_split(det_split(cfg, 2, rng), True)
+    val_ds = epic_detection_split(det_split(cfg, 1, rng), False)
+    width = ["--d_model", str(HEADS_TIM["d_model"]), "--nhead",
+             str(HEADS_TIM["nhead"])]
+    args = cli_args("detection", tmp, "--train", "--validate",
+                    "--finetune_epochs", "1", *width)
+    layers = cli.configs_from_args(args)[0].num_layers
+    val_batches = len(val_ds) // DET_BATCH
+    fit, l_train, s_train = cli_run("widths-cli-h2-train", args, train_ds,
+                                    val_ds)
+    require_kernel1("widths-cli-h2-train", l_train, layers, val_batches)
+    args = cli_args("detection", tmp, "--validate", "--resume", str(tmp),
+                    *width)
+    val, l_val, s_val = cli_run("widths-cli-h2-val", args, None, val_ds)
+    require_kernel1("widths-cli-h2-val", l_val, layers, val_batches)
+    diff = stats_diff("widths-cli-h2-val", val, fit)
+    for tag, launches in (("train", l_train), ("val", l_val)):
+        require(launches["query_block_attention_cols"]
+                == launches["query_block_attention"], f"widths-cli-h2-{tag}:"
+                f" kernel 1 off its column-slice route: {launches}")
+    log(f"[widths-cli-h2] --train --validate {s_train:.3f} s, fit "
+        f"statistics {json.dumps(fit)}; --validate resumed {s_val:.3f} s, "
+        f"max relative difference {diff:.3e}")
+    return {"widths-cli-h2-train": l_train, "widths-cli-h2-val": l_val}
+
+
+def phase_heads(card: str):
+    """Phase 31d: head dims past 256. Each column-slice kernel against its
+    plain version at the command lines' shapes (the gates and controls of
+    31a, timed beside SDPA); TIM detection at --nhead 2 (full depth), --nhead
+    1 and --d_model 450 --nhead 3 (2 layers) through ``widths_tim``; one
+    ``cli.run --train --validate`` and a resumed ``--validate`` at --nhead
+    2; ViT-L finetuning at --num_heads 2 (full depth). Returns (the
+    kernels' rows, launches by path)."""
+    import pathlib
+    import tempfile
+    log(f"[heads] {card}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    report = timed("heads-flash", widths_flash, gen, HEADS_FLASH,
+                   f32_batch=1, time_all=True)
+    report["query_block_attention"] = timed(
+        "heads-query-block", widths_query_block, gen, HEADS_QBA,
+        f32_batch=HEADS_F32_BATCH)
+    rng = np.random.default_rng(SEED + 33)
+    paths = timed("heads-tim-h2", widths_tim, "widths-tim-h2", HEADS_TIM,
+                  None, rng)
+    paths.update(timed("heads-tim-h1", widths_tim, "widths-tim-h1",
+                       HEADS_TIM_1, 2, rng))
+    paths.update(timed("heads-tim-h3", widths_tim, "widths-tim-h3",
+                       HEADS_TIM_3, 2, rng))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        paths.update(timed("heads-cli-h2", heads_cli, tmp / "cli", rng))
+        paths.update(timed("heads-vit-l-h2", widths_vit, tmp,
+                           "widths-vit-l-h2", VIT_L_H2, 512,
+                           ("flash_mha_cols", "flash_mha_bwd_cols")))
+    return report, paths
 
 
 def phase_widths(card: str):
@@ -8351,7 +8509,7 @@ def phase_widths(card: str):
     paths.update(timed("widths-tim-odd", widths_tim, "widths-tim-odd",
                        ODD_TIM, 2, rng))
     with tempfile.TemporaryDirectory() as tmp:
-        paths.update(timed("widths-vit-h", widths_vit_h, pathlib.Path(tmp)))
+        paths.update(timed("widths-vit-h", widths_vit, pathlib.Path(tmp)))
     return report, paths
 
 
@@ -8445,6 +8603,20 @@ def main() -> int:
     widths_report, widths_paths = timed("widths", phase_widths, card)
     for name, rows in widths_report.items():
         kernel_report[name]["widths"] = rows
+    heads_report, heads_paths = timed("heads", phase_heads, card)
+    for name, rows in heads_report.items():
+        kernel_report[name]["heads"] = rows
+    # the column-slice routes past head dim 256: the first timed shape
+    # (kernel 1's [128, 2, 798, 512], kernel 5 / 5b's [8, 2, 1568, 512]),
+    # every timed shape beside it
+    for name in ("query_block_attention", "flash_mha", "flash_mha_bwd"):
+        timed_rows = [r for r in heads_report[name] if "ms" in r]
+        first = timed_rows[0]
+        kernel_report[f"{name}_cols"] = {
+            **{key: first[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library")},
+            "shape": first["shape"], "per_shape": timed_rows}
     # the routes at head dims 65-128: ViT-H/16's [8, 16, 1568, 80] first,
     # every timed shape beside it
     for name in ("flash_mha", "flash_mha_bwd"):
@@ -8461,7 +8633,8 @@ def main() -> int:
                **cli_paths, **dp_paths, **tp_paths, **jax_paths,
                **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
                **autoaug_paths,
-               **media_paths, **ft_cli_paths, **widths_paths}
+               **media_paths, **ft_cli_paths, **widths_paths,
+               **heads_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
@@ -8505,10 +8678,43 @@ def main() -> int:
             ("widths-tim-odd-int8", ("query_block_attention",
                                      "int8_matmul_fused")),
             ("widths-vit-h", ("flash_mha", "flash_mha_bwd", "flash_mha_wide",
-                              "flash_mha_bwd_wide"))):
+                              "flash_mha_bwd_wide")),
+            ("widths-tim-h2-bf16", ("query_block_attention",
+                                    "query_block_attention_cols",
+                                    "fused_post_attention")),
+            ("widths-tim-h2-int8", ("query_block_attention",
+                                    "query_block_attention_cols",
+                                    "int8_matmul_fused")),
+            ("widths-tim-h1-bf16", ("query_block_attention_cols",)),
+            ("widths-tim-h3-bf16", ("query_block_attention_cols",)),
+            ("widths-cli-h2-train", ("query_block_attention_cols",)),
+            ("widths-cli-h2-val", ("query_block_attention_cols",)),
+            ("widths-vit-l-h2", ("flash_mha", "flash_mha_bwd",
+                                 "flash_mha_cols", "flash_mha_bwd_cols"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")
+    # past head dim 256 every launch of kernels 1, 5 and 5b took a
+    # column-slice route (none the plain version, which does not count)
+    for path, pairs in (
+            ("widths-tim-h2-bf16", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-tim-h2-int8", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-tim-h1-bf16", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-tim-h1-int8", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-tim-h3-bf16", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-tim-h3-int8", (("query_block_attention",
+                                     "query_block_attention_cols"),)),
+            ("widths-vit-l-h2", (("flash_mha", "flash_mha_cols"),
+                                 ("flash_mha_bwd", "flash_mha_bwd_cols")))):
+        for total, part in pairs:
+            require(by_path[path][total] == by_path[path][part],
+                    f"{path}: {by_path[path][total]} launches of {total}, "
+                    f"{by_path[path][part]} on its column-slice route")
     sources = {
         # name: (source, TPU kernel, the serving path whose count is reported)
         "query_block_attention": ("tim_tpu_torch/csrc/query_block_attention.cu",
@@ -8534,6 +8740,15 @@ def main() -> int:
                            "tim_tpu/ops/flash.py:82", "widths-vit-h"),
         "flash_mha_bwd_wide": ("tim_tpu_torch/csrc/flash_mha_bwd_wide.cu",
                                "tim_tpu/ops/flash.py:71", "widths-vit-h"),
+        # kernels 1, 5 / 5b past head dim 256 (TIM at --nhead 2, ViT-L at
+        # --num_heads 2)
+        "query_block_attention_cols": (
+            "tim_tpu_torch/csrc/query_block_attention_cols.cu",
+            "tim_tpu/ops/pallas_attention.py:54", "widths-tim-h2-bf16"),
+        "flash_mha_cols": ("tim_tpu_torch/csrc/flash_mha_cols.cu",
+                           "tim_tpu/ops/flash.py:82", "widths-vit-l-h2"),
+        "flash_mha_bwd_cols": ("tim_tpu_torch/csrc/flash_mha_bwd_cols.cu",
+                               "tim_tpu/ops/flash.py:71", "widths-vit-l-h2"),
         # replaces no TPU kernel (JAX leaves the bias add to XLA)
         "bias_act": ("tim_tpu_torch/csrc/bias_act.cu", None,
                      "extract-videomae"),

@@ -102,6 +102,13 @@ def test_query_block_kernel_matches_plain(gen, dtype, b, h, s, f, dh,
     (torch.bfloat16, 2, 2, 237, 100, 200, False),
     (torch.bfloat16, 2, 2, 237, 50, 13, False),
     (torch.float32, 2, 2, 237, 50, 48, False),
+    # past 256 the column-slice design: 512 with the broadcast query block,
+    # 264 (in place), 300 (bf16 through the copy to 320), F past a tile
+    (torch.bfloat16, 2, 2, 237, 100, 512, True),
+    (torch.float32, 2, 2, 237, 100, 512, True),
+    (torch.bfloat16, 2, 1, 237, 130, 264, False),
+    (torch.float32, 2, 1, 237, 130, 264, False),
+    (torch.bfloat16, 2, 3, 237, 50, 300, False),
 ])
 def test_query_block_kernel_wide_context_and_head_dims(gen, dtype, b, h, s,
                                                        f, dh, shared):
@@ -396,14 +403,15 @@ def test_window_attention_launches_and_lse_match_plain(gen, dtype, n_win,
 
 @pytest.mark.gpu
 def test_attention_kernels_refuse_other_head_dims(gen):
-    """Kernel 4 takes head dim 32 only; kernel 5 any head dim up to 256
-    (48 through the zero-padded copy to the 64 instance), not 257."""
+    """Kernel 4 takes head dim 32 only; kernel 5 any head dim (48 through
+    the zero-padded copy to the 64 instance, 257 through the copy to the
+    column-slice route at 320)."""
     q = torch.randn(1, 2, 40, 48, generator=gen, device="cuda")
     assert attention_close(flash_mha(q, q, q, sm_scale=0.1),
                            flash_mha_plain(q, q, q, sm_scale=0.1))[0]
     big = torch.randn(1, 2, 40, 257, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head dim 257"):
-        flash_mha(big, big, big, sm_scale=0.1)
+    assert attention_close(flash_mha(big, big, big, sm_scale=0.1),
+                           flash_mha_plain(big, big, big, sm_scale=0.1))[0]
     bias = torch.zeros(2, 40, 40, device="cuda")
     with pytest.raises(ValueError, match="head dim 48"):
         window_attention(q, q, q, bias, sm_scale=0.1)
@@ -411,11 +419,13 @@ def test_attention_kernels_refuse_other_head_dims(gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("dh", [16, 80, 88, 91, 104, 120, 128, 200, 256])
+@pytest.mark.parametrize("dh", [16, 80, 88, 91, 104, 120, 128, 200, 256,
+                                264, 320, 512])
 def test_flash_mha_at_other_head_dims(gen, dtype, dh):
     """Kernel 5 and 5b at head dims on and off their instances (64, 128,
-    256; bf16 80, 96, 112, which read 88 and 104 in place), both launches,
-    the lse, and the backward against the plain backward's gates."""
+    256; bf16 80, 96, 112, which read 88 and 104 in place; past 256 the
+    column-slice route), both launches, the lse, and the backward against
+    the plain backward's gates."""
     q, k, v = vit_qkv(2, 150, dtype, gen, heads=3, dh=dh)
     kw = {"sm_scale": dh ** -0.5}
     _check_both_launches(flash_mha, flash_mha_with_lse, flash_mha_plain,
@@ -430,16 +440,17 @@ def test_flash_mha_at_other_head_dims(gen, dtype, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [80, 88, 104, 120, 128])
+@pytest.mark.parametrize("dh", [80, 88, 104, 120, 128, 264, 512])
 @pytest.mark.parametrize("s", [37, 150])
 def test_flash_mha_wide_routes_read_in_place_and_repeat(gen, dh, s):
-    """bf16 past 64 up to 128: each call launches the plan's instance with
-    no copy (the route counts), and the two-pass backward gives the same
-    bits call to call and under torch.use_deterministic_algorithms."""
+    """bf16 past 64: each call launches the plan's instance (up to 128) or
+    column-slice route (past 256) with no copy (the route counts), and the
+    two-pass backward gives the same bits call to call and under
+    torch.use_deterministic_algorithms."""
     from tim_tpu_torch.ops import flash_mha as fm
     q, k, v = vit_qkv(3, s, torch.bfloat16, gen, heads=4, dh=dh)
     kw = {"sm_scale": dh ** -0.5}
-    inst = -(-dh // 16) * 16
+    inst = fm.instance_dim(dh, torch.bfloat16)
     fm.flash_mha.routes.clear()
     fm.flash_mha_bwd.routes.clear()
     out, lse = flash_mha_with_lse(q, k, v, **kw)
@@ -455,9 +466,10 @@ def test_flash_mha_wide_routes_read_in_place_and_repeat(gen, dh, s):
     packed = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
     leaf = packed.detach().requires_grad_()
     (flash_mha_qkv(leaf, **kw).float() * do.float()).sum().backward()
-    assert dict(fm.flash_mha.routes) == {f"wgmma {inst}": 2}
+    assert dict(fm.flash_mha.routes) == {
+        fm.route(torch.bfloat16, inst, False): 2}
     assert dict(fm.flash_mha_bwd.routes) == {
-        f"wgmma two passes {inst}": 4}
+        fm.route(torch.bfloat16, inst, False, backward=True): 4}
     for a, b, c in zip(first, second, third):
         assert torch.equal(a, b) and torch.equal(a, c)
     for i, g in enumerate(first):

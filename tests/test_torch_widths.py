@@ -247,16 +247,16 @@ def test_flash_plan_copies_rows_it_cannot_read_and_checks_shapes():
     assert fm.launch_plan(80, BF16, *fm.unpack_qkv(packed)) == (80, True)
     rows84 = torch.zeros(2, 3, 5, 84, dtype=BF16)[..., :80]
     assert fm.launch_plan(80, BF16, q80, rows84, q80) == (80, True)
-    with pytest.raises(ValueError, match="> 256"):
-        fm.instance_dim(257, BF16)
-    for dh in (1, 80, 91, 256):
+    # past 256 the column-slice route: 257 through the copy to 320
+    assert fm.instance_dim(257, BF16) == 320
+    for dh in (1, 80, 91, 256, 257):
         t = torch.zeros(1, 2, 3, dh)
         fm.check_args("flash_mha", t, t, t)
         for dtype in (torch.float32, torch.bfloat16):
             fm.check_args("flash_mha", t.to(dtype), t.to(dtype), t.to(dtype))
     t = torch.zeros(1, 2, 3, 80)
     with pytest.raises(ValueError, match="head dim"):
-        fm.check_args("flash_mha", *(torch.zeros(1, 2, 3, 257),) * 3)
+        fm.check_args("flash_mha", *(torch.zeros(1, 2, 3, 0),) * 3)
     with pytest.raises(ValueError, match="shape"):
         fm.check_args("flash_mha", t, torch.zeros(1, 2, 4, 80), t)
     with pytest.raises(ValueError, match="dtype"):
@@ -319,10 +319,14 @@ def test_query_block_plan_and_check_take_every_head_dim(dh, aligned, plan):
 def test_query_block_check_still_refuses():
     t = torch.zeros(1, 2, 4, 91)
     c = torch.zeros(1, 2, 3, 91)
+    # every head dim from 1 up is taken (257: the column-slice route); 0
+    # is the one refused
+    big, big_c = torch.zeros(1, 2, 4, 257), torch.zeros(1, 2, 3, 257)
+    qba._check(big, big_c, big, big_c, big)
+    assert qba.launch_plan(257, torch.bfloat16, big, big_c) == qba.COLS
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros(1, 2, 4, 257)
-        qba._check(big, torch.zeros(1, 2, 3, 257), big,
-                   torch.zeros(1, 2, 3, 257), big)
+        empty, empty_c = torch.zeros(1, 2, 4, 0), torch.zeros(1, 2, 3, 0)
+        qba._check(empty, empty_c, empty, empty_c, empty)
     with pytest.raises(ValueError, match="shape"):
         qba._check(t, c, t, torch.zeros(1, 2, 3, 90), t)
     with pytest.raises(ValueError, match="dtype"):

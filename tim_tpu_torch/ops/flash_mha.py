@@ -26,7 +26,14 @@ one copy of q, k and v into a zero-padded packed buffer (``padded_qkv``;
 zero columns add nothing to the scores, and give zero output and gradient
 columns), with ``sm_scale`` as given (1/sqrt of the true head dim) and
 views of the outputs' first dh columns returned. Rows that the kernels
-cannot read in place (not 16-byte aligned) take the same copy. A route's
+cannot read in place (not 16-byte aligned) take the same copy. Past 256
+(a ViT at ``--num_heads 2``: head dim 512) every head dim runs on the
+column-slice route (``csrc/flash_mha_cols.cu``, ``flash_mha_bwd_cols.cu``:
+bf16 on wgmma, the backward in two atomic-free passes, fp32 on the CUDA
+cores;
+a grid axis over output column slices, each recomputing the scores over
+the full head dim), in place where the head dim fills 16-byte rows, else
+through the same copy to the next multiple of 64 (``SLICED``). A route's
 launch raises if it fails: nothing falls back to another. Each launch
 counts one on its wrapper (``launches``) and on its route
 (``routes[route(...)]``).
@@ -48,11 +55,25 @@ HEAD_DIMS = (64, 80, 96, 112, 128, 256)
 F32_HEAD_DIMS = (64, 128, 256)
 # bf16 past 64: the instances that read a head dim 8 below theirs in place
 WIDE = (80, 96, 112, 128)
+# past this head dim, the column-slice route (any head dim, run at its own
+# or at the next multiple of 64)
+SLICED = HEAD_DIMS[-1]
 # tim_flash_mha(q, k, v, out, strides, lse, b, h, s, dh, instance, bf16,
 # scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
                                       ctypes.c_void_p]
              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+# tim_flash_mha_cols(q, k, v, out, strides, lse, b, h, s, dh, bf16, scale,
+# stream)
+_COLS_ARGTYPES = ([ctypes.c_void_p] * 4
+                  + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+                  + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+# tim_flash_mha_bwd_cols(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
+# b, h, s, dh, bf16, scale, stream)
+_BWD_COLS_ARGTYPES = ([ctypes.c_void_p] * 8
+                      + [ctypes.POINTER(ctypes.c_longlong)]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
 # tim_flash_mha_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
 # dq_accum, b, h, s, dh, instance, bf16, scale, stream)
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
@@ -126,14 +147,19 @@ def check_qkv(name: str, q, k, v, inst: int) -> None:
 
 def instance_dim(dh: int, dtype) -> int:
     """The head dim of the kernel instance that head dim ``dh`` runs on in
-    ``dtype``: bf16 past 64 up to 128 dh rounded up to 16 (``WIDE``), else
-    the least of ``F32_HEAD_DIMS`` that holds it. Raises past 256."""
-    if dh > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_mha: head dim {dh} > {HEAD_DIMS[-1]}, the "
-                         f"widest instance")
+    ``dtype``: past 256 (``SLICED``) the column-slice route at dh itself
+    where a row of dh fills 16-byte words, else at the next multiple of
+    64; bf16 past 64 up to 128 dh rounded up to 16 (``WIDE``); else the
+    least of ``F32_HEAD_DIMS`` that holds it."""
+    if dh > SLICED:
+        return dh if dh * _size(dtype) % 16 == 0 else -(-dh // 64) * 64
     if dtype == torch.bfloat16 and WIDE[0] - 16 < dh <= WIDE[-1]:
         return -(-dh // 16) * 16
     return min(w for w in F32_HEAD_DIMS if w >= dh)
+
+
+def _size(dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
 
 
 def reads_in_place(dh: int, dtype, inst: int) -> bool:
@@ -161,9 +187,16 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     fp32 on the CUDA cores; bf16 forward on the wgmma core; bf16 backward on
     the one-pass wgmma core at 64 (with the atomic-free dq pass instead of
     atomic adds when ``deterministic``), the two wgmma passes on ``WIDE``,
-    the two mma.sync passes at 256; " via copy" when the zero-padded copy
-    was taken."""
-    if dtype == torch.float32:
+    the two mma.sync passes at 256; past 256 (``SLICED``) the column-slice
+    route ("wgmma slices 512", "wgmma two passes slices 512", "fp32 cuda
+    cores slices 512"; the backward's is atomic-free whether
+    ``deterministic`` or not, one name); " via copy" when the zero-padded
+    copy was taken."""
+    if inst > SLICED:
+        kind = ("fp32 cuda cores" if dtype == torch.float32
+                else "wgmma two passes" if backward else "wgmma")
+        name = f"{kind} slices {inst}"
+    elif dtype == torch.float32:
         name = f"fp32 cuda cores {inst}"
     elif not backward:
         name = f"wgmma {inst}"
@@ -178,16 +211,15 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
 
 def check_args(name: str, q, k, v) -> None:
     """What ``flash_mha`` takes on the card: q/k/v [B, H, S, dh] of one
-    shape and dtype (fp32 or bf16) on one device, 1 <= dh <= 256; any
-    strides (``launch_plan`` copies rows it cannot read in place)."""
+    shape and dtype (fp32 or bf16) on one device, any dh >= 1; any strides
+    (``launch_plan`` copies rows it cannot read in place)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be [B, H, S, dh], got "
                          f"{tuple(q.shape)}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
-    if not 1 <= q.shape[-1] <= HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} not in [1, "
-                         f"{HEAD_DIMS[-1]}]")
+    if q.shape[-1] < 1:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} < 1")
     for tname, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: {tname} is {t.dtype} on {t.device}, "
@@ -274,18 +306,25 @@ def packed_grads(q):
 def _launch_fwd(q, k, v, sm_scale, lse, inst, copied):
     """One launch of instance ``inst`` on q/k/v that it reads in place
     (``copied``: they are the zero-padded copy, for the route's count)."""
-    if inst not in (HEAD_DIMS if q.dtype == torch.bfloat16
-                    else F32_HEAD_DIMS):
+    if inst <= SLICED and inst not in (HEAD_DIMS if q.dtype == torch.bfloat16
+                                       else F32_HEAD_DIMS):
         raise ValueError(f"flash_mha: no {q.dtype} instance at head dim "
                          f"{inst}")
     check_qkv("flash_mha", q, k, v, inst)
     b, h, s, dh = q.shape
     view, strides = launch_args(q, k, v)
-    fn = _build.launcher("tim_flash_mha", _ARGTYPES)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
-                strides, None if lse is None else lse.data_ptr(), b, h, s,
-                dh, inst, int(q.dtype == torch.bfloat16), float(sm_scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr())
+    lse_ptr = None if lse is None else lse.data_ptr()
+    bf16 = int(q.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if inst > SLICED:
+        fn = _build.launcher("tim_flash_mha_cols", _COLS_ARGTYPES)
+        status = fn(*ptrs, strides, lse_ptr, b, h, s, dh, bf16,
+                    float(sm_scale), stream)
+    else:
+        fn = _build.launcher("tim_flash_mha", _ARGTYPES)
+        status = fn(*ptrs, strides, lse_ptr, b, h, s, dh, inst, bf16,
+                    float(sm_scale), stream)
     _build.check(status, "flash_mha")
     flash_mha.launches += 1
     flash_mha.routes[route(q.dtype, inst, copied)] += 1
@@ -293,8 +332,8 @@ def _launch_fwd(q, k, v, sm_scale, lse, inst, copied):
 
 
 def _forward(q, k, v, sm_scale, lse=None):
-    """One forward launch for any head dim up to 256: through a padded
-    copy where ``launch_plan`` says so, the output sliced back."""
+    """One forward launch for any head dim: through a padded copy where
+    ``launch_plan`` says so, the output sliced back."""
     check_args("flash_mha", q, k, v)
     dh = q.shape[-1]
     w, pad = launch_plan(dh, q.dtype, q, k, v)
@@ -325,7 +364,7 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
     ``torch.use_deterministic_algorithms(True)`` dq comes instead from an
     atomic-free pass over the key tiles (the same bits every run, one more
     pass). Every other route (fp32; bf16 past 64: two passes, dk/dv then
-    dq) is atomic-free either way."""
+    dq; past 256 the column-slice passes) is atomic-free either way."""
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, do, sm_scale=sm_scale)
     if q.device.type != "cuda":
@@ -375,12 +414,17 @@ def _launch_bwd(q, k, v, out, lse, do, sm_scale, grads, inst, copied):
     atomic_dq = bf16 and inst == 64 and not deterministic
     dq_accum = (torch.empty((b, h, s, dh), dtype=torch.float32,
                             device=q.device) if atomic_dq else None)
-    fn = _build.launcher("tim_flash_mha_bwd", _BWD_ARGTYPES)
-    status = fn(*(t.data_ptr() for t in (q, k, v, out, do, *grads)),
-                strides, lse.data_ptr(), delta.data_ptr(),
-                dq_accum.data_ptr() if atomic_dq else None, b, h, s, dh,
-                inst, int(bf16), float(sm_scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k, v, out, do, *grads)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if inst > SLICED:
+        fn = _build.launcher("tim_flash_mha_bwd_cols", _BWD_COLS_ARGTYPES)
+        status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(), b, h,
+                    s, dh, int(bf16), float(sm_scale), stream)
+    else:
+        fn = _build.launcher("tim_flash_mha_bwd", _BWD_ARGTYPES)
+        status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(),
+                    dq_accum.data_ptr() if atomic_dq else None, b, h, s, dh,
+                    inst, int(bf16), float(sm_scale), stream)
     _build.check(status, "flash_mha_bwd")
     flash_mha_bwd.launches += 1
     flash_mha_bwd.routes[route(q.dtype, inst, copied, backward=True,
@@ -422,8 +466,8 @@ class _FlashMHA(torch.autograd.Function):
 
 
 def flash_mha(q, k, v, *, sm_scale: float):
-    """softmax(q k^T * sm_scale) v for q/k/v [B, H, S, dh] (dh up to 256
-    on the card, any on the CPU; fp32 or bf16, any S >= 1); returns
+    """softmax(q k^T * sm_scale) v for q/k/v [B, H, S, dh] (any dh >= 1;
+    fp32 or bf16, any S >= 1); returns
     [B, H, S, dh] in q's dtype, a view of a contiguous [B, S, H, dh']
     tensor (dh' the instance's head dim, ``launch_plan``). Inputs may be
     strided views (e.g. of the packed qkv projection); the kernel reads

@@ -9,18 +9,24 @@ the output is in the input dtype.
 (``csrc/query_block_attention.cu``) for CUDA tensors and runs
 ``query_block_attention_plain``, the same function in plain PyTorch, for
 CPU tensors. There is no fallback between the two. On the card it takes
-any head dim from 1 to 256 and any row strides (``launch_plan``): bf16
-rows that are 16-byte aligned at head dims 32, 64, 128 and 160 take the
-tensor-core design in place; other bf16 inputs up to head dim 160 are
-copied once into zero-padded rows of the next of those head dims
-(``copy_width``; zero columns add nothing to the scores, the scale stays
-1/sqrt(dh), the output's padding is sliced off); fp32, and bf16 past 160,
-take the CUDA-core design (its lanes' dims past dh masked where dh is not
-32, 64, 128 or 256).
+any head dim and any row strides (``launch_plan``): bf16 rows that are
+16-byte aligned at head dims 32, 64, 128 and 160 take the tensor-core
+design in place; other bf16 inputs up to head dim 160 are copied once into
+zero-padded rows of the next of those head dims (``copy_width``; zero
+columns add nothing to the scores, the scale stays 1/sqrt(dh), the
+output's padding is sliced off); fp32 up to 256, and bf16 past 160 up to
+256, take the CUDA-core design (its lanes' dims past dh masked where dh is
+not 32, 64, 128 or 256). Past 256 both dtypes take the column-slice design
+(``csrc/query_block_attention_cols.cu``: bf16 on wgmma, fp32 on the CUDA
+cores, 256 output columns a block), bf16 in place where the rows are
+16-byte aligned and dh is a multiple of 8, else through one copy
+zero-padded to the next multiple of 64. Each launch counts one on
+``launches`` and on its route (``routes[route(...)]``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -30,14 +36,20 @@ from tim_tpu_torch import _build
 from tim_tpu_torch.ops.flash_mha import aligned
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 256
 # head dims of the bf16 tensor-core instances
 TENSOR_CORE_HEAD_DIMS = (32, 64, 128, 160)
-TENSOR_CORES, CUDA_CORES = "tensor_cores", "cuda_cores"
+# the widest head dim of the CUDA-core design; past it, column slices
+CUDA_CORE_MAX = 256
+TENSOR_CORES, CUDA_CORES, COLS = "tensor_cores", "cuda_cores", "cols"
 # tim_query_block_attention(qq, kc, kq, vc, vq, out, strides, b, h, nq, f,
 # dh, bf16, cuda_cores, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+# tim_query_block_attention_cols(qq, kc, kq, vc, vq, out, strides, b, h,
+# nq, f, dh, bf16, scale, stream)
+_COLS_ARGTYPES = ([ctypes.c_void_p] * 6
+                  + [ctypes.POINTER(ctypes.c_longlong)]
+                  + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def query_block_attention_plain(qq, kc, kq, vc, vq):
@@ -75,20 +87,21 @@ def _check(qq, kc, kq, vc, vq):
     if qq.dtype not in _DTYPES:
         raise ValueError(f"query_block_attention: dtype {qq.dtype} not in "
                          f"{_DTYPES}")
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"query_block_attention: head dim {dh} not in "
-                         f"[1, {MAX_HEAD_DIM}]")
+    if dh < 1:
+        raise ValueError(f"query_block_attention: head dim {dh} < 1")
     if f < 1 or b * h > 65535:
         raise ValueError(f"query_block_attention: needs F >= 1 and "
                          f"B*H <= 65535, got F={f}, B*H={b * h}")
 
 
 def launch_plan(dh: int, dtype, *tensors) -> str:
-    """The kernel design that runs these inputs: ``TENSOR_CORES`` for bf16
-    at a tensor-core head dim with every row 16-byte aligned, else
-    ``CUDA_CORES`` (fp32 always; bf16 at any other head dim, or with rows
-    that the tensor-core design's 16-byte cp.async copies cannot read,
-    ``flash_mha.aligned``)."""
+    """The kernel design that runs these inputs: ``COLS`` past head dim
+    256 (either dtype); else ``TENSOR_CORES`` for bf16 at a tensor-core
+    head dim with every row 16-byte aligned, else ``CUDA_CORES`` (fp32
+    always; bf16 at any other head dim, or with rows that the tensor-core
+    design's 16-byte cp.async copies cannot read, ``flash_mha.aligned``)."""
+    if dh > CUDA_CORE_MAX:
+        return COLS
     if (dtype == torch.bfloat16 and dh in TENSOR_CORE_HEAD_DIMS
             and all(aligned(t) for t in tensors)):
         return TENSOR_CORES
@@ -96,15 +109,36 @@ def launch_plan(dh: int, dtype, *tensors) -> str:
 
 
 def copy_width(dh: int, dtype, *tensors):
-    """The head dim of the zero-padded copy that takes bf16 inputs the
-    tensor-core design cannot read in place onto it (the least tensor-core
-    head dim >= dh), or None: no copy (fp32, in-place tensor cores, or dh
-    past 160, which the CUDA-core design takes)."""
-    if (dtype != torch.bfloat16
-            or launch_plan(dh, dtype, *tensors) == TENSOR_CORES
-            or dh > TENSOR_CORE_HEAD_DIMS[-1]):
+    """The head dim of the zero-padded copy that takes bf16 inputs a
+    design cannot read in place onto it, or None: no copy. Up to 160 the
+    least tensor-core head dim >= dh; past 256 (TMA's boxes need 16-byte
+    rows) the next multiple of 64 where dh is no multiple of 8 or a row
+    is not 16-byte aligned. fp32, in-place tensor cores and bf16 from 161
+    to 256 (the CUDA-core design) take no copy."""
+    if dtype != torch.bfloat16:
+        return None
+    plan = launch_plan(dh, dtype, *tensors)
+    if plan == COLS:
+        if dh % 8 == 0 and all(aligned(t) for t in tensors):
+            return None
+        return -(-dh // 64) * 64
+    if plan == TENSOR_CORES or dh > TENSOR_CORE_HEAD_DIMS[-1]:
         return None
     return min(w for w in TENSOR_CORE_HEAD_DIMS if w >= dh)
+
+
+def route(dh: int, dtype, plan: str, copied: bool = False) -> str:
+    """The name of the route that a launch at head dim ``dh`` (the
+    launched width) on ``plan`` takes, the key of its count in
+    ``query_block_attention.routes``: "tensor cores 128", "cuda cores
+    256", past 256 "wgmma slices 512" (bf16) or "fp32 cuda cores slices
+    512"; " via copy" when the zero-padded copy was taken."""
+    if plan == COLS:
+        name = ("wgmma" if dtype == torch.bfloat16 else "fp32 cuda cores") \
+            + f" slices {dh}"
+    else:
+        name = f"{plan.replace('_', ' ')} {dh}"
+    return name + (" via copy" if copied else "")
 
 
 def query_block_attention(qq, kc, kq, vc, vq):
@@ -128,29 +162,40 @@ def query_block_attention(qq, kc, kq, vc, vq):
     width = copy_width(dh, qq.dtype, *tensors)
     if width is not None:
         out = _launch([torch.nn.functional.pad(t, (0, width - dh))
-                       for t in tensors], 1.0 / math.sqrt(dh))
+                       for t in tensors], 1.0 / math.sqrt(dh), True)
         return out[..., :dh]
-    return _launch(tensors, 1.0 / math.sqrt(dh))
+    return _launch(tensors, 1.0 / math.sqrt(dh), False)
 
 
-def _launch(tensors, scale: float):
+def _launch(tensors, scale: float, copied: bool):
     """One launch on ``tensors`` (qq, kc, kq, vc, vq) at their head dim,
-    scores scaled by ``scale``; returns the contiguous output."""
+    scores scaled by ``scale`` (``copied``: they are the zero-padded copy,
+    for the route's count); returns the contiguous output."""
     qq, kc = tensors[0], tensors[1]
     b, h, nq, dh = qq.shape
     out = torch.empty((b, h, nq, dh), dtype=qq.dtype, device=qq.device)
     strides = (ctypes.c_longlong * 15)(
         *[s for t in tensors for s in t.stride()[:3]])
-    fn = _build.launcher("tim_query_block_attention", _ARGTYPES)
     plan = launch_plan(dh, qq.dtype, *tensors)
-    status = fn(*[t.data_ptr() for t in tensors], out.data_ptr(), strides,
-                b, h, nq, kc.shape[2], dh, int(qq.dtype == torch.bfloat16),
-                int(plan == CUDA_CORES), scale,
-                torch.cuda.current_stream(qq.device).cuda_stream)
+    bf16 = int(qq.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(qq.device).cuda_stream
+    ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+    if plan == COLS:
+        fn = _build.launcher("tim_query_block_attention_cols",
+                             _COLS_ARGTYPES)
+        status = fn(*ptrs, strides, b, h, nq, kc.shape[2], dh, bf16, scale,
+                    stream)
+    else:
+        fn = _build.launcher("tim_query_block_attention", _ARGTYPES)
+        status = fn(*ptrs, strides, b, h, nq, kc.shape[2], dh, bf16,
+                    int(plan == CUDA_CORES), scale, stream)
     _build.check(status, "query_block_attention")
     query_block_attention.launches += 1
+    query_block_attention.routes[route(dh, qq.dtype, plan, copied)] += 1
     return out
 
 
-# Number of kernel launches; the plain CPU version does not count.
+# Numbers of kernel launches, and of each by route (``route``); the plain
+# CPU version does not count.
 query_block_attention.launches = 0
+query_block_attention.routes = collections.Counter()
