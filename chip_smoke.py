@@ -458,7 +458,7 @@ ULP_ENVELOPE = 4.0
 # and tensor-core operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCK_HZ = 1.98e9     # replaced by nvidia-smi's clocks.max.sm in main
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -1181,10 +1181,38 @@ def sliced(route: str) -> bool:
 
 # counts that are a part of another kernel's (kernel 5 / 5b's routes at
 # head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu;
-# kernels 1, 5 and 5b past 256, the *_cols.cu sources)
+# kernels 1, 5 and 5b past 256, the *_cols.cu sources; kernels 4 / 4b past
+# head dim 32, the window_attention_*.cu sources)
 ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide",
                 "query_block_attention_cols", "flash_mha_cols",
-                "flash_mha_bwd_cols")
+                "flash_mha_bwd_cols", "window_attention_wide",
+                "window_attention_256", "window_attention_f32",
+                "window_attention_cols", "window_attention_bwd_wide",
+                "window_attention_bwd_f32", "window_attention_bwd_cols",
+                "window_attention_dbias")
+
+
+def window_route_counts():
+    """Kernel 4 / 4b's route counts past head dim 32, by source."""
+    from tim_tpu_torch.ops import window_attention as wa
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def names(dtype, dims, backward=False):
+        return [wa.route(dtype, w, c, backward=backward) for w in dims
+                for c in (False, True)]
+    fwd, bwd = wa.window_attention, wa.window_attention_bwd
+    return {
+        "window_attention_wide": RouteCount(fwd, names(bf16, (64, 80, 96,
+                                                              112))),
+        "window_attention_256": RouteCount(fwd, names(bf16, (128, 256))),
+        "window_attention_f32": RouteCount(fwd, names(f32, (64, 128, 256))),
+        "window_attention_cols": RouteCount(fwd, match=sliced),
+        "window_attention_bwd_wide": RouteCount(
+            bwd, names(bf16, (64, 80, 96, 112, 128), True)),
+        "window_attention_bwd_f32": RouteCount(bwd, names(f32, (64,), True)),
+        "window_attention_bwd_cols": RouteCount(bwd, match=sliced),
+        "window_attention_dbias": RouteCount(
+            bwd, match=lambda r: " + dbias pass" in r)}
 
 
 def launch_counters():
@@ -1213,7 +1241,8 @@ def launch_counters():
                 qba.query_block_attention, match=sliced),
             "flash_mha_cols": RouteCount(fm.flash_mha, match=sliced),
             "flash_mha_bwd_cols": RouteCount(fm.flash_mha_bwd,
-                                             match=sliced)}
+                                             match=sliced),
+            **window_route_counts()}
 
 
 def attention_launches(launches):
@@ -2282,11 +2311,13 @@ def two_head_loss(model, video, verbs, nouns):
                                                            300)))
 
 
-def phase_grad_slice_fp32(kind):
+def phase_grad_slice_fp32(kind, **trunk_kw):
     """One clip through a full-width, reduced-depth ``TwoHeadViT`` in fp32
-    (ViT-L 2 blocks, Swin-B depths (2, 2, 2, 2)): every parameter gradient
-    on the card (kernels 4/5 both ways) against the CPU (plain versions)."""
+    (ViT-L 2 blocks, Swin-B depths (2, 2, 2, 2); ``trunk_kw``: other trunk
+    settings, such as Swin's heads): every parameter gradient on the card
+    (kernels 4/5 both ways) against the CPU (plain versions)."""
     kw = {"depth": 2} if kind == "vit" else {"depths": (2, 2, 2, 2)}
+    kw.update(trunk_kw)
     frames = 16 if kind == "vit" else 32
     cpu_model = train_model(kind, "float32", "cpu", **kw)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -2304,7 +2335,7 @@ def phase_grad_slice_fp32(kind):
     blocks = 2 if kind == "vit" else 8
     kernel = "flash_mha" if kind == "vit" else "window_attention"
     require(launches[kernel] == blocks and launches[f"{kernel}_bwd"] == blocks
-            and sum(launches.values()) == 2 * blocks,
+            and attention_launches(launches) == 2 * blocks,
             f"{kind} fp32 slice launches {launches}")
     t0 = time.perf_counter()
     cpu_loss = two_head_loss(cpu_model, clip, verbs, nouns)
@@ -3082,6 +3113,7 @@ def zero_counts():
     """Every count set to 0, kernels 1 and 5 / 5b's route counts whole."""
     from tim_tpu_torch.ops import flash_mha as fm
     from tim_tpu_torch.ops import query_block_attention as qba
+    from tim_tpu_torch.ops import window_attention as wa
     counters = launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -3089,6 +3121,8 @@ def zero_counts():
     fm.flash_mha.routes.clear()
     fm.flash_mha_bwd.routes.clear()
     qba.query_block_attention.routes.clear()
+    wa.window_attention.routes.clear()
+    wa.window_attention_bwd.routes.clear()
     return counters
 
 
@@ -8492,6 +8526,550 @@ def phase_heads(card: str):
     return report, paths
 
 
+# Phase 31e: Swin window attention at every head dim (kernels 4 and 4b
+# past head dim 32) through Swin-B-shaped trunks with other heads, which
+# the JAX package runs: A omnivore_swinB_epic(num_heads=(2, 4, 8, 16))
+# (head dim 64 at every stage), B num_heads (1, 1, 1, 1) (128, 256, 512,
+# 1024) and C embed_dim 120, num_heads (3, 6, 12, 24) (40, through the
+# zero-padded copy to 64)
+SWIN_TRUNKS = {"a": {"num_heads": (2, 4, 8, 16)},
+               "b": {"num_heads": (1, 1, 1, 1)},
+               "c": {"embed_dim": 120, "num_heads": (3, 6, 12, 24)}}
+# kernels 4 / 4b also at [64, 2, 784, dh] (64 windows a clip: Swin-B's
+# stage-1 geometry): 16 (the copy to 32), 48 (to 64), 200 (to 256) and
+# 264 (the column slices, in place)
+SWIN_EXTRA_DIMS = (16, 48, 200, 264)
+# fp32 checks run on this many windows (two window types when shifted)
+SWIN_F32_WINDOWS = 2
+
+
+def swin_head_cases():
+    """(tag, windows a clip, heads, head dim, token grid) of each shape of
+    phase 31e: the trunks' four stages, then the extra head dims."""
+    cases = []
+    for name, kw in SWIN_TRUNKS.items():
+        embed = kw.get("embed_dim", 128)
+        for i, ((n_win, _, dims), h) in enumerate(zip(SWIN_STAGES,
+                                                      kw["num_heads"])):
+            cases.append((f"{name}{i + 1}", n_win, h, embed * 2 ** i // h,
+                          dims))
+    for dh in SWIN_EXTRA_DIMS:
+        cases.append((f"dh{dh}", 64, 2, dh, SWIN_STAGES[0][2]))
+    return cases
+
+
+def swin_window_case(batch, n_win, heads, dh, dims, shifted, dtype, gen,
+                     windows=None):
+    """q/k/v (strided views of a packed projection), bias and region ids
+    of ``batch`` clips of a stage (or of its first ``windows`` windows),
+    the forward's output and lse, and an output gradient."""
+    from tim_tpu_torch.ops import window_attention as wa
+    q, k, v = swin_qkv(batch, n_win, heads, dtype, gen, dh=dh)
+    bias, region = swin_bias(heads, dims, shifted, gen)
+    if windows is not None:
+        q, k, v = (t[:windows] for t in (q, k, v))
+        region = None if region is None else region[:windows].contiguous()
+    kw = {"sm_scale": dh ** -0.5}
+    out, lse = wa.window_attention_with_lse(q, k, v, bias, region, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    return (q, k, v, bias, region), kw, out, lse, do
+
+
+def swin_route_check(tag, args, kw, out, lse, do):
+    """One forward and one backward launch each on the plan's route (the
+    route counts); in bf16 the backward twice and under
+    torch.use_deterministic_algorithms, the same bits. Returns the
+    routes."""
+    from tim_tpu_torch.ops import window_attention as wa
+    q = args[0]
+    w, copied = wa.launch_plan(q.shape[-1], q.dtype, *args[:3])
+    want_f = {wa.route(q.dtype, w, copied): 1}
+    want_b = {wa.route(q.dtype, w, copied, backward=True): 1}
+    got_f = routes_by_name(wa.window_attention,
+                           lambda: wa.window_attention(*args, **kw))
+    first = []
+    got_b = routes_by_name(wa.window_attention_bwd, lambda: first.extend(
+        g.clone() for g in wa.window_attention_bwd(*args, out, lse, do,
+                                                   **kw)))
+    require(got_f == want_f and got_b == want_b, f"heads-swin {tag}: "
+            f"routes {got_f}, {got_b}; expected {want_f}, {want_b}")
+    if q.dtype == torch.bfloat16 and w != 32:
+        again = wa.window_attention_bwd(*args, out, lse, do, **kw)
+        torch.use_deterministic_algorithms(True)
+        try:
+            det = wa.window_attention_bwd(*args, out, lse, do, **kw)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        same = [torch.equal(a, b) and torch.equal(a, c)
+                for a, b, c in zip(first, again, det)]
+        require(all(same), f"heads-swin {tag}: the backward is not "
+                f"bit-stable (dq, dk, dv, dbias: {same})")
+    return {"forward": got_f, "backward": got_b}
+
+
+def swin_head_kernels(gen):
+    """Phase 31e's kernel rows: at every shape of ``swin_head_cases``,
+    kernels 4 and 4b in fp32 (SWIN_F32_WINDOWS windows) and bf16 (one
+    clip), shifted and unshifted, against their plain versions under the
+    attention gates, each call on the plan's route, the bf16 gates shown
+    to reject their faulty controls on trunk A's stage 1; then every bf16
+    shape timed at batch 8 (shifted where the stage has windows of several
+    types) beside the plain versions and SDPA with a float mask ab[type]
+    (its backward with the mask requiring grad), its launches and bound.
+    Returns the forward's and the backward's rows."""
+    from tim_tpu_torch.ops import window_attention as wa
+    rows_f, rows_b, rows_d = [], [], []
+    worst = {"window_attention": 0.0, "window_attention_bwd": 0.0}
+    t0 = time.perf_counter()
+    for tag, n_win, h, dh, dims in swin_head_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            for shifted in ((False, True) if n_win > 1 else (False,)):
+                args, kw, out, lse, do = swin_window_case(
+                    1, n_win, h, dh, dims, shifted, dtype, gen,
+                    windows=None if bf16 else SWIN_F32_WINDOWS)
+                ctag = (f"{tag} {dtype} [{args[0].shape[0]}, {h}, 784, "
+                        f"{dh}] shifted={shifted}")
+                controls = bf16 and tag == "a1" and shifted
+                _, err = check_attention(
+                    "window_attention", wa.window_attention,
+                    wa.window_attention_plain, swin_scores, args, kw,
+                    f"heads {ctag}", controls=controls)
+                got = wa.window_attention_bwd(*args, out, lse, do, **kw)
+                torch.cuda.synchronize()
+                want = wa.window_attention_bwd_plain(*args, do, **kw)
+                gerr = check_grads("window_attention_bwd", got, want, bf16,
+                                   f"heads {ctag}")
+                if controls:
+                    s = wa.window_scores(args[0], args[1], args[3], args[4],
+                                         **kw)
+                    bad = emulated_attention_bwd(s, *args[:3], do,
+                                                 drop_delta=True, **kw)
+                    ds = emulated_attention_bwd(s, *args[:3], do, **kw)[3]
+                    groups = wa.dbias_groups(
+                        *args[0].shape[:3],
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+                    per = -(-args[0].shape[0] // groups)
+                    log(f"[heads-swin] {ctag}: dbias summed over {groups} "
+                        f"window groups")
+                    check_controls("window_attention_bwd", ctag, want, [
+                        ("D omitted", 0, bad[0]),
+                        ("dbias from one window only", 3, ds[0]),
+                        ("dbias without one window group", 3,
+                         ds[per:].sum(0))])
+                    del s, bad, ds
+                routes = swin_route_check(ctag, args, kw, out, lse, do)
+                worst["window_attention"] = max(worst["window_attention"],
+                                                err)
+                worst["window_attention_bwd"] = max(
+                    worst["window_attention_bwd"], gerr)
+                if not bf16:
+                    rows_f.append({"case": tag, "shape": list(args[0].shape),
+                                   "dtype": str(dtype), "shifted": shifted,
+                                   "max_abs_err": err,
+                                   "routes": routes["forward"]})
+                    rows_b.append({"case": tag, "shape": list(args[0].shape),
+                                   "dtype": str(dtype), "shifted": shifted,
+                                   "max_abs_err": gerr,
+                                   "routes": routes["backward"]})
+                del args, out, lse, do, got, want
+        torch.cuda.empty_cache()
+    log(f"[heads-swin] every shape agrees with the plain versions, fp32 and "
+        f"bf16, shifted and unshifted ({time.perf_counter() - t0:.2f} s)")
+
+    for tag, n_win, h, dh, dims in swin_head_cases():
+        shifted = n_win > 1
+        args, kw, out, lse, do = swin_window_case(
+            8, n_win, h, dh, dims, shifted, torch.bfloat16, gen)
+        q, k, v, bias, region = args
+        bw, _, n, _ = q.shape
+        w, copied = wa.launch_plan(dh, q.dtype, q, k, v)
+        got = wa.window_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ok, err, rel = attention_close(got, wa.window_attention_plain(*args,
+                                                                      **kw))
+        require(ok, f"heads-swin {tag} bf16 batch 8: max abs {err}, "
+                f"relative RMS {rel}")
+        lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
+        lib_kw = {"attn_mask": mask, "scale": dh ** -0.5}
+        row = {"case": tag, "shape": [bw, h, n, dh], "shifted": shifted,
+               "instance": w, "copied": copied, "max_abs_err": err,
+               **time_forward(
+                   wa.window_attention, wa.window_attention_with_lse,
+                   wa.window_attention_plain,
+                   lambda: F.scaled_dot_product_attention(*lib_qkv,
+                                                          **lib_kw),
+                   sdpa_with_grad(*lib_qkv, **lib_kw), args, kw,
+                   nbytes(q, k, v, bias, region, got), bw * h * n * n, dh)}
+        row["route"] = next(iter(routes_by_name(
+            wa.window_attention, lambda: wa.window_attention(*args, **kw))))
+        row["launches"] = launches_of(wa.window_attention,
+                                      lambda: wa.window_attention(*args,
+                                                                  **kw))
+        row["library"] = sdpa_backend(*lib_qkv, **lib_kw)
+        log_forward("window_attention", f"heads {tag} [{bw}, {h}, {n}, "
+                    f"{dh}] shifted={shifted} ({row['route']})", row,
+                    "masked scaled_dot_product_attention",
+                    max_err(F.scaled_dot_product_attention(
+                        *lib_qkv, **lib_kw).reshape(got.shape), got))
+        rows_f.append(row)
+        del got
+        grads = wa.window_attention_bwd(*args, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        gerr = check_grads("window_attention_bwd", grads,
+                           wa.window_attention_bwd_plain(*args, do, **kw),
+                           True, f"heads {tag} bf16 batch 8")
+        ms_bound, by = attention_bwd_bound(
+            q, nbytes(q, k, v, out, do, *grads[:3], lse, bias, region,
+                      grads[3]))
+        del grads
+        torch.cuda.empty_cache()
+        brow = {"case": tag, "shape": [bw, h, n, dh], "shifted": shifted,
+                "instance": w, "copied": copied, "max_abs_err": gerr,
+                "bound_ms": ms_bound, "bound_by": by}
+        brow["route"] = next(iter(routes_by_name(
+            wa.window_attention_bwd, lambda: wa.window_attention_bwd(
+                *args, out, lse, do, **kw))))
+        brow["launches"] = launches_of(wa.window_attention_bwd, lambda:
+                                       wa.window_attention_bwd(
+                                           *args, out, lse, do, **kw))
+        brow["ms"] = cuda_ms(lambda: wa.window_attention_bwd(
+            *args, out, lse, do, **kw), iters=5)
+        brow["plain_ms"] = cuda_ms(lambda: wa.window_attention_bwd_plain(
+            *args, do, **kw), iters=2, warmup=1)
+        brow["share_of_bound"] = ms_bound / brow["ms"]
+        torch.cuda.empty_cache()
+        lib_do = do.reshape(lib_qkv[0].shape)
+        try:
+            brow["library_ms"] = sdpa_bwd_ms(*lib_qkv, lib_do, mask)
+            brow["library"] = ("scaled_dot_product_attention backward with "
+                               "a float mask ab[type] that requires grad")
+        except RuntimeError as e:   # no backend gives the mask's gradient
+            log(f"[heads-swin] SDPA cannot give dbias at {tag}: {e}")
+            brow["library_ms"] = sdpa_bwd_ms(*lib_qkv, lib_do,
+                                             mask.detach())
+            brow["library"] = ("scaled_dot_product_attention backward, mask "
+                               "without grad")
+        log(f"[heads-swin] window_attention_bwd {tag} [{bw}, {h}, {n}, {dh}]"
+            f" bf16 shifted={shifted} ({brow['route']}): kernel "
+            f"{brow['ms']:.4f} ms ({brow['launches']} launch a call), plain "
+            f"{brow['plain_ms']:.4f} ms, {brow['library']} "
+            f"{brow['library_ms']:.4f} ms (kernel / SDPA "
+            f"{brow['ms'] / brow['library_ms']:.3f}), bound "
+            f"{ms_bound:.4f} ms ({by}; {100 * brow['share_of_bound']:.1f}%)")
+        rows_b.append(brow)
+        if tag == "a1":
+            rows_d.append(swin_dbias_row(tag, args, kw, out, lse, do,
+                                         brow["library_ms"]))
+        del args, q, k, v, bias, region, out, lse, do, lib_qkv, mask, lib_do
+        torch.cuda.empty_cache()
+    f32_f, f32_b = swin_f32_rows(gen)
+    return {"window_attention": rows_f, "window_attention_bwd": rows_b,
+            "window_attention_dbias": rows_d, "f32": f32_f, "f32_bwd": f32_b,
+            "worst": worst}
+
+
+def swin_dbias_row(tag, args, kw, out, lse, do, library_ms):
+    """The bf16 dbias pass alone (``window_attention_dbias``) at a timed
+    shape: held to the plain backward's dbias, its bits equal call to
+    call, timed beside the plain backward and its bound (two products of
+    2 N^2 dh a (window, head))."""
+    from tim_tpu_torch.ops import window_attention as wa
+    q, k, v, bias, region = args
+    delta = (do.float() * out.float()).sum(-1)
+    got = wa.window_attention_dbias(*args, lse, delta, do, **kw)
+    again = wa.window_attention_dbias(*args, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    want = wa.window_attention_bwd_plain(*args, do, **kw)[3]
+    ok, err, rel = grad_close(got, want, True)
+    require(ok and torch.equal(got, again), f"heads-swin {tag} dbias pass: "
+            f"max abs {err}, relative RMS {rel}, repeat bit-equal "
+            f"{torch.equal(got, again)}")
+    bw, h, n, dh = q.shape
+    row = {"case": tag, "shape": [bw, h, n, dh], "max_abs_err": err,
+           "ms": cuda_ms(lambda: wa.window_attention_dbias(
+               *args, lse, delta, do, **kw), iters=5),
+           "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(
+               *args, do, **kw), iters=2, warmup=1),
+           "library_ms": library_ms}
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(q, k, v, do, lse, delta, bias, region, got),
+        4 * bw * h * n * n * dh, "bf16")
+    log(f"[heads-swin] window_attention_dbias {tag} [{bw}, {h}, {n}, {dh}] "
+        f"bf16: the dbias pass alone {row['ms']:.4f} ms (groups "
+        f"{wa.dbias_groups(bw, h, n, torch.cuda.get_device_properties(0).multi_processor_count)}),"
+        f" plain backward {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs "
+        f"{err:.3e}, relative RMS {rel:.3e}")
+    return row
+
+
+def swin_f32_rows(gen):
+    """Kernels 4 and 4b in fp32 (the CUDA-core routes) timed at trunk A's
+    stage 1 on one clip ([64, 2, 784, 64], shifted) beside the plain
+    versions and fp32 SDPA with the float mask, against the fp32 peak of
+    the CUDA cores."""
+    from tim_tpu_torch.ops import window_attention as wa
+    tag, n_win, h, dh, dims = swin_head_cases()[0]
+    args, kw, out, lse, do = swin_window_case(1, n_win, h, dh, dims, True,
+                                              torch.float32, gen)
+    q, k, v, bias, region = args
+    bw, _, n, _ = q.shape
+    got = wa.window_attention(*args, **kw)
+    ok, err, _ = attention_close(got, wa.window_attention_plain(*args, **kw))
+    require(ok, f"heads-swin {tag} fp32 one clip: max abs {err}")
+    lib_qkv, mask = window_library_args(q, k, v, bias, region, n_win)
+    lib_kw = {"attn_mask": mask, "scale": dh ** -0.5}
+    row = {"case": tag, "shape": [bw, h, n, dh], "max_abs_err": err,
+           "ms": cuda_ms(lambda: wa.window_attention(*args, **kw), iters=3),
+           "plain_ms": cuda_ms(lambda: wa.window_attention_plain(*args, **kw),
+                               iters=3),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               *lib_qkv, **lib_kw), iters=3)}
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(q, k, v, bias, region, got), 4 * bw * h * n * n * dh, "fp32")
+    grads = wa.window_attention_bwd(*args, out, lse, do, **kw)
+    gerr = check_grads("window_attention_bwd", grads,
+                       wa.window_attention_bwd_plain(*args, do, **kw), False,
+                       f"heads {tag} fp32 one clip")
+    brow = {"case": tag, "shape": [bw, h, n, dh], "max_abs_err": gerr,
+            "ms": cuda_ms(lambda: wa.window_attention_bwd(
+                *args, out, lse, do, **kw), iters=2, warmup=1),
+            "plain_ms": cuda_ms(lambda: wa.window_attention_bwd_plain(
+                *args, do, **kw), iters=2, warmup=1),
+            "library_ms": sdpa_bwd_ms(*lib_qkv, do.reshape(lib_qkv[0].shape),
+                                      mask)}
+    brow["bound_ms"], brow["bound_by"] = bound(
+        nbytes(q, k, v, out, do, *grads[:3], lse, bias, region, grads[3]),
+        10 * bw * h * n * n * dh, "fp32")
+    log(f"[heads-swin] fp32 {tag} [{bw}, {h}, {n}, {dh}]: window_attention "
+        f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
+        f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"{row['bound_by']}); window_attention_bwd {brow['ms']:.4f} ms "
+        f"(plain {brow['plain_ms']:.4f}, SDPA backward "
+        f"{brow['library_ms']:.4f}, bound {brow['bound_ms']:.4f} "
+        f"{brow['bound_by']})")
+    return row, brow
+
+
+def swin_trunk(name, dtype, device, **kw):
+    """Trunk ``name`` of SWIN_TRUNKS (``omnivore_swinB_epic`` with its
+    heads; ``kw``: depths), generator seeded SEED, in eval mode."""
+    from tim_tpu_torch.models.backbones import swin3d
+    return swin3d.omnivore_swinB_epic(
+        dtype, device=device, generator=torch.Generator().manual_seed(SEED),
+        **SWIN_TRUNKS[name], **kw).eval()
+
+
+def swin_trunk_routes(tag, fn, call, want):
+    """``call()`` with kernel 4's (or 4b's) route counts set to 0 just
+    before and read just after: every launch on the routes ``want``."""
+    got = routes_by_name(fn, call)
+    log(f"[{tag}] routes {got}")
+    require(set(got) == set(want), f"{tag}: routes {got}, expected only "
+            f"{sorted(want)}")
+    return got
+
+
+def swin_trunk_forward(tag, name, clips, want_routes, **kw):
+    """The bf16 forward of 8 clips through trunk ``name``, timed after a
+    warm-up, every count set to 0 just before it: (launches, device ms,
+    features)."""
+    from tim_tpu_torch.ops import window_attention as wa
+    model = swin_trunk(name, "bfloat16", "cuda", **kw)
+    x = torch.from_numpy(clips).cuda()
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        counters = zero_counts()
+        wa.window_attention.routes.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        feats = model(x)
+        end.record()
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    ms = start.elapsed_time(end)
+    routes = dict(wa.window_attention.routes)
+    blocks = sum(model.depths)
+    log(f"[{tag}] {x.shape[0]} clips, depths {model.depths}: {ms:.3f} "
+        f"device ms, launches {launches}, routes {routes}")
+    require(feats.shape == (x.shape[0], model.num_features)
+            and bool(torch.isfinite(feats.float()).all()),
+            f"{tag}: features {tuple(feats.shape)} or non-finite")
+    require(launches["window_attention"] == blocks
+            and attention_launches(launches) == blocks
+            and set(routes) == set(want_routes)
+            and sum(routes.values()) == blocks,
+            f"{tag}: launches {launches}, routes {routes}, expected {blocks} "
+            f"on {sorted(want_routes)}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, ms, feats
+
+
+def swin_trunk_step(tag, name, depths, want_routes, batch=TRAIN_BATCH):
+    """One bf16 ``TwoHeadViT`` step over trunk ``name`` at ``depths`` on
+    ``batch`` clips through ``SwinSteps``: a finite loss, the launches of
+    kernel 4b by route as ``want_routes`` gives them. Returns the
+    launches."""
+    from tim_tpu_torch.ops import window_attention as wa
+    model = train_model("swin", "bfloat16", "cuda", depths=depths,
+                        **SWIN_TRUNKS[name])
+    run = SwinSteps(model, batch)
+    counters = zero_counts()
+    wa.window_attention_bwd.routes.clear()
+    events, losses = [], []
+    run(1, events, losses)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    routes = dict(wa.window_attention_bwd.routes)
+    blocks = sum(depths)
+    log(f"[{tag}] one step of {batch} clips, depths {depths}: device "
+        f"{events[0][0].elapsed_time(events[0][1]):.3f} ms, loss "
+        f"{float(losses[0]):.5f}, launches {launches}, backward routes "
+        f"{routes}")
+    require(np.isfinite(float(losses[0])), f"{tag}: non-finite loss")
+    require(launches["window_attention_bwd"] == blocks
+            and routes == want_routes,
+            f"{tag}: backward launches {launches}, routes {routes}, "
+            f"expected {want_routes}")
+    del run, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def swin_deterministic_step(tag):
+    """Two gradients of one bf16 ``TwoHeadViT`` loss over trunk A (depths
+    (2, 2, 2, 2), 2 clips) under torch.use_deterministic_algorithms: kernel
+    4b's route past head dim 32 is atomic-free, and every parameter's
+    gradient comes out with the same bits both times."""
+    model = train_model("swin", "bfloat16", "cuda", depths=(2, 2, 2, 2),
+                        **SWIN_TRUNKS["a"])
+    rng = np.random.default_rng(SEED + 35)
+    video = torch.from_numpy(rng.normal(size=(2, *BACKBONES["omnivore"][1]))
+                             .astype(np.float32)).cuda()
+    labels = torch.tensor([3, 5], device="cuda")
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            two_head_loss(model, video, labels, labels).backward()
+            torch.cuda.synchronize()
+            grads.append({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+    log(f"[{tag}] two deterministic gradients of {len(grads[0])} "
+        f"parameters: {len(differ)} differ {differ[:5]}")
+    require(not differ, f"{tag}: gradients differ between two "
+            f"deterministic runs: {differ[:10]}")
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+def swin_head_trunks(card):
+    """Phase 31e's trunks: A at full depth (the fp32 forward of one clip
+    card vs CPU, the bf16 forward of 8 clips, 2 + 5 finetune steps at batch
+    8, a deterministic step bit-equal twice), B (the bf16 forward of 8
+    clips at full depth, one step at depths (2, 2, 2, 2)) and C (both at
+    depths (2, 2, 2, 2)). Returns launches by path."""
+    from tim_tpu_torch.ops import window_attention as wa
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(SEED + 34)
+    clips = rng.normal(size=(TRAIN_BATCH, *BACKBONES["omnivore"][1])).astype(
+        np.float32)
+    paths = {}
+    # A: fp32 one clip, card vs CPU
+    cpu_model = swin_trunk("a", "float32", "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    x = torch.from_numpy(clips[:1])
+    counters = zero_counts()
+    wa.window_attention.routes.clear()
+    with torch.inference_mode():
+        gpu = gpu_model(x.cuda())
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    require(launches["window_attention"] == 24
+            and dict(wa.window_attention.routes) == {
+                wa.route(f32, 64, False): 24},
+            f"heads-swin-a-fp32: launches {launches}, routes "
+            f"{dict(wa.window_attention.routes)}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = cpu_model(x)
+    err = max_err(gpu.cpu(), cpu)
+    log(f"[heads-swin-a-fp32] trunk A ({SWIN_TRUNKS['a']}), full depth, 1 "
+        f"clip: CPU plain forward {time.perf_counter() - t0:.2f} s; card vs "
+        f"CPU max_abs_err={err:.3e} (tol {SLICE_TOL}); launches {launches}")
+    require(err <= SLICE_TOL and bool(torch.isfinite(gpu).all()),
+            f"heads-swin-a-fp32: card vs CPU {err} > {SLICE_TOL}")
+    paths["heads-swin-a-fp32"] = launches
+    del cpu_model, gpu_model, gpu, cpu
+    torch.cuda.empty_cache()
+    # A: an fp32 gradient slice (depths (2, 2, 2, 2)), card vs CPU
+    counters = zero_counts()
+    grad_err = phase_grad_slice_fp32("swin", **SWIN_TRUNKS["a"])
+    paths["heads-swin-a-grad-fp32"] = read_counts(counters)
+    require(paths["heads-swin-a-grad-fp32"]["window_attention_bwd_f32"] == 8,
+            f"heads-swin-a-grad-fp32: launches "
+            f"{paths['heads-swin-a-grad-fp32']}")
+    # A: bf16 forward of 8 clips, every launch on the 64 route
+    paths["heads-swin-a-bf16"], ms_a, _ = swin_trunk_forward(
+        "heads-swin-a-bf16", "a", clips, [wa.route(bf16, 64, False)])
+    # A: 2 + 5 finetune steps at batch 8
+    model = train_model("swin", "bfloat16", "cuda", **SWIN_TRUNKS["a"])
+    wa.window_attention_bwd.routes.clear()
+    launches, metrics = train_run("heads-swin-a-train", model,
+                                  SwinSteps(model, TRAIN_BATCH),
+                                  "window_attention", 24, TRAIN_BATCH)
+    want = wa.route(bf16, 64, False, backward=True)
+    routes = dict(wa.window_attention_bwd.routes)
+    require(set(routes) == {want}, f"heads-swin-a-train: backward routes "
+            f"{routes}, expected only {want}")
+    log(f"[heads-swin-a-train] summary {json.dumps(metrics)}")
+    paths["heads-swin-a-train"] = launches
+    del model
+    torch.cuda.empty_cache()
+    swin_deterministic_step("heads-swin-a-deterministic")
+    # B: the bf16 forward at full depth; one step at depths (2, 2, 2, 2)
+    paths["heads-swin-b-bf16"], ms_b, _ = swin_trunk_forward(
+        "heads-swin-b-bf16", "b", clips,
+        [wa.route(bf16, w, False) for w in (128, 256, 512, 1024)])
+    paths["heads-swin-b-train"] = swin_trunk_step(
+        "heads-swin-b-train", "b", (2, 2, 2, 2),
+        {wa.route(bf16, w, False, backward=True): 2
+         for w in (128, 256, 512, 1024)})
+    # C: head dim 40 through the copy to 64
+    paths["heads-swin-c-bf16"], ms_c, _ = swin_trunk_forward(
+        "heads-swin-c-bf16", "c", clips, [wa.route(bf16, 64, True)],
+        depths=(2, 2, 2, 2))
+    paths["heads-swin-c-train"] = swin_trunk_step(
+        "heads-swin-c-train", "c", (2, 2, 2, 2),
+        {wa.route(bf16, 64, True, backward=True): 8})
+    summary = {"a_bf16_ms_8_clips": ms_a, "b_bf16_ms_8_clips": ms_b,
+               "c_bf16_ms_8_clips_depths_2222": ms_c,
+               "a_fp32_card_vs_cpu": err, "a_fp32_grad_slice": grad_err,
+               "a_train": metrics}
+    log(f"[heads-swin] summary {json.dumps(summary)}")
+    return paths
+
+
+def phase_swin_heads(card: str):
+    """Phase 31e: Swin window attention at every head dim. Returns (the
+    kernels' rows, launches by path)."""
+    log(f"[heads-swin] {card}")
+    report = timed("heads-swin-kernels", swin_head_kernels,
+                   torch.Generator(device="cuda").manual_seed(SEED + 34))
+    paths = timed("heads-swin-trunks", swin_head_trunks, card)
+    return report, paths
+
+
 def phase_widths(card: str):
     """Phase 31: the widths the command lines take beyond the presets.
     31a, each widened kernel against its plain version at the new shapes;
@@ -8606,6 +9184,39 @@ def main() -> int:
     heads_report, heads_paths = timed("heads", phase_heads, card)
     for name, rows in heads_report.items():
         kernel_report[name]["heads"] = rows
+    swin_report, swin_paths = timed("heads-swin", phase_swin_heads, card)
+    kernel_report["window_attention"]["max_abs_err_past_32"] = \
+        swin_report["worst"]["window_attention"]
+    kernel_report["window_attention_bwd"]["max_abs_err_past_32"] = \
+        swin_report["worst"]["window_attention_bwd"]
+    # kernels 4 / 4b past head dim 32, by source: the first timed shape of
+    # each (trunk A's stage 1 for the 64 routes and the dbias pass, B's
+    # for the others), every timed shape beside the wgmma forward's
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for name, rows, pick in (
+            ("window_attention_wide", "window_attention",
+             lambda r: r["route"] == "wgmma 64"),
+            ("window_attention_256", "window_attention",
+             lambda r: r["route"] == "wgmma 128"),
+            ("window_attention_cols", "window_attention",
+             lambda r: " slices " in r["route"]),
+            ("window_attention_bwd_wide", "window_attention_bwd",
+             lambda r: r["route"].startswith("wgmma two passes 64")),
+            ("window_attention_bwd_cols", "window_attention_bwd",
+             lambda r: " slices " in r["route"]),
+            ("window_attention_dbias", "window_attention_dbias",
+             lambda r: True)):
+        timed_rows = [r for r in swin_report[rows] if "ms" in r]
+        first = next(r for r in timed_rows if pick(r))
+        kernel_report[name] = {**{key: first[key] for key in keys},
+                               "shape": first["shape"]}
+        if name in ("window_attention_wide", "window_attention_bwd_wide"):
+            kernel_report[name]["per_shape"] = timed_rows
+    for name, row in (("window_attention_f32", swin_report["f32"]),
+                      ("window_attention_bwd_f32", swin_report["f32_bwd"])):
+        kernel_report[name] = {**{key: row[key] for key in keys},
+                               "shape": row["shape"]}
     # the column-slice routes past head dim 256: the first timed shape
     # (kernel 1's [128, 2, 798, 512], kernel 5 / 5b's [8, 2, 1568, 512]),
     # every timed shape beside it
@@ -8634,7 +9245,7 @@ def main() -> int:
                **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
                **autoaug_paths,
                **media_paths, **ft_cli_paths, **widths_paths,
-               **heads_paths}
+               **heads_paths, **swin_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
@@ -8690,7 +9301,24 @@ def main() -> int:
             ("widths-cli-h2-train", ("query_block_attention_cols",)),
             ("widths-cli-h2-val", ("query_block_attention_cols",)),
             ("widths-vit-l-h2", ("flash_mha", "flash_mha_bwd",
-                                 "flash_mha_cols", "flash_mha_bwd_cols"))):
+                                 "flash_mha_cols", "flash_mha_bwd_cols")),
+            ("heads-swin-a-fp32", ("window_attention_f32",)),
+            ("heads-swin-a-grad-fp32", ("window_attention_f32",
+                                        "window_attention_bwd_f32")),
+            ("heads-swin-a-bf16", ("window_attention_wide",)),
+            ("heads-swin-a-train", ("window_attention_wide",
+                                    "window_attention_bwd_wide",
+                                    "window_attention_dbias")),
+            ("heads-swin-b-bf16", ("window_attention_256",
+                                   "window_attention_cols")),
+            ("heads-swin-b-train", ("window_attention_256",
+                                    "window_attention_cols",
+                                    "window_attention_bwd_wide",
+                                    "window_attention_bwd_cols",
+                                    "window_attention_dbias")),
+            ("heads-swin-c-bf16", ("window_attention_wide",)),
+            ("heads-swin-c-train", ("window_attention_bwd_wide",
+                                    "window_attention_dbias"))):
         for name in kernels:
             require(by_path[path][name] > 0,
                     f"{path}: {name} never launched")
@@ -8749,6 +9377,32 @@ def main() -> int:
                            "tim_tpu/ops/flash.py:82", "widths-vit-l-h2"),
         "flash_mha_bwd_cols": ("tim_tpu_torch/csrc/flash_mha_bwd_cols.cu",
                                "tim_tpu/ops/flash.py:71", "widths-vit-l-h2"),
+        # kernel 4 / 4b's routes past head dim 32 (trunks A, B at full
+        # depth: Swin-B's widths at num_heads (2, 4, 8, 16), (1, 1, 1, 1))
+        "window_attention_wide": (
+            "tim_tpu_torch/csrc/window_attention_wide.cu",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-a-bf16"),
+        "window_attention_256": (
+            "tim_tpu_torch/csrc/window_attention_256.cu",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-b-bf16"),
+        "window_attention_cols": (
+            "tim_tpu_torch/csrc/window_attention_cols.cu",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-b-bf16"),
+        "window_attention_f32": (
+            "tim_tpu_torch/csrc/window_attention_f32.cu",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-a-fp32"),
+        "window_attention_bwd_wide": (
+            "tim_tpu_torch/csrc/window_attention_bwd_wide.cu",
+            "tim_tpu/ops/pallas_swin.py:109", "heads-swin-a-train"),
+        "window_attention_bwd_cols": (
+            "tim_tpu_torch/csrc/window_attention_bwd_cols.cu",
+            "tim_tpu/ops/pallas_swin.py:109", "heads-swin-b-train"),
+        "window_attention_bwd_f32": (
+            "tim_tpu_torch/csrc/window_attention_bwd_f32.cu",
+            "tim_tpu/ops/pallas_swin.py:109", "heads-swin-a-grad-fp32"),
+        "window_attention_dbias": (
+            "tim_tpu_torch/csrc/window_attention_dbias.cu",
+            "tim_tpu/ops/pallas_swin.py:109", "heads-swin-a-train"),
         # replaces no TPU kernel (JAX leaves the bias add to XLA)
         "bias_act": ("tim_tpu_torch/csrc/bias_act.cu", None,
                      "extract-videomae"),

@@ -45,6 +45,12 @@ def _t(x):
     (1, 3, 2, 27, 32),    # unshifted: one bias for every window
     (3, 2, 2, 72, 32),    # shifted: region ids per window type
     (4, 2, 3, 18, 64),
+    # head dims of Swin trunks built with other heads (the card's instances
+    # 32, 64 and 128 through the copy or in place, the column slices)
+    (1, 2, 2, 18, 16),
+    (3, 2, 2, 50, 40),
+    (1, 2, 2, 27, 128),
+    (3, 1, 1, 50, 264),
 ])
 def test_window_attention_plain_matches_jax_kernel(n_types, batch, h, n, dh):
     rng = np.random.default_rng(n)

@@ -403,18 +403,86 @@ def test_window_attention_launches_and_lse_match_plain(gen, dtype, n_win,
 
 @pytest.mark.gpu
 def test_attention_kernels_refuse_other_head_dims(gen):
-    """Kernel 4 takes head dim 32 only; kernel 5 any head dim (48 through
-    the zero-padded copy to the 64 instance, 257 through the copy to the
-    column-slice route at 320)."""
+    """No head dim is refused any more: kernel 5 takes 48 through the
+    zero-padded copy to the 64 instance and 257 through the copy to the
+    column-slice route at 320; kernel 4 takes 48 through the copy to its
+    64 instance, held to its plain version."""
     q = torch.randn(1, 2, 40, 48, generator=gen, device="cuda")
     assert attention_close(flash_mha(q, q, q, sm_scale=0.1),
                            flash_mha_plain(q, q, q, sm_scale=0.1))[0]
     big = torch.randn(1, 2, 40, 257, generator=gen, device="cuda")
     assert attention_close(flash_mha(big, big, big, sm_scale=0.1),
                            flash_mha_plain(big, big, big, sm_scale=0.1))[0]
-    bias = torch.zeros(2, 40, 40, device="cuda")
-    with pytest.raises(ValueError, match="head dim 48"):
-        window_attention(q, q, q, bias, sm_scale=0.1)
+    bias = torch.randn(2, 40, 40, generator=gen, device="cuda")
+    assert attention_close(window_attention(q, q, q, bias, sm_scale=0.1),
+                           window_attention_plain(q, q, q, bias,
+                                                  sm_scale=0.1))[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [16, 40, 48, 64, 80, 96, 128, 200, 256, 264,
+                                512])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
+    """Kernels 4 and 4b at head dims on and off their instances (32, 64,
+    128, 256, bf16 80, 96, 112; past 256 the column-slice routes), shifted
+    (3 window types) and unshifted, on strided views of a packed
+    projection at a ragged N: both forward launches and the lse against
+    the plain version, the backward (dbias included) against the plain
+    backward's gates, one launch a call on the plan's route (the counts),
+    and in bf16 the backward's bits equal call to call, under
+    torch.use_deterministic_algorithms and through the autograd Function
+    on the packed projection."""
+    from tim_tpu_torch.ops import window_attention as wa
+    n, heads, n_win = 150, 2, 3
+    qkv = torch.randn(2 * n_win, n, 3, heads, dh, generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn(heads, n, n, generator=gen, device="cuda")
+    region = (torch.randint(0, 3, (n_win, n), generator=gen, device="cuda",
+                            dtype=torch.int32) if shifted else None)
+    kw = {"sm_scale": dh ** -0.5}
+    args = (q, k, v, bias, region)
+    inst, copied = wa.launch_plan(dh, dtype, q, k, v)
+    wa.window_attention.routes.clear()
+    wa.window_attention_bwd.routes.clear()
+    _check_both_launches(window_attention, window_attention_with_lse,
+                         window_attention_plain, swin_scores, args, kw)
+    out, lse = window_attention_with_lse(*args, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    first = [g.clone() for g in window_attention_bwd(*args, out, lse, do,
+                                                     **kw)]
+    want = window_attention_bwd_plain(*args, do, **kw)
+    for g, w in zip(first, want):
+        assert g.shape == w.shape
+        assert grad_close(g, w, dtype == torch.bfloat16)[0]
+    assert dict(wa.window_attention.routes) == {
+        wa.route(dtype, inst, copied): 3}
+    assert dict(wa.window_attention_bwd.routes) == {
+        wa.route(dtype, inst, copied, backward=True): 1}
+    if dtype != torch.bfloat16:
+        return
+    second = window_attention_bwd(*args, out, lse, do, **kw)
+    torch.use_deterministic_algorithms(True)
+    try:
+        third = window_attention_bwd(*args, out, lse, do, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    # the one-pass route of the 32 instance sums dq with atomics (its
+    # deterministic route takes another dq pass); every route past 32 is
+    # atomic-free
+    exact = range(1, 4) if inst == 32 else range(4)
+    for i in exact:
+        assert torch.equal(first[i], second[i])
+        assert torch.equal(first[i], third[i])
+    leaf = qkv.detach().requires_grad_()
+    table = bias.detach().requires_grad_()
+    (window_attention_qkv(leaf, table, region, **kw).float()
+     * do.float()).sum().backward()
+    for i in exact:
+        got = table.grad if i == 3 else leaf.grad[:, :, i].transpose(1, 2)
+        assert torch.equal(got, first[i])
 
 
 @pytest.mark.gpu

@@ -356,7 +356,7 @@ def ablate_4(libs, gen):
         return (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
                 strides, lse.data_ptr() if launch == "lse" else None,
                 bias.data_ptr(), region.data_ptr(), n_win, 8 * n_win, heads,
-                784, 32, 1, 32 ** -0.5, stream)
+                784, 32, 32, 1, 32 ** -0.5, stream)
 
     calls = forward_calls(libs, "tim_window_attention", wa._ARGTYPES,
                           args_of, lambda name: True)
@@ -401,7 +401,7 @@ def ablate_4b(libs, gen):
                         acc.data_ptr(), bias.data_ptr(), region.data_ptr(),
                         n_win, dbias.data_ptr(),
                         None if scratch is None else scratch.data_ptr(),
-                        groups, bw, h, n, dh, 1, 32 ** -0.5, stream)
+                        groups, bw, h, n, dh, 32, 1, 32 ** -0.5, stream)
             _build.check(status, "window_attention_bwd variant")
 
         calls = {}

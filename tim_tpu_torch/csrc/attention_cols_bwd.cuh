@@ -77,7 +77,7 @@ __device__ __forceinline__ void load_f32(float* dst, int pitch,
 // tiles of the other side: s and dp summed over 64-column chunks (the
 // rows' chunks in shared memory padded to 65 floats), then the block's
 // columns.
-template <bool DKDV>
+template <bool DKDV, bool BIAS = false>
 __global__ void __launch_bounds__(128) bwd_f32_kernel(const BwdParams p,
                                                       int dh) {
   constexpr int BR = kF32Rows, BT = kF32Walk, DC = kF32Dims, LR = DC + 1;
@@ -107,6 +107,12 @@ __global__ void __launch_bounds__(128) bwd_f32_kernel(const BwdParams p,
   const long long lb1 = DKDV ? p.sq.n : p.sk.n, lb2 = DKDV ? p.sdo.n : p.sv.n;
   const float lse_r = DKDV ? 0.f : p.lse[bh + rc];
   const float delta_r = DKDV ? 0.f : p.delta[bh + rc];
+  // BIAS: kernel 4b's terms (the row: a key in the dk/dv pass)
+  const float* hb = BIAS ? p.bias + (long long)t.h * S * S : nullptr;
+  const int* rw = BIAS && p.region != nullptr
+                      ? p.region + (long long)(t.b % p.n_win) * S
+                      : nullptr;
+  const int reg_r = rw != nullptr ? rw[rc] : 0;
 
   float o1[DC], o2[DKDV ? DC : 1];   // dv, dk | dq
 #pragma unroll
@@ -155,8 +161,14 @@ __global__ void __launch_bounds__(128) bwd_f32_kernel(const BwdParams p,
 #pragma unroll
     for (int j = 0; j < BT; ++j) {
       if (j0 + j >= S) break;
+      float x = s[j] * p.scale;
+      if constexpr (BIAS) {
+        const int o = j0 + j;   // the other side's row: a query or a key
+        x += DKDV ? hb[(long long)o * S + rc] : hb[(long long)rc * S + o];
+        if (rw != nullptr && rw[o] != reg_r) x += kMaskValue;
+      }
       if constexpr (DKDV) {
-        const float pj = expf(s[j] * p.scale - s_lse[j]);
+        const float pj = expf(x - s_lse[j]);
         const float ds = pj * (dp[j] - s_delta[j]) * p.scale;
 #pragma unroll
         for (int d = 0; d < DC; ++d) {
@@ -164,8 +176,7 @@ __global__ void __launch_bounds__(128) bwd_f32_kernel(const BwdParams p,
           o2[d] = fmaf(ds, s_c1[j * DC + d], o2[d]);
         }
       } else {
-        const float ds = expf(s[j] * p.scale - lse_r) * (dp[j] - delta_r) *
-                         p.scale;
+        const float ds = expf(x - lse_r) * (dp[j] - delta_r) * p.scale;
 #pragma unroll
         for (int d = 0; d < DC; ++d) o1[d] = fmaf(ds, s_c1[j * DC + d], o1[d]);
       }
@@ -185,12 +196,114 @@ __global__ void __launch_bounds__(128) bwd_f32_kernel(const BwdParams p,
   }
 }
 
+// Kernel 4b's dbias past head dim 256, fp32: one thread a query row of
+// 128, 32 keys a block (head-major, then query and key tiles); a block
+// walks the batch's windows in order, forms each window's s and dp over
+// 64-column chunks (the rows' chunks in shared memory padded to 65
+// floats) and adds ds to its 32 sums, the bias of its scores read once.
+constexpr int kDbiasKeys = 32;
+constexpr int kDbiasSmem =
+    (2 * kF32Rows * (kF32Dims + 1) + 2 * kDbiasKeys * kF32Dims) * 4;
+
+template <int BK>
+__global__ void __launch_bounds__(128) dbias_f32_kernel(const BwdParams p,
+                                                        int dh) {
+  constexpr int BR = kF32Rows, DC = kF32Dims, LR = DC + 1;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* s_q = f32_smem;            // [BR][LR]
+  float* s_do = s_q + BR * LR;      // [BR][LR]
+  float* s_k = s_do + BR * LR;      // [BK][DC]
+  float* s_v = s_k + BK * DC;       // [BK][DC]
+
+  const int S = p.seq, tid = threadIdx.x;
+  const int n_qt = (S + BR - 1) / BR, n_kt = (S + BK - 1) / BK;
+  const int h = blockIdx.x / (n_qt * n_kt), rem = blockIdx.x % (n_qt * n_kt);
+  const int q0 = (rem / n_kt) * BR, k0 = (rem % n_kt) * BK;
+  const int row = q0 + tid, rc = min(row, S - 1);
+  float bias[BK], acc[BK];
+#pragma unroll
+  for (int j = 0; j < BK; ++j) {
+    bias[j] = p.bias[((long long)h * S + rc) * S + min(k0 + j, S - 1)];
+    acc[j] = 0.f;
+  }
+  for (int b = 0; b < p.batch; ++b) {
+    const float* q = at<float>(p.q, p.sq, b, h);
+    const float* k = at<float>(p.k, p.sk, b, h);
+    const float* v = at<float>(p.v, p.sv, b, h);
+    const float* dout = at<float>(p.dout, p.sdo, b, h);
+    float s[BK], dp[BK];
+#pragma unroll
+    for (int j = 0; j < BK; ++j) s[j] = dp[j] = 0.f;
+    for (int c = 0; c < dh; c += DC) {
+      __syncthreads();
+      load_f32(s_q, LR, q, p.sq.n, q0, BR, S, c, dh, tid);
+      load_f32(s_do, LR, dout, p.sdo.n, q0, BR, S, c, dh, tid);
+      load_f32(s_k, DC, k, p.sk.n, k0, BK, S, c, dh, tid);
+      load_f32(s_v, DC, v, p.sv.n, k0, BK, S, c, dh, tid);
+      __syncthreads();
+      const float* x1 = s_q + tid * LR;
+      const float* x2 = s_do + tid * LR;
+#pragma unroll
+      for (int j = 0; j < BK; ++j) {
+        float u = s[j], w = dp[j];
+#pragma unroll 16
+        for (int d = 0; d < DC; ++d) {
+          u = fmaf(x1[d], s_k[j * DC + d], u);
+          w = fmaf(x2[d], s_v[j * DC + d], w);
+        }
+        s[j] = u;
+        dp[j] = w;
+      }
+    }
+    const int* rw = p.region != nullptr
+                        ? p.region + (long long)(b % p.n_win) * S
+                        : nullptr;
+    const long long bh = ((long long)b * p.heads + h) * S;
+    const float lse = p.lse[bh + rc], delta = p.delta[bh + rc];
+    const int region_row = rw != nullptr ? rw[rc] : 0;
+#pragma unroll
+    for (int j = 0; j < BK; ++j) {
+      if (k0 + j >= S) break;
+      float x = s[j] * p.scale + bias[j];
+      if (rw != nullptr && rw[k0 + j] != region_row) x += kMaskValue;
+      acc[j] += expf(x - lse) * (dp[j] - delta);
+    }
+  }
+  if (row < S) {
+    float* db = p.dbias + ((long long)h * S + row) * S + k0;
+#pragma unroll
+    for (int j = 0; j < BK; ++j)
+      if (k0 + j < S) db[j] = acc[j];
+  }
+}
+
 }  // namespace colsbwd
 
-// The fp32 column-slice backward: D, then the dk/dv pass and the dq pass,
-// on one stream; returns the first launch's CUDA error (0 on success).
-inline int launch_bwd_cols_f32(const BwdParams& p, int dh,
-                               cudaStream_t stream) {
+// Kernel 4b's fp32 dbias past head dim 256 (colsbwd::dbias_f32_kernel),
+// after launch_bwd_cols_f32 wrote D; returns its CUDA error.
+inline int launch_dbias_cols_f32(const BwdParams& p, int dh,
+                                 cudaStream_t stream) {
+  namespace cb = colsbwd;
+  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0 || dh <= 0) return 0;
+  const long long blocks =
+      (long long)p.heads * ((p.seq + cb::kF32Rows - 1) / cb::kF32Rows) *
+      ((p.seq + cb::kDbiasKeys - 1) / cb::kDbiasKeys);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cb::dbias_f32_kernel<cb::kDbiasKeys>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cb::kDbiasSmem);
+  if (err != cudaSuccess) return (int)err;
+  cb::dbias_f32_kernel<cb::kDbiasKeys>
+      <<<(unsigned)blocks, cb::kF32Rows, cb::kDbiasSmem, stream>>>(p, dh);
+  return (int)cudaGetLastError();
+}
+
+// The fp32 column-slice backward: D, then the dk/dv pass and the dq pass
+// (BIAS: kernel 4b's, without dbias), on one stream; returns the first
+// launch's CUDA error (0 on success).
+template <bool BIAS = false>
+int launch_bwd_cols_f32(const BwdParams& p, int dh, cudaStream_t stream) {
   namespace cb = colsbwd;
   const long long rows = (long long)p.batch * p.heads * p.seq;
   if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0 || dh <= 0) return 0;
@@ -204,8 +317,8 @@ inline int launch_bwd_cols_f32(const BwdParams& p, int dh,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks, (dh + cb::kF32Dims - 1) / cb::kF32Dims);
   for (int pass = 0; pass < 2 && err == 0; ++pass) {
-    auto kernel =
-        pass == 0 ? cb::bwd_f32_kernel<true> : cb::bwd_f32_kernel<false>;
+    auto kernel = pass == 0 ? cb::bwd_f32_kernel<true, BIAS>
+                            : cb::bwd_f32_kernel<false, BIAS>;
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cb::kF32Smem);
     if (err != 0) return err;

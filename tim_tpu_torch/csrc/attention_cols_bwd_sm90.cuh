@@ -58,9 +58,11 @@ constexpr int kStageBytes = 2 * kABox + 2 * kBox;
 constexpr int kSmem = kStages * kStageBytes + 16 * kStages + 1024;
 
 // The output columns a block of each pass sums: dk and dv (two sums a
-// thread) 128, dq 256.
-template <bool DKDV>
-constexpr int kSlice = DKDV ? 128 : 256;
+// thread) 128, dq 256; kernel 4b's dk/dv pass 64 (BIAS: S^T's terms, read
+// before its products, take the registers of a 128-column slice's sums,
+// which spilled).
+template <bool DKDV, bool BIAS = false>
+constexpr int kSlice = DKDV ? (BIAS ? 64 : 128) : 256;
 
 struct Params {
   const bf* q;
@@ -75,6 +77,11 @@ struct Params {
   const float* delta;   // [batch, heads, seq]
   int batch, heads, seq, dh;
   float scale;
+  // kernel 4b (BIAS): bias [heads, seq, seq] fp32; region [n_win, seq]
+  // int32 or null
+  const float* bias;
+  const int* region;
+  int n_win;
 };
 
 // This warpgroup's 64 rows x NB 64-column blocks of sums as bf16 into rows
@@ -99,14 +106,14 @@ __device__ __forceinline__ void store_rows(bf* dst, long long ld,
 // dO); else the dq pass (rows: queries; A1, A2 = Q, dO; B1, B2 = K, V).
 // The slice products' B operands are the walked tile's B boxes at the
 // slice's columns: Q and dO, or K.
-template <bool DKDV>
+template <bool DKDV, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_kernel(const Params p, const __grid_constant__ CUtensorMap tm_a1,
                const __grid_constant__ CUtensorMap tm_a2,
                const __grid_constant__ CUtensorMap tm_b1,
                const __grid_constant__ CUtensorMap tm_b2) {
   constexpr int NS = kStages, R = kRows, AB = kABox;
-  constexpr int SW = kSlice<DKDV>, NB = SW / kBlock;
+  constexpr int SW = kSlice<DKDV, BIAS>, NB = SW / kBlock;
   extern __shared__ unsigned char dyn_smem[];
   const uint32_t raw = sm90::smem_u32(dyn_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -201,35 +208,60 @@ __global__ void __launch_bounds__(kThreads, 1)
   float x1[32], x2[32];
   uint32_t pa1[4][4], pa2[4][4];
   // a chunk's two products for this warpgroup's 64 rows: S (or S^T) and
-  // dP (or dP^T)
-  auto issue_chunk = [&](uint32_t st) {
+  // dP (or dP^T); the first chunk's first k-step writes them (Acc<false>:
+  // no zeroed registers live before it), except S under BIAS, which
+  // starts at the tile's terms
+  auto issue_chunk = [&](uint32_t st, bool first) {
     const uint64_t da1 = fwd90::desc<64>(st + wg * 64 * kBlock * 2);
     const uint64_t da2 = fwd90::desc<64>(st + AB + wg * 64 * kBlock * 2);
     const uint64_t db1 = fwd90::desc<64>(st + 2 * AB);
     const uint64_t db2 = fwd90::desc<64>(st + 2 * AB + kBox);
+    if (first && !BIAS)
+      sm90::wgmma_ss<0, 0, false>(x1, da1, db1);
+    else
+      sm90::wgmma_ss<0, 0, true>(x1, da1, db1);
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk)
+    for (int kk = 1; kk < kBlock / 16; ++kk)
       sm90::wgmma_ss<0, 0, true>(x1, da1 + 2 * kk, db1 + 2 * kk);
+    if (first)
+      sm90::wgmma_ss<0, 0, false>(x2, da2, db2);
+    else
+      sm90::wgmma_ss<0, 0, true>(x2, da2, db2);
 #pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk)
+    for (int kk = 1; kk < kBlock / 16; ++kk)
       sm90::wgmma_ss<0, 0, true>(x2, da2 + 2 * kk, db2 + 2 * kk);
   };
   auto fence_x = [&]() {
     sm90::fence_regs(x1);
     sm90::fence_regs(x2);
   };
+  const float inv_scale = 1.f / p.scale;
   for (int t = 0; t < n_t; ++t) {
+    // BIAS: S (or S^T) starts at the tile's bias and mask over the scale
+    // (rows: this thread's keys, or queries; S^T in the dk/dv pass), the
+    // pointers and ids made here, where they are used
+    if constexpr (BIAS) {
+      const int* rw = p.region != nullptr
+                          ? p.region + (long long)(b % p.n_win) * S
+                          : nullptr;
+      int brow[2], breg[2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) x1[i] = x2[i] = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        brow[r] = min(r0 + lrow + 8 * r, S - 1);
+        breg[r] = rw != nullptr ? __ldg(rw + brow[r]) : 0;
+      }
+      fwd90::score_bias<DKDV>(x1, p.bias + (long long)h * S * S, rw, brow,
+                              breg, t * kTile, tig, S, inv_scale);
+    }
     {
       const uint32_t st0 = acquire(it);
       sm90::wg_fence();
-      issue_chunk(st0);
+      issue_chunk(st0, true);
       sm90::wg_commit();
       for (int c = 1; c < nc; ++c) {
         const uint32_t st = acquire(it + 1);
         sm90::wg_fence();   // as a GEMM main loop: before every group
-        issue_chunk(st);
+        issue_chunk(st, false);
         sm90::wg_commit();
         sm90::wg_wait<1>();
         release();
@@ -294,11 +326,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 namespace {
-template <bool DKDV>
+template <bool DKDV, bool BIAS>
 int smem_set[fwd90::kMaxDevices] = {};
 }  // namespace
 
-template <bool DKDV>
+template <bool DKDV, bool BIAS>
 int launch_pass(const Params& p, const Strides* st, cudaStream_t stream) {
   // st: the strides of q, k, v, do
   const bf* a1 = DKDV ? p.k : p.q;
@@ -322,12 +354,12 @@ int launch_pass(const Params& p, const Strides* st, cudaStream_t stream) {
     err = fwd90::kv_map(&m_b2, b2, sb2, p.batch, p.heads, p.seq, p.dh,
                         kTile, kBlock);
   if (err != 0) return err;
-  auto kernel = bwd_kernel<DKDV>;
+  auto kernel = bwd_kernel<DKDV, BIAS>;
   int device = 0;
   err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
   if (device >= fwd90::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int& allowed = smem_set<DKDV>[device];
+  int& allowed = smem_set<DKDV, BIAS>[device];
   if (allowed < kSmem) {
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -338,7 +370,7 @@ int launch_pass(const Params& p, const Strides* st, cudaStream_t stream) {
       (long long)p.batch * p.heads * ((p.seq + kRows - 1) / kRows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)blocks,
-                  (p.dh + kSlice<DKDV> - 1) / kSlice<DKDV>);
+                  (p.dh + kSlice<DKDV, BIAS> - 1) / kSlice<DKDV, BIAS>);
   kernel<<<grid, kThreads, kSmem, stream>>>(p, m_a1, m_a2, m_b1, m_b2);
   return (int)cudaGetLastError();
 }
@@ -346,10 +378,10 @@ int launch_pass(const Params& p, const Strides* st, cudaStream_t stream) {
 }  // namespace colsbwd90
 
 // The bf16 column-slice backward: D (attention_cols_bwd.cuh), then the
-// dk/dv and the dq wgmma passes, on one stream; returns the first launch's
-// CUDA error (0 on success).
-inline int launch_bwd_cols_bf16(const BwdParams& bp, int dh,
-                                cudaStream_t stream) {
+// dk/dv and the dq wgmma passes (BIAS: kernel 4b's, without dbias), on one
+// stream; returns the first launch's CUDA error (0 on success).
+template <bool BIAS = false>
+int launch_bwd_cols_bf16(const BwdParams& bp, int dh, cudaStream_t stream) {
   namespace cb = colsbwd;
   const long long rows = (long long)bp.batch * bp.heads * bp.seq;
   if (bp.batch <= 0 || bp.heads <= 0 || bp.seq <= 0 || dh <= 0) return 0;
@@ -370,10 +402,11 @@ inline int launch_bwd_cols_bf16(const BwdParams& bp, int dh,
   p.lse = bp.lse; p.delta = bp.delta;
   p.batch = bp.batch; p.heads = bp.heads; p.seq = bp.seq; p.dh = dh;
   p.scale = bp.scale;
+  p.bias = bp.bias; p.region = bp.region; p.n_win = bp.n_win;
   const Strides st[4] = {bp.sq, bp.sk, bp.sv, bp.sdo};
-  err = colsbwd90::launch_pass<true>(p, st, stream);
+  err = colsbwd90::launch_pass<true, BIAS>(p, st, stream);
   if (err != 0) return err;
-  return colsbwd90::launch_pass<false>(p, st, stream);
+  return colsbwd90::launch_pass<false, BIAS>(p, st, stream);
 }
 
 }  // namespace tim_attn

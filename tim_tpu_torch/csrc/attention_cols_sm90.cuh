@@ -66,6 +66,11 @@ struct ColsParams {
   int batch, heads, nq, nk, dh;
   float scale;
   float* lse;   // [batch, heads, nq] fp32, or null
+  // kernel 4 (BIAS): bias [heads, nq, nk] fp32, contiguous; region [n_win,
+  // nq] int32 or null (nq = nk); the window type is batch % n_win
+  const float* bias;
+  const int* region;
+  int n_win;
 };
 
 // strides: 18 element strides, (batch, head, row) for q, k, v, out, kq, vq.
@@ -111,7 +116,7 @@ __device__ __forceinline__ int bcoord(int mask, int t, int b) {
   return (mask >> t) & 1 ? 0 : b;
 }
 
-template <bool SELF, bool LSE, bool RES>
+template <bool SELF, bool LSE, bool RES, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     cols_kernel(const ColsParams p, const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -255,6 +260,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   rc.masked = false;
   rc.pairs = true;
   const float nobias[1] = {0.f};
+  // kernel 4: this thread's bias rows and region ids; each key tile's S
+  // accumulator starts at (bias + mask) / scale, so that the scores are
+  // kernel 5's (q . k + (bias + mask) / scale) * scale
+  const float inv_scale = 1.f / p.scale;
+  const float* bias_row[2] = {nullptr, nullptr};
+  const int* region = BIAS && p.region != nullptr
+                          ? p.region + (long long)(b % p.n_win) * p.nk
+                          : nullptr;
+  int region_row[2] = {0, 0};
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = min(q0 + lrow0 + 8 * r, p.nq - 1);
+      bias_row[r] = p.bias + ((long long)h * p.nq + row) * p.nk;
+      if (region != nullptr) region_row[r] = region[row];
+    }
+  }
   float sc[kKeys / 2], o[kSlice / kBlock][kBlock / 2];
   uint32_t pa[kKeys / 16][4];
   // the running max in raw dot units (kernel 1: from its self score)
@@ -290,8 +312,20 @@ __global__ void __launch_bounds__(kThreads, 1)
           sm90::wgmma_ss<0, 0, true>(sc, dq + 2 * kk, dk + 2 * kk);
       }
     };
+    if constexpr (BIAS) {
 #pragma unroll
-    for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const int col = min(kt * kKeys + (i / 4) * 8 + 2 * tig + (i & 1),
+                            p.nk - 1);
+        float x = __ldg(bias_row[(i >> 1) & 1] + col);
+        if (region != nullptr && __ldg(region + col) != region_row[(i >> 1) & 1])
+          x += kMaskValue;
+        sc[i] = x * inv_scale;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kKeys / 2; ++i) sc[i] = 0.f;
+    }
     {
       const uint32_t st0 = acquire(it);
       sm90::wg_fence();
@@ -379,21 +413,21 @@ inline int operand_map(CUtensorMap* map, const void* base, const Strides& s,
 }
 
 namespace {
-template <bool SELF, bool LSE, bool RES>
+template <bool SELF, bool LSE, bool RES, bool BIAS>
 int smem_set[fwd90::kMaxDevices] = {};
 }  // namespace
 
 // RES: Q resident (head dims up to kResBlocks column blocks)
-template <bool SELF, bool LSE, bool RES>
+template <bool SELF, bool LSE, bool RES, bool BIAS>
 int launch_ring(const ColsParams& p, const CUtensorMap (&maps)[4], int mask,
                 cudaStream_t stream) {
   constexpr int smem = Ring<RES>::kSmem;
-  auto kernel = cols_kernel<SELF, LSE, RES>;
+  auto kernel = cols_kernel<SELF, LSE, RES, BIAS>;
   int device = 0;
   int err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
   if (device >= fwd90::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int& allowed = smem_set<SELF, LSE, RES>[device];
+  int& allowed = smem_set<SELF, LSE, RES, BIAS>[device];
   if (allowed < smem) {
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -408,7 +442,7 @@ int launch_ring(const ColsParams& p, const CUtensorMap (&maps)[4], int mask,
   return (int)cudaGetLastError();
 }
 
-template <bool SELF, bool LSE>
+template <bool SELF, bool LSE, bool BIAS = false>
 int launch(const ColsParams& p, cudaStream_t stream) {
   const long long blocks =
       (long long)p.batch * p.heads * ((p.nq + kRows - 1) / kRows);
@@ -430,8 +464,8 @@ int launch(const ColsParams& p, cudaStream_t stream) {
   if (!SELF) tm_kq = tm_q;   // unused
   const CUtensorMap maps[4] = {tm_q, tm_k, tm_v, tm_kq};
   if ((p.dh + kBlock - 1) / kBlock <= kResBlocks)
-    return launch_ring<SELF, LSE, true>(p, maps, mask, stream);
-  return launch_ring<SELF, LSE, false>(p, maps, mask, stream);
+    return launch_ring<SELF, LSE, true, BIAS>(p, maps, mask, stream);
+  return launch_ring<SELF, LSE, false, BIAS>(p, maps, mask, stream);
 }
 
 }  // namespace cols90
@@ -464,7 +498,7 @@ __device__ __forceinline__ void load_f32_block(float* dst, int pitch,
   }
 }
 
-template <bool SELF, bool LSE>
+template <bool SELF, bool LSE, bool BIAS = false>
 __global__ void __launch_bounds__(128) cols_f32_kernel(const ColsParams p) {
   constexpr int BQ = kColsF32Rows, BK = kColsF32Keys, DC = kColsF32Dims;
   constexpr int LQ = DC + 1;
@@ -483,6 +517,14 @@ __global__ void __launch_bounds__(128) cols_f32_kernel(const ColsParams p) {
   const float* k = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
   const float* v = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
   const float* qs = s_q + tid * LQ;
+  // kernel 4: the row's bias and region id
+  const int rc = min(row, p.nq - 1);
+  const int* region = BIAS && p.region != nullptr
+                          ? p.region + (long long)(b % p.n_win) * p.nk
+                          : nullptr;
+  const float* bias_row =
+      BIAS ? p.bias + ((long long)h * p.nq + rc) * p.nk : nullptr;
+  const int region_row = region != nullptr ? region[rc] : 0;
 
   float self = 0.f;
   if constexpr (SELF) {
@@ -526,7 +568,16 @@ __global__ void __launch_bounds__(128) cols_f32_kernel(const ColsParams p) {
     float mx = TIM_NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      s[j] = k0 + j < p.nk ? s[j] * p.scale : TIM_NEG_INF;
+      float x = TIM_NEG_INF;
+      if (k0 + j < p.nk) {
+        x = s[j] * p.scale;
+        if constexpr (BIAS) {
+          x += bias_row[k0 + j];
+          if (region != nullptr && region[k0 + j] != region_row)
+            x += kMaskValue;
+        }
+      }
+      s[j] = x;
       mx = fmaxf(mx, s[j]);
     }
     const float m_new = fmaxf(m, mx);
@@ -565,12 +616,12 @@ __global__ void __launch_bounds__(128) cols_f32_kernel(const ColsParams p) {
   }
 }
 
-template <bool SELF, bool LSE>
+template <bool SELF, bool LSE, bool BIAS = false>
 int launch_cols_f32(const ColsParams& p, cudaStream_t stream) {
   const long long blocks = (long long)p.batch * p.heads *
                            ((p.nq + kColsF32Rows - 1) / kColsF32Rows);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = cols_f32_kernel<SELF, LSE>;
+  auto kernel = cols_f32_kernel<SELF, LSE, BIAS>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kColsF32Smem);
   if (err != cudaSuccess) return (int)err;
@@ -582,8 +633,9 @@ int launch_cols_f32(const ColsParams& p, cudaStream_t stream) {
 
 // One launch of the column-slice route: bf16 on the wgmma kernel, fp32 on
 // the CUDA cores; SELF (kernel 1) when kq is given, the lse store when lse
-// is. Returns cudaGetLastError() after the launch (0 on success).
-template <bool SELF>
+// is; BIAS: kernel 4's bias and region ids (no SELF). Returns
+// cudaGetLastError() after the launch (0 on success).
+template <bool SELF, bool BIAS = false>
 int launch_cols(const ColsParams& p, bool bf16, cudaStream_t stream) {
   if (p.batch <= 0 || p.heads <= 0 || p.nq <= 0 || p.nk <= 0 || p.dh <= 0)
     return 0;
@@ -594,10 +646,10 @@ int launch_cols(const ColsParams& p, bool bf16, cudaStream_t stream) {
                 : launch_cols_f32<true, false>(p, stream);
   } else {
     if (bf16)
-      return lse ? cols90::launch<false, true>(p, stream)
-                 : cols90::launch<false, false>(p, stream);
-    return lse ? launch_cols_f32<false, true>(p, stream)
-               : launch_cols_f32<false, false>(p, stream);
+      return lse ? cols90::launch<false, true, BIAS>(p, stream)
+                 : cols90::launch<false, false, BIAS>(p, stream);
+    return lse ? launch_cols_f32<false, true, BIAS>(p, stream)
+               : launch_cols_f32<false, false, BIAS>(p, stream);
   }
 }
 

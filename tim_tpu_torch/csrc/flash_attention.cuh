@@ -263,7 +263,8 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(const Params p) {
   }
 }
 
-// fp32 past head dim 64 (128, 256; no bias): a thread's q row and its
+// fp32 past head dim 64 (128, 256; kernel 4's bias and region ids with
+// BIAS, as in attention_f32_kernel): a thread's q row and its
 // DH output sums would not fit its registers, so each block takes 64 of
 // the output dims (blockIdx.y) and keeps its 128 q rows in shared memory
 // (rows padded to an odd length: a warp's 32 rows fall in 32 banks); the
@@ -276,7 +277,7 @@ constexpr int f32_wide_smem_bytes() {
   return (128 * (DH + 1) + 16 * DH + 16 * kWideDims) * 4;
 }
 
-template <int DH, bool LSE>
+template <int DH, bool BIAS, bool LSE>
 __global__ void __launch_bounds__(128) attention_f32_wide_kernel(
     const Params p) {
   constexpr int BQ = 128, BK = 16, DO = kWideDims, LQ = DH + 1;
@@ -284,6 +285,7 @@ __global__ void __launch_bounds__(128) attention_f32_wide_kernel(
   float* s_q = wide_smem;              // [BQ][LQ]
   float* s_k = s_q + BQ * LQ;          // [BK][DH]
   float* s_v = s_k + BK * DH;          // [BK][DO]: this block's dims
+  __shared__ int s_region[BK];
 
   const Tile t = block_tile(p, BQ);
   const int S = p.seq, d0 = blockIdx.y * DO;
@@ -297,6 +299,13 @@ __global__ void __launch_bounds__(128) attention_f32_wide_kernel(
     s_q[r * LQ + c] = q[qr * p.sq.n + c];
   }
   const float* qs = s_q + tid * LQ;
+  const int rc = min(row, S - 1);
+  const int* region = BIAS && p.region != nullptr
+                          ? p.region + (long long)(t.b % p.n_win) * S
+                          : nullptr;
+  const float* bias_row =
+      BIAS ? p.bias + ((long long)t.h * S + rc) * S : nullptr;
+  const int region_row = region != nullptr ? region[rc] : 0;
 
   float acc[DO];
 #pragma unroll
@@ -313,6 +322,8 @@ __global__ void __launch_bounds__(128) attention_f32_wide_kernel(
       const int r = i / DO, c = i % DO, key = k0 + r;
       s_v[i] = key < S ? v[key * p.sv.n + d0 + c] : 0.f;
     }
+    if (region != nullptr && tid < BK)
+      s_region[tid] = region[min(k0 + tid, S - 1)];
     __syncthreads();
 
     float s[BK];
@@ -322,7 +333,16 @@ __global__ void __launch_bounds__(128) attention_f32_wide_kernel(
       float dot = 0.f;
 #pragma unroll 8
       for (int d = 0; d < DH; ++d) dot = fmaf(qs[d], s_k[j * DH + d], dot);
-      s[j] = k0 + j < S ? dot * p.scale : TIM_NEG_INF;
+      float x = TIM_NEG_INF;
+      if (k0 + j < S) {
+        x = dot * p.scale;
+        if constexpr (BIAS) {
+          x += bias_row[k0 + j];
+          if (region != nullptr && region_row != s_region[j])
+            x += kMaskValue;
+        }
+      }
+      s[j] = x;
       mx = fmaxf(mx, s[j]);
     }
     const float m_new = fmaxf(m, mx);
@@ -364,9 +384,8 @@ int launch_f32(const Params& p, cudaStream_t stream) {
                            ((p.seq + 127) / 128);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if constexpr (DH > kWideDims) {
-    static_assert(!BIAS, "the wide fp32 kernel takes no bias");
     constexpr int smem = f32_wide_smem_bytes<DH>();
-    auto kernel = attention_f32_wide_kernel<DH, LSE>;
+    auto kernel = attention_f32_wide_kernel<DH, BIAS, LSE>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

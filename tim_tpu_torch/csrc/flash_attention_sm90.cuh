@@ -1,7 +1,9 @@
 // Exact softmax attention, forward, bf16, on Hopper's warpgroup tensor-core
 // products (wgmma, sm_90a): the bf16 core of kernel 5 (flash_mha.cu, head
 // dims 64, 128, 256; flash_mha_wide.cu, 80, 96, 112; no bias) and kernel 4
-// (window_attention.cu, head dim 32, bias and region ids). The fp32 instances keep the CUDA-core kernel of
+// (bias and region ids: window_attention.cu, head dim 32;
+// window_attention_wide.cu and window_attention_256.cu, kernel 5's head
+// dims). The fp32 instances keep the CUDA-core kernel of
 // flash_attention.cuh, whose comment gives the function:
 //
 //   out[b, h, i] = sum_j p_ij v[b, h, j] / sum_j p_ij,  p_ij = exp(s_ij - m_i),
@@ -44,7 +46,10 @@
 //
 // Kernel 4's extra per-score work (an fp32 bias from L2 and, in shifted
 // windows, a region compare) stalls its warps more than the products do,
-// so it runs two blocks an SM (128 registers a thread); each thread reads
+// so at head dim 32 it runs two blocks an SM (128 registers a thread;
+// past 32 one, with 64-key tiles up to 128 and 32 at 256, and past 64 one
+// window a block, kernel 5's layout: two rings of wider tiles do not fit
+// beside Q, PERF.md row 4); each thread reads
 // its own scores' bias into registers a tile ahead of their use (the
 // window pair's second read of a bias row comes from L1: the bias is read
 // once from L2 for two windows), and each window's region ids sit in
@@ -199,24 +204,27 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
 
 template <int DH, bool BIAS>
 struct Shape {
-  // keys a tile: 48 for kernel 4 keeps its registers at two blocks an SM
-  // (128 a thread) free of spills; 32 at head dim 256 keeps four stages
-  // of K and V (and Q) in shared memory
-  static constexpr int kKeys = BIAS ? 48 : (DH > 128 ? 32 : 64);
+  // keys a tile: 48 for kernel 4 at head dim 32 keeps its registers at two
+  // blocks an SM (128 a thread) free of spills; 32 at head dim 256 keeps
+  // four stages of K and V (and Q) in shared memory
+  static constexpr int kKeys =
+      BIAS && DH <= 32 ? 48 : (DH > 128 ? 32 : 64);
   // main column blocks of a tile (Cols) and their width
   static constexpr int kBW = Cols<DH>::kBW;
   static constexpr int kNC = Cols<DH>::kNC;
   static constexpr int kStages = 4;               // ring stages
   static constexpr int kAhead = kStages - 2;      // tiles loaded ahead
-  // blocks an SM: two for kernel 4 (at most 128 registers a thread),
-  // whose per-score work stalls one block's warps more than the tensor
-  // cores do
-  static constexpr int kMinBlocks = BIAS ? 2 : 1;
-  // kernel 4: each warpgroup takes one window of a pair, the same 64 query
-  // rows of both (so the same bias rows, read twice from L1), with a K/V
-  // ring of its own; kernel 5: the block's 128 rows of one (batch, head)
-  // share one ring
-  static constexpr bool kPair = BIAS;
+  // blocks an SM: two for kernel 4 at head dim 32 (at most 128 registers
+  // a thread), whose per-score work stalls one block's warps more than the
+  // tensor cores do; past 32 its O accumulator (DH / 2 a thread) and bias
+  // registers take one block an SM
+  static constexpr int kMinBlocks = BIAS && DH <= 32 ? 2 : 1;
+  // kernel 4 up to head dim 64: each warpgroup takes one window of a pair,
+  // the same 64 query rows of both (so the same bias rows, read twice from
+  // L1), with a K/V ring of its own; past 64 two rings no longer fit
+  // beside Q, and kernel 4 takes kernel 5's layout: the block's 128 rows
+  // of one (batch, head) share one ring
+  static constexpr bool kPair = BIAS && DH <= 64;
   static constexpr int kRings = kPair ? 2 : 1;
   static constexpr int kBlockRows = kPair ? 64 : kRows;   // rows a window
   static constexpr int kRowBytes = DH * 2;
@@ -260,6 +268,64 @@ __device__ __forceinline__ void load_bias(float (&bias)[BK / 2],
       bias[i + 1] = __ldg(row + min(col + 1, S - 1));
     }
   }
+}
+
+// Kernel 4's score terms of a 64 x 64 accumulator tile (wgmma's layout, or
+// a warp's mma.sync m16n8 tiles in order): element i at row rows[r], r =
+// (i / 2) % 2, and column c0 + (i / 4) * 8 + 2 tig + i % 2: bias[row, col]
+// + (-100 where their region ids differ), from the head's [S, S] bias hb
+// and the window's [S] region ids rw (or null), times `mul` into bv (with
+// mul = 1 / scale, the value an S accumulator starts at, so that its
+// scores come out as (q . k + terms / scale) * scale with no registers
+// beside the accumulator's); columns past S read column S - 1's (their
+// scores are masked where they are used). TRANS: the tile is
+// S^T (rows keys, columns queries), the bias read as bias[col, row]. rows
+// are clamped below S, rrow their region ids. The reads go through L1
+// (the block's other tiles read the same rows); each row's are at fixed
+// offsets from one pointer, so that the 32 loads in flight need no
+// address registers of their own.
+template <bool TRANS>
+__device__ __forceinline__ void score_bias(float* bv, const float* hb,
+                                           const int* rw, const int (&rows)[2],
+                                           const int (&rrow)[2], int c0,
+                                           int tig, int S, float mul = 1.f) {
+  const int cb = c0 + 2 * tig;
+  const long long step = TRANS ? S : 1;   // from one column to the next
+  const float* p0 = hb + (TRANS ? (long long)cb * S + rows[0]
+                                : (long long)rows[0] * S + cb);
+  const float* p1 = hb + (TRANS ? (long long)cb * S + rows[1]
+                                : (long long)rows[1] * S + cb);
+  // a tile past S (the last, ragged one) reads its columns clamped below
+  // S; the others at fixed offsets
+  const bool ragged = c0 + 64 > S;
+  auto col = [&](int k0) { return ragged ? min(k0, S - 1 - cb) : k0; };
+  // the region compares first, as two 16-bit masks (bit j * 2 + e: row 0
+  // / 1 against column j * 8 + e), so that the ids are dead before the 32
+  // bias loads are in flight (the compiler keeps loads below the barrier)
+  unsigned m0 = 0, m1 = 0;
+  if (rw != nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int g = __ldg(rw + cb + col(j * 8 + e));
+        m0 |= (unsigned)(g != rrow[0]) << (j * 2 + e);
+        m1 |= (unsigned)(g != rrow[1]) << (j * 2 + e);
+      }
+  }
+  asm volatile("" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = col(j * 8 + e);
+      const float x0 = __ldg(p0 + k * step);
+      const float x1 = __ldg(p1 + k * step);
+      bv[j * 4 + e] = mul * (x0 + ((m0 >> (j * 2 + e)) & 1 ? kMaskValue
+                                                             : 0.f));
+      bv[j * 4 + 2 + e] = mul * (x1 + ((m1 >> (j * 2 + e)) & 1 ? kMaskValue
+                                                                 : 0.f));
+    }
 }
 
 // S = Q K^T of one key tile over the main column blocks: k-steps of m64 x
@@ -597,7 +663,8 @@ __global__ void __launch_bounds__(kThreads, (Shape<DH, BIAS>::kMinBlocks))
   rc.scale = p.scale;
   rc.c = BIAS ? 1.4426950408889634f : p.scale * 1.4426950408889634f;
   rc.tig = lane % 4;
-  rc.masked = (wg == 0 ? mixed0 : mixed1) != 0;
+  // (one window a block: both warpgroups' flags are the window's)
+  rc.masked = (PAIR ? (wg == 0 ? mixed0 : mixed1) : (mixed0 | mixed1)) != 0;
   rc.pairs = S % 2 == 0;
   // this thread's two rows of its batch entry: r = 0 -> row g, r = 1 ->
   // row g + 8 of its warp's 16

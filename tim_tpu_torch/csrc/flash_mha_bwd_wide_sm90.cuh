@@ -1,6 +1,9 @@
 // Multi-head flash attention, backward, bf16, at head dims 80, 96, 112 and
 // 128 on Hopper's warpgroup tensor-core products (wgmma, sm_90a): kernel
-// 5b's route between head dims 64 and 128 (flash_mha_bwd_wide.cu), which
+// 5b's route between head dims 64 and 128 (flash_mha_bwd_wide.cu), and
+// with BIAS kernel 4b's dq, dk and dv at head dims 64-128
+// (window_attention_bwd_wide.cu: the relative-position bias and the shift
+// mask added to each score, dbias left to window_dbias_sm90.cuh), which
 // replaces the backward of tim_tpu/ops/flash.py::flash_mha (the Pallas
 // flash kernel's dkv and dq kernels) at the public VideoMAE widths past 64:
 // ViT-H/16 (80), ViT-g/14 (88, on the 96 instance), ViT-G/14 (104, on the
@@ -100,6 +103,11 @@ struct Params {
   int batch, heads, seq, seq_pad;
   int dh;              // the head dim read (the instance's, or 8 less)
   float scale;
+  // kernel 4b (BIAS): bias [heads, seq, seq] fp32; region [n_win, seq]
+  // int32 or null; the window type is batch % n_win
+  const float* bias;
+  const int* region;
+  int n_win;
 };
 
 // The TMA maps a pass streams: the main column blocks' of its two tensors
@@ -167,10 +175,11 @@ __device__ __forceinline__ void load_stream(const Maps<DH>& mp, uint32_t dst_a,
   }
 }
 
-// acc (64 x 64) = A B^T over the head dim: A the 64 rows from a_r0 of a
+// acc (64 x 64) = A B^T over the head dim (ACC: acc += A B^T, acc holding
+// kernel 4b's bias terms over the scale): A the 64 rows from a_r0 of a
 // [AROWS][DH] tile at a, B the kTile rows of a [kTile][DH] tile at b, both
 // K-major; k-steps walk the column blocks.
-template <int DH, int AROWS>
+template <int DH, int AROWS, bool ACC = false>
 __device__ __forceinline__ void product_rows(float (&acc)[32], uint32_t a,
                                              int a_r0, uint32_t b) {
   using C = Cols<DH>;
@@ -179,7 +188,7 @@ __device__ __forceinline__ void product_rows(float (&acc)[32], uint32_t a,
     const uint64_t da = desc<64>(a + AROWS * j * 128 + a_r0 * 128);
     const uint64_t db = desc<64>(b + kTile * j * 128);
     if (j == 0)
-      sm90::wgmma_ss<0, 0, false>(acc, da, db);
+      sm90::wgmma_ss<0, 0, ACC>(acc, da, db);
     else
       sm90::wgmma_ss<0, 0, true>(acc, da, db);
 #pragma unroll
@@ -277,7 +286,9 @@ __device__ __forceinline__ void store_rows(bf* dst, long long ld,
 }
 
 // The padded rows of stats: lse copied, D = do . o over the head dim read,
-// zeros past seq; one thread a padded row.
+// zeros past seq; one thread a padded row. (Internal linkage: two sources
+// include this header.)
+namespace {
 __global__ void __launch_bounds__(256) stats_kernel(const Params p) {
   const long long n = (long long)p.batch * p.heads * p.seq_pad;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -301,6 +312,27 @@ __global__ void __launch_bounds__(256) stats_kernel(const Params p) {
   p.stats[i] = lse;
   p.stats[n + i] = acc;
 }
+}  // namespace
+
+// Kernel 4b's terms of one 64 x 64 score tile (BIAS): this thread's rows
+// (clamped) and their region ids, the head's bias and the window's ids.
+struct TileBias {
+  const float* hb;
+  const int* rw;
+  int rows[2], rrow[2];
+  __device__ __forceinline__ TileBias(const Params& p, int b, int h,
+                                      int row0, bool on) {
+    const int S = p.seq;
+    hb = on ? p.bias + (long long)h * S * S : nullptr;
+    rw = on && p.region != nullptr ? p.region + (long long)(b % p.n_win) * S
+                                   : nullptr;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rows[r] = min(row0 + 8 * r, S - 1);
+      rrow[r] = rw != nullptr ? rw[rows[r]] : 0;
+    }
+  }
+};
 
 // The shared memory of a pass: resident tiles a, b; the ring's streamed
 // tiles; the dk/dv pass's lse and D; the ring's barriers.
@@ -330,8 +362,9 @@ struct Smem {
 };
 
 // dk, dv of 128 keys (blocks: (batch, head) major, then key blocks), q, do,
-// lse and D streamed through the ring.
-template <int DH>
+// lse and D streamed through the ring; BIAS: each tile's S^T accumulator
+// starts at kernel 4b's bias and mask over the scale.
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_kernel(const Params p, const __grid_constant__ Maps<DH> mp) {
   extern __shared__ unsigned char dyn_smem[];
@@ -389,6 +422,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   float dk[Cols<DH>::kNC][32], dv[Cols<DH>::kNC][32];
   TailAcc<DH> dk_t, dv_t;
   uint32_t pa[4][4], da[4][4];
+  // BIAS: the scores' terms (S^T: rows this warpgroup's keys)
+  const TileBias tb(p, b, h, k0 + wg * 64 + warp * 16 + lane / 4, BIAS);
+  const float inv_scale = 1.f / p.scale;
   zero<DH>(dk, dk_t);
   zero<DH>(dv, dv_t);
   auto arrived = [&](int jt) {
@@ -397,7 +433,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // S^T = K Q^T, dP^T = V dO^T of query tile jt: this warpgroup's 64 keys
   // as M
   auto issue_sdp = [&](int jt) {
-    product_rows<DH, kRows>(sc, sm.res_a, wg * 64, sm.a(jt % kStages));
+    if constexpr (BIAS) {
+      fwd90::score_bias<true>(sc, tb.hb, tb.rw, tb.rows, tb.rrow, jt * kTile,
+                              tig, S, inv_scale);
+      sm90::wg_fence();   // sc written by these loads, read by the product
+    }
+    product_rows<DH, kRows, BIAS>(sc, sm.res_a, wg * 64, sm.a(jt % kStages));
     product_rows<DH, kRows>(dp, sm.res_b, wg * 64, sm.b(jt % kStages));
   };
   // dV += P^T dO, dK += dS^T Q of query tile jt (pa, da: its fragments)
@@ -505,8 +546,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // dq of 128 queries (blocks: (batch, head) major, then query blocks), k and
 // v streamed through the ring; the dQ product of key tile kt - 1 runs while
-// the softmax work of tile kt does.
-template <int DH>
+// the softmax work of tile kt does; BIAS: each tile's S accumulator starts
+// at kernel 4b's bias and mask over the scale.
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const Params p, const __grid_constant__ Maps<DH> mp) {
   extern __shared__ unsigned char dyn_smem[];
@@ -569,6 +611,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   float dq[Cols<DH>::kNC][32];
   TailAcc<DH> dq_t;
   uint32_t da[4][4];
+  const TileBias tb(p, b, h, row0, BIAS);
+  const float inv_scale = 1.f / p.scale;
+  // S and dP of key tile kt (BIAS: S from the tile's terms over the scale)
+  auto issue_sdp = [&](int kt) {
+    if constexpr (BIAS) {
+      fwd90::score_bias<false>(sc, tb.hb, tb.rw, tb.rows, tb.rrow,
+                               kt * kTile, tig, S, inv_scale);
+      sm90::wg_fence();   // sc written by these loads, read by the product
+    }
+    product_rows<DH, kRows, BIAS>(sc, sm.res_a, wg * 64, sm.a(kt % kStages));
+    product_rows<DH, kRows>(dp, sm.res_b, wg * 64, sm.b(kt % kStages));
+  };
   zero<DH>(dq, dq_t);
   auto arrived = [&](int kt) {
     fwd90::mbar_wait(sm.full(kt % kStages), (kt / kStages) & 1);
@@ -589,8 +643,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // tile 0: S and dP, then dS
   arrived(0);
   sm90::wg_fence();
-  product_rows<DH, kRows>(sc, sm.res_a, wg * 64, sm.a(0));
-  product_rows<DH, kRows>(dp, sm.res_b, wg * 64, sm.b(0));
+  issue_sdp(0);
   sm90::wg_commit();
   sm90::wg_wait<0>();
   sm90::fence_regs(sc);
@@ -600,11 +653,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (kAhead < n_kt) load(kAhead);
 
   for (int kt = 1; kt < n_kt; ++kt) {
-    const int st = kt % kStages, prev = (kt - 1) % kStages;
+    const int prev = (kt - 1) % kStages;
     arrived(kt);
     sm90::wg_fence();
-    product_rows<DH, kRows>(sc, sm.res_a, wg * 64, sm.a(st));
-    product_rows<DH, kRows>(dp, sm.res_b, wg * 64, sm.b(st));
+    issue_sdp(kt);
     sm90::wg_commit();
     product_cols<DH>(dq, dq_t, da, sm.a(prev));   // dQ += dS K, tile kt - 1
     sm90::wg_commit();
@@ -670,7 +722,7 @@ inline long long stats_floats(int batch, int heads, int seq) {
 
 // stats, the dk/dv pass and the dq pass on one stream; returns the first
 // CUDA error of the launches (0 on success).
-template <int DH>
+template <int DH, bool BIAS = false>
 int launch(const Params& p, cudaStream_t stream) {
   if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
   const long long bh = (long long)p.batch * p.heads;
@@ -697,9 +749,9 @@ int launch(const Params& p, cudaStream_t stream) {
   stats_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(p);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = launch_pass(dkdv_kernel<DH>, p, qdo, stream, Shape<DH>::kSmem);
+  err = launch_pass(dkdv_kernel<DH, BIAS>, p, qdo, stream, Shape<DH>::kSmem);
   if (err != 0) return err;
-  return launch_pass(dq_kernel<DH>, p, kv, stream, Shape<DH>::kSmem);
+  return launch_pass(dq_kernel<DH, BIAS>, p, kv, stream, Shape<DH>::kSmem);
 }
 
 }  // namespace bwd90

@@ -31,7 +31,24 @@
 
 #include "flash_attention_sm90.cuh"
 
-// Head dim 32 (every Swin stage); another returns cudaErrorInvalidValue.
+// Past head dim 32 the instances live in sources of their own, built beside
+// this one: window_attention_wide.cu (bf16 64, 80, 96, 112),
+// window_attention_256.cu (bf16 128, 256), window_attention_f32.cu (fp32
+// 64, 128, 256) and window_attention_cols.cu (past 256, both types).
+namespace tim_attn {
+int launch_window_wide(const Params& p, int inst, cudaStream_t stream);
+int launch_window_256(const Params& p, int inst, cudaStream_t stream);
+int launch_window_f32(const Params& p, int inst, cudaStream_t stream);
+int launch_window_cols(const Params& p, int dh, bool bf16,
+                       cudaStream_t stream);
+}  // namespace tim_attn
+
+// The instance `inst` (the wrapper, ops/window_attention.py, picks it and
+// zero-pads the head dims it cannot read in place): 32; 64, 128, 256 and in
+// bf16 80, 96, 112; past 256 the column-slice route at dh itself. dh: the
+// head dim of q, k, v and out, the instance's, or in bf16 past 64 up to 8
+// less (read in place: TMA fills the columns past it with zeros, and they
+// are not stored); another pair returns cudaErrorInvalidValue.
 // strides: 12 element strides, (batch, head, row) for q, k, v and out.
 // bias: [heads, seq, seq] fp32, contiguous. region: [n_win, seq] int32,
 // or null for an unshifted block. lse: [batch, heads, seq] fp32 for the
@@ -42,14 +59,24 @@ extern "C" int tim_window_attention(const void* q, const void* k,
                                     const long long* strides, float* lse,
                                     const float* bias, const int* region,
                                     int n_win, int batch, int heads, int seq,
-                                    int dh, int is_bf16, float scale,
-                                    void* stream) {
+                                    int dh, int inst, int is_bf16,
+                                    float scale, void* stream) {
   tim_attn::Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out;
   tim_attn::set_strides(p, strides);
   p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
   p.lse = lse;
   p.bias = bias; p.region = region; p.n_win = n_win > 0 ? n_win : 1;
-  return tim_attn::launch<32, true>(p, dh, is_bf16 != 0,
-                                static_cast<cudaStream_t>(stream));
+  p.dh = dh;
+  const bool bf16 = is_bf16 != 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (inst > 256)
+    return dh == inst ? tim_attn::launch_window_cols(p, dh, bf16, st)
+                      : (int)cudaErrorInvalidValue;
+  const bool in_place = bf16 && inst > 64 && inst <= 128 && dh == inst - 8;
+  if (dh != inst && !in_place) return (int)cudaErrorInvalidValue;
+  if (inst == 32) return tim_attn::launch<32, true>(p, dh, bf16, st);
+  if (!bf16) return tim_attn::launch_window_f32(p, inst, st);
+  return inst >= 128 ? tim_attn::launch_window_256(p, inst, st)
+                     : tim_attn::launch_window_wide(p, inst, st);
 }
