@@ -1179,15 +1179,24 @@ def sliced(route: str) -> bool:
     return " slices " in route
 
 
+def clustered(route: str) -> bool:
+    """Whether a route name is the column slices' cluster route (bf16
+    forwards at head dims 513-2048)."""
+    return " cluster slices " in route
+
+
 # counts that are a part of another kernel's (kernel 5 / 5b's routes at
 # head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu;
-# kernels 1, 5 and 5b past 256, the *_cols.cu sources; kernels 4 / 4b past
-# head dim 32, the window_attention_*.cu sources)
+# kernels 1, 5 and 5b past 256, the *_cols.cu sources, and their bf16
+# forwards' cluster route past 512; kernels 4 / 4b past head dim 32, the
+# window_attention_*.cu sources)
 ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide",
                 "query_block_attention_cols", "flash_mha_cols",
-                "flash_mha_bwd_cols", "window_attention_wide",
-                "window_attention_256", "window_attention_f32",
-                "window_attention_cols", "window_attention_bwd_wide",
+                "flash_mha_bwd_cols", "query_block_attention_cluster",
+                "flash_mha_cluster", "window_attention_64",
+                "window_attention_wide", "window_attention_256",
+                "window_attention_f32", "window_attention_cols",
+                "window_attention_cluster", "window_attention_bwd_wide",
                 "window_attention_bwd_f32", "window_attention_bwd_cols",
                 "window_attention_dbias")
 
@@ -1202,11 +1211,12 @@ def window_route_counts():
                 for c in (False, True)]
     fwd, bwd = wa.window_attention, wa.window_attention_bwd
     return {
-        "window_attention_wide": RouteCount(fwd, names(bf16, (64, 80, 96,
-                                                              112))),
+        "window_attention_64": RouteCount(fwd, names(bf16, wa.PAIR_DIMS)),
+        "window_attention_wide": RouteCount(fwd, names(bf16, (80, 96, 112))),
         "window_attention_256": RouteCount(fwd, names(bf16, (128, 256))),
         "window_attention_f32": RouteCount(fwd, names(f32, (64, 128, 256))),
         "window_attention_cols": RouteCount(fwd, match=sliced),
+        "window_attention_cluster": RouteCount(fwd, match=clustered),
         "window_attention_bwd_wide": RouteCount(
             bwd, names(bf16, (64, 80, 96, 112, 128), True)),
         "window_attention_bwd_f32": RouteCount(bwd, names(f32, (64,), True)),
@@ -1240,6 +1250,9 @@ def launch_counters():
             "query_block_attention_cols": RouteCount(
                 qba.query_block_attention, match=sliced),
             "flash_mha_cols": RouteCount(fm.flash_mha, match=sliced),
+            "query_block_attention_cluster": RouteCount(
+                qba.query_block_attention, match=clustered),
+            "flash_mha_cluster": RouteCount(fm.flash_mha, match=clustered),
             "flash_mha_bwd_cols": RouteCount(fm.flash_mha_bwd,
                                              match=sliced),
             **window_route_counts()}
@@ -1531,14 +1544,18 @@ def vit_qkv(batch, seq, dtype, gen, heads=16, dh=64):
 def check_attention(name, kernel, plain, scores, args, kw, tag,
                     controls=False):
     """The kernel's inference and training (lse) launches against the plain
-    version; the row log-sum-exp against torch.logsumexp of the plain fp32
-    scores (``scores``, a function of the inputs). Returns (inference
+    version (the inference launch twice, the same bits both times); the
+    row log-sum-exp against torch.logsumexp of the plain fp32 scores
+    (``scores``, a function of the inputs). Returns (inference
     output, max abs error). In bf16, with ``controls``, also requires that
     the gate rejects two faulty controls: the plain output scaled by 0.98,
     and the online softmax that does not rescale its running sum."""
     got = kernel(*args, **kw)
+    again = kernel(*args, **kw)
     got_lse, lse = kernel_with_lse(name)(*args, **kw)
     torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{name} {tag}: two calls differ")
+    del again
     want = plain(*args, **kw)
     s = scores(*args, **kw)
     lse_err = max_err(lse, torch.logsumexp(s, -1))
@@ -7826,7 +7843,8 @@ def phase_build():
     # C7510-C7520)
     wgmma = (("fwd90", "attention_kernel"), ("sm90", "bwd_kernel"),
              ("bwd90", "dkdv_kernel"), ("bwd90", "dq_kernel"),
-             ("cols90", "cols_kernel"), ("colsbwd90", "bwd_kernel"),
+             ("cols90", "cols_kernel"), ("cols90", "cluster_kernel"),
+             ("win90", "window_kernel"), ("colsbwd90", "bwd_kernel"),
              ("tim_fpa", "gemm_kernel"),
              ("tim_i8", "int8_matmul_kernel"))
     spilled = [nice for (name, regs, st, ld), nice in zip(kernels, pretty)
@@ -8078,8 +8096,9 @@ def widths_query_block(gen, shapes=((128, 16, 160), (128, 8, 91)),
     tensor-core instance at 160) and at head dim 91 on strided views of a
     packed qkv (rows off 16 bytes: the CUDA-core design, lanes masked), or
     at ``shapes`` ((batch, heads, head dim); fp32 at batch ``f32_batch``
-    where given), fp32 and bf16, bf16's gate shown to reject its two
-    controls; bf16 timed beside masked SDPA, its backend named."""
+    where given), fp32 and bf16, two calls bit-equal, bf16's gate shown to
+    reject its two controls; bf16 timed beside masked SDPA, its backend
+    named."""
     from tim_tpu_torch.ops import query_block_attention as qba
     rows = []
     for batch0, heads, dh in shapes:
@@ -8090,7 +8109,11 @@ def widths_query_block(gen, shapes=((128, 16, 160), (128, 8, 91)),
             plan = qba.launch_plan(dh, dtype, *args)
             tag = f"{dtype} [{batch}, {heads}, 798, {dh}] F 100 ({plan})"
             got = qba.query_block_attention(*args)
+            again = qba.query_block_attention(*args)
             torch.cuda.synchronize()
+            require(torch.equal(got, again), f"query_block_attention {tag}: "
+                    f"two calls differ")
+            del again
             want = qba.query_block_attention_plain(*args)
             ok, err, rel = query_block_close(got, want)
             log(f"[widths] query_block_attention {tag}: max_abs_err="
@@ -8451,10 +8474,16 @@ HEADS_TIM = {"d_model": 512, "nhead": 2}
 HEADS_TIM_1 = {"d_model": 512, "nhead": 1}
 HEADS_TIM_3 = {"d_model": 450, "nhead": 3}
 VIT_L_H2 = ("--embed_dim", "1024", "--depth", "24", "--num_heads", "2")
+# ViT-L at finetune_cli --num_heads 1 (head dim 1024: kernel 5's cluster
+# route), depth cut to 2
+VIT_L_H1 = ("--embed_dim", "1024", "--depth", "2", "--num_heads", "1")
 # kernel 1 at (batch, heads, head dim), F 100; kernels 5 / 5b at [B, H, S,
-# dh]; fp32 at batch HEADS_F32_BATCH (kernel 1) and 1 (kernels 5 / 5b)
-HEADS_QBA = ((128, 2, 512), (128, 1, 1024), (128, 3, 300))
-HEADS_FLASH = ((8, 2, 1568, 512), (8, 1, 1568, 1024), (2, 3, 1568, 320))
+# dh]; fp32 at batch HEADS_F32_BATCH (kernel 1) and 1 (kernels 5 / 5b);
+# 2048 the cluster route at its widest (8 blocks), 2304 Q streamed
+HEADS_QBA = ((128, 2, 512), (128, 1, 1024), (128, 3, 300), (4, 1, 2048),
+             (4, 1, 2304))
+HEADS_FLASH = ((8, 2, 1568, 512), (8, 1, 1568, 1024), (2, 3, 1568, 320),
+               (2, 1, 300, 2048), (2, 1, 300, 2304))
 HEADS_F32_BATCH = 16
 
 
@@ -8496,11 +8525,12 @@ def heads_cli(tmp, rng):
 def phase_heads(card: str):
     """Phase 31d: head dims past 256. Each column-slice kernel against its
     plain version at the command lines' shapes (the gates and controls of
-    31a, timed beside SDPA); TIM detection at --nhead 2 (full depth), --nhead
-    1 and --d_model 450 --nhead 3 (2 layers) through ``widths_tim``; one
-    ``cli.run --train --validate`` and a resumed ``--validate`` at --nhead
-    2; ViT-L finetuning at --num_heads 2 (full depth). Returns (the
-    kernels' rows, launches by path)."""
+    31a, timed beside SDPA; past 512 the cluster route); TIM detection at
+    --nhead 2 (full depth), --nhead 1 and --d_model 450 --nhead 3 (2
+    layers) through ``widths_tim``; one ``cli.run --train --validate`` and
+    a resumed ``--validate`` at --nhead 2; ViT-L finetuning at --num_heads
+    2 (full depth) and 1 (2 layers). Returns (the kernels' rows, launches
+    by path)."""
     import pathlib
     import tempfile
     log(f"[heads] {card}")
@@ -8523,6 +8553,9 @@ def phase_heads(card: str):
         paths.update(timed("heads-vit-l-h2", widths_vit, tmp,
                            "widths-vit-l-h2", VIT_L_H2, 512,
                            ("flash_mha_cols", "flash_mha_bwd_cols")))
+        paths.update(timed("heads-vit-l-h1", widths_vit, tmp,
+                           "widths-vit-l-h1", VIT_L_H1, 1024,
+                           ("flash_mha_cluster", "flash_mha_bwd_cols")))
     return report, paths
 
 
@@ -8530,15 +8563,18 @@ def phase_heads(card: str):
 # past head dim 32) through Swin-B-shaped trunks with other heads, which
 # the JAX package runs: A omnivore_swinB_epic(num_heads=(2, 4, 8, 16))
 # (head dim 64 at every stage), B num_heads (1, 1, 1, 1) (128, 256, 512,
-# 1024) and C embed_dim 120, num_heads (3, 6, 12, 24) (40, through the
-# zero-padded copy to 64)
+# 1024: the cluster route at 1024) and C embed_dim 120, num_heads (3, 6,
+# 12, 24) (40: the forward read in place by the window-pair instance 48,
+# the backward through the zero-padded copy to 64)
 SWIN_TRUNKS = {"a": {"num_heads": (2, 4, 8, 16)},
                "b": {"num_heads": (1, 1, 1, 1)},
                "c": {"embed_dim": 120, "num_heads": (3, 6, 12, 24)}}
 # kernels 4 / 4b also at [64, 2, 784, dh] (64 windows a clip: Swin-B's
-# stage-1 geometry): 16 (the copy to 32), 48 (to 64), 200 (to 256) and
-# 264 (the column slices, in place)
-SWIN_EXTRA_DIMS = (16, 48, 200, 264)
+# stage-1 geometry): 16 (the copy to 32), 48 (the forward in place on the
+# pair instance 48, the backward through the copy to 64), 56 (in place on
+# the pair instance 64), 80 (the wgmma core's 80), 200 (the copy to 256)
+# and 264 (the column slices, in place)
+SWIN_EXTRA_DIMS = (16, 48, 56, 80, 200, 264)
 # fp32 checks run on this many windows (two window types when shifted)
 SWIN_F32_WINDOWS = 2
 
@@ -8583,8 +8619,10 @@ def swin_route_check(tag, args, kw, out, lse, do):
     from tim_tpu_torch.ops import window_attention as wa
     q = args[0]
     w, copied = wa.launch_plan(q.shape[-1], q.dtype, *args[:3])
+    bw, bcopied = wa.launch_plan(q.shape[-1], q.dtype, *args[:3],
+                                 backward=True)
     want_f = {wa.route(q.dtype, w, copied): 1}
-    want_b = {wa.route(q.dtype, w, copied, backward=True): 1}
+    want_b = {wa.route(q.dtype, bw, bcopied, backward=True): 1}
     got_f = routes_by_name(wa.window_attention,
                            lambda: wa.window_attention(*args, **kw))
     first = []
@@ -8593,7 +8631,7 @@ def swin_route_check(tag, args, kw, out, lse, do):
                                                    **kw)))
     require(got_f == want_f and got_b == want_b, f"heads-swin {tag}: "
             f"routes {got_f}, {got_b}; expected {want_f}, {want_b}")
-    if q.dtype == torch.bfloat16 and w != 32:
+    if q.dtype == torch.bfloat16 and bw != 32:
         again = wa.window_attention_bwd(*args, out, lse, do, **kw)
         torch.use_deterministic_algorithms(True)
         try:
@@ -9045,9 +9083,10 @@ def swin_head_trunks(card):
         "heads-swin-b-train", "b", (2, 2, 2, 2),
         {wa.route(bf16, w, False, backward=True): 2
          for w in (128, 256, 512, 1024)})
-    # C: head dim 40 through the copy to 64
+    # C: head dim 40, the forward read in place by the pair instance 48,
+    # the backward through the copy to 64
     paths["heads-swin-c-bf16"], ms_c, _ = swin_trunk_forward(
-        "heads-swin-c-bf16", "c", clips, [wa.route(bf16, 64, True)],
+        "heads-swin-c-bf16", "c", clips, [wa.route(bf16, 48, False)],
         depths=(2, 2, 2, 2))
     paths["heads-swin-c-train"] = swin_trunk_step(
         "heads-swin-c-train", "c", (2, 2, 2, 2),
@@ -9062,11 +9101,15 @@ def swin_head_trunks(card):
 
 def phase_swin_heads(card: str):
     """Phase 31e: Swin window attention at every head dim. Returns (the
-    kernels' rows, launches by path)."""
+    kernels' rows, launches by path: the kernel rows' own as
+    "heads-swin-kernels", the only path of the 80-112 forward routes)."""
     log(f"[heads-swin] {card}")
+    counters = zero_counts()
     report = timed("heads-swin-kernels", swin_head_kernels,
                    torch.Generator(device="cuda").manual_seed(SEED + 34))
+    kernels = read_counts(counters)
     paths = timed("heads-swin-trunks", swin_head_trunks, card)
+    paths["heads-swin-kernels"] = kernels
     return report, paths
 
 
@@ -9195,8 +9238,10 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, rows, pick in (
-            ("window_attention_wide", "window_attention",
+            ("window_attention_64", "window_attention",
              lambda r: r["route"] == "wgmma 64"),
+            ("window_attention_wide", "window_attention",
+             lambda r: r["route"] == "wgmma 80"),
             ("window_attention_256", "window_attention",
              lambda r: r["route"] == "wgmma 128"),
             ("window_attention_cols", "window_attention",
@@ -9211,7 +9256,8 @@ def main() -> int:
         first = next(r for r in timed_rows if pick(r))
         kernel_report[name] = {**{key: first[key] for key in keys},
                                "shape": first["shape"]}
-        if name in ("window_attention_wide", "window_attention_bwd_wide"):
+        if name in ("window_attention_64", "window_attention_cols",
+                    "window_attention_bwd_wide"):
             kernel_report[name]["per_shape"] = timed_rows
     for name, row in (("window_attention_f32", swin_report["f32"]),
                       ("window_attention_bwd_f32", swin_report["f32_bwd"])):
@@ -9224,6 +9270,23 @@ def main() -> int:
         timed_rows = [r for r in heads_report[name] if "ms" in r]
         first = timed_rows[0]
         kernel_report[f"{name}_cols"] = {
+            **{key: first[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library")},
+            "shape": first["shape"], "per_shape": timed_rows}
+    # the cluster route (kernels 1, 4 and 5 from head dim 513 to 2048):
+    # the timed shape at 1024 first, every timed cluster shape beside it
+    def on_cluster(row):
+        names = row.get("route", row.get("routes"))
+        return any(clustered(n) for n in (
+            names if isinstance(names, dict) else [names]))
+    for name, rows in (("query_block_attention",
+                        heads_report["query_block_attention"]),
+                       ("flash_mha", heads_report["flash_mha"]),
+                       ("window_attention", swin_report["window_attention"])):
+        timed_rows = [r for r in rows if "ms" in r and on_cluster(r)]
+        first = next(r for r in timed_rows if r["shape"][-1] == 1024)
+        kernel_report[f"{name}_cluster"] = {
             **{key: first[key] for key in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "library")},
@@ -9305,18 +9368,26 @@ def main() -> int:
             ("heads-swin-a-fp32", ("window_attention_f32",)),
             ("heads-swin-a-grad-fp32", ("window_attention_f32",
                                         "window_attention_bwd_f32")),
-            ("heads-swin-a-bf16", ("window_attention_wide",)),
-            ("heads-swin-a-train", ("window_attention_wide",
+            ("widths-vit-l-h1", ("flash_mha", "flash_mha_bwd",
+                                 "flash_mha_cols", "flash_mha_cluster",
+                                 "flash_mha_bwd_cols")),
+            ("widths-tim-h1-bf16", ("query_block_attention_cluster",)),
+            ("heads-swin-kernels", ("window_attention_64",
+                                    "window_attention_wide",
+                                    "window_attention_cluster")),
+            ("heads-swin-a-bf16", ("window_attention_64",)),
+            ("heads-swin-a-train", ("window_attention_64",
                                     "window_attention_bwd_wide",
                                     "window_attention_dbias")),
             ("heads-swin-b-bf16", ("window_attention_256",
-                                   "window_attention_cols")),
+                                   "window_attention_cols",
+                                   "window_attention_cluster")),
             ("heads-swin-b-train", ("window_attention_256",
                                     "window_attention_cols",
                                     "window_attention_bwd_wide",
                                     "window_attention_bwd_cols",
                                     "window_attention_dbias")),
-            ("heads-swin-c-bf16", ("window_attention_wide",)),
+            ("heads-swin-c-bf16", ("window_attention_64",)),
             ("heads-swin-c-train", ("window_attention_bwd_wide",
                                     "window_attention_dbias"))):
         for name in kernels:
@@ -9338,7 +9409,19 @@ def main() -> int:
             ("widths-tim-h3-int8", (("query_block_attention",
                                      "query_block_attention_cols"),)),
             ("widths-vit-l-h2", (("flash_mha", "flash_mha_cols"),
-                                 ("flash_mha_bwd", "flash_mha_bwd_cols")))):
+                                 ("flash_mha_bwd", "flash_mha_bwd_cols"))),
+            # past 512 the bf16 forwards take the cluster route, every
+            # launch: kernel 1 at --nhead 1, kernel 5 at --num_heads 1,
+            # kernel 4 at trunk C's forward (the pair instance 48) and
+            # trunk B's stage 4 (1024, its 2 launches of 24)
+            ("widths-tim-h1-bf16", (("query_block_attention",
+                                     "query_block_attention_cluster"),)),
+            ("widths-tim-h1-int8", (("query_block_attention",
+                                     "query_block_attention_cluster"),)),
+            ("widths-vit-l-h1", (("flash_mha", "flash_mha_cluster"),
+                                 ("flash_mha_bwd", "flash_mha_bwd_cols"))),
+            ("heads-swin-c-bf16", (("window_attention",
+                                    "window_attention_64"),))):
         for total, part in pairs:
             require(by_path[path][total] == by_path[path][part],
                     f"{path}: {by_path[path][total]} launches of {total}, "
@@ -9377,11 +9460,26 @@ def main() -> int:
                            "tim_tpu/ops/flash.py:82", "widths-vit-l-h2"),
         "flash_mha_bwd_cols": ("tim_tpu_torch/csrc/flash_mha_bwd_cols.cu",
                                "tim_tpu/ops/flash.py:71", "widths-vit-l-h2"),
+        # kernels 1, 5 and 4 from head dim 513 to 2048: the column slices
+        # of a query tile as one cluster (TIM at --nhead 1, ViT-L at
+        # --num_heads 1, a Swin-B trunk at num_heads (1, 1, 1, 1))
+        "query_block_attention_cluster": (
+            "tim_tpu_torch/csrc/attention_cols_sm90.cuh",
+            "tim_tpu/ops/pallas_attention.py:54", "widths-tim-h1-bf16"),
+        "flash_mha_cluster": ("tim_tpu_torch/csrc/attention_cols_sm90.cuh",
+                              "tim_tpu/ops/flash.py:82", "widths-vit-l-h1"),
+        "window_attention_cluster": (
+            "tim_tpu_torch/csrc/attention_cols_sm90.cuh",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-b-bf16"),
         # kernel 4 / 4b's routes past head dim 32 (trunks A, B at full
-        # depth: Swin-B's widths at num_heads (2, 4, 8, 16), (1, 1, 1, 1))
+        # depth: Swin-B's widths at num_heads (2, 4, 8, 16), (1, 1, 1, 1);
+        # the forward at 80-112 only in phase 31e's kernel rows)
+        "window_attention_64": (
+            "tim_tpu_torch/csrc/window_attention_64.cu",
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-a-bf16"),
         "window_attention_wide": (
             "tim_tpu_torch/csrc/window_attention_wide.cu",
-            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-a-bf16"),
+            "tim_tpu/ops/pallas_swin.py:71", "heads-swin-kernels"),
         "window_attention_256": (
             "tim_tpu_torch/csrc/window_attention_256.cu",
             "tim_tpu/ops/pallas_swin.py:71", "heads-swin-b-bf16"),

@@ -421,12 +421,14 @@ def test_attention_kernels_refuse_other_head_dims(gen):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("dh", [16, 40, 48, 64, 80, 96, 128, 200, 256, 264,
-                                512])
+@pytest.mark.parametrize("dh", [16, 40, 48, 56, 64, 80, 96, 128, 200, 256,
+                                264, 512, 520, 1024])
 @pytest.mark.parametrize("shifted", [False, True])
 def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
     """Kernels 4 and 4b at head dims on and off their instances (32, 64,
-    128, 256, bf16 80, 96, 112; past 256 the column-slice routes), shifted
+    128, 256, bf16 80, 96, 112, in the bf16 forward the window-pair
+    instances 48 and 64; past 256 the column-slice routes, bf16's forward
+    past 512 as one cluster), shifted
     (3 window types) and unshifted, on strided views of a packed
     projection at a ragged N: both forward launches and the lse against
     the plain version, the backward (dbias included) against the plain
@@ -445,6 +447,7 @@ def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
     kw = {"sm_scale": dh ** -0.5}
     args = (q, k, v, bias, region)
     inst, copied = wa.launch_plan(dh, dtype, q, k, v)
+    binst, bcopied = wa.launch_plan(dh, dtype, q, k, v, backward=True)
     wa.window_attention.routes.clear()
     wa.window_attention_bwd.routes.clear()
     _check_both_launches(window_attention, window_attention_with_lse,
@@ -460,7 +463,7 @@ def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
     assert dict(wa.window_attention.routes) == {
         wa.route(dtype, inst, copied): 3}
     assert dict(wa.window_attention_bwd.routes) == {
-        wa.route(dtype, inst, copied, backward=True): 1}
+        wa.route(dtype, binst, bcopied, backward=True): 1}
     if dtype != torch.bfloat16:
         return
     second = window_attention_bwd(*args, out, lse, do, **kw)
@@ -472,7 +475,7 @@ def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
     # the one-pass route of the 32 instance sums dq with atomics (its
     # deterministic route takes another dq pass); every route past 32 is
     # atomic-free
-    exact = range(1, 4) if inst == 32 else range(4)
+    exact = range(1, 4) if binst == 32 else range(4)
     for i in exact:
         assert torch.equal(first[i], second[i])
         assert torch.equal(first[i], third[i])
@@ -488,12 +491,13 @@ def test_window_attention_at_other_head_dims(gen, dtype, dh, shifted):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [16, 80, 88, 91, 104, 120, 128, 200, 256,
-                                264, 320, 512])
+                                264, 320, 512, 520, 1024])
 def test_flash_mha_at_other_head_dims(gen, dtype, dh):
     """Kernel 5 and 5b at head dims on and off their instances (64, 128,
     256; bf16 80, 96, 112, which read 88 and 104 in place; past 256 the
-    column-slice route), both launches, the lse, and the backward against
-    the plain backward's gates."""
+    column-slice route, bf16's forward past 512 as one cluster), both
+    launches, the lse, and the backward against the plain backward's
+    gates."""
     q, k, v = vit_qkv(2, 150, dtype, gen, heads=3, dh=dh)
     kw = {"sm_scale": dh ** -0.5}
     _check_both_launches(flash_mha, flash_mha_with_lse, flash_mha_plain,
@@ -508,7 +512,7 @@ def test_flash_mha_at_other_head_dims(gen, dtype, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [80, 88, 104, 120, 128, 264, 512])
+@pytest.mark.parametrize("dh", [80, 88, 104, 120, 128, 264, 512, 1024])
 @pytest.mark.parametrize("s", [37, 150])
 def test_flash_mha_wide_routes_read_in_place_and_repeat(gen, dh, s):
     """bf16 past 64: each call launches the plan's instance (up to 128) or
@@ -544,6 +548,148 @@ def test_flash_mha_wide_routes_read_in_place_and_repeat(gen, dh, s):
         assert torch.equal(leaf.grad[:, :, i].transpose(1, 2), g)
     for g, w in zip(first, flash_mha_bwd_plain(q, k, v, do, **kw)):
         assert grad_close(g, w, True)[0]
+
+
+def _rejects(control, want):
+    """A faulty control's output fails the attention gate."""
+    return not attention_close(control, want)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,dh", [(2, 64), (3, 40), (2, 48), (2, 56)])
+def test_window_pair_routes_at_trunk_shapes(gen, heads, dh):
+    """Kernel 4's window-pair design in bf16 at a Swin-B-shaped trunk's
+    stage 1 (one clip: [64, heads, 784, dh], shifted): one launch a call on
+    the instance the plan names (48 or 64, read in place: no " via copy"),
+    held to the plain version under the attention gate, the lse to the
+    scores' log-sum-exp, the same bits call to call; the gate rejects the
+    plain version without the bias and without the shift mask."""
+    from tim_tpu_torch.ops import window_attention as wa
+    q, k, v = swin_qkv(1, 64, heads, torch.bfloat16, gen, dh=dh)
+    bias, region = swin_bias(heads, SWIN_STAGES[0][2], True, gen)
+    kw = {"sm_scale": dh ** -0.5}
+    inst, copied = wa.launch_plan(dh, torch.bfloat16, q, k, v)
+    assert not copied and inst == (48 if dh <= 48 else 64)
+    wa.window_attention.routes.clear()
+    out, lse = window_attention_with_lse(q, k, v, bias, region, **kw)
+    again = window_attention(q, k, v, bias, region, **kw)
+    torch.cuda.synchronize()
+    assert dict(wa.window_attention.routes) == {f"wgmma {inst}": 2}
+    assert torch.equal(out, again)
+    want = window_attention_plain(q, k, v, bias, region, **kw)
+    assert attention_close(out, want)[0]
+    s = swin_scores(q, k, v, bias, region, **kw)
+    assert (lse - torch.logsumexp(s, -1)).abs().max().item() <= LSE_TOL
+    assert _rejects(window_attention_plain(q, k, v, torch.zeros_like(bias),
+                                           region, **kw), want)
+    assert _rejects(window_attention_plain(q, k, v, bias, None, **kw), want)
+
+
+# past 512 the cluster route at 3 (520), 4 (1024), 5 (1280), 6 (1536), 7
+# (1544, the last slice ragged) and 8 (2048) blocks a cluster; at 512 one
+# block a slice; past 2048 (2304) Q streamed
+CLUSTER_HEAD_DIMS = (520, 1280, 1536, 1544, 2048, 2304)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,s,dh", [(8, 1, 1568, 1024), (8, 2, 1568, 512),
+                                      (2, 3, 300, 520)]
+                         + [(2, 1, 300, d) for d in CLUSTER_HEAD_DIMS[1:]])
+def test_flash_mha_cluster_route_matches_plain_and_repeats(gen, b, h, s, dh):
+    """Kernel 5's column slices past 256 in bf16: from 513 to 2048 the
+    slices of a query tile as one cluster (at 512 one block a slice, past
+    2048 Q streamed), one launch a call on the route the plan names, held
+    to the plain version, the lse to the scores', the same bits call to
+    call; the gate rejects a slice that forms its scores from its own 256
+    columns alone (the cluster's sum left out)."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    q, k, v = vit_qkv(b, s, torch.bfloat16, gen, heads=h, dh=dh)
+    kw = {"sm_scale": dh ** -0.5}
+    fm.flash_mha.routes.clear()
+    out, lse = flash_mha_with_lse(q, k, v, **kw)
+    again = flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dict(fm.flash_mha.routes) == {
+        fm.slices_route(torch.bfloat16, dh): 2}
+    assert torch.equal(out, again)
+    want = flash_mha_plain(q, k, v, **kw)
+    assert attention_close(out, want)[0]
+    scores = vit_scores(q, k, v, **kw)
+    assert (lse - torch.logsumexp(scores, -1)).abs().max().item() <= LSE_TOL
+    part = torch.matmul(q[..., :256].float(),
+                        k[..., :256].float().transpose(-1, -2)) * kw[
+                            "sm_scale"]
+    control = torch.matmul(torch.softmax(part, -1).to(v.dtype).float(),
+                           v.float()).to(q.dtype)
+    assert _rejects(control, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,nq,f,dh", [(128, 1, 798, 100, 1024),
+                                         (128, 2, 798, 100, 512)]
+                         + [(4, 2, 37, 20, d) for d in CLUSTER_HEAD_DIMS])
+def test_query_block_cluster_route_matches_plain_and_repeats(gen, b, h, nq,
+                                                             f, dh):
+    """Kernel 1 past 256 in bf16 on strided views of packed projections:
+    from 513 to 2048 on the cluster route (its self score summed across
+    the cluster too; past 2048 Q streamed), one launch a call, held to the
+    plain version, the same bits call to call; the gate rejects the self
+    key dropped."""
+    from chip_smoke import query_block_without_self
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import query_block_attention as qba
+    qkv = torch.randn(b, nq, 3, h, dh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qq, kq, vq = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    ctx = torch.randn(b, f, 2, h, dh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kc, vc = (ctx[:, :, i].transpose(1, 2) for i in range(2))
+    qba.query_block_attention.routes.clear()
+    out = query_block_attention(qq, kc, kq, vc, vq)
+    again = query_block_attention(qq, kc, kq, vc, vq)
+    torch.cuda.synchronize()
+    assert dict(qba.query_block_attention.routes) == {
+        fm.slices_route(torch.bfloat16, dh): 2}
+    assert torch.equal(out, again)
+    want = query_block_attention_plain(qq, kc, kq, vc, vq)
+    assert attention_close(out, want)[0]
+    assert _rejects(query_block_without_self(qq, kc, kq, vc, vq), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bw,n_win,dh", [(8, 1, 1024), (6, 3, 1024),
+                                         (32, 1, 512)]
+                         + [(6, 3, d) for d in CLUSTER_HEAD_DIMS[1:]])
+def test_window_cluster_route_matches_plain_and_repeats(gen, bw, n_win, dh):
+    """Kernel 4 past 256 in bf16 (a Swin-B trunk at num_heads (1, 1, 1, 1):
+    [8, 1, 784, 1024] at stage 4, [32, 1, 784, 512] at stage 3; and
+    shifted blocks): from 513 to 2048 the cluster route, rank 0's partial
+    carrying the bias and mask (past 2048 Q streamed); held to the plain
+    version, the lse to the scores', the same bits call to call; the gate
+    rejects the bias dropped."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import window_attention as wa
+    n = 784 if n_win == 1 else 150
+    qkv = torch.randn(bw, n, 3, 1, dh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    bias = torch.randn(1, n, n, generator=gen, device="cuda")
+    region = (torch.randint(0, 3, (n_win, n), generator=gen, device="cuda",
+                            dtype=torch.int32) if n_win > 1 else None)
+    kw = {"sm_scale": dh ** -0.5}
+    wa.window_attention.routes.clear()
+    out, lse = window_attention_with_lse(q, k, v, bias, region, **kw)
+    again = window_attention(q, k, v, bias, region, **kw)
+    torch.cuda.synchronize()
+    assert dict(wa.window_attention.routes) == {
+        fm.slices_route(torch.bfloat16, dh): 2}
+    assert torch.equal(out, again)
+    want = window_attention_plain(q, k, v, bias, region, **kw)
+    assert attention_close(out, want)[0]
+    s = swin_scores(q, k, v, bias, region, **kw)
+    assert (lse - torch.logsumexp(s, -1)).abs().max().item() <= LSE_TOL
+    assert _rejects(window_attention_plain(q, k, v, torch.zeros_like(bias),
+                                           region, **kw), want)
 
 
 @pytest.mark.gpu

@@ -167,7 +167,9 @@ def test_flash_plan_and_routes_past_256():
     """257-1024 in both dtypes: the column-slice route at dh where a row of
     dh fills 16-byte words (bf16 multiples of 8, fp32 of 4), else at the
     next multiple of 64 through the copy; strided rows off 16 bytes take
-    the copy too; one route name a (dtype, width, direction, copy)."""
+    the copy too; one route name a (dtype, width, direction, copy); the
+    bf16 forward's slices of a query tile as one cluster from 513 to 2048
+    (``CLUSTER_DIMS``), Q streamed past it."""
     for dtype, per in ((BF16, 8), (F32, 4)):
         for dh in range(257, 1025):
             w, copied = fm.launch_plan(dh, dtype)
@@ -179,6 +181,16 @@ def test_flash_plan_and_routes_past_256():
     assert fm.launch_plan(512, BF16, q, shifted, q) == (512, True)
     assert fm.route(BF16, 512, False) == "wgmma slices 512"
     assert fm.route(BF16, 320, True) == "wgmma slices 320 via copy"
+    for dh in range(257, 2400, 8):
+        assert fm.cluster(dh, BF16) == (512 < dh <= 2048)
+        assert not fm.cluster(dh, F32)
+    assert fm.route(BF16, 520, False) == "wgmma cluster slices 520"
+    assert fm.route(BF16, 1024, False) == "wgmma cluster slices 1024"
+    assert fm.route(BF16, 2048, False) == "wgmma cluster slices 2048"
+    assert fm.route(BF16, 2112, True) == "wgmma streamed slices 2112 via copy"
+    assert fm.route(BF16, 1024, False, backward=True) \
+        == "wgmma two passes slices 1024"
+    assert fm.route(F32, 1024, False) == "fp32 cuda cores slices 1024"
     assert fm.route(BF16, 512, False, backward=True) \
         == "wgmma two passes slices 512"
     # the backward is atomic-free either way: one route, deterministic or not
@@ -201,7 +213,7 @@ def test_query_block_plan_and_copy_past_256(dh, aligned, width):
     """Kernel 1 past 256: the column-slice design in both dtypes; bf16 read
     in place where dh is a multiple of 8 and every row is 16-byte aligned,
     else copied zero-padded to the next multiple of 64; fp32 never
-    copied."""
+    copied; bf16 past 512 the slices of a query tile as one cluster."""
     b, h, nq, f = 1, 2, 24, 10
     qkv = torch.zeros(b, nq + f, 3, h, dh + (0 if aligned else 1),
                       dtype=BF16)[..., :dh]
@@ -213,8 +225,10 @@ def test_query_block_plan_and_copy_past_256(dh, aligned, width):
     f32 = [t.float() for t in args]
     assert qba.launch_plan(dh, F32, *f32) == qba.COLS
     assert qba.copy_width(dh, F32, *f32) is None
+    cluster = " cluster" if (width or dh) > 512 else ""
     assert qba.route(width or dh, BF16, qba.COLS, width is not None) == (
-        f"wgmma slices {width or dh}" + (" via copy" if width else ""))
+        f"wgmma{cluster} slices {width or dh}"
+        + (" via copy" if width else ""))
     assert qba.route(dh, F32, qba.COLS) == f"fp32 cuda cores slices {dh}"
     assert qba.route(128, BF16, qba.TENSOR_CORES) == "tensor cores 128"
     assert qba.route(256, BF16, qba.CUDA_CORES) == "cuda cores 256"

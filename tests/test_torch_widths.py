@@ -277,6 +277,8 @@ def test_flash_routes_name_each_launch():
     assert fm.route(BF16, 256, True, backward=True) \
         == "mma.sync two passes 256 via copy"
     assert fm.route(F32, 128, True) == "fp32 cuda cores 128 via copy"
+    # past 512 the bf16 forward's slices run as one cluster
+    assert fm.route(BF16, 768, False) == "wgmma cluster slices 768"
     names = {fm.route(BF16, w, c, backward=b) for w in fm.HEAD_DIMS
              for c in (False, True) for b in (False, True)}
     assert len(names) == 4 * len(fm.HEAD_DIMS)

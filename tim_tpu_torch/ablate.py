@@ -2,7 +2,7 @@
 its loop removed at a time, on the CUDA card.
 
     python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|3|all]
-                                   [--head_dim 64]
+                                   [--head_dim N]
 
 - 5b, the flash-attention backward, at [8, 16, 1568, head_dim] (ViT-L's
   64 by default: the one-pass core ``csrc/flash_mha_bwd_sm90.cuh``; bf16
@@ -11,8 +11,16 @@ its loop removed at a time, on the CUDA card.
   where it does), beside the backward of ``scaled_dot_product_attention``;
 - 5, the flash-attention forward, and 4, the window-attention forward
   (their shared core ``csrc/flash_attention_sm90.cuh``), at
-  [8, 16, 1568, head_dim] and at Swin-B's stage 1 ([512, 4, 784, 32],
-  shifted, batch 8), each as
+  [8, 16, 1568, head_dim] and at a Swin trunk's stage 1 (``--head_dim``,
+  default Swin-B's 32: [512, 4, 784, 32]; 64 trunk A's [512, 2, 784, 64],
+  40 trunk C's [512, 3, 784, 40]; shifted, batch 8); kernel 4 at head
+  dims 33-64 is the window-pair design (``csrc/window_attention_sm90.cuh``:
+  its cuts, and the instances' other tiles from
+  ``csrc/window_attention_64.cu``); kernel 5 past 256 the column slices at
+  [8, 1024 / head_dim, 1568, head_dim] (``csrc/attention_cols_sm90.cuh``;
+  past 512 the cluster route: the exchange alone, the products alone, the
+  other way to exchange, and one block a slice; at 257-512 the cluster
+  route beside one block a slice); each as
   its inference launch and as its training launch (which writes the row
   log-sum-exp), beside ``scaled_dot_product_attention`` (kernel 4: with
   the float mask ab[type]) without and with inputs that require grad (the
@@ -118,11 +126,91 @@ FORWARD_CUTS = {
                      "   // -inf -> 0", "fmaf(sc[i], rc.c, -mc[r]);"),
     "lse store": ("    if constexpr (LSE) {\n      if (rc.tig == 0",
                   "  }\n  // a column pair of an accumulator's element", ""),
+    "first product (Q K^T)": (
+        "    issue_s<DH, BK, QB, KVB>(sc, dq, dk(kt));\n"
+        "    issue_s_tail<DH, BK>(sc, s_q, wg, stage_k(kt));\n"
+        "    sm90::wg_commit();\n    issue_pv", "    issue_pv", ""),
     "second product (P V)": (
         "    issue_pv<DH, BK, NC>(o, pa, dv(kt - 1));\n",
         "    sm90::wg_commit();\n    sm90::wg_wait<1>();", ""),
 }
 KERNEL_4_ONLY = ("bias load", "region compare")
+
+PAIR_HEADER = "window_attention_sm90.cuh"
+# kernel 4's variants at head dims 33-64 (the window-pair design)
+PAIR_CUTS = {
+    "bias read": ("    const float2 b2 = *reinterpret_cast<const float2*>(",
+                  "    float x0 = fmaf(",
+                  "    const float2 b2 = make_float2(0.f, 0.f);\n"),
+    "region compare": ("    if (masked) {", "    if (ragged) {", ""),
+    "exponentials": ("sm90::ex2(fmaf(sc[i], kLog2e, -mc[r]));",
+                     "   // -inf -> 0", "fmaf(sc[i], kLog2e, -mc[r]);"),
+    "first product (Q K^T)": (
+        "    fwd90::issue_s<DH, BK, QB, KVB>(sc, dq, desc<BW>(stage_k(kt)));"
+        "\n", "    fwd90::issue_pv<DH, BK, NC>(o, pa, desc<BW>(stage_v(kt"
+        " - 1)));", ""),
+    "second product (P V)": (
+        "    fwd90::issue_pv<DH, BK, NC>(o, pa, desc<BW>(stage_v(kt - 1)));"
+        "\n", "    sm90::wg_commit();\n    sm90::wg_wait<1>();", ""),
+    "lse store": ("    if constexpr (LSE) {\n      if (tig == 0",
+                  "  }\n  // a column pair", ""),
+}
+PAIR_SOURCE = "window_attention_64.cu"
+# the launchers window_attention.cu's entry dispatches to besides the pair
+# instances', stubbed in the pair design's variants (each builds two
+# sources, not six)
+PAIR_STUBS = ("ablate_stubs.cu", """#include "flash_attention.cuh"
+namespace tim_attn {
+int launch_window_wide(const Params&, int, cudaStream_t) { return 1; }
+int launch_window_256(const Params&, int, cudaStream_t) { return 1; }
+int launch_window_f32(const Params&, int, cudaStream_t) { return 1; }
+int launch_window_cols(const Params&, int, bool, bool, cudaStream_t) {
+  return 1;
+}
+}  // namespace tim_attn
+""")
+# the design's tiles (keys a tile, ring stages, blocks an SM), both
+# instances set alike: the two instances' own settings among them
+PAIR_CONFIGS = {
+    f"tiles {bk} keys, {ns} stages, {mb} block(s) an SM": (
+        "constexpr int kKeys64 =", "\nint launch_window_64", "".join(
+            f"constexpr int kKeys{d} = {bk}, kStages{d} = {ns}, "
+            f"kBlocks{d} = {mb};\n" for d in (64, 48)))
+    for bk, ns, mb in ((32, 3, 2), (64, 4, 1), (64, 3, 1), (32, 4, 1))}
+
+COLS_HEADER = "attention_cols_sm90.cuh"
+# the column-slice forward's cluster route past head dim 512 (kernel 5)
+CLUSTER_CUTS = {
+    "the products (the exchange alone)": [
+        ("    // [partial products]\n", "    // [/partial products]", ""),
+        ("      // [pv product]\n", "      // [/pv product]", ""),
+        ("    // [last pv product]\n", "    // [/last pv product]", "")],
+    "the exchange (the products alone)": [
+        ("    // [exchange]\n", "    // [/exchange]", ""),
+        ("  // [exchange done]\n", "  // [/exchange done]", "")],
+    "the reduce-scatter (every block reading every partial instead)": (
+        "  // [reduce-scatter]\n", "  // [/reduce-scatter]",
+        "  float4 v[N / 4];\n#pragma unroll\n"
+        "  for (int j = 0; j < N / 4; ++j)\n"
+        "    v[j] = ld_cluster(map_rank(mine + j * kThreads * 16, 0));\n"
+        "  for (int r = 1; r < ns; ++r) {\n#pragma unroll\n"
+        "    for (int j = 0; j < N / 4; ++j)\n"
+        "      add4(v[j], ld_cluster(map_rank(mine + j * kThreads * 16, "
+        "r)));\n  }\n#pragma unroll\n"
+        "  for (int j = 0; j < N / 4; ++j) {\n"
+        "    x[4 * j] = v[j].x;\n    x[4 * j + 1] = v[j].y;\n"
+        "    x[4 * j + 2] = v[j].z;\n    x[4 * j + 3] = v[j].w;\n  }\n"),
+}
+# the other route at a head dim, where a cluster can hold the slices: one
+# block a slice past 512, the cluster at 257-512
+_ROUTE = "  return ns >= 3 && ns <= kMaxCluster;"
+CLUSTER_ROUTES = {
+    "one block a slice (no cluster)": (_ROUTE, "\n", "  return false;"),
+    "the cluster route": (_ROUTE, "\n",
+                          "  return ns >= 2 && ns <= kMaxCluster;")}
+# window_attention.cu's entry dispatches past head dim 32 to these
+WINDOW_SOURCES = ("window_attention_wide.cu", "window_attention_256.cu",
+                  "window_attention_f32.cu", "window_attention_cols.cu")
 
 WINDOW_BWD_HEADER = "window_attention_bwd_sm90.cuh"
 # kernel 4b's variants (the bf16 one-pass backward)
@@ -186,13 +274,18 @@ def cut(text: str, start: str, end: str, new: str) -> str:
     return text[:i] + new + text[text.index(end, i):]
 
 
-def variants(header: str, cuts) -> dict:
-    """{name: the header's text}: the full kernel and one variant a cut."""
+def variants(header: str, cuts, full: bool = True) -> dict:
+    """{name: the header's text}: the full kernel and one variant a cut
+    (a cut: (start, end, replacement), or a list of them applied in
+    turn)."""
     with open(os.path.join(_build._CSRC, header)) as f:
         text = f.read()
-    out = {"full kernel": text}
-    out.update({f"without {name}": cut(text, *spec)
-                for name, spec in cuts.items()})
+    out = {"full kernel": text} if full else {}
+    for name, spec in cuts.items():
+        t = text
+        for one in (spec if isinstance(spec, list) else [spec]):
+            t = cut(t, *one)
+        out[f"without {name}" if full else name] = t
     return out
 
 
@@ -202,6 +295,9 @@ def build(work: str, name: str, header: str, text: str, sources) -> str:
     shutil.copytree(_build._CSRC, src)
     with open(os.path.join(src, header), "w") as f:
         f.write(text)
+    if PAIR_STUBS[0] in sources:
+        with open(os.path.join(src, PAIR_STUBS[0]), "w") as f:
+            f.write(PAIR_STUBS[1])
     lib = src + ".so"
     proc = subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
@@ -252,10 +348,18 @@ def sdpa_with_grad(*args, **kwargs):
     return run
 
 
+def heads_of(dh: int) -> int:
+    """Kernel 5's heads at head dim dh: ViT-L's 16 up to 256, past it the
+    heads of a 1024-wide ViT (finetune_cli --num_heads 2, 1)."""
+    return 16 if dh <= fm.SLICED else max(1, 1024 // dh)
+
+
 def packed_qkv(dh, gen):
-    """q, k, v [8, 16, 1568, dh] bf16 as views of one packed projection, and
-    the instance they run on (which reads them in place)."""
-    qkv = torch.randn(8, 1568, 3, 16, dh, generator=gen, device="cuda")
+    """q, k, v [8, heads_of(dh), 1568, dh] bf16 as views of one packed
+    projection, and the instance they run on (which reads them in
+    place)."""
+    qkv = torch.randn(8, 1568, 3, heads_of(dh), dh, generator=gen,
+                      device="cuda")
     q, k, v = fm.unpack_qkv(qkv.to(torch.bfloat16))
     inst, copied = fm.launch_plan(dh, torch.bfloat16, q, k, v)
     if copied:
@@ -315,35 +419,56 @@ def forward_calls(libs, symbol, argtypes, args_of, cuts_apply):
 
 def ablate_5(libs, gen, dh):
     q, k, v, inst = packed_qkv(dh, gen)
+    h = q.shape[1]
     scale = dh ** -0.5
     view, strides = fm.launch_args(q, k, v)
     lse = fm.row_stats(q)
     stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
+            strides)
 
-    def args_of(launch):
-        return (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
-                strides, lse.data_ptr() if launch == "lse" else None, 8, 16,
-                1568, dh, inst, 1, scale, stream)
-
-    calls = forward_calls(libs, "tim_flash_mha", fm._ARGTYPES, args_of,
-                          lambda name: not any(c in name for c in
-                                               KERNEL_4_ONLY))
+    if inst > fm.SLICED:   # the column slices: flash_mha_cols.cu
+        def args_of(launch):
+            return (*ptrs, lse.data_ptr() if launch == "lse" else None, 8,
+                    h, 1568, dh, 1, scale, stream)
+        calls = forward_calls(libs, "tim_flash_mha_cols", fm._COLS_ARGTYPES,
+                              args_of, lambda name: True)
+    else:
+        def args_of(launch):
+            return (*ptrs, lse.data_ptr() if launch == "lse" else None, 8,
+                    h, 1568, dh, inst, 1, scale, stream)
+        calls = forward_calls(libs, "tim_flash_mha", fm._ARGTYPES, args_of,
+                              lambda name: not any(c in name for c in
+                                                   KERNEL_4_ONLY))
     calls["scaled_dot_product_attention"] = (
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     calls["scaled_dot_product_attention, inputs require grad"] = (
         sdpa_with_grad(q, k, v, scale=scale))
-    return {"shape": [8, 16, 1568, dh], "instance": inst,
-            "ms": in_turns(calls)}
+    return {"shape": [8, h, 1568, dh], "instance": inst,
+            "route": fm.route(q.dtype, inst, False), "ms": in_turns(calls)}
 
 
-def ablate_4(libs, gen):
-    """Stage 1 of Swin-B at batch 8: 512 windows x 4 heads, N 784, dh 32,
-    shifted (region ids of 64 window types), a random bias [4, 784, 784]."""
+# kernel 4's heads at each head dim: Swin-B's stage 1 (32), the trunks of
+# chip_smoke's phase 31e (A: 64, C: 40) and its extra head dim 48
+WINDOW_HEADS = {32: 4, 40: 3, 48: 2, 64: 2}
+
+
+def ablate_4(libs, gen, dh=32):
+    """Stage 1 of a Swin trunk at batch 8: 512 windows x ``WINDOW_HEADS``
+    heads (Swin-B's 4 at head dim 32), N 784, shifted (region ids of 64
+    window types), a random bias [heads, 784, 784]; q, k and v on the
+    instance ``window_attention.launch_plan`` picks (through its
+    zero-padded copy where the wrapper takes one: the copy is not
+    timed)."""
     from tim_tpu_torch.models.backbones import swin3d as sw
-    n_win, heads, dims = 64, 4, (16, 56, 56)
-    qkv = torch.randn(8 * n_win, 784, 3, heads, 32, generator=gen,
+    n_win, dims = 64, (16, 56, 56)
+    heads = WINDOW_HEADS.get(dh, max(1, round(128 / dh)))
+    qkv = torch.randn(8 * n_win, 784, 3, heads, dh, generator=gen,
                       device="cuda").to(torch.bfloat16)
     q, k, v = fm.unpack_qkv(qkv)
+    inst, copied = wa.launch_plan(dh, torch.bfloat16, q, k, v)
+    if copied:
+        q, k, v = fm.unpack_qkv(fm.padded_qkv(q, k, v, inst))
     bias = torch.randn(heads, 784, 784, generator=gen, device="cuda")
     window, shift = sw.effective_window(dims, (16, 7, 7), (8, 3, 3))
     region = torch.from_numpy(sw.shift_region_ids(dims, window,
@@ -351,26 +476,31 @@ def ablate_4(libs, gen):
     view, strides = fm.launch_args(q, k, v)
     lse = fm.row_stats(q)
     stream = torch.cuda.current_stream().cuda_stream
+    scale = dh ** -0.5
+    bias_k, pitch = (wa.pair_bias(bias) if inst in wa.PAIR_DIMS
+                     else (bias, 784))
 
     def args_of(launch):
         return (q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
                 strides, lse.data_ptr() if launch == "lse" else None,
-                bias.data_ptr(), region.data_ptr(), n_win, 8 * n_win, heads,
-                784, 32, 32, 1, 32 ** -0.5, stream)
+                bias_k.data_ptr(), pitch, region.data_ptr(), n_win,
+                8 * n_win, heads, 784, q.shape[-1], inst, 1, scale, stream)
 
     calls = forward_calls(libs, "tim_window_attention", wa._ARGTYPES,
                           args_of, lambda name: True)
-    shape = (8, n_win * heads, 784, 32)
+    shape = (8, n_win * heads, 784, q.shape[-1])
     lib_qkv = [t.reshape(shape) for t in (q, k, v)]
     mask = wa.attention_bias(bias, region).expand(
         n_win, heads, 784, 784).reshape(1, n_win * heads, 784, 784).to(
             torch.bfloat16)
     calls["masked scaled_dot_product_attention"] = (
         lambda: F.scaled_dot_product_attention(*lib_qkv, attn_mask=mask,
-                                               scale=32 ** -0.5))
+                                               scale=scale))
     calls["masked scaled_dot_product_attention, inputs require grad"] = (
-        sdpa_with_grad(*lib_qkv, attn_mask=mask, scale=32 ** -0.5))
-    return {"shape": [8 * n_win, heads, 784, 32], "ms": in_turns(calls)}
+        sdpa_with_grad(*lib_qkv, attn_mask=mask, scale=scale))
+    return {"shape": [8 * n_win, heads, 784, dh], "instance": inst,
+            "copied": copied, "route": wa.route(torch.bfloat16, inst, copied),
+            "ms": in_turns(calls)}
 
 
 def ablate_4b(libs, gen):
@@ -513,12 +643,15 @@ def main(argv=None) -> int:
     parser.add_argument("--kernel", choices=("5b", "5", "4", "forward",
                                              "4b", "2", "3", "all"),
                         default="all")
-    parser.add_argument("--head_dim", type=int, default=64,
-                        help="kernels 5 and 5b's head dim: 64, or one that "
-                        "a bf16 instance past 64 reads in place (a "
-                        "multiple of 8 from 72 to 128)")
+    parser.add_argument("--head_dim", type=int, default=None,
+                        help="kernels 5 and 5b's head dim (default 64, or "
+                        "one that a bf16 instance past 64 reads in place: "
+                        "a multiple of 8 from 72 to 128); kernel 4's "
+                        "(default 32, Swin-B's)")
     parsed = parser.parse_args(argv)
-    which, dh = parsed.kernel, parsed.head_dim
+    which = parsed.kernel
+    dh = parsed.head_dim or 64
+    dh4 = parsed.head_dim or 32
     if not torch.cuda.is_available():
         raise SystemExit("tim_tpu_torch.ablate needs a CUDA card")
     jobs = {}
@@ -527,11 +660,30 @@ def main(argv=None) -> int:
                                                         WIDE_CUTS)
         jobs["5b"] = (header, variants(header, cuts),
                       ["flash_mha_bwd.cu", "flash_mha_bwd_wide.cu"])
-    if which in ("5", "4", "forward", "all"):
+    pairs = wa.SWIN_DIM < dh4 <= wa.PAIR_DIMS[-1]
+    if which in ("5", "forward", "all") and dh > fm.SLICED:
+        # the cluster's cuts where the plan takes it (past 512) and the
+        # other route where a cluster can hold the slices (up to 2048)
+        on = fm.cluster(dh, torch.bfloat16)
+        route = ({} if dh > fm.CLUSTER_DIMS[1] else
+                 {k: v for k, v in CLUSTER_ROUTES.items()
+                  if ("no cluster" in k) == on})
+        jobs["cols"] = (COLS_HEADER, {
+            **variants(COLS_HEADER, CLUSTER_CUTS if on else {}),
+            **variants(COLS_HEADER, route, full=False)},
+            ["flash_mha_cols.cu"])
+    if which == "4" and pairs:
+        window = ["window_attention.cu", PAIR_SOURCE, PAIR_STUBS[0]]
+        jobs["pair"] = (PAIR_HEADER, variants(PAIR_HEADER, PAIR_CUTS),
+                        window)
+        jobs["pair tiles"] = (PAIR_SOURCE, variants(
+            PAIR_SOURCE, PAIR_CONFIGS, full=False), window)
+    elif which in ("5", "4", "forward", "all"):
         jobs["forward"] = (FORWARD_HEADER,
                            variants(FORWARD_HEADER, FORWARD_CUTS),
                            ["flash_mha.cu", "flash_mha_wide.cu",
-                            "window_attention.cu"])
+                            "window_attention.cu", *WINDOW_SOURCES,
+                            PAIR_SOURCE])
     if which in ("4b", "all"):
         jobs["4b"] = (WINDOW_BWD_HEADER,
                       variants(WINDOW_BWD_HEADER, WINDOW_BWD_CUTS),
@@ -561,9 +713,12 @@ def main(argv=None) -> int:
         if "5b" in jobs:
             results["5b"] = ablate_5b(libs["5b"], gen, dh)
         if which in ("5", "forward", "all"):
-            results["5"] = ablate_5(libs["forward"], gen, dh)
+            results["5"] = ablate_5(libs["cols" if dh > fm.SLICED
+                                         else "forward"], gen, dh)
         if which in ("4", "forward", "all"):
-            results["4"] = ablate_4(libs["forward"], gen)
+            results["4"] = ablate_4(
+                {**libs["pair"], **libs["pair tiles"]} if "pair" in jobs
+                else libs["forward"], gen, dh4)
         if "4b" in jobs:
             for stage, res in ablate_4b(libs["4b"], gen).items():
                 results[f"4b {stage}"] = res

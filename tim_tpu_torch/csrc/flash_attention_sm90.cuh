@@ -3,7 +3,8 @@
 // dims 64, 128, 256; flash_mha_wide.cu, 80, 96, 112; no bias) and kernel 4
 // (bias and region ids: window_attention.cu, head dim 32;
 // window_attention_wide.cu and window_attention_256.cu, kernel 5's head
-// dims). The fp32 instances keep the CUDA-core kernel of
+// dims past 64; from 33 to 64 kernel 4 has a design of its own,
+// window_attention_sm90.cuh). The fp32 instances keep the CUDA-core kernel of
 // flash_attention.cuh, whose comment gives the function:
 //
 //   out[b, h, i] = sum_j p_ij v[b, h, j] / sum_j p_ij,  p_ij = exp(s_ij - m_i),
@@ -47,9 +48,9 @@
 // Kernel 4's extra per-score work (an fp32 bias from L2 and, in shifted
 // windows, a region compare) stalls its warps more than the products do,
 // so at head dim 32 it runs two blocks an SM (128 registers a thread;
-// past 32 one, with 64-key tiles up to 128 and 32 at 256, and past 64 one
-// window a block, kernel 5's layout: two rings of wider tiles do not fit
-// beside Q, PERF.md row 4); each thread reads
+// past 64 one, with 64-key tiles up to 128 and 32 at 256, one window a
+// block, kernel 5's layout: two rings of wider tiles do not fit beside
+// Q, PERF.md row 4); each thread reads
 // its own scores' bias into registers a tile ahead of their use (the
 // window pair's second read of a bias row comes from L1: the bias is read
 // once from L2 for two windows), and each window's region ids sit in
@@ -153,16 +154,18 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 }
 
 // The column blocks of a [rows][DH] tile: up to head dim 64 one block of
-// DH columns; past it DH / 64 blocks of 64 columns in the 128-byte swizzle
-// (the widest a swizzle atom and a TMA box of it can be), then, for head
-// dims that are no multiple of 64 (80, 96, 112), a block of 32 columns in
-// the 64-byte swizzle and / or one of 16 in the 32-byte swizzle. Each
-// block is one TMA box and one wgmma operand width; a block of w columns
-// holds rows * w * 2 bytes, so the blocks of one tile lie back to back,
-// each 1024-byte aligned when the tile is.
+// DH columns (16, 32 or 64: one swizzle atom wide); past it DH / 64 blocks
+// of 64 columns in the 128-byte swizzle (the widest a swizzle atom and a
+// TMA box of it can be), then, for head dims that are no multiple of 64
+// (48, 80, 96, 112), a block of 32 columns in the 64-byte swizzle and / or
+// one of 16 in the 32-byte swizzle (48: 32 + 16). Each block is one TMA
+// box and one wgmma operand width; a block of w columns holds rows * w * 2
+// bytes, so the blocks of one tile lie back to back, each 1024-byte
+// aligned when the tile is.
 template <int DH>
 struct Cols {
-  static constexpr int kBW = DH < 64 ? DH : 64;     // the main blocks' width
+  static constexpr int kBW =                        // the main blocks' width
+      DH == 48 ? 32 : (DH < 64 ? DH : 64);
   static constexpr int kNC = DH / kBW;              // main blocks
   static constexpr int kTail = DH - kNC * kBW;      // 0, 16, 32 or 48
   static constexpr bool kT32 = (kTail & 32) != 0;   // a 32-column block
@@ -176,7 +179,7 @@ struct Cols {
 template <int DH, int ROWS>
 __device__ __forceinline__ uint32_t tile_at(int r, int c) {
   using C = Cols<DH>;
-  if constexpr (DH <= 64) {
+  if constexpr (DH <= 64 && C::kTail == 0) {
     return swz<DH>(r, c);
   } else {
     if constexpr (C::kTail != 0) {
@@ -185,7 +188,9 @@ __device__ __forceinline__ uint32_t tile_at(int r, int c) {
       if (c >= C::kC32 / 8)
         return (uint32_t)(ROWS * C::kC32 * 2) + swz<32>(r, c - C::kC32 / 8);
     }
-    return (uint32_t)((c >> 3) * ROWS * 128) + swz<64>(r, c & 7);
+    constexpr int kPer = C::kBW / 8;   // 16-byte chunks a main block row
+    return (uint32_t)((c / kPer) * ROWS * C::kBW * 2) +
+           swz<C::kBW>(r, c % kPer);
   }
 }
 
@@ -216,15 +221,15 @@ struct Shape {
   static constexpr int kAhead = kStages - 2;      // tiles loaded ahead
   // blocks an SM: two for kernel 4 at head dim 32 (at most 128 registers
   // a thread), whose per-score work stalls one block's warps more than the
-  // tensor cores do; past 32 its O accumulator (DH / 2 a thread) and bias
+  // tensor cores do; past 64 its O accumulator (DH / 2 a thread) and bias
   // registers take one block an SM
   static constexpr int kMinBlocks = BIAS && DH <= 32 ? 2 : 1;
-  // kernel 4 up to head dim 64: each warpgroup takes one window of a pair,
+  // kernel 4 at head dim 32: each warpgroup takes one window of a pair,
   // the same 64 query rows of both (so the same bias rows, read twice from
   // L1), with a K/V ring of its own; past 64 two rings no longer fit
   // beside Q, and kernel 4 takes kernel 5's layout: the block's 128 rows
   // of one (batch, head) share one ring
-  static constexpr bool kPair = BIAS && DH <= 64;
+  static constexpr bool kPair = BIAS && DH <= 32;
   static constexpr int kRings = kPair ? 2 : 1;
   static constexpr int kBlockRows = kPair ? 64 : kRows;   // rows a window
   static constexpr int kRowBytes = DH * 2;

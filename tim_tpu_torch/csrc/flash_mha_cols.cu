@@ -9,9 +9,11 @@
 //
 // What bounds it on the H100: the products, 4 S^2 dh flops per (batch,
 // head) (80.6 GFLOP at [8, 2, 1568, 512], 0.08 ms at 989 TFLOP/s), as at
-// the presets' head dims, since H dh is the same; this route does 1.5x
-// them at 512 (Q K^T once per 256-column output slice), with Q resident
-// in shared memory up to head dim 512.
+// the presets' head dims, since H dh is the same. Up to 512 one block a
+// 256-column output slice (Q resident in shared memory) forms Q K^T
+// itself, 1.5x the products at 512; from 513 to 2048 in bf16 the slices of
+// a query tile run as one thread-block cluster that forms it once; past
+// 2048 Q streams with K.
 
 #include "attention_cols_sm90.cuh"
 
@@ -25,7 +27,8 @@ extern "C" int tim_flash_mha_cols(const void* q, const void* k,
                                   const void* v, void* out,
                                   const long long* strides, float* lse,
                                   int batch, int heads, int seq, int dh,
-                                  int is_bf16, float scale, void* stream) {
+                                  int is_bf16, float scale,
+                                  void* stream) {
   tim_attn::ColsParams p{};
   p.q = q; p.k = k; p.v = v; p.out = out;
   long long st[18] = {};

@@ -15,7 +15,11 @@
 // scores over the full head dim from 64-column boxes of q and the context
 // keys (TMA, a five-stage ring), the self score from q and kq's boxes
 // first; the slices of one query tile read q and the context twice at 512,
-// the second time mostly from L2.
+// the second time mostly from L2. From 513 to 2048 in bf16 the slices of
+// a query tile run as one thread-block cluster: each keeps its 256
+// columns of q resident and forms its share of the scores and of the self
+// score, summed across the cluster in rank order
+// (attention_cols_sm90.cuh).
 
 #include "attention_cols_sm90.cuh"
 

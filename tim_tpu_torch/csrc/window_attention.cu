@@ -32,10 +32,14 @@
 #include "flash_attention_sm90.cuh"
 
 // Past head dim 32 the instances live in sources of their own, built beside
-// this one: window_attention_wide.cu (bf16 64, 80, 96, 112),
-// window_attention_256.cu (bf16 128, 256), window_attention_f32.cu (fp32
-// 64, 128, 256) and window_attention_cols.cu (past 256, both types).
+// this one: window_attention_64.cu (bf16 48, 64: kernel 4's window-pair
+// design, window_attention_sm90.cuh), window_attention_wide.cu (bf16 80,
+// 96, 112), window_attention_256.cu (bf16 128, 256),
+// window_attention_f32.cu (fp32 64, 128, 256) and window_attention_cols.cu
+// (past 256, both types).
 namespace tim_attn {
+int launch_window_64(const Params& p, int inst, int bias_pitch,
+                     cudaStream_t stream);
 int launch_window_wide(const Params& p, int inst, cudaStream_t stream);
 int launch_window_256(const Params& p, int inst, cudaStream_t stream);
 int launch_window_f32(const Params& p, int inst, cudaStream_t stream);
@@ -45,22 +49,26 @@ int launch_window_cols(const Params& p, int dh, bool bf16,
 
 // The instance `inst` (the wrapper, ops/window_attention.py, picks it and
 // zero-pads the head dims it cannot read in place): 32; 64, 128, 256 and in
-// bf16 80, 96, 112; past 256 the column-slice route at dh itself. dh: the
-// head dim of q, k, v and out, the instance's, or in bf16 past 64 up to 8
-// less (read in place: TMA fills the columns past it with zeros, and they
-// are not stored); another pair returns cudaErrorInvalidValue.
+// bf16 48, 80, 96, 112; past 256 the column-slice route at dh itself
+// (in bf16 from 513 to 2048 the slices of a query tile as one cluster).
+// dh: the head dim of q, k, v and out, the instance's, or in
+// bf16 at 48 and 64 a multiple of 8 up to 8 less and past 64 8 less (read
+// in place: TMA fills the columns past it with zeros, and they are not
+// stored); another pair returns cudaErrorInvalidValue.
 // strides: 12 element strides, (batch, head, row) for q, k, v and out.
-// bias: [heads, seq, seq] fp32, contiguous. region: [n_win, seq] int32,
-// or null for an unshifted block. lse: [batch, heads, seq] fp32 for the
-// backward, or null. Returns cudaGetLastError() after the launch (0 on
-// success).
+// bias: [heads, seq, seq] fp32, 16-byte aligned, rows bias_pitch floats
+// apart (seq, or in bf16 at 48 and 64 seq rounded up to a multiple of 4;
+// seq elsewhere). region: [n_win, seq] int32, or null for an unshifted
+// block. lse: [batch, heads, seq] fp32 for the backward, or null. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int tim_window_attention(const void* q, const void* k,
                                     const void* v, void* out,
                                     const long long* strides, float* lse,
-                                    const float* bias, const int* region,
-                                    int n_win, int batch, int heads, int seq,
-                                    int dh, int inst, int is_bf16,
-                                    float scale, void* stream) {
+                                    const float* bias, int bias_pitch,
+                                    const int* region, int n_win, int batch,
+                                    int heads, int seq, int dh, int inst,
+                                    int is_bf16, float scale,
+                                    void* stream) {
   tim_attn::Params p{};
   p.q = q; p.k = k; p.v = v; p.out = out;
   tim_attn::set_strides(p, strides);
@@ -71,10 +79,14 @@ extern "C" int tim_window_attention(const void* q, const void* k,
   const bool bf16 = is_bf16 != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (inst > 256)
-    return dh == inst ? tim_attn::launch_window_cols(p, dh, bf16, st)
-                      : (int)cudaErrorInvalidValue;
+    return dh == inst && bias_pitch == seq
+               ? tim_attn::launch_window_cols(p, dh, bf16, st)
+               : (int)cudaErrorInvalidValue;
+  const bool pair = bf16 && (inst == 48 || inst == 64);
+  if (pair) return tim_attn::launch_window_64(p, inst, bias_pitch, st);
   const bool in_place = bf16 && inst > 64 && inst <= 128 && dh == inst - 8;
-  if (dh != inst && !in_place) return (int)cudaErrorInvalidValue;
+  if ((dh != inst && !in_place) || bias_pitch != seq)
+    return (int)cudaErrorInvalidValue;
   if (inst == 32) return tim_attn::launch<32, true>(p, dh, bf16, st);
   if (!bf16) return tim_attn::launch_window_f32(p, inst, st);
   return inst >= 128 ? tim_attn::launch_window_256(p, inst, st)

@@ -12,9 +12,11 @@
 // num_heads (1, 1, 1, 1): 512 at stage 3, 1024 at stage 4).
 //
 // What bounds it on the H100: the products, 4 N^2 dh flops per (window,
-// head) (161 GFLOP a Swin-B stage at batch 8, 0.16 ms at 989 TFLOP/s);
-// this route does 1.5x them at 512 and 1.25x at 1024 (Q K^T once per
-// 256-column output slice).
+// head) (161 GFLOP a Swin-B stage at batch 8, 0.16 ms at 989 TFLOP/s).
+// Up to 512 one block a 256-column output slice forms Q K^T itself (1.5x
+// the products at 512); from 513 to 2048 in bf16 the slices of a query
+// tile form it once as one cluster, rank 0's partial starting at (bias +
+// mask) / scale.
 
 #include "attention_cols_sm90.cuh"
 

@@ -31,9 +31,14 @@ cannot read in place (not 16-byte aligned) take the same copy. Past 256
 column-slice route (``csrc/flash_mha_cols.cu``, ``flash_mha_bwd_cols.cu``:
 bf16 on wgmma, the backward in two atomic-free passes, fp32 on the CUDA
 cores;
-a grid axis over output column slices, each recomputing the scores over
-the full head dim), in place where the head dim fills 16-byte rows, else
-through the same copy to the next multiple of 64 (``SLICED``). A route's
+a grid axis over 256-column output slices), in place where the head dim
+fills 16-byte rows, else through the same copy to the next multiple of 64
+(``SLICED``). Up to 512 each slice's block recomputes the scores over the
+full head dim, Q resident; in bf16 from 513 to 2048 (``CLUSTER_DIMS``) the
+slices of a query tile run as one thread-block cluster that forms them
+once (each block its share over its columns, summed across the cluster in
+rank order, so every slice sees the same bits); past 2048 Q streams
+through each block's ring with K. A route's
 launch raises if it fails: nothing falls back to another. Each launch
 counts one on its wrapper (``launches``) and on its route
 (``routes[route(...)]``).
@@ -58,6 +63,12 @@ WIDE = (80, 96, 112, 128)
 # past this head dim, the column-slice route (any head dim, run at its own
 # or at the next multiple of 64)
 SLICED = HEAD_DIMS[-1]
+# the bf16 forward's head dims on the cluster route: the 3 to 8 slices of
+# a query tile (a portable cluster holds 8 blocks) as one thread-block
+# cluster; past it Q streams, the route "wgmma streamed slices". The
+# kernels' launch (csrc/attention_cols_sm90.cuh, ``on_cluster``) picks
+# the route from the head dim alone; this names it
+CLUSTER_DIMS = (2 * SLICED + 1, 8 * SLICED)
 # tim_flash_mha(q, k, v, out, strides, lse, b, h, s, dh, instance, bf16,
 # scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong),
@@ -171,6 +182,30 @@ def reads_in_place(dh: int, dtype, inst: int) -> bool:
                           and dh % 8 == 0 and inst - 16 < dh < inst)
 
 
+def cluster(inst: int, dtype) -> bool:
+    """Whether the forward at instance ``inst`` runs the column slices of
+    a query tile as one thread-block cluster (bf16, ``CLUSTER_DIMS``)."""
+    return (dtype == torch.bfloat16
+            and CLUSTER_DIMS[0] <= inst <= CLUSTER_DIMS[1])
+
+
+def slices_route(dtype, inst: int, backward: bool = False) -> str:
+    """The column-slice route's name at instance ``inst`` past ``SLICED``
+    (kernels 1, 4 and 5 share it): "wgmma slices 512" (one block a slice),
+    "wgmma cluster slices 1024" (``cluster``), "wgmma streamed slices
+    2304" (bf16 forward past ``CLUSTER_DIMS``), "wgmma two passes slices
+    512" (bf16 backward), "fp32 cuda cores slices 512"."""
+    if dtype == torch.float32:
+        return f"fp32 cuda cores slices {inst}"
+    if backward:
+        return f"wgmma two passes slices {inst}"
+    if cluster(inst, dtype):
+        return f"wgmma cluster slices {inst}"
+    if inst > CLUSTER_DIMS[1]:
+        return f"wgmma streamed slices {inst}"
+    return f"wgmma slices {inst}"
+
+
 def launch_plan(dh: int, dtype, *tensors):
     """(instance head dim, whether q/k/v go through a zero-padded copy):
     the copy is taken when the instance does not read dh in place
@@ -188,14 +223,11 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     the one-pass wgmma core at 64 (with the atomic-free dq pass instead of
     atomic adds when ``deterministic``), the two wgmma passes on ``WIDE``,
     the two mma.sync passes at 256; past 256 (``SLICED``) the column-slice
-    route ("wgmma slices 512", "wgmma two passes slices 512", "fp32 cuda
-    cores slices 512"; the backward's is atomic-free whether
+    routes (``slices_route``; the backward's is atomic-free whether
     ``deterministic`` or not, one name); " via copy" when the zero-padded
     copy was taken."""
     if inst > SLICED:
-        kind = ("fp32 cuda cores" if dtype == torch.float32
-                else "wgmma two passes" if backward else "wgmma")
-        name = f"{kind} slices {inst}"
+        name = slices_route(dtype, inst, backward)
     elif dtype == torch.float32:
         name = f"fp32 cuda cores {inst}"
     elif not backward:

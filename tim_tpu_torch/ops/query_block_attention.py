@@ -18,9 +18,11 @@ output's padding is sliced off); fp32 up to 256, and bf16 past 160 up to
 256, take the CUDA-core design (its lanes' dims past dh masked where dh is
 not 32, 64, 128 or 256). Past 256 both dtypes take the column-slice design
 (``csrc/query_block_attention_cols.cu``: bf16 on wgmma, fp32 on the CUDA
-cores, 256 output columns a block), bf16 in place where the rows are
-16-byte aligned and dh is a multiple of 8, else through one copy
-zero-padded to the next multiple of 64. Each launch counts one on
+cores, 256 output columns a block; in bf16 from 513 to 2048 the slices of
+a query tile as one thread-block cluster, ``flash_mha.CLUSTER_DIMS``),
+bf16 in place where the rows are 16-byte aligned and dh is a multiple of
+8, else through one copy zero-padded to the next multiple of 64. Each
+launch counts one on
 ``launches`` and on its route (``routes[route(...)]``).
 """
 
@@ -33,7 +35,7 @@ import math
 import torch
 
 from tim_tpu_torch import _build
-from tim_tpu_torch.ops.flash_mha import aligned
+from tim_tpu_torch.ops.flash_mha import aligned, slices_route
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # head dims of the bf16 tensor-core instances
@@ -131,11 +133,11 @@ def route(dh: int, dtype, plan: str, copied: bool = False) -> str:
     """The name of the route that a launch at head dim ``dh`` (the
     launched width) on ``plan`` takes, the key of its count in
     ``query_block_attention.routes``: "tensor cores 128", "cuda cores
-    256", past 256 "wgmma slices 512" (bf16) or "fp32 cuda cores slices
-    512"; " via copy" when the zero-padded copy was taken."""
+    256", past 256 ``flash_mha.slices_route``'s names ("wgmma slices 512",
+    "wgmma cluster slices 1024", "fp32 cuda cores slices 512"); " via
+    copy" when the zero-padded copy was taken."""
     if plan == COLS:
-        name = ("wgmma" if dtype == torch.bfloat16 else "fp32 cuda cores") \
-            + f" slices {dh}"
+        name = slices_route(dtype, dh)
     else:
         name = f"{plan.replace('_', ' ')} {dh}"
     return name + (" via copy" if copied else "")

@@ -15,16 +15,22 @@ window-type-major transpose is needed.
 ``window_attention`` launches the CUDA kernel (``csrc/window_attention.cu``)
 for CUDA tensors and runs ``window_attention_plain`` for CPU tensors.
 There is no fallback between the two. The card takes every head dim: the
-kernels are built at instances 32 (every Swin preset's head dim) and
-kernel 5's (``flash_mha.HEAD_DIMS``: 64, 128, 256, in bf16 also 80, 96 and
-112), with the column-slice route past 256, and ``launch_plan`` picks one
-as ``flash_mha`` does: bf16 head dims that are multiples of 8 from 72 to
-128 and past 256 are read in place, any other head dim goes through one
-zero-padded copy of q, k and v (and of out and do in the backward) to its
-instance, the outputs and gradients sliced back (zero columns add nothing
-to the scores; ``sm_scale`` stays the caller's; the bias and region ids
-are unchanged). A launch that fails raises; nothing falls back to another
-route. Each launch counts one on its wrapper (``launches``) and on its
+kernels are built at instances 32 (every Swin preset's head dim), in the
+bf16 forward 48 and 64 (``PAIR_DIMS``: kernel 4's window-pair design,
+``csrc/window_attention_64.cu``, the bias brought by TMA) and kernel 5's
+(``flash_mha.HEAD_DIMS``: 64, 128, 256, in bf16 also 80, 96 and 112), with
+the column-slice route past 256 (in bf16 from 513 to 2048 the slices of a
+query tile as one thread-block cluster), and ``launch_plan`` picks one as
+``flash_mha`` does: bf16 forward head dims 40, 48, 56 and 64, bf16
+multiples of 8 from 72 to 128 and past 256 are read in place, any other
+head dim goes through one zero-padded copy of q, k and v (and of out and
+do in the backward, whose bf16 instances past 32 are kernel 5's: 40 and
+48 take the copy to 64 there) to its instance, the outputs and gradients
+sliced back (zero columns add nothing to the scores; ``sm_scale`` stays
+the caller's; the bias and region ids are unchanged; the pair design's
+bias map needs rows of a multiple of 4 floats, so a sequence off a
+multiple of 4 hands it a copy of the bias with padded rows). A launch
+that fails raises; nothing falls back to another route. Each launch counts one on its wrapper (``launches``) and on its
 route (``routes[route(...)]``). It is differentiable in q, k, v and
 the bias: on the CPU through the plain version's PyTorch ops, on the card
 through ``window_attention_bwd`` (``csrc/window_attention_bwd.cu``), whose
@@ -51,14 +57,16 @@ from tim_tpu_torch.ops.flash_mha import (
 
 MASK_VALUE = -100.0
 # The instance every Swin preset runs on (head dim 32 at every stage);
-# past it kernel 5's instances (fm.HEAD_DIMS, fm.F32_HEAD_DIMS) and past
-# fm.SLICED the column-slice route
+# past it, in the bf16 forward, kernel 4's window-pair instances up to 64
+# (PAIR_DIMS), then kernel 5's instances (fm.HEAD_DIMS, fm.F32_HEAD_DIMS),
+# and past fm.SLICED the column-slice route
 SWIN_DIM = 32
-# tim_window_attention(q, k, v, out, strides, lse, bias, region_ids, n_win,
-# bw, h, n, dh, inst, bf16, scale, stream)
+PAIR_DIMS = (48, 64)
+# tim_window_attention(q, k, v, out, strides, lse, bias, bias_pitch,
+# region_ids, n_win, bw, h, n, dh, inst, bf16, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 # tim_window_attention_bwd(q, k, v, o, do, dq, dk, dv, strides, lse, delta,
 # dq_accum, bias, region_ids, n_win, dbias, dbias_groups, groups, bw, h, n,
 # dh, inst, bf16, scale, stream)
@@ -145,17 +153,40 @@ def _region_args(region_ids):
             1 if region_ids is None else region_ids.shape[0])
 
 
-def instance_dim(dh: int, dtype) -> int:
+def _pairs(dh: int, dtype, backward: bool) -> bool:
+    """Whether head dim ``dh`` runs on the window-pair instances (the bf16
+    forward from 33 to 64)."""
+    return (not backward and dtype == torch.bfloat16
+            and SWIN_DIM < dh <= PAIR_DIMS[-1])
+
+
+def instance_dim(dh: int, dtype, backward: bool = False) -> int:
     """The head dim of the kernel instance that head dim ``dh`` runs on in
-    ``dtype``: 32 up to 32, else kernel 5's (``flash_mha.instance_dim``)."""
-    return SWIN_DIM if dh <= SWIN_DIM else fm.instance_dim(dh, dtype)
+    ``dtype``: 32 up to 32; the bf16 forward the least of ``PAIR_DIMS``
+    that holds it up to 64; else kernel 5's (``flash_mha.instance_dim``)."""
+    if dh <= SWIN_DIM:
+        return SWIN_DIM
+    if _pairs(dh, dtype, backward):
+        return min(w for w in PAIR_DIMS if w >= dh)
+    return fm.instance_dim(dh, dtype)
 
 
-def launch_plan(dh: int, dtype, *tensors):
+def reads_in_place(dh: int, dtype, inst: int, backward: bool = False):
+    """Whether instance ``inst`` reads head dim ``dh`` where it lies: the
+    window-pair instances a multiple of 8 above the one below them (48:
+    40, 48; 64: 56, 64), the others as ``flash_mha.reads_in_place``."""
+    if _pairs(dh, dtype, backward) and inst in PAIR_DIMS:
+        return dh % 8 == 0 and inst - 16 < dh <= inst
+    return fm.reads_in_place(dh, dtype, inst)
+
+
+def launch_plan(dh: int, dtype, *tensors, backward: bool = False):
     """(instance head dim, whether q/k/v go through a zero-padded copy),
-    as ``flash_mha.launch_plan`` with 32 among the instances."""
-    w = instance_dim(dh, dtype)
-    return w, not (fm.reads_in_place(dh, dtype, w)
+    as ``flash_mha.launch_plan`` with 32 and, in the bf16 forward,
+    ``PAIR_DIMS`` among the instances (``backward``: the plan of
+    ``window_attention_bwd``)."""
+    w = instance_dim(dh, dtype, backward)
+    return w, not (reads_in_place(dh, dtype, w, backward)
                    and all(aligned(t) for t in tensors))
 
 
@@ -164,7 +195,8 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     """The name of the route a launch at instance ``inst`` takes (the key
     of its count in ``window_attention.routes`` /
     ``window_attention_bwd.routes``). Forward: ``flash_mha.route``'s names
-    ("wgmma 64", "fp32 cuda cores 32", "wgmma slices 512", ...). Backward:
+    ("wgmma 48", "wgmma 64", "fp32 cuda cores 32", "wgmma slices 512",
+    "wgmma cluster slices 1024", ...). Backward:
     fp32 the CUDA-core passes ("fp32 cuda cores 64"; from 128 the
     column-chunk passes, "fp32 cuda cores slices 128"); bf16 at 32 the
     one-pass wgmma core ("wgmma one pass 32", with " + dq pass" when
@@ -185,17 +217,34 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     return name + (" via copy" if copied else "")
 
 
+def pair_bias(bias):
+    """The bias as the window-pair instances' TMA map reads it: rows of a
+    multiple of 4 floats (16 bytes), so a sequence off a multiple of 4
+    takes a copy with padded rows; (bias, row pitch in floats)."""
+    n = bias.shape[-1]
+    pitch = -(-n // 4) * 4
+    if pitch == n:
+        return bias, n
+    return torch.nn.functional.pad(bias, (0, pitch - n)), pitch
+
+
 def _launch_fwd(q, k, v, bias, region_ids, sm_scale, lse, inst, copied):
     """One launch of instance ``inst`` on q/k/v that it reads in place
     (``copied``: they are the zero-padded copy, for the route's count)."""
-    check_qkv("window_attention", q, k, v, inst)
+    dh = q.shape[-1]
+    pairs = _pairs(dh, q.dtype, False) and inst in PAIR_DIMS
+    if pairs and not reads_in_place(dh, q.dtype, inst):
+        raise ValueError(f"window_attention: head dim {dh}, the kernel is "
+                         f"built for {inst}")
+    check_qkv("window_attention", q, k, v, dh if pairs else inst)
     _check(q, bias, region_ids)
-    bw, h, n, dh = q.shape
+    bw, h, n, _ = q.shape
+    bias_k, pitch = pair_bias(bias) if pairs else (bias, n)
     view, strides = launch_args(q, k, v)
     fn = _build.launcher("tim_window_attention", _ARGTYPES)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), view.data_ptr(),
                 strides, None if lse is None else lse.data_ptr(),
-                bias.data_ptr(), *_region_args(region_ids),
+                bias_k.data_ptr(), pitch, *_region_args(region_ids),
                 bw, h, n, dh, inst, int(q.dtype == torch.bfloat16),
                 float(sm_scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -284,7 +333,7 @@ def window_attention_bwd(q, k, v, bias, region_ids, out, lse, do, *,
                          f"{q.device}")
     check_args("window_attention_bwd", q, k, v)
     dh = q.shape[-1]
-    w, pad = launch_plan(dh, q.dtype, q, k, v, out)
+    w, pad = launch_plan(dh, q.dtype, q, k, v, out, backward=True)
     if not pad:
         return _launch_bwd(q, k, v, bias, region_ids, out, lse, do,
                            sm_scale, grads, w, False)
@@ -400,31 +449,43 @@ class _WindowAttention(torch.autograd.Function):
     """window_attention over a packed [BW, N, 3, H, dh] qkv on the card,
     kernel both ways; the backward kernel writes the packed gradient
     directly (of the zero-padded copy, sliced back, where ``launch_plan``
-    takes one)."""
+    takes one). Where the backward's plan differs from the forward's (bf16
+    from 33 to 64: the forward's window-pair instances, the backward's
+    kernel 5 ones), each takes its own, through ``window_attention_bwd``
+    in the backward."""
 
     @staticmethod
     def forward(ctx, qkv, bias, region_ids, sm_scale):
         dh = qkv.shape[-1]
         check_args("window_attention", *unpack_qkv(qkv))
         w, pad = launch_plan(dh, qkv.dtype, *unpack_qkv(qkv))
+        same = (w, pad) == launch_plan(dh, qkv.dtype, *unpack_qkv(qkv),
+                                       backward=True)
         # a head dim the instance cannot read in place: one zero-padded
-        # copy, kept for the backward, whose padded gradient columns are
-        # sliced away
+        # copy, kept for the backward when it runs the same instance, whose
+        # padded gradient columns are sliced away
         qkv_k = pad_last(qkv, w) if pad else qkv
         lse = row_stats(unpack_qkv(qkv)[0])
         out = _launch_fwd(*unpack_qkv(qkv_k), bias, region_ids, sm_scale,
                           lse, w, pad)
-        ctx.save_for_backward(qkv_k, bias, region_ids, out, lse)
+        ctx.save_for_backward(qkv_k if same else qkv, bias, region_ids, out,
+                              lse)
         ctx.sm_scale, ctx.dh, ctx.inst, ctx.pad = sm_scale, dh, w, pad
+        ctx.same = same
         return out[..., :dh] if pad else out
 
     @staticmethod
     def backward(ctx, do):
         qkv, bias, region_ids, out, lse = ctx.saved_tensors
+        grad = torch.empty_like(qkv)
+        if not ctx.same:
+            *_, dbias = window_attention_bwd(
+                *unpack_qkv(qkv), bias, region_ids, out[..., :ctx.dh], lse,
+                do, sm_scale=ctx.sm_scale, grads=unpack_qkv(grad))
+            return grad, dbias, None, None
         width = qkv.shape[-1]
         if width != ctx.dh:
             do = pad_last(do.to(qkv.dtype), width)
-        grad = torch.empty_like(qkv)
         *_, dbias = _launch_bwd(*unpack_qkv(qkv), bias, region_ids, out, lse,
                                 do, ctx.sm_scale, unpack_qkv(grad), ctx.inst,
                                 ctx.pad)
