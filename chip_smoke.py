@@ -1175,8 +1175,15 @@ class RouteCount:
 
 def sliced(route: str) -> bool:
     """Whether a route name is one of the column-slice routes (head dims
-    past 256)."""
+    past 256; kernel 1's bf16 past 160)."""
     return " slices " in route
+
+
+def one_slice(route: str) -> bool:
+    """Whether a route name is a column-slice route at one 256-column
+    slice (kernel 1's bf16 from 161 to 256)."""
+    words = route.split()
+    return sliced(route) and int(words[words.index("slices") + 1]) <= 256
 
 
 def clustered(route: str) -> bool:
@@ -1187,10 +1194,13 @@ def clustered(route: str) -> bool:
 
 # counts that are a part of another kernel's (kernel 5 / 5b's routes at
 # head dims 65-128, the sources flash_mha_wide.cu / flash_mha_bwd_wide.cu;
+# at bf16 129-256 the forward's instance 256 and the backward's split
+# passes, flash_mha_bwd_256.cu; kernel 1's bf16 column slices at 161-256;
 # kernels 1, 5 and 5b past 256, the *_cols.cu sources, and their bf16
 # forwards' cluster route past 512; kernels 4 / 4b past head dim 32, the
 # window_attention_*.cu sources)
-ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide",
+ROUTE_COUNTS = ("flash_mha_wide", "flash_mha_bwd_wide", "flash_mha_256",
+                "flash_mha_bwd_256", "query_block_attention_256",
                 "query_block_attention_cols", "flash_mha_cols",
                 "flash_mha_bwd_cols", "query_block_attention_cluster",
                 "flash_mha_cluster", "window_attention_64",
@@ -1247,6 +1257,13 @@ def launch_counters():
             "flash_mha_bwd_wide": RouteCount(fm.flash_mha_bwd, [
                 fm.route(bf16, w, c, backward=True) for w in fm.WIDE
                 for c in (False, True)]),
+            "flash_mha_256": RouteCount(fm.flash_mha, [
+                fm.route(bf16, 256, c) for c in (False, True)]),
+            "flash_mha_bwd_256": RouteCount(fm.flash_mha_bwd, [
+                fm.route(bf16, w, c, backward=True) for w in fm.SPLIT
+                for c in (False, True)]),
+            "query_block_attention_256": RouteCount(
+                qba.query_block_attention, match=one_slice),
             "query_block_attention_cols": RouteCount(
                 qba.query_block_attention, match=sliced),
             "flash_mha_cols": RouteCount(fm.flash_mha, match=sliced),
@@ -3126,11 +3143,28 @@ class EventTimed:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
+# every route kernels 1, 5 and 5b counted in this run: (wrapper, route
+# name) -> launches, gathered before each reset of the counts
+SEEN_ROUTES = collections.Counter()
+
+
+def gather_routes():
+    """Kernels 1, 5 and 5b's route counts since the last reset, added to
+    SEEN_ROUTES."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    from tim_tpu_torch.ops import query_block_attention as qba
+    for fn in (qba.query_block_attention, fm.flash_mha, fm.flash_mha_bwd):
+        for route, n in fn.routes.items():
+            SEEN_ROUTES[(fn.__name__, route)] += n
+
+
 def zero_counts():
-    """Every count set to 0, kernels 1 and 5 / 5b's route counts whole."""
+    """Every count set to 0, kernels 1 and 5 / 5b's route counts whole
+    (and first gathered into SEEN_ROUTES)."""
     from tim_tpu_torch.ops import flash_mha as fm
     from tim_tpu_torch.ops import query_block_attention as qba
     from tim_tpu_torch.ops import window_attention as wa
+    gather_routes()
     counters = launch_counters()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -7845,6 +7879,7 @@ def phase_build():
              ("bwd90", "dkdv_kernel"), ("bwd90", "dq_kernel"),
              ("cols90", "cols_kernel"), ("cols90", "cluster_kernel"),
              ("win90", "window_kernel"), ("colsbwd90", "bwd_kernel"),
+             ("split90", "pass_kernel"),
              ("tim_fpa", "gemm_kernel"),
              ("tim_i8", "int8_matmul_kernel"))
     spilled = [nice for (name, regs, st, ld), nice in zip(kernels, pretty)
@@ -7929,10 +7964,14 @@ def widths_flash_routes(tag, q, k, v, out, lse, do, kw):
     from tim_tpu_torch.ops import flash_mha as fm
     dh = q.shape[-1]
     w, copied = fm.launch_plan(dh, q.dtype, q, k, v)
-    require(copied == (dh % 8 != 0), f"widths {tag}: plan {w}, copied "
-            f"{copied}")
+    wb, copied_b = fm.launch_plan(dh, q.dtype, q, k, v, backward=True)
+    # the backward reads every multiple of 8 in place; the forward too but
+    # from 129 to 255, where its instance is 256 (through the copy)
+    require(copied_b == (dh % 8 != 0)
+            and copied == (dh % 8 != 0 or fm.WIDE[-1] < dh < 256),
+            f"widths {tag}: plans {w}, {wb}, copied {copied}, {copied_b}")
     want_f = {fm.route(q.dtype, w, copied): 1}
-    want_b = {fm.route(q.dtype, w, copied, backward=True): 1}
+    want_b = {fm.route(q.dtype, wb, copied_b, backward=True): 1}
     got_f, _ = routes_of(lambda: fm.flash_mha(q, k, v, **kw))
     _, got_b = routes_of(lambda: fm.flash_mha_bwd(q, k, v, out, lse, do,
                                                   **kw))
@@ -7941,8 +7980,9 @@ def widths_flash_routes(tag, q, k, v, out, lse, do, kw):
     step_f, step_b = routes_of(lambda: (fm.flash_mha_qkv(
         leaf, **kw).float() * do.float()).sum().backward())
     log(f"[widths] flash_mha {tag} routes: forward {got_f}, backward "
-        f"{got_b}, autograd step {step_f} + {step_b} (plan: instance {w}, "
-        f"{'copied' if copied else 'read in place'})")
+        f"{got_b}, autograd step {step_f} + {step_b} (plans: instance {w}, "
+        f"{'copied' if copied else 'read in place'}; backward {wb}, "
+        f"{'copied' if copied_b else 'read in place'})")
     require(got_f == want_f and got_b == want_b and step_f == want_f
             and step_b == want_b, f"widths {tag}: routes {got_f}, {got_b}, "
             f"{step_f}, {step_b}; expected {want_f}, {want_b}")
@@ -7993,8 +8033,10 @@ def widths_flash(gen, shapes=None, f32_batch=None, time_all=False):
             bf16 = dtype == torch.bfloat16
             b = b0 if bf16 or not f32_batch else f32_batch
             w, copied = fm.launch_plan(dh, dtype)
+            wb, copied_b = fm.launch_plan(dh, dtype, backward=True)
             tag = (f"{dtype} [{b}, {h}, {s}, {dh}] (instance {w}, "
-                   f"{'copied' if copied else 'in place'})")
+                   f"{'copied' if copied else 'in place'}; backward {wb}, "
+                   f"{'copied' if copied_b else 'in place'})")
             q, k, v = packed_views(b, s, h, dh, dtype, gen)
             kw = {"sm_scale": scale}
             got, err = check_attention("flash_mha", fm.flash_mha,
@@ -8026,7 +8068,7 @@ def widths_flash(gen, shapes=None, f32_batch=None, time_all=False):
                                "instance": w, "copied": copied,
                                "max_abs_err": err})
                 rows_b.append({"shape": [b, h, s, dh], "dtype": str(dtype),
-                               "instance": w, "copied": copied,
+                               "instance": wb, "copied": copied_b,
                                "max_abs_err": gerr, "routes": routes})
                 del q, k, v, out, lse, do
                 continue
@@ -8055,7 +8097,7 @@ def widths_flash(gen, shapes=None, f32_batch=None, time_all=False):
                 f"{row['library']})")
             rows_f.append(row)
             brow = {"shape": [b, h, s, dh], "dtype": str(dtype),
-                    "max_abs_err": gerr, "instance": w, "copied": copied,
+                    "max_abs_err": gerr, "instance": wb, "copied": copied_b,
                     "routes": routes["backward"],
                     "launches": launches_of(
                         fm.flash_mha_bwd, lambda: fm.flash_mha_bwd(
@@ -8106,7 +8148,7 @@ def widths_query_block(gen, shapes=((128, 16, 160), (128, 8, 91)),
             batch = batch0 if dtype == torch.bfloat16 or not f32_batch \
                 else f32_batch
             args = packed_views(batch, 898, heads, dh, dtype, gen, f=100)
-            plan = qba.launch_plan(dh, dtype, *args)
+            plan = qba.launch_plan(dh, dtype)
             tag = f"{dtype} [{batch}, {heads}, 798, {dh}] F 100 ({plan})"
             got = qba.query_block_attention(*args)
             again = qba.query_block_attention(*args)
@@ -8556,6 +8598,46 @@ def phase_heads(card: str):
         paths.update(timed("heads-vit-l-h1", widths_vit, tmp,
                            "widths-vit-l-h1", VIT_L_H1, 1024,
                            ("flash_mha_cluster", "flash_mha_bwd_cols")))
+    return report, paths
+
+
+# Phase 31f: bf16 head dims 129-256 (kernel 5b's split passes, kernel 1's
+# column slices at one 256-column slice, kernel 5's forward on its
+# instance 256). TIM at cli --nhead 4 (C 1024, head dim 256, FF 2048) and
+# ViT-L at finetune_cli --num_heads 4 (256), both at full depth; the kernel
+# rows also at --embed_dim 1152 / 1200 --num_heads 6 (192, 200: read in
+# place by the backward's instances 192 and 256) and --d_model 600 / 540
+# --nhead 6 (200 in place; 180 through the copy to 192).
+HEADS_TIM_4 = {"d_model": 512, "nhead": 4}
+VIT_L_H4 = ("--embed_dim", "1024", "--depth", "24", "--num_heads", "4")
+FLASH_256 = ((8, 4, 1568, 256), (8, 6, 1568, 192), (8, 6, 1568, 200))
+QBA_256 = ((128, 4, 256), (128, 6, 200), (128, 6, 180))
+
+
+def phase_heads_256(card: str):
+    """Phase 31f: bf16 head dims 129-256. Kernels 5 / 5b and 1 against
+    their plain versions at the command lines' shapes (31a's gates and
+    controls, the backward bit-equal call to call, timed beside SDPA with
+    its backend named, each with its bound); TIM detection at --nhead 4
+    (full depth, bf16 and int8) through ``widths_tim``; ViT-L finetuning
+    at --num_heads 4 (full depth) through ``widths_vit``. Returns (the
+    kernels' rows, launches by path)."""
+    import pathlib
+    import tempfile
+    log(f"[heads-256] {card}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    report = timed("heads-256-flash", widths_flash, gen, FLASH_256,
+                   f32_batch=1, time_all=True)
+    report["query_block_attention"] = timed(
+        "heads-256-query-block", widths_query_block, gen, QBA_256,
+        f32_batch=HEADS_F32_BATCH)
+    rng = np.random.default_rng(SEED + 34)
+    paths = timed("heads-256-tim-h4", widths_tim, "widths-tim-h4",
+                  HEADS_TIM_4, None, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update(timed("heads-256-vit-l-h4", widths_vit,
+                           pathlib.Path(tmp), "widths-vit-l-h4", VIT_L_H4,
+                           256, ("flash_mha_256", "flash_mha_bwd_256")))
     return report, paths
 
 
@@ -9227,6 +9309,10 @@ def main() -> int:
     heads_report, heads_paths = timed("heads", phase_heads, card)
     for name, rows in heads_report.items():
         kernel_report[name]["heads"] = rows
+    heads256_report, heads256_paths = timed("heads-256", phase_heads_256,
+                                            card)
+    for name, rows in heads256_report.items():
+        kernel_report[name]["heads_256"] = rows
     swin_report, swin_paths = timed("heads-swin", phase_swin_heads, card)
     kernel_report["window_attention"]["max_abs_err_past_32"] = \
         swin_report["worst"]["window_attention"]
@@ -9291,6 +9377,17 @@ def main() -> int:
                                            "bound_ms", "bound_by",
                                            "library_ms", "library")},
             "shape": first["shape"], "per_shape": timed_rows}
+    # bf16 129-256 (kernel 5's instance 256, 5b's split passes, 1's one
+    # column slice): the timed shape at head dim 256 first, every timed
+    # shape beside it
+    for name in ("query_block_attention", "flash_mha", "flash_mha_bwd"):
+        timed_rows = [r for r in heads256_report[name] if "ms" in r]
+        first = timed_rows[0]
+        kernel_report[f"{name}_256"] = {
+            **{key: first[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library")},
+            "shape": first["shape"], "per_shape": timed_rows}
     # the routes at head dims 65-128: ViT-H/16's [8, 16, 1568, 80] first,
     # every timed shape beside it
     for name in ("flash_mha", "flash_mha_bwd"):
@@ -9308,7 +9405,7 @@ def main() -> int:
                **audio_paths, **files_paths, **hdf5_paths, **jpeg_paths,
                **autoaug_paths,
                **media_paths, **ft_cli_paths, **widths_paths,
-               **heads_paths, **swin_paths}
+               **heads_paths, **heads256_paths, **swin_paths}
     for path in ("serve-rec-bf16", "rec-val", "det-map", "cli-det-train",
                  "cli-det-val", "cli-det-dump", "cli-rec-val",
                  "cli-rec-dump", "gate-detection", "gate-recognition",
@@ -9365,6 +9462,14 @@ def main() -> int:
             ("widths-cli-h2-val", ("query_block_attention_cols",)),
             ("widths-vit-l-h2", ("flash_mha", "flash_mha_bwd",
                                  "flash_mha_cols", "flash_mha_bwd_cols")),
+            ("widths-tim-h4-bf16", ("query_block_attention",
+                                    "query_block_attention_256",
+                                    "fused_post_attention")),
+            ("widths-tim-h4-int8", ("query_block_attention",
+                                    "query_block_attention_256",
+                                    "int8_matmul_fused")),
+            ("widths-vit-l-h4", ("flash_mha", "flash_mha_bwd",
+                                 "flash_mha_256", "flash_mha_bwd_256")),
             ("heads-swin-a-fp32", ("window_attention_f32",)),
             ("heads-swin-a-grad-fp32", ("window_attention_f32",
                                         "window_attention_bwd_f32")),
@@ -9410,6 +9515,15 @@ def main() -> int:
                                      "query_block_attention_cols"),)),
             ("widths-vit-l-h2", (("flash_mha", "flash_mha_cols"),
                                  ("flash_mha_bwd", "flash_mha_bwd_cols"))),
+            # bf16 129-256: kernel 1 at --nhead 4 on one column slice,
+            # kernel 5 at --num_heads 4 on its instance 256 and 5b on the
+            # split passes, every launch
+            ("widths-tim-h4-bf16", (("query_block_attention",
+                                     "query_block_attention_256"),)),
+            ("widths-tim-h4-int8", (("query_block_attention",
+                                     "query_block_attention_256"),)),
+            ("widths-vit-l-h4", (("flash_mha", "flash_mha_256"),
+                                 ("flash_mha_bwd", "flash_mha_bwd_256"))),
             # past 512 the bf16 forwards take the cluster route, every
             # launch: kernel 1 at --nhead 1, kernel 5 at --num_heads 1,
             # kernel 4 at trunk C's forward (the pair instance 48) and
@@ -9451,6 +9565,16 @@ def main() -> int:
                            "tim_tpu/ops/flash.py:82", "widths-vit-h"),
         "flash_mha_bwd_wide": ("tim_tpu_torch/csrc/flash_mha_bwd_wide.cu",
                                "tim_tpu/ops/flash.py:71", "widths-vit-h"),
+        # kernel 5's instance 256 and 5b's split passes at bf16 129-256,
+        # kernel 1's one column slice at bf16 161-256 (ViT-L at
+        # --num_heads 4, TIM at --nhead 4)
+        "flash_mha_256": ("tim_tpu_torch/csrc/flash_mha.cu",
+                          "tim_tpu/ops/flash.py:82", "widths-vit-l-h4"),
+        "flash_mha_bwd_256": ("tim_tpu_torch/csrc/flash_mha_bwd_256.cu",
+                              "tim_tpu/ops/flash.py:71", "widths-vit-l-h4"),
+        "query_block_attention_256": (
+            "tim_tpu_torch/csrc/query_block_attention_cols.cu",
+            "tim_tpu/ops/pallas_attention.py:54", "widths-tim-h4-bf16"),
         # kernels 1, 5 / 5b past head dim 256 (TIM at --nhead 2, ViT-L at
         # --num_heads 2)
         "query_block_attention_cols": (
@@ -9505,6 +9629,14 @@ def main() -> int:
         "bias_act": ("tim_tpu_torch/csrc/bias_act.cu", None,
                      "extract-videomae"),
     }
+    # no launch of kernels 1, 5 or 5b took a route that was removed: the
+    # mma.sync passes or kernel 1's bf16 CUDA-core lanes
+    gather_routes()
+    log(f"[routes] every route of kernels 1, 5 and 5b this run: "
+        f"{json.dumps({f'{fn}: {r}': n for (fn, r), n in sorted(SEEN_ROUTES.items())})}")
+    stale = [r for r in SEEN_ROUTES if "mma.sync" in r[1]
+             or r[1].startswith("cuda cores")]
+    require(not stale, f"launches on removed routes: {stale}")
     log(f"[time] {json.dumps(PHASE_S)}; total "
         f"{time.perf_counter() - T_START:.2f} s from the start of the script")
     print(json.dumps({"kernels": [

@@ -100,24 +100,27 @@ def test_query_block_fp32_gate_stays_flat():
 def test_query_block_check_refuses_unaligned_bf16_rows(dh, refused):
     """The bf16 tensor-core kernel (head dims 32-160) copies rows with
     16-byte cp.async, so it refuses a row stride or base address off 16
-    bytes (``refused``): the launch plan sends such rows to the CUDA-core
-    design, which reads any (as it does every row at head dim 256). The
-    wrapper's check takes them all."""
+    bytes (``refused``): the wrapper copies such rows, zero-padded, onto
+    the tensor-core instance (``copy_width``), as the column-slice design
+    past 160 (TMA boxes of 16-byte rows) does with its own at head dim
+    256. The wrapper's check takes them all."""
     b, h, nq, f = 1, 2, 24, 10
     ok = [torch.zeros(b, h, n, dh, dtype=torch.bfloat16)
           for n in (nq, f, nq, f, nq)]
     qba._check(*ok)
-    assert qba.launch_plan(dh, torch.bfloat16, *ok) == (
-        qba.TENSOR_CORES if refused else qba.CUDA_CORES)
+    plan = qba.TENSOR_CORES if refused else qba.COLS
+    assert qba.launch_plan(dh, torch.bfloat16) == plan
+    assert qba.copy_width(dh, torch.bfloat16, *ok) is None
     padded = torch.zeros(b, h, nq, dh + 4, dtype=torch.bfloat16)[..., :dh]
     shifted = torch.zeros(b * h * nq * dh + 1,
                           dtype=torch.bfloat16)[1:].view(b, h, nq, dh)
     for bad in (padded, shifted):
         args = [bad, ok[1], ok[2], ok[3], ok[4]]
         qba._check(*args)
-        assert qba.launch_plan(dh, torch.bfloat16, *args) == qba.CUDA_CORES
+        assert qba.launch_plan(dh, torch.bfloat16) == plan
+        assert qba.copy_width(dh, torch.bfloat16, *args) == dh
     qba._check(*[t.float() for t in ok])   # fp32: the CUDA-core instance
-    assert qba.launch_plan(dh, torch.float32, *ok) == qba.CUDA_CORES
+    assert qba.launch_plan(dh, torch.float32) == qba.CUDA_CORES
 
 
 def test_ablation_cuts_find_their_spans():
@@ -163,3 +166,31 @@ def test_backward_and_tail_ablation_cuts_find_their_spans(header, cuts,
     assert text.count(start) == 1
     out = ablate.cut(text, start, end, new)
     assert len(out) < len(text) and end in out
+
+
+@pytest.mark.parametrize("header,cuts,name", [
+    *((ablate.SPLIT_HEADER, "SPLIT_CUTS", name)
+      for name in sorted(ablate.SPLIT_CUTS)),
+    *((ablate.COLS_HEADER, "QBA_COLS_CUTS", name)
+      for name in sorted(ablate.QBA_COLS_CUTS)),
+])
+def test_split_and_query_block_cols_ablation_cuts_find_their_spans(
+        header, cuts, name):
+    """Each part the ablation removes from kernel 5b's split passes (129 to
+    256) or from kernel 1's column-slice kernel (past 160) is found there,
+    in kernel 1's case first in the one-block-a-slice kernel (before the
+    cluster kernel that shares some of its text), and removing it
+    shortens the source."""
+    with open(os.path.join(_build._CSRC, header)) as f:
+        text = f.read()
+    spec = getattr(ablate, cuts)[name]
+    out = text
+    for start, end, new in (spec if isinstance(spec, list) else [spec]):
+        assert start in out
+        if header == ablate.COLS_HEADER:
+            assert out.index(start) < out.index("cluster_kernel(")
+        else:
+            assert out.count(start) == 1
+        cut = ablate.cut(out, start, end, new)
+        assert len(cut) < len(out) and end in cut
+        out = cut

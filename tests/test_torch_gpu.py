@@ -556,6 +556,88 @@ def _rejects(control, want):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [136, 168, 192, 200, 256])
+@pytest.mark.parametrize("s", [37, 150])
+def test_flash_mha_split_route_matches_plain_and_repeats(gen, dh, s):
+    """Kernel 5b in bf16 from 129 to 256 at a ragged S: the split passes
+    on the plan's instance (192 or 256), q, k and v read in place, held to
+    the plain backward's gates, the same bits call to call and under
+    torch.use_deterministic_algorithms, and autograd's packed gradient
+    equal to the call's (the forward on instance 256); the gate rejects
+    the gradients computed without D."""
+    from tim_tpu_torch.ops import flash_mha as fm
+    bf16 = torch.bfloat16
+    q, k, v = vit_qkv(3, s, bf16, gen, heads=4, dh=dh)
+    kw = {"sm_scale": dh ** -0.5}
+    inst, copied = fm.launch_plan(dh, bf16, q, k, v, backward=True)
+    assert not copied and inst == (192 if dh <= 192 else 256)
+    fm.flash_mha.routes.clear()
+    fm.flash_mha_bwd.routes.clear()
+    out, lse = flash_mha_with_lse(q, k, v, **kw)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(bf16)
+    first = [g.clone() for g in flash_mha_bwd(q, k, v, out, lse, do, **kw)]
+    second = flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    torch.use_deterministic_algorithms(True)
+    try:
+        third = flash_mha_bwd(q, k, v, out, lse, do, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    packed = torch.stack([t.transpose(1, 2) for t in (q, k, v)], 2)
+    leaf = packed.detach().requires_grad_()
+    (flash_mha_qkv(leaf, **kw).float() * do.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(fm.flash_mha.routes) == {
+        fm.route(bf16, 256, dh != 256): 2}
+    assert dict(fm.flash_mha_bwd.routes) == {
+        fm.route(bf16, inst, False, backward=True): 4}
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    for i, g in enumerate(first):
+        assert torch.equal(leaf.grad[:, :, i].transpose(1, 2), g)
+    want = flash_mha_bwd_plain(q, k, v, do, **kw)
+    for g, w in zip(first, want):
+        assert g.shape == w.shape and grad_close(g, w, True)[0]
+    bad = emulated_attention_bwd(vit_scores(q, k, v, **kw), q, k, v, do,
+                                 drop_delta=True, **kw)
+    for i in (0, 1):
+        assert not grad_close(bad[i], want[i], True)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [136, 168, 180, 192, 200, 256])
+def test_query_block_routes_161_to_256_match_plain_and_repeat(gen, dh):
+    """Kernel 1 in bf16 on strided views of packed projections at a
+    ragged Nq: past 160 the column-slice design (one 256-column slice; at
+    180 through the copy to 192), at 136 the tensor-core design through
+    the copy to 160; one launch a call on the route the plan names, held
+    to the plain version, the same bits call to call; the gate rejects the
+    self key dropped."""
+    from chip_smoke import query_block_without_self
+    from tim_tpu_torch.ops import query_block_attention as qba
+    b, h, nq, f = 4, 2, 37, 20
+    bf16 = torch.bfloat16
+    qkv = torch.randn(b, nq, 3, h, dh, generator=gen, device="cuda").to(bf16)
+    qq, kq, vq = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    ctx = torch.randn(b, f, 2, h, dh, generator=gen, device="cuda").to(bf16)
+    kc, vc = (ctx[:, :, i].transpose(1, 2) for i in range(2))
+    args = (qq, kc, kq, vc, vq)
+    width = qba.copy_width(dh, bf16, *args)
+    plan = qba.launch_plan(dh, bf16)
+    assert plan == (qba.COLS if dh > 160 else qba.TENSOR_CORES)
+    assert (width is None) == (dh % 8 == 0 and dh > 160)
+    qba.query_block_attention.routes.clear()
+    out = query_block_attention(*args)
+    again = query_block_attention(*args)
+    torch.cuda.synchronize()
+    assert dict(qba.query_block_attention.routes) == {
+        qba.route(width or dh, bf16, plan, width is not None): 2}
+    assert torch.equal(out, again)
+    want = query_block_attention_plain(*args)
+    assert attention_close(out, want)[0]
+    assert _rejects(query_block_without_self(*args), want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("heads,dh", [(2, 64), (3, 40), (2, 48), (2, 56)])
 def test_window_pair_routes_at_trunk_shapes(gen, heads, dh):
     """Kernel 4's window-pair design in bf16 at a Swin-B-shaped trunk's

@@ -1,21 +1,26 @@
-"""The port past head dim 256, against the JAX package on the CPU (the card
-takes these head dims on the column-slice routes of kernels 1, 5 and 5b;
-their kernels run on the card only, ``tests/test_torch_gpu.py`` and
-chip_smoke phase 31d):
+"""The port past head dim 256, and from 129 to 256 where the card's bf16
+routes are the column-slice forward of kernel 1 and the split passes of
+kernel 5b, against the JAX package on the CPU (the card takes these head
+dims on the column-slice routes of kernels 1, 5 and 5b; their kernels run
+on the card only, ``tests/test_torch_gpu.py`` and chip_smoke phases 31d
+and 31f):
 
 - ``query_block_attention_plain`` against the Pallas kernel
-  (``tim_tpu/ops/pallas_attention.py``) in interpret mode at head dims 264
-  and 512, Nq 37 (no tile multiple): within 1e-5 of the largest value;
+  (``tim_tpu/ops/pallas_attention.py``) in interpret mode at head dims
+  192, 256, 264 and 512, Nq 37 (no tile multiple): within 1e-5 of the
+  largest value;
 - ``flash_mha_plain`` / ``flash_mha_bwd_plain`` and ``flash_mha_qkv``'s
   packed gradient against the einsum branch of
   ``tim_tpu/models/backbones/vit.py:107-112`` and its ``jax.grad``, at
-  head dims 264 and 512: within 1e-5 of each output's largest value;
+  head dims 192, 256, 264 and 512: within 1e-5 of each output's largest
+  value;
 - TIM detection inference at head dim 264 (``--d_model 132 --nhead 1``):
   within 1e-4 of each output's largest value;
 - three ``TwoHeadViT`` LLRD steps at ``--embed_dim 528 --num_heads 2``
   (head dim 264) against JAX's, every parameter within 1e-4 of its
   largest value;
-- the wrappers' plans and route names for head dims 257-1024.
+- the wrappers' plans and route names for head dims 257-1024, and for
+  kernel 1 at 161-256 and kernels 5 / 5b at 129-256.
 
 Inputs are seeded numpy arrays, fp32.
 """
@@ -53,7 +58,7 @@ TOL = 1e-4   # fp32 model outputs and parameters, of each largest (the
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("dh", [264, 512])
+@pytest.mark.parametrize("dh", [192, 256, 264, 512])
 def test_query_block_plain_matches_pallas_past_256(dh):
     rng = np.random.default_rng(dh)
     b, h, nq, f = 2, 2, 37, 20
@@ -64,10 +69,12 @@ def test_query_block_plain_matches_pallas_past_256(dh):
         *[jnp.asarray(a) for a in arrs], tile_q=16, interpret=True))
     got = qba.query_block_attention(*[torch.from_numpy(a) for a in arrs])
     _close(got.numpy(), want, "query_block_attention")
-    assert qba.launch_plan(dh, F32) == qba.COLS
+    assert qba.launch_plan(dh, F32) == (qba.COLS if dh > 256
+                                        else qba.CUDA_CORES)
+    assert qba.launch_plan(dh, BF16) == qba.COLS
 
 
-@pytest.mark.parametrize("dh", [264, 512])
+@pytest.mark.parametrize("dh", [192, 256, 264, 512])
 def test_flash_plain_matches_jax_attention_past_256(dh):
     qkv, _ = _packed(dh, dh)
     scale = dh ** -0.5
@@ -79,7 +86,7 @@ def test_flash_plain_matches_jax_attention_past_256(dh):
     _close(got.transpose(1, 2).numpy(), want, "flash_mha_qkv")
 
 
-@pytest.mark.parametrize("dh", [264, 512])
+@pytest.mark.parametrize("dh", [192, 256, 264, 512])
 def test_flash_bwd_plain_matches_jax_grad_past_256(dh):
     qkv, do = _packed(dh, 100 + dh)
     scale = dh ** -0.5
@@ -220,10 +227,10 @@ def test_query_block_plan_and_copy_past_256(dh, aligned, width):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     args = (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
     qba._check(*args)
-    assert qba.launch_plan(dh, BF16, *args) == qba.COLS
+    assert qba.launch_plan(dh, BF16) == qba.COLS
     assert qba.copy_width(dh, BF16, *args) == width
     f32 = [t.float() for t in args]
-    assert qba.launch_plan(dh, F32, *f32) == qba.COLS
+    assert qba.launch_plan(dh, F32) == qba.COLS
     assert qba.copy_width(dh, F32, *f32) is None
     cluster = " cluster" if (width or dh) > 512 else ""
     assert qba.route(width or dh, BF16, qba.COLS, width is not None) == (
@@ -231,4 +238,72 @@ def test_query_block_plan_and_copy_past_256(dh, aligned, width):
         + (" via copy" if width else ""))
     assert qba.route(dh, F32, qba.COLS) == f"fp32 cuda cores slices {dh}"
     assert qba.route(128, BF16, qba.TENSOR_CORES) == "tensor cores 128"
-    assert qba.route(256, BF16, qba.CUDA_CORES) == "cuda cores 256"
+    assert qba.route(256, BF16, qba.COLS) == "wgmma slices 256"
+    # fp32 keeps its CUDA-core design up to 256
+    assert qba.route(256, F32, qba.CUDA_CORES) == "fp32 cuda cores 256"
+
+
+@pytest.mark.parametrize("dh,aligned,width", [
+    (168, True, None), (180, True, 192), (180, False, 192),
+    (200, True, None), (200, False, 256), (256, True, None),
+    (256, False, 256)])
+def test_query_block_plan_and_copy_161_to_256(dh, aligned, width):
+    """Kernel 1 from 161 to 256: bf16 on the column-slice design (one
+    256-column slice), read in place where dh is a multiple of 8 and every
+    row is 16-byte aligned, else copied zero-padded to the next multiple
+    of 64; fp32 on its CUDA-core design, never copied; no bf16 launch on
+    the CUDA cores."""
+    b, h, nq, f = 1, 2, 24, 10
+    qkv = torch.zeros(b, nq + f, 3, h, dh + (0 if aligned else 1),
+                      dtype=BF16)[..., :dh]
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    args = (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
+    qba._check(*args)
+    assert qba.launch_plan(dh, BF16) == qba.COLS
+    assert qba.copy_width(dh, BF16, *args) == width
+    assert qba.route(width or dh, BF16, qba.COLS, width is not None) == (
+        f"wgmma slices {width or dh}" + (" via copy" if width else ""))
+    f32 = [t.float() for t in args]
+    assert qba.launch_plan(dh, F32) == qba.CUDA_CORES
+    assert qba.copy_width(dh, F32, *f32) is None
+    assert qba.route(dh, F32, qba.CUDA_CORES) == f"fp32 cuda cores {dh}"
+    for dims in range(1, 257):
+        assert qba.launch_plan(dims, BF16) != qba.CUDA_CORES
+
+
+@pytest.mark.parametrize("dh,inst,copied,bwd_inst,bwd_copied", [
+    (136, 256, True, 192, False), (144, 256, True, 192, False),
+    (180, 256, True, 192, True), (192, 256, True, 192, False),
+    (200, 256, True, 256, False), (204, 256, True, 256, True),
+    (256, 256, False, 256, False)])
+def test_flash_plans_129_to_256(dh, inst, copied, bwd_inst, bwd_copied):
+    """Kernels 5 / 5b from 129 to 256 in bf16: the forward on instance 256
+    (through the zero-padded copy below 256), the backward on the split
+    passes' instances 192 and 256, each reading a multiple of 8 up to 56
+    below it in place (else the copy); strided rows off 16 bytes take the
+    copy; fp32 both ways on 256 through the copy; no route named
+    mma.sync."""
+    q = torch.zeros(2, 3, 5, dh, dtype=BF16)
+    assert fm.launch_plan(dh, BF16, q, q, q) == (inst, copied)
+    assert fm.launch_plan(dh, BF16, q, q, q, backward=True) == (
+        bwd_inst, bwd_copied)
+    shifted = torch.zeros(2 * 3 * 5 * dh + 4, dtype=BF16)[4:].view(
+        2, 3, 5, dh)
+    assert fm.launch_plan(dh, BF16, q, shifted, q, backward=True) == (
+        bwd_inst, True)
+    assert fm.route(BF16, inst, copied) == "wgmma 256" + (
+        " via copy" if copied else "")
+    want = f"wgmma split passes {bwd_inst}" + (
+        " via copy" if bwd_copied else "")
+    for deterministic in (False, True):
+        assert fm.route(BF16, bwd_inst, bwd_copied, backward=True,
+                        deterministic=deterministic) == want
+    for backward in (False, True):
+        assert fm.launch_plan(dh, F32, backward=backward) == (
+            256, dh != 256)
+        assert fm.route(F32, 256, dh != 256, backward=backward) == (
+            "fp32 cuda cores 256" + (" via copy" if dh != 256 else ""))
+    for dims in range(1, 257):
+        for backward in (False, True):
+            w, c = fm.launch_plan(dims, BF16, backward=backward)
+            assert "mma.sync" not in fm.route(BF16, w, c, backward=backward)

@@ -275,7 +275,7 @@ def test_flash_routes_name_each_launch():
     assert fm.route(BF16, 64, False, backward=True, deterministic=True) \
         == "wgmma one pass 64 + dq pass"
     assert fm.route(BF16, 256, True, backward=True) \
-        == "mma.sync two passes 256 via copy"
+        == "wgmma split passes 256 via copy"
     assert fm.route(F32, 128, True) == "fp32 cuda cores 128 via copy"
     # past 512 the bf16 forward's slices run as one cluster
     assert fm.route(BF16, 768, False) == "wgmma cluster slices 768"
@@ -304,8 +304,8 @@ def test_flash_padded_copy_is_zero_past_the_head_dim():
 @pytest.mark.parametrize("dh,aligned,plan", [
     (32, True, qba.TENSOR_CORES), (64, True, qba.TENSOR_CORES),
     (128, True, qba.TENSOR_CORES), (160, True, qba.TENSOR_CORES),
-    (256, True, qba.CUDA_CORES), (91, True, qba.CUDA_CORES),
-    (96, True, qba.CUDA_CORES), (160, False, qba.CUDA_CORES)])
+    (256, True, qba.COLS), (91, True, qba.TENSOR_CORES),
+    (96, True, qba.TENSOR_CORES), (160, False, qba.TENSOR_CORES)])
 def test_query_block_plan_and_check_take_every_head_dim(dh, aligned, plan):
     b, h, nq, f = 1, 2, 24, 10
     qkv = torch.zeros(b, nq + f, 3, h, dh + (0 if aligned else 1),
@@ -313,9 +313,8 @@ def test_query_block_plan_and_check_take_every_head_dim(dh, aligned, plan):
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     args = (q[:, :, f:], k[:, :, :f], k[:, :, f:], v[:, :, :f], v[:, :, f:])
     qba._check(*args)
-    assert qba.launch_plan(dh, torch.bfloat16, *args) == plan
-    assert qba.launch_plan(dh, torch.float32,
-                           *(t.float() for t in args)) == qba.CUDA_CORES
+    assert qba.launch_plan(dh, torch.bfloat16) == plan
+    assert qba.launch_plan(dh, torch.float32) == qba.CUDA_CORES
 
 
 def test_query_block_check_still_refuses():
@@ -325,7 +324,7 @@ def test_query_block_check_still_refuses():
     # is the one refused
     big, big_c = torch.zeros(1, 2, 4, 257), torch.zeros(1, 2, 3, 257)
     qba._check(big, big_c, big, big_c, big)
-    assert qba.launch_plan(257, torch.bfloat16, big, big_c) == qba.COLS
+    assert qba.launch_plan(257, torch.bfloat16) == qba.COLS
     with pytest.raises(ValueError, match="head dim"):
         empty, empty_c = torch.zeros(1, 2, 4, 0), torch.zeros(1, 2, 3, 0)
         qba._check(empty, empty_c, empty, empty_c, empty)

@@ -1,14 +1,18 @@
 """Where the bf16 kernels' time goes: each kernel timed with one part of
 its loop removed at a time, on the CUDA card.
 
-    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|3|all]
+    python -m tim_tpu_torch.ablate [--kernel 5b|5|4|forward|4b|2|3|1|all]
                                    [--head_dim N]
 
 - 5b, the flash-attention backward, at [8, 16, 1568, head_dim] (ViT-L's
   64 by default: the one-pass core ``csrc/flash_mha_bwd_sm90.cuh``; bf16
-  65-128: the two passes of ``csrc/flash_mha_bwd_wide_sm90.cuh``, on the
-  instance ``ops.flash_mha.launch_plan`` picks, q, k, v read in place
-  where it does), beside the backward of ``scaled_dot_product_attention``;
+  65-128: the two passes of ``csrc/flash_mha_bwd_wide_sm90.cuh``; bf16
+  129-256 at [8, 1024 / head_dim, 1568, head_dim] (ViT-L at
+  finetune_cli --num_heads 4: [8, 4, 1568, 256]): the split passes of
+  ``csrc/flash_mha_bwd_256_sm90.cuh``, beside the column-slice passes
+  forced at that head dim; on the instance ``ops.flash_mha.launch_plan``
+  picks, q, k, v read in place where it does), beside the backward of
+  ``scaled_dot_product_attention``;
 - 5, the flash-attention forward, and 4, the window-attention forward
   (their shared core ``csrc/flash_attention_sm90.cuh``), at
   [8, 16, 1568, head_dim] and at a Swin trunk's stage 1 (``--head_dim``,
@@ -31,6 +35,11 @@ its loop removed at a time, on the CUDA card.
 - 2, the post-attention tail (``csrc/fused_post_attention_sm90.cuh``) at
   [128 x 898, 1024, 2048], beside its two bare products through
   ``torch.matmul``;
+- 1, query-block attention past head dim 160, the column-slice design
+  (``csrc/attention_cols_sm90.cuh`` with the self key, one 256-column
+  slice up to 256) at [128, 1024 / head_dim, 798, head_dim], F 100 (TIM
+  at cli --nhead 4: [128, 4, 798, 256]), beside masked
+  ``scaled_dot_product_attention``;
 - 3, the fused int8 matmul (``csrc/int8_matmul_fused.cuh``) at the class
   head fc_action ([128 x 399, 1024] bf16 rows of the [128, 898, 1024]
   encoder output -> 3806) with bias, each variant with GELU (so that
@@ -111,6 +120,60 @@ WIDE_CUTS = {
         "#pragma unroll\n    for (int i = 0; i < 32; ++i) {\n"
         "      const int r = (i >> 1) & 1;", "  };\n\n  // tile 0", ""),
 }
+
+COLS_BWD_HEADER = "attention_cols_bwd_sm90.cuh"
+SPLIT_HEADER = "flash_mha_bwd_256_sm90.cuh"
+# kernel 5b's variants from 129 to 256 (the split passes: both passes
+# share one kernel template, so a cut inside it cuts both)
+SPLIT_CUTS = {
+    "dk/dv pass": ("  err = launch_pass<NC, false>(p, kv_qdo, s_kv_qdo, "
+                   "stream);\n", "  if (err != 0) return err;\n"
+                   "  const void* const qdo_kv", ""),
+    "dq pass": ("  return launch_pass<NC, true>(p, qdo_kv, s_qdo_kv, stream);",
+                "\n}\n\n}  // namespace split90", "  return 0;"),
+    "stats pass (lse and D rows)": (
+        "  int err = bwd90::launch_stats(", "\n  Params p{};",
+        "  int err = 0;"),
+    "score products (S, dP)": (
+        "#pragma unroll\n    for (int j = 0; j < NC; ++j) {\n"
+        "      const uint64_t da = desc<64>(a_x",
+        "    sm90::wg_commit();\n    sm90::wg_wait<0>();\n"
+        "    sm90::fence_regs(x);", ""),
+    "exponentials": ("x[i] = col < S ? sm90::ex2(x[i] * sl2 - l2) : 0.f;",
+                     "\n", "x[i] = col < S ? x[i] * sl2 - l2 : 0.f;"),
+    "hand-over waits": [
+        ("      if (!DQ && t > 0) mbar_wait(x_back, (t - 1) & 1);\n",
+         "#pragma unroll\n      for (int c = 0; c < 8; ++c)\n        xp[",
+         ""),
+        ("        mbar_wait(x_back, t & 1);   // dS of this tile\n",
+         "#pragma unroll\n        for (int kk = 0; kk < 4; ++kk) {\n"
+         "          const uint4 u", ""),
+        ("      mbar_wait(x_fwd, t & 1);   // P of this tile\n",
+         "#pragma unroll\n      for (int c = 0; c < 8; ++c) {\n"
+         "        const float4 pv", "")],
+    "the dq pass's early start (its launch as the dk/dv pass's "
+    "programmatic dependent)": (
+        "  attr[0].val.programmaticStreamSerializationAllowed = DQ;", "\n",
+        "  attr[0].val.programmaticStreamSerializationAllowed = 0;"),
+    "sum products (dV, dK, dQ)": (
+        "#pragma unroll\n    for (int j = 0; j < NO; ++j) {\n"
+        "      const int blk", "    sm90::wg_commit();\n    sm90::wg_wait<0>();"
+        "\n#pragma unroll\n    for (int j = 0; j < NO; ++j) "
+        "sm90::fence_regs(o[j]);", ""),
+}
+
+# the launcher flash_mha_bwd.cu's entry dispatches to at 80-128, stubbed
+# in the split passes' variants (each builds two sources, not three)
+SPLIT_STUBS = ("ablate_bwd_stubs.cu", """#include "flash_attention.cuh"
+namespace tim_attn {
+int launch_mha_bwd_bf16_wide(const void*, const void*, const void*,
+                             const void*, const void*, void*, void*, void*,
+                             const long long*, const float*, float*, int,
+                             int, int, int, int, float, cudaStream_t) {
+  return 1;
+}
+}  // namespace tim_attn
+""")
 
 FORWARD_HEADER = "flash_attention_sm90.cuh"
 # the forward core's variants; the bias and region cuts change kernel 4
@@ -201,6 +264,44 @@ CLUSTER_CUTS = {
         "    x[4 * j] = v[j].x;\n    x[4 * j + 1] = v[j].y;\n"
         "    x[4 * j + 2] = v[j].z;\n    x[4 * j + 3] = v[j].w;\n  }\n"),
 }
+# kernel 1's variants on the column-slice design past head dim 160 (its
+# one-block-a-slice kernel, which the self key's SELF instance is; the
+# first occurrence of each span is that kernel's)
+QBA_COLS_CUTS = {
+    "self score": (
+        "#pragma unroll\n      for (int r = 0; r < 2; ++r)\n#pragma unroll\n"
+        "        for (int ch = 2 * tig;", "      release();\n    }\n"
+        "#pragma unroll\n    for (int r = 0; r < 2; ++r) {\n      self[r] +=",
+        ""),
+    "Q K^T products": [
+        ("      issue_s(st0, 0);\n", "      sm90::wg_commit();\n"
+         "      for (int c = 1; c < nki;", ""),
+        ("        issue_s(st, c);\n", "        sm90::wg_commit();\n"
+         "        sm90::wg_wait<1>();\n        release();", "")],
+    "softmax work": (
+        "    fwd90::softmax_tile<kKeys, false>(sc, m, l, corr, rc, nobias, "
+        "nullptr,\n", "    fwd90::pack_p<kKeys>(sc, pa);", ""),
+    "P V products": (
+        "    fwd90::issue_pv<kSlice, kKeys, kSlice / kBlock>(o, pa,\n",
+        "    sm90::wg_commit();\n    sm90::wg_wait<0>();\n#pragma unroll\n"
+        "    for (int j = 0; j < kSlice / kBlock; ++j) "
+        "sm90::fence_regs(o[j]);\n    sm90::fence_regs(pa);\n    release();"
+        "\n  }\n\n  bf* out", ""),
+    "output stores": (
+        "      *reinterpret_cast<uint32_t*>(out + row * p.so.n + col) =\n"
+        "          pack_bf16(x0, x1);", "\n    }\n}",
+        '      asm volatile("" ::"f"(x0), "f"(x1));'),
+}
+# its ring from 161 to 256 (Q's four column blocks resident in their own
+# room, 3 stages of 32 KB): Q in the eight blocks' room it has past 256,
+# and 4 or 5 stages
+_STAGES = ("  static constexpr int kStages = QB ? 3 : 5;", "\n")
+QBA_COLS_CONFIGS = {
+    "Q in eight blocks' room": ("constexpr int kSelfResBlocks = 4;", "\n",
+                                "constexpr int kSelfResBlocks = 0;"),
+    **{f"{n} stages": (*_STAGES, f"  static constexpr int kStages = "
+                                 f"QB == kSelfResBlocks ? {n} : (QB ? 3 : 5);")
+       for n in (4, 5)}}
 # the other route at a head dim, where a cluster can hold the slices: one
 # block a slice past 512, the cluster at 257-512
 _ROUTE = "  return ns >= 3 && ns <= kMaxCluster;"
@@ -295,9 +396,10 @@ def build(work: str, name: str, header: str, text: str, sources) -> str:
     shutil.copytree(_build._CSRC, src)
     with open(os.path.join(src, header), "w") as f:
         f.write(text)
-    if PAIR_STUBS[0] in sources:
-        with open(os.path.join(src, PAIR_STUBS[0]), "w") as f:
-            f.write(PAIR_STUBS[1])
+    for stub, stub_text in (PAIR_STUBS, SPLIT_STUBS):
+        if stub in sources:
+            with open(os.path.join(src, stub), "w") as f:
+                f.write(stub_text)
     lib = src + ".so"
     proc = subprocess.run(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
@@ -349,27 +451,29 @@ def sdpa_with_grad(*args, **kwargs):
 
 
 def heads_of(dh: int) -> int:
-    """Kernel 5's heads at head dim dh: ViT-L's 16 up to 256, past it the
-    heads of a 1024-wide ViT (finetune_cli --num_heads 2, 1)."""
-    return 16 if dh <= fm.SLICED else max(1, 1024 // dh)
+    """Kernel 5's heads at head dim dh: ViT-L's 16 up to 128, past it the
+    heads of a 1024-wide ViT (finetune_cli --num_heads 4, 2, 1)."""
+    return 16 if dh <= fm.WIDE[-1] else max(1, 1024 // dh)
 
 
-def packed_qkv(dh, gen):
+def packed_qkv(dh, gen, backward=False):
     """q, k, v [8, heads_of(dh), 1568, dh] bf16 as views of one packed
-    projection, and the instance they run on (which reads them in
-    place)."""
+    projection, and the instance the forward (or the ``backward``) runs
+    them on (which reads them in place)."""
     qkv = torch.randn(8, 1568, 3, heads_of(dh), dh, generator=gen,
                       device="cuda")
     q, k, v = fm.unpack_qkv(qkv.to(torch.bfloat16))
-    inst, copied = fm.launch_plan(dh, torch.bfloat16, q, k, v)
+    inst, copied = fm.launch_plan(dh, torch.bfloat16, q, k, v,
+                                  backward=backward)
     if copied:
         raise SystemExit(f"--head_dim {dh}: no bf16 instance reads it in "
                          f"place (the wrapper would copy it to {inst})")
     return q, k, v, inst
 
 
-def ablate_5b(libs, gen, dh):
-    q, k, v, inst = packed_qkv(dh, gen)
+def ablate_5b(libs, gen, dh, cols=None):
+    q, k, v, inst = packed_qkv(dh, gen, backward=True)
+    b, h, s = q.shape[:3]
     scale = dh ** -0.5
     out, lse = fm.flash_mha_with_lse(q, k, v, sm_scale=scale)
     do = torch.randn(out.shape, generator=gen, device="cuda").to(
@@ -385,21 +489,71 @@ def ablate_5b(libs, gen, dh):
 
     def call(fn):
         status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(),
-                    None if acc is None else acc.data_ptr(), 8, 16, 1568,
-                    dh, inst, 1, scale, stream)
+                    None if acc is None else acc.data_ptr(), b, h, s, dh,
+                    inst, 1, scale, stream)
         _build.check(status, "flash_mha_bwd variant")
+
+    def call_cols(fn):
+        status = fn(*ptrs, strides, lse.data_ptr(), delta.data_ptr(), b, h,
+                    s, dh, 1, scale, stream)
+        _build.check(status, "flash_mha_bwd_cols")
 
     calls = {}
     for name, lib in libs.items():
         fn = ctypes.CDLL(lib).tim_flash_mha_bwd
         fn.argtypes = fm._BWD_ARGTYPES
         calls[name] = (lambda f: lambda: call(f))(fn)
+    if cols:
+        # the route the split passes replace at this head dim: the
+        # column-slice passes (S^T and dP^T formed again per 128-column
+        # dk/dv slice)
+        fn = ctypes.CDLL(cols["full kernel"]).tim_flash_mha_bwd_cols
+        fn.argtypes = fm._BWD_COLS_ARGTYPES
+        calls["column-slice passes at this head dim"] = (
+            lambda: call_cols(fn))
     times = in_turns(calls)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     o = F.scaled_dot_product_attention(*leaves, scale=scale)
     times["scaled_dot_product_attention backward"] = [cuda_ms(
         lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))]
-    return {"shape": [8, 16, 1568, dh], "instance": inst, "ms": times}
+    return {"shape": [b, h, s, dh], "instance": inst,
+            "route": fm.route(q.dtype, inst, False, backward=True),
+            "ms": times}
+
+
+def ablate_1(libs, gen, dh):
+    """Kernel 1 on the column-slice design at [128, 1024 / dh, 798, dh],
+    F 100 (TIM's detection windows at an encoder 1024 wide), on strided
+    views of a packed projection read in place, beside masked
+    ``scaled_dot_product_attention``."""
+    import chip_smoke as cs
+    from tim_tpu_torch.ops import query_block_attention as qba
+    heads = max(1, 1024 // dh)
+    args = cs.packed_views(128, 898, heads, dh, torch.bfloat16, gen, f=100)
+    if qba.launch_plan(dh, torch.bfloat16) != qba.COLS or \
+            qba.copy_width(dh, torch.bfloat16, *args) is not None:
+        raise SystemExit(f"--kernel 1 --head_dim {dh}: the column-slice "
+                         f"design does not read it in place (a head dim "
+                         f"past 160, a multiple of 8)")
+    out = torch.empty(args[0].shape, dtype=torch.bfloat16, device="cuda")
+    strides = (ctypes.c_longlong * 15)(
+        *[st for t in args for st in t.stride()[:3]])
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for name, lib in libs.items():
+        fn = ctypes.CDLL(lib).tim_query_block_attention_cols
+        fn.argtypes = qba._COLS_ARGTYPES
+        calls[name] = (lambda f: lambda: _build.check(f(
+            *ptrs, strides, 128, heads, 798, 100, dh, 1, dh ** -0.5,
+            stream), "query_block_attention_cols variant"))(fn)
+    sdpa = cs.masked_sdpa_args(*args)
+    calls["masked scaled_dot_product_attention"] = (
+        lambda: F.scaled_dot_product_attention(sdpa[0], sdpa[1], sdpa[2],
+                                               attn_mask=sdpa[3]))
+    return {"shape": [128, heads, 798, dh], "f": 100,
+            "route": qba.route(dh, torch.bfloat16, qba.COLS),
+            "ms": in_turns(calls)}
 
 
 def forward_calls(libs, symbol, argtypes, args_of, cuts_apply):
@@ -641,13 +795,15 @@ def report(name, result):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--kernel", choices=("5b", "5", "4", "forward",
-                                             "4b", "2", "3", "all"),
+                                             "4b", "2", "3", "1", "all"),
                         default="all")
     parser.add_argument("--head_dim", type=int, default=None,
                         help="kernels 5 and 5b's head dim (default 64, or "
                         "one that a bf16 instance past 64 reads in place: "
-                        "a multiple of 8 from 72 to 128); kernel 4's "
-                        "(default 32, Swin-B's)")
+                        "a multiple of 8 from 72 to 128, and for 5b from "
+                        "136 to 256); kernel 4's (default 32, Swin-B's); "
+                        "kernel 1's (default 256: a multiple of 8 past "
+                        "160)")
     parsed = parser.parse_args(argv)
     which = parsed.kernel
     dh = parsed.head_dim or 64
@@ -656,10 +812,21 @@ def main(argv=None) -> int:
         raise SystemExit("tim_tpu_torch.ablate needs a CUDA card")
     jobs = {}
     if which in ("5b", "all"):
-        header, cuts = (HEADER, CUTS) if dh == 64 else (WIDE_HEADER,
-                                                        WIDE_CUTS)
+        header, cuts = ((HEADER, CUTS) if dh == 64 else
+                        (WIDE_HEADER, WIDE_CUTS) if dh <= fm.WIDE[-1] else
+                        (SPLIT_HEADER, SPLIT_CUTS))
+        split = header == SPLIT_HEADER
         jobs["5b"] = (header, variants(header, cuts),
-                      ["flash_mha_bwd.cu", "flash_mha_bwd_wide.cu"])
+                      ["flash_mha_bwd.cu", "flash_mha_bwd_256.cu",
+                       SPLIT_STUBS[0] if split else "flash_mha_bwd_wide.cu"])
+        if split:   # the column-slice passes, timed beside
+            jobs["5b cols"] = (COLS_BWD_HEADER, variants(COLS_BWD_HEADER, {}),
+                               ["flash_mha_bwd_cols.cu"])
+    if which == "1":
+        jobs["1"] = (COLS_HEADER, {
+            **variants(COLS_HEADER, QBA_COLS_CUTS),
+            **variants(COLS_HEADER, QBA_COLS_CONFIGS, full=False)},
+                     ["query_block_attention_cols.cu"])
     pairs = wa.SWIN_DIM < dh4 <= wa.PAIR_DIMS[-1]
     if which in ("5", "forward", "all") and dh > fm.SLICED:
         # the cluster's cuts where the plan takes it (past 512) and the
@@ -711,7 +878,10 @@ def main(argv=None) -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         results = {}
         if "5b" in jobs:
-            results["5b"] = ablate_5b(libs["5b"], gen, dh)
+            results["5b"] = ablate_5b(libs["5b"], gen, dh,
+                                      libs.get("5b cols"))
+        if "1" in jobs:
+            results["1"] = ablate_1(libs["1"], gen, parsed.head_dim or 256)
         if which in ("5", "forward", "all"):
             results["5"] = ablate_5(libs["cols" if dh > fm.SLICED
                                          else "forward"], gen, dh)

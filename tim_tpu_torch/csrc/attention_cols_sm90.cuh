@@ -106,13 +106,19 @@ constexpr int kStageBytes = 2 * kQBox;       // the largest item: 32 KB
 // Up to kResBlocks column blocks (head dim 512) Q's 128 rows stay resident
 // in shared memory (128 KB), read from L2 once instead of once a key tile,
 // and K comes kPerItem column blocks an item; past it Q streams too.
+// Kernel 1 up to head dim 256 (bf16 from 161: one slice) keeps Q in a room
+// of kSelfResBlocks blocks (160 KB in all): the smaller shared-memory
+// carve-out leaves L1 the room that vq's reads use (at [128, 4, 798, 256]
+// 11% faster than Q in eight blocks' room, PERF.md).
 constexpr int kResBlocks = 8;
+constexpr int kSelfResBlocks = 4;
 constexpr int kPerItem = kStageBytes / kKBox;
-template <bool RES>
+// QB: Q's resident column blocks (0: Q streams)
+template <int QB>
 struct Ring {
-  static constexpr int kStages = RES ? 3 : 5;
+  static constexpr int kStages = QB ? 3 : 5;
   static constexpr int kAhead = kStages - 2;   // items loaded ahead
-  static constexpr int kQRes = RES ? kResBlocks * kQBox : 0;
+  static constexpr int kQRes = QB * kQBox;
   // Q | stages | full and empty barriers, Q's barrier | alignment slack
   static constexpr int kSmem =
       kQRes + kStages * kStageBytes + 16 * kStages + 8 + 1024;
@@ -124,20 +130,21 @@ __device__ __forceinline__ int bcoord(int mask, int t, int b) {
   return (mask >> t) & 1 ? 0 : b;
 }
 
-template <bool SELF, bool LSE, bool RES, bool BIAS>
+template <bool SELF, bool LSE, int QB, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     cols_kernel(const ColsParams p, const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 const __grid_constant__ CUtensorMap tm_kq, const int bmask) {
   using bf = __nv_bfloat16;
-  constexpr int NS = Ring<RES>::kStages, AHEAD = Ring<RES>::kAhead;
+  constexpr bool RES = QB > 0;
+  constexpr int NS = Ring<QB>::kStages, AHEAD = Ring<QB>::kAhead;
   extern __shared__ unsigned char dyn_smem[];
   const uint32_t raw = sm90::smem_u32(dyn_smem);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = dyn_smem + (base - raw);
   const uint32_t s_q = base;   // RES: Q's column blocks
-  const uint32_t s_ring = base + Ring<RES>::kQRes;
+  const uint32_t s_ring = base + Ring<QB>::kQRes;
   const uint32_t s_bar = s_ring + NS * kStageBytes;
   const uint32_t q_bar = s_bar + 16 * NS;
   auto stage = [&](int i) { return s_ring + (i % NS) * kStageBytes; };
@@ -173,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // zeros in Q's blocks past nc and in the ring, so that a K item's
     // blocks past nc (not loaded: the stage's older data, or these zeros)
     // meet zero Q columns in the products
-    for (uint32_t i = tid * 16; i < Ring<RES>::kQRes + NS * kStageBytes;
+    for (uint32_t i = tid * 16; i < Ring<QB>::kQRes + NS * kStageBytes;
          i += kThreads * 16)
       if (i >= (uint32_t)(nc * kQBox))
         *reinterpret_cast<uint4*>(gbase + i) = make_uint4(0, 0, 0, 0);
@@ -421,21 +428,21 @@ inline int operand_map(CUtensorMap* map, const void* base, const Strides& s,
 }
 
 namespace {
-template <bool SELF, bool LSE, bool RES, bool BIAS>
+template <bool SELF, bool LSE, int QB, bool BIAS>
 int smem_set[fwd90::kMaxDevices] = {};
 }  // namespace
 
-// RES: Q resident (head dims up to kResBlocks column blocks)
-template <bool SELF, bool LSE, bool RES, bool BIAS>
+// QB: Q's resident column blocks (0: streamed)
+template <bool SELF, bool LSE, int QB, bool BIAS>
 int launch_ring(const ColsParams& p, const CUtensorMap (&maps)[4], int mask,
                 cudaStream_t stream) {
-  constexpr int smem = Ring<RES>::kSmem;
-  auto kernel = cols_kernel<SELF, LSE, RES, BIAS>;
+  constexpr int smem = Ring<QB>::kSmem;
+  auto kernel = cols_kernel<SELF, LSE, QB, BIAS>;
   int device = 0;
   int err = (int)cudaGetDevice(&device);
   if (err != 0) return err;
   if (device >= fwd90::kMaxDevices) return (int)cudaErrorInvalidDevice;
-  int& allowed = smem_set<SELF, LSE, RES, BIAS>[device];
+  int& allowed = smem_set<SELF, LSE, QB, BIAS>[device];
   if (allowed < smem) {
     err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -487,9 +494,15 @@ int launch(const ColsParams& p, cudaStream_t stream) {
   const CUtensorMap maps[4] = {tm_q, tm_k, tm_v, tm_kq};
   if (on_cluster(p.dh))
     return launch_cluster<SELF, LSE, BIAS>(p, maps, mask, stream);
-  if ((p.dh + kBlock - 1) / kBlock <= kResBlocks)
-    return launch_ring<SELF, LSE, true, BIAS>(p, maps, mask, stream);
-  return launch_ring<SELF, LSE, false, BIAS>(p, maps, mask, stream);
+  const int nc = (p.dh + kBlock - 1) / kBlock;
+  if constexpr (SELF) {
+    if (nc <= kSelfResBlocks)
+      return launch_ring<SELF, LSE, kSelfResBlocks, BIAS>(p, maps, mask,
+                                                          stream);
+  }
+  if (nc <= kResBlocks)
+    return launch_ring<SELF, LSE, kResBlocks, BIAS>(p, maps, mask, stream);
+  return launch_ring<SELF, LSE, 0, BIAS>(p, maps, mask, stream);
 }
 
 // ---- the cluster route (bf16, head dims 513-2048) ----

@@ -337,262 +337,6 @@ __global__ void __launch_bounds__(128, 2) dq_bf16_kernel(const BwdParams p) {
                  q0 + warp * 16, S, lane);
 }
 
-// ---- bf16 at head dim 256: kernel 5b's widest route ----
-//
-// The one-pass wgmma core (flash_mha_bwd_sm90.cuh) holds dq, dk and dv
-// accumulators of a 64-wide head in 225 registers a thread; past 64 they
-// do not fit. Up to 128 the two wgmma passes of flash_mha_bwd_wide_sm90.cuh
-// keep one kind of sum each; at 256 even dk and dv alone do not fit
-// there. These two mma.sync passes (the dq pass's design, with
-// no atomics, so the same bits every run) keep no A fragments resident:
-// each k16 step's fragment is read from shared memory where it is used,
-// and a block accumulates at most 128 output columns (a head of 256 takes
-// two blocks, each recomputing the scores), so a thread holds at most
-// 2 x 64 fp32 sums beside two [16 x 64] score tiles.
-constexpr int kWideCols = 128;
-
-template <int DH>
-__host__ __device__ constexpr int wide_cols() {
-  return DH < kWideCols ? DH : kWideCols;
-}
-
-// acc[nt] (16 rows of this warp x 64 columns) = A (the warp's 16 rows of a
-// [64][LD] shared tile a_s) . B^T, B [64][LD] in shared memory; A's
-// fragments are read a k-step at a time.
-template <int DH>
-__device__ __forceinline__ void mma_sbt(float (*acc)[4],
-                                        const __nv_bfloat16* a_s,
-                                        const __nv_bfloat16* b_s, int warp,
-                                        int lane) {
-  constexpr int LD = DH + 8;
-  const int mi = lane / 8, mr = lane % 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ks += 2) {
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, a_s + (warp * 16 + (mi & 1) * 8 + mr) * LD + ks * 16 +
-                        (mi >> 1) * 8);
-    ldmatrix_x4(a1, a_s + (warp * 16 + (mi & 1) * 8 + mr) * LD +
-                        (ks + 1) * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_s + (nt * 8 + mr) * LD + ks * 16 + mi * 8);
-      mma_bf16(acc[nt], a0, b[0], b[1]);
-      mma_bf16(acc[nt], a1, b[2], b[3]);
-    }
-  }
-}
-
-// out (16 rows x DC columns) += X . B[:, 0:DC], X the 16 x 64 fp32
-// fragments x (rounded to bf16 here), B [64][DH + 8] row-major in shared
-// memory from its first wanted column (rows = the 64 summed indices).
-template <int DH, int DC>
-__device__ __forceinline__ void mma_xb_cols(float (*out)[4], float (*x)[4],
-                                            const __nv_bfloat16* b_s,
-                                            int lane) {
-  constexpr int LD = DH + 8;
-  const int mi = lane / 8, mr = lane % 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    pa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    pa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    pa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < DC / 8; dt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_s + (kk * 16 + (mi & 1) * 8 + mr) * LD +
-                               (dt + (mi >> 1)) * 8);
-      mma_bf16(out[dt], pa, b[0], b[1]);
-      mma_bf16(out[dt + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-template <int DH>
-constexpr int wide_smem_bytes() {
-  return (2 * 64 + 4 * 64) * (DH + 8) * 2;
-}
-
-// dk, dv of 64 keys, output columns c0 = blockIdx.y * DC ..: warp w holds
-// keys k0 + 16w.. as the rows of the transposed products s^T = K Q^T and
-// dp^T = V dO^T; dv += P^T dO and dk += dS^T Q over the block's columns,
-// with dO and Q as ldmatrix.trans B operands. Query tiles (q, dO, their
-// lse and D) stream through a two-stage cp.async ring.
-template <int DH>
-__global__ void __launch_bounds__(128, 1) dkdv_bf16_wide_kernel(
-    const BwdParams p) {
-  constexpr int BQ = 64, LD = DH + 8, DC = wide_cols<DH>();
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  bf* s_k = reinterpret_cast<bf*>(dyn_smem);
-  bf* s_v = s_k + 64 * LD;
-  auto s_q = [&](int s) { return s_v + (1 + 2 * s) * 64 * LD; };
-  auto s_do = [&](int s) { return s_v + (2 + 2 * s) * 64 * LD; };
-  __shared__ float s_lse[2][BQ], s_delta[2][BQ];
-
-  const Tile t = bwd_tile(p, 64);
-  const int S = p.seq, k0 = t.q0, c0 = blockIdx.y * DC;
-  const bf* q = at<bf>(p.q, p.sq, t.b, t.h);
-  const bf* dout = at<bf>(p.dout, p.sdo, t.b, t.h);
-  const long long bh = ((long long)t.b * p.heads + t.h) * S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tig = lane % 4;
-  const int n_qt = (S + BQ - 1) / BQ;
-
-  auto load_q = [&](int tile, int s) {
-    const int q0 = tile * BQ;
-    load_rows<DH>(s_q(s), q, p.sq.n, q0, S, tid);
-    load_rows<DH>(s_do(s), dout, p.sdo.n, q0, S, tid);
-    if (tid < BQ) {
-      const int row = min(q0 + tid, S - 1);
-      s_lse[s][tid] = p.lse[bh + row];
-      s_delta[s][tid] = p.delta[bh + row];
-    }
-  };
-
-  load_rows<DH>(s_k, at<bf>(p.k, p.sk, t.b, t.h), p.sk.n, k0, S, tid);
-  load_rows<DH>(s_v, at<bf>(p.v, p.sv, t.b, t.h), p.sv.n, k0, S, tid);
-  load_q(0, 0);
-  cp_async_commit();
-
-  float dk[DC / 8][4], dv[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
-
-  for (int jt = 0; jt < n_qt; ++jt) {
-    const int st = jt & 1, q0 = jt * BQ;
-    if (jt + 1 < n_qt) {
-      load_q(jt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // p^T: rows = this warp's keys, columns = the tile's queries
-    float pt[8][4];
-    mma_sbt<DH>(pt, s_k, s_q(st), warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        pt[nt][e] = q0 + col < S
-                        ? __expf(pt[nt][e] * p.scale - s_lse[st][col])
-                        : 0.f;
-      }
-    mma_xb_cols<DH, DC>(dv, pt, s_do(st) + c0, lane);   // dv += P^T dO
-
-    float dst[8][4];                        // dp^T, then dS^T * scale
-    mma_sbt<DH>(dst, s_v, s_do(st), warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        dst[nt][e] = pt[nt][e] * (dst[nt][e] - s_delta[st][col]) * p.scale;
-      }
-    mma_xb_cols<DH, DC>(dk, dst, s_q(st) + c0, lane);   // dk += dS^T Q
-    __syncthreads();   // this stage is free for the tile after next
-  }
-
-  const int row0 = k0 + warp * 16;
-  store_rows<DC>(at_mut<bf>(p.dk, p.sdk, t.b, t.h) + c0, p.sdk.n, dk, row0,
-                 S, lane);
-  store_rows<DC>(at_mut<bf>(p.dv, p.sdv, t.b, t.h) + c0, p.sdv.n, dv, row0,
-                 S, lane);
-}
-
-// dq of 64 queries, output columns c0 = blockIdx.y * DC ..: the walk of
-// dq_bf16_kernel over key tiles with A fragments read from shared memory.
-template <int DH>
-__global__ void __launch_bounds__(128, 1) dq_bf16_wide_kernel(
-    const BwdParams p) {
-  constexpr int BK = 64, LD = DH + 8, DC = wide_cols<DH>();
-  using bf = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char dyn_smem[];
-  bf* s_q = reinterpret_cast<bf*>(dyn_smem);
-  bf* s_do = s_q + 64 * LD;
-  auto s_k = [&](int s) { return s_do + (1 + 2 * s) * 64 * LD; };
-  auto s_v = [&](int s) { return s_do + (2 + 2 * s) * 64 * LD; };
-
-  const Tile t = bwd_tile(p, 64);
-  const int S = p.seq, q0 = t.q0, c0 = blockIdx.y * DC;
-  const bf* k = at<bf>(p.k, p.sk, t.b, t.h);
-  const bf* v = at<bf>(p.v, p.sv, t.b, t.h);
-  const long long bh = ((long long)t.b * p.heads + t.h) * S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int n_kt = (S + BK - 1) / BK;
-
-  auto load_kv = [&](int tile, int s) {
-    load_rows<DH>(s_k(s), k, p.sk.n, tile * BK, S, tid);
-    load_rows<DH>(s_v(s), v, p.sv.n, tile * BK, S, tid);
-  };
-
-  load_rows<DH>(s_q, at<bf>(p.q, p.sq, t.b, t.h), p.sq.n, q0, S, tid);
-  load_rows<DH>(s_do, at<bf>(p.dout, p.sdo, t.b, t.h), p.sdo.n, q0, S, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = min(q0 + warp * 16 + g + 8 * r, S - 1);
-    lse[r] = p.lse[bh + row];
-    delta[r] = p.delta[bh + row];
-  }
-
-  float dq[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1, k0 = kt * BK;
-    if (kt + 1 < n_kt) {
-      load_kv(kt + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float pr[8][4];
-    mma_sbt<DH>(pr, s_q, s_k(st), warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        pr[nt][e] = k0 + col < S ? __expf(pr[nt][e] * p.scale - lse[e >> 1])
-                                 : 0.f;
-      }
-    float ds[8][4];                         // dp, then dS * scale
-    mma_sbt<DH>(ds, s_do, s_v(st), warp, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[nt][e] = pr[nt][e] * (ds[nt][e] - delta[e >> 1]) * p.scale;
-    mma_xb_cols<DH, DC>(dq, ds, s_k(st) + c0, lane);   // dq += dS K
-    __syncthreads();
-  }
-  store_rows<DC>(at_mut<bf>(p.dq, p.sdq, t.b, t.h) + c0, p.sdq.n, dq,
-                 q0 + warp * 16, S, lane);
-}
-
 // fp32: dq, one thread per query row, 16-key tiles of k and v in shared
 // memory (the forward's fp32 walk).
 template <int DH, bool BIAS>
@@ -860,27 +604,6 @@ int launch_bwd_f32(const BwdParams& p, cudaStream_t stream) {
                         p.heads * t128 * ((p.seq + 31) / 32), 0, stream, p);
   }
   return err;
-}
-
-// The bf16 route at head dim 256: D, then dk/dv and dq (the two wide
-// passes above), on one stream; returns the first launch's CUDA error.
-template <int DH>
-int launch_bwd_bf16_wide(const BwdParams& p, cudaStream_t stream) {
-  const long long rows = (long long)p.batch * p.heads * p.seq;
-  if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
-  if ((rows + 255) / 256 > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
-  delta_kernel<DH, __nv_bfloat16><<<(unsigned)((rows + 255) / 256), 256, 0,
-                                    stream>>>(p);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long blocks = (long long)p.batch * p.heads * ((p.seq + 63) / 64);
-  constexpr unsigned kSplit = DH / wide_cols<DH>();
-  err = launch_smem(dkdv_bf16_wide_kernel<DH>, blocks, wide_smem_bytes<DH>(),
-                    stream, p, kSplit);
-  if (err != 0) return err;
-  return launch_smem(dq_bf16_wide_kernel<DH>, blocks, wide_smem_bytes<DH>(),
-                     stream, p, kSplit);
 }
 
 // strides: 24 element strides, (batch, head, row) for q, k, v, o, do, dq,

@@ -21,8 +21,9 @@
 // Past head dim 64 the one-pass sums do not fit in registers: bf16 head
 // dims 80, 96, 112 and 128 (ViT-H/16's 80, ViT-g/14's 88 and ViT-G/14's 104
 // read in place) take flash_mha_bwd_wide.cu's two atomic-free wgmma passes
-// (dk/dv, then dq); bf16 256 the two mma.sync passes of
-// flash_attention_bwd.cuh.
+// (dk/dv, then dq); bf16 192 and 256 (every multiple of 8 from 136 to 256
+// read in place) flash_mha_bwd_256.cu's two atomic-free wgmma passes, whose
+// warpgroups split each tile's products.
 
 #include "flash_attention_bwd.cuh"
 #include "flash_mha_bwd_sm90.cuh"
@@ -36,6 +37,9 @@ int launch_mha_bwd_bf16_wide(const void* q, const void* k, const void* v,
                              const float* lse, float* delta, int batch,
                              int heads, int seq, int dh, int inst,
                              float scale, cudaStream_t stream);
+// flash_mha_bwd_256.cu: bf16 at instances 192 and 256
+int launch_mha_bwd_bf16_256(const BwdParams& p, int dh, int inst,
+                            cudaStream_t stream);
 }  // namespace tim_attn
 
 namespace {
@@ -64,15 +68,16 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The instance `inst` as the forward's (64, 128, 256; in bf16 also 80, 96,
-// 112): bf16 64 on the one-pass wgmma core, bf16 80-128 on the two wgmma
-// passes of flash_mha_bwd_wide.cu (atomic-free), bf16 256 on the wide
-// mma.sync passes (atomic-free), fp32 on the CUDA-core passes. dh: the
-// head dim of every operand, the instance's, or in bf16 at 80-128 8 less
-// (read in place, as the forward). strides: 24 element strides, (batch,
+// The instance `inst`: 64, 128, 256; in bf16 also 80, 96, 112 and 192. bf16
+// 64 on the one-pass wgmma core, bf16 80-128 on the two wgmma passes of
+// flash_mha_bwd_wide.cu, bf16 192 and 256 on the split passes of
+// flash_mha_bwd_256.cu (both atomic-free), fp32 on the CUDA-core passes.
+// dh: the head dim of every operand, the instance's, or in bf16 at 80-128 8
+// less, at 192 and 256 a multiple of 8 less by under 64 (read in place).
+// strides: 24 element strides, (batch,
 // head, row) for q, k, v, o, do, dq, dk and dv. lse: the forward's [batch,
 // heads, seq] fp32 row statistic; delta: [batch, heads, seq] fp32 scratch
-// (bf16 at 80-128: 2 x batch x heads x seq rounded up to 4 floats);
+// (bf16 at 80-256: 2 x batch x heads x seq rounded up to 4 floats);
 // dq_accum: [batch, heads, seq, 64] fp32 scratch (bf16 at 64 only; zeroed
 // here), or null for the deterministic route (dq without atomic adds).
 // Returns the first CUDA error of the launches (0 on success).
@@ -85,9 +90,11 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
                                  float scale, void* stream) {
   const bool wgmma_wide = is_bf16 && inst > kDH && inst <= 128 &&
                           inst % 16 == 0;
-  if (dh != inst && !(wgmma_wide && dh == inst - 8))
+  const bool split = is_bf16 && (inst == 192 || inst == 256);
+  if (dh != inst && !(wgmma_wide && dh == inst - 8) &&
+      !(split && dh % 8 == 0 && dh > inst - 64 && dh < inst))
     return (int)cudaErrorInvalidValue;
-  if (inst != kDH && inst != 128 && inst != 256 && !wgmma_wide)
+  if (inst != kDH && inst != 128 && inst != 256 && !wgmma_wide && !split)
     return (int)cudaErrorInvalidValue;
   if (batch <= 0 || heads <= 0 || seq <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -105,7 +112,7 @@ extern "C" int tim_flash_mha_bwd(const void* q, const void* k, const void* v,
     p.lse = lse; p.delta = delta;
     p.batch = batch; p.heads = heads; p.seq = seq; p.scale = scale;
     p.bias = nullptr; p.region = nullptr; p.n_win = 1; p.dbias = nullptr;
-    if (is_bf16) return tim_attn::launch_bwd_bf16_wide<256>(p, st);
+    if (is_bf16) return tim_attn::launch_mha_bwd_bf16_256(p, dh, inst, st);
     return inst == 128 ? tim_attn::launch_bwd_f32<128, false>(p, st)
                        : tim_attn::launch_bwd_f32<256, false>(p, st);
   }

@@ -285,13 +285,16 @@ __device__ __forceinline__ void store_rows(bf* dst, long long ld,
   }
 }
 
-// The padded rows of stats: lse copied, D = do . o over the head dim read,
-// zeros past seq; one thread a padded row. (Internal linkage: two sources
-// include this header.)
+// The padded rows of stats: lse copied, D = do . o over the head dim read
+// (a multiple of 8), zeros past seq; one warp a padded row, each lane 8
+// columns (16-byte loads) at a time, summed across the warp. (Internal
+// linkage: three sources include this header; flash_mha_bwd_256_sm90.cuh's
+// split passes read the same rows.)
 namespace {
 __global__ void __launch_bounds__(256) stats_kernel(const Params p) {
   const long long n = (long long)p.batch * p.heads * p.seq_pad;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   if (i >= n) return;
   const int row = (int)(i % p.seq_pad);
   const long long bh = i / p.seq_pad;
@@ -300,17 +303,28 @@ __global__ void __launch_bounds__(256) stats_kernel(const Params p) {
     const int h = (int)(bh % p.heads), b = (int)(bh / p.heads);
     const bf* o = p.o + b * p.so.b + h * p.so.h + row * p.so.n;
     const bf* d = p.dout + b * p.sdo.b + h * p.sdo.h + row * p.sdo.n;
-    for (int c = 0; c < p.dh; c += 8) {
+    for (int c = lane * 8; c < p.dh; c += 32 * 8) {
       float x[8], y[8];
       tim::load_floats<bf, 8>(o + c, x);
       tim::load_floats<bf, 8>(d + c, y);
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
     }
+    acc = tim::warp_sum(acc);
     lse = p.lse[bh * p.seq + row];
   }
-  p.stats[i] = lse;
-  p.stats[n + i] = acc;
+  if (lane == 0) {
+    p.stats[i] = lse;
+    p.stats[n + i] = acc;
+  }
+}
+
+// stats_kernel over `rows` padded rows, on stream.
+int launch_stats(const Params& p, long long rows, cudaStream_t stream) {
+  if ((rows + 7) / 8 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  stats_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 }  // namespace
 
@@ -727,8 +741,7 @@ int launch(const Params& p, cudaStream_t stream) {
   if (p.batch <= 0 || p.heads <= 0 || p.seq <= 0) return 0;
   const long long bh = (long long)p.batch * p.heads;
   const long long rows = bh * p.seq_pad;
-  if ((rows + 255) / 256 > 0x7fffffffLL || bh > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
+  if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   Maps<DH> kv, qdo;
   int err = fwd90::block_maps<DH>(&qdo.a, &qdo.tail.m[0], 2, p.q, p.sq,
                                   p.batch, p.heads, p.seq, p.dh, kTile);
@@ -746,8 +759,7 @@ int launch(const Params& p, cudaStream_t stream) {
   if (err != 0) return err;
   kv.lse = qdo.lse;
   kv.delta = qdo.delta;
-  stats_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(p);
-  err = (int)cudaGetLastError();
+  err = launch_stats(p, rows, stream);
   if (err != 0) return err;
   err = launch_pass(dkdv_kernel<DH, BIAS>, p, qdo, stream, Shape<DH>::kSmem);
   if (err != 0) return err;

@@ -47,18 +47,20 @@
 // wide TIM's 2560 / 16 heads: its 160 x 168 rows do not fit the resident
 // ring, so it streams the context); ops/query_block_attention.py copies
 // bf16 inputs at other head dims up to 160, or with rows cp.async cannot
-// copy, zero-padded onto the next of them.
+// copy, zero-padded onto the next of them. Past 160 a thread's fp32 output
+// accumulators do not fit the register file beside its A fragments, and
+// bf16 takes the column-slice wgmma design of
+// query_block_attention_cols.cu (one 256-column slice up to head dim 256).
 //
-// fp32 (the parity path) and bf16 past head dim 160 (whose fp32 output
-// accumulators a thread, beside its A fragments, do not fit the register
-// file) keep the CUDA-core design: one block per (batch * head, 128
-// queries), kc and vc in shared memory, each warp walking its queries one
-// at a time, context scores by warp-shuffle reductions 32 keys at a time,
-// fp32 softmax and value sums. It is bound by issuing shared-memory loads
-// and shuffles per key (3.96 ms at the bf16 shape above, H100 80GB HBM3,
-// 700 W). Head dims other than 32, 64, 128 and 256 take its TAIL
-// instances: a lane's DPL dims past dh are masked, and shared-memory rows
-// are dh rounded up to 8 values.
+// fp32 (the parity path) keeps the CUDA-core design up to head dim 256:
+// one block per (batch * head, 128 queries), kc and vc in shared memory,
+// each warp walking its queries one at a time, context scores by
+// warp-shuffle reductions 32 keys at a time, fp32 softmax and value sums.
+// It is bound by issuing shared-memory loads and shuffles per key (in bf16
+// it took 3.96 ms at the shape above, H100 80GB HBM3, 700 W). Head dims
+// other than 32, 64, 128 and 256 take its TAIL instances: a lane's DPL
+// dims past dh are masked, and shared-memory rows are dh rounded up to 8
+// values.
 //
 // q/k/v arrive as strided views of the packed projection (and, in layer 0,
 // a batch-broadcast query block): both designs take (batch, head, row)
@@ -610,25 +612,19 @@ int launch_f32_tail(const Args& a, int bh, int dh, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// cuda_cores: the wrapper's plan sends bf16 to the CUDA-core design: a
-// head dim past the tensor-core instances (up to 160 the wrapper copies
-// other head dims and unaligned rows onto them, zero-padded).
-int dispatch(const Args& a, int bh, int dh, bool bf16_in, bool cuda_cores,
+// bf16 on the tensor-core design (the wrapper copies other head dims up
+// to 160 and unaligned rows onto its instances, zero-padded), fp32 on the
+// CUDA-core design.
+int dispatch(const Args& a, int bh, int dh, bool bf16_in,
              cudaStream_t stream) {
-  if (bf16_in && !cuda_cores) {
+  if (bf16_in) {
     switch (dh) {
       case 32: return launch_bf16_tc<32>(a, bh, stream);
       case 64: return launch_bf16_tc<64>(a, bh, stream);
       case 128: return launch_bf16_tc<128>(a, bh, stream);
       case 160: return launch_bf16_tc<160>(a, bh, stream);
-      case 256: return launch<bf16, 8>(a, bh, stream);
       default: return (int)cudaErrorInvalidValue;
     }
-  }
-  if (bf16_in) {
-    if (dh == 256) return launch<bf16, 8>(a, bh, stream);
-    if (dh > 160 && dh < 256) return launch<bf16, 8, true>(a, bh, stream);
-    return (int)cudaErrorInvalidValue;
   }
   switch (dh) {
     case 32: return launch<float, 1>(a, bh, stream);
@@ -646,8 +642,8 @@ int dispatch(const Args& a, int bh, int dh, bool bf16_in, bool cuda_cores,
 extern "C" int tim_query_block_attention(
     const void* qq, const void* kc, const void* kq, const void* vc,
     const void* vq, void* out, const long long* strides, int batch,
-    int heads, int nq, int f, int dh, int is_bf16, int cuda_cores,
-    float scale, void* stream) {
+    int heads, int nq, int f, int dh, int is_bf16, float scale,
+    void* stream) {
   tim_qba::Args a;
   a.qq = qq; a.kc = kc; a.kq = kq; a.vc = vc; a.vq = vq; a.out = out;
   tim_qba::Strides* s[5] = {&a.s_qq, &a.s_kc, &a.s_kq, &a.s_vc, &a.s_vq};
@@ -659,6 +655,6 @@ extern "C" int tim_query_block_attention(
   a.heads = heads; a.nq = nq; a.f = f; a.dh = dh; a.scale = scale;
   const int bh = batch * heads;
   if (nq <= 0 || bh <= 0) return 0;
-  return tim_qba::dispatch(a, bh, dh, is_bf16 != 0, cuda_cores != 0,
+  return tim_qba::dispatch(a, bh, dh, is_bf16 != 0,
                            static_cast<cudaStream_t>(stream));
 }

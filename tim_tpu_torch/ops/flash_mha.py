@@ -16,12 +16,17 @@ way, so autograd adds no copies for the three slices.
 
 The kernels are built at instances (head dims) 64, 128 and 256, and in
 bf16 also 80, 96 and 112 (``HEAD_DIMS``; ``launch_plan`` picks one route a
-head dim and dtype). bf16 past 64 up to 128 runs on the head dim rounded up
-to 16, the instances whose tiles add a 32- and / or 16-column block to the
-64-column ones (``WIDE``): the kernels' TMA maps span the true head dim and
-fill the columns past it with zeros, so a head dim that is a multiple of 8
-(ViT-H/16's 80, ViT-g/14's 88, ViT-G/14's 104) is read in place. Any other
-head dim up to 256 (91, say; fp32 at 80) runs on the next instance through
+head dim, dtype and direction). bf16 past 64 up to 128 runs on the head dim
+rounded up to 16, the instances whose tiles add a 32- and / or 16-column
+block to the 64-column ones (``WIDE``): the kernels' TMA maps span the true
+head dim and fill the columns past it with zeros, so a head dim that is a
+multiple of 8 (ViT-H/16's 80, ViT-g/14's 88, ViT-G/14's 104) is read in
+place. The bf16 backward from 129 to 256 has instances 192 and 256 of its
+own (``SPLIT``, ``csrc/flash_mha_bwd_256.cu``), which read every multiple
+of 8 above 128 in place the same way (ViT-L at ``--num_heads 4``: 256;
+``--embed_dim 1152 | 1200 --num_heads 6``: 192, 200); the forward there
+runs on instance 256. Any other head dim up to 256 (91, say; fp32 at 80)
+runs on the next instance through
 one copy of q, k and v into a zero-padded packed buffer (``padded_qkv``;
 zero columns add nothing to the scores, and give zero output and gradient
 columns), with ``sm_scale`` as given (1/sqrt of the true head dim) and
@@ -60,6 +65,9 @@ HEAD_DIMS = (64, 80, 96, 112, 128, 256)
 F32_HEAD_DIMS = (64, 128, 256)
 # bf16 past 64: the instances that read a head dim 8 below theirs in place
 WIDE = (80, 96, 112, 128)
+# the bf16 backward's instances from 129 to 256 (the split passes), each
+# reading a multiple of 8 up to 56 below it in place
+SPLIT = (192, 256)
 # past this head dim, the column-slice route (any head dim, run at its own
 # or at the next multiple of 64)
 SLICED = HEAD_DIMS[-1]
@@ -127,7 +135,7 @@ def flash_mha_bwd_plain(q, k, v, do, *, sm_scale: float):
                                        sm_scale=sm_scale)[:3]
 
 
-def check_qkv(name: str, q, k, v, inst: int) -> None:
+def check_qkv(name: str, q, k, v, inst: int, backward: bool = False) -> None:
     """What the kernels of instance ``inst`` take: q/k/v of one shape
     [B, H, S, dh] and dtype on one device, dh the instance's (or one that
     the instance reads in place, ``reads_in_place``), the last dim
@@ -138,7 +146,7 @@ def check_qkv(name: str, q, k, v, inst: int) -> None:
                          f"{tuple(q.shape)}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {q.dtype} not in {_DTYPES}")
-    if not reads_in_place(q.shape[-1], q.dtype, inst):
+    if not reads_in_place(q.shape[-1], q.dtype, inst, backward):
         raise ValueError(f"{name}: head dim {q.shape[-1]}, the kernel is "
                          f"built for {inst}")
     per16 = 16 // q.element_size()
@@ -156,16 +164,19 @@ def check_qkv(name: str, q, k, v, inst: int) -> None:
                              f"{t.stride()})")
 
 
-def instance_dim(dh: int, dtype) -> int:
+def instance_dim(dh: int, dtype, backward: bool = False) -> int:
     """The head dim of the kernel instance that head dim ``dh`` runs on in
     ``dtype``: past 256 (``SLICED``) the column-slice route at dh itself
     where a row of dh fills 16-byte words, else at the next multiple of
-    64; bf16 past 64 up to 128 dh rounded up to 16 (``WIDE``); else the
-    least of ``F32_HEAD_DIMS`` that holds it."""
+    64; bf16 past 64 up to 128 dh rounded up to 16 (``WIDE``); the bf16
+    ``backward`` from 129 to 256 the least of ``SPLIT`` that holds it;
+    else the least of ``F32_HEAD_DIMS`` that holds it."""
     if dh > SLICED:
         return dh if dh * _size(dtype) % 16 == 0 else -(-dh // 64) * 64
     if dtype == torch.bfloat16 and WIDE[0] - 16 < dh <= WIDE[-1]:
         return -(-dh // 16) * 16
+    if backward and dtype == torch.bfloat16 and dh > WIDE[-1]:
+        return min(w for w in SPLIT if w >= dh)
     return min(w for w in F32_HEAD_DIMS if w >= dh)
 
 
@@ -173,13 +184,18 @@ def _size(dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
-def reads_in_place(dh: int, dtype, inst: int) -> bool:
+def reads_in_place(dh: int, dtype, inst: int, backward: bool = False) -> bool:
     """Whether instance ``inst`` reads head dim ``dh`` where it lies: its
-    own, or in bf16 on the ``WIDE`` instances a multiple of 8 below it (the
-    TMA maps span dh; TMA fills the columns up to the instance with
-    zeros)."""
-    return dh == inst or (dtype == torch.bfloat16 and inst in WIDE
-                          and dh % 8 == 0 and inst - 16 < dh < inst)
+    own, or in bf16 a multiple of 8 below it on the ``WIDE`` instances
+    (within 16) and the backward's ``SPLIT`` ones (within 64): the TMA
+    maps span dh; TMA fills the columns up to the instance with zeros."""
+    if dh == inst:
+        return True
+    if dtype != torch.bfloat16 or dh % 8:
+        return False
+    if inst in WIDE:
+        return inst - 16 < dh < inst
+    return backward and inst in SPLIT and inst - 64 < dh < inst
 
 
 def cluster(inst: int, dtype) -> bool:
@@ -206,12 +222,13 @@ def slices_route(dtype, inst: int, backward: bool = False) -> str:
     return f"wgmma slices {inst}"
 
 
-def launch_plan(dh: int, dtype, *tensors):
-    """(instance head dim, whether q/k/v go through a zero-padded copy):
-    the copy is taken when the instance does not read dh in place
-    (``reads_in_place``) or a row cannot be read in place (``aligned``)."""
-    w = instance_dim(dh, dtype)
-    return w, not (reads_in_place(dh, dtype, w)
+def launch_plan(dh: int, dtype, *tensors, backward: bool = False):
+    """(instance head dim, whether q/k/v go through a zero-padded copy) of
+    the forward or the ``backward``: the copy is taken when the instance
+    does not read dh in place (``reads_in_place``) or a row cannot be read
+    in place (``aligned``)."""
+    w = instance_dim(dh, dtype, backward)
+    return w, not (reads_in_place(dh, dtype, w, backward)
                    and all(aligned(t) for t in tensors))
 
 
@@ -222,10 +239,10 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     fp32 on the CUDA cores; bf16 forward on the wgmma core; bf16 backward on
     the one-pass wgmma core at 64 (with the atomic-free dq pass instead of
     atomic adds when ``deterministic``), the two wgmma passes on ``WIDE``,
-    the two mma.sync passes at 256; past 256 (``SLICED``) the column-slice
-    routes (``slices_route``; the backward's is atomic-free whether
-    ``deterministic`` or not, one name); " via copy" when the zero-padded
-    copy was taken."""
+    the two split wgmma passes on ``SPLIT``; past 256 (``SLICED``) the
+    column-slice routes (``slices_route``; the backward's is atomic-free
+    whether ``deterministic`` or not, one name); " via copy" when the
+    zero-padded copy was taken."""
     if inst > SLICED:
         name = slices_route(dtype, inst, backward)
     elif dtype == torch.float32:
@@ -237,7 +254,7 @@ def route(dtype, inst: int, copied: bool, backward: bool = False,
     elif inst in WIDE:
         name = f"wgmma two passes {inst}"
     else:
-        name = f"mma.sync two passes {inst}"
+        name = f"wgmma split passes {inst}"
     return name + (" via copy" if copied else "")
 
 
@@ -403,7 +420,7 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
         raise ValueError(f"flash_mha_bwd: no kernel for device {q.device}")
     check_args("flash_mha_bwd", q, k, v)
     dh = q.shape[-1]
-    w, pad = launch_plan(dh, q.dtype, q, k, v, out)
+    w, pad = launch_plan(dh, q.dtype, q, k, v, out, backward=True)
     if pad:
         qkv = padded_qkv(q, k, v, w)
         got = _launch_bwd(*unpack_qkv(qkv), pad_last(out, w), lse,
@@ -420,10 +437,10 @@ def flash_mha_bwd(q, k, v, out, lse, do, *, sm_scale: float, grads=None):
 
 def bwd_scratch(lse, inst: int, bf16: bool):
     """The backward's fp32 scratch for D (the C launcher's ``delta``): like
-    ``lse``, [B, H, S]; the two passes of the bf16 ``WIDE`` instances keep
-    lse and D in rows padded to 4 (16 bytes, their TMA boxes' alignment),
-    2 x B x H x S rounded up to 4."""
-    if bf16 and inst in WIDE:
+    ``lse``, [B, H, S]; the two passes of the bf16 ``WIDE`` and ``SPLIT``
+    instances keep lse and D in rows padded to 4 (16 bytes, their TMA
+    boxes' alignment), 2 x B x H x S rounded up to 4."""
+    if bf16 and (inst in WIDE or inst in SPLIT):
         b, h, s = lse.shape
         return lse.new_empty(2 * b * h * (-(-s // 4) * 4))
     return torch.empty_like(lse)
@@ -434,7 +451,7 @@ def _launch_bwd(q, k, v, out, lse, do, sm_scale, grads, inst, copied):
     reads in place (``copied``: the zero-padded copy, for the route's
     count)."""
     grads = packed_grads(q) if grads is None else grads
-    check_qkv("flash_mha_bwd", *grads, inst)
+    check_qkv("flash_mha_bwd", *grads, inst, backward=True)
     do, strides = bwd_args(q, k, v, out, do, grads)
     b, h, s, dh = q.shape
     bf16 = q.dtype == torch.bfloat16
@@ -479,19 +496,27 @@ class _FlashMHA(torch.autograd.Function):
         qkv_k = pad_last(qkv, w) if pad else qkv
         lse = row_stats(unpack_qkv(qkv)[0])
         out = _launch_fwd(*unpack_qkv(qkv_k), sm_scale, lse, w, pad)
-        ctx.save_for_backward(qkv_k, out, lse)
+        # the backward's own plan (bf16 from 129 to 256: the split passes'
+        # instances) keeps qkv as given and plans it again
+        ctx.same = launch_plan(dh, qkv.dtype, *unpack_qkv(qkv),
+                               backward=True) == (w, pad)
+        ctx.save_for_backward(qkv_k if ctx.same else qkv, out, lse)
         ctx.sm_scale, ctx.dh, ctx.inst, ctx.pad = sm_scale, dh, w, pad
         return out[..., :dh] if pad else out
 
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse = ctx.saved_tensors
+        grad = torch.empty_like(qkv)
+        if not ctx.same:
+            flash_mha_bwd(*unpack_qkv(qkv), out[..., :ctx.dh], lse, do,
+                          sm_scale=ctx.sm_scale, grads=unpack_qkv(grad))
+            return grad, None
         # the saved qkv: the input (read in place), or its copy padded to
         # the instance
         width = qkv.shape[-1]
         if width != ctx.dh:
             do = pad_last(do.to(qkv.dtype), width)
-        grad = torch.empty_like(qkv)
         _launch_bwd(*unpack_qkv(qkv), out, lse, do, ctx.sm_scale,
                     unpack_qkv(grad), ctx.inst, ctx.pad)
         return (grad[..., :ctx.dh] if width != ctx.dh else grad), None

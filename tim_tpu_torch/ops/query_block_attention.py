@@ -9,21 +9,21 @@ the output is in the input dtype.
 (``csrc/query_block_attention.cu``) for CUDA tensors and runs
 ``query_block_attention_plain``, the same function in plain PyTorch, for
 CPU tensors. There is no fallback between the two. On the card it takes
-any head dim and any row strides (``launch_plan``): bf16 rows that are
-16-byte aligned at head dims 32, 64, 128 and 160 take the tensor-core
-design in place; other bf16 inputs up to head dim 160 are copied once into
-zero-padded rows of the next of those head dims (``copy_width``; zero
+any head dim and any row strides (``launch_plan``, ``copy_width``): bf16
+rows that are 16-byte aligned at head dims 32, 64, 128 and 160 take the
+tensor-core design in place; other bf16 inputs up to head dim 160 are
+copied once into zero-padded rows of the next of those head dims (zero
 columns add nothing to the scores, the scale stays 1/sqrt(dh), the
-output's padding is sliced off); fp32 up to 256, and bf16 past 160 up to
-256, take the CUDA-core design (its lanes' dims past dh masked where dh is
-not 32, 64, 128 or 256). Past 256 both dtypes take the column-slice design
-(``csrc/query_block_attention_cols.cu``: bf16 on wgmma, fp32 on the CUDA
-cores, 256 output columns a block; in bf16 from 513 to 2048 the slices of
-a query tile as one thread-block cluster, ``flash_mha.CLUSTER_DIMS``),
-bf16 in place where the rows are 16-byte aligned and dh is a multiple of
-8, else through one copy zero-padded to the next multiple of 64. Each
-launch counts one on
-``launches`` and on its route (``routes[route(...)]``).
+output's padding is sliced off). bf16 past 160 takes the column-slice
+design (``csrc/query_block_attention_cols.cu``: wgmma, 256 output columns
+a block, so up to 256 one slice; in bf16 from 513 to 2048 the slices of a
+query tile as one thread-block cluster, ``flash_mha.CLUSTER_DIMS``), in
+place where the rows are 16-byte aligned and dh is a multiple of 8, else
+through one copy zero-padded to the next multiple of 64. fp32 takes the
+CUDA-core design up to 256 (its lanes' dims past dh masked where dh is not
+32, 64, 128 or 256) and the column slices on the CUDA cores past it. Each
+launch counts one on ``launches`` and on its route
+(``routes[route(...)]``).
 """
 
 from __future__ import annotations
@@ -38,15 +38,16 @@ from tim_tpu_torch import _build
 from tim_tpu_torch.ops.flash_mha import aligned, slices_route
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# head dims of the bf16 tensor-core instances
+# head dims of the bf16 tensor-core instances; past the last, bf16 takes
+# the column slices
 TENSOR_CORE_HEAD_DIMS = (32, 64, 128, 160)
-# the widest head dim of the CUDA-core design; past it, column slices
+# the widest head dim of fp32's CUDA-core design; past it, column slices
 CUDA_CORE_MAX = 256
 TENSOR_CORES, CUDA_CORES, COLS = "tensor_cores", "cuda_cores", "cols"
 # tim_query_block_attention(qq, kc, kq, vc, vq, out, strides, b, h, nq, f,
-# dh, bf16, cuda_cores, scale, stream)
+# dh, bf16, scale, stream)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-             + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 # tim_query_block_attention_cols(qq, kc, kq, vc, vq, out, strides, b, h,
 # nq, f, dh, bf16, scale, stream)
 _COLS_ARGTYPES = ([ctypes.c_void_p] * 6
@@ -96,35 +97,30 @@ def _check(qq, kc, kq, vc, vq):
                          f"B*H <= 65535, got F={f}, B*H={b * h}")
 
 
-def launch_plan(dh: int, dtype, *tensors) -> str:
-    """The kernel design that runs these inputs: ``COLS`` past head dim
-    256 (either dtype); else ``TENSOR_CORES`` for bf16 at a tensor-core
-    head dim with every row 16-byte aligned, else ``CUDA_CORES`` (fp32
-    always; bf16 at any other head dim, or with rows that the tensor-core
-    design's 16-byte cp.async copies cannot read, ``flash_mha.aligned``)."""
-    if dh > CUDA_CORE_MAX:
-        return COLS
-    if (dtype == torch.bfloat16 and dh in TENSOR_CORE_HEAD_DIMS
-            and all(aligned(t) for t in tensors)):
-        return TENSOR_CORES
-    return CUDA_CORES
+def launch_plan(dh: int, dtype) -> str:
+    """The kernel design that runs head dim ``dh`` in ``dtype``, in place
+    or on the copy that ``copy_width`` names (the copy, not the design,
+    depends on the inputs' layout): bf16 ``TENSOR_CORES`` up to head dim
+    160 and ``COLS`` past it; fp32 ``CUDA_CORES`` up to 256 and ``COLS``
+    past it."""
+    if dtype == torch.bfloat16:
+        return TENSOR_CORES if dh <= TENSOR_CORE_HEAD_DIMS[-1] else COLS
+    return CUDA_CORES if dh <= CUDA_CORE_MAX else COLS
 
 
 def copy_width(dh: int, dtype, *tensors):
     """The head dim of the zero-padded copy that takes bf16 inputs a
-    design cannot read in place onto it, or None: no copy. Up to 160 the
-    least tensor-core head dim >= dh; past 256 (TMA's boxes need 16-byte
-    rows) the next multiple of 64 where dh is no multiple of 8 or a row
-    is not 16-byte aligned. fp32, in-place tensor cores and bf16 from 161
-    to 256 (the CUDA-core design) take no copy."""
+    design cannot read in place onto it, or None: no copy. On the tensor
+    cores the least tensor-core head dim >= dh, unless dh is one and every
+    row is 16-byte aligned (``flash_mha.aligned``); on the column slices
+    (TMA's boxes need 16-byte rows) the next multiple of 64 where dh is no
+    multiple of 8 or a row is not 16-byte aligned. fp32 takes no copy."""
     if dtype != torch.bfloat16:
         return None
-    plan = launch_plan(dh, dtype, *tensors)
-    if plan == COLS:
-        if dh % 8 == 0 and all(aligned(t) for t in tensors):
-            return None
-        return -(-dh // 64) * 64
-    if plan == TENSOR_CORES or dh > TENSOR_CORE_HEAD_DIMS[-1]:
+    in_place = all(aligned(t) for t in tensors)
+    if launch_plan(dh, dtype) == COLS:
+        return None if dh % 8 == 0 and in_place else -(-dh // 64) * 64
+    if dh in TENSOR_CORE_HEAD_DIMS and in_place:
         return None
     return min(w for w in TENSOR_CORE_HEAD_DIMS if w >= dh)
 
@@ -132,14 +128,16 @@ def copy_width(dh: int, dtype, *tensors):
 def route(dh: int, dtype, plan: str, copied: bool = False) -> str:
     """The name of the route that a launch at head dim ``dh`` (the
     launched width) on ``plan`` takes, the key of its count in
-    ``query_block_attention.routes``: "tensor cores 128", "cuda cores
-    256", past 256 ``flash_mha.slices_route``'s names ("wgmma slices 512",
-    "wgmma cluster slices 1024", "fp32 cuda cores slices 512"); " via
-    copy" when the zero-padded copy was taken."""
+    ``query_block_attention.routes``: "tensor cores 128", "fp32 cuda cores
+    256", on the column slices ``flash_mha.slices_route``'s names ("wgmma
+    slices 256", "wgmma cluster slices 1024", "fp32 cuda cores slices
+    512"); " via copy" when the zero-padded copy was taken."""
     if plan == COLS:
         name = slices_route(dtype, dh)
+    elif plan == CUDA_CORES:
+        name = f"fp32 cuda cores {dh}"
     else:
-        name = f"{plan.replace('_', ' ')} {dh}"
+        name = f"tensor cores {dh}"
     return name + (" via copy" if copied else "")
 
 
@@ -178,7 +176,7 @@ def _launch(tensors, scale: float, copied: bool):
     out = torch.empty((b, h, nq, dh), dtype=qq.dtype, device=qq.device)
     strides = (ctypes.c_longlong * 15)(
         *[s for t in tensors for s in t.stride()[:3]])
-    plan = launch_plan(dh, qq.dtype, *tensors)
+    plan = launch_plan(dh, qq.dtype)
     bf16 = int(qq.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(qq.device).cuda_stream
     ptrs = [t.data_ptr() for t in tensors] + [out.data_ptr()]
@@ -189,8 +187,8 @@ def _launch(tensors, scale: float, copied: bool):
                     stream)
     else:
         fn = _build.launcher("tim_query_block_attention", _ARGTYPES)
-        status = fn(*ptrs, strides, b, h, nq, kc.shape[2], dh, bf16,
-                    int(plan == CUDA_CORES), scale, stream)
+        status = fn(*ptrs, strides, b, h, nq, kc.shape[2], dh, bf16, scale,
+                    stream)
     _build.check(status, "query_block_attention")
     query_block_attention.launches += 1
     query_block_attention.routes[route(dh, qq.dtype, plan, copied)] += 1
